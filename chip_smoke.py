@@ -2,15 +2,23 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``speex_resampler_tpu_torch/csrc``,
-holds each kernel against its plain PyTorch version on the card, serves
-the flagship (44.1 kHz -> 48 kHz, quality 7, 1024 stereo streams, B = 2048
-lanes) through ``BatchedResampler.process``/``flush`` and checks streams
-0-3 against a CPU engine, then times kernel and plain version at the
-flagship launch.  Every phase raises on failure (non-zero exit).  The last
-two lines of standard output are the kernels' JSON summary and
-``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result,
-without a CUDA device or outside a checkout of the repository.
+Builds the port's CUDA kernels from ``speex_resampler_tpu_torch/csrc`` (one
+nvcc per source, in parallel) and drives both serving paths of
+``BatchedResampler``, 1024 stereo streams (B = 2048 lanes) each:
+
+- the tiled path, 44.1 kHz -> 48 kHz q7 (``csrc/tiled_fir.cu``);
+- the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``).
+
+For each path it holds every kernel against its plain PyTorch version on
+the card at the path's launch shapes, serves the path through
+``process``/``flush``/``process`` with the launch counts set to 0 just
+before and read just after (every kernel of the path must have launched,
+once per engine launch), checks streams 0-3 against a CPU engine, then
+times kernel, plain version and, where one exists, the one PyTorch call
+that computes the same product.  Every phase raises on failure (non-zero
+exit).  The last two lines of standard output are the kernels' JSON
+summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
+no result, without a CUDA device or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -26,18 +34,78 @@ import torch
 from speex_resampler_tpu_torch import BatchedResampler
 from speex_resampler_tpu_torch.ops import _build, phase as ph
 from speex_resampler_tpu_torch.ops import filter_design as fd
+from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
-NUM, DEN, QUALITY = 147, 160, 7          # 44100 -> 48000, reduced
-STREAMS, CHANNELS, TARGET = 1024, 2, 9408
-# ragged process() calls: 41000 frames = 4 launches of 9408 + 3368 staged
-SERVE_FRAMES = (12000, 9000, 20000)
-AFTER_FLUSH_FRAMES = 10000
-SOURCE = "speex_resampler_tpu_torch/csrc/tiled_fir.cu"
-REPLACES = "speex_resampler_tpu/ops/pallas_fir.py:341"
-KERNEL_NAMES = {"int8": "tiled_fir_int8_kernel",
-                "highest": "tiled_fir_f32_kernel"}
+STREAMS, CHANNELS = 1024, 2
+LANES = STREAMS * CHANNELS
+
+
+class Path:
+    """One serving path: its config, its kernel module and its schedule
+    (ragged process() calls, flush, one more process() call)."""
+
+    def __init__(self, name, rates, reduced, quality, target, frames, after,
+                 module, source, replaces, kernel):
+        self.name, self.rates, self.quality = name, rates, quality
+        self.num, self.den = reduced
+        self.target, self.frames, self.after = target, frames, after
+        self.module, self.source, self.replaces = module, source, replaces
+        self.kernel = kernel          # BatchSpec.kernel of the path
+        self.spec = fd.design_filter(self.num, self.den, quality)
+        # the phase the flush of the staged remainder leaves
+        m = ph.producible_outputs(sum(frames) % self.quantum(), 0, 0,
+                                  self.num, self.den)
+        self.f0_flush = (m * self.num) % self.den
+        if self.f0_flush == 0:
+            raise AssertionError(f"{name}: the schedule leaves f0 at 0")
+
+    def quantum(self) -> int:
+        return tb._launch_geometry(self.spec, self.target).in_per_launch
+
+    def launch(self, hist, x, step):
+        fn = (tf.resample_tiled if self.kernel == "tiled"
+              else sf.resample_streamed)
+        return fn(hist, x, step.w, **step.kernel_kw)
+
+    def plain(self, hist, x, step):
+        fn = (tf.resample_tiled_reference if self.kernel == "tiled"
+              else sf.resample_streamed_reference)
+        return fn(hist, x, step.w, **step.kernel_kw)
+
+    def origins(self, step, bspec) -> np.ndarray:
+        """Each block's patch origin on the virtual axis hist ++ x."""
+        kw = step.kernel_kw
+        k = np.arange(bspec.n_blocks)
+        if self.kernel == "tiled":
+            off = kw["offsets"].cpu().numpy()
+            return (k // bspec.P) * kw["S"] + off[k % bspec.P]
+        return sf.origins(bspec.n_blocks, bspec.R, shift=kw["shift"],
+                          num=kw["num"], den=kw["den"],
+                          f0=kw["f0"]).numpy()
+
+
+# 9408-frame quanta: 41000 frames = 4 launches + 3368 staged (f0 -> 147)
+FLAGSHIP = Path("tiled 44.1k->48k q7", (44100, 48000), (147, 160), 7, 9408,
+                (12000, 9000, 20000), (10000,), tf,
+                "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                "speex_resampler_tpu/ops/pallas_fir.py:341", "tiled")
+# 20480-frame quanta: 45000 frames = 2 launches + 4040 staged (f0 -> 40)
+SLICE = Path("streamed 48k->44.1k q10", (48000, 44100), (160, 147), 10,
+             20480, (25000, 7000, 13000), (22000,), sf,
+             "speex_resampler_tpu_torch/csrc/streamed_fir.cu",
+             "speex_resampler_tpu/ops/pallas_fir.py:594", "streamed")
+PATHS = (FLAGSHIP, SLICE)
+KERNEL_NAMES = {(p.kernel, s): f"{p.kernel}_fir_{t}_kernel"
+                for p in PATHS
+                for s, t in (("int8", "int8"), ("highest", "f32"))}
+
+# H100 SXM published peaks (on-chip-measurement guide): HBM, FP32 outside
+# the tensor cores, int8 tensor-core operations
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS = 67e12
+INT8_OPS = 1979e12
 
 
 def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
@@ -87,18 +155,202 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def serve(scheme: str, frames: list, f0_after: int):
-    """Drive the flagship engine; returns (engine, outputs per call)."""
-    eng = BatchedResampler(STREAMS, CHANNELS, 44100, 48000, QUALITY,
-                           target_chunk_frames=TARGET, device="cuda",
+def launch_bound(path: Path, step, bspec, B: int):
+    """(bound_ms, bound_by, bytes, operations, band multiply-adds) of one
+    launch.  The bound is the larger of the bytes it must move (hist, the
+    x rows its windows reach, the weights over each tile's nonzero tap
+    band once per phase, y) over HBM and its operations over the peak of
+    their type (f32 FMA = 2 FLOP on the CUDA cores for "highest"; for
+    "int8", 2*D int8 products per multiply-add, an int16 sample being two
+    int8 digits, on the int8 tensor cores), both over the tap band the
+    kernel walks."""
+    taps = step.w[-1].cpu().numpy()
+    band = (taps[..., 1] - taps[..., 0]).astype(np.int64)     # [P, tiles]
+    k = np.arange(bspec.n_blocks)
+    macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B
+    K = step.w[0].shape[-2]
+    x_rows = min(step.chunk_rows,
+                 int(path.origins(step, bspec).max()) + K - step.hist_rows)
+    D = step.w[0].shape[0] if step.scheme == "int8" else 1
+    w_item = 1 if step.scheme == "int8" else 4
+    w_bytes = int(band.sum()) * tf.ROW_TILE * w_item * D
+    if step.scheme == "int8":
+        w_bytes += step.w[1].numel() * 4                       # bias
+    nbytes = ((step.hist_rows + x_rows) * B * 2 + w_bytes
+              + bspec.out_per_launch * B * 2)
+    ops = 2 * macs if step.scheme == "highest" else 2 * (2 * D) * macs
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / (FP32_FLOPS if step.scheme == "highest" else INT8_OPS) * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, nbytes, ops, macs
+
+
+def library_product_ms(path: Path, step, bspec, hist, x, reps: int):
+    """One torch.bmm (TF32 off) of the block weights against the patches,
+    both gathered outside the timed region: the product only, no WORD2INT.
+    Timed as the yardstick of the "highest" kernel; the port never calls
+    it."""
+    w = step.w[0]
+    K = w.shape[1]
+    phase = torch.arange(bspec.n_blocks, device="cuda") % bspec.P
+    v0 = torch.from_numpy(path.origins(step, bspec)).cuda()
+    virt = torch.cat([hist, x])
+    idx = (v0[:, None] + torch.arange(K, device="cuda")[None, :]).clamp(
+        max=virt.shape[0] - 1)
+    patch = virt[idx].float()
+    wt = w[phase].transpose(1, 2).contiguous()
+    out = torch.empty((bspec.n_blocks, bspec.R, x.shape[1]),
+                      dtype=torch.float32, device="cuda")
+    return cuda_ms(lambda: torch.bmm(wt, patch, out=out), reps)
+
+
+def check_kernels(path: Path, schemes, max_err: dict) -> None:
+    """Kernel against plain, both on the card, at the path's launch, at
+    f0 0 and after the flush, B = 2048 and 130."""
+    for scheme in schemes:
+        for f0 in (0, path.f0_flush):
+            bspec = tb._launch_geometry(path.spec, path.target, f0=f0)
+            step = tb.make_batched_step(path.spec, bspec, device="cuda",
+                                        scheme=scheme)
+            if step.kernel != path.kernel:
+                raise AssertionError(f"{path.name}: {step.kernel} step")
+            D = step.w[0].shape[0] if step.scheme == "int8" else 0
+            for B in (LANES, 130):
+                hist, x = launch_inputs(step, bspec.in_per_launch, B,
+                                        seed=B + f0)
+                got = path.launch(hist, x, step)
+                want = path.plain(hist, x, step)
+                torch.cuda.synchronize()
+                what = f"{path.name} {scheme} f0={f0} B={B}"
+                err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
+                                    step.scheme, what)
+                key = (path.kernel, step.scheme)
+                max_err[key] = max(max_err.get(key, 0), err)
+                print(f"kernel vs plain: {path.name} {scheme:7s} -> "
+                      f"{step.scheme} D={D} f0={f0:3d} B={B:4d} "
+                      f"n_blocks={bspec.n_blocks} max|err|={err} "
+                      f"mismatches={mism}")
+
+
+def serve_engine(path: Path, scheme: str, frames: list):
+    """Drive one engine of the path; returns (engine, outputs per call)."""
+    eng = BatchedResampler(STREAMS, CHANNELS, *path.rates, path.quality,
+                           target_chunk_frames=path.target, device="cuda",
                            scheme=scheme)
-    outs = [eng.process(f) for f in frames[:3]]
+    n = len(path.frames)
+    outs = [eng.process(f) for f in frames[:n]]
     outs.append(eng.flush())
-    if eng._f0 != f0_after:
-        raise AssertionError(f"flush left f0 {eng._f0}, expected {f0_after}")
-    outs.append(eng.process(frames[3]))
+    if eng._f0 != path.f0_flush:
+        raise AssertionError(f"flush left f0 {eng._f0}, expected "
+                             f"{path.f0_flush}")
+    outs += [eng.process(f) for f in frames[n:]]
     torch.cuda.synchronize()
     return eng, outs
+
+
+def serve(path: Path, want_digits: int):
+    """The path end to end under "auto" and "highest", launch counts set
+    to 0 just before and read just after; streams 0-3 against a CPU
+    engine.  Returns (counts, engines by resolved scheme, frames)."""
+    rng = np.random.default_rng(2024)
+    frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
+                           dtype=np.int16)
+              for n in path.frames + path.after]
+    for module in (tf, sf):
+        module.launches.update(int8=0, highest=0)
+    t0 = time.time()
+    eng8, outs8 = serve_engine(path, "auto", frames)
+    t_serve = time.time() - t0
+    engh, outsh = serve_engine(path, "highest", frames)
+    counts = dict(path.module.launches)
+    other = sf if path.module is tf else tf
+    if any(other.launches.values()):
+        raise AssertionError(f"{path.name} launched {other.launches} of "
+                             f"the other geometry's kernels")
+    if eng8._step.scheme != "int8" or eng8._step.w[0].shape[0] != want_digits:
+        raise AssertionError(f"auto resolved {eng8._step.scheme}, "
+                             f"D={eng8._step.w[0].shape[0]}")
+    if eng8._step.kernel != path.kernel or engh._step.kernel != path.kernel:
+        raise AssertionError(f"{path.name}: engines built "
+                             f"{eng8._step.kernel}/{engh._step.kernel}")
+    n = len(path.frames)
+    if eng8.launches < n or counts["int8"] != eng8.launches \
+            or counts["highest"] != engh.launches:
+        raise AssertionError(f"kernel launches {counts} vs engine "
+                             f"{eng8.launches}/{engh.launches}")
+    for request, scheme, outs in (("auto", "int8", outs8),
+                                  ("highest", "highest", outsh)):
+        ref = BatchedResampler(4, CHANNELS, *path.rates, path.quality,
+                               target_chunk_frames=path.target, device="cpu",
+                               scheme=request)
+        want = [ref.process(f[:4]) for f in frames[:n]]
+        want.append(ref.flush())
+        want += [ref.process(f[:4]) for f in frames[n:]]
+        for i, (g, w) in enumerate(zip(outs, want)):
+            if g.shape[0] != STREAMS or g.shape[2] != CHANNELS:
+                raise AssertionError(f"call {i}: output shape {g.shape}")
+            err, mism = compare(g[:4], w, scheme,
+                                f"{path.name} {scheme} call {i}")
+            print(f"serve {path.name} {scheme:7s} call {i}: out "
+                  f"{tuple(g.shape)} streams 0-3 vs cpu max|err|={err} "
+                  f"mismatches={mism}")
+    print(f"serve {path.name}: scheme auto -> int8 D={want_digits}, "
+          f"{eng8.launches} launches ({counts}), f0 after flush "
+          f"{path.f0_flush}, {t_serve:.2f} s for "
+          f"{sum(path.frames + path.after)} frames x {LANES} lanes (engine "
+          f"construction, host staging and pageable copies included)")
+    return counts, {"int8": eng8, "highest": engh}, frames
+
+
+def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
+              engines: dict, frames: list, reps: int) -> list:
+    """Kernel, plain and library times at the path's steady-state launch
+    (B = 2048), and one steady-state process() call of one quantum."""
+    bspec = tb._launch_geometry(path.spec, path.target)
+    out_samples = bspec.out_per_launch * LANES
+    entries = []
+    for scheme in schemes:
+        step = tb.make_batched_step(path.spec, bspec, device="cuda",
+                                    scheme=scheme)
+        hist, x = launch_inputs(step, bspec.in_per_launch, LANES, seed=7)
+        ms = cuda_ms(lambda: path.launch(hist, x, step), reps)
+        plain_ms = cuda_ms(lambda: path.plain(hist, x, step), reps)
+        library_ms = (library_product_ms(path, step, bspec, hist, x, reps)
+                      if step.scheme == "highest" else None)
+        bound_ms, bound_by, nbytes, ops, macs = launch_bound(path, step,
+                                                             bspec, LANES)
+        D = step.w[0].shape[0] if step.scheme == "int8" else 0
+        print(f"timing {path.name} {scheme:7s} ({step.scheme} D={D}) on "
+              f"{smi}: kernel {ms:.4f} ms/launch "
+              f"({out_samples / ms / 1e6:.2f} G out samples/s), plain "
+              f"{plain_ms:.4f} ms, library "
+              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+              f", bound {bound_ms:.4f} ms by {bound_by} "
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops of "
+              f"{macs / 1e9:.2f} G band "
+              f"multiply-adds) -> {bound_ms / ms:.3f} of the bound")
+        if scheme == "int8" and path.kernel == "streamed":
+            continue      # explicit int8 (D = 3) is printed, auto is listed
+        entries.append({
+            "name": KERNEL_NAMES[(path.kernel, step.scheme)],
+            "route": "cuda", "source": path.source,
+            "replaces": path.replaces, "launches": counts[step.scheme],
+            "max_abs_err": max_err[(path.kernel, step.scheme)], "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms})
+    quantum = frames[0][:, :bspec.in_per_launch]
+    for scheme, eng in engines.items():
+        eng.process(quantum)
+        walls = []
+        for _ in range(10):
+            t0 = time.perf_counter()
+            eng.process(quantum)
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls)) * 1e3
+        print(f"process() {path.name} {scheme:7s} on {smi}: {wall:.2f} ms "
+              f"per call of one launch ({out_samples / wall / 1e6:.3f} G "
+              f"out samples/s end to end, median of 10)")
+    return entries
 
 
 def main() -> None:
@@ -116,111 +368,35 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    # -- phase 2: build the kernels from the checkout
+    # -- phase 2: build the kernels from the checkout, one nvcc per source
     t0 = time.time()
-    _build.load()
+    _build.build_all()
+    for name in _build.LIBRARIES:
+        _build.load(name)
     print(f"build: {time.time() - t0:.1f} s ({_build.build_dir()})")
     for log in sorted(_build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas: {line.strip()}")
+                print(f"  ptxas {log.name.split('.')[0]}: {line.strip()}")
 
-    # -- phase 3: kernel against plain, both on the card
-    spec = fd.design_filter(NUM, DEN, QUALITY)
-    staged = sum(SERVE_FRAMES) % TARGET
-    m = ph.producible_outputs(staged, 0, 0, NUM, DEN)
-    f0_flush = (m * NUM) % DEN
-    max_err = {"int8": 0, "highest": 0}
-    for scheme in ("int8", "highest"):
-        for f0 in (0, f0_flush):
-            bspec = tb._launch_geometry(spec, TARGET, f0=f0)
-            step = tb.make_batched_step(spec, bspec, device="cuda",
-                                        scheme=scheme)
-            for B in (STREAMS * CHANNELS, 130):
-                hist, x = launch_inputs(step, bspec.in_per_launch, B,
-                                        seed=B + f0)
-                got = tf.resample_tiled(hist, x, step.w, **step.kernel_kw)
-                want = tf.resample_tiled_reference(hist, x, step.w,
-                                                   **step.kernel_kw)
-                torch.cuda.synchronize()
-                err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
-                                    scheme, f"{scheme} f0={f0} B={B}")
-                max_err[scheme] = max(max_err[scheme], err)
-                print(f"kernel vs plain: {scheme:7s} f0={f0:3d} B={B:4d} "
-                      f"n_blocks={bspec.n_blocks} max|err|={err} "
-                      f"mismatches={mism}")
+    # -- phase 3: every kernel against its plain version, on the card
+    max_err: dict = {}
+    check_kernels(FLAGSHIP, ("int8", "highest"), max_err)
+    check_kernels(SLICE, ("auto", "int8", "highest"), max_err)
+    print(f"kernels checked: {time.time() - t_start:.1f} s")
 
-    # -- phase 4: the slice end to end
-    rng = np.random.default_rng(2024)
-    frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
-                           dtype=np.int16)
-              for n in SERVE_FRAMES + (AFTER_FLUSH_FRAMES,)]
-    tf.launches.update(int8=0, highest=0)
-    t0 = time.time()
-    eng8, outs8 = serve("auto", frames, f0_flush)
-    t_serve = time.time() - t0
-    engh, outsh = serve("highest", frames, f0_flush)
-    counts = dict(tf.launches)
-    if eng8._step.scheme != "int8" or eng8._step.w[0].shape[0] != 3:
-        raise AssertionError(f"auto resolved {eng8._step.scheme}, "
-                             f"D={eng8._step.w[0].shape[0]}")
-    if eng8.launches < 5 or counts["int8"] != eng8.launches \
-            or counts["highest"] != engh.launches:
-        raise AssertionError(f"kernel launches {counts} vs engine "
-                             f"{eng8.launches}/{engh.launches}")
-    for scheme, outs in (("int8", outs8), ("highest", outsh)):
-        ref = BatchedResampler(4, CHANNELS, 44100, 48000, QUALITY,
-                               target_chunk_frames=TARGET, device="cpu",
-                               scheme=scheme)
-        want = [ref.process(f[:4]) for f in frames[:3]]
-        want.append(ref.flush())
-        want.append(ref.process(frames[3][:4]))
-        for i, (g, w) in enumerate(zip(outs, want)):
-            if g.shape[0] != STREAMS or g.shape[2] != CHANNELS:
-                raise AssertionError(f"call {i}: output shape {g.shape}")
-            err, mism = compare(g[:4], w, scheme, f"{scheme} call {i}")
-            print(f"serve {scheme:7s} call {i}: out {tuple(g.shape)} "
-                  f"streams 0-3 vs cpu max|err|={err} mismatches={mism}")
-    print(f"serve: scheme auto -> int8 D=3, {eng8.launches} launches, "
-          f"{t_serve:.2f} s for {sum(SERVE_FRAMES) + AFTER_FLUSH_FRAMES} "
-          f"frames x {STREAMS * CHANNELS} lanes (engine construction, "
-          f"host staging and pageable copies included)")
+    # -- phase 4: each path end to end, its launches counted from 0
+    served = {FLAGSHIP: serve(FLAGSHIP, want_digits=3),
+              SLICE: serve(SLICE, want_digits=4)}
+    print(f"served: {time.time() - t_start:.1f} s")
 
-    # -- phase 5: timing at the flagship launch
-    bspec = tb._launch_geometry(spec, TARGET)
-    out_samples = bspec.out_per_launch * STREAMS * CHANNELS
+    # -- phase 5: timing at each path's launch
     kernels = []
-    for scheme in ("int8", "highest"):
-        step = tb.make_batched_step(spec, bspec, device="cuda",
-                                    scheme=scheme)
-        hist, x = launch_inputs(step, bspec.in_per_launch,
-                                STREAMS * CHANNELS, seed=7)
-        ms = cuda_ms(lambda: tf.resample_tiled(hist, x, step.w,
-                                               **step.kernel_kw), 30)
-        plain_ms = cuda_ms(lambda: tf.resample_tiled_reference(
-            hist, x, step.w, **step.kernel_kw), 20)
-        print(f"timing {scheme:7s} on {smi}: kernel {ms:.4f} ms/launch "
-              f"({out_samples / ms / 1e6:.2f} G out samples/s), plain "
-              f"{plain_ms:.4f} ms/launch "
-              f"({out_samples / plain_ms / 1e6:.2f} G out samples/s)")
-        kernels.append({"name": KERNEL_NAMES[scheme], "route": "cuda",
-                        "source": SOURCE, "replaces": REPLACES,
-                        "launches": counts[scheme],
-                        "max_abs_err": max_err[scheme], "ms": ms,
-                        "plain_ms": plain_ms})
-    # one steady-state process() call per launch quantum, host included
-    quantum = frames[0][:, :TARGET]
-    for eng in (eng8, engh):
-        eng.process(quantum)
-        walls = []
-        for _ in range(10):
-            t0 = time.perf_counter()
-            eng.process(quantum)
-            walls.append(time.perf_counter() - t0)
-        wall = float(np.median(walls)) * 1e3
-        print(f"process() {eng._step.scheme:7s} on {smi}: {wall:.2f} ms "
-              f"per call of one launch ({out_samples / wall / 1e6:.3f} G "
-              f"out samples/s end to end, median of 10)")
+    for path, schemes, reps in ((FLAGSHIP, ("int8", "highest"), 20),
+                                (SLICE, ("auto", "int8", "highest"), 20)):
+        counts, engines, frames = served[path]
+        kernels += time_path(path, schemes, smi, counts, max_err, engines,
+                             frames, reps)
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

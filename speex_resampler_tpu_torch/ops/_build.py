@@ -1,10 +1,12 @@
-"""Build and load the port's CUDA kernels: nvcc into a shared library with a
-plain C interface, loaded with ``ctypes``.
+"""Build and load the port's CUDA kernels: nvcc into one shared library per
+source with a plain C interface, loaded with ``ctypes``.
 
-The library is compiled at first use, for ``sm_90a``, from the sources in
-``csrc/`` into ``build/torch_kernels/`` at the root of the checkout.  Its
-file name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and a stale library is never loaded.  Nothing here runs at import.
+Each library is compiled at first use, for ``sm_90a``, from its source in
+``csrc/`` (plus the shared headers) into ``build/torch_kernels/`` at the
+root of the checkout.  Its file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a stale library is never loaded.
+The first :func:`load` starts one nvcc per missing library, all at once,
+and waits for them all.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -17,14 +19,33 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_dir"]
+__all__ = ["load", "build_all", "build_dir", "LIBRARIES"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCES = (_PKG / "csrc" / "tiled_fir.cu",)
+_CSRC = _PKG / "csrc"
+_HEADERS = (_CSRC / "fir_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-_lib = None
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: library name -> {C function: (restype, argtypes)}
+LIBRARIES = {
+    "tiled_fir": {
+        "tiled_fir_row_tile": (_I, []),
+        "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
+        "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+        "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
+    },
+    "streamed_fir": {
+        "streamed_fir_row_tile": (_I, []),
+        "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
+        "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+        "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11
+                              + [_P]),
+    },
+}
+
+_libs: dict = {}
 _lock = threading.Lock()
 
 
@@ -43,49 +64,62 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path() -> Path:
+def _source(name: str) -> Path:
+    return _CSRC / f"{name}.cu"
+
+
+def _lib_path(name: str) -> Path:
     h = hashlib.sha1(" ".join(_FLAGS).encode())
-    for src in _SOURCES:
+    for src in (*_HEADERS, _source(name)):
         h.update(src.read_bytes())
-    return build_dir() / f"libtiled_fir.{h.hexdigest()[:12]}.so"
+    return build_dir() / f"lib{name}.{h.hexdigest()[:12]}.so"
 
 
-def _compile(out: Path) -> None:
-    """nvcc to a per-process temporary name, then an atomic rename, so a
-    concurrent loader never opens a half-written library.  The compiler's
-    report (registers, shared memory, spills from ``-Xptxas -v``) is kept
-    beside the library as ``.log``."""
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *_FLAGS, "-o", str(tmp), *map(str, _SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-    os.replace(tmp, out)
+def build_all() -> None:
+    """Compile every library whose build is missing: one nvcc per source,
+    all started together, each to a per-process temporary name and then
+    renamed atomically, so a concurrent loader never opens a half-written
+    library.  The compiler's report (registers, shared memory, spills from
+    ``-Xptxas -v``) is kept beside each library as ``.log``.  Raises if a
+    build fails, after every started nvcc has ended."""
+    jobs = []
+    for name in LIBRARIES:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
+               str(_source(name))]
+        jobs.append((out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    failed = []
+    for out, tmp, proc in jobs:
+        report, _ = proc.communicate()
+        out.with_suffix(".log").write_text(report)
+        if proc.returncode != 0:
+            failed.append(f"{out.name}: nvcc exit {proc.returncode}\n{report}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
 
 
-def load() -> ctypes.CDLL:
-    """The kernels' library, compiled first if no build of these sources
-    exists.  Raises if nvcc is missing or the build fails."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """Library ``name`` (a key of :data:`LIBRARIES`), compiled first, with
+    every other missing library, if no build of its sources exists.
+    Raises if nvcc is missing or a build fails."""
     with _lock:
-        if _lib is not None:
-            return _lib
-        path = _lib_path()
+        lib = _libs.get(name)
+        if lib is not None:
+            return lib
+        path = _lib_path(name)
         if not path.exists():
-            _compile(path)
+            build_all()
         lib = ctypes.CDLL(str(path))
-        c = ctypes
-        ptr, i32, f32 = c.c_void_p, c.c_int, c.c_float
-        lib.tiled_fir_row_tile.restype = i32
-        lib.tiled_fir_row_tile.argtypes = []
-        lib.tiled_fir_error_string.restype = c.c_char_p
-        lib.tiled_fir_error_string.argtypes = [i32]
-        lib.tiled_fir_f32.restype = i32
-        lib.tiled_fir_f32.argtypes = [ptr] * 6 + [i32] * 8 + [ptr]
-        lib.tiled_fir_int8.restype = i32
-        lib.tiled_fir_int8.argtypes = ([ptr] * 7 + [i32] + [f32] * 4
-                                       + [i32] * 8 + [ptr])
-        _lib = lib
+        for fn, (restype, argtypes) in LIBRARIES[name].items():
+            getattr(lib, fn).restype = restype
+            getattr(lib, fn).argtypes = argtypes
+        _libs[name] = lib
         return lib

@@ -38,8 +38,8 @@ from . import _build, int8_planes
 from .convert import word2int
 
 __all__ = ["int8_weights", "int8_weights_auto", "tap_ranges",
-           "device_weights", "resample_tiled", "resample_tiled_reference",
-           "ROW_TILE"]
+           "device_weights", "check_launch", "apply_weights",
+           "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
 #: Output rows of one block handled by one CTA (``kRowTile`` in the CUDA
 #: source); R must be a multiple of it.
@@ -107,11 +107,16 @@ def device_weights(w, scheme: str, device) -> tuple:
         f"scheme {scheme!r} has no port yet (ROADMAP.md K1c/K1d/K1e)")
 
 
-def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
+def check_launch(hist, x, w, scheme, scales, extra=(),
+                 item="K1c/K1d/K1e"):
+    """Validate one launch's buffers and device weights (``extra``: more
+    tensors that must share x's device and be contiguous); returns
+    (P, K, R).  A scheme without a port raises NotImplementedError naming
+    ROADMAP.md ``item``."""
     if scheme not in ("highest", "int8"):
         raise NotImplementedError(
-            f"scheme {scheme!r} has no port yet (ROADMAP.md K1c/K1d/K1e)")
-    for t in (hist, x, offsets, *w):
+            f"scheme {scheme!r} has no port yet (ROADMAP.md {item})")
+    for t in (hist, *extra, *w):
         if t.device != x.device:
             raise ValueError(f"tensor on {t.device}, expected {x.device}")
         if not t.is_contiguous():
@@ -120,8 +125,6 @@ def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
         raise TypeError("hist and x must be int16")
     if hist.ndim != 2 or x.ndim != 2 or hist.shape[1] != x.shape[1]:
         raise ValueError(f"hist {tuple(hist.shape)} / x {tuple(x.shape)}")
-    if offsets.dtype != torch.int32:
-        raise TypeError("offsets must be int32")
     if scheme == "highest":
         wt, taps = w
         if wt.dtype != torch.float32 or wt.ndim != 3:
@@ -136,11 +139,18 @@ def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
             raise TypeError("int8 bias must be f32[P, R]")
         if len(scales) != D or not 1 <= D <= 4:
             raise ValueError(f"{len(scales)} scales for {D} digit planes")
+    if R % ROW_TILE or tuple(taps.shape) != (P, R // ROW_TILE, 2):
+        raise ValueError(f"taps {tuple(taps.shape)} for R = {R}")
+    return P, K, R
+
+
+def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
+    P, K, R = check_launch(hist, x, w, scheme, scales, extra=(offsets,))
+    if offsets.dtype != torch.int32:
+        raise TypeError("offsets must be int32")
     if tuple(offsets.shape) != (P,) or n_blocks % P or S <= 0:
         raise ValueError(f"n_blocks {n_blocks}, offsets "
                          f"{tuple(offsets.shape)} for P = {P}")
-    if R % ROW_TILE or tuple(taps.shape) != (P, R // ROW_TILE, 2):
-        raise ValueError(f"taps {tuple(taps.shape)} for R = {R}")
     return P, K, R
 
 
@@ -165,7 +175,7 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                                         scales=scales)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    lib = _build.load()
+    lib = _build.load("tiled_fir")
     if lib.tiled_fir_row_tile() != ROW_TILE:
         raise RuntimeError("csrc/tiled_fir.cu row tile disagrees with "
                            "ROW_TILE")
@@ -215,11 +225,22 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     it would not), converted to int32, then the kernel's f32 epilogue in
     the same order."""
     P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales)
-    B = hist.shape[1]
+    k = torch.arange(n_blocks, device=x.device)
+    v0 = (k // P) * S + offsets.long()[k % P]
+    return apply_weights(hist, x, w, v0, scheme, scales)
+
+
+def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
+                  v0: torch.Tensor, scheme: str,
+                  scales: tuple) -> torch.Tensor:
+    """Plain product of one launch: block k reads K rows of the virtual
+    axis ``hist ++ x ++ zeros`` from origin ``v0[k]`` and applies the
+    weights of phase ``k % P``; int16[n_blocks * R, B] (see
+    :func:`resample_tiled_reference` for the two schemes' arithmetic)."""
+    P, K, R = w[0].shape[-3:]     # f32[P, K, R] or int8[D, P, K, R]
+    n_blocks, B = v0.shape[0], hist.shape[1]
     dev = x.device
-    k = torch.arange(n_blocks, device=dev)
-    phase = k % P
-    v0 = (k // P) * S + offsets.long()[phase]
+    phase = torch.arange(n_blocks, device=dev) % P
     idx = v0[:, None] + torch.arange(K, device=dev)[None, :]   # [nb, K]
     virt = torch.cat([hist, x, x.new_zeros((K, B))])
     idx = idx.clamp(max=virt.shape[0] - 1)                   # zero rows

@@ -11,9 +11,11 @@ changes the phase (time-major buffers, lanes minor):
 
 The launch geometry, weights and buffer contract are those of the JAX
 package's ``speex_resampler_tpu/parallel/batch.py``, so the two engines can
-be compared launch by launch.  Only the phase-tiled geometry in the float
-universe is ported; every other path raises ``NotImplementedError`` naming
-its ROADMAP.md item.  The kernel is ``ops/tiled_fir.resample_tiled``.
+be compared launch by launch.  The phase-tiled and streamed geometries of
+the float universe are ported; every other path raises
+``NotImplementedError`` naming its ROADMAP.md item.  The kernels are
+``ops/tiled_fir.resample_tiled`` (small weight cycles, e.g. 44.1k -> 48k)
+and ``ops/streamed_fir.resample_streamed`` (large ones, e.g. 48k -> 44.1k).
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ import torch
 
 from ..ops import filter_design as fd
 from ..ops import phase as ph
+from ..ops import streamed_fir as sf
 from ..ops import tiled_fir as tf
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 from ..utils.host import to_host
@@ -39,7 +42,7 @@ __all__ = ["BatchedResampler", "make_batched_step", "BatchSpec",
 # Launch-geometry thresholds of the JAX package, kept identical so both
 # engines pick the same launch quantum (they were sized for TPU VMEM; a
 # Hopper retune is separate work).  Phase-tiled weights up to the first
-# size take the tiled geometry; above it the streamed one (not ported).
+# size take the tiled geometry; up to the second the streamed one.
 _MAX_TILED_WEIGHT_BYTES = 4 * 1024 * 1024
 _MAX_STREAMED_WEIGHT_BYTES = 256 * 1024 * 1024
 
@@ -59,10 +62,11 @@ def _unported(what: str, item: str) -> NotImplementedError:
 class BatchSpec:
     """Static launch geometry for one (ratio, quality) config.
 
-    Only kernel == "tiled" is ported: blocks of R outputs with cyclic
-    phase weights; n_blocks is a multiple of P and n_blocks/P "periods"
-    consume S inputs each.  The fields are the JAX package's (``group`` is
-    its dense super-block factor, 1 here), so the two compare as equal.
+    kernel == "tiled" or "streamed" (the dense and gather geometries are
+    not ported): blocks of R outputs with cyclic phase weights; n_blocks
+    is a multiple of P and n_blocks/P "periods" consume S inputs each.
+    The fields are the JAX package's (``group`` is its dense super-block
+    factor, 1 here), so the two compare as equal.
     """
     num: int
     den: int
@@ -222,9 +226,11 @@ class BatchedStep:
         -> (hist' i16[hist_rows, B], y i16[out_per_launch, B])
     x rows [0, in_per_launch) are the chunk; rows
     [in_per_launch, in_per_launch + zero_tail) must be zero; any further
-    rows are don't-care padding.  ``w`` is the kernel's device weights
-    (ops/tiled_fir.device_weights); ``kernel_kw`` the remaining arguments
-    of its launch (``tf.resample_tiled(hist, x, w, **kernel_kw)``).
+    rows are don't-care padding.  ``w`` is the kernel's device weights;
+    ``kernel`` names the geometry and so the kernel the step launches,
+    ``kernel_kw`` the remaining arguments of its launch:
+    ``tf.resample_tiled(hist, x, w, **kernel_kw)`` for "tiled",
+    ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "streamed".
     """
     fn: object
     w: tuple
@@ -233,6 +239,7 @@ class BatchedStep:
     zero_tail: int
     scheme: str = "highest"   # resolved precision scheme
     kernel_kw: dict = dataclasses.field(default_factory=dict)
+    kernel: str = "tiled"
 
 
 def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
@@ -240,8 +247,9 @@ def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
                      max_in_frames: int | None = None) -> BatchSpec:
     """Static launch geometry.  ``max_in_frames`` is a HARD cap on the
     launch quantum (the engine's availability latency): a geometry whose
-    rounding overflows it is re-quantized within the tiled family; a cap
-    below one tiled unit needs the dense geometry (not ported).  Raises
+    rounding overflows it is re-quantized within its family (units of
+    S * periods-per-program frames for tiled, of S for streamed); a cap
+    below one unit needs the dense geometry (not ported).  Raises
     INVALID_ARG when even one period exceeds the cap."""
     if max_in_frames is None:
         return _launch_geometry_impl(spec, target_in_frames, f0)
@@ -251,13 +259,19 @@ def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
                                   f0)
     if bspec.in_per_launch <= max_in_frames:
         return bspec
-    unit = bspec.S * _v3_periods_per_program(bspec.P)
+    unit = bspec.S * _periods_per_unit(bspec.kernel, bspec.P)
     if unit <= max_in_frames:
         b2 = _launch_geometry_impl(spec, (max_in_frames // unit) * unit, f0)
         if b2.in_per_launch <= max_in_frames:
             return b2
-    raise _unported("a max_latency_ms cap below one tiled launch unit "
+    raise _unported("a max_latency_ms cap below one launch unit "
                     "(dense geometry)", "M8")
+
+
+def _periods_per_unit(kernel: str, P: int) -> int:
+    """Launch-quantum unit in weight periods: the tiled kernel's programs
+    (_v3_periods_per_program), one period for the streamed kernel."""
+    return _v3_periods_per_program(P) if kernel == "tiled" else 1
 
 
 def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
@@ -266,15 +280,15 @@ def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
         raise _unported("the fixed-point universe", "M6")
     if _tiled_weight_bytes_estimate(spec) <= 2 * _MAX_STREAMED_WEIGHT_BYTES:
         ptw = _tiled_weights(spec, f0)
-        if ptw.w.nbytes <= _MAX_TILED_WEIGHT_BYTES:
-            gp = _v3_periods_per_program(ptw.P)
+        if ptw.w.nbytes <= _MAX_STREAMED_WEIGHT_BYTES:
+            kernel = ("tiled" if ptw.w.nbytes <= _MAX_TILED_WEIGHT_BYTES
+                      else "streamed")
+            gp = _periods_per_unit(kernel, ptw.P)
             n_periods = max(gp, round(target_in_frames / (ptw.S * gp)) * gp)
             return BatchSpec(num=spec.num, den=spec.den,
                              quality=spec.quality, filt_len=spec.filt_len,
                              group=1, n_blocks=n_periods * ptw.P, f0=f0,
-                             kernel="tiled", S=ptw.S, P=ptw.P, R=ptw.R)
-        if ptw.w.nbytes <= _MAX_STREAMED_WEIGHT_BYTES:
-            raise _unported("the streamed geometry", "K2/M7")
+                             kernel=kernel, S=ptw.S, P=ptw.P, R=ptw.R)
     raise _unported("the dense and gather geometries", "K3/M8")
 
 
@@ -323,15 +337,18 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
 def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                         device: torch.device,
                         scheme: str = "auto") -> BatchedStep:
-    """Build the steady-state step on the tiled geometry.
+    """Build the steady-state step on the tiled or streamed geometry.
 
     ``scheme``: "int8" (certificate-gated digit planes), "highest" (exact
     f32), or "auto" = int8 when the worst-case certificate clears the
     gate, else highest (see _resolve_scheme)."""
     if spec.fixed_point:
         raise _unported("the fixed-point universe", "M6")
+    if bspec.kernel == "streamed":
+        return _build_streamed_step(spec, bspec, device=device,
+                                    scheme=scheme)
     if bspec.kernel != "tiled":
-        raise _unported(f"the {bspec.kernel} geometry", "K2/K3/M7/M8")
+        raise _unported(f"the {bspec.kernel} geometry", "K3/M8")
     ptw = _tiled_weights(spec, bspec.f0)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
@@ -356,11 +373,59 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                        zero_tail=ptw.K, scheme=scheme, kernel_kw=kernel_kw)
 
 
-def weights_from_jax(w, scheme: str, device="cuda") -> tuple:
-    """A JAX ``BatchedStep.w`` converted to numpy (an f32 [P, K, R] array
-    for "highest", the ``(planes, bias)`` tuple for "int8") -> this
-    package's device weights for the same step."""
-    return tf.device_weights(w, scheme, torch.device(device))
+def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
+                         device: torch.device, scheme: str) -> BatchedStep:
+    """The streamed geometry's step (the JAX package's float branch): the
+    phase-tiled weights padded to K_pad = round128(K) tap rows, the scheme
+    resolved on the padded set (so planes, scales and certificate equal
+    the JAX package's), and a chunk of round16(n_in + K_pad) rows."""
+    ptw = _tiled_weights(spec, bspec.f0)
+    assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
+    N = spec.filt_len
+    H = _hist_rows_tiled(N)
+    n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
+    K_pad = -(-ptw.K // 128) * 128
+    w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+    scheme, int8p, scales = _resolve_scheme(w_np, scheme)
+    host_w = (int8p[0], int8p[1]) if scheme == "int8" else w_np
+    w = sf.device_weights_streamed(host_w, scheme, device)
+    kernel_kw = dict(n_blocks=bspec.n_blocks, shift=H - (N - 1),
+                     num=spec.num, den=spec.den, f0=bspec.f0, scheme=scheme,
+                     scales=scales)
+
+    def step(hist, x, w):
+        y = sf.resample_streamed(hist, x, w, **kernel_kw)
+        return _next_hist(hist, x, n_in, H), y[:n_out]
+
+    return BatchedStep(fn=step, w=w, hist_rows=H,
+                       chunk_rows=-(-(n_in + K_pad) // 16) * 16,
+                       zero_tail=K_pad, scheme=scheme, kernel_kw=kernel_kw,
+                       kernel="streamed")
+
+
+def weights_from_jax(w, scheme: str, device="cuda",
+                     kernel: str = "tiled") -> tuple:
+    """A JAX ``BatchedStep.w`` converted to numpy -> this package's device
+    weights for the same step.  ``kernel`` is the step's geometry, which
+    the arrays alone cannot tell:
+
+    - "tiled": an f32 [P, K, R] array for "highest", the
+      ``(planes int8[D, P, K, R], bias)`` tuple for "int8";
+    - "streamed": f32 [P, R, K_pad] for "highest",
+      ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
+      the port's [P, K_pad, R] / [D, P, K_pad, R]."""
+    device = torch.device(device)
+    if kernel == "tiled":
+        return tf.device_weights(w, scheme, device)
+    if kernel != "streamed":
+        raise ValueError(f"unknown geometry {kernel!r}")
+    if scheme == "highest":
+        w = np.ascontiguousarray(np.asarray(w).transpose(0, 2, 1))
+    elif scheme == "int8":
+        planes, bias = w
+        w = (np.ascontiguousarray(np.asarray(planes).transpose(1, 0, 3, 2)),
+             bias)
+    return sf.device_weights_streamed(w, scheme, device)
 
 
 class _HostFifo:

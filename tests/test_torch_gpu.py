@@ -1,4 +1,4 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
 
 Every test here needs a CUDA device and skips without one.  The file
 imports neither jax nor the test conftest (which loads jax), so on a
@@ -21,6 +21,7 @@ import torch
 from speex_resampler_tpu_torch import BatchedResampler
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
+from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
@@ -30,6 +31,9 @@ pytestmark = pytest.mark.gpu
 CONFIGS = [(44100, 48000, 7), (44100, 48000, 1), (44100, 48000, 10),
            (44100, 24000, 5), (24000, 48000, 5), (24000, 24000, 5),
            (24000, 48000, 10)]
+# the streamed geometry: every 48k->44.1k quality, and 44.1k->16k q7
+STREAMED = [(48000, 44100, 5), (48000, 44100, 7), (48000, 44100, 10),
+            (44100, 16000, 7)]
 
 
 @pytest.fixture
@@ -93,3 +97,58 @@ def test_engine_cuda_matches_cpu(cuda, scheme):
         outs.append(np.concatenate(got, axis=1))
     assert engines[0].launches == engines[1].launches > 2
     _compare(outs[0], outs[1], scheme)
+
+
+@pytest.mark.parametrize("scheme", ["highest", "int8", "auto"])
+@pytest.mark.parametrize("cfg", STREAMED, ids=lambda c: "%d-%d-q%d" % c)
+def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
+    """One weight period per launch, at f0 = 0 and at the phase a flush of
+    4040 staged frames leaves, B = 2048 and B = 130 ("auto" is int8 with
+    D = 4 at q10, explicit "int8" D = 3)."""
+    i, o, q = cfg
+    g = math.gcd(i, o)
+    spec = tfd.design_filter(i // g, o // g, q)
+    m = tph.producible_outputs(4040, 0, 0, spec.num, spec.den)
+    for f0 in sorted({0, (m * spec.num) % spec.den}):
+        bspec = tb._launch_geometry(spec, 1, f0=f0)
+        step = tb.make_batched_step(spec, bspec, device="cuda",
+                                    scheme=scheme)
+        assert step.kernel == "streamed"
+        for B in (2048, 130):
+            rng = np.random.default_rng(B + f0)
+            hist = torch.from_numpy(rng.integers(
+                -32768, 32768, (step.hist_rows, B), dtype=np.int16)).cuda()
+            x = np.zeros((step.chunk_rows, B), dtype=np.int16)
+            x[:bspec.in_per_launch] = rng.integers(
+                -32768, 32768, (bspec.in_per_launch, B), dtype=np.int16)
+            x = torch.from_numpy(x).cuda()
+            before = tsf.launches[step.scheme]
+            got = tsf.resample_streamed(hist, x, step.w, **step.kernel_kw)
+            want = tsf.resample_streamed_reference(hist, x, step.w,
+                                                   **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert tsf.launches[step.scheme] == before + 1
+            _compare(got.cpu().numpy(), want.cpu().numpy(), step.scheme)
+
+
+@pytest.mark.parametrize("scheme", ["highest", "auto"])
+def test_streamed_engine_cuda_matches_cpu(cuda, scheme):
+    """48k->44.1k q10: process / flush / process on the card equals the CPU
+    engine, and every launch went through the streamed kernel."""
+    engines = [BatchedResampler(3, 2, 48000, 44100, 10, device=d,
+                                scheme=scheme) for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(4)
+    frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
+              for n in (25000, 20000, 22000)]
+    outs = []
+    for eng in engines:
+        before = dict(tsf.launches)
+        got = [eng.process(frames[0]), eng.process(frames[1]), eng.flush(),
+               eng.process(frames[2]), eng.flush()]
+        outs.append(np.concatenate(got, axis=1))
+        scheme_run = eng._step.scheme
+        n = tsf.launches[scheme_run] - before[scheme_run]
+        assert n == (eng.launches if eng.device.type == "cuda" else 0)
+    assert engines[0]._step.kernel == "streamed"
+    assert engines[0].launches == engines[1].launches > 2
+    _compare(outs[0], outs[1], engines[0]._step.scheme)

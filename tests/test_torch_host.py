@@ -4,7 +4,7 @@ The port copies the JAX package's NumPy filter design, phase arithmetic,
 launch geometry and int8 digit-plane decomposition (it must not import the
 JAX package, whose __init__ loads jax).  These tests pin the copies to the
 originals over the reference's integration matrix plus the streamed
-48k->44.1k q10 config, which the port must refuse.
+configs 48k->44.1k q10 and 44.1k->16k q7.
 """
 
 import dataclasses
@@ -28,7 +28,7 @@ from conftest import AUDIO_TESTS
 torch.set_num_threads(1)
 
 TILED = sorted({(i, o, q) for (_, i, o, _, q) in AUDIO_TESTS})
-STREAMED = [(48000, 44100, 10)]
+STREAMED = [(48000, 44100, 10), (44100, 16000, 7)]
 
 
 def _specs(cfg):
@@ -61,24 +61,26 @@ def test_filter_spec_equal(cfg):
 
 @pytest.mark.parametrize("cfg", TILED + STREAMED)
 def test_launch_geometry_equal(cfg):
-    """Tiled configs: BatchSpec, R, phase-tiled weights and offsets equal
-    (at f0 0 and at the phase a flush leaves).  The streamed config: the
-    JAX package picks the streamed kernel, the port refuses it."""
+    """BatchSpec equal (the JAX package's kernel choice included), R,
+    phase-tiled weights and offsets equal (at f0 0 and at the phase a flush
+    leaves).  Streamed configs: also the built step's hist_rows,
+    chunk_rows and zero_tail, and the port's engine builds that geometry."""
     js, ts = _specs(cfg)
+    kind = "streamed" if cfg in STREAMED else "tiled"
     for target in (4096, 9408):
         jspec = jb._launch_geometry(js, target, use_pallas=True)
-        if cfg in STREAMED:
-            assert jspec.kernel == "streamed"
-            with pytest.raises(NotImplementedError, match="K2"):
-                tb._launch_geometry(ts, target)
-            continue
-        assert jspec.kernel == "tiled"
-        assert dataclasses.asdict(jspec) == dataclasses.asdict(
-            tb._launch_geometry(ts, target))
+        tspec = tb._launch_geometry(ts, target)
+        assert jspec.kernel == kind
+        assert dataclasses.asdict(jspec) == dataclasses.asdict(tspec)
     if cfg in STREAMED:
-        with pytest.raises(NotImplementedError):
-            BatchedResampler(1, 1, *cfg, device="cpu")
-        return
+        jstep = jb.make_batched_step(js, jspec, use_pallas=True,
+                                     pallas_interpret=True, scheme="highest")
+        tstep = tb.make_batched_step(ts, tspec, device="cpu",
+                                     scheme="highest")
+        for f in ("hist_rows", "chunk_rows", "zero_tail", "scheme"):
+            assert getattr(jstep, f) == getattr(tstep, f), f
+        eng = BatchedResampler(1, 1, *cfg, device="cpu")
+        assert eng.bspec.kernel == eng._step.kernel == "streamed"
     assert jb._tiled_R(js) == tb._tiled_R(ts)
     assert jb._hist_rows_tiled(js.filt_len) == tb._hist_rows_tiled(
         ts.filt_len)
@@ -87,6 +89,35 @@ def test_launch_geometry_equal(cfg):
         assert (jw.S, jw.R, jw.P, jw.K) == (tw.S, tw.R, tw.P, tw.K)
         assert np.array_equal(jw.offsets, tw.offsets)
         assert jw.w.dtype == tw.w.dtype and np.array_equal(jw.w, tw.w)
+
+
+@pytest.mark.parametrize("cfg", STREAMED)
+def test_latency_cap_requantizes_streamed_like_jax(cfg):
+    """A max_latency_ms cap on a streamed config: a cap the rounded quantum
+    overflows is re-quantized in units of S (not the tiled unit), as the
+    JAX package does; a cap below one S is the dense geometry's (not
+    ported: the port raises, naming M8)."""
+    js, ts = _specs(cfg)
+    S = tb._launch_geometry(ts, 4096).S
+    for target, cap in ((4 * S, int(1.7 * S)), (4 * S, 3 * S - 16),
+                        (S // 2, S), (10 * S, 10 * S)):
+        jspec = jb._launch_geometry(js, target, use_pallas=True,
+                                    max_in_frames=cap)
+        tspec = tb._launch_geometry(ts, target, max_in_frames=cap)
+        assert jspec.kernel == "streamed" and jspec.in_per_launch <= cap
+        assert dataclasses.asdict(jspec) == dataclasses.asdict(tspec)
+    assert tb._launch_geometry(ts, 4 * S,
+                               max_in_frames=int(1.7 * S)).n_blocks == \
+        tspec.P
+    assert jb._launch_geometry(js, S, use_pallas=True,
+                               max_in_frames=S - 1).kernel != "streamed"
+    with pytest.raises(NotImplementedError, match="M8"):
+        tb._launch_geometry(ts, S, max_in_frames=S - 1)
+    i, o, q = cfg
+    eng = BatchedResampler(1, 1, i, o, q, device="cpu",
+                           target_chunk_frames=4 * S,
+                           max_latency_ms=1.7 * S / i * 1000)
+    assert eng.in_frames_per_launch == S
 
 
 @pytest.mark.parametrize("cfg", TILED)
@@ -118,14 +149,19 @@ def test_step_contract_and_int8_planes_equal(cfg):
     assert scales == want[2]
 
 
-@pytest.mark.parametrize("cfg", TILED)
+@pytest.mark.parametrize("cfg", TILED + STREAMED)
 def test_tap_ranges_cover_every_nonzero_weight(cfg):
-    """The kernel walks only taps[m, tile] of each row tile; every nonzero
-    weight must lie inside, and the range must be tight."""
+    """The kernel walks only taps[m, tile] of each row tile of its step's
+    weights; every nonzero weight must lie inside, and the range must be
+    tight.  Streamed weights are padded to K_pad rows, which lie outside."""
     _, ts = _specs(cfg)
-    w = tb._tiled_weights(ts, 0).w
-    taps = ttf.tap_ranges(w != 0)
+    step = tb.make_batched_step(ts, tb._launch_geometry(ts, 9408),
+                                device="cpu", scheme="highest")
+    w, taps = (t.numpy() for t in step.w)
+    assert np.array_equal(taps, ttf.tap_ranges(w != 0))
     P, K, R = w.shape
+    if cfg in STREAMED:
+        assert K % 128 == 0 and taps.max() <= tb._tiled_weights(ts, 0).K
     for m in range(P):
         for i in range(R // ttf.ROW_TILE):
             lo, hi = taps[m, i]
