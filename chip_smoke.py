@@ -101,7 +101,7 @@ KERNEL_NAMES = {(p.kernel, s): f"{p.kernel}_fir_{t}_kernel"
                 for p in PATHS
                 for s, t in (("int8", "int8"), ("highest", "f32"))}
 
-# H100 SXM published peaks (on-chip-measurement guide): HBM, FP32 outside
+# H100 SXM published peaks (NVIDIA H100 datasheet): HBM, FP32 outside
 # the tensor cores, int8 tensor-core operations
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
