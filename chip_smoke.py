@@ -157,32 +157,39 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
 
 def launch_bound(path: Path, step, bspec, B: int):
     """(bound_ms, bound_by, bytes, operations, band multiply-adds) of one
-    launch.  The bound is the larger of the bytes it must move (hist, the
-    x rows its windows reach, the weights over each tile's nonzero tap
-    band once per phase, y) over HBM and its operations over the peak of
-    their type (f32 FMA = 2 FLOP on the CUDA cores for "highest"; for
-    "int8", 2*D int8 products per multiply-add, an int16 sample being two
-    int8 digits, on the int8 tensor cores), both over the tap band the
-    kernel walks."""
+    launch.  The bound counts the work the function needs, not the work
+    the kernel's tiling walks: filt_len multiply-adds per output sample;
+    the input rows the outputs' windows span (each output j reads filt_len
+    rows of hist ++ x from (f0 + j*num) // den + H - (filt_len - 1)); the
+    nonzero weights once ("int8": D digit bytes each, and the bias); y.
+    It is the larger of the bytes over HBM and the operations over the
+    peak of their type (f32 FMA = 2 FLOP on the CUDA cores for "highest";
+    for "int8", 2*D int8 products per multiply-add, an int16 sample being
+    two int8 digits, on the int8 tensor cores).  The band multiply-adds,
+    returned beside it, are those the kernel walks: each 64-row tile's
+    nonzero tap band, K_pad padding skipped."""
+    n_out, N = bspec.out_per_launch, path.spec.filt_len
+    macs = n_out * N * B
+    shift = step.hist_rows - (N - 1)
+    first = bspec.f0 // path.den + shift
+    last = (bspec.f0 + (n_out - 1) * path.num) // path.den + shift + N
+    if step.scheme == "int8":
+        D = step.w[0].shape[0]
+        w_bytes = (int((step.w[0] != 0).any(0).sum()) * D
+                   + step.w[1].numel() * 4)
+        ops = 2 * (2 * D) * macs
+    else:
+        w_bytes = int((step.w[0] != 0).sum()) * 4
+        ops = 2 * macs
+    nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
     taps = step.w[-1].cpu().numpy()
     band = (taps[..., 1] - taps[..., 0]).astype(np.int64)     # [P, tiles]
     k = np.arange(bspec.n_blocks)
-    macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B
-    K = step.w[0].shape[-2]
-    x_rows = min(step.chunk_rows,
-                 int(path.origins(step, bspec).max()) + K - step.hist_rows)
-    D = step.w[0].shape[0] if step.scheme == "int8" else 1
-    w_item = 1 if step.scheme == "int8" else 4
-    w_bytes = int(band.sum()) * tf.ROW_TILE * w_item * D
-    if step.scheme == "int8":
-        w_bytes += step.w[1].numel() * 4                       # bias
-    nbytes = ((step.hist_rows + x_rows) * B * 2 + w_bytes
-              + bspec.out_per_launch * B * 2)
-    ops = 2 * macs if step.scheme == "highest" else 2 * (2 * D) * macs
+    band_macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (FP32_FLOPS if step.scheme == "highest" else INT8_OPS) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, ops, macs
+    return max(t_bytes, t_ops), by, nbytes, ops, band_macs
 
 
 def library_product_ms(path: Path, step, bspec, hist, x, reps: int):
@@ -317,8 +324,8 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
         plain_ms = cuda_ms(lambda: path.plain(hist, x, step), reps)
         library_ms = (library_product_ms(path, step, bspec, hist, x, reps)
                       if step.scheme == "highest" else None)
-        bound_ms, bound_by, nbytes, ops, macs = launch_bound(path, step,
-                                                             bspec, LANES)
+        bound_ms, bound_by, nbytes, ops, band_macs = launch_bound(
+            path, step, bspec, LANES)
         D = step.w[0].shape[0] if step.scheme == "int8" else 0
         print(f"timing {path.name} {scheme:7s} ({step.scheme} D={D}) on "
               f"{smi}: kernel {ms:.4f} ms/launch "
@@ -326,9 +333,10 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
               f"{plain_ms:.4f} ms, library "
               f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
               f", bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops of "
-              f"{macs / 1e9:.2f} G band "
-              f"multiply-adds) -> {bound_ms / ms:.3f} of the bound")
+              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops) -> "
+              f"{bound_ms / ms:.3f} of the bound; the kernel's tiles walk "
+              f"{band_macs / 1e9:.2f} G band multiply-adds, the function "
+              f"needs {out_samples * path.spec.filt_len / 1e9:.2f} G")
         if scheme == "int8" and path.kernel == "streamed":
             continue      # explicit int8 (D = 3) is printed, auto is listed
         entries.append({
@@ -370,9 +378,7 @@ def main() -> None:
 
     # -- phase 2: build the kernels from the checkout, one nvcc per source
     t0 = time.time()
-    _build.build_all()
-    for name in _build.LIBRARIES:
-        _build.load(name)
+    _build.load()
     print(f"build: {time.time() - t0:.1f} s ({_build.build_dir()})")
     for log in sorted(_build.build_dir().glob("*.log")):
         for line in log.read_text().splitlines():

@@ -21,11 +21,12 @@
 // tiled_fir.cu, so both kernels round identically.
 //
 // What bounds it on the H100: the multiply-adds.  One 48k->44.1k q10 launch
-// at B = 2048 (n_blocks 147, R 128, K 512, filt_len 280) moves ~202 MB
-// (x 86 MB, y 77 MB, weights 38.5 MB): ~60 us at 3.35 TB/s; it does 13.4 G
-// multiply-adds over the nonzero band of each 64-row tile: ~401 us at the
+// at B = 2048 (n_blocks 147, R 128, K 512, filt_len 280) must move ~183 MB
+// (x 85 MB, y 77 MB, the nonzero f32 weights 21 MB): ~55 us at 3.35 TB/s;
+// it needs 10.8 G multiply-adds (filt_len per output): ~322 us at the
 // 33.5 T FMA/s of the CUDA cores in f32, and D int32 passes at half that
-// rate under "int8".
+// rate under "int8".  The 64-row tiles walk 13.4 G of them, each tile's
+// nonzero tap band.
 // What the TPU design was for (weights too large for VMEM) does not apply:
 // the H100 reads weights through its 50 MB L2 either way.  The Hopper risk
 // is re-reading them from HBM once per lane tile (16 x 38.5 MB per launch

@@ -1,12 +1,11 @@
-"""Build and load the port's CUDA kernels: nvcc into one shared library per
-source with a plain C interface, loaded with ``ctypes``.
+"""Build and load the port's CUDA kernels: nvcc into a shared library with a
+plain C interface, loaded with ``ctypes``.
 
-Each library is compiled at first use, for ``sm_90a``, from its source in
-``csrc/`` (plus the shared headers) into ``build/torch_kernels/`` at the
-root of the checkout.  Its file name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a stale library is never loaded.
-The first :func:`load` starts one nvcc per missing library, all at once,
-and waits for them all.  Nothing here runs at import.
+The library is compiled at first use, for ``sm_90a``, from the sources in
+``csrc/`` into ``build/torch_kernels/`` at the root of the checkout: one
+nvcc per source, all started together, then one link.  Its file name
+carries a hash of the sources, headers and flags, so an edited kernel is
+rebuilt and a stale library is never loaded.  Nothing here runs at import.
 """
 
 from __future__ import annotations
@@ -19,33 +18,29 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_all", "build_dir", "LIBRARIES"]
+__all__ = ["load", "build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
+_SOURCES = (_CSRC / "tiled_fir.cu", _CSRC / "streamed_fir.cu")
 _HEADERS = (_CSRC / "fir_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+          "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: library name -> {C function: (restype, argtypes)}
-LIBRARIES = {
-    "tiled_fir": {
-        "tiled_fir_row_tile": (_I, []),
-        "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
-        "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
-        "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
-    },
-    "streamed_fir": {
-        "streamed_fir_row_tile": (_I, []),
-        "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
-        "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
-        "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11
-                              + [_P]),
-    },
+#: C function -> (restype, argtypes)
+_SIGNATURES = {
+    "tiled_fir_row_tile": (_I, []),
+    "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
+    "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
+    "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
+    "streamed_fir_row_tile": (_I, []),
+    "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
+    "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+    "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
 }
 
-_libs: dict = {}
+_lib = None
 _lock = threading.Lock()
 
 
@@ -64,62 +59,66 @@ def _nvcc() -> str:
     return found
 
 
-def _source(name: str) -> Path:
-    return _CSRC / f"{name}.cu"
-
-
-def _lib_path(name: str) -> Path:
+def _lib_path() -> Path:
     h = hashlib.sha1(" ".join(_FLAGS).encode())
-    for src in (*_HEADERS, _source(name)):
+    for src in (*_HEADERS, *_SOURCES):
         h.update(src.read_bytes())
-    return build_dir() / f"lib{name}.{h.hexdigest()[:12]}.so"
+    return build_dir() / f"libfir.{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> None:
-    """Compile every library whose build is missing: one nvcc per source,
-    all started together, each to a per-process temporary name and then
-    renamed atomically, so a concurrent loader never opens a half-written
-    library.  The compiler's report (registers, shared memory, spills from
-    ``-Xptxas -v``) is kept beside each library as ``.log``.  Raises if a
-    build fails, after every started nvcc has ended."""
+def _compile(out: Path) -> None:
+    """One nvcc per source, all started together, to per-process object
+    files; then one link to a temporary name and an atomic rename, so a
+    concurrent loader never opens a half-written library.  Each source's
+    compiler report (registers, shared memory, spills from ``-Xptxas -v``)
+    is kept in the build directory as ``<source>.log``.  Raises if a build
+    fails, after every started nvcc has ended."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     jobs = []
-    for name in LIBRARIES:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        out.parent.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               str(_source(name))]
-        jobs.append((out, tmp, subprocess.Popen(
+    for src in _SOURCES:
+        obj = out.with_name(f"{src.stem}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+               str(src)]
+        jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
     failed = []
-    for out, tmp, proc in jobs:
+    for src, _, proc in jobs:
         report, _ = proc.communicate()
-        out.with_suffix(".log").write_text(report)
+        (out.parent / f"{src.stem}.log").write_text(report)
         if proc.returncode != 0:
-            failed.append(f"{out.name}: nvcc exit {proc.returncode}\n{report}")
-            continue
+            failed.append(f"{src.name}: nvcc exit {proc.returncode}\n{report}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{res.stdout}{res.stderr}")
         os.replace(tmp, out)
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
 
 
-def load(name: str) -> ctypes.CDLL:
-    """Library ``name`` (a key of :data:`LIBRARIES`), compiled first, with
-    every other missing library, if no build of its sources exists.
-    Raises if nvcc is missing or a build fails."""
+def load() -> ctypes.CDLL:
+    """The kernels' library, compiled first if no build of these sources
+    exists.  Raises if nvcc is missing or the build fails."""
+    global _lib
     with _lock:
-        lib = _libs.get(name)
-        if lib is not None:
-            return lib
-        path = _lib_path(name)
+        if _lib is not None:
+            return _lib
+        path = _lib_path()
         if not path.exists():
-            build_all()
+            _compile(path)
         lib = ctypes.CDLL(str(path))
-        for fn, (restype, argtypes) in LIBRARIES[name].items():
+        for fn, (restype, argtypes) in _SIGNATURES.items():
             getattr(lib, fn).restype = restype
             getattr(lib, fn).argtypes = argtypes
-        _libs[name] = lib
+        _lib = lib
         return lib

@@ -15,7 +15,7 @@ and applies the weights of block phase ``k % P``.  ``shift`` is
 ``H - (filt_len - 1)``; ``v0`` equals the tiled kernel's
 ``(k // P) * S + offsets[k % P]``, so no offset table is needed.
 
-Device weights (:func:`device_weights_streamed`) keep the tiled kernel's
+Device weights (:data:`device_weights_streamed`) keep the tiled kernel's
 layout, padded to ``K_pad`` (a multiple of 128) tap rows as the JAX package
 pads them:
 
@@ -47,13 +47,9 @@ __all__ = ["device_weights_streamed", "origins", "resample_streamed",
 #: to count one run.
 launches = {"highest": 0, "int8": 0}
 
-
-def device_weights_streamed(w, scheme: str, device) -> tuple:
-    """Host weights -> the kernel's device weights (module docstring).
-    ``w``: f32[P, K_pad, R] for "highest", ``(planes int8[D, P, K_pad, R],
-    bias f32[P, R])`` for "int8"; the tap table is built as for the tiled
-    kernel."""
-    return tf.device_weights(w, scheme, device)
+#: Host weights -> the kernel's device weights (module docstring): the
+#: tiled kernel's conversion, applied to the K_pad-padded set.
+device_weights_streamed = tf.device_weights
 
 
 def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
@@ -106,7 +102,7 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
             f0=f0, scheme=scheme, scales=scales)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    lib = _build.load("streamed_fir")
+    lib = _build.load()
     if lib.streamed_fir_row_tile() != tf.ROW_TILE:
         raise RuntimeError("csrc/streamed_fir.cu row tile disagrees with "
                            "ROW_TILE")

@@ -175,7 +175,7 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                                         scales=scales)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
-    lib = _build.load("tiled_fir")
+    lib = _build.load()
     if lib.tiled_fir_row_tile() != ROW_TILE:
         raise RuntimeError("csrc/tiled_fir.cu row tile disagrees with "
                            "ROW_TILE")
