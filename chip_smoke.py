@@ -3,14 +3,19 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``speex_resampler_tpu_torch/csrc`` (one
-nvcc per source, in parallel) and drives both serving paths of
+nvcc per source, in parallel) and drives the serving paths of
 ``BatchedResampler``, 1024 stereo streams (B = 2048 lanes) each:
 
 - the tiled path, 44.1 kHz -> 48 kHz q7 (``csrc/tiled_fir.cu``);
-- the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``).
+- the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``);
+- the same two in the fixed-point (Q15) universe (``fixed_point=True``,
+  the kernels' "fixed" scheme with 4 accumulator column sets), and
+  24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set).
 
 For each path it holds every kernel against its plain PyTorch version on
-the card at the path's launch shapes, serves the path through
+the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
+drive the int32 accumulators past 2^31; the streamed kernel also takes the
+direct filter's weights), serves the path through
 ``process``/``flush``/``process`` with the launch counts set to 0 just
 before and read just after (every kernel of the path must have launched,
 once per engine launch), checks streams 0-3 against a CPU engine, then
@@ -23,7 +28,9 @@ no result, without a CUDA device or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import dataclasses
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,6 +45,12 @@ from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
+# block origins and the fixed kernels' wrap input, shared with the tests
+# (tests/ is no package)
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                "tests"))
+import fixed_inputs  # noqa: E402
+
 STREAMS, CHANNELS = 1024, 2
 LANES = STREAMS * CHANNELS
 
@@ -47,43 +60,51 @@ class Path:
     (ragged process() calls, flush, one more process() call)."""
 
     def __init__(self, name, rates, reduced, quality, target, frames, after,
-                 module, source, replaces, kernel):
+                 module, source, replaces, kernel, fixed=False,
+                 flush_moves_f0=True):
         self.name, self.rates, self.quality = name, rates, quality
         self.num, self.den = reduced
         self.target, self.frames, self.after = target, frames, after
         self.module, self.source, self.replaces = module, source, replaces
         self.kernel = kernel          # BatchSpec.kernel of the path
-        self.spec = fd.design_filter(self.num, self.den, quality)
+        self.fixed = fixed            # the Q15 universe (fixed_point=True)
+        self.spec = fd.design_filter(self.num, self.den, quality,
+                                     fixed_point=fixed)
         # the phase the flush of the staged remainder leaves
         m = ph.producible_outputs(sum(frames) % self.quantum(), 0, 0,
                                   self.num, self.den)
         self.f0_flush = (m * self.num) % self.den
-        if self.f0_flush == 0:
+        if flush_moves_f0 and self.f0_flush == 0:
             raise AssertionError(f"{name}: the schedule leaves f0 at 0")
 
     def quantum(self) -> int:
         return tb._launch_geometry(self.spec, self.target).in_per_launch
 
-    def launch(self, hist, x, step):
-        fn = (tf.resample_tiled if self.kernel == "tiled"
-              else sf.resample_streamed)
-        return fn(hist, x, step.w, **step.kernel_kw)
+    def engine(self, n_streams: int, device: str, scheme: str):
+        return BatchedResampler(n_streams, CHANNELS, *self.rates,
+                                self.quality, target_chunk_frames=self.target,
+                                device=device, scheme=scheme,
+                                fixed_point=self.fixed)
 
-    def plain(self, hist, x, step):
-        fn = (tf.resample_tiled_reference if self.kernel == "tiled"
-              else sf.resample_streamed_reference)
-        return fn(hist, x, step.w, **step.kernel_kw)
 
-    def origins(self, step, bspec) -> np.ndarray:
-        """Each block's patch origin on the virtual axis hist ++ x."""
-        kw = step.kernel_kw
-        k = np.arange(bspec.n_blocks)
-        if self.kernel == "tiled":
-            off = kw["offsets"].cpu().numpy()
-            return (k // bspec.P) * kw["S"] + off[k % bspec.P]
-        return sf.origins(bspec.n_blocks, bspec.R, shift=kw["shift"],
-                          num=kw["num"], den=kw["den"],
-                          f0=kw["f0"]).numpy()
+def launch(hist, x, step):
+    """The step's kernel (tiled or streamed) on one launch's buffers."""
+    fn = tf.resample_tiled if step.kernel == "tiled" else sf.resample_streamed
+    return fn(hist, x, step.w, **step.kernel_kw)
+
+
+def plain(hist, x, step):
+    """The step kernel's plain PyTorch version on the same buffers."""
+    fn = (tf.resample_tiled_reference if step.kernel == "tiled"
+          else sf.resample_streamed_reference)
+    return fn(hist, x, step.w, **step.kernel_kw)
+
+
+def kernel_name(kernel: str, scheme: str, n_accum: int = 1) -> str:
+    """The CUDA kernel a (geometry, resolved scheme, n_accum) launches."""
+    if scheme == "fixed":
+        return f"{kernel}_fir_fixed_kernel<{n_accum}>"
+    return f"{kernel}_fir_{'f32' if scheme == 'highest' else 'int8'}_kernel"
 
 
 # 9408-frame quanta: 41000 frames = 4 launches + 3368 staged (f0 -> 147)
@@ -96,10 +117,24 @@ SLICE = Path("streamed 48k->44.1k q10", (48000, 44100), (160, 147), 10,
              20480, (25000, 7000, 13000), (22000,), sf,
              "speex_resampler_tpu_torch/csrc/streamed_fir.cu",
              "speex_resampler_tpu/ops/pallas_fir.py:594", "streamed")
-PATHS = (FLAGSHIP, SLICE)
-KERNEL_NAMES = {(p.kernel, s): f"{p.kernel}_fir_{t}_kernel"
-                for p in PATHS
-                for s, t in (("int8", "int8"), ("highest", "f32"))}
+# the same two schedules in the fixed universe (n_accum 4)
+FIXED_FLAGSHIP = Path("tiled fixed 44.1k->48k q7", (44100, 48000),
+                      (147, 160), 7, 9408, (12000, 9000, 20000), (10000,),
+                      tf, "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                      "speex_resampler_tpu/ops/pallas_fir.py:404", "tiled",
+                      fixed=True)
+FIXED_SLICE = Path("streamed fixed 48k->44.1k q10", (48000, 44100),
+                   (160, 147), 10, 20480, (25000, 7000, 13000), (22000,),
+                   sf, "speex_resampler_tpu_torch/csrc/streamed_fir.cu",
+                   "speex_resampler_tpu/ops/pallas_fir.py:654", "streamed",
+                   fixed=True)
+# a direct filter (n_accum 1), 5120-frame quanta: 20000 frames = 3
+# launches + 4640 staged; num 1, den 2, so every flush leaves f0 at 0
+FIXED_DIRECT = Path("tiled fixed 24k->48k q5", (24000, 48000), (1, 2), 5,
+                    4096, (6000, 5000, 9000), (5120,), tf,
+                    "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                    "speex_resampler_tpu/ops/pallas_fir.py:404", "tiled",
+                    fixed=True, flush_moves_f0=False)
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM, FP32 outside
 # the tensor cores, int8 tensor-core operations
@@ -115,28 +150,28 @@ def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
 
 
 def compare(got: np.ndarray, want: np.ndarray, scheme: str, what: str):
-    """int8: bit-identical.  highest: max |err| <= 1 within the tie bound
-    (f32 sums in another order).  Returns (max |err|, mismatches)."""
+    """int8, fixed: bit-identical.  highest: max |err| <= 1 within the tie
+    bound (f32 sums in another order).  Returns (max |err|, mismatches)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
     err = int(d.max()) if d.size else 0
     mism = int((d > 0).sum())
-    if scheme == "int8" and mism:
-        raise AssertionError(f"{what}: {mism} int8 mismatches")
+    if scheme in ("int8", "fixed") and mism:
+        raise AssertionError(f"{what}: {mism} {scheme} mismatches")
     if err > 1 or mism > lsb_tie_limit(d.size):
         raise AssertionError(f"{what}: max|err| {err}, {mism} ties of "
                              f"{d.size}")
     return err, mism
 
 
-def launch_inputs(step, n_in: int, B: int, seed: int):
-    """Random history and chunk on the card, zero past the chunk."""
-    rng = np.random.default_rng(seed)
-    hist = rng.integers(-32768, 32768, (step.hist_rows, B), dtype=np.int16)
-    x = np.zeros((step.chunk_rows, B), dtype=np.int16)
-    x[:n_in] = rng.integers(-32768, 32768, (n_in, B), dtype=np.int16)
-    return (torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda())
+def card_inputs(step, n_in: int, B: int, seed: int, wrap: bool = False):
+    """Random history and chunk on the card, zero past the chunk; with
+    ``wrap``, every third lane drives one output's int32 accumulator past
+    2^31 (tests/fixed_inputs.py)."""
+    return tuple(torch.from_numpy(a).cuda()
+                 for a in fixed_inputs.launch_inputs(step, n_in, B, seed,
+                                                     wrap))
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
@@ -155,29 +190,38 @@ def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
     return float(np.median(times))
 
 
-def launch_bound(path: Path, step, bspec, B: int):
-    """(bound_ms, bound_by, bytes, operations, band multiply-adds) of one
-    launch.  The bound counts the work the function needs, not the work
-    the kernel's tiling walks: filt_len multiply-adds per output sample;
-    the input rows the outputs' windows span (each output j reads filt_len
-    rows of hist ++ x from (f0 + j*num) // den + H - (filt_len - 1)); the
-    nonzero weights once ("int8": D digit bytes each, and the bias); y.
-    It is the larger of the bytes over HBM and the operations over the
-    peak of their type (f32 FMA = 2 FLOP on the CUDA cores for "highest";
-    for "int8", 2*D int8 products per multiply-add, an int16 sample being
-    two int8 digits, on the int8 tensor cores).  The band multiply-adds,
-    returned beside it, are those the kernel walks: each 64-row tile's
-    nonzero tap band, K_pad padding skipped."""
-    n_out, N = bspec.out_per_launch, path.spec.filt_len
-    macs = n_out * N * B
+def launch_bound(spec, step, bspec, B: int):
+    """(bound_ms, bound_by, bytes, operations, needed multiply-adds, band
+    multiply-adds) of one launch.  The bound counts the work the function
+    needs, not the work the kernel's tiling walks: filt_len multiply-adds
+    per output sample (times n_accum, the weight column sets, for
+    "fixed"); the input rows the outputs' windows span (each output j reads
+    filt_len rows of hist ++ x from (f0 + j*num) // den + H - (filt_len -
+    1)); the nonzero weights once ("int8": D digit bytes each, and the
+    bias; "fixed": 2 bytes each, and the int32 cubic coefficients); y.  It
+    is the larger of the bytes over HBM and the operations over the peak of
+    their type (f32 FMA = 2 FLOP on the CUDA cores for "highest"; for
+    "int8", 2*D int8 products per multiply-add, an int16 sample being two
+    int8 digits; for "fixed", an int16 x int16 multiply-add is 4 int8
+    products, 8 operations; both on the int8 tensor cores).  The band
+    multiply-adds, returned beside it, are those the kernel walks: each
+    64-row tile's nonzero tap band (times n_accum), K_pad padding
+    skipped."""
+    n_out, N = bspec.out_per_launch, spec.filt_len
+    n_accum = step.kernel_kw.get("n_accum", 1)
+    macs = n_out * N * B * n_accum
     shift = step.hist_rows - (N - 1)
-    first = bspec.f0 // path.den + shift
-    last = (bspec.f0 + (n_out - 1) * path.num) // path.den + shift + N
+    first = bspec.f0 // spec.den + shift
+    last = (bspec.f0 + (n_out - 1) * spec.num) // spec.den + shift + N
     if step.scheme == "int8":
         D = step.w[0].shape[0]
         w_bytes = (int((step.w[0] != 0).any(0).sum()) * D
                    + step.w[1].numel() * 4)
         ops = 2 * (2 * D) * macs
+    elif step.scheme == "fixed":
+        w_bytes = (int((step.w[0] != 0).sum()) * 2
+                   + (step.w[1].numel() * 4 if n_accum == 4 else 0))
+        ops = 8 * macs
     else:
         w_bytes = int((step.w[0] != 0).sum()) * 4
         ops = 2 * macs
@@ -185,14 +229,14 @@ def launch_bound(path: Path, step, bspec, B: int):
     taps = step.w[-1].cpu().numpy()
     band = (taps[..., 1] - taps[..., 0]).astype(np.int64)     # [P, tiles]
     k = np.arange(bspec.n_blocks)
-    band_macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B
+    band_macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B * n_accum
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / (FP32_FLOPS if step.scheme == "highest" else INT8_OPS) * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, ops, band_macs
+    return max(t_bytes, t_ops), by, nbytes, ops, macs, band_macs
 
 
-def library_product_ms(path: Path, step, bspec, hist, x, reps: int):
+def library_product_ms(step, bspec, hist, x, reps: int):
     """One torch.bmm (TF32 off) of the block weights against the patches,
     both gathered outside the timed region: the product only, no WORD2INT.
     Timed as the yardstick of the "highest" kernel; the port never calls
@@ -200,7 +244,7 @@ def library_product_ms(path: Path, step, bspec, hist, x, reps: int):
     w = step.w[0]
     K = w.shape[1]
     phase = torch.arange(bspec.n_blocks, device="cuda") % bspec.P
-    v0 = torch.from_numpy(path.origins(step, bspec)).cuda()
+    v0 = torch.from_numpy(fixed_inputs.block_origins(step)).cuda()
     virt = torch.cat([hist, x])
     idx = (v0[:, None] + torch.arange(K, device="cuda")[None, :]).clamp(
         max=virt.shape[0] - 1)
@@ -211,39 +255,42 @@ def library_product_ms(path: Path, step, bspec, hist, x, reps: int):
     return cuda_ms(lambda: torch.bmm(wt, patch, out=out), reps)
 
 
-def check_kernels(path: Path, schemes, max_err: dict) -> None:
+def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
-    f0 0 and after the flush, B = 2048 and 130."""
+    f0 0 and after the flush, B = 2048 and 130 (fixed: with the wrap input
+    on every third lane).  ``kernel`` overrides the geometry: "streamed"
+    feeds a tiled direct filter's weights to the streamed kernel."""
     for scheme in schemes:
-        for f0 in (0, path.f0_flush):
+        for f0 in sorted({0, path.f0_flush}):
             bspec = tb._launch_geometry(path.spec, path.target, f0=f0)
+            if kernel is not None:
+                bspec = dataclasses.replace(bspec, kernel=kernel)
             step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                         scheme=scheme)
-            if step.kernel != path.kernel:
+            if step.kernel != (kernel or path.kernel):
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
+            n_accum = step.kernel_kw["n_accum"]
             for B in (LANES, 130):
-                hist, x = launch_inputs(step, bspec.in_per_launch, B,
-                                        seed=B + f0)
-                got = path.launch(hist, x, step)
-                want = path.plain(hist, x, step)
+                hist, x = card_inputs(step, bspec.in_per_launch, B,
+                                      seed=B + f0, wrap=path.fixed)
+                got = launch(hist, x, step)
+                want = plain(hist, x, step)
                 torch.cuda.synchronize()
                 what = f"{path.name} {scheme} f0={f0} B={B}"
                 err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
                                     step.scheme, what)
-                key = (path.kernel, step.scheme)
+                key = (step.kernel, step.scheme, n_accum)
                 max_err[key] = max(max_err.get(key, 0), err)
                 print(f"kernel vs plain: {path.name} {scheme:7s} -> "
-                      f"{step.scheme} D={D} f0={f0:3d} B={B:4d} "
+                      f"{kernel_name(*key)} D={D} f0={f0:3d} B={B:4d} "
                       f"n_blocks={bspec.n_blocks} max|err|={err} "
                       f"mismatches={mism}")
 
 
 def serve_engine(path: Path, scheme: str, frames: list):
     """Drive one engine of the path; returns (engine, outputs per call)."""
-    eng = BatchedResampler(STREAMS, CHANNELS, *path.rates, path.quality,
-                           target_chunk_frames=path.target, device="cuda",
-                           scheme=scheme)
+    eng = path.engine(STREAMS, "cuda", scheme)
     n = len(path.frames)
     outs = [eng.process(f) for f in frames[:n]]
     outs.append(eng.flush())
@@ -255,45 +302,47 @@ def serve_engine(path: Path, scheme: str, frames: list):
     return eng, outs
 
 
-def serve(path: Path, want_digits: int):
-    """The path end to end under "auto" and "highest", launch counts set
-    to 0 just before and read just after; streams 0-3 against a CPU
-    engine.  Returns (counts, engines by resolved scheme, frames)."""
+def serve(path: Path, requests: dict, want_digits: int = 0):
+    """The path end to end, one engine per requested scheme (``requests``:
+    request -> the scheme it must resolve), launch counts set to 0 just
+    before and read just after; streams 0-3 against a CPU engine.  Returns
+    (counts, engines by resolved scheme, frames)."""
     rng = np.random.default_rng(2024)
     frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
                            dtype=np.int16)
               for n in path.frames + path.after]
     for module in (tf, sf):
-        module.launches.update(int8=0, highest=0)
-    t0 = time.time()
-    eng8, outs8 = serve_engine(path, "auto", frames)
-    t_serve = time.time() - t0
-    engh, outsh = serve_engine(path, "highest", frames)
+        module.launches.update(dict.fromkeys(module.launches, 0))
+    engines, outs, walls = {}, {}, {}
+    for request, scheme in requests.items():
+        t0 = time.time()
+        eng, outs[scheme] = serve_engine(path, request, frames)
+        walls[scheme] = time.time() - t0
+        if eng._step.scheme != scheme or eng._step.kernel != path.kernel:
+            raise AssertionError(f"{path.name}: {request} built "
+                                 f"{eng._step.kernel}/{eng._step.scheme}")
+        engines[scheme] = eng
     counts = dict(path.module.launches)
     other = sf if path.module is tf else tf
     if any(other.launches.values()):
         raise AssertionError(f"{path.name} launched {other.launches} of "
                              f"the other geometry's kernels")
-    if eng8._step.scheme != "int8" or eng8._step.w[0].shape[0] != want_digits:
-        raise AssertionError(f"auto resolved {eng8._step.scheme}, "
-                             f"D={eng8._step.w[0].shape[0]}")
-    if eng8._step.kernel != path.kernel or engh._step.kernel != path.kernel:
-        raise AssertionError(f"{path.name}: engines built "
-                             f"{eng8._step.kernel}/{engh._step.kernel}")
+    if "int8" in engines and engines["int8"]._step.w[0].shape[0] \
+            != want_digits:
+        raise AssertionError(f"auto resolved int8 D="
+                             f"{engines['int8']._step.w[0].shape[0]}")
     n = len(path.frames)
-    if eng8.launches < n or counts["int8"] != eng8.launches \
-            or counts["highest"] != engh.launches:
-        raise AssertionError(f"kernel launches {counts} vs engine "
-                             f"{eng8.launches}/{engh.launches}")
-    for request, scheme, outs in (("auto", "int8", outs8),
-                                  ("highest", "highest", outsh)):
-        ref = BatchedResampler(4, CHANNELS, *path.rates, path.quality,
-                               target_chunk_frames=path.target, device="cpu",
-                               scheme=request)
+    launched = {s: e.launches for s, e in engines.items()}
+    if any(counts[s] != launched.get(s, 0) for s in counts) \
+            or min(launched.values()) < n:
+        raise AssertionError(f"kernel launches {counts} vs engines "
+                             f"{launched}")
+    for request, scheme in requests.items():
+        ref = path.engine(4, "cpu", request)
         want = [ref.process(f[:4]) for f in frames[:n]]
         want.append(ref.flush())
         want += [ref.process(f[:4]) for f in frames[n:]]
-        for i, (g, w) in enumerate(zip(outs, want)):
+        for i, (g, w) in enumerate(zip(outs[scheme], want)):
             if g.shape[0] != STREAMS or g.shape[2] != CHANNELS:
                 raise AssertionError(f"call {i}: output shape {g.shape}")
             err, mism = compare(g[:4], w, scheme,
@@ -301,12 +350,39 @@ def serve(path: Path, want_digits: int):
             print(f"serve {path.name} {scheme:7s} call {i}: out "
                   f"{tuple(g.shape)} streams 0-3 vs cpu max|err|={err} "
                   f"mismatches={mism}")
-    print(f"serve {path.name}: scheme auto -> int8 D={want_digits}, "
-          f"{eng8.launches} launches ({counts}), f0 after flush "
-          f"{path.f0_flush}, {t_serve:.2f} s for "
+    first = next(iter(requests.values()))
+    print(f"serve {path.name}: {requests} (int8 D={want_digits}), "
+          f"launches {counts}, f0 after flush {path.f0_flush}, "
+          f"{walls[first]:.2f} s for the {first} engine's "
           f"{sum(path.frames + path.after)} frames x {LANES} lanes (engine "
           f"construction, host staging and pageable copies included)")
-    return counts, {"int8": eng8, "highest": engh}, frames
+    return counts, engines, frames
+
+
+def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
+    """Kernel, plain and library times of one launch at B = 2048 (library:
+    the highest scheme's bmm; no PyTorch call computes the exact int8
+    digit sums or the wrapped int32 sums of "fixed").  Returns the JSON
+    entry's numbers."""
+    out_samples = bspec.out_per_launch * LANES
+    hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
+    ms = cuda_ms(lambda: launch(hist, x, step), reps)
+    plain_ms = cuda_ms(lambda: plain(hist, x, step), reps)
+    library_ms = (library_product_ms(step, bspec, hist, x, reps)
+                  if step.scheme == "highest" else None)
+    bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
+        spec, step, bspec, LANES)
+    print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch "
+          f"({out_samples / ms / 1e6:.2f} G out samples/s), plain "
+          f"{plain_ms:.4f} ms, library "
+          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+          f", bound {bound_ms:.4f} ms by {bound_by} "
+          f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops) -> "
+          f"{bound_ms / ms:.3f} of the bound; the kernel's tiles walk "
+          f"{band_macs / 1e9:.2f} G band multiply-adds, the function "
+          f"needs {macs / 1e9:.2f} G")
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, library_ms=library_ms)
 
 
 def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
@@ -319,33 +395,17 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
     for scheme in schemes:
         step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                     scheme=scheme)
-        hist, x = launch_inputs(step, bspec.in_per_launch, LANES, seed=7)
-        ms = cuda_ms(lambda: path.launch(hist, x, step), reps)
-        plain_ms = cuda_ms(lambda: path.plain(hist, x, step), reps)
-        library_ms = (library_product_ms(path, step, bspec, hist, x, reps)
-                      if step.scheme == "highest" else None)
-        bound_ms, bound_by, nbytes, ops, band_macs = launch_bound(
-            path, step, bspec, LANES)
+        key = (step.kernel, step.scheme, step.kernel_kw["n_accum"])
         D = step.w[0].shape[0] if step.scheme == "int8" else 0
-        print(f"timing {path.name} {scheme:7s} ({step.scheme} D={D}) on "
-              f"{smi}: kernel {ms:.4f} ms/launch "
-              f"({out_samples / ms / 1e6:.2f} G out samples/s), plain "
-              f"{plain_ms:.4f} ms, library "
-              f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
-              f", bound {bound_ms:.4f} ms by {bound_by} "
-              f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops) -> "
-              f"{bound_ms / ms:.3f} of the bound; the kernel's tiles walk "
-              f"{band_macs / 1e9:.2f} G band multiply-adds, the function "
-              f"needs {out_samples * path.spec.filt_len / 1e9:.2f} G")
+        nums = time_launch(f"{path.name} {scheme:7s} ({kernel_name(*key)} "
+                           f"D={D})", path.spec, step, bspec, smi, reps)
         if scheme == "int8" and path.kernel == "streamed":
             continue      # explicit int8 (D = 3) is printed, auto is listed
         entries.append({
-            "name": KERNEL_NAMES[(path.kernel, step.scheme)],
-            "route": "cuda", "source": path.source,
-            "replaces": path.replaces, "launches": counts[step.scheme],
-            "max_abs_err": max_err[(path.kernel, step.scheme)], "ms": ms,
-            "plain_ms": plain_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": library_ms})
+            "name": kernel_name(*key), "route": "cuda",
+            "source": path.source, "replaces": path.replaces,
+            "launches": counts[step.scheme], "max_abs_err": max_err[key],
+            **nums})
     quantum = frames[0][:, :bspec.in_per_launch]
     for scheme, eng in engines.items():
         eng.process(quantum)
@@ -389,20 +449,37 @@ def main() -> None:
     max_err: dict = {}
     check_kernels(FLAGSHIP, ("int8", "highest"), max_err)
     check_kernels(SLICE, ("auto", "int8", "highest"), max_err)
+    for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
+        check_kernels(path, ("auto",), max_err)
+    check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
     print(f"kernels checked: {time.time() - t_start:.1f} s")
 
     # -- phase 4: each path end to end, its launches counted from 0
-    served = {FLAGSHIP: serve(FLAGSHIP, want_digits=3),
-              SLICE: serve(SLICE, want_digits=4)}
+    float_requests = {"auto": "int8", "highest": "highest"}
+    served = {FLAGSHIP: serve(FLAGSHIP, float_requests, want_digits=3),
+              SLICE: serve(SLICE, float_requests, want_digits=4)}
+    for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
+        served[path] = serve(path, {"auto": "fixed"})
     print(f"served: {time.time() - t_start:.1f} s")
 
     # -- phase 5: timing at each path's launch
     kernels = []
-    for path, schemes, reps in ((FLAGSHIP, ("int8", "highest"), 20),
-                                (SLICE, ("auto", "int8", "highest"), 20)):
+    for path, schemes in ((FLAGSHIP, ("int8", "highest")),
+                          (SLICE, ("auto", "int8", "highest")),
+                          (FIXED_FLAGSHIP, ("auto",)),
+                          (FIXED_SLICE, ("auto",)),
+                          (FIXED_DIRECT, ("auto",))):
         counts, engines, frames = served[path]
         kernels += time_path(path, schemes, smi, counts, max_err, engines,
-                             frames, reps)
+                             frames, reps=20)
+    # the streamed kernel with one column set: no served path launches it
+    bspec = dataclasses.replace(
+        tb._launch_geometry(FIXED_DIRECT.spec, FIXED_DIRECT.target),
+        kernel="streamed")
+    step = tb.make_batched_step(FIXED_DIRECT.spec, bspec, device="cuda")
+    time_launch(f"{FIXED_DIRECT.name} weights on the streamed kernel "
+                f"({kernel_name('streamed', 'fixed', 1)}, on no served "
+                f"path)", FIXED_DIRECT.spec, step, bspec, smi, reps=20)
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

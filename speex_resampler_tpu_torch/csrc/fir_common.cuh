@@ -24,6 +24,16 @@
 //            certificate (ops/int8_planes.py) assumes separately rounded
 //            steps, and it keeps the kernels bit-identical to their plain
 //            versions.
+//   fixed:   the Q15 universe (FIXED_POINT build), bit-exact.  For each of
+//            the n_accum weight column sets c (accumulator-major, column
+//            c*R + r), acc_c = sum_t W16[t, c*R+r] * x exactly mod 2^32 in
+//            uint32 registers (unsigned arithmetic wraps by definition;
+//            signed overflow is undefined in C++).  n_accum 1 (direct):
+//            y = SAT32PSHR15(acc_0).  n_accum 4 (interpolated):
+//            s = sum_c MULT16_32_Q15(coef[m][c][r], acc_c >> 1) mod 2^32,
+//            y = SAT32PSHR15(s) (fixed_generic.h, resample.c:474-479).  The
+//            TPU's int8 plane split and +128 bias exist only for its int8
+//            MXU; here the int16 x int16 product is taken directly.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -85,12 +95,12 @@ struct Tile {
 };
 
 // Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`) and of
-// the weight columns [rt*kRowTile, +kRowTile); rows at or past t_hi and
-// lanes past B stage as zero.
+// the kRowTile weight columns from wm (tap row t at wm + t * ld); rows at
+// or past t_hi and lanes past B stage as zero.
 template <typename Acc, typename WT>
 __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
-                                      const WT* __restrict__ wm, int t0,
-                                      int shift, Acc (*xs)[kLaneTile],
+                                      const WT* __restrict__ wm, int ld,
+                                      int t0, int shift, Acc (*xs)[kLaneTile],
                                       Acc (*ws)[kRowTile]) {
   for (int i = threadIdx.x; i < kTapStage * kLaneTile; i += kThreads) {
     const int t = t0 + i / kLaneTile, lane = c.lane0 + i % kLaneTile;
@@ -101,13 +111,14 @@ __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
   for (int i = threadIdx.x; i < kTapStage * kRowTile; i += kThreads) {
     const int t = t0 + i / kRowTile;
     ws[i / kRowTile][i % kRowTile] =
-        t < c.t_hi ? (Acc)wm[(size_t)t * g.R + i % kRowTile] : (Acc)0;
+        t < c.t_hi ? (Acc)wm[(size_t)t * ld + i % kRowTile] : (Acc)0;
   }
 }
 
 template <typename Acc> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int> { using type = int4; };
+template <> struct Vec4<unsigned> { using type = uint4; };
 
 // One 16-byte shared-memory load of four consecutive values.
 template <typename Acc>
@@ -139,14 +150,23 @@ __device__ __forceinline__ void multiply_stage(const Tile& c,
   }
 }
 
-__device__ __forceinline__ void store(const Launch& g, const Tile& c, int a,
-                                      const float (&v)[4]) {
+// Row a of this thread's register tile, its 4 lanes, as int16.
+__device__ __forceinline__ void store_i16(const Launch& g, const Tile& c,
+                                          int a, const int16_t (&v)[4]) {
   int16_t* out = g.y + ((size_t)c.k * g.R + c.row(a)) * g.B;
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
     const int lane = c.lane0 + c.tl * 4 + b;
-    if (lane < g.B) out[lane] = word2int(v[b]);
+    if (lane < g.B) out[lane] = v[b];
   }
+}
+
+__device__ __forceinline__ void store(const Launch& g, const Tile& c, int a,
+                                      const float (&v)[4]) {
+  int16_t q[4];
+#pragma unroll
+  for (int b = 0; b < 4; ++b) q[b] = word2int(v[b]);
+  store_i16(g, c, a, q);
 }
 
 // Scheme "highest": w f32[P, K, R].
@@ -157,7 +177,7 @@ __device__ __forceinline__ void fir_tile_f32(const Launch& g, const Tile& c,
   const float* wm = w + (size_t)c.m * g.K * g.R + c.rt * kRowTile;
   float acc[8][4] = {};
   for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-    stage(g, c, wm, t0, 0, xs, ws);
+    stage(g, c, wm, g.R, t0, 0, xs, ws);
     __syncthreads();
     multiply_stage(c, xs, ws, acc);  // f32 multiply-add, contracted to FMA
     __syncthreads();
@@ -180,7 +200,7 @@ __device__ __forceinline__ void fir_tile_int8(const Launch& g, const Tile& c,
         planes + ((size_t)d * g.P + c.m) * g.K * g.R + c.rt * kRowTile;
     int iacc[8][4] = {};
     for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-      stage(g, c, wm, t0, -128, xs, ws);
+      stage(g, c, wm, g.R, t0, -128, xs, ws);
       __syncthreads();
       multiply_stage(c, xs, ws, iacc);  // exact int32 multiply-add
       __syncthreads();
@@ -199,6 +219,63 @@ __device__ __forceinline__ void fir_tile_int8(const Launch& g, const Tile& c,
 #pragma unroll
     for (int b = 0; b < 4; ++b) v[b] = __fadd_rn(acc[a][b], bias_r);
     store(g, c, a, v);
+  }
+}
+
+// SATURATE32PSHR(s, 15, 32767) (fixed_generic.h:55-57): the low clamp is
+// -32767, not -32768.
+__device__ __forceinline__ int16_t sat32pshr15(int s) {
+  if (s >= (32767 << 15)) return 32767;
+  if (s <= -(32767 << 15)) return -32767;
+  return (int16_t)((s + (1 << 14)) >> 15);
+}
+
+// MULT16_32_Q15(a, b) = a*(b >> 15) + ((a*(b & 0x7fff)) >> 15) mod 2^32
+// (fixed_generic.h:90); a*(b >> 15) reaches 2^31 at a = -32768, so the
+// products and the sum are taken in uint32.  >> is arithmetic on int.
+__device__ __forceinline__ unsigned mult16_32_q15(int a, int b) {
+  return (unsigned)a * (unsigned)(b >> 15) +
+         (unsigned)((a * (b & 0x7fff)) >> 15);
+}
+
+// Scheme "fixed": w int16[P, K, kAccum * R] (column c*R + r), coef
+// int32[P, 4, R] for kAccum == 4 (unused for 1).  The kAccum column sets
+// are walked in turn, like the int8 digits: 32 sum registers per thread
+// and 32 for the mix, not 4 x 32.
+template <int kAccum>
+__device__ __forceinline__ void fir_tile_fixed(const Launch& g, const Tile& c,
+                                               const int16_t* __restrict__ w,
+                                               const int32_t* __restrict__ coef) {
+  __shared__ __align__(16) unsigned xs[kTapStage][kLaneTile];
+  __shared__ __align__(16) unsigned ws[kTapStage][kRowTile];
+  const int C = kAccum * g.R;
+  unsigned s[8][4] = {};
+#pragma unroll 1
+  for (int comp = 0; comp < kAccum; ++comp) {
+    const int16_t* wm =
+        w + (size_t)c.m * g.K * C + comp * g.R + c.rt * kRowTile;
+    unsigned acc[8][4] = {};
+    for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
+      stage(g, c, wm, C, t0, 0, xs, ws);
+      __syncthreads();
+      multiply_stage(c, xs, ws, acc);  // exact int16 x int16, mod 2^32
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a) {
+      const int q = kAccum == 1 ? 0 : coef[(c.m * 4 + comp) * g.R + c.row(a)];
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        s[a][b] = kAccum == 1 ? acc[a][b]
+                              : s[a][b] + mult16_32_q15(q, (int)acc[a][b] >> 1);
+    }
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) {
+    int16_t v[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) v[b] = sat32pshr15((int)s[a][b]);
+    store_i16(g, c, a, v);
   }
 }
 

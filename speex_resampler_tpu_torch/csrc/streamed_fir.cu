@@ -1,5 +1,5 @@
 // Streamed-weight polyphase FIR launch for Hopper (sm_90a), schemes
-// "highest" and "int8" (D <= 4 digit planes).
+// "highest", "int8" (D <= 4 digit planes) and "fixed" (n_accum 1 and 4).
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas_v4
 // / _kernel_v4 (with _v4_hist_plans), the TPU kernel of the large-P
@@ -34,6 +34,13 @@
 // share block k's weight columns are scheduled together, HBM serves each
 // weight tile once and L2 the other lane tiles (the counterpart of v4's
 // "widest lane tile" rule).  Tensor cores, TMA and cp.async are later work.
+//
+// Scheme "fixed" (v4's fixed branch: _dot_fixed, then the fixed_math
+// epilogues) reads int16 weights [P, K_pad, n_accum * R], 77 MB at q10
+// (n_accum 4), walked once per column set in exact uint32 arithmetic.  A
+// q10 launch needs 43.2 G int16 multiply-adds (filt_len x 4 per output):
+// 345 G int8 tensor-core operations, ~174 us, above the ~61 us of its
+// bytes, so operations bound it.
 
 #include "fir_common.cuh"
 
@@ -71,6 +78,14 @@ streamed_fir_int8_kernel(fir::Launch g, Origin o,
                          const float* __restrict__ bias, int D,
                          float4 scales) {
   fir::fir_tile_int8(g, streamed_tile(g, o), planes, bias, D, scales);
+}
+
+template <int kAccum>
+__global__ void __launch_bounds__(kThreads)
+streamed_fir_fixed_kernel(fir::Launch g, Origin o,
+                          const int16_t* __restrict__ w,
+                          const int32_t* __restrict__ coef) {
+  fir::fir_tile_fixed<kAccum>(g, streamed_tile(g, o), w, coef);
 }
 
 dim3 grid_of(int n_blocks, int R, int B) {
@@ -113,6 +128,28 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
                              static_cast<cudaStream_t>(stream)>>>(
       g, Origin{shift, num, den, f0}, static_cast<const int8_t*>(planes),
       static_cast<const float*>(bias), D, make_float4(s0, s1, s2, s3));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w int16[P, K, n_accum * R]; coef int32[P, 4, R] (NULL for n_accum 1).
+int streamed_fir_fixed(const void* hist, const void* x, void* y,
+                       const void* taps, const void* w, const void* coef,
+                       int n_accum, int H, int T, int B, int R, int K, int P,
+                       int n_blocks, int shift, int num, int den, int f0,
+                       void* stream) {
+  cudaGetLastError();
+  const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
+  const Origin o{shift, num, den, f0};
+  const auto* w16 = static_cast<const int16_t*>(w);
+  const auto* c32 = static_cast<const int32_t*>(coef);
+  const dim3 grid = grid_of(n_blocks, R, B);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n_accum == 4)
+    streamed_fir_fixed_kernel<4><<<grid, kThreads, 0, st>>>(g, o, w16, c32);
+  else if (n_accum == 1)
+    streamed_fir_fixed_kernel<1><<<grid, kThreads, 0, st>>>(g, o, w16, c32);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

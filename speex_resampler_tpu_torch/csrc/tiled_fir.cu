@@ -1,5 +1,5 @@
-// Phase-tiled polyphase FIR launch for Hopper (sm_90a), schemes "highest"
-// and "int8".
+// Phase-tiled polyphase FIR launch for Hopper (sm_90a), schemes "highest",
+// "int8" and "fixed" (n_accum 1 and 4).
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas_v3
 // / _kernel_v3 (the TPU kernel of the batched serving path).  It computes
@@ -31,6 +31,14 @@
 // fastest: the whole weight cycle is 2.7 MB and stays in L2.  Tensor-core
 // int8 MMA (wgmma / mma.sync), TMA staging and dp4a are left for later
 // work: this is the simple, exact first kernel.
+//
+// Scheme "fixed" (the Q15 universe; K1's fixed branch, _kernel_v3 with
+// _dot_fixed and the fixed_math epilogues) walks the same tiles once per
+// weight column set (n_accum 4 at 44.1k->48k q7: C = 4R = 512 columns) in
+// exact uint32 arithmetic.  Its flagship launch needs 10.7 G int16
+// multiply-adds (filt_len x 4 per output): 86 G int8 tensor-core operations
+// (4 int8 products, 8 ops, per int16 MAC), ~43 us, above the ~25 us of its
+// bytes, so operations bound it; on the CUDA cores it runs far above that.
 
 #include "fir_common.cuh"
 
@@ -61,6 +69,14 @@ tiled_fir_int8_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
                       int S, const int8_t* __restrict__ planes,
                       const float* __restrict__ bias, int D, float4 scales) {
   fir::fir_tile_int8(g, tiled_tile(g, offsets, S), planes, bias, D, scales);
+}
+
+template <int kAccum>
+__global__ void __launch_bounds__(kThreads)
+tiled_fir_fixed_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
+                       int S, const int16_t* __restrict__ w,
+                       const int32_t* __restrict__ coef) {
+  fir::fir_tile_fixed<kAccum>(g, tiled_tile(g, offsets, S), w, coef);
 }
 
 dim3 grid_of(int n_blocks, int R, int B) {
@@ -103,6 +119,27 @@ int tiled_fir_int8(const void* hist, const void* x, void* y,
       g, static_cast<const int32_t*>(offsets), S,
       static_cast<const int8_t*>(planes), static_cast<const float*>(bias), D,
       make_float4(s0, s1, s2, s3));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// w int16[P, K, n_accum * R]; coef int32[P, 4, R] (NULL for n_accum 1).
+int tiled_fir_fixed(const void* hist, const void* x, void* y,
+                    const void* offsets, const void* taps, const void* w,
+                    const void* coef, int n_accum, int H, int T, int B, int R,
+                    int K, int P, int S, int n_blocks, void* stream) {
+  cudaGetLastError();
+  const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
+  const auto* off = static_cast<const int32_t*>(offsets);
+  const auto* w16 = static_cast<const int16_t*>(w);
+  const auto* c32 = static_cast<const int32_t*>(coef);
+  const dim3 grid = grid_of(n_blocks, R, B);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n_accum == 4)
+    tiled_fir_fixed_kernel<4><<<grid, kThreads, 0, st>>>(g, off, S, w16, c32);
+  else if (n_accum == 1)
+    tiled_fir_fixed_kernel<1><<<grid, kThreads, 0, st>>>(g, off, S, w16, c32);
+  else
+    return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }
 

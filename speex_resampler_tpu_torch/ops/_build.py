@@ -34,10 +34,12 @@ _SIGNATURES = {
     "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
     "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
+    "tiled_fir_fixed": (_I, [_P] * 7 + [_I] * 9 + [_P]),
     "streamed_fir_row_tile": (_I, []),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
+    "streamed_fir_fixed": (_I, [_P] * 6 + [_I] * 12 + [_P]),
 }
 
 _lib = None

@@ -22,11 +22,17 @@ Reference map:
   - fixed cubic_coef:     deps/speex/resample.c:302-316
   - fixed interp mixing:  deps/speex/resample.c:465-479 (MULT16_32_Q15 of the
                           half-shifted accumulators, then SATURATE32PSHR)
+
+The torch twins at the end (``sat32pshr15``, ``mult16_32_q15_t``,
+``fixed_interp_mix_rows``) are the device epilogues of the fixed kernels'
+plain versions, on int32 tensors: the counterparts of the JAX package's
+``sat32pshr15_jax`` / ``mult16_32_q15_jax`` / ``fixed_interp_mix_rows_jax``.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 __all__ = [
     "I16", "I32",
@@ -34,6 +40,7 @@ __all__ = [
     "mult16_32_q15", "pdiv32", "word2int_fixed",
     "cubic_coef_fixed", "interp_mix_fixed", "to_word16",
     "balanced_q15_split",
+    "sat32pshr15", "mult16_32_q15_t", "fixed_interp_mix_rows",
 ]
 
 I16 = np.int16
@@ -171,3 +178,40 @@ def interp_mix_fixed(accum, interp) -> np.ndarray:
     with np.errstate(over="ignore"):
         s = terms[..., 0] + terms[..., 1] + terms[..., 2] + terms[..., 3]
     return to_word16(saturate32pshr(s, 15, 32767))
+
+
+# ---------------------------------------------------------------------------
+# torch twins of the device epilogues, on int32 tensors.  torch int32
+# arithmetic wraps like the jnp versions': every product, sum and the
+# rounding add stays in int32 (no widening), and >> is arithmetic.
+# ---------------------------------------------------------------------------
+
+
+def sat32pshr15(s: torch.Tensor) -> torch.Tensor:
+    """SATURATE32PSHR(s, 15, 32767) + int16 store (the fixed direct
+    epilogue; fixed_generic.h:55-57): 32767 at or above 32767<<15, -32767
+    at or below -(32767<<15), else (s + (1<<14)) >> 15."""
+    hi = 32767 << 15
+    r = (s + (1 << 14)) >> 15
+    return torch.where(s >= hi, 32767,
+                       torch.where(s <= -hi, -32767, r)).to(torch.int16)
+
+
+def mult16_32_q15_t(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """MULT16_32_Q15 on int32 tensors (int32 wrap):
+    a*(b>>15) + ((a*(b & 0x7fff)) >> 15)."""
+    return a * (b >> 15) + ((a * (b & 0x7FFF)) >> 15)
+
+
+def fixed_interp_mix_rows(acc: torch.Tensor,
+                          coef: torch.Tensor) -> torch.Tensor:
+    """Fixed interpolate epilogue (resample.c:474-479, fixed branch).
+
+    acc: int32 [..., 4, R, lanes] raw tap accumulators, accumulator-major;
+    coef: int32 [..., 4, R] Q15 cubic coefficients.  Returns int16
+    [..., R, lanes]: sum_c MULT16_32_Q15(coef[c], acc[c] >> 1), then
+    SATURATE32PSHR(., 15, 32767)."""
+    s = torch.zeros_like(acc[..., 0, :, :])
+    for c in range(4):
+        s = s + mult16_32_q15_t(coef[..., c, :, None], acc[..., c, :, :] >> 1)
+    return sat32pshr15(s)

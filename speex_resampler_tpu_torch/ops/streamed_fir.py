@@ -1,10 +1,12 @@
 """Streamed-weight polyphase FIR launch: the kernel of the large-P configs.
 
 Counterpart of ``resample_conv_tm_pallas_v4`` in
-``speex_resampler_tpu/ops/pallas_fir.py``, schemes ``"highest"`` and
-``"int8"``.  It serves the geometries whose phase-tiled weight cycle is too
-large for the tiled kernel: every 48 kHz -> 44.1 kHz conversion (P = 147)
-and 44.1 kHz -> 16 kHz at q7 (P = 20).
+``speex_resampler_tpu/ops/pallas_fir.py``, schemes ``"highest"``, ``"int8"``
+and ``"fixed"`` (``n_accum`` 1 or 4).  It serves the geometries whose
+phase-tiled weight cycle is too large for the tiled kernel: every
+48 kHz -> 44.1 kHz conversion (P = 147), 44.1 kHz -> 16 kHz at q7 (P = 20),
+and, in the fixed universe, those whose int16 column sets pass the 6 MB
+fixed tiled cap (44.1 kHz -> 48 kHz q10).
 
 Output block k (R rows) reads K rows of the virtual axis ``hist ++ x`` from
 the closed-form origin of ``_kernel_v4``
@@ -21,8 +23,11 @@ pads them:
 
 - ``"highest"``: ``(w f32[P, K_pad, R], taps int32[P, R // ROW_TILE, 2])``
 - ``"int8"``: ``(planes int8[D, P, K_pad, R], bias f32[P, R], taps)``
+- ``"fixed"``: ``(w int16[P, K_pad, C], [coef int32[P, 4, R],] taps)``,
+  C = n_accum * R accumulator-major columns
 
-The JAX package streams ``[P, R, K_pad]`` (``[P, D, R, K_pad]`` planes);
+The JAX package streams ``[P, R, K_pad]`` (``[P, D, R, K_pad]`` planes;
+fixed: int8 ``[P, 2, C, K_pad]`` planes and an int32 bias);
 ``parallel/batch.weights_from_jax`` converts.  The tap table skips the zero
 rows of each 64-column tile, the K_pad padding among them.
 
@@ -45,7 +50,7 @@ __all__ = ["device_weights_streamed", "origins", "resample_streamed",
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_streamed adds to it, once per launch.  Callers reset the counts
 #: to count one run.
-launches = {"highest": 0, "int8": 0}
+launches = {"highest": 0, "int8": 0, "fixed": 0}
 
 #: Host weights -> the kernel's device weights (module docstring): the
 #: tiled kernel's conversion, applied to the K_pad-padded set.
@@ -60,9 +65,10 @@ def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
     return torch.div(t // den + shift, 16, rounding_mode="floor") * 16
 
 
-def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales):
-    P, K, R = tf.check_launch(hist, x, w, scheme, scales,
-                              item="K2 split5/fixed")
+def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
+           n_accum):
+    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum,
+                              item="K2c")
     if n_blocks <= 0 or n_blocks % P or shift < 0 or num <= 0 \
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "
@@ -82,7 +88,7 @@ def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales):
 def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                       n_blocks: int, shift: int, num: int, den: int,
                       f0: int = 0, scheme: str = "highest",
-                      scales: tuple = ()) -> torch.Tensor:
+                      scales: tuple = (), n_accum: int = 1) -> torch.Tensor:
     """One launch: int16[n_blocks * R, B].
 
     hist: int16[H, B] trailing history, H = round16(filt_len - 1)
@@ -90,16 +96,18 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
           window end (raises otherwise)
     w:    device weights (module docstring)
     shift, num, den, f0: the closed-form origin (module docstring)
-    scales: the int8 digit scales (one per plane), () for "highest".
+    scales: the int8 digit scales (one per plane), () otherwise.
+    n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns
+          per output.
 
     CUDA tensors launch the kernel on the current stream (asynchronously;
     a launch error raises); CPU tensors run the plain version."""
     P, K, R = _check(hist, x, w, n_blocks, shift, num, den, f0, scheme,
-                     scales)
+                     scales, n_accum)
     if x.device.type == "cpu":
         return resample_streamed_reference(
             hist, x, w, n_blocks=n_blocks, shift=shift, num=num, den=den,
-            f0=f0, scheme=scheme, scales=scales)
+            f0=f0, scheme=scheme, scales=scales, n_accum=n_accum)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
@@ -116,6 +124,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                 w[-1].data_ptr())
         if scheme == "highest":
             err = lib.streamed_fir_f32(*head, w[0].data_ptr(), *geo)
+        elif scheme == "fixed":
+            coef = w[1].data_ptr() if n_accum == 4 else None
+            err = lib.streamed_fir_fixed(*head, w[0].data_ptr(), coef,
+                                         n_accum, *geo)
         else:
             s = tuple(scales) + (0.0,) * (4 - len(scales))
             err = lib.streamed_fir_int8(*head, w[0].data_ptr(),
@@ -131,16 +143,17 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
 def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,
                                 w: tuple, *, n_blocks: int, shift: int,
                                 num: int, den: int, f0: int = 0,
-                                scheme: str = "highest",
-                                scales: tuple = ()) -> torch.Tensor:
+                                scheme: str = "highest", scales: tuple = (),
+                                n_accum: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`resample_streamed` (same contract),
     on the tensors' own device: each block's patch is gathered by index
     from its closed-form origin, then the tiled reference's product
     (``tiled_fir.apply_weights``): "highest" an f32 matmul with TF32 off;
     "int8" the exact float64 digit dots, then the kernel's f32 epilogue in
-    the same order."""
+    the same order; "fixed" the exact float64 int16 dots wrapped to int32,
+    then the Q15 epilogue."""
     P, K, R = _check(hist, x, w, n_blocks, shift, num, den, f0, scheme,
-                     scales)
+                     scales, n_accum)
     v0 = origins(n_blocks, R, shift=shift, num=num, den=den, f0=f0,
                  device=x.device)
-    return tf.apply_weights(hist, x, w, v0, scheme, scales)
+    return tf.apply_weights(hist, x, w, v0, scheme, scales, n_accum)

@@ -1,7 +1,8 @@
 """Phase-tiled polyphase FIR launch: the kernel of the batched serving path.
 
 Counterpart of the v3 family in ``speex_resampler_tpu/ops/pallas_fir.py``
-(``resample_conv_tm_pallas_v3``), schemes ``"highest"`` and ``"int8"``.
+(``resample_conv_tm_pallas_v3``), schemes ``"highest"``, ``"int8"`` and
+``"fixed"`` (the Q15 universe, ``n_accum`` 1 or 4).
 
 Layout: time-major int16 ``[rows, B]`` with the lane axis minor, as in the
 JAX package, so the same host slabs feed both.  Output block k (R rows)
@@ -14,13 +15,20 @@ Device weights (built once per step, never per launch; see
 
 - ``"highest"``: ``(w f32[P, K, R], taps int32[P, R // ROW_TILE, 2])``
 - ``"int8"``: ``(planes int8[D, P, K, R], bias f32[P, R], taps)``
+- ``"fixed"``: ``(w int16[P, K, C], coef int32[P, 4, R], taps)`` for
+  ``n_accum`` 4, ``(w int16[P, K, C], taps)`` for ``n_accum`` 1; C =
+  n_accum * R columns, accumulator-major (column ``c*R + r``)
 
 ``w`` and ``planes`` keep the JAX package's ``[.., K, R]`` layout (the TPU
 kernel transposed to ``[R, K]`` for the MXU; the CUDA kernel reads R-wide
-tap rows, which that layout already gives).  ``taps[m, i] = (lo, hi)`` is
-the range of tap rows in which weight columns ``[i*ROW_TILE, (i+1)*ROW_TILE)``
-of phase m have a nonzero entry; the CUDA kernel skips the rest, which
-changes no result (the skipped products are exact zeros).
+tap rows, which that layout already gives).  The fixed weights are the
+int16 taps themselves: the JAX package splits each into two int8 planes
+plus an int32 bias only because the MXU multiplies int8 (see
+``parallel/batch.weights_from_jax``).  ``taps[m, i] = (lo, hi)`` is the
+range of tap rows in which weight columns ``[i*ROW_TILE, (i+1)*ROW_TILE)``
+of phase m have a nonzero entry (in any of the ``n_accum`` components); the
+CUDA kernel skips the rest, which changes no result (the skipped products
+are exact zeros).
 
 :func:`resample_tiled` launches the CUDA kernel (``csrc/tiled_fir.cu``) for
 CUDA tensors and runs :func:`resample_tiled_reference`, its plain PyTorch
@@ -36,9 +44,10 @@ import torch
 
 from . import _build, int8_planes
 from .convert import word2int
+from .fixed_math import fixed_interp_mix_rows, sat32pshr15
 
 __all__ = ["int8_weights", "int8_weights_auto", "tap_ranges",
-           "device_weights", "check_launch", "apply_weights",
+           "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
 #: Output rows of one block handled by one CTA (``kRowTile`` in the CUDA
@@ -48,7 +57,7 @@ ROW_TILE = 64
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_tiled adds to it, once per launch.  Callers reset the counts to
 #: count one run.
-launches = {"highest": 0, "int8": 0}
+launches = {"highest": 0, "int8": 0, "fixed": 0}
 
 
 def int8_weights(w, digits: int = 3):
@@ -91,7 +100,9 @@ def tap_ranges(nonzero: np.ndarray) -> np.ndarray:
 
 def device_weights(w, scheme: str, device) -> tuple:
     """Host weights -> the kernel's device weights (see module docstring).
-    ``w``: f32[P, K, R] for "highest", ``(planes, bias)`` for "int8"."""
+    ``w``: f32[P, K, R] for "highest", ``(planes, bias)`` for "int8",
+    ``(w int16[P, K, C],)`` or ``(w, coef int32[P, 4, R])`` for "fixed"
+    (``n_accum`` 1 or 4)."""
     if scheme == "highest":
         w = np.asarray(w, dtype=np.float32)
         return (torch.from_numpy(w.copy()).to(device),
@@ -103,19 +114,31 @@ def device_weights(w, scheme: str, device) -> tuple:
                 torch.from_numpy(bias.copy()).to(device),
                 torch.from_numpy(tap_ranges((planes != 0).any(axis=0)))
                 .to(device))
+    if scheme == "fixed":
+        w16, *coef = (np.asarray(a) for a in w)
+        assert w16.dtype == np.int16 and len(coef) <= 1
+        P, K, C = w16.shape
+        n_accum = 4 if coef else 1
+        nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
+        return (torch.from_numpy(w16.copy()).to(device),
+                *(torch.from_numpy(c.astype(np.int32)).to(device)
+                  for c in coef),
+                torch.from_numpy(tap_ranges(nonzero)).to(device))
     raise NotImplementedError(
-        f"scheme {scheme!r} has no port yet (ROADMAP.md K1c/K1d/K1e)")
+        f"scheme {scheme!r} has no port yet (ROADMAP.md K1c)")
 
 
-def check_launch(hist, x, w, scheme, scales, extra=(),
-                 item="K1c/K1d/K1e"):
+def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
+                 item="K1c"):
     """Validate one launch's buffers and device weights (``extra``: more
     tensors that must share x's device and be contiguous); returns
     (P, K, R).  A scheme without a port raises NotImplementedError naming
     ROADMAP.md ``item``."""
-    if scheme not in ("highest", "int8"):
+    if scheme not in ("highest", "int8", "fixed"):
         raise NotImplementedError(
             f"scheme {scheme!r} has no port yet (ROADMAP.md {item})")
+    if n_accum != 1 and (scheme != "fixed" or n_accum != 4):
+        raise ValueError(f"n_accum {n_accum} under scheme {scheme!r}")
     for t in (hist, *extra, *w):
         if t.device != x.device:
             raise ValueError(f"tensor on {t.device}, expected {x.device}")
@@ -130,6 +153,19 @@ def check_launch(hist, x, w, scheme, scales, extra=(),
         if wt.dtype != torch.float32 or wt.ndim != 3:
             raise TypeError("highest weights must be f32[P, K, R]")
         P, K, R = wt.shape
+    elif scheme == "fixed":
+        if len(w) != (3 if n_accum == 4 else 2) or scales:
+            raise ValueError(f"{len(w)} fixed weight tensors, scales "
+                             f"{scales} for n_accum {n_accum}")
+        w16, taps = w[0], w[-1]
+        if w16.dtype != torch.int16 or w16.ndim != 3 \
+                or w16.shape[2] % n_accum:
+            raise TypeError("fixed weights must be int16[P, K, n_accum * R]")
+        P, K, C = w16.shape
+        R = C // n_accum
+        if n_accum == 4 and (tuple(w[1].shape) != (P, 4, R)
+                             or w[1].dtype != torch.int32):
+            raise TypeError("fixed coefficients must be int32[P, 4, R]")
     else:
         planes, bias, taps = w
         if planes.dtype != torch.int8 or planes.ndim != 4:
@@ -144,8 +180,9 @@ def check_launch(hist, x, w, scheme, scales, extra=(),
     return P, K, R
 
 
-def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
-    P, K, R = check_launch(hist, x, w, scheme, scales, extra=(offsets,))
+def _check(hist, x, w, offsets, S, n_blocks, scheme, scales, n_accum):
+    P, K, R = check_launch(hist, x, w, scheme, scales, n_accum,
+                           extra=(offsets,))
     if offsets.dtype != torch.int32:
         raise TypeError("offsets must be int32")
     if tuple(offsets.shape) != (P,) or n_blocks % P or S <= 0:
@@ -156,23 +193,26 @@ def _check(hist, x, w, offsets, S, n_blocks, scheme, scales):
 
 def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                    offsets: torch.Tensor, *, S: int, n_blocks: int,
-                   scheme: str = "highest",
-                   scales: tuple = ()) -> torch.Tensor:
+                   scheme: str = "highest", scales: tuple = (),
+                   n_accum: int = 1) -> torch.Tensor:
     """One launch: int16[n_blocks * R, B].
 
     hist: int16[H, B] trailing history, H = round16(filt_len - 1)
     x:    int16[T_c, B] chunk, real rows [0, n_in), zeros [n_in, n_in + K)
     w:    device weights (module docstring), offsets: int32[P]
-    scales: the int8 digit scales (one per plane), () for "highest".
+    scales: the int8 digit scales (one per plane), () otherwise.
+    n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns
+          per output.
 
     Rows of the virtual axis at or past H + T_c read as zero.  CUDA
     tensors launch the kernel on the current stream (asynchronously; a
     launch error raises); CPU tensors run the plain version."""
-    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales)
+    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales,
+                     n_accum)
     if x.device.type == "cpu":
         return resample_tiled_reference(hist, x, w, offsets, S=S,
                                         n_blocks=n_blocks, scheme=scheme,
-                                        scales=scales)
+                                        scales=scales, n_accum=n_accum)
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
@@ -190,6 +230,10 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                 offsets.data_ptr(), w[-1].data_ptr())
         if scheme == "highest":
             err = lib.tiled_fir_f32(*head, w[0].data_ptr(), *geo)
+        elif scheme == "fixed":
+            coef = w[1].data_ptr() if n_accum == 4 else None
+            err = lib.tiled_fir_fixed(*head, w[0].data_ptr(), coef, n_accum,
+                                      *geo)
         else:
             s = tuple(scales) + (0.0,) * (4 - len(scales))
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
@@ -213,8 +257,8 @@ def _no_tf32():
 
 def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                              offsets: torch.Tensor, *, S: int, n_blocks: int,
-                             scheme: str = "highest",
-                             scales: tuple = ()) -> torch.Tensor:
+                             scheme: str = "highest", scales: tuple = (),
+                             n_accum: int = 1) -> torch.Tensor:
     """Plain PyTorch version of :func:`resample_tiled` (same contract), on
     the tensors' own device: each block's patch is gathered with an index
     tensor, then one batched product over all blocks.
@@ -223,21 +267,35 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     digit's integer dot ``sum w_d * (x - 128)`` in float64, exact because
     its magnitude stays below 2^31 (the certificate refuses planes where
     it would not), converted to int32, then the kernel's f32 epilogue in
-    the same order."""
-    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales)
+    the same order.  "fixed": the int16 x int16 dot of every weight column
+    in float64, exact (each product is at most 2^30 and every partial sum
+    an integer below 2^40, so any order gives the same number), wrapped to
+    int32 as the C accumulator wraps, then the Q15 epilogue in int32
+    (ops/fixed_math: SATURATE32PSHR for n_accum 1, the MULT16_32_Q15 cubic
+    mix of the 4 accumulators for n_accum 4)."""
+    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales,
+                     n_accum)
     k = torch.arange(n_blocks, device=x.device)
     v0 = (k // P) * S + offsets.long()[k % P]
-    return apply_weights(hist, x, w, v0, scheme, scales)
+    return apply_weights(hist, x, w, v0, scheme, scales, n_accum)
+
+
+def wrap_int32(v: torch.Tensor) -> torch.Tensor:
+    """An exact integer-valued tensor (float64 or int64) -> int32, wrapped
+    mod 2^32 as a two's-complement int32 accumulator wraps."""
+    v = v.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(v >= 2 ** 31, v - 2 ** 32, v).to(torch.int32)
 
 
 def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
-                  v0: torch.Tensor, scheme: str,
-                  scales: tuple) -> torch.Tensor:
+                  v0: torch.Tensor, scheme: str, scales: tuple,
+                  n_accum: int = 1) -> torch.Tensor:
     """Plain product of one launch: block k reads K rows of the virtual
     axis ``hist ++ x ++ zeros`` from origin ``v0[k]`` and applies the
     weights of phase ``k % P``; int16[n_blocks * R, B] (see
-    :func:`resample_tiled_reference` for the two schemes' arithmetic)."""
-    P, K, R = w[0].shape[-3:]     # f32[P, K, R] or int8[D, P, K, R]
+    :func:`resample_tiled_reference` for the schemes' arithmetic)."""
+    P, K, R = w[0].shape[-3:]     # [P, K, R], [D, P, K, R] or [P, K, C]
+    R //= n_accum
     n_blocks, B = v0.shape[0], hist.shape[1]
     dev = x.device
     phase = torch.arange(n_blocks, device=dev) % P
@@ -248,6 +306,13 @@ def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     if scheme == "highest":
         with _no_tf32():
             y = torch.matmul(w[0][phase].transpose(1, 2), patch.float())
+    elif scheme == "fixed":
+        acc = wrap_int32(torch.matmul(w[0][phase].double().transpose(1, 2),
+                                      patch.double()))        # [nb, C, B]
+        if n_accum == 1:
+            return sat32pshr15(acc).reshape(n_blocks * R, B)
+        return fixed_interp_mix_rows(acc.view(n_blocks, 4, R, B),
+                                     w[1][phase]).reshape(n_blocks * R, B)
     else:
         planes, bias = w[0], w[1]
         xs = patch.double() - 128.0

@@ -11,8 +11,9 @@ changes the phase (time-major buffers, lanes minor):
 
 The launch geometry, weights and buffer contract are those of the JAX
 package's ``speex_resampler_tpu/parallel/batch.py``, so the two engines can
-be compared launch by launch.  The phase-tiled and streamed geometries of
-the float universe are ported; every other path raises
+be compared launch by launch.  The phase-tiled and streamed geometries are
+ported in both numeric universes (float, and the Q15 fixed-point universe
+with its exact scheme "fixed"); every other path raises
 ``NotImplementedError`` naming its ROADMAP.md item.  The kernels are
 ``ops/tiled_fir.resample_tiled`` (small weight cycles, e.g. 44.1k -> 48k)
 and ``ops/streamed_fir.resample_streamed`` (large ones, e.g. 48k -> 44.1k).
@@ -51,6 +52,11 @@ _MAX_STREAMED_WEIGHT_BYTES = 256 * 1024 * 1024
 # (the <=1 LSB max-error contract itself would be at risk near 0.5).
 _INT8_CERT_GATE = 0.20
 _INT8_CERT_MAX = 0.35
+
+# Fixed-universe tiled weights (int16, n_accum columns per output) may use
+# more than the float cap (the JAX package's VMEM choice, kept for identical
+# geometry).
+_MAX_FIXED_TILED_WEIGHT_BYTES = 6 * 1024 * 1024
 
 
 def _unported(what: str, item: str) -> NotImplementedError:
@@ -91,8 +97,19 @@ class BatchSpec:
         return self.n_blocks * self.R
 
 
+def _n_cols(spec: fd.FilterSpec) -> int:
+    """Weight columns per output: 4 accumulator tap sets in the fixed
+    interpolated universe, else 1."""
+    return 4 if (spec.fixed_point and not spec.use_direct) else 1
+
+
+def _itemsize(spec: fd.FilterSpec) -> int:
+    """Bytes per phase-tiled weight: int16 taps (fixed) or f32."""
+    return 2 if spec.fixed_point else 4
+
+
 def _tiled_weight_bytes_estimate(spec: fd.FilterSpec, R: int = 128) -> int:
-    """Size of the phase-tiled weight set WITHOUT building it (the probe
+    """Size of one phase-tiled weight set WITHOUT building it (the probe
     itself would allocate GBs for pathological coprime ratios)."""
     g = math.gcd(R * spec.num, spec.den)
     P0 = spec.den // g
@@ -100,7 +117,7 @@ def _tiled_weight_bytes_estimate(spec: fd.FilterSpec, R: int = 128) -> int:
     factor = 16 // math.gcd(max(S0, 1), 16)
     P = P0 * factor
     K = spec.filt_len + (R - 1) * spec.num // spec.den + 32
-    return P * K * R * 4
+    return P * K * R * _itemsize(spec)
 
 
 def _v3_back(S: int, H: int) -> int:
@@ -183,8 +200,10 @@ def _hist_rows_tiled(filt_len: int) -> int:
 def _tiled_R(spec: fd.FilterSpec) -> int:
     """Output-block height R: 128, doubled while a block's input span
     R*num/den stays under 96 rows, capped at 512 and at half the weight
-    budget (the JAX package's rule for the float universe, kept for
-    identical geometry)."""
+    budget of the universe (all n_cols column sets counted; the JAX
+    package's rule, kept for identical geometry)."""
+    budget = (_MAX_FIXED_TILED_WEIGHT_BYTES if spec.fixed_point
+              else _MAX_TILED_WEIGHT_BYTES)
     R = 128
     while R < 512 and (R * spec.num) // spec.den < 96:
         R2 = R * 2
@@ -192,30 +211,66 @@ def _tiled_R(spec: fd.FilterSpec) -> int:
         S0 = R2 * spec.num // g                   # per P0 = den/g blocks
         P = (spec.den // g) * (16 // math.gcd(S0, 16))
         K_est = (-(-(R2 * spec.num) // spec.den)) + spec.filt_len + 16
-        if 4 * P * K_est * R2 > _MAX_TILED_WEIGHT_BYTES // 2:
+        if _itemsize(spec) * P * K_est * R2 * _n_cols(spec) > budget // 2:
             break
         R = R2
     return R
 
 
-def _tiled_weights(spec: fd.FilterSpec, f0: int = 0):
-    """Phase-tiled weight tables, cached ON the spec (at most 4 f0s; a
-    flush rebuilds at a handful of phases).  design_filter is lru_cache'd,
-    so the spec is shared across engines and the cache serializes on the
-    spec's own lock."""
+def _tiled_weights(spec: fd.FilterSpec, f0: int = 0, component: int = 0):
+    """Phase-tiled weight tables, cached ON the spec by (f0, component), at
+    most 4 entries (a flush rebuilds at a handful of phases; one fixed
+    interpolated f0 fills the cache with its 4 components).  ``component``
+    picks the accumulator tap set ``interp_taps[:, c, :]`` of a fixed
+    interpolated spec; every component has the same geometry.
+    design_filter is lru_cache'd, so the spec is shared across engines and
+    the cache serializes on the spec's own lock."""
     with fd._spec_lock(spec):
         cache = getattr(spec, "_ptw_cache", None)
         if cache is None:
             cache = {}
             object.__setattr__(spec, "_ptw_cache", cache)
-        if f0 not in cache:
+        key = (f0, component)
+        if key not in cache:
             if len(cache) >= 4:
                 cache.pop(next(iter(cache)))
             H = _hist_rows_tiled(spec.filt_len)
-            cache[f0] = ph.build_phase_tiled_weights(
-                spec.phase_table, spec.num, spec.den, f0, R=_tiled_R(spec),
+            pt = (spec.interp_taps[:, component, :] if _n_cols(spec) == 4
+                  else spec.phase_table)
+            cache[key] = ph.build_phase_tiled_weights(
+                pt, spec.num, spec.den, f0, R=_tiled_R(spec),
                 origin_shift=H - (spec.filt_len - 1))
-        return cache[f0]
+        return cache[key]
+
+
+def _fixed_coef(spec: fd.FilterSpec, f0: int, P: int, R: int) -> np.ndarray:
+    """Per-block-phase Q15 cubic coefficients of the fixed interpolated
+    kernels: int32 [P, 4, R], coef[m] for blocks with k % P == m (phases
+    repeat with period P because P*R*num = 0 mod den by construction)."""
+    r = np.arange(R, dtype=np.int64)
+    coef = np.empty((P, 4, R), dtype=np.int32)
+    for m in range(P):
+        ph_idx = (f0 + (m * R + r) * spec.num) % spec.den
+        coef[m] = spec.interp_coef[ph_idx].T
+    return coef
+
+
+def _fixed_host_weights(spec: fd.FilterSpec, f0: int, K_pad: int) -> tuple:
+    """The fixed scheme's host weights: ``(w int16[P, K_pad, C],)`` for a
+    direct spec, ``(w, coef int32[P, 4, R])`` for an interpolated one, with
+    the n_cols component sets side by side (column c*R + r) and each padded
+    with zero tap rows to K_pad.  Each component is built once here."""
+    ptw = _tiled_weights(spec, f0)
+    comps = [ptw]
+    for c in range(1, _n_cols(spec)):
+        pc = _tiled_weights(spec, f0, component=c)
+        assert pc.offsets.tolist() == ptw.offsets.tolist()
+        comps.append(pc)
+    w = np.concatenate([np.pad(pc.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+                        for pc in comps], axis=2)
+    if len(comps) == 1:
+        return (w,)
+    return (w, _fixed_coef(spec, f0, ptw.P, ptw.R))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -276,13 +331,18 @@ def _periods_per_unit(kernel: str, P: int) -> int:
 
 def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
                           f0: int) -> BatchSpec:
-    if spec.fixed_point:
-        raise _unported("the fixed-point universe", "M6")
-    if _tiled_weight_bytes_estimate(spec) <= 2 * _MAX_STREAMED_WEIGHT_BYTES:
+    """Tiled while the weights (all n_cols column sets) fit the universe's
+    tiled cap, streamed up to 256 MB; the JAX package sends the rest to its
+    dense or gather geometry, which is not ported."""
+    n_cols = _n_cols(spec)
+    if _tiled_weight_bytes_estimate(spec) * n_cols \
+            <= 2 * _MAX_STREAMED_WEIGHT_BYTES:
         ptw = _tiled_weights(spec, f0)
-        if ptw.w.nbytes <= _MAX_STREAMED_WEIGHT_BYTES:
-            kernel = ("tiled" if ptw.w.nbytes <= _MAX_TILED_WEIGHT_BYTES
-                      else "streamed")
+        nbytes = ptw.w.nbytes * n_cols
+        tiled_max = (_MAX_FIXED_TILED_WEIGHT_BYTES if spec.fixed_point
+                     else _MAX_TILED_WEIGHT_BYTES)
+        if nbytes <= _MAX_STREAMED_WEIGHT_BYTES:
+            kernel = "tiled" if nbytes <= tiled_max else "streamed"
             gp = _periods_per_unit(kernel, ptw.P)
             n_periods = max(gp, round(target_in_frames / (ptw.S * gp)) * gp)
             return BatchSpec(num=spec.num, den=spec.den,
@@ -341,9 +401,11 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
 
     ``scheme``: "int8" (certificate-gated digit planes), "highest" (exact
     f32), or "auto" = int8 when the worst-case certificate clears the
-    gate, else highest (see _resolve_scheme)."""
-    if spec.fixed_point:
-        raise _unported("the fixed-point universe", "M6")
+    gate, else highest (see _resolve_scheme).  A fixed-point spec has one
+    exact scheme, "fixed" ("auto" resolves it; any other request raises
+    INVALID_ARG, as in the JAX package)."""
+    if spec.fixed_point and scheme not in ("auto", "fixed"):
+        raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
     if bspec.kernel == "streamed":
         return _build_streamed_step(spec, bspec, device=device,
                                     scheme=scheme)
@@ -351,7 +413,6 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         raise _unported(f"the {bspec.kernel} geometry", "K3/M8")
     ptw = _tiled_weights(spec, bspec.f0)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
-    scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
     N = spec.filt_len
     H = _hist_rows_tiled(N)
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
@@ -359,11 +420,17 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     V = (_v3_views(ptw.S, ptw.K, H, ptw.offsets)
          + _v3_periods_per_program(ptw.P) - 1)
     chunk_rows = (n_periods - _v3_back(ptw.S, H) + V) * ptw.S
-    host_w = (int8p[0], int8p[1]) if scheme == "int8" else ptw.w
+    if spec.fixed_point:
+        scheme, scales = "fixed", ()
+        host_w = _fixed_host_weights(spec, bspec.f0, ptw.K)
+    else:
+        scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
+        host_w = (int8p[0], int8p[1]) if scheme == "int8" else ptw.w
     w = tf.device_weights(host_w, scheme, device)
     kernel_kw = dict(
         offsets=torch.from_numpy(ptw.offsets.astype(np.int32)).to(device),
-        S=ptw.S, n_blocks=bspec.n_blocks, scheme=scheme, scales=scales)
+        S=ptw.S, n_blocks=bspec.n_blocks, scheme=scheme, scales=scales,
+        n_accum=_n_cols(spec))
 
     def step(hist, x, w):
         y = tf.resample_tiled(hist, x, w, **kernel_kw)
@@ -375,23 +442,27 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
 
 def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                          device: torch.device, scheme: str) -> BatchedStep:
-    """The streamed geometry's step (the JAX package's float branch): the
-    phase-tiled weights padded to K_pad = round128(K) tap rows, the scheme
-    resolved on the padded set (so planes, scales and certificate equal
-    the JAX package's), and a chunk of round16(n_in + K_pad) rows."""
+    """The streamed geometry's step (the JAX package's branch): the
+    phase-tiled weights padded to K_pad = round128(K) tap rows, the float
+    scheme resolved on the padded set (so planes, scales and certificate
+    equal the JAX package's), and a chunk of round16(n_in + K_pad) rows."""
     ptw = _tiled_weights(spec, bspec.f0)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     N = spec.filt_len
     H = _hist_rows_tiled(N)
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     K_pad = -(-ptw.K // 128) * 128
-    w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
-    scheme, int8p, scales = _resolve_scheme(w_np, scheme)
-    host_w = (int8p[0], int8p[1]) if scheme == "int8" else w_np
+    if spec.fixed_point:
+        scheme, scales = "fixed", ()
+        host_w = _fixed_host_weights(spec, bspec.f0, K_pad)
+    else:
+        w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+        scheme, int8p, scales = _resolve_scheme(w_np, scheme)
+        host_w = (int8p[0], int8p[1]) if scheme == "int8" else w_np
     w = sf.device_weights_streamed(host_w, scheme, device)
     kernel_kw = dict(n_blocks=bspec.n_blocks, shift=H - (N - 1),
                      num=spec.num, den=spec.den, f0=bspec.f0, scheme=scheme,
-                     scales=scales)
+                     scales=scales, n_accum=_n_cols(spec))
 
     def step(hist, x, w):
         y = sf.resample_streamed(hist, x, w, **kernel_kw)
@@ -413,12 +484,27 @@ def weights_from_jax(w, scheme: str, device="cuda",
       ``(planes int8[D, P, K, R], bias)`` tuple for "int8";
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
-      the port's [P, K_pad, R] / [D, P, K_pad, R]."""
+      the port's [P, K_pad, R] / [D, P, K_pad, R];
+    - "fixed", either geometry: ``(planes int8[2, P, C, K], bias int32[P,
+      C][, coef int32[P, 4, R]])`` (tiled) or planes int8[P, 2, C, K_pad]
+      (streamed).  The two int8 planes and the bias exist only for the
+      TPU's int8 MXU: the taps are rebuilt as int16 ``256*wh + wl0``,
+      transposed to the port's [P, K, C], and the bias is checked to be
+      ``128 * sum_K w`` and dropped."""
     device = torch.device(device)
+    if kernel not in ("tiled", "streamed"):
+        raise ValueError(f"unknown geometry {kernel!r}")
+    if scheme == "fixed":
+        planes, bias, *coef = (np.asarray(a) for a in w)
+        if kernel == "streamed":
+            planes = planes.transpose(1, 0, 2, 3)
+        w16 = 256 * planes[0].astype(np.int32) + planes[1].astype(np.int32)
+        if not np.array_equal(w16.sum(axis=2, dtype=np.int32) << 7, bias):
+            raise ValueError("fixed bias is not 128 * sum of the taps")
+        w16 = np.ascontiguousarray(w16.transpose(0, 2, 1)).astype(np.int16)
+        return tf.device_weights((w16, *coef), scheme, device)
     if kernel == "tiled":
         return tf.device_weights(w, scheme, device)
-    if kernel != "streamed":
-        raise ValueError(f"unknown geometry {kernel!r}")
     if scheme == "highest":
         w = np.ascontiguousarray(np.asarray(w).transpose(0, 2, 1))
     elif scheme == "int8":
@@ -489,8 +575,9 @@ class BatchedResampler:
 
     Same semantics as the JAX package's ``BatchedResampler`` for
     ``process``/``flush``/``reset_mem``/``state_dict``: each lane's output
-    equals the reference's for that lane's samples within 1 LSB, and a
-    checkpoint from either engine loads in the other.
+    equals the reference's for that lane's samples within 1 LSB (bit for
+    bit with ``fixed_point=True``), and a checkpoint from either engine
+    loads in the other (a snapshot of the other universe is refused).
 
     Parameters
     ----------
@@ -499,8 +586,11 @@ class BatchedResampler:
         to the launch quantum.
     device : "cuda" (the kernel; raises when no CUDA device exists) or
         "cpu" (the kernel's plain PyTorch version).
-    scheme : "auto", "int8" or "highest".
-    fixed_point, mesh : not ported yet (raise NotImplementedError).
+    scheme : "auto", "int8" or "highest"; "auto" or "fixed" with
+        ``fixed_point``.
+    fixed_point : serve the Q15 fixed-point universe (the speexdsp
+        ``-DFIXED_POINT`` build), bit-exact.
+    mesh : not ported yet (raises NotImplementedError).
     max_latency_ms : hard cap on the launch quantum.
 
     A launch or readback error raises; there is no degraded mode yet.
@@ -520,8 +610,6 @@ class BatchedResampler:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
         if max_latency_ms is not None and max_latency_ms <= 0:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-        if fixed_point:
-            raise _unported("fixed_point=True", "M6")
         if mesh is not None:
             raise _unported("mesh= (multi-GPU lanes)", "M12")
         self.device = torch.device(device)
@@ -534,10 +622,11 @@ class BatchedResampler:
         self.channels = channels
         self.in_rate = in_rate
         self.out_rate = out_rate
+        self.fixed_point = bool(fixed_point)
         g = math.gcd(in_rate, out_rate)
         try:
             self.spec = fd.design_filter(in_rate // g, out_rate // g,
-                                         quality)
+                                         quality, fixed_point=fixed_point)
         except fd.OverflowArgError:
             raise ResamplerError(ResamplerErrorCode.OVERFLOW)
         self.B = n_streams * channels
@@ -648,7 +737,7 @@ class BatchedResampler:
         return {
             "in_rate": self.in_rate, "out_rate": self.out_rate,
             "quality": self.spec.quality,
-            "fixed_point": False,
+            "fixed_point": self.fixed_point,
             "n_streams": self.n_streams, "channels": self.channels,
             "hist": to_host(self._hist),
             "staged": self._staged.peek_all(),
@@ -664,7 +753,7 @@ class BatchedResampler:
                                                        self.channels) or \
                 (state["in_rate"], state["out_rate"], state["quality"]) != \
                 (self.in_rate, self.out_rate, self.spec.quality) or \
-                state.get("fixed_point", False):
+                state.get("fixed_point", False) != self.fixed_point:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
         if state.get("degraded", False):
             raise _unported("a degraded (zero-fill) engine state", "M4")

@@ -1,0 +1,57 @@
+"""Inputs that drive the fixed-point kernels' int32 accumulators past 2^31.
+
+Shared by tests/test_torch_fixed.py (CPU, against the JAX package),
+tests/test_torch_gpu.py (the CUDA kernels against their plain versions)
+and chip_smoke.py.  Imports torch and the port only.
+"""
+
+import numpy as np
+
+from speex_resampler_tpu_torch.ops import streamed_fir as sf
+from speex_resampler_tpu_torch.ops import tiled_fir as tf
+
+
+def block_origins(step) -> np.ndarray:
+    """Each block's patch origin on the virtual axis hist ++ x, for a step
+    of ``parallel/batch.make_batched_step`` (tiled or streamed)."""
+    kw = step.kernel_kw
+    k = np.arange(kw["n_blocks"])
+    if step.kernel == "tiled":
+        off = kw["offsets"].cpu().numpy().astype(np.int64)
+        return (k // off.shape[0]) * kw["S"] + off[k % off.shape[0]]
+    R = step.w[-1].shape[1] * tf.ROW_TILE        # taps [P, R / ROW_TILE, 2]
+    return sf.origins(kw["n_blocks"], R, shift=kw["shift"], num=kw["num"],
+                      den=kw["den"], f0=kw["f0"]).numpy()
+
+
+def launch_inputs(step, n_in: int, B: int, seed: int, wrap: bool = True):
+    """Random int16 history and chunk for one launch of ``step``: ``n_in``
+    real chunk rows, zeros after them.  With ``wrap``, every third lane
+    carries :func:`wrap_input`; raises AssertionError if its accumulator
+    stays within int32."""
+    rng = np.random.default_rng(seed)
+    hist = rng.integers(-32768, 32768, (step.hist_rows, B), dtype=np.int16)
+    x = np.zeros((step.chunk_rows, B), dtype=np.int16)
+    x[:n_in] = rng.integers(-32768, 32768, (n_in, B), dtype=np.int16)
+    if wrap and wrap_input(step, x, np.arange(0, B, 3)) <= 2 ** 31:
+        raise AssertionError("the wrap input does not pass 2^31")
+    return hist, x
+
+
+def wrap_input(step, x: np.ndarray, lanes) -> int:
+    """Write ``32767 * sign(w)`` over the window of the first block that
+    lies wholly in the chunk, for its weight column with the largest
+    sum |w|, into ``x[:, lanes]`` (int16 [chunk_rows, B], in place).  That
+    output's exact accumulator is sum |w| * 32767, returned: over 2^31 at
+    the real fixed configs, so the int32 sum wraps."""
+    w = step.w[0].cpu().numpy().astype(np.int64)          # [P, K, C]
+    P, K, _ = w.shape
+    H = step.hist_rows
+    v0 = block_origins(step)
+    k = int(np.flatnonzero(v0 >= H)[0])
+    col = int(np.abs(w[k % P]).sum(axis=0).argmax())
+    taps = w[k % P, :, col]
+    rows = v0[k] - H + np.arange(K)
+    x[rows[:, None], np.asarray(lanes)[None, :]] = \
+        (32767 * np.sign(taps)).astype(np.int16)[:, None]
+    return int(np.abs(taps).sum()) * 32767

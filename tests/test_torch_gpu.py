@@ -7,11 +7,13 @@ machine with a GPU and no jax it runs as
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_gpu.py
 
 Tolerance: "int8" bit-identical (exact int32 digit sums, the same f32
-epilogue order in both); "highest" max |err| <= 1 LSB with at most the
-Poisson tie count of tests/conftest.py::lsb_tie_limit (f32 sums in
+epilogue order in both); "fixed" bit-identical (exact int16 dots wrapped
+mod 2^32, the Q15 epilogue in int32); "highest" max |err| <= 1 LSB with at
+most the Poisson tie count of tests/conftest.py::lsb_tie_limit (f32 sums in
 another order).
 """
 
+import dataclasses
 import math
 
 import numpy as np
@@ -24,6 +26,8 @@ from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
+
+from fixed_inputs import launch_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -129,6 +133,85 @@ def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
             torch.cuda.synchronize()
             assert tsf.launches[step.scheme] == before + 1
             _compare(got.cpu().numpy(), want.cpu().numpy(), step.scheme)
+
+
+def _reduced(i: int, o: int) -> tuple:
+    g = math.gcd(i, o)
+    return i // g, o // g
+
+
+def _fixed_step(cfg, f0: int, kernel: str):
+    """The fixed step of cfg at f0; kernel="streamed" on a tiled direct
+    config feeds its weights, padded to K_pad, to the streamed kernel."""
+    i, o, q, target = cfg
+    spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
+    bspec = tb._launch_geometry(spec, target, f0=f0)
+    bspec = dataclasses.replace(bspec, kernel=kernel)
+    return bspec, tb.make_batched_step(spec, bspec, device="cuda")
+
+
+# (in, out, quality, target frames), kernel, n_accum
+FIXED = [((44100, 48000, 7, 9408), "tiled", 4),
+         ((24000, 48000, 5, 4096), "tiled", 1),
+         ((48000, 44100, 10, 20480), "streamed", 4),
+         ((24000, 48000, 5, 4096), "streamed", 1)]
+
+
+@pytest.mark.parametrize("cfg,kernel,n_accum", FIXED,
+                         ids=["tiled-44k1-48k-q7", "tiled-24k-48k-q5",
+                              "streamed-48k-44k1-q10", "streamed-24k-48k-q5"])
+def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
+    """Bit-identical (0 mismatches) at f0 = 0 and at the phase a flush
+    leaves, B = 2048 and 130, every third lane carrying the wrap input (an
+    accumulator past 2^31)."""
+    i, o, q, _ = cfg
+    spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
+    m = tph.producible_outputs(3368, 0, 0, spec.num, spec.den)
+    module = ttf if kernel == "tiled" else tsf
+    for f0 in sorted({0, (m * spec.num) % spec.den}):
+        bspec, step = _fixed_step(cfg, f0, kernel)
+        assert (step.kernel, step.scheme) == (kernel, "fixed")
+        assert step.kernel_kw["n_accum"] == n_accum
+        for B in (2048, 130):
+            hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+                step, bspec.in_per_launch, B, seed=B + f0))
+            launch = (ttf.resample_tiled if kernel == "tiled"
+                      else tsf.resample_streamed)
+            plain = (ttf.resample_tiled_reference if kernel == "tiled"
+                     else tsf.resample_streamed_reference)
+            before = module.launches["fixed"]
+            got = launch(hist, x, step.w, **step.kernel_kw)
+            want = plain(hist, x, step.w, **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert module.launches["fixed"] == before + 1
+            assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("cfg", [(44100, 48000, 7, 2352),
+                                 (48000, 44100, 10, 20480)],
+                         ids=["44k1-48k-q7", "48k-44k1-q10"])
+def test_fixed_engine_cuda_matches_cpu(cuda, cfg):
+    """fixed_point=True: process / flush / process on the card equals the
+    CPU engine bit for bit, every launch through the fixed kernel."""
+    i, o, q, target = cfg
+    engines = [BatchedResampler(3, 2, i, o, q, device=d, fixed_point=True,
+                                target_chunk_frames=target)
+               for d in ("cuda", "cpu")]
+    module = ttf if engines[0].bspec.kernel == "tiled" else tsf
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
+              for n in (2 * target + 500, 900, 3000)]
+    outs = []
+    for eng in engines:
+        before = module.launches["fixed"]
+        got = [eng.process(frames[0]), eng.process(frames[1]), eng.flush(),
+               eng.process(frames[2]), eng.flush()]
+        outs.append(np.concatenate(got, axis=1))
+        n = module.launches["fixed"] - before
+        assert n == (eng.launches if eng.device.type == "cuda" else 0)
+    assert engines[0]._step.scheme == "fixed"
+    assert engines[0].launches == engines[1].launches > 2
+    assert np.array_equal(outs[0], outs[1])
 
 
 @pytest.mark.parametrize("scheme", ["highest", "auto"])
