@@ -7,10 +7,18 @@ nvcc per source, in parallel) and drives the serving paths of
 ``BatchedResampler``, 1024 stereo streams (B = 2048 lanes) each:
 
 - the tiled path, 44.1 kHz -> 48 kHz q7 (``csrc/tiled_fir.cu``);
-- the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``);
+- the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``),
+  with "auto" (int8), "highest" and an explicit "split5";
 - the same two in the fixed-point (Q15) universe (``fixed_point=True``,
   the kernels' "fixed" scheme with 4 accumulator column sets), and
-  24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set).
+  24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set);
+- the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
+  the dense geometry (``csrc/dense_fir.cu``), and its fixed twin (plain
+  torch on the card, no kernel);
+- clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
+  fixed (plain torch on the card, no kernel);
+- 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
+  split5 scheme); the f32 kernel is checked and timed at the same launch.
 
 For each path it holds every kernel against its plain PyTorch version on
 the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
@@ -18,10 +26,11 @@ drive the int32 accumulators past 2^31; the streamed kernel also takes the
 direct filter's weights), serves the path through
 ``process``/``flush``/``process`` with the launch counts set to 0 just
 before and read just after (every kernel of the path must have launched,
-once per engine launch), checks streams 0-3 against a CPU engine, then
+once per engine launch; a plain-torch path launches none and keeps its
+step's tensors on the card), checks streams 0-3 against a CPU engine, then
 times kernel, plain version and, where one exists, the one PyTorch call
-that computes the same product.  Every phase raises on failure (non-zero
-exit).  The last two lines of standard output are the kernels' JSON
+that computes the same product (plain-torch paths: the step, by the host
+clock).  Every phase raises on failure (non-zero exit).  The last two lines of standard output are the kernels' JSON
 summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
 """
@@ -40,7 +49,10 @@ import torch
 
 from speex_resampler_tpu_torch import BatchedResampler
 from speex_resampler_tpu_torch.ops import _build, phase as ph
+from speex_resampler_tpu_torch.ops.convert import word2int
+from speex_resampler_tpu_torch.ops import dense_fir as df
 from speex_resampler_tpu_torch.ops import filter_design as fd
+from speex_resampler_tpu_torch.ops import fir_matmul as fm
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
@@ -55,19 +67,27 @@ STREAMS, CHANNELS = 1024, 2
 LANES = STREAMS * CHANNELS
 
 
+#: every kernel module, by the geometry it launches
+MODULES = {"tiled": tf, "streamed": sf, "dense": df}
+
+
 class Path:
-    """One serving path: its config, its kernel module and its schedule
-    (ragged process() calls, flush, one more process() call)."""
+    """One serving path: its config, its kernel module (None for a path
+    that runs plain torch on the card) and its schedule (ragged process()
+    calls, flush, one more process() call)."""
 
     def __init__(self, name, rates, reduced, quality, target, frames, after,
                  module, source, replaces, kernel, fixed=False,
-                 flush_moves_f0=True):
+                 flush_moves_f0=True, max_latency_ms=None):
         self.name, self.rates, self.quality = name, rates, quality
         self.num, self.den = reduced
         self.target, self.frames, self.after = target, frames, after
         self.module, self.source, self.replaces = module, source, replaces
         self.kernel = kernel          # BatchSpec.kernel of the path
         self.fixed = fixed            # the Q15 universe (fixed_point=True)
+        self.max_latency_ms = max_latency_ms
+        self.max_in = (None if max_latency_ms is None
+                       else int(max_latency_ms * rates[0] / 1000))
         self.spec = fd.design_filter(self.num, self.den, quality,
                                      fixed_point=fixed)
         # the phase the flush of the staged remainder leaves
@@ -77,26 +97,34 @@ class Path:
         if flush_moves_f0 and self.f0_flush == 0:
             raise AssertionError(f"{name}: the schedule leaves f0 at 0")
 
+    def geometry(self, f0: int = 0):
+        return tb._launch_geometry(self.spec, self.target, f0=f0,
+                                   max_in_frames=self.max_in)
+
     def quantum(self) -> int:
-        return tb._launch_geometry(self.spec, self.target).in_per_launch
+        return self.geometry().in_per_launch
 
     def engine(self, n_streams: int, device: str, scheme: str):
         return BatchedResampler(n_streams, CHANNELS, *self.rates,
                                 self.quality, target_chunk_frames=self.target,
                                 device=device, scheme=scheme,
-                                fixed_point=self.fixed)
+                                fixed_point=self.fixed,
+                                max_latency_ms=self.max_latency_ms)
 
 
 def launch(hist, x, step):
-    """The step's kernel (tiled or streamed) on one launch's buffers."""
-    fn = tf.resample_tiled if step.kernel == "tiled" else sf.resample_streamed
+    """The step's kernel (tiled, streamed or dense) on one launch's
+    buffers."""
+    fn = {"tiled": tf.resample_tiled, "streamed": sf.resample_streamed,
+          "dense": df.resample_dense}[step.kernel]
     return fn(hist, x, step.w, **step.kernel_kw)
 
 
 def plain(hist, x, step):
     """The step kernel's plain PyTorch version on the same buffers."""
-    fn = (tf.resample_tiled_reference if step.kernel == "tiled"
-          else sf.resample_streamed_reference)
+    fn = {"tiled": tf.resample_tiled_reference,
+          "streamed": sf.resample_streamed_reference,
+          "dense": df.resample_dense_reference}[step.kernel]
     return fn(hist, x, step.w, **step.kernel_kw)
 
 
@@ -104,7 +132,8 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1) -> str:
     """The CUDA kernel a (geometry, resolved scheme, n_accum) launches."""
     if scheme == "fixed":
         return f"{kernel}_fir_fixed_kernel<{n_accum}>"
-    return f"{kernel}_fir_{'f32' if scheme == 'highest' else 'int8'}_kernel"
+    suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}[scheme]
+    return f"{kernel}_fir_{suffix}_kernel"
 
 
 # 9408-frame quanta: 41000 frames = 4 launches + 3368 staged (f0 -> 147)
@@ -136,11 +165,43 @@ FIXED_DIRECT = Path("tiled fixed 24k->48k q5", (24000, 48000), (1, 2), 5,
                     "speex_resampler_tpu/ops/pallas_fir.py:404", "tiled",
                     fixed=True, flush_moves_f0=False)
 
+# the voip preset's engine: Q3 under a hard 20 ms cap (882-frame quanta,
+# the dense geometry); 4200 frames = 4 launches + 672 staged (f0 -> 84)
+VOIP = Path("dense voip 44.1k->48k q3 20 ms", (44100, 48000), (147, 160), 3,
+            882, (2000, 1500, 700), (1764,), df,
+            "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+            "speex_resampler_tpu/ops/pallas_fir.py:198", "dense",
+            max_latency_ms=20)
+VOIP_FIXED = Path("dense fixed voip 44.1k->48k q3 20 ms", (44100, 48000),
+                  (147, 160), 3, 882, (2000, 1500, 700), (1764,), None,
+                  None, None, "dense", fixed=True, max_latency_ms=20)
+# clock drift: one 44100-frame block per launch; 90000 frames = 2
+# launches + 1800 staged
+DRIFT = Path("gather 44.1k->44.101k q7", (44100, 44101), (44100, 44101), 7,
+             44100, (30000, 20000, 40000), (44100,), None, None, None,
+             "gather")
+DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
+                   (44100, 44101), 7, 44100, (30000, 20000, 40000), (44100,),
+                   None, None, None, "gather", fixed=True)
+# 12:1 decimation at q10, where "auto" resolves split5 (filt_len 3072, K
+# 4600, P 1); 30720-frame quanta: 73000 frames = 2 launches + 11560 staged
+DECIMATE = Path("tiled 96k->8k q10", (96000, 8000), (12, 1), 10, 30720,
+                (40000, 25000, 8000), (30720,), tf,
+                "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                "speex_resampler_tpu/ops/pallas_fir.py:416", "tiled",
+                flush_moves_f0=False)
+
+# the TPU branch a scheme's kernel replaces, where it is not the path's
+REPLACES = {("tiled", "split5"): "speex_resampler_tpu/ops/pallas_fir.py:416",
+            ("streamed", "split5"):
+                "speex_resampler_tpu/ops/pallas_fir.py:667"}
+
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM, FP32 outside
-# the tensor cores, int8 tensor-core operations
+# the tensor cores, int8 and bf16 tensor-core operations
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
+BF16_FLOPS = 989e12
 
 
 def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
@@ -150,8 +211,8 @@ def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
 
 
 def compare(got: np.ndarray, want: np.ndarray, scheme: str, what: str):
-    """int8, fixed: bit-identical.  highest: max |err| <= 1 within the tie
-    bound (f32 sums in another order).  Returns (max |err|, mismatches)."""
+    """int8, fixed: bit-identical.  highest, split5: max |err| <= 1 within
+    the tie bound (f32 sums in another order).  Returns (max |err|, mismatches)."""
     if got.shape != want.shape:
         raise AssertionError(f"{what}: shape {got.shape} != {want.shape}")
     d = np.abs(got.astype(np.int32) - want.astype(np.int32))
@@ -197,16 +258,18 @@ def launch_bound(spec, step, bspec, B: int):
     per output sample (times n_accum, the weight column sets, for
     "fixed"); the input rows the outputs' windows span (each output j reads
     filt_len rows of hist ++ x from (f0 + j*num) // den + H - (filt_len -
-    1)); the nonzero weights once ("int8": D digit bytes each, and the
-    bias; "fixed": 2 bytes each, and the int32 cubic coefficients); y.  It
-    is the larger of the bytes over HBM and the operations over the peak of
-    their type (f32 FMA = 2 FLOP on the CUDA cores for "highest"; for
-    "int8", 2*D int8 products per multiply-add, an int16 sample being two
-    int8 digits; for "fixed", an int16 x int16 multiply-add is 4 int8
-    products, 8 operations; both on the int8 tensor cores).  The band
-    multiply-adds, returned beside it, are those the kernel walks: each
-    64-row tile's nonzero tap band (times n_accum), K_pad padding
-    skipped."""
+    1); dense steps: H = filt_len - 1, shift 0); the nonzero weights once
+    ("int8": D digit bytes each, and the bias; "fixed": 2 bytes each, and
+    the int32 cubic coefficients; "split5": 2 bytes per nonzero entry of
+    each bf16 plane); y.  It is the larger of the bytes over HBM and the
+    operations over the peak of their type (f32 FMA = 2 FLOP on the CUDA
+    cores for "highest"; for "int8", 2*D int8 products per multiply-add, an
+    int16 sample being two int8 digits; for "fixed", an int16 x int16
+    multiply-add is 4 int8 products, 8 operations; both on the int8 tensor
+    cores; for "split5", 5 bf16 products, 10 FLOP, on the bf16 tensor
+    cores).  The band multiply-adds, returned beside it, are those the
+    kernel walks: each 64-row tile's nonzero tap band (times n_accum),
+    K_pad padding skipped."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     n_accum = step.kernel_kw.get("n_accum", 1)
     macs = n_out * N * B * n_accum
@@ -222,6 +285,9 @@ def launch_bound(spec, step, bspec, B: int):
         w_bytes = (int((step.w[0] != 0).sum()) * 2
                    + (step.w[1].numel() * 4 if n_accum == 4 else 0))
         ops = 8 * macs
+    elif step.scheme == "split5":
+        w_bytes = int((step.w[0] != 0).sum()) * 2
+        ops = 10 * macs
     else:
         w_bytes = int((step.w[0] != 0).sum()) * 4
         ops = 2 * macs
@@ -229,30 +295,70 @@ def launch_bound(spec, step, bspec, B: int):
     taps = step.w[-1].cpu().numpy()
     band = (taps[..., 1] - taps[..., 0]).astype(np.int64)     # [P, tiles]
     k = np.arange(bspec.n_blocks)
-    band_macs = int(band[k % bspec.P].sum()) * tf.ROW_TILE * B * n_accum
+    band_macs = (int(band[k % max(bspec.P, 1)].sum()) * tf.ROW_TILE * B
+                 * n_accum)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / (FP32_FLOPS if step.scheme == "highest" else INT8_OPS) * 1e3
+    peak = {"highest": FP32_FLOPS, "split5": BF16_FLOPS}.get(step.scheme,
+                                                             INT8_OPS)
+    t_ops = ops / peak * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, ops, macs, band_macs
 
 
 def library_product_ms(step, bspec, hist, x, reps: int):
     """One torch.bmm (TF32 off) of the block weights against the patches,
-    both gathered outside the timed region: the product only, no WORD2INT.
-    Timed as the yardstick of the "highest" kernel; the port never calls
-    it."""
+    both gathered outside the timed region: the product only, no WORD2INT
+    (dense: one torch.matmul of W^T against every block's patch).  Timed as
+    the yardstick of the "highest" and "split5" kernels; the port never
+    calls it.
+
+    split5: the three bf16 planes and the two bf16 parts of x concatenated
+    along K as [w_hi, w_hi, w_mid, w_mid, w_lo] . [x_hi, x_lo, x_hi, x_lo,
+    x_hi], so one bmm takes the five exact products and sums them in f32:
+    a bf16 bmm with an f32 ``out_dtype`` (tensor cores), the time returned,
+    and an f32 bmm of the same operands, printed.  Its WORD2INT is held
+    against the plain version (max |err| <= 1)."""
+    if step.kernel == "dense":
+        wt = step.w[0].t().contiguous()
+        L, stride = wt.shape[1], step.kernel_kw["stride"]
+        rows = (bspec.n_blocks + L // stride) * stride
+        virt = torch.cat([hist, x, x.new_zeros((rows, x.shape[1]))])[:rows]
+        patch = fm.dense_patches(virt, L, stride).float().contiguous()
+        out = torch.empty((bspec.n_blocks, wt.shape[0], x.shape[1]),
+                          dtype=torch.float32, device="cuda")
+        return cuda_ms(lambda: torch.matmul(wt, patch, out=out), reps)
     w = step.w[0]
-    K = w.shape[1]
+    K = w.shape[-2]
     phase = torch.arange(bspec.n_blocks, device="cuda") % bspec.P
     v0 = torch.from_numpy(fixed_inputs.block_origins(step)).cuda()
     virt = torch.cat([hist, x])
     idx = (v0[:, None] + torch.arange(K, device="cuda")[None, :]).clamp(
         max=virt.shape[0] - 1)
     patch = virt[idx].float()
-    wt = w[phase].transpose(1, 2).contiguous()
     out = torch.empty((bspec.n_blocks, bspec.R, x.shape[1]),
                       dtype=torch.float32, device="cuda")
-    return cuda_ms(lambda: torch.bmm(wt, patch, out=out), reps)
+    if step.scheme != "split5":
+        wt = w[phase].transpose(1, 2).contiguous()
+        return cuda_ms(lambda: torch.bmm(wt, patch, out=out), reps)
+    xh = patch.to(torch.bfloat16)
+    xl = (patch - xh.float()).to(torch.bfloat16)
+    wt = torch.cat([w[p][phase] for p in (0, 0, 1, 1, 2)],
+                   dim=1).transpose(1, 2).contiguous()     # [nb, R, 5K]
+    xk = torch.cat([xh, xl, xh, xl, xh], dim=1)            # [nb, 5K, B]
+    del patch, xh, xl
+    ms = cuda_ms(lambda: torch.bmm(wt, xk, out_dtype=torch.float32), reps)
+    got = word2int(torch.bmm(wt, xk, out_dtype=torch.float32)).reshape(
+        -1, x.shape[1])
+    wt, xk = wt.float(), xk.float()
+    f32_ms = cuda_ms(lambda: torch.bmm(wt, xk, out=out), reps)
+    d = (got.int() - plain(hist, x, step).int()).abs()
+    err, mism = int(d.max()), int((d > 0).sum())
+    print(f"library split5: bf16 bmm (f32 out) {ms:.4f} ms, f32 bmm "
+          f"{f32_ms:.4f} ms, K {5 * K}; bf16 bmm vs plain max|err|={err} "
+          f"mismatches={mism} of {d.numel()}")
+    if err > 1:
+        raise AssertionError(f"split5 library bmm: max|err| {err}")
+    return ms
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
@@ -262,7 +368,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     feeds a tiled direct filter's weights to the streamed kernel."""
     for scheme in schemes:
         for f0 in sorted({0, path.f0_flush}):
-            bspec = tb._launch_geometry(path.spec, path.target, f0=f0)
+            bspec = path.geometry(f0)
             if kernel is not None:
                 bspec = dataclasses.replace(bspec, kernel=kernel)
             step = tb.make_batched_step(path.spec, bspec, device="cuda",
@@ -270,7 +376,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
             if step.kernel != (kernel or path.kernel):
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
-            n_accum = step.kernel_kw["n_accum"]
+            n_accum = step.kernel_kw.get("n_accum", 1)
             for B in (LANES, 130):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.fixed)
@@ -305,13 +411,15 @@ def serve_engine(path: Path, scheme: str, frames: list):
 def serve(path: Path, requests: dict, want_digits: int = 0):
     """The path end to end, one engine per requested scheme (``requests``:
     request -> the scheme it must resolve), launch counts set to 0 just
-    before and read just after; streams 0-3 against a CPU engine.  Returns
-    (counts, engines by resolved scheme, frames)."""
+    before and read just after; streams 0-3 against a CPU engine.  A path
+    without a kernel module (plain torch on the card) must launch no
+    kernel and hold its step's tensors on the card.  Returns (counts,
+    engines by resolved scheme, frames)."""
     rng = np.random.default_rng(2024)
     frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
                            dtype=np.int16)
               for n in path.frames + path.after]
-    for module in (tf, sf):
+    for module in MODULES.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
     engines, outs, walls = {}, {}, {}
     for request, scheme in requests.items():
@@ -322,11 +430,14 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
             raise AssertionError(f"{path.name}: {request} built "
                                  f"{eng._step.kernel}/{eng._step.scheme}")
         engines[scheme] = eng
-    counts = dict(path.module.launches)
-    other = sf if path.module is tf else tf
-    if any(other.launches.values()):
-        raise AssertionError(f"{path.name} launched {other.launches} of "
-                             f"the other geometry's kernels")
+    counts = dict(path.module.launches) if path.module else {}
+    for kind, module in MODULES.items():
+        if module is not path.module and any(module.launches.values()):
+            raise AssertionError(f"{path.name} launched {module.launches} "
+                                 f"of the {kind} geometry's kernels")
+    if path.module is None and not all(
+            t.is_cuda for e in engines.values() for t in e._step.w):
+        raise AssertionError(f"{path.name}: step tensors off the card")
     if "int8" in engines and engines["int8"]._step.w[0].shape[0] \
             != want_digits:
         raise AssertionError(f"auto resolved int8 D="
@@ -334,7 +445,7 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
     n = len(path.frames)
     launched = {s: e.launches for s, e in engines.items()}
     if any(counts[s] != launched.get(s, 0) for s in counts) \
-            or min(launched.values()) < n:
+            or (path.module and not counts) or min(launched.values()) < n:
         raise AssertionError(f"kernel launches {counts} vs engines "
                              f"{launched}")
     for request, scheme in requests.items():
@@ -351,7 +462,8 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
                   f"{tuple(g.shape)} streams 0-3 vs cpu max|err|={err} "
                   f"mismatches={mism}")
     first = next(iter(requests.values()))
-    print(f"serve {path.name}: {requests} (int8 D={want_digits}), "
+    print(f"serve {path.name}: {requests} (int8 D={want_digits}, "
+          f"{path.quantum()} frames per launch), "
           f"launches {counts}, f0 after flush {path.f0_flush}, "
           f"{walls[first]:.2f} s for the {first} engine's "
           f"{sum(path.frames + path.after)} frames x {LANES} lanes (engine "
@@ -361,15 +473,15 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
 
 def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
     """Kernel, plain and library times of one launch at B = 2048 (library:
-    the highest scheme's bmm; no PyTorch call computes the exact int8
-    digit sums or the wrapped int32 sums of "fixed").  Returns the JSON
-    entry's numbers."""
+    the highest and split5 schemes' bmm; no PyTorch call computes the exact
+    int8 digit sums or the wrapped int32 sums of "fixed").  Returns the
+    JSON entry's numbers."""
     out_samples = bspec.out_per_launch * LANES
     hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
     ms = cuda_ms(lambda: launch(hist, x, step), reps)
     plain_ms = cuda_ms(lambda: plain(hist, x, step), reps)
     library_ms = (library_product_ms(step, bspec, hist, x, reps)
-                  if step.scheme == "highest" else None)
+                  if step.scheme in ("highest", "split5") else None)
     bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
         spec, step, bspec, LANES)
     print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch "
@@ -386,26 +498,46 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
 
 
 def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
-              engines: dict, frames: list, reps: int) -> list:
+              engines: dict, frames: list, reps: int, unlisted=()) -> list:
     """Kernel, plain and library times at the path's steady-state launch
-    (B = 2048), and one steady-state process() call of one quantum."""
-    bspec = tb._launch_geometry(path.spec, path.target)
+    (B = 2048), and one steady-state process() call of one quantum.  The
+    ``unlisted`` schemes are timed and printed but not listed (another
+    path's entry lists their kernel).  A path without a kernel times its
+    plain-torch step by the host clock."""
+    bspec = path.geometry()
     out_samples = bspec.out_per_launch * LANES
     entries = []
-    for scheme in schemes:
+    for scheme in (schemes + unlisted) if path.module else ():
         step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                     scheme=scheme)
-        key = (step.kernel, step.scheme, step.kernel_kw["n_accum"])
+        key = (step.kernel, step.scheme, step.kernel_kw.get("n_accum", 1))
         D = step.w[0].shape[0] if step.scheme == "int8" else 0
         nums = time_launch(f"{path.name} {scheme:7s} ({kernel_name(*key)} "
                            f"D={D})", path.spec, step, bspec, smi, reps)
-        if scheme == "int8" and path.kernel == "streamed":
-            continue      # explicit int8 (D = 3) is printed, auto is listed
+        if scheme in unlisted:
+            continue
         entries.append({
             "name": kernel_name(*key), "route": "cuda",
-            "source": path.source, "replaces": path.replaces,
+            "source": path.source,
+            "replaces": REPLACES.get(key[:2], path.replaces),
             "launches": counts[step.scheme], "max_abs_err": max_err[key],
             **nums})
+    if path.module is None:
+        step = next(iter(engines.values()))._step
+        hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7,
+                              wrap=path.fixed)
+        walls = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step.fn(hist, x, step.w)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        wall = float(np.median(walls[1:])) * 1e3
+        print(f"timing {path.name} {step.scheme} (plain torch on the card, "
+              f"no kernel) on {smi}: step {wall:.4f} ms/launch by the host "
+              f"clock ({out_samples / wall / 1e6:.2f} G out samples/s), "
+              f"median of 5 after one warm-up")
     quantum = frames[0][:, :bspec.in_per_launch]
     for scheme, eng in engines.items():
         eng.process(quantum)
@@ -448,7 +580,9 @@ def main() -> None:
     # -- phase 3: every kernel against its plain version, on the card
     max_err: dict = {}
     check_kernels(FLAGSHIP, ("int8", "highest"), max_err)
-    check_kernels(SLICE, ("auto", "int8", "highest"), max_err)
+    check_kernels(SLICE, ("auto", "int8", "highest", "split5"), max_err)
+    check_kernels(VOIP, ("auto",), max_err)
+    check_kernels(DECIMATE, ("auto", "highest"), max_err)
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
         check_kernels(path, ("auto",), max_err)
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
@@ -457,21 +591,32 @@ def main() -> None:
     # -- phase 4: each path end to end, its launches counted from 0
     float_requests = {"auto": "int8", "highest": "highest"}
     served = {FLAGSHIP: serve(FLAGSHIP, float_requests, want_digits=3),
-              SLICE: serve(SLICE, float_requests, want_digits=4)}
-    for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
+              SLICE: serve(SLICE, {**float_requests, "split5": "split5"},
+                           want_digits=4)}
+    for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT, VOIP_FIXED,
+                 DRIFT_FIXED):
         served[path] = serve(path, {"auto": "fixed"})
+    for path in (VOIP, DRIFT):
+        served[path] = serve(path, {"auto": "highest"})
+    served[DECIMATE] = serve(DECIMATE, {"auto": "split5"})
     print(f"served: {time.time() - t_start:.1f} s")
 
     # -- phase 5: timing at each path's launch
+    # (listed, printed only): explicit streamed int8 (D = 3) beside auto
+    # (D = 4); highest at 96k->8k, the launch auto served before split5
     kernels = []
-    for path, schemes in ((FLAGSHIP, ("int8", "highest")),
-                          (SLICE, ("auto", "int8", "highest")),
-                          (FIXED_FLAGSHIP, ("auto",)),
-                          (FIXED_SLICE, ("auto",)),
-                          (FIXED_DIRECT, ("auto",))):
+    for path, schemes, unlisted in (
+            (FLAGSHIP, ("int8", "highest"), ()),
+            (SLICE, ("auto", "highest", "split5"), ("int8",)),
+            (FIXED_FLAGSHIP, ("auto",), ()),
+            (FIXED_SLICE, ("auto",), ()),
+            (FIXED_DIRECT, ("auto",), ()),
+            (VOIP, ("auto",), ()),
+            (DECIMATE, ("auto",), ("highest",)),
+            (VOIP_FIXED, (), ()), (DRIFT, (), ()), (DRIFT_FIXED, (), ())):
         counts, engines, frames = served[path]
         kernels += time_path(path, schemes, smi, counts, max_err, engines,
-                             frames, reps=20)
+                             frames, reps=20, unlisted=unlisted)
     # the streamed kernel with one column set: no served path launches it
     bspec = dataclasses.replace(
         tb._launch_geometry(FIXED_DIRECT.spec, FIXED_DIRECT.target),

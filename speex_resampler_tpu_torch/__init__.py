@@ -2,10 +2,10 @@
 PyTorch and CUDA (NVIDIA Hopper).
 
 A port of ``speex_resampler_tpu``, which stays the reference: the same
-filter design, launch geometry and buffer contract, with the phase-tiled
-polyphase FIR launch as a hand-written CUDA kernel
-(``csrc/tiled_fir.cu``, built with nvcc at first use).  This package
-imports torch and numpy, never jax.
+filter design, launch geometry and buffer contract, with the polyphase FIR
+launches of the tiled, streamed and dense geometries as hand-written CUDA
+kernels (``csrc/``, built with nvcc at first use).  This package imports
+torch and numpy, never jax.
 """
 
 from .utils.errors import ResamplerError, ResamplerErrorCode

@@ -1,9 +1,9 @@
 // Device code shared by the polyphase FIR kernels (tiled_fir.cu,
-// streamed_fir.cu): the CTA tile, shared-memory staging, the register-tile
-// product and the two epilogues.  Each kernel computes only where its
-// output block's patch starts on the virtual axis hist ++ x; everything
-// from there on is this file, so both kernels give the same sums in the
-// same order.
+// streamed_fir.cu, dense_fir.cu): the CTA tile, shared-memory staging, the
+// register-tile product and the epilogues.  Each kernel computes only
+// where its output block's patch starts on the virtual axis hist ++ x;
+// everything from there on is this file, so the kernels give the same sums
+// in the same order.
 //
 // A CTA owns a 64-row x 128-lane output tile of one block k (R rows, phase
 // m = k % P) and walks only the tap rows where its 64 weight columns are
@@ -11,7 +11,9 @@
 // shared memory 16 taps at a time, and each thread keeps an 8-row x 4-lane
 // register tile: 32 multiply-adds per three 16-byte shared loads, the
 // weight loads broadcast across a warp.  Lanes are masked, so any B works
-// without padding.
+// without padding, and so are the rows of a partial last row tile (the
+// dense kernel's R = group*den is any width; the tiled and streamed
+// kernels' R is a multiple of kRowTile).
 //
 // Epilogues match the TPU kernels exactly:
 //   highest: y = sum_t W[t,r] * float(x), f32 (FMA, no TF32), then WORD2INT
@@ -34,8 +36,19 @@
 //            y = SAT32PSHR15(s) (fixed_generic.h, resample.c:474-479).  The
 //            TPU's int8 plane split and +128 bias exist only for its int8
 //            MXU; here the int16 x int16 product is taken directly.
+//   split5:  _dot_scheme's five bf16 dots, in its order: d_1..d_5 =
+//            <w_hi,x_hi>, <w_hi,x_lo>, <w_mid,x_hi>, <w_mid,x_lo>,
+//            <w_lo,x_hi> (x_hi = bf16(x), rounded to nearest even, x_lo =
+//            x - x_hi; both exact), each an f32 sum of exact products (FMA),
+//            then y = ((((d_1 + d_2) + d_3) + d_4) + d_5) with __fadd_rn and
+//            WORD2INT: the plain version's five matmuls in the same order.
+//            (Fusing the pairs that share a weight plane, w_hi*x_hi +
+//            w_hi*x_lo = w_hi*x exactly, walks 3 passes instead of 5 but
+//            rounds each sum elsewhere: on the H100 it disagreed with the
+//            plain version on 5.4e-3 of the outputs, past the tie bound.)
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -53,6 +66,11 @@ struct Launch {
   const int32_t* taps;     // [P, R / kRowTile, 2] nonzero tap rows [lo, hi)
   int H, T, B, R, K, P;    // weights [P, K, R] per digit plane
 };
+
+// Row tiles of an R-row block; the last one may be partial.
+__host__ __device__ __forceinline__ int row_tiles(int R) {
+  return (R + kRowTile - 1) / kRowTile;
+}
 
 inline Launch make_launch(const void* hist, const void* x, void* y,
                           const void* taps, int H, int T, int B, int R, int K,
@@ -83,9 +101,9 @@ struct Tile {
   int k, rt, m, v0, lane0, t_lo, t_hi, warp, tl;
   __device__ Tile(const Launch& g, int k_, int rt_, int lt, int v0_)
       : k(k_), rt(rt_), m(k_ % g.P), v0(v0_), lane0(lt * kLaneTile) {
-    const int row_tiles = g.R / kRowTile;
-    t_lo = g.taps[(m * row_tiles + rt) * 2];
-    t_hi = g.taps[(m * row_tiles + rt) * 2 + 1];
+    const int n_rt = row_tiles(g.R);
+    t_lo = g.taps[(m * n_rt + rt) * 2];
+    t_hi = g.taps[(m * n_rt + rt) * 2 + 1];
     warp = threadIdx.x / 32;
     tl = threadIdx.x % 32;
   }
@@ -94,24 +112,54 @@ struct Tile {
   }
 };
 
-// Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`) and of
-// the kRowTile weight columns from wm (tap row t at wm + t * ld); rows at
-// or past t_hi and lanes past B stage as zero.
+// A staged weight: bf16 planes widen exactly to f32, the rest by a cast.
+template <typename Acc, typename WT>
+__device__ __forceinline__ Acc widen(WT v) {
+  return (Acc)v;
+}
+template <>
+__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// bf16(v), rounded to nearest even, back in f32 (split5's x_hi).
+__device__ __forceinline__ float bf16_round(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// Which part of a sample a split5 pass stages.
+enum XPart { kX = 0, kXHi = 1, kXLo = 2 };
+
+// Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`, or
+// split5's x_hi / x_lo) and of the kRowTile weight columns from wm (tap
+// row t at wm + t * ld); rows at or past t_hi, lanes past B and block rows
+// past R stage as zero.
 template <typename Acc, typename WT>
 __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
                                       const WT* __restrict__ wm, int ld,
                                       int t0, int shift, Acc (*xs)[kLaneTile],
-                                      Acc (*ws)[kRowTile]) {
+                                      Acc (*ws)[kRowTile], XPart part = kX) {
   for (int i = threadIdx.x; i < kTapStage * kLaneTile; i += kThreads) {
     const int t = t0 + i / kLaneTile, lane = c.lane0 + i % kLaneTile;
-    xs[i / kLaneTile][i % kLaneTile] =
-        (t < c.t_hi && lane < g.B) ? (Acc)(read_virtual(g, c.v0 + t, lane) + shift)
-                                   : (Acc)0;
+    Acc v = (Acc)0;
+    if (t < c.t_hi && lane < g.B) {
+      const int s = read_virtual(g, c.v0 + t, lane) + shift;
+      if (part == kX) {
+        v = (Acc)s;
+      } else {
+        const float hi = bf16_round((float)s);
+        v = (Acc)(part == kXHi ? hi : (float)s - hi);
+      }
+    }
+    xs[i / kLaneTile][i % kLaneTile] = v;
   }
+  const int cols = g.R - c.rt * kRowTile;  // < kRowTile in a partial tile
   for (int i = threadIdx.x; i < kTapStage * kRowTile; i += kThreads) {
     const int t = t0 + i / kRowTile;
     ws[i / kRowTile][i % kRowTile] =
-        t < c.t_hi ? (Acc)wm[(size_t)t * ld + i % kRowTile] : (Acc)0;
+        (t < c.t_hi && i % kRowTile < cols)
+            ? widen<Acc>(wm[(size_t)t * ld + i % kRowTile])
+            : (Acc)0;
   }
 }
 
@@ -150,9 +198,11 @@ __device__ __forceinline__ void multiply_stage(const Tile& c,
   }
 }
 
-// Row a of this thread's register tile, its 4 lanes, as int16.
+// Row a of this thread's register tile, its 4 lanes, as int16 (a row past
+// R, in a partial last row tile, is not stored).
 __device__ __forceinline__ void store_i16(const Launch& g, const Tile& c,
                                           int a, const int16_t (&v)[4]) {
+  if (c.row(a) >= g.R) return;
   int16_t* out = g.y + ((size_t)c.k * g.R + c.row(a)) * g.B;
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
@@ -184,6 +234,35 @@ __device__ __forceinline__ void fir_tile_f32(const Launch& g, const Tile& c,
   }
 #pragma unroll
   for (int a = 0; a < 8; ++a) store(g, c, a, acc[a]);
+}
+
+// Scheme "split5": planes bf16[3, P, K, R] (hi, mid, lo).  Dot d (0..4)
+// takes plane d / 2 against x_lo for odd d, else x_hi, walked over the tap
+// band into its own f32 sum, added to the running total in order (file
+// header), as the int8 scheme adds its digits.
+__device__ __forceinline__ void fir_tile_split5(
+    const Launch& g, const Tile& c, const __nv_bfloat16* __restrict__ planes) {
+  __shared__ __align__(16) float xs[kTapStage][kLaneTile];
+  __shared__ __align__(16) float ws[kTapStage][kRowTile];
+  float y[8][4] = {};
+#pragma unroll 1
+  for (int d = 0; d < 5; ++d) {
+    const __nv_bfloat16* wm =
+        planes + ((size_t)(d / 2) * g.P + c.m) * g.K * g.R + c.rt * kRowTile;
+    float acc[8][4] = {};
+    for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
+      stage(g, c, wm, g.R, t0, 0, xs, ws, d % 2 ? kXLo : kXHi);
+      __syncthreads();
+      multiply_stage(c, xs, ws, acc);  // exact products, f32 FMA sums
+      __syncthreads();
+    }
+#pragma unroll
+    for (int a = 0; a < 8; ++a)
+#pragma unroll
+      for (int b = 0; b < 4; ++b) y[a][b] = __fadd_rn(y[a][b], acc[a][b]);
+  }
+#pragma unroll
+  for (int a = 0; a < 8; ++a) store(g, c, a, y[a]);
 }
 
 // Scheme "int8": planes int8[D, P, K, R], bias f32[P, R], D <= 4 scales.

@@ -1,5 +1,6 @@
 // Streamed-weight polyphase FIR launch for Hopper (sm_90a), schemes
-// "highest", "int8" (D <= 4 digit planes) and "fixed" (n_accum 1 and 4).
+// "highest", "int8" (D <= 4 digit planes), "fixed" (n_accum 1 and 4) and
+// "split5".
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas_v4
 // / _kernel_v4 (with _v4_hist_plans), the TPU kernel of the large-P
@@ -41,6 +42,13 @@
 // q10 launch needs 43.2 G int16 multiply-adds (filt_len x 4 per output):
 // 345 G int8 tensor-core operations, ~174 us, above the ~61 us of its
 // bytes, so operations bound it.
+//
+// Scheme "split5" (K2c; v4's split5 branch, five bf16 products per
+// multiply-add summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX
+// streams [P, 3, R, K_pad]).  At 48k->44.1k q10 it needs the 10.8 G
+// multiply-adds of "highest": 108 G bf16 tensor-core FLOP, ~0.11 ms, above
+// the ~55 us of its bytes.  Here the tap band is walked five times on the
+// CUDA cores in f32, one pass per dot (fir_common.cuh).
 
 #include "fir_common.cuh"
 
@@ -88,6 +96,12 @@ streamed_fir_fixed_kernel(fir::Launch g, Origin o,
   fir::fir_tile_fixed<kAccum>(g, streamed_tile(g, o), w, coef);
 }
 
+__global__ void __launch_bounds__(kThreads)
+streamed_fir_split5_kernel(fir::Launch g, Origin o,
+                           const __nv_bfloat16* __restrict__ planes) {
+  fir::fir_tile_split5(g, streamed_tile(g, o), planes);
+}
+
 dim3 grid_of(int n_blocks, int R, int B) {
   return dim3(n_blocks * (R / kRowTile) * ((B + kLaneTile - 1) / kLaneTile));
 }
@@ -114,6 +128,20 @@ int streamed_fir_f32(const void* hist, const void* x, void* y,
   streamed_fir_f32_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
                             static_cast<cudaStream_t>(stream)>>>(
       g, Origin{shift, num, den, f0}, static_cast<const float*>(w));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// planes bf16[3, P, K, R] (hi, mid, lo).
+int streamed_fir_split5(const void* hist, const void* x, void* y,
+                        const void* taps, const void* planes, int H, int T,
+                        int B, int R, int K, int P, int n_blocks, int shift,
+                        int num, int den, int f0, void* stream) {
+  cudaGetLastError();
+  const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
+  streamed_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      g, Origin{shift, num, den, f0},
+      static_cast<const __nv_bfloat16*>(planes));
   return static_cast<int>(cudaGetLastError());
 }
 

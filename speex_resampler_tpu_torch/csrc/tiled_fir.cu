@@ -1,5 +1,5 @@
 // Phase-tiled polyphase FIR launch for Hopper (sm_90a), schemes "highest",
-// "int8" and "fixed" (n_accum 1 and 4).
+// "int8", "fixed" (n_accum 1 and 4) and "split5".
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas_v3
 // / _kernel_v3 (the TPU kernel of the batched serving path).  It computes
@@ -39,6 +39,15 @@
 // multiply-adds (filt_len x 4 per output): 86 G int8 tensor-core operations
 // (4 int8 products, 8 ops, per int16 MAC), ~43 us, above the ~25 us of its
 // bytes, so operations bound it; on the CUDA cores it runs far above that.
+//
+// Scheme "split5" (K1c; _kernel_v3 with _dot_scheme "split5": five bf16
+// products per multiply-add, summed in f32) is what "auto" resolves where
+// the int8 certificate fails, e.g. 96 kHz -> 8 kHz q10 (filt_len 3072,
+// K 4600, P 1).  One launch at B = 2048 needs 16.1 G multiply-adds: 161 G
+// bf16 tensor-core FLOP at 5 products each, ~0.16 ms, above the ~0.04 ms of
+// its ~138 MB, so operations bound it.  Here it walks the tap band five
+// times on the CUDA cores in f32, one pass per dot (fir_common.cuh), the
+// simple first kernel.
 
 #include "fir_common.cuh"
 
@@ -79,6 +88,12 @@ tiled_fir_fixed_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
   fir::fir_tile_fixed<kAccum>(g, tiled_tile(g, offsets, S), w, coef);
 }
 
+__global__ void __launch_bounds__(kThreads)
+tiled_fir_split5_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
+                        int S, const __nv_bfloat16* __restrict__ planes) {
+  fir::fir_tile_split5(g, tiled_tile(g, offsets, S), planes);
+}
+
 dim3 grid_of(int n_blocks, int R, int B) {
   return dim3(n_blocks * (R / kRowTile), (B + kLaneTile - 1) / kLaneTile);
 }
@@ -104,6 +119,20 @@ int tiled_fir_f32(const void* hist, const void* x, void* y, const void* offsets,
   tiled_fir_f32_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const int32_t*>(offsets), S, static_cast<const float*>(w));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// planes bf16[3, P, K, R] (hi, mid, lo).
+int tiled_fir_split5(const void* hist, const void* x, void* y,
+                     const void* offsets, const void* taps, const void* planes,
+                     int H, int T, int B, int R, int K, int P, int S,
+                     int n_blocks, void* stream) {
+  cudaGetLastError();
+  const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
+  tiled_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      g, static_cast<const int32_t*>(offsets), S,
+      static_cast<const __nv_bfloat16*>(planes));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -22,7 +22,8 @@ __all__ = ["load", "build_dir"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "tiled_fir.cu", _CSRC / "streamed_fir.cu")
+_SOURCES = (_CSRC / "tiled_fir.cu", _CSRC / "streamed_fir.cu",
+            _CSRC / "dense_fir.cu")
 _HEADERS = (_CSRC / "fir_common.cuh",)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,11 +36,16 @@ _SIGNATURES = {
     "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
     "tiled_fir_fixed": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "tiled_fir_split5": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "streamed_fir_row_tile": (_I, []),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
     "streamed_fir_fixed": (_I, [_P] * 6 + [_I] * 12 + [_P]),
+    "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+    "dense_fir_row_tile": (_I, []),
+    "dense_fir_error_string": (ctypes.c_char_p, [_I]),
+    "dense_fir_f32": (_I, [_P] * 5 + [_I] * 7 + [_P]),
 }
 
 _lib = None

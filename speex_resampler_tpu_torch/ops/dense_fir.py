@@ -1,0 +1,131 @@
+"""Dense padded-weight FIR launch: the kernel of the dense geometry.
+
+Counterpart of ``resample_conv_tm_pallas`` / ``_kernel`` in
+``speex_resampler_tpu/ops/pallas_fir.py`` (K3, f32 ``HIGHEST``).  The dense
+geometry serves launch quanta below one tiled or streamed unit, such as the
+voip preset's hard 20 ms cap: super-blocks of R = group*den outputs, each
+consuming stride = group*num inputs, all with the same weights.
+
+Output block b, row r is
+
+    y[b*R + r] = WORD2INT( sum_{l < L_pad} W[l, r] * X[b*stride + l] ),
+
+where X is the virtual axis ``hist ++ x ++ zeros`` (the concatenation the
+JAX step builds before its launch) and W the padded phase weights
+(``ops/phase.build_padded_weights``, zero rows up to L_pad, a multiple of
+stride).  R is any width (160, 96, 129 at the voip configs).
+
+Device weights (:func:`device_weights`): ``(w f32[L_pad, R], taps
+int32[1, ceil(R / ROW_TILE), 2])``; ``taps[0, i]`` is the [lo, hi) range of
+tap rows holding a nonzero weight in columns ``[i*ROW_TILE, (i+1)*ROW_TILE)``
+(the last tile may be partial).  The CUDA kernel walks only that range: the
+skipped products are exact zeros, so no sum changes.
+
+:func:`resample_dense` launches the CUDA kernel (``csrc/dense_fir.cu``) for
+CUDA tensors and runs :func:`resample_dense_reference`, its plain PyTorch
+version, for CPU tensors.  It never falls back from one to the other.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import _build
+from . import tiled_fir as tf
+from .convert import word2int
+from .fir_matmul import dense_patches
+
+__all__ = ["device_weights", "resample_dense", "resample_dense_reference"]
+
+#: Launches of the CUDA kernel in this process; only resample_dense adds to
+#: it, once per launch.  Callers reset the count to count one run.
+launches = {"highest": 0}
+
+
+def device_weights(w_np, device) -> tuple:
+    """Host f32[L_pad, R] padded weights -> ``(w, taps)`` on ``device``."""
+    w = np.asarray(w_np, dtype=np.float32)
+    L, R = w.shape
+    rt = -(-R // tf.ROW_TILE)
+    nonzero = np.zeros((1, L, rt * tf.ROW_TILE), dtype=bool)
+    nonzero[0, :, :R] = w != 0
+    return (torch.from_numpy(w.copy()).to(device),
+            torch.from_numpy(tf.tap_ranges(nonzero)).to(device))
+
+
+def _check(hist, x, w, stride, n_blocks):
+    wt, taps = w
+    for t in (hist, wt, taps):
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+    for t in (hist, x, wt, taps):
+        if not t.is_contiguous():
+            raise ValueError("tensors must be contiguous")
+    if hist.dtype != torch.int16 or x.dtype != torch.int16:
+        raise TypeError("hist and x must be int16")
+    if hist.ndim != 2 or x.ndim != 2 or hist.shape[1] != x.shape[1]:
+        raise ValueError(f"hist {tuple(hist.shape)} / x {tuple(x.shape)}")
+    if wt.dtype != torch.float32 or wt.ndim != 2:
+        raise TypeError("dense weights must be f32[L_pad, R]")
+    L, R = wt.shape
+    if stride <= 0 or L % stride or n_blocks <= 0:
+        raise ValueError(f"L_pad {L}, stride {stride}, n_blocks {n_blocks}")
+    if taps.dtype != torch.int32 or tuple(taps.shape) != (
+            1, -(-R // tf.ROW_TILE), 2):
+        raise ValueError(f"taps {tuple(taps.shape)} for R = {R}")
+    return L, R
+
+
+def resample_dense(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
+                   stride: int, n_blocks: int) -> torch.Tensor:
+    """One launch: int16[n_blocks * R, B].
+
+    hist: int16[H, B] trailing history (H = filt_len - 1 in the engine)
+    x:    int16[T, B] chunk; rows of the virtual axis at or past H + T read
+          as zero
+    w:    device weights (module docstring)
+
+    CUDA tensors launch the kernel on the current stream (asynchronously; a
+    launch error raises); CPU tensors run the plain version."""
+    L, R = _check(hist, x, w, stride, n_blocks)
+    if x.device.type == "cpu":
+        return resample_dense_reference(hist, x, w, stride=stride,
+                                        n_blocks=n_blocks)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    lib = _build.load()
+    if lib.dense_fir_row_tile() != tf.ROW_TILE:
+        raise RuntimeError("csrc/dense_fir.cu row tile disagrees with "
+                           "ROW_TILE")
+    H, B = hist.shape
+    y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.dense_fir_f32(hist.data_ptr(), x.data_ptr(), y.data_ptr(),
+                                w[1].data_ptr(), w[0].data_ptr(), H,
+                                x.shape[0], B, R, L, stride, n_blocks,
+                                stream)
+    if err:
+        raise RuntimeError("dense FIR kernel launch failed: "
+                           + lib.dense_fir_error_string(err).decode())
+    launches["highest"] += 1
+    return y
+
+
+def resample_dense_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
+                             *, stride: int, n_blocks: int) -> torch.Tensor:
+    """Plain PyTorch version of :func:`resample_dense` (same contract), on
+    the tensors' own device: the twin of the JAX package's
+    ``fm.resample_conv_tm``, one f32 matmul (TF32 off) of W^T against every
+    block's patch, then WORD2INT."""
+    L, R = _check(hist, x, w, stride, n_blocks)
+    B = hist.shape[1]
+    rows = (n_blocks + L // stride) * stride
+    virt = torch.cat([hist, x])[:rows]
+    if virt.shape[0] < rows:
+        virt = torch.cat([virt, virt.new_zeros((rows - virt.shape[0], B))])
+    patches = dense_patches(virt, L, stride)               # [nb, L, B]
+    with tf._no_tf32():
+        y = torch.matmul(w[0].t(), patches.float())        # [nb, R, B]
+    return word2int(y).reshape(n_blocks * R, B)

@@ -1,8 +1,8 @@
 """Streamed-weight polyphase FIR launch: the kernel of the large-P configs.
 
 Counterpart of ``resample_conv_tm_pallas_v4`` in
-``speex_resampler_tpu/ops/pallas_fir.py``, schemes ``"highest"``, ``"int8"``
-and ``"fixed"`` (``n_accum`` 1 or 4).  It serves the geometries whose
+``speex_resampler_tpu/ops/pallas_fir.py``, schemes ``"highest"``, ``"int8"``,
+``"fixed"`` (``n_accum`` 1 or 4) and ``"split5"``.  It serves the geometries whose
 phase-tiled weight cycle is too large for the tiled kernel: every
 48 kHz -> 44.1 kHz conversion (P = 147), 44.1 kHz -> 16 kHz at q7 (P = 20),
 and, in the fixed universe, those whose int16 column sets pass the 6 MB
@@ -25,9 +25,11 @@ pads them:
 - ``"int8"``: ``(planes int8[D, P, K_pad, R], bias f32[P, R], taps)``
 - ``"fixed"``: ``(w int16[P, K_pad, C], [coef int32[P, 4, R],] taps)``,
   C = n_accum * R accumulator-major columns
+- ``"split5"``: ``(planes bf16[3, P, K_pad, R], taps)``
 
 The JAX package streams ``[P, R, K_pad]`` (``[P, D, R, K_pad]`` planes;
-fixed: int8 ``[P, 2, C, K_pad]`` planes and an int32 bias);
+fixed: int8 ``[P, 2, C, K_pad]`` planes and an int32 bias; split5: bf16
+``[P, 3, R, K_pad]``);
 ``parallel/batch.weights_from_jax`` converts.  The tap table skips the zero
 rows of each 64-column tile, the K_pad padding among them.
 
@@ -50,7 +52,7 @@ __all__ = ["device_weights_streamed", "origins", "resample_streamed",
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_streamed adds to it, once per launch.  Callers reset the counts
 #: to count one run.
-launches = {"highest": 0, "int8": 0, "fixed": 0}
+launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
 
 #: Host weights -> the kernel's device weights (module docstring): the
 #: tiled kernel's conversion, applied to the K_pad-padded set.
@@ -67,8 +69,7 @@ def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
 
 def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
            n_accum):
-    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum,
-                              item="K2c")
+    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum)
     if n_blocks <= 0 or n_blocks % P or shift < 0 or num <= 0 \
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "
@@ -124,6 +125,8 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                 w[-1].data_ptr())
         if scheme == "highest":
             err = lib.streamed_fir_f32(*head, w[0].data_ptr(), *geo)
+        elif scheme == "split5":
+            err = lib.streamed_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
             coef = w[1].data_ptr() if n_accum == 4 else None
             err = lib.streamed_fir_fixed(*head, w[0].data_ptr(), coef,
@@ -149,6 +152,7 @@ def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,
     on the tensors' own device: each block's patch is gathered by index
     from its closed-form origin, then the tiled reference's product
     (``tiled_fir.apply_weights``): "highest" an f32 matmul with TF32 off;
+    "split5" the five f32 matmuls of bf16-valued operands;
     "int8" the exact float64 digit dots, then the kernel's f32 epilogue in
     the same order; "fixed" the exact float64 int16 dots wrapped to int32,
     then the Q15 epilogue."""

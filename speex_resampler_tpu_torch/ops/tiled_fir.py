@@ -1,8 +1,8 @@
 """Phase-tiled polyphase FIR launch: the kernel of the batched serving path.
 
 Counterpart of the v3 family in ``speex_resampler_tpu/ops/pallas_fir.py``
-(``resample_conv_tm_pallas_v3``), schemes ``"highest"``, ``"int8"`` and
-``"fixed"`` (the Q15 universe, ``n_accum`` 1 or 4).
+(``resample_conv_tm_pallas_v3``), schemes ``"highest"``, ``"int8"``,
+``"fixed"`` (the Q15 universe, ``n_accum`` 1 or 4) and ``"split5"``.
 
 Layout: time-major int16 ``[rows, B]`` with the lane axis minor, as in the
 JAX package, so the same host slabs feed both.  Output block k (R rows)
@@ -15,6 +15,8 @@ Device weights (built once per step, never per launch; see
 
 - ``"highest"``: ``(w f32[P, K, R], taps int32[P, R // ROW_TILE, 2])``
 - ``"int8"``: ``(planes int8[D, P, K, R], bias f32[P, R], taps)``
+- ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
+  ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
 - ``"fixed"``: ``(w int16[P, K, C], coef int32[P, 4, R], taps)`` for
   ``n_accum`` 4, ``(w int16[P, K, C], taps)`` for ``n_accum`` 1; C =
   n_accum * R columns, accumulator-major (column ``c*R + r``)
@@ -46,7 +48,8 @@ from . import _build, int8_planes
 from .convert import word2int
 from .fixed_math import fixed_interp_mix_rows, sat32pshr15
 
-__all__ = ["int8_weights", "int8_weights_auto", "tap_ranges",
+__all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
+           "tap_ranges",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
@@ -57,7 +60,7 @@ ROW_TILE = 64
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_tiled adds to it, once per launch.  Callers reset the counts to
 #: count one run.
-launches = {"highest": 0, "int8": 0, "fixed": 0}
+launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
 
 
 def int8_weights(w, digits: int = 3):
@@ -82,6 +85,19 @@ def int8_weights_auto(w, gate: float):
     return None
 
 
+def split5_weights(w) -> torch.Tensor:
+    """The split5 scheme's 3-term bf16 split of f32 weights (the JAX
+    package's ``pallas_fir.split5_weights``): ``w_hi = bf16(w)``, ``w_mid =
+    bf16(w - w_hi)``, ``w_lo = bf16(w - w_hi - w_mid)``, each rounded to
+    nearest even, the differences in f32.  w: f32[...]; returns a CPU
+    tensor bf16[3, ...]."""
+    w = torch.as_tensor(np.asarray(w, dtype=np.float32))
+    hi = w.to(torch.bfloat16)
+    mid = (w - hi.float()).to(torch.bfloat16)
+    lo = (w - hi.float() - mid.float()).to(torch.bfloat16)
+    return torch.stack([hi, mid, lo])
+
+
 def tap_ranges(nonzero: np.ndarray) -> np.ndarray:
     """``nonzero``: bool[P, K, R] -> int32[P, R // ROW_TILE, 2], the
     [lo, hi) tap rows holding a nonzero weight in each row tile (0, 0 for
@@ -102,7 +118,8 @@ def device_weights(w, scheme: str, device) -> tuple:
     """Host weights -> the kernel's device weights (see module docstring).
     ``w``: f32[P, K, R] for "highest", ``(planes, bias)`` for "int8",
     ``(w int16[P, K, C],)`` or ``(w, coef int32[P, 4, R])`` for "fixed"
-    (``n_accum`` 1 or 4)."""
+    (``n_accum`` 1 or 4), the bf16[3, P, K, R] tensor of
+    :func:`split5_weights` for "split5"."""
     if scheme == "highest":
         w = np.asarray(w, dtype=np.float32)
         return (torch.from_numpy(w.copy()).to(device),
@@ -124,19 +141,21 @@ def device_weights(w, scheme: str, device) -> tuple:
                 *(torch.from_numpy(c.astype(np.int32)).to(device)
                   for c in coef),
                 torch.from_numpy(tap_ranges(nonzero)).to(device))
-    raise NotImplementedError(
-        f"scheme {scheme!r} has no port yet (ROADMAP.md K1c)")
+    if scheme == "split5":
+        planes = torch.as_tensor(w)
+        assert planes.dtype == torch.bfloat16 and planes.shape[0] == 3
+        nonzero = (planes != 0).any(dim=0).numpy()
+        return (planes.contiguous().to(device),
+                torch.from_numpy(tap_ranges(nonzero)).to(device))
+    raise ValueError(f"unknown scheme {scheme!r}")
 
 
-def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
-                 item="K1c"):
+def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
     """Validate one launch's buffers and device weights (``extra``: more
     tensors that must share x's device and be contiguous); returns
-    (P, K, R).  A scheme without a port raises NotImplementedError naming
-    ROADMAP.md ``item``."""
-    if scheme not in ("highest", "int8", "fixed"):
-        raise NotImplementedError(
-            f"scheme {scheme!r} has no port yet (ROADMAP.md {item})")
+    (P, K, R)."""
+    if scheme not in ("highest", "int8", "fixed", "split5"):
+        raise ValueError(f"unknown scheme {scheme!r}")
     if n_accum != 1 and (scheme != "fixed" or n_accum != 4):
         raise ValueError(f"n_accum {n_accum} under scheme {scheme!r}")
     for t in (hist, *extra, *w):
@@ -153,6 +172,12 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
         if wt.dtype != torch.float32 or wt.ndim != 3:
             raise TypeError("highest weights must be f32[P, K, R]")
         P, K, R = wt.shape
+    elif scheme == "split5":
+        planes, taps = w
+        if planes.dtype != torch.bfloat16 or planes.ndim != 4 \
+                or planes.shape[0] != 3:
+            raise TypeError("split5 planes must be bf16[3, P, K, R]")
+        _, P, K, R = planes.shape
     elif scheme == "fixed":
         if len(w) != (3 if n_accum == 4 else 2) or scales:
             raise ValueError(f"{len(w)} fixed weight tensors, scales "
@@ -175,6 +200,8 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
             raise TypeError("int8 bias must be f32[P, R]")
         if len(scales) != D or not 1 <= D <= 4:
             raise ValueError(f"{len(scales)} scales for {D} digit planes")
+    if scheme in ("highest", "split5") and scales:
+        raise ValueError(f"scales {scales} under scheme {scheme!r}")
     if R % ROW_TILE or tuple(taps.shape) != (P, R // ROW_TILE, 2):
         raise ValueError(f"taps {tuple(taps.shape)} for R = {R}")
     return P, K, R
@@ -230,6 +257,8 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                 offsets.data_ptr(), w[-1].data_ptr())
         if scheme == "highest":
             err = lib.tiled_fir_f32(*head, w[0].data_ptr(), *geo)
+        elif scheme == "split5":
+            err = lib.tiled_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
             coef = w[1].data_ptr() if n_accum == 4 else None
             err = lib.tiled_fir_fixed(*head, w[0].data_ptr(), coef, n_accum,
@@ -263,7 +292,11 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     the tensors' own device: each block's patch is gathered with an index
     tensor, then one batched product over all blocks.
 
-    "highest": f32 matmul with TF32 off, then WORD2INT.  "int8": each
+    "highest": f32 matmul with TF32 off, then WORD2INT.  "split5": the
+    five f32 matmuls (TF32 off) of bf16-valued operands of the JAX
+    package's ``_dot_scheme``, w_hi*x_hi + w_hi*x_lo + w_mid*x_hi +
+    w_mid*x_lo + w_lo*x_hi summed in that order (x_hi = bf16(x), x_lo = x -
+    x_hi, both exact), then WORD2INT.  "int8": each
     digit's integer dot ``sum w_d * (x - 128)`` in float64, exact because
     its magnitude stays below 2^31 (the certificate refuses planes where
     it would not), converted to int32, then the kernel's f32 epilogue in
@@ -294,7 +327,7 @@ def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     axis ``hist ++ x ++ zeros`` from origin ``v0[k]`` and applies the
     weights of phase ``k % P``; int16[n_blocks * R, B] (see
     :func:`resample_tiled_reference` for the schemes' arithmetic)."""
-    P, K, R = w[0].shape[-3:]     # [P, K, R], [D, P, K, R] or [P, K, C]
+    P, K, R = w[0].shape[-3:]     # [P, K, R], [D|3, P, K, R] or [P, K, C]
     R //= n_accum
     n_blocks, B = v0.shape[0], hist.shape[1]
     dev = x.device
@@ -306,6 +339,15 @@ def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     if scheme == "highest":
         with _no_tf32():
             y = torch.matmul(w[0][phase].transpose(1, 2), patch.float())
+    elif scheme == "split5":
+        xf = patch.float()
+        xh = xf.to(torch.bfloat16).float()
+        xl = (xf - xh).to(torch.bfloat16).float()
+        wp = [w[0][p][phase].float().transpose(1, 2) for p in range(3)]
+        with _no_tf32():
+            y = (torch.matmul(wp[0], xh) + torch.matmul(wp[0], xl)
+                 + torch.matmul(wp[1], xh) + torch.matmul(wp[1], xl)
+                 + torch.matmul(wp[2], xh))
     elif scheme == "fixed":
         acc = wrap_int32(torch.matmul(w[0][phase].double().transpose(1, 2),
                                       patch.double()))        # [nb, C, B]

@@ -10,13 +10,24 @@ changes the phase (time-major buffers, lanes minor):
     step: (hist i16[H, B], x i16[chunk_rows, B]) -> (hist', y i16[n_out, B])
 
 The launch geometry, weights and buffer contract are those of the JAX
-package's ``speex_resampler_tpu/parallel/batch.py``, so the two engines can
-be compared launch by launch.  The phase-tiled and streamed geometries are
-ported in both numeric universes (float, and the Q15 fixed-point universe
-with its exact scheme "fixed"); every other path raises
-``NotImplementedError`` naming its ROADMAP.md item.  The kernels are
-``ops/tiled_fir.resample_tiled`` (small weight cycles, e.g. 44.1k -> 48k)
-and ``ops/streamed_fir.resample_streamed`` (large ones, e.g. 48k -> 44.1k).
+package's ``speex_resampler_tpu/parallel/batch.py`` (its ``use_pallas=True``
+choice), so the two engines can be compared launch by launch.  All four
+geometries serve in both numeric universes (float, and the Q15 fixed-point
+universe with its exact scheme "fixed"):
+
+- "tiled": ``ops/tiled_fir.resample_tiled`` (small weight cycles, e.g.
+  44.1k -> 48k);
+- "streamed": ``ops/streamed_fir.resample_streamed`` (large ones, e.g.
+  48k -> 44.1k);
+- "dense": launch quanta below one tiled or streamed unit (a hard
+  ``max_latency_ms`` cap such as the voip preset's 20 ms):
+  ``ops/dense_fir.resample_dense`` in the float universe, the plain-torch
+  ``ops/fir_matmul.resample_conv_tm_fixed`` in the fixed one;
+- "gather": huge reduced denominators (e.g. 44100 -> 44101), the
+  plain-torch ``ops/fir_matmul.resample_gather[_fixed]``.
+
+Only ``mesh=`` and a degraded checkpoint raise ``NotImplementedError``,
+naming their ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -29,7 +40,9 @@ import threading
 import numpy as np
 import torch
 
+from ..ops import dense_fir as df
 from ..ops import filter_design as fd
+from ..ops import fir_matmul as fm
 from ..ops import phase as ph
 from ..ops import streamed_fir as sf
 from ..ops import tiled_fir as tf
@@ -68,18 +81,19 @@ def _unported(what: str, item: str) -> NotImplementedError:
 class BatchSpec:
     """Static launch geometry for one (ratio, quality) config.
 
-    kernel == "tiled" or "streamed" (the dense and gather geometries are
-    not ported): blocks of R outputs with cyclic phase weights; n_blocks
-    is a multiple of P and n_blocks/P "periods" consume S inputs each.
-    The fields are the JAX package's (``group`` is its dense super-block
-    factor, 1 here), so the two compare as equal.
+    kernel == "tiled" or "streamed": blocks of R outputs with cyclic phase
+    weights; n_blocks is a multiple of P and n_blocks/P "periods" consume
+    S inputs each.  kernel == "dense": n_blocks super-blocks of group*den
+    outputs, each consuming stride = group*num inputs.  kernel ==
+    "gather": n_blocks blocks of num inputs -> den outputs (group 1).  The
+    fields are the JAX package's, so the two compare as equal.
     """
     num: int
     den: int
     quality: int
     filt_len: int
-    group: int
-    n_blocks: int       # R-blocks (mult of P)
+    group: int          # dense: super-block factor G
+    n_blocks: int       # tiled/streamed: R-blocks (mult of P)
     f0: int             # fractional phase at every launch start
     kernel: str = "tiled"
     S: int = 0          # inputs per P blocks
@@ -87,14 +101,23 @@ class BatchSpec:
     R: int = 0          # outputs per block
 
     @property
+    def stride(self) -> int:
+        """dense/gather: input frames per block."""
+        return self.group * self.num
+
+    @property
     def in_per_launch(self) -> int:
         """Input frames consumed per lane per launch."""
-        return (self.n_blocks // self.P) * self.S
+        if self.kernel in ("tiled", "streamed"):
+            return (self.n_blocks // self.P) * self.S
+        return self.n_blocks * self.stride
 
     @property
     def out_per_launch(self) -> int:
         """Output frames produced per lane per launch."""
-        return self.n_blocks * self.R
+        if self.kernel in ("tiled", "streamed"):
+            return self.n_blocks * self.R
+        return self.n_blocks * self.group * self.den
 
 
 def _n_cols(spec: fd.FilterSpec) -> int:
@@ -120,6 +143,29 @@ def _tiled_weight_bytes_estimate(spec: fd.FilterSpec, R: int = 128) -> int:
     return P * K * R * _itemsize(spec)
 
 
+def _dense_weight_bytes(spec: fd.FilterSpec) -> int:
+    """Size of the dense padded weights at the uncapped group (the JAX
+    package's estimate: 2 bytes per entry in the fixed universe, whatever
+    its column sets)."""
+    group = fm.choose_group(spec.num, spec.den, spec.filt_len)
+    L = spec.filt_len + group * spec.num
+    return L * group * spec.den * _itemsize(spec)
+
+
+_MAX_GATHER_OUT_FRAMES = 1 << 22
+
+
+def _gather_blocks(spec: fd.FilterSpec, target_in_frames: int,
+                   hard_cap: bool = False) -> int:
+    """Gather-geometry block count (one block = num inputs -> den
+    outputs), at most ~4 M output frames per launch; ``hard_cap`` floors
+    instead of rounding (a max_latency_ms budget is a ceiling)."""
+    max_blocks = max(1, _MAX_GATHER_OUT_FRAMES // spec.den)
+    want = (target_in_frames // spec.num if hard_cap
+            else round(target_in_frames / spec.num))
+    return max(1, min(want, max_blocks))
+
+
 def _v3_back(S: int, H: int) -> int:
     """How many S-blocks of look-back the history prefix spans."""
     return -(-H // S)
@@ -139,19 +185,20 @@ def _v3_periods_per_program(P: int) -> int:
     return max(1, 20 // P)
 
 
+_FLOAT_SCHEMES = ("auto", "int8", "split5", "highest")
+
+
 def _resolve_scheme(w_cert: np.ndarray, scheme: str):
     """Returns (scheme, int8p, scales): "auto" -> int8 when the
-    digit-escalating certificate clears the gate, else "highest" (the JAX
-    package picks split5 there, which has no port yet: ROADMAP.md K1c); an
-    explicit "int8" request is refused past the hard cap."""
-    if scheme not in ("auto", "int8", "split5", "highest"):
+    digit-escalating certificate clears the gate, else split5 (as in the
+    JAX package); an explicit "int8" request is refused past the hard
+    cap."""
+    if scheme not in _FLOAT_SCHEMES:
         raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-    if scheme == "split5":
-        raise _unported('scheme="split5"', "K1c")
     int8p = None
     if scheme == "auto":
         int8p = tf.int8_weights_auto(w_cert, _INT8_CERT_GATE)
-        scheme = "int8" if int8p is not None else "highest"
+        scheme = "int8" if int8p is not None else "split5"
     scales = ()
     if scheme == "int8":
         if int8p is None:
@@ -281,11 +328,14 @@ class BatchedStep:
         -> (hist' i16[hist_rows, B], y i16[out_per_launch, B])
     x rows [0, in_per_launch) are the chunk; rows
     [in_per_launch, in_per_launch + zero_tail) must be zero; any further
-    rows are don't-care padding.  ``w`` is the kernel's device weights;
-    ``kernel`` names the geometry and so the kernel the step launches,
+    rows are don't-care padding.  ``w`` is the launch's device weights;
+    ``kernel`` names the geometry and so what the step launches,
     ``kernel_kw`` the remaining arguments of its launch:
     ``tf.resample_tiled(hist, x, w, **kernel_kw)`` for "tiled",
-    ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "streamed".
+    ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "streamed",
+    ``df.resample_dense(hist, x, w, **kernel_kw)`` for a float "dense"
+    step.  A fixed "dense" step and both "gather" steps run plain torch
+    (``ops/fir_matmul``) on the concatenated ``hist ++ x``.
     """
     fn: object
     w: tuple
@@ -303,9 +353,11 @@ def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
     """Static launch geometry.  ``max_in_frames`` is a HARD cap on the
     launch quantum (the engine's availability latency): a geometry whose
     rounding overflows it is re-quantized within its family (units of
-    S * periods-per-program frames for tiled, of S for streamed); a cap
-    below one unit needs the dense geometry (not ported).  Raises
-    INVALID_ARG when even one period exceeds the cap."""
+    S * periods-per-program frames for tiled, of S for streamed, floored
+    block counts for gather) or dropped to a dense geometry whose group
+    factor shrinks to fit; a dense geometry whose padded weights would pass
+    the dense cap at that group goes to gather instead.  Raises INVALID_ARG
+    when even one period (num frames) exceeds the cap."""
     if max_in_frames is None:
         return _launch_geometry_impl(spec, target_in_frames, f0)
     if spec.num > max_in_frames:
@@ -314,13 +366,28 @@ def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
                                   f0)
     if bspec.in_per_launch <= max_in_frames:
         return bspec
-    unit = bspec.S * _periods_per_unit(bspec.kernel, bspec.P)
-    if unit <= max_in_frames:
-        b2 = _launch_geometry_impl(spec, (max_in_frames // unit) * unit, f0)
-        if b2.in_per_launch <= max_in_frames:
-            return b2
-    raise _unported("a max_latency_ms cap below one launch unit "
-                    "(dense geometry)", "M8")
+    if bspec.kernel in ("tiled", "streamed"):
+        unit = bspec.S * _periods_per_unit(bspec.kernel, bspec.P)
+        if unit <= max_in_frames:
+            b2 = _launch_geometry_impl(spec, (max_in_frames // unit) * unit,
+                                       f0)
+            if b2.in_per_launch <= max_in_frames:
+                return b2
+    gather = dataclasses.replace(
+        bspec, kernel="gather", group=1, S=0, P=0, R=0,
+        n_blocks=_gather_blocks(spec, max_in_frames, hard_cap=True))
+    if bspec.kernel == "gather":
+        return gather
+    group = min(fm.choose_group(spec.num, spec.den, spec.filt_len),
+                max(1, max_in_frames // spec.num))
+    stride = group * spec.num
+    if ((spec.filt_len + stride) * group * spec.den * _itemsize(spec)
+            > fm.MAX_PADDED_WEIGHT_BYTES):
+        return gather
+    return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
+                     filt_len=spec.filt_len, group=group,
+                     n_blocks=max(1, max_in_frames // stride), f0=f0,
+                     kernel="dense")
 
 
 def _periods_per_unit(kernel: str, P: int) -> int:
@@ -332,8 +399,8 @@ def _periods_per_unit(kernel: str, P: int) -> int:
 def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
                           f0: int) -> BatchSpec:
     """Tiled while the weights (all n_cols column sets) fit the universe's
-    tiled cap, streamed up to 256 MB; the JAX package sends the rest to its
-    dense or gather geometry, which is not ported."""
+    tiled cap, streamed up to 256 MB; else gather when the dense padded
+    weights would pass 32 MB (huge den), else dense."""
     n_cols = _n_cols(spec)
     if _tiled_weight_bytes_estimate(spec) * n_cols \
             <= 2 * _MAX_STREAMED_WEIGHT_BYTES:
@@ -349,7 +416,17 @@ def _launch_geometry_impl(spec: fd.FilterSpec, target_in_frames: int,
                              quality=spec.quality, filt_len=spec.filt_len,
                              group=1, n_blocks=n_periods * ptw.P, f0=f0,
                              kernel=kernel, S=ptw.S, P=ptw.P, R=ptw.R)
-    raise _unported("the dense and gather geometries", "K3/M8")
+    if _dense_weight_bytes(spec) > fm.MAX_PADDED_WEIGHT_BYTES:
+        return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
+                         filt_len=spec.filt_len, group=1,
+                         n_blocks=_gather_blocks(spec, target_in_frames),
+                         f0=f0, kernel="gather")
+    group = fm.choose_group(spec.num, spec.den, spec.filt_len)
+    return BatchSpec(num=spec.num, den=spec.den, quality=spec.quality,
+                     filt_len=spec.filt_len, group=group,
+                     n_blocks=max(1, round(target_in_frames
+                                           / (group * spec.num))),
+                     f0=f0, kernel="dense")
 
 
 # Per-process memo for built steps (weights decomposed and uploaded once
@@ -397,20 +474,27 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
 def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                         device: torch.device,
                         scheme: str = "auto") -> BatchedStep:
-    """Build the steady-state step on the tiled or streamed geometry.
+    """Build the steady-state step of ``bspec``'s geometry.
 
-    ``scheme``: "int8" (certificate-gated digit planes), "highest" (exact
-    f32), or "auto" = int8 when the worst-case certificate clears the
-    gate, else highest (see _resolve_scheme).  A fixed-point spec has one
-    exact scheme, "fixed" ("auto" resolves it; any other request raises
+    ``scheme`` (tiled and streamed): "int8" (certificate-gated digit
+    planes), "split5" (five bf16 products), "highest" (exact f32), or
+    "auto" = int8 when the worst-case certificate clears the gate, else
+    split5 (see _resolve_scheme).  The float dense and gather steps run
+    "highest" whatever the request, as in the JAX package (an unknown
+    scheme still raises INVALID_ARG).  A fixed-point spec has one exact
+    scheme, "fixed" ("auto" resolves it; any other request raises
     INVALID_ARG, as in the JAX package)."""
     if spec.fixed_point and scheme not in ("auto", "fixed"):
+        raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
+    if not spec.fixed_point and scheme not in _FLOAT_SCHEMES:
         raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
     if bspec.kernel == "streamed":
         return _build_streamed_step(spec, bspec, device=device,
                                     scheme=scheme)
-    if bspec.kernel != "tiled":
-        raise _unported(f"the {bspec.kernel} geometry", "K3/M8")
+    if bspec.kernel == "dense":
+        return _build_dense_step(spec, bspec, device=device)
+    if bspec.kernel == "gather":
+        return _build_gather_step(spec, bspec, device=device)
     ptw = _tiled_weights(spec, bspec.f0)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     N = spec.filt_len
@@ -425,7 +509,7 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         host_w = _fixed_host_weights(spec, bspec.f0, ptw.K)
     else:
         scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
-        host_w = (int8p[0], int8p[1]) if scheme == "int8" else ptw.w
+        host_w = _float_host_weights(ptw.w, scheme, int8p)
     w = tf.device_weights(host_w, scheme, device)
     kernel_kw = dict(
         offsets=torch.from_numpy(ptw.offsets.astype(np.int32)).to(device),
@@ -458,7 +542,7 @@ def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     else:
         w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
         scheme, int8p, scales = _resolve_scheme(w_np, scheme)
-        host_w = (int8p[0], int8p[1]) if scheme == "int8" else w_np
+        host_w = _float_host_weights(w_np, scheme, int8p)
     w = sf.device_weights_streamed(host_w, scheme, device)
     kernel_kw = dict(n_blocks=bspec.n_blocks, shift=H - (N - 1),
                      num=spec.num, den=spec.den, f0=bspec.f0, scheme=scheme,
@@ -474,8 +558,108 @@ def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                        kernel="streamed")
 
 
+def _float_host_weights(w_np: np.ndarray, scheme: str, int8p):
+    """The host weights of a resolved float scheme on the phase-tiled
+    weights ``w_np`` (tiled_fir.device_weights' input)."""
+    if scheme == "int8":
+        return int8p[0], int8p[1]
+    if scheme == "split5":
+        return tf.split5_weights(w_np)
+    return w_np
+
+
+def _padded_weights(spec: fd.FilterSpec, bspec: BatchSpec) -> tuple:
+    """The dense geometry's padded weights, zero rows up to L_pad (a
+    multiple of stride): ``(w [L_pad, C], n_accum)``.  f32 [L_pad, R] in
+    the float universe; int16 taps in the fixed one, with the 4
+    accumulator column sets of an interpolated filter side by side
+    (column c*R + r, as the tiled fixed weights; the JAX package orders
+    them r*4 + c)."""
+    tables = ([spec.interp_taps[:, c, :] for c in range(4)]
+              if _n_cols(spec) == 4 else [spec.phase_table])
+    w = np.concatenate([ph.build_padded_weights(t, spec.num, spec.den,
+                                                bspec.f0, bspec.group)
+                        for t in tables], axis=1)
+    L_pad = -(-w.shape[0] // bspec.stride) * bspec.stride
+    return np.pad(w, ((0, L_pad - w.shape[0]), (0, 0))), len(tables)
+
+
+def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
+                      device: torch.device) -> BatchedStep:
+    """The dense geometry's step (the JAX package's branch): history of
+    filt_len-1 rows, a chunk of exactly n_in rows, and the launch reads
+    the virtual axis hist ++ x ++ zeros from block origins b*stride.
+    Float: the K3 kernel (``df.resample_dense``).  Fixed: the exact
+    plain-torch product (``fm.resample_conv_tm_fixed``) on the
+    concatenation, with the Q15 cubic coefficients int32[4, R] of an
+    interpolated filter."""
+    N, stride = spec.filt_len, bspec.stride
+    n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
+    w_np, n_accum = _padded_weights(spec, bspec)
+    pad = (bspec.n_blocks + w_np.shape[0] // stride) * stride - (N - 1 + n_in)
+    assert pad >= 0
+    if not spec.fixed_point:
+        w = df.device_weights(w_np, device)
+        kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks)
+
+        def step(hist, x, w):
+            y = df.resample_dense(hist, x, w, **kernel_kw)
+            return _next_hist(hist, x, n_in, N - 1), y[:n_out]
+
+        return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
+                           zero_tail=0, scheme="highest", kernel_kw=kernel_kw,
+                           kernel="dense")
+    w = (torch.from_numpy(w_np).to(device),)
+    if n_accum == 4:
+        bc = ph.block_constants(spec.num, spec.den, bspec.f0, bspec.group)
+        coef = np.ascontiguousarray(spec.interp_coef[bc.p].T, dtype=np.int32)
+        w += (torch.from_numpy(coef).to(device),)
+    kernel_kw = dict(stride=stride, n_accum=n_accum)
+
+    def step(hist, x, w):
+        X = torch.cat([hist, x, x.new_zeros((pad, x.shape[1]))])
+        y = fm.resample_conv_tm_fixed(X, w, **kernel_kw)
+        return _next_hist(hist, x, n_in, N - 1), y[:n_out]
+
+    return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
+                       zero_tail=0, scheme="fixed", kernel_kw=kernel_kw,
+                       kernel="dense")
+
+
+def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
+                       device: torch.device) -> BatchedStep:
+    """The gather geometry's step (the JAX package's branch): the taps of
+    each of the launch's n_out outputs are gathered by phase on the host
+    once per step (window starts clamped in range); a launch is the
+    plain-torch gather (``fm.resample_gather``, or ``resample_gather_fixed``
+    with int16 taps and, for an interpolated filter, int32[n_out, 4] cubic
+    coefficients) over ``hist ++ x``."""
+    N, num, den, f0 = spec.filt_len, spec.num, spec.den, bspec.f0
+    n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
+    t = f0 + np.arange(n_out, dtype=np.int64) * num
+    starts = np.minimum(t // den, max(N - 1 + n_in - N, 0)).astype(np.int32)
+    phases = t % den
+    if _n_cols(spec) == 4:
+        taps, coef = spec.interp_rows(phases)
+        host_w = (taps, starts, coef.astype(np.int32))
+    else:
+        host_w = (spec.phase_rows(phases), starts)
+    launch, scheme = ((fm.resample_gather_fixed, "fixed") if spec.fixed_point
+                      else (fm.resample_gather, "highest"))
+    w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+              for a in host_w)
+
+    def step(hist, x, w):
+        X = torch.cat([hist, x[:n_in]])
+        y = launch(X.t(), *w)
+        return X[n_in:].clone(), y.t()
+
+    return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
+                       zero_tail=0, scheme=scheme, kernel="gather")
+
+
 def weights_from_jax(w, scheme: str, device="cuda",
-                     kernel: str = "tiled") -> tuple:
+                     kernel: str = "tiled", n_out: int | None = None) -> tuple:
     """A JAX ``BatchedStep.w`` converted to numpy -> this package's device
     weights for the same step.  ``kernel`` is the step's geometry, which
     the arrays alone cannot tell:
@@ -485,23 +669,52 @@ def weights_from_jax(w, scheme: str, device="cuda",
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
       the port's [P, K_pad, R] / [D, P, K_pad, R];
-    - "fixed", either geometry: ``(planes int8[2, P, C, K], bias int32[P,
-      C][, coef int32[P, 4, R]])`` (tiled) or planes int8[P, 2, C, K_pad]
-      (streamed).  The two int8 planes and the bias exist only for the
-      TPU's int8 MXU: the taps are rebuilt as int16 ``256*wh + wl0``,
+    - "split5": bf16 [3, P, K, R] (tiled) or [P, 3, R, K_pad] (streamed),
+      read as bit patterns (numpy holds JAX's bf16 as ``ml_dtypes``);
+    - "fixed", tiled or streamed: ``(planes int8[2, P, C, K], bias
+      int32[P, C][, coef int32[P, 4, R]])`` (tiled) or planes int8[P, 2, C,
+      K_pad] (streamed).  The two int8 planes and the bias exist only for
+      the TPU's int8 MXU: the taps are rebuilt as int16 ``256*wh + wl0``,
       transposed to the port's [P, K, C], and the bias is checked to be
-      ``128 * sum_K w`` and dropped."""
+      ``128 * sum_K w`` and dropped;
+    - "dense": f32 [L_pad, R] for "highest"; for "fixed" ``(wh int8[L_pad,
+      C], wl0, bias int32[C][, coef int32[R, 4]])`` with columns c-minor
+      (``r*4 + c``): rebuilt as int16 taps, the bias checked, the columns
+      reordered accumulator-major and coef transposed to [4, R];
+    - "gather": its arrays ``(taps, starts[, coef])``, padded by the JAX
+      package to its 2048-output tile, cut to the launch's ``n_out``
+      outputs (required)."""
     device = torch.device(device)
-    if kernel not in ("tiled", "streamed"):
+    if kernel not in ("tiled", "streamed", "dense", "gather"):
         raise ValueError(f"unknown geometry {kernel!r}")
+    if kernel == "gather":
+        if n_out is None:
+            raise ValueError("a gather step's weights need n_out")
+        return tuple(torch.from_numpy(np.array(a[:n_out])).to(device)
+                     for a in w)
+    if kernel == "dense":
+        if scheme != "fixed":
+            return df.device_weights(np.asarray(w), device)
+        wh, wl0, bias, *coef = (np.asarray(a) for a in w)
+        w16 = _taps_from_planes(wh, wl0, bias, tap_axis=0)
+        if coef:
+            L, C = w16.shape
+            w16 = w16.reshape(L, C // 4, 4).transpose(0, 2, 1).reshape(L, C)
+            coef = [coef[0].T]
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in (w16, *coef))
+    if scheme == "split5":
+        planes = np.asarray(w)
+        if kernel == "streamed":
+            planes = planes.transpose(1, 0, 3, 2)
+        bits = torch.from_numpy(np.array(planes).view(np.int16))
+        return tf.device_weights(bits.view(torch.bfloat16), scheme, device)
     if scheme == "fixed":
         planes, bias, *coef = (np.asarray(a) for a in w)
         if kernel == "streamed":
             planes = planes.transpose(1, 0, 2, 3)
-        w16 = 256 * planes[0].astype(np.int32) + planes[1].astype(np.int32)
-        if not np.array_equal(w16.sum(axis=2, dtype=np.int32) << 7, bias):
-            raise ValueError("fixed bias is not 128 * sum of the taps")
-        w16 = np.ascontiguousarray(w16.transpose(0, 2, 1)).astype(np.int16)
+        w16 = _taps_from_planes(planes[0], planes[1], bias, tap_axis=2)
+        w16 = np.ascontiguousarray(w16.transpose(0, 2, 1))
         return tf.device_weights((w16, *coef), scheme, device)
     if kernel == "tiled":
         return tf.device_weights(w, scheme, device)
@@ -512,6 +725,16 @@ def weights_from_jax(w, scheme: str, device="cuda",
         w = (np.ascontiguousarray(np.asarray(planes).transpose(1, 0, 3, 2)),
              bias)
     return sf.device_weights_streamed(w, scheme, device)
+
+
+def _taps_from_planes(wh, wl0, bias, tap_axis: int) -> np.ndarray:
+    """int16 taps ``256*wh + wl0`` from the JAX package's balanced int8
+    planes; raises ValueError unless ``bias`` is ``128 * sum`` of the taps
+    over ``tap_axis``."""
+    w16 = 256 * wh.astype(np.int32) + wl0.astype(np.int32)
+    if not np.array_equal(w16.sum(axis=tap_axis, dtype=np.int32) << 7, bias):
+        raise ValueError("fixed bias is not 128 * sum of the taps")
+    return w16.astype(np.int16)
 
 
 class _HostFifo:
@@ -586,12 +809,13 @@ class BatchedResampler:
         to the launch quantum.
     device : "cuda" (the kernel; raises when no CUDA device exists) or
         "cpu" (the kernel's plain PyTorch version).
-    scheme : "auto", "int8" or "highest"; "auto" or "fixed" with
-        ``fixed_point``.
+    scheme : "auto", "int8", "split5" or "highest"; "auto" or "fixed"
+        with ``fixed_point``.
     fixed_point : serve the Q15 fixed-point universe (the speexdsp
         ``-DFIXED_POINT`` build), bit-exact.
     mesh : not ported yet (raises NotImplementedError).
-    max_latency_ms : hard cap on the launch quantum.
+    max_latency_ms : hard cap on the launch quantum (a cap below one
+        tiled or streamed unit serves through the dense geometry).
 
     A launch or readback error raises; there is no degraded mode yet.
     """

@@ -13,8 +13,11 @@ from speex_resampler_tpu_torch.ops import tiled_fir as tf
 
 def block_origins(step) -> np.ndarray:
     """Each block's patch origin on the virtual axis hist ++ x, for a step
-    of ``parallel/batch.make_batched_step`` (tiled or streamed)."""
+    of ``parallel/batch.make_batched_step`` (tiled, streamed or dense: a
+    dense launch's n_in rows are n_in / stride blocks)."""
     kw = step.kernel_kw
+    if step.kernel == "dense":
+        return np.arange(step.chunk_rows // kw["stride"]) * kw["stride"]
     k = np.arange(kw["n_blocks"])
     if step.kernel == "tiled":
         off = kw["offsets"].cpu().numpy().astype(np.int64)
@@ -38,20 +41,35 @@ def launch_inputs(step, n_in: int, B: int, seed: int, wrap: bool = True):
     return hist, x
 
 
+def _wrap_window(step):
+    """(first chunk row, taps int64[n]) of the output whose window lies
+    wholly in the chunk and whose weight column (accumulator) has the
+    largest sum |w|: a block's column for tiled, streamed and dense steps,
+    an output's tap row for gather steps."""
+    H = step.hist_rows
+    if step.kernel == "gather":
+        taps, starts = (t.cpu().numpy().astype(np.int64) for t in step.w[:2])
+        taps = taps.reshape(taps.shape[0], -1, taps.shape[-1])  # [n, c, N]
+        o = int(np.flatnonzero(starts >= H)[0])
+        c = int(np.abs(taps[o]).sum(axis=1).argmax())
+        return starts[o] - H, taps[o, c]
+    w = step.w[0].cpu().numpy().astype(np.int64)
+    w = w.reshape(-1, *w.shape[-2:])                      # [P, K, C]
+    P = w.shape[0]
+    v0 = block_origins(step)
+    k = int(np.flatnonzero(v0 >= H)[0])
+    col = int(np.abs(w[k % P]).sum(axis=0).argmax())
+    return v0[k] - H, w[k % P, :, col]
+
+
 def wrap_input(step, x: np.ndarray, lanes) -> int:
-    """Write ``32767 * sign(w)`` over the window of the first block that
+    """Write ``32767 * sign(w)`` over the window of the first output that
     lies wholly in the chunk, for its weight column with the largest
     sum |w|, into ``x[:, lanes]`` (int16 [chunk_rows, B], in place).  That
     output's exact accumulator is sum |w| * 32767, returned: over 2^31 at
     the real fixed configs, so the int32 sum wraps."""
-    w = step.w[0].cpu().numpy().astype(np.int64)          # [P, K, C]
-    P, K, _ = w.shape
-    H = step.hist_rows
-    v0 = block_origins(step)
-    k = int(np.flatnonzero(v0 >= H)[0])
-    col = int(np.abs(w[k % P]).sum(axis=0).argmax())
-    taps = w[k % P, :, col]
-    rows = v0[k] - H + np.arange(K)
+    row0, taps = _wrap_window(step)
+    rows = row0 + np.arange(taps.shape[0])
     x[rows[:, None], np.asarray(lanes)[None, :]] = \
         (32767 * np.sign(taps)).astype(np.int16)[:, None]
     return int(np.abs(taps).sum()) * 32767

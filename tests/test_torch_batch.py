@@ -12,6 +12,8 @@ Also: weights carried over from a JAX step, checkpoints crossing between
 the packages, and the paths the port refuses.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -200,20 +202,38 @@ def test_checkpoint_crosses_packages_streamed(direction):
 
 
 def test_unported_paths_raise():
+    """mesh= (ROADMAP M12) raises and an unknown scheme is INVALID_ARG.
+    The paths that raised before the dense and gather geometries and the
+    split5 scheme were ported serve as the JAX engine does: the same
+    geometry and scheme, and one launch's outputs (fixed: bit for bit)."""
     args = (S, C, 44100, 48000, 7)
-    # a fixed config the JAX package routes to its gather geometry
-    with pytest.raises(NotImplementedError, match="M8"):
-        BatchedResampler(S, C, 44100, 44101, 7, device="cpu",
-                         fixed_point=True)
     with pytest.raises(NotImplementedError, match="M12"):
         BatchedResampler(*args, device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="K1c"):
-        BatchedResampler(*args, device="cpu", scheme="split5")
-    with pytest.raises(NotImplementedError, match="M8"):
-        BatchedResampler(*args, device="cpu", max_latency_ms=20)
     with pytest.raises(ResamplerError) as e:
         BatchedResampler(*args, device="cpu", scheme="INT8")
     assert e.value.code == ResamplerErrorCode.INVALID_ARG
+    # a fixed config on the gather geometry, explicit split5 (tiled), and
+    # a 20 ms cap below one tiled unit (dense)
+    for rates, kw, kernel in (((44100, 44101), dict(fixed_point=True),
+                               "gather"),
+                              ((44100, 48000), dict(scheme="split5"),
+                               "tiled"),
+                              ((44100, 48000), dict(max_latency_ms=20),
+                               "dense")):
+        jax_eng = JaxEngine(S, C, *rates, 7, use_pallas=True,
+                            pallas_interpret=True, **kw)
+        port = BatchedResampler(S, C, *rates, 7, device="cpu", **kw)
+        assert dataclasses.asdict(port.bspec) == dataclasses.asdict(
+            jax_eng.bspec)
+        assert port.bspec.kernel == kernel
+        assert port._step.scheme == jax_eng._step.scheme
+        f = _frames(port.in_frames_per_launch + 100, 9)
+        got, want = port.process(f), jax_eng.process(f)
+        assert got.shape == want.shape and got.shape[1] > 0
+        if port.fixed_point:
+            assert np.array_equal(got, want)
+        else:
+            assert_lsb_close(got.ravel(), want.ravel())
 
 
 def test_auto_resolves_int8_and_cuda_without_a_card_raises():

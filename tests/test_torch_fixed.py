@@ -389,8 +389,8 @@ def test_float_scheme_on_a_fixed_engine_raises(scheme):
 def test_fixed_latency_cap_requantizes_like_jax(cfg):
     """A max_latency_ms cap on a fixed config is re-quantized within its
     geometry (tiled units of S * periods per program, streamed units of
-    S), as the JAX package does; a cap below one unit needs the dense
-    geometry, which the port refuses naming M8."""
+    S), as the JAX package does; a cap below one unit goes to the dense
+    geometry, as in the JAX package."""
     js, ts = _specs(*cfg[:3])
     S = tb._launch_geometry(ts, 4096).S
     unit = S * (1 if cfg == SLICE else 20 // tb._launch_geometry(ts, 4096).P)
@@ -401,8 +401,11 @@ def test_fixed_latency_cap_requantizes_like_jax(cfg):
         tspec = tb._launch_geometry(ts, target, max_in_frames=cap)
         assert jspec.in_per_launch <= cap
         assert dataclasses.asdict(jspec) == dataclasses.asdict(tspec)
-    with pytest.raises(NotImplementedError, match="M8"):
-        tb._launch_geometry(ts, unit, max_in_frames=unit - 1)
+    jspec = jb._launch_geometry(js, unit, use_pallas=True,
+                                max_in_frames=unit - 1)
+    tspec = tb._launch_geometry(ts, unit, max_in_frames=unit - 1)
+    assert tspec.kernel == "dense" and tspec.in_per_launch <= unit - 1
+    assert dataclasses.asdict(jspec) == dataclasses.asdict(tspec)
 
 
 def test_step_cache_holds_the_fixed_slice_beside_the_float_one():

@@ -8,9 +8,9 @@ machine with a GPU and no jax it runs as
 
 Tolerance: "int8" bit-identical (exact int32 digit sums, the same f32
 epilogue order in both); "fixed" bit-identical (exact int16 dots wrapped
-mod 2^32, the Q15 epilogue in int32); "highest" max |err| <= 1 LSB with at
-most the Poisson tie count of tests/conftest.py::lsb_tie_limit (f32 sums in
-another order).
+mod 2^32, the Q15 epilogue in int32); "highest" and "split5" max |err| <= 1
+LSB with at most the Poisson tie count of tests/conftest.py::lsb_tie_limit
+(f32 sums in another order).
 """
 
 import dataclasses
@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from speex_resampler_tpu_torch import BatchedResampler
+from speex_resampler_tpu_torch.ops import dense_fir as tdf
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
@@ -235,3 +236,107 @@ def test_streamed_engine_cuda_matches_cpu(cuda, scheme):
     assert engines[0]._step.kernel == "streamed"
     assert engines[0].launches == engines[1].launches > 2
     _compare(outs[0], outs[1], engines[0]._step.scheme)
+
+
+# dense launches (in, out, quality, max_in_frames): the voip 20 ms shapes
+# (R 160, 96, 129), R 32 < ROW_TILE, and a 32 MB weight matrix (19990 ->
+# 20000 q10 capped below one streamed unit: L_pad 3998, R 2000)
+DENSE = [(44100, 48000, 3, 882), (48000, 16000, 3, 960),
+         (16000, 48000, 3, 320), (48000, 16000, 3, 96),
+         (19990, 20000, 10, 2998)]
+
+
+@pytest.mark.parametrize("cfg", DENSE, ids=lambda c: "%d-%d-q%d-cap%d" % c)
+def test_dense_kernel_matches_plain(cuda, cfg):
+    """dense_fir_f32_kernel against its plain version at f0 = 0 and at
+    phase 1 (where den > 1), B = 2048 and 130."""
+    i, o, q, cap = cfg
+    spec = tfd.design_filter(*_reduced(i, o), q)
+    for f0 in sorted({0, 1 % spec.den}):
+        bspec = tb._launch_geometry(spec, 4096, f0=f0, max_in_frames=cap)
+        step = tb.make_batched_step(spec, bspec, device="cuda")
+        assert (step.kernel, step.scheme) == ("dense", "highest")
+        for B in (2048, 130):
+            hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+                step, bspec.in_per_launch, B, seed=B + f0, wrap=False))
+            before = tdf.launches["highest"]
+            got = tdf.resample_dense(hist, x, step.w, **step.kernel_kw)
+            want = tdf.resample_dense_reference(hist, x, step.w,
+                                                **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert tdf.launches["highest"] == before + 1
+            _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+
+
+@pytest.mark.parametrize("cfg,scheme,kernel", [
+    ((96000, 8000, 10, 4096), "auto", "tiled"),
+    ((44100, 48000, 7, 9408), "split5", "tiled"),
+    ((48000, 44100, 10, 20480), "split5", "streamed")],
+    ids=["tiled-96k-8k-q10-auto", "tiled-44k1-48k-q7", "streamed-48k-44k1-q10"])
+def test_split5_kernel_matches_plain(cuda, cfg, scheme, kernel):
+    """tiled_fir_split5_kernel (K 4600 at 96k->8k q10, where "auto"
+    resolves split5) and streamed_fir_split5_kernel against their plain
+    versions, at f0 = 0 and at the phase a flush of 4040 frames leaves,
+    B = 2048 and 130."""
+    i, o, q, target = cfg
+    spec = tfd.design_filter(*_reduced(i, o), q)
+    m = tph.producible_outputs(4040, 0, 0, spec.num, spec.den)
+    module = ttf if kernel == "tiled" else tsf
+    for f0 in sorted({0, (m * spec.num) % spec.den}):
+        bspec = tb._launch_geometry(spec, target, f0=f0)
+        step = tb.make_batched_step(spec, bspec, device="cuda",
+                                    scheme=scheme)
+        assert (step.kernel, step.scheme) == (kernel, "split5")
+        launch = (ttf.resample_tiled if kernel == "tiled"
+                  else tsf.resample_streamed)
+        plain = (ttf.resample_tiled_reference if kernel == "tiled"
+                 else tsf.resample_streamed_reference)
+        for B in (2048, 130):
+            hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+                step, bspec.in_per_launch, B, seed=B + f0, wrap=False))
+            before = module.launches["split5"]
+            got = launch(hist, x, step.w, **step.kernel_kw)
+            want = plain(hist, x, step.w, **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert module.launches["split5"] == before + 1
+            _compare(got.cpu().numpy(), want.cpu().numpy(), "split5")
+
+
+@pytest.mark.parametrize("cfg,kw,kind", [
+    ((44100, 48000, 3), dict(max_latency_ms=20), "dense"),
+    ((44100, 48000, 3), dict(max_latency_ms=20, fixed_point=True), "dense"),
+    ((44100, 44101, 7), {}, "gather"),
+    ((44100, 44101, 7), dict(fixed_point=True), "gather"),
+    ((96000, 8000, 10), {}, "tiled")],
+    ids=["dense-voip", "dense-voip-fixed", "gather", "gather-fixed",
+         "tiled-split5-96k-8k"])
+def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
+    """process / flush / process on the card equals the CPU engine (fixed:
+    bit for bit).  The float dense and split5 engines launch their kernel
+    once per engine launch; the fixed dense and the gather engines run
+    plain torch on the card and launch no kernel."""
+    engines = [BatchedResampler(3, 2, *cfg, device=d, **kw)
+               for d in ("cuda", "cpu")]
+    step = engines[0]._step
+    assert step.kernel == kind
+    assert all(t.is_cuda for t in step.w)
+    q_in = engines[0].in_frames_per_launch
+    rng = np.random.default_rng(6)
+    frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
+              for n in (2 * q_in + 500, q_in // 3 + 7, q_in + 900)]
+    counts = (ttf.launches, tsf.launches, tdf.launches)
+    outs = []
+    for eng in engines:
+        before = [dict(c) for c in counts]
+        got = [eng.process(frames[0]), eng.process(frames[1]), eng.flush(),
+               eng.process(frames[2]), eng.flush()]
+        outs.append(np.concatenate(got, axis=1))
+        ran = sum(c[k] - b[k] for c, b in zip(counts, before) for k in c)
+        kernel = (step.scheme != "fixed" and kind != "gather"
+                  and eng.device.type == "cuda")
+        assert ran == (eng.launches if kernel else 0)
+    assert engines[0].launches == engines[1].launches > 2
+    if step.scheme == "fixed":
+        assert np.array_equal(outs[0], outs[1])
+    else:
+        _compare(outs[0], outs[1], step.scheme)

@@ -30,6 +30,7 @@ from speex_resampler_tpu.parallel import batch as jb
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
+from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
 from conftest import assert_lsb_close
@@ -143,8 +144,10 @@ def test_closed_form_origin_equals_tiled_offsets(cfg):
 
 def test_wrapper_guards_and_cpu_tensors_never_launch():
     """On CPU tensors the wrapper runs the plain version and counts no
-    launch; an under-padded chunk (v4's guard), an unported scheme and a
-    device without a kernel are refused."""
+    launch, under "highest" and "split5" (within the LSB contract of each
+    other); an under-padded chunk (v4's guard), f32 weights under
+    "split5", an unknown scheme and a device without a kernel are
+    refused."""
     _, tstep, tspec = _steps(0, "highest")
     hist, x = _inputs(tstep, tspec.in_per_launch, 3, seed=0)
     hist, x = torch.from_numpy(hist), torch.from_numpy(x)
@@ -157,8 +160,18 @@ def test_wrapper_guards_and_cpu_tensors_never_launch():
     short = x[:tspec.in_per_launch + 64]
     with pytest.raises(ValueError, match="last block"):
         tsf.resample_streamed(hist, short, tstep.w, **kw)
-    with pytest.raises(NotImplementedError, match="K2"):
-        tsf.resample_streamed(hist, x, tstep.w, **{**kw, "scheme": "split5"})
+    w5 = tsf.device_weights_streamed(
+        ttf.split5_weights(tstep.w[0].numpy()), "split5", "cpu")
+    kw5 = {**kw, "scheme": "split5"}
+    y5 = tsf.resample_streamed(hist, x, w5, **kw5)
+    assert tsf.launches == before
+    assert torch.equal(y5, tsf.resample_streamed_reference(hist, x, w5,
+                                                           **kw5))
+    assert_lsb_close(y5.numpy().ravel(), y.numpy().ravel())
+    with pytest.raises(TypeError):
+        tsf.resample_streamed(hist, x, tstep.w, **kw5)
+    with pytest.raises(ValueError, match="scheme"):
+        tsf.resample_streamed(hist, x, tstep.w, **{**kw, "scheme": "split6"})
     meta = torch.empty(hist.shape, dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):
         tsf.resample_streamed(meta, x, tstep.w, **kw)

@@ -99,18 +99,28 @@ def test_reference_matches_jax_v3(case, scheme):
 
 def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors the wrapper runs the plain version and counts no
-    launch; a device without a kernel is refused."""
+    launch, under "highest" and under "split5" (the same launch with the
+    weights split in three bf16 planes, within the LSB contract of
+    "highest"); f32 weights under "split5", an unknown scheme and a device
+    without a kernel are refused."""
     _, tstep, tspec = _steps(*FLAGSHIP[:3], 2352, "0", "highest")
-    hist, x = _inputs(tstep, tspec.in_per_launch, 3, seed=0)
+    hist, x = (torch.from_numpy(a) for a in
+               _inputs(tstep, tspec.in_per_launch, 3, seed=0))
     before = dict(ttf.launches)
-    ttf.resample_tiled(torch.from_numpy(hist), torch.from_numpy(x),
-                       tstep.w, **tstep.kernel_kw)
+    y = ttf.resample_tiled(hist, x, tstep.w, **tstep.kernel_kw)
+    w5 = ttf.device_weights(ttf.split5_weights(tstep.w[0].numpy()),
+                            "split5", "cpu")
+    kw5 = {**tstep.kernel_kw, "scheme": "split5"}
+    y5 = ttf.resample_tiled(hist, x, w5, **kw5)
     assert ttf.launches == before
-    with pytest.raises(NotImplementedError, match="K1c"):
-        ttf.resample_tiled(torch.from_numpy(hist), torch.from_numpy(x),
-                           tstep.w, **{**tstep.kernel_kw,
-                                       "scheme": "split5"})
+    assert torch.equal(y5, ttf.resample_tiled_reference(hist, x, w5, **kw5))
+    assert_lsb_close(y5.numpy().ravel(), y.numpy().ravel())
+    with pytest.raises(TypeError):
+        ttf.resample_tiled(hist, x, tstep.w, **kw5)
+    with pytest.raises(ValueError, match="scheme"):
+        ttf.resample_tiled(hist, x, tstep.w,
+                           **{**tstep.kernel_kw, "scheme": "split6"})
     meta = torch.empty((4,), device="meta")
     with pytest.raises(ValueError):
-        ttf.resample_tiled(torch.from_numpy(hist), torch.from_numpy(x),
-                           tstep.w, **{**tstep.kernel_kw, "offsets": meta})
+        ttf.resample_tiled(hist, x, tstep.w,
+                           **{**tstep.kernel_kw, "offsets": meta})
