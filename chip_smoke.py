@@ -23,14 +23,17 @@ nvcc per source, in parallel) and drives the serving paths of
 For each path it holds every kernel against its plain PyTorch version on
 the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
 drive the int32 accumulators past 2^31; the streamed kernel also takes the
-direct filter's weights), serves the path through
+direct filter's weights; highest and split5: the mismatch rate beside the
+tie bound), serves the path through
 ``process``/``flush``/``process`` with the launch counts set to 0 just
 before and read just after (every kernel of the path must have launched,
 once per engine launch; a plain-torch path launches none and keeps its
 step's tensors on the card), checks streams 0-3 against a CPU engine, then
 times kernel, plain version and, where one exists, the one PyTorch call
 that computes the same product (plain-torch paths: the step, by the host
-clock).  Every phase raises on failure (non-zero exit).  The last two lines of standard output are the kernels' JSON
+clock), and prints split5's time over highest's where both are timed.
+After the build it prints each kernel's registers and spills (``ptxas
+-v``) and the HGMMA count of the split5 kernels' SASS (``cuobjdump``).  Every phase raises on failure (non-zero exit).  The last two lines of standard output are the kernels' JSON
 summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
 no result, without a CUDA device or outside a checkout of the repository.
 """
@@ -40,6 +43,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -210,6 +215,13 @@ def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
     return lam + 4.0 * float(np.sqrt(lam * (1.0 - rate))) + 2.0
 
 
+def ties(mism: int, n: int) -> str:
+    """A mismatch count as a rate, beside the tie bound of n outputs."""
+    limit = lsb_tie_limit(n)
+    return (f"({mism / max(n, 1):.2e}; tie limit {limit:.0f} = "
+            f"{limit / max(n, 1):.2e})")
+
+
 def compare(got: np.ndarray, want: np.ndarray, scheme: str, what: str):
     """int8, fixed: bit-identical.  highest, split5: max |err| <= 1 within
     the tie bound (f32 sums in another order).  Returns (max |err|, mismatches)."""
@@ -361,6 +373,58 @@ def library_product_ms(step, bspec, hist, x, reps: int):
     return ms
 
 
+def kernel_of(symbol: str) -> str:
+    """A kernel's name (with its template argument) from its mangled
+    symbol, else the symbol."""
+    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel)(ILi(\d+)E)?",
+                  symbol)
+    if m is None:
+        return symbol
+    return m.group(1) + (f"<{m.group(3)}>" if m.group(2) else "")
+
+
+def ptxas_report() -> None:
+    """Each kernel's registers, shared memory, spills and any wgmma
+    warning from the build's ``-Xptxas -v`` reports (``<source>.log``), one
+    line a kernel."""
+    for log in sorted(_build.build_dir().glob("*.log")):
+        name, props = None, {}
+        for line in log.read_text().splitlines():
+            m = re.search(r"(?:Compiling entry function '|Function properties "
+                          r"for )(\w+)", line)
+            if m:
+                name = kernel_of(m.group(1))
+            elif name and ("spill" in line or "Used" in line
+                           or "wgmma" in line):
+                props.setdefault(name, []).append(
+                    line.split(":", 1)[-1].strip() if "Used" in line
+                    else line.strip())
+        for name, lines in props.items():
+            print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
+
+
+def sass_check() -> None:
+    """Counts the HGMMA (wgmma) instructions of each split5 kernel in the
+    built library's SASS (``cuobjdump -sass``); says so where the tool is
+    missing."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        print("SASS check: cuobjdump not found, not checked")
+        return
+    res = subprocess.run([tool, "-sass", str(_build.lib_path())],
+                         capture_output=True, text=True)
+    counts, name = {}, None
+    for line in res.stdout.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            name = kernel_of(m.group(1))
+        elif name and "split5" in name and "HGMMA" in line:
+            counts[name] = counts.get(name, 0) + 1
+    found = ", ".join(f"{n} {counts.get(n, 0)} HGMMA" for n in
+                      ("tiled_fir_split5_kernel", "streamed_fir_split5_kernel"))
+    print(f"SASS check (cuobjdump -sass, exit {res.returncode}): {found}")
+
+
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
     f0 0 and after the flush, B = 2048 and 130 (fixed: with the wrap input
@@ -391,7 +455,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 print(f"kernel vs plain: {path.name} {scheme:7s} -> "
                       f"{kernel_name(*key)} D={D} f0={f0:3d} B={B:4d} "
                       f"n_blocks={bspec.n_blocks} max|err|={err} "
-                      f"mismatches={mism}")
+                      f"mismatches={mism} {ties(mism, got.numel())}")
 
 
 def serve_engine(path: Path, scheme: str, frames: list):
@@ -460,7 +524,7 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
                                 f"{path.name} {scheme} call {i}")
             print(f"serve {path.name} {scheme:7s} call {i}: out "
                   f"{tuple(g.shape)} streams 0-3 vs cpu max|err|={err} "
-                  f"mismatches={mism}")
+                  f"mismatches={mism} {ties(mism, w.size)}")
     first = next(iter(requests.values()))
     print(f"serve {path.name}: {requests} (int8 D={want_digits}, "
           f"{path.quantum()} frames per launch), "
@@ -506,7 +570,7 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
     plain-torch step by the host clock."""
     bspec = path.geometry()
     out_samples = bspec.out_per_launch * LANES
-    entries = []
+    entries, ms = [], {}
     for scheme in (schemes + unlisted) if path.module else ():
         step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                     scheme=scheme)
@@ -514,6 +578,7 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
         D = step.w[0].shape[0] if step.scheme == "int8" else 0
         nums = time_launch(f"{path.name} {scheme:7s} ({kernel_name(*key)} "
                            f"D={D})", path.spec, step, bspec, smi, reps)
+        ms[step.scheme] = nums["ms"]
         if scheme in unlisted:
             continue
         entries.append({
@@ -522,6 +587,10 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
             "replaces": REPLACES.get(key[:2], path.replaces),
             "launches": counts[step.scheme], "max_abs_err": max_err[key],
             **nums})
+    if "split5" in ms and "highest" in ms:
+        print(f"split5 / highest at {path.name} on {smi}: "
+              f"{ms['split5']:.4f} / {ms['highest']:.4f} ms = "
+              f"{ms['split5'] / ms['highest']:.3f}")
     if path.module is None:
         step = next(iter(engines.values()))._step
         hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7,
@@ -572,10 +641,8 @@ def main() -> None:
     t0 = time.time()
     _build.load()
     print(f"build: {time.time() - t0:.1f} s ({_build.build_dir()})")
-    for log in sorted(_build.build_dir().glob("*.log")):
-        for line in log.read_text().splitlines():
-            if "registers" in line or "spill" in line or "smem" in line:
-                print(f"  ptxas {log.name.split('.')[0]}: {line.strip()}")
+    ptxas_report()
+    sass_check()
 
     # -- phase 3: every kernel against its plain version, on the card
     max_err: dict = {}

@@ -39,16 +39,18 @@
 //   split5:  _dot_scheme's five bf16 dots, in its order: d_1..d_5 =
 //            <w_hi,x_hi>, <w_hi,x_lo>, <w_mid,x_hi>, <w_mid,x_lo>,
 //            <w_lo,x_hi> (x_hi = bf16(x), rounded to nearest even, x_lo =
-//            x - x_hi; both exact), each an f32 sum of exact products (FMA),
+//            x - x_hi; both exact), each its own f32 sum of exact products,
 //            then y = ((((d_1 + d_2) + d_3) + d_4) + d_5) with __fadd_rn and
 //            WORD2INT: the plain version's five matmuls in the same order.
+//            The products run on the bf16 tensor cores (split5_wgmma.cuh,
+//            with this file's Tile and word2int); the other schemes use
+//            this file's staging and register-tile product.
 //            (Fusing the pairs that share a weight plane, w_hi*x_hi +
-//            w_hi*x_lo = w_hi*x exactly, walks 3 passes instead of 5 but
-//            rounds each sum elsewhere: on the H100 it disagreed with the
-//            plain version on 5.4e-3 of the outputs, past the tie bound.)
+//            w_hi*x_lo = w_hi*x exactly, rounds each sum elsewhere: on the
+//            H100 it disagreed with the plain version on 5.4e-3 of the
+//            outputs, past the tie bound.)
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -112,53 +114,27 @@ struct Tile {
   }
 };
 
-// A staged weight: bf16 planes widen exactly to f32, the rest by a cast.
-template <typename Acc, typename WT>
-__device__ __forceinline__ Acc widen(WT v) {
-  return (Acc)v;
-}
-template <>
-__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-// bf16(v), rounded to nearest even, back in f32 (split5's x_hi).
-__device__ __forceinline__ float bf16_round(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
-}
-
-// Which part of a sample a split5 pass stages.
-enum XPart { kX = 0, kXHi = 1, kXLo = 2 };
-
-// Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`, or
-// split5's x_hi / x_lo) and of the kRowTile weight columns from wm (tap
-// row t at wm + t * ld); rows at or past t_hi, lanes past B and block rows
-// past R stage as zero.
+// Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`) and of
+// the kRowTile weight columns from wm (tap row t at wm + t * ld); rows at
+// or past t_hi, lanes past B and block rows past R stage as zero.
 template <typename Acc, typename WT>
 __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
                                       const WT* __restrict__ wm, int ld,
                                       int t0, int shift, Acc (*xs)[kLaneTile],
-                                      Acc (*ws)[kRowTile], XPart part = kX) {
+                                      Acc (*ws)[kRowTile]) {
   for (int i = threadIdx.x; i < kTapStage * kLaneTile; i += kThreads) {
     const int t = t0 + i / kLaneTile, lane = c.lane0 + i % kLaneTile;
-    Acc v = (Acc)0;
-    if (t < c.t_hi && lane < g.B) {
-      const int s = read_virtual(g, c.v0 + t, lane) + shift;
-      if (part == kX) {
-        v = (Acc)s;
-      } else {
-        const float hi = bf16_round((float)s);
-        v = (Acc)(part == kXHi ? hi : (float)s - hi);
-      }
-    }
-    xs[i / kLaneTile][i % kLaneTile] = v;
+    xs[i / kLaneTile][i % kLaneTile] =
+        (t < c.t_hi && lane < g.B)
+            ? (Acc)(read_virtual(g, c.v0 + t, lane) + shift)
+            : (Acc)0;
   }
   const int cols = g.R - c.rt * kRowTile;  // < kRowTile in a partial tile
   for (int i = threadIdx.x; i < kTapStage * kRowTile; i += kThreads) {
     const int t = t0 + i / kRowTile;
     ws[i / kRowTile][i % kRowTile] =
         (t < c.t_hi && i % kRowTile < cols)
-            ? widen<Acc>(wm[(size_t)t * ld + i % kRowTile])
+            ? (Acc)wm[(size_t)t * ld + i % kRowTile]
             : (Acc)0;
   }
 }
@@ -234,35 +210,6 @@ __device__ __forceinline__ void fir_tile_f32(const Launch& g, const Tile& c,
   }
 #pragma unroll
   for (int a = 0; a < 8; ++a) store(g, c, a, acc[a]);
-}
-
-// Scheme "split5": planes bf16[3, P, K, R] (hi, mid, lo).  Dot d (0..4)
-// takes plane d / 2 against x_lo for odd d, else x_hi, walked over the tap
-// band into its own f32 sum, added to the running total in order (file
-// header), as the int8 scheme adds its digits.
-__device__ __forceinline__ void fir_tile_split5(
-    const Launch& g, const Tile& c, const __nv_bfloat16* __restrict__ planes) {
-  __shared__ __align__(16) float xs[kTapStage][kLaneTile];
-  __shared__ __align__(16) float ws[kTapStage][kRowTile];
-  float y[8][4] = {};
-#pragma unroll 1
-  for (int d = 0; d < 5; ++d) {
-    const __nv_bfloat16* wm =
-        planes + ((size_t)(d / 2) * g.P + c.m) * g.K * g.R + c.rt * kRowTile;
-    float acc[8][4] = {};
-    for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-      stage(g, c, wm, g.R, t0, 0, xs, ws, d % 2 ? kXLo : kXHi);
-      __syncthreads();
-      multiply_stage(c, xs, ws, acc);  // exact products, f32 FMA sums
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) y[a][b] = __fadd_rn(y[a][b], acc[a][b]);
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) store(g, c, a, y[a]);
 }
 
 // Scheme "int8": planes int8[D, P, K, R], bias f32[P, R], D <= 4 scales.

@@ -34,7 +34,8 @@
 // at B = 2048).  So the grid runs over lane tiles fastest: the CTAs that
 // share block k's weight columns are scheduled together, HBM serves each
 // weight tile once and L2 the other lane tiles (the counterpart of v4's
-// "widest lane tile" rule).  Tensor cores, TMA and cp.async are later work.
+// "widest lane tile" rule).  Tensor cores for the other schemes, TMA and
+// cp.async are later work.
 //
 // Scheme "fixed" (v4's fixed branch: _dot_fixed, then the fixed_math
 // epilogues) reads int16 weights [P, K_pad, n_accum * R], 77 MB at q10
@@ -47,10 +48,14 @@
 // multiply-add summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX
 // streams [P, 3, R, K_pad]).  At 48k->44.1k q10 it needs the 10.8 G
 // multiply-adds of "highest": 108 G bf16 tensor-core FLOP, ~0.11 ms, above
-// the ~55 us of its bytes.  Here the tap band is walked five times on the
-// CUDA cores in f32, one pass per dot (fir_common.cuh).
+// the ~58 us of its bytes, so operations bound it.  It runs on the bf16
+// tensor cores (split5_wgmma.cuh, shared with the tiled kernel): five f32
+// accumulators, one walk of each tile's ~350-tap band in 32-tap stages
+// copied three stages ahead.  Its tiles are short (11 stages), so a CTA's
+// pipeline fill and epilogue weigh more than at 96k->8k.
 
 #include "fir_common.cuh"
+#include "split5_wgmma.cuh"
 
 namespace {
 
@@ -96,10 +101,10 @@ streamed_fir_fixed_kernel(fir::Launch g, Origin o,
   fir::fir_tile_fixed<kAccum>(g, streamed_tile(g, o), w, coef);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 streamed_fir_split5_kernel(fir::Launch g, Origin o,
                            const __nv_bfloat16* __restrict__ planes) {
-  fir::fir_tile_split5(g, streamed_tile(g, o), planes);
+  fir::split5::fir_tile(g, streamed_tile(g, o), planes);
 }
 
 dim3 grid_of(int n_blocks, int R, int B) {
@@ -131,14 +136,20 @@ int streamed_fir_f32(const void* hist, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// planes bf16[3, P, K, R] (hi, mid, lo).
+// planes bf16[3, P, K, R] (hi, mid, lo), 16-byte aligned.
 int streamed_fir_split5(const void* hist, const void* x, void* y,
                         const void* taps, const void* planes, int H, int T,
                         int B, int R, int K, int P, int n_blocks, int shift,
                         int num, int den, int f0, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaError_t attr =
+      fir::split5::allow_smem(streamed_fir_split5_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  streamed_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+  streamed_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads,
+                               fir::split5::kSmemBytes,
                                static_cast<cudaStream_t>(stream)>>>(
       g, Origin{shift, num, den, f0},
       static_cast<const __nv_bfloat16*>(planes));

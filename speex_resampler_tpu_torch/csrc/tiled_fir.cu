@@ -44,12 +44,16 @@
 // products per multiply-add, summed in f32) is what "auto" resolves where
 // the int8 certificate fails, e.g. 96 kHz -> 8 kHz q10 (filt_len 3072,
 // K 4600, P 1).  One launch at B = 2048 needs 16.1 G multiply-adds: 161 G
-// bf16 tensor-core FLOP at 5 products each, ~0.16 ms, above the ~0.04 ms of
-// its ~138 MB, so operations bound it.  Here it walks the tap band five
-// times on the CUDA cores in f32, one pass per dot (fir_common.cuh), the
-// simple first kernel.
+// bf16 tensor-core FLOP at 5 products each, ~0.16 ms, above the ~0.045 ms
+// of its ~151 MB, so operations bound it, and only the tensor cores come
+// near: the CUDA cores' f32 FMA would take 2.4 ms for the five passes.
+// So it runs on them (split5_wgmma.cuh): wgmma m64n64k16 with x_hi / x_lo
+// as the register operand, five f32 accumulators over one walk of the
+// band (3840 taps a tile), the weights and x rows copied three stages
+// ahead, and each K-slice's x split while the previous slice's wgmmas run.
 
 #include "fir_common.cuh"
+#include "split5_wgmma.cuh"
 
 namespace {
 
@@ -88,10 +92,10 @@ tiled_fir_fixed_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
   fir::fir_tile_fixed<kAccum>(g, tiled_tile(g, offsets, S), w, coef);
 }
 
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
 tiled_fir_split5_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
                         int S, const __nv_bfloat16* __restrict__ planes) {
-  fir::fir_tile_split5(g, tiled_tile(g, offsets, S), planes);
+  fir::split5::fir_tile(g, tiled_tile(g, offsets, S), planes);
 }
 
 dim3 grid_of(int n_blocks, int R, int B) {
@@ -122,14 +126,19 @@ int tiled_fir_f32(const void* hist, const void* x, void* y, const void* offsets,
   return static_cast<int>(cudaGetLastError());
 }
 
-// planes bf16[3, P, K, R] (hi, mid, lo).
+// planes bf16[3, P, K, R] (hi, mid, lo), 16-byte aligned.
 int tiled_fir_split5(const void* hist, const void* x, void* y,
                      const void* offsets, const void* taps, const void* planes,
                      int H, int T, int B, int R, int K, int P, int S,
                      int n_blocks, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaError_t attr = fir::split5::allow_smem(tiled_fir_split5_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  tiled_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+  tiled_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads,
+                            fir::split5::kSmemBytes,
                             static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const int32_t*>(offsets), S,
       static_cast<const __nv_bfloat16*>(planes));

@@ -18,13 +18,13 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_dir"]
+__all__ = ["load", "build_dir", "lib_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _CSRC = _PKG / "csrc"
 _SOURCES = (_CSRC / "tiled_fir.cu", _CSRC / "streamed_fir.cu",
             _CSRC / "dense_fir.cu")
-_HEADERS = (_CSRC / "fir_common.cuh",)
+_HEADERS = (_CSRC / "fir_common.cuh", _CSRC / "split5_wgmma.cuh")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -67,7 +67,8 @@ def _nvcc() -> str:
     return found
 
 
-def _lib_path() -> Path:
+def lib_path() -> Path:
+    """The library this checkout's sources and flags build."""
     h = hashlib.sha1(" ".join(_FLAGS).encode())
     for src in (*_HEADERS, *_SOURCES):
         h.update(src.read_bytes())
@@ -121,7 +122,7 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = _lib_path()
+        path = lib_path()
         if not path.exists():
             _compile(path)
         lib = ctypes.CDLL(str(path))

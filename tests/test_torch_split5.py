@@ -163,6 +163,39 @@ def test_plain_streamed_split5_matches_jax_v4(cfg):
     assert_lsb_close(ty.numpy().ravel(), np.asarray(jy).ravel())
 
 
+#: the split5 kernels' walk (csrc/split5_wgmma.cuh): K-slices of WGMMA_K
+#: taps from each row tile's t_lo rounded down to WGMMA_K, copied in whole
+#: stages of STAGE_TAPS taps
+WGMMA_K, STAGE_TAPS = 16, 32
+
+
+@pytest.mark.parametrize("cfg", [DECIMATE, SLICE, SPEECH],
+                         ids=["96k-8k-q10", "48k-44k1-q10", "44k1-16k-q7"])
+def test_kernel_walk_adds_only_zero_weights(cfg):
+    """Every tap the tensor-core kernels copy or multiply outside a row
+    tile's band [t_lo, t_hi) holds a zero weight in all three planes of
+    that tile, and the band is tight, so the extra products are exact zeros
+    and each of the five sums is the band's (taps past K are zero-filled in
+    the kernel)."""
+    _, ts = _specs(cfg)
+    step = tb.make_batched_step(ts, tb._launch_geometry(ts, cfg[3]),
+                                device="cpu", scheme="split5")
+    planes, taps = step.w[0], step.w[-1].numpy()
+    _, P, K, R = planes.shape
+    nonzero = (planes != 0).any(dim=0).numpy()                  # [P, K, R]
+    for m in range(P):
+        for rt, (lo, hi) in enumerate(taps[m]):
+            rows = nonzero[m, :, rt * ttf.ROW_TILE:(rt + 1) * ttf.ROW_TILE]
+            band = rows.any(axis=1)                                # [K]
+            assert hi > lo and band[lo] and band[hi - 1]
+            begin = lo - lo % WGMMA_K
+            end = begin + -(-(hi - begin) // STAGE_TAPS) * STAGE_TAPS
+            assert begin <= lo and hi <= end < hi + STAGE_TAPS
+            outside = np.ones(K, dtype=bool)
+            outside[lo:hi] = False
+            assert not band[outside].any()
+
+
 def test_weights_from_jax_tiled_split5():
     jstep, tstep, _ = _steps(FLAGSHIP, "split5")
     got = tb.weights_from_jax(np.asarray(jstep.w), "split5", device="cpu")
