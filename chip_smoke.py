@@ -247,19 +247,33 @@ def card_inputs(step, n_in: int, B: int, seed: int, wrap: bool = False):
                                                      wrap))
 
 
-def cuda_ms(fn, reps: int, warmup: int = 3) -> float:
-    """Median of per-launch CUDA-event times, after warm-up."""
-    for _ in range(warmup):
+def cuda_ms(fn, reps: int, warmup: int = 3, warm_ms: float = 25.0,
+            host: bool = False) -> float:
+    """Device ms of one call of ``fn``, after ``warmup`` calls and as many
+    more as ``warm_ms`` of the host clock take (the card raises its clocks
+    under load; a short kernel timed after idle host work reads slow): the
+    median over 5 groups of ``reps`` calls queued back to back between two
+    CUDA events, over ``reps``, so the host's work in each call overlaps
+    the device's.  ``host=True``: the median of ``reps`` single calls, each
+    between its own two events, which then also hold the host's part of
+    the call (a Python wrapper's checks and launch) while the card waits."""
+    t0, n = time.perf_counter(), 0
+    while n < warmup or (time.perf_counter() - t0) * 1e3 < warm_ms:
         fn()
+        n += 1
+        if n % 8 == 0:
+            torch.cuda.synchronize()
+    torch.cuda.synchronize()
     times = []
-    for _ in range(reps):
+    for _ in range(reps if host else 5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(1 if host else reps):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / (1 if host else reps))
     return float(np.median(times))
 
 
@@ -281,7 +295,8 @@ def launch_bound(spec, step, bspec, B: int):
     cores; for "split5", 5 bf16 products, 10 FLOP, on the bf16 tensor
     cores).  The band multiply-adds, returned beside it, are those the
     kernel walks: each 64-row tile's nonzero tap band (times n_accum),
-    K_pad padding skipped."""
+    K_pad padding skipped; for "highest", each 16-row sub-band's 8-tap
+    slices (``tiled_fir.f32_walk``)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     n_accum = step.kernel_kw.get("n_accum", 1)
     macs = n_out * N * B * n_accum
@@ -305,9 +320,13 @@ def launch_bound(spec, step, bspec, B: int):
         ops = 2 * macs
     nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
     taps = step.w[-1].cpu().numpy()
-    band = (taps[..., 1] - taps[..., 0]).astype(np.int64)     # [P, tiles]
+    if step.scheme == "highest" and step.kernel != "dense":
+        band, rows = tf.f32_walk(taps), tf.SUB_ROWS       # [P, sub-bands]
+    else:
+        band = (taps[..., 1] - taps[..., 0]).astype(np.int64)  # [P, tiles]
+        rows = tf.ROW_TILE
     k = np.arange(bspec.n_blocks)
-    band_macs = (int(band[k % max(bspec.P, 1)].sum()) * tf.ROW_TILE * B
+    band_macs = (int(band[k % max(bspec.P, 1)].sum()) * rows * B
                  * n_accum)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     peak = {"highest": FP32_FLOPS, "split5": BF16_FLOPS}.get(step.scheme,
@@ -383,23 +402,28 @@ def kernel_of(symbol: str) -> str:
     return m.group(1) + (f"<{m.group(3)}>" if m.group(2) else "")
 
 
-def ptxas_report() -> None:
+def ptxas_props(log) -> dict:
     """Each kernel's registers, shared memory, spills and any wgmma
-    warning from the build's ``-Xptxas -v`` reports (``<source>.log``), one
-    line a kernel."""
+    warning from one source's ``-Xptxas -v`` report (the file
+    ``<source>.log``, a ``pathlib.Path``):
+    {kernel: [line, ...]}."""
+    name, props = None, {}
+    for line in log.read_text().splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties "
+                      r"for )(\w+)", line)
+        if m:
+            name = kernel_of(m.group(1))
+        elif name and ("spill" in line or "Used" in line or "wgmma" in line):
+            props.setdefault(name, []).append(
+                line.split(":", 1)[-1].strip() if "Used" in line
+                else line.strip())
+    return props
+
+
+def ptxas_report() -> None:
+    """The build's ptxas report (:func:`ptxas_props`), one line a kernel."""
     for log in sorted(_build.build_dir().glob("*.log")):
-        name, props = None, {}
-        for line in log.read_text().splitlines():
-            m = re.search(r"(?:Compiling entry function '|Function properties "
-                          r"for )(\w+)", line)
-            if m:
-                name = kernel_of(m.group(1))
-            elif name and ("spill" in line or "Used" in line
-                           or "wgmma" in line):
-                props.setdefault(name, []).append(
-                    line.split(":", 1)[-1].strip() if "Used" in line
-                    else line.strip())
-        for name, lines in props.items():
+        for name, lines in ptxas_props(log).items():
             print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
 
 
@@ -427,7 +451,8 @@ def sass_check() -> None:
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
-    f0 0 and after the flush, B = 2048 and 130 (fixed: with the wrap input
+    f0 0 and after the flush, B = 2048 and 130, and 129 for "highest" (x
+    rows not 16-byte aligned: 2-byte loads; fixed: with the wrap input
     on every third lane).  ``kernel`` overrides the geometry: "streamed"
     feeds a tiled direct filter's weights to the streamed kernel."""
     for scheme in schemes:
@@ -441,7 +466,8 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
             n_accum = step.kernel_kw.get("n_accum", 1)
-            for B in (LANES, 130):
+            for B in (LANES, 130) + ((129,) if step.scheme == "highest"
+                                     else ()):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.fixed)
                 got = launch(hist, x, step)
@@ -543,13 +569,15 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
     out_samples = bspec.out_per_launch * LANES
     hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
     ms = cuda_ms(lambda: launch(hist, x, step), reps)
+    host_ms = cuda_ms(lambda: launch(hist, x, step), reps, host=True)
     plain_ms = cuda_ms(lambda: plain(hist, x, step), reps)
     library_ms = (library_product_ms(step, bspec, hist, x, reps)
                   if step.scheme in ("highest", "split5") else None)
     bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
         spec, step, bspec, LANES)
     print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch "
-          f"({out_samples / ms / 1e6:.2f} G out samples/s), plain "
+          f"({out_samples / ms / 1e6:.2f} G out samples/s; {host_ms:.4f} "
+          f"ms with each launch's host call inside its events), plain "
           f"{plain_ms:.4f} ms, library "
           f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
           f", bound {bound_ms:.4f} ms by {bound_by} "

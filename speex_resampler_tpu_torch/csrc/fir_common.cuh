@@ -3,7 +3,10 @@
 // register-tile product and the epilogues.  Each kernel computes only
 // where its output block's patch starts on the virtual axis hist ++ x;
 // everything from there on is this file, so the kernels give the same sums
-// in the same order.
+// in the same order.  Two schemes of the tiled and streamed kernels have
+// their own product and staging: "highest" (f32_fir.cuh, the same FMA
+// chain as fir_tile_f32 here, which the dense kernel keeps) and "split5"
+// (split5_wgmma.cuh); both copy through the cp.async helpers below.
 //
 // A CTA owns a 64-row x 128-lane output tile of one block k (R rows, phase
 // m = k % P) and walks only the tap rows where its 64 weight columns are
@@ -87,6 +90,46 @@ __device__ __forceinline__ int read_virtual(const Launch& g, int v, int lane) {
   if (v < g.H) return g.hist[(size_t)v * g.B + lane];
   v -= g.H;
   return v < g.T ? g.x[(size_t)v * g.B + lane] : 0;
+}
+
+// -- asynchronous copies (split5_wgmma.cuh, f32_fir.cuh) ---------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16-byte asynchronous copy; src_bytes 0 fills the chunk with zeros.
+__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
+                                       int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+
+// Copies 8 int16 samples of virtual row v, lanes lane .. lane+7, to dst
+// (zeros past B and past the chunk): one 16-byte cp.async where vec, else
+// 2-byte loads and a shared store.
+__device__ __forceinline__ void copy_x8(const Launch& g, int v, int lane,
+                                        bool vec, uint32_t dst,
+                                        const void* any) {
+  const int16_t* row = nullptr;
+  if (v < g.H)
+    row = g.hist + (size_t)v * g.B;
+  else if (v - g.H < g.T)
+    row = g.x + (size_t)(v - g.H) * g.B;
+  const bool in = row != nullptr && lane < g.B;
+  if (vec) {
+    copy16(dst, in ? row + lane : any, in ? 16 : 0);
+    return;
+  }
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int b = 0; b < 8; ++b)
+    if (in && lane + b < g.B)
+      w[b / 2] |= (uint32_t)(uint16_t)__ldg(row + lane + b) << (16 * (b & 1));
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
 }
 
 // WORD2INT (arch.h:208-209): round half up, saturate to int16.

@@ -144,44 +144,6 @@ __device__ __forceinline__ void pin(uint32_t (&a)[4]) {
   for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(a[i])::"memory");
 }
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy; src_bytes 0 fills the chunk with zeros.
-__device__ __forceinline__ void copy16(uint32_t dst, const void* src,
-                                       int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// Copies 8 int16 samples of virtual row v, lanes lane .. lane+7, to dst
-// (zeros past B and past the chunk): one 16-byte cp.async where vec, else
-// 2-byte loads and a shared store.
-__device__ __forceinline__ void copy_x8(const Launch& g, int v, int lane,
-                                        bool vec, uint32_t dst,
-                                        const void* any) {
-  const int16_t* row = nullptr;
-  if (v < g.H)
-    row = g.hist + (size_t)v * g.B;
-  else if (v - g.H < g.T)
-    row = g.x + (size_t)(v - g.H) * g.B;
-  const bool in = row != nullptr && lane < g.B;
-  if (vec) {
-    copy16(dst, in ? row + lane : any, in ? 16 : 0);
-    return;
-  }
-  uint32_t w[4] = {0, 0, 0, 0};
-#pragma unroll
-  for (int b = 0; b < 8; ++b)
-    if (in && lane + b < g.B)
-      w[b / 2] |= (uint32_t)(uint16_t)__ldg(row + lane + b) << (16 * (b & 1));
-  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
-               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
-               : "memory");
-}
-
 __device__ __forceinline__ uint32_t bits(__nv_bfloat162 v) {
   return *reinterpret_cast<uint32_t*>(&v);
 }

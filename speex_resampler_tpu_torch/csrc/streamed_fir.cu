@@ -18,8 +18,9 @@
 // starts inside hist, with synchronous copies; here every CTA reads tap row
 // v0+t from hist when v0+t < H, else from x, as the tiled kernel does.  The
 // weights are the port's own layout [P, K, R] (JAX streams [P, R, K]); the
-// staging, product and epilogues are fir_common.cuh's, shared with
-// tiled_fir.cu, so both kernels round identically.
+// staging, product and epilogues are fir_common.cuh's ("highest":
+// f32_fir.cuh's; split5: split5_wgmma.cuh's), shared with tiled_fir.cu,
+// so both kernels round identically.
 //
 // What bounds it on the H100: the multiply-adds.  One 48k->44.1k q10 launch
 // at B = 2048 (n_blocks 147, R 128, K 512, filt_len 280) must move ~183 MB
@@ -27,15 +28,16 @@
 // it needs 10.8 G multiply-adds (filt_len per output): ~322 us at the
 // 33.5 T FMA/s of the CUDA cores in f32, and D int32 passes at half that
 // rate under "int8".  The 64-row tiles walk 13.4 G of them, each tile's
-// nonzero tap band.
+// nonzero tap band; the "highest" kernel's warps 11.7 G, each 16-row
+// sub-band's 8-tap slices (f32_fir.cuh).
 // What the TPU design was for (weights too large for VMEM) does not apply:
 // the H100 reads weights through its 50 MB L2 either way.  The Hopper risk
 // is re-reading them from HBM once per lane tile (16 x 38.5 MB per launch
 // at B = 2048).  So the grid runs over lane tiles fastest: the CTAs that
 // share block k's weight columns are scheduled together, HBM serves each
 // weight tile once and L2 the other lane tiles (the counterpart of v4's
-// "widest lane tile" rule).  Tensor cores for the other schemes, TMA and
-// cp.async are later work.
+// "widest lane tile" rule).  Tensor cores for int8 and fixed are later
+// work.
 //
 // Scheme "fixed" (v4's fixed branch: _dot_fixed, then the fixed_math
 // epilogues) reads int16 weights [P, K_pad, n_accum * R], 77 MB at q10
@@ -54,6 +56,7 @@
 // copied three stages ahead.  Its tiles are short (11 stages), so a CTA's
 // pipeline fill and epilogue weigh more than at 96k->8k.
 
+#include "f32_fir.cuh"
 #include "fir_common.cuh"
 #include "split5_wgmma.cuh"
 
@@ -68,6 +71,12 @@ struct Origin {
   int shift, num, den, f0;
 };
 
+// Block k's patch origin.
+__device__ __forceinline__ int origin(const fir::Launch& g, Origin o, int k) {
+  const long long t = o.f0 + (long long)k * g.R * o.num;
+  return (int)((t / o.den + o.shift) / 16 * 16);
+}
+
 // CTA index = (block k, row tile) * lane_tiles + lane tile.
 __device__ __forceinline__ fir::Tile streamed_tile(const fir::Launch& g,
                                                    Origin o) {
@@ -75,14 +84,20 @@ __device__ __forceinline__ fir::Tile streamed_tile(const fir::Launch& g,
   const int row_tiles = g.R / kRowTile;
   const int kr = blockIdx.x / lane_tiles;
   const int k = kr / row_tiles;
-  const long long t = o.f0 + (long long)k * g.R * o.num;
-  const long long v0 = (t / o.den + o.shift) / 16 * 16;
-  return fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles, (int)v0);
+  return fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
+                   origin(g, o, k));
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The same order over f32::kLanes-lane tiles.
+__global__ void __launch_bounds__(fir::f32::kThreads, fir::f32::kMinBlocks)
 streamed_fir_f32_kernel(fir::Launch g, Origin o, const float* __restrict__ w) {
-  fir::fir_tile_f32(g, streamed_tile(g, o), w);
+  const int lane_tiles = (g.B + fir::f32::kLanes - 1) / fir::f32::kLanes;
+  const int row_tiles = g.R / kRowTile;
+  const int kr = blockIdx.x / lane_tiles;
+  const int k = kr / row_tiles;
+  fir::f32::fir_tile(g, k, kr % row_tiles,
+                     (blockIdx.x % lane_tiles) * fir::f32::kLanes,
+                     origin(g, o, k), w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -124,13 +139,21 @@ const char* streamed_fir_error_string(int err) {
 
 // Each entry point launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of the launch (0 on success).
+// taps int32[P, R / 16, 2] (each 16-row sub-band's nonzero taps);
+// w f32[P, K, R], 16-byte aligned.
 int streamed_fir_f32(const void* hist, const void* x, void* y,
                      const void* taps, const void* w, int H, int T, int B,
                      int R, int K, int P, int n_blocks, int shift, int num,
                      int den, int f0, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaError_t attr = fir::f32::allow_smem(streamed_fir_f32_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  streamed_fir_f32_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+  const dim3 grid(n_blocks * (R / kRowTile) *
+                  ((B + fir::f32::kLanes - 1) / fir::f32::kLanes));
+  streamed_fir_f32_kernel<<<grid, fir::f32::kThreads, fir::f32::kSmemBytes,
                             static_cast<cudaStream_t>(stream)>>>(
       g, Origin{shift, num, den, f0}, static_cast<const float*>(w));
   return static_cast<int>(cudaGetLastError());

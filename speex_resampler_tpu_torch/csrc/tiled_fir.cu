@@ -32,6 +32,13 @@
 // int8 MMA (wgmma / mma.sync), TMA staging and dp4a are left for later
 // work: this is the simple, exact first kernel.
 //
+// Scheme "highest" (K1a) has its own product, shared with the streamed
+// kernel (f32_fir.cuh): a 3-stage cp.async ring of 16-tap stages, x
+// converted to f32 once a stage, an 8 x 8 register tile a thread, and each
+// warp multiplying only the 8-tap slices that meet its 16 rows' nonzero
+// band (a table of 16-row sub-bands), every output still one FMA chain in
+// tap order.  Its lane tile is f32::kLanes.
+//
 // Scheme "fixed" (the Q15 universe; K1's fixed branch, _kernel_v3 with
 // _dot_fixed and the fixed_math epilogues) walks the same tiles once per
 // weight column set (n_accum 4 at 44.1k->48k q7: C = 4R = 512 columns) in
@@ -52,6 +59,7 @@
 // band (3840 taps a tile), the weights and x rows copied three stages
 // ahead, and each K-slice's x split while the previous slice's wgmmas run.
 
+#include "f32_fir.cuh"
 #include "fir_common.cuh"
 #include "split5_wgmma.cuh"
 
@@ -71,10 +79,15 @@ __device__ __forceinline__ fir::Tile tiled_tile(const fir::Launch& g,
                    (k / g.P) * S + offsets[k % g.P]);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// grid (n_blocks * R / kRowTile, ceil(B / f32::kLanes))
+__global__ void __launch_bounds__(fir::f32::kThreads, fir::f32::kMinBlocks)
 tiled_fir_f32_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
                      int S, const float* __restrict__ w) {
-  fir::fir_tile_f32(g, tiled_tile(g, offsets, S), w);
+  const int row_tiles = g.R / kRowTile;
+  const int k = blockIdx.x / row_tiles;
+  fir::f32::fir_tile(g, k, blockIdx.x % row_tiles,
+                     blockIdx.y * fir::f32::kLanes,
+                     (k / g.P) * S + offsets[k % g.P], w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -106,8 +119,10 @@ dim3 grid_of(int n_blocks, int R, int B) {
 
 extern "C" {
 
-// Tile sizes the host wrapper must honour (R % row_tile == 0; taps table).
+// Tile sizes the host wrapper must honour (R % row_tile == 0; taps table;
+// the "highest" table's sub-bands of sub_rows rows).
 int tiled_fir_row_tile() { return kRowTile; }
+int f32_fir_sub_rows() { return fir::f32::kSubRows; }
 
 const char* tiled_fir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -115,12 +130,20 @@ const char* tiled_fir_error_string(int err) {
 
 // Each entry point launches on `stream`, does not synchronise, and returns
 // cudaGetLastError() of the launch (0 on success).
+// taps int32[P, R / sub_rows, 2] (each 16-row sub-band's nonzero taps);
+// w f32[P, K, R], 16-byte aligned.
 int tiled_fir_f32(const void* hist, const void* x, void* y, const void* offsets,
                   const void* taps, const void* w, int H, int T, int B, int R,
                   int K, int P, int S, int n_blocks, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const cudaError_t attr = fir::f32::allow_smem(tiled_fir_f32_kernel);
+  if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  tiled_fir_f32_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
+  const dim3 grid(n_blocks * (R / kRowTile),
+                  (B + fir::f32::kLanes - 1) / fir::f32::kLanes);
+  tiled_fir_f32_kernel<<<grid, fir::f32::kThreads, fir::f32::kSmemBytes,
                          static_cast<cudaStream_t>(stream)>>>(
       g, static_cast<const int32_t*>(offsets), S, static_cast<const float*>(w));
   return static_cast<int>(cudaGetLastError());

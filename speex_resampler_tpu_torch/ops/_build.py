@@ -18,13 +18,15 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ["load", "build_dir", "lib_path"]
+__all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
+           "use_csrc"]
 
 _PKG = Path(__file__).resolve().parent.parent
+_SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu")
+_HEADER_NAMES = ("fir_common.cuh", "split5_wgmma.cuh", "f32_fir.cuh")
 _CSRC = _PKG / "csrc"
-_SOURCES = (_CSRC / "tiled_fir.cu", _CSRC / "streamed_fir.cu",
-            _CSRC / "dense_fir.cu")
-_HEADERS = (_CSRC / "fir_common.cuh", _CSRC / "split5_wgmma.cuh")
+_SOURCES = tuple(_CSRC / name for name in _SOURCE_NAMES)
+_HEADERS = tuple(_CSRC / name for name in _HEADER_NAMES)
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -32,6 +34,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: C function -> (restype, argtypes)
 _SIGNATURES = {
     "tiled_fir_row_tile": (_I, []),
+    "f32_fir_sub_rows": (_I, []),
     "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
     "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
@@ -75,7 +78,7 @@ def lib_path() -> Path:
     return build_dir() / f"libfir.{h.hexdigest()[:12]}.so"
 
 
-def _compile(out: Path) -> None:
+def compile_library(out: Path) -> None:
     """One nvcc per source, all started together, to per-process object
     files; then one link to a temporary name and an atomic rename, so a
     concurrent loader never opens a half-written library.  Each source's
@@ -124,10 +127,30 @@ def load() -> ctypes.CDLL:
             return _lib
         path = lib_path()
         if not path.exists():
-            _compile(path)
-        lib = ctypes.CDLL(str(path))
-        for fn, (restype, argtypes) in _SIGNATURES.items():
-            getattr(lib, fn).restype = restype
-            getattr(lib, fn).argtypes = argtypes
-        _lib = lib
-        return lib
+            compile_library(path)
+        _lib = declare(ctypes.CDLL(str(path)))
+        return _lib
+
+
+def declare(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+    """Sets the C signatures of ``lib``'s entry points ``names`` (all of
+    this library's by default); returns ``lib``."""
+    for fn in names or _SIGNATURES:
+        restype, argtypes = _SIGNATURES[fn]
+        getattr(lib, fn).restype = restype
+        getattr(lib, fn).argtypes = argtypes
+    return lib
+
+
+def use_csrc(csrc: Path) -> None:
+    """Builds and loads from another ``csrc/`` directory from now on: a
+    copy of this one with edited kernels, or an earlier checkout's (whose
+    headers may be fewer).  The next :func:`load` compiles it."""
+    global _CSRC, _SOURCES, _HEADERS, _lib
+    csrc = Path(csrc).resolve()
+    with _lock:
+        _CSRC = csrc
+        _SOURCES = tuple(csrc / name for name in _SOURCE_NAMES)
+        _HEADERS = tuple(csrc / name for name in _HEADER_NAMES
+                         if (csrc / name).exists())
+        _lib = None

@@ -21,7 +21,7 @@ Device weights (:data:`device_weights_streamed`) keep the tiled kernel's
 layout, padded to ``K_pad`` (a multiple of 128) tap rows as the JAX package
 pads them:
 
-- ``"highest"``: ``(w f32[P, K_pad, R], taps int32[P, R // ROW_TILE, 2])``
+- ``"highest"``: ``(w f32[P, K_pad, R], bands int32[P, R // SUB_ROWS, 2])``
 - ``"int8"``: ``(planes int8[D, P, K_pad, R], bias f32[P, R], taps)``
 - ``"fixed"``: ``(w int16[P, K_pad, C], [coef int32[P, 4, R],] taps)``,
   C = n_accum * R accumulator-major columns
@@ -112,9 +112,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
-    if lib.streamed_fir_row_tile() != tf.ROW_TILE:
-        raise RuntimeError("csrc/streamed_fir.cu row tile disagrees with "
-                           "ROW_TILE")
+    if lib.streamed_fir_row_tile() != tf.ROW_TILE \
+            or lib.f32_fir_sub_rows() != tf.SUB_ROWS:
+        raise RuntimeError("csrc/streamed_fir.cu tile sizes disagree with "
+                           "ROW_TILE / SUB_ROWS")
     H, B = hist.shape
     y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
     with torch.cuda.device(x.device):

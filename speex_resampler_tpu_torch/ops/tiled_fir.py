@@ -13,7 +13,7 @@ reads K rows of the virtual axis ``hist ++ x`` from origin
 Device weights (built once per step, never per launch; see
 :func:`device_weights`):
 
-- ``"highest"``: ``(w f32[P, K, R], taps int32[P, R // ROW_TILE, 2])``
+- ``"highest"``: ``(w f32[P, K, R], bands int32[P, R // SUB_ROWS, 2])``
 - ``"int8"``: ``(planes int8[D, P, K, R], bias f32[P, R], taps)``
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
@@ -30,7 +30,10 @@ plus an int32 bias only because the MXU multiplies int8 (see
 range of tap rows in which weight columns ``[i*ROW_TILE, (i+1)*ROW_TILE)``
 of phase m have a nonzero entry (in any of the ``n_accum`` components); the
 CUDA kernel skips the rest, which changes no result (the skipped products
-are exact zeros).
+are exact zeros).  ``"highest"`` keeps the same table at ``SUB_ROWS``
+(16-row) granularity, ``bands``: its kernel (``csrc/f32_fir.cuh``) copies
+the union of a row tile's four sub-bands and each warp multiplies only the
+8-tap slices that meet its own 16 rows' band (:func:`f32_walk`).
 
 :func:`resample_tiled` launches the CUDA kernel (``csrc/tiled_fir.cu``) for
 CUDA tensors and runs :func:`resample_tiled_reference`, its plain PyTorch
@@ -49,13 +52,19 @@ from .convert import word2int
 from .fixed_math import fixed_interp_mix_rows, sat32pshr15
 
 __all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
-           "tap_ranges",
+           "tap_ranges", "f32_walk", "SUB_ROWS", "K_SLICE",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
 #: Output rows of one block handled by one CTA (``kRowTile`` in the CUDA
 #: source); R must be a multiple of it.
 ROW_TILE = 64
+
+#: Rows of one sub-band of the "highest" table (``kSubRows``; one warp's
+#: rows in ``csrc/f32_fir.cuh``), and the taps of the slices a warp
+#: multiplies or skips (``kSlice``).
+SUB_ROWS = 16
+K_SLICE = 8
 
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_tiled adds to it, once per launch.  Callers reset the counts to
@@ -98,20 +107,38 @@ def split5_weights(w) -> torch.Tensor:
     return torch.stack([hi, mid, lo])
 
 
-def tap_ranges(nonzero: np.ndarray) -> np.ndarray:
-    """``nonzero``: bool[P, K, R] -> int32[P, R // ROW_TILE, 2], the
-    [lo, hi) tap rows holding a nonzero weight in each row tile (0, 0 for
-    an all-zero tile)."""
+def tap_ranges(nonzero: np.ndarray, rows: int = ROW_TILE) -> np.ndarray:
+    """``nonzero``: bool[P, K, R] -> int32[P, R // rows, 2], the [lo, hi)
+    tap rows holding a nonzero weight in each group of ``rows`` weight
+    columns (0, 0 for an all-zero group)."""
     P, K, R = nonzero.shape
-    assert R % ROW_TILE == 0, R
-    tiles = nonzero.reshape(P, K, R // ROW_TILE, ROW_TILE).any(axis=3)
-    out = np.zeros((P, R // ROW_TILE, 2), dtype=np.int32)
+    assert R % rows == 0, R
+    groups = nonzero.reshape(P, K, R // rows, rows).any(axis=3)
+    out = np.zeros((P, R // rows, 2), dtype=np.int32)
     for m in range(P):
-        for i in range(R // ROW_TILE):
-            rows = np.flatnonzero(tiles[m, :, i])
-            if rows.size:
-                out[m, i] = rows[0], rows[-1] + 1
+        for i in range(R // rows):
+            taps = np.flatnonzero(groups[m, :, i])
+            if taps.size:
+                out[m, i] = taps[0], taps[-1] + 1
     return out
+
+
+def f32_walk(bands: np.ndarray) -> np.ndarray:
+    """``bands``: the "highest" table int32[P, R // SUB_ROWS, 2] ->
+    int64[P, R // SUB_ROWS], the tap rows each sub-band's warp multiplies
+    in ``csrc/f32_fir.cuh``: the ``K_SLICE``-tap slices, counted from its
+    row tile's band start (the least lo of the tile's non-empty
+    sub-bands), that meet its own [lo, hi); 0 for an empty sub-band."""
+    P, n, _ = bands.shape
+    per = ROW_TILE // SUB_ROWS
+    b = bands.reshape(P, n // per, per, 2).astype(np.int64)
+    lo, hi = b[..., 0], b[..., 1]
+    full = hi > lo
+    start = np.where(full, lo, np.iinfo(np.int64).max).min(axis=2,
+                                                           keepdims=True)
+    first = (lo - start) // K_SLICE
+    last = -(-(hi - start) // K_SLICE)
+    return np.where(full, (last - first) * K_SLICE, 0).reshape(P, n)
 
 
 def device_weights(w, scheme: str, device) -> tuple:
@@ -123,7 +150,7 @@ def device_weights(w, scheme: str, device) -> tuple:
     if scheme == "highest":
         w = np.asarray(w, dtype=np.float32)
         return (torch.from_numpy(w.copy()).to(device),
-                torch.from_numpy(tap_ranges(w != 0)).to(device))
+                torch.from_numpy(tap_ranges(w != 0, SUB_ROWS)).to(device))
     if scheme == "int8":
         planes, bias = (np.asarray(a) for a in w)
         assert planes.dtype == np.int8 and bias.dtype == np.float32
@@ -202,8 +229,11 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
             raise ValueError(f"{len(scales)} scales for {D} digit planes")
     if scheme in ("highest", "split5") and scales:
         raise ValueError(f"scales {scales} under scheme {scheme!r}")
-    if R % ROW_TILE or tuple(taps.shape) != (P, R // ROW_TILE, 2):
-        raise ValueError(f"taps {tuple(taps.shape)} for R = {R}")
+    rows = SUB_ROWS if scheme == "highest" else ROW_TILE
+    if R % ROW_TILE or tuple(taps.shape) != (P, R // rows, 2) \
+            or taps.dtype != torch.int32:
+        raise ValueError(f"taps {tuple(taps.shape)} {taps.dtype} for "
+                         f"R = {R} under scheme {scheme!r}")
     return P, K, R
 
 
@@ -243,9 +273,10 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
-    if lib.tiled_fir_row_tile() != ROW_TILE:
-        raise RuntimeError("csrc/tiled_fir.cu row tile disagrees with "
-                           "ROW_TILE")
+    if lib.tiled_fir_row_tile() != ROW_TILE \
+            or lib.f32_fir_sub_rows() != SUB_ROWS:
+        raise RuntimeError("csrc/tiled_fir.cu tile sizes disagree with "
+                           "ROW_TILE / SUB_ROWS")
     H, B = hist.shape
     y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
     if y.numel() == 0:

@@ -8,7 +8,6 @@ and chip_smoke.py.  Imports torch and the port only.
 import numpy as np
 
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
-from speex_resampler_tpu_torch.ops import tiled_fir as tf
 
 
 def block_origins(step) -> np.ndarray:
@@ -22,7 +21,7 @@ def block_origins(step) -> np.ndarray:
     if step.kernel == "tiled":
         off = kw["offsets"].cpu().numpy().astype(np.int64)
         return (k // off.shape[0]) * kw["S"] + off[k % off.shape[0]]
-    R = step.w[-1].shape[1] * tf.ROW_TILE        # taps [P, R / ROW_TILE, 2]
+    R = step.w[0].shape[-1] // kw.get("n_accum", 1)    # [.., K, n_accum R]
     return sf.origins(kw["n_blocks"], R, shift=kw["shift"], num=kw["num"],
                       den=kw["den"], f0=kw["f0"]).numpy()
 

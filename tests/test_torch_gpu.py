@@ -28,7 +28,7 @@ from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
-from fixed_inputs import launch_inputs
+from fixed_inputs import block_origins, launch_inputs
 
 pytestmark = pytest.mark.gpu
 
@@ -59,10 +59,17 @@ def _compare(got, want, scheme):
     return int((d > 0).sum()), limit
 
 
+# "highest" also at B = 129 (x rows not 16-byte aligned: 2-byte loads) and
+# 64 (half of the f32 kernels' 128-lane CTA tile)
+LANES = {"highest": (2048, 130, 129, 64), "int8": (2048, 130)}
+
+
 @pytest.mark.parametrize("scheme", ["highest", "int8"])
 @pytest.mark.parametrize("cfg", CONFIGS, ids=lambda c: "%d-%d-q%d" % c)
 def test_kernel_matches_plain(cuda, cfg, scheme):
-    """At f0 = 0 and at the phase a flush leaves, B = 2048 and B = 130."""
+    """At f0 = 0 and at the phase a flush leaves, B = 2048 and B = 130
+    (and 129, 64 under "highest"); each launch's first windows start
+    inside the history."""
     i, o, q = cfg
     g = math.gcd(i, o)
     spec = tfd.design_filter(i // g, o // g, q)
@@ -71,7 +78,8 @@ def test_kernel_matches_plain(cuda, cfg, scheme):
         bspec = tb._launch_geometry(spec, 9408, f0=f0)
         step = tb.make_batched_step(spec, bspec, device="cuda",
                                     scheme=scheme)
-        for B in (2048, 130):
+        assert block_origins(step)[0] < step.hist_rows
+        for B in LANES[scheme]:
             rng = np.random.default_rng(B + f0)
             hist = torch.from_numpy(rng.integers(
                 -32768, 32768, (step.hist_rows, B), dtype=np.int16)).cuda()
@@ -110,8 +118,9 @@ def test_engine_cuda_matches_cpu(cuda, scheme):
 @pytest.mark.parametrize("cfg", STREAMED, ids=lambda c: "%d-%d-q%d" % c)
 def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
     """One weight period per launch, at f0 = 0 and at the phase a flush of
-    4040 staged frames leaves, B = 2048 and B = 130 ("auto" is int8 with
-    D = 4 at q10, explicit "int8" D = 3)."""
+    4040 staged frames leaves, B = 2048 and B = 130, and 129, 64 under
+    "highest" ("auto" is int8 with D = 4 at q10, explicit "int8" D = 3);
+    each launch's first windows start inside the history."""
     i, o, q = cfg
     g = math.gcd(i, o)
     spec = tfd.design_filter(i // g, o // g, q)
@@ -121,7 +130,8 @@ def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
         step = tb.make_batched_step(spec, bspec, device="cuda",
                                     scheme=scheme)
         assert step.kernel == "streamed"
-        for B in (2048, 130):
+        assert block_origins(step)[0] < step.hist_rows
+        for B in LANES.get(step.scheme, (2048, 130)):
             rng = np.random.default_rng(B + f0)
             hist = torch.from_numpy(rng.integers(
                 -32768, 32768, (step.hist_rows, B), dtype=np.int16)).cuda()
@@ -136,6 +146,72 @@ def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
             torch.cuda.synchronize()
             assert tsf.launches[step.scheme] == before + 1
             _compare(got.cpu().numpy(), want.cpu().numpy(), step.scheme)
+
+
+def test_streamed_f32_band_reaching_k_pad(cuda):
+    """streamed_fir_f32_kernel where tiles' bands end at K_pad: the 48k ->
+    44.1k q10 weights moved down so their last nonzero tap row is K_pad - 1
+    (their band ends at 434 of 512 as served), so the last stage's weight
+    rows past K_pad are zero-filled, not read.  B = 2048, 130, 129, 64."""
+    spec = tfd.design_filter(160, 147, 10)
+    bspec = tb._launch_geometry(spec, 20480)
+    step = tb.make_batched_step(spec, bspec, device="cuda",
+                                scheme="highest")
+    w = step.w[0].cpu().numpy()
+    K_pad = w.shape[1]
+    shift = K_pad - int(np.flatnonzero((w != 0).any(axis=(0, 2)))[-1]) - 1
+    assert shift > 0
+    moved = tsf.device_weights_streamed(np.roll(w, shift, axis=1),
+                                        "highest", "cuda")
+    bands = moved[1].cpu().numpy()
+    tiles = bands.reshape(bands.shape[0], -1, 4, 2)       # 4 sub-bands a tile
+    lo, hi = tiles[..., 0].min(axis=2), tiles[..., 1].max(axis=2)
+    assert hi.max() == K_pad
+    assert (lo + -(-(hi - lo) // 16) * 16 > K_pad).any()  # 16-tap stages
+    for B in (2048, 130, 129, 64):
+        hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+            step, bspec.in_per_launch, B, seed=B, wrap=False))
+        before = tsf.launches["highest"]
+        got = tsf.resample_streamed(hist, x, moved, **step.kernel_kw)
+        want = tsf.resample_streamed_reference(hist, x, moved,
+                                               **step.kernel_kw)
+        torch.cuda.synchronize()
+        assert tsf.launches["highest"] == before + 1
+        _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+
+
+@pytest.mark.parametrize("kernel", ["tiled", "streamed"])
+def test_f32_misaligned_weights_raise(cuda, kernel):
+    """The f32 kernels copy weight rows 16 bytes at a time: a contiguous
+    weight view 4 bytes off a 16-byte boundary raises before any launch
+    (the count stays), and the next aligned launch still matches plain."""
+    cfg = (44100, 48000, 7, 9408) if kernel == "tiled" else \
+        (48000, 44100, 10, 20480)
+    spec = tfd.design_filter(*_reduced(*cfg[:2]), cfg[2])
+    bspec = tb._launch_geometry(spec, cfg[3])
+    step = tb.make_batched_step(spec, bspec, device="cuda", scheme="highest")
+    assert step.kernel == kernel
+    module = ttf if kernel == "tiled" else tsf
+    launch = (ttf.resample_tiled if kernel == "tiled"
+              else tsf.resample_streamed)
+    w, bands = step.w
+    buf = torch.zeros(w.numel() + 4, dtype=torch.float32, device="cuda")
+    off = buf[1:1 + w.numel()].view(w.shape)
+    off.copy_(w)
+    assert off.is_contiguous() and off.data_ptr() % 16 == 4
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, 130, seed=130, wrap=False))
+    before = module.launches["highest"]
+    with pytest.raises(RuntimeError, match="misaligned"):
+        launch(hist, x, (off, bands), **step.kernel_kw)
+    assert module.launches["highest"] == before
+    got = launch(hist, x, step.w, **step.kernel_kw)
+    plain = (ttf.resample_tiled_reference if kernel == "tiled"
+             else tsf.resample_streamed_reference)
+    want = plain(hist, x, step.w, **step.kernel_kw)
+    torch.cuda.synchronize()
+    assert module.launches["highest"] == before + 1
+    _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
 
 
 def _reduced(i: int, o: int) -> tuple:

@@ -154,20 +154,21 @@ def test_step_contract_and_int8_planes_equal(cfg):
 
 @pytest.mark.parametrize("cfg", TILED + STREAMED)
 def test_tap_ranges_cover_every_nonzero_weight(cfg):
-    """The kernel walks only taps[m, tile] of each row tile of its step's
-    weights; every nonzero weight must lie inside, and the range must be
-    tight.  Streamed weights are padded to K_pad rows, which lie outside."""
+    """The "highest" kernel walks only taps[m, sub-band] of each 16-row
+    sub-band of its step's weights; every nonzero weight must lie inside,
+    and the range must be tight.  Streamed weights are padded to K_pad
+    rows, which lie outside."""
     _, ts = _specs(cfg)
     step = tb.make_batched_step(ts, tb._launch_geometry(ts, 9408),
                                 device="cpu", scheme="highest")
     w, taps = (t.numpy() for t in step.w)
-    assert np.array_equal(taps, ttf.tap_ranges(w != 0))
+    assert np.array_equal(taps, ttf.tap_ranges(w != 0, ttf.SUB_ROWS))
     P, K, R = w.shape
     if cfg in STREAMED:
         assert K % 128 == 0 and taps.max() <= tb._tiled_weights(ts, 0).K
     for m in range(P):
-        for i in range(R // ttf.ROW_TILE):
+        for i in range(R // ttf.SUB_ROWS):
             lo, hi = taps[m, i]
-            cols = w[m, :, i * ttf.ROW_TILE:(i + 1) * ttf.ROW_TILE]
+            cols = w[m, :, i * ttf.SUB_ROWS:(i + 1) * ttf.SUB_ROWS]
             assert not cols[:lo].any() and not cols[hi:].any()
             assert cols[lo].any() and cols[hi - 1].any()

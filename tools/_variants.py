@@ -1,0 +1,58 @@
+"""Variant builds of the port's kernel library, shared by the ablation tools.
+
+A variant is a copy of ``speex_resampler_tpu_torch/csrc/`` under
+``build/<tool>/<name>/`` with text edits of one header.  Building it points
+the port's loader at the copy (``ops/_build.use_csrc``), so the wrappers
+launch the variant's kernels until the next variant is built.
+"""
+
+from __future__ import annotations
+
+import re
+import shutil
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+from speex_resampler_tpu_torch.ops import _build  # noqa: E402
+
+CSRC = ROOT / "speex_resampler_tpu_torch" / "csrc"
+
+
+def patched(text: str, edits: dict, what: str) -> str:
+    """``text`` with every occurrence of each key of ``edits`` replaced by
+    its value; raises if a key does not occur (``what`` names the text)."""
+    for old, new in edits.items():
+        if old not in text:
+            raise AssertionError(f"{what}: {old!r} not found")
+        text = text.replace(old, new)
+    return text
+
+
+def ptxas(logs: Path, keep) -> str:
+    """The ptxas lines of the kernels whose names ``keep`` accepts, from
+    the compiler reports (``<source>.log``) in ``logs``."""
+    return "; ".join(f"{name}: {'; '.join(lines)}"
+                     for log in sorted(logs.glob("*.log"))
+                     for name, lines in cs.ptxas_props(log).items()
+                     if keep(name))
+
+
+def build(tool: str, name: str, header: str, edits: dict, keep) -> str:
+    """Builds and loads the variant ``name`` (``edits`` of ``header``);
+    returns its build time and the ptxas lines of the kernels ``keep``
+    accepts."""
+    var = ROOT / "build" / tool / re.sub(r"\W+", "_", name)
+    shutil.rmtree(var, ignore_errors=True)
+    shutil.copytree(CSRC, var)
+    path = var / header
+    path.write_text(patched(path.read_text(), edits, f"{name}, {header}"))
+    _build.use_csrc(var)
+    t0 = time.time()
+    _build.load()
+    return (f"build {time.time() - t0:.1f} s: "
+            + ptxas(_build.build_dir(), keep))

@@ -27,11 +27,8 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import math
-import re
-import shutil
 import subprocess
 import sys
-import time
 from pathlib import Path
 
 import numpy as np
@@ -41,9 +38,9 @@ ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
 
 import chip_smoke as cs  # noqa: E402
-from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.ops import filter_design as fd  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
+from tools import _variants  # noqa: E402
 
 HEADER = "split5_wgmma.cuh"
 MMAS = ("      mma(acc[0], x_hi[j % 2], w_hi, !restart);\n",
@@ -71,40 +68,6 @@ LAUNCHES = [(96000, 8000, 10, 30720, "auto"),
             (44100, 16000, 7, 7056, "split5")]
 
 
-def build(name: str, edits: dict) -> str:
-    """Builds and loads the variant's library; returns its ptxas summary
-    of the split5 kernels."""
-    src = ROOT / "speex_resampler_tpu_torch" / "csrc"
-    var = ROOT / "build" / "split5_variants" / re.sub(r"\W+", "_", name)
-    shutil.rmtree(var, ignore_errors=True)
-    shutil.copytree(src, var)
-    text = (var / HEADER).read_text()
-    for old, new in edits.items():
-        if old not in text:
-            raise AssertionError(f"{name}: {old!r} not in {HEADER}")
-        text = text.replace(old, new)
-    (var / HEADER).write_text(text)
-    _build._CSRC = var
-    _build._SOURCES = tuple(var / s.name for s in _build._SOURCES)
-    _build._HEADERS = tuple(var / s.name for s in _build._HEADERS)
-    _build._lib = None
-    t0 = time.time()
-    _build.load()
-    report = [f"build {time.time() - t0:.1f} s"]
-    for log in sorted(_build.build_dir().glob("*.log")):
-        kernel = None
-        for line in log.read_text().splitlines():
-            m = re.search(r"Compiling entry function '(\w+)'", line)
-            if m:
-                kernel = cs.kernel_of(m.group(1))
-            elif kernel and "split5" in kernel and (
-                    "Used" in line or "spill stores" in line
-                    or "wgmma" in line):
-                report.append(f"{kernel}: {line.split(':', 1)[-1].strip()}"
-                              if "Used" in line else line.strip())
-    return "; ".join(report)
-
-
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("split5_ablate: no CUDA device")
@@ -126,7 +89,9 @@ def main() -> None:
         cases.append((f"{i // 1000}k->{o / 1000:g}k q{q}", step, inputs,
                       want, band))
     for name, (edits, exact) in VARIANTS.items():
-        print(f"== {name}: {build(name, edits)}")
+        print(f"== {name}: " + _variants.build(
+            "split5_variants", name, HEADER, edits,
+            lambda kernel: "split5" in kernel))
         for label, step, inputs, want, band in cases:
             line = []
             if exact:
