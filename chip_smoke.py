@@ -32,10 +32,17 @@ step's tensors on the card), checks streams 0-3 against a CPU engine, then
 times kernel, plain version and, where one exists, the one PyTorch call
 that computes the same product (plain-torch paths: the step, by the host
 clock), and prints split5's time over highest's where both are timed.
-After the build it prints each kernel's registers and spills (``ptxas
--v``) and the HGMMA count of the split5 kernels' SASS (``cuobjdump``).  Every phase raises on failure (non-zero exit).  The last two lines of standard output are the kernels' JSON
-summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing
-no result, without a CUDA device or outside a checkout of the repository.
+Kernel and library times are read three ways: launches queued back to
+back between two events, the same launches captured in one CUDA graph and
+replayed (the device's time alone: the wrapper's Python runs once, at
+capture), and one launch between two events (which also holds the
+wrapper's host call).  After the build it prints each kernel's registers
+and spills (``ptxas -v``) and the tensor-core instructions of the split5
+(HGMMA) and int8 (IGMMA) kernels' SASS (``cuobjdump``; a missing tool or
+a count of 0 fails the run).  Every phase raises on failure (non-zero exit).  The last
+two lines of standard output are the kernels' JSON summary and ``{"ok":
+true, "device": {...}}``.  Exits non-zero, printing no result, without a
+CUDA device or outside a checkout of the repository.
 """
 
 from __future__ import annotations
@@ -248,15 +255,21 @@ def card_inputs(step, n_in: int, B: int, seed: int, wrap: bool = False):
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3, warm_ms: float = 25.0,
-            host: bool = False) -> float:
+            mode: str = "queue") -> float:
     """Device ms of one call of ``fn``, after ``warmup`` calls and as many
     more as ``warm_ms`` of the host clock take (the card raises its clocks
-    under load; a short kernel timed after idle host work reads slow): the
-    median over 5 groups of ``reps`` calls queued back to back between two
-    CUDA events, over ``reps``, so the host's work in each call overlaps
-    the device's.  ``host=True``: the median of ``reps`` single calls, each
-    between its own two events, which then also hold the host's part of
-    the call (a Python wrapper's checks and launch) while the card waits."""
+    under load; a short kernel timed after idle host work reads slow).
+
+    "queue": the median over 5 groups of ``reps`` calls queued back to
+    back between two CUDA events, over ``reps``, so the host's work in each
+    call overlaps the device's (unless the host is the slower).  "graph":
+    ``reps`` calls captured in one CUDA graph (after 3 more on a side
+    stream), replayed between two events in 5 groups, the median over
+    ``reps``: the device's time alone, the host's part of a call having run
+    once, at capture.  A capture that fails raises.  "host": the median of
+    ``reps`` single calls, each between its own two events, which then also
+    hold the host's part of the call (a Python wrapper's checks and launch)
+    while the card waits."""
     t0, n = time.perf_counter(), 0
     while n < warmup or (time.perf_counter() - t0) * 1e3 < warm_ms:
         fn()
@@ -264,16 +277,34 @@ def cuda_ms(fn, reps: int, warmup: int = 3, warm_ms: float = 25.0,
         if n % 8 == 0:
             torch.cuda.synchronize()
     torch.cuda.synchronize()
+    graph = None
+    if mode == "graph":
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(3):
+                fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
     times = []
-    for _ in range(reps if host else 5):
+    for _ in range(reps if mode == "host" else 5):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        for _ in range(1 if host else reps):
-            fn()
+        if graph is not None:
+            graph.replay()
+        else:
+            for _ in range(1 if mode == "host" else reps):
+                fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b) / (1 if host else reps))
+        times.append(a.elapsed_time(b) / (1 if mode == "host" else reps))
+    del graph
     return float(np.median(times))
 
 
@@ -296,7 +327,7 @@ def launch_bound(spec, step, bspec, B: int):
     cores).  The band multiply-adds, returned beside it, are those the
     kernel walks: each 64-row tile's nonzero tap band (times n_accum),
     K_pad padding skipped; for "highest", each 16-row sub-band's 8-tap
-    slices (``tiled_fir.f32_walk``)."""
+    slices (``tiled_fir.f32_walk``; the dense kernel's too)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     n_accum = step.kernel_kw.get("n_accum", 1)
     macs = n_out * N * B * n_accum
@@ -320,7 +351,7 @@ def launch_bound(spec, step, bspec, B: int):
         ops = 2 * macs
     nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
     taps = step.w[-1].cpu().numpy()
-    if step.scheme == "highest" and step.kernel != "dense":
+    if step.scheme == "highest":
         band, rows = tf.f32_walk(taps), tf.SUB_ROWS       # [P, sub-bands]
     else:
         band = (taps[..., 1] - taps[..., 0]).astype(np.int64)  # [P, tiles]
@@ -336,28 +367,28 @@ def launch_bound(spec, step, bspec, B: int):
     return max(t_bytes, t_ops), by, nbytes, ops, macs, band_macs
 
 
-def library_product_ms(step, bspec, hist, x, reps: int):
+def library_call(step, bspec, hist, x, reps: int):
     """One torch.bmm (TF32 off) of the block weights against the patches,
     both gathered outside the timed region: the product only, no WORD2INT
-    (dense: one torch.matmul of W^T against every block's patch).  Timed as
-    the yardstick of the "highest" and "split5" kernels; the port never
-    calls it.
+    (dense: one torch.matmul of W^T, its R columns, against every block's
+    patch).  Returned as a function, the yardstick of the "highest" and
+    "split5" kernels; the port never calls it.
 
     split5: the three bf16 planes and the two bf16 parts of x concatenated
     along K as [w_hi, w_hi, w_mid, w_mid, w_lo] . [x_hi, x_lo, x_hi, x_lo,
     x_hi], so one bmm takes the five exact products and sums them in f32:
-    a bf16 bmm with an f32 ``out_dtype`` (tensor cores), the time returned,
-    and an f32 bmm of the same operands, printed.  Its WORD2INT is held
+    a bf16 bmm with an f32 ``out_dtype`` (tensor cores), returned, and an
+    f32 bmm of the same operands, timed and printed.  Its WORD2INT is held
     against the plain version (max |err| <= 1)."""
     if step.kernel == "dense":
-        wt = step.w[0].t().contiguous()
+        wt = step.w[0][:, :step.kernel_kw["R"]].t().contiguous()
         L, stride = wt.shape[1], step.kernel_kw["stride"]
         rows = (bspec.n_blocks + L // stride) * stride
         virt = torch.cat([hist, x, x.new_zeros((rows, x.shape[1]))])[:rows]
         patch = fm.dense_patches(virt, L, stride).float().contiguous()
         out = torch.empty((bspec.n_blocks, wt.shape[0], x.shape[1]),
                           dtype=torch.float32, device="cuda")
-        return cuda_ms(lambda: torch.matmul(wt, patch, out=out), reps)
+        return lambda: torch.matmul(wt, patch, out=out)
     w = step.w[0]
     K = w.shape[-2]
     phase = torch.arange(bspec.n_blocks, device="cuda") % bspec.P
@@ -370,26 +401,26 @@ def library_product_ms(step, bspec, hist, x, reps: int):
                       dtype=torch.float32, device="cuda")
     if step.scheme != "split5":
         wt = w[phase].transpose(1, 2).contiguous()
-        return cuda_ms(lambda: torch.bmm(wt, patch, out=out), reps)
+        return lambda: torch.bmm(wt, patch, out=out)
     xh = patch.to(torch.bfloat16)
     xl = (patch - xh.float()).to(torch.bfloat16)
     wt = torch.cat([w[p][phase] for p in (0, 0, 1, 1, 2)],
                    dim=1).transpose(1, 2).contiguous()     # [nb, R, 5K]
     xk = torch.cat([xh, xl, xh, xl, xh], dim=1)            # [nb, 5K, B]
     del patch, xh, xl
-    ms = cuda_ms(lambda: torch.bmm(wt, xk, out_dtype=torch.float32), reps)
     got = word2int(torch.bmm(wt, xk, out_dtype=torch.float32)).reshape(
         -1, x.shape[1])
-    wt, xk = wt.float(), xk.float()
-    f32_ms = cuda_ms(lambda: torch.bmm(wt, xk, out=out), reps)
+    wt32, xk32 = wt.float(), xk.float()
+    f32_ms = cuda_ms(lambda: torch.bmm(wt32, xk32, out=out), reps)
+    del wt32, xk32
     d = (got.int() - plain(hist, x, step).int()).abs()
     err, mism = int(d.max()), int((d > 0).sum())
-    print(f"library split5: bf16 bmm (f32 out) {ms:.4f} ms, f32 bmm "
-          f"{f32_ms:.4f} ms, K {5 * K}; bf16 bmm vs plain max|err|={err} "
-          f"mismatches={mism} of {d.numel()}")
+    print(f"library split5: f32 bmm {f32_ms:.4f} ms, K {5 * K}; bf16 bmm "
+          f"(f32 out) vs plain max|err|={err} mismatches={mism} of "
+          f"{d.numel()}")
     if err > 1:
         raise AssertionError(f"split5 library bmm: max|err| {err}")
-    return ms
+    return lambda: torch.bmm(wt, xk, out_dtype=torch.float32)
 
 
 def kernel_of(symbol: str) -> str:
@@ -428,25 +459,33 @@ def ptxas_report() -> None:
 
 
 def sass_check() -> None:
-    """Counts the HGMMA (wgmma) instructions of each split5 kernel in the
-    built library's SASS (``cuobjdump -sass``); says so where the tool is
-    missing."""
+    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA)
+    and streamed int8 (IGMMA) kernel in the built library's SASS
+    (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
+    raises if the tool is missing or fails, or if one of them has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
-        print("SASS check: cuobjdump not found, not checked")
-        return
+        raise AssertionError("SASS check: cuobjdump not found")
     res = subprocess.run([tool, "-sass", str(_build.lib_path())],
                          capture_output=True, text=True)
+    if res.returncode != 0:
+        raise AssertionError(f"cuobjdump exit {res.returncode}: "
+                             f"{res.stderr[-2000:]}")
     counts, name = {}, None
     for line in res.stdout.splitlines():
         m = re.search(r"Function : (\w+)", line)
         if m:
             name = kernel_of(m.group(1))
-        elif name and "split5" in name and "HGMMA" in line:
-            counts[name] = counts.get(name, 0) + 1
-    found = ", ".join(f"{n} {counts.get(n, 0)} HGMMA" for n in
-                      ("tiled_fir_split5_kernel", "streamed_fir_split5_kernel"))
+        elif name and "GMMA" in line:
+            op = "IGMMA" if "IGMMA" in line else "HGMMA"
+            counts[(name, op)] = counts.get((name, op), 0) + 1
+    want = [("tiled_fir_split5_kernel", "HGMMA"),
+            ("streamed_fir_split5_kernel", "HGMMA")] + [
+        (f"streamed_fir_int8_kernel<{d}>", "IGMMA") for d in (1, 2, 3, 4)]
+    found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit {res.returncode}): {found}")
+    if any(counts.get(key, 0) == 0 for key in want):
+        raise AssertionError("a tensor-core kernel has no wgmma instruction")
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
@@ -466,8 +505,8 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
             n_accum = step.kernel_kw.get("n_accum", 1)
-            for B in (LANES, 130) + ((129,) if step.scheme == "highest"
-                                     else ()):
+            for B in (LANES, 130) + ((129,) if step.scheme in
+                                     ("highest", "int8") else ()):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.fixed)
                 got = launch(hist, x, step)
@@ -564,29 +603,42 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
 def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
     """Kernel, plain and library times of one launch at B = 2048 (library:
     the highest and split5 schemes' bmm; no PyTorch call computes the exact
-    int8 digit sums or the wrapped int32 sums of "fixed").  Returns the
-    JSON entry's numbers."""
+    int8 digit sums or the wrapped int32 sums of "fixed"); kernel and
+    library also from a CUDA graph of ``reps`` launches, the kernel also
+    one launch at a time (:func:`cuda_ms`).  Returns the JSON entry's
+    numbers."""
     out_samples = bspec.out_per_launch * LANES
     hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
     ms = cuda_ms(lambda: launch(hist, x, step), reps)
-    host_ms = cuda_ms(lambda: launch(hist, x, step), reps, host=True)
+    graph_ms = cuda_ms(lambda: launch(hist, x, step), reps, mode="graph")
+    host_ms = cuda_ms(lambda: launch(hist, x, step), reps, mode="host")
     plain_ms = cuda_ms(lambda: plain(hist, x, step), reps)
-    library_ms = (library_product_ms(step, bspec, hist, x, reps)
-                  if step.scheme in ("highest", "split5") else None)
+    library_ms = library_graph_ms = None
+    if step.scheme in ("highest", "split5"):
+        lib_fn = library_call(step, bspec, hist, x, reps)
+        library_ms = cuda_ms(lib_fn, reps)
+        library_graph_ms = cuda_ms(lib_fn, reps, mode="graph")
+        del lib_fn
     bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
         spec, step, bspec, LANES)
-    print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch "
-          f"({out_samples / ms / 1e6:.2f} G out samples/s; {host_ms:.4f} "
-          f"ms with each launch's host call inside its events), plain "
-          f"{plain_ms:.4f} ms, library "
-          f"{'none' if library_ms is None else f'{library_ms:.4f} ms'}"
+    lib = ("none" if library_ms is None else
+           f"{library_ms:.4f} ms (graph {library_graph_ms:.4f})")
+    print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch back to "
+          f"back ({out_samples / ms / 1e6:.2f} G out samples/s), graph "
+          f"{graph_ms:.4f} ms, single {host_ms:.4f} ms (single - graph = "
+          f"{host_ms - graph_ms:.4f} ms of the launch's host call), plain "
+          f"{plain_ms:.4f} ms, library {lib}"
           f", bound {bound_ms:.4f} ms by {bound_by} "
           f"({nbytes / 1e6:.1f} MB, {ops / 1e9:.1f} G ops) -> "
           f"{bound_ms / ms:.3f} of the bound; the kernel's tiles walk "
           f"{band_macs / 1e9:.2f} G band multiply-adds, the function "
           f"needs {macs / 1e9:.2f} G")
+    if library_graph_ms is not None:
+        print(f"  graph: kernel / library = {graph_ms:.4f} / "
+              f"{library_graph_ms:.4f} ms = {graph_ms / library_graph_ms:.3f}")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-                bound_by=bound_by, library_ms=library_ms)
+                bound_by=bound_by, library_ms=library_ms, graph_ms=graph_ms,
+                library_graph_ms=library_graph_ms, host_ms=host_ms)
 
 
 def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,

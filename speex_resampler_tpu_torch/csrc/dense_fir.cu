@@ -13,56 +13,93 @@
 // kernel split W into A = L_pad / stride chunks against stride-row views of
 // a concatenated, padded x; here every CTA reads tap row b*stride + t from
 // hist when it lies there, else from x, else zero, so the step builds no
-// concatenation.  The staging, product and epilogue are fir_common.cuh's
-// (the tiled kernel's with one weight phase, origin b*stride, K = L_pad);
-// R = group*den is any width, so the last row tile is partial and masked.
+// concatenation.
 //
 // What bounds it on the H100: the voip launch at B = 2048 needs 94 M
 // multiply-adds (filt_len 48 per output): ~2.8 us at the 33.5 T FMA/s of
-// the CUDA cores, against ~7.8 MB of rows in and out, ~2.3 us at 3.35 TB/s;
-// both are far below a launch's fixed cost, so what matters is not
-// walking the zeros.  W is zero outside each column's filt_len taps (K3
-// multiplies all L_pad rows, ~6x the needed work at voip); each 64-column
-// tile walks only its nonzero tap band, and W, up to the 32 MB dense cap,
-// is staged 16 tap rows at a time.
-#include "fir_common.cuh"
+// the CUDA cores, against ~7.8 MB of rows in and out, ~2.3 us at 3.35 TB/s.
+// Both are far below a launch's fixed cost, so what matters is not walking
+// the zeros (K3 multiplies all L_pad rows, ~6x the needed work at voip) and
+// a short pipeline fill: each CTA's band is ~110 taps, 7 stages.
+//
+// The product is f32_fir.cuh's, as in the tiled and streamed "highest"
+// kernels: a cp.async ring of 16-tap stages, x converted to f32 once a
+// stage, register tiles, and warps that skip the 8-tap slices outside
+// their 16 rows' nonzero band; every output stays one __fmaf_rn chain from
+// 0 in ascending tap order, the chain of the first dense kernel, so the
+// bits are unchanged.  What the dense geometry adds: one weight phase
+// (P = 1); the block origin b*stride, which need not be a multiple of 16
+// (the ring copies x a tap row at a time, 16-byte aligned by lane, so no
+// origin alignment is assumed); and R = group*den of any width: the host
+// pads W to R_pad = round64(R) zero columns (ops/dense_fir.py), the
+// 16-row sub-band table covers R_pad, and no row at or past R is stored.
+//
+// Its CTAs are narrower than the other f32 kernels': 64 lanes in 8-row x
+// 4-lane thread tiles (128 threads, 26 KB), twice the CTAs (576 at voip)
+// each with half the work, so more of every short band's pipeline fill
+// overlaps.  On the H100 that ran 1.2x faster at voip than 128-lane CTAs,
+// with 16- or 8-tap stages (PERF.md, tools/dense_ablate.py).  It is the
+// slower one where the bands are long and R is large: at R 2000 (32 MB of
+// weights, a dense launch of the GPU tests) 0.083 ms a launch in a CUDA
+// graph against 0.064 ms for 128-lane CTAs, still about 2x faster than the
+// first dense kernel (0.160 ms).  A configuration whose latency cap sends
+// launches of that size to the dense geometry would take its CTA width
+// from R in the launcher.
+#include "f32_fir.cuh"
 
 namespace {
 
-using fir::kLaneTile;
-using fir::kThreads;
+constexpr int kLanes = 64;   // lanes of a CTA
+constexpr int kTN = 4;       // lanes of a thread
+constexpr int kThreads = fir::f32::threads_for(kLanes, kTN);
 
-__global__ void __launch_bounds__(kThreads)
-dense_fir_f32_kernel(fir::Launch g, int stride, const float* __restrict__ w) {
-  const int n_rt = fir::row_tiles(g.R);
+// grid (n_blocks * R_pad / kRowTile, ceil(B / kLanes))
+__global__ void __launch_bounds__(kThreads, fir::f32::kMinBlocks)
+dense_fir_f32_kernel(fir::Launch g, int stride, int rows,
+                     const float* __restrict__ w) {
+  const int n_rt = g.R / fir::kRowTile;
   const int b = blockIdx.x / n_rt;
-  fir::fir_tile_f32(g, fir::Tile(g, b, blockIdx.x % n_rt, blockIdx.y,
-                                 b * stride),
-                    w);
+  fir::f32::fir_tile<kLanes, kTN>(g, b, blockIdx.x % n_rt,
+                                  blockIdx.y * kLanes, b * stride, rows, w);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tile size the host wrapper must honour (its taps table).
+// Tile size the host wrapper must honour (R_pad % row_tile == 0; the
+// table's sub-bands are f32_fir_sub_rows() rows, tiled_fir.cu).
 int dense_fir_row_tile() { return fir::kRowTile; }
 
 const char* dense_fir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// w f32[K, R] (K = L_pad), taps int32[1, ceil(R / row_tile), 2].  Launches
-// on `stream`, does not synchronise, and returns cudaGetLastError() of the
+// w f32[K, R_pad] (K = L_pad, R_pad a multiple of row_tile, zero columns
+// past R), 16-byte aligned; taps int32[1, R_pad / 16, 2] (each 16-row
+// sub-band's nonzero taps).  y int16[n_blocks * R, B].  Launches on
+// `stream`, does not synchronise, and returns cudaGetLastError() of the
 // launch (0 on success).
 int dense_fir_f32(const void* hist, const void* x, void* y, const void* taps,
-                  const void* w, int H, int T, int B, int R, int K, int stride,
-                  int n_blocks, void* stream) {
+                  const void* w, int H, int T, int B, int R_pad, int K,
+                  int stride, int n_blocks, int R, void* stream) {
   cudaGetLastError();
-  const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, 1);
-  const dim3 grid(n_blocks * fir::row_tiles(R), (B + kLaneTile - 1) / kLaneTile);
-  dense_fir_f32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      g, stride, static_cast<const float*>(w));
+  if (reinterpret_cast<uintptr_t>(w) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (R_pad % fir::kRowTile || R > R_pad || R_pad - R >= fir::kRowTile)
+    return static_cast<int>(cudaErrorInvalidValue);
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::f32::allow_smem(dense_fir_f32_kernel);
+  });
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const fir::Launch g =
+      fir::make_launch(hist, x, y, taps, H, T, B, R_pad, K, 1);
+  const dim3 grid(n_blocks * (R_pad / fir::kRowTile),
+                  (B + kLanes - 1) / kLanes);
+  dense_fir_f32_kernel<<<grid, kThreads, fir::f32::smem_bytes(kLanes),
+                         static_cast<cudaStream_t>(stream)>>>(
+      g, stride, R, static_cast<const float*>(w));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,15 +1,14 @@
 // Scheme "highest" on Hopper's CUDA cores: the device function of
-// tiled_fir_f32_kernel and streamed_fir_f32_kernel (the dense kernel keeps
-// fir_common.cuh's fir_tile_f32).
+// tiled_fir_f32_kernel, streamed_fir_f32_kernel and dense_fir_f32_kernel.
 //
 // It computes y = WORD2INT(sum_t W[t, r] * float(x[v0 + t, lane])) for the
 // CTA's 64 rows r of block k (phase m = k % P) and kLanes lanes.  Each
 // output's sum is one f32 FMA chain (__fmaf_rn), from 0.0f, in ascending
-// tap order: the chain of the first f32 kernel (fir_common.cuh's
-// fir_tile_f32), so the bits are the same.  Taps skipped outside a tile's
-// or a warp's nonzero band have a weight of exactly 0 and would add
-// exactly 0 (x is an int16, so finite); WORD2INT does not see the sign of
-// a zero.  No TF32 and no tensor cores: Hopper's
+// tap order: the chain of the port's first f32 kernel (fir_tile_f32, 8 x 4
+// tiles staged synchronously, since removed), so the bits are the same.
+// Taps skipped outside a tile's or a warp's nonzero band have a weight of
+// exactly 0 and would add exactly 0 (x is an int16, so finite); WORD2INT
+// does not see the sign of a zero.  No TF32 and no tensor cores: Hopper's
 // take no f32 operands, and split5 is the tensor-core float scheme.
 //
 // What bounds it: the multiply-adds (filt_len per output, 2 FLOP each at
@@ -104,11 +103,30 @@ __device__ __forceinline__ void load4_i16(float* dst, const int16_t* src) {
 
 // The output tile (block k, row tile rt, lanes lane0 ..) whose patch starts
 // at row v0 of the virtual axis; w f32[P, K, R], g.taps int32[P, R / 16, 2]
-// (each 16-row sub-band's nonzero taps [lo, hi), (0, 0) if none).  Launch
-// with kThreads threads and kSmemBytes of dynamic shared memory.
+// (each 16-row sub-band's nonzero taps [lo, hi), (0, 0) if none).  A block
+// stores its first `rows` rows (y is [n_blocks * rows, B]): g.R, or fewer
+// where R is padded to a whole row tile (the dense kernel).  A CTA covers
+// kLanes_ lanes in thread tiles of kTN_ lanes: the tiled and streamed
+// kernels take the defaults, launched with kThreads threads and kSmemBytes
+// of dynamic shared memory; the dense kernel narrower CTAs, launched with
+// threads_for() and smem_bytes() of its lanes.
+template <int kLanes_ = kLanes, int kTN_ = kTN>
 __device__ __forceinline__ void fir_tile(const Launch& g, int k, int rt,
-                                         int lane0, int v0,
+                                         int lane0, int v0, int rows,
                                          const float* __restrict__ w) {
+  // this CTA's lane tiling, as the namespace's constants for the defaults
+  constexpr int kLanes = kLanes_, kTN = kTN_;
+  constexpr int kWarpLanes = 16 * kTN;
+  constexpr int kLaneGroups = kLanes / kWarpLanes;
+  constexpr int kThreads = 32 * kSubBands * kLaneGroups;
+  constexpr int kRawBytes = kStageTaps * kLanes * 2;
+  constexpr int kSlotBytes = kWBytes + kRawBytes;
+  constexpr int kXfBytes = kStageTaps * kLanes * 4;
+  static_assert(kTN % 4 == 0 && kLanes % kWarpLanes == 0, "4-lane groups");
+  static_assert(kStageTaps * 16 % kThreads == 0 &&
+                    kStageTaps * kLanes / 8 % kThreads == 0 &&
+                    kStageTaps * kLanes / 4 % kThreads == 0,
+                "whole copies and conversions a thread");
   extern __shared__ __align__(16) uint8_t f32_smem[];
   const int tid = threadIdx.x, warp = tid / 32;
   const int sb = warp % kSubBands, lg = warp / kSubBands;
@@ -238,8 +256,9 @@ __device__ __forceinline__ void fir_tile(const Launch& g, int k, int rt,
       g.B % 4 == 0 && reinterpret_cast<uintptr_t>(g.y) % 8 == 0;
 #pragma unroll
   for (int a = 0; a < kTM; ++a) {
-    int16_t* out =
-        g.y + ((size_t)k * g.R + rt * kRowTile + wrow + a) * g.B + lane0;
+    const int row = rt * kRowTile + wrow + a;
+    if (row >= rows) break;
+    int16_t* out = g.y + ((size_t)k * rows + row) * g.B + lane0;
 #pragma unroll
     for (int c = 0; c < kTN / 4; ++c) {
       const int lane = xlane + 64 * c;
@@ -260,8 +279,18 @@ __device__ __forceinline__ void fir_tile(const Launch& g, int k, int rt,
   }
 }
 
-// Lets an f32 kernel take kSmemBytes of dynamic shared memory, kMinBlocks
-// CTAs to an SM.
+// The threads and dynamic shared memory of a CTA of `lanes` lanes in
+// thread tiles of `tn` lanes (kThreads and kSmemBytes for the defaults).
+constexpr int threads_for(int lanes, int tn) {
+  return 32 * kSubBands * (lanes / (16 * tn));
+}
+constexpr int smem_bytes(int lanes) {
+  return kStages * (kWBytes + kStageTaps * lanes * 2) +
+         2 * kStageTaps * lanes * 4;
+}
+
+// Lets an f32 kernel take kSmemBytes of dynamic shared memory (the most
+// any f32 CTA takes), kMinBlocks CTAs to an SM.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel* kernel) {
   cudaError_t err = cudaFuncSetAttribute(

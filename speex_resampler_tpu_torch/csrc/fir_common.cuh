@@ -2,11 +2,14 @@
 // streamed_fir.cu, dense_fir.cu): the CTA tile, shared-memory staging, the
 // register-tile product and the epilogues.  Each kernel computes only
 // where its output block's patch starts on the virtual axis hist ++ x;
-// everything from there on is this file, so the kernels give the same sums
-// in the same order.  Two schemes of the tiled and streamed kernels have
-// their own product and staging: "highest" (f32_fir.cuh, the same FMA
-// chain as fir_tile_f32 here, which the dense kernel keeps) and "split5"
-// (split5_wgmma.cuh); both copy through the cp.async helpers below.
+// everything from there on is the shared device code, so the kernels give
+// the same sums in the same order.  Three schemes have their own product
+// and staging, in their own headers: "highest" (f32_fir.cuh, every
+// output one FMA chain in tap order; the tiled, streamed and dense
+// kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores) and, in the
+// streamed kernel, "int8" (int8_wgmma.cuh, int8 tensor cores); they copy
+// through the cp.async helpers below.  This file's own product serves the
+// tiled int8 kernel and both fixed kernels on the CUDA cores.
 //
 // A CTA owns a 64-row x 128-lane output tile of one block k (R rows, phase
 // m = k % P) and walks only the tap rows where its 64 weight columns are
@@ -14,9 +17,8 @@
 // shared memory 16 taps at a time, and each thread keeps an 8-row x 4-lane
 // register tile: 32 multiply-adds per three 16-byte shared loads, the
 // weight loads broadcast across a warp.  Lanes are masked, so any B works
-// without padding, and so are the rows of a partial last row tile (the
-// dense kernel's R = group*den is any width; the tiled and streamed
-// kernels' R is a multiple of kRowTile).
+// without padding (the tiled and streamed kernels' R is a multiple of
+// kRowTile).
 //
 // Epilogues match the TPU kernels exactly:
 //   highest: y = sum_t W[t,r] * float(x), f32 (FMA, no TF32), then WORD2INT
@@ -57,6 +59,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace fir {
 
 constexpr int kRowTile = 64;    // output rows of one block per CTA
@@ -71,11 +75,6 @@ struct Launch {
   const int32_t* taps;     // [P, R / kRowTile, 2] nonzero tap rows [lo, hi)
   int H, T, B, R, K, P;    // weights [P, K, R] per digit plane
 };
-
-// Row tiles of an R-row block; the last one may be partial.
-__host__ __device__ __forceinline__ int row_tiles(int R) {
-  return (R + kRowTile - 1) / kRowTile;
-}
 
 inline Launch make_launch(const void* hist, const void* x, void* y,
                           const void* taps, int H, int T, int B, int R, int K,
@@ -132,6 +131,22 @@ __device__ __forceinline__ void copy_x8(const Launch& g, int v, int lane,
                : "memory");
 }
 
+// Runs set(), which sets a kernel's function attributes, once per device:
+// at the first launch there, so a CUDA graph captured after a warm-up
+// launch holds no attribute call.  `done` is the caller's (bit d: set on
+// device d).
+template <typename Set>
+inline cudaError_t set_once(std::atomic<unsigned>& done, Set set) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned bit = 1u << (dev & 31);
+  if (done.load() & bit) return cudaSuccess;
+  err = set();
+  if (err == cudaSuccess) done.fetch_or(bit);
+  return err;
+}
+
 // WORD2INT (arch.h:208-209): round half up, saturate to int16.
 __device__ __forceinline__ int16_t word2int(float v) {
   float r = floorf(__fadd_rn(0.5f, v));
@@ -140,13 +155,14 @@ __device__ __forceinline__ int16_t word2int(float v) {
   return (int16_t)__float2int_rz(r);
 }
 
-// Output tile (block k, row tile rt, lane tile lt) whose patch starts at
-// row v0 of the virtual axis.
+// Output tile (block k, row tile rt, lane tile lt of `lanes` lanes) whose
+// patch starts at row v0 of the virtual axis.
 struct Tile {
   int k, rt, m, v0, lane0, t_lo, t_hi, warp, tl;
-  __device__ Tile(const Launch& g, int k_, int rt_, int lt, int v0_)
-      : k(k_), rt(rt_), m(k_ % g.P), v0(v0_), lane0(lt * kLaneTile) {
-    const int n_rt = row_tiles(g.R);
+  __device__ Tile(const Launch& g, int k_, int rt_, int lt, int v0_,
+                  int lanes = kLaneTile)
+      : k(k_), rt(rt_), m(k_ % g.P), v0(v0_), lane0(lt * lanes) {
+    const int n_rt = g.R / kRowTile;
     t_lo = g.taps[(m * n_rt + rt) * 2];
     t_hi = g.taps[(m * n_rt + rt) * 2 + 1];
     warp = threadIdx.x / 32;
@@ -159,7 +175,7 @@ struct Tile {
 
 // Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`) and of
 // the kRowTile weight columns from wm (tap row t at wm + t * ld); rows at
-// or past t_hi, lanes past B and block rows past R stage as zero.
+// or past t_hi and lanes past B stage as zero.
 template <typename Acc, typename WT>
 __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
                                       const WT* __restrict__ wm, int ld,
@@ -172,13 +188,10 @@ __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
             ? (Acc)(read_virtual(g, c.v0 + t, lane) + shift)
             : (Acc)0;
   }
-  const int cols = g.R - c.rt * kRowTile;  // < kRowTile in a partial tile
   for (int i = threadIdx.x; i < kTapStage * kRowTile; i += kThreads) {
     const int t = t0 + i / kRowTile;
     ws[i / kRowTile][i % kRowTile] =
-        (t < c.t_hi && i % kRowTile < cols)
-            ? (Acc)wm[(size_t)t * ld + i % kRowTile]
-            : (Acc)0;
+        t < c.t_hi ? (Acc)wm[(size_t)t * ld + i % kRowTile] : (Acc)0;
   }
 }
 
@@ -217,11 +230,9 @@ __device__ __forceinline__ void multiply_stage(const Tile& c,
   }
 }
 
-// Row a of this thread's register tile, its 4 lanes, as int16 (a row past
-// R, in a partial last row tile, is not stored).
+// Row a of this thread's register tile, its 4 lanes, as int16.
 __device__ __forceinline__ void store_i16(const Launch& g, const Tile& c,
                                           int a, const int16_t (&v)[4]) {
-  if (c.row(a) >= g.R) return;
   int16_t* out = g.y + ((size_t)c.k * g.R + c.row(a)) * g.B;
 #pragma unroll
   for (int b = 0; b < 4; ++b) {
@@ -236,23 +247,6 @@ __device__ __forceinline__ void store(const Launch& g, const Tile& c, int a,
 #pragma unroll
   for (int b = 0; b < 4; ++b) q[b] = word2int(v[b]);
   store_i16(g, c, a, q);
-}
-
-// Scheme "highest": w f32[P, K, R].
-__device__ __forceinline__ void fir_tile_f32(const Launch& g, const Tile& c,
-                                             const float* __restrict__ w) {
-  __shared__ __align__(16) float xs[kTapStage][kLaneTile];
-  __shared__ __align__(16) float ws[kTapStage][kRowTile];
-  const float* wm = w + (size_t)c.m * g.K * g.R + c.rt * kRowTile;
-  float acc[8][4] = {};
-  for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-    stage(g, c, wm, g.R, t0, 0, xs, ws);
-    __syncthreads();
-    multiply_stage(c, xs, ws, acc);  // f32 multiply-add, contracted to FMA
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) store(g, c, a, acc[a]);
 }
 
 // Scheme "int8": planes int8[D, P, K, R], bias f32[P, R], D <= 4 scales.

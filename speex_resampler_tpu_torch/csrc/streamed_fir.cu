@@ -17,17 +17,20 @@
 // double-buffered VMEM scratch and patched the first blocks, whose window
 // starts inside hist, with synchronous copies; here every CTA reads tap row
 // v0+t from hist when v0+t < H, else from x, as the tiled kernel does.  The
-// weights are the port's own layout [P, K, R] (JAX streams [P, R, K]); the
-// staging, product and epilogues are fir_common.cuh's ("highest":
-// f32_fir.cuh's; split5: split5_wgmma.cuh's), shared with tiled_fir.cu,
-// so both kernels round identically.
+// weights are the port's own layout [P, K, R] (JAX streams [P, R, K]; the
+// int8 planes are K-major, below); the staging, product and epilogues are
+// fir_common.cuh's ("highest": f32_fir.cuh's; split5: split5_wgmma.cuh's,
+// both shared with tiled_fir.cu, so those kernels round identically; int8:
+// int8_wgmma.cuh's, the same exact sums and epilogue as the tiled int8
+// kernel's).
 //
 // What bounds it on the H100: the multiply-adds.  One 48k->44.1k q10 launch
 // at B = 2048 (n_blocks 147, R 128, K 512, filt_len 280) must move ~183 MB
 // (x 85 MB, y 77 MB, the nonzero f32 weights 21 MB): ~55 us at 3.35 TB/s;
 // it needs 10.8 G multiply-adds (filt_len per output): ~322 us at the
-// 33.5 T FMA/s of the CUDA cores in f32, and D int32 passes at half that
-// rate under "int8".  The 64-row tiles walk 13.4 G of them, each tile's
+// 33.5 T FMA/s of the CUDA cores in f32; under "int8" 2*D int8 products
+// each, 87 us at the 1,979 TOP/s of the int8 tensor cores for D = 4.  The
+// 64-row tiles walk 13.4 G of them, each tile's
 // nonzero tap band; the "highest" kernel's warps 11.7 G, each 16-row
 // sub-band's 8-tap slices (f32_fir.cuh).
 // What the TPU design was for (weights too large for VMEM) does not apply:
@@ -36,8 +39,15 @@
 // at B = 2048).  So the grid runs over lane tiles fastest: the CTAs that
 // share block k's weight columns are scheduled together, HBM serves each
 // weight tile once and L2 the other lane tiles (the counterpart of v4's
-// "widest lane tile" rule).  Tensor cores for int8 and fixed are later
-// work.
+// "widest lane tile" rule).
+//
+// Scheme "int8" (K2b) runs on the int8 tensor cores (int8_wgmma.cuh):
+// wgmma s8 with xh / xl as the register operand, 2*D exact int32 dots
+// summed in one walk of each tile's band, the f32 epilogue of the CUDA-core
+// int8 kernel.  Its planes are K-major, int8[D, P, R, K_pad], each 32-tap
+// group permuted to the fragment's tap order (JAX streams [P, D, R,
+// K_pad]); its lane tile is int8tc::kLanes.  The fixed scheme stays on the
+// CUDA cores.
 //
 // Scheme "fixed" (v4's fixed branch: _dot_fixed, then the fixed_math
 // epilogues) reads int16 weights [P, K_pad, n_accum * R], 77 MB at q10
@@ -58,6 +68,7 @@
 
 #include "f32_fir.cuh"
 #include "fir_common.cuh"
+#include "int8_wgmma.cuh"
 #include "split5_wgmma.cuh"
 
 namespace {
@@ -97,15 +108,41 @@ streamed_fir_f32_kernel(fir::Launch g, Origin o, const float* __restrict__ w) {
   const int k = kr / row_tiles;
   fir::f32::fir_tile(g, k, kr % row_tiles,
                      (blockIdx.x % lane_tiles) * fir::f32::kLanes,
-                     origin(g, o, k), w);
+                     origin(g, o, k), g.R, w);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The same order over int8tc::kLanes-lane tiles; kD digit planes.
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
 streamed_fir_int8_kernel(fir::Launch g, Origin o,
                          const int8_t* __restrict__ planes,
-                         const float* __restrict__ bias, int D,
-                         float4 scales) {
-  fir::fir_tile_int8(g, streamed_tile(g, o), planes, bias, D, scales);
+                         const float* __restrict__ bias, float4 scales) {
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const int row_tiles = g.R / kRowTile;
+  const int kr = blockIdx.x / lane_tiles;
+  const int k = kr / row_tiles;
+  fir::int8tc::fir_tile<kD>(
+      g,
+      fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
+                origin(g, o, k), fir::int8tc::kLanes),
+      planes, bias, scales);
+}
+
+// Launches the kD-plane int8 kernel (its shared memory set once a device).
+template <int kD>
+cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
+                        const float* bias, float4 scales, int n_blocks,
+                        cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::int8tc::allow_smem(streamed_fir_int8_kernel<kD>);
+  });
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_blocks * (g.R / kRowTile) *
+                  ((g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes));
+  streamed_fir_int8_kernel<kD><<<grid, kThreads, fir::int8tc::kSmemBytes,
+                                 stream>>>(g, o, planes, bias, scales);
+  return cudaGetLastError();
 }
 
 template <int kAccum>
@@ -148,7 +185,10 @@ int streamed_fir_f32(const void* hist, const void* x, void* y,
   cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaError_t attr = fir::f32::allow_smem(streamed_fir_f32_kernel);
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::f32::allow_smem(streamed_fir_f32_kernel);
+  });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const dim3 grid(n_blocks * (R / kRowTile) *
@@ -167,8 +207,10 @@ int streamed_fir_split5(const void* hist, const void* x, void* y,
   cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(planes) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaError_t attr =
-      fir::split5::allow_smem(streamed_fir_split5_kernel);
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::split5::allow_smem(streamed_fir_split5_kernel);
+  });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   streamed_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads,
@@ -179,18 +221,28 @@ int streamed_fir_split5(const void* hist, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// planes int8[D, P, R, K] (K % 16 == 0, each 32-tap group permuted:
+// int8_wgmma.cuh), 16-byte aligned; bias f32[P, R]; 1 <= D <= 4.
 int streamed_fir_int8(const void* hist, const void* x, void* y,
                       const void* taps, const void* planes, const void* bias,
                       int D, float s0, float s1, float s2, float s3, int H,
                       int T, int B, int R, int K, int P, int n_blocks,
                       int shift, int num, int den, int f0, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  streamed_fir_int8_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      g, Origin{shift, num, den, f0}, static_cast<const int8_t*>(planes),
-      static_cast<const float*>(bias), D, make_float4(s0, s1, s2, s3));
-  return static_cast<int>(cudaGetLastError());
+  const Origin o{shift, num, den, f0};
+  const auto* p8 = static_cast<const int8_t*>(planes);
+  const auto* b32 = static_cast<const float*>(bias);
+  const float4 s = make_float4(s0, s1, s2, s3);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 4) err = launch_int8<4>(g, o, p8, b32, s, n_blocks, st);
+  if (D == 3) err = launch_int8<3>(g, o, p8, b32, s, n_blocks, st);
+  if (D == 2) err = launch_int8<2>(g, o, p8, b32, s, n_blocks, st);
+  if (D == 1) err = launch_int8<1>(g, o, p8, b32, s, n_blocks, st);
+  return static_cast<int>(err);
 }
 
 // w int16[P, K, n_accum * R]; coef int32[P, 4, R] (NULL for n_accum 1).

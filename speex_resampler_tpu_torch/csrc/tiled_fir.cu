@@ -87,7 +87,7 @@ tiled_fir_f32_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
   const int k = blockIdx.x / row_tiles;
   fir::f32::fir_tile(g, k, blockIdx.x % row_tiles,
                      blockIdx.y * fir::f32::kLanes,
-                     (k / g.P) * S + offsets[k % g.P], w);
+                     (k / g.P) * S + offsets[k % g.P], g.R, w);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -138,7 +138,10 @@ int tiled_fir_f32(const void* hist, const void* x, void* y, const void* offsets,
   cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(w) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaError_t attr = fir::f32::allow_smem(tiled_fir_f32_kernel);
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::f32::allow_smem(tiled_fir_f32_kernel);
+  });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const dim3 grid(n_blocks * (R / kRowTile),
@@ -157,7 +160,10 @@ int tiled_fir_split5(const void* hist, const void* x, void* y,
   cudaGetLastError();
   if (reinterpret_cast<uintptr_t>(planes) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
-  const cudaError_t attr = fir::split5::allow_smem(tiled_fir_split5_kernel);
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::split5::allow_smem(tiled_fir_split5_kernel);
+  });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   tiled_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads,

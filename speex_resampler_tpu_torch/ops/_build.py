@@ -18,12 +18,15 @@ import subprocess
 import threading
 from pathlib import Path
 
+import torch
+
 __all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
-           "use_csrc"]
+           "use_csrc", "stream_handle"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu")
-_HEADER_NAMES = ("fir_common.cuh", "split5_wgmma.cuh", "f32_fir.cuh")
+_HEADER_NAMES = ("fir_common.cuh", "split5_wgmma.cuh", "f32_fir.cuh",
+                 "int8_wgmma.cuh")
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / name for name in _SOURCE_NAMES)
 _HEADERS = tuple(_CSRC / name for name in _HEADER_NAMES)
@@ -48,7 +51,7 @@ _SIGNATURES = {
     "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "dense_fir_row_tile": (_I, []),
     "dense_fir_error_string": (ctypes.c_char_p, [_I]),
-    "dense_fir_f32": (_I, [_P] * 5 + [_I] * 7 + [_P]),
+    "dense_fir_f32": (_I, [_P] * 5 + [_I] * 8 + [_P]),
 }
 
 _lib = None
@@ -154,3 +157,12 @@ def use_csrc(csrc: Path) -> None:
         _HEADERS = tuple(csrc / name for name in _HEADER_NAMES
                          if (csrc / name).exists())
         _lib = None
+
+
+def stream_handle(device: torch.device) -> int:
+    """The raw handle of ``device``'s current CUDA stream (the capture
+    stream while a CUDA graph is captured), for a launch through the C
+    interface.  It reads the handle without building a
+    ``torch.cuda.Stream``, which costs ~8 us of host time a call (PERF.md,
+    ``tools/dense_ablate.py``)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)

@@ -17,12 +17,16 @@ and applies the weights of block phase ``k % P``.  ``shift`` is
 ``H - (filt_len - 1)``; ``v0`` equals the tiled kernel's
 ``(k // P) * S + offsets[k % P]``, so no offset table is needed.
 
-Device weights (:data:`device_weights_streamed`) keep the tiled kernel's
-layout, padded to ``K_pad`` (a multiple of 128) tap rows as the JAX package
-pads them:
+Device weights (:func:`device_weights_streamed`), padded to ``K_pad`` (a
+multiple of 128) tap rows as the JAX package pads them, keep the tiled
+kernel's layout but for "int8":
 
 - ``"highest"``: ``(w f32[P, K_pad, R], bands int32[P, R // SUB_ROWS, 2])``
-- ``"int8"``: ``(planes int8[D, P, K_pad, R], bias f32[P, R], taps)``
+- ``"int8"``: ``(planes int8[D, P, R, K_pad], bias f32[P, R], taps)``:
+  K-major, as the int8 tensor cores read them (``csrc/int8_wgmma.cuh``),
+  each 32-tap group in the fragment's tap order: position ``32*i + k``
+  holds tap ``32*i + K_PERM[k]`` (:func:`int8_k_major`,
+  :func:`int8_n_major`)
 - ``"fixed"``: ``(w int16[P, K_pad, C], [coef int32[P, 4, R],] taps)``,
   C = n_accum * R accumulator-major columns
 - ``"split5"``: ``(planes bf16[3, P, K_pad, R], taps)``
@@ -41,22 +45,70 @@ tensors.  It never falls back from one to the other.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _build
 from . import tiled_fir as tf
 
 __all__ = ["device_weights_streamed", "origins", "resample_streamed",
-           "resample_streamed_reference"]
+           "resample_streamed_reference", "K_PERM", "int8_k_major",
+           "int8_n_major"]
 
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_streamed adds to it, once per launch.  Callers reset the counts
 #: to count one run.
 launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
 
-#: Host weights -> the kernel's device weights (module docstring): the
-#: tiled kernel's conversion, applied to the K_pad-padded set.
-device_weights_streamed = tf.device_weights
+#: The tap order of one 32-tap K-slice in the int8 kernel's A fragment
+#: (``csrc/int8_wgmma.cuh``): K position ``4t + j`` (t < 4, j < 4) holds
+#: tap ``8*(j//2) + 2t + j%2``, position ``16 + 4t + j`` tap 16 + that.
+#: Two ``ldmatrix.trans`` of int16 rows give a thread taps 2t, 2t+1 of
+#: one lane in each 8-tap block; a byte permute packs blocks 0-1 (2-3).
+K_PERM = np.array([16 * (k // 16) + 8 * (k % 4 // 2) + 2 * (k % 16 // 4)
+                   + k % 2 for k in range(32)])
+
+
+def _full_perm(K: int) -> np.ndarray:
+    """K_PERM applied to every 32-tap group of K positions."""
+    k = np.arange(K)
+    return k // 32 * 32 + K_PERM[k % 32]
+
+
+def int8_k_major(planes: np.ndarray) -> torch.Tensor:
+    """Host K-major int8[D, P, R, K] digit planes in tap order (K a
+    multiple of 32) -> the streamed kernel's permuted planes, a contiguous
+    CPU tensor: ``out[..., 32*i + k] = planes[..., 32*i + K_PERM[k]]``.
+    One gather; ``planes`` may be a strided view."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(planes, _full_perm(planes.shape[3]), axis=3)))
+
+
+def int8_n_major(planes: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`int8_k_major` and the transpose: int8[D, P, R,
+    K] K-major, permuted planes -> int8[D, P, K, R] in tap order."""
+    inv = torch.from_numpy(np.argsort(_full_perm(planes.shape[3])))
+    return planes[..., inv.to(planes.device)].transpose(2, 3).contiguous()
+
+
+def device_weights_streamed(w, scheme: str, device, *,
+                            k_major: bool = False) -> tuple:
+    """Host weights -> the kernel's device weights (module docstring): the
+    tiled kernel's conversion (``tiled_fir.device_weights``), applied to
+    the K_pad-padded set.  "int8" planes are int8[D, P, K_pad, R], or with
+    ``k_major`` int8[D, P, R, K_pad] (the JAX package's streamed layout
+    with P and D swapped); either goes to the kernel's layout in one
+    gather (:func:`int8_k_major`)."""
+    if scheme != "int8":
+        return tf.device_weights(w, scheme, device)
+    planes, bias = (np.asarray(a) for a in w)
+    assert planes.dtype == np.int8 and bias.dtype == np.float32
+    if not k_major:
+        planes = planes.transpose(0, 1, 3, 2)
+    taps = tf.tap_ranges((planes != 0).any(axis=0).transpose(0, 2, 1))
+    return (int8_k_major(planes).to(device),
+            torch.from_numpy(bias.copy()).to(device),
+            torch.from_numpy(taps).to(device))
 
 
 def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
@@ -69,7 +121,8 @@ def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
 
 def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
            n_accum):
-    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum)
+    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum,
+                              k_major=True)
     if n_blocks <= 0 or n_blocks % P or shift < 0 or num <= 0 \
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "
@@ -119,7 +172,7 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     H, B = hist.shape
     y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.stream_handle(x.device)
         geo = (H, x.shape[0], B, R, K, P, n_blocks, shift, num, den, f0,
                stream)
         head = (hist.data_ptr(), x.data_ptr(), y.data_ptr(),
@@ -156,9 +209,12 @@ def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,
     "split5" the five f32 matmuls of bf16-valued operands;
     "int8" the exact float64 digit dots, then the kernel's f32 epilogue in
     the same order; "fixed" the exact float64 int16 dots wrapped to int32,
-    then the Q15 epilogue."""
+    then the Q15 epilogue (the int8 planes back in tap order first,
+    :func:`int8_n_major`)."""
     P, K, R = _check(hist, x, w, n_blocks, shift, num, den, f0, scheme,
                      scales, n_accum)
     v0 = origins(n_blocks, R, shift=shift, num=num, den=den, f0=f0,
                  device=x.device)
+    if scheme == "int8":
+        w = (int8_n_major(w[0]), *w[1:])
     return tf.apply_weights(hist, x, w, v0, scheme, scales, n_accum)

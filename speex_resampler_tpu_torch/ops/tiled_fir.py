@@ -177,10 +177,12 @@ def device_weights(w, scheme: str, device) -> tuple:
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
-def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
+def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
+                 k_major=False):
     """Validate one launch's buffers and device weights (``extra``: more
-    tensors that must share x's device and be contiguous); returns
-    (P, K, R)."""
+    tensors that must share x's device and be contiguous; ``k_major``: the
+    int8 planes are the streamed kernel's int8[D, P, R, K], K a multiple of
+    32); returns (P, K, R)."""
     if scheme not in ("highest", "int8", "fixed", "split5"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if n_accum != 1 and (scheme != "fixed" or n_accum != 4):
@@ -221,8 +223,15 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
     else:
         planes, bias, taps = w
         if planes.dtype != torch.int8 or planes.ndim != 4:
-            raise TypeError("int8 planes must be int8[D, P, K, R]")
-        D, P, K, R = planes.shape
+            raise TypeError("int8 planes must be int8[D, P, "
+                            + ("R, K]" if k_major else "K, R]"))
+        if k_major:
+            D, P, R, K = planes.shape
+            if K % 32:
+                raise ValueError(f"K {K} of K-major int8 planes is not a "
+                                 "multiple of 32")
+        else:
+            D, P, K, R = planes.shape
         if tuple(bias.shape) != (P, R) or bias.dtype != torch.float32:
             raise TypeError("int8 bias must be f32[P, R]")
         if len(scales) != D or not 1 <= D <= 4:
@@ -282,7 +291,7 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     if y.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
+        stream = _build.stream_handle(x.device)
         geo = (H, x.shape[0], B, R, K, P, S, n_blocks, stream)
         head = (hist.data_ptr(), x.data_ptr(), y.data_ptr(),
                 offsets.data_ptr(), w[-1].data_ptr())

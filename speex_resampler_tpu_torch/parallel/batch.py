@@ -600,7 +600,8 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     assert pad >= 0
     if not spec.fixed_point:
         w = df.device_weights(w_np, device)
-        kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks)
+        kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks,
+                         R=w_np.shape[1])
 
         def step(hist, x, w):
             y = df.resample_dense(hist, x, w, **kernel_kw)
@@ -668,7 +669,9 @@ def weights_from_jax(w, scheme: str, device="cuda",
       ``(planes int8[D, P, K, R], bias)`` tuple for "int8";
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
-      the port's [P, K_pad, R] / [D, P, K_pad, R];
+      the port's [P, K_pad, R]; for "int8" P and D are swapped to the
+      port's K-major [D, P, R, K_pad] and each 32-tap group permuted
+      (``streamed_fir.int8_k_major``);
     - "split5": bf16 [3, P, K, R] (tiled) or [P, 3, R, K_pad] (streamed),
       read as bit patterns (numpy holds JAX's bf16 as ``ml_dtypes``);
     - "fixed", tiled or streamed: ``(planes int8[2, P, C, K], bias
@@ -677,7 +680,8 @@ def weights_from_jax(w, scheme: str, device="cuda",
       the TPU's int8 MXU: the taps are rebuilt as int16 ``256*wh + wl0``,
       transposed to the port's [P, K, C], and the bias is checked to be
       ``128 * sum_K w`` and dropped;
-    - "dense": f32 [L_pad, R] for "highest"; for "fixed" ``(wh int8[L_pad,
+    - "dense": f32 [L_pad, R] for "highest" (padded here to the port's
+      R_pad columns); for "fixed" ``(wh int8[L_pad,
       C], wl0, bias int32[C][, coef int32[R, 4]])`` with columns c-minor
       (``r*4 + c``): rebuilt as int16 taps, the bias checked, the columns
       reordered accumulator-major and coef transposed to [4, R];
@@ -722,8 +726,9 @@ def weights_from_jax(w, scheme: str, device="cuda",
         w = np.ascontiguousarray(np.asarray(w).transpose(0, 2, 1))
     elif scheme == "int8":
         planes, bias = w
-        w = (np.ascontiguousarray(np.asarray(planes).transpose(1, 0, 3, 2)),
-             bias)
+        return sf.device_weights_streamed(
+            (np.asarray(planes).swapaxes(0, 1), bias), scheme, device,
+            k_major=True)                                   # [D, P, R, K]
     return sf.device_weights_streamed(w, scheme, device)
 
 

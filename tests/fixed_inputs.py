@@ -21,7 +21,10 @@ def block_origins(step) -> np.ndarray:
     if step.kernel == "tiled":
         off = kw["offsets"].cpu().numpy().astype(np.int64)
         return (k // off.shape[0]) * kw["S"] + off[k % off.shape[0]]
-    R = step.w[0].shape[-1] // kw.get("n_accum", 1)    # [.., K, n_accum R]
+    if step.scheme == "int8":                     # [D, P, R, K]
+        R = step.w[0].shape[-2]
+    else:                                         # [.., K, n_accum R]
+        R = step.w[0].shape[-1] // kw.get("n_accum", 1)
     return sf.origins(kw["n_blocks"], R, shift=kw["shift"], num=kw["num"],
                       den=kw["den"], f0=kw["f0"]).numpy()
 

@@ -138,8 +138,8 @@ def test_weights_from_jax_equal_port_weights(scheme):
 def test_weights_from_jax_equal_port_weights_streamed(auto_resolves, scheme):
     """The streamed geometry: JAX streams [P, R, K_pad] / [P, D, R, K_pad]
     planes; weights_from_jax(kernel="streamed") gives the port's own
-    [P, K_pad, R] / [D, P, K_pad, R] step weights (D = 3 for explicit
-    int8, 4 for auto at q10)."""
+    [P, K_pad, R] / K-major, permuted [D, P, R, K_pad] step weights (D = 3
+    for explicit int8, 4 for auto at q10)."""
     i, o, q, target = SLICE
     jspec = jfd.design_filter(160, 147, q)
     jstep = jax_step(jspec, jax_geo(jspec, target, use_pallas=True),

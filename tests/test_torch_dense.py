@@ -104,7 +104,8 @@ def test_dense_plain_matches_jax_k3_and_xla(cfg, f0, B):
     jstep, tstep, tspec = _steps(cfg, f0)
     assert tspec.kernel == tstep.kernel == "dense"
     R = tspec.group * tspec.den
-    assert tstep.w[0].shape[1] == R
+    assert tstep.w[0].shape[1] == -(-R // 64) * 64
+    assert tstep.kernel_kw["R"] == R
     js = _specs(cfg)[0]
     xla = jb.make_batched_step(
         js, jb._launch_geometry(js, 4096, use_pallas=True, f0=f0,
@@ -123,6 +124,36 @@ def test_dense_plain_matches_jax_k3_and_xla(cfg, f0, B):
                                 tstep.w, **tstep.kernel_kw)
     assert tdf.launches == before
     assert torch.equal(direct, ty)
+
+
+@pytest.mark.parametrize("cfg", [VOIP, DOWN, UP, NARROW],
+                         ids=["R160", "R96", "R129", "R32"])
+def test_padded_weights_and_sub_bands_cover_every_nonzero(cfg):
+    """The kernel's weights: JAX's f32 [L_pad, R] padded with zero columns
+    to R_pad = round64(R); each 16-column sub-band's [lo, hi) is exactly
+    the span of its nonzero tap rows ((0, 0) if none), so the kernel, which
+    walks only those, skips no nonzero weight.  The plain version on them
+    equals the JAX package's K3 (interpret mode) within the LSB contract."""
+    jstep, tstep, tspec = _steps(cfg, 0)
+    R = tspec.group * tspec.den
+    jw = np.asarray(jstep.w)
+    w, bands = (t.numpy() for t in tstep.w)
+    L, R_pad = w.shape
+    assert R_pad % 64 == 0 and 0 <= R_pad - R < 64 and jw.shape == (L, R)
+    assert np.array_equal(w[:, :R], jw) and not w[:, R:].any()
+    assert bands.shape == (1, R_pad // 16, 2)
+    for i, (lo, hi) in enumerate(bands[0]):
+        rows = np.flatnonzero(w[:, 16 * i:16 * i + 16].any(axis=1))
+        assert (lo, hi) == ((rows[0], rows[-1] + 1) if rows.size else (0, 0))
+    rng = np.random.default_rng(R)
+    hist = rng.integers(-32768, 32768, (tstep.hist_rows, 4), dtype=np.int16)
+    x = rng.integers(-32768, 32768, (tstep.chunk_rows, 4), dtype=np.int16)
+    ty = tdf.resample_dense_reference(torch.from_numpy(hist),
+                                      torch.from_numpy(x), tstep.w,
+                                      **tstep.kernel_kw)
+    _, jy = jstep.fn(hist, x, jstep.w)
+    n_out = tspec.out_per_launch
+    assert_lsb_close(ty.numpy()[:n_out].ravel(), np.asarray(jy).ravel())
 
 
 @pytest.mark.parametrize(
@@ -405,7 +436,7 @@ def test_dense_wrapper_guards():
         tdf.resample_dense(hist, x, (w, taps[:, :2]), **kw)
     with pytest.raises(ValueError):
         tdf.resample_dense(hist, x, tstep.w, stride=kw["stride"] + 1,
-                           n_blocks=kw["n_blocks"])
+                           n_blocks=kw["n_blocks"], R=kw["R"])
     meta = torch.empty(hist.shape, dtype=torch.int16, device="meta")
     with pytest.raises(ValueError):
         tdf.resample_dense(meta, x, tstep.w, **kw)

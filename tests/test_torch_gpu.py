@@ -59,9 +59,10 @@ def _compare(got, want, scheme):
     return int((d > 0).sum()), limit
 
 
-# "highest" also at B = 129 (x rows not 16-byte aligned: 2-byte loads) and
-# 64 (half of the f32 kernels' 128-lane CTA tile)
-LANES = {"highest": (2048, 130, 129, 64), "int8": (2048, 130)}
+# "highest" and "int8" also at B = 129 (x rows not 16-byte aligned: 2-byte
+# loads) and 64 (half of the f32 kernels' 128-lane CTA tile, the streamed
+# int8 kernel's whole 64-lane tile)
+LANES = {"highest": (2048, 130, 129, 64), "int8": (2048, 130, 129, 64)}
 
 
 @pytest.mark.parametrize("scheme", ["highest", "int8"])
@@ -119,7 +120,8 @@ def test_engine_cuda_matches_cpu(cuda, scheme):
 def test_streamed_kernel_matches_plain(cuda, cfg, scheme):
     """One weight period per launch, at f0 = 0 and at the phase a flush of
     4040 staged frames leaves, B = 2048 and B = 130, and 129, 64 under
-    "highest" ("auto" is int8 with D = 4 at q10, explicit "int8" D = 3);
+    "highest" and "int8" ("auto" is int8 with D = 4 at q10, explicit
+    "int8" D = 3);
     each launch's first windows start inside the history."""
     i, o, q = cfg
     g = math.gcd(i, o)
@@ -327,14 +329,14 @@ DENSE = [(44100, 48000, 3, 882), (48000, 16000, 3, 960),
 @pytest.mark.parametrize("cfg", DENSE, ids=lambda c: "%d-%d-q%d-cap%d" % c)
 def test_dense_kernel_matches_plain(cuda, cfg):
     """dense_fir_f32_kernel against its plain version at f0 = 0 and at
-    phase 1 (where den > 1), B = 2048 and 130."""
+    phase 1 (where den > 1), B = 2048, 130, 129 and 64."""
     i, o, q, cap = cfg
     spec = tfd.design_filter(*_reduced(i, o), q)
     for f0 in sorted({0, 1 % spec.den}):
         bspec = tb._launch_geometry(spec, 4096, f0=f0, max_in_frames=cap)
         step = tb.make_batched_step(spec, bspec, device="cuda")
         assert (step.kernel, step.scheme) == ("dense", "highest")
-        for B in (2048, 130):
+        for B in (2048, 130, 129, 64):
             hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
                 step, bspec.in_per_launch, B, seed=B + f0, wrap=False))
             before = tdf.launches["highest"]
@@ -426,3 +428,72 @@ def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
         assert np.array_equal(outs[0], outs[1])
     else:
         _compare(outs[0], outs[1], step.scheme)
+
+
+@pytest.mark.parametrize("scheme", ["auto", "int8"], ids=["D4", "D3"])
+def test_streamed_int8_edges_match_plain(cuda, scheme):
+    """streamed_fir_int8_kernel (int8 tensor cores) at 48k->44.1k q10, D =
+    4 ("auto") and 3 (explicit "int8"), with x = -32768 and 32767 rows in
+    every window and -32768 history rows: 0 mismatches against the plain
+    version at f0 = 0 and 40, B = 130, 129 and 64."""
+    spec = tfd.design_filter(160, 147, 10)
+    for f0 in (0, 40):
+        bspec = tb._launch_geometry(spec, 20480, f0=f0)
+        step = tb.make_batched_step(spec, bspec, device="cuda",
+                                    scheme=scheme)
+        assert (step.kernel, step.scheme) == ("streamed", "int8")
+        assert step.w[0].shape[0] == (4 if scheme == "auto" else 3)
+        n_in = bspec.in_per_launch
+        for B in (130, 129, 64):
+            hist, x = launch_inputs(step, n_in, B, seed=B + f0, wrap=False)
+            x[0:n_in:97] = -32768
+            x[1:n_in:89] = 32767
+            hist[::5] = -32768
+            hist, x = torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+            got = tsf.resample_streamed(hist, x, step.w, **step.kernel_kw)
+            want = tsf.resample_streamed_reference(hist, x, step.w,
+                                                   **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("kind", ["dense", "streamed-int8"])
+def test_graph_replay_equals_eager(cuda, kind):
+    """resample_dense (voip) and resample_streamed(scheme="int8") (48k ->
+    44.1k q10) captured in a CUDA graph: a replay equals the eager launch,
+    and after new inputs are copied into the captured buffers, a replay
+    equals the eager launch on them."""
+    if kind == "dense":
+        spec = tfd.design_filter(147, 160, 3)
+        bspec = tb._launch_geometry(spec, 4096, max_in_frames=882)
+        launch = tdf.resample_dense
+    else:
+        spec = tfd.design_filter(160, 147, 10)
+        bspec = tb._launch_geometry(spec, 20480)
+        launch = tsf.resample_streamed
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    assert step.kernel == kind.split("-")[0]
+    inputs = [[torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, 256, seed=s, wrap=False)] for s in (1, 2)]
+    hist, x = inputs[0]
+
+    def run():
+        return launch(hist, x, step.w, **step.kernel_kw)
+
+    eager = [launch(h, xx, step.w, **step.kernel_kw) for h, xx in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[0])
+    hist.copy_(inputs[1][0])
+    x.copy_(inputs[1][1])
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager[1])

@@ -1,6 +1,6 @@
 """The kernel-variant machinery of the ablation tools, on the CPU.
 
-``tools/f32_ablate.py`` and ``tools/split5_ablate.py`` build their variants
+``tools/{f32,split5,dense,int8}_ablate.py`` build their variants
 as text edits of a header of ``speex_resampler_tpu_torch/csrc/``
 (``tools/_variants.py``).  Every edit must still find its text in the
 header as it stands, or the tool fails on the card; and the loader pointed
@@ -15,7 +15,7 @@ import pytest
 
 from speex_resampler_tpu_torch.ops import _build
 
-TOOLS = ["f32_ablate", "split5_ablate"]
+TOOLS = ["f32_ablate", "split5_ablate", "dense_ablate", "int8_ablate"]
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -26,9 +26,13 @@ def test_variant_edits_apply(tool):
     mod = importlib.import_module(f"tools.{tool}")
     text = (variants.CSRC / mod.HEADER).read_text()
     assert mod.VARIANTS
-    for name, (edits, _) in mod.VARIANTS.items():
+    for name, (edits, *also, _) in mod.VARIANTS.items():
         out = variants.patched(text, edits, name)
-        assert (out == text) == (not edits), name
+        others = also[0] if also else {}
+        for file, file_edits in others.items():
+            src = (variants.CSRC / file).read_text()
+            assert variants.patched(src, file_edits, name) != src, name
+        assert (out == text) == (not edits), name or others
 
 
 def test_variant_edit_missing_raises():
@@ -53,8 +57,8 @@ def test_use_csrc_names_another_library(tmp_path):
         assert _build.lib_path() != name
         f32.unlink()
         _build.use_csrc(copy)
-        assert [h.name for h in _build._HEADERS] == ["fir_common.cuh",
-                                                      "split5_wgmma.cuh"]
+        assert [h.name for h in _build._HEADERS] == [
+            "fir_common.cuh", "split5_wgmma.cuh", "int8_wgmma.cuh"]
     finally:
         _build.use_csrc(own)
     assert _build.lib_path() == name and _build._CSRC == own

@@ -42,15 +42,18 @@ def ptxas(logs: Path, keep) -> str:
                      if keep(name))
 
 
-def build(tool: str, name: str, header: str, edits: dict, keep) -> str:
-    """Builds and loads the variant ``name`` (``edits`` of ``header``);
-    returns its build time and the ptxas lines of the kernels ``keep``
-    accepts."""
+def build(tool: str, name: str, header: str, edits: dict, keep,
+          also: dict | None = None) -> str:
+    """Builds and loads the variant ``name`` (``edits`` of ``header``, and
+    of each other source file in ``also``: {file: edits}); returns its
+    build time and the ptxas lines of the kernels ``keep`` accepts."""
     var = ROOT / "build" / tool / re.sub(r"\W+", "_", name)
     shutil.rmtree(var, ignore_errors=True)
     shutil.copytree(CSRC, var)
-    path = var / header
-    path.write_text(patched(path.read_text(), edits, f"{name}, {header}"))
+    for file, file_edits in {header: edits, **(also or {})}.items():
+        path = var / file
+        path.write_text(patched(path.read_text(), file_edits,
+                                f"{name}, {file}"))
     _build.use_csrc(var)
     t0 = time.time()
     _build.load()
