@@ -38,10 +38,10 @@ replayed (the device's time alone: the wrapper's Python runs once, at
 capture), and one launch between two events (which also holds the
 wrapper's host call).  After the build it prints each kernel's registers
 and spills (``ptxas -v``) and the tensor-core instructions of the split5
-(HGMMA) and int8 (IGMMA) kernels' SASS (``cuobjdump``; a missing tool or
-a count of 0 fails the run).  Every phase raises on failure (non-zero exit).  The last
-two lines of standard output are the kernels' JSON summary and ``{"ok":
-true, "device": {...}}``.  Exits non-zero, printing no result, without a
+(HGMMA), streamed int8 and fixed (IGMMA) kernels' SASS (``cuobjdump``; a
+missing tool or a count of 0 fails the run).  Every phase raises on
+failure (non-zero exit).  The last two lines of standard output are the
+kernels' JSON summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
 """
 
@@ -325,9 +325,10 @@ def launch_bound(spec, step, bspec, B: int):
     multiply-add is 4 int8 products, 8 operations; both on the int8 tensor
     cores; for "split5", 5 bf16 products, 10 FLOP, on the bf16 tensor
     cores).  The band multiply-adds, returned beside it, are those the
-    kernel walks: each 64-row tile's nonzero tap band (times n_accum),
-    K_pad padding skipped; for "highest", each 16-row sub-band's 8-tap
-    slices (``tiled_fir.f32_walk``; the dense kernel's too)."""
+    kernel walks: each row tile's nonzero tap band (64 rows; "fixed": the
+    fixed CTA's ``tiled_fir.FIXED_ROWS``; times n_accum), K_pad padding
+    skipped; for "highest", each 16-row sub-band's 8-tap slices
+    (``tiled_fir.f32_walk``; the dense kernel's too)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     n_accum = step.kernel_kw.get("n_accum", 1)
     macs = n_out * N * B * n_accum
@@ -339,9 +340,9 @@ def launch_bound(spec, step, bspec, B: int):
         w_bytes = (int((step.w[0] != 0).any(0).sum()) * D
                    + step.w[1].numel() * 4)
         ops = 2 * (2 * D) * macs
-    elif step.scheme == "fixed":
-        w_bytes = (int((step.w[0] != 0).sum()) * 2
-                   + (step.w[1].numel() * 4 if n_accum == 4 else 0))
+    elif step.scheme == "fixed":                  # planes [2, P, C, K_pad]
+        w_bytes = (int((step.w[0] != 0).any(0).sum()) * 2
+                   + (step.w[2].numel() * 4 if n_accum == 4 else 0))
         ops = 8 * macs
     elif step.scheme == "split5":
         w_bytes = int((step.w[0] != 0).sum()) * 2
@@ -355,7 +356,7 @@ def launch_bound(spec, step, bspec, B: int):
         band, rows = tf.f32_walk(taps), tf.SUB_ROWS       # [P, sub-bands]
     else:
         band = (taps[..., 1] - taps[..., 0]).astype(np.int64)  # [P, tiles]
-        rows = tf.ROW_TILE
+        rows = bspec.R // taps.shape[1]
     k = np.arange(bspec.n_blocks)
     band_macs = (int(band[k % max(bspec.P, 1)].sum()) * rows * B
                  * n_accum)
@@ -459,8 +460,8 @@ def ptxas_report() -> None:
 
 
 def sass_check() -> None:
-    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA)
-    and streamed int8 (IGMMA) kernel in the built library's SASS
+    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
+    streamed int8 and fixed (IGMMA) kernel in the built library's SASS
     (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
     raises if the tool is missing or fails, or if one of them has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -481,7 +482,9 @@ def sass_check() -> None:
             counts[(name, op)] = counts.get((name, op), 0) + 1
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
-        (f"streamed_fir_int8_kernel<{d}>", "IGMMA") for d in (1, 2, 3, 4)]
+        (f"streamed_fir_int8_kernel<{d}>", "IGMMA") for d in (1, 2, 3, 4)] + [
+        (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
+        for geo in ("tiled", "streamed") for n in (1, 4)]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit {res.returncode}): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
@@ -490,9 +493,10 @@ def sass_check() -> None:
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
-    f0 0 and after the flush, B = 2048 and 130, and 129 for "highest" (x
-    rows not 16-byte aligned: 2-byte loads; fixed: with the wrap input
-    on every third lane).  ``kernel`` overrides the geometry: "streamed"
+    f0 0 and after the flush, B = 2048 and 130, and 129 for "highest",
+    "int8" and "fixed" (x rows not 16-byte aligned: 2-byte loads), and 64
+    for "fixed" (one 64-lane CTA tile); fixed with the wrap input on every
+    third lane.  ``kernel`` overrides the geometry: "streamed"
     feeds a tiled direct filter's weights to the streamed kernel."""
     for scheme in schemes:
         for f0 in sorted({0, path.f0_flush}):
@@ -505,8 +509,9 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
             n_accum = step.kernel_kw.get("n_accum", 1)
-            for B in (LANES, 130) + ((129,) if step.scheme in
-                                     ("highest", "int8") else ()):
+            for B in (LANES, 130) + {"highest": (129,), "int8": (129,),
+                                     "fixed": (129, 64)}.get(step.scheme,
+                                                             ()):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.fixed)
                 got = launch(hist, x, step)

@@ -7,9 +7,10 @@
 // and staging, in their own headers: "highest" (f32_fir.cuh, every
 // output one FMA chain in tap order; the tiled, streamed and dense
 // kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores) and, in the
-// streamed kernel, "int8" (int8_wgmma.cuh, int8 tensor cores); they copy
-// through the cp.async helpers below.  This file's own product serves the
-// tiled int8 kernel and both fixed kernels on the CUDA cores.
+// streamed kernel, "int8" (int8_wgmma.cuh, int8 tensor cores), and
+// "fixed" (fixed_wgmma.cuh, int8 tensor cores; the tiled and streamed
+// kernels); they copy through the cp.async helpers below.  This file's own
+// product serves the tiled int8 kernel on the CUDA cores.
 //
 // A CTA owns a 64-row x 128-lane output tile of one block k (R rows, phase
 // m = k % P) and walks only the tap rows where its 64 weight columns are
@@ -34,13 +35,14 @@
 //   fixed:   the Q15 universe (FIXED_POINT build), bit-exact.  For each of
 //            the n_accum weight column sets c (accumulator-major, column
 //            c*R + r), acc_c = sum_t W16[t, c*R+r] * x exactly mod 2^32 in
-//            uint32 registers (unsigned arithmetic wraps by definition;
-//            signed overflow is undefined in C++).  n_accum 1 (direct):
+//            uint32 (unsigned arithmetic wraps by definition; signed
+//            overflow is undefined in C++).  n_accum 1 (direct):
 //            y = SAT32PSHR15(acc_0).  n_accum 4 (interpolated):
 //            s = sum_c MULT16_32_Q15(coef[m][c][r], acc_c >> 1) mod 2^32,
-//            y = SAT32PSHR15(s) (fixed_generic.h, resample.c:474-479).  The
-//            TPU's int8 plane split and +128 bias exist only for its int8
-//            MXU; here the int16 x int16 product is taken directly.
+//            y = SAT32PSHR15(s) (fixed_generic.h, resample.c:474-479).
+//            The dot is _dot_fixed's four int8 dots plus a bias, on the
+//            int8 tensor cores (fixed_wgmma.cuh, with this file's Tile and
+//            the two Q15 macros below).
 //   split5:  _dot_scheme's five bf16 dots, in its order: d_1..d_5 =
 //            <w_hi,x_hi>, <w_hi,x_lo>, <w_mid,x_hi>, <w_mid,x_lo>,
 //            <w_lo,x_hi> (x_hi = bf16(x), rounded to nearest even, x_lo =
@@ -72,7 +74,7 @@ struct Launch {
   const int16_t* hist;     // [H, B]
   const int16_t* x;        // [T, B]
   int16_t* y;              // [n_blocks * R, B]
-  const int32_t* taps;     // [P, R / kRowTile, 2] nonzero tap rows [lo, hi)
+  const int32_t* taps;     // [P, R / rows, 2] nonzero tap rows [lo, hi)
   int H, T, B, R, K, P;    // weights [P, K, R] per digit plane
 };
 
@@ -155,14 +157,15 @@ __device__ __forceinline__ int16_t word2int(float v) {
   return (int16_t)__float2int_rz(r);
 }
 
-// Output tile (block k, row tile rt, lane tile lt of `lanes` lanes) whose
-// patch starts at row v0 of the virtual axis.
+// Output tile (block k, row tile rt of `rows` rows, the taps table's, lane
+// tile lt of `lanes` lanes) whose patch starts at row v0 of the virtual
+// axis.  row() assumes rows == kRowTile.
 struct Tile {
   int k, rt, m, v0, lane0, t_lo, t_hi, warp, tl;
   __device__ Tile(const Launch& g, int k_, int rt_, int lt, int v0_,
-                  int lanes = kLaneTile)
+                  int lanes = kLaneTile, int rows = kRowTile)
       : k(k_), rt(rt_), m(k_ % g.P), v0(v0_), lane0(lt * lanes) {
-    const int n_rt = g.R / kRowTile;
+    const int n_rt = g.R / rows;
     t_lo = g.taps[(m * n_rt + rt) * 2];
     t_hi = g.taps[(m * n_rt + rt) * 2 + 1];
     warp = threadIdx.x / 32;
@@ -198,7 +201,6 @@ __device__ __forceinline__ void stage(const Launch& g, const Tile& c,
 template <typename Acc> struct Vec4;
 template <> struct Vec4<float> { using type = float4; };
 template <> struct Vec4<int> { using type = int4; };
-template <> struct Vec4<unsigned> { using type = uint4; };
 
 // One 16-byte shared-memory load of four consecutive values.
 template <typename Acc>
@@ -299,47 +301,6 @@ __device__ __forceinline__ int16_t sat32pshr15(int s) {
 __device__ __forceinline__ unsigned mult16_32_q15(int a, int b) {
   return (unsigned)a * (unsigned)(b >> 15) +
          (unsigned)((a * (b & 0x7fff)) >> 15);
-}
-
-// Scheme "fixed": w int16[P, K, kAccum * R] (column c*R + r), coef
-// int32[P, 4, R] for kAccum == 4 (unused for 1).  The kAccum column sets
-// are walked in turn, like the int8 digits: 32 sum registers per thread
-// and 32 for the mix, not 4 x 32.
-template <int kAccum>
-__device__ __forceinline__ void fir_tile_fixed(const Launch& g, const Tile& c,
-                                               const int16_t* __restrict__ w,
-                                               const int32_t* __restrict__ coef) {
-  __shared__ __align__(16) unsigned xs[kTapStage][kLaneTile];
-  __shared__ __align__(16) unsigned ws[kTapStage][kRowTile];
-  const int C = kAccum * g.R;
-  unsigned s[8][4] = {};
-#pragma unroll 1
-  for (int comp = 0; comp < kAccum; ++comp) {
-    const int16_t* wm =
-        w + (size_t)c.m * g.K * C + comp * g.R + c.rt * kRowTile;
-    unsigned acc[8][4] = {};
-    for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-      stage(g, c, wm, C, t0, 0, xs, ws);
-      __syncthreads();
-      multiply_stage(c, xs, ws, acc);  // exact int16 x int16, mod 2^32
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a) {
-      const int q = kAccum == 1 ? 0 : coef[(c.m * 4 + comp) * g.R + c.row(a)];
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        s[a][b] = kAccum == 1 ? acc[a][b]
-                              : s[a][b] + mult16_32_q15(q, (int)acc[a][b] >> 1);
-    }
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    int16_t v[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) v[b] = sat32pshr15((int)s[a][b]);
-    store_i16(g, c, a, v);
-  }
 }
 
 }  // namespace fir

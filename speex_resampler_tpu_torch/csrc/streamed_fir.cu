@@ -46,15 +46,18 @@
 // summed in one walk of each tile's band, the f32 epilogue of the CUDA-core
 // int8 kernel.  Its planes are K-major, int8[D, P, R, K_pad], each 32-tap
 // group permuted to the fragment's tap order (JAX streams [P, D, R,
-// K_pad]); its lane tile is int8tc::kLanes.  The fixed scheme stays on the
-// CUDA cores.
+// K_pad]); its lane tile is int8tc::kLanes.
 //
-// Scheme "fixed" (v4's fixed branch: _dot_fixed, then the fixed_math
-// epilogues) reads int16 weights [P, K_pad, n_accum * R], 77 MB at q10
-// (n_accum 4), walked once per column set in exact uint32 arithmetic.  A
-// q10 launch needs 43.2 G int16 multiply-adds (filt_len x 4 per output):
-// 345 G int8 tensor-core operations, ~174 us, above the ~61 us of its
-// bytes, so operations bound it.
+// Scheme "fixed" (K2d; v4's fixed branch: _dot_fixed, then the fixed_math
+// epilogues) runs on the int8 tensor cores too (fixed_wgmma.cuh, shared
+// with the tiled kernel): _dot_fixed's four int8 dots and bias, all
+// n_accum column sets in one walk.  Its planes are K-major, int8[2, P,
+// n_accum * R, K_pad] (wh, wl0; 77 MB at q10, n_accum 4; JAX streams [P,
+// 2, C, K_pad]), each 32-tap group permuted as int8's; its CTA takes
+// fixedtc::Shape's rows and int8tc::kLanes lanes.  A q10 launch needs 43.2
+// G int16 multiply-adds (filt_len x 4 per output): 345 G int8 tensor-core
+// operations, ~174 us, above the ~61 us of its bytes, so operations bound
+// it.
 //
 // Scheme "split5" (K2c; v4's split5 branch, five bf16 products per
 // multiply-add summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX
@@ -68,6 +71,7 @@
 
 #include "f32_fir.cuh"
 #include "fir_common.cuh"
+#include "fixed_wgmma.cuh"
 #include "int8_wgmma.cuh"
 #include "split5_wgmma.cuh"
 
@@ -145,12 +149,44 @@ cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
   return cudaGetLastError();
 }
 
+// The same order over fixedtc::Shape<kAccum>::kRows-row, int8tc::kLanes-
+// lane tiles.
 template <int kAccum>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  fir::fixedtc::Shape<kAccum>::kMinBlocks)
 streamed_fir_fixed_kernel(fir::Launch g, Origin o,
-                          const int16_t* __restrict__ w,
+                          const int8_t* __restrict__ planes,
+                          const int32_t* __restrict__ bias,
                           const int32_t* __restrict__ coef) {
-  fir::fir_tile_fixed<kAccum>(g, streamed_tile(g, o), w, coef);
+  constexpr int kRows = fir::fixedtc::Shape<kAccum>::kRows;
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const int row_tiles = g.R / kRows;
+  const int kr = blockIdx.x / lane_tiles;
+  const int k = kr / row_tiles;
+  fir::fixedtc::fir_tile<kAccum>(
+      g,
+      fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
+                origin(g, o, k), fir::int8tc::kLanes, kRows),
+      planes, bias, coef);
+}
+
+// Launches the n_accum kAccum fixed kernel (its shared memory set once a
+// device).
+template <int kAccum>
+cudaError_t launch_fixed(const fir::Launch& g, Origin o, const int8_t* planes,
+                         const int32_t* bias, const int32_t* coef,
+                         int n_blocks, cudaStream_t stream) {
+  using Shape = fir::fixedtc::Shape<kAccum>;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::fixedtc::allow_smem<kAccum>(streamed_fir_fixed_kernel<kAccum>);
+  });
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_blocks * (g.R / Shape::kRows) *
+                  ((g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes));
+  streamed_fir_fixed_kernel<kAccum><<<grid, kThreads, Shape::kSmemBytes,
+                                      stream>>>(g, o, planes, bias, coef);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -245,26 +281,29 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
   return static_cast<int>(err);
 }
 
-// w int16[P, K, n_accum * R]; coef int32[P, 4, R] (NULL for n_accum 1).
+// planes int8[2, P, n_accum * R, K] (K % 32 == 0, each 32-tap group
+// permuted: fixed_wgmma.cuh), 16-byte aligned; bias int32[P, n_accum * R];
+// coef int32[P, 4, R] (NULL for n_accum 1); taps int32[P, R / rows, 2]
+// (rows: fixed_fir_rows).
 int streamed_fir_fixed(const void* hist, const void* x, void* y,
-                       const void* taps, const void* w, const void* coef,
-                       int n_accum, int H, int T, int B, int R, int K, int P,
-                       int n_blocks, int shift, int num, int den, int f0,
-                       void* stream) {
+                       const void* taps, const void* planes, const void* bias,
+                       const void* coef, int n_accum, int H, int T, int B,
+                       int R, int K, int P, int n_blocks, int shift, int num,
+                       int den, int f0, void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const Origin o{shift, num, den, f0};
-  const auto* w16 = static_cast<const int16_t*>(w);
+  const auto* p8 = static_cast<const int8_t*>(planes);
+  const auto* b32 = static_cast<const int32_t*>(bias);
   const auto* c32 = static_cast<const int32_t*>(coef);
-  const dim3 grid = grid_of(n_blocks, R, B);
   const auto st = static_cast<cudaStream_t>(stream);
   if (n_accum == 4)
-    streamed_fir_fixed_kernel<4><<<grid, kThreads, 0, st>>>(g, o, w16, c32);
-  else if (n_accum == 1)
-    streamed_fir_fixed_kernel<1><<<grid, kThreads, 0, st>>>(g, o, w16, c32);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_fixed<4>(g, o, p8, b32, c32, n_blocks, st));
+  if (n_accum == 1)
+    return static_cast<int>(launch_fixed<1>(g, o, p8, b32, c32, n_blocks, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

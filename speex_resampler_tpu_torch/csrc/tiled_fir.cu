@@ -40,12 +40,18 @@
 // tap order.  Its lane tile is f32::kLanes.
 //
 // Scheme "fixed" (the Q15 universe; K1's fixed branch, _kernel_v3 with
-// _dot_fixed and the fixed_math epilogues) walks the same tiles once per
-// weight column set (n_accum 4 at 44.1k->48k q7: C = 4R = 512 columns) in
-// exact uint32 arithmetic.  Its flagship launch needs 10.7 G int16
-// multiply-adds (filt_len x 4 per output): 86 G int8 tensor-core operations
-// (4 int8 products, 8 ops, per int16 MAC), ~43 us, above the ~25 us of its
-// bytes, so operations bound it; on the CUDA cores it runs far above that.
+// _dot_fixed and the fixed_math epilogues; K1e at n_accum 4, K1d at 1)
+// runs on the int8 tensor cores (fixed_wgmma.cuh, shared with the streamed
+// kernel): _dot_fixed's four int8 dots and bias, all n_accum weight column
+// sets (C = 4R = 512 at 44.1k->48k q7) in one walk of the band, x split
+// once per K-slice.  Its planes are K-major, int8[2, P, C, K_pad] (wh,
+// wl0; K padded to a multiple of 32, each 32-tap group permuted: JAX's
+// tiled planes are [2, P, C, K]); its CTA takes fixedtc::Shape's rows and
+// int8tc::kLanes lanes, and its tap table those rows.  Its flagship launch
+// needs 10.7 G int16 multiply-adds (filt_len x 4 per output): 86 G int8
+// tensor-core operations (4 int8 products, 8 ops, per int16 MAC), ~43 us,
+// above the ~25 us of its bytes, so operations bound it; the CUDA cores'
+// IMAD would take >= 0.86 ms for the 14.4 G the 64-row tiles walk.
 //
 // Scheme "split5" (K1c; _kernel_v3 with _dot_scheme "split5": five bf16
 // products per multiply-add, summed in f32) is what "auto" resolves where
@@ -61,6 +67,7 @@
 
 #include "f32_fir.cuh"
 #include "fir_common.cuh"
+#include "fixed_wgmma.cuh"
 #include "split5_wgmma.cuh"
 
 namespace {
@@ -97,12 +104,43 @@ tiled_fir_int8_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
   fir::fir_tile_int8(g, tiled_tile(g, offsets, S), planes, bias, D, scales);
 }
 
+// grid (n_blocks * R / Shape<kAccum>::kRows, ceil(B / int8tc::kLanes))
 template <int kAccum>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads,
+                                  fir::fixedtc::Shape<kAccum>::kMinBlocks)
 tiled_fir_fixed_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
-                       int S, const int16_t* __restrict__ w,
+                       int S, const int8_t* __restrict__ planes,
+                       const int32_t* __restrict__ bias,
                        const int32_t* __restrict__ coef) {
-  fir::fir_tile_fixed<kAccum>(g, tiled_tile(g, offsets, S), w, coef);
+  constexpr int kRows = fir::fixedtc::Shape<kAccum>::kRows;
+  const int row_tiles = g.R / kRows;
+  const int k = blockIdx.x / row_tiles;
+  fir::fixedtc::fir_tile<kAccum>(
+      g,
+      fir::Tile(g, k, blockIdx.x % row_tiles, blockIdx.y,
+                (k / g.P) * S + offsets[k % g.P], fir::int8tc::kLanes, kRows),
+      planes, bias, coef);
+}
+
+// Launches the n_accum kAccum fixed kernel (its shared memory set once a
+// device).
+template <int kAccum>
+cudaError_t launch_fixed(const fir::Launch& g, const int32_t* offsets, int S,
+                         const int8_t* planes, const int32_t* bias,
+                         const int32_t* coef, int n_blocks,
+                         cudaStream_t stream) {
+  using Shape = fir::fixedtc::Shape<kAccum>;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::fixedtc::allow_smem<kAccum>(tiled_fir_fixed_kernel<kAccum>);
+  });
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_blocks * (g.R / Shape::kRows),
+                  (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes);
+  tiled_fir_fixed_kernel<kAccum><<<grid, kThreads, Shape::kSmemBytes,
+                                   stream>>>(g, offsets, S, planes, bias,
+                                             coef);
+  return cudaGetLastError();
 }
 
 __global__ void __launch_bounds__(kThreads, 1)
@@ -120,9 +158,14 @@ dim3 grid_of(int n_blocks, int R, int B) {
 extern "C" {
 
 // Tile sizes the host wrapper must honour (R % row_tile == 0; taps table;
-// the "highest" table's sub-bands of sub_rows rows).
+// the "highest" table's sub-bands of sub_rows rows; the fixed tables' rows
+// at n_accum 1 and 4).
 int tiled_fir_row_tile() { return kRowTile; }
 int f32_fir_sub_rows() { return fir::f32::kSubRows; }
+int fixed_fir_rows(int n_accum) {
+  return n_accum == 4 ? fir::fixedtc::Shape<4>::kRows
+                      : fir::fixedtc::Shape<1>::kRows;
+}
 
 const char* tiled_fir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -189,25 +232,31 @@ int tiled_fir_int8(const void* hist, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
-// w int16[P, K, n_accum * R]; coef int32[P, 4, R] (NULL for n_accum 1).
+// planes int8[2, P, n_accum * R, K] (K % 32 == 0, each 32-tap group
+// permuted: fixed_wgmma.cuh), 16-byte aligned; bias int32[P, n_accum * R];
+// coef int32[P, 4, R] (NULL for n_accum 1); taps int32[P, R / rows, 2]
+// (rows: fixed_fir_rows).
 int tiled_fir_fixed(const void* hist, const void* x, void* y,
-                    const void* offsets, const void* taps, const void* w,
-                    const void* coef, int n_accum, int H, int T, int B, int R,
-                    int K, int P, int S, int n_blocks, void* stream) {
+                    const void* offsets, const void* taps, const void* planes,
+                    const void* bias, const void* coef, int n_accum, int H,
+                    int T, int B, int R, int K, int P, int S, int n_blocks,
+                    void* stream) {
   cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const auto* off = static_cast<const int32_t*>(offsets);
-  const auto* w16 = static_cast<const int16_t*>(w);
+  const auto* p8 = static_cast<const int8_t*>(planes);
+  const auto* b32 = static_cast<const int32_t*>(bias);
   const auto* c32 = static_cast<const int32_t*>(coef);
-  const dim3 grid = grid_of(n_blocks, R, B);
   const auto st = static_cast<cudaStream_t>(stream);
   if (n_accum == 4)
-    tiled_fir_fixed_kernel<4><<<grid, kThreads, 0, st>>>(g, off, S, w16, c32);
-  else if (n_accum == 1)
-    tiled_fir_fixed_kernel<1><<<grid, kThreads, 0, st>>>(g, off, S, w16, c32);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        launch_fixed<4>(g, off, S, p8, b32, c32, n_blocks, st));
+  if (n_accum == 1)
+    return static_cast<int>(
+        launch_fixed<1>(g, off, S, p8, b32, c32, n_blocks, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -26,7 +26,7 @@ __all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu")
 _HEADER_NAMES = ("fir_common.cuh", "split5_wgmma.cuh", "f32_fir.cuh",
-                 "int8_wgmma.cuh")
+                 "int8_wgmma.cuh", "fixed_wgmma.cuh")
 _CSRC = _PKG / "csrc"
 _SOURCES = tuple(_CSRC / name for name in _SOURCE_NAMES)
 _HEADERS = tuple(_CSRC / name for name in _HEADER_NAMES)
@@ -38,16 +38,17 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "tiled_fir_row_tile": (_I, []),
     "f32_fir_sub_rows": (_I, []),
+    "fixed_fir_rows": (_I, [_I]),
     "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
     "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
-    "tiled_fir_fixed": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "tiled_fir_fixed": (_I, [_P] * 8 + [_I] * 9 + [_P]),
     "tiled_fir_split5": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "streamed_fir_row_tile": (_I, []),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
-    "streamed_fir_fixed": (_I, [_P] * 6 + [_I] * 12 + [_P]),
+    "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 12 + [_P]),
     "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "dense_fir_row_tile": (_I, []),
     "dense_fir_error_string": (ctypes.c_char_p, [_I]),

@@ -27,15 +27,18 @@ kernel's layout but for "int8":
   each 32-tap group in the fragment's tap order: position ``32*i + k``
   holds tap ``32*i + K_PERM[k]`` (:func:`int8_k_major`,
   :func:`int8_n_major`)
-- ``"fixed"``: ``(w int16[P, K_pad, C], [coef int32[P, 4, R],] taps)``,
-  C = n_accum * R accumulator-major columns
+- ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], [coef
+  int32[P, 4, R],] taps)``, C = n_accum * R accumulator-major columns,
+  K-major and permuted as "int8"'s (``tiled_fir.fixed_device_weights``;
+  the kernel is ``csrc/fixed_wgmma.cuh``)
 - ``"split5"``: ``(planes bf16[3, P, K_pad, R], taps)``
 
 The JAX package streams ``[P, R, K_pad]`` (``[P, D, R, K_pad]`` planes;
 fixed: int8 ``[P, 2, C, K_pad]`` planes and an int32 bias; split5: bf16
 ``[P, 3, R, K_pad]``);
 ``parallel/batch.weights_from_jax`` converts.  The tap table skips the zero
-rows of each 64-column tile, the K_pad padding among them.
+rows of each tile's columns (64; fixed: ``tiled_fir.FIXED_ROWS``), the
+K_pad padding among them.
 
 :func:`resample_streamed` launches the CUDA kernel
 (``csrc/streamed_fir.cu``) for CUDA tensors and runs
@@ -50,6 +53,7 @@ import torch
 
 from . import _build
 from . import tiled_fir as tf
+from .tiled_fir import K_PERM, full_perm
 
 __all__ = ["device_weights_streamed", "origins", "resample_streamed",
            "resample_streamed_reference", "K_PERM", "int8_k_major",
@@ -60,34 +64,19 @@ __all__ = ["device_weights_streamed", "origins", "resample_streamed",
 #: to count one run.
 launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
 
-#: The tap order of one 32-tap K-slice in the int8 kernel's A fragment
-#: (``csrc/int8_wgmma.cuh``): K position ``4t + j`` (t < 4, j < 4) holds
-#: tap ``8*(j//2) + 2t + j%2``, position ``16 + 4t + j`` tap 16 + that.
-#: Two ``ldmatrix.trans`` of int16 rows give a thread taps 2t, 2t+1 of
-#: one lane in each 8-tap block; a byte permute packs blocks 0-1 (2-3).
-K_PERM = np.array([16 * (k // 16) + 8 * (k % 4 // 2) + 2 * (k % 16 // 4)
-                   + k % 2 for k in range(32)])
-
-
-def _full_perm(K: int) -> np.ndarray:
-    """K_PERM applied to every 32-tap group of K positions."""
-    k = np.arange(K)
-    return k // 32 * 32 + K_PERM[k % 32]
-
-
 def int8_k_major(planes: np.ndarray) -> torch.Tensor:
     """Host K-major int8[D, P, R, K] digit planes in tap order (K a
     multiple of 32) -> the streamed kernel's permuted planes, a contiguous
     CPU tensor: ``out[..., 32*i + k] = planes[..., 32*i + K_PERM[k]]``.
     One gather; ``planes`` may be a strided view."""
     return torch.from_numpy(np.ascontiguousarray(
-        np.take(planes, _full_perm(planes.shape[3]), axis=3)))
+        np.take(planes, full_perm(planes.shape[3]), axis=3)))
 
 
 def int8_n_major(planes: torch.Tensor) -> torch.Tensor:
     """The inverse of :func:`int8_k_major` and the transpose: int8[D, P, R,
     K] K-major, permuted planes -> int8[D, P, K, R] in tap order."""
-    inv = torch.from_numpy(np.argsort(_full_perm(planes.shape[3])))
+    inv = torch.from_numpy(np.argsort(full_perm(planes.shape[3])))
     return planes[..., inv.to(planes.device)].transpose(2, 3).contiguous()
 
 
@@ -166,9 +155,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
     if lib.streamed_fir_row_tile() != tf.ROW_TILE \
-            or lib.f32_fir_sub_rows() != tf.SUB_ROWS:
+            or lib.f32_fir_sub_rows() != tf.SUB_ROWS \
+            or lib.fixed_fir_rows(n_accum) != tf.FIXED_ROWS[n_accum]:
         raise RuntimeError("csrc/streamed_fir.cu tile sizes disagree with "
-                           "ROW_TILE / SUB_ROWS")
+                           "ROW_TILE / SUB_ROWS / FIXED_ROWS")
     H, B = hist.shape
     y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
     with torch.cuda.device(x.device):
@@ -182,9 +172,9 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
         elif scheme == "split5":
             err = lib.streamed_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
-            coef = w[1].data_ptr() if n_accum == 4 else None
-            err = lib.streamed_fir_fixed(*head, w[0].data_ptr(), coef,
-                                         n_accum, *geo)
+            coef = w[2].data_ptr() if n_accum == 4 else None
+            err = lib.streamed_fir_fixed(*head, w[0].data_ptr(),
+                                         w[1].data_ptr(), coef, n_accum, *geo)
         else:
             s = tuple(scales) + (0.0,) * (4 - len(scales))
             err = lib.streamed_fir_int8(*head, w[0].data_ptr(),
@@ -210,7 +200,8 @@ def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,
     "int8" the exact float64 digit dots, then the kernel's f32 epilogue in
     the same order; "fixed" the exact float64 int16 dots wrapped to int32,
     then the Q15 epilogue (the int8 planes back in tap order first,
-    :func:`int8_n_major`)."""
+    :func:`int8_n_major`; the fixed int16 taps rebuilt,
+    ``tiled_fir.fixed_taps16``)."""
     P, K, R = _check(hist, x, w, n_blocks, shift, num, den, f0, scheme,
                      scales, n_accum)
     v0 = origins(n_blocks, R, shift=shift, num=num, den=den, f0=f0,

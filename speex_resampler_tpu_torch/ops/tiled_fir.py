@@ -17,21 +17,27 @@ Device weights (built once per step, never per launch; see
 - ``"int8"``: ``(planes int8[D, P, K, R], bias f32[P, R], taps)``
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
-- ``"fixed"``: ``(w int16[P, K, C], coef int32[P, 4, R], taps)`` for
-  ``n_accum`` 4, ``(w int16[P, K, C], taps)`` for ``n_accum`` 1; C =
-  n_accum * R columns, accumulator-major (column ``c*R + r``)
+- ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], coef
+  int32[P, 4, R], taps)`` for ``n_accum`` 4, ``(planes, bias, taps)`` for
+  ``n_accum`` 1; C = n_accum * R columns, accumulator-major (column
+  ``c*R + r``); :func:`fixed_device_weights`
 
-``w`` and ``planes`` keep the JAX package's ``[.., K, R]`` layout (the TPU
-kernel transposed to ``[R, K]`` for the MXU; the CUDA kernel reads R-wide
-tap rows, which that layout already gives).  The fixed weights are the
-int16 taps themselves: the JAX package splits each into two int8 planes
-plus an int32 bias only because the MXU multiplies int8 (see
-``parallel/batch.weights_from_jax``).  ``taps[m, i] = (lo, hi)`` is the
-range of tap rows in which weight columns ``[i*ROW_TILE, (i+1)*ROW_TILE)``
-of phase m have a nonzero entry (in any of the ``n_accum`` components); the
-CUDA kernel skips the rest, which changes no result (the skipped products
-are exact zeros).  ``"highest"`` keeps the same table at ``SUB_ROWS``
-(16-row) granularity, ``bands``: its kernel (``csrc/f32_fir.cuh``) copies
+``w`` and the int8 and split5 planes keep the JAX package's ``[.., K, R]``
+layout (the TPU kernel transposed to ``[R, K]`` for the MXU; the CUDA
+kernels read R-wide tap rows, which that layout already gives).  The fixed
+planes are the JAX package's split of the int16 taps, ``w = 256*wh + wl0``
+(``fixed_math.balanced_q15_split``), with its bias ``128 * sum_t w``: the
+four int8 dots of ``_dot_fixed`` on the int8 tensor cores
+(``csrc/fixed_wgmma.cuh``).  They are K-major, ``K`` padded with zero taps
+to ``K_pad``, a multiple of 32, and each 32-tap group permuted to the
+kernel's fragment order: position ``32*i + k`` holds tap ``32*i +
+K_PERM[k]`` (:func:`fixed_taps16` maps them back).  ``taps[m, i] = (lo,
+hi)`` is the range of tap rows in which weight columns ``[i*ROW_TILE,
+(i+1)*ROW_TILE)`` of phase m have a nonzero entry (in any of the
+``n_accum`` components); the CUDA kernel skips the rest, which changes no
+result (the skipped products are exact zeros).  The fixed table counts
+``FIXED_ROWS[n_accum]`` columns a row (a fixed CTA's), ``"highest"``'s
+``SUB_ROWS`` (16), ``bands``: its kernel (``csrc/f32_fir.cuh``) copies
 the union of a row tile's four sub-bands and each warp multiplies only the
 8-tap slices that meet its own 16 rows' band (:func:`f32_walk`).
 
@@ -49,10 +55,12 @@ import torch
 
 from . import _build, int8_planes
 from .convert import word2int
-from .fixed_math import fixed_interp_mix_rows, sat32pshr15
+from .fixed_math import (balanced_q15_split, fixed_interp_mix_rows,
+                         sat32pshr15)
 
 __all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
-           "tap_ranges", "f32_walk", "SUB_ROWS", "K_SLICE",
+           "tap_ranges", "f32_walk", "SUB_ROWS", "K_SLICE", "K_PERM",
+           "full_perm", "FIXED_ROWS", "fixed_device_weights", "fixed_taps16",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
@@ -65,6 +73,25 @@ ROW_TILE = 64
 #: multiplies or skips (``kSlice``).
 SUB_ROWS = 16
 K_SLICE = 8
+
+#: Tile rows of one fixed CTA, and of its tap table, by n_accum
+#: (``fixedtc::Shape<n_accum>::kRows`` in ``csrc/fixed_wgmma.cuh``).
+FIXED_ROWS = {1: 64, 4: 32}
+
+#: The tap order of one 32-tap K-slice in the int8 tensor-core kernels' A
+#: fragment (``csrc/int8_wgmma.cuh``, ``csrc/fixed_wgmma.cuh``): K position
+#: ``4t + j`` (t < 4, j < 4) holds tap ``8*(j//2) + 2t + j%2``, position
+#: ``16 + 4t + j`` tap 16 + that.  Two ``ldmatrix.trans`` of int16 rows
+#: give a thread taps 2t, 2t+1 of one lane in each 8-tap block; a byte
+#: permute packs blocks 0-1 (2-3).
+K_PERM = np.array([16 * (k // 16) + 8 * (k % 4 // 2) + 2 * (k % 16 // 4)
+                   + k % 2 for k in range(32)])
+
+
+def full_perm(K: int) -> np.ndarray:
+    """K_PERM applied to every 32-tap group of K positions."""
+    k = np.arange(K)
+    return k // 32 * 32 + K_PERM[k % 32]
 
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_tiled adds to it, once per launch.  Callers reset the counts to
@@ -141,12 +168,51 @@ def f32_walk(bands: np.ndarray) -> np.ndarray:
     return np.where(full, (last - first) * K_SLICE, 0).reshape(P, n)
 
 
+def fixed_device_weights(w, device) -> tuple:
+    """The fixed scheme's host weights ``(w int16[P, K, C],)`` or ``(w,
+    coef int32[P, 4, R])`` (``n_accum`` 1 or 4) -> its device weights
+    ``(planes int8[2, P, C, K_pad], bias int32[P, C], [coef,] taps)``
+    (module docstring): K padded with zero taps to a multiple of 32, each
+    phase split by ``balanced_q15_split`` (the JAX package's
+    ``fixed_weight_planes_tiled`` split) in the permuted tap order, which
+    changes no sum; the tap table over ``FIXED_ROWS[n_accum]`` columns."""
+    w16, *coef = (np.asarray(a) for a in w)
+    assert w16.dtype == np.int16 and len(coef) <= 1
+    P, K, C = w16.shape
+    n_accum = 4 if coef else 1
+    K_pad = -(-K // 32) * 32
+    perm = full_perm(K_pad)
+    planes = np.empty((2, P, C, K_pad), dtype=np.int8)
+    bias = np.empty((P, C), dtype=np.int32)
+    wm = np.zeros((K_pad, C), dtype=np.int16)
+    for m in range(P):          # a phase at a time: 77 MB of taps at q10
+        wm[:K] = w16[m]
+        wh, wl0, bias[m] = balanced_q15_split(wm[perm], tap_axis=0)
+        planes[0, m], planes[1, m] = wh.T, wl0.T
+    nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
+    nonzero = np.pad(nonzero, ((0, 0), (0, K_pad - K), (0, 0)))
+    return (torch.from_numpy(planes).to(device),
+            torch.from_numpy(bias).to(device),
+            *(torch.from_numpy(c.astype(np.int32)).to(device) for c in coef),
+            torch.from_numpy(tap_ranges(nonzero, FIXED_ROWS[n_accum]))
+            .to(device))
+
+
+def fixed_taps16(planes: torch.Tensor) -> torch.Tensor:
+    """The fixed device planes int8[2, P, C, K] -> the int16 taps
+    ``256*wh + wl0``, int16[P, K, C] in tap order (the inverse of
+    :func:`fixed_device_weights`' layout), on the planes' device."""
+    inv = torch.from_numpy(np.argsort(full_perm(planes.shape[3])))
+    w = planes[0].to(torch.int16) * 256 + planes[1].to(torch.int16)
+    return w[..., inv.to(planes.device)].transpose(1, 2).contiguous()
+
+
 def device_weights(w, scheme: str, device) -> tuple:
     """Host weights -> the kernel's device weights (see module docstring).
     ``w``: f32[P, K, R] for "highest", ``(planes, bias)`` for "int8",
     ``(w int16[P, K, C],)`` or ``(w, coef int32[P, 4, R])`` for "fixed"
-    (``n_accum`` 1 or 4), the bf16[3, P, K, R] tensor of
-    :func:`split5_weights` for "split5"."""
+    (``n_accum`` 1 or 4; :func:`fixed_device_weights`), the bf16[3, P, K,
+    R] tensor of :func:`split5_weights` for "split5"."""
     if scheme == "highest":
         w = np.asarray(w, dtype=np.float32)
         return (torch.from_numpy(w.copy()).to(device),
@@ -159,15 +225,7 @@ def device_weights(w, scheme: str, device) -> tuple:
                 torch.from_numpy(tap_ranges((planes != 0).any(axis=0)))
                 .to(device))
     if scheme == "fixed":
-        w16, *coef = (np.asarray(a) for a in w)
-        assert w16.dtype == np.int16 and len(coef) <= 1
-        P, K, C = w16.shape
-        n_accum = 4 if coef else 1
-        nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
-        return (torch.from_numpy(w16.copy()).to(device),
-                *(torch.from_numpy(c.astype(np.int32)).to(device)
-                  for c in coef),
-                torch.from_numpy(tap_ranges(nonzero)).to(device))
+        return fixed_device_weights(w, device)
     if scheme == "split5":
         planes = torch.as_tensor(w)
         assert planes.dtype == torch.bfloat16 and planes.shape[0] == 3
@@ -182,7 +240,8 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
     """Validate one launch's buffers and device weights (``extra``: more
     tensors that must share x's device and be contiguous; ``k_major``: the
     int8 planes are the streamed kernel's int8[D, P, R, K], K a multiple of
-    32); returns (P, K, R)."""
+    32; the fixed planes are always K-major, K a multiple of 32, 16-byte
+    aligned); returns (P, K, R)."""
     if scheme not in ("highest", "int8", "fixed", "split5"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if n_accum != 1 and (scheme != "fixed" or n_accum != 4):
@@ -208,17 +267,24 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
             raise TypeError("split5 planes must be bf16[3, P, K, R]")
         _, P, K, R = planes.shape
     elif scheme == "fixed":
-        if len(w) != (3 if n_accum == 4 else 2) or scales:
+        if len(w) != (4 if n_accum == 4 else 3) or scales:
             raise ValueError(f"{len(w)} fixed weight tensors, scales "
                              f"{scales} for n_accum {n_accum}")
-        w16, taps = w[0], w[-1]
-        if w16.dtype != torch.int16 or w16.ndim != 3 \
-                or w16.shape[2] % n_accum:
-            raise TypeError("fixed weights must be int16[P, K, n_accum * R]")
-        P, K, C = w16.shape
+        planes, bias, taps = w[0], w[1], w[-1]
+        if planes.dtype != torch.int8 or planes.ndim != 4 \
+                or planes.shape[0] != 2 or planes.shape[2] % n_accum:
+            raise TypeError("fixed planes must be int8[2, P, n_accum * R, K]")
+        _, P, C, K = planes.shape
         R = C // n_accum
-        if n_accum == 4 and (tuple(w[1].shape) != (P, 4, R)
-                             or w[1].dtype != torch.int32):
+        if K % 32:
+            raise ValueError(f"K {K} of the fixed planes is not a multiple "
+                             "of 32")
+        if planes.data_ptr() % 16:
+            raise ValueError("fixed planes must be 16-byte aligned")
+        if tuple(bias.shape) != (P, C) or bias.dtype != torch.int32:
+            raise TypeError("fixed bias must be int32[P, n_accum * R]")
+        if n_accum == 4 and (tuple(w[2].shape) != (P, 4, R)
+                             or w[2].dtype != torch.int32):
             raise TypeError("fixed coefficients must be int32[P, 4, R]")
     else:
         planes, bias, taps = w
@@ -238,7 +304,8 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
             raise ValueError(f"{len(scales)} scales for {D} digit planes")
     if scheme in ("highest", "split5") and scales:
         raise ValueError(f"scales {scales} under scheme {scheme!r}")
-    rows = SUB_ROWS if scheme == "highest" else ROW_TILE
+    rows = (SUB_ROWS if scheme == "highest" else
+            FIXED_ROWS[n_accum] if scheme == "fixed" else ROW_TILE)
     if R % ROW_TILE or tuple(taps.shape) != (P, R // rows, 2) \
             or taps.dtype != torch.int32:
         raise ValueError(f"taps {tuple(taps.shape)} {taps.dtype} for "
@@ -283,9 +350,10 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
         raise ValueError(f"no kernel for device {x.device}")
     lib = _build.load()
     if lib.tiled_fir_row_tile() != ROW_TILE \
-            or lib.f32_fir_sub_rows() != SUB_ROWS:
+            or lib.f32_fir_sub_rows() != SUB_ROWS \
+            or lib.fixed_fir_rows(n_accum) != FIXED_ROWS[n_accum]:
         raise RuntimeError("csrc/tiled_fir.cu tile sizes disagree with "
-                           "ROW_TILE / SUB_ROWS")
+                           "ROW_TILE / SUB_ROWS / FIXED_ROWS")
     H, B = hist.shape
     y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
     if y.numel() == 0:
@@ -300,9 +368,9 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
         elif scheme == "split5":
             err = lib.tiled_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
-            coef = w[1].data_ptr() if n_accum == 4 else None
-            err = lib.tiled_fir_fixed(*head, w[0].data_ptr(), coef, n_accum,
-                                      *geo)
+            coef = w[2].data_ptr() if n_accum == 4 else None
+            err = lib.tiled_fir_fixed(*head, w[0].data_ptr(), w[1].data_ptr(),
+                                      coef, n_accum, *geo)
         else:
             s = tuple(scales) + (0.0,) * (4 - len(scales))
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
@@ -340,10 +408,12 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     digit's integer dot ``sum w_d * (x - 128)`` in float64, exact because
     its magnitude stays below 2^31 (the certificate refuses planes where
     it would not), converted to int32, then the kernel's f32 epilogue in
-    the same order.  "fixed": the int16 x int16 dot of every weight column
-    in float64, exact (each product is at most 2^30 and every partial sum
-    an integer below 2^40, so any order gives the same number), wrapped to
-    int32 as the C accumulator wraps, then the Q15 epilogue in int32
+    the same order.  "fixed": the int16 taps rebuilt from the planes
+    (:func:`fixed_taps16`; the bias is the kernel's alone), then the int16
+    x int16 dot of every weight column in float64, exact (each product is
+    at most 2^30 and every partial sum an integer below 2^40, so any order
+    gives the same number), wrapped to int32 as the C accumulator wraps,
+    then the Q15 epilogue in int32
     (ops/fixed_math: SATURATE32PSHR for n_accum 1, the MULT16_32_Q15 cubic
     mix of the 4 accumulators for n_accum 4)."""
     P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales,
@@ -367,6 +437,8 @@ def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     axis ``hist ++ x ++ zeros`` from origin ``v0[k]`` and applies the
     weights of phase ``k % P``; int16[n_blocks * R, B] (see
     :func:`resample_tiled_reference` for the schemes' arithmetic)."""
+    if scheme == "fixed":
+        w = (fixed_taps16(w[0]), *w[2:])                # int16[P, K, C]
     P, K, R = w[0].shape[-3:]     # [P, K, R], [D|3, P, K, R] or [P, K, C]
     R //= n_accum
     n_blocks, B = v0.shape[0], hist.shape[1]

@@ -676,10 +676,10 @@ def weights_from_jax(w, scheme: str, device="cuda",
       read as bit patterns (numpy holds JAX's bf16 as ``ml_dtypes``);
     - "fixed", tiled or streamed: ``(planes int8[2, P, C, K], bias
       int32[P, C][, coef int32[P, 4, R]])`` (tiled) or planes int8[P, 2, C,
-      K_pad] (streamed).  The two int8 planes and the bias exist only for
-      the TPU's int8 MXU: the taps are rebuilt as int16 ``256*wh + wl0``,
-      transposed to the port's [P, K, C], and the bias is checked to be
-      ``128 * sum_K w`` and dropped;
+      K_pad] (streamed).  The bias is checked to be ``128 * sum_K w`` of
+      the int16 taps ``256*wh + wl0``, which then take the port's own
+      conversion (``tiled_fir.fixed_device_weights``: the same split, K
+      padded to a multiple of 32, each 32-tap group permuted);
     - "dense": f32 [L_pad, R] for "highest" (padded here to the port's
       R_pad columns); for "fixed" ``(wh int8[L_pad,
       C], wl0, bias int32[C][, coef int32[R, 4]])`` with columns c-minor

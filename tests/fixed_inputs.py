@@ -8,6 +8,7 @@ and chip_smoke.py.  Imports torch and the port only.
 import numpy as np
 
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
+from speex_resampler_tpu_torch.ops import tiled_fir as tf
 
 
 def block_origins(step) -> np.ndarray:
@@ -23,8 +24,10 @@ def block_origins(step) -> np.ndarray:
         return (k // off.shape[0]) * kw["S"] + off[k % off.shape[0]]
     if step.scheme == "int8":                     # [D, P, R, K]
         R = step.w[0].shape[-2]
-    else:                                         # [.., K, n_accum R]
-        R = step.w[0].shape[-1] // kw.get("n_accum", 1)
+    elif step.scheme == "fixed":                  # [2, P, n_accum R, K]
+        R = step.w[0].shape[-2] // kw["n_accum"]
+    else:                                         # [.., K, R]
+        R = step.w[0].shape[-1]
     return sf.origins(kw["n_blocks"], R, shift=kw["shift"], num=kw["num"],
                       den=kw["den"], f0=kw["f0"]).numpy()
 
@@ -55,7 +58,10 @@ def _wrap_window(step):
         o = int(np.flatnonzero(starts >= H)[0])
         c = int(np.abs(taps[o]).sum(axis=1).argmax())
         return starts[o] - H, taps[o, c]
-    w = step.w[0].cpu().numpy().astype(np.int64)
+    w = step.w[0]
+    if step.kernel != "dense":                    # int8 planes
+        w = tf.fixed_taps16(w)
+    w = w.cpu().numpy().astype(np.int64)
     w = w.reshape(-1, *w.shape[-2:])                      # [P, K, C]
     P = w.shape[0]
     v0 = block_origins(step)

@@ -179,7 +179,7 @@ def test_plain_streamed_matches_jax_v4(cfg, kernel, f0, B):
     jstep, tstep, tspec = _steps(cfg, f0, kernel)
     assert tstep.kernel == "streamed"
     assert tstep.kernel_kw["n_accum"] == (1 if cfg == DIRECT else 4)
-    assert tstep.w[0].shape[1] % 128 == 0            # K_pad
+    assert tstep.w[0].shape[-1] % 128 == 0           # K_pad
     _launch_matches_jax(jstep, tstep, tspec, B, seed=B + f0)
 
 
@@ -250,13 +250,14 @@ def test_fixed_geometry_equal(cfg):
                          ids=["44k1-48k-q7", "24k-48k-q5", "48k-44k1-q10"])
 def test_weights_from_jax_equal_port_weights(cfg, kernel):
     """JAX's int8 planes [2, P, C, K] (tiled) / [P, 2, C, K_pad] (streamed),
-    bias and coefficients -> the port's int16 [P, K, C] weights, coef and
-    tap table, equal to the port's own step; a wrong bias is refused."""
+    bias and coefficients -> the port's K-major planes [2, P, C, K_pad],
+    bias, coef and tap table, equal to the port's own step; a wrong bias
+    is refused."""
     jstep, tstep, _ = _steps(cfg, 0)
     assert tstep.kernel == kernel
     jw = tuple(np.asarray(a) for a in jstep.w)
     got = tb.weights_from_jax(jw, "fixed", device="cpu", kernel=kernel)
-    assert len(got) == len(tstep.w) == (2 if cfg == DIRECT else 3)
+    assert len(got) == len(tstep.w) == (3 if cfg == DIRECT else 4)
     for a, b in zip(got, tstep.w):
         assert a.dtype == b.dtype and torch.equal(a, b)
     bad = (jw[0], jw[1] + 1, *jw[2:])

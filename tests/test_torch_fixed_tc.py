@@ -1,0 +1,461 @@
+"""The fixed-point kernels' tensor-core layout, on the CPU.
+
+``csrc/fixed_wgmma.cuh`` runs the fixed scheme (the Q15 universe) of the
+tiled and streamed kernels on the int8 tensor cores, as the JAX package's
+``_dot_fixed`` runs it on the MXU: the int16 taps split as ``w = 256*wh +
+wl0`` (``balanced_q15_split``), x as ``256*xh + xl + 128`` (the bytes of
+``int8_wgmma.cuh``'s load_split), four int8 dots and a bias ``128 * sum
+w``.  The device planes are K-major, int8[2, P, C, K_pad], each 32-tap
+group permuted to the fragment's tap order (``tiled_fir.K_PERM``).
+Nothing here launches a kernel; the tests pin what the kernel assumes:
+
+- the four-pass identity with the bias equals the int16 dot mod 2^32, at
+  the realizable tap bound, for int16 extremes and for the wrap input
+  (``fixed_inputs.wrap_input``, an accumulator past 2^31);
+- the device planes of all three served fixed paths map back to the int16
+  weights (inverse permutation, zero padding), with the bias, coefficients
+  and the fixed CTA's tap table;
+- a NumPy model of the kernel's B-tile staging and accumulator register
+  map recovers each output's (lane, row, column set);
+- the plain versions on the new layout equal the JAX package's v3 / v4
+  ``scheme="fixed"`` kernels (interpret mode) bit for bit;
+- the port's planes built from the JAX package's
+  ``fixed_weight_planes_tiled`` output (``weights_from_jax``) equal its
+  own;
+- the wrapper guards, and CPU tensors never launch.
+
+The kernels themselves are held against the plain versions by
+tests/test_torch_gpu.py and chip_smoke.py on the card.
+"""
+
+import dataclasses
+import inspect
+import math
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from speex_resampler_tpu.ops import filter_design as jfd
+from speex_resampler_tpu.ops import pallas_fir as jpf
+from speex_resampler_tpu.parallel import batch as jb
+from speex_resampler_tpu_torch.ops import filter_design as tfd
+from speex_resampler_tpu_torch.ops import fixed_math as tfm
+from speex_resampler_tpu_torch.ops import phase as tph
+from speex_resampler_tpu_torch.ops import streamed_fir as tsf
+from speex_resampler_tpu_torch.ops import tiled_fir as ttf
+from speex_resampler_tpu_torch.parallel import batch as tb
+
+import fixed_inputs
+from fixed_inputs import launch_inputs
+
+torch.set_num_threads(1)
+
+CSRC = Path(tb.__file__).resolve().parent.parent / "csrc"
+U32 = 2 ** 32
+
+# (in, out, quality, target frames, geometry): the served fixed paths
+FLAGSHIP = (44100, 48000, 7, 2352, "tiled")      # n_accum 4, R 128, P 20
+SLICE = (48000, 44100, 10, 20480, "streamed")    # n_accum 4, P 147
+DIRECT = (24000, 48000, 5, 2560, "tiled")        # n_accum 1, R 256, P 1
+DIRECT_STREAMED = (24000, 48000, 5, 2560, "streamed")
+
+
+def _port_step(cfg, f0: int = 0):
+    i, o, q, target, kernel = cfg
+    g = math.gcd(i, o)
+    spec = tfd.design_filter(i // g, o // g, q, fixed_point=True)
+    bspec = dataclasses.replace(tb._launch_geometry(spec, target, f0=f0),
+                                kernel=kernel)
+    step = tb.make_batched_step(spec, bspec, device="cpu")
+    assert (step.kernel, step.scheme) == (kernel, "fixed")
+    return spec, bspec, step
+
+
+def _bytes(x: np.ndarray):
+    """load_split's bytes of int16 x: xh = the high byte, xl = the low byte
+    ^ 0x80, both as int8 (int64 here)."""
+    bits = x.astype(np.int16).view(np.uint16).astype(np.int64)
+    xh = (bits >> 8) - 256 * (bits >> 15)
+    xl = ((bits & 0xFF) ^ 0x80) - 256 * (((bits & 0xFF) ^ 0x80) >> 7)
+    return xh, xl
+
+
+def _kernel_sums(wh, wl0, bias, x):
+    """The kernel's accumulator: 65536*<wh, xh> + 256*(<wh, xl> + <wl0,
+    xh>) + <wl0, xl> + bias, mod 2^32 (uint32 as int64).  wh, wl0: [C, K]
+    in the planes' K order; bias [C]; x int16 [K, B] in the same order."""
+    xh, xl = _bytes(x)
+    wh, wl0 = wh.astype(np.int64), wl0.astype(np.int64)
+    acc = (65536 * (wh @ xh) + 256 * (wh @ xl + wl0 @ xh) + wl0 @ xl
+           + bias.astype(np.int64)[:, None])
+    return acc % U32
+
+
+def test_byte_split_is_the_jax_split():
+    """x = 256*xh + xl + 128 for every int16, with _dot_fixed's xh / xl."""
+    src = inspect.getsource(jpf._dot_fixed)
+    assert "xh = (u32 >> 8).astype(jnp.int8)" in src
+    assert "xl = ((u32 & 255) - 128).astype(jnp.int8)" in src
+    x = np.arange(-32768, 32768, dtype=np.int32).astype(np.int16)
+    xh, xl = _bytes(x)
+    assert np.array_equal(256 * xh + xl + 128, x.astype(np.int64))
+    u32 = jnp.asarray(x).astype(jnp.int32)
+    assert np.array_equal(xh, np.asarray((u32 >> 8).astype(jnp.int8)))
+    assert np.array_equal(xl, np.asarray(((u32 & 255) - 128)
+                                         .astype(jnp.int8)))
+
+
+@pytest.mark.parametrize("case", ["random", "extremes", "wrap"])
+def test_four_pass_identity_equals_int16_dot_mod_2_32(case):
+    """The four int8 dots plus the bias equal sum w*x mod 2^32 (the C
+    accumulator): random taps at the realizable bound |w| < 32639, x with
+    -32768, 0 and 32767 rows; and the served flagship's
+    own permuted planes and bias over the wrap input's window (its exact
+    accumulator passes 2^31)."""
+    rng = np.random.default_rng(7)
+    if case == "wrap":
+        _, bspec, step = _port_step(FLAGSHIP)
+        hist, x = launch_inputs(step, bspec.in_per_launch, 6, seed=1)
+        row0, taps = fixed_inputs._wrap_window(step)
+        planes, bias = step.w[0].numpy(), step.w[1].numpy()
+        v0 = fixed_inputs.block_origins(step)
+        k = int(np.flatnonzero(v0 >= step.hist_rows)[0])
+        m, K = k % planes.shape[1], planes.shape[3]
+        virt = np.concatenate([hist, x, np.zeros((K, 6), np.int16)])
+        window = virt[v0[k]:v0[k] + K]                           # tap order
+        w16 = ttf.fixed_taps16(step.w[0])[m].numpy().T           # [C, K]
+        col = int(np.abs(w16).sum(axis=1).argmax())
+        assert np.array_equal(w16[col, :taps.size], taps)
+        exact = w16.astype(np.int64) @ window.astype(np.int64)   # [C, B]
+        assert exact[col, 0] > 2 ** 31                           # wrap lane
+        got = _kernel_sums(planes[0, m], planes[1, m], bias[m],
+                           window[ttf.full_perm(K)])
+    else:
+        K, C, B = 96, 24, 16
+        w16 = rng.integers(-32638, 32639, (C, K)).astype(np.int16)
+        w16[0, :4] = (-32638, 32638, 0, -1)
+        x = rng.integers(-32768, 32768, (K, B), dtype=np.int16)
+        if case == "extremes":
+            x[::3], x[1::3] = -32768, 32767
+            x[2::5] = 0
+            w16[1] = np.where(x[:, 0] < 0, -32638, 32638)
+        wh, wl0, bias = tfm.balanced_q15_split(w16, tap_axis=1)
+        exact = w16.astype(np.int64) @ x.astype(np.int64)
+        assert np.abs(exact).max() > 2 ** 31
+        got = _kernel_sums(wh, wl0, bias, x)
+    assert np.array_equal(got, exact % U32)
+    wrapped = ttf.wrap_int32(torch.from_numpy(exact)).numpy()
+    assert np.array_equal(got.astype(np.uint32).view(np.int32), wrapped)
+
+
+@pytest.mark.parametrize("cfg", [FLAGSHIP, SLICE, DIRECT, DIRECT_STREAMED],
+                         ids=["tiled-44k1-48k-q7", "streamed-48k-44k1-q10",
+                              "tiled-24k-48k-q5", "streamed-24k-48k-q5"])
+def test_device_planes_map_back(cfg):
+    """The step's planes int8[2, P, C, K_pad] are the balanced split of the
+    int16 host weights (_fixed_host_weights) in permuted, zero-padded K
+    order; the bias is 128 * sum w; the tap table is the fixed CTA's."""
+    spec, bspec, step = _port_step(cfg)
+    n_accum = step.kernel_kw["n_accum"]
+    K = tb._tiled_weights(spec, 0).K
+    K_host = K if cfg[4] == "tiled" else -(-K // 128) * 128
+    host = tb._fixed_host_weights(spec, 0, K_host)
+    w16 = host[0]
+    P, _, C = w16.shape
+    planes, bias, taps = step.w[0], step.w[1], step.w[-1]
+    K_pad = planes.shape[3]
+    assert planes.dtype == torch.int8 and planes.shape[:3] == (2, P, C)
+    assert K_pad % 32 == 0 and K_host <= K_pad < K_host + 32
+    assert planes.is_contiguous() and planes.data_ptr() % 16 == 0
+    back = ttf.fixed_taps16(planes).numpy()
+    assert np.array_equal(back[:, :K_host], w16)
+    assert not back[:, K_host:].any()
+    ends = [0, P - 1]                                  # first, last phase
+    pl = planes.numpy()[:, ends]
+    wh, wl0, _ = tfm.balanced_q15_split(back[ends], tap_axis=1)  # tap order
+    j = 32 * (K_pad // 64) + 5                                 # a position
+    t = 32 * (j // 32) + ttf.K_PERM[j % 32]
+    assert np.array_equal(pl[0, :, :, j], wh[:, t, :])
+    assert np.array_equal(pl[1, :, :, j], wl0[:, t, :])
+    assert np.array_equal(bias.numpy(),
+                          w16.sum(axis=1, dtype=np.int32) << 7)
+    nonzero = (w16.reshape(P, K_host, n_accum, -1) != 0).any(axis=2)
+    rows = ttf.FIXED_ROWS[n_accum]
+    assert np.array_equal(taps.numpy(), ttf.tap_ranges(nonzero, rows))
+    assert taps.shape == (P, bspec.R // rows, 2)
+    if n_accum == 4:
+        assert np.array_equal(step.w[2].numpy(), host[1])
+
+
+# -- the kernel's B-tile staging and accumulator map, modelled -------------
+
+KK, SUB, THREADS = 32, 2, 256          # int8tc::kK, kSub; fir::kThreads
+
+
+def _fixed_shape(n_accum: int):
+    """(kWgRows, kRows, kN) of fixedtc::Shape<n_accum>."""
+    wg_rows = 16 if n_accum == 4 else 32
+    return wg_rows, 2 * wg_rows, wg_rows * n_accum
+
+
+def test_model_matches_the_header():
+    """The expressions the staging model below mirrors, as the headers
+    write them."""
+    fixed = (CSRC / "fixed_wgmma.cuh").read_text()
+    for line in ("kWgRows = kAccum == 4 ? 16 : 32;",
+                 "kRows = 2 * kWgRows;", "kN = kWgRows * kAccum;",
+                 "kPer = kAcc / kAccum;",
+                 "const int set = (n % Sh::kN) / Sh::kWgRows;",
+                 "const int row = row0 + (n / Sh::kN) * Sh::kWgRows + "
+                 "n % Sh::kWgRows;",
+                 "wdst[q] = (i / 2) % 2 * Sh::kTileBytes + "
+                 "int8tc::core_offset(n, i % 2);",
+                 "wt[q] = (i / 2) % 2 * kK + i % 2 * 16;",
+                 "const uint32_t b = buf + j * Sh::kTileBytes + "
+                 "h * (Sh::kN / 8) * 256;",
+                 "const int lane = 16 * w + l / 4 + 8 * ((e / 2) % 2);",
+                 "const int r = h * Sh::kWgRows + 8 * (e / 4) + "
+                 "2 * (l % 4) + e % 2;",
+                 "const int i = set * Sh::kPer + e;"):
+        assert line in fixed, line
+    int8 = (CSRC / "int8_wgmma.cuh").read_text()
+    assert "return (n / 8) * 256 + c * 128 + (n % 8) * 16;" in int8
+    assert "((uint64_t)(128 >> 4) << 16) |" in int8       # leading, K
+    assert "((uint64_t)(256 >> 4) << 32)" in int8         # stride, N
+    for n_accum in (1, 4):
+        assert ttf.FIXED_ROWS[n_accum] == _fixed_shape(n_accum)[1]
+
+
+def _core_offset(n, c):
+    return (n // 8) * 256 + c * 128 + (n % 8) * 16
+
+
+@pytest.mark.parametrize("n_accum", [1, 4])
+def test_fragment_model_recovers_lane_row_set(n_accum):
+    """One stage of the planes staged by every thread's copies, read back
+    as each warpgroup's B tile through the descriptor's core-matrix
+    layout (128 bytes between the two 16-tap halves, 256 between 8-row
+    groups), multiplied by an x slice as wgmma does; every accumulator
+    register, decoded as the epilogue decodes it (lane, CTA row, column
+    set), holds that output's dot, and the two warpgroups cover the
+    CTA's kRows x 64 lanes x n_accum sets once."""
+    wg_rows, rows, N = _fixed_shape(n_accum)
+    acc_regs = N // 2
+    per = acc_regs // n_accum
+    R, rt = 2 * rows, 1                        # the CTA's second row tile
+    C, row0 = n_accum * R, rt * rows
+    rng = np.random.default_rng(n_accum)
+    planes = rng.integers(-128, 128, (2, C, KK * SUB), dtype=np.int64)
+    tile_bytes = KK * 2 * N
+    smem = np.full(2 * SUB * tile_bytes, 999, dtype=np.int64)
+    for tid in range(THREADS):
+        for q in range(2 * N * SUB * 2 // THREADS):
+            i = tid + q * THREADS
+            n = i // 4
+            s = (n % N) // wg_rows
+            row = row0 + (n // N) * wg_rows + n % wg_rows
+            dst = (i // 2) % 2 * tile_bytes + _core_offset(n, i % 2)
+            t = (i // 2) % 2 * KK + i % 2 * 16
+            for p in range(2):
+                off = p * SUB * tile_bytes + dst
+                smem[off:off + 16] = planes[p, s * R + row, t:t + 16]
+    assert (smem != 999).all()
+    n_idx, k_idx = np.meshgrid(np.arange(N), np.arange(KK), indexing="ij")
+    read = (n_idx // 8) * 256 + (k_idx // 16) * 128 + (n_idx % 8) * 16 \
+        + k_idx % 16                                          # [N, KK]
+    seen = set()
+    for h in range(2):
+        for j in range(SUB):
+            for p in range(2):
+                base = p * SUB * tile_bytes + j * tile_bytes + h * (N // 8) \
+                    * 256
+                Bt = smem[base + read]                        # [N, KK]
+                A = rng.integers(-128, 128, (64, KK))         # lanes x K
+                D = A @ Bt.T                                  # [64, N]
+                for w in range(4):
+                    for l in range(32):
+                        for s in range(n_accum):
+                            for e in range(per):
+                                i = s * per + e
+                                got = D[16 * w + l // 4 + 8 * ((i // 2) % 2),
+                                        8 * (i // 4) + 2 * (l % 4) + i % 2]
+                                lane = 16 * w + l // 4 + 8 * ((e // 2) % 2)
+                                r = h * wg_rows + 8 * (e // 4) \
+                                    + 2 * (l % 4) + e % 2
+                                want = A[lane] @ planes[
+                                    p, s * R + row0 + r,
+                                    j * KK:(j + 1) * KK]
+                                assert got == want, (h, j, p, w, l, s, e)
+                                seen.add((lane, r, s))
+    assert len(seen) == 64 * rows * n_accum
+
+
+# -- plain versions against the JAX kernels ----------------------------------
+
+@pytest.mark.parametrize("cfg,f0,B", [(FLAGSHIP, "flush", 130),
+                                      (DIRECT, 1, 4),
+                                      (DIRECT_STREAMED, 0, 130)],
+                         ids=["tiled-n_accum4", "tiled-n_accum1",
+                              "streamed-n_accum1"])
+def test_plain_on_new_layout_equals_jax(cfg, f0, B):
+    """The JAX step's v3 / v4 fixed kernel (interpret mode) against the
+    port's plain version on the JAX step's weights carried across
+    (weights_from_jax, the new layout), the wrap input on every third
+    lane; f0 "flush": the phase a flush of 3368 staged frames leaves."""
+    i, o, q, target, kernel = cfg
+    g = math.gcd(i, o)
+    js = jfd.design_filter(i // g, o // g, q, fixed_point=True)
+    if f0 == "flush":
+        m = tph.producible_outputs(3368, 0, 0, js.num, js.den)
+        f0 = (m * js.num) % js.den
+    spec, bspec, tstep = _port_step(cfg, f0)
+    jspec = dataclasses.replace(
+        jb._launch_geometry(js, target, use_pallas=True, f0=f0),
+        kernel=kernel)
+    jstep = jb.make_batched_step(js, jspec, use_pallas=True,
+                                 pallas_interpret=True)
+    hist, x = launch_inputs(tstep, bspec.in_per_launch, B, seed=B + f0)
+    _, jy = jstep.fn(hist, x, jstep.w)
+    w = tb.weights_from_jax(tuple(np.asarray(a) for a in jstep.w), "fixed",
+                            device="cpu", kernel=kernel)
+    plain = (ttf.resample_tiled_reference if kernel == "tiled"
+             else tsf.resample_streamed_reference)
+    ty = plain(torch.from_numpy(hist), torch.from_numpy(x), w,
+               **tstep.kernel_kw)[:bspec.out_per_launch]
+    assert ty.shape == np.asarray(jy).shape
+    assert int((ty.numpy() != np.asarray(jy)).sum()) == 0
+
+
+def _random_fixed(P, K, R, n_accum, seed):
+    """Random int16 taps [P, K, n_accum * R] at the realizable bound |w| <
+    32639, zero outside a band per phase, and Q15 coefficients int32[P, 4,
+    R]."""
+    rng = np.random.default_rng(seed)
+    w16 = rng.integers(-32638, 32639, (P, K, n_accum * R)).astype(np.int16)
+    for m in range(P):
+        w16[m, :16 + 40 * m] = 0
+        w16[m, 16 + 40 * m + 150:] = 0
+    coef = rng.integers(-32768, 32768, (P, 4, R)).astype(np.int32)
+    return w16, coef
+
+
+@pytest.mark.parametrize("B", [4, 130])
+def test_plain_streamed_small_equals_jax_v4(B):
+    """n_accum 4 at a small streamed shape (P = 2, R 128, K_pad 256, 4
+    blocks 192 input rows apart, windows starting in the history), taps
+    at the realizable bound, int16 extremes in x: the JAX v4 fixed kernel
+    (interpret) and the port's plain version on weights_from_jax's
+    planes, bit for bit."""
+    P, K, R, n_blocks, H = 2, 256, 128, 4, 32
+    w16, coef = _random_fixed(P, K, R, 4, seed=B)
+    rng = np.random.default_rng(B + 1)
+    hist = rng.integers(-32768, 32768, (H, B), dtype=np.int16)
+    x = rng.integers(-32768, 32768, (832, B), dtype=np.int16)
+    x[::7] = -32768
+    x[3::11] = 32767
+    kw = dict(n_blocks=n_blocks, shift=8, num=3, den=2, f0=1)
+    planes, bias = jpf.fixed_weight_planes_tiled(w16)      # [2, P, C, K]
+    jax_w = (np.ascontiguousarray(planes.transpose(1, 0, 2, 3)), bias, coef)
+    jy = jpf.resample_conv_tm_pallas_v4(
+        jnp.asarray(hist), jnp.asarray(x),
+        tuple(jnp.asarray(a) for a in jax_w), interpret=True,
+        scheme="fixed", n_accum=4, **kw)
+    w = tb.weights_from_jax(jax_w, "fixed", device="cpu", kernel="streamed")
+    ty = tsf.resample_streamed_reference(torch.from_numpy(hist),
+                                         torch.from_numpy(x), w,
+                                         scheme="fixed", n_accum=4, **kw)
+    assert ty.shape == (n_blocks * R, B)
+    assert np.array_equal(ty.numpy(), np.asarray(jy))
+
+
+# -- weights carried across ----------------------------------------------------
+
+@pytest.mark.parametrize("kernel,n_accum", [("tiled", 4), ("tiled", 1),
+                                            ("streamed", 4),
+                                            ("streamed", 1)])
+def test_planes_from_jax_equal_port_planes(kernel, n_accum):
+    """fixed_weight_planes_tiled's planes and bias (K = 200, not a
+    multiple of 32; streamed: padded to 256 as the JAX package streams
+    them, [P, 2, C, K_pad]) through weights_from_jax equal the port's own
+    device weights of the same taps; undone (inverse permutation, the
+    padding cut), the port's planes are JAX's and its bias is JAX's."""
+    K = 200 if kernel == "tiled" else 256
+    w16, coef = _random_fixed(3, K, 64, n_accum, seed=n_accum)
+    if kernel == "streamed":
+        w16[:, 200:] = 0
+    planes, bias = jpf.fixed_weight_planes_tiled(w16)
+    jax_planes = planes if kernel == "tiled" else \
+        np.ascontiguousarray(planes.transpose(1, 0, 2, 3))
+    jax_w = (jax_planes, bias) + ((coef,) if n_accum == 4 else ())
+    got = tb.weights_from_jax(jax_w, "fixed", device="cpu", kernel=kernel)
+    own = ttf.device_weights((w16,) + ((coef,) if n_accum == 4 else ()),
+                             "fixed", "cpu")
+    assert len(got) == len(own) == (4 if n_accum == 4 else 3)
+    for a, b in zip(got, own):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    K_pad = got[0].shape[3]
+    inv = np.argsort(ttf.full_perm(K_pad))
+    assert np.array_equal(got[0].numpy()[..., inv][..., :K], planes)
+    assert not got[0].numpy()[..., inv][..., K:].any()
+    assert np.array_equal(got[1].numpy(), bias)
+
+
+# -- the wrappers' guards --------------------------------------------------------
+
+def _guard_launch(kernel):
+    """A launch of the fixed kernel (n_accum 4) on CPU tensors: the
+    wrapper, its plain version, the device weights and its keywords."""
+    if kernel == "tiled":
+        _, bspec, step = _port_step(FLAGSHIP)
+        hist, x = (torch.from_numpy(a) for a in
+                   launch_inputs(step, bspec.in_per_launch, 3, seed=0))
+        return (ttf.resample_tiled, ttf.resample_tiled_reference, hist, x,
+                step.w, step.kernel_kw, ttf.launches)
+    w16, coef = _random_fixed(2, 256, 64, 4, seed=3)
+    w = ttf.device_weights((w16, coef), "fixed", "cpu")
+    hist = torch.zeros((32, 4), dtype=torch.int16)
+    x = torch.randint(-32768, 32768, (1024, 4), dtype=torch.int16)
+    kw = dict(n_blocks=2, shift=8, num=3, den=2, f0=0, scheme="fixed",
+              n_accum=4)
+    return (tsf.resample_streamed, tsf.resample_streamed_reference, hist, x,
+            w, kw, tsf.launches)
+
+
+def _misaligned(t: torch.Tensor) -> torch.Tensor:
+    buf = torch.zeros(t.numel() + 1, dtype=t.dtype)
+    out = buf[1:].view(t.shape)
+    out.copy_(t)
+    assert out.is_contiguous() and out.data_ptr() % 16
+    return out
+
+
+@pytest.mark.parametrize("fault", ["none", "planes-int16", "bias-float",
+                                   "k-not-32", "misaligned", "coef-missing"])
+@pytest.mark.parametrize("kernel", ["tiled", "streamed"])
+def test_fixed_wrapper_guards(kernel, fault):
+    """Wrong dtypes, a K not a multiple of 32, planes off a 16-byte
+    boundary or a missing coefficient tensor raise before any launch;
+    sound CPU tensors run the plain version and never launch."""
+    launch, plain, hist, x, w, kw, launches = _guard_launch(kernel)
+    before = dict(launches)
+    if fault == "none":
+        y = launch(hist, x, w, **kw)
+        assert torch.equal(y, plain(hist, x, w, **kw))
+        assert launches == before
+        return
+    planes, bias, coef, taps = w
+    bad, err = {
+        "planes-int16": ((planes.to(torch.int16), bias, coef, taps),
+                         TypeError),
+        "bias-float": ((planes, bias.float(), coef, taps), TypeError),
+        "k-not-32": ((planes[..., :planes.shape[3] - 16].contiguous(), bias,
+                      coef, taps), ValueError),
+        "misaligned": ((_misaligned(planes), bias, coef, taps), ValueError),
+        "coef-missing": ((planes, bias, taps), ValueError),
+    }[fault]
+    with pytest.raises(err):
+        launch(hist, x, bad, **kw)
+    assert launches == before

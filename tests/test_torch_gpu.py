@@ -242,8 +242,10 @@ FIXED = [((44100, 48000, 7, 9408), "tiled", 4),
                          ids=["tiled-44k1-48k-q7", "tiled-24k-48k-q5",
                               "streamed-48k-44k1-q10", "streamed-24k-48k-q5"])
 def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
-    """Bit-identical (0 mismatches) at f0 = 0 and at the phase a flush
-    leaves, B = 2048 and 130, every third lane carrying the wrap input (an
+    """The int8 tensor-core kernels (csrc/fixed_wgmma.cuh): bit-identical
+    (0 mismatches) at f0 = 0 and at the phase a flush leaves, B = 2048,
+    130, 129 (x rows not 16-byte aligned: 2-byte loads) and 64 (one
+    64-lane CTA tile), every third lane carrying the wrap input (an
     accumulator past 2^31)."""
     i, o, q, _ = cfg
     spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
@@ -253,7 +255,8 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
         bspec, step = _fixed_step(cfg, f0, kernel)
         assert (step.kernel, step.scheme) == (kernel, "fixed")
         assert step.kernel_kw["n_accum"] == n_accum
-        for B in (2048, 130):
+        assert step.w[0].dtype == torch.int8 and step.w[0].shape[-1] % 32 == 0
+        for B in (2048, 130, 129, 64):
             hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
                 step, bspec.in_per_launch, B, seed=B + f0))
             launch = (ttf.resample_tiled if kernel == "tiled"
@@ -268,20 +271,29 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
             assert int((got != want).sum()) == 0
 
 
+@pytest.mark.parametrize("streams,channels", [(3, 2), (65, 2), (43, 3),
+                                              (32, 2)],
+                         ids=["B6", "B130", "B129", "B64"])
 @pytest.mark.parametrize("cfg", [(44100, 48000, 7, 2352),
-                                 (48000, 44100, 10, 20480)],
-                         ids=["44k1-48k-q7", "48k-44k1-q10"])
-def test_fixed_engine_cuda_matches_cpu(cuda, cfg):
+                                 (48000, 44100, 10, 20480),
+                                 (24000, 48000, 5, 2560)],
+                         ids=["44k1-48k-q7", "48k-44k1-q10", "24k-48k-q5"])
+def test_fixed_engine_cuda_matches_cpu(cuda, cfg, streams, channels):
     """fixed_point=True: process / flush / process on the card equals the
-    CPU engine bit for bit, every launch through the fixed kernel."""
+    CPU engine bit for bit, every launch through the fixed kernel, at B =
+    streams * channels lanes (130, 129 and 64 besides 6); one stream's
+    first channel carries full-scale +-32767 runs."""
     i, o, q, target = cfg
-    engines = [BatchedResampler(3, 2, i, o, q, device=d, fixed_point=True,
-                                target_chunk_frames=target)
+    engines = [BatchedResampler(streams, channels, i, o, q, device=d,
+                                fixed_point=True, target_chunk_frames=target)
                for d in ("cuda", "cpu")]
     module = ttf if engines[0].bspec.kernel == "tiled" else tsf
     rng = np.random.default_rng(5)
-    frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
+    frames = [rng.integers(-32768, 32768, (streams, n, channels),
+                           dtype=np.int16)
               for n in (2 * target + 500, 900, 3000)]
+    for f in frames:
+        f[0, :, 0] = np.where(np.arange(f.shape[1]) // 7 % 2, 32767, -32767)
     outs = []
     for eng in engines:
         before = module.launches["fixed"]

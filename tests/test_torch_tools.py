@@ -1,21 +1,30 @@
 """The kernel-variant machinery of the ablation tools, on the CPU.
 
-``tools/{f32,split5,dense,int8}_ablate.py`` build their variants
+``tools/{f32,split5,dense,int8,fixed}_ablate.py`` build their variants
 as text edits of a header of ``speex_resampler_tpu_torch/csrc/``
 (``tools/_variants.py``).  Every edit must still find its text in the
 header as it stands, or the tool fails on the card; and the loader pointed
 at an edited copy must name another library, so no stale build loads.
-Nothing here compiles or launches a kernel.
+The fixed tool's host-side helpers (the CUDA-core parent's weights, the
+edge inputs) run here on CPU tensors.  Nothing here compiles or launches a
+kernel.
 """
 
 import importlib
 import shutil
 
+import numpy as np
 import pytest
+import torch
 
 from speex_resampler_tpu_torch.ops import _build
+from speex_resampler_tpu_torch.ops import tiled_fir as ttf
+from speex_resampler_tpu_torch.parallel import batch as tb
 
-TOOLS = ["f32_ablate", "split5_ablate", "dense_ablate", "int8_ablate"]
+import fixed_inputs
+
+TOOLS = ["f32_ablate", "split5_ablate", "dense_ablate", "int8_ablate",
+         "fixed_ablate"]
 
 
 @pytest.mark.parametrize("tool", TOOLS)
@@ -58,7 +67,80 @@ def test_use_csrc_names_another_library(tmp_path):
         f32.unlink()
         _build.use_csrc(copy)
         assert [h.name for h in _build._HEADERS] == [
-            "fir_common.cuh", "split5_wgmma.cuh", "int8_wgmma.cuh"]
+            "fir_common.cuh", "split5_wgmma.cuh", "int8_wgmma.cuh",
+            "fixed_wgmma.cuh"]
     finally:
         _build.use_csrc(own)
     assert _build.lib_path() == name and _build._CSRC == own
+
+
+def _fixed_cpu_step(path, kernel=None):
+    """A chip_smoke fixed path's step at f0 = 0 on the CPU."""
+    import dataclasses
+    bspec = path.geometry(0)
+    if kernel is not None:
+        bspec = dataclasses.replace(bspec, kernel=kernel)
+    return bspec, tb.make_batched_step(path.spec, bspec, device="cpu")
+
+
+@pytest.mark.parametrize("which", ["flagship", "direct-streamed"])
+def test_fixed_ablate_parent_weights(which):
+    """The CUDA-core parent's weights: the int16 taps [P, K_pad, C] in tap
+    order (the host weights, zero-padded), the step's coefficients and a
+    64-row tap table over the column sets."""
+    fa = importlib.import_module("tools.fixed_ablate")
+    path, kernel = {"flagship": (fa.cs.FIXED_FLAGSHIP, None),
+                    "direct-streamed": (fa.cs.FIXED_DIRECT, "streamed")}[which]
+    bspec, step = _fixed_cpu_step(path, kernel)
+    w16, coef, taps = fa.parent_weights(step)
+    n_accum = step.kernel_kw["n_accum"]
+    ptw = tb._tiled_weights(path.spec, 0)
+    K = ptw.K if step.kernel == "tiled" else -(-ptw.K // 128) * 128
+    host = tb._fixed_host_weights(path.spec, 0, K)
+    assert w16.dtype == torch.int16
+    assert np.array_equal(w16.numpy()[:, :K], host[0])
+    assert not w16.numpy()[:, K:].any()
+    assert (coef is None) == (n_accum == 1)
+    if coef is not None:
+        assert torch.equal(coef, step.w[2])
+    P, _, C = host[0].shape
+    nonzero = (host[0].reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
+    assert np.array_equal(taps.numpy(), ttf.tap_ranges(nonzero))
+    assert taps.shape == (P, bspec.R // ttf.ROW_TILE, 2)
+
+
+@pytest.mark.parametrize("B", [130, 64])
+def test_fixed_ablate_edge_inputs(B):
+    """Lanes 0 mod 3 keep the wrap input (their accumulator past 2^31);
+    the others carry rows of -32768 and 32767 in the chunk and -32768
+    history rows."""
+    fa = importlib.import_module("tools.fixed_ablate")
+    bspec, step = _fixed_cpu_step(fa.cs.FIXED_FLAGSHIP)
+    n_in = bspec.in_per_launch
+    hist, x = fa.edge_inputs(step, n_in, B, seed=3, device="cpu")
+    base_h, base_x = fixed_inputs.launch_inputs(step, n_in, B, 3, wrap=True)
+    assert hist.device.type == x.device.type == "cpu"
+    assert np.array_equal(x.numpy()[:, 0::3], base_x[:, 0::3])
+    assert np.array_equal(hist.numpy()[:, 0::3], base_h[:, 0::3])
+    assert (x.numpy()[0:n_in:97, 1::3] == -32768).all()
+    assert (x.numpy()[1:n_in:89, 2::3] == 32767).all()
+    assert (hist.numpy()[::5, 1::3] == -32768).all()
+    assert not x.numpy()[n_in:].any()
+
+
+def test_fixed_ablate_stage_bytes():
+    """The stage-copy count of the flagship fixed launch, tile by tile: a
+    CTA per (block, 32-row tile, 64-lane tile), each copying ceil((t_hi -
+    floor32(t_lo)) / 64) stages of 16 KB of planes and 8 KB of x."""
+    fa = importlib.import_module("tools.fixed_ablate")
+    bspec, step = _fixed_cpu_step(fa.cs.FIXED_FLAGSHIP)
+    taps = step.w[-1].numpy()
+    n_blocks = step.kernel_kw["n_blocks"]
+    want = 0
+    for k in range(n_blocks):
+        for lo, hi in taps[k % taps.shape[0]]:
+            start = lo // 32 * 32
+            want += -(-(hi - start) // 64) if hi > start else 0
+    ctas, nbytes = fa.stage_bytes(step, B=130)
+    assert ctas == n_blocks * (bspec.R // 32) * 3
+    assert nbytes == want * 3 * (16384 + 8192)

@@ -1,0 +1,262 @@
+"""Variants of the fixed-point tensor-core kernels (K2d streamed, K1e / K1d
+tiled: ``{tiled,streamed}_fir_fixed_kernel<n_accum>``), timed and checked
+on one GPU.
+
+    python3 tools/fixed_ablate.py [--parent CSRC_DIR] [--only NAME ...]
+
+Builds the port's kernel library once per variant of
+``speex_resampler_tpu_torch/csrc/fixed_wgmma.cuh`` (a copy of ``csrc/``
+with the variant's text edits under ``build/fixed_variants/<name>/``,
+``tools/_variants.py``), then for each variant and each fixed launch of
+``chip_smoke.py`` (44.1 kHz -> 48 kHz q7 tiled, n_accum 4; 48 kHz -> 44.1
+kHz q10 streamed, n_accum 4; 24 kHz -> 48 kHz q5 tiled, n_accum 1, and its
+weights on the streamed kernel) prints the kernel's time at B = 2048,
+launches queued back to back and replayed from a CUDA graph
+(``chip_smoke.cuda_ms``), its share of the bound, the rate of its
+shared-memory stage copies (:func:`stage_bytes`), and the mismatch count
+against the plain version at f0 = 0 and after the path's flush, B = 2048,
+130, 129 (2-byte x loads) and 64, with the wrap input (an int32
+accumulator past 2^31) on every third lane and x = -32768 and 32767 rows on
+the others.  The variants:
+
+- ``as built``: 16 rows x 4 column sets a warpgroup at n_accum 4 (N = 64,
+  3 x 32 accumulator registers), 32 rows at n_accum 1, 64-lane CTAs,
+  copies 3 stages ahead (a ring of 5); 1 CTA an SM at n_accum 4, 2 (at
+  most 128 registers a thread) at n_accum 1;
+- ``1 CTA an SM``: = as built, 1 CTA an SM at n_accum 1 too;
+- ``2 CTAs an SM``: = as built, 2 CTAs an SM at n_accum 4 too (it spills),
+  with copies 2 stages ahead (a ring of 4), so two rings fit.
+
+With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
+too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
+``build/``); its fixed entry points (the CUDA-core kernels, int16 weights
+[P, K, C] in tap order and a 64-row tap table) are timed at the same
+launches and every variant is held against them: both take exact sums mod
+2^32 and the same Q15 epilogue, so 0 outputs may differ.
+
+Exits non-zero without a CUDA device, and after all variants have run if
+any output of one differed from the plain version or the parent.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import dataclasses
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT))
+
+import chip_smoke as cs  # noqa: E402
+import fixed_inputs  # noqa: E402  (tests/, put on the path by chip_smoke)
+from speex_resampler_tpu_torch.ops import _build  # noqa: E402
+from speex_resampler_tpu_torch.ops import tiled_fir as tf  # noqa: E402
+from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
+from tools import _variants  # noqa: E402
+
+HEADER = "fixed_wgmma.cuh"
+_MIN_BLOCKS = "kMinBlocks = kAccum == 1 ? 2 : 1;"
+#: name -> (edits of the header, edits of other sources, computes the
+#: function)
+VARIANTS = {
+    "as built": ({}, {}, True),
+    "1 CTA an SM": ({_MIN_BLOCKS: "kMinBlocks = 1;"}, {}, True),
+    "2 CTAs an SM": ({_MIN_BLOCKS: "kMinBlocks = 2;",
+                      "constexpr int kLead = 3;": "constexpr int kLead = 2;"},
+                     {}, True),
+}
+#: (chip_smoke path, geometry override)
+LAUNCHES = [(cs.FIXED_FLAGSHIP, None), (cs.FIXED_SLICE, None),
+            (cs.FIXED_DIRECT, None), (cs.FIXED_DIRECT, "streamed")]
+CHECK_LANES = (cs.LANES, 130, 129, 64)
+#: the parent's fixed entry points: (hist, x, y, [offsets,] taps, w, coef,
+#: n_accum, geometry ..., stream)
+_PARENT_SIGNATURES = {
+    "tiled_fir_fixed": (ctypes.c_int, [ctypes.c_void_p] * 7
+                        + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "streamed_fir_fixed": (ctypes.c_int, [ctypes.c_void_p] * 6
+                           + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
+}
+
+
+def _fixed(kernel: str) -> bool:
+    return "fixed" in kernel
+
+
+def edge_inputs(step, n_in: int, B: int, seed: int, device="cuda"):
+    """Launch inputs with the wrap input on every third lane (lane 0 mod 3,
+    ``fixed_inputs.launch_inputs``) and rows of -32768 and 32767 on the
+    other lanes, on ``device``."""
+    hist, x = fixed_inputs.launch_inputs(step, n_in, B, seed, wrap=True)
+    x[0:n_in:97, 1::3] = -32768
+    x[1:n_in:89, 2::3] = 32767
+    hist[::5, 1::3] = -32768
+    return torch.from_numpy(hist).to(device), torch.from_numpy(x).to(device)
+
+
+def stage_bytes(step, B: int = cs.LANES) -> tuple:
+    """(CTAs, bytes) of one launch's shared-memory stage copies at B lanes
+    in the shipped kernel (``csrc/fixed_wgmma.cuh``): each CTA walks its
+    tap table entry's band in 64-tap stages from t_lo rounded down to 32,
+    and a stage copies the two planes' [rows * n_accum x 64 taps] int8 and
+    x's [64 taps x 64 lanes] int16 (computed on the host, from the step's
+    tap table)."""
+    n_accum = step.kernel_kw["n_accum"]
+    rows = tf.FIXED_ROWS[n_accum]
+    taps = step.w[-1].cpu().numpy().astype(np.int64)        # [P, tiles, 2]
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    stages = np.where(hi > lo, -(-(hi - lo) // 64), 0).sum(axis=1)  # [P]
+    n_blocks = step.kernel_kw["n_blocks"]
+    lane_tiles = -(-B // 64)
+    per_stage = 2 * rows * n_accum * 64 + 64 * 64 * 2
+    walked = int(stages[np.arange(n_blocks) % taps.shape[0]].sum())
+    return (n_blocks * taps.shape[1] * lane_tiles,
+            walked * lane_tiles * per_stage)
+
+
+def parent_weights(step) -> tuple:
+    """The CUDA-core parent's weights for ``step``: int16[P, K, C] taps in
+    tap order (:func:`tiled_fir.fixed_taps16`), coef (n_accum 4) and its
+    64-row tap table."""
+    w16 = tf.fixed_taps16(step.w[0])
+    n_accum = step.kernel_kw["n_accum"]
+    P, K, C = w16.shape
+    nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(dim=2)
+    taps = torch.from_numpy(tf.tap_ranges(nonzero.cpu().numpy()))
+    taps = taps.to(w16.device)
+    return w16, (step.w[2] if n_accum == 4 else None), taps
+
+
+def parent_library(csrc: Path):
+    """The library of another checkout's ``csrc/``, with the argument
+    types of its fixed entry points."""
+    out = ROOT / "build" / "fixed_variants" / "parent" / "libfir.so"
+    shutil.rmtree(out.parent, ignore_errors=True)
+    _build.use_csrc(csrc)
+    _build.compile_library(out)
+    lib = ctypes.CDLL(str(out))
+    for name, (restype, argtypes) in _PARENT_SIGNATURES.items():
+        getattr(lib, name).restype = restype
+        getattr(lib, name).argtypes = argtypes
+    print(f"parent {csrc}: " + _variants.ptxas(out.parent, _fixed))
+    return lib
+
+
+def parent_launch(lib, hist, x, step, weights):
+    """The CUDA-core kernel on one launch: a function that launches it on
+    the current stream, and its output."""
+    w16, coef, taps = weights
+    kw = step.kernel_kw
+    P, K, C = w16.shape
+    n_accum = kw["n_accum"]
+    R = C // n_accum
+    H, B = hist.shape
+    y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
+                    device="cuda")
+    c = coef.data_ptr() if coef is not None else None
+
+    def run():
+        stream = torch.cuda.current_stream().cuda_stream
+        if step.kernel == "tiled":
+            err = lib.tiled_fir_fixed(
+                hist.data_ptr(), x.data_ptr(), y.data_ptr(),
+                kw["offsets"].data_ptr(), taps.data_ptr(), w16.data_ptr(), c,
+                n_accum, H, x.shape[0], B, R, K, P, kw["S"], kw["n_blocks"],
+                stream)
+        else:
+            err = lib.streamed_fir_fixed(
+                hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+                w16.data_ptr(), c, n_accum, H, x.shape[0], B, R, K, P,
+                kw["n_blocks"], kw["shift"], kw["num"], kw["den"], kw["f0"],
+                stream)
+        if err:
+            raise RuntimeError(f"parent kernel launch failed ({err})")
+    return run, y
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--parent", type=Path, default=None)
+    ap.add_argument("--only", nargs="*", default=None)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        sys.exit("fixed_ablate: no CUDA device")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"card: {smi}")
+    cases = []
+    for path, kernel in LAUNCHES:
+        for f0 in sorted({0, path.f0_flush}):
+            bspec = path.geometry(f0)
+            if kernel is not None:
+                bspec = dataclasses.replace(bspec, kernel=kernel)
+            step = tb.make_batched_step(path.spec, bspec, device="cuda")
+            assert step.scheme == "fixed" and step.kernel == bspec.kernel
+            n_accum = step.kernel_kw["n_accum"]
+            inputs = [edge_inputs(step, bspec.in_per_launch, B, seed=B + f0)
+                      for B in CHECK_LANES]
+            want = [cs.plain(h, x, step).cpu().numpy() for h, x in inputs]
+            bound = cs.launch_bound(path.spec, step, bspec, cs.LANES)
+            cases.append((f"{path.name} on {step.kernel} "
+                          f"({cs.kernel_name(step.kernel, 'fixed', n_accum)})"
+                          f" f0 {f0}", step, inputs, want, bound))
+    parent = None
+    if args.parent is not None:
+        lib = parent_library(args.parent)
+        parent = []
+        for label, step, inputs, _, _ in cases:
+            weights = parent_weights(step)
+            outs = []
+            for h, x in inputs:
+                run, y = parent_launch(lib, h, x, step, weights)
+                run()
+                torch.cuda.synchronize()
+                outs.append(y.cpu().numpy())
+            parent.append(outs)
+            run, _ = parent_launch(lib, *inputs[0], step, weights)
+            print(f"   parent, {label}: {cs.cuda_ms(run, 20):.4f} ms back "
+                  f"to back, graph {cs.cuda_ms(run, 20, mode='graph'):.4f} "
+                  f"ms at B = {cs.LANES}")
+            del weights
+    bad = []
+    for name, (edits, also, exact) in VARIANTS.items():
+        if args.only and name not in args.only:
+            continue
+        print(f"== {name}: " + _variants.build("fixed_variants", name, HEADER,
+                                               edits, _fixed, also))
+        for c, (label, step, inputs, want, bound) in enumerate(cases):
+            line = []
+            for b, ((h, x), w) in enumerate(zip(inputs, want)):
+                if not exact:
+                    break
+                got = cs.launch(h, x, step).cpu().numpy()
+                n = [int((got != w).sum())]
+                line.append(f"B={h.shape[1]} mismatches {n[0]}")
+                if parent is not None:
+                    n.append(int((got != parent[c][b]).sum()))
+                    line[-1] += f", vs parent {n[1]} differ"
+                if any(n):
+                    bad.append(f"{name}, {label}, B={h.shape[1]}")
+            h, x = inputs[0]
+            fn = lambda: cs.launch(h, x, step)  # noqa: E731
+            ms, graph_ms = cs.cuda_ms(fn, 20), cs.cuda_ms(fn, 20, mode="graph")
+            ctas, nbytes = stage_bytes(step)
+            line.append(f"{ms:.4f} ms back to back, graph {graph_ms:.4f} ms,"
+                        f" {bound[0] / ms:.3f} of the bound {bound[0]:.4f} ms"
+                        f"; {ctas} CTAs copy {nbytes / 1e9:.3f} GB of stages"
+                        f" (as built): {nbytes / ms / 1e9:.2f} TB/s")
+            print(f"   {name}, {label}: " + "; ".join(line))
+    if bad:
+        sys.exit("fixed_ablate: outputs differ: " + "; ".join(bad))
+
+
+if __name__ == "__main__":
+    main()
