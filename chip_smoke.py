@@ -38,8 +38,8 @@ replayed (the device's time alone: the wrapper's Python runs once, at
 capture), and one launch between two events (which also holds the
 wrapper's host call).  After the build it prints each kernel's registers
 and spills (``ptxas -v``) and the tensor-core instructions of the split5
-(HGMMA), streamed int8 and fixed (IGMMA) kernels' SASS (``cuobjdump``; a
-missing tool or a count of 0 fails the run).  Every phase raises on
+(HGMMA), int8 and fixed (IGMMA) kernels' SASS (``cuobjdump``; a missing
+tool or a count of 0 fails the run).  Every phase raises on
 failure (non-zero exit).  The last two lines of standard output are the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -245,13 +245,18 @@ def compare(got: np.ndarray, want: np.ndarray, scheme: str, what: str):
     return err, mism
 
 
-def card_inputs(step, n_in: int, B: int, seed: int, wrap: bool = False):
+def card_inputs(step, n_in: int, B: int, seed: int, wrap: bool = False,
+                edges: bool = False):
     """Random history and chunk on the card, zero past the chunk; with
     ``wrap``, every third lane drives one output's int32 accumulator past
-    2^31 (tests/fixed_inputs.py)."""
-    return tuple(torch.from_numpy(a).cuda()
-                 for a in fixed_inputs.launch_inputs(step, n_in, B, seed,
-                                                     wrap))
+    2^31 (tests/fixed_inputs.py); with ``edges``, one chunk row of -32768
+    and one of 32767 in every block's window and -32768 history rows."""
+    hist, x = fixed_inputs.launch_inputs(step, n_in, B, seed, wrap)
+    if edges:
+        x[0:n_in:97] = -32768
+        x[1:n_in:89] = 32767
+        hist[::5] = -32768
+    return torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
 
 
 def cuda_ms(fn, reps: int, warmup: int = 3, warm_ms: float = 25.0,
@@ -425,13 +430,17 @@ def library_call(step, bspec, hist, x, reps: int):
 
 
 def kernel_of(symbol: str) -> str:
-    """A kernel's name (with its template argument) from its mangled
-    symbol, else the symbol."""
-    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel)(ILi(\d+)E)?",
-                  symbol)
+    """A kernel's name (with its int and bool template arguments) from its
+    mangled symbol, else the symbol."""
+    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel)"
+                  r"(I((?:L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
-    return m.group(1) + (f"<{m.group(3)}>" if m.group(2) else "")
+    if not m.group(2):
+        return m.group(1)
+    args = [v if t == "i" else ("true" if v == "1" else "false")
+            for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def ptxas_props(log) -> dict:
@@ -461,7 +470,7 @@ def ptxas_report() -> None:
 
 def sass_check() -> None:
     """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
-    streamed int8 and fixed (IGMMA) kernel in the built library's SASS
+    int8 and fixed (IGMMA) kernel in the built library's SASS
     (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
     raises if the tool is missing or fails, or if one of them has none."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -482,7 +491,11 @@ def sass_check() -> None:
             counts[(name, op)] = counts.get((name, op), 0) + 1
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
-        (f"streamed_fir_int8_kernel<{d}>", "IGMMA") for d in (1, 2, 3, 4)] + [
+        (f"{name}<{d}{vec}>", "IGMMA") for d in (1, 2, 3, 4)
+        for name, vec in (("tiled_fir_int8_kernel", ", true"),
+                          ("tiled_fir_int8_kernel", ", false"),
+                          ("tiled_fir_int8_long_kernel", ""),
+                          ("streamed_fir_int8_kernel", ""))] + [
         (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
         for geo in ("tiled", "streamed") for n in (1, 4)]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
@@ -495,9 +508,10 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
     f0 0 and after the flush, B = 2048 and 130, and 129 for "highest",
     "int8" and "fixed" (x rows not 16-byte aligned: 2-byte loads), and 64
-    for "fixed" (one 64-lane CTA tile); fixed with the wrap input on every
-    third lane.  ``kernel`` overrides the geometry: "streamed"
-    feeds a tiled direct filter's weights to the streamed kernel."""
+    for "int8" and "fixed" (one 64-lane CTA tile); fixed with the wrap
+    input on every third lane, int8 with rows of -32768 and 32767.
+    ``kernel`` overrides the geometry: "streamed" feeds a tiled direct
+    filter's weights to the streamed kernel."""
     for scheme in schemes:
         for f0 in sorted({0, path.f0_flush}):
             bspec = path.geometry(f0)
@@ -509,11 +523,12 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
             n_accum = step.kernel_kw.get("n_accum", 1)
-            for B in (LANES, 130) + {"highest": (129,), "int8": (129,),
+            for B in (LANES, 130) + {"highest": (129,), "int8": (129, 64),
                                      "fixed": (129, 64)}.get(step.scheme,
                                                              ()):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
-                                      seed=B + f0, wrap=path.fixed)
+                                      seed=B + f0, wrap=path.fixed,
+                                      edges=step.scheme == "int8")
                 got = launch(hist, x, step)
                 want = plain(hist, x, step)
                 torch.cuda.synchronize()

@@ -1,25 +1,20 @@
 // Device code shared by the polyphase FIR kernels (tiled_fir.cu,
-// streamed_fir.cu, dense_fir.cu): the CTA tile, shared-memory staging, the
-// register-tile product and the epilogues.  Each kernel computes only
-// where its output block's patch starts on the virtual axis hist ++ x;
-// everything from there on is the shared device code, so the kernels give
-// the same sums in the same order.  Three schemes have their own product
-// and staging, in their own headers: "highest" (f32_fir.cuh, every
+// streamed_fir.cu, dense_fir.cu): the launch and CTA tile, the cp.async
+// helpers and the epilogues' arithmetic.  Each kernel computes only where
+// its output block's patch starts on the virtual axis hist ++ x; from there
+// on its scheme's header does the rest, the same for every geometry, so
+// the kernels give the same sums in the same order.  Each scheme has its
+// own product and staging: "highest" (f32_fir.cuh, CUDA cores, every
 // output one FMA chain in tap order; the tiled, streamed and dense
-// kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores) and, in the
-// streamed kernel, "int8" (int8_wgmma.cuh, int8 tensor cores), and
-// "fixed" (fixed_wgmma.cuh, int8 tensor cores; the tiled and streamed
-// kernels); they copy through the cp.async helpers below.  This file's own
-// product serves the tiled int8 kernel on the CUDA cores.
-//
-// A CTA owns a 64-row x 128-lane output tile of one block k (R rows, phase
-// m = k % P) and walks only the tap rows where its 64 weight columns are
-// nonzero (taps[m][row tile]).  Weights and patch rows are staged through
-// shared memory 16 taps at a time, and each thread keeps an 8-row x 4-lane
-// register tile: 32 multiply-adds per three 16-byte shared loads, the
-// weight loads broadcast across a warp.  Lanes are masked, so any B works
-// without padding (the tiled and streamed kernels' R is a multiple of
-// kRowTile).
+// kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores), "int8"
+// (int8_wgmma.cuh, int8 tensor cores; the streamed kernel streams the
+// digit planes with x, the tiled one keeps a row tile's planes in shared
+// memory across the output tiles that share them) and "fixed"
+// (fixed_wgmma.cuh, int8 tensor cores; tiled and streamed).  A CTA owns
+// output rows of one block k (R rows, phase m = k % P) and walks only the
+// tap rows where its weight columns are nonzero (taps[m][row tile]).
+// Lanes are masked, so any B works without padding (the tiled and
+// streamed kernels' R is a multiple of kRowTile).
 //
 // Epilogues match the TPU kernels exactly:
 //   highest: y = sum_t W[t,r] * float(x), f32 (FMA, no TF32), then WORD2INT
@@ -50,8 +45,7 @@
 //            then y = ((((d_1 + d_2) + d_3) + d_4) + d_5) with __fadd_rn and
 //            WORD2INT: the plain version's five matmuls in the same order.
 //            The products run on the bf16 tensor cores (split5_wgmma.cuh,
-//            with this file's Tile and word2int); the other schemes use
-//            this file's staging and register-tile product.
+//            with this file's Tile and word2int).
 //            (Fusing the pairs that share a weight plane, w_hi*x_hi +
 //            w_hi*x_lo = w_hi*x exactly, rounds each sum elsewhere: on the
 //            H100 it disagreed with the plain version on 5.4e-3 of the
@@ -66,9 +60,8 @@
 namespace fir {
 
 constexpr int kRowTile = 64;    // output rows of one block per CTA
-constexpr int kLaneTile = 128;  // lanes per CTA
-constexpr int kTapStage = 16;   // tap rows staged in shared memory per step
-constexpr int kThreads = 256;   // warp w: rows 8w..8w+7; its thread l: lanes 4l..4l+3
+constexpr int kLaneTile = 128;  // lanes per CTA (split5)
+constexpr int kThreads = 256;   // threads per CTA (f32_fir.cuh: f32::kThreads)
 
 struct Launch {
   const int16_t* hist;     // [H, B]
@@ -84,13 +77,6 @@ inline Launch make_launch(const void* hist, const void* x, void* y,
   return Launch{static_cast<const int16_t*>(hist), static_cast<const int16_t*>(x),
                 static_cast<int16_t*>(y), static_cast<const int32_t*>(taps),
                 H, T, B, R, K, P};
-}
-
-// Row v of the virtual axis hist ++ x; rows past the chunk read as zero.
-__device__ __forceinline__ int read_virtual(const Launch& g, int v, int lane) {
-  if (v < g.H) return g.hist[(size_t)v * g.B + lane];
-  v -= g.H;
-  return v < g.T ? g.x[(size_t)v * g.B + lane] : 0;
 }
 
 // -- asynchronous copies (split5_wgmma.cuh, f32_fir.cuh) ---------------------
@@ -159,132 +145,25 @@ __device__ __forceinline__ int16_t word2int(float v) {
 
 // Output tile (block k, row tile rt of `rows` rows, the taps table's, lane
 // tile lt of `lanes` lanes) whose patch starts at row v0 of the virtual
-// axis.  row() assumes rows == kRowTile.
+// axis.
 struct Tile {
-  int k, rt, m, v0, lane0, t_lo, t_hi, warp, tl;
+  int k, rt, m, v0, lane0, t_lo, t_hi;
   __device__ Tile(const Launch& g, int k_, int rt_, int lt, int v0_,
                   int lanes = kLaneTile, int rows = kRowTile)
       : k(k_), rt(rt_), m(k_ % g.P), v0(v0_), lane0(lt * lanes) {
     const int n_rt = g.R / rows;
     t_lo = g.taps[(m * n_rt + rt) * 2];
     t_hi = g.taps[(m * n_rt + rt) * 2 + 1];
-    warp = threadIdx.x / 32;
-    tl = threadIdx.x % 32;
-  }
-  __device__ int row(int a) const {  // block-local output row
-    return rt * kRowTile + warp * 8 + a;
   }
 };
 
-// Stage tap rows t0 .. t0+kTapStage-1 of the patch (as `shift + x`) and of
-// the kRowTile weight columns from wm (tap row t at wm + t * ld); rows at
-// or past t_hi and lanes past B stage as zero.
-template <typename Acc, typename WT>
-__device__ __forceinline__ void stage(const Launch& g, const Tile& c,
-                                      const WT* __restrict__ wm, int ld,
-                                      int t0, int shift, Acc (*xs)[kLaneTile],
-                                      Acc (*ws)[kRowTile]) {
-  for (int i = threadIdx.x; i < kTapStage * kLaneTile; i += kThreads) {
-    const int t = t0 + i / kLaneTile, lane = c.lane0 + i % kLaneTile;
-    xs[i / kLaneTile][i % kLaneTile] =
-        (t < c.t_hi && lane < g.B)
-            ? (Acc)(read_virtual(g, c.v0 + t, lane) + shift)
-            : (Acc)0;
-  }
-  for (int i = threadIdx.x; i < kTapStage * kRowTile; i += kThreads) {
-    const int t = t0 + i / kRowTile;
-    ws[i / kRowTile][i % kRowTile] =
-        t < c.t_hi ? (Acc)wm[(size_t)t * ld + i % kRowTile] : (Acc)0;
-  }
-}
-
-template <typename Acc> struct Vec4;
-template <> struct Vec4<float> { using type = float4; };
-template <> struct Vec4<int> { using type = int4; };
-
-// One 16-byte shared-memory load of four consecutive values.
-template <typename Acc>
-__device__ __forceinline__ void load4(Acc* dst, const Acc* src) {
-  const typename Vec4<Acc>::type v =
-      *reinterpret_cast<const typename Vec4<Acc>::type*>(src);
+// One 16-byte shared-memory load of four consecutive floats (f32_fir.cuh).
+__device__ __forceinline__ void load4(float* dst, const float* src) {
+  const float4 v = *reinterpret_cast<const float4*>(src);
   dst[0] = v.x;
   dst[1] = v.y;
   dst[2] = v.z;
   dst[3] = v.w;
-}
-
-// acc[a][b] += sum over the staged taps of ws[.][8*warp + a] * xs[.][4*tl + b]
-template <typename Acc>
-__device__ __forceinline__ void multiply_stage(const Tile& c,
-                                               Acc (*xs)[kLaneTile],
-                                               Acc (*ws)[kRowTile],
-                                               Acc (&acc)[8][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kTapStage; ++kk) {
-    Acc xr[4], wr[8];
-    load4(xr, &xs[kk][c.tl * 4]);
-    load4(wr, &ws[kk][c.warp * 8]);
-    load4(wr + 4, &ws[kk][c.warp * 8 + 4]);
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b) acc[a][b] += wr[a] * xr[b];
-  }
-}
-
-// Row a of this thread's register tile, its 4 lanes, as int16.
-__device__ __forceinline__ void store_i16(const Launch& g, const Tile& c,
-                                          int a, const int16_t (&v)[4]) {
-  int16_t* out = g.y + ((size_t)c.k * g.R + c.row(a)) * g.B;
-#pragma unroll
-  for (int b = 0; b < 4; ++b) {
-    const int lane = c.lane0 + c.tl * 4 + b;
-    if (lane < g.B) out[lane] = v[b];
-  }
-}
-
-__device__ __forceinline__ void store(const Launch& g, const Tile& c, int a,
-                                      const float (&v)[4]) {
-  int16_t q[4];
-#pragma unroll
-  for (int b = 0; b < 4; ++b) q[b] = word2int(v[b]);
-  store_i16(g, c, a, q);
-}
-
-// Scheme "int8": planes int8[D, P, K, R], bias f32[P, R], D <= 4 scales.
-__device__ __forceinline__ void fir_tile_int8(const Launch& g, const Tile& c,
-                                              const int8_t* __restrict__ planes,
-                                              const float* __restrict__ bias,
-                                              int D, float4 scales) {
-  __shared__ __align__(16) int xs[kTapStage][kLaneTile];
-  __shared__ __align__(16) int ws[kTapStage][kRowTile];
-  const float scale[4] = {scales.x, scales.y, scales.z, scales.w};
-  float acc[8][4] = {};
-  for (int d = 0; d < D; ++d) {
-    const int8_t* wm =
-        planes + ((size_t)d * g.P + c.m) * g.K * g.R + c.rt * kRowTile;
-    int iacc[8][4] = {};
-    for (int t0 = c.t_lo; t0 < c.t_hi; t0 += kTapStage) {
-      stage(g, c, wm, g.R, t0, -128, xs, ws);
-      __syncthreads();
-      multiply_stage(c, xs, ws, iacc);  // exact int32 multiply-add
-      __syncthreads();
-    }
-#pragma unroll
-    for (int a = 0; a < 8; ++a)
-#pragma unroll
-      for (int b = 0; b < 4; ++b)
-        acc[a][b] = __fadd_rn(acc[a][b],
-                              __fmul_rn(__int2float_rn(iacc[a][b]), scale[d]));
-  }
-#pragma unroll
-  for (int a = 0; a < 8; ++a) {
-    const float bias_r = bias[c.m * g.R + c.row(a)];
-    float v[4];
-#pragma unroll
-    for (int b = 0; b < 4; ++b) v[b] = __fadd_rn(acc[a][b], bias_r);
-    store(g, c, a, v);
-  }
 }
 
 // SATURATE32PSHR(s, 15, 32767) (fixed_generic.h:55-57): the low clamp is

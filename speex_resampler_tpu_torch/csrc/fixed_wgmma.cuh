@@ -88,25 +88,8 @@ struct Shape {
   static constexpr int kMinBlocks = kAccum == 1 ? 2 : 1;  // CTAs an SM
 };
 
-// d (+)= A . B, m64n64k32 s32 += s8 x s8 (m64n32k32: int8tc::mma).
+// d (+)= A . B: m64n32k32 and m64n64k32 s32 += s8 x s8.
 using int8tc::mma;
-__device__ __forceinline__ void mma(int (&d)[32], const uint32_t (&a)[4],
-                                    uint64_t b, int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
-      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
-      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
-        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
-        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
-        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
-        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
-        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
-        "+r"(d[30]), "+r"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
-}
 
 // The CTA's output tile (c: Shape::kRows rows of block k from row c.rt *
 // kRows, kLanes lanes from c.lane0; c built with those rows and lanes)

@@ -1,24 +1,28 @@
-// Scheme "int8" on Hopper's int8 tensor cores: the device function of
-// streamed_fir_int8_kernel (sm_90a only).  It takes a fir::Tile, so the
-// tiled int8 kernel can move onto it with a launcher change (its K must be
-// a multiple of 16 and its planes laid out as below).
+// Scheme "int8" on Hopper's int8 tensor cores (sm_90a only): the device
+// functions of streamed_fir_int8_kernel<kD> (fir_tile: one output tile a
+// CTA, the weights streamed with x; K2b) and of tiled_fir_int8_kernel<kD,
+// kVec> (fir_tile_resident: a row tile's digit planes held in shared
+// memory across the kGroup output tiles its CTA walks; K1b).  The tiled
+// launcher takes fir_tile with the tiled origin where a band does not
+// fit.
 //
 // It computes _dot_int8 (fir_common.cuh header): for digit d = 0..D-1 in
 // order, I_d = sum_t w_d[t, r] * (x - 128) exactly (mod 2^32), then
 // acc = __fadd_rn(acc, __fmul_rn(float(I_d), scale_d)), then
-// y = WORD2INT(__fadd_rn(acc, bias[m, r])): the CUDA-core kernel's and the
-// plain version's steps, so the bits are theirs.  x - 128 = 256*xh + xl,
-// xh = x >> 8 (the int16's high byte) and xl = (x & 255) - 128 (its low
-// byte with the top bit flipped), both int8; so I_d = 256*<w_d, xh> +
-// <w_d, xl>: two int8 dots a digit with exact int32 sums, combined in
-// uint32 (the wgmmas run without .satfinite, so their sums wrap as the
-// CUDA cores' do; signed overflow would be undefined in C++).
+// y = WORD2INT(__fadd_rn(acc, bias[m, r])): the plain version's steps, so
+// the bits are its own and the CUDA-core kernels' that came before.
+// x - 128 = 256*xh + xl, xh = x >> 8 (the int16's high byte) and xl =
+// (x & 255) - 128 (its low byte with the top bit flipped), both int8; so
+// I_d = 256*<w_d, xh> + <w_d, xl>: two int8 dots a digit with exact int32
+// sums, combined in uint32 (the wgmmas run without .satfinite, so their
+// sums wrap as the CUDA cores' do; signed overflow would be undefined in
+// C++).
 //
 // Product: wgmma.mma_async m64n32k32 .s32.s8.s8 with the lanes as M (64 a
 // warpgroup), kN = 32 tile rows as N, xh or xl the register operand A and
 // a digit plane's [32 taps x 32 rows] tile the shared-memory operand B.
 // 8-bit wgmma has no transposed operand, so B is K-major: the planes are
-// int8[D, P, R, K] (K bytes a row; ops/streamed_fir.py), staged as 8-row x
+// int8[D, P, R, K] (K bytes a row; ops/tiled_fir.py), staged as 8-row x
 // 16-byte core matrices without swizzle (rows 16 bytes apart, the two
 // 16-tap halves of a K-slice 128 bytes apart, 8-row groups 256 apart).
 //
@@ -31,10 +35,11 @@
 // 4t+j holds tap 8*(j/2) + 2t + j%2 (and 16 + that in the second half).
 // The sums are exact integers, so the order inside a 32-tap slice is free:
 // the host permutes each 32-tap group of the planes the same way
-// (streamed_fir.K_PERM), and every 32-tap group starts at a multiple of 32.
+// (tiled_fir.K_PERM), and every 32-tap group starts at a multiple of 32.
 //
-// Registers: 2*D dots need 2*D accumulators.  At m64n64 that is 256 int32
-// registers a thread for D = 4, which do not fit; so a warpgroup takes kN =
+// Registers (fir_tile): 2*D dots need 2*D accumulators.  At m64n64 that is
+// 256 int32 registers a thread for D = 4, which do not fit; so a warpgroup
+// takes kN =
 // 32 of the tile's 64 rows (16 registers a dot, 128 for D = 4) and every
 // digit is summed in one walk of the band, building each K-slice's xh / xl
 // fragments once for 2*D wgmmas.  A CTA is 64 rows x 64 lanes: the two
@@ -43,17 +48,43 @@
 // lanes) ran 3 % slower on the H100 for D = 4, what "auto" serves (1-3 %
 // faster for D = 3; PERF.md section 6).
 //
-// Pipeline (as split5_wgmma.cuh): a ring of kStages buffers of two 32-tap
-// K-slices, each the walk's digit tiles and the int16 x rows of the CTA's
-// lanes (rows padded by 16 bytes, so an ldmatrix's 8 rows fall in distinct
-// banks), filled by 16-byte cp.async kLead stages ahead, one group a
-// stage; a barrier a stage.  Each K-slice is one wgmma group; two fragment
-// sets let a slice's fragments be built while the previous slice's wgmmas
-// run.  Where B % 8 != 0 a thread loads its x chunk with 2-byte loads.
+// fir_tile's pipeline (as split5_wgmma.cuh): a ring of kStages buffers of
+// two 32-tap K-slices, each the walk's digit tiles and the int16 x rows of
+// the CTA's lanes (rows padded by 16 bytes, so an ldmatrix's 8 rows fall
+// in distinct banks), filled by 16-byte cp.async kLead stages ahead, one
+// group a stage; a barrier a stage.  Each K-slice is one wgmma group; two
+// fragment sets let a slice's fragments be built while the previous
+// slice's wgmmas run.  Where B % 8 != 0 a thread loads its x chunk with
+// 2-byte loads.  What bounds K2b: the tensor cores.  At 48 kHz -> 44.1 kHz
+// q10 (B = 2048) the tiles walk 13.4 G multiply-adds, 2*D int8 products
+// each: 0.11 ms at the 1,979 TOP/s peak for D = 4, against ~180 MB of
+// bytes, 0.055 ms.  Measured, its stage copies hold it (PERF.md).
 //
-// What bounds it: the tensor cores.  At 48 kHz -> 44.1 kHz q10 (B = 2048)
-// the tiles walk 13.4 G multiply-adds, 2*D int8 products each: 0.11 ms at
-// the 1,979 TOP/s peak for D = 4, against ~180 MB of bytes, 0.055 ms.
+// fir_tile_resident: the tiled geometry gives every block of one phase m
+// the same weights, so the n_blocks / P blocks x ceil(B / 64) lane tiles
+// of a (phase, 64-row tile) share one digit band.  A CTA owns one (m, row
+// tile) and kGroup of those output tiles (its work list): all its threads
+// copy the D digit bands once into shared memory, K-slice tile (d, i) at
+// (d * n_slices + i) * kTileBytes in the layout the descriptor reads, with
+// the row tile's biases.  Then its two warpgroups run on their own, each
+// with its own ring of kRing 64-tap x stages (a named barrier a stage, no
+// CTA barrier), so one warpgroup's epilogue, which drains its wgmmas,
+// overlaps the other's products, and each ring runs on across the
+// warpgroup's output tiles.  Where its 2*D accumulators fit (D <= 2, and
+// D = 3 with 16-byte x copies) a warpgroup takes whole tiles, all 64 rows
+// as N (m64n64k32: half the wgmmas of two 32-row halves, each x fragment
+// built once); else (D = 4, and D = 3 with 2-byte x loads) each takes 32
+// rows of every tile and copies the x it reads.  A stage's buffer is read
+// only by ldmatrix (the weights are the shared-memory operand, x the
+// register one), so a copy may refill the buffer of the stage before the
+// current one: kRing - 1 stages run ahead.  At 44.1 kHz -> 48 kHz q7 (B =
+// 2048, D = 3) a row tile's band spans at most 7 K-slices (42 KB of
+// planes) and 128 output tiles share it; the copies a tile fall from ~29
+// KB of x and 43 KB of planes (fir_tile) to ~29 KB + 43 / kGroup KB.  The
+// bound: the launch's 82 MB, 0.0245 ms at 3.35 TB/s; the products (3.90 G
+// band multiply-adds, 6 int8 products each) take 0.024 ms at the peak.
+// Measured (PERF.md section 6), the wgmmas at N = 32 and the per-tile
+// epilogue held the first, lockstep design, not the copies.
 //
 // Tap band: from t_lo rounded down to 32 until t_hi is covered, in whole
 // K-slices; the extra taps hold zero weights in that row tile (or are
@@ -82,6 +113,13 @@ constexpr int kRawBytes = kStageTaps * kRawPitch;
 constexpr int kStageBytes = (kWBytes + kRawBytes + 127) / 128 * 128;
 constexpr int kSmemBytes = kStages * kStageBytes + 128;
 constexpr int kAcc = kN / 2;                // accumulator registers a dot
+// fir_tile_resident: the output tiles a CTA walks (its work list), its
+// ring of x stage buffers (kRing - 1 stages ahead), its int16 output tile
+constexpr int kGroup = 8;
+constexpr int kRing = 4;
+constexpr int kRingLead = kRing - 1;
+constexpr int kOutBytes = kRowTile * kRawPitch;
+constexpr int kMaxSmem = 232448;            // a CTA's most on the H100
 
 static_assert(kThreads == 256 && kRowTile == 2 * kN,
               "two warpgroups a CTA, one a 32-row half");
@@ -117,6 +155,26 @@ __device__ __forceinline__ void mma(int (&d)[kAcc], const uint32_t (&a)[4],
         "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
         "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
         "+r"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A . B, m64n64k32: B [32 taps x 64 rows] (fixed_wgmma.cuh's
+// column sets; fir_tile_resident's whole row tile).
+__device__ __forceinline__ void mma(int (&d)[32], const uint32_t (&a)[4],
+                                    uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]),
+        "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]),
+        "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]),
+        "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]),
+        "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
@@ -162,6 +220,105 @@ __device__ __forceinline__ void load_split(uint32_t at, uint32_t (&xh)[4],
 
 __device__ __forceinline__ float pick(float4 s, int d) {
   return d == 0 ? s.x : d == 1 ? s.y : d == 2 ? s.z : s.w;
+}
+
+// Dynamic shared memory of a resident CTA whose band spans `slices`
+// K-slices of kD planes: the band, each warpgroup's ring and output tile,
+// the row tile's biases, alignment.
+template <int kD>
+__host__ __device__ constexpr int resident_smem(int slices) {
+  return kD * slices * kTileBytes + 2 * (kRing * kRawBytes + kOutBytes) +
+         kRowTile * 4 + 128;
+}
+
+// The epilogue of one output tile (64 rows from row rt * kRowTile of block
+// k, phase m; kLanes lanes from lane0): its rows r0 .. r0 + kWgN - 1 that
+// this warpgroup summed (kWgN/2 accumulator registers a dot), or, with
+// kCta, both warpgroups' halves of the tile (kWgN = 32, r0 = 32 * h).
+// Waits for the tile's wgmmas, takes each output's digit sums 256*h + l
+// (uint32) and the f32 steps in digit order, adds the bias, and sends the
+// int16 rows through `out` ([kRowTile][kRawPitch] bytes of shared memory
+// that no copy in flight writes) to 16-byte row stores.  The bias is
+// bias[m, rt * kRowTile + row] (kCta) or, for the resident CTA, the row
+// tile's 64 biases at bias_smem, read an output at a time, so at 192
+// accumulator registers none is held early.  Two barriers of
+// the threads that share `out` (the CTA, or the warpgroup: named barrier
+// 1 + h): before it is written (its last readers are done) and after.
+template <int kD, int kWgN, bool kCta>
+__device__ __forceinline__ void store_tile(const Launch& g, int k, int rt,
+                                           int m, int lane0, int r0,
+                                           int (&acc)[2 * kD][kWgN / 2],
+                                           const float* __restrict__ bias,
+                                           uint32_t bias_smem, float4 scales,
+                                           uint32_t out) {
+  constexpr int kRegs = kWgN / 2;
+  constexpr int kSharers = kCta ? kThreads : 128;
+  constexpr int kRows = kCta ? kRowTile : kWgN;   // rows the sharers store
+  const int tid = threadIdx.x, h = tid / 128;
+  const int w = (tid % 128) / 32, l = tid % 32;
+  auto sync = [&]() {
+    if (kCta)
+      __syncthreads();
+    else
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + h) : "memory");
+  };
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 2 * kD; ++j) pin(acc[j]);
+  sync();
+
+  // Accumulator register i of thread (warp w, lane l) of a warpgroup:
+  // lane 16w + l/4 + 8*((i/2)%2), row r0 + 8*(i/4) + 2*(l%4) + i%2.  An
+  // output at a time, so its 2*kD registers are free once it is stored.
+  const float* bias_m = bias + (size_t)m * g.R + rt * kRowTile;
+#pragma unroll
+  for (int i = 0; i < kRegs; ++i) {
+    float total = 0.0f;
+#pragma unroll
+    for (int d = 0; d < kD; ++d) {
+      const uint32_t sum =
+          256u * (uint32_t)acc[2 * d][i] + (uint32_t)acc[2 * d + 1][i];
+      total = __fadd_rn(total,
+                        __fmul_rn(__int2float_rn((int)sum), pick(scales, d)));
+    }
+    const int lane = 16 * w + l / 4 + 8 * ((i / 2) % 2);
+    const int row = r0 + 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    float b;
+    if (kCta)
+      b = bias_m[row];
+    else  // an ordered shared load: no bias is hoisted into a register
+      asm volatile("ld.shared.f32 %0, [%1];\n"
+                   : "=f"(b)
+                   : "r"(bias_smem + row * 4)
+                   : "memory");
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(out + row * kRawPitch +
+                                                   lane * 2),
+                 "h"(word2int(__fadd_rn(total, b)))
+                 : "memory");
+  }
+  sync();
+  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+  const int row0 = kCta ? 0 : r0;
+#pragma unroll
+  for (int r = 0; r < kRows * kLanes / 8 / kSharers; ++r) {
+    const int chunk = tid % kSharers + r * kSharers;
+    const int row = row0 + chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
+    const int lane = lane0 + cl;
+    if (rt * kRowTile + row >= g.R || lane >= g.B) continue;
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(out + row * kRawPitch + cl * 2)
+                 : "memory");
+    int16_t* dst = g.y + ((size_t)k * g.R + rt * kRowTile + row) * g.B + lane;
+    if (vec_y) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+    }
+  }
 }
 
 // The CTA's output tile (c: 64 rows of block k, kLanes lanes from
@@ -266,70 +423,186 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
     }
     stage_ready();
   }
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-#pragma unroll
-  for (int j = 0; j < 2 * kD; ++j) pin(acc[j]);
-  float total[kAcc];
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) total[i] = 0.0f;
-#pragma unroll
-  for (int d = 0; d < kD; ++d) {
-    const float scale = pick(scales, d);
-#pragma unroll
-    for (int i = 0; i < kAcc; ++i) {
-      const uint32_t sum =
-          256u * (uint32_t)acc[2 * d][i] + (uint32_t)acc[2 * d + 1][i];
-      total[i] = __fadd_rn(total[i],
-                           __fmul_rn(__int2float_rn((int)sum), scale));
-    }
-  }
-  // every warpgroup's wgmmas are done before the ring takes the output tile
-  __syncthreads();
+  // the first ring buffer takes the output tile: no copy is in flight
+  store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, acc, bias,
+                           0, scales, ring);
+}
 
-  // Accumulator register i of thread (warp w, lane l) of warpgroup h: lane
-  // 16w + l/4 + 8*((i/2)%2), row wg_row + 8*(i/4) + 2*(l%4) + i%2.
-  // The int16 results go through shared memory ([64 rows][kRawPitch], the
-  // first ring buffer, free after the last barrier) to 16-byte row stores.
-  const float* bias_m = bias + (size_t)c.m * g.R + c.rt * kRowTile;
-#pragma unroll
-  for (int i = 0; i < kAcc; ++i) {
-    const int lane = 16 * w + l / 4 + 8 * ((i / 2) % 2);
-    const int row = wg_row + 8 * (i / 4) + 2 * (l % 4) + i % 2;
-    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(ring + row * kRawPitch +
-                                                   lane * 2),
-                 "h"(word2int(__fadd_rn(total[i], bias_m[row])))
-                 : "memory");
-  }
-  __syncthreads();
-  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
-#pragma unroll
-  for (int r = 0; r < kRowTile * kLanes / 8 / kThreads; ++r) {
-    const int chunk = tid + r * kThreads;
-    const int row = chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
-    const int lane = c.lane0 + cl;
-    if (c.rt * kRowTile + row >= g.R || lane >= g.B) continue;
-    uint32_t v[4];
-    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-                 : "r"(ring + row * kRawPitch + cl * 2)
-                 : "memory");
-    int16_t* out = g.y + ((size_t)c.k * g.R + c.rt * kRowTile + row) * g.B +
-                   lane;
-    if (vec_y) {
-      *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
-    } else {
-#pragma unroll
-      for (int b = 0; b < 8; ++b)
-        if (lane + b < g.B) out[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+// Rows of a tile a resident warpgroup sums: all 64 (m64n64k32, 32
+// registers a dot) where its 2*kD accumulators fit beside the rest, else
+// 32.  At kD = 3 they fit (255 registers, no spill) only without the
+// 2-byte x path, whose eight loads are live beside them (kVec: every x
+// row 16-byte aligned, B % 8 == 0).
+template <int kD, bool kVec>
+__host__ __device__ constexpr int resident_rows() {
+  return kD <= 2 || (kD == 3 && kVec) ? kRowTile : kN;
+}
+
+// The resident CTA of phase m, row tile rt (64 rows): output tiles item0 ..
+// item0 + n_items - 1 of its work list, item i being block m + P * (i /
+// lane_tiles) (patch origin v_m + (i / lane_tiles) * S) and lane tile i %
+// lane_tiles (kLanes lanes).  All threads copy the band; then each
+// warpgroup runs on its own, with its own x ring, output buffer and named
+// barrier (1 + h), so one warpgroup's epilogue and waits overlap the
+// other's wgmmas: at 64 rows a warpgroup (resident_rows) warpgroup h
+// takes the items h, h + 2, ..., all rows; at 32 it takes every item,
+// rows 32h .. 32h + 31 (each warpgroup copies the x it reads).  kVec: x
+// rows by 16-byte cp.async (B % 8 == 0, hist and x 16-byte aligned), else
+// 2-byte loads.  Planes
+// int8[kD, P, R, K] (each 32-tap group permuted, above), bias f32[P, R],
+// the kD digit scales; the band spans at most max_slices K-slices in any
+// row tile (the host's, from the tap table; a longer band traps).  Launch
+// with kThreads threads and resident_smem<kD>(max_slices) bytes of dynamic
+// shared memory; K % 32 == 0 and the planes 16-byte aligned.
+template <int kD, bool kVec>
+__device__ __forceinline__ void fir_tile_resident(
+    const Launch& g, int m, int rt, int item0, int n_items, int lane_tiles,
+    int v_m, int S, const int8_t* __restrict__ planes,
+    const float* __restrict__ bias, float4 scales, int max_slices) {
+  static_assert(kD >= 1 && kD <= kMaxDigits, "digits");
+  static_assert(kRing >= 2, "a copy refills the previous stage's buffer");
+  constexpr int kWgN = resident_rows<kD, kVec>();
+  constexpr int kRegs = kWgN / 2;                  // registers a dot
+  constexpr bool kSplit = kWgN == kRowTile;        // tiles split by warpgroup
+  constexpr int kWgThreads = kThreads / 2;
+  extern __shared__ uint8_t int8_smem[];
+  const int tid = threadIdx.x, h = tid / kWgThreads;
+  const int wt = tid % kWgThreads, w = wt / 32, l = tid % 32;
+  const int r0 = kSplit ? 0 : h * kWgN;  // this warpgroup's first row
+  const int n_rt = g.R / kRowTile;
+  const int t_lo = g.taps[(m * n_rt + rt) * 2];
+  const int t_hi = g.taps[(m * n_rt + rt) * 2 + 1];
+  const int t_begin = t_lo & ~(kK - 1);
+  const int n_slices = t_hi > t_begin ? (t_hi - t_begin + kK - 1) / kK : 0;
+  if (n_slices > max_slices) __trap();
+  const int n_st = (n_slices + kSub - 1) / kSub;  // x stages an output tile
+  // this warpgroup's items: item0 + first + step * i, i < n_mine
+  const int first = kSplit ? h : 0, step = kSplit ? 2 : 1;
+  const int n_mine = kSplit ? (n_items - h + 1) / 2 : n_items;
+  const int n_total = n_mine * n_st;
+  const uint32_t band = (smem_addr(int8_smem) + 127) & ~127u;
+  const uint32_t rings = band + kD * max_slices * kTileBytes;
+  const uint32_t ring = rings + h * kRing * kRawBytes;
+  const uint32_t out = rings + 2 * kRing * kRawBytes + h * kOutBytes;
+  const uint32_t bias_smem = rings + 2 * (kRing * kRawBytes + kOutBytes);
+  // This thread's ldmatrix row (load_split).
+  const uint32_t frag = (8 * (l / 16) + l % 8) * kRawPitch +
+                        (16 * w + 8 * ((l / 8) % 2)) * 2;
+
+  // The band: digit d's [64 rows x 32 taps] tile of K-slice i at (d *
+  // n_slices + i) * kTileBytes; copy e takes 16-byte chunk cc of tile row
+  // n's band in plane d (neighbouring threads, neighbouring chunks).
+  auto copy_band = [&]() {
+    constexpr int kHalves = kK / 16;        // 16-byte chunks a K-slice row
+    const int per_row = kHalves * n_slices;
+    const size_t plane = (size_t)g.P * g.R * g.K;
+    const int8_t* src = planes + ((size_t)m * g.R + rt * kRowTile) * g.K;
+    for (int e = tid; e < kD * kRowTile * per_row; e += kThreads) {
+      const int cc = e % per_row, n = e / per_row % kRowTile;
+      const int d = e / (per_row * kRowTile);
+      const int t = t_begin + cc * 16;
+      const int bytes = min(max(g.K - t, 0), 16);
+      copy16(band + (d * n_slices + cc / kHalves) * kTileBytes +
+                 core_offset(n, cc % kHalves),
+             bytes ? src + d * plane + (size_t)n * g.K + t : planes, bytes);
     }
+  };
+  // stage q of this warpgroup's walk (its output tile q / n_st, that
+  // tile's stage q % n_st): one cp.async group, empty past the walk; the x
+  // rows of a K-slice past the band are not copied
+  auto copy_stage = [&](int q) {
+    if (q < n_total) {
+      const int item = item0 + first + step * (q / n_st), s = q % n_st;
+      const int v = v_m + item / lane_tiles * S + t_begin + s * kStageTaps;
+      const int lane0 = item % lane_tiles * kLanes;
+      const uint32_t buf = ring + q % kRing * kRawBytes;
+#pragma unroll
+      for (int r = 0; r < kStageTaps * kLanes / 8 / kWgThreads; ++r) {
+        const int i = wt + r * kWgThreads, tap = i / (kLanes / 8);
+        const int lane = (i % (kLanes / 8)) * 8;
+        if (s * kStageTaps + tap < n_slices * kK)
+          copy_x8(g, v + tap, lane0 + lane, kVec,
+                  buf + tap * kRawPitch + lane * 2, planes);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // this thread's copies of the next stage have landed; then the
+  // warpgroup's, visible to its ldmatrix.  The first wait also takes the
+  // band and the biases (in the first group): every thread's, fenced for
+  // the tensor cores (the async proxy), across the CTA.
+  auto stage_ready = [&](bool first_wait) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kRingLead - 1) : "memory");
+    if (first_wait) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(kWgThreads)
+                   : "memory");
+    }
+  };
+
+  int acc[2 * kD][kRegs];
+#pragma unroll
+  for (int j = 0; j < 2 * kD; ++j)
+#pragma unroll
+    for (int i = 0; i < kRegs; ++i) acc[j][i] = 0;
+  // the row tile's biases and band, and this warpgroup's first stages
+  if (tid < kRowTile / 4)
+    copy16(bias_smem + tid * 16,
+           bias + (size_t)m * g.R + rt * kRowTile + tid * 4, 16);
+  copy_band();
+#pragma unroll
+  for (int q = 0; q < kRingLead; ++q) copy_stage(q);
+  stage_ready(true);
+  uint32_t xh[2][4], xl[2][4];
+  const uint32_t w_row = band + (r0 / 8) * 256;
+#pragma unroll 1
+  for (int it = 0; it < n_mine; ++it) {
+#pragma unroll 1
+    for (int s = 0; s < n_st; ++s) {
+      const int q = it * n_st + s;
+      const uint32_t buf = ring + q % kRing * kRawBytes;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int slice = s * kSub + j;
+        // a tile's last stage stops at the band's end (uniform)
+        if (j > 0 && slice >= n_slices) break;
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        pin(xh[j]);
+        pin(xl[j]);
+        load_split(buf + j * kK * kRawPitch + frag, xh[j], xl[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int d = 0; d < kD; ++d) {
+          const uint64_t b =
+              descriptor(w_row + (d * n_slices + slice) * kTileBytes);
+          mma(acc[2 * d], xh[j], b, slice > 0);
+          mma(acc[2 * d + 1], xl[j], b, slice > 0);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the buffer of stage q - 1 takes stage q + kRingLead: every
+        // thread's ldmatrix of it ended before the last barrier
+        if (j == 0) copy_stage(q + kRingLead);
+      }
+      stage_ready(false);
+    }
+    // store_tile waits for every wgmma, so the next tile's first slice
+    // may rebuild fragment set 0 even after an odd band
+    const int item = item0 + first + step * it;
+    store_tile<kD, kWgN, false>(g, m + g.P * (item / lane_tiles), rt, m,
+                                item % lane_tiles * kLanes, r0, acc, bias,
+                                bias_smem, scales, out);
   }
 }
 
-// Lets an int8 kernel take kSmemBytes of dynamic shared memory.
+// Lets an int8 kernel take `bytes` of dynamic shared memory (fir_tile's
+// kSmemBytes by default; a resident kernel's launches differ by band, so
+// it takes kMaxSmem).
 template <typename Kernel>
-inline cudaError_t allow_smem(Kernel* kernel) {
+inline cudaError_t allow_smem(Kernel* kernel, int bytes = kSmemBytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              kSmemBytes);
+                              bytes);
 }
 
 }  // namespace int8tc

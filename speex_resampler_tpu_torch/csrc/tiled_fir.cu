@@ -15,22 +15,32 @@
 // v0+t from hist when v0+t < H, else from x.  Offsets are a device array,
 // so one compiled kernel serves every fractional phase f0 a flush rebuilds.
 //
-// What bounds it on the H100: the multiply-adds.  One flagship launch
-// (44.1k->48k q7, B = 2048) reads ~38 MB of real int16 rows and writes
-// 42 MB, ~25 us at 3.35 TB/s, but needs 2.7 G multiply-adds (filt_len 128
-// per output; 5.5 G over the dense K = 264): ~80 us at the 33.5 T FMA/s of
-// the CUDA cores in f32, and three int32 passes (D = 3 digit planes) at
-// half that rate under "int8".
-// The design (fir_common.cuh) therefore aims at the arithmetic, simply: a
-// CTA per 64-row x 128-lane output tile walks only the nonzero tap band of
+// What bounds it on the H100.  One flagship launch (44.1k->48k q7, B =
+// 2048) reads ~38 MB of real int16 rows and writes 42 MB, ~25 us at 3.35
+// TB/s; it needs 2.7 G multiply-adds (filt_len 128 per output; 5.5 G over
+// the dense K = 264): ~80 us at the 33.5 T FMA/s of the CUDA cores in f32,
+// 16 us at the int8 tensor cores' 1,979 TOP/s for the 2*D int8 products of
+// "int8" (D = 3).  Every scheme's CTA walks only the nonzero tap band of
 // its weight columns (a block's R outputs start ~R*num/den rows apart, so
-// one row tile needs filt_len + 64*num/den of the K taps, ~70% at the
-// flagship), staging 16 taps at a time through shared memory (a whole f32
-// [R, K] block is 135 KB at the flagship and more where R widens to 256,
-// so no block is assumed to fit).  The grid runs over (block, row tile)
-// fastest: the whole weight cycle is 2.7 MB and stays in L2.  Tensor-core
-// int8 MMA (wgmma / mma.sync), TMA staging and dp4a are left for later
-// work: this is the simple, exact first kernel.
+// one 64-row tile needs filt_len + 64*num/den of the K taps, ~70% at the
+// flagship).  The grid runs over (block, row tile) fastest, but for
+// "int8": the whole weight cycle is 2.7 MB and stays in L2.
+//
+// Scheme "int8" (K1b, what "auto" serves at the flagship; _kernel_v3 with
+// _dot_int8) runs on the int8 tensor cores (int8_wgmma.cuh): xh / xl as
+// the register operand, 2*D exact int32 dots in one walk of the band, the
+// f32 epilogue in digit order.  Its planes are K-major, int8[D, P, R,
+// K_pad] (K padded to a multiple of 32, each 32-tap group permuted; JAX's
+// are [D, P, K, R]).  Every block of phase m applies the same weights, so
+// tiled_fir_int8_kernel<D, kVec> gives a CTA one (phase, 64-row tile) and
+// kGroup of the n_blocks / P x ceil(B / 64) output tiles that share its
+// digit band: the band is copied into shared memory once, and only x
+// streams, each warpgroup through its own ring (int8tc::fir_tile_resident;
+// kVec: 16-byte x copies, where B % 8 == 0 and hist and x are 16-byte
+// aligned, else 2-byte loads).  Where a band does not fit its shared
+// memory (D x 64 rows x span bytes; the span is the host's, computed once
+// per step), tiled_fir_int8_long_kernel runs K2b's fir_tile with the tiled
+// origin, a CTA an output tile.
 //
 // Scheme "highest" (K1a) has its own product, shared with the streamed
 // kernel (f32_fir.cuh): a 3-stage cp.async ring of 16-tap stages, x
@@ -68,6 +78,7 @@
 #include "f32_fir.cuh"
 #include "fir_common.cuh"
 #include "fixed_wgmma.cuh"
+#include "int8_wgmma.cuh"
 #include "split5_wgmma.cuh"
 
 namespace {
@@ -97,11 +108,101 @@ tiled_fir_f32_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
                      (k / g.P) * S + offsets[k % g.P], g.R, w);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// grid P * (R / kRowTile) * groups, groups = ceil(n_periods * lane_tiles /
+// kGroup): CTA ((m * row_tiles + rt) * groups + group) takes items group *
+// kGroup .. of phase m's work list (int8tc::fir_tile_resident), so the
+// CTAs of one phase sit next to each other.  kVec: x rows 16-byte aligned.
+template <int kD, bool kVec>
+__global__ void __launch_bounds__(kThreads, 1)
 tiled_fir_int8_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
-                      int S, const int8_t* __restrict__ planes,
-                      const float* __restrict__ bias, int D, float4 scales) {
-  fir::fir_tile_int8(g, tiled_tile(g, offsets, S), planes, bias, D, scales);
+                      int S, int n_periods, int max_slices,
+                      const int8_t* __restrict__ planes,
+                      const float* __restrict__ bias, float4 scales) {
+  using fir::int8tc::kGroup;
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const int items = n_periods * lane_tiles;
+  const int groups = (items + kGroup - 1) / kGroup;
+  const int mr = blockIdx.x / groups, item0 = blockIdx.x % groups * kGroup;
+  const int m = mr / (g.R / kRowTile);
+  fir::int8tc::fir_tile_resident<kD, kVec>(
+      g, m, mr % (g.R / kRowTile), item0, min(kGroup, items - item0),
+      lane_tiles, offsets[m], S, planes, bias, scales, max_slices);
+}
+
+// Bands past the resident kernel's shared memory: a CTA per output tile,
+// grid (n_blocks * R / kRowTile, ceil(B / int8tc::kLanes)).
+template <int kD>
+__global__ void __launch_bounds__(kThreads, 1)
+tiled_fir_int8_long_kernel(fir::Launch g, const int32_t* __restrict__ offsets,
+                           int S, const int8_t* __restrict__ planes,
+                           const float* __restrict__ bias, float4 scales) {
+  const int row_tiles = g.R / kRowTile;
+  const int k = blockIdx.x / row_tiles;
+  fir::int8tc::fir_tile<kD>(
+      g,
+      fir::Tile(g, k, blockIdx.x % row_tiles, blockIdx.y,
+                (k / g.P) * S + offsets[k % g.P], fir::int8tc::kLanes),
+      planes, bias, scales);
+}
+
+// The most K-slices a resident kD-plane band may span.
+template <int kD>
+constexpr int resident_slices() {
+  using namespace fir::int8tc;
+  return (kMaxSmem - resident_smem<kD>(0)) / (kD * kTileBytes);
+}
+
+// Launches the resident kD-plane int8 kernel with 16-byte (kVec) or 2-byte
+// x copies (its shared memory set once a device).
+template <int kD, bool kVec>
+cudaError_t launch_resident(const fir::Launch& g, const int32_t* offsets,
+                            int S, const int8_t* planes, const float* bias,
+                            float4 scales, int max_slices, int n_blocks,
+                            cudaStream_t stream) {
+  using namespace fir::int8tc;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return allow_smem(tiled_fir_int8_kernel<kD, kVec>, kMaxSmem);
+  });
+  if (attr != cudaSuccess) return attr;
+  const int n_periods = n_blocks / g.P;
+  const int lane_tiles = (g.B + kLanes - 1) / kLanes;
+  const int groups = (n_periods * lane_tiles + kGroup - 1) / kGroup;
+  tiled_fir_int8_kernel<kD, kVec><<<g.P * (g.R / kRowTile) * groups, kThreads,
+                                    resident_smem<kD>(max_slices), stream>>>(
+      g, offsets, S, n_periods, max_slices, planes, bias, scales);
+  return cudaGetLastError();
+}
+
+// Launches the kD-plane int8 kernel: the resident one where a band of
+// max_slices K-slices fits, else the long one (each kernel's shared memory
+// set once a device).
+template <int kD>
+cudaError_t launch_int8(const fir::Launch& g, const int32_t* offsets, int S,
+                        const int8_t* planes, const float* bias,
+                        float4 scales, int max_slices, int n_blocks,
+                        cudaStream_t stream) {
+  using namespace fir::int8tc;
+  if (max_slices <= resident_slices<kD>()) {
+    const bool vec = g.B % 8 == 0 &&
+                     (reinterpret_cast<uintptr_t>(g.hist) |
+                      reinterpret_cast<uintptr_t>(g.x)) % 16 == 0;
+    return vec ? launch_resident<kD, true>(g, offsets, S, planes, bias,
+                                           scales, max_slices, n_blocks,
+                                           stream)
+               : launch_resident<kD, false>(g, offsets, S, planes, bias,
+                                            scales, max_slices, n_blocks,
+                                            stream);
+  }
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(
+      smem_set, [] { return allow_smem(tiled_fir_int8_long_kernel<kD>); });
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_blocks * (g.R / kRowTile),
+                  (g.B + kLanes - 1) / kLanes);
+  tiled_fir_int8_long_kernel<kD><<<grid, kThreads, kSmemBytes, stream>>>(
+      g, offsets, S, planes, bias, scales);
+  return cudaGetLastError();
 }
 
 // grid (n_blocks * R / Shape<kAccum>::kRows, ceil(B / int8tc::kLanes))
@@ -217,19 +318,40 @@ int tiled_fir_split5(const void* hist, const void* x, void* y,
   return static_cast<int>(cudaGetLastError());
 }
 
+// planes int8[D, P, R, K] (K % 32 == 0, each 32-tap group permuted:
+// int8_wgmma.cuh) and bias f32[P, R], 16-byte aligned; 1 <= D <= 4;
+// max_slices: the most 32-tap K-slices any row tile's band spans (from
+// its t_lo rounded down to 32; tiled_fir.band_slices).
 int tiled_fir_int8(const void* hist, const void* x, void* y,
                    const void* offsets, const void* taps, const void* planes,
                    const void* bias, int D, float s0, float s1, float s2,
-                   float s3, int H, int T, int B, int R, int K, int P, int S,
-                   int n_blocks, void* stream) {
+                   float s3, int max_slices, int H, int T, int B, int R,
+                   int K, int P, int S, int n_blocks, void* stream) {
   cudaGetLastError();
+  if ((reinterpret_cast<uintptr_t>(planes) |
+       reinterpret_cast<uintptr_t>(bias)) % 16 || K % 32)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  if (max_slices < 0 || max_slices > K / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  tiled_fir_int8_kernel<<<grid_of(n_blocks, R, B), kThreads, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      g, static_cast<const int32_t*>(offsets), S,
-      static_cast<const int8_t*>(planes), static_cast<const float*>(bias), D,
-      make_float4(s0, s1, s2, s3));
-  return static_cast<int>(cudaGetLastError());
+  const auto* off = static_cast<const int32_t*>(offsets);
+  const auto* p8 = static_cast<const int8_t*>(planes);
+  const auto* b32 = static_cast<const float*>(bias);
+  const float4 s = make_float4(s0, s1, s2, s3);
+  const auto st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (D == 4) err = launch_int8<4>(g, off, S, p8, b32, s, max_slices, n_blocks, st);
+  if (D == 3) err = launch_int8<3>(g, off, S, p8, b32, s, max_slices, n_blocks, st);
+  if (D == 2) err = launch_int8<2>(g, off, S, p8, b32, s, max_slices, n_blocks, st);
+  if (D == 1) err = launch_int8<1>(g, off, S, p8, b32, s, max_slices, n_blocks, st);
+  return static_cast<int>(err);
+}
+
+// The most K-slices a band may span for the resident int8 kernel with D
+// digit planes (0 for another D): longer bands take the long kernel.
+int tiled_fir_int8_max_slices(int D) {
+  return D == 1 ? resident_slices<1>() : D == 2 ? resident_slices<2>()
+       : D == 3 ? resident_slices<3>() : D == 4 ? resident_slices<4>() : 0;
 }
 
 // planes int8[2, P, n_accum * R, K] (K % 32 == 0, each 32-tap group

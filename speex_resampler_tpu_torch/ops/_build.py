@@ -41,7 +41,8 @@ _SIGNATURES = {
     "fixed_fir_rows": (_I, [_I]),
     "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
     "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
-    "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 8 + [_P]),
+    "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 9 + [_P]),
+    "tiled_fir_int8_max_slices": (_I, [_I]),
     "tiled_fir_fixed": (_I, [_P] * 8 + [_I] * 9 + [_P]),
     "tiled_fir_split5": (_I, [_P] * 6 + [_I] * 8 + [_P]),
     "streamed_fir_row_tile": (_I, []),

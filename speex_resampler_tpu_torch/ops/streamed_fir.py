@@ -25,8 +25,9 @@ kernel's layout but for "int8":
 - ``"int8"``: ``(planes int8[D, P, R, K_pad], bias f32[P, R], taps)``:
   K-major, as the int8 tensor cores read them (``csrc/int8_wgmma.cuh``),
   each 32-tap group in the fragment's tap order: position ``32*i + k``
-  holds tap ``32*i + K_PERM[k]`` (:func:`int8_k_major`,
-  :func:`int8_n_major`)
+  holds tap ``32*i + K_PERM[k]`` (``tiled_fir.int8_k_major``,
+  ``tiled_fir.int8_n_major``; the tiled planes' layout, without their
+  ``slices``)
 - ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], [coef
   int32[P, 4, R],] taps)``, C = n_accum * R accumulator-major columns,
   K-major and permuted as "int8"'s (``tiled_fir.fixed_device_weights``;
@@ -53,7 +54,7 @@ import torch
 
 from . import _build
 from . import tiled_fir as tf
-from .tiled_fir import K_PERM, full_perm
+from .tiled_fir import K_PERM, int8_k_major, int8_n_major
 
 __all__ = ["device_weights_streamed", "origins", "resample_streamed",
            "resample_streamed_reference", "K_PERM", "int8_k_major",
@@ -63,22 +64,6 @@ __all__ = ["device_weights_streamed", "origins", "resample_streamed",
 #: resample_streamed adds to it, once per launch.  Callers reset the counts
 #: to count one run.
 launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
-
-def int8_k_major(planes: np.ndarray) -> torch.Tensor:
-    """Host K-major int8[D, P, R, K] digit planes in tap order (K a
-    multiple of 32) -> the streamed kernel's permuted planes, a contiguous
-    CPU tensor: ``out[..., 32*i + k] = planes[..., 32*i + K_PERM[k]]``.
-    One gather; ``planes`` may be a strided view."""
-    return torch.from_numpy(np.ascontiguousarray(
-        np.take(planes, full_perm(planes.shape[3]), axis=3)))
-
-
-def int8_n_major(planes: torch.Tensor) -> torch.Tensor:
-    """The inverse of :func:`int8_k_major` and the transpose: int8[D, P, R,
-    K] K-major, permuted planes -> int8[D, P, K, R] in tap order."""
-    inv = torch.from_numpy(np.argsort(full_perm(planes.shape[3])))
-    return planes[..., inv.to(planes.device)].transpose(2, 3).contiguous()
-
 
 def device_weights_streamed(w, scheme: str, device, *,
                             k_major: bool = False) -> tuple:
@@ -110,8 +95,7 @@ def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
 
 def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
            n_accum):
-    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum,
-                              k_major=True)
+    P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum)
     if n_blocks <= 0 or n_blocks % P or shift < 0 or num <= 0 \
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "

@@ -14,7 +14,10 @@ Device weights (built once per step, never per launch; see
 :func:`device_weights`):
 
 - ``"highest"``: ``(w f32[P, K, R], bands int32[P, R // SUB_ROWS, 2])``
-- ``"int8"``: ``(planes int8[D, P, K, R], bias f32[P, R], taps)``
+- ``"int8"``: ``(planes int8[D, P, R, K_pad], bias f32[P, R], slices,
+  taps)``: K-major and permuted as the fixed planes (below), ``slices``
+  the most 32-tap K-slices a row tile's band spans (:func:`band_slices`,
+  a host int)
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
 - ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], coef
@@ -22,16 +25,20 @@ Device weights (built once per step, never per launch; see
   ``n_accum`` 1; C = n_accum * R columns, accumulator-major (column
   ``c*R + r``); :func:`fixed_device_weights`
 
-``w`` and the int8 and split5 planes keep the JAX package's ``[.., K, R]``
-layout (the TPU kernel transposed to ``[R, K]`` for the MXU; the CUDA
-kernels read R-wide tap rows, which that layout already gives).  The fixed
-planes are the JAX package's split of the int16 taps, ``w = 256*wh + wl0``
-(``fixed_math.balanced_q15_split``), with its bias ``128 * sum_t w``: the
-four int8 dots of ``_dot_fixed`` on the int8 tensor cores
-(``csrc/fixed_wgmma.cuh``).  They are K-major, ``K`` padded with zero taps
+``w`` and the split5 planes keep the JAX package's ``[.., K, R]`` layout
+(the TPU kernel transposed to ``[R, K]`` for the MXU; the CUDA kernels read
+R-wide tap rows, which that layout already gives).  The int8 and fixed
+planes are the int8 tensor cores' shared-memory operand
+(``csrc/int8_wgmma.cuh``, ``csrc/fixed_wgmma.cuh``), which 8-bit wgmma
+takes only K-major: int8[.., R or C, K_pad], ``K`` padded with zero taps
 to ``K_pad``, a multiple of 32, and each 32-tap group permuted to the
-kernel's fragment order: position ``32*i + k`` holds tap ``32*i +
-K_PERM[k]`` (:func:`fixed_taps16` maps them back).  ``taps[m, i] = (lo,
+kernels' fragment order: position ``32*i + k`` holds tap ``32*i +
+K_PERM[k]`` (:func:`int8_k_major`; :func:`int8_n_major` and
+:func:`fixed_taps16` map them back).  The int8 planes are the JAX
+package's digit planes; the fixed planes its split of the int16 taps,
+``w = 256*wh + wl0`` (``fixed_math.balanced_q15_split``), with its bias
+``128 * sum_t w``: the four int8 dots of ``_dot_fixed``.  Both tap tables
+are computed in tap order, before the permutation.  ``taps[m, i] = (lo,
 hi)`` is the range of tap rows in which weight columns ``[i*ROW_TILE,
 (i+1)*ROW_TILE)`` of phase m have a nonzero entry (in any of the
 ``n_accum`` components); the CUDA kernel skips the rest, which changes no
@@ -60,7 +67,8 @@ from .fixed_math import (balanced_q15_split, fixed_interp_mix_rows,
 
 __all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
            "tap_ranges", "f32_walk", "SUB_ROWS", "K_SLICE", "K_PERM",
-           "full_perm", "FIXED_ROWS", "fixed_device_weights", "fixed_taps16",
+           "full_perm", "int8_k_major", "int8_n_major", "band_slices",
+           "FIXED_ROWS", "fixed_device_weights", "fixed_taps16",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
 
@@ -92,6 +100,32 @@ def full_perm(K: int) -> np.ndarray:
     """K_PERM applied to every 32-tap group of K positions."""
     k = np.arange(K)
     return k // 32 * 32 + K_PERM[k % 32]
+
+
+def int8_k_major(planes: np.ndarray) -> torch.Tensor:
+    """Host K-major int8[D, P, R, K] digit planes in tap order (K a
+    multiple of 32) -> the int8 kernels' permuted planes, a contiguous
+    CPU tensor: ``out[..., 32*i + k] = planes[..., 32*i + K_PERM[k]]``.
+    One gather; ``planes`` may be a strided view."""
+    return torch.from_numpy(np.ascontiguousarray(
+        np.take(planes, full_perm(planes.shape[3]), axis=3)))
+
+
+def int8_n_major(planes: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`int8_k_major` and the transpose: int8[D, P, R,
+    K] K-major, permuted planes -> int8[D, P, K, R] in tap order."""
+    inv = torch.from_numpy(np.argsort(full_perm(planes.shape[3])))
+    return planes[..., inv.to(planes.device)].transpose(2, 3).contiguous()
+
+
+def band_slices(taps: np.ndarray) -> int:
+    """The most 32-tap K-slices any row tile's band spans, from its lo
+    rounded down to 32 up to its hi (0 for an all-zero table): the band
+    the resident int8 kernel (``csrc/int8_wgmma.cuh``) keeps in shared
+    memory, which picks it or the long kernel (``csrc/tiled_fir.cu``)."""
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    return int(np.where(hi > lo, -(-(hi - lo) // 32), 0).max(initial=0))
+
 
 #: Launches of each CUDA kernel in this process, by scheme; only
 #: resample_tiled adds to it, once per launch.  Callers reset the counts to
@@ -209,7 +243,8 @@ def fixed_taps16(planes: torch.Tensor) -> torch.Tensor:
 
 def device_weights(w, scheme: str, device) -> tuple:
     """Host weights -> the kernel's device weights (see module docstring).
-    ``w``: f32[P, K, R] for "highest", ``(planes, bias)`` for "int8",
+    ``w``: f32[P, K, R] for "highest", ``(planes int8[D, P, K, R], bias)``
+    for "int8" (K-major here, K padded to a multiple of 32),
     ``(w int16[P, K, C],)`` or ``(w, coef int32[P, 4, R])`` for "fixed"
     (``n_accum`` 1 or 4; :func:`fixed_device_weights`), the bf16[3, P, K,
     R] tensor of :func:`split5_weights` for "split5"."""
@@ -220,10 +255,13 @@ def device_weights(w, scheme: str, device) -> tuple:
     if scheme == "int8":
         planes, bias = (np.asarray(a) for a in w)
         assert planes.dtype == np.int8 and bias.dtype == np.float32
-        return (torch.from_numpy(planes.copy()).to(device),
-                torch.from_numpy(bias.copy()).to(device),
-                torch.from_numpy(tap_ranges((planes != 0).any(axis=0)))
-                .to(device))
+        K = planes.shape[2]
+        taps = tap_ranges((planes != 0).any(axis=0))      # tap order
+        kmaj = np.pad(planes.transpose(0, 1, 3, 2),
+                      ((0, 0),) * 3 + ((0, -K % 32),))
+        return (int8_k_major(kmaj).to(device),
+                torch.from_numpy(bias.copy()).to(device), band_slices(taps),
+                torch.from_numpy(taps).to(device))
     if scheme == "fixed":
         return fixed_device_weights(w, device)
     if scheme == "split5":
@@ -235,18 +273,16 @@ def device_weights(w, scheme: str, device) -> tuple:
     raise ValueError(f"unknown scheme {scheme!r}")
 
 
-def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
-                 k_major=False):
+def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
     """Validate one launch's buffers and device weights (``extra``: more
-    tensors that must share x's device and be contiguous; ``k_major``: the
-    int8 planes are the streamed kernel's int8[D, P, R, K], K a multiple of
-    32; the fixed planes are always K-major, K a multiple of 32, 16-byte
-    aligned); returns (P, K, R)."""
+    tensors that must share x's device and be contiguous; the int8 and
+    fixed planes are K-major, K a multiple of 32, and they and their bias
+    16-byte aligned); returns (P, K, R)."""
     if scheme not in ("highest", "int8", "fixed", "split5"):
         raise ValueError(f"unknown scheme {scheme!r}")
     if n_accum != 1 and (scheme != "fixed" or n_accum != 4):
         raise ValueError(f"n_accum {n_accum} under scheme {scheme!r}")
-    for t in (hist, *extra, *w):
+    for t in (hist, *extra, *(t for t in w if isinstance(t, torch.Tensor))):
         if t.device != x.device:
             raise ValueError(f"tensor on {t.device}, expected {x.device}")
         if not t.is_contiguous():
@@ -276,32 +312,27 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
             raise TypeError("fixed planes must be int8[2, P, n_accum * R, K]")
         _, P, C, K = planes.shape
         R = C // n_accum
-        if K % 32:
-            raise ValueError(f"K {K} of the fixed planes is not a multiple "
-                             "of 32")
-        if planes.data_ptr() % 16:
-            raise ValueError("fixed planes must be 16-byte aligned")
         if tuple(bias.shape) != (P, C) or bias.dtype != torch.int32:
             raise TypeError("fixed bias must be int32[P, n_accum * R]")
         if n_accum == 4 and (tuple(w[2].shape) != (P, 4, R)
                              or w[2].dtype != torch.int32):
             raise TypeError("fixed coefficients must be int32[P, 4, R]")
     else:
-        planes, bias, taps = w
+        planes, bias, taps = w[0], w[1], w[-1]
         if planes.dtype != torch.int8 or planes.ndim != 4:
-            raise TypeError("int8 planes must be int8[D, P, "
-                            + ("R, K]" if k_major else "K, R]"))
-        if k_major:
-            D, P, R, K = planes.shape
-            if K % 32:
-                raise ValueError(f"K {K} of K-major int8 planes is not a "
-                                 "multiple of 32")
-        else:
-            D, P, K, R = planes.shape
+            raise TypeError("int8 planes must be int8[D, P, R, K]")
+        D, P, R, K = planes.shape
         if tuple(bias.shape) != (P, R) or bias.dtype != torch.float32:
             raise TypeError("int8 bias must be f32[P, R]")
         if len(scales) != D or not 1 <= D <= 4:
             raise ValueError(f"{len(scales)} scales for {D} digit planes")
+    if scheme in ("int8", "fixed"):
+        if K % 32:
+            raise ValueError(f"K {K} of the {scheme} planes is not a "
+                             "multiple of 32")
+        if (planes.data_ptr() | bias.data_ptr()) % 16:
+            raise ValueError(f"{scheme} planes and bias must be 16-byte "
+                             "aligned")
     if scheme in ("highest", "split5") and scales:
         raise ValueError(f"scales {scales} under scheme {scheme!r}")
     rows = (SUB_ROWS if scheme == "highest" else
@@ -316,6 +347,10 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=(),
 def _check(hist, x, w, offsets, S, n_blocks, scheme, scales, n_accum):
     P, K, R = check_launch(hist, x, w, scheme, scales, n_accum,
                            extra=(offsets,))
+    if scheme == "int8" and (len(w) != 4 or type(w[2]) is not int
+                             or not 0 <= w[2] <= K // 32):
+        raise ValueError("tiled int8 weights must be (planes, bias, "
+                         "slices, taps), slices an int in [0, K / 32]")
     if offsets.dtype != torch.int32:
         raise TypeError("offsets must be int32")
     if tuple(offsets.shape) != (P,) or n_blocks % P or S <= 0:
@@ -374,7 +409,7 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
         else:
             s = tuple(scales) + (0.0,) * (4 - len(scales))
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
-                                     len(scales), *s, *geo)
+                                     len(scales), *s, w[2], *geo)
     if err:
         raise RuntimeError("tiled FIR kernel launch failed: "
                            + lib.tiled_fir_error_string(err).decode())
@@ -404,7 +439,8 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     five f32 matmuls (TF32 off) of bf16-valued operands of the JAX
     package's ``_dot_scheme``, w_hi*x_hi + w_hi*x_lo + w_mid*x_hi +
     w_mid*x_lo + w_lo*x_hi summed in that order (x_hi = bf16(x), x_lo = x -
-    x_hi, both exact), then WORD2INT.  "int8": each
+    x_hi, both exact), then WORD2INT.  "int8": the planes back in tap
+    order (:func:`int8_n_major`; the taps past K are zero), then each
     digit's integer dot ``sum w_d * (x - 128)`` in float64, exact because
     its magnitude stays below 2^31 (the certificate refuses planes where
     it would not), converted to int32, then the kernel's f32 epilogue in
@@ -420,6 +456,8 @@ def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                      n_accum)
     k = torch.arange(n_blocks, device=x.device)
     v0 = (k // P) * S + offsets.long()[k % P]
+    if scheme == "int8":
+        w = (int8_n_major(w[0]), w[1])
     return apply_weights(hist, x, w, v0, scheme, scales, n_accum)
 
 

@@ -441,7 +441,8 @@ _STEP_CACHE_MAX_BYTES = 256 * 1024 * 1024
 
 
 def _step_weight_bytes(step: BatchedStep) -> int:
-    return sum(t.numel() * t.element_size() for t in step.w)
+    return sum(t.numel() * t.element_size() for t in step.w
+               if isinstance(t, torch.Tensor))
 
 
 def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
@@ -666,12 +667,14 @@ def weights_from_jax(w, scheme: str, device="cuda",
     the arrays alone cannot tell:
 
     - "tiled": an f32 [P, K, R] array for "highest", the
-      ``(planes int8[D, P, K, R], bias)`` tuple for "int8";
+      ``(planes int8[D, P, K, R], bias)`` tuple for "int8" (laid out
+      K-major and permuted here, K padded to a multiple of 32:
+      ``tiled_fir.device_weights``);
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
       the port's [P, K_pad, R]; for "int8" P and D are swapped to the
       port's K-major [D, P, R, K_pad] and each 32-tap group permuted
-      (``streamed_fir.int8_k_major``);
+      (``tiled_fir.int8_k_major``);
     - "split5": bf16 [3, P, K, R] (tiled) or [P, 3, R, K_pad] (streamed),
       read as bit patterns (numpy holds JAX's bf16 as ``ml_dtypes``);
     - "fixed", tiled or streamed: ``(planes int8[2, P, C, K], bias

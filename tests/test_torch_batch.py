@@ -131,6 +131,9 @@ def test_weights_from_jax_equal_port_weights(scheme):
     got = tb.weights_from_jax(jw, scheme, device="cpu")
     assert len(got) == len(tstep.w)
     for a, b in zip(got, tstep.w):
+        if not isinstance(b, torch.Tensor):   # the int8 band span
+            assert type(a) is type(b) and a == b
+            continue
         assert a.dtype == b.dtype and torch.equal(a, b)
 
 

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from speex_resampler_tpu_torch import BatchedResampler
+from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import dense_fir as tdf
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
@@ -442,6 +443,16 @@ def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
         _compare(outs[0], outs[1], step.scheme)
 
 
+def _edge_inputs(step, n_in: int, B: int, seed: int):
+    """launch_inputs with rows of -32768 and 32767 in every window and
+    -32768 history rows, on the card."""
+    hist, x = launch_inputs(step, n_in, B, seed=seed, wrap=False)
+    x[0:n_in:97] = -32768
+    x[1:n_in:89] = 32767
+    hist[::5] = -32768
+    return torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+
+
 @pytest.mark.parametrize("scheme", ["auto", "int8"], ids=["D4", "D3"])
 def test_streamed_int8_edges_match_plain(cuda, scheme):
     """streamed_fir_int8_kernel (int8 tensor cores) at 48k->44.1k q10, D =
@@ -457,11 +468,7 @@ def test_streamed_int8_edges_match_plain(cuda, scheme):
         assert step.w[0].shape[0] == (4 if scheme == "auto" else 3)
         n_in = bspec.in_per_launch
         for B in (130, 129, 64):
-            hist, x = launch_inputs(step, n_in, B, seed=B + f0, wrap=False)
-            x[0:n_in:97] = -32768
-            x[1:n_in:89] = 32767
-            hist[::5] = -32768
-            hist, x = torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+            hist, x = _edge_inputs(step, n_in, B, B + f0)
             got = tsf.resample_streamed(hist, x, step.w, **step.kernel_kw)
             want = tsf.resample_streamed_reference(hist, x, step.w,
                                                    **step.kernel_kw)
@@ -469,22 +476,28 @@ def test_streamed_int8_edges_match_plain(cuda, scheme):
             assert int((got != want).sum()) == 0
 
 
-@pytest.mark.parametrize("kind", ["dense", "streamed-int8"])
+@pytest.mark.parametrize("kind", ["dense", "streamed-int8", "tiled-int8"])
 def test_graph_replay_equals_eager(cuda, kind):
-    """resample_dense (voip) and resample_streamed(scheme="int8") (48k ->
-    44.1k q10) captured in a CUDA graph: a replay equals the eager launch,
-    and after new inputs are copied into the captured buffers, a replay
-    equals the eager launch on them."""
+    """resample_dense (voip), resample_streamed(scheme="int8") (48k ->
+    44.1k q10) and resample_tiled(scheme="int8") (the flagship) captured in
+    a CUDA graph: a replay equals the eager launch, and after new inputs
+    are copied into the captured buffers, a replay equals the eager launch
+    on them."""
     if kind == "dense":
         spec = tfd.design_filter(147, 160, 3)
         bspec = tb._launch_geometry(spec, 4096, max_in_frames=882)
         launch = tdf.resample_dense
+    elif kind == "tiled-int8":
+        spec = tfd.design_filter(147, 160, 7)
+        bspec = tb._launch_geometry(spec, 9408)
+        launch = ttf.resample_tiled
     else:
         spec = tfd.design_filter(160, 147, 10)
         bspec = tb._launch_geometry(spec, 20480)
         launch = tsf.resample_streamed
     step = tb.make_batched_step(spec, bspec, device="cuda")
     assert step.kernel == kind.split("-")[0]
+    assert step.scheme == ("highest" if kind == "dense" else "int8")
     inputs = [[torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, 256, seed=s, wrap=False)] for s in (1, 2)]
     hist, x = inputs[0]
@@ -509,3 +522,146 @@ def test_graph_replay_equals_eager(cuda, kind):
     graph.replay()
     torch.cuda.synchronize()
     assert torch.equal(out, eager[1])
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_tiled_int8_digits_match_plain(cuda, D):
+    """tiled_fir_int8_kernel<D> (the resident band, int8 tensor cores) on
+    the flagship's weights decomposed into D digit planes
+    (``int8_weights(digits=D)``): 0 mismatches against the plain version
+    at f0 = 0 and at the phase a flush leaves, B = 2048, 130, 129 and 64,
+    with x = -32768 and 32767 rows; every band fits the resident kernel."""
+    spec = tfd.design_filter(147, 160, 7)
+    m = tph.producible_outputs(3368, 0, 0, spec.num, spec.den)
+    for f0 in (0, (m * spec.num) % spec.den):
+        bspec = tb._launch_geometry(spec, 9408, f0=f0)
+        base = tb.make_batched_step(spec, bspec, device="cuda",
+                                    scheme="highest")
+        planes, bias, scales, _ = ttf.int8_weights(
+            tb._tiled_weights(spec, f0).w, digits=D)
+        w = ttf.device_weights((planes, bias), "int8", "cuda")
+        assert w[2] <= _build.load().tiled_fir_int8_max_slices(D)
+        step = dataclasses.replace(base, w=w, scheme="int8", kernel_kw={
+            **base.kernel_kw, "scheme": "int8", "scales": scales})
+        for B in (2048, 130, 129, 64):
+            hist, x = _edge_inputs(step, bspec.in_per_launch, B, B + f0)
+            before = ttf.launches["int8"]
+            got = ttf.resample_tiled(hist, x, w, **step.kernel_kw)
+            want = ttf.resample_tiled_reference(hist, x, w, **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert ttf.launches["int8"] == before + 1
+            assert int((got != want).sum()) == 0
+
+
+def _synthetic_int8(D, P, K, R, bands, seed, amp):
+    """Random digit planes [D, P, K, R] of magnitude < amp, zero outside
+    bands[(m, row tile)] = (lo, hi) (int32 sums stay exact), as device
+    weights, with D scales."""
+    rng = np.random.default_rng(seed)
+    planes = rng.integers(-amp, amp, (D, P, K, R), dtype=np.int8)
+    for (m, rt), (lo, hi) in bands.items():
+        planes[:, m, :lo, rt * 64:(rt + 1) * 64] = 0
+        planes[:, m, hi:, rt * 64:(rt + 1) * 64] = 0
+    bias = (rng.standard_normal((P, R)) * 100).astype(np.float32)
+    scales = tuple(float(2.0 ** (8 * d - 31)) for d in range(D))
+    return ttf.device_weights((planes, bias), "int8", "cuda"), scales
+
+
+@pytest.mark.parametrize("case", ["long-D3", "long-D4", "resident-D1",
+                                  "resident-D4"])
+def test_tiled_int8_band_edges_match_plain(cuda, case):
+    """Synthetic tiled int8 launches.  "long": 1000-tap bands (33
+    K-slices) past the resident kernel's shared memory, so the launcher
+    takes tiled_fir_int8_long_kernel (int8tc::fir_tile with the tiled
+    origin).  "resident": an all-zero row tile, a band ending at K, odd
+    slice counts, bands of 1 to 8 K-slices.  0 mismatches against the
+    plain version at B = 2048, 130, 129 and 64."""
+    kind, D = case.split("-D")
+    D = int(D)
+    if kind == "long":
+        bands = {(m, rt): (16 + 40 * m + 7 * rt, 1016 + 40 * m + 7 * rt)
+                 for m in range(2) for rt in range(2)}
+        w, scales = _synthetic_int8(D, 2, 1280, 128, bands, D, amp=16)
+        P, S, n_blocks, H, T = 2, 256, 8, 1040, 2048
+        assert w[2] > _build.load().tiled_fir_int8_max_slices(D)
+    else:
+        bands = {(0, 0): (0, 0), (0, 1): (5, 70), (1, 0): (200, 256),
+                 (1, 1): (33, 250), (2, 0): (0, 256), (2, 1): (64, 96)}
+        w, scales = _synthetic_int8(D, 3, 256, 128, bands, 10 + D, amp=128)
+        P, S, n_blocks, H, T = 3, 200, 15, 256, 1200
+        assert w[2] <= _build.load().tiled_fir_int8_max_slices(D)
+    offsets = torch.arange(P, dtype=torch.int32, device="cuda") * 37
+    kw = dict(S=S, n_blocks=n_blocks, scheme="int8", scales=scales)
+    for B in (2048, 130, 129, 64):
+        rng = np.random.default_rng(B)
+        hist = torch.from_numpy(rng.integers(-32768, 32768, (H, B),
+                                             dtype=np.int16)).cuda()
+        x = torch.from_numpy(rng.integers(-32768, 32768, (T, B),
+                                          dtype=np.int16)).cuda()
+        before = ttf.launches["int8"]
+        got = ttf.resample_tiled(hist, x, w, offsets, **kw)
+        want = ttf.resample_tiled_reference(hist, x, w, offsets, **kw)
+        torch.cuda.synchronize()
+        assert ttf.launches["int8"] == before + 1
+        assert int((got != want).sum()) == 0
+
+
+def test_tiled_int8_launcher_guards(cuda):
+    """The C entry point refuses planes or bias off a 16-byte boundary or
+    K % 32 != 0 (cudaErrorMisalignedAddress) and a span past K / 32,
+    before any launch."""
+    spec = tfd.design_filter(147, 160, 7)
+    bspec = tb._launch_geometry(spec, 9408)
+    step = tb.make_batched_step(spec, bspec, device="cuda", scheme="int8")
+    planes, bias, slices, taps = step.w
+    kw = step.kernel_kw
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, 64, seed=1, wrap=False))
+    y = torch.empty((kw["n_blocks"] * bspec.R, 64), dtype=torch.int16,
+                    device="cuda")
+    lib = _build.load()
+    D, P, R, K = planes.shape
+    s = tuple(kw["scales"]) + (0.0,) * (4 - D)
+
+    def call(ptr, k, span, b=bias.data_ptr()):
+        return lib.tiled_fir_int8(
+            hist.data_ptr(), x.data_ptr(), y.data_ptr(),
+            kw["offsets"].data_ptr(), taps.data_ptr(), ptr, b, D, *s, span,
+            hist.shape[0], x.shape[0], 64, R, k, P, kw["S"], kw["n_blocks"],
+            torch.cuda.current_stream().cuda_stream)
+    for err in (call(planes.data_ptr() + 4, K, slices),
+                call(planes.data_ptr(), K - 16, slices),
+                call(planes.data_ptr(), K, slices, bias.data_ptr() + 4)):
+        assert b"misaligned" in lib.tiled_fir_error_string(err)
+    assert call(planes.data_ptr(), K, K // 32 + 1) != 0
+    assert call(planes.data_ptr(), K, slices) == 0
+    torch.cuda.synchronize()
+    want = ttf.resample_tiled_reference(hist, x, step.w, **kw)
+    assert torch.equal(y, want)
+
+
+@pytest.mark.parametrize("streams,channels", [(65, 2), (43, 3), (32, 2)],
+                         ids=["B130", "B129", "B64"])
+def test_tiled_int8_engine_cuda_matches_cpu(cuda, streams, channels):
+    """The flagship engine ("auto" = int8, D = 3): process / flush /
+    process on the card equals the CPU engine bit for bit, every launch
+    through the tiled int8 kernel."""
+    engines = [BatchedResampler(streams, channels, 44100, 48000, 7,
+                                device=d, target_chunk_frames=2352)
+               for d in ("cuda", "cpu")]
+    rng = np.random.default_rng(7)
+    frames = [rng.integers(-32768, 32768, (streams, n, channels),
+                           dtype=np.int16) for n in (5200, 900, 3000)]
+    for f in frames:
+        f[0, :, 0] = np.where(np.arange(f.shape[1]) // 7 % 2, 32767, -32768)
+    outs = []
+    for eng in engines:
+        before = ttf.launches["int8"]
+        got = [eng.process(frames[0]), eng.process(frames[1]), eng.flush(),
+               eng.process(frames[2]), eng.flush()]
+        outs.append(np.concatenate(got, axis=1))
+        n = ttf.launches["int8"] - before
+        assert n == (eng.launches if eng.device.type == "cuda" else 0)
+    assert engines[0]._step.scheme == "int8"
+    assert engines[0].launches == engines[1].launches > 2
+    assert np.array_equal(outs[0], outs[1])

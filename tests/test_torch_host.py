@@ -126,8 +126,10 @@ def test_latency_cap_requantizes_streamed_like_jax(cfg):
 @pytest.mark.parametrize("cfg", TILED)
 def test_step_contract_and_int8_planes_equal(cfg):
     """hist_rows / chunk_rows / zero_tail of the built steps, the int8
-    planes, bias, scales and certificate for 3 and 4 digits, and the
-    digit count "auto" resolves (D=3, or 4 for the q10 filters)."""
+    planes (the port's K-major, permuted device planes mapped back to tap
+    order, their taps past K zero), bias, scales and certificate for 3 and
+    4 digits, and the digit count "auto" resolves (D=3, or 4 for the q10
+    filters)."""
     js, ts = _specs(cfg)
     jspec = jb._launch_geometry(js, 9408, use_pallas=True)
     tspec = tb._launch_geometry(ts, 9408)
@@ -136,7 +138,12 @@ def test_step_contract_and_int8_planes_equal(cfg):
     tstep = tb.make_batched_step(ts, tspec, device="cpu", scheme="int8")
     for f in ("hist_rows", "chunk_rows", "zero_tail", "scheme"):
         assert getattr(jstep, f) == getattr(tstep, f), f
-    assert np.array_equal(np.asarray(jstep.w[0]), tstep.w[0].numpy())
+    jplanes = np.asarray(jstep.w[0])
+    back = ttf.int8_n_major(tstep.w[0]).numpy()
+    K = jplanes.shape[2]
+    assert back.shape[2] == -(-K // 32) * 32
+    assert np.array_equal(back[:, :, :K], jplanes)
+    assert not back[:, :, K:].any()
     assert np.array_equal(np.asarray(jstep.w[1]), tstep.w[1].numpy())
 
     w = tb._tiled_weights(ts, 0).w

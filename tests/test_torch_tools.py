@@ -144,3 +144,33 @@ def test_fixed_ablate_stage_bytes():
     ctas, nbytes = fa.stage_bytes(step, B=130)
     assert ctas == n_blocks * (bspec.R // 32) * 3
     assert nbytes == want * 3 * (16384 + 8192)
+
+
+@pytest.mark.parametrize("B,group", [(2048, 8), (136, 4), (2048, 1)])
+def test_int8_ablate_stage_bytes(B, group):
+    """The tiled flagship int8 launch's shared-memory copies, CTA by CTA:
+    each (phase, 64-row tile) has ceil(n_periods * lane tiles / group)
+    CTAs, each copying its D digit bands once (64 rows x 32 bytes a
+    K-slice from t_lo rounded down to 32) and, for each of its output
+    tiles, those K-slices' x rows (32 taps x 64 lanes x 2 bytes)."""
+    ia = importlib.import_module("tools.int8_ablate")
+    spec = ia.fd.design_filter(147, 160, 7)
+    bspec = tb._launch_geometry(spec, 9408)
+    step = tb.make_batched_step(spec, bspec, device="cpu")
+    assert step.scheme == "int8"
+    D = step.w[0].shape[0]
+    taps = step.w[-1].numpy()
+    lane_tiles = -(-B // 64)
+    items = bspec.n_blocks // bspec.P * lane_tiles
+    want_ctas = want_bytes = 0
+    for m in range(bspec.P):
+        for lo, hi in taps[m]:
+            start = lo // 32 * 32
+            slices = -(-(hi - start) // 32) if hi > start else 0
+            for item0 in range(0, items, group):
+                tiles = min(group, items - item0)
+                want_ctas += 1
+                want_bytes += D * 64 * 32 * slices + tiles * slices * 4096
+    assert ia.stage_bytes(step, B=B, group=group) == (want_ctas, want_bytes)
+    assert ia._group(ia.VARIANTS["G 4"][0]) == 4
+    assert ia._group(ia.VARIANTS["as built"][0]) == 8

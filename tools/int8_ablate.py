@@ -1,35 +1,53 @@
-"""Variants of the streamed int8 tensor-core kernel (K2b,
-``streamed_fir_int8_kernel``), timed and checked on one GPU.
+"""Variants of the int8 tensor-core kernels, the tiled K1b
+(``tiled_fir_int8_kernel``) and the streamed K2b
+(``streamed_fir_int8_kernel``), timed and checked on one GPU.
 
     python3 tools/int8_ablate.py [--parent CSRC_DIR] [--only NAME ...]
 
 Builds the port's kernel library once per variant of
 ``speex_resampler_tpu_torch/csrc/int8_wgmma.cuh`` (a copy of ``csrc/``
 with the variant's text edits under ``build/int8_variants/<name>/``,
-``tools/_variants.py``), then for each variant and each streamed int8
-launch (48 kHz -> 44.1 kHz q10: "auto", D = 4, and explicit "int8", D =
-3; B = 2048) prints the kernel's time, launches queued back to back and
-replayed from a CUDA graph (``chip_smoke.cuda_ms``), its share of the
-bound, and the mismatch count against the plain version at f0 = 0 and
-after a flush (f0 = 40), B = 2048, 130, 129 (2-byte x loads) and 64, with
-x = -32768 and 32767 rows in every launch.  The variants:
+``tools/_variants.py``), then for each variant and each int8 launch it
+concerns prints the kernel's time at B = 2048, launches queued back to
+back and replayed from a CUDA graph (``chip_smoke.cuda_ms``), its share of
+the bound, and the mismatch count against the plain version at f0 = 0 and
+after the path's flush, B = 2048, 130, 129 (2-byte x loads) and 64, with x
+= -32768 and 32767 rows in every launch.  The launches: the tiled flagship
+(44.1 kHz -> 48 kHz q7, "auto" = int8, D = 3), with the rate of its
+shared-memory copies (:func:`stage_bytes`), and the streamed 48 kHz ->
+44.1 kHz q10 ("auto", D = 4, and explicit "int8", D = 3).  The variants:
 
-- ``as built``: one walk of the band for all D digits, 32 rows a
-  warpgroup (2*D x 16 accumulator registers), 64-lane CTAs, copies 3
-  stages ahead (a ring of 5);
-- ``lead 2``: = as built, copies 2 stages ahead (a ring of 4).
-
-The header has one code path.  The designs that lost to it (a walk of the
-band a digit, with 64 or 32 rows a warpgroup) were measured by an earlier
-version of this tool; PERF.md section 6 keeps their times.
+- ``as built``: the tiled kernel keeps a row tile's digit band resident
+  and walks kGroup = 8 output tiles a CTA, each warpgroup its own tiles
+  (64 rows, m64n64k32, for D <= 2 and for D = 3 with 16-byte x copies;
+  else 32 rows of every tile) through its own ring of kRing = 4 x stages
+  (3 ahead); the streamed kernel copies 3 stages ahead (a ring of 5), 32
+  rows a warpgroup; 64-lane CTAs, one walk for all D digits;
+- ``G 1`` / ``G 2`` / ``G 4``: = as built, kGroup output tiles a tiled
+  CTA (G 1 copies the band once per tile, as the streamed kernel does);
+- ``ring 3`` / ``ring 8``: = as built, kRing x stage buffers a warpgroup
+  (2 or 7 stages ahead);
+- ``32 rows a warpgroup``: = as built, every D at 32 rows of every tile a
+  warpgroup (m64n32k32), each warpgroup copying the x it reads;
+- ``lead 2``: = as built, the streamed kernel's copies 2 stages ahead (a
+  ring of 4);
+- timing only (they do not compute the function): ``wgmmas doubled``,
+  ``one wgmma a slice`` (of 2*D), ``no ldmatrix``, ``no x copies``
+  (after the first kRing stages), ``no band copy``, ``one epilogue a
+  warpgroup`` and ``no global stores``, each one part of the resident
+  kernel's work doubled or dropped, to show what its time is made of.
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
-too; its int8 entry point (the CUDA-core kernel, planes int8[D, P, K, R]
-in tap order) is timed at the same launches and every variant is held
-against it: both take exact integer sums and the same f32 epilogue, so 0
-outputs may differ.
+too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
+``build/``): one whose tiled int8 kernel runs on the CUDA cores (planes
+int8[D, P, K, R] in tap order, no band span; PR 8 and earlier) and whose
+streamed int8 kernel takes K-major planes (PR 7 and later).  Both are
+timed at the same launches and every variant is held against them: all
+take exact integer sums and the same f32 epilogue, so 0 outputs may
+differ.
 
-Exits non-zero without a CUDA device.
+Exits non-zero without a CUDA device, and after all variants have run if
+any output of one differed from the plain version or the parent.
 """
 
 from __future__ import annotations
@@ -42,6 +60,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import torch
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -50,68 +69,151 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.ops import filter_design as fd  # noqa: E402
-from speex_resampler_tpu_torch.ops import streamed_fir as sf  # noqa: E402
+from speex_resampler_tpu_torch.ops import tiled_fir as tf  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 from tools import _variants  # noqa: E402
 
 HEADER = "int8_wgmma.cuh"
-#: name -> (edits of the header, computes the function)
+_G = "constexpr int kGroup = 8;"
+_RING = "constexpr int kRing = 4;"
+_MMA = ("          mma(acc[2 * d], xh[j], b, slice > 0);\n"
+        "          mma(acc[2 * d + 1], xl[j], b, slice > 0);\n")
+#: name -> (edits of the header, edits of other sources, the geometries
+#: whose launches it is timed at, computes the function)
 VARIANTS = {
-    "as built": ({}, True),
-    "lead 2": ({"kLead = 3;": "kLead = 2;"}, True),
+    "as built": ({}, {}, ("tiled", "streamed"), True),
+    "G 1": ({_G: "constexpr int kGroup = 1;"}, {}, ("tiled",), True),
+    "G 2": ({_G: "constexpr int kGroup = 2;"}, {}, ("tiled",), True),
+    "G 4": ({_G: "constexpr int kGroup = 4;"}, {}, ("tiled",), True),
+    "ring 3": ({_RING: "constexpr int kRing = 3;"}, {}, ("tiled",), True),
+    "ring 8": ({_RING: "constexpr int kRing = 8;"}, {}, ("tiled",), True),
+    "32 rows a warpgroup": (
+        {"return kD <= 2 || (kD == 3 && kVec) ? kRowTile : kN;":
+         "return kN;"}, {}, ("tiled",), True),
+    "lead 2": ({"kLead = 3;": "kLead = 2;"}, {}, ("streamed",), True),
+    # timing only: one part of the resident kernel's work doubled or
+    # dropped
+    "wgmmas doubled": (
+        {_MMA: _MMA + "          mma(acc[2 * d], xh[j], b, 1);\n"
+                      "          mma(acc[2 * d + 1], xl[j], b, 1);\n"},
+        {}, ("tiled",), False),
+    "one wgmma a slice": (
+        {_MMA: "          if (d == 0) mma(acc[2 * d], xh[j], b, slice > 0);\n"},
+        {}, ("tiled",), False),
+    "no ldmatrix": (
+        {"        load_split(buf + j * kK * kRawPitch + frag, xh[j], xl[j]);":
+         "        if (slice < 0)\n"
+         "          load_split(buf + j * kK * kRawPitch + frag, xh[j], xl[j]);"},
+        {}, ("tiled",), False),
+    "no x copies": (
+        {"        if (s * kStageTaps + tap < n_slices * kK)":
+         "        if (q < kRing && s * kStageTaps + tap < n_slices * kK)"},
+        {}, ("tiled",), False),
+    "no band copy": ({"  copy_band();\n#pragma unroll": "#pragma unroll"}, {},
+                     ("tiled",), False),
+    "one epilogue a warpgroup": (
+        {"    store_tile<kD, kWgN, false>(": "    if (it == n_mine - 1)\n"
+                                            "      store_tile<kD, kWgN, false>("},
+        {}, ("tiled",), False),
+    "no global stores": (
+        {"    if (rt * kRowTile + row >= g.R || lane >= g.B) continue;":
+         "    if (rt * kRowTile + row >= g.R || lane >= g.B || !kCta) "
+         "continue;"}, {}, ("tiled",), False),
 }
 #: (in, out, quality, target frames, scheme)
-LAUNCHES = [(48000, 44100, 10, 20480, "auto"),
+LAUNCHES = [(44100, 48000, 7, 9408, "auto"),
+            (48000, 44100, 10, 20480, "auto"),
             (48000, 44100, 10, 20480, "int8")]
 CHECK_LANES = (cs.LANES, 130, 129, 64)
+#: the parent's int8 entry points (hist, x, y, [offsets,] taps, planes,
+#: bias, D, s0..s3, geometry ..., stream)
+_PARENT_SIGNATURES = {
+    "tiled_fir_int8": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 8
+                       + [ctypes.c_void_p]),
+    "streamed_fir_int8": (ctypes.c_int, [ctypes.c_void_p] * 6
+                          + [ctypes.c_int] + [ctypes.c_float] * 4
+                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
+}
 
 
 def _int8(kernel: str) -> bool:
-    return "int8" in kernel and "streamed" in kernel
+    return "int8" in kernel
 
 
-def edge_inputs(step, n_in: int, B: int, seed: int):
-    """Random launch inputs (``chip_smoke.card_inputs``) with one chunk
-    row of -32768 and one of 32767 in every block's window."""
-    hist, x = cs.card_inputs(step, n_in, B, seed)
-    x[0:n_in:97] = -32768
-    x[1:n_in:89] = 32767
-    return hist, x
+def stage_bytes(step, B: int = cs.LANES, group: int = 8) -> tuple:
+    """(CTAs, bytes) of one tiled int8 launch's shared-memory copies at B
+    lanes and ``group`` output tiles a CTA (``csrc/int8_wgmma.cuh``,
+    fir_tile_resident, where each warpgroup sums all 64 rows of its
+    tiles): each CTA copies its row tile's D digit bands once (64 rows x
+    32 bytes a K-slice a digit, the K-slices from t_lo rounded down to 32
+    until t_hi is covered) and, for each output tile, the x rows of those
+    K-slices (32 taps x 64 lanes x 2 bytes a slice).  Computed on the
+    host, from the step's tap table."""
+    D = step.w[0].shape[0]
+    taps = step.w[-1].cpu().numpy().astype(np.int64)        # [P, tiles, 2]
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    slices = np.where(hi > lo, -(-(hi - lo) // 32), 0)      # [P, tiles]
+    n_periods = step.kernel_kw["n_blocks"] // taps.shape[0]
+    items = n_periods * -(-B // 64)
+    groups = -(-items // group)
+    band = int(slices.sum()) * groups * D * 64 * 32
+    x = int(slices.sum()) * items * 32 * 64 * 2
+    return slices.size * groups, band + x
 
 
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
-    types of its streamed int8 entry point (unchanged since)."""
+    types of its int8 entry points."""
     out = ROOT / "build" / "int8_variants" / "parent" / "libfir.so"
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
     _build.compile_library(out)
-    lib = _build.declare(ctypes.CDLL(str(out)), ("streamed_fir_int8",))
+    lib = ctypes.CDLL(str(out))
+    for name, (restype, argtypes) in _PARENT_SIGNATURES.items():
+        getattr(lib, name).restype = restype
+        getattr(lib, name).argtypes = argtypes
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _int8))
     return lib
 
 
 def parent_launch(lib, hist, x, step):
-    """The CUDA-core kernel on one launch (planes back in tap order,
-    [D, P, K, R]): a function that launches it on the current stream, and
-    its output."""
-    planes = sf.int8_n_major(step.w[0])
-    bias, taps = step.w[1], step.w[2]
-    D, P, K, R = planes.shape
+    """The parent's int8 kernel on one launch (tiled: the CUDA-core kernel
+    on the planes back in tap order, [D, P, K_pad, R]; streamed: the
+    K-major planes as they are): a function that launches it on the
+    current stream, and its output."""
     kw = step.kernel_kw
+    planes, bias, taps = step.w[0], step.w[1], step.w[-1]
+    D, P, R, K = planes.shape
+    if step.kernel == "tiled":
+        planes = tf.int8_n_major(planes)
     s = tuple(kw["scales"]) + (0.0,) * (4 - D)
     H, B = hist.shape
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
                     device="cuda")
 
     def run():
-        if lib.streamed_fir_int8(
+        stream = torch.cuda.current_stream().cuda_stream
+        if step.kernel == "tiled":
+            err = lib.tiled_fir_int8(
+                hist.data_ptr(), x.data_ptr(), y.data_ptr(),
+                kw["offsets"].data_ptr(), taps.data_ptr(), planes.data_ptr(),
+                bias.data_ptr(), D, *s, H, x.shape[0], B, R, K, P, kw["S"],
+                kw["n_blocks"], stream)
+        else:
+            err = lib.streamed_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
                 planes.data_ptr(), bias.data_ptr(), D, *s, H, x.shape[0], B,
                 R, K, P, kw["n_blocks"], kw["shift"], kw["num"], kw["den"],
-                kw["f0"], torch.cuda.current_stream().cuda_stream):
-            raise RuntimeError("parent kernel launch failed")
+                kw["f0"], stream)
+        if err:
+            raise RuntimeError(f"parent kernel launch failed ({err})")
     return run, y
+
+
+def _group(edits: dict) -> int:
+    """The kGroup a variant's header edits leave."""
+    return int(edits.get(_G, _G).split("= ")[1].rstrip(";"))
 
 
 def main() -> None:
@@ -129,17 +231,20 @@ def main() -> None:
     for i, o, q, target, scheme in LAUNCHES:
         g = math.gcd(i, o)
         spec = fd.design_filter(i // g, o // g, q)
-        for f0 in (0, 40):
+        flush = (cs.FLAGSHIP if i == 44100 else cs.SLICE).f0_flush
+        for f0 in (0, flush):
             bspec = tb._launch_geometry(spec, target, f0=f0)
             step = tb.make_batched_step(spec, bspec, device="cuda",
                                         scheme=scheme)
-            assert (step.kernel, step.scheme) == ("streamed", "int8")
-            inputs = [edge_inputs(step, bspec.in_per_launch, B, seed=B + f0)
+            assert step.scheme == "int8"
+            inputs = [cs.card_inputs(step, bspec.in_per_launch, B,
+                                     seed=B + f0, edges=True)
                       for B in CHECK_LANES]
             want = [cs.plain(h, x, step).cpu().numpy() for h, x in inputs]
             bound = cs.launch_bound(spec, step, bspec, cs.LANES)
-            cases.append((f"{i}->{o} q{q} {scheme} D={step.w[0].shape[0]} "
-                          f"f0 {f0}", step, inputs, want, bound))
+            cases.append((f"{i}->{o} q{q} {step.kernel} {scheme} "
+                          f"D={step.w[0].shape[0]} f0 {f0}", step, inputs,
+                          want, bound))
     parent = None
     if args.parent is not None:
         lib = parent_library(args.parent)
@@ -156,28 +261,39 @@ def main() -> None:
             print(f"   parent, {label}: {cs.cuda_ms(run, 20):.4f} ms back "
                   f"to back, graph {cs.cuda_ms(run, 20, mode='graph'):.4f} "
                   f"ms at B = {cs.LANES}")
-    for name, (edits, exact) in VARIANTS.items():
+    bad = []
+    for name, (edits, also, kernels, exact) in VARIANTS.items():
         if args.only and name not in args.only:
             continue
         print(f"== {name}: " + _variants.build("int8_variants", name, HEADER,
-                                               edits, _int8))
+                                               edits, _int8, also))
         for c, (label, step, inputs, want, bound) in enumerate(cases):
+            if step.kernel not in kernels:
+                continue
             line = []
             for b, ((h, x), w) in enumerate(zip(inputs, want)):
                 if not exact:
                     break
                 got = cs.launch(h, x, step).cpu().numpy()
-                line.append(f"B={h.shape[1]} mismatches "
-                            f"{int((got != w).sum())}")
+                n = [int((got != w).sum())]
+                line.append(f"B={h.shape[1]} mismatches {n[0]}")
                 if parent is not None:
-                    line[-1] += (f", vs parent "
-                                 f"{int((got != parent[c][b]).sum())} differ")
+                    n.append(int((got != parent[c][b]).sum()))
+                    line[-1] += f", vs parent {n[1]} differ"
+                if any(n):
+                    bad.append(f"{name}, {label}, B={h.shape[1]}")
             h, x = inputs[0]
             fn = lambda: cs.launch(h, x, step)  # noqa: E731
             ms, graph_ms = cs.cuda_ms(fn, 20), cs.cuda_ms(fn, 20, mode="graph")
             line.append(f"{ms:.4f} ms back to back, graph {graph_ms:.4f} ms,"
                         f" {bound[0] / ms:.3f} of the bound {bound[0]:.4f} ms")
+            if step.kernel == "tiled":
+                ctas, nbytes = stage_bytes(step, group=_group(edits))
+                line[-1] += (f"; {ctas} CTAs copy {nbytes / 1e9:.3f} GB: "
+                             f"{nbytes / ms / 1e9:.2f} TB/s")
             print(f"   {name}, {label}: " + "; ".join(line))
+    if bad:
+        sys.exit("int8_ablate: outputs differ: " + "; ".join(bad))
 
 
 if __name__ == "__main__":
