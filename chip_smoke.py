@@ -18,7 +18,10 @@ nvcc per source, in parallel) and drives the serving paths of
 - clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
   fixed (plain torch on the card, no kernel);
 - 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
-  split5 scheme); the f32 kernel is checked and timed at the same launch.
+  split5 scheme); the f32 kernel is checked and timed at the same launch;
+- the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
+  streams, 9408-frame quanta), float (the int8 kernel) and fixed, through
+  the native C++ stager, pinned slabs and the copy/compute pipeline.
 
 For each path it holds every kernel against its plain PyTorch version on
 the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
@@ -32,6 +35,15 @@ step's tensors on the card), checks streams 0-3 against a CPU engine, then
 times kernel, plain version and, where one exists, the one PyTorch call
 that computes the same product (plain-torch paths: the step, by the host
 clock), and prints split5's time over highest's where both are timed.
+The fleet phase pushes two quanta and a ragged remainder per stream (odd
+streams as bytes cut at odd offsets), polls, flushes and pulls every
+stream; it requires the native stager, pinned slabs, no degradation and
+one kernel launch per fleet launch, holds streams 0-3 and 1023 bit for bit
+against a CPU fleet fed those streams' bytes, then times steady-state
+``poll()`` at pipeline depths 1 and 2 (out samples/s, the per-phase host
+ms a launch of ``stats``, and the device's busy share from a
+``torch.profiler`` trace) and ``BatchedResampler.process()`` of four
+quanta at the flagship.
 Kernel and library times are read three ways: launches queued back to
 back between two events, the same launches captured in one CUDA graph and
 replayed (the device's time alone: the wrapper's Python runs once, at
@@ -59,7 +71,7 @@ import time
 import numpy as np
 import torch
 
-from speex_resampler_tpu_torch import BatchedResampler
+from speex_resampler_tpu_torch import BatchedResampler, FleetResampler
 from speex_resampler_tpu_torch.ops import _build, phase as ph
 from speex_resampler_tpu_torch.ops.convert import word2int
 from speex_resampler_tpu_torch.ops import dense_fir as df
@@ -68,6 +80,7 @@ from speex_resampler_tpu_torch.ops import fir_matmul as fm
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
+from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
 # (tests/ is no package)
@@ -722,6 +735,183 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
     return entries
 
 
+# the fleet phase: the flagship's streams; the CPU fleet's reference lanes
+FLEET_RATES = (44100, 48000, 7)
+FLEET_TARGET = 9408
+FLEET_CHECKED = (0, 1, 2, 3, STREAMS - 1)
+
+
+def fleet(n_streams: int, device: str, fixed: bool, depth: int = 2):
+    return FleetResampler(n_streams, CHANNELS, *FLEET_RATES,
+                          target_chunk_frames=FLEET_TARGET, device=device,
+                          fixed_point=fixed, pipeline_depth=depth)
+
+
+def fleet_push(f, s: int, frames: np.ndarray, rng) -> None:
+    """One stream's frames in three ragged pieces; odd streams as bytes cut
+    at odd offsets (the stager's alignment carry holds the partial
+    frame)."""
+    cuts = sorted(rng.integers(1, frames.shape[0], 2).tolist())
+    for a, b in zip([0] + cuts, cuts + [frames.shape[0]]):
+        if s % 2:
+            raw = frames[a:b].astype("<i2").tobytes()
+            k = len(raw) // 2 | 1
+            f.push_bytes(s, raw[:k])
+            f.push_bytes(s, raw[k:])
+        else:
+            f.push(s, frames[a:b])
+
+
+def fleet_check(fixed: bool) -> None:
+    """Two quanta and a ragged remainder per stream through poll, flush
+    and pull; launch counts reset just before, read just after."""
+    name = "fixed" if fixed else "int8"
+    f = fleet(STREAMS, "cuda", fixed)
+    q = f.bspec.in_per_launch
+    if f.stager_kind != "native":
+        raise AssertionError(f"fleet stager {f.stager_kind}")
+    if f._step.scheme != name or f._step.kernel != "tiled":
+        raise AssertionError(f"fleet step {f._step.kernel}/{f._step.scheme}")
+    pinned = all(s._pinned.is_pinned() for s in f._slabs) and all(
+        b.is_pinned() for b in f._readback_bufs)
+    if not pinned:
+        raise AssertionError("fleet slabs or readback buffers not pinned")
+    rng = np.random.default_rng(77)
+    rem = rng.integers(0, q, STREAMS)
+    frames = rng.integers(-32768, 32768, (STREAMS, 2 * q + q, CHANNELS),
+                          dtype=np.int16)
+    for module in MODULES.values():
+        module.launches.update(dict.fromkeys(module.launches, 0))
+    t0 = time.perf_counter()
+    for s in range(STREAMS):
+        fleet_push(f, s, frames[s, :2 * q + rem[s]], rng)
+    t_push = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ran = f.poll()
+    f.flush()
+    outs = [f.pull(s) for s in range(STREAMS)]
+    torch.cuda.synchronize()
+    t_serve = time.perf_counter() - t0
+    counts = {k: dict(m.launches) for k, m in MODULES.items()}
+    launched = f.stats.launches
+    if ran != 2 or counts["tiled"][name] != launched or launched != 3 \
+            or any(v for k, m in counts.items() for sch, v in m.items()
+                   if (k, sch) != ("tiled", name)):
+        raise AssertionError(f"fleet {name}: {ran} polled, {launched} "
+                             f"launches, kernel counts {counts}")
+    if f.degraded:
+        raise AssertionError(f"fleet degraded: {f.degraded_cause!r}")
+    ref = fleet(len(FLEET_CHECKED), "cpu", fixed)
+    for i, s in enumerate(FLEET_CHECKED):
+        ref.push_bytes(i, frames[s, :2 * q + rem[s]].astype("<i2").tobytes())
+    ref.poll()
+    ref.flush()
+    for i, s in enumerate(FLEET_CHECKED):
+        want = ref.pull(i)
+        n_want = (2 * f.bspec.out_per_launch + ph.producible_outputs(
+            int(rem[s]), 0, 0, f.spec.num, f.spec.den))
+        if want.shape != (n_want, CHANNELS):
+            raise AssertionError(f"cpu fleet stream {s}: {want.shape}")
+        compare(outs[s], want, name, f"fleet {name} stream {s}")
+    print(f"fleet {name}: {STREAMS} streams x {CHANNELS}, stager "
+          f"{f.stager_kind}, slabs pinned {pinned}, {launched} launches = "
+          f"kernel launches {counts['tiled'][name]} "
+          f"({kernel_name('tiled', name, f._step.kernel_kw['n_accum'])}), "
+          f"degraded {f.degraded}; streams {FLEET_CHECKED} bit-identical "
+          f"with the cpu fleet; pushes {t_push:.2f} s, poll+flush+pull "
+          f"{t_serve:.2f} s (first launches: build of the step included)")
+
+
+def device_busy_ms(prof) -> float | None:
+    """The union of the device's kernel and copy intervals in a
+    ``torch.profiler`` trace, in ms; None where the trace has none."""
+    spans = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            spans.append((e.time_range.start, e.time_range.end))
+    if not spans:
+        return None
+    busy, end = 0.0, None
+    for a, b in sorted(spans):
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def fleet_time(fixed: bool, depth: int, smi: str, n: int = 8) -> None:
+    """Steady-state ``poll()`` of n launches (pushes outside the timed
+    region), after a warm-up poll of two; the stats reset before it.
+    Then one poll of 4 launches under ``torch.profiler``: the device's
+    busy share of that poll's wall time."""
+    f = fleet(STREAMS, "cuda", fixed, depth)
+    q = f.bspec.in_per_launch
+    rng = np.random.default_rng(5)
+    block = rng.integers(-32768, 32768, (STREAMS, q, CHANNELS),
+                         dtype=np.int16)
+
+    def feed(k):
+        for _ in range(k):
+            for s in range(STREAMS):
+                f.push(s, block[s])
+
+    feed(2)
+    f.poll()
+    f.stats = LaunchStats()
+    feed(n)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ran = f.poll()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if ran != n or f.degraded:
+        raise AssertionError(f"fleet timing: {ran} launches, degraded "
+                             f"{f.degraded}")
+    out = n * f.bspec.out_per_launch * LANES
+    st = f.stats.as_dict()
+    name = "fixed" if fixed else "int8"
+    print(f"fleet poll() {name} depth {depth} on {smi}: {n} launches in "
+          f"{wall * 1e3:.2f} ms = {wall * 1e3 / n:.2f} ms a launch, "
+          f"{out / wall / 1e6:.2f} M out samples/s; per-phase host ms a "
+          f"launch {st['phase_ms_per_launch']}, min {st['phase_ms_min']}")
+    print(f"  stats {json.dumps(st)}")
+    feed(4)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        f.poll()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = device_busy_ms(prof)
+    share = ("not measured (no device events in the trace)" if busy is None
+             else f"{busy:.2f} ms busy of {wall:.2f} ms = "
+                  f"{busy / wall:.3f} busy, {1 - busy / wall:.3f} idle")
+    print(f"  device under the profiler, 4 launches: {share}")
+
+
+def process_time(eng, frames: np.ndarray, smi: str, quanta: int) -> None:
+    """``BatchedResampler.process()`` of ``quanta`` quanta a call (the
+    depth-1 pipeline over two pinned slabs), median of 5 after one."""
+    q = eng.in_frames_per_launch
+    x = frames[:, :quanta * q]
+    eng.process(x)
+    walls = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        eng.process(x)
+        walls.append(time.perf_counter() - t0)
+    wall = float(np.median(walls)) * 1e3
+    out = quanta * eng.out_frames_per_launch * LANES
+    print(f"process() flagship {eng._step.scheme} {quanta} quanta a call on "
+          f"{smi}: {wall:.2f} ms ({out / wall / 1e3:.2f} M out samples/s, "
+          f"median of 5)")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -792,6 +982,14 @@ def main() -> None:
     time_launch(f"{FIXED_DIRECT.name} weights on the streamed kernel "
                 f"({kernel_name('streamed', 'fixed', 1)}, on no served "
                 f"path)", FIXED_DIRECT.spec, step, bspec, smi, reps=20)
+    # -- phase 6: the serving runtime (FleetResampler) at the flagship
+    for fixed in (False, True):
+        fleet_check(fixed)
+    for fixed, depth in ((False, 1), (False, 2), (True, 2)):
+        fleet_time(fixed, depth, smi)
+    _, engines, frames = served[FLAGSHIP]
+    big = np.concatenate(frames[:3], axis=1)     # 41000 frames a stream
+    process_time(engines["int8"], big, smi, quanta=4)
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,8 +26,11 @@ universe with its exact scheme "fixed"):
 - "gather": huge reduced denominators (e.g. 44100 -> 44101), the
   plain-torch ``ops/fir_matmul.resample_gather[_fixed]``.
 
-Only ``mesh=`` and a degraded checkpoint raise ``NotImplementedError``,
-naming their ROADMAP.md item.
+Only ``mesh=`` raises ``NotImplementedError``, naming its ROADMAP.md item.
+
+``make_batched_step(..., lane_major=True)`` gives the serving layout of
+``runtime/fleet.py``: the step takes ``x i16[B, chunk_rows]`` and returns
+``y i16[B, out_rows]``, both transposes on the device inside the step.
 """
 
 from __future__ import annotations
@@ -40,14 +43,16 @@ import threading
 import numpy as np
 import torch
 
+from ..ops import _build
 from ..ops import dense_fir as df
 from ..ops import filter_design as fd
 from ..ops import fir_matmul as fm
 from ..ops import phase as ph
 from ..ops import streamed_fir as sf
 from ..ops import tiled_fir as tf
+from ..utils.degrade import ZeroFillDegradation
 from ..utils.errors import ResamplerError, ResamplerErrorCode
-from ..utils.host import to_host
+from ..utils.host import Readback, to_host_into
 
 __all__ = ["BatchedResampler", "make_batched_step", "BatchSpec",
            "weights_from_jax"]
@@ -446,12 +451,19 @@ def _step_weight_bytes(step: BatchedStep) -> int:
 
 
 def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
-                      device="cuda", scheme: str = "auto") -> BatchedStep:
-    """Memoizing front-end for :func:`_build_batched_step`."""
+                      device="cuda", scheme: str = "auto",
+                      lane_major: bool = False) -> BatchedStep:
+    """Memoizing front-end for :func:`_build_batched_step`.
+
+    ``lane_major=True`` is the serving layout of ``runtime/fleet.py``: the
+    step takes ``x i16[B, chunk_rows]`` and returns ``y i16[B, out_rows]``
+    (the host's gather and scatter then stay contiguous per stream), with
+    both transposes plain torch on the step's device; ``hist`` stays
+    time-major."""
     device = torch.device(device)
     key = (spec.num, spec.den, spec.quality, spec.fixed_point,
            spec.use_direct, spec.filt_len, spec.oversample, bspec, scheme,
-           str(device))
+           str(device), bool(lane_major))
     with _STEP_CACHE_LOCK:
         hit = _STEP_CACHE.get(key)
         if hit is not None:
@@ -459,6 +471,8 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
             return hit
     # build outside the lock (duplicate builds of one key are benign)
     step = _build_batched_step(spec, bspec, device=device, scheme=scheme)
+    if lane_major:
+        step = _lane_major(step)
     with _STEP_CACHE_LOCK:
         if key not in _STEP_CACHE:
             _STEP_CACHE[key] = step
@@ -470,6 +484,18 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
             _, old = _STEP_CACHE.popitem(last=False)
             total -= _step_weight_bytes(old)
         return _STEP_CACHE.get(key, step)
+
+
+def _lane_major(step: BatchedStep) -> BatchedStep:
+    """``step`` on lane-major buffers: x [B, chunk_rows] in, y [B, out]
+    out, transposed on the step's device around the time-major step."""
+    inner = step.fn
+
+    def fn(hist, x_lm, w):
+        h2, y = inner(hist, x_lm.t().contiguous(), w)
+        return h2, y.t().contiguous()
+
+    return dataclasses.replace(step, fn=fn)
 
 
 def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
@@ -801,14 +827,70 @@ class _HostFifo:
         return np.concatenate(parts, axis=0)
 
 
-class BatchedResampler:
+class _Slab:
+    """One persistent launch slab.  On the CPU ``host`` is a NumPy array
+    the step reads in place.  On CUDA ``host`` is the NumPy view of a
+    pinned host tensor with a persistent device twin: the upload is
+    asynchronous (``copy_(non_blocking=True)``), so the host may refill the
+    slab only after the event of its last upload, which :meth:`fill` waits
+    for."""
+
+    def __init__(self, shape: tuple, device: torch.device):
+        self.dev = self._pinned = self._uploaded = self._released = None
+        if device.type == "cuda":
+            self._pinned = torch.zeros(shape, dtype=torch.int16,
+                                       pin_memory=True)
+            self.host = self._pinned.numpy()
+            self.dev = torch.zeros(shape, dtype=torch.int16, device=device)
+        else:
+            self.host = np.zeros(shape, dtype=np.int16)
+
+    def fill(self) -> np.ndarray:
+        """The host array, writable once its last upload has ended."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+            self._uploaded = None
+        return self.host
+
+    def upload(self, stream: torch.cuda.Stream | None = None
+               ) -> torch.Tensor:
+        """The slab as the step's input tensor.  On CUDA the copy runs on
+        ``stream`` (default: the current stream), after the launch that
+        last read the device twin (:meth:`release`); the current stream
+        then waits for the copy."""
+        if self.dev is None:
+            return torch.from_numpy(self.host)
+        compute = torch.cuda.current_stream(self.dev.device)
+        stream = compute if stream is None else stream
+        if stream is not compute:
+            if self._released is not None:
+                stream.wait_event(self._released)
+            self.dev.record_stream(stream)
+        with torch.cuda.stream(stream):
+            self.dev.copy_(self._pinned, non_blocking=True)
+            self._uploaded = torch.cuda.Event()
+            self._uploaded.record(stream)
+        if stream is not compute:
+            compute.wait_event(self._uploaded)
+        return self.dev
+
+    def release(self) -> None:
+        """Mark the device twin free once the work queued so far on the
+        current stream (the launch that reads it) has run."""
+        if self.dev is not None:
+            self._released = torch.cuda.Event()
+            self._released.record()
+
+
+class BatchedResampler(ZeroFillDegradation):
     """Resample S identical-config streams (C channels each) in lockstep.
 
     Same semantics as the JAX package's ``BatchedResampler`` for
-    ``process``/``flush``/``reset_mem``/``state_dict``: each lane's output
-    equals the reference's for that lane's samples within 1 LSB (bit for
-    bit with ``fixed_point=True``), and a checkpoint from either engine
-    loads in the other (a snapshot of the other universe is refused).
+    ``process``/``flush``/``skip_zeros``/``reset_mem``/``state_dict``: each
+    lane's output equals the reference's for that lane's samples within 1
+    LSB (bit for bit with ``fixed_point=True``), and a checkpoint from
+    either engine loads in the other (a snapshot of the other universe is
+    refused).
 
     Parameters
     ----------
@@ -825,7 +907,14 @@ class BatchedResampler:
     max_latency_ms : hard cap on the launch quantum (a cap below one
         tiled or streamed unit serves through the dense geometry).
 
-    A launch or readback error raises; there is no degraded mode yet.
+    ``process`` runs a depth-1 dispatch pipeline over two slabs: launch
+    i+1 is queued before launch i is read back.  On CUDA the slabs are
+    pinned and uploaded asynchronously, and each result is read back into
+    pinned memory on a copy stream.  A launch or readback error degrades
+    the engine to zero-fill output with exact sample counts
+    (``utils/degrade.py``: ``degraded``, ``degraded_cause``,
+    ``degraded_launches``, a logged error and a ``RuntimeWarning``); a
+    kernel build failure raises out of the constructor.
     """
 
     def __init__(self, n_streams: int, channels: int, in_rate: int,
@@ -844,12 +933,7 @@ class BatchedResampler:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
         if mesh is not None:
             raise _unported("mesh= (multi-GPU lanes)", "M12")
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("device='cuda' but no CUDA device is "
-                               "available")
-        if self.device.type not in ("cuda", "cpu"):
-            raise ValueError(f"unsupported device {self.device}")
+        self.device = _serving_device(device)
         self.n_streams = n_streams
         self.channels = channels
         self.in_rate = in_rate
@@ -869,6 +953,13 @@ class BatchedResampler:
         self._f0 = 0
         #: kernel launches made by this engine
         self.launches = 0
+        # zero-fill degradation (resample.c:561-591, :785-791): a device
+        # failure swaps the engine onto a host zero-output step that keeps
+        # consuming/producing the exact sample counts.  Sticky.
+        self._degraded = False
+        # results are read back on their own stream, beside the next launch
+        self._copy_stream = (torch.cuda.Stream(self.device)
+                             if self.device.type == "cuda" else None)
         # steps keyed by f0 (a flush may move the phase; keep a few)
         self._step_cache: dict = {}
         self._build_step(0)
@@ -883,22 +974,36 @@ class BatchedResampler:
 
     def _build_step(self, f0: int) -> None:
         """(Re)build the steady-state step at fractional phase ``f0``.  The
-        launch quantum is f0-independent; only weights and offsets change."""
+        launch quantum is f0-independent; only weights and offsets change.
+        A degraded engine only moves its phase (the zero-output step has
+        no weights, and the device may be dead)."""
+        if self._degraded:
+            self._f0 = f0
+            return
         cached = self._step_cache.get(f0)
         if cached is None:
             bspec = _launch_geometry(self.spec, self._target, f0=f0,
                                      max_in_frames=self._max_in)
             step = make_batched_step(self.spec, bspec, device=self.device,
                                      scheme=self._scheme)
-            # persistent launch slab; rows past the quantum stay zero
-            # (pop_into and _launch write only [:in_per_launch])
-            slab = np.zeros((step.chunk_rows, self.B), dtype=np.int16)
-            cached = (bspec, step, slab)
+            # two persistent launch slabs for the depth-1 pipeline; rows
+            # past the quantum stay zero (pop_into and _launch write only
+            # [:in_per_launch])
+            slabs = [_Slab((step.chunk_rows, self.B), self.device)
+                     for _ in range(2)]
+            cached = (bspec, step, slabs)
             if len(self._step_cache) >= 4:
                 self._step_cache.pop(next(iter(self._step_cache)))
             self._step_cache[f0] = cached
-        self.bspec, self._step, self._slab = cached
+        self.bspec, self._step, self._slabs = cached
+        self._slab_i = 0
         self._f0 = f0
+
+    def _next_slab(self) -> _Slab:
+        slab = self._slabs[self._slab_i]
+        self._slab_i ^= 1
+        slab.fill()
+        return slab
 
     # -- geometry --------------------------------------------------------
 
@@ -939,25 +1044,41 @@ class BatchedResampler:
         staged = self._staged.pop_all()
         num, den = self.spec.num, self.spec.den
         m = ph.producible_outputs(s, 0, self._f0, num, den)
-        hist_host = to_host(self._hist)
+        hist_host = self._hist_host()
         chunk = np.zeros((q, self.B), dtype=np.int16)
         chunk[:s] = staged
         _, y = self._launch(chunk)
         if m:
-            self._carry_out.append(to_host(y)[:m])
-        self._hist = self._to_device(
-            np.concatenate([hist_host, staged])[s:])
+            self._carry_out.append(self._recv(y)[:m])
+        hist_np = np.concatenate([hist_host, staged])[s:]
+        self._hist = hist_np if self._degraded else self._to_device(hist_np)
         t = self._f0 + m * num
         self._skip = t // den - s     # pending origin advance, >= 0
         if t % den != self._f0:
             self._build_step(t % den)
 
+    def skip_zeros(self):
+        """Swallow the filter delay (resample.c:1200-1206), at ANY time,
+        like the C API: setting ``last_sample = filt_len//2`` shifts the
+        next window origin k = filt_len//2 ahead of the current stream
+        position.  The engine first drains any sub-quantum staged
+        remainder exactly (its outputs surface on the next
+        process()/flush()), then feeds the next k input frames into the
+        tail of the history instead of staging them (see ``process``)."""
+        self._drain_partial()
+        self._skip = self.spec.filt_len // 2
+
     def reset_mem(self):
-        """resample.c:1208-1220."""
+        """resample.c:1208-1220.  Degradation survives a reset, like the C
+        core (reset_mem never reinstalls the real resampler)."""
         if self._f0 != 0:
             self._build_step(0)
-        self._hist = torch.zeros((self._step.hist_rows, self.B),
-                                 dtype=torch.int16, device=self.device)
+        if self._degraded:
+            self._hist = np.zeros((self._step.hist_rows, self.B),
+                                  dtype=np.int16)
+        else:
+            self._hist = torch.zeros((self._step.hist_rows, self.B),
+                                     dtype=torch.int16, device=self.device)
         self._staged = _HostFifo(self.B)
         self._skip = 0
         self._carry_out = []
@@ -971,16 +1092,17 @@ class BatchedResampler:
             "quality": self.spec.quality,
             "fixed_point": self.fixed_point,
             "n_streams": self.n_streams, "channels": self.channels,
-            "hist": to_host(self._hist),
+            "hist": self._hist_host(),
             "staged": self._staged.peek_all(),
             "skip": self._skip,
             "f0": self._f0,
-            "degraded": False,
+            "degraded": self._degraded,
             "carry_out": [o.copy() for o in self._carry_out],
         }
 
     def load_state_dict(self, state: dict):
-        """Accepts this engine's or the JAX engine's ``state_dict()``."""
+        """Accepts this engine's or the JAX engine's ``state_dict()``; a
+        degraded checkpoint degrades this engine (sticky)."""
         if (state["n_streams"], state["channels"]) != (self.n_streams,
                                                        self.channels) or \
                 (state["in_rate"], state["out_rate"], state["quality"]) != \
@@ -988,12 +1110,13 @@ class BatchedResampler:
                 state.get("fixed_point", False) != self.fixed_point:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
         if state.get("degraded", False):
-            raise _unported("a degraded (zero-fill) engine state", "M4")
+            self._adopt_degraded()
         f0 = int(state.get("f0", 0))
         if f0 != self._f0:
             self._build_step(f0)
-        self._hist = self._to_device(_adapt_hist(
-            state["hist"], self._step.hist_rows, self.spec.filt_len, self.B))
+        hist_np = _adapt_hist(state["hist"], self._step.hist_rows,
+                              self.spec.filt_len, self.B)
+        self._hist = hist_np if self._degraded else self._to_device(hist_np)
         self._staged = _HostFifo(self.B)
         self._staged.push(np.array(state["staged"], dtype=np.int16),
                           owned=True)
@@ -1014,10 +1137,13 @@ class BatchedResampler:
         x = self._to_lanes(frames)
         if self._skip:
             # fold the first k frames into the history tail (pending
-            # origin advance left by a drain)
+            # origin advance left by a drain or skip_zeros)
             k = min(self._skip, x.shape[0])
-            absorbed = self._to_device(np.ascontiguousarray(x[:k]))
-            self._hist = torch.cat([self._hist[k:], absorbed])
+            if self._degraded:
+                self._hist = np.concatenate([self._hist[k:], x[:k]], axis=0)
+            else:
+                absorbed = self._to_device(np.ascontiguousarray(x[:k]))
+                self._hist = torch.cat([self._hist[k:], absorbed])
             x = x[k:]
             self._skip -= k
         # the 3-D frame layout was already copied by _to_lanes; hand the
@@ -1026,10 +1152,18 @@ class BatchedResampler:
         self._staged.push(x, owned=not np.may_share_memory(x, frames))
         outs, self._carry_out = self._carry_out, []
         q = self.bspec.in_per_launch
+        pending = None
         while len(self._staged) >= q:
-            self._staged.pop_into(self._slab, q)  # straight into the slab
-            self._hist, y = self._launch(self._slab)
-            outs.append(to_host(y))
+            # depth-1 dispatch pipeline: launch i+1 is queued before launch
+            # i's result is read back (_recv blocks)
+            slab = self._next_slab().host
+            self._staged.pop_into(slab, q)  # straight into the slab
+            self._hist, y = self._launch(slab)
+            if pending is not None:
+                outs.append(self._recv(pending))
+            pending = y
+        if pending is not None:
+            outs.append(self._recv(pending))
         if outs:
             return self._from_lanes(np.concatenate(outs, axis=0), frames)
         return self._from_lanes(np.zeros((0, self.B), dtype=np.int16),
@@ -1046,19 +1180,42 @@ class BatchedResampler:
             return np.zeros((self.n_streams, 0, self.channels), np.int16)
         return self._lanes_to_frames(np.concatenate(outs, axis=0))
 
+    # -- zero-fill degradation: shared machinery in utils/degrade.py ------
+
+    def _degraded_launch(self, chunk_np: np.ndarray):
+        """Host zero-output launch with exact sample accounting
+        (resampler_basic_zero, resample.c:561-591)."""
+        return self._advance_degraded_hist(chunk_np), self._zero_result()
+
     def _launch(self, chunk_np: np.ndarray):
-        """Upload one chunk and launch the step; the result is read with
-        to_host (which waits for the device)."""
+        """Queue one launch on ``chunk_np``: a slab's host array (as
+        ``process`` fills it) or a bare [in_per_launch, B] chunk, copied
+        into the next slab.  Returns (hist', result); the result is read
+        with ``_recv``.  A failure degrades the engine."""
+        if self._degraded:
+            return self._degraded_launch(chunk_np)
         q = self.bspec.in_per_launch
-        if chunk_np.shape[0] == self._step.chunk_rows:
-            slab = chunk_np
-        else:
+        slab = self._slabs[self._slab_i ^ 1]     # the one _next_slab gave
+        if chunk_np is not slab.host:
             assert chunk_np.shape[0] == q, chunk_np.shape
-            slab = self._slab
-            slab[:q] = chunk_np
-        x = self._to_device(slab)
-        self.launches += 1
-        return self._step.fn(self._hist, x, self._step.w)
+            slab = self._next_slab()
+            slab.host[:q] = chunk_np
+        try:
+            x = slab.upload()
+            self.launches += 1
+            hist, y = self._step.fn(self._hist, x, self._step.w)
+            return hist, self._readback(y)
+        except Exception as exc:
+            self._enter_degraded(exc)
+            return self._degraded_launch(chunk_np)
+
+    def _readback(self, y: torch.Tensor):
+        """CUDA: queue the copy of ``y`` into pinned memory on the copy
+        stream (a ``Readback``); CPU: ``y`` itself."""
+        if self._copy_stream is None:
+            return y
+        out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+        return Readback(to_host_into(y, out, self._copy_stream), out.numpy())
 
     # -- layout helpers ---------------------------------------------------
     # lane l = stream*channels + channel; time-major [n, B] on device.
@@ -1087,3 +1244,19 @@ class BatchedResampler:
         if np.asarray(like).ndim == 2:
             return lanes
         return self._lanes_to_frames(lanes)
+
+
+def _serving_device(device) -> torch.device:
+    """An engine's device: "cuda" (raises without a CUDA device; the
+    kernel library is built here, so a build failure raises out of the
+    engine's constructor and never reaches the degradation handler) or
+    "cpu" (the kernels' plain versions)."""
+    device = torch.device(device)
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("device='cuda' but no CUDA device is "
+                               "available")
+        _build.load()
+    return device

@@ -20,7 +20,7 @@ import numpy as np
 import pytest
 import torch
 
-from speex_resampler_tpu_torch import BatchedResampler
+from speex_resampler_tpu_torch import BatchedResampler, FleetResampler
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import dense_fir as tdf
 from speex_resampler_tpu_torch.ops import filter_design as tfd
@@ -665,3 +665,108 @@ def test_tiled_int8_engine_cuda_matches_cpu(cuda, streams, channels):
     assert engines[0]._step.scheme == "int8"
     assert engines[0].launches == engines[1].launches > 2
     assert np.array_equal(outs[0], outs[1])
+
+
+def _fleet_serve(fleet, frames, rng):
+    """Ragged pushes (odd streams as bytes cut at odd offsets), poll,
+    flush, pull every stream."""
+    for s in range(fleet.n_streams):
+        f = frames[s]
+        cuts = sorted(rng.integers(1, f.shape[0], 2).tolist())
+        for a, b in zip([0] + cuts, cuts + [f.shape[0]]):
+            if s % 2:
+                raw = f[a:b].astype("<i2").tobytes()
+                fleet.push_bytes(s, raw[:len(raw) // 2 | 1])
+                fleet.push_bytes(s, raw[len(raw) // 2 | 1:])
+            else:
+                fleet.push(s, f[a:b])
+    fleet.poll()
+    fleet.flush()
+    return [fleet.pull(s) for s in range(fleet.n_streams)]
+
+
+@pytest.mark.parametrize("depth", [1, 2])
+@pytest.mark.parametrize("fixed", [False, True], ids=["int8", "fixed"])
+@pytest.mark.parametrize("streams", [4, 65], ids=["B8", "B130"])
+def test_fleet_cuda_matches_cpu(cuda, streams, fixed, depth):
+    """FleetResampler on the card (native stager, pinned slabs, the
+    upload / compute / readback streams) equals the CPU fleet bit for bit
+    at the flagship, float ("auto" = int8) and fixed, each fleet launch
+    one kernel launch."""
+    q = 2352
+    rng = np.random.default_rng(streams)
+    frames = rng.integers(-32768, 32768, (streams, 4 * q, 2),
+                          dtype=np.int16)
+    lens = 3 * q + rng.integers(0, q, streams)
+    frames = [frames[s, :lens[s]] for s in range(streams)]
+    outs = []
+    scheme = "fixed" if fixed else "int8"
+    for device in ("cuda", "cpu"):
+        fleet = FleetResampler(streams, 2, 44100, 48000, 7, device=device,
+                               fixed_point=fixed, target_chunk_frames=q,
+                               pipeline_depth=depth)
+        assert fleet.stager_kind == "native"
+        before = ttf.launches[scheme]
+        outs.append(_fleet_serve(fleet, frames, np.random.default_rng(1)))
+        if device == "cuda":
+            assert fleet._step.scheme == scheme
+            assert all(s._pinned.is_pinned() for s in fleet._slabs)
+            assert all(b.is_pinned() for b in fleet._readback_bufs)
+            assert ttf.launches[scheme] - before == fleet.stats.launches == 4
+            assert not fleet.degraded
+    for a, b in zip(*outs):
+        assert a.shape == b.shape and np.array_equal(a, b)
+
+
+def test_fleet_readback_fault_degrades_with_a_warning(cuda):
+    """A fault surfacing where a launch's readback is synchronized
+    degrades the CUDA fleet (cause, counter, warning) and keeps the exact
+    per-stream counts as zeros."""
+    class _BadEvent:
+        def synchronize(self):
+            raise RuntimeError("injected readback fault")
+
+    from speex_resampler_tpu_torch.utils.host import Readback
+    q = 2352
+    rng = np.random.default_rng(3)
+    frames = rng.integers(-32768, 32768, (4, 2 * q, 2), dtype=np.int16)
+    fleets = [FleetResampler(4, 2, 44100, 48000, 7, target_chunk_frames=q)
+              for _ in range(2)]
+    bad = fleets[0]
+    real = bad._readback
+    bad._readback = lambda i, y: Readback(_BadEvent(), real(i, y).wait())
+    for f in fleets:
+        for s in range(4):
+            f.push(s, frames[s])
+    fleets[1].poll()
+    with pytest.warns(RuntimeWarning, match="degraded"):
+        assert bad.poll() == 2
+    assert bad.degraded and "injected" in str(bad.degraded_cause)
+    assert bad.degraded_launches == 2
+    for s in range(4):
+        got, want = bad.pull(s), fleets[1].pull(s)
+        assert got.shape == want.shape and not got.any() and want.any()
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["int8", "fixed"])
+def test_batched_two_slab_pipeline_equals_one_launch_a_call(cuda, fixed):
+    """process() of four quanta (launch i+1 queued before launch i is read
+    back, two pinned slabs) gives the same bits as four calls of one
+    quantum each, and as the CPU engine."""
+    q = 2352
+    rng = np.random.default_rng(11)
+    frames = rng.integers(-32768, 32768, (65, 4 * q + 300, 2),
+                          dtype=np.int16)
+    outs = []
+    for device, calls in (("cuda", 1), ("cuda", 4), ("cpu", 1)):
+        eng = BatchedResampler(65, 2, 44100, 48000, 7, device=device,
+                               fixed_point=fixed, target_chunk_frames=q)
+        if device == "cuda":
+            assert all(s._pinned.is_pinned() for s in eng._slabs)
+        n = frames.shape[1] // calls
+        got = [eng.process(frames[:, k * n:(k + 1) * n])
+               for k in range(calls)] + [eng.flush()]
+        outs.append(np.concatenate(got, axis=1))
+        assert not eng.degraded
+    assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0],
+                                                                outs[2])
