@@ -21,7 +21,27 @@ nvcc per source, in parallel) and drives the serving paths of
   split5 scheme); the f32 kernel is checked and timed at the same launch;
 - the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
   streams, 9408-frame quanta), float (the int8 kernel) and fixed, through
-  the native C++ stager, pinned slabs and the copy/compute pipeline.
+  the native C++ stager, pinned slabs and the copy/compute pipeline;
+- phase 7, the single-stream layer: the reference integration matrix
+  (seven configs, 10 s of seeded PCM, one shot and 1024-frame chunks)
+  through ``SpeexResampler.process_chunk`` on the device route
+  (``engine="device"``, one f32 matmul a call on the card, plain torch)
+  against the host route (the native loops, bit-identical to the
+  reference float build) within 1 LSB under the tie bound; the default
+  route's native loops; 16- and 64-channel cores (``auto`` takes the
+  device route); the gather route (44.1 kHz -> 44.101 kHz); the fixed
+  universe bit-exact against ``device="cpu"``; one core with TF32 switched
+  on around it; then process_chunk out samples/s, host against device
+  route, at 2, 8, 16 and 64 channels;
+- phase 8, ``MultiFleet`` at full width: 1024 stereo streams over four
+  buckets (44.1k -> 48k q7, 24k -> 48k q5, 48k -> 44.1k q10, 44.1k -> 24k
+  q5; 257 slots each, 2048-frame target), one quantum a stream a round,
+  an end_stream, an add_stream and an exact set_stream_rate mid-run, ten
+  timed rounds, float and fixed: every bucket's kernel launched (the
+  kernel counts equal the buckets' launches), no bucket degraded, streams
+  0-3 and the last of each bucket, the ended, switched and added streams
+  bit-identical with a ``device="cpu"`` MultiFleet fed the same frames,
+  and out samples/s with the push, poll and pull ms a round.
 
 For each path it holds every kernel against its plain PyTorch version on
 the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
@@ -71,11 +91,14 @@ import time
 import numpy as np
 import torch
 
-from speex_resampler_tpu_torch import BatchedResampler, FleetResampler
+from speex_resampler_tpu_torch import (BatchedResampler, FleetResampler,
+                                       SpeexResampler)
+from speex_resampler_tpu_torch.runtime import MultiFleet
 from speex_resampler_tpu_torch.ops import _build, phase as ph
 from speex_resampler_tpu_torch.ops.convert import word2int
 from speex_resampler_tpu_torch.ops import dense_fir as df
 from speex_resampler_tpu_torch.ops import filter_design as fd
+from speex_resampler_tpu_torch.ops import fir_exact
 from speex_resampler_tpu_torch.ops import fir_matmul as fm
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
@@ -94,6 +117,18 @@ LANES = STREAMS * CHANNELS
 
 #: every kernel module, by the geometry it launches
 MODULES = {"tiled": tf, "streamed": sf, "dense": df}
+
+
+def reset_launches() -> None:
+    """Every kernel module's launch counts to 0."""
+    for module in MODULES.values():
+        module.launches.update(dict.fromkeys(module.launches, 0))
+
+
+def launch_counts() -> dict:
+    """The nonzero launch counts, by geometry and scheme."""
+    return {k: {s: n for s, n in m.launches.items() if n}
+            for k, m in MODULES.items() if any(m.launches.values())}
 
 
 class Path:
@@ -581,8 +616,7 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
     frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
                            dtype=np.int16)
               for n in path.frames + path.after]
-    for module in MODULES.values():
-        module.launches.update(dict.fromkeys(module.launches, 0))
+    reset_launches()
     engines, outs, walls = {}, {}, {}
     for request, scheme in requests.items():
         t0 = time.time()
@@ -780,8 +814,7 @@ def fleet_check(fixed: bool) -> None:
     rem = rng.integers(0, q, STREAMS)
     frames = rng.integers(-32768, 32768, (STREAMS, 2 * q + q, CHANNELS),
                           dtype=np.int16)
-    for module in MODULES.values():
-        module.launches.update(dict.fromkeys(module.launches, 0))
+    reset_launches()
     t0 = time.perf_counter()
     for s in range(STREAMS):
         fleet_push(f, s, frames[s, :2 * q + rem[s]], rng)
@@ -912,6 +945,292 @@ def process_time(eng, frames: np.ndarray, smi: str, quanta: int) -> None:
           f"median of 5)")
 
 
+# -- phase 7: the single-stream layer ------------------------------------
+
+# the reference integration matrix (tests/conftest.py AUDIO_TESTS,
+# src/test.ts:14-22): (channels, in_rate, out_rate, quality)
+SINGLE = [(1, 24000, 48000, 5), (2, 24000, 24000, 5), (2, 24000, 48000, 10),
+          (2, 44100, 48000, 7), (2, 44100, 48000, 10), (2, 44100, 48000, 1),
+          (2, 44100, 24000, 5)]
+SINGLE_SECONDS = 10
+SINGLE_CHUNK = 1024           # frames a process_chunk call, chunked runs
+
+
+def stream_pcm(channels: int, rate: int, seed: int,
+               seconds: float = SINGLE_SECONDS) -> bytes:
+    rng = np.random.default_rng(seed)
+    return rng.integers(-32768, 32768, (int(seconds * rate), channels),
+                        dtype=np.int16).astype("<i2").tobytes()
+
+
+def run_chunks(r, pcm: bytes, chunk_frames: int) -> bytes:
+    """One shot (chunk_frames 0) or chunk_frames a process_chunk call."""
+    if not chunk_frames:
+        return r.process_chunk(pcm)
+    step = chunk_frames * r.channels * 2
+    return b"".join(r.process_chunk(pcm[a:a + step])
+                    for a in range(0, len(pcm), step))
+
+
+def check_device_core(core, what: str) -> None:
+    """The core took the device route on the card and did not degrade."""
+    if core._host_route or core.fixed_point or core.device.type != "cuda":
+        raise AssertionError(f"{what}: host route or device "
+                             f"{core.device}")
+    if core.degraded:
+        raise AssertionError(f"{what}: degraded: {core.degraded_cause!r}")
+    if not all(w.is_cuda for w in core._weights._cache.values()):
+        raise AssertionError(f"{what}: weights off the card")
+
+
+def lsb_check(got: bytes, want: bytes, what: str) -> str:
+    g, w = (np.frombuffer(b, dtype="<i2") for b in (got, want))
+    err, mism = compare(g, w, "highest", what)
+    return f"max|err|={err} mismatches={mism} {ties(mism, w.size)}"
+
+
+def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
+    """The integration matrix through SpeexResampler.process_chunk, one
+    shot and in 1024-frame chunks: the device route on the card against
+    the host route (the reference float build's bits) within 1 LSB under
+    the tie bound; the default route runs the native loops; 16- and
+    64-channel cores (auto: the device route), the gather route, the
+    fixed universe (bit-exact against device="cpu") and the TF32 guard.
+    Plain torch on the card: no kernel of MODULES launches."""
+    reset_launches()
+    for i, (c, ir, orr, q) in enumerate(SINGLE):
+        pcm = stream_pcm(c, ir, 100 + i, seconds)
+        for chunk in (0, SINGLE_CHUNK):
+            outs = {}
+            for engine in ("host", "device"):
+                r = SpeexResampler(c, ir, orr, q, engine=engine,
+                                   device="cuda")
+                outs[engine] = run_chunks(r, pcm, chunk)
+                if engine == "device":
+                    check_device_core(r._core, f"{ir}->{orr} q{q}")
+            what = (f"single {c}ch {ir}->{orr} q{q} "
+                    f"{'chunks of %d' % chunk if chunk else 'one shot'}")
+            print(f"{what}: device vs host route "
+                  f"{lsb_check(outs['device'], outs['host'], what)}, "
+                  f"{len(outs['host']) // 2 // c} frames out")
+    # the default route (auto, stereo): the native host loops
+    loops = dict(fir_exact.loops)
+    r = SpeexResampler(2, 44100, 48000, 7)
+    out = run_chunks(r, stream_pcm(2, 44100, 7, seconds), SINGLE_CHUNK)
+    native = fir_exact.loops["native"] - loops["native"]
+    numpy_loops = fir_exact.loops["numpy"] - loops["numpy"]
+    if not r._core._host_route or native == 0 or numpy_loops:
+        raise AssertionError(f"default route: host {r._core._host_route}, "
+                             f"native {native}, numpy {numpy_loops}")
+    print(f"single default route (auto, stereo): host loops, {native} "
+          f"native calls, {numpy_loops} NumPy, {len(out) // 4} frames out")
+    # wide cores (auto -> device), the gather route, the TF32 guard
+    for c, ir, orr, engine, tf32 in ((16, 44100, 48000, "auto", False),
+                                     (64, 44100, 48000, "auto", False),
+                                     (2, 44100, 44101, "device", False),
+                                     (16, 44100, 48000, "auto", True)):
+        pcm = stream_pcm(c, ir, c + orr, seconds)
+        host = run_chunks(SpeexResampler(c, ir, orr, 7, engine="host"),
+                          pcm, SINGLE_CHUNK)
+        r = SpeexResampler(c, ir, orr, 7, engine=engine, device="cuda")
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        try:
+            got = run_chunks(r, pcm, SINGLE_CHUNK)
+            if torch.backends.cuda.matmul.allow_tf32 is not tf32:
+                raise AssertionError("the TF32 flag was not restored")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
+        check_device_core(r._core, f"{c}ch {ir}->{orr}")
+        route = ("gather" if orr == 44101 else "matmul")
+        what = (f"single {c}ch {ir}->{orr} q7 {engine} ({route}"
+                f"{', TF32 on around it' if tf32 else ''})")
+        print(f"{what}: device vs host route {lsb_check(got, host, what)}")
+    pcm = stream_pcm(2, 44100, 5, seconds)
+    fixed = [run_chunks(SpeexResampler(2, 44100, 48000, 7, fixed_point=True,
+                                       device=d), pcm, SINGLE_CHUNK)
+             for d in ("cuda", "cpu")]
+    if fixed[0] != fixed[1]:
+        raise AssertionError("fixed universe: cuda and cpu differ")
+    print(f"single fixed 2ch 44100->48000 q7: device='cuda' bit-identical "
+          f"to device='cpu' ({len(fixed[0]) // 4} frames)")
+    if launch_counts():
+        raise AssertionError(f"single-stream layer launched kernels "
+                             f"{launch_counts()}")
+
+
+def single_stream_time(smi: str, seconds: float = SINGLE_SECONDS) -> None:
+    """process_chunk out samples/s, host against device route, at 2, 8,
+    16 and 64 channels, 44.1k -> 48k q7, 1024-frame chunks and one shot
+    (the first run of each warms up)."""
+    for c in (2, 8, 16, 64):
+        pcm = stream_pcm(c, 44100, c, seconds)
+        row = []
+        for engine in ("host", "device"):
+            for chunk in (SINGLE_CHUNK, 0):
+                walls = []
+                for _ in range(3):
+                    r = SpeexResampler(c, 44100, 48000, 7, engine=engine,
+                                       device="cuda")
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = run_chunks(r, pcm, chunk)
+                    walls.append(time.perf_counter() - t0)
+                wall = float(np.median(walls[1:]))
+                rate = len(out) // 2 / wall
+                row.append(f"{engine} {'chunks' if chunk else 'one shot'} "
+                           f"{rate / 1e6:.2f} M/s")
+        print(f"single-stream timing {c}ch 44100->48000 q7 on {smi}: "
+              f"out samples/s {', '.join(row)} ({seconds} s of audio, "
+              f"median of 2 after one)")
+
+
+# -- phase 8: MultiFleet at full width ------------------------------------
+
+MF_CONFIGS = [(44100, 48000, 7), (24000, 48000, 5), (48000, 44100, 10),
+              (44100, 24000, 5)]
+MF_TARGET = 2048
+MF_ROUNDS = 10
+
+
+def multifleet_run(fixed: bool, per: int, smi: str, rounds: int,
+                   checked: set):
+    """``per`` stereo streams a bucket over the four buckets, one quantum a
+    stream a round: a warm-up round, one end_stream (b0s4), one add_stream
+    ("fresh", bucket 0) and one exact set_stream_rate (b0s5 to bucket 1's
+    config), two more rounds, ``rounds`` timed rounds, then flush.  A CPU
+    MultiFleet makes the same calls on the ``checked`` streams, outside
+    the timed regions.  Returns (card fleet, card outputs, CPU outputs by
+    stream id)."""
+    mf = MultiFleet(CHANNELS, capacity_per_bucket=per + 1,
+                    target_chunk_frames=MF_TARGET, fixed_point=fixed)
+    ref = MultiFleet(CHANNELS, capacity_per_bucket=8,
+                     target_chunk_frames=MF_TARGET, device="cpu",
+                     fixed_point=fixed)
+    cfg_of = {f"b{b}s{i}": MF_CONFIGS[b] for b in range(len(MF_CONFIGS))
+              for i in range(per)}
+    for sid, cfg in cfg_of.items():
+        mf.add_stream(sid, *cfg)
+        if sid in checked:
+            ref.add_stream(sid, *cfg)
+    if mf._buckets[MF_CONFIGS[0]].fleet.stager_kind != "native":
+        raise AssertionError("multifleet stager not native")
+    q = {cfg: mf._buckets[cfg].fleet.bspec.in_per_launch
+         for cfg in MF_CONFIGS}
+    rng = np.random.default_rng(31 + fixed)
+    outs = {sid: [] for sid in checked}
+    ref_outs = {sid: [] for sid in checked}
+
+    def row(sid):
+        # "fresh" and the switched stream take the spare rows
+        return per + 1 if sid in ("fresh", "b0s5") else int(sid[3:])
+
+    def round_(times=None):
+        blocks = {cfg: rng.integers(-32768, 32768,
+                                    (per + 2, q[cfg], CHANNELS),
+                                    dtype=np.int16) for cfg in MF_CONFIGS}
+        t0 = time.perf_counter()
+        for sid, cfg in cfg_of.items():
+            mf.push(sid, blocks[cfg][row(sid)])
+        t1 = time.perf_counter()
+        n = mf.poll()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        pulled = 0
+        for sid in cfg_of:
+            y = mf.pull(sid)
+            pulled += y.shape[0]
+            if sid in checked:
+                outs[sid].append(y)
+        t3 = time.perf_counter()
+        for sid in checked & cfg_of.keys():
+            ref.push(sid, blocks[cfg_of[sid]][row(sid)])
+        ref.poll()
+        for sid in checked & cfg_of.keys():
+            ref_outs[sid].append(ref.pull(sid))
+        if times is not None:
+            times.append((t1 - t0, t2 - t1, t3 - t2, pulled, n))
+
+    round_()
+    for m, o in ((mf, outs), (ref, ref_outs)):
+        m.end_stream("b0s4")
+        o["b0s4"].append(m.pull("b0s4"))
+        m.add_stream("fresh", *MF_CONFIGS[0])
+        m.set_stream_rate("b0s5", *MF_CONFIGS[1])
+    del cfg_of["b0s4"]
+    cfg_of["fresh"] = MF_CONFIGS[0]
+    cfg_of["b0s5"] = MF_CONFIGS[1]
+    for _ in range(2):
+        round_()
+    times = []
+    for _ in range(rounds):
+        round_(times)
+    for m, o in ((mf, outs), (ref, ref_outs)):
+        m.flush()
+        for sid in o:
+            if sid in cfg_of:
+                o[sid].append(m.pull(sid))
+    push, poll, pull, out, n = (np.array(v) for v in zip(*times))
+    samples = int(out.sum()) * CHANNELS
+    wall = float((push + poll + pull).sum())
+    print(f"multifleet {'fixed' if fixed else 'float'} on {smi}: "
+          f"{len(cfg_of)} stereo streams over {len(MF_CONFIGS)} buckets, "
+          f"{rounds} timed rounds of one quantum a stream: "
+          f"{samples / wall / 1e6:.2f} M out samples/s ("
+          f"{wall * 1e3 / rounds:.2f} ms a round, the CPU reference's "
+          f"calls excluded); card ms a round: push "
+          f"{push.mean() * 1e3:.2f}, poll {poll.mean() * 1e3:.2f}, pull "
+          f"{pull.mean() * 1e3:.2f} (min {push.min() * 1e3:.2f} / "
+          f"{poll.min() * 1e3:.2f} / {pull.min() * 1e3:.2f}); "
+          f"{int(n.sum())} launches in the timed rounds")
+    print(f"  bucket stats (whole run) {json.dumps(mf.stats())}")
+    return mf, outs, ref_outs
+
+
+def multifleet_check(fixed: bool, smi: str, per: int = STREAMS // 4,
+                     rounds: int = MF_ROUNDS) -> dict:
+    """Phase 8 in one universe, its kernel launches counted from 0: every
+    bucket's kernel launched (the kernel counts equal the buckets' launch
+    counts), no bucket degraded, the checked streams (0-3 and the last of
+    each bucket, the ended, the switched and the fresh stream)
+    bit-identical to the CPU MultiFleet fed the same frames.  Returns the
+    run's launches by kernel name."""
+    checked = {f"b{b}s{i}" for b in range(len(MF_CONFIGS))
+               for i in (0, 1, 2, 3, per - 1)} | {"b0s4", "b0s5", "fresh"}
+    reset_launches()
+    mf, outs, ref_outs = multifleet_run(fixed, per, smi, rounds, checked)
+    counts = {k: dict(m.launches) for k, m in MODULES.items()}
+    if mf.degraded or any(mf.degraded_buckets().values()):
+        raise AssertionError(f"multifleet degraded: {mf.degraded_buckets()}")
+    by_kernel: dict = {}
+    by_scheme: dict = {}
+    for cfg, b in mf._buckets.items():
+        fleet, step = b.fleet, b.fleet._step
+        key = (fleet.bspec.kernel, step.scheme,
+               step.kernel_kw.get("n_accum", 1))
+        n = fleet.stats.launches
+        if n <= 0:
+            raise AssertionError(f"bucket {cfg}: no launch")
+        by_kernel[kernel_name(*key)] = by_kernel.get(kernel_name(*key),
+                                                     0) + n
+        by_scheme[key[:2]] = by_scheme.get(key[:2], 0) + n
+        print(f"  bucket {cfg}: {fleet.bspec.kernel} {step.scheme} -> "
+              f"{kernel_name(*key)}, quantum {fleet.bspec.in_per_launch} "
+              f"frames, {n} launches, degraded {fleet.degraded}")
+    ran = {(k, s): n for k, m in counts.items() for s, n in m.items() if n}
+    if ran != by_scheme:
+        raise AssertionError(f"kernel launches {ran} vs buckets {by_scheme}")
+    scheme = "fixed" if fixed else "int8"
+    for sid in sorted(checked):
+        got, want = (np.concatenate(o[sid]) for o in (outs, ref_outs))
+        if got.shape[0] == 0:
+            raise AssertionError(f"multifleet stream {sid}: no output")
+        compare(got, want, scheme, f"multifleet {scheme} stream {sid}")
+    print(f"multifleet {scheme}: kernel launches {by_kernel}; streams "
+          f"{sorted(checked)} bit-identical with the cpu MultiFleet")
+    return by_kernel
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -990,6 +1309,16 @@ def main() -> None:
     _, engines, frames = served[FLAGSHIP]
     big = np.concatenate(frames[:3], axis=1)     # 41000 frames a stream
     process_time(engines["int8"], big, smi, quanta=4)
+    print(f"fleet and process timed: {time.time() - t_start:.1f} s")
+    # -- phase 7: the single-stream layer (SpeexResampler, ResamplerCore)
+    single_stream_check()
+    single_stream_time(smi)
+    print(f"single-stream layer: {time.time() - t_start:.1f} s")
+    # -- phase 8: MultiFleet, 1024 stereo streams over four buckets
+    mf_launches = {}
+    for fixed in (False, True):
+        mf_launches.update(multifleet_check(fixed, smi))
+    print(f"multifleet launches by kernel: {json.dumps(mf_launches)}")
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,20 +1,33 @@
-"""speex_resampler_tpu_torch — the resampler's batched serving path on
-PyTorch and CUDA (NVIDIA Hopper).
+"""speex_resampler_tpu_torch — the resampler on PyTorch and CUDA (NVIDIA
+Hopper).
 
 A port of ``speex_resampler_tpu``, which stays the reference: the same
-filter design, launch geometry and buffer contract, with the polyphase FIR
-launches of the tiled, streamed and dense geometries as hand-written CUDA
-kernels (``csrc/``, built with nvcc at first use).  ``BatchedResampler``
-serves lockstep streams; ``FleetResampler`` serves streams at their own
-cadence through the native C++ stager (``native/``, built with g++ at
-first use).  This package imports torch and numpy, never jax.
+filter design, launch geometry, buffer contract and checkpoint formats,
+with the polyphase FIR launches of the tiled, streamed and dense
+geometries as hand-written CUDA kernels (``csrc/``, built with nvcc at
+first use).  ``SpeexResampler`` / ``SpeexResamplerTransform`` are the
+reference's single-stream API over ``ResamplerCore``;
+``BatchedResampler`` serves lockstep streams; ``FleetResampler`` serves
+streams at their own cadence through the native C++ runtime (``native/``,
+built with g++ at first use), and ``runtime.MultiFleet`` serves streams of
+many configs, one fleet a config.  This package imports torch and numpy,
+never jax.
 """
 
-from .utils.errors import ResamplerError, ResamplerErrorCode
+from .api import SpeexResampler, SpeexResamplerTransform
+from .utils.errors import (ResamplerError, ResamplerErrorCode, strerror,
+                           QUALITY_MAX, QUALITY_MIN, QUALITY_DEFAULT,
+                           QUALITY_VOIP, QUALITY_DESKTOP)
+from .core.resampler import ResamplerCore
 from .parallel.batch import BatchedResampler
 from .runtime.fleet import FleetResampler
 
 __version__ = "0.1.0"
 
-__all__ = ["BatchedResampler", "FleetResampler", "ResamplerError",
-           "ResamplerErrorCode", "__version__"]
+__all__ = [
+    "SpeexResampler", "SpeexResamplerTransform", "ResamplerCore",
+    "BatchedResampler", "FleetResampler",
+    "ResamplerError", "ResamplerErrorCode", "strerror",
+    "QUALITY_MAX", "QUALITY_MIN", "QUALITY_DEFAULT", "QUALITY_VOIP",
+    "QUALITY_DESKTOP", "__version__",
+]

@@ -4,6 +4,9 @@ Counterpart of ``speex_resampler_tpu/ops/fir_matmul.py``.  The JAX package
 runs these outside any ``pallas_call`` (XLA fuses them), so they are no TPU
 kernels and stay plain torch on every device, the card included:
 
+- :func:`resample_conv`: ``ResamplerCore``'s device route, one f32 matmul
+  of strided patches against the padded phase weights, in full FP32 (the
+  JAX package's ``Precision.HIGHEST``) whatever the caller set for TF32;
 - :func:`resample_conv_tm_fixed`: the fixed-point (Q15) dense launch, exact;
 - :func:`resample_gather` / :func:`resample_gather_fixed`: the weight-free
   gather launch of huge-denominator ratios (e.g. 44100 -> 44101), float and
@@ -28,9 +31,9 @@ import torch
 
 from .convert import word2int
 from .fixed_math import fixed_interp_mix_rows, sat32pshr15
-from .tiled_fir import wrap_int32
+from .tiled_fir import _no_tf32, wrap_int32
 
-__all__ = ["MAX_PADDED_WEIGHT_BYTES", "choose_group",
+__all__ = ["MAX_PADDED_WEIGHT_BYTES", "choose_group", "resample_conv",
            "resample_conv_tm_fixed", "resample_gather",
            "resample_gather_fixed"]
 
@@ -69,6 +72,32 @@ def dense_patches(x: torch.Tensor, L: int, stride: int) -> torch.Tensor:
     n_blocks = T // stride - L // stride
     assert n_blocks >= 1, (T, L, stride)
     return x.unfold(0, L, stride)[:n_blocks].transpose(1, 2)
+
+
+def resample_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int,
+                  raw: bool = False) -> torch.Tensor:
+    """One launch of the single-stream device route: strided patches times
+    the padded phase weights.
+
+    x: f32 (or int16) [batch, T]  history ++ chunk ++ zero pad, where
+                                  T = n_blocks * stride + L
+    w: f32 [L, R]                 padded phase weights, L % stride == 0
+    returns int16 [batch, n_blocks * R] through WORD2INT, or the raw f32
+    sums (the float-sample API, no WORD2INT) when ``raw``; callers slice
+    off the masked tail outputs.
+
+    Patch b is x[b*stride : b*stride + L] (an unfold view); the product is
+    one f32 matmul with TF32 off for its duration."""
+    L, R = w.shape
+    batch, T = x.shape
+    assert T % stride == 0 and L % stride == 0, (T, L, stride)
+    n_blocks = T // stride - L // stride
+    patches = x.unfold(1, L, stride)[:, :n_blocks]        # [batch, nb, L]
+    with _no_tf32():
+        y = torch.matmul(patches.reshape(batch * n_blocks, L).float(),
+                         w.float())                       # [batch*nb, R]
+    y = y.reshape(batch, n_blocks * R)
+    return y if raw else word2int(y)
 
 
 def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
@@ -110,13 +139,14 @@ def _windows(x: torch.Tensor, starts: torch.Tensor, o0: int, o1: int,
 
 def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                     starts: torch.Tensor, *,
-                    tile: int | None = None) -> torch.Tensor:
+                    tile: int | None = None,
+                    raw: bool = False) -> torch.Tensor:
     """Float gather launch: per-output tap-row dots.
 
-    x:      int16[batch, T]
+    x:      int16 (or f32) [batch, T]
     taps:   f32[n_out, N]   each output's taps, gathered by phase
     starts: int32[n_out]    window starts (clamped in range)
-    returns int16[batch, n_out]
+    returns int16[batch, n_out], or the raw f32 sums when ``raw``
 
     Each dot is taken in float64 (the products of f32 taps and int16
     samples are exact there), rounded once to f32, then WORD2INT: within
@@ -132,7 +162,7 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
         win = _windows(x, starts, o0, o1, N)               # [t, N, batch]
         y[o0:o1] = torch.matmul(taps[o0:o1, None, :].double(),
                                 win)[:, 0].float()
-    return word2int(y).t()
+    return y.t() if raw else word2int(y).t()
 
 
 def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,

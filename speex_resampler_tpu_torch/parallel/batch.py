@@ -1246,11 +1246,12 @@ class BatchedResampler(ZeroFillDegradation):
         return self._lanes_to_frames(lanes)
 
 
-def _serving_device(device) -> torch.device:
-    """An engine's device: "cuda" (raises without a CUDA device; the
-    kernel library is built here, so a build failure raises out of the
-    engine's constructor and never reaches the degradation handler) or
-    "cpu" (the kernels' plain versions)."""
+def _serving_device(device, kernels: bool = True) -> torch.device:
+    """An engine's device: "cuda" (raises without a CUDA device; with
+    ``kernels`` the kernel library is built here, so a build failure raises
+    out of the engine's constructor and never reaches the degradation
+    handler) or "cpu" (the kernels' plain versions).  ResamplerCore's
+    device route launches no kernel and passes ``kernels=False``."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -1258,5 +1259,6 @@ def _serving_device(device) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is "
                                "available")
-        _build.load()
+        if kernels:
+            _build.load()
     return device

@@ -467,6 +467,19 @@ class FleetResampler(ZeroFillDegradation):
         self._banked = [sum(o.shape[0] for o in outs)
                         for outs in self._out]
 
+    def close(self) -> None:
+        """Release the fleet's device history, slabs (pinned and device
+        twins), pinned readback buffers and stager now, not when the
+        garbage collector finds the fleet (MultiFleet closes the fleet of
+        an evicted bucket).  The step's weights stay in the step cache that
+        engines of one config share.  A closed fleet is not used again."""
+        self._slabs = []
+        self._readback_bufs = []
+        self._hist = None
+        self._stager = None
+        self._step = self._w = None
+        self._upload_stream = self._readback_stream = None
+
     # -- egress -----------------------------------------------------------
 
     @property

@@ -1,7 +1,7 @@
-"""ctypes bindings for the native host runtime's stager
+"""ctypes bindings for the native host runtime
 (``speex_resampler_tpu_torch/native/speex_tpu_runtime.cpp``, a byte-identical
 copy of the JAX package's source, so the port imports nothing of that
-package).
+package): the fleet's stager and the single-stream FIR hot loops.
 
 The shared library is compiled at first use with g++ into
 ``build/torch_runtime/`` at the root of the checkout (per-pid temporary
@@ -9,8 +9,9 @@ name, then an atomic rename: concurrent importers such as pytest-xdist
 workers never open a half-written library).  When the compiler is missing
 or fails, ``make_stager`` falls back to ``PyStager``, the NumPy
 implementation of the same interface and the stager's plain version, and
-logs a warning.  The single-stream FIR twins of the library are not bound
-here yet (ROADMAP M9).
+the FIR twins return None so their callers (``ops/fir_exact``,
+``ops/fir_fixed``) run their NumPy loops, which give the same bits; each
+fallback logs a warning.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ import numpy as np
 
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 
-__all__ = ["load_runtime", "NativeStager", "PyStager", "make_stager"]
+__all__ = ["load_runtime", "NativeStager", "PyStager", "make_stager",
+           "fir_q15_direct", "fir_q15_interp", "fir_f32_direct",
+           "fir_f32_interp"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "native" / "speex_tpu_runtime.cpp"
@@ -140,8 +143,133 @@ def load_runtime():
     lib.srt_fill_launch_lm.argtypes = [c.c_void_p, c.c_void_p, c.c_long]
     lib.srt_unpack_all_lm.argtypes = [c.c_void_p, c.c_void_p, c.c_long,
                                       c.c_void_p]
+    lib.srt_fir_q15_direct.argtypes = [
+        c.c_void_p, c.c_long, c.c_long, c.c_void_p, c.c_long,
+        c.c_void_p, c.c_void_p, c.c_long, c.c_void_p]
+    lib.srt_fir_q15_interp.argtypes = [
+        c.c_void_p, c.c_long, c.c_long, c.c_void_p, c.c_void_p, c.c_long,
+        c.c_void_p, c.c_void_p, c.c_long, c.c_void_p]
+    lib.srt_fir_f32_direct.argtypes = [
+        c.c_void_p, c.c_long, c.c_long, c.c_void_p, c.c_long,
+        c.c_void_p, c.c_void_p, c.c_long, c.c_int, c.c_long, c.c_long,
+        c.c_void_p]
+    lib.srt_fir_f32_interp.argtypes = [
+        c.c_void_p, c.c_long, c.c_long, c.c_void_p, c.c_long, c.c_long,
+        c.c_long, c.c_void_p, c.c_void_p, c.c_long, c.c_int, c.c_void_p]
+    for f in (lib.srt_fir_q15_direct, lib.srt_fir_q15_interp,
+              lib.srt_fir_f32_direct, lib.srt_fir_f32_interp):
+        f.restype = None
     _lib = lib
     return _lib
+
+
+# ---------------------------------------------------------------------------
+# Single-stream FIR hot loops (native twins of ops/fir_fixed.py /
+# ops/fir_exact.py — those modules remain the semantics references and
+# call these when the library is available).  All return None if the
+# native runtime could not be built, so callers fall back to NumPy.
+# ---------------------------------------------------------------------------
+
+_fir_warned = False
+
+
+def _fir_lib():
+    """The loaded runtime, or None after one logged warning."""
+    global _fir_warned
+    lib = load_runtime()
+    if lib is None and not _fir_warned:
+        _fir_warned = True
+        _log.warning("native FIR loops unavailable (g++ build of %s "
+                     "failed); the host route runs the NumPy loops", _SRC)
+    return lib
+
+
+def _c16(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int16)
+
+
+def _c64(a) -> np.ndarray:
+    return np.ascontiguousarray(a, dtype=np.int64)
+
+
+def _fir_args(x: np.ndarray, starts: np.ndarray,
+              phases: np.ndarray) -> tuple:
+    """Checked (starts, phases, B, T, m): the loops index x by them."""
+    starts, phases = _c64(starts), _c64(phases)
+    if x.ndim != 2 or starts.shape != phases.shape or starts.ndim != 1:
+        _invalid(f"x {x.shape}, starts {starts.shape}, phases "
+                 f"{phases.shape}")
+    return starts, phases, x.shape[0], x.shape[1], starts.shape[0]
+
+
+def fir_q15_direct(x: np.ndarray, taps: np.ndarray, starts: np.ndarray,
+                   phases: np.ndarray) -> np.ndarray | None:
+    """x int16 [B, T]; taps int16 [rows, N]; -> int16 [B, m] or None."""
+    lib = _fir_lib()
+    if lib is None:
+        return None
+    x, taps = _c16(x), _c16(taps)
+    starts, phases, B, T, m = _fir_args(x, starts, phases)
+    out = np.empty((B, m), dtype=np.int16)
+    lib.srt_fir_q15_direct(_ptr(x), B, T, _ptr(taps), taps.shape[1],
+                           _ptr(starts), _ptr(phases), m, _ptr(out))
+    return out
+
+
+def fir_q15_interp(x: np.ndarray, taps4: np.ndarray, coef4: np.ndarray,
+                   starts: np.ndarray, phases: np.ndarray
+                   ) -> np.ndarray | None:
+    """x int16 [B, T]; taps4 int16 [rows, 4, N]; coef4 int16 [rows, 4]."""
+    lib = _fir_lib()
+    if lib is None:
+        return None
+    x, taps4, coef4 = _c16(x), _c16(taps4), _c16(coef4)
+    starts, phases, B, T, m = _fir_args(x, starts, phases)
+    out = np.empty((B, m), dtype=np.int16)
+    lib.srt_fir_q15_interp(_ptr(x), B, T, _ptr(taps4), _ptr(coef4),
+                           taps4.shape[2], _ptr(starts), _ptr(phases), m,
+                           _ptr(out))
+    return out
+
+
+def fir_f32_direct(x: np.ndarray, taps: np.ndarray, starts: np.ndarray,
+                   phases: np.ndarray, double: bool, *, num: int = 0,
+                   den: int = 0) -> np.ndarray | None:
+    """x f32 [B, T]; taps f32 [rows, N]; -> raw f32 sums [B, m] or None.
+    Pass num/den when starts/phases follow the canonical recurrence
+    (phases[k] = (f0+k*num) mod den) to enable the phase-grouped
+    output-vectorized path (bit-identical; each output keeps its serial
+    j-order)."""
+    lib = _fir_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    taps = np.ascontiguousarray(taps, dtype=np.float32)
+    starts, phases, B, T, m = _fir_args(x, starts, phases)
+    out = np.empty((B, m), dtype=np.float32)
+    lib.srt_fir_f32_direct(_ptr(x), B, T, _ptr(taps), taps.shape[1],
+                           _ptr(starts), _ptr(phases), m, int(double),
+                           int(num), int(den), _ptr(out))
+    return out
+
+
+def fir_f32_interp(x: np.ndarray, sinc: np.ndarray, ov: int, den: int,
+                   N: int, starts: np.ndarray, phases: np.ndarray,
+                   double: bool) -> np.ndarray | None:
+    """x f32 [B, T]; sinc = raw interp-layout table (ov*N+8 entries,
+    offset 4); -> raw f32 sums [B, m] or None.  The caller must ensure
+    every tap index is in-bounds (offset <= ov + 2; see fir_exact)."""
+    lib = _fir_lib()
+    if lib is None:
+        return None
+    x = np.ascontiguousarray(x, dtype=np.float32)
+    sinc = np.ascontiguousarray(sinc, dtype=np.float32)
+    starts, phases, B, T, m = _fir_args(x, starts, phases)
+    out = np.empty((B, m), dtype=np.float32)
+    lib.srt_fir_f32_interp(_ptr(x), B, T, _ptr(sinc), ov, den, N,
+                           _ptr(starts), _ptr(phases), m, int(double),
+                           _ptr(out))
+    return out
 
 
 def _invalid(msg: str):

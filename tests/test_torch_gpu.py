@@ -770,3 +770,65 @@ def test_batched_two_slab_pipeline_equals_one_launch_a_call(cuda, fixed):
         assert not eng.degraded
     assert np.array_equal(outs[0], outs[1]) and np.array_equal(outs[0],
                                                                 outs[2])
+
+
+@pytest.mark.parametrize("cfg", [(16, 44100, 48000, 7), (64, 48000, 44100, 10),
+                                 (2, 44100, 44101, 7)],
+                         ids=["16ch", "64ch-q10", "gather"])
+def test_core_device_route_cuda_matches_cpu(cuda, cfg):
+    """ResamplerCore's device route on the card (one f32 matmul a call;
+    the gather route at 44.1k -> 44.101k) against the same core on the
+    CPU: within 1 LSB under the tie bound over ragged, capacity-bound
+    calls, with TF32 switched on around the card's core (the route turns
+    it off for its matmul and restores it)."""
+    from speex_resampler_tpu_torch import ResamplerCore
+    c, i, o, q = cfg
+    x = np.random.default_rng(3).integers(-32768, 32768, (24000, c),
+                                          dtype=np.int16)
+    cores = [ResamplerCore(c, i, o, i, o, q, engine="device", device=d)
+             for d in ("cuda", "cpu")]
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        outs = [[core.process_interleaved(x[a:b], cap)
+                 for a, b, cap in ((0, 9000, 10 ** 9), (9000, 9001, 5),
+                                   (9001, 20000, 700),
+                                   (20000, 24000, 10 ** 9))]
+                for core in cores]
+        assert torch.backends.cuda.matmul.allow_tf32 is True
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    for got, want in zip(*outs):
+        assert got.shape == want.shape
+        _compare(got, want, "highest")
+    assert not cores[0].degraded and cores[0].device.type == "cuda"
+
+
+def test_multifleet_bucket_churn_frees_device_memory(cuda):
+    """Buckets evicted past max_idle_buckets = 0 close their fleets: the
+    device memory allocated returns to its level after the first eviction
+    (the step weights stay in the shared step cache), and the pinned host
+    buffers are dropped."""
+    from speex_resampler_tpu_torch.runtime import MultiFleet
+    mf = MultiFleet(channels=2, capacity_per_bucket=64,
+                    target_chunk_frames=2048, max_idle_buckets=0)
+    x = np.random.default_rng(4).integers(-32768, 32768, (5000, 2),
+                                          dtype=np.int16)
+    keys = [(44100, 48000, 7), (24000, 48000, 5), (44100, 24000, 5)]
+    levels = []
+    for rnd in range(3):
+        for i, key in enumerate(keys):
+            sid = f"{rnd}-{i}"
+            mf.add_stream(sid, *key)
+            fleet = mf._buckets[key].fleet
+            mf.push(sid, x)
+            mf.poll()
+            mf.end_stream(sid)
+            assert mf.pull(sid).shape[0] > 0
+            assert key not in mf._buckets and fleet._slabs == []
+            assert fleet._readback_bufs == [] and fleet._hist is None
+            torch.cuda.synchronize()
+            levels.append(torch.cuda.memory_allocated())
+    assert not mf.degraded
+    assert levels[len(keys):] == [levels[len(keys) - 1]] * (2 * len(keys)), \
+        levels

@@ -12,6 +12,8 @@ REPO = Path(__file__).resolve().parent.parent
 def test_import_loads_no_jax_or_triton():
     code = ("import sys, speex_resampler_tpu_torch as p; "
             "assert p.BatchedResampler and p.ResamplerError; "
+            "assert p.SpeexResampler and p.SpeexResamplerTransform; "
+            "assert p.ResamplerCore and p.strerror(3); "
             "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"
             " if m in sys.modules))")
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -21,9 +23,10 @@ def test_import_loads_no_jax_or_triton():
 
 
 def test_every_port_module_and_chip_smoke_load_no_jax_or_triton():
-    """Every module of the port (the serving runtime, its native stager
-    and profiling included) and chip_smoke.py's imports load neither jax,
-    triton nor the JAX package; nothing is built at import."""
+    """Every module of the port (the single-stream layer, the CLI, the
+    serving runtime with MultiFleet, the native runtime and profiling
+    included) and chip_smoke.py's imports load neither jax, triton nor the
+    JAX package; nothing is built at import."""
     code = (
         "import sys, pkgutil, importlib, speex_resampler_tpu_torch as p\n"
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
@@ -31,6 +34,13 @@ def test_every_port_module_and_chip_smoke_load_no_jax_or_triton():
         "from speex_resampler_tpu_torch.runtime import FleetResampler\n"
         "from speex_resampler_tpu_torch import FleetResampler as F\n"
         "assert F is FleetResampler\n"
+        "from speex_resampler_tpu_torch.runtime import MultiFleet\n"
+        "from speex_resampler_tpu_torch.core.resampler import "
+        "ResamplerCore\n"
+        "from speex_resampler_tpu_torch.ops import fir_exact, fir_fixed\n"
+        "from speex_resampler_tpu_torch.models import PRESETS\n"
+        "from speex_resampler_tpu_torch import api, cli\n"
+        "assert api.ResamplerCore is ResamplerCore and PRESETS\n"
         "import speex_resampler_tpu_torch.runtime.native as n\n"
         "import speex_resampler_tpu_torch.ops._build as b\n"
         "assert n._lib is None and b._lib is None\n"
