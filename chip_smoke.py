@@ -41,7 +41,26 @@ nvcc per source, in parallel) and drives the serving paths of
   kernel counts equal the buckets' launches), no bucket degraded, streams
   0-3 and the last of each bucket, the ended, switched and added streams
   bit-identical with a ``device="cpu"`` MultiFleet fed the same frames,
-  and out samples/s with the push, poll and pull ms a round.
+  and out samples/s with the push, poll and pull ms a round;
+- phase 9, the functional step and ``mesh=`` at full width (1024 stereo
+  streams): ``make_stream_fn`` at the flagship, float (the int8 kernel)
+  and fixed, and at 48 kHz -> 44.1 kHz q10 (the streamed int8 kernel),
+  three quanta eagerly, bit for bit against a CUDA ``BatchedResampler`` on
+  the same frames and, at lanes 0-7 and 2047, against a ``device="cpu"``
+  step, one kernel launch a quantum; the step plus a feature stage
+  (256-frame window energies) captured in one CUDA graph and replayed
+  over four quanta, bit for bit against the eager stage, the kernel count
+  moving once, at capture; the voip dense steps (float: the dense
+  kernel; fixed: plain torch) and the drift gather steps through
+  ``make_stream_fn`` (plain torch) captured in a CUDA graph too, bit for
+  bit against eager; ``resample_array`` on 10 s of stereo PCM, the
+  card against ``device="cpu"`` (float and fixed: bit-identical); a
+  two-shard mesh on one card (``mesh=["cuda:0"] * 2``) and a mesh of every
+  visible card against the unmeshed engine through process / flush /
+  process, float and fixed, bit for bit, with twice (once a shard) the
+  engine's launches; the functional step on the two-shard mesh against
+  the unsharded step; then ms a quantum of the eager stage and of its
+  graph replay, and ms a ``process()`` call meshed and unmeshed.
 
 For each path it holds every kernel against its plain PyTorch version on
 the card at the path's launch shapes (fixed: 0 mismatches, with lanes that
@@ -92,7 +111,8 @@ import numpy as np
 import torch
 
 from speex_resampler_tpu_torch import (BatchedResampler, FleetResampler,
-                                       SpeexResampler)
+                                       SpeexResampler, make_stream_fn,
+                                       resample_array)
 from speex_resampler_tpu_torch.runtime import MultiFleet
 from speex_resampler_tpu_torch.ops import _build, phase as ph
 from speex_resampler_tpu_torch.ops.convert import word2int
@@ -103,6 +123,7 @@ from speex_resampler_tpu_torch.ops import fir_matmul as fm
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
+from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -1231,6 +1252,286 @@ def multifleet_check(fixed: bool, smi: str, per: int = STREAMS // 4,
     return by_kernel
 
 
+# -- phase 9: the functional step and mesh= at full width -----------------
+
+# (name, rates and quality, target_in_frames, fixed_point, the step's
+# geometry and scheme)
+FN_CASES = [
+    ("flagship int8", (44100, 48000, 7), 9408, False, ("tiled", "int8")),
+    ("flagship fixed", (44100, 48000, 7), 9408, True, ("tiled", "fixed")),
+    ("48k->44.1k q10 int8", (48000, 44100, 10), 20480, False,
+     ("streamed", "int8")),
+]
+FN_QUANTA = 3                 # eager quanta against the engine
+FN_REPLAYS = 4                # graph replays against the eager stage
+FN_LANES = list(range(8)) + [LANES - 1]   # held against a CPU step
+WINDOW = 256                  # frames a feature window
+ARRAY_SECONDS = 10
+
+
+def window_energies(y: torch.Tensor) -> torch.Tensor:
+    """The feature stage: mean square of each full 256-frame window of
+    every lane, y int16 [n, B] -> f32 [n // 256, B]."""
+    n = (y.shape[0] // WINDOW) * WINDOW
+    f = y[:n].float() / 32768.0
+    return f.view(-1, WINDOW, y.shape[1]).square().mean(1)
+
+
+def fn_quanta(rs, k: int, seed: int) -> list:
+    """k quanta of seeded PCM, [STREAMS, in_frames, CHANNELS] each."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(-32768, 32768, (STREAMS, rs.in_frames, CHANNELS),
+                         dtype=np.int16) for _ in range(k)]
+
+
+def lanes(frames: np.ndarray) -> np.ndarray:
+    """[S, n, C] -> time-major lanes [n, S*C] (lane = stream*C + channel)."""
+    S, n, C = frames.shape
+    return np.ascontiguousarray(frames.transpose(1, 0, 2).reshape(n, S * C))
+
+
+def functional_check(name, rates, target, fixed, kind) -> tuple:
+    """Eager step against the CUDA engine and a CPU step; then the step
+    plus the feature stage in one CUDA graph against the eager stage.
+    Returns (the stream function, its launches: eager, at capture)."""
+    rs = make_stream_fn(*rates, target_in_frames=target, fixed_point=fixed)
+    if rs.scheme != kind[1] or rs.device.type != "cuda":
+        raise AssertionError(f"{name}: scheme {rs.scheme} on {rs.device}")
+    frames = fn_quanta(rs, FN_QUANTA, seed=90 + fixed)
+    cpu = make_stream_fn(*rates, target_in_frames=target, fixed_point=fixed,
+                         device="cpu")
+    reset_launches()
+    hist, ys = rs.init(LANES), []
+    for f in frames:
+        hist, y = rs.step(hist, torch.from_numpy(lanes(f)).cuda())
+        ys.append(y)
+    torch.cuda.synchronize()
+    eager = launch_counts()
+    if eager != {kind[0]: {kind[1]: FN_QUANTA}}:
+        raise AssertionError(f"{name}: eager launches {eager}")
+    eng = BatchedResampler(STREAMS, CHANNELS, *rates,
+                           target_chunk_frames=target, fixed_point=fixed)
+    h_cpu = cpu.init(len(FN_LANES))
+    for i, (f, y) in enumerate(zip(frames, ys)):
+        got = y.cpu().numpy()
+        want = lanes(eng.process(f))
+        if got.shape != (rs.out_frames, LANES):
+            raise AssertionError(f"{name}: step output {got.shape}")
+        compare(got, want, rs.scheme, f"{name} step vs engine, quantum {i}")
+        h_cpu, y_cpu = cpu.step(h_cpu,
+                                torch.from_numpy(lanes(f)[:, FN_LANES]))
+        compare(got[:, FN_LANES], y_cpu.numpy(), rs.scheme,
+                f"{name} step vs cpu step, quantum {i}")
+    del eng, ys
+    # the stage in one CUDA graph, replayed over FN_REPLAYS quanta, each
+    # with the history the eager stage carried to it
+    inputs, h = [], rs.init(LANES)
+    for f in fn_quanta(rs, FN_REPLAYS, seed=95 + fixed):
+        x = torch.from_numpy(lanes(f)).cuda()
+        inputs.append((h, x))
+        h = rs.step(h, x)[0]
+
+    def stage(h, x):
+        h2, y = rs.step(h, x)
+        return h2, y, window_energies(y)
+
+    captured = graph_equals_eager(f"functional {name} step + window "
+                                  f"energies", stage, inputs)
+    if captured != {kind[0]: {kind[1]: 1}}:
+        raise AssertionError(f"{name}: launches at capture {captured}")
+    print(f"functional {name}: {rs.in_frames} -> {rs.out_frames} frames a "
+          f"quantum, {kernel_name(kind[0], kind[1], 4 if fixed else 1)}; "
+          f"eager step bit-identical with the CUDA engine over "
+          f"{FN_QUANTA} quanta (lanes {FN_LANES[:8]}..{FN_LANES[-1]} with "
+          f"the cpu step), launches {eager}; in one CUDA graph: launches "
+          f"{captured} at capture, none at replay")
+    return rs, eager[kind[0]][kind[1]] + 1
+
+
+def graph_equals_eager(name: str, run, inputs: list) -> dict:
+    """``run(hist, x)`` (a tuple of tensors) captured in one CUDA graph on
+    static copies of ``inputs[0]`` after a warm-up on a side stream, then
+    replayed on each (hist, x) of ``inputs`` copied into them: every
+    output bit for bit against the eager call on the same tensors, and
+    the replays launching no kernel the wrapper counts.  Returns the
+    launch counts of the capture; a capture that fails raises."""
+    eager = [run(h, x) for h, x in inputs]
+    hist, x = (t.clone() for t in inputs[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run(hist, x)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    reset_launches()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = run(hist, x)
+    captured = launch_counts()
+    for i, ((h, xx), want) in enumerate(zip(inputs, eager)):
+        hist.copy_(h)
+        x.copy_(xx)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, w) for o, w in zip(out, want)):
+            raise AssertionError(f"{name}: graph replay {i} differs")
+    if launch_counts() != captured:
+        raise AssertionError(f"{name}: replays moved the kernel counts "
+                             f"{captured} -> {launch_counts()}")
+    print(f"graph capture {name}: {len(inputs)} replays bit-identical with "
+          f"the eager call, y {tuple(out[1].shape)}")
+    del graph
+    return captured
+
+
+def capture_geometries() -> None:
+    """The steps make_stream_fn does not reach through the kernels of
+    FN_CASES, each captured in a CUDA graph at full width: the voip
+    dense steps (the K3 kernel; the fixed one plain torch) and the drift
+    gather steps (plain torch) through make_stream_fn."""
+    for path in (VOIP, VOIP_FIXED):
+        step = tb.make_batched_step(path.spec, path.geometry(),
+                                    device="cuda")
+        inputs = [card_inputs(step, path.quantum(), LANES, seed=s,
+                              wrap=path.fixed) for s in (1, 2)]
+        graph_equals_eager(f"{path.name} step",
+                           lambda h, x: step.fn(h, x, step.w), inputs)
+    for fixed in (False, True):
+        rs = make_stream_fn(44100, 44101, 7, target_in_frames=44100,
+                            fixed_point=fixed)
+        rng = np.random.default_rng(50 + fixed)
+        inputs = [tuple(torch.from_numpy(rng.integers(
+            -32768, 32768, (rows, LANES), dtype=np.int16)).cuda()
+            for rows in (rs.hist_rows, rs.in_frames)) for _ in range(2)]
+        graph_equals_eager(f"gather{' fixed' if fixed else ''} "
+                           f"44.1k->44.101k q7 make_stream_fn step",
+                           rs.step, inputs)
+
+
+def functional_time(name: str, rs, smi: str) -> None:
+    """ms a quantum of the stage (step + window energies): eager, each of
+    10 calls between two events (its host part inside), and back to back;
+    against 10 calls captured in one CUDA graph (:func:`cuda_ms`); the gap
+    is the stage's host cost."""
+    x = torch.from_numpy(lanes(fn_quanta(rs, 1, seed=99)[0])).cuda()
+    hist = rs.init(LANES)
+
+    def stage():
+        return window_energies(rs.step(hist, x)[1])
+
+    eager = cuda_ms(stage, 10, mode="host")
+    queued = cuda_ms(stage, 10)
+    graph = cuda_ms(stage, 10, mode="graph")
+    out = rs.out_frames * LANES
+    print(f"functional timing {name} on {smi}: eager {eager:.4f} ms a "
+          f"quantum ({out / eager / 1e6:.2f} G out samples/s; back to back "
+          f"{queued:.4f} ms), graph {graph:.4f} ms "
+          f"({out / graph / 1e6:.2f} G out samples/s); eager - graph = "
+          f"{eager - graph:.4f} ms of host cost a quantum")
+
+
+def array_check() -> None:
+    """resample_array on 10 s of seeded stereo PCM at the flagship, the
+    card against device="cpu", float (auto: int8) and fixed, bit for
+    bit."""
+    rng = np.random.default_rng(41)
+    pcm = rng.integers(-32768, 32768, (ARRAY_SECONDS * 44100, CHANNELS),
+                       dtype=np.int16)
+    for fixed in (False, True):
+        t0 = time.perf_counter()
+        got = resample_array(pcm, 44100, 48000, 7, fixed_point=fixed)
+        wall = time.perf_counter() - t0
+        want = resample_array(pcm, 44100, 48000, 7, fixed_point=fixed,
+                              device="cpu")
+        scheme = "fixed" if fixed else "int8"
+        compare(got, want, scheme, f"resample_array {scheme}")
+        if abs(got.shape[0] / 48000 - pcm.shape[0] / 44100) >= 0.01:
+            raise AssertionError(f"resample_array: {got.shape[0]} frames")
+        print(f"resample_array {scheme} {ARRAY_SECONDS} s stereo "
+              f"44100->48000 q7: {got.shape} bit-identical with "
+              f"device='cpu', {wall:.2f} s on the card (engine build "
+              f"included)")
+
+
+def mesh_serve(mesh, fixed: bool, frames: list):
+    """FLAGSHIP's schedule through an engine (meshed when ``mesh``);
+    returns (engine, outputs, kernel launch counts)."""
+    kw = dict(target_chunk_frames=FLAGSHIP.target, fixed_point=fixed)
+    eng = (BatchedResampler(STREAMS, CHANNELS, 44100, 48000, 7, mesh=mesh,
+                            **kw) if mesh else
+           BatchedResampler(STREAMS, CHANNELS, 44100, 48000, 7, **kw))
+    n = len(FLAGSHIP.frames)
+    reset_launches()
+    outs = [eng.process(f) for f in frames[:n]]
+    outs.append(eng.flush())
+    outs += [eng.process(f) for f in frames[n:]]
+    torch.cuda.synchronize()
+    return eng, outs, launch_counts()
+
+
+def mesh_check(smi: str) -> None:
+    """Two shards on card 0, and one shard on every visible card, against
+    the unmeshed engine, float and fixed, bit for bit; launches once a
+    shard; the functional step on two shards against the unsharded step;
+    then ms a process() call of one quantum, meshed and unmeshed."""
+    rng = np.random.default_rng(61)
+    frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
+                           dtype=np.int16)
+              for n in FLAGSHIP.frames + FLAGSHIP.after]
+    cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    engines = {}
+    for fixed in (False, True):
+        scheme = "fixed" if fixed else "int8"
+        base, want, counts = mesh_serve(None, fixed, frames)
+        engines[f"{scheme} unmeshed"] = base
+        for mesh in (["cuda:0"] * 2, cards):
+            eng, got, mcounts = mesh_serve(mesh, fixed, frames)
+            for i, (g, w) in enumerate(zip(got, want)):
+                compare(g, w, scheme, f"mesh {mesh} {scheme} call {i}")
+            if eng.launches != len(mesh) * base.launches or mcounts != {
+                    "tiled": {scheme: eng.launches}} or eng.degraded:
+                raise AssertionError(
+                    f"mesh {mesh}: {eng.launches} launches (unmeshed "
+                    f"{base.launches}), kernel counts {mcounts}, degraded "
+                    f"{eng.degraded}")
+            engines[f"{scheme} mesh {mesh}"] = eng
+            print(f"mesh {mesh} {scheme}: {len(got)} calls bit-identical "
+                  f"with the unmeshed engine; launches {eng.launches} = "
+                  f"{len(mesh)} x {base.launches}, kernel counts {mcounts}")
+    print(f"mesh: {torch.cuda.device_count()} visible card(s); the "
+          f"two-shard mesh repeats cuda:0")
+    # the functional step on two shards against the unsharded step
+    for fixed in (False, True):
+        one = make_stream_fn(44100, 48000, 7, target_in_frames=9408,
+                             fixed_point=fixed)
+        two = make_stream_fn(44100, 48000, 7, target_in_frames=9408,
+                             fixed_point=fixed, mesh=["cuda:0"] * 2)
+        h1, h2 = one.init(LANES), two.init(LANES)
+        for f in fn_quanta(one, 2, seed=70 + fixed):
+            x = torch.from_numpy(lanes(f)).cuda()
+            h1, y1 = one.step(h1, x)
+            h2, y2 = two.step(h2, split_lanes(x, two.mesh))
+            if not (torch.equal(join_lanes(y2), y1)
+                    and torch.equal(join_lanes(h2), h1)):
+                raise AssertionError(f"meshed step {one.scheme} differs")
+        print(f"mesh functional step {one.scheme}: two shards on cuda:0 "
+              f"bit-identical with the unsharded step over 2 quanta")
+    # one quantum a process() call, meshed and unmeshed in turn
+    quantum = frames[0][:, :FLAGSHIP.quantum()]
+    walls = {k: [] for k in engines}
+    for eng in engines.values():
+        eng.process(quantum)
+    for _ in range(10):
+        for k, eng in engines.items():
+            t0 = time.perf_counter()
+            eng.process(quantum)
+            walls[k].append(time.perf_counter() - t0)
+    row = ", ".join(f"{k} {np.median(w) * 1e3:.2f}"
+                    for k, w in walls.items())
+    print(f"mesh process() timing on {smi}: ms a call of one flagship "
+          f"quantum (median of 10, engines in turn): {row}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1319,6 +1620,19 @@ def main() -> None:
     for fixed in (False, True):
         mf_launches.update(multifleet_check(fixed, smi))
     print(f"multifleet launches by kernel: {json.dumps(mf_launches)}")
+    print(f"multifleet: {time.time() - t_start:.1f} s")
+    # -- phase 9: the functional step and mesh=, 1024 stereo streams
+    fn_launches = {}
+    for name, rates, target, fixed, kind in FN_CASES:
+        rs, n = functional_check(name, rates, target, fixed, kind)
+        fn_launches[kernel_name(*kind, 4 if fixed else 1)] = n
+        functional_time(name, rs, smi)
+    capture_geometries()
+    array_check()
+    mesh_check(smi)
+    for entry in kernels:
+        entry["phase9_launches"] = fn_launches.get(entry["name"], 0)
+    print(f"phase 9 launches by kernel: {json.dumps(fn_launches)}")
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -26,7 +26,9 @@ universe with its exact scheme "fixed"):
 - "gather": huge reduced denominators (e.g. 44100 -> 44101), the
   plain-torch ``ops/fir_matmul.resample_gather[_fixed]``.
 
-Only ``mesh=`` raises ``NotImplementedError``, naming its ROADMAP.md item.
+``mesh=`` (``make_batched_step`` and ``BatchedResampler``) splits the lanes
+over a sequence of devices, one equal contiguous shard each, as the JAX
+package's ``shard_map`` over the lane axis does (``parallel/mesh.py``).
 
 ``make_batched_step(..., lane_major=True)`` gives the serving layout of
 ``runtime/fleet.py``: the step takes ``x i16[B, chunk_rows]`` and returns
@@ -53,9 +55,10 @@ from ..ops import tiled_fir as tf
 from ..utils.degrade import ZeroFillDegradation
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 from ..utils.host import Readback, to_host_into
+from .mesh import mesh_devices, shard_columns, split_lanes
 
 __all__ = ["BatchedResampler", "make_batched_step", "BatchSpec",
-           "weights_from_jax"]
+           "weights_from_jax", "DEFAULT_DEVICE"]
 
 
 # Launch-geometry thresholds of the JAX package, kept identical so both
@@ -77,9 +80,23 @@ _INT8_CERT_MAX = 0.35
 _MAX_FIXED_TILED_WEIGHT_BYTES = 6 * 1024 * 1024
 
 
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md {item})")
+class _DefaultDevice(str):
+    """The type of ``device=``'s default, "cuda": an explicit device is
+    told apart from it, so that ``device`` beside ``mesh`` raises."""
+
+
+DEFAULT_DEVICE = _DefaultDevice("cuda")
+
+
+def _placement(device, mesh) -> tuple:
+    """The devices of a step or an engine, one a lane shard:
+    ``(device,)`` without a mesh, else the mesh's devices.  A mesh takes
+    the place of ``device``: passing both raises INVALID_ARG."""
+    if mesh is None:
+        return (torch.device(device),)
+    if device is not DEFAULT_DEVICE:
+        raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
+    return mesh_devices(mesh)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -341,6 +358,13 @@ class BatchedStep:
     ``df.resample_dense(hist, x, w, **kernel_kw)`` for a float "dense"
     step.  A fixed "dense" step and both "gather" steps run plain torch
     (``ops/fir_matmul``) on the concatenated ``hist ++ x``.
+
+    Over a lane mesh (``mesh``, the shards' devices) ``fn`` takes and
+    returns lists, one tensor a shard: ``fn(hists, xs, w) -> (hists',
+    ys)``, each shard's [rows, B / len(mesh)] (lane-major: [B /
+    len(mesh), rows]) on its device, and ``w`` the shards' weights
+    (shards on one device share them); ``kernel_kw`` is the first
+    shard's.
     """
     fn: object
     w: tuple
@@ -350,6 +374,7 @@ class BatchedStep:
     scheme: str = "highest"   # resolved precision scheme
     kernel_kw: dict = dataclasses.field(default_factory=dict)
     kernel: str = "tiled"
+    mesh: tuple = ()
 
 
 def _launch_geometry(spec: fd.FilterSpec, target_in_frames: int,
@@ -451,15 +476,21 @@ def _step_weight_bytes(step: BatchedStep) -> int:
 
 
 def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
-                      device="cuda", scheme: str = "auto",
-                      lane_major: bool = False) -> BatchedStep:
+                      device=DEFAULT_DEVICE, scheme: str = "auto",
+                      lane_major: bool = False, mesh=None) -> BatchedStep:
     """Memoizing front-end for :func:`_build_batched_step`.
 
     ``lane_major=True`` is the serving layout of ``runtime/fleet.py``: the
     step takes ``x i16[B, chunk_rows]`` and returns ``y i16[B, out_rows]``
     (the host's gather and scatter then stay contiguous per stream), with
     both transposes plain torch on the step's device; ``hist`` stays
-    time-major."""
+    time-major.
+
+    ``mesh`` (a sequence of devices, in place of ``device``) gives the
+    step over a lane mesh (:func:`_mesh_step`)."""
+    if mesh is not None:
+        return _mesh_step(spec, bspec, _placement(device, mesh), scheme,
+                          lane_major)
     device = torch.device(device)
     key = (spec.num, spec.den, spec.quality, spec.fixed_point,
            spec.use_direct, spec.filt_len, spec.oversample, bspec, scheme,
@@ -484,6 +515,30 @@ def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
             _, old = _STEP_CACHE.popitem(last=False)
             total -= _step_weight_bytes(old)
         return _STEP_CACHE.get(key, step)
+
+
+def _mesh_step(spec: fd.FilterSpec, bspec: BatchSpec, devices: tuple,
+               scheme: str, lane_major: bool) -> BatchedStep:
+    """The step over a lane mesh: one memoized step a distinct device
+    (its weights uploaded once there), and an ``fn`` that launches each
+    shard on its own device's current stream, with no copy between
+    devices (lanes are share-nothing: no collective).  The wrapper itself
+    is not memoized; building it costs no upload."""
+    by_device = {d: make_batched_step(spec, bspec, device=d, scheme=scheme,
+                                      lane_major=lane_major)
+                 for d in dict.fromkeys(devices)}
+    shards = [by_device[d] for d in devices]
+    fns = [s.fn for s in shards]
+
+    def fn(hists, xs, w):
+        if not len(hists) == len(xs) == len(w) == len(fns):
+            raise ValueError(f"{len(hists)} histories, {len(xs)} inputs and "
+                             f"{len(w)} weights for a mesh of {len(fns)}")
+        outs = [f(h, x, ws) for f, h, x, ws in zip(fns, hists, xs, w)]
+        return [o[0] for o in outs], [o[1] for o in outs]
+
+    return dataclasses.replace(shards[0], fn=fn,
+                               w=tuple(s.w for s in shards), mesh=devices)
 
 
 def _lane_major(step: BatchedStep) -> BatchedStep:
@@ -882,6 +937,32 @@ class _Slab:
             self._released.record()
 
 
+class _MeshSlab:
+    """A launch slab over a lane mesh: ``host`` is the whole [rows, B]
+    host array that ``process`` fills, and :meth:`upload` copies each
+    shard's columns into the shard's own :class:`_Slab` (pinned on CUDA)
+    and returns the shards' input tensors: one host copy more than an
+    unmeshed launch, which fills its pinned slab in place."""
+
+    def __init__(self, rows: int, cols: list, devices: tuple):
+        self.host = np.zeros((rows, cols[-1][1]), dtype=np.int16)
+        self._cols = cols
+        self._shards = [_Slab((rows, hi - lo), d)
+                        for (lo, hi), d in zip(cols, devices)]
+
+    def fill(self) -> np.ndarray:
+        """The host array (each shard's upload copied out of it)."""
+        return self.host
+
+    def upload(self) -> list:
+        """Each shard's columns on its device, on its current stream."""
+        out = []
+        for (lo, hi), slab in zip(self._cols, self._shards):
+            slab.fill()[:] = self.host[:, lo:hi]
+            out.append(slab.upload())
+        return out
+
+
 class BatchedResampler(ZeroFillDegradation):
     """Resample S identical-config streams (C channels each) in lockstep.
 
@@ -898,12 +979,20 @@ class BatchedResampler(ZeroFillDegradation):
     target_chunk_frames : desired input frames per lane per launch; rounded
         to the launch quantum.
     device : "cuda" (the kernel; raises when no CUDA device exists) or
-        "cpu" (the kernel's plain PyTorch version).
+        "cpu" (the kernel's plain PyTorch version).  Unused with ``mesh``.
     scheme : "auto", "int8", "split5" or "highest"; "auto" or "fixed"
         with ``fixed_point``.
     fixed_point : serve the Q15 fixed-point universe (the speexdsp
         ``-DFIXED_POINT`` build), bit-exact.
-    mesh : not ported yet (raises NotImplementedError).
+    mesh : a sequence of devices (``torch.device`` or strings; one may
+        repeat), in place of ``device``: the B lanes split into
+        ``len(mesh)`` equal contiguous shards, each with its own history
+        and slab pair, launched on its own device (the JAX package's
+        ``shard_map`` over the lane axis).  B not divisible by the shard
+        count, or ``device`` passed too, raises INVALID_ARG.  Checkpoints
+        hold the joined history (the JAX format), so they load into an
+        engine with or without a mesh; ``launches`` grows by ``len(mesh)``
+        a launch, and a fault on any shard degrades the whole engine.
     max_latency_ms : hard cap on the launch quantum (a cap below one
         tiled or streamed unit serves through the dense geometry).
 
@@ -920,7 +1009,7 @@ class BatchedResampler(ZeroFillDegradation):
     def __init__(self, n_streams: int, channels: int, in_rate: int,
                  out_rate: int, quality: int = 7, *,
                  target_chunk_frames: int = 4096,
-                 device="cuda",
+                 device=DEFAULT_DEVICE,
                  scheme: str = "auto",
                  fixed_point: bool = False,
                  max_latency_ms: float | None = None,
@@ -931,9 +1020,13 @@ class BatchedResampler(ZeroFillDegradation):
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
         if max_latency_ms is not None and max_latency_ms <= 0:
             raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-        if mesh is not None:
-            raise _unported("mesh= (multi-GPU lanes)", "M12")
-        self.device = _serving_device(device)
+        devices = _placement(device, mesh)
+        for d in dict.fromkeys(devices):
+            _serving_device(d)
+        #: the engine's device (None under a mesh: see ``mesh``)
+        self.device = devices[0] if mesh is None else None
+        #: the lane shards' devices (None without a mesh)
+        self.mesh = devices if mesh is not None else None
         self.n_streams = n_streams
         self.channels = channels
         self.in_rate = in_rate
@@ -946,25 +1039,31 @@ class BatchedResampler(ZeroFillDegradation):
         except fd.OverflowArgError:
             raise ResamplerError(ResamplerErrorCode.OVERFLOW)
         self.B = n_streams * channels
+        self._cols = (shard_columns(self.B, len(devices)) if self.mesh
+                      else None)
         self._target = target_chunk_frames
         self._max_in = (None if max_latency_ms is None
                         else int(max_latency_ms * in_rate / 1000))
         self._scheme = scheme
         self._f0 = 0
-        #: kernel launches made by this engine
+        #: kernel launches made by this engine (one a shard under a mesh)
         self.launches = 0
         # zero-fill degradation (resample.c:561-591, :785-791): a device
         # failure swaps the engine onto a host zero-output step that keeps
         # consuming/producing the exact sample counts.  Sticky.
         self._degraded = False
-        # results are read back on their own stream, beside the next launch
-        self._copy_stream = (torch.cuda.Stream(self.device)
-                             if self.device.type == "cuda" else None)
+        # results are read back on their own stream (one a CUDA device,
+        # listed a shard), beside the next launch
+        streams: dict = {}
+        for d in devices:
+            if d.type == "cuda" and d not in streams:
+                streams[d] = torch.cuda.Stream(d)
+        self._copy_streams = [streams.get(d) for d in devices]
         # steps keyed by f0 (a flush may move the phase; keep a few)
         self._step_cache: dict = {}
         self._build_step(0)
-        self._hist = torch.zeros((self._step.hist_rows, self.B),
-                                 dtype=torch.int16, device=self.device)
+        self._hist = self._to_device(
+            np.zeros((self._step.hist_rows, self.B), dtype=np.int16))
         self._skip = 0
         # staging FIFO of not-yet-launched input frames, [*, B] host int16
         self._staged = _HostFifo(self.B)
@@ -984,12 +1083,19 @@ class BatchedResampler(ZeroFillDegradation):
         if cached is None:
             bspec = _launch_geometry(self.spec, self._target, f0=f0,
                                      max_in_frames=self._max_in)
-            step = make_batched_step(self.spec, bspec, device=self.device,
-                                     scheme=self._scheme)
+            if self.mesh:
+                step = make_batched_step(self.spec, bspec, mesh=self.mesh,
+                                         scheme=self._scheme)
+            else:
+                step = make_batched_step(self.spec, bspec,
+                                         device=self.device,
+                                         scheme=self._scheme)
             # two persistent launch slabs for the depth-1 pipeline; rows
             # past the quantum stay zero (pop_into and _launch write only
             # [:in_per_launch])
-            slabs = [_Slab((step.chunk_rows, self.B), self.device)
+            slabs = [_MeshSlab(step.chunk_rows, self._cols, self.mesh)
+                     if self.mesh else
+                     _Slab((step.chunk_rows, self.B), self.device)
                      for _ in range(2)]
             cached = (bspec, step, slabs)
             if len(self._step_cache) >= 4:
@@ -1073,12 +1179,8 @@ class BatchedResampler(ZeroFillDegradation):
         core (reset_mem never reinstalls the real resampler)."""
         if self._f0 != 0:
             self._build_step(0)
-        if self._degraded:
-            self._hist = np.zeros((self._step.hist_rows, self.B),
-                                  dtype=np.int16)
-        else:
-            self._hist = torch.zeros((self._step.hist_rows, self.B),
-                                     dtype=torch.int16, device=self.device)
+        hist = np.zeros((self._step.hist_rows, self.B), dtype=np.int16)
+        self._hist = hist if self._degraded else self._to_device(hist)
         self._staged = _HostFifo(self.B)
         self._skip = 0
         self._carry_out = []
@@ -1143,7 +1245,11 @@ class BatchedResampler(ZeroFillDegradation):
                 self._hist = np.concatenate([self._hist[k:], x[:k]], axis=0)
             else:
                 absorbed = self._to_device(np.ascontiguousarray(x[:k]))
-                self._hist = torch.cat([self._hist[k:], absorbed])
+                if self.mesh:
+                    self._hist = [torch.cat([h[k:], a])
+                                  for h, a in zip(self._hist, absorbed)]
+                else:
+                    self._hist = torch.cat([self._hist[k:], absorbed])
             x = x[k:]
             self._skip -= k
         # the 3-D frame layout was already copied by _to_lanes; hand the
@@ -1202,25 +1308,29 @@ class BatchedResampler(ZeroFillDegradation):
             slab.host[:q] = chunk_np
         try:
             x = slab.upload()
-            self.launches += 1
+            self.launches += len(self.mesh) if self.mesh else 1
             hist, y = self._step.fn(self._hist, x, self._step.w)
             return hist, self._readback(y)
         except Exception as exc:
             self._enter_degraded(exc)
             return self._degraded_launch(chunk_np)
 
-    def _readback(self, y: torch.Tensor):
+    def _readback(self, y):
         """CUDA: queue the copy of ``y`` into pinned memory on the copy
-        stream (a ``Readback``); CPU: ``y`` itself."""
-        if self._copy_stream is None:
-            return y
-        out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
-        return Readback(to_host_into(y, out, self._copy_stream), out.numpy())
+        stream (a ``Readback``); CPU: ``y`` itself.  Under a mesh, a list
+        of those, one a shard, which ``_recv`` joins."""
+        if not self.mesh:
+            return _readback(y, self._copy_streams[0])
+        return [_readback(t, s) for t, s in zip(y, self._copy_streams)]
 
     # -- layout helpers ---------------------------------------------------
     # lane l = stream*channels + channel; time-major [n, B] on device.
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _to_device(self, a: np.ndarray):
+        """The host [rows, B] array on the engine's device; under a mesh,
+        split onto it (a list, one tensor a shard)."""
+        if self.mesh:
+            return split_lanes(torch.from_numpy(a), self.mesh)
         return torch.from_numpy(a).to(self.device)
 
     def _to_lanes(self, frames: np.ndarray) -> np.ndarray:
@@ -1244,6 +1354,15 @@ class BatchedResampler(ZeroFillDegradation):
         if np.asarray(like).ndim == 2:
             return lanes
         return self._lanes_to_frames(lanes)
+
+
+def _readback(y: torch.Tensor, stream: torch.cuda.Stream | None):
+    """``y`` read back into pinned memory on ``stream`` (a ``Readback``),
+    or ``y`` itself where there is no copy stream (the CPU)."""
+    if stream is None:
+        return y
+    out = torch.empty(y.shape, dtype=y.dtype, pin_memory=True)
+    return Readback(to_host_into(y, out, stream), out.numpy())
 
 
 def _serving_device(device, kernels: bool = True) -> torch.device:

@@ -9,7 +9,10 @@ an asynchronous one that surfaces where its result is read back.  This
 mixin holds the one implementation ``BatchedResampler`` and
 ``FleetResampler`` share (the JAX package's ``utils/degrade.py``).
 
-Host state contract while degraded: ``self._hist`` is a NumPy array,
+Healthy, ``self._hist`` is a tensor, or a list of tensors, one a lane
+shard, under a ``BatchedResampler`` mesh (``parallel/mesh.py``); a
+meshed launch's result is a list too, joined on lanes here.  Host state
+contract while degraded: ``self._hist`` is a NumPy array of every lane,
 every launch consumes and produces its exact sample counts as zeros, and
 degradation is sticky like the C fn-ptr swap.
 
@@ -32,6 +35,7 @@ import warnings
 import numpy as np
 import torch
 
+from ..parallel.mesh import join_lanes
 from .host import Readback, to_host
 
 __all__ = ["ZeroFillDegradation"]
@@ -59,8 +63,9 @@ class ZeroFillDegradation:
         Sticky: like the C core, reset_mem does not reinstall the real
         resampler.  A history on the CPU is kept; one on a CUDA device is
         not read (after a fault such as an illegal address every CUDA call
-        raises) and becomes zeros.  Degraded output is all zeros either
-        way, so the sample accounting, the only remaining contract, is
+        raises) and becomes zeros; a meshed history is kept where every
+        shard is on the CPU.  Degraded output is all zeros either way, so
+        the sample accounting, the only remaining contract, is
         unaffected."""
         if self._degraded:
             return
@@ -72,6 +77,8 @@ class ZeroFillDegradation:
                       f"after a device fault: {exc!r}", RuntimeWarning,
                       stacklevel=3)
         h = self._hist
+        if isinstance(h, list) and all(t.device.type == "cpu" for t in h):
+            h = join_lanes(h)
         if isinstance(h, torch.Tensor) and h.device.type == "cpu":
             self._hist = h.numpy().copy()
         elif isinstance(h, np.ndarray):
@@ -97,7 +104,10 @@ class ZeroFillDegradation:
         if self._degraded:
             return np.array(self._hist)
         try:
-            return self._hist.detach().cpu().numpy().copy()
+            h = self._hist
+            if isinstance(h, list):
+                h = join_lanes(h, "cpu")
+            return h.detach().cpu().numpy().copy()
         except Exception as exc:
             self._enter_degraded(exc)
             return np.array(self._hist)
@@ -113,14 +123,17 @@ class ZeroFillDegradation:
 
     def _recv(self, y) -> np.ndarray:
         """Blocking readback of a dispatched launch result: a host array
-        (returned as it is), a tensor, or a queued pinned readback
-        (``utils/host.Readback``).  An asynchronous device failure
-        surfacing here degrades the engine and substitutes the exact count
-        of zero samples."""
+        (returned as it is), a tensor, a queued pinned readback
+        (``utils/host.Readback``), or a list of tensors or readbacks, one a
+        lane shard, joined on lanes.  An asynchronous device failure
+        surfacing here, on any shard, degrades the engine and substitutes
+        the exact count of zero samples."""
         if isinstance(y, np.ndarray):
             return y
         try:
-            return y.wait() if isinstance(y, Readback) else to_host(y)
+            if isinstance(y, list):
+                return np.concatenate([_wait(p) for p in y], axis=1)
+            return _wait(y)
         except Exception as exc:
             self._enter_degraded(exc)
             return self._zero_result()
@@ -132,3 +145,8 @@ class ZeroFillDegradation:
         q = self.bspec.in_per_launch
         H = self._step.hist_rows
         return np.concatenate([self._hist, chunk[:q]], axis=0)[-H:]
+
+
+def _wait(y) -> np.ndarray:
+    """A tensor or a queued pinned readback, on the host."""
+    return y.wait() if isinstance(y, Readback) else to_host(y)

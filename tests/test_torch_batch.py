@@ -205,13 +205,12 @@ def test_checkpoint_crosses_packages_streamed(direction):
 
 
 def test_unported_paths_raise():
-    """mesh= (ROADMAP M12) raises and an unknown scheme is INVALID_ARG.
-    The paths that raised before the dense and gather geometries and the
-    split5 scheme were ported serve as the JAX engine does: the same
-    geometry and scheme, and one launch's outputs (fixed: bit for bit)."""
+    """An unknown scheme is INVALID_ARG.  The paths that raised before
+    the dense and gather geometries and the split5 scheme were ported
+    serve as the JAX engine does: the same geometry and scheme, and one
+    launch's outputs (fixed: bit for bit).  ``mesh=``, which raised too,
+    is held by tests/test_torch_mesh.py."""
     args = (S, C, 44100, 48000, 7)
-    with pytest.raises(NotImplementedError, match="M12"):
-        BatchedResampler(*args, device="cpu", mesh=object())
     with pytest.raises(ResamplerError) as e:
         BatchedResampler(*args, device="cpu", scheme="INT8")
     assert e.value.code == ResamplerErrorCode.INVALID_ARG

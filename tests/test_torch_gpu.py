@@ -14,6 +14,7 @@ LSB with at most the Poisson tie count of tests/conftest.py::lsb_tie_limit
 """
 
 import dataclasses
+import gc
 import math
 
 import numpy as np
@@ -21,6 +22,7 @@ import pytest
 import torch
 
 from speex_resampler_tpu_torch import BatchedResampler, FleetResampler
+from speex_resampler_tpu_torch.functional import make_stream_fn
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import dense_fir as tdf
 from speex_resampler_tpu_torch.ops import filter_design as tfd
@@ -524,6 +526,53 @@ def test_graph_replay_equals_eager(cuda, kind):
     assert torch.equal(out, eager[1])
 
 
+@pytest.mark.parametrize("fixed", [False, True], ids=["int8", "fixed"])
+def test_stream_fn_graph_equals_eager(cuda, fixed):
+    """make_stream_fn's step at the flagship (B = 256) plus a feature
+    stage (256-frame window energies) captured in one CUDA graph on static
+    hist and x buffers, the history carried in place: three replays, each
+    on new frames copied into x, equal the eager stage's outputs,
+    energies and histories bit for bit; the kernel counter moves once, at
+    capture."""
+    rs = make_stream_fn(44100, 48000, 7, target_in_frames=9408,
+                        fixed_point=fixed)
+    assert rs.scheme == ("fixed" if fixed else "int8")
+    B = 256
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.integers(-32768, 32768, (rs.in_frames, B),
+                                        dtype=np.int16)).cuda()
+          for _ in range(3)]
+
+    def stage(h, x):
+        h2, y = rs.step(h, x)
+        e = (y.float() / 32768).view(-1, 256, B).square().mean(1)
+        return h2, y, e
+
+    h, eager = rs.init(B), []
+    for x in xs:
+        h, y, e = stage(h, x)
+        eager.append((h, y, e))
+    hist, xbuf = rs.init(B), xs[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        stage(hist, xbuf)
+    torch.cuda.current_stream().wait_stream(side)
+    before = ttf.launches[rs.scheme]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h_out, y_out, e_out = stage(hist, xbuf)
+        hist.copy_(h_out)
+    assert ttf.launches[rs.scheme] == before + 1
+    for x, (h, y, e) in zip(xs, eager):
+        xbuf.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_out, y) and torch.equal(e_out, e)
+        assert torch.equal(hist, h)
+    assert ttf.launches[rs.scheme] == before + 1
+
+
 @pytest.mark.parametrize("D", [1, 2, 3, 4])
 def test_tiled_int8_digits_match_plain(cuda, D):
     """tiled_fir_int8_kernel<D> (the resident band, int8 tensor cores) on
@@ -810,6 +859,9 @@ def test_multifleet_bucket_churn_frees_device_memory(cuda):
     (the step weights stay in the shared step cache), and the pinned host
     buffers are dropped."""
     from speex_resampler_tpu_torch.runtime import MultiFleet
+    # earlier tests' cyclic garbage holding device memory is collected
+    # now, not by a collection that happens to run between two levels
+    gc.collect()
     mf = MultiFleet(channels=2, capacity_per_bucket=64,
                     target_chunk_frames=2048, max_idle_buckets=0)
     x = np.random.default_rng(4).integers(-32768, 32768, (5000, 2),

@@ -54,3 +54,30 @@ def test_every_port_module_and_chip_smoke_load_no_jax_or_triton():
     assert out.stdout.strip() == "[]", out.stdout
     text = (REPO / "chip_smoke.py").read_text()
     assert "import jax" not in text and "speex_resampler_tpu." not in text
+
+
+def test_functional_and_port_examples_load_no_jax_or_triton():
+    """The functional module (its exports too) and every port example's
+    imports (each script loaded as a module, main() not run) load neither
+    jax, triton nor the JAX package."""
+    code = (
+        "import sys, glob, runpy\n"
+        "from speex_resampler_tpu_torch import make_stream_fn, "
+        "resample_array\n"
+        "from speex_resampler_tpu_torch.functional import StreamFn\n"
+        "from speex_resampler_tpu_torch.parallel.mesh import split_lanes\n"
+        "assert make_stream_fn and resample_array and StreamFn\n"
+        "paths = sorted(glob.glob('examples/torch_port/*.py'))\n"
+        "assert len(paths) == 7, paths\n"
+        "for p in paths:\n"
+        "    runpy.run_path(p, run_name='example')\n"
+        "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"
+        " if m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for p in sorted((REPO / "examples" / "torch_port").glob("*.py")):
+        text = p.read_text()
+        assert "import jax" not in text and "speex_resampler_tpu." not in \
+            text.replace("speex_resampler_tpu_torch", ""), p.name
