@@ -83,6 +83,24 @@ against a CPU fleet fed those streams' bytes, then times steady-state
 ms a launch of ``stats``, and the device's busy share from a
 ``torch.profiler`` trace) and ``BatchedResampler.process()`` of four
 quanta at the flagship.
+- phase 10, the tensor-core probes (``speex_resampler_tpu_torch.probes``,
+  ``csrc/probes/``; the Hopper counterparts of the TPU probes
+  ``experiments/mxu_peak.py``, ``mxu_shape_probe.py``,
+  ``v4_overhead_anatomy.py`` and ``fixed_interp_anatomy.py``): their
+  library, ``libprobes``, built beside the kernels' in phase 2 (its build
+  time, ``-Xptxas -v`` lines and IGMMA / HGMMA counts printed, a count of 0
+  failing the run); every probe kernel against its plain version on the
+  card at the TPU probe's full shape, 0 mismatches (the rate kernel at the
+  flagship block [128, 264] x 128 lanes, int8 and bf16, at its own N-tile
+  and at N = 32 and 64; the int8 block's three variants at N = 32 and 64;
+  the fixed ladder's four rungs); then, with the probe launch counts set
+  to 0, one case of each timed (every SM busy: ms a launch, the rate from
+  the slope between two iteration counts, the plain version and, where
+  one PyTorch call computes the function, the library call), each probe
+  kernel required to have launched.  The probe kernels join the
+  ``{"kernels": ...}`` line (an anatomy kernel's name ends with its variant
+  or rung) with ``launches`` 0 (no served path launches them) and their
+  phase-10 launches beside.
 Kernel and library times are read three ways: launches queued back to
 back between two events, the same launches captured in one CUDA graph and
 replayed (the device's time alone: the wrapper's Python runs once, at
@@ -105,6 +123,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -124,6 +143,8 @@ from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
+from speex_resampler_tpu_torch.probes import (
+    fixed_interp_anatomy as pfa, tc_rate as ptr, v4_overhead_anatomy as pv4)
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -501,8 +522,9 @@ def library_call(step, bspec, hist, x, reps: int):
 def kernel_of(symbol: str) -> str:
     """A kernel's name (with its int and bool template arguments) from its
     mangled symbol, else the symbol."""
-    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel)"
-                  r"(I((?:L[ib]\d+E)+)E)?", symbol)
+    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel|"
+                  r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum)"
+                  r"_kernel)(I((?:L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
     if not m.group(2):
@@ -537,15 +559,14 @@ def ptxas_report() -> None:
             print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
 
 
-def sass_check() -> None:
-    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
-    int8 and fixed (IGMMA) kernel in the built library's SASS
-    (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
-    raises if the tool is missing or fails, or if one of them has none."""
+def gmma_counts(lib) -> dict:
+    """{(kernel, "IGMMA" | "HGMMA"): wgmma instructions} in a built
+    library's SASS (``cuobjdump -sass``, which ships with the CUDA toolkit
+    beside nvcc); raises if the tool is missing or fails."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise AssertionError("SASS check: cuobjdump not found")
-    res = subprocess.run([tool, "-sass", str(_build.lib_path())],
+    res = subprocess.run([tool, "-sass", str(lib)],
                          capture_output=True, text=True)
     if res.returncode != 0:
         raise AssertionError(f"cuobjdump exit {res.returncode}: "
@@ -558,6 +579,14 @@ def sass_check() -> None:
         elif name and "GMMA" in line:
             op = "IGMMA" if "IGMMA" in line else "HGMMA"
             counts[(name, op)] = counts.get((name, op), 0) + 1
+    return counts
+
+
+def sass_check() -> None:
+    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
+    int8 and fixed (IGMMA) kernel in the built library's SASS
+    (:func:`gmma_counts`); raises if one of them has none."""
+    counts = gmma_counts(_build.lib_path())
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
         (f"{name}<{d}{vec}>", "IGMMA") for d in (1, 2, 3, 4)
@@ -568,7 +597,7 @@ def sass_check() -> None:
         (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
         for geo in ("tiled", "streamed") for n in (1, 4)]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
-    print(f"SASS check (cuobjdump -sass, exit {res.returncode}): {found}")
+    print(f"SASS check (cuobjdump -sass, exit 0): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
         raise AssertionError("a tensor-core kernel has no wgmma instruction")
 
@@ -1532,6 +1561,236 @@ def mesh_check(smi: str) -> None:
           f"quantum (median of 10, engines in turn): {row}")
 
 
+# -- phase 10: the tensor-core probes -------------------------------------
+
+class ProbeBuild:
+    """``_build.load_probes()`` in a thread, started beside phase 2's build
+    so that the two libraries' nvcc runs overlap; :meth:`wait` returns its
+    seconds or raises its error."""
+
+    def __init__(self):
+        self.seconds, self.error = 0.0, None
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self._thread.start()
+
+    def _run(self) -> None:
+        t0 = time.time()
+        try:
+            _build.load_probes()
+        except Exception as e:  # re-raised by wait()
+            self.error = e
+        self.seconds = time.time() - t0
+
+    def wait(self) -> float:
+        self._thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.seconds
+
+
+PROBE_SOURCE = "speex_resampler_tpu_torch/csrc/probes/{}.cu"
+PROBE_REPLACES = {"tc_rate": "experiments/mxu_peak.py:68",
+                  "int8_anatomy": "experiments/v4_overhead_anatomy.py:53",
+                  "fixed_anatomy": "experiments/fixed_interp_anatomy.py:68"}
+PROBE_MODULES = {"tc_rate": ptr, "int8_anatomy": pv4, "fixed_anatomy": pfa}
+# the rate kernel's checked cases at the flagship block [128, 264] x 128
+# lanes: (dtype, N-tile; None: the case's own, C = 128)
+PROBE_RATE = [("int8", None), ("bf16", None), ("int8", 32), ("int8", 64),
+              ("bf16", 32), ("bf16", 64)]
+# iterations of a timed launch: 1-3 ms each on the H100
+PROBE_ITERS = {"tc_rate": 512, "int8_anatomy": 512, "fixed_anatomy": 128}
+
+
+def probe_report() -> None:
+    """The probe library's ptxas lines and its wgmma counts; raises if a
+    probe kernel has no tensor-core instruction."""
+    for log in sorted(_build.probe_log_dir().glob("*.log")):
+        for name, lines in ptxas_props(log).items():
+            print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
+    counts = gmma_counts(_build.probe_lib_path())
+    want = ([(f"tc_rate_kernel<{b}, {n}>", op)
+             for b, op in (("false", "IGMMA"), ("true", "HGMMA"))
+             for n in ptr.N_TILES]
+            + [(f"int8_anatomy_kernel<{v}, {n}>", "IGMMA")
+               for v in range(len(pv4.VARIANTS)) for n in pv4.N_TILES]
+            + [(f"fixed_anatomy_kernel<{r}>", "IGMMA") for r in range(3)])
+    found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
+    print(f"probe SASS check (cuobjdump -sass): {found}")
+    if any(counts.get(key, 0) == 0 for key in want):
+        raise AssertionError("a probe kernel has no wgmma instruction")
+
+
+def exact_check(got, want, what: str) -> int:
+    """0 mismatches or raise; returns max |err| (0)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        raise AssertionError(f"{what}: {tuple(got.shape)} {got.dtype} != "
+                             f"{tuple(want.shape)} {want.dtype}")
+    d = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    mism = int((d > 0).sum())
+    print(f"probe check {what}: {mism} mismatches of {d.numel()}")
+    if mism:
+        raise AssertionError(f"{what}: {mism} mismatches")
+    return int(d.max())
+
+
+def probe_inputs_fixed():
+    """The fixed ladder's operands on the card, x16 with the wrap input
+    (tests/fixed_inputs.py) on every fifth lane, for the set-0 row of the
+    largest sum |w|, and rows of -32768 and 32767 on every seventh."""
+    planes, bias, coef, xh, x16 = pfa.inputs(seed=5)
+    w = planes[0].to(torch.int64) * 256 + planes[1].to(torch.int64)
+    c = int(w[:pfa.R].abs().sum(1).argmax())
+    x = x16.numpy().copy()
+    fixed_inputs.wrap_column(w[c].numpy(), x, np.arange(0, pfa.LB, 5))
+    x[0, 1::7], x[1, 1::7] = -32768, 32767
+    return tuple(t.cuda() for t in (planes, bias, coef, xh,
+                                     torch.from_numpy(x)))
+
+
+def probe_check() -> dict:
+    """Every probe kernel against its plain version on the card at the TPU
+    probe's full shape (one copy of each tile, 16 iterations): the rate
+    kernel (PROBE_RATE), the int8 block's variants at N = 32 and 64, the
+    fixed ladder's rungs.  Returns {(family, case): max |err|}."""
+    errs = {}
+    w, x = ptr.operands(128, 264, 128, seed=3, device="cuda")
+    for dtype, n in PROBE_RATE:
+        errs[("tc_rate", dtype, n)] = exact_check(
+            ptr.tc_rate(w, x, dtype, n=n), ptr.rate_reference(w, x, dtype),
+            f"tc_rate {dtype} [128, 264] x 128 N {n or 128}")
+    w8, x16, x8 = pv4.inputs(seed=4, device="cuda")
+    x16[0, ::7], x16[1, ::7] = -32768, 32767
+    for n in pv4.N_TILES:
+        for v in pv4.VARIANTS:
+            xv = x8 if v == "mxu_only" else x16
+            errs[("int8_anatomy", v, n)] = exact_check(
+                pv4.anatomy(v, w8, xv, n=n),
+                pv4.anatomy_reference(v, w8, xv),
+                f"int8_anatomy {v} N {n} [128, 512] . [512, 1024]")
+    planes, bias, coef, xh, x16 = probe_inputs_fixed()
+    for rung in pfa.RUNGS:
+        xr = pfa.rung_input(rung, xh, x16)
+        errs[("fixed_anatomy", rung)] = exact_check(
+            pfa.ladder(rung, planes, bias, coef, xr),
+            pfa.ladder_reference(rung, planes, bias, coef, xr),
+            f"fixed_anatomy {rung} [512, 264] . [264, 128]")
+    return errs
+
+
+def probe_entry(family, name, smi, ms, plain_ms, library_ms, ops, nbytes,
+                err, extra) -> dict:
+    """One probe kernel's JSON entry and its printed line: the bound of the
+    timed launch is the larger of its bytes (inputs once, the output
+    once) over HBM and its int8 / bf16 operations over the peak."""
+    peak = BF16_FLOPS if "<true" in name else INT8_OPS
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    lib = "none" if library_ms is None else f"{library_ms:.4f} ms"
+    print(f"timing probe {name} on {smi}: {ms:.4f} ms a launch "
+          f"({', '.join(f'{k} {v:.4g}' if isinstance(v, float) else f'{k} {v}' for k, v in extra.items())}), "
+          f"bound {bound_ms:.4f} ms by {by} -> {bound_ms / ms:.3f} of it; "
+          f"plain {plain_ms:.4f} ms, library {lib}")
+    return {"name": name, "route": "cuda",
+            "source": PROBE_SOURCE.format(family),
+            "replaces": PROBE_REPLACES[family], "launches": 0,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
+            **extra}
+
+
+def probe_time(smi: str, errs: dict) -> list:
+    """The probe path: with the probe launch counts set to 0, one case of
+    each probe timed, every SM busy (ms of one launch of PROBE_ITERS
+    iterations, back to back, and the slope between two iteration counts);
+    the counts read after, each probe kernel required to have launched.
+    Returns the probe kernels' JSON entries."""
+    for module in PROBE_MODULES.values():
+        module.launches = 0
+    entries = []
+    for dtype in ptr.DTYPES:
+        w, x = ptr.operands(128, 264, 128, device="cuda")
+        rl = ptr.RateLaunch(w, x, dtype)
+        p, it = rl.plan, PROBE_ITERS["tc_rate"]
+        ms = cuda_ms(lambda: rl.run(it), 3)
+        s = ptr.slope_ms(rl.run, rl.walked_macs, ptr.DATASHEET_MACS[dtype],
+                         target_ms=5.0)
+        rate = rl.needed_macs / (s["slope_ms"] * 1e-3)
+        plain_ms = cuda_ms(lambda: ptr.rate_reference(w, x, dtype), 3)
+        library_ms = cuda_ms(ptr.library_call(w, x, dtype), 3)
+        es = 2 if dtype == "bf16" else 1
+        evals = it * rl.n_ctas / p.units
+        entries.append(probe_entry(
+            "tc_rate", f"tc_rate_kernel<{'true' if es == 2 else 'false'}, "
+            f"{p.n}>", smi, ms, plain_ms, library_ms,
+            2 * p.needed_macs * evals,
+            es * (p.C * p.K + ptr.N_REPS * p.K * p.LB) + 4 * ptr.SLOTS * p.C
+            * p.LB, errs[("tc_rate", dtype, None)],
+            {"iters": it, "bodies": evals, "tmacs_needed": rate / 1e12,
+             "share_of_datasheet": rate / ptr.DATASHEET_MACS[dtype],
+             "n_ctas": rl.n_ctas, "rs": p.rs}))
+    w8, x16, x8 = pv4.inputs(device="cuda")
+    for v in pv4.VARIANTS:
+        xv = x8 if v == "mxu_only" else x16
+        al = pv4.AnatomyLaunch(v, w8, xv, 32)
+        it = PROBE_ITERS["int8_anatomy"]
+        ms = cuda_ms(lambda: al.run(it), 3)
+        planes = 2 if v == "extract_i32+2" else 2 * pv4.D
+        macs = planes * pv4.R * pv4.K * pv4.LB
+        s = ptr.slope_ms(al.run, al.blocks_per_iter * macs,
+                         ptr.DATASHEET_MACS["int8"], target_ms=5.0)
+        us = s["slope_ms"] * 1e3 / al.blocks_per_iter
+        plain_ms = cuda_ms(lambda: pv4.anatomy_reference(v, w8, xv), 3)
+        library_ms = cuda_ms(pv4.library_call(v, w8, xv), 3)
+        entries.append(probe_entry(
+            "int8_anatomy", f"int8_anatomy_kernel<{pv4.VARIANTS.index(v)}, "
+            f"32> {v}", smi, ms, plain_ms, library_ms,
+            2 * macs * it * al.blocks_per_iter,
+            planes * pv4.R * pv4.K + 2 * pv4.K * pv4.LB
+            + 4 * pv4.SLOTS * pv4.R * pv4.LB,
+            errs[("int8_anatomy", v, 32)],
+            {"variant": v, "iters": it, "us_per_block": us,
+             "tmacs": macs / (us * 1e-6) / 1e12, "n_ctas": al.n_ctas}))
+    planes, bias, coef, xh, x16 = pfa.inputs(device="cuda")
+    for rung in pfa.RUNGS:
+        xr = pfa.rung_input(rung, xh, x16)
+        ll = pfa.LadderLaunch(rung, planes, bias, coef, xr)
+        it = PROBE_ITERS["fixed_anatomy"]
+        ms = cuda_ms(lambda: ll.run(it), 3)
+        macs = 4 * pfa.C * pfa.K * pfa.LB
+        s = ptr.slope_ms(ll.run, ll.blocks_per_iter * macs,
+                         ptr.DATASHEET_MACS["int8"], target_ms=5.0)
+        us = s["slope_ms"] * 1e3 / ll.blocks_per_iter
+        plain_ms = cuda_ms(
+            lambda: pfa.ladder_reference(rung, planes, bias, coef, xr), 3)
+        entries.append(probe_entry(
+            "fixed_anatomy", f"fixed_anatomy_kernel<{ll.kr}> {rung}",
+            smi, ms, plain_ms, None, 2 * macs * it * ll.blocks_per_iter,
+            2 * pfa.C * pfa.K + 4 * pfa.C + 16 * pfa.R
+            + xr.element_size() * pfa.K * pfa.LB
+            + 2 * pfa.SLOTS * pfa.R * pfa.LB,
+            errs[("fixed_anatomy", rung)],
+            {"rung": rung, "iters": it, "us_per_block": us,
+             "tmacs": macs / (us * 1e-6) / 1e12, "n_ctas": ll.n_ctas}))
+    counts = {family: m.launches for family, m in PROBE_MODULES.items()}
+    print(f"probe launches in phase 10's timed path: {json.dumps(counts)}")
+    if not all(counts.values()):
+        raise AssertionError(f"a probe kernel never launched: {counts}")
+    for e in entries:
+        e["phase10_launches"] = counts[e["name"].split("_kernel")[0]]
+    t = {e["rung"]: e["us_per_block"] for e in entries if "rung" in e}
+    u = {e["variant"]: e["us_per_block"] for e in entries if "variant" in e}
+    print(f"probe ladders on {smi}, us a block: int8 (N 32) mxu_only "
+          f"{u['mxu_only']:.4f}, full - mxu_only "
+          f"{u['full'] - u['mxu_only']:.4f}; fixed: dots "
+          f"{t['mxu_only']:.4f}, combine+bias "
+          f"{t['+combine'] - t['mxu_only']:+.4f}, extract "
+          f"{t['+extract'] - t['+combine']:+.4f}, mix+sat "
+          f"{t['full'] - t['+extract']:+.4f}")
+    return entries
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: no CUDA device")
@@ -1548,7 +1807,9 @@ def main() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
     # -- phase 2: build the kernels from the checkout, one nvcc per source
+    # (the probes' library, for phase 10, builds beside them)
     t0 = time.time()
+    probe_build = ProbeBuild()
     _build.load()
     print(f"build: {time.time() - t0:.1f} s ({_build.build_dir()})")
     ptxas_report()
@@ -1633,6 +1894,12 @@ def main() -> None:
     for entry in kernels:
         entry["phase9_launches"] = fn_launches.get(entry["name"], 0)
     print(f"phase 9 launches by kernel: {json.dumps(fn_launches)}")
+    print(f"phase 9: {time.time() - t_start:.1f} s")
+    # -- phase 10: the tensor-core probes, checked, then timed
+    print(f"probe build: {probe_build.wait():.1f} s "
+          f"({_build.probe_lib_path().name})")
+    probe_report()
+    kernels += probe_time(smi, probe_check())
     print(f"total: {time.time() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

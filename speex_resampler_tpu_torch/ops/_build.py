@@ -6,6 +6,13 @@ The library is compiled at first use, for ``sm_90a``, from the sources in
 nvcc per source, all started together, then one link.  Its file name
 carries a hash of the sources, headers and flags, so an edited kernel is
 rebuilt and a stale library is never loaded.  Nothing here runs at import.
+
+A second library, ``libprobes.<hash>.so``, holds the tensor-core probe
+kernels (``csrc/probes/``, driven by ``speex_resampler_tpu_torch.probes``):
+built the same way at the first probe launch (:func:`load_probes`), its
+hash over its sources and every header they include, its compiler reports
+in ``build/torch_kernels/probes/``.  Its nvcc runs and libfir's may run at
+the same time.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from pathlib import Path
 import torch
 
 __all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
-           "use_csrc", "stream_handle"]
+           "use_csrc", "stream_handle", "load_probes", "probe_lib_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu")
@@ -59,6 +66,28 @@ _SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 
+# the probe library: its sources (under _CSRC) include probes/probe_common.cuh
+# and, through it, the production headers
+_PROBE_SOURCE_NAMES = ("probes/tc_rate.cu", "probes/int8_anatomy.cu",
+                       "probes/fixed_anatomy.cu")
+_PROBE_HEADER_NAMES = ("probes/probe_common.cuh",) + _HEADER_NAMES
+_PROBE_CSRC = _CSRC
+_PROBE_SIGNATURES = {
+    "probe_error_string": (ctypes.c_char_p, [_I]),
+    "probe_tc_rate_smem": (_I, [_I] * 4),
+    "probe_tc_rate_fill": (_I, [_I] * 6),
+    "probe_tc_rate": (_I, [_P] * 5 + [_I] * 9 + [_P]),
+    "probe_int8_anatomy_smem": (_I, [_I] * 4),
+    "probe_int8_anatomy_fill": (_I, [_I] * 6),
+    "probe_int8_anatomy": (_I, [_P] * 5 + [_I] * 9 + [_P]),
+    "probe_fixed_anatomy_smem": (_I, [_I] * 2),
+    "probe_fixed_anatomy_rows": (_I, []),
+    "probe_fixed_anatomy_fill": (_I, [_I] * 4),
+    "probe_fixed_anatomy": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+}
+_probe_lib = None
+_probe_lock = threading.Lock()
+
 
 def build_dir() -> Path:
     return _PKG.parent / "build" / "torch_kernels"
@@ -75,27 +104,37 @@ def _nvcc() -> str:
     return found
 
 
+def _hashed_path(stem: str, files) -> Path:
+    h = hashlib.sha1(" ".join(_FLAGS).encode())
+    for src in files:
+        h.update(src.read_bytes())
+    return build_dir() / f"{stem}.{h.hexdigest()[:12]}.so"
+
+
 def lib_path() -> Path:
     """The library this checkout's sources and flags build."""
-    h = hashlib.sha1(" ".join(_FLAGS).encode())
-    for src in (*_HEADERS, *_SOURCES):
-        h.update(src.read_bytes())
-    return build_dir() / f"libfir.{h.hexdigest()[:12]}.so"
+    return _hashed_path("libfir", (*_HEADERS, *_SOURCES))
 
 
-def compile_library(out: Path) -> None:
-    """One nvcc per source, all started together, to per-process object
-    files; then one link to a temporary name and an atomic rename, so a
-    concurrent loader never opens a half-written library.  Each source's
-    compiler report (registers, shared memory, spills from ``-Xptxas -v``)
-    is kept in the build directory as ``<source>.log``.  Raises if a build
-    fails, after every started nvcc has ended."""
+def compile_library(out: Path, sources=None, csrc=None,
+                    log_dir=None) -> None:
+    """One nvcc per source (``sources``, by default libfir's, with ``-I
+    csrc``), all started together, to per-process object files; then one
+    link to a temporary name and an atomic rename, so a concurrent loader
+    never opens a half-written library.  Each source's compiler report
+    (registers, shared memory, spills from ``-Xptxas -v``) is kept as
+    ``<source>.log`` in ``log_dir`` (the build directory by default).
+    Raises if a build fails, after every started nvcc has ended."""
+    sources = _SOURCES if sources is None else sources
+    csrc = _CSRC if csrc is None else csrc
+    log_dir = out.parent if log_dir is None else log_dir
     out.parent.mkdir(parents=True, exist_ok=True)
+    log_dir.mkdir(parents=True, exist_ok=True)
     nvcc, tag = _nvcc(), f"{out.stem}.{os.getpid()}"
     jobs = []
-    for src in _SOURCES:
+    for src in sources:
         obj = out.with_name(f"{src.stem}.{tag}.o")
-        cmd = [nvcc, *_FLAGS, "-I", str(_CSRC), "-c", "-o", str(obj),
+        cmd = [nvcc, *_FLAGS, "-I", str(csrc), "-c", "-o", str(obj),
                str(src)]
         jobs.append((src, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -103,7 +142,7 @@ def compile_library(out: Path) -> None:
     failed = []
     for src, _, proc in jobs:
         report, _ = proc.communicate()
-        (out.parent / f"{src.stem}.log").write_text(report)
+        (log_dir / f"{src.stem}.log").write_text(report)
         if proc.returncode != 0:
             failed.append(f"{src.name}: nvcc exit {proc.returncode}\n{report}")
     objs = [obj for _, obj, _ in jobs]
@@ -137,11 +176,12 @@ def load() -> ctypes.CDLL:
         return _lib
 
 
-def declare(lib: ctypes.CDLL, names=None) -> ctypes.CDLL:
+def declare(lib: ctypes.CDLL, names=None, signatures=None) -> ctypes.CDLL:
     """Sets the C signatures of ``lib``'s entry points ``names`` (all of
-    this library's by default); returns ``lib``."""
-    for fn in names or _SIGNATURES:
-        restype, argtypes = _SIGNATURES[fn]
+    this library's, or of ``signatures``, by default); returns ``lib``."""
+    signatures = _SIGNATURES if signatures is None else signatures
+    for fn in names or signatures:
+        restype, argtypes = signatures[fn]
         getattr(lib, fn).restype = restype
         getattr(lib, fn).argtypes = argtypes
     return lib
@@ -159,6 +199,39 @@ def use_csrc(csrc: Path) -> None:
         _HEADERS = tuple(csrc / name for name in _HEADER_NAMES
                          if (csrc / name).exists())
         _lib = None
+
+
+def _probe_files():
+    return (tuple(_PROBE_CSRC / name for name in _PROBE_SOURCE_NAMES),
+            tuple(_PROBE_CSRC / name for name in _PROBE_HEADER_NAMES))
+
+
+def probe_log_dir() -> Path:
+    """Where the probe sources' compiler reports go."""
+    return build_dir() / "probes"
+
+
+def probe_lib_path() -> Path:
+    """The probe library this checkout's sources, headers and flags build."""
+    sources, headers = _probe_files()
+    return _hashed_path("libprobes", (*headers, *sources))
+
+
+def load_probes() -> ctypes.CDLL:
+    """The probe kernels' library, compiled first if no build of these
+    sources exists.  Raises if nvcc is missing or the build fails (each
+    call tries again: no failure is cached)."""
+    global _probe_lib
+    with _probe_lock:
+        if _probe_lib is not None:
+            return _probe_lib
+        path = probe_lib_path()
+        if not path.exists():
+            compile_library(path, _probe_files()[0], _PROBE_CSRC,
+                            probe_log_dir())
+        _probe_lib = declare(ctypes.CDLL(str(path)),
+                             signatures=_PROBE_SIGNATURES)
+        return _probe_lib
 
 
 def stream_handle(device: torch.device) -> int:

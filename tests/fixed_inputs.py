@@ -77,6 +77,14 @@ def wrap_input(step, x: np.ndarray, lanes) -> int:
     output's exact accumulator is sum |w| * 32767, returned: over 2^31 at
     the real fixed configs, so the int32 sum wraps."""
     row0, taps = _wrap_window(step)
+    return wrap_column(taps, x, lanes, row0)
+
+
+def wrap_column(taps: np.ndarray, x: np.ndarray, lanes, row0: int = 0) -> int:
+    """Write ``32767 * sign(taps)`` over rows ``row0 ..`` of ``x[:, lanes]``
+    (int16, in place): the window of one weight column.  Returns its exact
+    accumulator sum |taps| * 32767, past 2^31 (so the int32 sum wraps) for
+    the real fixed filters and the tensor-core probes' random planes."""
     rows = row0 + np.arange(taps.shape[0])
     x[rows[:, None], np.asarray(lanes)[None, :]] = \
         (32767 * np.sign(taps)).astype(np.int16)[:, None]

@@ -30,8 +30,11 @@ from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
+from speex_resampler_tpu_torch.probes import (
+    fixed_interp_anatomy as pfa, mxu_peak as pmp, mxu_shape_probe as pms,
+    tc_rate as ptr, v4_overhead_anatomy as pv4)
 
-from fixed_inputs import block_origins, launch_inputs
+from fixed_inputs import block_origins, launch_inputs, wrap_column
 
 pytestmark = pytest.mark.gpu
 
@@ -884,3 +887,75 @@ def test_multifleet_bucket_churn_frees_device_memory(cuda):
     assert not mf.degraded
     assert levels[len(keys):] == [levels[len(keys) - 1]] * (2 * len(keys)), \
         levels
+
+
+# -- the tensor-core probes (speex_resampler_tpu_torch.probes) --------------
+# Each probe kernel against its plain version at the TPU probe's full
+# shape, 0 mismatches: the rate kernel at every SHAPES and CASES entry and
+# the served N-tiles (one copy of each tile, and filling the card), the
+# int8 block's variants at N = 32 and 64, the fixed ladder's rungs.
+
+# and an odd count of int8 K-slices an iteration (3 at K_pad 96, one x
+# block a CTA at 15 CTAs an SM): the slice after the last whole pair
+RATE_CASES = sorted(
+    {(d, C, K, pmp.LB, None, 1) for d in ptr.DTYPES for C, K in pmp.SHAPES}
+    | {(d, C, K, LB, None, 1) for d, C, K, LB in pms.CASES}
+    | {(d, C, K, pmp.LB, n, s) for d in ptr.DTYPES
+       for C, K, n, s in pmp.SERVED}
+    | {("int8", 64, 96, 64, 64, 15)}, key=str)
+
+
+@pytest.mark.parametrize("case", RATE_CASES, ids=lambda c: "%s-%dx%d-lb%d-n%s-sm%d" % c)
+def test_probe_rate_kernel_matches_plain(cuda, case):
+    dtype, C, K, LB, n, per_sm = case
+    w, x = ptr.operands(C, K, LB, seed=C + K + LB, device="cuda")
+    want = ptr.rate_reference(w, x, dtype)
+    assert torch.equal(ptr.tc_rate(w, x, dtype, n=n, iters=20), want)
+    rl = ptr.RateLaunch(w, x, dtype, n, per_sm=per_sm)
+    assert rl.n_ctas >= rl.plan.units
+    assert torch.equal(rl.run(16), want)
+
+
+@pytest.mark.parametrize("n", pv4.N_TILES)
+@pytest.mark.parametrize("variant", pv4.VARIANTS)
+def test_probe_int8_anatomy_matches_plain(cuda, variant, n):
+    w8, x16, x8 = pv4.inputs(seed=11, device="cuda")
+    x16[0, ::7], x16[1, ::7] = -32768, 32767
+    x = x8 if variant == "mxu_only" else x16
+    want = pv4.anatomy_reference(variant, w8, x)
+    assert torch.equal(pv4.anatomy(variant, w8, x, n=n), want)
+    al = pv4.AnatomyLaunch(variant, w8, x, n)
+    assert torch.equal(al.run(17), want)
+
+
+@pytest.mark.parametrize("rung", pfa.RUNGS)
+def test_probe_fixed_ladder_matches_plain(cuda, rung):
+    planes, bias, coef, xh, x16 = pfa.inputs(seed=12)
+    w = planes[0].to(torch.int64) * 256 + planes[1].to(torch.int64)
+    c = int(w[:pfa.R].abs().sum(1).argmax())
+    x16 = x16.numpy().copy()
+    assert wrap_column(w[c].numpy(), x16, np.arange(0, pfa.LB, 5)) > 2 ** 31
+    x16[0, 1::7], x16[1, 1::7] = -32768, 32767
+    args = [t.cuda() for t in (planes, bias, coef)]
+    x = pfa.rung_input(rung, xh.cuda(), torch.from_numpy(x16).cuda())
+    want = pfa.ladder_reference(rung, *args, x)
+    assert torch.equal(pfa.ladder(rung, *args, x), want)
+    assert torch.equal(pfa.LadderLaunch(rung, *args, x).run(16), want)
+
+
+def test_probe_build_error_raises(cuda, tmp_path, monkeypatch):
+    """A probe source that does not compile raises from the wrapper on CUDA
+    tensors (no plain-version fallback), and again on the next call."""
+    import shutil
+    copy = tmp_path / "csrc"
+    shutil.copytree(_build._PROBE_CSRC, copy)
+    src = copy / "probes" / "tc_rate.cu"
+    src.write_text(src.read_text() + "\nthis does not compile;\n")
+    monkeypatch.setattr(_build, "_PROBE_CSRC", copy)
+    monkeypatch.setattr(_build, "_probe_lib", None)
+    w, x = ptr.operands(128, 264, 128, device="cuda")
+    before = ptr.launches
+    for _ in range(2):
+        with pytest.raises(RuntimeError, match="nvcc failed"):
+            ptr.tc_rate(w, x, "int8")
+    assert ptr.launches == before and _build._probe_lib is None
