@@ -83,24 +83,36 @@ against a CPU fleet fed those streams' bytes, then times steady-state
 ms a launch of ``stats``, and the device's busy share from a
 ``torch.profiler`` trace) and ``BatchedResampler.process()`` of four
 quanta at the flagship.
-- phase 10, the tensor-core probes (``speex_resampler_tpu_torch.probes``,
-  ``csrc/probes/``; the Hopper counterparts of the TPU probes
-  ``experiments/mxu_peak.py``, ``mxu_shape_probe.py``,
-  ``v4_overhead_anatomy.py`` and ``fixed_interp_anatomy.py``): their
-  library, ``libprobes``, built beside the kernels' in phase 2 (its build
-  time, ``-Xptxas -v`` lines and IGMMA / HGMMA counts printed, a count of 0
-  failing the run); every probe kernel against its plain version on the
-  card at the TPU probe's full shape, 0 mismatches (the rate kernel at the
-  flagship block [128, 264] x 128 lanes, int8 and bf16, at its own N-tile
-  and at N = 32 and 64; the int8 block's three variants at N = 32 and 64;
-  the fixed ladder's four rungs); then, with the probe launch counts set
-  to 0, one case of each timed (every SM busy: ms a launch, the rate from
-  the slope between two iteration counts, the plain version and, where
-  one PyTorch call computes the function, the library call), each probe
-  kernel required to have launched.  The probe kernels join the
-  ``{"kernels": ...}`` line (an anatomy kernel's name ends with its variant
-  or rung) with ``launches`` 0 (no served path launches them) and their
-  phase-10 launches beside.
+- phase 10, the TPU probes (``speex_resampler_tpu_torch.probes``,
+  ``csrc/probes/``; the Hopper counterparts of ``experiments/mxu_peak.py``,
+  ``mxu_shape_probe.py``, ``v4_overhead_anatomy.py``,
+  ``fixed_interp_anatomy.py``, ``v3_overhead_anatomy.py``,
+  ``mosaic_int_dot_bench.py``, ``kernel_anatomy.py`` and
+  ``prec_bench.py``): their library, ``libprobes``, built beside the
+  kernels' in phase 2 (its build time, ``-Xptxas -v`` lines and SASS
+  counts printed: IGMMA or HGMMA in every tensor-core probe, FFMA (FADD
+  for nodot) and no wgmma in the CUDA-core ones, else the run fails);
+  every probe kernel against its plain version on the card at the TPU
+  probe's full shape (the rate kernel at the flagship block [128, 264] x
+  128 lanes, int8 and bf16, at its own N-tile and at N = 32 and 64; the
+  int8 block's three variants at N = 32 and 64; the fixed ladder's four
+  rungs; the flagship launch's five variants, full and hoist also against
+  the served K1b, hoist's pre-pass against its plain split; the exact
+  integer dots of each form on the rate kernel, the wide forms on
+  full-range operands; the f32 block's four variants;
+  the FIR dot at four precisions, with their error against the float64
+  gold printed beside the plain version's): 0 mismatches for the integer
+  probes and nodot, max |err| <= 1 within the tie bound for the float
+  ones; then, with the probe launch counts set to 0, one case of each
+  timed (every SM busy: ms a launch, the rate from the slope between two
+  iteration counts, the plain version and, where one PyTorch call
+  computes the function, the library call; P5's ladder beside the served
+  K1b with hoist's pre-pass timed alone, P7's cost a body by operand
+  width), each probe kernel required to
+  have launched.  The probe kernels join the ``{"kernels": ...}`` line
+  (a name ends with its variant, rung, form or precision) with
+  ``launches`` 0 (no served path launches them) and their phase-10
+  launches beside.
 Kernel and library times are read three ways: launches queued back to
 back between two events, the same launches captured in one CUDA graph and
 replayed (the device's time alone: the wrapper's Python runs once, at
@@ -134,7 +146,7 @@ from speex_resampler_tpu_torch import (BatchedResampler, FleetResampler,
                                        resample_array)
 from speex_resampler_tpu_torch.runtime import MultiFleet
 from speex_resampler_tpu_torch.ops import _build, phase as ph
-from speex_resampler_tpu_torch.ops.convert import word2int
+from speex_resampler_tpu_torch.ops.convert import lsb_tie_limit, word2int
 from speex_resampler_tpu_torch.ops import dense_fir as df
 from speex_resampler_tpu_torch.ops import filter_design as fd
 from speex_resampler_tpu_torch.ops import fir_exact
@@ -144,7 +156,9 @@ from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
 from speex_resampler_tpu_torch.probes import (
-    fixed_interp_anatomy as pfa, tc_rate as ptr, v4_overhead_anatomy as pv4)
+    fixed_interp_anatomy as pfa, kernel_anatomy as pka,
+    mosaic_int_dot_bench as pid, prec_bench as ppb, tc_rate as ptr,
+    v3_overhead_anatomy as pv3, v4_overhead_anatomy as pv4)
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -299,17 +313,12 @@ REPLACES = {("tiled", "split5"): "speex_resampler_tpu/ops/pallas_fir.py:416",
                 "speex_resampler_tpu/ops/pallas_fir.py:667"}
 
 # H100 SXM published peaks (NVIDIA H100 datasheet): HBM, FP32 outside
-# the tensor cores, int8 and bf16 tensor-core operations
+# the tensor cores, int8, bf16 and TF32 tensor-core operations
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS = 67e12
 INT8_OPS = 1979e12
 BF16_FLOPS = 989e12
-
-
-def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
-    """Poisson tie bound of the LSB contract (tests/conftest.py)."""
-    lam = rate * n
-    return lam + 4.0 * float(np.sqrt(lam * (1.0 - rate))) + 2.0
+TF32_FLOPS = 495e12
 
 
 def ties(mism: int, n: int) -> str:
@@ -523,8 +532,9 @@ def kernel_of(symbol: str) -> str:
     """A kernel's name (with its int and bool template arguments) from its
     mangled symbol, else the symbol."""
     m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel|"
-                  r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum)"
-                  r"_kernel)(I((?:L[ib]\d+E)+)E)?", symbol)
+                  r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum|"
+                  r"v3_anatomy|v3_split|f32_anatomy|prec_tc|"
+                  r"prec_f32)_kernel)(I((?:L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
     if not m.group(2):
@@ -560,9 +570,10 @@ def ptxas_report() -> None:
 
 
 def gmma_counts(lib) -> dict:
-    """{(kernel, "IGMMA" | "HGMMA"): wgmma instructions} in a built
-    library's SASS (``cuobjdump -sass``, which ships with the CUDA toolkit
-    beside nvcc); raises if the tool is missing or fails."""
+    """{(kernel, "IGMMA" | "HGMMA" | "FFMA" | "FADD"): wgmma, f32 FMA and
+    f32 add instructions} in a built library's SASS (``cuobjdump -sass``,
+    which ships with the CUDA toolkit beside nvcc); raises if the tool is
+    missing or fails."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise AssertionError("SASS check: cuobjdump not found")
@@ -579,6 +590,11 @@ def gmma_counts(lib) -> dict:
         elif name and "GMMA" in line:
             op = "IGMMA" if "IGMMA" in line else "HGMMA"
             counts[(name, op)] = counts.get((name, op), 0) + 1
+        elif name:
+            f = re.search(r"\b(FFMA|FADD)\b", line)
+            if f:
+                key = (name, f.group(1))
+                counts[key] = counts.get(key, 0) + 1
     return counts
 
 
@@ -1591,33 +1607,58 @@ class ProbeBuild:
 PROBE_SOURCE = "speex_resampler_tpu_torch/csrc/probes/{}.cu"
 PROBE_REPLACES = {"tc_rate": "experiments/mxu_peak.py:68",
                   "int8_anatomy": "experiments/v4_overhead_anatomy.py:53",
-                  "fixed_anatomy": "experiments/fixed_interp_anatomy.py:68"}
-PROBE_MODULES = {"tc_rate": ptr, "int8_anatomy": pv4, "fixed_anatomy": pfa}
+                  "fixed_anatomy": "experiments/fixed_interp_anatomy.py:68",
+                  "v3_anatomy": "experiments/v3_overhead_anatomy.py:230",
+                  "f32_anatomy": "experiments/kernel_anatomy.py:63",
+                  "prec_fir": "experiments/prec_bench.py:55"}
+PROBE_MODULES = {"tc_rate": ptr, "int8_anatomy": pv4, "fixed_anatomy": pfa,
+                 "v3_anatomy": pv3, "f32_anatomy": pka,
+                 "prec_fir": ppb}
 # the rate kernel's checked cases at the flagship block [128, 264] x 128
 # lanes: (dtype, N-tile; None: the case's own, C = 128)
 PROBE_RATE = [("int8", None), ("bf16", None), ("int8", 32), ("int8", 64),
               ("bf16", 32), ("bf16", 64)]
-# iterations of a timed launch: 1-3 ms each on the H100
-PROBE_ITERS = {"tc_rate": 512, "int8_anatomy": 512, "fixed_anatomy": 128}
+# iterations of a timed launch: 1-5 ms each on the H100
+PROBE_ITERS = {"tc_rate": 512, "int8_anatomy": 512, "fixed_anatomy": 128,
+               "int_dot": 256}
+# P7's integer forms (bf16 is the rate kernel's case at [512, 264]); P7
+# runs on the rate kernel, so its entries name P7's TPU kernel
+INT_FORMS = ("i8i8", "i16i16", "i16i8", "i32i32")
+P7_REPLACES = "experiments/mosaic_int_dot_bench.py:44"
 
 
 def probe_report() -> None:
-    """The probe library's ptxas lines and its wgmma counts; raises if a
-    probe kernel has no tensor-core instruction."""
+    """The probe library's ptxas lines and its instruction counts; raises
+    if a tensor-core probe kernel has no wgmma instruction (IGMMA for the
+    int8 ones, HGMMA for bf16 and TF32), or a CUDA-core one (P6, P8's
+    HIGHEST) has a wgmma or lacks its f32 FMA (FADD for nodot)."""
     for log in sorted(_build.probe_log_dir().glob("*.log")):
         for name, lines in ptxas_props(log).items():
             print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
     counts = gmma_counts(_build.probe_lib_path())
-    want = ([(f"tc_rate_kernel<{b}, {n}>", op)
+    cores = ([(f"f32_anatomy_kernel<{v}>", "FADD" if v == 1 else "FFMA")
+              for v in range(len(pka.VARIANTS))]
+             + [("prec_f32_kernel", "FFMA")])
+    want = ([(f"tc_rate_kernel<{b}, {n}, 1, 1>", op)
              for b, op in (("false", "IGMMA"), ("true", "HGMMA"))
              for n in ptr.N_TILES]
+            + [(f"tc_rate_kernel<false, {n}, {na}, {nb}>", "IGMMA")
+               for na, nb, n in ptr.DIGIT_CASES]
             + [(f"int8_anatomy_kernel<{v}, {n}>", "IGMMA")
                for v in range(len(pv4.VARIANTS)) for n in pv4.N_TILES]
-            + [(f"fixed_anatomy_kernel<{r}>", "IGMMA") for r in range(3)])
+            + [(f"fixed_anatomy_kernel<{r}>", "IGMMA") for r in range(3)]
+            + [(f"v3_anatomy_kernel<{v}>", "IGMMA")
+               for v in range(len(pv3.VARIANTS))]
+            + [(f"prec_tc_kernel<{m}>", "HGMMA") for m in (1, 2, 3)]
+            + cores)
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"probe SASS check (cuobjdump -sass): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
-        raise AssertionError("a probe kernel has no wgmma instruction")
+        raise AssertionError("a probe kernel lacks its instruction")
+    gmma = [n for n, _ in cores
+            if counts.get((n, "IGMMA"), 0) + counts.get((n, "HGMMA"), 0)]
+    if gmma:
+        raise AssertionError(f"CUDA-core probe kernels with wgmma: {gmma}")
 
 
 def exact_check(got, want, what: str) -> int:
@@ -1647,11 +1688,44 @@ def probe_inputs_fixed():
                                      torch.from_numpy(x)))
 
 
+def probe_inputs_v3(g):
+    """P5's launch on the card: x drawn as the experiment draws it, with
+    a row of -32768 and one of 32767 in every block's window, and a
+    nonzero history."""
+    hist, x = pv3.inputs(g, seed=8, device="cuda")
+    x[0:g.in_per_launch:97] = -32768
+    x[1:g.in_per_launch:89] = 32767
+    rng = np.random.default_rng(9)
+    hist = torch.from_numpy(rng.integers(-32768, 32768, tuple(hist.shape))
+                            .astype(np.int16)).cuda()
+    return hist, x
+
+
+def probe_inputs_int(form: str):
+    """P7's operands: the probe's draw, with full-range int16 (i16.i16,
+    and W of i16.i8) or int32 (i32.i32) operands for the wide forms, whose
+    sums then wrap mod 2^32."""
+    w, x = pid.inputs(seed=6)
+    rng = np.random.default_rng(10)
+    lo, hi, dt = ((-2 ** 31, 2 ** 31, np.int32) if form == "i32i32"
+                  else (-32768, 32768, np.int16))
+    if form != "i8i8":
+        w = torch.from_numpy(rng.integers(lo, hi, tuple(w.shape)).astype(dt))
+    if form in ("i16i16", "i32i32"):
+        x = torch.from_numpy(rng.integers(lo, hi, tuple(x.shape)).astype(dt))
+    return w.cuda(), x.cuda()
+
+
 def probe_check() -> dict:
     """Every probe kernel against its plain version on the card at the TPU
     probe's full shape (one copy of each tile, 16 iterations): the rate
     kernel (PROBE_RATE), the int8 block's variants at N = 32 and 64, the
-    fixed ladder's rungs.  Returns {(family, case): max |err|}."""
+    fixed ladder's rungs; P5's five variants at the flagship (full and
+    hoist also against the served K1b, bit for bit; hoist's pre-pass
+    against its plain split), P7's integer forms at their N-tile and its
+    bf16 case, P6's four variants and P8's four precisions (max |err|
+    <= 1 within the tie bound; nodot exact), and P8's error table against
+    the float64 gold.  Returns {(family, case): max |err|}."""
     errs = {}
     w, x = ptr.operands(128, 264, 128, seed=3, device="cuda")
     for dtype, n in PROBE_RATE:
@@ -1674,15 +1748,78 @@ def probe_check() -> dict:
             pfa.ladder(rung, planes, bias, coef, xr),
             pfa.ladder_reference(rung, planes, bias, coef, xr),
             f"fixed_anatomy {rung} [512, 264] . [264, 128]")
+    g = pv3.geometry()
+    w3, kw3 = pv3.weights(g, "cuda"), pv3.launch_kw(g, "cuda")
+    hist, x = probe_inputs_v3(g)
+    k1b = pv3.served(hist, x, w3, **kw3)
+    for v in pv3.VARIANTS:
+        got = pv3.anatomy(v, hist, x, w3, **kw3)
+        errs[("v3_anatomy", v)] = exact_check(
+            got, pv3.anatomy_reference(v, hist, x, w3, **kw3),
+            f"v3_anatomy {v} flagship [10240, 2048]")
+        if v in ("full", "hoist"):
+            exact_check(got, k1b, f"v3_anatomy {v} against the served K1b")
+    al = pv3.AnatomyLaunch("hoist", hist, x, w3, **kw3)
+    print(f"probe check v3_split (hoist's pre-pass): "
+          f"{pv3.split_check(al, hist, x)['split_mismatches']} mismatches")
+    for form in INT_FORMS:
+        w, x = probe_inputs_int(form)
+        errs[("int_dot", form)] = exact_check(
+            pid.int_dot(w, x, form), pid.int_dot_reference(w, x, form),
+            f"int_dot {form} N {pid.N_TILE[form]} [512, 264] x 128")
+    w, x = pid.inputs(seed=6, device="cuda")
+    errs[("int_dot", "bf16bf16")] = exact_check(
+        pid.int_dot(w, x, "bf16bf16"),
+        pid.int_dot_reference(w, x, "bf16bf16"),
+        "int_dot bf16bf16 (tc_rate) [512, 264] x 128")
+    g6 = pka.geometry()
+    w6, kw6 = pka.weights(g6, "cuda"), pka.launch_kw(g6, "cuda")
+    x16 = pka.inputs(g6, seed=11, device="cuda")
+    x16[0, ::7], x16[1, ::7] = -32768, 32767
+    for v in pka.VARIANTS:
+        xv = pka.variant_input(v, x16)
+        got = pka.anatomy(v, xv, w6, **kw6)
+        want = pka.anatomy_reference(v, xv, w6, **kw6)
+        if v == "nodot":
+            errs[("f32_anatomy", v)] = exact_check(
+                got, want, f"f32_anatomy {v} [80 x 128, 2048]")
+        else:
+            err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
+                                "highest", f"f32_anatomy {v}")
+            print(f"probe check f32_anatomy {v} [80 x 128, 2048]: max "
+                  f"|err| {err}, {mism} ties {ties(mism, got.numel())}")
+            errs[("f32_anatomy", v)] = err
+    g8 = ppb.geometry()
+    w8 = torch.from_numpy(g8.w).cuda()
+    x8 = ppb.inputs(g8, seed=12, device="cuda")
+    gold = ppb.gold(w8, x8, g8.n_blocks)
+    table = []
+    for mode in ppb.PRECISIONS:
+        got = ppb.prec(mode, w8, x8, g8.n_blocks)
+        want = ppb.prec_reference(mode, w8, x8, g8.n_blocks)
+        err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
+                            "highest", f"prec_fir {mode}")
+        print(f"probe check prec_fir {mode} [64 x 160, 2048]: max |err| "
+              f"{err}, {mism} ties {ties(mism, got.numel())}")
+        errs[("prec_fir", mode)] = err
+        k, p = ppb.stats(got, gold), ppb.stats(want, gold)
+        table.append(f"{mode} kernel max|d| {k['max_abs_d']} rate "
+                     f"{k['rate']:.4e}, plain max|d| {p['max_abs_d']} rate "
+                     f"{p['rate']:.4e}")
+    print("probe P8 against the float64 gold (experiments/prec_bench.py "
+          "gold): " + "; ".join(table))
     return errs
 
 
 def probe_entry(family, name, smi, ms, plain_ms, library_ms, ops, nbytes,
-                err, extra) -> dict:
+                err, extra, peak=None, replaces=None) -> dict:
     """One probe kernel's JSON entry and its printed line: the bound of the
     timed launch is the larger of its bytes (inputs once, the output
-    once) over HBM and its int8 / bf16 operations over the peak."""
-    peak = BF16_FLOPS if "<true" in name else INT8_OPS
+    once) over HBM and its operations over the peak of their type (int8
+    or, for the rate kernel's bf16 case, bf16, unless ``peak`` says); the
+    TPU kernel it replaces is its family's unless ``replaces`` says."""
+    if peak is None:
+        peak = BF16_FLOPS if "<true" in name else INT8_OPS
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / peak * 1e3
     bound_ms = max(t_bytes, t_ops)
@@ -1692,12 +1829,159 @@ def probe_entry(family, name, smi, ms, plain_ms, library_ms, ops, nbytes,
           f"({', '.join(f'{k} {v:.4g}' if isinstance(v, float) else f'{k} {v}' for k, v in extra.items())}), "
           f"bound {bound_ms:.4f} ms by {by} -> {bound_ms / ms:.3f} of it; "
           f"plain {plain_ms:.4f} ms, library {lib}")
-    return {"name": name, "route": "cuda",
+    return {"name": name, "family": family, "route": "cuda",
             "source": PROBE_SOURCE.format(family),
-            "replaces": PROBE_REPLACES[family], "launches": 0,
+            "replaces": replaces or PROBE_REPLACES[family], "launches": 0,
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": by, "library_ms": library_ms,
             **extra}
+
+
+def probe_time_p5_p8(smi: str, errs: dict) -> list:
+    """Probes P5-P8 timed (counts already at 0), their JSON entries:
+
+    - P5, one launch of each variant at the flagship (ms: 20 queued), the
+      served K1b's beside; the bound is K1b's (its launch's bytes, each
+      needed multiply-add 6 int8 products), the phase-0 variants reading
+      only phase 0's K-row patch of each period; the ladder printed;
+    - P7, each integer form and the rate kernel's bf16 case at [512, 264]
+      x 128 lanes as the rate kernel is timed (one launch of
+      PROBE_ITERS["int_dot"] iterations, every SM busy, and the slope),
+      the forms' costs a body against i8.i8 printed;
+    - P6 and P8, one launch of each variant or precision (20 queued), the
+      bound counting the nonzero weights' multiply-adds at the peak of
+      their type."""
+    entries = []
+    # P5
+    g = pv3.geometry()
+    w3, kw3 = pv3.weights(g, "cuda"), pv3.launch_kw(g, "cuda")
+    hist, x = pv3.inputs(g, device="cuda")
+    bspec = FLAGSHIP.geometry()
+    step = tb.make_batched_step(FLAGSHIP.spec, bspec, device="cuda",
+                                scheme="int8")
+    _, _, nbytes, ops, _, _ = launch_bound(FLAGSHIP.spec, step, bspec, LANES)
+    spec, n_out = FLAGSHIP.spec, bspec.out_per_launch
+    x_rows = ((bspec.f0 + (n_out - 1) * spec.num) // spec.den
+              + spec.filt_len - bspec.f0 // spec.den)   # launch_bound's
+    phase0_bytes = nbytes - (x_rows - g.n_periods * g.K) * LANES * 2
+    k1b_ms = cuda_ms(lambda: pv3.served(hist, x, w3, **kw3), 20)
+    ladder = {}
+    for v in pv3.VARIANTS:
+        al = pv3.AnatomyLaunch(v, hist, x, w3, **kw3)
+        ms = cuda_ms(al.run, 20)
+        ladder[v] = ms
+        split = {}
+        if v == "hoist":   # the pre-pass alone, and the walk's share
+            split = {"split_ms": cuda_ms(al.run_split, 20)}
+            split["walk_ms"] = ms - split["split_ms"]
+            ladder["hoist walk"] = split["walk_ms"]
+        plain_ms = cuda_ms(
+            lambda: pv3.anatomy_reference(v, hist, x, w3, **kw3), 3)
+        entries.append(probe_entry(
+            "v3_anatomy", f"v3_anatomy_kernel<{al.v}> {v}", smi, ms,
+            plain_ms, None, ops,
+            phase0_bytes if v in ("no_assemble", "dots_only") else nbytes,
+            errs[("v3_anatomy", v)],
+            {"variant": v, "served_K1b_ms": k1b_ms, "smem": al.smem,
+             "max_slices": al.slices, **split}))
+    print(f"probe P5 ladder on {smi}, ms a flagship launch: served K1b "
+          f"{k1b_ms:.4f}; full {ladder['full']:.4f} ("
+          f"{ladder['full'] - k1b_ms:+.4f} against K1b); "
+          + "; ".join(f"{v} {ladder[v] - ladder['full']:+.4f}"
+                      for v in ("hoist", "hoist walk") + pv3.VARIANTS[2:])
+          + f" against full (hoist's pre-pass alone "
+          f"{ladder['hoist'] - ladder['hoist walk']:.4f})")
+    # P7
+    w, x = pid.inputs(device="cuda")
+    macs = pid.N_REPS * pid.C * pid.K * pid.LB
+    it = PROBE_ITERS["int_dot"]
+    body_us = {}
+    for form in INT_FORMS:
+        il = pid.int_dot_launch(w, x, form)
+        prod, p = pid.products(form), il.plan
+        ms = cuda_ms(lambda: il.run(it), 3)
+        s = ptr.slope_ms(il.run, il.bodies_per_iter * macs * prod,
+                         ptr.DATASHEET_MACS["int8"], target_ms=5.0)
+        body_us[form] = s["slope_ms"] * 1e3 / il.bodies_per_iter
+        plain_ms = cuda_ms(lambda: pid.int_dot_reference(w, x, form), 3)
+        lib = pid.library_call(w, x, form)
+        entries.append(probe_entry(
+            "tc_rate", f"{p.kernel} {form}", smi,
+            ms, plain_ms, None if lib is None else cuda_ms(lib, 3),
+            2 * prod * macs * it * il.bodies_per_iter,
+            (p.na * pid.C + pid.N_REPS * p.nb * pid.LB) * pid.K
+            + 4 * pid.SLOTS * pid.C * pid.LB, errs[("int_dot", form)],
+            {"form": form, "products": prod, "iters": it,
+             "us_per_body": body_us[form],
+             "tmacs": macs / (body_us[form] * 1e-6) / 1e12,
+             "n_ctas": il.n_ctas, "rs": p.rs}, replaces=P7_REPLACES))
+    rl = ptr.RateLaunch(w, x, "bf16")
+    p, it_r = rl.plan, PROBE_ITERS["tc_rate"]
+    ms = cuda_ms(lambda: rl.run(it_r), 3)
+    s = ptr.slope_ms(rl.run, rl.walked_macs, ptr.DATASHEET_MACS["bf16"],
+                     target_ms=5.0)
+    evals = it_r * rl.bodies_per_iter
+    body_us["bf16bf16"] = s["slope_ms"] * 1e3 / rl.bodies_per_iter
+    entries.append(probe_entry(
+        "tc_rate", f"{p.kernel} bf16bf16", smi, ms,
+        cuda_ms(lambda: ptr.rate_reference(w, x, "bf16"), 3),
+        cuda_ms(ptr.library_call(w, x, "bf16"), 3), 2 * p.needed_macs * evals,
+        2 * (p.C * p.K + ptr.N_REPS * p.K * p.LB) + 4 * ptr.SLOTS * p.C * p.LB,
+        errs[("int_dot", "bf16bf16")],
+        {"form": "bf16bf16", "iters": it_r, "us_per_body": body_us["bf16bf16"],
+         "tmacs": macs / (body_us["bf16bf16"] * 1e-6) / 1e12,
+         "n_ctas": rl.n_ctas, "rs": p.rs}, replaces=P7_REPLACES))
+    print(f"probe P7 on {smi}, us a body [512, 264] . [264, 128] x 8 "
+          f"(against i8.i8): " + "; ".join(
+              f"{f} {u:.4f} ({u / body_us['i8i8']:.2f}x)"
+              for f, u in body_us.items()))
+    # P6
+    g6 = pka.geometry()
+    w6, kw6 = pka.weights(g6, "cuda"), pka.launch_kw(g6, "cuda")
+    x16 = pka.inputs(g6, device="cuda")
+    nnz = int((w6[0] != 0).sum()) * pka.N_PERIODS * pka.B  # multiply-adds
+    n_y = kw6["n_blocks"] * g6.R * pka.B * 2
+    times6 = {}
+    for v in pka.VARIANTS:
+        xv = pka.variant_input(v, x16)
+        al = pka.AnatomyLaunch(v, xv, w6, **kw6)
+        ms = cuda_ms(al.run, 20)
+        times6[v] = ms
+        plain_ms = cuda_ms(lambda: pka.anatomy_reference(v, xv, w6, **kw6), 3)
+        rows = g6.K if v == "noslice" else g6.T
+        w_bytes = 0 if v == "nodot" else int((w6[0] != 0).sum()) * 4
+        ops = (kw6["n_blocks"] * g6.K * pka.B if v == "nodot" else 2 * nnz)
+        entries.append(probe_entry(
+            "f32_anatomy", f"f32_anatomy_kernel<{al.v}> {v}", smi, ms,
+            plain_ms, cuda_ms(pka.library_call(v, xv, w6, **kw6), 3), ops,
+            rows * pka.B * xv.element_size() + w_bytes + n_y,
+            errs[("f32_anatomy", v)], {"variant": v}, peak=FP32_FLOPS))
+    print(f"probe P6 on {smi}, ms a launch: full {times6['full']:.4f}; "
+          + "; ".join(f"{v} {times6[v] - times6['full']:+.4f}"
+                      for v in pka.VARIANTS[1:]) + " against full")
+    # P8
+    g8 = ppb.geometry()
+    w8 = torch.from_numpy(g8.w).cuda()
+    x8 = ppb.inputs(g8, device="cuda")
+    nnz8 = int((w8 != 0).sum()) * g8.n_blocks * ppb.B
+    peaks = {"HIGHEST": FP32_FLOPS, "HIGH": BF16_FLOPS,
+             "DEFAULT": BF16_FLOPS, "TF32": TF32_FLOPS}
+    for mode in ppb.PRECISIONS:
+        pl = ppb.PrecLaunch(mode, w8, x8, g8.n_blocks)
+        ms = cuda_ms(pl.run, 20)
+        plain_ms = cuda_ms(
+            lambda: ppb.prec_reference(mode, w8, x8, g8.n_blocks), 3)
+        lib = ppb.library_call(mode, w8, x8, g8.n_blocks)
+        name = ("prec_f32_kernel" if mode == "HIGHEST"
+                else f"prec_tc_kernel<{pl.m}>") + f" {mode}"
+        entries.append(probe_entry(
+            "prec_fir", name, smi, ms, plain_ms,
+            None if lib is None else cuda_ms(lib, 3),
+            2 * (3 if mode == "HIGH" else 1) * nnz8,
+            g8.T * ppb.B * 2 + int((w8 != 0).sum()) * 4
+            + g8.n_blocks * ppb.R * ppb.B * 2, errs[("prec_fir", mode)],
+            {"precision": mode}, peak=peaks[mode]))
+    return entries
 
 
 def probe_time(smi: str, errs: dict) -> list:
@@ -1722,8 +2006,7 @@ def probe_time(smi: str, errs: dict) -> list:
         es = 2 if dtype == "bf16" else 1
         evals = it * rl.n_ctas / p.units
         entries.append(probe_entry(
-            "tc_rate", f"tc_rate_kernel<{'true' if es == 2 else 'false'}, "
-            f"{p.n}>", smi, ms, plain_ms, library_ms,
+            "tc_rate", p.kernel, smi, ms, plain_ms, library_ms,
             2 * p.needed_macs * evals,
             es * (p.C * p.K + ptr.N_REPS * p.K * p.LB) + 4 * ptr.SLOTS * p.C
             * p.LB, errs[("tc_rate", dtype, None)],
@@ -1773,14 +2056,17 @@ def probe_time(smi: str, errs: dict) -> list:
             errs[("fixed_anatomy", rung)],
             {"rung": rung, "iters": it, "us_per_block": us,
              "tmacs": macs / (us * 1e-6) / 1e12, "n_ctas": ll.n_ctas}))
+    entries += probe_time_p5_p8(smi, errs)
     counts = {family: m.launches for family, m in PROBE_MODULES.items()}
     print(f"probe launches in phase 10's timed path: {json.dumps(counts)}")
     if not all(counts.values()):
         raise AssertionError(f"a probe kernel never launched: {counts}")
     for e in entries:
-        e["phase10_launches"] = counts[e["name"].split("_kernel")[0]]
-    t = {e["rung"]: e["us_per_block"] for e in entries if "rung" in e}
-    u = {e["variant"]: e["us_per_block"] for e in entries if "variant" in e}
+        e["phase10_launches"] = counts[e["family"]]
+    t = {e["rung"]: e["us_per_block"] for e in entries
+         if e["family"] == "fixed_anatomy"}
+    u = {e["variant"]: e["us_per_block"] for e in entries
+         if e["family"] == "int8_anatomy"}
     print(f"probe ladders on {smi}, us a block: int8 (N 32) mxu_only "
           f"{u['mxu_only']:.4f}, full - mxu_only "
           f"{u['full'] - u['mxu_only']:.4f}; fixed: dots "

@@ -66,17 +66,18 @@ _SIGNATURES = {
 _lib = None
 _lock = threading.Lock()
 
-# the probe library: its sources (under _CSRC) include probes/probe_common.cuh
-# and, through it, the production headers
+# the probe library: its sources (under _CSRC) include the production headers,
+# most through probes/probe_common.cuh
 _PROBE_SOURCE_NAMES = ("probes/tc_rate.cu", "probes/int8_anatomy.cu",
-                       "probes/fixed_anatomy.cu")
+                       "probes/fixed_anatomy.cu", "probes/v3_anatomy.cu",
+                       "probes/f32_anatomy.cu", "probes/prec_fir.cu")
 _PROBE_HEADER_NAMES = ("probes/probe_common.cuh",) + _HEADER_NAMES
 _PROBE_CSRC = _CSRC
 _PROBE_SIGNATURES = {
     "probe_error_string": (ctypes.c_char_p, [_I]),
-    "probe_tc_rate_smem": (_I, [_I] * 4),
-    "probe_tc_rate_fill": (_I, [_I] * 6),
-    "probe_tc_rate": (_I, [_P] * 5 + [_I] * 9 + [_P]),
+    "probe_tc_rate_smem": (_I, [_I] * 6),
+    "probe_tc_rate_fill": (_I, [_I] * 8),
+    "probe_tc_rate": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "probe_int8_anatomy_smem": (_I, [_I] * 4),
     "probe_int8_anatomy_fill": (_I, [_I] * 6),
     "probe_int8_anatomy": (_I, [_P] * 5 + [_I] * 9 + [_P]),
@@ -84,6 +85,13 @@ _PROBE_SIGNATURES = {
     "probe_fixed_anatomy_rows": (_I, []),
     "probe_fixed_anatomy_fill": (_I, [_I] * 4),
     "probe_fixed_anatomy": (_I, [_P] * 6 + [_I] * 7 + [_P]),
+    "probe_v3_anatomy_smem": (_I, [_I] * 3),
+    "probe_v3_split": (_I, [_P] * 3 + [_I] * 4 + [_P]),
+    "probe_v3_anatomy": (_I, [_P] * 8 + [_I] + [_F] * 3 + [_I] * 9 + [_P]),
+    "probe_f32_anatomy_smem": (_I, [_I]),
+    "probe_f32_anatomy": (_I, [_P] * 5 + [_I] * 8 + [_P]),
+    "probe_prec_fir_smem": (_I, [_I]),
+    "probe_prec_fir": (_I, [_P] * 4 + [_I] * 8 + [_P]),
 }
 _probe_lib = None
 _probe_lock = threading.Lock()

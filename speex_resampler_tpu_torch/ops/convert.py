@@ -11,7 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["word2int", "word2int_np"]
+__all__ = ["word2int", "word2int_np", "lsb_tie_limit"]
 
 
 def word2int(x: torch.Tensor) -> torch.Tensor:
@@ -36,3 +36,12 @@ def word2int_np(x: np.ndarray) -> np.ndarray:
     y = np.where(x < x.dtype.type(-32767.5), x.dtype.type(-32768.0), y)
     y = np.where(x > x.dtype.type(32766.5), x.dtype.type(32767.0), y)
     return y.astype(np.int16)
+
+
+def lsb_tie_limit(n: int, rate: float = 5e-3) -> float:
+    """The Poisson tie bound of the LSB contract: the most outputs of n
+    that f32 sums in another order may put 1 LSB off (a sum at a WORD2INT
+    rounding boundary), at a tie rate of ``rate`` with four standard
+    deviations and 2 of slack."""
+    lam = rate * n
+    return lam + 4.0 * float(np.sqrt(lam * (1.0 - rate))) + 2.0

@@ -12,7 +12,18 @@ under ``experiments/`` that bound the served kernels.
   ``csrc/probes/int8_anatomy.cu``);
 - :mod:`.fixed_interp_anatomy` (``experiments/fixed_interp_anatomy.py``: the
   fixed interpolated block as a ladder of four rungs,
-  ``csrc/probes/fixed_anatomy.cu``).
+  ``csrc/probes/fixed_anatomy.cu``);
+- :mod:`.v3_overhead_anatomy` (``experiments/v3_overhead_anatomy.py``: the
+  flagship's int8 launch, K1b, in five variants,
+  ``csrc/probes/v3_anatomy.cu``);
+- :mod:`.mosaic_int_dot_bench` (``experiments/mosaic_int_dot_bench.py``:
+  exact integer dots by operand width, on the rate kernel of
+  :mod:`.tc_rate`: the wider forms as int8 digit products);
+- :mod:`.kernel_anatomy` (``experiments/kernel_anatomy.py``: the tiled f32
+  block on the CUDA cores in four variants, ``csrc/probes/f32_anatomy.cu``);
+- :mod:`.prec_bench` (``experiments/prec_bench.py``: the FIR dot at each
+  matrix-unit precision against a float64 gold,
+  ``csrc/probes/prec_fir.cu``).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (built at first use into ``build/torch_kernels/libprobes.<hash>.so``)
@@ -22,4 +33,5 @@ module here imports jax, triton, ``experiments/`` or the JAX package.
 """
 
 __all__ = ["tc_rate", "mxu_peak", "mxu_shape_probe", "v4_overhead_anatomy",
-           "fixed_interp_anatomy"]
+           "fixed_interp_anatomy", "v3_overhead_anatomy",
+           "mosaic_int_dot_bench", "kernel_anatomy", "prec_bench"]

@@ -23,6 +23,11 @@ W the shared-memory operand, its C rows the wgmma's N in tiles of 32, 64,
 8 dot chains are split over 8 / rs CTAs whose partial tiles a second
 kernel adds.
 
+The same kernel runs probe P7's wider integer forms (``na`` bytes of W,
+``nb`` of x; :mod:`.mosaic_int_dot_bench`): the operands' byte planes, the
+digit products with a + b < 4 on the int8 tensor cores
+(:meth:`RateLaunch.of_planes`).
+
 :func:`rate_reference` is the plain version: integer products exact in
 int64 (``torch.matmul`` on CPU int64; float64 on the card, exact below
 2^53), reduced mod 2^32; bf16 products as float32 matmuls with TF32 off.
@@ -39,7 +44,8 @@ import torch
 from ..ops import _build
 from ..ops.tiled_fir import _no_tf32, full_perm, wrap_int32
 
-__all__ = ["N_REPS", "SLOTS", "DTYPES", "N_TILES", "DATASHEET_MACS",
+__all__ = ["N_REPS", "SLOTS", "DTYPES", "N_TILES", "DIGIT_CASES",
+           "DATASHEET_MACS",
            "pad_k", "smem_bytes", "Plan", "plan", "pack", "exact_matmul",
            "rate_reference", "tc_rate", "RateLaunch", "operands",
            "measure", "library_call", "library_rate", "events_ms", "slope_ms",
@@ -51,6 +57,9 @@ LANES = 64             # a CTA's lanes: the wgmma's M
 K_STEP = 32            # K is padded to a multiple of it
 DTYPES = ("int8", "bf16")
 N_TILES = (32, 64, 128, 256)
+#: (na, nb, N-tile) of the wider integer forms the source instantiates:
+#: the widest N-tile whose accumulators fit beside the fragments
+DIGIT_CASES = ((2, 1, 128), (2, 2, 128), (4, 4, 64))
 MAX_SMEM = 232448      # dynamic shared memory a CTA can have on the H100
 SM_SMEM = 233472       # shared memory of an SM
 CTA_RESERVED = 1024    # of it, reserved for each resident CTA
@@ -66,18 +75,19 @@ def pad_k(K: int) -> int:
     return -(-K // K_STEP) * K_STEP
 
 
-def smem_bytes(dtype: str, n: int, K_pad: int, rs: int) -> int:
-    """A CTA's dynamic shared memory (``smem_bytes`` in the source): the
-    W tile [n, K_pad], rs x blocks [K_pad, 64 lanes] with 16-byte padded
-    rows, 128 bytes of alignment."""
+def smem_bytes(dtype: str, n: int, K_pad: int, rs: int, na: int = 1,
+               nb: int = 1) -> int:
+    """A CTA's dynamic shared memory (``smem_bytes`` in the source): W's
+    na digit tiles [n, K_pad], rs x blocks of nb digits [K_pad, 64 lanes]
+    with 16-byte padded rows, 128 bytes of alignment."""
     es = 2 if dtype == "bf16" else 1
-    return n * K_pad * es + rs * K_pad * (LANES * es + 16) + 128
+    return na * n * K_pad * es + rs * nb * K_pad * (LANES * es + 16) + 128
 
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
     """A launch's tiling: wgmma N-tile n, rs x blocks a CTA (8 / rs groups
-    of CTAs split the 8 dot chains)."""
+    of CTAs split the 8 dot chains); na and nb bytes of W and of x."""
 
     dtype: str
     C: int
@@ -85,6 +95,14 @@ class Plan:
     LB: int
     n: int
     rs: int
+    na: int = 1
+    nb: int = 1
+
+    @property
+    def kernel(self) -> str:
+        """The kernel's name with its template arguments."""
+        return (f"tc_rate_kernel<{str(self.dtype == 'bf16').lower()}, "
+                f"{self.n}, {self.na}, {self.nb}>")
 
     @property
     def K_pad(self) -> int:
@@ -100,7 +118,8 @@ class Plan:
 
     @property
     def smem(self) -> int:
-        return smem_bytes(self.dtype, self.n, self.K_pad, self.rs)
+        return smem_bytes(self.dtype, self.n, self.K_pad, self.rs, self.na,
+                          self.nb)
 
     @property
     def needed_macs(self) -> int:
@@ -114,14 +133,21 @@ class Plan:
 
 
 def plan(dtype: str, C: int, K: int, LB: int, n: int | None = None,
-         per_sm: int = 1) -> Plan:
-    """The tiling of one case: N-tile ``n`` (default: C, at most 256) and
-    the most x blocks a CTA (fewest partial tiles) such that ``per_sm``
-    CTAs (one warpgroup each) fit in an SM's shared memory.  Without ``n``,
-    a smaller N-tile is taken where not even one x block fits beside the W
-    tile.  Raises ValueError if nothing fits."""
+         per_sm: int = 1, na: int = 1, nb: int = 1) -> Plan:
+    """The tiling of one case: N-tile ``n`` (default: C, at most 256; for
+    na, nb > 1 the form's own, DIGIT_CASES) and the most x blocks a CTA
+    (fewest partial tiles) such that ``per_sm`` CTAs (one warpgroup each)
+    fit in an SM's shared memory.  Without ``n``, a smaller N-tile is taken
+    where not even one x block fits beside the W tile.  Raises ValueError
+    if nothing fits."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r} not in {DTYPES}")
+    if (na, nb) != (1, 1):
+        tile = {(a, b): t for a, b, t in DIGIT_CASES}.get((na, nb))
+        if dtype != "int8" or tile is None or n not in (None, tile):
+            raise ValueError(f"no {dtype} form of {na}, {nb} bytes at N-tile "
+                             f"{n}: {DIGIT_CASES}")
+        n = tile
     if LB % LANES or C <= 0 or K <= 0:
         raise ValueError(f"LB {LB} must be a multiple of {LANES}")
     limit = min(MAX_SMEM, SM_SMEM // per_sm - CTA_RESERVED)
@@ -132,7 +158,7 @@ def plan(dtype: str, C: int, K: int, LB: int, n: int | None = None,
             raise ValueError(f"N-tile {t} must be one of {N_TILES} and "
                              f"divide C = {C}")
         for rs in (8, 4, 2, 1):
-            p = Plan(dtype, C, K, LB, t, rs)
+            p = Plan(dtype, C, K, LB, t, rs, na, nb)
             if p.smem <= limit:
                 return p
     raise ValueError(f"no tiling of {dtype} [{C}, {K}] x {LB} fits "
@@ -213,18 +239,33 @@ class RateLaunch:
     def __init__(self, w: torch.Tensor, x: torch.Tensor, dtype: str,
                  n: int | None = None, fill: bool = True, per_sm: int = 1):
         _check(w, x, dtype)
-        C, K = w.shape
-        LB = x.shape[2]
-        self.plan = p = plan(dtype, C, K, LB, n, per_sm)
+        p = plan(dtype, w.shape[0], w.shape[1], x.shape[2], n, per_sm)
+        self._setup(p, *pack(w, x, dtype), fill)
+
+    @classmethod
+    def of_planes(cls, wp: torch.Tensor, xp: torch.Tensor, p: Plan,
+                  fill: bool = True) -> "RateLaunch":
+        """A launch of operands already in the kernel's layout: an integer
+        form's byte planes, W's uint8 [na, C, K_pad] (each 32-tap group in
+        K_PERM order) and x's [nb, 8, K_pad, LB], tiled by ``p``."""
+        self = cls.__new__(cls)
+        self._setup(p, wp, xp, fill)
+        return self
+
+    def _setup(self, p: Plan, wp: torch.Tensor, xp: torch.Tensor,
+               fill: bool) -> None:
+        self.plan = p
         self.lib = lib = _build.load_probes()
-        bf16 = int(dtype == "bf16")
-        if lib.probe_tc_rate_smem(bf16, p.n, p.K_pad, p.rs) != p.smem:
+        bf16 = int(p.dtype == "bf16")
+        if lib.probe_tc_rate_smem(bf16, p.n, p.na, p.nb, p.K_pad,
+                                  p.rs) != p.smem:
             raise RuntimeError("csrc/probes/tc_rate.cu shared memory "
                                "disagrees with probes/tc_rate.smem_bytes")
-        self.wp, self.xp = pack(w, x, dtype)
-        dev = w.device
+        self.wp, self.xp = wp, xp
+        C, LB, dev = p.C, p.LB, wp.device
         with torch.cuda.device(dev):
-            n_ctas = (lib.probe_tc_rate_fill(bf16, p.n, C, p.K_pad, LB, p.rs)
+            n_ctas = (lib.probe_tc_rate_fill(bf16, p.n, p.na, p.nb, C,
+                                             p.K_pad, LB, p.rs)
                       if fill else p.units)
         if n_ctas < 0:
             raise RuntimeError("tc_rate occupancy query failed: "
@@ -239,13 +280,18 @@ class RateLaunch:
         self._bf16 = bf16
 
     @property
+    def bodies_per_iter(self) -> float:
+        """Bodies (W . x over the 8 blocks) an iteration computes."""
+        return self.n_ctas / self.plan.units
+
+    @property
     def needed_macs(self) -> float:
         """Multiply-adds one iteration of the launch needs (every copy)."""
-        return self.n_ctas * self.plan.needed_macs / self.plan.units
+        return self.bodies_per_iter * self.plan.needed_macs
 
     @property
     def walked_macs(self) -> float:
-        return self.n_ctas * self.plan.walked_macs / self.plan.units
+        return self.bodies_per_iter * self.plan.walked_macs
 
     def run(self, iters: int) -> torch.Tensor:
         global launches
@@ -254,8 +300,9 @@ class RateLaunch:
             err = self.lib.probe_tc_rate(
                 self.wp.data_ptr(), self.xp.data_ptr(), self.out.data_ptr(),
                 None if self.partial is None else self.partial.data_ptr(),
-                self.scratch.data_ptr(), self._bf16, p.n, p.C, p.K_pad, p.LB,
-                p.rs, self.n_ctas, iters, 0, _build.stream_handle(dev))
+                self.scratch.data_ptr(), self._bf16, p.n, p.na, p.nb, p.C,
+                p.K_pad, p.LB, p.rs, self.n_ctas, iters, 0,
+                _build.stream_handle(dev))
         if err:
             raise RuntimeError("tc_rate kernel launch failed: "
                                + self.lib.probe_error_string(err).decode())

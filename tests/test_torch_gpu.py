@@ -31,8 +31,10 @@ from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.probes import (
-    fixed_interp_anatomy as pfa, mxu_peak as pmp, mxu_shape_probe as pms,
-    tc_rate as ptr, v4_overhead_anatomy as pv4)
+    fixed_interp_anatomy as pfa, kernel_anatomy as pka,
+    mosaic_int_dot_bench as pid, mxu_peak as pmp, mxu_shape_probe as pms,
+    prec_bench as ppb, tc_rate as ptr, v3_overhead_anatomy as pv3,
+    v4_overhead_anatomy as pv4)
 
 from fixed_inputs import block_origins, launch_inputs, wrap_column
 
@@ -959,3 +961,87 @@ def test_probe_build_error_raises(cuda, tmp_path, monkeypatch):
         with pytest.raises(RuntimeError, match="nvcc failed"):
             ptr.tc_rate(w, x, "int8")
     assert ptr.launches == before and _build._probe_lib is None
+
+
+# -- probes P5-P8 ----------------------------------------------------------
+# Each kernel against its plain version at the TPU probe's full shape and at
+# one ragged shape: 0 mismatches for P5 (full and hoist also equal to the
+# served K1b), P7 and P6's nodot; max |err| <= 1 within the tie bound for
+# P6's other variants (full also equal to the served f32 kernel, the same
+# body) and P8's precisions.
+
+@pytest.mark.parametrize("B", [2048, 208])
+@pytest.mark.parametrize("variant", pv3.VARIANTS)
+def test_probe_v3_anatomy_matches_plain(cuda, variant, B):
+    g = pv3.geometry()
+    w, kw = pv3.weights(g, "cuda"), pv3.launch_kw(g, "cuda")
+    hist, x = pv3.inputs(g, B=B, seed=13, device="cuda")
+    x[0:g.in_per_launch:97] = -32768
+    x[1:g.in_per_launch:89] = 32767
+    hist.random_(-32768, 32768)
+    want = pv3.anatomy_reference(variant, hist, x, w, **kw)
+    got = pv3.anatomy(variant, hist, x, w, **kw)
+    assert torch.equal(got, want)
+    if variant in ("full", "hoist"):
+        assert torch.equal(got, pv3.served(hist, x, w, **kw))
+    if variant == "hoist":
+        al = pv3.AnatomyLaunch(variant, hist, x, w, **kw)
+        assert pv3.split_check(al, hist, x)["split_mismatches"] == 0
+
+
+def _wide(form, w, x, seed):
+    """Full-range int16 / int32 operands for the wide forms."""
+    rng = np.random.default_rng(seed)
+    lo, hi, dt = ((-2 ** 31, 2 ** 31, np.int32) if form == "i32i32"
+                  else (-32768, 32768, np.int16))
+    if form in ("i16i16", "i16i8", "i32i32"):
+        w = torch.from_numpy(rng.integers(lo, hi, tuple(w.shape)).astype(dt))
+    if form in ("i16i16", "i32i32"):
+        x = torch.from_numpy(rng.integers(lo, hi, tuple(x.shape)).astype(dt))
+    return w.cuda(), x.cuda()
+
+
+@pytest.mark.parametrize("shape", [(512, 264, 128), (256, 100, 64)],
+                         ids=["full", "ragged"])
+@pytest.mark.parametrize("form", list(pid.FORMS))
+def test_probe_int_dot_matches_plain(cuda, form, shape):
+    C, K, LB = shape
+    w, x = _wide(form, *pid.inputs(C, K, LB, seed=C + K), seed=K)
+    want = pid.int_dot_reference(w, x, form)
+    assert torch.equal(pid.int_dot(w, x, form, iters=17), want)
+    if form != "bf16bf16":
+        il = pid.int_dot_launch(w, x, form)
+        assert il.n_ctas >= il.plan.units
+        assert torch.equal(il.run(16), want)
+
+
+@pytest.mark.parametrize("B", [2048, 136])
+@pytest.mark.parametrize("variant", pka.VARIANTS)
+def test_probe_f32_anatomy_matches_plain(cuda, variant, B):
+    g = pka.geometry()
+    w, kw = pka.weights(g, "cuda"), pka.launch_kw(g, "cuda")
+    x16 = pka.inputs(g, B=B, seed=14, device="cuda")
+    x16[0, ::7], x16[1, ::7] = -32768, 32767
+    x = pka.variant_input(variant, x16)
+    got = pka.anatomy(variant, x, w, **kw)
+    want = pka.anatomy_reference(variant, x, w, **kw)
+    _compare(got.cpu().numpy(), want.cpu().numpy(),
+             "int8" if variant == "nodot" else "highest")
+    if variant == "full":
+        served = ttf.resample_tiled(x16.new_zeros((0, B)), x16, w,
+                                    scheme="highest", **kw)
+        assert torch.equal(got, served)
+
+
+@pytest.mark.parametrize("shape", [(64, 2048), (5, 136)],
+                         ids=["full", "ragged"])
+@pytest.mark.parametrize("mode", ppb.PRECISIONS)
+def test_probe_prec_matches_plain(cuda, mode, shape):
+    n_blocks, B = shape
+    g = ppb.geometry(n_blocks)
+    w = torch.from_numpy(g.w).cuda()
+    x = ppb.inputs(g, B=B, seed=15, device="cuda")
+    x[0, ::7], x[1, ::7] = -32768, 32767
+    got = ppb.prec(mode, w, x, n_blocks)
+    want = ppb.prec_reference(mode, w, x, n_blocks)
+    _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")

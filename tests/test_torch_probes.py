@@ -413,8 +413,8 @@ def test_every_case_has_a_tiling():
     text = {f: (REPO / "speex_resampler_tpu_torch/csrc/probes" / f)
             .read_text() for f in ("tc_rate.cu", "int8_anatomy.cu",
                                    "fixed_anatomy.cu")}
-    assert ("return kN * K * (kBf16 ? 2 : 1) + rs * K * pitch<kBf16, kN>() "
-            "+ 128;") in text["tc_rate.cu"]
+    assert ("return kNa * kN * K * (kBf16 ? 2 : 1) + rs * kNb * K * "
+            "pitch<kBf16, kN>()\n         + 128;") in text["tc_rate.cu"]
     assert "return kLanes * (kBf16 ? 2 : 1) + 16;" in text["tc_rate.cu"]
     assert ("(kVar == kMxu ? 2 * kb * kPitch8 : kb * kPitch16) + 128;"
             in text["int8_anatomy.cu"])
@@ -481,7 +481,8 @@ def test_probe_modules_and_tool_load_no_jax_or_triton():
         "    importlib.import_module('speex_resampler_tpu_torch.probes.' + m)\n"
         "sys.argv = ['tc_probes.py']\n"
         "import tools.tc_probes as t\n"
-        "assert t.PARTS == ('rate', 'shape', 'v4', 'fixed')\n"
+        "assert t.PARTS == ('rate', 'shape', 'v4', 'fixed', 'v3', 'intdot',"
+        " 'anatomy', 'prec')\n"
         "import speex_resampler_tpu_torch.ops._build as b\n"
         "assert b._probe_lib is None and b._lib is None\n"
         "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"

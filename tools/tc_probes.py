@@ -1,6 +1,7 @@
 """Runs the tensor-core probes on the card and writes their results.
 
-    python3 tools/tc_probes.py [--out build/torch_probes] [--only rate,shape,v4,fixed]
+    python3 tools/tc_probes.py [--out build/torch_probes]
+        [--only rate,shape,v4,fixed,v3,intdot,anatomy,prec]
 
 The Hopper counterparts of the TPU measurement probes that bound the
 served kernels (``speex_resampler_tpu_torch.probes``), each kernel held
@@ -20,12 +21,26 @@ against its plain version first (a mismatch raises):
 - ``fixed`` (``experiments/fixed_interp_anatomy.py``): µs per block of the
   four rungs and their deltas, beside K1e's (fixed flagship) and K2d's
   (fixed 48 kHz -> 44.1 kHz q10) µs per [R, 128] block ->
-  ``fixed_interp_anatomy.json``.
+  ``fixed_interp_anatomy.json``;
+- ``v3`` (``experiments/v3_overhead_anatomy.py``): ms a flagship launch
+  of full, hoist, no_assemble, no_epilogue and dots_only beside the served
+  K1b's, hoist's pre-pass alone and its walk, and the ladder (full
+  against K1b, each variant against full) -> ``v3_overhead_anatomy.json``;
+- ``intdot`` (``experiments/mosaic_int_dot_bench.py``): µs a [512, 264] .
+  [264, 128] x 8 body of i8.i8, i16.i16, i16.i8, i32.i32 and bf16.bf16,
+  all on the rate kernel (i8.i8 and bf16 are ``rate``'s cases at C 512)
+  -> ``mosaic_int_dot_bench.json``;
+- ``anatomy`` (``experiments/kernel_anatomy.py``): ms a launch of the f32
+  block's full, nodot, noslice and nocvt -> ``kernel_anatomy.json``;
+- ``prec`` (``experiments/prec_bench.py``): each precision's max |d| and
+  mismatch rate against the float64 gold (kernel and plain version) and
+  ms a launch -> ``prec_bench.json``.
 
 Every file carries the card's name and power limit (``nvidia-smi``).  The
 served kernels' times come from ``chip_smoke.py``'s launches (B = 2048,
 ``cuda_ms``); this builds both libraries, in parallel.  About three
-minutes on one H100 with the builds.  Exits non-zero without a card.
+minutes on one H100 with the builds and every part.  Exits non-zero
+without a card.
 """
 
 from __future__ import annotations
@@ -47,10 +62,11 @@ import chip_smoke as cs  # noqa: E402
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 from speex_resampler_tpu_torch.probes import (  # noqa: E402
-    fixed_interp_anatomy as fa, mxu_peak, mxu_shape_probe,
+    fixed_interp_anatomy as fa, kernel_anatomy, mosaic_int_dot_bench,
+    mxu_peak, mxu_shape_probe, prec_bench, v3_overhead_anatomy,
     v4_overhead_anatomy as v4)
 
-PARTS = ("rate", "shape", "v4", "fixed")
+PARTS = ("rate", "shape", "v4", "fixed", "v3", "intdot", "anatomy", "prec")
 
 
 def served_per_block(path, lanes: int) -> dict:
@@ -98,7 +114,7 @@ def main() -> None:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    served = {"v4", "fixed"} & set(parts)
+    served = {"v4", "fixed", "v3"} & set(parts)
     errors: list = []
     fir = threading.Thread(target=lambda: _guard(_build.load, errors))
     if served:
@@ -138,6 +154,13 @@ def main() -> None:
                   f"{k['us_per_block']:.3f} us per [R, 128] block; probe "
                   f"full {res['full']['us_per_block']:.3f} us")
         write(out, "fixed_interp_anatomy.json", smi, res)
+    for part, module, name in (
+            ("v3", v3_overhead_anatomy, "v3_overhead_anatomy.json"),
+            ("intdot", mosaic_int_dot_bench, "mosaic_int_dot_bench.json"),
+            ("anatomy", kernel_anatomy, "kernel_anatomy.json"),
+            ("prec", prec_bench, "prec_bench.json")):
+        if part in parts:
+            write(out, name, smi, module.run())
     print(f"tc_probes {parts}: {time.time() - t0:.1f} s")
 
 
