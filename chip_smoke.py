@@ -87,8 +87,9 @@ quanta at the flagship.
   ``csrc/probes/``; the Hopper counterparts of ``experiments/mxu_peak.py``,
   ``mxu_shape_probe.py``, ``v4_overhead_anatomy.py``,
   ``fixed_interp_anatomy.py``, ``v3_overhead_anatomy.py``,
-  ``mosaic_int_dot_bench.py``, ``kernel_anatomy.py`` and
-  ``prec_bench.py``): their library, ``libprobes``, built beside the
+  ``mosaic_int_dot_bench.py``, ``kernel_anatomy.py``, ``prec_bench.py``,
+  ``v5_int8_bench.py``, ``v4_k_layout.py``, ``batched_dot.py`` and
+  ``v3_bench.py``): their library, ``libprobes``, built beside the
   kernels' in phase 2 (its build time, ``-Xptxas -v`` lines and SASS
   counts printed: IGMMA or HGMMA in every tensor-core probe, FFMA (FADD
   for nodot) and no wgmma in the CUDA-core ones, else the run fails);
@@ -101,15 +102,22 @@ quanta at the flagship.
   integer dots of each form on the rate kernel, the wide forms on
   full-range operands; the f32 block's four variants;
   the FIR dot at four precisions, with their error against the float64
-  gold printed beside the plain version's): 0 mismatches for the integer
-  probes and nodot, max |err| <= 1 within the tie bound for the float
-  ones; then, with the probe launch counts set to 0, one case of each
+  gold printed beside the plain version's; P9's int8 and split5 launches
+  without the halo, also against the served tiled kernels at H = 0 and
+  the gold; P10's K 512 / 448 / 440 (and 100) with W as [R, K] and [K,
+  R]; P11's m-loop at 128 and 64 lanes and batched form, also against
+  the served f32 kernel, and its pre-pass; P12's conv against P6's full
+  and its concat step; each at the full shape and a ragged one): 0
+  mismatches for the integer probes and nodot, max |err| <= 1 within the
+  tie bound for the float ones; then, with the probe launch counts set to
+  0, one case of each
   timed (every SM busy: ms a launch, the rate from the slope between two
   iteration counts, the plain version and, where one PyTorch call
   computes the function, the library call; P5's ladder beside the served
   K1b with hoist's pre-pass timed alone, P7's cost a body by operand
-  width), each probe kernel required to
-  have launched.  The probe kernels join the ``{"kernels": ...}`` line
+  width, P10's slope and intercept, P11 beside the served K1a with the
+  pre-pass alone, P12's step eager and in a CUDA graph beside the served
+  highest step), each probe kernel required to have launched.  The probe kernels join the ``{"kernels": ...}`` line
   (a name ends with its variant, rung, form or precision) with
   ``launches`` 0 (no served path launches them) and their phase-10
   launches beside.
@@ -121,7 +129,8 @@ wrapper's host call).  After the build it prints each kernel's registers
 and spills (``ptxas -v``) and the tensor-core instructions of the split5
 (HGMMA), int8 and fixed (IGMMA) kernels' SASS (``cuobjdump``; a missing
 tool or a count of 0 fails the run).  Every phase raises on
-failure (non-zero exit).  The last two lines of standard output are the
+failure (non-zero exit).  The last three lines of standard output are
+the seconds of each phase (with the card's name and power limit), the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
 """
@@ -156,9 +165,10 @@ from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
 from speex_resampler_tpu_torch.probes import (
-    fixed_interp_anatomy as pfa, kernel_anatomy as pka,
+    batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
     mosaic_int_dot_bench as pid, prec_bench as ppb, tc_rate as ptr,
-    v3_overhead_anatomy as pv3, v4_overhead_anatomy as pv4)
+    v3_bench as pv3b, v3_overhead_anatomy as pv3, v4_k_layout as pkl,
+    v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -534,7 +544,9 @@ def kernel_of(symbol: str) -> str:
     m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel|"
                   r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum|"
                   r"v3_anatomy|v3_split|f32_anatomy|prec_tc|"
-                  r"prec_f32)_kernel)(I((?:L[ib]\d+E)+)E)?", symbol)
+                  r"prec_f32|v5_int8|v5_split5|batched_mloop|"
+                  r"batched_patch|batched_product)_kernel)"
+                  r"(I((?:L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
     if not m.group(2):
@@ -1610,35 +1622,47 @@ PROBE_REPLACES = {"tc_rate": "experiments/mxu_peak.py:68",
                   "fixed_anatomy": "experiments/fixed_interp_anatomy.py:68",
                   "v3_anatomy": "experiments/v3_overhead_anatomy.py:230",
                   "f32_anatomy": "experiments/kernel_anatomy.py:63",
-                  "prec_fir": "experiments/prec_bench.py:55"}
+                  "prec_fir": "experiments/prec_bench.py:55",
+                  "v5_bench": "experiments/v5_int8_bench.py:77",
+                  "batched_dot": "experiments/batched_dot.py:102"}
 PROBE_MODULES = {"tc_rate": ptr, "int8_anatomy": pv4, "fixed_anatomy": pfa,
                  "v3_anatomy": pv3, "f32_anatomy": pka,
-                 "prec_fir": ppb}
+                 "prec_fir": ppb, "v5_bench": pv5, "batched_dot": pbd}
 # the rate kernel's checked cases at the flagship block [128, 264] x 128
 # lanes: (dtype, N-tile; None: the case's own, C = 128)
 PROBE_RATE = [("int8", None), ("bf16", None), ("int8", 32), ("int8", 64),
               ("bf16", 32), ("bf16", 64)]
 # iterations of a timed launch: 1-5 ms each on the H100
 PROBE_ITERS = {"tc_rate": 512, "int8_anatomy": 512, "fixed_anatomy": 128,
-               "int_dot": 256}
+               "int_dot": 256, "k_layout": 512}
+# the probes' flagship launches (P5, P6, P9, P11, P12): 4 weight periods
+N_PERIODS_FLAGSHIP = 4
 # P7's integer forms (bf16 is the rate kernel's case at [512, 264]); P7
 # runs on the rate kernel, so its entries name P7's TPU kernel
 INT_FORMS = ("i8i8", "i16i16", "i16i8", "i32i32")
 P7_REPLACES = "experiments/mosaic_int_dot_bench.py:44"
+# P9's split5 kernel (P9's int8 is its family's), P10 on the rate kernel,
+# P12 on P6's kernel: the TPU kernels their entries name
+P9_SPLIT5_REPLACES = "experiments/v5_int8_bench.py:95"
+P10_REPLACES = "experiments/v4_k_layout.py:51"
+P12_REPLACES = "experiments/v3_bench.py:58"
+# P11's cases (form, lane tile)
+P11_CASES = (("m-loop", 128), ("m-loop", 64), ("batched", 128))
 
 
 def probe_report() -> None:
     """The probe library's ptxas lines and its instruction counts; raises
     if a tensor-core probe kernel has no wgmma instruction (IGMMA for the
     int8 ones, HGMMA for bf16 and TF32), or a CUDA-core one (P6, P8's
-    HIGHEST) has a wgmma or lacks its f32 FMA (FADD for nodot)."""
+    HIGHEST, P11) has a wgmma or lacks its f32 FMA (FADD for nodot)."""
     for log in sorted(_build.probe_log_dir().glob("*.log")):
         for name, lines in ptxas_props(log).items():
             print(f"  ptxas {log.stem} {name}: {'; '.join(lines)}")
     counts = gmma_counts(_build.probe_lib_path())
     cores = ([(f"f32_anatomy_kernel<{v}>", "FADD" if v == 1 else "FFMA")
               for v in range(len(pka.VARIANTS))]
-             + [("prec_f32_kernel", "FFMA")])
+             + [("prec_f32_kernel", "FFMA"), ("batched_product_kernel", "FFMA")]
+             + [(f"batched_mloop_kernel<{n}>", "FFMA") for n in pbd.LANES])
     want = ([(f"tc_rate_kernel<{b}, {n}, 1, 1>", op)
              for b, op in (("false", "IGMMA"), ("true", "HGMMA"))
              for n in ptr.N_TILES]
@@ -1650,6 +1674,7 @@ def probe_report() -> None:
             + [(f"v3_anatomy_kernel<{v}>", "IGMMA")
                for v in range(len(pv3.VARIANTS))]
             + [(f"prec_tc_kernel<{m}>", "HGMMA") for m in (1, 2, 3)]
+            + [("v5_int8_kernel", "IGMMA"), ("v5_split5_kernel", "HGMMA")]
             + cores)
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"probe SASS check (cuobjdump -sass): {found}")
@@ -1808,7 +1833,103 @@ def probe_check() -> dict:
                      f"{p['rate']:.4e}")
     print("probe P8 against the float64 gold (experiments/prec_bench.py "
           "gold): " + "; ".join(table))
+    probe_check_p9_p12(errs)
     return errs
+
+
+def probe_check_p9_p12(errs: dict) -> None:
+    """Probes P9-P12 against their plain versions on the card, at the TPU
+    probe's full shape and a ragged one (B = 200 or 136; P10 K = 100),
+    rows of -32768 and 32767 in x and nonzero histories: P9's int8 and P10
+    0 mismatches, P9's split5, P11 and P12 max |err| <= 1 within the tie
+    bound; P9 also against the served tiled kernels at H = 0 and P11
+    against the served f32 kernel (bit for bit: the same bodies), P11's
+    pre-pass against its plain patches, P12's conv against P6's full and
+    its step's next history exactly.  Fills ``errs`` with the full
+    shape's max |err|; prints P9's and P12's error against the float64
+    gold."""
+    g9 = pv5.geometry()
+    for B in (LANES, 200):
+        x = pv5.inputs(g9, B=B, seed=19, device="cuda")
+        x[0::97], x[1::89] = -32768, 32767
+        for scheme in pv5.SCHEMES:
+            w, kw = pv5.weights(g9, scheme, "cuda"), pv5.launch_kw(
+                g9, scheme, "cuda")
+            got = pv5.bench(scheme, x, w, **kw)
+            want = pv5.bench_reference(scheme, x, w, **kw)
+            err, mism = compare(got.cpu().numpy(), want.cpu().numpy(), scheme,
+                                f"v5_bench {scheme} B {B}")
+            print(f"probe check v5_bench {scheme} [80 x 128, {B}]: max |err| "
+                  f"{err}, {mism} ties {ties(mism, got.numel())}")
+            exact_check(got, tf.resample_tiled(x.new_zeros((0, B)), x, w,
+                                               scheme=scheme, **kw),
+                        f"v5_bench {scheme} B {B} against the served tiled "
+                        "kernel at H = 0")
+            if B == LANES:
+                errs[("v5_bench", scheme)] = err
+                gold = pv5.gold(x, kw["n_blocks"])
+                k, p = pv5.stats(got, gold), pv5.stats(want, gold)
+                print(f"probe P9 {scheme} against the float64 gold on lane 0 "
+                      f"(experiments/v5_int8_bench.py): kernel max|d| "
+                      f"{k['max_abs_d']} tie rate {k['rate']:.2e}, plain "
+                      f"max|d| {p['max_abs_d']} tie rate {p['rate']:.2e}")
+    for K in pkl.KS + (100,):
+        for form in pkl.FORMS:
+            w, x = pkl.operands(K, form, seed=20 + K, device="cuda")
+            e = exact_check(pkl.k_layout(w, x, form),
+                            pkl.k_layout_reference(w, x, form),
+                            f"k_layout K {K} {form} [128, {K}] x 1024 x 16")
+            if K in pkl.KS:
+                errs[("k_layout", K, form)] = e
+    g11 = pbd.geometry()
+    for B in (LANES, 136):
+        w, kw = pbd.weights(g11, "cuda"), pbd.launch_kw(g11, "cuda")
+        hist, x = pbd.inputs(g11, B=B, seed=21, device="cuda")
+        hist.random_(-32768, 32768)
+        x[0:g11.n_in:97], x[1:g11.n_in:89] = -32768, 32767
+        want = pbd.batched_dot_reference("m-loop", hist, x, w, **kw)
+        k1a = tf.resample_tiled(hist, x, w, scheme="highest", **kw)
+        for form, lanes in P11_CASES:
+            bl = pbd.BatchedLaunch(form, hist, x, w, lanes=lanes, **kw)
+            got = bl.run()
+            err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
+                                "highest", f"batched_dot {form} {lanes}")
+            print(f"probe check batched_dot {form} lanes {lanes} [80 x 128, "
+                  f"{B}]: max |err| {err}, {mism} ties "
+                  f"{ties(mism, got.numel())}")
+            exact_check(got, k1a, f"batched_dot {form} lanes {lanes} B {B} "
+                        "against the served f32 kernel")
+            if form == "batched":
+                exact_check(bl.run_patches(),
+                            pbd.patches_reference(hist, x, g11.K, **kw),
+                            f"batched_dot pre-pass B {B}")
+            if B == LANES:
+                errs[("batched_dot", form, lanes)] = err
+    g12 = pka.geometry()
+    for B in (LANES, 136):
+        w, kw = pka.weights(g12, "cuda"), pka.launch_kw(g12, "cuda")
+        x, chunk, hist = pv3b.inputs(g12, B=B, seed=22, device="cuda")
+        hist.random_(-32768, 32768)
+        conv = pv3b.conv(x, w, **kw)
+        err, mism = compare(conv.cpu().numpy(),
+                            pv3b.conv_reference(x, w, **kw).cpu().numpy(),
+                            "highest", "v3_bench conv")
+        exact_check(conv, pka.anatomy("full", x, w, **kw),
+                    f"v3_bench conv B {B} against P6's full")
+        h, y = pv3b.step(hist, chunk, w, **kw)
+        h2, y2 = pv3b.step_reference(hist, chunk, w, **kw)
+        exact_check(h, h2, f"v3_bench step's next history B {B}")
+        e2, m2 = compare(y.cpu().numpy(), y2.cpu().numpy(), "highest",
+                         "v3_bench step")
+        print(f"probe check v3_bench [80 x 128, {B}]: conv max |err| {err}, "
+              f"{mism} ties {ties(mism, conv.numel())}; step max |err| {e2}, "
+              f"{m2} ties")
+        if B == LANES:
+            errs[("v3_bench",)] = max(err, e2)
+            gs = pv5.stats(conv, pv5.gold(x, kw["n_blocks"]))
+            print(f"probe P12 conv_v3 against the float64 gold on lane 0 "
+                  f"(experiments/v3_bench.py): max|d| {gs['max_abs_d']} "
+                  f"rate {gs['rate']:.2e}")
 
 
 def probe_entry(family, name, smi, ms, plain_ms, library_ms, ops, nbytes,
@@ -1984,6 +2105,144 @@ def probe_time_p5_p8(smi: str, errs: dict) -> list:
     return entries
 
 
+def probe_time_p9_p12(smi: str, errs: dict) -> list:
+    """Probes P9-P12 timed (counts already at 0), their JSON entries:
+
+    - P9, one launch of each scheme at the flagship without the halo (ms:
+      20 queued), the bound counting the x rows the windows span, the
+      nonzero weights once (int8: 3 digit bytes each and the bias; split5:
+      2 bytes a nonzero entry of each plane) and y, and each needed
+      multiply-add's 6 int8 products or 10 bf16 FLOP;
+    - P10, each (K, form) on the rate kernel with 16 x blocks, every SM
+      busy: one launch of PROBE_ITERS["k_layout"] iterations, the slope
+      against an eighth of them (µs a body) and the intercept (the launch's
+      staging);
+    - P11, one launch of each form (20 queued), the pre-pass of the
+      batched form alone, the served f32 kernel (K1a) at the same launch;
+    - P12, conv_v3 (P6's full, 20 queued) and the step around it, eager
+      (20 queued) and from a CUDA graph, beside the served highest step
+      both ways; the step less the conv is the concat's copy.
+    P11 and P12 are bound by their f32 multiply-adds (the nonzero weights'
+    per output) at the CUDA cores' peak."""
+    entries = []
+    # P9
+    g9 = pv5.geometry()
+    x = pv5.inputs(g9, device="cuda")
+    n_out = N_PERIODS_FLAGSHIP * g9.P * g9.R
+    macs = n_out * FLAGSHIP.spec.filt_len * LANES
+    rows = (n_out - 1) * 147 // 160 + FLAGSHIP.spec.filt_len
+    for scheme in pv5.SCHEMES:
+        w, kw = pv5.weights(g9, scheme, "cuda"), pv5.launch_kw(g9, scheme,
+                                                               "cuda")
+        bl = pv5.BenchLaunch(scheme, x, w, **kw)
+        ms = cuda_ms(bl.run, 20)
+        plain_ms = cuda_ms(lambda: pv5.bench_reference(scheme, x, w, **kw), 3)
+        lib = pv5.library_call(scheme, x, w, **{k: kw[k] for k in
+                                                ("offsets", "S", "n_blocks")})
+        if scheme == "int8":
+            w_bytes = int((w[0] != 0).any(0).sum()) * 3 + w[1].numel() * 4
+            ops, peak, kernel = 12 * macs, INT8_OPS, "v5_int8_kernel"
+        else:
+            w_bytes = int((w[0] != 0).sum()) * 2
+            ops, peak, kernel = 10 * macs, BF16_FLOPS, "v5_split5_kernel"
+        entries.append(probe_entry(
+            "v5_bench", f"{kernel} {scheme}", smi, ms, plain_ms,
+            None if lib is None else cuda_ms(lib, 3), ops,
+            rows * LANES * 2 + w_bytes + n_out * LANES * 2,
+            errs[("v5_bench", scheme)],
+            {"scheme": scheme, "out_per_s": n_out * LANES / (ms * 1e-3)},
+            peak=peak,
+            replaces=None if scheme == "int8" else P9_SPLIT5_REPLACES))
+    # P10
+    it = PROBE_ITERS["k_layout"]
+    for K in pkl.KS:
+        for form in pkl.FORMS:
+            w, x = pkl.operands(K, form, device="cuda")
+            rl = pkl.k_layout_launch(w, x, form)
+            p = rl.plan
+            ms1 = cuda_ms(lambda: rl.run(it // 8), 3)
+            ms = cuda_ms(lambda: rl.run(it), 3)
+            slope = (ms - ms1) / (it - it // 8)
+            body_us = slope * 1e3 / rl.bodies_per_iter
+            body_macs = pkl.N_REPS * pkl.R * K * pkl.LB
+            entries.append(probe_entry(
+                "tc_rate", f"{p.kernel} K{K} {form}", smi, ms,
+                cuda_ms(lambda: pkl.k_layout_reference(w, x, form), 3),
+                cuda_ms(pkl.library_call(w, x, form), 3),
+                2 * body_macs * it * rl.bodies_per_iter,
+                K * pkl.R + pkl.N_REPS * K * pkl.LB
+                + 4 * ptr.SLOTS * pkl.R * pkl.LB,
+                errs[("k_layout", K, form)],
+                {"K": K, "form": form, "K_pad": p.K_pad, "iters": it,
+                 "us_per_body": body_us, "intercept_ms": ms - it * slope,
+                 "body_bound_us": body_macs / ptr.DATASHEET_MACS["int8"]
+                 * 1e6, "tmacs": body_macs / (body_us * 1e-6) / 1e12,
+                 "n_ctas": rl.n_ctas, "rs": p.rs},
+                replaces=P10_REPLACES))
+    # P11
+    g11 = pbd.geometry()
+    w, kw = pbd.weights(g11, "cuda"), pbd.launch_kw(g11, "cuda")
+    hist, x = pbd.inputs(g11, device="cuda")
+    nnz = int((w[0] != 0).sum()) * pbd.N_PERIODS * LANES   # multiply-adds
+    nbytes11 = ((hist.shape[0] + g11.n_in) * LANES * 2
+                + int((w[0] != 0).sum()) * 4 + n_out * LANES * 2)
+    k1a_ms = cuda_ms(lambda: tf.resample_tiled(hist, x, w, scheme="highest",
+                                               **kw), 20)
+    plain_ms = cuda_ms(lambda: pbd.batched_dot_reference(
+        "batched", hist, x, w, **kw), 3)
+    library_ms = cuda_ms(pbd.library_call(hist, x, w, **kw), 3)
+    times11 = {}
+    for form, lanes in P11_CASES:
+        bl = pbd.BatchedLaunch(form, hist, x, w, lanes=lanes, **kw)
+        ms = cuda_ms(bl.run, 20)
+        times11[f"{form} {lanes}"] = ms
+        extra = {"form": form, "lanes": lanes, "served_K1a_ms": k1a_ms}
+        if form == "batched":
+            extra["patches_ms"] = cuda_ms(bl.run_patches, 20)
+            extra["product_ms"] = ms - extra["patches_ms"]
+            times11["pre-pass"] = extra["patches_ms"]
+        kernel = ("batched_product_kernel" if form == "batched"
+                  else f"batched_mloop_kernel<{lanes}>")
+        entries.append(probe_entry(
+            "batched_dot", f"{kernel} {form} {lanes}", smi, ms, plain_ms,
+            library_ms, 2 * nnz, nbytes11,
+            errs[("batched_dot", form, lanes)], extra, peak=FP32_FLOPS))
+    print(f"probe P11 on {smi}, ms a flagship launch: served K1a "
+          f"{k1a_ms:.4f}; " + "; ".join(f"{k} {v:.4f}"
+                                        for k, v in times11.items()))
+    # P12
+    g12 = pka.geometry()
+    w, kw = pka.weights(g12, "cuda"), pka.launch_kw(g12, "cuda")
+    x, chunk, hist = pv3b.inputs(g12, device="cuda")
+    al = pka.AnatomyLaunch("full", x, w, **kw)
+    conv_ms = cuda_ms(al.run, 20)
+    state = [hist]
+
+    def one():
+        state[0] = pv3b.step(state[0], chunk, w, **kw)[0]
+    step_ms = cuda_ms(one, 20)
+    step_graph = cuda_ms(one, 20, mode="graph")
+    st, sh, sx = pv3b.served_step()
+    served_ms = cuda_ms(lambda: st.fn(sh, sx, st.w), 20)
+    served_graph = cuda_ms(lambda: st.fn(sh, sx, st.w), 20, mode="graph")
+    nnz12 = int((w[0] != 0).sum()) * pv3b.N_PERIODS * LANES
+    entries.append(probe_entry(
+        "f32_anatomy", "f32_anatomy_kernel<0> v3_bench conv", smi, conv_ms,
+        cuda_ms(lambda: pv3b.conv_reference(x, w, **kw), 3),
+        cuda_ms(pka.library_call("full", x, w, **kw), 3), 2 * nnz12,
+        g12.T * LANES * 2 + int((w[0] != 0).sum()) * 4 + n_out * LANES * 2,
+        errs[("v3_bench",)],
+        {"variant": "v3_bench conv", "step_ms": step_ms,
+         "step_graph_ms": step_graph, "concat_ms": step_graph - conv_ms,
+         "served_step_ms": served_ms, "served_step_graph_ms": served_graph},
+        peak=FP32_FLOPS, replaces=P12_REPLACES))
+    print(f"probe P12 on {smi}, ms a flagship launch: conv_v3 {conv_ms:.4f}; "
+          f"its step eager {step_ms:.4f}, graph {step_graph:.4f} (the concat "
+          f"{step_graph - conv_ms:+.4f}); served highest step eager "
+          f"{served_ms:.4f}, graph {served_graph:.4f}")
+    return entries
+
+
 def probe_time(smi: str, errs: dict) -> list:
     """The probe path: with the probe launch counts set to 0, one case of
     each probe timed, every SM busy (ms of one launch of PROBE_ITERS
@@ -2057,6 +2316,7 @@ def probe_time(smi: str, errs: dict) -> list:
             {"rung": rung, "iters": it, "us_per_block": us,
              "tmacs": macs / (us * 1e-6) / 1e12, "n_ctas": ll.n_ctas}))
     entries += probe_time_p5_p8(smi, errs)
+    entries += probe_time_p9_p12(smi, errs)
     counts = {family: m.launches for family, m in PROBE_MODULES.items()}
     print(f"probe launches in phase 10's timed path: {json.dumps(counts)}")
     if not all(counts.values()):
@@ -2100,6 +2360,7 @@ def main() -> None:
     print(f"build: {time.time() - t0:.1f} s ({_build.build_dir()})")
     ptxas_report()
     sass_check()
+    marks = {"1-2 card, build": time.time() - t_start}
 
     # -- phase 3: every kernel against its plain version, on the card
     max_err: dict = {}
@@ -2111,6 +2372,7 @@ def main() -> None:
         check_kernels(path, ("auto",), max_err)
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
     print(f"kernels checked: {time.time() - t_start:.1f} s")
+    marks["3 kernels checked"] = time.time() - t_start
 
     # -- phase 4: each path end to end, its launches counted from 0
     float_requests = {"auto": "int8", "highest": "highest"}
@@ -2124,6 +2386,7 @@ def main() -> None:
         served[path] = serve(path, {"auto": "highest"})
     served[DECIMATE] = serve(DECIMATE, {"auto": "split5"})
     print(f"served: {time.time() - t_start:.1f} s")
+    marks["4 paths served"] = time.time() - t_start
 
     # -- phase 5: timing at each path's launch
     # (listed, printed only): explicit streamed int8 (D = 3) beside auto
@@ -2149,6 +2412,7 @@ def main() -> None:
     time_launch(f"{FIXED_DIRECT.name} weights on the streamed kernel "
                 f"({kernel_name('streamed', 'fixed', 1)}, on no served "
                 f"path)", FIXED_DIRECT.spec, step, bspec, smi, reps=20)
+    t_fleet = time.time() - t_start
     # -- phase 6: the serving runtime (FleetResampler) at the flagship
     for fixed in (False, True):
         fleet_check(fixed)
@@ -2157,17 +2421,21 @@ def main() -> None:
     _, engines, frames = served[FLAGSHIP]
     big = np.concatenate(frames[:3], axis=1)     # 41000 frames a stream
     process_time(engines["int8"], big, smi, quanta=4)
+    marks["5 paths timed"] = t_fleet
     print(f"fleet and process timed: {time.time() - t_start:.1f} s")
+    marks["6 fleet"] = time.time() - t_start
     # -- phase 7: the single-stream layer (SpeexResampler, ResamplerCore)
     single_stream_check()
     single_stream_time(smi)
     print(f"single-stream layer: {time.time() - t_start:.1f} s")
+    marks["7 single stream"] = time.time() - t_start
     # -- phase 8: MultiFleet, 1024 stereo streams over four buckets
     mf_launches = {}
     for fixed in (False, True):
         mf_launches.update(multifleet_check(fixed, smi))
     print(f"multifleet launches by kernel: {json.dumps(mf_launches)}")
     print(f"multifleet: {time.time() - t_start:.1f} s")
+    marks["8 multifleet"] = time.time() - t_start
     # -- phase 9: the functional step and mesh=, 1024 stereo streams
     fn_launches = {}
     for name, rates, target, fixed, kind in FN_CASES:
@@ -2181,12 +2449,18 @@ def main() -> None:
         entry["phase9_launches"] = fn_launches.get(entry["name"], 0)
     print(f"phase 9 launches by kernel: {json.dumps(fn_launches)}")
     print(f"phase 9: {time.time() - t_start:.1f} s")
+    marks["9 functional, mesh"] = time.time() - t_start
     # -- phase 10: the tensor-core probes, checked, then timed
     print(f"probe build: {probe_build.wait():.1f} s "
           f"({_build.probe_lib_path().name})")
     probe_report()
     kernels += probe_time(smi, probe_check())
+    marks["10 probes"] = time.time() - t_start
     print(f"total: {time.time() - t_start:.1f} s")
+    ends = list(marks.values())
+    print(f"phase seconds on {smi}: " + json.dumps(
+        {k: round(v - (ends[i - 1] if i else 0.0), 1)
+         for i, (k, v) in enumerate(marks.items())}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

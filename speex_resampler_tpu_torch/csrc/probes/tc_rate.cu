@@ -35,6 +35,14 @@
 // 128 or 256 rows.  wgmma m64nNk32 .s32 or m64nNk16 .f32.bf16.bf16,
 // without .satfinite.
 //
+// Probe P10 (experiments/v4_k_layout.py, make_fn :34, pallas_call :51) is
+// the int8 body with 16 x blocks (reps) at C 128, LB 1024 and K 512, 448
+// or 440, W stored [C, K] ("rk", as here) or [K, C] ("kr"): 8-bit wgmma
+// takes its shared-memory operand only K-major, so a "kr" W is transposed
+// into the K-major, K_PERM-ordered tile while it is staged (stage_w_kr,
+// once a CTA, before the timed loop).  K = 440 runs as 448 (K_pad), with
+// zero weights in the last 8 taps.
+//
 // A CTA is one warpgroup.  Its unit is one (N-tile, 64-lane tile, group
 // of rs x blocks): it copies W's digit tiles and the rs x blocks' digit
 // rows into shared memory once (K padded with zero weights to K_pad, a
@@ -42,11 +50,11 @@
 // chains (rs * K_pad / taps K-slices, the kNa * kNb digit products of a
 // slice one commit group, a slice's fragments loaded while the previous
 // slice's wgmmas run, as the served kernels do) and the tile's store to
-// slot iteration % 16.  8 / rs groups split the 8 x blocks where one CTA
-// cannot hold them all (bf16 x is 36 KB a block at K_pad 288); their
-// partial tiles are added after the loop (probe_common.cuh).  Every
-// address of an iteration adds `it & salt`, salt 0 at run time, so the
-// compiler can neither hoist nor drop one.
+// slot iteration % 16.  reps / rs groups split the reps x blocks (8, or
+// P10's 16) where one CTA cannot hold them all (bf16 x is 36 KB a block at
+// K_pad 288); their partial tiles are added after the loop
+// (probe_common.cuh).  Every address of an iteration adds `it & salt`,
+// salt 0 at run time, so the compiler can neither hoist nor drop one.
 //
 // What bounds it: the tensor cores, by construction; the rate is the slope
 // of the launch time between two iteration counts (tools/tc_probes.py),
@@ -237,12 +245,41 @@ __device__ __forceinline__ void products(std::integer_sequence<int, kP...>,
 
 struct Args {
   const uint8_t* w;  // [kNa, C, K_pad] int8 digits (each 32-tap group
-                     // K_PERM) or [C, K_pad] bf16
-  const uint8_t* x;  // [kNb, 8, K_pad, LB] int8 digits or [8, K_pad, LB] bf16
+                     // K_PERM) or [C, K_pad] bf16; kr: [K_pad, C] int8 in
+                     // tap order
+  const uint8_t* x;  // [kNb, reps, K_pad, LB] int8 digits or [reps, K_pad,
+                     // LB] bf16
   uint32_t* out;     // [groups, 16, C, LB] int32
   uint32_t* scratch; // [n_ctas - n_units, kN, 64]: the copies' tiles
-  int C, K, LB, rs, iters, salt;
+  int C, K, LB, rs, reps, kr, iters, salt;
 };
+
+// stage_w for an int8 W stored [K, ld] (row t: every column's tap t; src
+// at the tile's first column), its n columns, taps [0, kb): each 16-column
+// chunk of a tap row is read once (16 bytes) and its bytes stored one by
+// one at tap t's K position in the K_PERM order of its 32-tap group, p =
+// 16 (q / 16) + 4 ((q % 8) / 2) + 2 ((q % 16) / 8) + q % 2 for q = t % 32
+// (K_PERM's inverse), as stage_w lays a K-major tile out.
+__device__ __forceinline__ void stage_w_kr(uint32_t dst, const uint8_t* src,
+                                           size_t ld, int n, int kb, int tid,
+                                           int threads) {
+  const int chunks = n / 16;
+  for (int e = tid; e < kb * chunks; e += threads) {
+    const int t = e / chunks, j = e % chunks, q = t % 32;
+    const int p = (t & ~31) + 16 * (q / 16) + 4 * ((q % 8) / 2) +
+                  2 * ((q % 16) / 8) + q % 2;
+    const uint4 v = *reinterpret_cast<const uint4*>(src + (size_t)t * ld +
+                                                     j * 16);
+    const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    const uint32_t at = dst + (p / 32) * n * kK + p % 16;
+#pragma unroll
+    for (int b = 0; b < 16; ++b)
+      asm volatile("st.shared.u8 [%0], %1;\n" ::"r"(
+                       at + fir::int8tc::core_offset(16 * j + b, (p % 32) / 16)),
+                   "r"((words[b / 4] >> (8 * (b % 4))) & 0xFF)
+                   : "memory");
+  }
+}
 
 template <bool kBf16, int kN>
 __host__ __device__ constexpr int pitch() {
@@ -270,7 +307,7 @@ __global__ void __launch_bounds__(kWgThreads)
   const uint32_t wsm = (fir::smem_addr(rate_smem) + 127) & ~127u;
   const int tid = threadIdx.x, w = tid / 32, l = tid % 32;
   const int n_lt = g.LB / kLanes, n_nt = g.C / kN;
-  const int n_units = n_lt * n_nt * (8 / g.rs);
+  const int n_units = n_lt * n_nt * (g.reps / g.rs);
   const int u = blockIdx.x % n_units;
   const bool first = blockIdx.x < n_units;
   const int lt = u % n_lt, nt = u / n_lt % n_nt, grp = u / (n_lt * n_nt);
@@ -280,13 +317,16 @@ __global__ void __launch_bounds__(kWgThreads)
   const uint32_t xplane = g.rs * g.K * kPitch;  // an x digit's rs blocks
   const uint32_t xsm = wsm + kNa * wplane;
 
-  for (int a = 0; a < kNa; ++a)
-    stage_w(wsm + a * wplane, g.w + ((size_t)a * g.C + nt * kN) * kb, kb, kN,
-            kb, tid, kWgThreads);
+  if (g.kr)
+    stage_w_kr(wsm, g.w + nt * kN, g.C, kN, kb, tid, kWgThreads);
+  else
+    for (int a = 0; a < kNa; ++a)
+      stage_w(wsm + a * wplane, g.w + ((size_t)a * g.C + nt * kN) * kb, kb,
+              kN, kb, tid, kWgThreads);
   for (int b = 0; b < kNb; ++b)
     for (int r = 0; r < g.rs; ++r)
       stage_rows(xsm + b * xplane + r * g.K * kPitch, kPitch,
-                 g.x + (((size_t)b * 8 + grp * g.rs + r) * g.K * g.LB +
+                 g.x + (((size_t)b * g.reps + grp * g.rs + r) * g.K * g.LB +
                         lt * kLanes) * kEs,
                  (size_t)g.LB * kEs, g.K, kLanes * kEs, tid, kWgThreads);
   staged();
@@ -377,18 +417,19 @@ __global__ void __launch_bounds__(kWgThreads)
 
 template <bool kBf16, int kN, int kNa, int kNb>
 int launch(const void* w, const void* x, void* out, void* partial,
-           void* scratch, int C, int K, int LB, int rs, int n_ctas, int iters,
-           int salt, cudaStream_t stream) {
+           void* scratch, int C, int K, int LB, int rs, int reps, int kr,
+           int n_ctas, int iters, int salt, cudaStream_t stream) {
   const int smem = smem_bytes<kBf16, kN, kNa, kNb>(K, rs);
   if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   auto kernel = tc_rate_kernel<kBf16, kN, kNa, kNb>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int groups = 8 / rs;
+  const int groups = reps / rs;
   const Args g{static_cast<const uint8_t*>(w), static_cast<const uint8_t*>(x),
                static_cast<uint32_t*>(groups > 1 ? partial : out),
-               static_cast<uint32_t*>(scratch), C, K, LB, rs, iters, salt};
+               static_cast<uint32_t*>(scratch), C, K, LB, rs, reps, kr,
+               iters, salt};
   kernel<<<n_ctas, kWgThreads, smem, stream>>>(g);
   err = cudaGetLastError();
   if (err == cudaSuccess && groups > 1)
@@ -398,10 +439,10 @@ int launch(const void* w, const void* x, void* out, void* partial,
 }
 
 template <bool kBf16, int kN, int kNa, int kNb>
-int fill_ctas(int C, int K, int LB, int rs) {
+int fill_ctas(int C, int K, int LB, int rs, int reps) {
   return fill(tc_rate_kernel<kBf16, kN, kNa, kNb>, kWgThreads,
               smem_bytes<kBf16, kN, kNa, kNb>(K, rs),
-              (C / kN) * (LB / kLanes) * (8 / rs));
+              (C / kN) * (LB / kLanes) * (reps / rs));
 }
 
 // Calls f.template operator()<kBf16, kN, kNa, kNb>() for the runtime
@@ -451,37 +492,40 @@ int probe_tc_rate_smem(int bf16, int n, int na, int nb, int K, int rs) {
 
 // The CTAs a launch needs to fill the card (negative: a CUDA error).
 int probe_tc_rate_fill(int bf16, int n, int na, int nb, int C, int K, int LB,
-                       int rs) {
+                       int rs, int reps) {
   return probes::rate::dispatch(bf16, n, na, nb,
                                 [&](auto b, auto nn, auto a, auto xb) {
     PROBE_RATE_ARGS
-    return probes::rate::fill_ctas<kB, kN, kA, kX>(C, K, LB, rs);
+    return probes::rate::fill_ctas<kB, kN, kA, kX>(C, K, LB, rs, reps);
   });
 }
 
-// w [C, K] (int8: each 32-tap group K_PERM; bf16) and x [8, K, LB], or for
-// na, nb > 1 their byte planes uint8 [na, C, K] and [nb, 8, K, LB] (little
-// end first, W's 32-tap groups K_PERM), both 16-byte aligned, K % 32 == 0,
-// C % n == 0, LB % 64 == 0, 8 % rs == 0; out int32 [16, C, LB]; partial
-// int32 [8 / rs, 16, C, LB] where rs < 8; scratch int32 [n_ctas - units, n,
-// 64] where n_ctas > the units (C / n) * (LB / 64) * (8 / rs) (n_ctas >=
-// the units); iters >= 16 writes every slot; salt 0.  Launches on `stream`
-// and returns cudaGetLastError() (0 on success).
+// w [C, K] (int8: each 32-tap group K_PERM; bf16), or with kr int8 [K, C]
+// in tap order (C % 16 == 0), and x [reps, K, LB], or for na, nb > 1 their
+// byte planes uint8 [na, C, K] and [nb, reps, K, LB] (little end first,
+// W's 32-tap groups K_PERM), both 16-byte aligned, K % 32 == 0, C % n ==
+// 0, LB % 64 == 0, reps % rs == 0; out int32 [16, C, LB]; partial int32
+// [reps / rs, 16, C, LB] where rs < reps; scratch int32 [n_ctas - units,
+// n, 64] where n_ctas > the units (C / n) * (LB / 64) * (reps / rs)
+// (n_ctas >= the units); iters >= 16 writes every slot; salt 0.  Launches
+// on `stream` and returns cudaGetLastError() (0 on success).
 int probe_tc_rate(const void* w, const void* x, void* out, void* partial,
                   void* scratch, int bf16, int n, int na, int nb, int C,
-                  int K, int LB, int rs, int n_ctas, int iters, int salt,
-                  void* stream) {
+                  int K, int LB, int rs, int reps, int kr, int n_ctas,
+                  int iters, int salt, void* stream) {
   cudaGetLastError();
   if ((reinterpret_cast<uintptr_t>(w) | reinterpret_cast<uintptr_t>(x)) % 16 ||
-      K % 32 || n <= 0 || C % n || LB % probes::kLanes || rs <= 0 || 8 % rs ||
-      n_ctas < (C / n) * (LB / probes::kLanes) * (8 / rs))
+      K % 32 || n <= 0 || C % n || LB % probes::kLanes || rs <= 0 ||
+      reps <= 0 || reps % rs ||
+      (kr && (bf16 || na != 1 || C % 16)) ||
+      n_ctas < (C / n) * (LB / probes::kLanes) * (reps / rs))
     return static_cast<int>(cudaErrorInvalidValue);
   return probes::rate::dispatch(bf16, n, na, nb,
                                 [&](auto b, auto nn, auto a, auto xb) {
     PROBE_RATE_ARGS
     return probes::rate::launch<kB, kN, kA, kX>(
-        w, x, out, partial, scratch, C, K, LB, rs, n_ctas, iters, salt,
-        static_cast<cudaStream_t>(stream));
+        w, x, out, partial, scratch, C, K, LB, rs, reps, kr, n_ctas, iters,
+        salt, static_cast<cudaStream_t>(stream));
   });
 }
 

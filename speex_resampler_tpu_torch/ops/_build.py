@@ -70,14 +70,16 @@ _lock = threading.Lock()
 # most through probes/probe_common.cuh
 _PROBE_SOURCE_NAMES = ("probes/tc_rate.cu", "probes/int8_anatomy.cu",
                        "probes/fixed_anatomy.cu", "probes/v3_anatomy.cu",
-                       "probes/f32_anatomy.cu", "probes/prec_fir.cu")
-_PROBE_HEADER_NAMES = ("probes/probe_common.cuh",) + _HEADER_NAMES
+                       "probes/f32_anatomy.cu", "probes/prec_fir.cu",
+                       "probes/v5_bench.cu", "probes/batched_dot.cu")
+_PROBE_HEADER_NAMES = ("probes/probe_common.cuh",
+                       "probes/f32_anatomy.cuh") + _HEADER_NAMES
 _PROBE_CSRC = _CSRC
 _PROBE_SIGNATURES = {
     "probe_error_string": (ctypes.c_char_p, [_I]),
     "probe_tc_rate_smem": (_I, [_I] * 6),
-    "probe_tc_rate_fill": (_I, [_I] * 8),
-    "probe_tc_rate": (_I, [_P] * 5 + [_I] * 11 + [_P]),
+    "probe_tc_rate_fill": (_I, [_I] * 9),
+    "probe_tc_rate": (_I, [_P] * 5 + [_I] * 13 + [_P]),
     "probe_int8_anatomy_smem": (_I, [_I] * 4),
     "probe_int8_anatomy_fill": (_I, [_I] * 6),
     "probe_int8_anatomy": (_I, [_P] * 5 + [_I] * 9 + [_P]),
@@ -92,6 +94,9 @@ _PROBE_SIGNATURES = {
     "probe_f32_anatomy": (_I, [_P] * 5 + [_I] * 8 + [_P]),
     "probe_prec_fir_smem": (_I, [_I]),
     "probe_prec_fir": (_I, [_P] * 4 + [_I] * 8 + [_P]),
+    "probe_v5_bench": (_I, [_P] * 6 + [_I] + [_F] * 3 + [_I] * 8 + [_P]),
+    "probe_batched_patches": (_I, [_P] * 4 + [_I] * 7 + [_P]),
+    "probe_batched_dot": (_I, [_P] * 7 + [_I] * 10 + [_P]),
 }
 _probe_lib = None
 _probe_lock = threading.Lock()

@@ -23,7 +23,18 @@ under ``experiments/`` that bound the served kernels.
   block on the CUDA cores in four variants, ``csrc/probes/f32_anatomy.cu``);
 - :mod:`.prec_bench` (``experiments/prec_bench.py``: the FIR dot at each
   matrix-unit precision against a float64 gold,
-  ``csrc/probes/prec_fir.cu``).
+  ``csrc/probes/prec_fir.cu``);
+- :mod:`.v5_int8_bench` (``experiments/v5_int8_bench.py``: the int8 and
+  split5 schemes at the flagship without the halo, the served bodies,
+  ``csrc/probes/v5_bench.cu``);
+- :mod:`.v4_k_layout` (``experiments/v4_k_layout.py``: the int8 body at
+  K 512, 448 and 440 with W as [R, K] or [K, R], on the rate kernel of
+  :mod:`.tc_rate`);
+- :mod:`.batched_dot` (``experiments/batched_dot.py``: the f32 launch with
+  its history phase by phase against one batched product,
+  ``csrc/probes/batched_dot.cu``);
+- :mod:`.v3_bench` (``experiments/v3_bench.py``: the f32 conv without
+  history, P6's ``full`` kernel, inside the concat step).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (built at first use into ``build/torch_kernels/libprobes.<hash>.so``)
@@ -34,4 +45,5 @@ module here imports jax, triton, ``experiments/`` or the JAX package.
 
 __all__ = ["tc_rate", "mxu_peak", "mxu_shape_probe", "v4_overhead_anatomy",
            "fixed_interp_anatomy", "v3_overhead_anatomy",
-           "mosaic_int_dot_bench", "kernel_anatomy", "prec_bench"]
+           "mosaic_int_dot_bench", "kernel_anatomy", "prec_bench",
+           "v5_int8_bench", "v4_k_layout", "batched_dot", "v3_bench"]

@@ -26,7 +26,10 @@ kernel adds.
 The same kernel runs probe P7's wider integer forms (``na`` bytes of W,
 ``nb`` of x; :mod:`.mosaic_int_dot_bench`): the operands' byte planes, the
 digit products with a + b < 4 on the int8 tensor cores
-(:meth:`RateLaunch.of_planes`).
+(:meth:`RateLaunch.of_planes`); and probe P10's body
+(:mod:`.v4_k_layout`): ``reps`` = 16 x blocks (x [reps, K, LB]; 8 by
+default), and a W handed over as [K, C] (``kr``), which the kernel
+transposes into its K-major tile while it stages it.
 
 :func:`rate_reference` is the plain version: integer products exact in
 int64 (``torch.matmul`` on CPU int64; float64 on the card, exact below
@@ -86,8 +89,9 @@ def smem_bytes(dtype: str, n: int, K_pad: int, rs: int, na: int = 1,
 
 @dataclasses.dataclass(frozen=True)
 class Plan:
-    """A launch's tiling: wgmma N-tile n, rs x blocks a CTA (8 / rs groups
-    of CTAs split the 8 dot chains); na and nb bytes of W and of x."""
+    """A launch's tiling: wgmma N-tile n, rs x blocks a CTA (reps / rs
+    groups of CTAs split the reps dot chains); na and nb bytes of W and of
+    x."""
 
     dtype: str
     C: int
@@ -97,6 +101,7 @@ class Plan:
     rs: int
     na: int = 1
     nb: int = 1
+    reps: int = N_REPS
 
     @property
     def kernel(self) -> str:
@@ -110,7 +115,7 @@ class Plan:
 
     @property
     def groups(self) -> int:
-        return N_REPS // self.rs
+        return self.reps // self.rs
 
     @property
     def units(self) -> int:
@@ -123,25 +128,28 @@ class Plan:
 
     @property
     def needed_macs(self) -> int:
-        """Multiply-adds of one body, the TPU probe's N_REPS * C * K * LB."""
-        return N_REPS * self.C * self.K * self.LB
+        """Multiply-adds of one body, the TPU probe's reps * C * K * LB."""
+        return self.reps * self.C * self.K * self.LB
 
     @property
     def walked_macs(self) -> int:
         """Multiply-adds the tiles walk for one body (K_pad taps)."""
-        return N_REPS * self.C * self.K_pad * self.LB
+        return self.reps * self.C * self.K_pad * self.LB
 
 
 def plan(dtype: str, C: int, K: int, LB: int, n: int | None = None,
-         per_sm: int = 1, na: int = 1, nb: int = 1) -> Plan:
+         per_sm: int = 1, na: int = 1, nb: int = 1,
+         reps: int = N_REPS) -> Plan:
     """The tiling of one case: N-tile ``n`` (default: C, at most 256; for
-    na, nb > 1 the form's own, DIGIT_CASES) and the most x blocks a CTA
-    (fewest partial tiles) such that ``per_sm`` CTAs (one warpgroup each)
-    fit in an SM's shared memory.  Without ``n``, a smaller N-tile is taken
-    where not even one x block fits beside the W tile.  Raises ValueError
-    if nothing fits."""
+    na, nb > 1 the form's own, DIGIT_CASES) and the most of the ``reps`` x
+    blocks a CTA (fewest partial tiles) such that ``per_sm`` CTAs (one
+    warpgroup each) fit in an SM's shared memory.  Without ``n``, a smaller
+    N-tile is taken where not even one x block fits beside the W tile.
+    Raises ValueError if nothing fits."""
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r} not in {DTYPES}")
+    if reps < 1:
+        raise ValueError(f"reps {reps} < 1")
     if (na, nb) != (1, 1):
         tile = {(a, b): t for a, b, t in DIGIT_CASES}.get((na, nb))
         if dtype != "int8" or tile is None or n not in (None, tile):
@@ -157,19 +165,31 @@ def plan(dtype: str, C: int, K: int, LB: int, n: int | None = None,
         if t not in N_TILES or C % t:
             raise ValueError(f"N-tile {t} must be one of {N_TILES} and "
                              f"divide C = {C}")
-        for rs in (8, 4, 2, 1):
-            p = Plan(dtype, C, K, LB, t, rs, na, nb)
+        for rs in (16, 8, 4, 2, 1):
+            if reps % rs:
+                continue
+            p = Plan(dtype, C, K, LB, t, rs, na, nb, reps)
             if p.smem <= limit:
                 return p
     raise ValueError(f"no tiling of {dtype} [{C}, {K}] x {LB} fits "
                      f"{limit} bytes")
 
 
-def pack(w: torch.Tensor, x: torch.Tensor, dtype: str):
-    """(W int8 / bf16 [C, K_pad], x [8, K_pad, LB]) as the kernel reads
+def pack(w: torch.Tensor, x: torch.Tensor, dtype: str, kr: bool = False):
+    """(W int8 / bf16 [C, K_pad], x [reps, K_pad, LB]) as the kernel reads
     them, on the inputs' device: K padded with zeros; for int8 each 32-tap
     group of W's columns in K_PERM order (column 32*i + k holds tap 32*i +
-    K_PERM[k]), which the fragment's tap order needs; x in tap order."""
+    K_PERM[k]), which the fragment's tap order needs; x in tap order.
+    ``kr``: W is int8 [K, C] and stays so, [K_pad, C] in tap order (the
+    kernel permutes it while it stages it)."""
+    if kr:
+        K, C = w.shape
+        wp = torch.zeros((pad_k(K), C), dtype=torch.int8, device=w.device)
+        wp[:K] = w.to(torch.int8)
+        xp = torch.zeros((x.shape[0], pad_k(K), x.shape[2]), dtype=torch.int8,
+                         device=x.device)
+        xp[:, :K] = x.to(torch.int8)
+        return wp, xp
     C, K = w.shape
     K_pad = pad_k(K)
     t = torch.int8 if dtype == "int8" else torch.bfloat16
@@ -194,12 +214,16 @@ def exact_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                         b.to(torch.float64)).round().to(torch.int64)
 
 
-def _check(w: torch.Tensor, x: torch.Tensor, dtype: str) -> None:
+def _check(w: torch.Tensor, x: torch.Tensor, dtype: str,
+           kr: bool = False) -> None:
     if dtype not in DTYPES:
         raise ValueError(f"dtype {dtype!r} not in {DTYPES}")
-    if w.dim() != 2 or x.dim() != 3 or x.shape[0] != N_REPS \
-            or x.shape[1] != w.shape[1]:
-        raise ValueError(f"w [C, K] and x [{N_REPS}, K, LB]: got "
+    if kr and dtype != "int8":
+        raise ValueError("a [K, C] W (kr) is int8 only")
+    if w.dim() != 2 or x.dim() != 3 or x.shape[0] < 1 \
+            or x.shape[1] != w.shape[0 if kr else 1]:
+        shape = "[K, C]" if kr else "[C, K]"
+        raise ValueError(f"w {shape} and x [reps, K, LB]: got "
                          f"{tuple(w.shape)}, {tuple(x.shape)}")
     if w.device != x.device:
         raise ValueError(f"w on {w.device}, x on {x.device}")
@@ -211,13 +235,16 @@ def _check(w: torch.Tensor, x: torch.Tensor, dtype: str) -> None:
 
 
 def rate_reference(w: torch.Tensor, x: torch.Tensor,
-                   dtype: str = "int8") -> torch.Tensor:
-    """The plain version: int32 [16, C, LB], the body sum_r W . x[r] in
-    every slot (int8: exact, mod 2^32; bf16: float32 sums of exact
-    products with TF32 off, r in order, cast to int32)."""
-    _check(w, x, dtype)
+                   dtype: str = "int8", kr: bool = False) -> torch.Tensor:
+    """The plain version: int32 [16, C, LB], the body sum_r W . x[r] over
+    the x blocks in every slot (int8: exact, mod 2^32; bf16: float32 sums
+    of exact products with TF32 off, r in order, cast to int32); ``kr``: W
+    is given as [K, C] and the body is sum_r W^T . x[r]."""
+    _check(w, x, dtype, kr)
+    if kr:
+        w = w.t()
     if dtype == "int8":
-        acc = sum(exact_matmul(w, x[r]) for r in range(N_REPS))
+        acc = sum(exact_matmul(w, x[r]) for r in range(x.shape[0]))
         body = wrap_int32(acc)
     else:
         wf = w.to(torch.bfloat16).to(torch.float32)
@@ -225,7 +252,7 @@ def rate_reference(w: torch.Tensor, x: torch.Tensor,
         with _no_tf32():
             acc = torch.zeros((w.shape[0], x.shape[2]), dtype=torch.float32,
                               device=w.device)
-            for r in range(N_REPS):
+            for r in range(x.shape[0]):
                 acc = acc + torch.matmul(wf, xf[r])
         body = acc.to(torch.int32)
     return body.unsqueeze(0).repeat(SLOTS, 1, 1)
@@ -237,10 +264,12 @@ class RateLaunch:
     scratch tiles.  ``run(iters)`` launches on the current stream."""
 
     def __init__(self, w: torch.Tensor, x: torch.Tensor, dtype: str,
-                 n: int | None = None, fill: bool = True, per_sm: int = 1):
-        _check(w, x, dtype)
-        p = plan(dtype, w.shape[0], w.shape[1], x.shape[2], n, per_sm)
-        self._setup(p, *pack(w, x, dtype), fill)
+                 n: int | None = None, fill: bool = True, per_sm: int = 1,
+                 kr: bool = False):
+        _check(w, x, dtype, kr)
+        C, K = (w.shape[1], w.shape[0]) if kr else w.shape
+        p = plan(dtype, C, K, x.shape[2], n, per_sm, reps=x.shape[0])
+        self._setup(p, *pack(w, x, dtype, kr), fill, kr)
 
     @classmethod
     def of_planes(cls, wp: torch.Tensor, xp: torch.Tensor, p: Plan,
@@ -253,8 +282,8 @@ class RateLaunch:
         return self
 
     def _setup(self, p: Plan, wp: torch.Tensor, xp: torch.Tensor,
-               fill: bool) -> None:
-        self.plan = p
+               fill: bool, kr: bool = False) -> None:
+        self.plan, self.kr = p, kr
         self.lib = lib = _build.load_probes()
         bf16 = int(p.dtype == "bf16")
         if lib.probe_tc_rate_smem(bf16, p.n, p.na, p.nb, p.K_pad,
@@ -265,7 +294,7 @@ class RateLaunch:
         C, LB, dev = p.C, p.LB, wp.device
         with torch.cuda.device(dev):
             n_ctas = (lib.probe_tc_rate_fill(bf16, p.n, p.na, p.nb, C,
-                                             p.K_pad, LB, p.rs)
+                                             p.K_pad, LB, p.rs, p.reps)
                       if fill else p.units)
         if n_ctas < 0:
             raise RuntimeError("tc_rate occupancy query failed: "
@@ -281,7 +310,7 @@ class RateLaunch:
 
     @property
     def bodies_per_iter(self) -> float:
-        """Bodies (W . x over the 8 blocks) an iteration computes."""
+        """Bodies (W . x over the reps blocks) an iteration computes."""
         return self.n_ctas / self.plan.units
 
     @property
@@ -301,8 +330,8 @@ class RateLaunch:
                 self.wp.data_ptr(), self.xp.data_ptr(), self.out.data_ptr(),
                 None if self.partial is None else self.partial.data_ptr(),
                 self.scratch.data_ptr(), self._bf16, p.n, p.na, p.nb, p.C,
-                p.K_pad, p.LB, p.rs, self.n_ctas, iters, 0,
-                _build.stream_handle(dev))
+                p.K_pad, p.LB, p.rs, p.reps, int(self.kr), self.n_ctas,
+                iters, 0, _build.stream_handle(dev))
         if err:
             raise RuntimeError("tc_rate kernel launch failed: "
                                + self.lib.probe_error_string(err).decode())
@@ -311,25 +340,27 @@ class RateLaunch:
 
 
 def tc_rate(w: torch.Tensor, x: torch.Tensor, dtype: str = "int8", *,
-            n: int | None = None, iters: int = SLOTS) -> torch.Tensor:
+            n: int | None = None, iters: int = SLOTS,
+            kr: bool = False) -> torch.Tensor:
     """The probe's function, int32 [16, C, LB]: the kernel for CUDA
     tensors (one launch of ``iters`` >= 16 iterations, one copy of each
     tile), the plain version for CPU tensors."""
     if w.device.type == "cpu" and x.device.type == "cpu":
-        return rate_reference(w, x, dtype)
+        return rate_reference(w, x, dtype, kr)
     if w.device.type != "cuda":
         raise ValueError(f"no kernel for device {w.device}")
     if iters < SLOTS:
         raise ValueError(f"iters {iters} < {SLOTS} leaves slots unwritten")
-    return RateLaunch(w, x, dtype, n, fill=False).run(iters).clone()
+    return RateLaunch(w, x, dtype, n, fill=False, kr=kr).run(iters).clone()
 
 
-def operands(C: int, K: int, LB: int, seed: int = 0, device="cpu"):
-    """The TPU probe's operands: W [C, K] and x [8, K, LB], int16 values in
-    [-128, 128) from ``np.random.default_rng(seed)``."""
+def operands(C: int, K: int, LB: int, seed: int = 0, device="cpu",
+             reps: int = N_REPS):
+    """The TPU probe's operands: W [C, K] and x [reps, K, LB], int16 values
+    in [-128, 128) from ``np.random.default_rng(seed)``."""
     rng = np.random.default_rng(seed)
     w = rng.integers(-128, 128, size=(C, K)).astype(np.int16)
-    x = rng.integers(-128, 128, size=(N_REPS, K, LB)).astype(np.int16)
+    x = rng.integers(-128, 128, size=(reps, K, LB)).astype(np.int16)
     return (torch.from_numpy(w).to(device), torch.from_numpy(x).to(device))
 
 
@@ -366,12 +397,12 @@ def slope_ms(run, work_per_iter: float, peak: float,
 
 def library_call(w: torch.Tensor, x: torch.Tensor, dtype: str):
     """The yardstick, as a function: one PyTorch call computing the body,
-    [W ... W] (8 copies along K) . [x[0]; ...; x[7]], operands in device
-    memory: ``torch._int_mm`` (int8 -> int32) or a bf16 ``torch.mm`` with a
-    float32 result.  The port never calls it."""
-    K = w.shape[1]
-    wcat = w.repeat(1, N_REPS)                            # [C, 8K]
-    xcat = x.reshape(N_REPS * K, -1)                      # [8K, LB]
+    [W ... W] (reps copies along K) . [x[0]; ...; x[reps - 1]], operands in
+    device memory: ``torch._int_mm`` (int8 -> int32) or a bf16 ``torch.mm``
+    with a float32 result.  The port never calls it."""
+    K, reps = w.shape[1], x.shape[0]
+    wcat = w.repeat(1, reps)                              # [C, reps K]
+    xcat = x.reshape(reps * K, -1)                        # [reps K, LB]
     if dtype == "int8":
         a = wcat.to(torch.int8).contiguous()
         b = xcat.to(torch.int8).t().contiguous().t()       # column-major
@@ -388,7 +419,7 @@ def library_rate(w: torch.Tensor, x: torch.Tensor, dtype: str) -> dict:
     got = fn().to(torch.int32)
     want = rate_reference(w, x, dtype)[0]
     ms = events_ms(fn)
-    return {"ms": ms, "tmacs": N_REPS * w.numel() * x.shape[2] / ms / 1e9,
+    return {"ms": ms, "tmacs": x.shape[0] * w.numel() * x.shape[2] / ms / 1e9,
             "mismatches": int((got != want).sum())}
 
 

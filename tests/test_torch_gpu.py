@@ -31,10 +31,11 @@ from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.probes import (
-    fixed_interp_anatomy as pfa, kernel_anatomy as pka,
+    batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
     mosaic_int_dot_bench as pid, mxu_peak as pmp, mxu_shape_probe as pms,
-    prec_bench as ppb, tc_rate as ptr, v3_overhead_anatomy as pv3,
-    v4_overhead_anatomy as pv4)
+    prec_bench as ppb, tc_rate as ptr, v3_bench as pv3b,
+    v3_overhead_anatomy as pv3, v4_k_layout as pkl,
+    v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
 
 from fixed_inputs import block_origins, launch_inputs, wrap_column
 
@@ -1045,3 +1046,80 @@ def test_probe_prec_matches_plain(cuda, mode, shape):
     got = ppb.prec(mode, w, x, n_blocks)
     want = ppb.prec_reference(mode, w, x, n_blocks)
     _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+
+
+# -- probes P9-P12 ---------------------------------------------------------
+# Each kernel against its plain version at the TPU probe's full shape and at
+# a ragged one: 0 mismatches for P9's int8 and P10; max |err| <= 1 within
+# the tie bound for P9's split5, P11 and P12.  P9's kernels are the served
+# tiled bodies with no history (equal to resample_tiled at H = 0), P11's
+# forms and the served f32 kernel are one FMA chain (equal bit for bit),
+# P12's conv is P6's full.
+
+@pytest.mark.parametrize("B", [2048, 200])
+@pytest.mark.parametrize("scheme", pv5.SCHEMES)
+def test_probe_v5_bench_matches_plain(cuda, scheme, B):
+    g = pv5.geometry()
+    w, kw = pv5.weights(g, scheme, "cuda"), pv5.launch_kw(g, scheme, "cuda")
+    x = pv5.inputs(g, B=B, seed=16, device="cuda")
+    x[0::97], x[1::89] = -32768, 32767
+    got = pv5.bench(scheme, x, w, **kw)
+    want = pv5.bench_reference(scheme, x, w, **kw)
+    _compare(got.cpu().numpy(), want.cpu().numpy(), scheme)
+    served = ttf.resample_tiled(x.new_zeros((0, B)), x, w, scheme=scheme,
+                                **kw)
+    assert torch.equal(got, served)
+
+
+@pytest.mark.parametrize("form", pkl.FORMS)
+@pytest.mark.parametrize("K", pkl.KS + (100,))
+def test_probe_k_layout_matches_plain(cuda, K, form):
+    w, x = pkl.operands(K, form, seed=K, device="cuda")
+    want = pkl.k_layout_reference(w, x, form)
+    assert torch.equal(pkl.k_layout(w, x, form, iters=17), want)
+    rl = pkl.k_layout_launch(w, x, form)
+    assert rl.n_ctas >= rl.plan.units and rl.plan.reps == 16
+    assert torch.equal(rl.run(16), want)
+
+
+@pytest.mark.parametrize("B", [2048, 136])
+@pytest.mark.parametrize("case", [("m-loop", 128), ("m-loop", 64),
+                                  ("batched", 128)], ids=str)
+def test_probe_batched_dot_matches_plain(cuda, case, B):
+    form, lanes = case
+    g = pbd.geometry()
+    w, kw = pbd.weights(g, "cuda"), pbd.launch_kw(g, "cuda")
+    hist, x = pbd.inputs(g, B=B, seed=17, device="cuda")
+    hist.random_(-32768, 32768)
+    x[0:g.n_in:97], x[1:g.n_in:89] = -32768, 32767
+    got = pbd.batched_dot(form, hist, x, w, lanes=lanes, **kw)
+    want = pbd.batched_dot_reference(form, hist, x, w, **kw)
+    _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+    # the served f32 kernel at this launch: one FMA chain in tap order
+    assert torch.equal(got, ttf.resample_tiled(hist, x, w, scheme="highest",
+                                               **kw))
+    if form == "batched":
+        bl = pbd.BatchedLaunch(form, hist, x, w, **kw)
+        assert torch.equal(bl.run_patches(),
+                           pbd.patches_reference(hist, x, g.K, **kw))
+
+
+@pytest.mark.parametrize("B", [2048, 136])
+def test_probe_v3_bench_step_matches_plain(cuda, B):
+    g = pka.geometry()
+    w, kw = pka.weights(g, "cuda"), pka.launch_kw(g, "cuda")
+    x, chunk, hist = pv3b.inputs(g, B=B, seed=18, device="cuda")
+    hist.random_(-32768, 32768)
+    assert torch.equal(pv3b.conv(x, w, **kw), pka.anatomy("full", x, w, **kw))
+    h, y = pv3b.step(hist, chunk, w, **kw)
+    h2, y2 = pv3b.step_reference(hist, chunk, w, **kw)
+    assert torch.equal(h, h2)
+    _compare(y.cpu().numpy(), y2.cpu().numpy(), "highest")
+    # the step captured in a CUDA graph gives the eager step's bits
+    out = {}
+
+    def fn():
+        out["h"], out["y"] = pv3b.step(hist, chunk, w, **kw)
+    pv3b.graph_ms(fn, reps=2)
+    torch.cuda.synchronize()
+    assert torch.equal(out["h"], h) and torch.equal(out["y"], y)

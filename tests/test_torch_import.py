@@ -81,3 +81,27 @@ def test_functional_and_port_examples_load_no_jax_or_triton():
         text = p.read_text()
         assert "import jax" not in text and "speex_resampler_tpu." not in \
             text.replace("speex_resampler_tpu_torch", ""), p.name
+
+
+def test_last_probe_modules_load_no_jax_or_triton():
+    """The probes P9-P12 (``probes/v5_int8_bench.py``, ``v4_k_layout.py``,
+    ``batched_dot.py``, ``v3_bench.py``) and the tool that runs them load
+    neither jax, triton, ``experiments/`` nor the JAX package, and build
+    nothing at import."""
+    code = (
+        "import sys, importlib\n"
+        "for m in ('v5_int8_bench', 'v4_k_layout', 'batched_dot',\n"
+        "          'v3_bench'):\n"
+        "    importlib.import_module('speex_resampler_tpu_torch.probes.' + m)\n"
+        "sys.argv = ['tc_probes.py']\n"
+        "import tools.tc_probes as t\n"
+        "assert {'v5', 'klayout', 'batched', 'v3step'} <= set(t.PARTS)\n"
+        "import speex_resampler_tpu_torch.ops._build as b\n"
+        "assert b._probe_lib is None and b._lib is None\n"
+        "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"
+        " if m in sys.modules or any(k.startswith('experiment')"
+        " for k in sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout

@@ -482,7 +482,7 @@ def test_probe_modules_and_tool_load_no_jax_or_triton():
         "sys.argv = ['tc_probes.py']\n"
         "import tools.tc_probes as t\n"
         "assert t.PARTS == ('rate', 'shape', 'v4', 'fixed', 'v3', 'intdot',"
-        " 'anatomy', 'prec')\n"
+        " 'anatomy', 'prec', 'v5', 'klayout', 'batched', 'v3step')\n"
         "import speex_resampler_tpu_torch.ops._build as b\n"
         "assert b._probe_lib is None and b._lib is None\n"
         "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"

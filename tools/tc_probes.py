@@ -1,7 +1,8 @@
 """Runs the tensor-core probes on the card and writes their results.
 
     python3 tools/tc_probes.py [--out build/torch_probes]
-        [--only rate,shape,v4,fixed,v3,intdot,anatomy,prec]
+        [--only rate,shape,v4,fixed,v3,intdot,anatomy,prec,v5,klayout,
+                batched,v3step]
 
 The Hopper counterparts of the TPU measurement probes that bound the
 served kernels (``speex_resampler_tpu_torch.probes``), each kernel held
@@ -34,7 +35,21 @@ against its plain version first (a mismatch raises):
   block's full, nodot, noslice and nocvt -> ``kernel_anatomy.json``;
 - ``prec`` (``experiments/prec_bench.py``): each precision's max |d| and
   mismatch rate against the float64 gold (kernel and plain version) and
-  ms a launch -> ``prec_bench.json``.
+  ms a launch -> ``prec_bench.json``;
+- ``v5`` (``experiments/v5_int8_bench.py``): ms a flagship launch without
+  the halo of the int8 and split5 schemes (the served bodies), each one's
+  max |d| and tie rate against the float64 gold on lane 0 ->
+  ``v5_int8_bench.json``;
+- ``klayout`` (``experiments/v4_k_layout.py``): µs a [128, K] . [K, 1024]
+  x 16 body at K 512, 448 and 440, W as [R, K] and [K, R], from the slope
+  between 512 and 8192 iterations, and each launch's intercept ->
+  ``v4_k_layout.json``;
+- ``batched`` (``experiments/batched_dot.py``): ms a flagship launch with
+  its history of the m-loop (lane tiles 128 and 64) and of the batched
+  form, its pre-pass alone -> ``batched_dot.json``;
+- ``v3step`` (``experiments/v3_bench.py``): ms of conv_v3 (P6's full), of
+  its concat step eager and in a CUDA graph, and of the served highest
+  step both ways -> ``v3_bench.json``.
 
 Every file carries the card's name and power limit (``nvidia-smi``).  The
 served kernels' times come from ``chip_smoke.py``'s launches (B = 2048,
@@ -62,11 +77,13 @@ import chip_smoke as cs  # noqa: E402
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 from speex_resampler_tpu_torch.probes import (  # noqa: E402
-    fixed_interp_anatomy as fa, kernel_anatomy, mosaic_int_dot_bench,
-    mxu_peak, mxu_shape_probe, prec_bench, v3_overhead_anatomy,
-    v4_overhead_anatomy as v4)
+    batched_dot, fixed_interp_anatomy as fa, kernel_anatomy,
+    mosaic_int_dot_bench, mxu_peak, mxu_shape_probe, prec_bench, v3_bench,
+    v3_overhead_anatomy, v4_k_layout, v4_overhead_anatomy as v4,
+    v5_int8_bench)
 
-PARTS = ("rate", "shape", "v4", "fixed", "v3", "intdot", "anatomy", "prec")
+PARTS = ("rate", "shape", "v4", "fixed", "v3", "intdot", "anatomy", "prec",
+         "v5", "klayout", "batched", "v3step")
 
 
 def served_per_block(path, lanes: int) -> dict:
@@ -114,7 +131,7 @@ def main() -> None:
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
     t0 = time.time()
-    served = {"v4", "fixed", "v3"} & set(parts)
+    served = {"v4", "fixed", "v3", "v3step"} & set(parts)
     errors: list = []
     fir = threading.Thread(target=lambda: _guard(_build.load, errors))
     if served:
@@ -158,7 +175,11 @@ def main() -> None:
             ("v3", v3_overhead_anatomy, "v3_overhead_anatomy.json"),
             ("intdot", mosaic_int_dot_bench, "mosaic_int_dot_bench.json"),
             ("anatomy", kernel_anatomy, "kernel_anatomy.json"),
-            ("prec", prec_bench, "prec_bench.json")):
+            ("prec", prec_bench, "prec_bench.json"),
+            ("v5", v5_int8_bench, "v5_int8_bench.json"),
+            ("klayout", v4_k_layout, "v4_k_layout.json"),
+            ("batched", batched_dot, "batched_dot.json"),
+            ("v3step", v3_bench, "v3_bench.json")):
         if part in parts:
             write(out, name, smi, module.run())
     print(f"tc_probes {parts}: {time.time() - t0:.1f} s")
