@@ -13,10 +13,10 @@ nvcc per source, in parallel) and drives the serving paths of
   the kernels' "fixed" scheme with 4 accumulator column sets), and
   24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set);
 - the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
-  the dense geometry (``csrc/dense_fir.cu``), and its fixed twin (plain
-  torch on the card, no kernel);
+  the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
+  tensor-core kernel);
 - clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
-  fixed (plain torch on the card, no kernel);
+  fixed (``csrc/gather_fir.cu``);
 - 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
   split5 scheme); the f32 kernel is checked and timed at the same launch;
 - the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
@@ -29,7 +29,8 @@ nvcc per source, in parallel) and drives the serving paths of
   against the host route (the native loops, bit-identical to the
   reference float build) within 1 LSB under the tie bound; the default
   route's native loops; 16- and 64-channel cores (``auto`` takes the
-  device route); the gather route (44.1 kHz -> 44.101 kHz); the fixed
+  device route); the gather route (44.1 kHz -> 44.101 kHz, the gather
+  kernel, its launches counted); the fixed
   universe bit-exact against ``device="cpu"``; one core with TF32 switched
   on around it; then process_chunk out samples/s, host against device
   route, at 2, 8, 16 and 64 channels;
@@ -50,10 +51,11 @@ nvcc per source, in parallel) and drives the serving paths of
   step, one kernel launch a quantum; the step plus a feature stage
   (256-frame window energies) captured in one CUDA graph and replayed
   over four quanta, bit for bit against the eager stage, the kernel count
-  moving once, at capture; the voip dense steps (float: the dense
-  kernel; fixed: plain torch) and the drift gather steps through
-  ``make_stream_fn`` (plain torch) captured in a CUDA graph too, bit for
-  bit against eager; ``resample_array`` on 10 s of stereo PCM, the
+  moving once, at capture; the voip dense steps (float and fixed) and
+  the drift gather steps through ``make_stream_fn`` (float and fixed)
+  captured in a CUDA graph too, one kernel launch each, bit for bit
+  against eager and, at lanes 0-7 and 2047, against ``device="cpu"``
+  (float: within the tie bound); ``resample_array`` on 10 s of stereo PCM, the
   card against ``device="cpu"`` (float and fixed: bit-identical); a
   two-shard mesh on one card (``mesh=["cuda:0"] * 2``) and a mesh of every
   visible card against the unmeshed engine through process / flush /
@@ -69,11 +71,10 @@ direct filter's weights; highest and split5: the mismatch rate beside the
 tie bound), serves the path through
 ``process``/``flush``/``process`` with the launch counts set to 0 just
 before and read just after (every kernel of the path must have launched,
-once per engine launch; a plain-torch path launches none and keeps its
-step's tensors on the card), checks streams 0-3 against a CPU engine, then
-times kernel, plain version and, where one exists, the one PyTorch call
-that computes the same product (plain-torch paths: the step, by the host
-clock), and prints split5's time over highest's where both are timed.
+once per engine launch, and the step's tensors lie on the card), checks
+streams 0-3 against a CPU engine, then times kernel, plain version and,
+where one exists, the one PyTorch call that computes the same product,
+and prints split5's time over highest's where both are timed.
 The fleet phase pushes two quanta and a ragged remainder per stream (odd
 streams as bytes cut at odd offsets), polls, flushes and pulls every
 stream; it requires the native stager, pinned slabs, no degradation and
@@ -160,6 +161,8 @@ from speex_resampler_tpu_torch.ops import dense_fir as df
 from speex_resampler_tpu_torch.ops import filter_design as fd
 from speex_resampler_tpu_torch.ops import fir_exact
 from speex_resampler_tpu_torch.ops import fir_matmul as fm
+from speex_resampler_tpu_torch.ops.fixed_math import (fixed_interp_mix_rows,
+                                                    sat32pshr15)
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
@@ -182,7 +185,7 @@ LANES = STREAMS * CHANNELS
 
 
 #: every kernel module, by the geometry it launches
-MODULES = {"tiled": tf, "streamed": sf, "dense": df}
+MODULES = {"tiled": tf, "streamed": sf, "dense": df, "gather": fm}
 
 
 def reset_launches() -> None:
@@ -198,9 +201,8 @@ def launch_counts() -> dict:
 
 
 class Path:
-    """One serving path: its config, its kernel module (None for a path
-    that runs plain torch on the card) and its schedule (ragged process()
-    calls, flush, one more process() call)."""
+    """One serving path: its config, its kernel module and its schedule
+    (ragged process() calls, flush, one more process() call)."""
 
     def __init__(self, name, rates, reduced, quality, target, frames, after,
                  module, source, replaces, kernel, fixed=False,
@@ -238,20 +240,45 @@ class Path:
                                 max_latency_ms=self.max_latency_ms)
 
 
+def kernel_call(hist, x, step, reference: bool = False):
+    """A function that runs the step's kernel (or, with ``reference``, its
+    plain PyTorch version) on one launch's buffers, as the step launches
+    it (a gather reads hist and x as [B, rows] views)."""
+    fixed = step.scheme == "fixed"
+    if step.kernel == "gather":
+        fn = fm.resample_gather_fixed if fixed else fm.resample_gather
+        kw = dict(step.kernel_kw, hist=hist.t())
+        X = x[:step.chunk_rows].t()
+        if reference:      # the wrapper's plain version, on the card
+            fn = (fm.resample_gather_fixed_reference if fixed
+                  else fm.resample_gather_reference)
+            kw, X = {}, torch.cat([hist, x[:step.chunk_rows]]).t()
+        return lambda: fn(X, *step.w, **kw)
+    fn = {"tiled": (tf.resample_tiled, tf.resample_tiled_reference),
+          "streamed": (sf.resample_streamed, sf.resample_streamed_reference),
+          "dense": ((df.resample_dense_fixed,
+                     df.resample_dense_fixed_reference) if fixed else
+                    (df.resample_dense, df.resample_dense_reference))
+          }[step.kernel][reference]
+    return lambda: fn(hist, x, step.w, **step.kernel_kw)
+
+
 def launch(hist, x, step):
-    """The step's kernel (tiled, streamed or dense) on one launch's
-    buffers."""
-    fn = {"tiled": tf.resample_tiled, "streamed": sf.resample_streamed,
-          "dense": df.resample_dense}[step.kernel]
-    return fn(hist, x, step.w, **step.kernel_kw)
+    """The step's kernel on one launch's buffers."""
+    return kernel_call(hist, x, step)()
 
 
 def plain(hist, x, step):
     """The step kernel's plain PyTorch version on the same buffers."""
-    fn = {"tiled": tf.resample_tiled_reference,
-          "streamed": sf.resample_streamed_reference,
-          "dense": df.resample_dense_reference}[step.kernel]
-    return fn(hist, x, step.w, **step.kernel_kw)
+    return kernel_call(hist, x, step, reference=True)()
+
+
+def n_accum_of(step) -> int:
+    """The fixed kernels' accumulator count of a step: its weight column
+    sets, or a gather's tap rows an output."""
+    if step.kernel == "gather":
+        return step.w[0].shape[1] if step.w[0].ndim == 3 else 1
+    return step.kernel_kw.get("n_accum", 1)
 
 
 def kernel_name(kernel: str, scheme: str, n_accum: int = 1) -> str:
@@ -298,17 +325,24 @@ VOIP = Path("dense voip 44.1k->48k q3 20 ms", (44100, 48000), (147, 160), 3,
             "speex_resampler_tpu_torch/csrc/dense_fir.cu",
             "speex_resampler_tpu/ops/pallas_fir.py:198", "dense",
             max_latency_ms=20)
+# the JAX package runs the fixed dense and the gather launches as XLA
+# programs outside Pallas (speex_resampler_tpu/ops/fir_matmul.py)
 VOIP_FIXED = Path("dense fixed voip 44.1k->48k q3 20 ms", (44100, 48000),
-                  (147, 160), 3, 882, (2000, 1500, 700), (1764,), None,
-                  None, None, "dense", fixed=True, max_latency_ms=20)
+                  (147, 160), 3, 882, (2000, 1500, 700), (1764,), df,
+                  "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+                  "speex_resampler_tpu/ops/fir_matmul.py:224", "dense",
+                  fixed=True, max_latency_ms=20)
 # clock drift: one 44100-frame block per launch; 90000 frames = 2
 # launches + 1800 staged
 DRIFT = Path("gather 44.1k->44.101k q7", (44100, 44101), (44100, 44101), 7,
-             44100, (30000, 20000, 40000), (44100,), None, None, None,
-             "gather")
+             44100, (30000, 20000, 40000), (44100,), fm,
+             "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+             "speex_resampler_tpu/ops/fir_matmul.py:120", "gather")
 DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
                    (44100, 44101), 7, 44100, (30000, 20000, 40000), (44100,),
-                   None, None, None, "gather", fixed=True)
+                   fm, "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+                   "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
+                   fixed=True)
 # 12:1 decimation at q10, where "auto" resolves split5 (filt_len 3072, K
 # 4600, P 1); 30720-frame quanta: 73000 frames = 2 launches + 11560 staged
 DECIMATE = Path("tiled 96k->8k q10", (96000, 8000), (12, 1), 10, 30720,
@@ -426,35 +460,50 @@ def launch_bound(spec, step, bspec, B: int):
     """(bound_ms, bound_by, bytes, operations, needed multiply-adds, band
     multiply-adds) of one launch.  The bound counts the work the function
     needs, not the work the kernel's tiling walks: filt_len multiply-adds
-    per output sample (times n_accum, the weight column sets, for
-    "fixed"); the input rows the outputs' windows span (each output j reads
-    filt_len rows of hist ++ x from (f0 + j*num) // den + H - (filt_len -
-    1); dense steps: H = filt_len - 1, shift 0); the nonzero weights once
-    ("int8": D digit bytes each, and the bias; "fixed": 2 bytes each, and
-    the int32 cubic coefficients; "split5": 2 bytes per nonzero entry of
-    each bf16 plane); y.  It is the larger of the bytes over HBM and the
-    operations over the peak of their type (f32 FMA = 2 FLOP on the CUDA
-    cores for "highest"; for "int8", 2*D int8 products per multiply-add, an
-    int16 sample being two int8 digits; for "fixed", an int16 x int16
-    multiply-add is 4 int8 products, 8 operations; both on the int8 tensor
-    cores; for "split5", 5 bf16 products, 10 FLOP, on the bf16 tensor
-    cores).  The band multiply-adds, returned beside it, are those the
-    kernel walks: each row tile's nonzero tap band (64 rows; "fixed": the
-    fixed CTA's ``tiled_fir.FIXED_ROWS``; times n_accum), K_pad padding
-    skipped; for "highest", each 16-row sub-band's 8-tap slices
-    (``tiled_fir.f32_walk``; the dense kernel's too)."""
+    per output sample (times n_accum, the weight column sets or tap rows,
+    for "fixed"); the input rows the outputs' windows span (each output j
+    reads filt_len rows of hist ++ x from (f0 + j*num) // den + H -
+    (filt_len - 1); dense and gather steps: H = filt_len - 1, shift 0); the
+    nonzero weights once ("int8": D digit bytes each, and the bias;
+    "fixed": 2 bytes each, and the int32 cubic coefficients; "split5": 2
+    bytes per nonzero entry of each bf16 plane; gather: every output's tap
+    row, f32 or int16, and the coefficients); y.  It is the larger of the
+    bytes over HBM and the operations over the peak of their type (f32 FMA
+    = 2 FLOP on the CUDA cores for "highest", the float gather's too; for
+    "int8", 2*D int8 products per multiply-add, an int16 sample being two
+    int8 digits; for "fixed", an int16 x int16 multiply-add is 4 int8
+    products, 8 operations; both on the int8 tensor cores; for "split5", 5
+    bf16 products, 10 FLOP, on the bf16 tensor cores).  The band
+    multiply-adds, returned beside it, are those the kernel walks: each
+    row tile's nonzero tap band (64 rows; "fixed": the fixed CTA's
+    ``tiled_fir.FIXED_ROWS``; times n_accum), K_pad padding skipped; for
+    "highest", each 16-row sub-band's 8-tap slices (``tiled_fir.f32_walk``;
+    the dense kernel's too); for a gather, the row loop's (row, output)
+    slots: each warp's start spread + filt_len rows for each of its
+    outputs (``csrc/gather_fir.cu``)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
-    n_accum = step.kernel_kw.get("n_accum", 1)
+    fixed = step.scheme == "fixed"
+    n_accum = n_accum_of(step)
     macs = n_out * N * B * n_accum
     shift = step.hist_rows - (N - 1)
     first = bspec.f0 // spec.den + shift
     last = (bspec.f0 + (n_out - 1) * spec.num) // spec.den + shift + N
-    if step.scheme == "int8":
+    if step.kernel == "gather":
+        starts = step.w[1].cpu().numpy().astype(np.int64)
+        first, last = starts[0], starts[-1] + N
+        w_bytes = sum(t.numel() * t.element_size() for t in step.w
+                      if t is not step.w[1])
+        ops = (8 if fixed else 2) * macs
+    elif step.kernel == "dense" and fixed:   # the int16 taps [L_pad, C]
+        w_bytes = (int((step.w.w16 != 0).sum()) * 2
+                   + (step.w.coef.numel() * 4 if n_accum == 4 else 0))
+        ops = 8 * macs
+    elif step.scheme == "int8":
         D = step.w[0].shape[0]
         w_bytes = (int((step.w[0] != 0).any(0).sum()) * D
                    + step.w[1].numel() * 4)
         ops = 2 * (2 * D) * macs
-    elif step.scheme == "fixed":                  # planes [2, P, C, K_pad]
+    elif fixed:                                   # planes [2, P, C, K_pad]
         w_bytes = (int((step.w[0] != 0).any(0).sum()) * 2
                    + (step.w[2].numel() * 4 if n_accum == 4 else 0))
         ops = 8 * macs
@@ -465,18 +514,25 @@ def launch_bound(spec, step, bspec, B: int):
         w_bytes = int((step.w[0] != 0).sum()) * 4
         ops = 2 * macs
     nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
-    taps = step.w[-1].cpu().numpy()
-    if step.scheme == "highest":
-        band, rows = tf.f32_walk(taps), tf.SUB_ROWS       # [P, sub-bands]
+    if step.kernel == "gather":
+        kO = step.kernel_kw["plan"].outputs // 8
+        lo = np.arange(0, n_out, kO)
+        spread = starts[np.minimum(lo + kO, n_out) - 1] - starts[lo]
+        band_macs = int(((spread + N) * kO).sum()) * B * n_accum
     else:
-        band = (taps[..., 1] - taps[..., 0]).astype(np.int64)  # [P, tiles]
-        rows = bspec.R // taps.shape[1]
-    k = np.arange(bspec.n_blocks)
-    band_macs = (int(band[k % max(bspec.P, 1)].sum()) * rows * B
-                 * n_accum)
+        taps = step.w[-1].cpu().numpy()
+        if step.scheme == "highest":
+            band, rows = tf.f32_walk(taps), tf.SUB_ROWS   # [P, sub-bands]
+        else:
+            band = (taps[..., 1] - taps[..., 0]).astype(np.int64)
+            rows = (tf.FIXED_ROWS[n_accum] if fixed
+                    else bspec.R // taps.shape[1])
+        k = np.arange(bspec.n_blocks)
+        band_macs = (int(band[k % max(bspec.P, 1)].sum()) * rows * B
+                     * n_accum)
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    peak = {"highest": FP32_FLOPS, "split5": BF16_FLOPS}.get(step.scheme,
-                                                             INT8_OPS)
+    peak = (FP32_FLOPS if step.scheme == "highest" else
+            BF16_FLOPS if step.scheme == "split5" else INT8_OPS)
     t_ops = ops / peak * 1e3
     by = "bytes" if t_bytes >= t_ops else "operations"
     return max(t_bytes, t_ops), by, nbytes, ops, macs, band_macs
@@ -486,8 +542,18 @@ def library_call(step, bspec, hist, x, reps: int):
     """One torch.bmm (TF32 off) of the block weights against the patches,
     both gathered outside the timed region: the product only, no WORD2INT
     (dense: one torch.matmul of W^T, its R columns, against every block's
-    patch).  Returned as a function, the yardstick of the "highest" and
-    "split5" kernels; the port never calls it.
+    patch; fixed dense: the same in float64, the exact int16 dots of the
+    plain version; gather: one torch.sparse.mm of the banded tap matrix,
+    CSR, row o holding taps[o] at columns starts[o] .. starts[o] + N - 1,
+    against hist ++ x, in f32 for the float gather, in float64 for the
+    fixed one, whose four accumulator rows an output are four band rows
+    and whose int16 dots are then exact).  Returned as a function, the
+    yardstick of the "highest", "split5", fixed dense and gather kernels;
+    the port never calls it.  None where no one PyTorch call computes the
+    product: the exact int8 digit sums and the tiled and streamed "fixed"
+    sums.  The gathers' products are held against the plain version (the
+    fixed one bit for bit after the wrap and the Q15 epilogue, the float
+    one's WORD2INT within 1 LSB).
 
     split5: the three bf16 planes and the two bf16 parts of x concatenated
     along K as [w_hi, w_hi, w_mid, w_mid, w_lo] . [x_hi, x_lo, x_hi, x_lo,
@@ -495,14 +561,21 @@ def library_call(step, bspec, hist, x, reps: int):
     a bf16 bmm with an f32 ``out_dtype`` (tensor cores), returned, and an
     f32 bmm of the same operands, timed and printed.  Its WORD2INT is held
     against the plain version (max |err| <= 1)."""
+    fixed = step.scheme == "fixed"
+    if step.kernel == "gather":
+        return gather_library_call(step, hist, x)
+    if step.scheme == "int8" or (fixed and step.kernel != "dense"):
+        return None
     if step.kernel == "dense":
-        wt = step.w[0][:, :step.kernel_kw["R"]].t().contiguous()
+        dtype = torch.float64 if fixed else torch.float32
+        w = step.w.w16 if fixed else step.w[0][:, :step.kernel_kw["R"]]
+        wt = w.t().to(dtype).contiguous()
         L, stride = wt.shape[1], step.kernel_kw["stride"]
         rows = (bspec.n_blocks + L // stride) * stride
         virt = torch.cat([hist, x, x.new_zeros((rows, x.shape[1]))])[:rows]
-        patch = fm.dense_patches(virt, L, stride).float().contiguous()
+        patch = fm.dense_patches(virt, L, stride).to(dtype).contiguous()
         out = torch.empty((bspec.n_blocks, wt.shape[0], x.shape[1]),
-                          dtype=torch.float32, device="cuda")
+                          dtype=dtype, device="cuda")
         return lambda: torch.matmul(wt, patch, out=out)
     w = step.w[0]
     K = w.shape[-2]
@@ -538,21 +611,59 @@ def library_call(step, bspec, hist, x, reps: int):
     return lambda: torch.bmm(wt, xk, out_dtype=torch.float32)
 
 
+def gather_library_call(step, hist, x):
+    """:func:`library_call`'s gather: the CSR band and hist ++ x built
+    here, the product checked against the plain version here."""
+    fixed = step.scheme == "fixed"
+    taps, starts = step.w[0], step.w[1]
+    N, n_out = taps.shape[-1], starts.numel()
+    rows = taps.numel() // N                    # n_out, or 4 n_out
+    virt = torch.cat([hist, x[:step.chunk_rows]])           # [T, B]
+    dtype = torch.float64 if fixed else torch.float32
+    cols = (starts.repeat_interleave(rows // n_out)[:, None]
+            + torch.arange(N, device="cuda", dtype=torch.int32))
+    band = torch.sparse_csr_tensor(
+        torch.arange(rows + 1, device="cuda", dtype=torch.int32) * N,
+        cols.reshape(-1), taps.reshape(-1).to(dtype),
+        size=(rows, virt.shape[0]), check_invariants=True)
+    X = virt.to(dtype)
+    del cols, virt
+    y = torch.sparse.mm(band, X)                            # [rows, B]
+    if fixed:
+        acc = tf.wrap_int32(y).view(n_out, rows // n_out, -1)
+        got = (sat32pshr15(acc[:, 0]) if rows == n_out else
+               fixed_interp_mix_rows(acc[:, :, None, :],
+                                     step.w[2][:, :, None])[:, 0])
+    else:
+        got = word2int(y)
+    d = (got.t().int() - plain(hist, x, step).int()).abs()
+    err, mism = int(d.max()), int((d > 0).sum())
+    print(f"library {'fixed ' if fixed else ''}gather: torch.sparse.mm of "
+          f"the CSR band ({band.values().numel()} taps, {dtype}) vs plain "
+          f"max|err|={err} mismatches={mism} of {d.numel()}")
+    del y, got, d
+    if err > (0 if fixed else 1):
+        raise AssertionError(f"gather library sparse.mm: max|err| {err}")
+    return lambda: torch.sparse.mm(band, X)
+
+
 def kernel_of(symbol: str) -> str:
-    """A kernel's name (with its int and bool template arguments) from its
-    mangled symbol, else the symbol."""
-    m = re.search(r"\d+((?:tiled|streamed|dense)_fir_\w+?_kernel|"
+    """A kernel's name (with its type, int and bool template arguments)
+    from its mangled symbol, else the symbol."""
+    m = re.search(r"\d+((?:tiled|streamed|dense|gather)_fir_\w+?_kernel|"
                   r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum|"
                   r"v3_anatomy|v3_split|f32_anatomy|prec_tc|"
                   r"prec_f32|v5_int8|v5_split5|batched_mloop|"
                   r"batched_patch|batched_product)_kernel)"
-                  r"(I((?:L[ib]\d+E)+)E)?", symbol)
+                  r"(I((?:[sf]|L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
     if not m.group(2):
         return m.group(1)
-    args = [v if t == "i" else ("true" if v == "1" else "false")
-            for t, v in re.findall(r"L([ib])(\d+)E", m.group(3))]
+    args = [{"s": "short", "f": "float"}[ty] if ty
+            else v if t == "i" else ("true" if v == "1" else "false")
+            for ty, t, v in re.findall(r"([sf])|L([ib])(\d+)E",
+                                       m.group(3))]
     return f"{m.group(1)}<{', '.join(args)}>"
 
 
@@ -582,10 +693,10 @@ def ptxas_report() -> None:
 
 
 def gmma_counts(lib) -> dict:
-    """{(kernel, "IGMMA" | "HGMMA" | "FFMA" | "FADD"): wgmma, f32 FMA and
-    f32 add instructions} in a built library's SASS (``cuobjdump -sass``,
-    which ships with the CUDA toolkit beside nvcc); raises if the tool is
-    missing or fails."""
+    """{(kernel, "IGMMA" | "HGMMA" | "FFMA" | "FADD" | "DFMA"): wgmma, f32
+    FMA, f32 add and f64 FMA instructions} in a built library's SASS
+    (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
+    raises if the tool is missing or fails."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         raise AssertionError("SASS check: cuobjdump not found")
@@ -603,7 +714,7 @@ def gmma_counts(lib) -> dict:
             op = "IGMMA" if "IGMMA" in line else "HGMMA"
             counts[(name, op)] = counts.get((name, op), 0) + 1
         elif name:
-            f = re.search(r"\b(FFMA|FADD)\b", line)
+            f = re.search(r"\b(FFMA|FADD|DFMA)\b", line)
             if f:
                 key = (name, f.group(1))
                 counts[key] = counts.get(key, 0) + 1
@@ -613,7 +724,8 @@ def gmma_counts(lib) -> dict:
 def sass_check() -> None:
     """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
     int8 and fixed (IGMMA) kernel in the built library's SASS
-    (:func:`gmma_counts`); raises if one of them has none."""
+    (:func:`gmma_counts`), and the f64 FMAs of the float gather kernels
+    (their dots are double FMA chains); raises if one of them has none."""
     counts = gmma_counts(_build.lib_path())
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
@@ -623,11 +735,14 @@ def sass_check() -> None:
                           ("tiled_fir_int8_long_kernel", ""),
                           ("streamed_fir_int8_kernel", ""))] + [
         (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
-        for geo in ("tiled", "streamed") for n in (1, 4)]
+        for geo in ("tiled", "streamed", "dense") for n in (1, 4)] + [
+        (f"gather_fir_f32_kernel<{t}, {k}>", "DFMA")
+        for t in ("short", "float") for k in (1, 2, 4, 8)]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit 0): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
-        raise AssertionError("a tensor-core kernel has no wgmma instruction")
+        raise AssertionError("a tensor-core kernel has no wgmma instruction "
+                             "or a float gather kernel no DFMA")
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
@@ -648,7 +763,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
             if step.kernel != (kernel or path.kernel):
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
-            n_accum = step.kernel_kw.get("n_accum", 1)
+            n_accum = n_accum_of(step)
             for B in (LANES, 130) + {"highest": (129,), "int8": (129, 64),
                                      "fixed": (129, 64)}.get(step.scheme,
                                                              ()):
@@ -686,10 +801,10 @@ def serve_engine(path: Path, scheme: str, frames: list):
 def serve(path: Path, requests: dict, want_digits: int = 0):
     """The path end to end, one engine per requested scheme (``requests``:
     request -> the scheme it must resolve), launch counts set to 0 just
-    before and read just after; streams 0-3 against a CPU engine.  A path
-    without a kernel module (plain torch on the card) must launch no
-    kernel and hold its step's tensors on the card.  Returns (counts,
-    engines by resolved scheme, frames)."""
+    before and read just after (the path's kernel once per engine launch,
+    no other module's kernel), its step's tensors on the card; streams 0-3
+    against a CPU engine.  Returns (counts, engines by resolved scheme,
+    frames)."""
     rng = np.random.default_rng(2024)
     frames = [rng.integers(-32768, 32768, (STREAMS, n, CHANNELS),
                            dtype=np.int16)
@@ -704,13 +819,13 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
             raise AssertionError(f"{path.name}: {request} built "
                                  f"{eng._step.kernel}/{eng._step.scheme}")
         engines[scheme] = eng
-    counts = dict(path.module.launches) if path.module else {}
+    counts = dict(path.module.launches)
     for kind, module in MODULES.items():
         if module is not path.module and any(module.launches.values()):
             raise AssertionError(f"{path.name} launched {module.launches} "
                                  f"of the {kind} geometry's kernels")
-    if path.module is None and not all(
-            t.is_cuda for e in engines.values() for t in e._step.w):
+    if not all(t.is_cuda for e in engines.values() for t in e._step.w
+               if isinstance(t, torch.Tensor)):
         raise AssertionError(f"{path.name}: step tensors off the card")
     if "int8" in engines and engines["int8"]._step.w[0].shape[0] \
             != want_digits:
@@ -719,7 +834,7 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
     n = len(path.frames)
     launched = {s: e.launches for s, e in engines.items()}
     if any(counts[s] != launched.get(s, 0) for s in counts) \
-            or (path.module and not counts) or min(launched.values()) < n:
+            or not any(counts.values()) or min(launched.values()) < n:
         raise AssertionError(f"kernel launches {counts} vs engines "
                              f"{launched}")
     for request, scheme in requests.items():
@@ -747,20 +862,22 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
 
 def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
     """Kernel, plain and library times of one launch at B = 2048 (library:
-    the highest and split5 schemes' bmm; no PyTorch call computes the exact
-    int8 digit sums or the wrapped int32 sums of "fixed"); kernel and
-    library also from a CUDA graph of ``reps`` launches, the kernel also
-    one launch at a time (:func:`cuda_ms`).  Returns the JSON entry's
+    :func:`library_call`, where one PyTorch call computes the product);
+    kernel and library also from a CUDA graph of ``reps`` launches, the
+    kernel also one launch at a time (:func:`cuda_ms`); the plain gathers,
+    ~0.1-0.3 s a launch, in groups of 2.  Returns the JSON entry's
     numbers."""
     out_samples = bspec.out_per_launch * LANES
     hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
-    ms = cuda_ms(lambda: launch(hist, x, step), reps)
-    graph_ms = cuda_ms(lambda: launch(hist, x, step), reps, mode="graph")
-    host_ms = cuda_ms(lambda: launch(hist, x, step), reps, mode="host")
-    plain_ms = cuda_ms(lambda: plain(hist, x, step), reps)
+    run = kernel_call(hist, x, step)
+    ms = cuda_ms(run, reps)
+    graph_ms = cuda_ms(run, reps, mode="graph")
+    host_ms = cuda_ms(run, reps, mode="host")
+    plain_ms = cuda_ms(kernel_call(hist, x, step, reference=True),
+                       2 if step.kernel == "gather" else reps)
     library_ms = library_graph_ms = None
-    if step.scheme in ("highest", "split5"):
-        lib_fn = library_call(step, bspec, hist, x, reps)
+    lib_fn = library_call(step, bspec, hist, x, reps)
+    if lib_fn is not None:
         library_ms = cuda_ms(lib_fn, reps)
         library_graph_ms = cuda_ms(lib_fn, reps, mode="graph")
         del lib_fn
@@ -791,15 +908,14 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
     """Kernel, plain and library times at the path's steady-state launch
     (B = 2048), and one steady-state process() call of one quantum.  The
     ``unlisted`` schemes are timed and printed but not listed (another
-    path's entry lists their kernel).  A path without a kernel times its
-    plain-torch step by the host clock."""
+    path's entry lists their kernel)."""
     bspec = path.geometry()
     out_samples = bspec.out_per_launch * LANES
     entries, ms = [], {}
-    for scheme in (schemes + unlisted) if path.module else ():
+    for scheme in schemes + unlisted:
         step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                     scheme=scheme)
-        key = (step.kernel, step.scheme, step.kernel_kw.get("n_accum", 1))
+        key = (step.kernel, step.scheme, n_accum_of(step))
         D = step.w[0].shape[0] if step.scheme == "int8" else 0
         nums = time_launch(f"{path.name} {scheme:7s} ({kernel_name(*key)} "
                            f"D={D})", path.spec, step, bspec, smi, reps)
@@ -816,22 +932,6 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
         print(f"split5 / highest at {path.name} on {smi}: "
               f"{ms['split5']:.4f} / {ms['highest']:.4f} ms = "
               f"{ms['split5'] / ms['highest']:.3f}")
-    if path.module is None:
-        step = next(iter(engines.values()))._step
-        hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7,
-                              wrap=path.fixed)
-        walls = []
-        for _ in range(6):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            step.fn(hist, x, step.w)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        wall = float(np.median(walls[1:])) * 1e3
-        print(f"timing {path.name} {step.scheme} (plain torch on the card, "
-              f"no kernel) on {smi}: step {wall:.4f} ms/launch by the host "
-              f"clock ({out_samples / wall / 1e6:.2f} G out samples/s), "
-              f"median of 5 after one warm-up")
     quantum = frames[0][:, :bspec.in_per_launch]
     for scheme, eng in engines.items():
         eng.process(quantum)
@@ -1074,8 +1174,11 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
     the tie bound; the default route runs the native loops; 16- and
     64-channel cores (auto: the device route), the gather route, the
     fixed universe (bit-exact against device="cpu") and the TF32 guard.
-    Plain torch on the card: no kernel of MODULES launches."""
+    The matmul route is plain torch on the card; the gather route launches
+    the gather kernel (counted, at least once); no other kernel of MODULES
+    launches."""
     reset_launches()
+    gathers = 0
     for i, (c, ir, orr, q) in enumerate(SINGLE):
         pcm = stream_pcm(c, ir, 100 + i, seconds)
         for chunk in (0, SINGLE_CHUNK):
@@ -1113,6 +1216,7 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
         r = SpeexResampler(c, ir, orr, 7, engine=engine, device="cuda")
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = tf32
+        before = fm.launches["highest"]
         try:
             got = run_chunks(r, pcm, SINGLE_CHUNK)
             if torch.backends.cuda.matmul.allow_tf32 is not tf32:
@@ -1121,8 +1225,13 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
             torch.backends.cuda.matmul.allow_tf32 = prev
         check_device_core(r._core, f"{c}ch {ir}->{orr}")
         route = ("gather" if orr == 44101 else "matmul")
+        ran = fm.launches["highest"] - before
+        if (ran > 0) != (route == "gather"):
+            raise AssertionError(f"{route} route: {ran} gather launches")
+        gathers += ran
         what = (f"single {c}ch {ir}->{orr} q7 {engine} ({route}"
-                f"{', TF32 on around it' if tf32 else ''})")
+                f"{', TF32 on around it' if tf32 else ''}"
+                f"{f', {ran} gather kernel launches' if ran else ''})")
         print(f"{what}: device vs host route {lsb_check(got, host, what)}")
     pcm = stream_pcm(2, 44100, 5, seconds)
     fixed = [run_chunks(SpeexResampler(2, 44100, 48000, 7, fixed_point=True,
@@ -1132,9 +1241,10 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
         raise AssertionError("fixed universe: cuda and cpu differ")
     print(f"single fixed 2ch 44100->48000 q7: device='cuda' bit-identical "
           f"to device='cpu' ({len(fixed[0]) // 4} frames)")
-    if launch_counts():
+    if launch_counts() != {"gather": {"highest": gathers}}:
         raise AssertionError(f"single-stream layer launched kernels "
-                             f"{launch_counts()}")
+                             f"{launch_counts()}, {gathers} of them by the "
+                             f"gather route")
 
 
 def single_stream_time(smi: str, seconds: float = SINGLE_SECONDS) -> None:
@@ -1285,7 +1395,7 @@ def multifleet_check(fixed: bool, smi: str, per: int = STREAMS // 4,
     for cfg, b in mf._buckets.items():
         fleet, step = b.fleet, b.fleet._step
         key = (fleet.bspec.kernel, step.scheme,
-               step.kernel_kw.get("n_accum", 1))
+               n_accum_of(step))
         n = fleet.stats.launches
         if n <= 0:
             raise AssertionError(f"bucket {cfg}: no launch")
@@ -1441,28 +1551,57 @@ def graph_equals_eager(name: str, run, inputs: list) -> dict:
     return captured
 
 
-def capture_geometries() -> None:
+def capture_geometries() -> dict:
     """The steps make_stream_fn does not reach through the kernels of
-    FN_CASES, each captured in a CUDA graph at full width: the voip
-    dense steps (the K3 kernel; the fixed one plain torch) and the drift
-    gather steps (plain torch) through make_stream_fn."""
+    FN_CASES, each captured in a CUDA graph at full width: the voip dense
+    steps (float and fixed) and the drift gather steps through
+    make_stream_fn (float and fixed).  Each capture launches its kernel
+    once; the replays equal the eager step bit for bit, and the eager step
+    at lanes FN_LANES equals the same step on the CPU (fixed: bit for bit;
+    float: within the tie bound).  Returns {kernel: launches at capture}."""
+    captured = {}
+
+    def check(name, run, cpu_run, inputs, scheme, kind):
+        counts = graph_equals_eager(name, run, inputs)
+        want = {kind[0]: {scheme: 1}}
+        if counts != want:
+            raise AssertionError(f"{name}: capture launched {counts}, "
+                                 f"expected {want}")
+        for i, (h, x) in enumerate(inputs):
+            got = [t.cpu().numpy()[:, FN_LANES] for t in run(h, x)]
+            ref = [t.numpy() for t in cpu_run(h[:, FN_LANES].cpu(),
+                                              x[:, FN_LANES].cpu())]
+            if not np.array_equal(got[0], ref[0]):
+                raise AssertionError(f"{name}: history differs from cpu")
+            err, mism = compare(got[1], ref[1], scheme,
+                                f"{name} vs cpu, input {i}")
+            print(f"graph capture {name} input {i}: lanes {FN_LANES[:8]}.."
+                  f"{FN_LANES[-1]} vs device='cpu' max|err|={err} "
+                  f"mismatches={mism}")
+        key = kernel_name(kind[0], scheme, kind[1])
+        captured[key] = captured.get(key, 0) + 1
+
     for path in (VOIP, VOIP_FIXED):
         step = tb.make_batched_step(path.spec, path.geometry(),
                                     device="cuda")
+        cpu = tb.make_batched_step(path.spec, path.geometry(), device="cpu")
         inputs = [card_inputs(step, path.quantum(), LANES, seed=s,
                               wrap=path.fixed) for s in (1, 2)]
-        graph_equals_eager(f"{path.name} step",
-                           lambda h, x: step.fn(h, x, step.w), inputs)
+        check(f"{path.name} step", lambda h, x: step.fn(h, x, step.w),
+              lambda h, x: cpu.fn(h, x, cpu.w), inputs, step.scheme,
+              ("dense", n_accum_of(step)))
     for fixed in (False, True):
-        rs = make_stream_fn(44100, 44101, 7, target_in_frames=44100,
-                            fixed_point=fixed)
+        rs, cpu = (make_stream_fn(44100, 44101, 7, target_in_frames=44100,
+                                  fixed_point=fixed, device=d)
+                   for d in ("cuda", "cpu"))
         rng = np.random.default_rng(50 + fixed)
         inputs = [tuple(torch.from_numpy(rng.integers(
             -32768, 32768, (rows, LANES), dtype=np.int16)).cuda()
             for rows in (rs.hist_rows, rs.in_frames)) for _ in range(2)]
-        graph_equals_eager(f"gather{' fixed' if fixed else ''} "
-                           f"44.1k->44.101k q7 make_stream_fn step",
-                           rs.step, inputs)
+        check(f"gather{' fixed' if fixed else ''} 44.1k->44.101k q7 "
+              f"make_stream_fn step", rs.step, cpu.step, inputs, rs.scheme,
+              ("gather", 4 if fixed else 1))
+    return captured
 
 
 def functional_time(name: str, rs, smi: str) -> None:
@@ -2371,6 +2510,8 @@ def main() -> None:
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
         check_kernels(path, ("auto",), max_err)
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
+    for path in (VOIP_FIXED, DRIFT, DRIFT_FIXED):
+        check_kernels(path, ("auto",), max_err)
     print(f"kernels checked: {time.time() - t_start:.1f} s")
     marks["3 kernels checked"] = time.time() - t_start
 
@@ -2400,7 +2541,8 @@ def main() -> None:
             (FIXED_DIRECT, ("auto",), ()),
             (VOIP, ("auto",), ()),
             (DECIMATE, ("auto",), ("highest",)),
-            (VOIP_FIXED, (), ()), (DRIFT, (), ()), (DRIFT_FIXED, (), ())):
+            (VOIP_FIXED, ("auto",), ()), (DRIFT, ("auto",), ()),
+            (DRIFT_FIXED, ("auto",), ())):
         counts, engines, frames = served[path]
         kernels += time_path(path, schemes, smi, counts, max_err, engines,
                              frames, reps=20, unlisted=unlisted)
@@ -2442,7 +2584,7 @@ def main() -> None:
         rs, n = functional_check(name, rates, target, fixed, kind)
         fn_launches[kernel_name(*kind, 4 if fixed else 1)] = n
         functional_time(name, rs, smi)
-    capture_geometries()
+    fn_launches.update(capture_geometries())
     array_check()
     mesh_check(smi)
     for entry in kernels:

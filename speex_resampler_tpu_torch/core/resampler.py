@@ -142,11 +142,11 @@ class ResamplerCore:
                                  or (engine == "auto"
                                      and nb_channels
                                      <= HOST_AUTO_MAX_CHANNELS)))
-        # the device route runs plain torch (a matmul or the gather): no
-        # kernel library to build
+        # the device route's gather launches a kernel: a CUDA core builds
+        # the library here, so a build failure raises from the constructor
         self.device = (torch.device(device)
                        if self.fixed_point or self._host_route
-                       else _serving_device(device, kernels=False))
+                       else _serving_device(device))
         # RESAMPLE_FULL_SINC_TABLE compile-flag analog (resample.c:641-644)
         self.full_sinc_table = bool(full_sinc_table)
         self._mem_dtype = np.int16 if fixed_point else np.float32
@@ -694,8 +694,9 @@ class ResamplerCore:
         return y
 
     # ------------------------------------------------------------------
-    # Device route (plain torch on ``self.device``: the JAX package runs
-    # these as XLA ops, outside any Pallas kernel).
+    # Device route on ``self.device`` (the JAX package runs these as XLA
+    # ops, outside any Pallas kernel): the matmul is plain torch, the
+    # gather a kernel on the card (``fm.resample_gather``).
     # ------------------------------------------------------------------
 
     def _run_fir(self, X: np.ndarray, ls0: int, f0: int,
@@ -739,7 +740,10 @@ class ResamplerCore:
         taps = spec.phase_rows(p)  # [n_out, N] host gather (lazy: huge-den
         # specs compute just these rows, never the full [den, N] table)
         dev = self.device
+        plan = (fm.gather_plan(s, N, x_itemsize=X.dtype.itemsize)
+                if dev.type == "cuda" else None)
         y = fm.resample_gather(torch.from_numpy(X).to(dev),
                                torch.from_numpy(taps).to(dev),
-                               torch.from_numpy(s).to(dev), raw=out_float)
+                               torch.from_numpy(s).to(dev), raw=out_float,
+                               plan=plan)
         return to_host(y)

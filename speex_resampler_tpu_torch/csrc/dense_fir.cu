@@ -1,4 +1,5 @@
-// Dense padded-weight FIR launch for Hopper (sm_90a), scheme "highest".
+// Dense padded-weight FIR launch for Hopper (sm_90a), schemes "highest" and
+// "fixed" (below).
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas /
 // _kernel (K3), the TPU kernel of the dense geometry: launch quanta below
@@ -45,7 +46,23 @@
 // first dense kernel (0.160 ms).  A configuration whose latency cap sends
 // launches of that size to the dense geometry would take its CTA width
 // from R in the launcher.
+//
+// Scheme "fixed" (the Q15 universe; the JAX package's resample_conv_tm_fixed,
+// speex_resampler_tpu/ops/fir_matmul.py, an XLA program outside Pallas):
+// dense_fir_fixed_kernel<kAccum> runs fixed_wgmma.cuh's tile (the tiled and
+// streamed fixed kernels' _dot_fixed as four int8 wgmmas a 32-tap K-slice
+// plus a bias, wrapping in uint32, then the Q15 epilogues) under this
+// launcher: one weight phase, block origin b*stride, rows read from hist,
+// then x, then zero, so the step concatenates nothing.  Its planes are
+// int8[2, 1, kAccum * R_pad, K_pad], each set's R columns padded with zero
+// columns to R_pad, a multiple of the CTA's rows (32 for kAccum 4, 64 for
+// 1; ops/dense_fir.device_weights_fixed); a block stores its first R rows.
+// The voip preset's fixed launch (R 160, K_pad 320, n_accum 4, B = 2048)
+// needs 377.5 M int16 multiply-adds, 3.0 G int8 operations: 1.5 us at the
+// 1,979 TOP/s peak, below its ~8 MB of rows, 2.4 us at 3.35 TB/s, and both
+// below a launch's fixed cost.
 #include "f32_fir.cuh"
+#include "fixed_wgmma.cuh"
 
 namespace {
 
@@ -61,6 +78,47 @@ dense_fir_f32_kernel(fir::Launch g, int stride, int rows,
   const int b = blockIdx.x / n_rt;
   fir::f32::fir_tile<kLanes, kTN>(g, b, blockIdx.x % n_rt,
                                   blockIdx.y * kLanes, b * stride, rows, w);
+}
+
+// grid (n_blocks * R_pad / Shape<kAccum>::kRows, ceil(B / int8tc::kLanes))
+template <int kAccum>
+__global__ void __launch_bounds__(fir::kThreads,
+                                  fir::fixedtc::Shape<kAccum>::kMinBlocks)
+dense_fir_fixed_kernel(fir::Launch g, int stride, int rows,
+                       const int8_t* __restrict__ planes,
+                       const int32_t* __restrict__ bias,
+                       const int32_t* __restrict__ coef) {
+  constexpr int kRows = fir::fixedtc::Shape<kAccum>::kRows;
+  const int row_tiles = g.R / kRows;
+  const int b = blockIdx.x / row_tiles;
+  fir::fixedtc::fir_tile<kAccum>(
+      g,
+      fir::Tile(g, b, blockIdx.x % row_tiles, blockIdx.y, b * stride,
+                fir::int8tc::kLanes, kRows),
+      planes, bias, coef, rows);
+}
+
+// Launches the n_accum kAccum fixed kernel (its shared memory set once a
+// device).
+template <int kAccum>
+cudaError_t launch_fixed(const fir::Launch& g, int stride, int rows,
+                         const int8_t* planes, const int32_t* bias,
+                         const int32_t* coef, int n_blocks,
+                         cudaStream_t stream) {
+  using Shape = fir::fixedtc::Shape<kAccum>;
+  if (g.R % Shape::kRows || rows > g.R || g.R - rows >= Shape::kRows)
+    return cudaErrorInvalidValue;
+  static std::atomic<unsigned> smem_set{0};
+  const cudaError_t attr = fir::set_once(smem_set, [] {
+    return fir::fixedtc::allow_smem<kAccum>(dense_fir_fixed_kernel<kAccum>);
+  });
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(n_blocks * (g.R / Shape::kRows),
+                  (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes);
+  dense_fir_fixed_kernel<kAccum><<<grid, fir::kThreads, Shape::kSmemBytes,
+                                   stream>>>(g, stride, rows, planes, bias,
+                                             coef);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -101,6 +159,34 @@ int dense_fir_f32(const void* hist, const void* x, void* y, const void* taps,
                          static_cast<cudaStream_t>(stream)>>>(
       g, stride, R, static_cast<const float*>(w));
   return static_cast<int>(cudaGetLastError());
+}
+
+// planes int8[2, 1, n_accum * R_pad, K] (K % 32 == 0, each 32-tap group
+// permuted: fixed_wgmma.cuh), 16-byte aligned; bias int32[1, n_accum *
+// R_pad]; coef int32[1, 4, R_pad] (NULL for n_accum 1); taps int32[1, R_pad
+// / rows, 2] (rows: fixed_fir_rows).  y int16[n_blocks * R, B].  Launches
+// on `stream`, does not synchronise, and returns cudaGetLastError() of the
+// launch (0 on success).
+int dense_fir_fixed(const void* hist, const void* x, void* y, const void* taps,
+                    const void* planes, const void* bias, const void* coef,
+                    int n_accum, int H, int T, int B, int R_pad, int K,
+                    int stride, int n_blocks, int R, void* stream) {
+  cudaGetLastError();
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const fir::Launch g =
+      fir::make_launch(hist, x, y, taps, H, T, B, R_pad, K, 1);
+  const auto* p8 = static_cast<const int8_t*>(planes);
+  const auto* b32 = static_cast<const int32_t*>(bias);
+  const auto* c32 = static_cast<const int32_t*>(coef);
+  const auto st = static_cast<cudaStream_t>(stream);
+  if (n_accum == 4)
+    return static_cast<int>(
+        launch_fixed<4>(g, stride, R, p8, b32, c32, n_blocks, st));
+  if (n_accum == 1)
+    return static_cast<int>(
+        launch_fixed<1>(g, stride, R, p8, b32, c32, n_blocks, st));
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

@@ -10,7 +10,8 @@
 // (int8_wgmma.cuh, int8 tensor cores; the streamed kernel streams the
 // digit planes with x, the tiled one keeps a row tile's planes in shared
 // memory across the output tiles that share them) and "fixed"
-// (fixed_wgmma.cuh, int8 tensor cores; tiled and streamed).  A CTA owns
+// (fixed_wgmma.cuh, int8 tensor cores; tiled, streamed and dense).  The
+// gather kernels (gather_fir.cu) take only the epilogues from here.  A CTA owns
 // output rows of one block k (R rows, phase m = k % P) and walks only the
 // tap rows where its weight columns are nonzero (taps[m][row tile]).
 // Lanes are masked, so any B works without padding (the tiled and

@@ -1,7 +1,7 @@
 // Scheme "fixed" (the Q15 universe) on Hopper's int8 tensor cores: the
-// device function of tiled_fir_fixed_kernel<kAccum> and
-// streamed_fir_fixed_kernel<kAccum> (sm_90a only).  It takes a fir::Tile,
-// so one body serves both geometries.
+// device function of tiled_fir_fixed_kernel<kAccum>,
+// streamed_fir_fixed_kernel<kAccum> and dense_fir_fixed_kernel<kAccum>
+// (sm_90a only).  It takes a fir::Tile, so one body serves every geometry.
 //
 // It computes the JAX package's _dot_fixed (speex_resampler_tpu/ops/
 // pallas_fir.py), the exact int16 x int16 dot mod 2^32 as four int8 dots:
@@ -96,12 +96,16 @@ using int8tc::mma;
 // from planes int8[2, P, kAccum * R, K] (wh, wl0; each 32-tap group
 // permuted, above), bias int32[P, kAccum * R] and, for kAccum 4, coef
 // int32[P, 4, R].  Launch with kThreads threads and Shape::kSmemBytes of
-// dynamic shared memory; K % 32 == 0 and the planes 16-byte aligned.
+// dynamic shared memory; K % 32 == 0 and the planes 16-byte aligned.  A
+// block stores its first `rows` rows (g.R when 0: the dense kernel's
+// weights carry zero columns up to a multiple of kRows), y being [n_blocks
+// * rows, B].
 template <int kAccum>
 __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
                                          const int8_t* __restrict__ planes,
                                          const int32_t* __restrict__ bias,
-                                         const int32_t* __restrict__ coef) {
+                                         const int32_t* __restrict__ coef,
+                                         int rows = 0) {
   using Sh = Shape<kAccum>;
   extern __shared__ uint8_t fixed_smem[];
   const uint32_t ring = (smem_addr(fixed_smem) + 127) & ~127u;
@@ -246,18 +250,19 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
   }
   __syncthreads();
   const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+  const int R_out = rows > 0 ? rows : g.R;
 #pragma unroll
   for (int r = 0; r < Sh::kRows * kLanes / 8 / kThreads; ++r) {
     const int chunk = tid + r * kThreads;
     const int row = chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
     const int lane = c.lane0 + cl;
-    if (row0 + row >= g.R || lane >= g.B) continue;
+    if (row0 + row >= R_out || lane >= g.B) continue;
     uint32_t v[4];
     asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
                  : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
                  : "r"(ring + row * kRawPitch + cl * 2)
                  : "memory");
-    int16_t* out = g.y + ((size_t)c.k * g.R + row0 + row) * g.B + lane;
+    int16_t* out = g.y + ((size_t)c.k * R_out + row0 + row) * g.B + lane;
     if (vec_y) {
       *reinterpret_cast<uint4*>(out) = make_uint4(v[0], v[1], v[2], v[3]);
     } else {

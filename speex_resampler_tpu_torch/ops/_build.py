@@ -31,7 +31,8 @@ __all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
            "use_csrc", "stream_handle", "load_probes", "probe_lib_path"]
 
 _PKG = Path(__file__).resolve().parent.parent
-_SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu")
+_SOURCE_NAMES = ("tiled_fir.cu", "streamed_fir.cu", "dense_fir.cu",
+                 "gather_fir.cu")
 _HEADER_NAMES = ("fir_common.cuh", "split5_wgmma.cuh", "f32_fir.cuh",
                  "int8_wgmma.cuh", "fixed_wgmma.cuh")
 _CSRC = _PKG / "csrc"
@@ -41,6 +42,7 @@ _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_L = ctypes.c_longlong
 #: C function -> (restype, argtypes)
 _SIGNATURES = {
     "tiled_fir_row_tile": (_I, []),
@@ -61,6 +63,13 @@ _SIGNATURES = {
     "dense_fir_row_tile": (_I, []),
     "dense_fir_error_string": (ctypes.c_char_p, [_I]),
     "dense_fir_f32": (_I, [_P] * 5 + [_I] * 8 + [_P]),
+    "dense_fir_fixed": (_I, [_P] * 7 + [_I] * 9 + [_P]),
+    "gather_fir_error_string": (ctypes.c_char_p, [_I]),
+    "gather_fir_smem_max": (_I, []),
+    "gather_fir_f32": (_I, [_P, _L, _L, _I] * 2 + [_P] * 3 + [_I] * 8
+                       + [_P]),
+    "gather_fir_fixed": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 4
+                         + [_I] * 8 + [_P]),
 }
 
 _lib = None
@@ -203,12 +212,14 @@ def declare(lib: ctypes.CDLL, names=None, signatures=None) -> ctypes.CDLL:
 def use_csrc(csrc: Path) -> None:
     """Builds and loads from another ``csrc/`` directory from now on: a
     copy of this one with edited kernels, or an earlier checkout's (whose
-    headers may be fewer).  The next :func:`load` compiles it."""
+    sources and headers may be fewer).  The next :func:`load` compiles
+    it."""
     global _CSRC, _SOURCES, _HEADERS, _lib
     csrc = Path(csrc).resolve()
     with _lock:
         _CSRC = csrc
-        _SOURCES = tuple(csrc / name for name in _SOURCE_NAMES)
+        _SOURCES = tuple(csrc / name for name in _SOURCE_NAMES
+                         if (csrc / name).exists())
         _HEADERS = tuple(csrc / name for name in _HEADER_NAMES
                          if (csrc / name).exists())
         _lib = None

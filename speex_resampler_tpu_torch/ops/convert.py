@@ -11,7 +11,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["word2int", "word2int_np", "lsb_tie_limit"]
+__all__ = ["s16_to_internal", "word2int", "word2int_np", "lsb_tie_limit"]
+
+
+def s16_to_internal(x: torch.Tensor,
+                    dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """s16 -> internal float scale (identity scaling, resample.c:1005)."""
+    return x.to(dtype)
 
 
 def word2int(x: torch.Tensor) -> torch.Tensor:

@@ -1,54 +1,89 @@
-"""Plain-torch twins of the JAX package's XLA-only launch ops.
+"""The JAX package's XLA-only launch ops: plain-torch twins, and the CUDA
+kernels of the gather launch.
 
 Counterpart of ``speex_resampler_tpu/ops/fir_matmul.py``.  The JAX package
-runs these outside any ``pallas_call`` (XLA fuses them), so they are no TPU
-kernels and stay plain torch on every device, the card included:
+runs these outside any ``pallas_call`` (XLA fuses each into one program):
 
 - :func:`resample_conv`: ``ResamplerCore``'s device route, one f32 matmul
   of strided patches against the padded phase weights, in full FP32 (the
   JAX package's ``Precision.HIGHEST``) whatever the caller set for TF32;
-- :func:`resample_conv_tm_fixed`: the fixed-point (Q15) dense launch, exact;
+  plain torch on every device, as the JAX package left it to XLA;
+  :func:`resample_conv_tm` is its time-major twin;
+- :func:`resample_conv_tm_fixed`: the fixed-point (Q15) dense product,
+  exact, on the concatenated axis (the fixed dense step launches
+  ``ops/dense_fir.resample_dense_fixed``, whose plain version this is);
 - :func:`resample_gather` / :func:`resample_gather_fixed`: the weight-free
-  gather launch of huge-denominator ratios (e.g. 44100 -> 44101), float and
-  fixed.
+  gather launch of huge-denominator ratios (e.g. 44100 -> 44101), float
+  and fixed.  For CUDA tensors they launch the kernels of
+  ``csrc/gather_fir.cu`` on the current stream (or raise); for CPU tensors
+  they run their plain versions, :func:`resample_gather_reference` and
+  :func:`resample_gather_fixed_reference`.  Neither falls back to the
+  other.  Their axis is ``hist ++ x``, hist optional: the batched step
+  passes its history and chunk as they lie, and the kernel reads each in
+  place.  A CUDA launch takes a :class:`GatherPlan` (:func:`gather_plan`,
+  from the host's starts, made when a CUDA step is built): the outputs a
+  CTA takes and the window rows it stages at once, so that they fit
+  shared memory at any ratio.
 
 The float dense launch is a TPU kernel (K3) and lives in ``ops/dense_fir``.
-Also here: the dense geometry's group factor and padded-weight cap.
+Also here: the dense geometry's group factor and padded-weight cap, and
+the JAX package's host helper :func:`fixed_weight_planes`.
 
 Fixed weights are the int16 taps themselves (as in ``ops/tiled_fir``), not
 the two int8 planes plus a bias that the JAX package builds for the MXU:
 ``w16 int16[L, C]`` with ``C = n_accum * R`` columns accumulator-major
 (column ``c*R + r``), and the Q15 cubic coefficients ``coef int32[4, R]``
-for the interpolated filter (``n_accum`` 4).  The exact integer dots are
-float64 matmuls (every int16 x int16 product is at most 2^30 and every
-partial sum an integer far below 2^53, so any order gives the same number),
-wrapped to int32 as the C accumulator wraps.
+for the interpolated filter (``n_accum`` 4).  The plain versions' exact
+integer dots are float64 matmuls (every int16 x int16 product is at most
+2^30 and every partial sum an integer far below 2^53, so any order gives
+the same number), wrapped to int32 as the C accumulator wraps.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
+from . import _build
 from .convert import word2int
-from .fixed_math import fixed_interp_mix_rows, sat32pshr15
+from .fixed_math import balanced_q15_split, fixed_interp_mix_rows, sat32pshr15
 from .tiled_fir import _no_tf32, wrap_int32
 
 __all__ = ["MAX_PADDED_WEIGHT_BYTES", "choose_group", "resample_conv",
-           "resample_conv_tm_fixed", "resample_gather",
-           "resample_gather_fixed"]
+           "resample_conv_tm", "resample_conv_tm_fixed", "resample_gather",
+           "resample_gather_fixed", "resample_gather_reference",
+           "resample_gather_fixed_reference", "fixed_weight_planes",
+           "GatherPlan", "gather_plan", "GATHER_SMEM_BYTES"]
 
 #: Above this padded-weight size the engine takes the gather geometry.
 MAX_PADDED_WEIGHT_BYTES = 32 * 1024 * 1024
 
 _LANE_TARGET = 128   # output columns per block row the group widens toward
 
-# float64 bytes of one gather tile's [tile, N, batch] window; the tile is
-# chosen from N and the batch so that it stays under this at any batch, and
-# holds at most the JAX package's 2048 outputs (each tile is a dozen small
-# ops, so at 2048 lanes a larger window means fewer of them: 128 outputs a
-# tile at N 128)
+# float64 bytes of one plain gather tile's [tile, N, batch] window; the
+# tile is chosen from N and the batch so that it stays under this at any
+# batch, and holds at most the JAX package's 2048 outputs (each tile is a
+# dozen small ops, so at 2048 lanes a larger window means fewer of them:
+# 128 outputs a tile at N 128)
 _GATHER_WINDOW_BYTES = 256 * 1024 * 1024
 _GATHER_MAX_TILE = 2048
+
+#: Shared memory a gather CTA may take (``kSmemMax`` of
+#: ``csrc/gather_fir.cu``: two CTAs an SM), and its lanes (two a thread).
+GATHER_SMEM_BYTES = 112 * 1024
+GATHER_LANES = 64
+# outputs a gather CTA may take (kO = M / 8 a warp), largest first
+_GATHER_OUTPUTS = (64, 32, 16, 8)
+
+#: Launches of the gather kernels in this process, by scheme; only the
+#: wrappers add to it, once per launch.  Callers reset the counts to count
+#: one run.
+launches = {"highest": 0, "fixed": 0}
+
+#: The library whose shared-memory ceiling this module has checked.
+_checked = None
 
 
 def choose_group(num: int, den: int, filt_len: int) -> int:
@@ -100,6 +135,30 @@ def resample_conv(x: torch.Tensor, w: torch.Tensor, *, stride: int,
     return y if raw else word2int(y)
 
 
+def resample_conv_tm(x: torch.Tensor, w: torch.Tensor, *,
+                     stride: int) -> torch.Tensor:
+    """Time-major twin of :func:`resample_conv` (the JAX package's
+    ``resample_conv_tm``, the layout of the batched engine).
+
+    x: int16[T, B], T % stride == 0; w: f32[L, R], L % stride == 0.
+    returns int16[n_blocks * R, B], n_blocks = T // stride - L // stride:
+    block b is WORD2INT(W^T @ x[b*stride : b*stride + L]), one f32 matmul
+    with TF32 off for its duration."""
+    L, R = w.shape
+    patches = dense_patches(x, L, stride)                  # [nb, L, B]
+    with _no_tf32():
+        y = torch.matmul(w.float().t(), patches.float())   # [nb, R, B]
+    return word2int(y).reshape(-1, x.shape[1])
+
+
+def fixed_weight_planes(w16):
+    """The JAX package's exact balanced plane split of int16 taps (its
+    dense fixed weights): w16 int16[L, C] -> (wh int8[L, C], wl0 int8[L,
+    C], bias int32[C]) with w = 256*wh + wl0 exactly and bias[c] = 128 *
+    sum_L w16[l, c] (``fixed_math.balanced_q15_split``)."""
+    return balanced_q15_split(w16, tap_axis=0)
+
+
 def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
                            n_accum: int = 1) -> torch.Tensor:
     """Fixed-point dense launch, time-major, bit-exact.
@@ -122,6 +181,215 @@ def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
                                  w[1]).reshape(n_blocks * R, B)
 
 
+class GatherPlan(NamedTuple):
+    """A gather launch's CTA geometry (:func:`gather_plan`)."""
+    outputs: int   # M, consecutive outputs a CTA takes (8, 16, 32 or 64)
+    taps: int      # KC, taps a chunk the CTA stages and walks (<= N)
+    rows: int      # window rows a CTA stages at once
+
+
+def gather_plan(starts, N: int, *, n_accum: int | None = None,
+                x_itemsize: int = 2) -> GatherPlan:
+    """The CTA geometry of a gather launch over these window starts
+    (non-decreasing int[n_out]) and N taps an output, such that a CTA's
+    staged tap rows (M x KC, as double for the float kernel, as int32 x
+    ``n_accum`` for the fixed one) and window rows (``rows`` x 64 lanes of
+    ``x_itemsize`` bytes) fit :data:`GATHER_SMEM_BYTES`.  Computed on the
+    host when a step is built, never at launch.
+
+    A CTA stages, for each chunk of KC taps, the rows its outputs' windows
+    span: the start spread of its M outputs + KC.  The first plan takes
+    all of a chunk's rows at once: the most outputs M that fit with KC =
+    N, else with KC halved, and so on.  The second stages them a piece of
+    ``rows`` at a time: M 8, KC filling half the memory, the rows the
+    other half.  The second is taken where the first does not exist (a
+    steep decimation whose 8 outputs' windows lie far apart) or stages
+    more rows an output, ceil(N / KC) (spread + KC) / M."""
+    s = np.asarray(starts, dtype=np.int64)
+    if s.ndim != 1 or s.size == 0 or (np.diff(s) < 0).any():
+        raise ValueError("starts must be a non-empty non-decreasing vector")
+    if N < 1:
+        raise ValueError(f"N = {N}")
+    tap_bytes = 8 if n_accum is None else 4 * n_accum
+    row_bytes = GATHER_LANES * x_itemsize
+    spans = {}
+    for M in _GATHER_OUTPUTS:
+        first = np.arange(0, s.size, M)
+        spans[M] = int((s[np.minimum(first + M, s.size) - 1]
+                        - s[first]).max())
+    def cost(p):
+        return -(-N // p.taps) * (spans[p.outputs] + p.taps) / p.outputs
+
+    kc = min(N, GATHER_SMEM_BYTES // 2 // (8 * tap_bytes))
+    pieces = GatherPlan(8, kc, (GATHER_SMEM_BYTES - 8 * kc * tap_bytes)
+                        // row_bytes)
+    kc = N
+    while True:
+        for M in _GATHER_OUTPUTS:
+            rows = spans[M] + kc
+            if M * kc * tap_bytes + rows * row_bytes <= GATHER_SMEM_BYTES:
+                whole = GatherPlan(M, kc, rows)
+                return whole if cost(whole) <= cost(pieces) else pieces
+        if kc == 1:
+            return pieces
+        kc = -(-kc // 2)
+
+
+def _library():
+    """The kernels' library, its gather shared-memory ceiling checked
+    against :data:`GATHER_SMEM_BYTES` the first time it is seen."""
+    global _checked
+    lib = _build.load()
+    if lib is not _checked:
+        if lib.gather_fir_smem_max() != GATHER_SMEM_BYTES:
+            raise RuntimeError("csrc/gather_fir.cu's shared memory ceiling "
+                               "disagrees with GATHER_SMEM_BYTES")
+        _checked = lib
+    return lib
+
+
+def _axis(hist, x):
+    """The plain versions' operand: hist ++ x along time, [batch, H + T]."""
+    return x if hist is None else torch.cat([hist, x], dim=1)
+
+
+def _hist_args(hist, x) -> tuple:
+    """(pointer, time stride, lane stride, rows) of a launch's hist."""
+    if hist is None:
+        return None, 0, 0, 0
+    if hist.device != x.device:
+        raise ValueError(f"hist on {hist.device}, expected {x.device}")
+    if hist.ndim != 2 or hist.dtype != x.dtype \
+            or hist.shape[0] != x.shape[0]:
+        raise TypeError(f"hist {hist.dtype} {tuple(hist.shape)} for x "
+                        f"{x.dtype} {tuple(x.shape)}")
+    return hist.data_ptr(), hist.stride(1), hist.stride(0), hist.shape[1]
+
+
+def _check_gather(x, taps, starts, coef, plan, fixed: bool):
+    """Validate one gather launch on the card; returns (n_out, N)."""
+    for t in (taps, starts) + ((coef,) if coef is not None else ()):
+        if t.device != x.device:
+            raise ValueError(f"tensor on {t.device}, expected {x.device}")
+        if not t.is_contiguous():
+            raise ValueError("taps, starts and coef must be contiguous")
+    if x.ndim != 2 or x.dtype not in ((torch.int16,) if fixed
+                                      else (torch.int16, torch.float32)):
+        raise TypeError(f"x {x.dtype} {tuple(x.shape)}")
+    n_out, N = taps.shape[0], taps.shape[-1]
+    if fixed:
+        interp = taps.ndim == 3
+        if taps.dtype != torch.int16 or (interp and taps.shape[1] != 4):
+            raise TypeError(f"fixed taps {taps.dtype} {tuple(taps.shape)}")
+        if (coef is not None) != interp or (interp and (
+                coef.dtype != torch.int32
+                or tuple(coef.shape) != (n_out, 4))):
+            raise ValueError("an interpolated gather takes coef int32"
+                             "[n_out, 4], a direct one none")
+    elif taps.dtype != torch.float32 or taps.ndim != 2:
+        raise TypeError(f"float taps {taps.dtype} {tuple(taps.shape)}")
+    if starts.dtype != torch.int32 or tuple(starts.shape) != (n_out,):
+        raise ValueError(f"starts {starts.dtype} {tuple(starts.shape)}")
+    if not isinstance(plan, GatherPlan):
+        raise TypeError("a CUDA gather launch takes a GatherPlan "
+                        "(gather_plan of the host's starts)")
+    return n_out, N
+
+
+def resample_gather(x: torch.Tensor, taps: torch.Tensor,
+                    starts: torch.Tensor, *,
+                    hist: torch.Tensor | None = None,
+                    tile: int | None = None, raw: bool = False,
+                    plan: GatherPlan | None = None) -> torch.Tensor:
+    """Float gather launch: per-output tap-row dots over hist ++ x.
+
+    x:      int16 (or f32) [batch, T], any strides (the batched step passes
+            a transposed view of time-major memory, the single-stream
+            route a contiguous [channels, T])
+    hist:   None, or [batch, H] of x's type, any strides: the H rows of
+            the axis before x (the batched step's history)
+    taps:   f32[n_out, N]   each output's taps, gathered by phase
+    starts: int32[n_out]    window starts on hist ++ x, non-decreasing
+                            (clamped in range)
+    plan:   the launch's :class:`GatherPlan` (CUDA tensors)
+    returns int16[batch, n_out], or the raw f32 sums when ``raw`` (a
+    transposed view of [n_out, batch] memory)
+
+    CUDA tensors launch ``gather_fir_f32`` on the current stream
+    (asynchronously; a launch error raises); CPU tensors run
+    :func:`resample_gather_reference` on the concatenation hist ++ x
+    (``tile`` steers only it)."""
+    if x.device.type == "cpu":
+        return resample_gather_reference(_axis(hist, x), taps, starts,
+                                         tile=tile, raw=raw)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n_out, N = _check_gather(x, taps, starts, None, plan, fixed=False)
+    h = _hist_args(hist, x)
+    lib = _library()
+    batch, T = x.shape
+    y = torch.empty((n_out, batch),
+                    dtype=torch.float32 if raw else torch.int16,
+                    device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gather_fir_f32(
+            *h, x.data_ptr(), x.stride(1), x.stride(0),
+            int(x.dtype == torch.float32), taps.data_ptr(),
+            starts.data_ptr(), y.data_ptr(), T, batch, n_out, N,
+            plan.outputs, plan.taps, plan.rows, int(raw),
+            _build.stream_handle(x.device))
+    if err:
+        raise RuntimeError("gather kernel launch failed: "
+                           + lib.gather_fir_error_string(err).decode())
+    launches["highest"] += 1
+    return y.t()
+
+
+def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
+                          starts: torch.Tensor,
+                          coef: torch.Tensor | None = None, *,
+                          hist: torch.Tensor | None = None,
+                          tile: int | None = None,
+                          plan: GatherPlan | None = None) -> torch.Tensor:
+    """Fixed-point gather launch over hist ++ x, bit-exact.
+
+    x:      int16[batch, T], any strides (as :func:`resample_gather`)
+    hist:   None, or int16[batch, H], any strides (as
+            :func:`resample_gather`)
+    taps:   int16[n_out, N] (direct rows) or int16[n_out, 4, N]
+            (interpolated accumulator rows), gathered by phase
+    starts: int32[n_out] clamped window origins, non-decreasing
+    coef:   int32[n_out, 4] Q15 cubic coefficients (interpolated only)
+    plan:   the launch's :class:`GatherPlan` (CUDA tensors)
+    returns int16[batch, n_out]
+
+    CUDA tensors launch ``gather_fir_fixed<1|4>`` on the current stream;
+    CPU tensors run :func:`resample_gather_fixed_reference` on the
+    concatenation hist ++ x (``tile`` steers only it)."""
+    if x.device.type == "cpu":
+        return resample_gather_fixed_reference(_axis(hist, x), taps, starts,
+                                               coef, tile=tile)
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    n_out, N = _check_gather(x, taps, starts, coef, plan, fixed=True)
+    h = _hist_args(hist, x)
+    lib = _library()
+    batch, T = x.shape
+    y = torch.empty((n_out, batch), dtype=torch.int16, device=x.device)
+    with torch.cuda.device(x.device):
+        err = lib.gather_fir_fixed(
+            *h, x.data_ptr(), x.stride(1), x.stride(0), taps.data_ptr(),
+            starts.data_ptr(), None if coef is None else coef.data_ptr(),
+            y.data_ptr(), 4 if taps.ndim == 3 else 1, T, batch, n_out, N,
+            plan.outputs, plan.taps, plan.rows,
+            _build.stream_handle(x.device))
+    if err:
+        raise RuntimeError("fixed gather kernel launch failed: "
+                           + lib.gather_fir_error_string(err).decode())
+    launches["fixed"] += 1
+    return y.t()
+
+
 def _gather_tiles(n_out: int, N: int, batch: int, tile: int | None):
     if tile is None:
         tile = min(_GATHER_MAX_TILE,
@@ -137,16 +405,12 @@ def _windows(x: torch.Tensor, starts: torch.Tensor, o0: int, o1: int,
     return x.t()[idx].double()
 
 
-def resample_gather(x: torch.Tensor, taps: torch.Tensor,
-                    starts: torch.Tensor, *,
-                    tile: int | None = None,
-                    raw: bool = False) -> torch.Tensor:
-    """Float gather launch: per-output tap-row dots.
-
-    x:      int16 (or f32) [batch, T]
-    taps:   f32[n_out, N]   each output's taps, gathered by phase
-    starts: int32[n_out]    window starts (clamped in range)
-    returns int16[batch, n_out], or the raw f32 sums when ``raw``
+def resample_gather_reference(x: torch.Tensor, taps: torch.Tensor,
+                              starts: torch.Tensor, *,
+                              tile: int | None = None,
+                              raw: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`resample_gather` (same contract), on
+    the tensors' own device.
 
     Each dot is taken in float64 (the products of f32 taps and int16
     samples are exact there), rounded once to f32, then WORD2INT: within
@@ -165,22 +429,14 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     return y.t() if raw else word2int(y).t()
 
 
-def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
-                          starts: torch.Tensor,
-                          coef: torch.Tensor | None = None, *,
-                          tile: int | None = None) -> torch.Tensor:
-    """Fixed-point gather launch, bit-exact.
-
-    x:      int16[batch, T]
-    taps:   int16[n_out, N] (direct rows) or int16[n_out, 4, N]
-            (interpolated accumulator rows), gathered by phase
-    starts: int32[n_out] clamped window origins
-    coef:   int32[n_out, 4] Q15 cubic coefficients (interpolated only)
-    returns int16[batch, n_out]
-
-    The int16 dots are exact float64 matmuls wrapped to int32, then the
-    Q15 epilogue (the cubic mix of the 4 accumulators for an interpolated
-    filter)."""
+def resample_gather_fixed_reference(x: torch.Tensor, taps: torch.Tensor,
+                                    starts: torch.Tensor,
+                                    coef: torch.Tensor | None = None, *,
+                                    tile: int | None = None) -> torch.Tensor:
+    """Plain PyTorch version of :func:`resample_gather_fixed` (same
+    contract), on the tensors' own device: the int16 dots as exact float64
+    matmuls wrapped to int32, then the Q15 epilogue (the cubic mix of the 4
+    accumulators for an interpolated filter)."""
     n_out, N = taps.shape[0], taps.shape[-1]
     batch = x.shape[0]
     interp = taps.dim() == 3

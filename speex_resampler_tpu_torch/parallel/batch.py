@@ -21,10 +21,13 @@ universe with its exact scheme "fixed"):
   48k -> 44.1k);
 - "dense": launch quanta below one tiled or streamed unit (a hard
   ``max_latency_ms`` cap such as the voip preset's 20 ms):
-  ``ops/dense_fir.resample_dense`` in the float universe, the plain-torch
-  ``ops/fir_matmul.resample_conv_tm_fixed`` in the fixed one;
-- "gather": huge reduced denominators (e.g. 44100 -> 44101), the
-  plain-torch ``ops/fir_matmul.resample_gather[_fixed]``.
+  ``ops/dense_fir.resample_dense`` in the float universe,
+  ``ops/dense_fir.resample_dense_fixed`` in the fixed one;
+- "gather": huge reduced denominators (e.g. 44100 -> 44101),
+  ``ops/fir_matmul.resample_gather[_fixed]``.
+
+Every launch is one hand-written CUDA kernel on the card (``csrc/``) and
+its plain PyTorch version on the CPU.
 
 ``mesh=`` (``make_batched_step`` and ``BatchedResampler``) splits the lanes
 over a sequence of devices, one equal contiguous shard each, as the JAX
@@ -356,8 +359,10 @@ class BatchedStep:
     ``tf.resample_tiled(hist, x, w, **kernel_kw)`` for "tiled",
     ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "streamed",
     ``df.resample_dense(hist, x, w, **kernel_kw)`` for a float "dense"
-    step.  A fixed "dense" step and both "gather" steps run plain torch
-    (``ops/fir_matmul``) on the concatenated ``hist ++ x``.
+    step, ``df.resample_dense_fixed(hist, x, w, **kernel_kw)`` for a fixed
+    one, and ``fm.resample_gather[_fixed](x[:in_per_launch].t(), *w,
+    hist=hist.t(), **kernel_kw)`` for a "gather" step (``kernel_kw`` holds
+    its ``GatherPlan``, None on the CPU).
 
     Over a lane mesh (``mesh``, the shards' devices) ``fn`` takes and
     returns lists, one tensor a shard: ``fn(hists, xs, w) -> (hists',
@@ -473,6 +478,13 @@ _STEP_CACHE_MAX_BYTES = 256 * 1024 * 1024
 def _step_weight_bytes(step: BatchedStep) -> int:
     return sum(t.numel() * t.element_size() for t in step.w
                if isinstance(t, torch.Tensor))
+
+
+def clear_step_cache() -> None:
+    """Drop all memoized steps (frees their device weight arrays, once no
+    engine holds the step)."""
+    with _STEP_CACHE_LOCK:
+        _STEP_CACHE.clear()
 
 
 def make_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
@@ -671,15 +683,12 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     """The dense geometry's step (the JAX package's branch): history of
     filt_len-1 rows, a chunk of exactly n_in rows, and the launch reads
     the virtual axis hist ++ x ++ zeros from block origins b*stride.
-    Float: the K3 kernel (``df.resample_dense``).  Fixed: the exact
-    plain-torch product (``fm.resample_conv_tm_fixed``) on the
-    concatenation, with the Q15 cubic coefficients int32[4, R] of an
-    interpolated filter."""
+    Float: the K3 kernel (``df.resample_dense``).  Fixed: its int8
+    tensor-core twin (``df.resample_dense_fixed``), with the Q15 cubic
+    coefficients int32[4, R] of an interpolated filter."""
     N, stride = spec.filt_len, bspec.stride
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     w_np, n_accum = _padded_weights(spec, bspec)
-    pad = (bspec.n_blocks + w_np.shape[0] // stride) * stride - (N - 1 + n_in)
-    assert pad >= 0
     if not spec.fixed_point:
         w = df.device_weights(w_np, device)
         kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks,
@@ -692,16 +701,16 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
                            zero_tail=0, scheme="highest", kernel_kw=kernel_kw,
                            kernel="dense")
-    w = (torch.from_numpy(w_np).to(device),)
+    coef = None
     if n_accum == 4:
         bc = ph.block_constants(spec.num, spec.den, bspec.f0, bspec.group)
-        coef = np.ascontiguousarray(spec.interp_coef[bc.p].T, dtype=np.int32)
-        w += (torch.from_numpy(coef).to(device),)
-    kernel_kw = dict(stride=stride, n_accum=n_accum)
+        coef = spec.interp_coef[bc.p].T
+    w = df.device_weights_fixed(w_np, coef, device)
+    kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks,
+                     R=w_np.shape[1] // n_accum, n_accum=n_accum)
 
     def step(hist, x, w):
-        X = torch.cat([hist, x, x.new_zeros((pad, x.shape[1]))])
-        y = fm.resample_conv_tm_fixed(X, w, **kernel_kw)
+        y = df.resample_dense_fixed(hist, x, w, **kernel_kw)
         return _next_hist(hist, x, n_in, N - 1), y[:n_out]
 
     return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
@@ -714,9 +723,11 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     """The gather geometry's step (the JAX package's branch): the taps of
     each of the launch's n_out outputs are gathered by phase on the host
     once per step (window starts clamped in range); a launch is the
-    plain-torch gather (``fm.resample_gather``, or ``resample_gather_fixed``
+    gather kernel (``fm.resample_gather``, or ``resample_gather_fixed``
     with int16 taps and, for an interpolated filter, int32[n_out, 4] cubic
-    coefficients) over ``hist ++ x``."""
+    coefficients) over ``hist ++ x``, each read in place.  A CUDA step's
+    CTA geometry (``fm.gather_plan`` of the starts) is made here, in
+    ``kernel_kw``; a CPU step runs the plain version and has none."""
     N, num, den, f0 = spec.filt_len, spec.num, spec.den, bspec.f0
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     t = f0 + np.arange(n_out, dtype=np.int64) * num
@@ -731,14 +742,17 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                       else (fm.resample_gather, "highest"))
     w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
               for a in host_w)
+    kernel_kw = dict(plan=fm.gather_plan(
+        starts, N, n_accum=_n_cols(spec) if spec.fixed_point else None)
+        if torch.device(device).type == "cuda" else None)
 
     def step(hist, x, w):
-        X = torch.cat([hist, x[:n_in]])
-        y = launch(X.t(), *w)
-        return X[n_in:].clone(), y.t()
+        y = launch(x[:n_in].t(), *w, hist=hist.t(), **kernel_kw)
+        return _next_hist(hist, x, n_in, N - 1), y.t()
 
     return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
-                       zero_tail=0, scheme=scheme, kernel="gather")
+                       zero_tail=0, scheme=scheme, kernel_kw=kernel_kw,
+                       kernel="gather")
 
 
 def weights_from_jax(w, scheme: str, device="cuda",
@@ -768,7 +782,8 @@ def weights_from_jax(w, scheme: str, device="cuda",
       R_pad columns); for "fixed" ``(wh int8[L_pad,
       C], wl0, bias int32[C][, coef int32[R, 4]])`` with columns c-minor
       (``r*4 + c``): rebuilt as int16 taps, the bias checked, the columns
-      reordered accumulator-major and coef transposed to [4, R];
+      reordered accumulator-major and coef transposed to [4, R], then the
+      kernel's planes built from them (``dense_fir.device_weights_fixed``);
     - "gather": its arrays ``(taps, starts[, coef])``, padded by the JAX
       package to its 2048-output tile, cut to the launch's ``n_out``
       outputs (required)."""
@@ -788,9 +803,8 @@ def weights_from_jax(w, scheme: str, device="cuda",
         if coef:
             L, C = w16.shape
             w16 = w16.reshape(L, C // 4, 4).transpose(0, 2, 1).reshape(L, C)
-            coef = [coef[0].T]
-        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-                     for a in (w16, *coef))
+        return df.device_weights_fixed(w16, coef[0].T if coef else None,
+                                       device)
     if scheme == "split5":
         planes = np.asarray(w)
         if kernel == "streamed":
@@ -1365,12 +1379,11 @@ def _readback(y: torch.Tensor, stream: torch.cuda.Stream | None):
     return Readback(to_host_into(y, out, stream), out.numpy())
 
 
-def _serving_device(device, kernels: bool = True) -> torch.device:
-    """An engine's device: "cuda" (raises without a CUDA device; with
-    ``kernels`` the kernel library is built here, so a build failure raises
-    out of the engine's constructor and never reaches the degradation
-    handler) or "cpu" (the kernels' plain versions).  ResamplerCore's
-    device route launches no kernel and passes ``kernels=False``."""
+def _serving_device(device) -> torch.device:
+    """An engine's device: "cuda" (raises without a CUDA device; the kernel
+    library is built here, so a build failure raises out of the engine's
+    constructor and never reaches the degradation handler) or "cpu" (the
+    kernels' plain versions)."""
     device = torch.device(device)
     if device.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {device}")
@@ -1378,6 +1391,5 @@ def _serving_device(device, kernels: bool = True) -> torch.device:
         if not torch.cuda.is_available():
             raise RuntimeError("device='cuda' but no CUDA device is "
                                "available")
-        if kernels:
-            _build.load()
+        _build.load()
     return device

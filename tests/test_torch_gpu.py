@@ -26,6 +26,7 @@ from speex_resampler_tpu_torch.functional import make_stream_fn
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import dense_fir as tdf
 from speex_resampler_tpu_torch.ops import filter_design as tfd
+from speex_resampler_tpu_torch.ops import fir_matmul as tfm
 from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
@@ -421,9 +422,9 @@ def test_split5_kernel_matches_plain(cuda, cfg, scheme, kernel):
          "tiled-split5-96k-8k"])
 def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
     """process / flush / process on the card equals the CPU engine (fixed:
-    bit for bit).  The float dense and split5 engines launch their kernel
-    once per engine launch; the fixed dense and the gather engines run
-    plain torch on the card and launch no kernel."""
+    bit for bit).  Every one of these engines launches its kernel once per
+    engine launch on the card (dense and fixed dense, the gathers, split5)
+    and none on the CPU."""
     engines = [BatchedResampler(3, 2, *cfg, device=d, **kw)
                for d in ("cuda", "cpu")]
     step = engines[0]._step
@@ -433,7 +434,7 @@ def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
     rng = np.random.default_rng(6)
     frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
               for n in (2 * q_in + 500, q_in // 3 + 7, q_in + 900)]
-    counts = (ttf.launches, tsf.launches, tdf.launches)
+    counts = (ttf.launches, tsf.launches, tdf.launches, tfm.launches)
     outs = []
     for eng in engines:
         before = [dict(c) for c in counts]
@@ -441,9 +442,7 @@ def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
                eng.process(frames[2]), eng.flush()]
         outs.append(np.concatenate(got, axis=1))
         ran = sum(c[k] - b[k] for c, b in zip(counts, before) for k in c)
-        kernel = (step.scheme != "fixed" and kind != "gather"
-                  and eng.device.type == "cuda")
-        assert ran == (eng.launches if kernel else 0)
+        assert ran == (eng.launches if eng.device.type == "cuda" else 0)
     assert engines[0].launches == engines[1].launches > 2
     if step.scheme == "fixed":
         assert np.array_equal(outs[0], outs[1])
@@ -1123,3 +1122,192 @@ def test_probe_v3_bench_step_matches_plain(cuda, B):
     pv3b.graph_ms(fn, reps=2)
     torch.cuda.synchronize()
     assert torch.equal(out["h"], h) and torch.equal(out["y"], y)
+
+
+# -- the gather and fixed dense kernels --------------------------------------
+
+def _gather_step(fixed: bool, f0: int = 0):
+    spec = tfd.design_filter(44100, 44101, 7, fixed_point=fixed)
+    bspec = tb._launch_geometry(spec, 44100, f0=f0)
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    assert step.kernel == "gather"
+    return bspec, step
+
+
+@pytest.mark.parametrize("B", [2048, 130])
+@pytest.mark.parametrize("f0", [0, 5900])
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+def test_gather_kernels_match_plain(cuda, fixed, f0, B):
+    """gather_fir_f32 and gather_fir_fixed<4> at the drift launch
+    (44100 -> 44101 q7, 44101 outputs, N 128), on transposed views of
+    time-major memory, the axis in one operand and as the step passes it
+    (hist and x apart, bit for bit the same): fixed 0 mismatches with the
+    wrap input on every third lane; float max |err| <= 1 within the tie
+    bound, its raw f32 sums within one f32 rounding of the plain
+    version's; one launch counted a call."""
+    bspec, step = _gather_step(fixed, f0)
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=B + f0, wrap=fixed))
+    X = torch.cat([hist, x]).t()
+    fn = tfm.resample_gather_fixed if fixed else tfm.resample_gather
+    ref = (tfm.resample_gather_fixed_reference if fixed
+           else tfm.resample_gather_reference)
+    before = dict(tfm.launches)
+    got = fn(X, *step.w, **step.kernel_kw)
+    apart = fn(x[:bspec.in_per_launch].t(), *step.w, hist=hist.t(),
+               **step.kernel_kw)
+    want = ref(X, *step.w)
+    torch.cuda.synchronize()
+    assert tfm.launches[step.scheme] == before[step.scheme] + 2
+    assert torch.equal(apart, got)
+    assert got.shape == want.shape == (B, bspec.out_per_launch)
+    _compare(got.cpu().numpy(), want.cpu().numpy(),
+             "int8" if fixed else "highest")
+    if not fixed:
+        g = fn(X, *step.w, raw=True, **step.kernel_kw)
+        w = ref(X, *step.w, raw=True)
+        ulp = torch.abs(torch.nextafter(w, w + 1) - w)
+        assert bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("B", [130, 64])
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
+    """96000 -> 401 q3, a steep gather decimation (N 11496, 8 outputs'
+    windows 1676 rows apart): the plan stages each chunk's rows in pieces,
+    and the kernels equal their plain versions (fixed bit for bit, float
+    within the tie bound), the step's form and one operand alike.  (This
+    direct filter's small taps cannot drive a sum past 2^31, so the inputs
+    are plain random samples.)"""
+    spec = tfd.design_filter(96000, 401, 3, fixed_point=fixed)
+    bspec = tb._launch_geometry(spec, 44100)
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    plan = step.kernel_kw["plan"]
+    assert step.kernel == "gather" and plan.outputs == 8
+    assert plan.rows < 1676 + plan.taps
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=B, wrap=False))
+    X = torch.cat([hist, x]).t()
+    fn = tfm.resample_gather_fixed if fixed else tfm.resample_gather
+    ref = (tfm.resample_gather_fixed_reference if fixed
+           else tfm.resample_gather_reference)
+    got = fn(x[:bspec.in_per_launch].t(), *step.w, hist=hist.t(), plan=plan)
+    one = fn(X, *step.w, plan=plan)
+    want = ref(X, *step.w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, one)
+    _compare(got.cpu().numpy(), want.cpu().numpy(),
+             "int8" if fixed else "highest")
+
+
+@pytest.mark.parametrize("x_dtype", [torch.int16, torch.float32])
+def test_gather_kernel_single_stream_layout(cuda, x_dtype):
+    """The single-stream route's layout: a contiguous [channels, T] x of
+    int16 or f32 samples, 3 channels, raw f32 sums and WORD2INT, the plan
+    made from the host's starts for that sample width."""
+    spec = tfd.design_filter(44100, 44101, 7)
+    N, n_out = spec.filt_len, 5000
+    rng = np.random.default_rng(12)
+    t = np.arange(n_out, dtype=np.int64) * spec.num
+    starts = np.minimum(t // spec.den, 6000 - N).astype(np.int32)
+    taps = spec.phase_rows(t % spec.den)
+    x = rng.integers(-32768, 32768, (3, 6000)).astype(
+        np.int16 if x_dtype == torch.int16 else np.float32)
+    if x_dtype == torch.float32:
+        x += rng.random(x.shape).astype(np.float32)
+    plan = tfm.gather_plan(starts, N, x_itemsize=x.dtype.itemsize)
+    X, T, S = (torch.from_numpy(a).cuda() for a in (x, taps, starts))
+    for raw in (False, True):
+        got = tfm.resample_gather(X, T, S, raw=raw, plan=plan)
+        want = tfm.resample_gather_reference(X, T, S, raw=raw)
+        if raw:
+            ulp = torch.abs(torch.nextafter(want, want + 1) - want)
+            assert bool(((got - want).abs() <= ulp).all())
+        else:
+            _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+
+
+DENSE_FIXED = [((44100, 48000, 3), 882), ((48000, 16000, 3), 960),
+               ((16000, 48000, 3), 320)]
+
+
+@pytest.mark.parametrize("B", [2048, 130, 129, 64])
+@pytest.mark.parametrize("cfg,cap", DENSE_FIXED,
+                         ids=["R160-interp", "R96-direct", "R129-interp"])
+def test_dense_fixed_kernel_matches_plain(cuda, cfg, cap, B):
+    """dense_fir_fixed_kernel<4> (voip, and R 129: zero columns past R)
+    and <1> (48k -> 16k, direct) against the plain version: 0 mismatches,
+    with the wrap input on every third lane, at f0 = 0."""
+    i, o, q = cfg
+    g = math.gcd(i, o)
+    spec = tfd.design_filter(i // g, o // g, q, fixed_point=True)
+    bspec = tb._launch_geometry(spec, 4096, max_in_frames=cap)
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    assert (step.kernel, step.scheme) == ("dense", "fixed")
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=B))
+    before = tdf.launches["fixed"]
+    got = tdf.resample_dense_fixed(hist, x, step.w, **step.kernel_kw)
+    want = tdf.resample_dense_fixed_reference(hist, x, step.w,
+                                              **step.kernel_kw)
+    torch.cuda.synchronize()
+    assert tdf.launches["fixed"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("kind", ["gather", "gather-fixed", "dense-fixed"])
+def test_new_kernel_steps_graph_equal_eager(cuda, kind):
+    """The drift gather steps and the fixed voip dense step captured in a
+    CUDA graph (after a warm-up on a side stream): a replay equals the
+    eager step, and after new inputs are copied in, the eager step on
+    them; the kernel count moves once, at capture."""
+    fixed = kind != "gather"
+    if kind == "dense-fixed":
+        spec = tfd.design_filter(147, 160, 3, fixed_point=True)
+        bspec = tb._launch_geometry(spec, 4096, max_in_frames=882)
+        step = tb.make_batched_step(spec, bspec, device="cuda")
+        module = tdf
+    else:
+        bspec, step = _gather_step(fixed)
+        module = tfm
+    inputs = [[torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, 256, seed=s, wrap=fixed)] for s in (1, 2)]
+    eager = [step.fn(h, xx, step.w) for h, xx in inputs]
+    hist, x = (t.clone() for t in inputs[0])
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step.fn(hist, x, step.w)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    before = module.launches[step.scheme]
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = step.fn(hist, x, step.w)
+    assert module.launches[step.scheme] == before + 1
+    for (h, xx), want in zip(inputs, eager):
+        hist.copy_(h)
+        x.copy_(xx)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert all(torch.equal(o, w) for o, w in zip(out, want))
+    assert module.launches[step.scheme] == before + 1
+
+
+def test_clear_step_cache_frees_device_memory(cuda):
+    """A step's device weights stay allocated while the step cache holds
+    it, and are freed by clear_step_cache once no engine holds the step."""
+    tb.clear_step_cache()
+    gc.collect()
+    base = torch.cuda.memory_allocated()
+    spec = tfd.design_filter(160, 147, 10)
+    step = tb.make_batched_step(spec, tb._launch_geometry(spec, 20480),
+                                device="cuda")
+    nbytes = tb._step_weight_bytes(step)
+    del step
+    gc.collect()
+    held = torch.cuda.memory_allocated()
+    assert held - base >= nbytes > 10 * 2 ** 20
+    tb.clear_step_cache()
+    gc.collect()
+    assert torch.cuda.memory_allocated() <= held - nbytes

@@ -1,17 +1,29 @@
-"""``BatchedResampler.process()`` wall times at two served configs, for one
+"""``BatchedResampler.process()`` wall times at served configs, for one
 checkout of the port, on one GPU machine.
 
     python3 tools/process_timing.py [--root DIR] [--label NAME]
+                                    [--configs flagship,slice,...]
 
 Imports ``speex_resampler_tpu_torch`` from ``--root`` (default: this
 checkout), so an earlier commit unpacked with ``git archive <commit> |
 tar -x -C build/parent`` is timed with ``--root build/parent``; run
 parent, change, change, parent in one call to compare two commits on one
-card.  For the flagship (44.1 kHz -> 48 kHz q7, 9408-frame quanta) and
-the streamed slice (48 kHz -> 44.1 kHz q10, 20480-frame quanta), 1024
-stereo streams, ``scheme="auto"`` (int8): the median of 10 calls of one
-quantum and of 5 calls of four quanta, after one call each, by the host
-clock (``process`` returns host arrays, so the device work is inside).
+card.  1024 stereo streams, ``scheme="auto"``, at each of ``--configs``
+(default ``flagship,slice``): the flagship (44.1 kHz -> 48 kHz q7,
+9408-frame quanta: int8), the streamed slice (48 kHz -> 44.1 kHz q10,
+20480-frame quanta: int8), clock drift (44.1 kHz -> 44.101 kHz q7,
+44100-frame quanta: the gather geometry) float and fixed (``drift``,
+``drift-fixed``), and the voip preset's 20 ms cap (44.1 kHz -> 48 kHz q3,
+882-frame quanta: the dense geometry) float and fixed (``voip``,
+``voip-fixed``).  The median of 10 calls of one quantum and of 5 calls of
+four quanta, after one call each, by the host clock (``process`` returns
+host arrays, so the device work is inside).
+
+With ``--step``, also the engine's step alone (``eng._step.fn`` on random
+launch buffers of 2048 lanes: everything one launch puts on the card, the
+kernel and the next history, and whatever else the step does around
+them), by CUDA events: 20 calls back to back, and a CUDA graph of 20
+calls replayed, ms a call.
 """
 
 from __future__ import annotations
@@ -24,12 +36,26 @@ from pathlib import Path
 
 import numpy as np
 
+# name -> (in rate, out rate, quality, engine keywords, quantum)
+CONFIGS = {
+    "flagship": (44100, 48000, 7, dict(target_chunk_frames=9408), 9408),
+    "slice": (48000, 44100, 10, dict(target_chunk_frames=20480), 20480),
+    "drift": (44100, 44101, 7, dict(target_chunk_frames=44100), 44100),
+    "drift-fixed": (44100, 44101, 7, dict(target_chunk_frames=44100,
+                                          fixed_point=True), 44100),
+    "voip": (44100, 48000, 3, dict(max_latency_ms=20), 882),
+    "voip-fixed": (44100, 48000, 3, dict(max_latency_ms=20,
+                                         fixed_point=True), 882),
+}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve()
                                           .parent.parent))
     ap.add_argument("--label", default="this checkout")
+    ap.add_argument("--configs", default="flagship,slice")
+    ap.add_argument("--step", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -40,16 +66,16 @@ def main() -> None:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     rng = np.random.default_rng(3)
-    for rates, q, target in (((44100, 48000, 7), 9408, 9408),
-                             ((48000, 44100, 10), 20480, 20480)):
-        eng = BatchedResampler(1024, 2, *rates, target_chunk_frames=target)
-        if eng.in_frames_per_launch != q:
+    for name in args.configs.split(","):
+        i, o, q, kw, quantum = CONFIGS[name]
+        eng = BatchedResampler(1024, 2, i, o, q, **kw)
+        if eng.in_frames_per_launch != quantum:
             raise AssertionError(f"quantum {eng.in_frames_per_launch}")
-        frames = rng.integers(-32768, 32768, (1024, 4 * q, 2),
+        frames = rng.integers(-32768, 32768, (1024, 4 * quantum, 2),
                               dtype=np.int16)
         out = []
         for quanta, reps in ((1, 10), (4, 5)):
-            x = frames[:, :quanta * q]
+            x = frames[:, :quanta * quantum]
             eng.process(x)
             walls = []
             for _ in range(reps):
@@ -57,9 +83,58 @@ def main() -> None:
                 eng.process(x)
                 walls.append(time.perf_counter() - t0)
             out.append(float(np.median(walls)) * 1e3)
-        print(f"{args.label}: {rates[0]}->{rates[1]} q{rates[2]} "
+        print(f"{args.label}: {name} {i}->{o} q{q} {eng._step.kernel} "
               f"{eng._step.scheme} on {smi}: process() of one quantum "
               f"{out[0]:.2f} ms, of four {out[1]:.2f} ms")
+        if args.step:
+            eager, graph = step_ms(torch, eng._step, eng.bspec.in_per_launch)
+            print(f"{args.label}: {name} step alone: back to back "
+                  f"{eager:.4f} ms, graph {graph:.4f} ms a call")
+
+
+def step_ms(torch, step, n_in: int, lanes: int = 2048, reps: int = 20):
+    """(back to back, graph replay) ms of one call of ``step.fn``."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def samples(rows):
+        return torch.randint(-32768, 32768, (rows, lanes), generator=gen,
+                             dtype=torch.int16, device="cuda")
+
+    hist = samples(step.hist_rows)
+    x = torch.zeros((step.chunk_rows, lanes), dtype=torch.int16,
+                    device="cuda")
+    x[:n_in] = samples(n_in)
+
+    def run():
+        return step.fn(hist, x, step.w)
+
+    def timed(fn):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in "se")
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    def queue():
+        for _ in range(reps):
+            run()
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        run()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    eager = timed(queue) / reps
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        queue()
+    graph.replay()
+    replay = timed(graph.replay) / reps
+    del graph
+    torch.cuda.synchronize()
+    return eager, replay
 
 
 if __name__ == "__main__":
