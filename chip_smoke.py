@@ -16,7 +16,11 @@ nvcc per source, in parallel) and drives the serving paths of
   the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
   tensor-core kernel);
 - clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
-  fixed (``csrc/gather_fir.cu``);
+  fixed (``csrc/gather_fir.cu``), served in its band form (the FP64 and
+  int8 tensor-core kernels); both forms, band and rows, are checked and
+  timed at its launch; and the steep gather decimation 96 kHz -> 401 Hz
+  q3, float and fixed, whose band does not fit: the rows form, a chunk's
+  rows staged in pieces;
 - 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
   split5 scheme); the f32 kernel is checked and timed at the same launch;
 - the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
@@ -29,8 +33,8 @@ nvcc per source, in parallel) and drives the serving paths of
   against the host route (the native loops, bit-identical to the
   reference float build) within 1 LSB under the tie bound; the default
   route's native loops; 16- and 64-channel cores (``auto`` takes the
-  device route); the gather route (44.1 kHz -> 44.101 kHz, the gather
-  kernel, its launches counted); the fixed
+  device route); the gather route (44.1 kHz -> 44.101 kHz, the float
+  gather's rows form on f32 samples, its launches counted); the fixed
   universe bit-exact against ``device="cpu"``; one core with TF32 switched
   on around it; then process_chunk out samples/s, host against device
   route, at 2, 8, 16 and 64 channels;
@@ -195,7 +199,8 @@ def reset_launches() -> None:
 
 
 def launch_counts() -> dict:
-    """The nonzero launch counts, by geometry and scheme."""
+    """The nonzero launch counts, by geometry and scheme (a gather's by
+    ``fm.launch_key`` of scheme and form)."""
     return {k: {s: n for s, n in m.launches.items() if n}
             for k, m in MODULES.items() if any(m.launches.values())}
 
@@ -206,13 +211,16 @@ class Path:
 
     def __init__(self, name, rates, reduced, quality, target, frames, after,
                  module, source, replaces, kernel, fixed=False,
-                 flush_moves_f0=True, max_latency_ms=None):
+                 flush_moves_f0=True, max_latency_ms=None, wrap=None):
         self.name, self.rates, self.quality = name, rates, quality
         self.num, self.den = reduced
         self.target, self.frames, self.after = target, frames, after
         self.module, self.source, self.replaces = module, source, replaces
         self.kernel = kernel          # BatchSpec.kernel of the path
         self.fixed = fixed            # the Q15 universe (fixed_point=True)
+        # the wrap input in the kernel checks (fixed; a filter whose taps
+        # cannot drive a sum past 2^31 takes plain random samples)
+        self.wrap = fixed if wrap is None else wrap
         self.max_latency_ms = max_latency_ms
         self.max_in = (None if max_latency_ms is None
                        else int(max_latency_ms * rates[0] / 1000))
@@ -240,14 +248,56 @@ class Path:
                                 max_latency_ms=self.max_latency_ms)
 
 
-def kernel_call(hist, x, step, reference: bool = False):
+_FORCED = {}
+
+
+def gather_kw(step, form: str | None = None) -> dict:
+    """A gather step's launch arguments, its own (``form`` None) or with
+    its form forced: an explicit plan of that form over the step's starts
+    and, for the band form, its band (built once a step and form)."""
+    if form is None or form == step.kernel_kw["plan"].form:
+        return dict(step.kernel_kw)
+    key = (id(step), form)
+    if key not in _FORCED:
+        taps, starts = step.w[0], step.w[1].cpu().numpy()
+        n_accum = n_accum_of(step) if step.scheme == "fixed" else None
+        planner = fm.gather_plan_band if form == "band" else \
+            fm.gather_plan_rows
+        plan = planner(starts, taps.shape[-1], n_accum=n_accum)
+        _FORCED[key] = (step, dict(plan=plan, band=fm.gather_band(
+            taps, starts, plan) if form == "band" else None))
+    return dict(_FORCED[key][1])
+
+
+def gather_forms(step) -> tuple:
+    """The forms a gather step's launch can take: the band form where its
+    band fits a CTA, and the rows form."""
+    n_accum = n_accum_of(step) if step.scheme == "fixed" else None
+    fits = fm.gather_plan_band(step.w[1].cpu().numpy(), step.w[0].shape[-1],
+                               n_accum=n_accum) is not None
+    return ("band", "rows") if fits else ("rows",)
+
+
+def kernel_key(step, form: str | None = None) -> tuple:
+    """(geometry, scheme, n_accum) of a step's kernel, for a gather also
+    its form and the rows form's kO (:func:`kernel_name`'s arguments)."""
+    key = (step.kernel, step.scheme, n_accum_of(step))
+    if step.kernel != "gather":
+        return key
+    plan = gather_kw(step, form)["plan"]
+    return key + (plan.form, plan.outputs // 8 if plan.form == "rows" else 0)
+
+
+def kernel_call(hist, x, step, reference: bool = False,
+                form: str | None = None):
     """A function that runs the step's kernel (or, with ``reference``, its
     plain PyTorch version) on one launch's buffers, as the step launches
-    it (a gather reads hist and x as [B, rows] views)."""
+    it (a gather reads hist and x as [B, rows] views; ``form`` forces its
+    form, :func:`gather_kw`)."""
     fixed = step.scheme == "fixed"
     if step.kernel == "gather":
         fn = fm.resample_gather_fixed if fixed else fm.resample_gather
-        kw = dict(step.kernel_kw, hist=hist.t())
+        kw = dict(gather_kw(step, form), hist=hist.t())
         X = x[:step.chunk_rows].t()
         if reference:      # the wrapper's plain version, on the card
             fn = (fm.resample_gather_fixed_reference if fixed
@@ -263,9 +313,9 @@ def kernel_call(hist, x, step, reference: bool = False):
     return lambda: fn(hist, x, step.w, **step.kernel_kw)
 
 
-def launch(hist, x, step):
+def launch(hist, x, step, form: str | None = None):
     """The step's kernel on one launch's buffers."""
-    return kernel_call(hist, x, step)()
+    return kernel_call(hist, x, step, form=form)()
 
 
 def plain(hist, x, step):
@@ -281,8 +331,17 @@ def n_accum_of(step) -> int:
     return step.kernel_kw.get("n_accum", 1)
 
 
-def kernel_name(kernel: str, scheme: str, n_accum: int = 1) -> str:
-    """The CUDA kernel a (geometry, resolved scheme, n_accum) launches."""
+def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
+                form: str = "rows", kO: int = 0) -> str:
+    """The CUDA kernel a (geometry, resolved scheme, n_accum) launches; a
+    gather's in its form, with its template arguments (the samples int16;
+    the rows form's kO = M / 8 outputs a warp)."""
+    if kernel == "gather":
+        if form == "band":
+            return ("gather_fir_f64mma_kernel<short>" if scheme == "highest"
+                    else f"gather_fir_fixed_band_kernel<{n_accum}>")
+        return (f"gather_fir_f32_kernel<short, {kO}>" if scheme == "highest"
+                else f"gather_fir_fixed_kernel<{n_accum}, {kO}>")
     if scheme == "fixed":
         return f"{kernel}_fir_fixed_kernel<{n_accum}>"
     suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}[scheme]
@@ -343,6 +402,20 @@ DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
                    fm, "speex_resampler_tpu_torch/csrc/gather_fir.cu",
                    "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
                    fixed=True)
+# a steep gather decimation (N 11496, 8 outputs' windows 1676 rows apart):
+# its band does not fit a CTA, so the plan takes the rows form, staging a
+# chunk's rows in pieces; 96000-frame quanta: 210000 frames = 2 launches +
+# 18000 staged (f0 -> 206).  Its small taps cannot drive a fixed sum past
+# 2^31.
+STEEP = Path("gather 96k->401 q3", (96000, 401), (96000, 401), 3, 44100,
+             (100000, 60000, 50000), (96000,), fm,
+             "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+             "speex_resampler_tpu/ops/fir_matmul.py:120", "gather")
+STEEP_FIXED = Path("gather fixed 96k->401 q3", (96000, 401), (96000, 401), 3,
+                   44100, (100000, 60000, 50000), (96000,), fm,
+                   "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+                   "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
+                   fixed=True, wrap=False)
 # 12:1 decimation at q10, where "auto" resolves split5 (filt_len 3072, K
 # 4600, P 1); 30720-frame quanta: 73000 frames = 2 launches + 11560 staged
 DECIMATE = Path("tiled 96k->8k q10", (96000, 8000), (12, 1), 10, 30720,
@@ -456,7 +529,7 @@ def cuda_ms(fn, reps: int, warmup: int = 3, warm_ms: float = 25.0,
     return float(np.median(times))
 
 
-def launch_bound(spec, step, bspec, B: int):
+def launch_bound(spec, step, bspec, B: int, form: str | None = None):
     """(bound_ms, bound_by, bytes, operations, needed multiply-adds, band
     multiply-adds) of one launch.  The bound counts the work the function
     needs, not the work the kernel's tiling walks: filt_len multiply-adds
@@ -478,9 +551,12 @@ def launch_bound(spec, step, bspec, B: int):
     row tile's nonzero tap band (64 rows; "fixed": the fixed CTA's
     ``tiled_fir.FIXED_ROWS``; times n_accum), K_pad padding skipped; for
     "highest", each 16-row sub-band's 8-tap slices (``tiled_fir.f32_walk``;
-    the dense kernel's too); for a gather, the row loop's (row, output)
-    slots: each warp's start spread + filt_len rows for each of its
-    outputs (``csrc/gather_fir.cu``)."""
+    the dense kernel's too); for a gather in the rows form (``form``, the
+    step's own by default), the row loop's (row, output) slots: each
+    warp's start spread + filt_len rows for each of its outputs; in the
+    band form, the band's: every group's (fixed: times n_accum) or 16-output
+    tile's (float) outputs, the last padded, times its K taps
+    (``csrc/gather_fir.cu``)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     fixed = step.scheme == "fixed"
     n_accum = n_accum_of(step)
@@ -515,10 +591,15 @@ def launch_bound(spec, step, bspec, B: int):
         ops = 2 * macs
     nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
     if step.kernel == "gather":
-        kO = step.kernel_kw["plan"].outputs // 8
-        lo = np.arange(0, n_out, kO)
-        spread = starts[np.minimum(lo + kO, n_out) - 1] - starts[lo]
-        band_macs = int(((spread + N) * kO).sum()) * B * n_accum
+        plan = gather_kw(step, form)["plan"]
+        if plan.form == "band":
+            G = plan.outputs if fixed else 16
+            band_macs = -(-n_out // G) * G * plan.taps * B * n_accum
+        else:
+            kO = plan.outputs // 8
+            lo = np.arange(0, n_out, kO)
+            spread = starts[np.minimum(lo + kO, n_out) - 1] - starts[lo]
+            band_macs = int(((spread + N) * kO).sum()) * B * n_accum
     else:
         taps = step.w[-1].cpu().numpy()
         if step.scheme == "highest":
@@ -693,8 +774,9 @@ def ptxas_report() -> None:
 
 
 def gmma_counts(lib) -> dict:
-    """{(kernel, "IGMMA" | "HGMMA" | "FFMA" | "FADD" | "DFMA"): wgmma, f32
-    FMA, f32 add and f64 FMA instructions} in a built library's SASS
+    """{(kernel, "IGMMA" | "HGMMA" | "FFMA" | "FADD" | "DFMA" | "DMMA"):
+    wgmma, f32 FMA, f32 add, f64 FMA and f64 mma.sync instructions} in a
+    built library's SASS
     (``cuobjdump -sass``, which ships with the CUDA toolkit beside nvcc);
     raises if the tool is missing or fails."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -714,7 +796,7 @@ def gmma_counts(lib) -> dict:
             op = "IGMMA" if "IGMMA" in line else "HGMMA"
             counts[(name, op)] = counts.get((name, op), 0) + 1
         elif name:
-            f = re.search(r"\b(FFMA|FADD|DFMA)\b", line)
+            f = re.search(r"\b(FFMA|FADD|DFMA|DMMA)\b", line)
             if f:
                 key = (name, f.group(1))
                 counts[key] = counts.get(key, 0) + 1
@@ -723,9 +805,11 @@ def gmma_counts(lib) -> dict:
 
 def sass_check() -> None:
     """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
-    int8 and fixed (IGMMA) kernel in the built library's SASS
-    (:func:`gmma_counts`), and the f64 FMAs of the float gather kernels
-    (their dots are double FMA chains); raises if one of them has none."""
+    int8 and fixed (IGMMA; the fixed band gather too) kernel in the built
+    library's SASS (:func:`gmma_counts`), the f64 FMAs of the float rows
+    gather kernels (their dots are double FMA chains) and the FP64
+    tensor-core instructions (DMMA) of the float band gather kernels;
+    raises if one of them has none."""
     counts = gmma_counts(_build.lib_path())
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
@@ -737,12 +821,16 @@ def sass_check() -> None:
         (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
         for geo in ("tiled", "streamed", "dense") for n in (1, 4)] + [
         (f"gather_fir_f32_kernel<{t}, {k}>", "DFMA")
-        for t in ("short", "float") for k in (1, 2, 4, 8)]
+        for t in ("short", "float") for k in (1, 2, 4, 8)] + [
+        (f"gather_fir_fixed_band_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
+        (f"gather_fir_f64mma_kernel<{t}>", "DMMA")
+        for t in ("short", "float")]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit 0): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
-        raise AssertionError("a tensor-core kernel has no wgmma instruction "
-                             "or a float gather kernel no DFMA")
+        raise AssertionError("a tensor-core kernel has no wgmma or DMMA "
+                             "instruction or a float rows gather kernel no "
+                             "DFMA")
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
@@ -752,7 +840,10 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
     for "int8" and "fixed" (one 64-lane CTA tile); fixed with the wrap
     input on every third lane, int8 with rows of -32768 and 32767.
     ``kernel`` overrides the geometry: "streamed" feeds a tiled direct
-    filter's weights to the streamed kernel."""
+    filter's weights to the streamed kernel.  A gather runs both forms,
+    each forced through an explicit plan (:func:`gather_kw`), at every B
+    of 2048 / 130 / 129 / 64, the float one's raw f32 sums also held
+    within one f32 rounding of the plain version's."""
     for scheme in schemes:
         for f0 in sorted({0, path.f0_flush}):
             bspec = path.geometry(f0)
@@ -764,24 +855,38 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                 raise AssertionError(f"{path.name}: {step.kernel} step")
             D = step.w[0].shape[0] if step.scheme == "int8" else 0
             n_accum = n_accum_of(step)
-            for B in (LANES, 130) + {"highest": (129,), "int8": (129, 64),
-                                     "fixed": (129, 64)}.get(step.scheme,
-                                                             ()):
+            lanes = (LANES, 130) + {"highest": (129,), "int8": (129, 64),
+                                    "fixed": (129, 64)}.get(step.scheme, ())
+            forms = (None,)
+            if step.kernel == "gather":
+                lanes, forms = (LANES, 130, 129, 64), gather_forms(step)
+            for form, B in ((f, b) for f in forms for b in lanes):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
-                                      seed=B + f0, wrap=path.fixed,
+                                      seed=B + f0, wrap=path.wrap,
                                       edges=step.scheme == "int8")
-                got = launch(hist, x, step)
+                got = launch(hist, x, step, form)
                 want = plain(hist, x, step)
                 torch.cuda.synchronize()
-                what = f"{path.name} {scheme} f0={f0} B={B}"
+                what = f"{path.name} {scheme} {form or ''} f0={f0} B={B}"
                 err, mism = compare(got.cpu().numpy(), want.cpu().numpy(),
                                     step.scheme, what)
-                key = (step.kernel, step.scheme, n_accum)
+                key = kernel_key(step, form)
                 max_err[key] = max(max_err.get(key, 0), err)
                 print(f"kernel vs plain: {path.name} {scheme:7s} -> "
                       f"{kernel_name(*key)} D={D} f0={f0:3d} B={B:4d} "
                       f"n_blocks={bspec.n_blocks} max|err|={err} "
                       f"mismatches={mism} {ties(mism, got.numel())}")
+                if step.kernel == "gather" and not path.fixed:
+                    kw = dict(gather_kw(step, form), hist=hist.t(), raw=True)
+                    g = fm.resample_gather(x[:step.chunk_rows].t(), *step.w,
+                                           **kw)
+                    w = fm.resample_gather_reference(
+                        torch.cat([hist, x[:step.chunk_rows]]).t(), *step.w,
+                        raw=True)
+                    ulp = torch.abs(torch.nextafter(w, w + 1) - w)
+                    if not bool(((g - w).abs() <= ulp).all()):
+                        raise AssertionError(f"{what}: raw sums off by more "
+                                             f"than one f32 rounding")
 
 
 def serve_engine(path: Path, scheme: str, frames: list):
@@ -832,7 +937,10 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
         raise AssertionError(f"auto resolved int8 D="
                              f"{engines['int8']._step.w[0].shape[0]}")
     n = len(path.frames)
-    launched = {s: e.launches for s, e in engines.items()}
+    # a gather's launches in the form its engine's step was built with
+    launched = {(fm.launch_key(s, e._step.kernel_kw["plan"].form)
+                 if path.kernel == "gather" else s): e.launches
+                for s, e in engines.items()}
     if any(counts[s] != launched.get(s, 0) for s in counts) \
             or not any(counts.values()) or min(launched.values()) < n:
         raise AssertionError(f"kernel launches {counts} vs engines "
@@ -860,16 +968,24 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
     return counts, engines, frames
 
 
-def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
+# the measured int8 tensor-core rates, multiply-adds/s with a shared
+# fragment, by wgmma N (PERF.md section 5: P1's N 32 and 64 on the H100)
+INT8_MEASURED = {32: 523.7e12, 64: 675.7e12}
+
+
+def time_launch(label: str, spec, step, bspec, smi: str, reps: int,
+                form: str | None = None):
     """Kernel, plain and library times of one launch at B = 2048 (library:
     :func:`library_call`, where one PyTorch call computes the product);
     kernel and library also from a CUDA graph of ``reps`` launches, the
     kernel also one launch at a time (:func:`cuda_ms`); the plain gathers,
-    ~0.1-0.3 s a launch, in groups of 2.  Returns the JSON entry's
-    numbers."""
+    ~0.1-0.3 s a launch, in groups of 2.  ``form`` forces a gather's form
+    (:func:`gather_kw`); the fixed band's walked band is also put at the
+    measured int8 rate (:data:`INT8_MEASURED`), the float band's as the
+    DMMA rate it reached.  Returns the JSON entry's numbers."""
     out_samples = bspec.out_per_launch * LANES
     hist, x = card_inputs(step, bspec.in_per_launch, LANES, seed=7)
-    run = kernel_call(hist, x, step)
+    run = kernel_call(hist, x, step, form=form)
     ms = cuda_ms(run, reps)
     graph_ms = cuda_ms(run, reps, mode="graph")
     host_ms = cuda_ms(run, reps, mode="host")
@@ -882,7 +998,7 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
         library_graph_ms = cuda_ms(lib_fn, reps, mode="graph")
         del lib_fn
     bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
-        spec, step, bspec, LANES)
+        spec, step, bspec, LANES, form)
     lib = ("none" if library_ms is None else
            f"{library_ms:.4f} ms (graph {library_graph_ms:.4f})")
     print(f"timing {label} on {smi}: kernel {ms:.4f} ms/launch back to "
@@ -898,6 +1014,17 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int):
     if library_graph_ms is not None:
         print(f"  graph: kernel / library = {graph_ms:.4f} / "
               f"{library_graph_ms:.4f} ms = {graph_ms / library_graph_ms:.3f}")
+    if step.kernel == "gather" and gather_kw(step, form)["plan"].form \
+            == "band":
+        if step.scheme == "fixed":    # four int8 products a multiply-add
+            n = 64 if n_accum_of(step) == 4 else 32
+            print(f"  band at the measured int8 rate (N {n}, "
+                  f"{INT8_MEASURED[n] / 1e12:.1f} T): "
+                  f"{4 * band_macs / INT8_MEASURED[n] * 1e3:.4f} ms")
+        else:
+            print(f"  band DMMA rate: {band_macs / ms / 1e9:.2f} T f64 "
+                  f"multiply-adds/s back to back, "
+                  f"{band_macs / graph_ms / 1e9:.2f} in a graph")
     return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, graph_ms=graph_ms,
                 library_graph_ms=library_graph_ms, host_ms=host_ms)
@@ -915,19 +1042,23 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
     for scheme in schemes + unlisted:
         step = tb.make_batched_step(path.spec, bspec, device="cuda",
                                     scheme=scheme)
-        key = (step.kernel, step.scheme, n_accum_of(step))
-        D = step.w[0].shape[0] if step.scheme == "int8" else 0
-        nums = time_launch(f"{path.name} {scheme:7s} ({kernel_name(*key)} "
-                           f"D={D})", path.spec, step, bspec, smi, reps)
-        ms[step.scheme] = nums["ms"]
-        if scheme in unlisted:
-            continue
-        entries.append({
-            "name": kernel_name(*key), "route": "cuda",
-            "source": path.source,
-            "replaces": REPLACES.get(key[:2], path.replaces),
-            "launches": counts[step.scheme], "max_abs_err": max_err[key],
-            **nums})
+        forms = gather_forms(step) if step.kernel == "gather" else (None,)
+        for form in forms:
+            key = kernel_key(step, form)
+            D = step.w[0].shape[0] if step.scheme == "int8" else 0
+            nums = time_launch(f"{path.name} {scheme:7s} "
+                               f"({kernel_name(*key)} D={D})", path.spec,
+                               step, bspec, smi, reps, form)
+            ms[step.scheme] = nums["ms"]
+            if scheme in unlisted:
+                continue
+            n = counts[fm.launch_key(step.scheme, form) if form
+                       else step.scheme]
+            entries.append({
+                "name": kernel_name(*key), "route": "cuda",
+                "source": path.source,
+                "replaces": REPLACES.get(key[:2], path.replaces),
+                "launches": n, "max_abs_err": max_err[key], **nums})
     if "split5" in ms and "highest" in ms:
         print(f"split5 / highest at {path.name} on {smi}: "
               f"{ms['split5']:.4f} / {ms['highest']:.4f} ms = "
@@ -1175,8 +1306,9 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
     64-channel cores (auto: the device route), the gather route, the
     fixed universe (bit-exact against device="cpu") and the TF32 guard.
     The matmul route is plain torch on the card; the gather route launches
-    the gather kernel (counted, at least once); no other kernel of MODULES
-    launches."""
+    the gather kernel (counted, at least once; its rows form, its x an f32
+    [channels, T] array read by element); no other kernel of MODULES
+    launches.  Returns the gather launches."""
     reset_launches()
     gathers = 0
     for i, (c, ir, orr, q) in enumerate(SINGLE):
@@ -1244,7 +1376,8 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
     if launch_counts() != {"gather": {"highest": gathers}}:
         raise AssertionError(f"single-stream layer launched kernels "
                              f"{launch_counts()}, {gathers} of them by the "
-                             f"gather route")
+                             f"gather route (the rows form)")
+    return gathers
 
 
 def single_stream_time(smi: str, seconds: float = SINGLE_SECONDS) -> None:
@@ -1563,7 +1696,8 @@ def capture_geometries() -> dict:
 
     def check(name, run, cpu_run, inputs, scheme, kind):
         counts = graph_equals_eager(name, run, inputs)
-        want = {kind[0]: {scheme: 1}}
+        want = {kind[0]: {fm.launch_key(scheme, kind[2]) if kind[0] ==
+                          "gather" else scheme: 1}}
         if counts != want:
             raise AssertionError(f"{name}: capture launched {counts}, "
                                  f"expected {want}")
@@ -1578,7 +1712,7 @@ def capture_geometries() -> dict:
             print(f"graph capture {name} input {i}: lanes {FN_LANES[:8]}.."
                   f"{FN_LANES[-1]} vs device='cpu' max|err|={err} "
                   f"mismatches={mism}")
-        key = kernel_name(kind[0], scheme, kind[1])
+        key = kernel_name(kind[0], scheme, *kind[1:])
         captured[key] = captured.get(key, 0) + 1
 
     for path in (VOIP, VOIP_FIXED):
@@ -1600,7 +1734,7 @@ def capture_geometries() -> dict:
             for rows in (rs.hist_rows, rs.in_frames)) for _ in range(2)]
         check(f"gather{' fixed' if fixed else ''} 44.1k->44.101k q7 "
               f"make_stream_fn step", rs.step, cpu.step, inputs, rs.scheme,
-              ("gather", 4 if fixed else 1))
+              ("gather", 4 if fixed else 1, "band"))
     return captured
 
 
@@ -2510,7 +2644,7 @@ def main() -> None:
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
         check_kernels(path, ("auto",), max_err)
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
-    for path in (VOIP_FIXED, DRIFT, DRIFT_FIXED):
+    for path in (VOIP_FIXED, DRIFT, DRIFT_FIXED, STEEP, STEEP_FIXED):
         check_kernels(path, ("auto",), max_err)
     print(f"kernels checked: {time.time() - t_start:.1f} s")
     marks["3 kernels checked"] = time.time() - t_start
@@ -2521,9 +2655,9 @@ def main() -> None:
               SLICE: serve(SLICE, {**float_requests, "split5": "split5"},
                            want_digits=4)}
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT, VOIP_FIXED,
-                 DRIFT_FIXED):
+                 DRIFT_FIXED, STEEP_FIXED):
         served[path] = serve(path, {"auto": "fixed"})
-    for path in (VOIP, DRIFT):
+    for path in (VOIP, DRIFT, STEEP):
         served[path] = serve(path, {"auto": "highest"})
     served[DECIMATE] = serve(DECIMATE, {"auto": "split5"})
     print(f"served: {time.time() - t_start:.1f} s")
@@ -2542,7 +2676,8 @@ def main() -> None:
             (VOIP, ("auto",), ()),
             (DECIMATE, ("auto",), ("highest",)),
             (VOIP_FIXED, ("auto",), ()), (DRIFT, ("auto",), ()),
-            (DRIFT_FIXED, ("auto",), ())):
+            (DRIFT_FIXED, ("auto",), ()), (STEEP, ("auto",), ()),
+            (STEEP_FIXED, ("auto",), ())):
         counts, engines, frames = served[path]
         kernels += time_path(path, schemes, smi, counts, max_err, engines,
                              frames, reps=20, unlisted=unlisted)
@@ -2567,7 +2702,11 @@ def main() -> None:
     print(f"fleet and process timed: {time.time() - t_start:.1f} s")
     marks["6 fleet"] = time.time() - t_start
     # -- phase 7: the single-stream layer (SpeexResampler, ResamplerCore)
-    single_stream_check()
+    phase7 = single_stream_check()
+    for entry in kernels:    # the rows kernel's f32-sample instance
+        if entry["name"] == kernel_name("gather", "highest", form="rows",
+                                        kO=8):
+            entry["phase7_launches"] = phase7
     single_stream_time(smi)
     print(f"single-stream layer: {time.time() - t_start:.1f} s")
     marks["7 single stream"] = time.time() - t_start

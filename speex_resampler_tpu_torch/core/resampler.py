@@ -740,7 +740,10 @@ class ResamplerCore:
         taps = spec.phase_rows(p)  # [n_out, N] host gather (lazy: huge-den
         # specs compute just these rows, never the full [den, N] table)
         dev = self.device
-        plan = (fm.gather_plan(s, N, x_itemsize=X.dtype.itemsize)
+        # the rows form: plan and taps are made each call, where a band
+        # would be built on the host too, and its zero taps would carry a
+        # non-finite float sample into outputs whose windows miss it
+        plan = (fm.gather_plan_rows(s, N, x_itemsize=X.dtype.itemsize)
                 if dev.type == "cuda" else None)
         y = fm.resample_gather(torch.from_numpy(X).to(dev),
                                torch.from_numpy(taps).to(dev),

@@ -1,5 +1,7 @@
 // The gather launch for Hopper (sm_90a): per-output tap-row dots, float
-// and fixed.
+// and fixed, in two forms that the host's plan chooses between when a step
+// is built (ops/fir_matmul.gather_plan): "rows", per-output dots on the
+// CUDA cores, and "band", a banded product on the tensor cores.
 //
 // Replaces speex_resampler_tpu/ops/fir_matmul.py resample_gather (float,
 // an f32 HIGHEST einsum) and resample_gather_fixed (exact int32 multiply
@@ -20,41 +22,81 @@
 // The rows are those of the virtual axis hist ++ x (hist's H rows, then
 // x's; the batched step's history and chunk, read in place, so the step
 // copies neither into one buffer; the single-stream route has no hist).
-// starts[] are non-decreasing (clamped at the tail), so M consecutive
-// outputs read the rows starts[o0] .. starts[o0 + M - 1] + N - 1: a CTA
-// takes M outputs x 64 lanes, stages those rows (in x's own type) and the
-// M tap rows (float: as double; fixed: as int32) in shared memory once,
-// then each thread walks its outputs' dots.  M, a tap chunk KC and the
-// rows a CTA stages at once come from the host (ops/fir_matmul.gather_plan,
-// computed from the starts when the step is built, never at launch) so
-// they fit shared memory; taps past KC are walked in further chunks,
-// restaged.  Where a chunk's rows (the start spread + KC) outnumber the
-// plan's, as in a steep decimation whose 8 outputs' windows lie far
-// apart, they are staged and walked a piece of `rows` at a time.
+// starts[] are non-decreasing (clamped at the tail).
 //
-// A warp holds kO consecutive outputs (M = 8 kO), a thread two adjacent
-// lanes.  It runs over the rows v its outputs' windows cover, in order:
-// it loads row v's two samples once, then for each of its outputs whose
-// window holds v adds tap (v - that output's offset) times them.  So every
-// output's dot runs in tap order, each sample is read from shared memory
-// once per thread, and every tap load is one broadcast to the warp.
+// Rows form (gather_fir_f32_kernel, gather_fir_fixed_kernel).  M
+// consecutive outputs read the rows starts[o0] .. starts[o0 + M - 1] + N -
+// 1: a CTA takes M outputs x 64 lanes, stages those rows (in x's own type)
+// and the M tap rows (float: as double; fixed: as int32) in shared memory
+// once, then each thread walks its outputs' dots.  M, a tap chunk KC and
+// the rows a CTA stages at once come from the host's plan so they fit
+// shared memory; taps past KC are walked in further chunks, restaged.
+// Where a chunk's rows (the start spread + KC) outnumber the plan's, as in
+// a steep decimation whose 8 outputs' windows lie far apart, they are
+// staged and walked a piece of `rows` at a time.  A warp holds kO
+// consecutive outputs (M = 8 kO), a thread two adjacent lanes.  It runs
+// over the rows v its outputs' windows cover, in order: it loads row v's
+// two samples once, then for each of its outputs whose window holds v adds
+// tap (v - that output's offset) times them.  So every output's dot runs
+// in tap order, each sample is read from shared memory once per thread,
+// and every tap load is one broadcast to the warp.
 //
-// Float: the products of f32 taps and int16 (or f32) samples are exact in
-// double, and the dot is a double FMA chain in tap order, rounded once to
-// f32 at the end, as the plain version's float64 matmul is: the two agree
-// bit for bit unless a float64 sum lands within its own rounding error of
-// an f32 rounding boundary.  Fixed: the products and the sums are taken in
-// uint32, whose wrap is defined; the sum mod 2^32 does not depend on the
-// order, so the kernel and the plain version agree bit for bit.
+// Band form.  Where consecutive outputs' windows overlap (drift: 44101
+// outputs advance < 1 row each), G consecutive outputs' taps, each placed
+// at its offset starts[o] - starts[o0] from the group's first, form a
+// dense [G, K] band (K: the group's start spread + N, padded), and the
+// group's dots are that band times the [K, lanes] window from row
+// starts[o0]: a matrix product with zeros where an output's window misses
+// a row.  The host builds the band when it builds the step
+// (ops/fir_matmul.gather_band).
+//   - Fixed, gather_fir_fixed_band_kernel<kAccum> on fixed_wgmma.cuh's
+//     product (int8 wgmma m64nNk32, x the register operand, four int8
+//     dots and the bias 128 * sum w a column, uint32 sums): G = 32
+//     outputs (kAccum 4: a warpgroup 16 outputs x 4 column sets) or 64
+//     (kAccum 1).  The band is split into balanced int8 planes int8[2,
+//     groups, kAccum * G, K] (K-major, each 32-tap group permuted by
+//     tiled_fir.K_PERM, column c * G + j for set c of output j), with the
+//     bias int32[groups, kAccum * G].  A CTA keeps its group's planes
+//     resident in shared memory and walks kFixedLaneTiles 64-lane tiles, each
+//     warpgroup through its own ring of x stages (as int8_wgmma.cuh's
+//     fir_tile_resident), then the existing Q15 epilogue.  The K origin,
+//     starts[o0], needs no alignment: x is the register operand.  The sum
+//     mod 2^32 does not depend on the order and zero band entries add 0,
+//     so the kernel equals the plain version bit for bit.
+//   - Float, gather_fir_f64mma_kernel<XT> on the FP64 tensor cores
+//     (mma.sync m16n8k8 .f64, SASS DMMA): a warp takes 16 consecutive
+//     outputs (M, their f64 band [16, K], K: the 16 outputs' spread + N
+//     rounded up to 8) and 32 lanes as four 8-lane slices (N), with its
+//     own K origin starts[o0].  A CTA (8 warps) takes 64 outputs x 64
+//     lanes: four 16-output tiles, two warps each; it keeps the tiles'
+//     bands resident (f64, as built) and walks kF64LaneTiles lane tiles,
+//     staging each tile's window (x's own type) while the previous one is
+//     multiplied; B fragments are converted to f64 as they are loaded.
+//     Products of f32 taps and int16 (or f32) samples are exact in f64;
+//     the sum is f64 in the tensor cores' order, rounded once to f32: the
+//     contract of the rows form.  (Unlike the rows form, a band multiplies
+//     every staged row, so a non-finite sample outside an output's window
+//     but inside its band would reach it through a zero tap.)
+//
+// Float rows: the products are exact in double, and the dot is a double
+// FMA chain in tap order, rounded once to f32 at the end, as the plain
+// version's float64 matmul is: the two agree bit for bit unless a float64
+// sum lands within its own rounding error of an f32 rounding boundary.
+// Fixed rows: the products and the sums are taken in uint32, whose wrap is
+// defined; the sum mod 2^32 does not depend on the order, so the kernel
+// and the plain version agree bit for bit.
 //
 // What bounds it on the H100: drift at B = 2048 needs 11.56 G multiply-adds
 // (44101 outputs x 128 taps x 2048 lanes) against ~385 MB of x, y and taps:
-// 0.345 ms at the 67 TFLOP/s of the f32 CUDA cores, 0.115 ms of bytes.  This
-// kernel runs on the FP64 units (64 DFMA a clock an SM, half the f32 rate),
-// and the fixed one on IMAD (4 x 11.56 G at 64 a clock an SM, ~2.8 ms), so
-// both sit well above that bound: a banded tensor-core form (a [M, M + N]
-// tap band times the staged [M + N, lanes] window) is the way down.
+// 0.345 ms at the 67 TFLOP/s of the f32 CUDA cores (and of the FP64 tensor
+// cores), 0.115 ms of bytes; fixed (4 tap rows, 4 int8 products each)
+// 0.187 ms at the int8 tensor cores' peak.  The rows form runs on the FP64
+// units (64 DFMA a clock an SM) and on IMAD (4 x 11.56 G at 64 a clock an
+// SM, ~2.8 ms), well above that; the band form walks its padded band
+// (fixed: 1379 groups x 128 columns x 160 taps x 2048 lanes, 57.8 G; float:
+// 44101 x 144 x 2048, 13.0 G) on the tensor cores.
 #include "fir_common.cuh"
+#include "fixed_wgmma.cuh"
 
 #include <type_traits>
 
@@ -436,6 +478,473 @@ Gather make_gather(const void* h, long long hst, long long hsb, int H,
                 n_out, N, KC, rows, y};
 }
 
+// -- band form ---------------------------------------------------------------
+
+namespace i8 = fir::int8tc;
+
+constexpr int kMaxSmem = i8::kMaxSmem;  // a CTA's most on the H100
+constexpr int kWgThreads = kThreads / 2;
+// 64-lane tiles a band CTA walks with its band resident, by kernel
+// (tools/gather_ablate.py on the H100: of 8, 16 and 32, the fixed kernel
+// was fastest at 16, the float one at 8)
+constexpr int kFixedLaneTiles = 16;
+constexpr int kF64LaneTiles = 8;
+
+// Whether hist and x rows take 16-byte loads of 16 / sizeof(XT) lanes.
+template <typename XT>
+__device__ __forceinline__ bool vector_axis(const Gather& g) {
+  constexpr int kV = 16 / sizeof(XT);
+  return g.B % kV == 0 && vector_rows<kV>(g.x, g.st, g.sb) &&
+         (g.H == 0 || vector_rows<kV>(g.h, g.hst, g.hsb));
+}
+
+// The element of axis row v (< T), lane b (< B).
+template <typename XT>
+__device__ __forceinline__ const XT* axis_at(const Gather& g, int v, int b) {
+  return v < g.H ? static_cast<const XT*>(g.h) + v * g.hst + b * g.hsb
+                 : static_cast<const XT*>(g.x) + (v - g.H) * g.st + b * g.sb;
+}
+
+// 16 bytes of axis row v from lane b (16 / sizeof(XT) lanes; zeros past T
+// and past B) to shared dst: one cp.async where vec, else element loads
+// and one shared store.
+template <typename XT>
+__device__ __forceinline__ void copy_axis16(const Gather& g, int v, int b,
+                                            bool vec, uint32_t dst) {
+  constexpr int kV = 16 / sizeof(XT);
+  const bool in = v < g.T && b < g.B;
+  if (vec) {
+    fir::copy16(dst,
+                in ? static_cast<const void*>(axis_at<XT>(g, v, b)) : g.starts,
+                in ? 16 : 0);
+    return;
+  }
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < kV; ++e) {
+    if (!in || b + e >= g.B) continue;
+    const XT val = *axis_at<XT>(g, v, b + e);
+    if constexpr (sizeof(XT) == 2)
+      w[e / 2] |= (uint32_t)(uint16_t)val << (16 * (e & 1));
+    else
+      w[e] = __float_as_uint(val);
+  }
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(dst),
+               "r"(w[0]), "r"(w[1]), "r"(w[2]), "r"(w[3])
+               : "memory");
+}
+
+// The CTAs a band tile (a group of outputs) takes: ceil(B / 64) lane
+// tiles, `per` a CTA.
+__host__ __device__ inline int band_chunks(int B, int per) {
+  const int all = (B + kLanes - 1) / kLanes;
+  return (all + per - 1) / per;
+}
+
+// CTA blockIdx.x of a band launch: band tile `tile` and its lane tiles
+// lt0 .. lt0 + n_lt - 1, `per` a CTA.
+struct BandCta {
+  int tile, lt0, n_lt;
+  __device__ BandCta(const Gather& g, int per) {
+    const int chunks = band_chunks(g.B, per);
+    tile = blockIdx.x / chunks;
+    lt0 = blockIdx.x % chunks * per;
+    n_lt = min(per, (g.B + kLanes - 1) / kLanes - lt0);
+  }
+};
+
+// Fixed band: G = fixedtc::Shape<kAccum>::kRows outputs a group.  planes
+// int8[2, groups, kAccum * G, K] (K % 32 == 0, 16-byte aligned), bias
+// int32[groups, kAccum * G], coef int32[n_out, 4] (kAccum 4).
+struct FixedBand {
+  const int8_t* planes;
+  const int32_t* bias;
+  const int32_t* coef;
+  int K;
+};
+
+// Dynamic shared memory of a fixed band CTA: the group's two planes, each
+// warpgroup's ring of x stages and output rows, alignment.
+template <int kAccum>
+__host__ __device__ constexpr int fixed_band_smem(int K) {
+  using Sh = fir::fixedtc::Shape<kAccum>;
+  return 2 * (K / i8::kK) * Sh::kTileBytes +
+         2 * (i8::kRing * i8::kRawBytes + Sh::kWgRows * i8::kRawPitch) + 128;
+}
+
+// One CTA: the group's planes copied into shared memory once (K-slice tile
+// (p, s) at (p * n_slices + s) * kTileBytes, warpgroup h's kN rows from
+// row h * kN: its kWgRows outputs' column sets, set-major, as fir_tile
+// reads them), then each warpgroup walks the CTA's lane tiles on its own:
+// its own ring of kRing 64-tap x stages (kRing - 1 ahead; the x of a
+// K-slice past the band is not copied), a named barrier (1 + h) a stage,
+// the fragments of a K-slice built while the previous slice's wgmmas run,
+// four wgmmas a K-slice (wh.xh; wh.xl and wl.xh into one accumulator;
+// wl.xl), and after a tile's last slice its epilogue: the sums 65536 hh +
+// 256 mid + ll + bias, the Q15 mix, the int16 rows through shared memory
+// to 16-byte stores (outputs past n_out and lanes past B not stored).
+template <int kAccum>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_fir_fixed_band_kernel(Gather g, FixedBand bw) {
+  using Sh = fir::fixedtc::Shape<kAccum>;
+  constexpr int kG = Sh::kRows, kC = kAccum * kG;
+  extern __shared__ uint8_t fixed_band_smem_buf[];
+  const int tid = threadIdx.x, h = tid / kWgThreads, wt = tid % kWgThreads;
+  const int w = wt / 32, l = tid % 32;
+  const BandCta cta(g, kFixedLaneTiles);
+  const int n_slices = bw.K / i8::kK;
+  const int n_st = (n_slices + i8::kSub - 1) / i8::kSub;
+  const int n_total = cta.n_lt * n_st;
+  const int o0 = cta.tile * kG, v0 = g.starts[o0];
+  const uint32_t band = (fir::smem_addr(fixed_band_smem_buf) + 127) & ~127u;
+  const uint32_t rings = band + 2 * n_slices * Sh::kTileBytes;
+  const uint32_t ring = rings + h * i8::kRing * i8::kRawBytes;
+  const uint32_t out = rings + 2 * i8::kRing * i8::kRawBytes +
+                       h * Sh::kWgRows * i8::kRawPitch;
+  const bool vec = vector_axis<int16_t>(g);
+  // This thread's ldmatrix row (int8tc::load_split).
+  const uint32_t frag = (8 * (l / 16) + l % 8) * i8::kRawPitch +
+                        (16 * w + 8 * ((l / 8) % 2)) * 2;
+
+  // the group's band: chunk e is 16-byte chunk cc of band column n's K
+  // bytes in plane p (neighbouring threads, neighbouring chunks)
+  {
+    const int per_row = bw.K / 16, groups = (g.n_out + kG - 1) / kG;
+    const size_t plane = (size_t)groups * kC * bw.K;
+    const int8_t* src = bw.planes + (size_t)cta.tile * kC * bw.K;
+    for (int e = tid; e < 2 * kC * per_row; e += kThreads) {
+      const int cc = e % per_row, n = e / per_row % kC, p = e / (per_row * kC);
+      const int j = n % kG;  // output j of the group, column set n / kG
+      const int row = j / Sh::kWgRows * Sh::kN + n / kG * Sh::kWgRows +
+                      j % Sh::kWgRows;
+      fir::copy16(band + (p * n_slices + cc / 2) * Sh::kTileBytes +
+                      i8::core_offset(row, cc % 2),
+                  src + p * plane + (size_t)n * bw.K + cc * 16, 16);
+    }
+  }
+  // stage q of this warpgroup's walk (its lane tile q / n_st, that tile's
+  // stage q % n_st): one cp.async group, empty past the walk
+  auto copy_stage = [&](int q) {
+    if (q < n_total) {
+      const int lane0 = (cta.lt0 + q / n_st) * kLanes, s = q % n_st;
+      const uint32_t buf = ring + q % i8::kRing * i8::kRawBytes;
+#pragma unroll
+      for (int r = 0; r < i8::kStageTaps * kLanes / 8 / kWgThreads; ++r) {
+        const int i = wt + r * kWgThreads, tap = i / (kLanes / 8);
+        const int lane = (i % (kLanes / 8)) * 8;
+        if (s * i8::kStageTaps + tap < bw.K)
+          copy_axis16<int16_t>(g, v0 + s * i8::kStageTaps + tap,
+                               lane0 + lane, vec,
+                               buf + tap * i8::kRawPitch + lane * 2);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // this thread's copies of the next stage have landed; then the
+  // warpgroup's.  The first wait also takes the band (in the first
+  // group): every thread's, fenced for the tensor cores, across the CTA.
+  auto stage_ready = [&](bool first_wait) {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(i8::kRingLead - 1)
+                 : "memory");
+    if (first_wait) {
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    } else {
+      asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(kWgThreads)
+                   : "memory");
+    }
+  };
+
+  int acc[3][Sh::kAcc];  // hh, mid, ll
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < Sh::kAcc; ++i) acc[j][i] = 0;
+#pragma unroll
+  for (int q = 0; q < i8::kRingLead; ++q) copy_stage(q);
+  stage_ready(true);
+  uint32_t xh[2][4], xl[2][4];
+  const uint32_t w_row = band + h * (Sh::kN / 8) * 256;
+  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+#pragma unroll 1
+  for (int it = 0; it < cta.n_lt; ++it) {
+#pragma unroll 1
+    for (int s = 0; s < n_st; ++s) {
+      const int q = it * n_st + s;
+      const uint32_t buf = ring + q % i8::kRing * i8::kRawBytes;
+#pragma unroll
+      for (int j = 0; j < i8::kSub; ++j) {
+        const int slice = s * i8::kSub + j;
+        // a tile's last stage stops at the band's end (uniform)
+        if (j > 0 && slice >= n_slices) break;
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        i8::pin(xh[j]);
+        i8::pin(xl[j]);
+        i8::load_split(buf + j * i8::kK * i8::kRawPitch + frag, xh[j], xl[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const uint64_t bh = i8::descriptor(w_row + slice * Sh::kTileBytes);
+        const uint64_t bl =
+            i8::descriptor(w_row + (n_slices + slice) * Sh::kTileBytes);
+        fir::fixedtc::mma(acc[0], xh[j], bh, slice > 0);
+        fir::fixedtc::mma(acc[1], xl[j], bh, slice > 0);
+        fir::fixedtc::mma(acc[1], xh[j], bl, 1);
+        fir::fixedtc::mma(acc[2], xl[j], bl, slice > 0);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // the buffer of stage q - 1 takes stage q + kRingLead: every
+        // thread's ldmatrix of it ended before the last barrier
+        if (j == 0) copy_stage(q + i8::kRingLead);
+      }
+      stage_ready(false);
+    }
+    // The epilogue of lane tile lt0 + it.  Accumulator register i = set *
+    // kPer + e of thread (warp w, lane l): lane 16w + l/4 + 8*((e/2)%2),
+    // output h * kWgRows + r, r = 8*(e/4) + 2*(l%4) + e%2 (fir_tile's
+    // map).  The last readers of `out` passed a barrier since.
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 3; ++j) i8::pin(acc[j]);
+    const int32_t* bias_g = bw.bias + (size_t)cta.tile * kC + h * Sh::kWgRows;
+#pragma unroll
+    for (int e = 0; e < Sh::kPer; ++e) {
+      const int lane = 16 * w + l / 4 + 8 * ((e / 2) % 2);
+      const int r = 8 * (e / 4) + 2 * (l % 4) + e % 2;
+      const int o = o0 + h * Sh::kWgRows + r;
+      unsigned mix = 0;
+#pragma unroll
+      for (int set = 0; set < kAccum; ++set) {
+        const int i = set * Sh::kPer + e;
+        const unsigned sum = 65536u * (unsigned)acc[0][i] +
+                             256u * (unsigned)acc[1][i] + (unsigned)acc[2][i] +
+                             (unsigned)bias_g[set * kG + r];
+        mix = kAccum == 1
+                  ? sum
+                  : mix + fir::mult16_32_q15(
+                              o < g.n_out ? bw.coef[(size_t)o * 4 + set] : 0,
+                              (int)sum >> 1);
+      }
+      asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(out + r * i8::kRawPitch +
+                                                     lane * 2),
+                   "h"(fir::sat32pshr15((int)mix))
+                   : "memory");
+    }
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(kWgThreads)
+                 : "memory");
+    const int lane0 = (cta.lt0 + it) * kLanes;
+#pragma unroll
+    for (int r = 0; r < Sh::kWgRows * kLanes / 8 / kWgThreads; ++r) {
+      const int chunk = wt + r * kWgThreads;
+      const int row = chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
+      const int o = o0 + h * Sh::kWgRows + row, lane = lane0 + cl;
+      if (o >= g.n_out || lane >= g.B) continue;
+      uint32_t v[4];
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                   : "r"(out + row * i8::kRawPitch + cl * 2)
+                   : "memory");
+      int16_t* dst = static_cast<int16_t*>(g.y) + (size_t)o * g.B + lane;
+      if (vec_y) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+      }
+    }
+  }
+}
+
+// Float band: a warp tile is 16 outputs (M) x 32 lanes (four 8-lane N
+// slices); a CTA takes four tiles (64 outputs), two warps each (lanes 0-31
+// and 32-63 of the lane tile).
+constexpr int kF64Tile = 16;            // outputs a warp tile
+constexpr int kF64Outputs = 4 * kF64Tile;
+constexpr int kF64Pitch = kLanes + 8;   // staged x row, elements
+constexpr int kF64Slices = 4;           // 8-lane slices a warp
+
+// band f64[tiles * 16, K] (K % 8 == 0, 16-byte aligned): row o holds
+// output o's taps from column starts[o] - starts[o - o % 16]; `rows`: the
+// x rows a CTA stages (the widest CTA's fourth tile origin offset + K).
+struct F64Band {
+  const double* band;
+  int K, rows;
+};
+
+// Dynamic shared memory of a float band CTA: its four tiles' bands (rows
+// K + 4 doubles apart, so a fragment's rows fall in distinct banks) and
+// two x windows.
+__host__ __device__ constexpr int f64_band_smem(int K, int rows,
+                                                int x_bytes) {
+  return kF64Outputs * (K + 4) * 8 + 2 * rows * kF64Pitch * x_bytes;
+}
+
+// d += a . b, m16n8k8 f64: a [16 x 8] row-major fragment (a[i]: row g +
+// 8 (i % 2), column t + 4 (i / 2), g = lane / 4, t = lane % 4), b [8 x 8]
+// column-major (b[i]: row t + 4 i, column g), d [16 x 8] (d[i]: row g + 8
+// (i / 2), column 2 t + i % 2).
+__device__ __forceinline__ void dmma(double (&d)[4], const double (&a)[4],
+                                     const double (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+d"(d[0]), "+d"(d[1]), "+d"(d[2]), "+d"(d[3])
+      : "d"(a[0]), "d"(a[1]), "d"(a[2]), "d"(a[3]), "d"(b[0]), "d"(b[1]));
+}
+
+// One CTA: copies its four tiles' bands (zeros past the last tile) and
+// the first lane tile's window into shared memory; then for each of its
+// lane tiles stages the next window while its warps multiply this one:
+// warp (tile i, half j) walks its band in k-steps of 8, each an A fragment
+// from the band and four B fragments (8 lanes each) from the window rows
+// d_i + k .. (d_i: tile i's origin offset), converted to double, into four
+// DMMAs; then rounds each sum once to f32 and stores it (raw) or its
+// WORD2INT.
+template <typename XT>
+__global__ void __launch_bounds__(kThreads, 1)
+gather_fir_f64mma_kernel(Gather g, F64Band bw, int raw) {
+  extern __shared__ __align__(16) unsigned char f64_band_smem_buf[];
+  const int P = bw.K + 4;  // band row pitch, doubles
+  double* bs = reinterpret_cast<double*>(f64_band_smem_buf);
+  XT* xs = reinterpret_cast<XT*>(bs + kF64Outputs * P);
+  const int tid = threadIdx.x, warp = tid / 32, l = tid % 32;
+  const int gi = l / 4, ti = l % 4;
+  const int tile = warp % 4, half = warp / 4;
+  const BandCta cta(g, kF64LaneTiles);
+  const int o0 = cta.tile * kF64Outputs;
+  const int last = min(o0 + kF64Outputs, g.n_out) - 1;
+  const int base = g.starts[o0];
+  const int d = g.starts[min(o0 + tile * kF64Tile, last)] - base;
+  const int n_rows = (g.n_out + kF64Tile - 1) / kF64Tile * kF64Tile;
+  const bool vec = vector_axis<XT>(g);
+  constexpr int kV = 16 / sizeof(XT);          // lanes a 16-byte chunk
+  constexpr int kChunks = kLanes / kV;         // chunks a staged row
+
+  // the four tiles' bands: 16-byte chunk e % (K/2) of band row e / (K/2)
+  for (int e = tid; e < kF64Outputs * (bw.K / 2); e += kThreads) {
+    const int r = e / (bw.K / 2), c = e % (bw.K / 2) * 2;
+    const bool in = o0 + r < n_rows;
+    fir::copy16(fir::smem_addr(bs + r * P + c),
+                in ? bw.band + (size_t)(o0 + r) * bw.K + c : bw.band,
+                in ? 16 : 0);
+  }
+  auto stage = [&](int it) {
+    if (it < cta.n_lt) {
+      const int lane0 = (cta.lt0 + it) * kLanes;
+      XT* dst = xs + (it % 2) * bw.rows * kF64Pitch;
+      for (int e = tid; e < bw.rows * kChunks; e += kThreads) {
+        const int r = e / kChunks, c = e % kChunks * kV;
+        copy_axis16<XT>(g, base + r, lane0 + c, vec,
+                        fir::smem_addr(dst + r * kF64Pitch + c));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  stage(0);
+  const double* a_row = bs + (tile * kF64Tile + gi) * P + ti;
+#pragma unroll 1
+  for (int it = 0; it < cta.n_lt; ++it) {
+    // the next window's copies run while this one is multiplied; its
+    // buffer's last readers passed the barrier that ended iteration it - 1
+    stage(it + 1);
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    __syncthreads();
+    const XT* xb = xs + (it % 2) * bw.rows * kF64Pitch +
+                   (d + ti) * kF64Pitch + half * 32 + gi;
+    double acc[kF64Slices][4];
+#pragma unroll
+    for (int s = 0; s < kF64Slices; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[s][i] = 0.0;
+#pragma unroll 2
+    for (int k = 0; k < bw.K; k += 8) {
+      const double a[4] = {a_row[k], a_row[8 * P + k], a_row[k + 4],
+                           a_row[8 * P + k + 4]};
+#pragma unroll
+      for (int s = 0; s < kF64Slices; ++s) {
+        const double b[2] = {static_cast<double>(xb[k * kF64Pitch + 8 * s]),
+                             static_cast<double>(
+                                 xb[(k + 4) * kF64Pitch + 8 * s])};
+        dmma(acc[s], a, b);
+      }
+    }
+    const int lane0 = (cta.lt0 + it) * kLanes + half * 32;
+#pragma unroll
+    for (int s = 0; s < kF64Slices; ++s) {
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int o = o0 + tile * kF64Tile + gi + 8 * m;
+        const int b = lane0 + 8 * s + 2 * ti;
+        if (o >= g.n_out || b >= g.B) continue;
+        const float f0 = __double2float_rn(acc[s][2 * m]);
+        const float f1 = __double2float_rn(acc[s][2 * m + 1]);
+        const size_t at = (size_t)o * g.B + b;
+        const bool pair = b + 1 < g.B && g.B % 2 == 0;
+        if (raw) {
+          float* y = static_cast<float*>(g.y) + at;
+          if (pair) {
+            *reinterpret_cast<float2*>(y) = make_float2(f0, f1);
+          } else {
+            y[0] = f0;
+            if (b + 1 < g.B) y[1] = f1;
+          }
+        } else {
+          int16_t* y = static_cast<int16_t*>(g.y) + at;
+          const int16_t y0 = fir::word2int(f0), y1 = fir::word2int(f1);
+          if (pair) {
+            *reinterpret_cast<short2*>(y) = make_short2(y0, y1);
+          } else {
+            y[0] = y0;
+            if (b + 1 < g.B) y[1] = y1;
+          }
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+template <int kAccum>
+cudaError_t launch_fixed_band(const Gather& g, const FixedBand& bw,
+                              cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  auto* kernel = gather_fir_fixed_band_kernel<kAccum>;
+  const cudaError_t attr = fir::set_once(smem_set, [kernel] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  });
+  if (attr != cudaSuccess) return attr;
+  constexpr int kG = fir::fixedtc::Shape<kAccum>::kRows;
+  const unsigned groups = (g.n_out + kG - 1) / kG;
+  kernel<<<groups * band_chunks(g.B, kFixedLaneTiles), kThreads,
+           fixed_band_smem<kAccum>(bw.K), stream>>>(g, bw);
+  return cudaGetLastError();
+}
+
+template <typename XT>
+cudaError_t launch_f64_band(const Gather& g, const F64Band& bw, int raw,
+                            cudaStream_t stream) {
+  static std::atomic<unsigned> smem_set{0};
+  auto* kernel = gather_fir_f64mma_kernel<XT>;
+  const cudaError_t attr = fir::set_once(smem_set, [kernel] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+  });
+  if (attr != cudaSuccess) return attr;
+  const unsigned ctas = (g.n_out + kF64Outputs - 1) / kF64Outputs;
+  kernel<<<ctas * band_chunks(g.B, kF64LaneTiles), kThreads,
+           f64_band_smem(bw.K, bw.rows, sizeof(XT)), stream>>>(g, bw, raw);
+  return cudaGetLastError();
+}
+
+static_assert(i8::kStageTaps * kLanes / 8 % kWgThreads == 0,
+              "whole x copies a warpgroup");
+static_assert(fir::fixedtc::Shape<4>::kWgRows * kLanes / 8 % kWgThreads ==
+                      0 &&
+                  fir::fixedtc::Shape<1>::kWgRows * kLanes / 8 % kWgThreads ==
+                      0,
+              "whole output stores a warpgroup");
+static_assert(kThreads == 8 * 32 && kF64Outputs * 2 == kWarps * kF64Tile,
+              "eight warps: four 16-output tiles, two lane halves");
+
 }  // namespace
 
 extern "C" {
@@ -514,6 +1023,67 @@ int gather_fir_fixed(const void* h, long long hst, long long hsb, int H,
                     : launch_fixed<1, 1>(g, t, c, smem, st_);
   }
   return static_cast<int>(err);
+}
+
+// The dynamic shared memory of a band CTA (ops/fir_matmul.gather_plan's
+// formula, checked against this when the library loads): n_accum 0 the
+// float band kernel (K taps, `rows` staged x rows of x_bytes samples),
+// n_accum 1 or 4 the fixed one (K taps); and the most a CTA may take.
+int gather_fir_band_smem(int n_accum, int x_bytes, int K, int rows) {
+  if (n_accum == 4) return fixed_band_smem<4>(K);
+  if (n_accum == 1) return fixed_band_smem<1>(K);
+  return f64_band_smem(K, rows, x_bytes);
+}
+int gather_fir_band_smem_max() { return kMaxSmem; }
+
+// The band form (float): hist and x as gather_fir_f32; band f64[ceil(n_out
+// / 16) * 16, K] (K % 8 == 0, 16-byte aligned; ops/fir_matmul.gather_band),
+// `rows` x rows a CTA stages.
+int gather_fir_f32_band(const void* h, long long hst, long long hsb, int H,
+                        const void* x, long long st, long long sb, int x_f32,
+                        const void* band, const void* starts, void* y, int T,
+                        int B, int n_out, int K, int rows, int raw,
+                        void* stream) {
+  cudaGetLastError();
+  if (n_out < 1 || B < 1 || K < 8 || K % 8 || rows < K ||
+      f64_band_smem(K, rows, x_f32 ? 4 : 2) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(band) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Gather g = make_gather(h, hst, hsb, H, x, st, sb, T, B, starts, n_out,
+                               K, K, rows, y);
+  const F64Band bw{static_cast<const double*>(band), K, rows};
+  const auto st_ = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(x_f32 ? launch_f64_band<float>(g, bw, raw, st_)
+                                : launch_f64_band<int16_t>(g, bw, raw, st_));
+}
+
+// The band form (fixed): hist and x int16 as gather_fir_fixed; planes
+// int8[2, groups, n_accum * G, K] (G = 32 for n_accum 4, 64 for 1; K % 32
+// == 0, 16-byte aligned), bias int32[groups, n_accum * G], coef
+// int32[n_out, 4] (NULL for n_accum 1).
+int gather_fir_fixed_band(const void* h, long long hst, long long hsb, int H,
+                          const void* x, long long st, long long sb,
+                          const void* planes, const void* bias,
+                          const void* starts, const void* coef, void* y,
+                          int n_accum, int T, int B, int n_out, int K,
+                          void* stream) {
+  cudaGetLastError();
+  if ((n_accum != 1 && n_accum != 4) || n_out < 1 || B < 1 || K < 32 ||
+      K % 32 || (n_accum == 4) != (coef != nullptr) ||
+      (n_accum == 4 ? fixed_band_smem<4>(K) : fixed_band_smem<1>(K)) >
+          kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(planes) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const Gather g = make_gather(h, hst, hsb, H, x, st, sb, T, B, starts, n_out,
+                               K, K, 1, y);
+  const FixedBand bw{static_cast<const int8_t*>(planes),
+                     static_cast<const int32_t*>(bias),
+                     static_cast<const int32_t*>(coef), K};
+  const auto st_ = static_cast<cudaStream_t>(stream);
+  return static_cast<int>(n_accum == 4 ? launch_fixed_band<4>(g, bw, st_)
+                                       : launch_fixed_band<1>(g, bw, st_));
 }
 
 }  // extern "C"

@@ -21,9 +21,13 @@ runs these outside any ``pallas_call`` (XLA fuses each into one program):
   other.  Their axis is ``hist ++ x``, hist optional: the batched step
   passes its history and chunk as they lie, and the kernel reads each in
   place.  A CUDA launch takes a :class:`GatherPlan` (:func:`gather_plan`,
-  from the host's starts, made when a CUDA step is built): the outputs a
-  CTA takes and the window rows it stages at once, so that they fit
-  shared memory at any ratio.
+  from the host's starts, made when a CUDA step is built) and, for the
+  band form, its :class:`GatherBand` (:func:`gather_band`, built beside the
+  plan).  The plan's form is a geometry: "rows" (per-output dots on the
+  CUDA cores; the outputs a CTA takes and the window rows it stages at
+  once, so that they fit shared memory at any ratio) or "band" (a group
+  of consecutive outputs' taps as one dense band on the tensor cores,
+  where their windows overlap densely).  Nothing switches form at launch.
 
 The float dense launch is a TPU kernel (K3) and lives in ``ops/dense_fir``.
 Also here: the dense geometry's group factor and padded-weight cap, and
@@ -49,13 +53,15 @@ import torch
 from . import _build
 from .convert import word2int
 from .fixed_math import balanced_q15_split, fixed_interp_mix_rows, sat32pshr15
-from .tiled_fir import _no_tf32, wrap_int32
+from .tiled_fir import _no_tf32, int8_k_major, wrap_int32
 
 __all__ = ["MAX_PADDED_WEIGHT_BYTES", "choose_group", "resample_conv",
            "resample_conv_tm", "resample_conv_tm_fixed", "resample_gather",
            "resample_gather_fixed", "resample_gather_reference",
            "resample_gather_fixed_reference", "fixed_weight_planes",
-           "GatherPlan", "gather_plan", "GATHER_SMEM_BYTES"]
+           "GatherPlan", "gather_plan", "gather_plan_rows", "launch_key",
+           "gather_plan_band", "GatherBand", "gather_band",
+           "GATHER_SMEM_BYTES", "GATHER_BAND_SMEM_BYTES"]
 
 #: Above this padded-weight size the engine takes the gather geometry.
 MAX_PADDED_WEIGHT_BYTES = 32 * 1024 * 1024
@@ -77,10 +83,22 @@ GATHER_LANES = 64
 # outputs a gather CTA may take (kO = M / 8 a warp), largest first
 _GATHER_OUTPUTS = (64, 32, 16, 8)
 
-#: Launches of the gather kernels in this process, by scheme; only the
-#: wrappers add to it, once per launch.  Callers reset the counts to count
-#: one run.
-launches = {"highest": 0, "fixed": 0}
+#: The band form's shared memory ceiling (a CTA's most on the H100,
+#: ``kMaxSmem`` of ``csrc/gather_fir.cu``).
+GATHER_BAND_SMEM_BYTES = 232448
+# band rows (outputs) a fixed group, by n_accum (fixedtc::Shape::kRows);
+# the float band's outputs a warp tile and a CTA (four tiles)
+_BAND_GROUP = {4: 32, 1: 64}
+_F64_TILE = 16
+_F64_OUTPUTS = 64
+_F64_PITCH = GATHER_LANES + 8      # a staged x row, elements
+_RAW_PITCH = GATHER_LANES * 2 + 16  # int8tc::kRawPitch, bytes
+
+#: Launches of the gather kernels in this process, by kernel: the rows
+#: form's under its scheme, the band form's under :func:`launch_key`; only
+#: the wrappers add to them, once per launch.  Callers reset the counts to
+#: count one run.
+launches = {"highest": 0, "fixed": 0, "highest_band": 0, "fixed_band": 0}
 
 #: The library whose shared-memory ceiling this module has checked.
 _checked = None
@@ -181,21 +199,101 @@ def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
                                  w[1]).reshape(n_blocks * R, B)
 
 
+def launch_key(scheme: str, form: str) -> str:
+    """The :data:`launches` key of a gather launch of this scheme
+    ("highest" or "fixed") and form ("rows" or "band")."""
+    return scheme if form == "rows" else f"{scheme}_{form}"
+
+
 class GatherPlan(NamedTuple):
-    """A gather launch's CTA geometry (:func:`gather_plan`)."""
-    outputs: int   # M, consecutive outputs a CTA takes (8, 16, 32 or 64)
-    taps: int      # KC, taps a chunk the CTA stages and walks (<= N)
-    rows: int      # window rows a CTA stages at once
+    """A gather launch's CTA geometry (:func:`gather_plan`).  Rows form:
+    ``outputs`` M consecutive outputs a CTA (8, 16, 32 or 64), ``taps`` KC
+    taps a chunk the CTA stages and walks (<= N), ``rows`` the window rows
+    it stages at once.  Band form: ``outputs`` the band's outputs a group
+    (fixed: 32 for n_accum 4, 64 for 1; float: 64 a CTA, four 16-output
+    tiles), ``taps`` K, the band's width (fixed: a multiple of 32; float:
+    of 8), ``rows`` the x rows a float CTA stages (0 for fixed)."""
+    outputs: int
+    taps: int
+    rows: int
+    form: str = "rows"
 
 
-def gather_plan(starts, N: int, *, n_accum: int | None = None,
-                x_itemsize: int = 2) -> GatherPlan:
-    """The CTA geometry of a gather launch over these window starts
-    (non-decreasing int[n_out]) and N taps an output, such that a CTA's
-    staged tap rows (M x KC, as double for the float kernel, as int32 x
-    ``n_accum`` for the fixed one) and window rows (``rows`` x 64 lanes of
-    ``x_itemsize`` bytes) fit :data:`GATHER_SMEM_BYTES`.  Computed on the
-    host when a step is built, never at launch.
+class GatherBand(NamedTuple):
+    """A band launch's weights (:func:`gather_band`).  Float: ``w``
+    float64[ceil(n_out / 16) * 16, K], row o holding output o's taps from
+    column starts[o] - starts[o - o % 16], ``bias`` None.  Fixed: ``w``
+    the balanced int8 planes int8[2, groups, n_accum * G, K] of the int16
+    band (K-major, each 32-tap group permuted by ``tiled_fir.K_PERM``;
+    column c * G + j holds tap row c of the group's output j from column
+    starts[o] - starts[o0]), ``bias`` int32[groups, n_accum * G] = 128 *
+    sum of each column."""
+    w: torch.Tensor
+    bias: torch.Tensor | None
+
+
+def _band_smem(n_accum: int | None, x_itemsize: int, K: int,
+               rows: int) -> int:
+    """Dynamic shared memory of a band CTA (``gather_fir_band_smem`` of
+    ``csrc/gather_fir.cu``, checked against this when the library loads):
+    fixed, the group's two planes, each warpgroup's ring of four 64-tap x
+    stages and its output rows; float, the four tiles' bands (rows K + 4
+    doubles apart) and two staged x windows."""
+    if n_accum is None:
+        return _F64_OUTPUTS * (K + 4) * 8 + 2 * rows * _F64_PITCH * x_itemsize
+    G = _BAND_GROUP[n_accum]       # two warpgroups, G / 2 outputs each
+    return 2 * K * n_accum * G + 2 * (4 * 64 + G // 2) * _RAW_PITCH + 128
+
+
+def _starts(starts, N: int) -> np.ndarray:
+    s = np.asarray(starts, dtype=np.int64)
+    if s.ndim != 1 or s.size == 0 or (np.diff(s) < 0).any():
+        raise ValueError("starts must be a non-empty non-decreasing vector")
+    if N < 1:
+        raise ValueError(f"N = {N}")
+    return s
+
+
+def _spreads(s: np.ndarray, M: int) -> np.ndarray:
+    """Each M-output tile's start spread (its last output's start less its
+    first's; the last tile may hold fewer outputs)."""
+    first = np.arange(0, s.size, M)
+    return s[np.minimum(first + M, s.size) - 1] - s[first]
+
+
+def gather_plan_band(starts, N: int, *, n_accum: int | None = None,
+                     x_itemsize: int = 2) -> GatherPlan | None:
+    """The band form's plan over these window starts and N taps an output
+    (``n_accum`` as :func:`gather_plan`), or None where a CTA's band and
+    staged rows do not fit :data:`GATHER_BAND_SMEM_BYTES`.  Fixed: G
+    outputs a group, K the widest group's start spread + N rounded up to
+    32.  Float: K the widest 16-output tile's spread + N rounded up to 8;
+    a CTA stages the rows from its first output's start to its fourth
+    tile's origin + K."""
+    s = _starts(starts, N)
+    if n_accum is None:
+        K = -(-(int(_spreads(s, _F64_TILE).max()) + N) // 8) * 8
+        first = np.arange(0, s.size, _F64_OUTPUTS)
+        fourth = np.minimum(first + 3 * _F64_TILE, s.size - 1)
+        rows = int((s[fourth] - s[first]).max()) + K
+        plan = GatherPlan(_F64_OUTPUTS, K, rows, "band")
+    else:
+        G = _BAND_GROUP[n_accum]
+        K = -(-(int(_spreads(s, G).max()) + N) // 32) * 32
+        plan = GatherPlan(G, K, 0, "band")
+    if _band_smem(n_accum, x_itemsize, plan.taps,
+                  plan.rows) > GATHER_BAND_SMEM_BYTES:
+        return None
+    return plan
+
+
+def gather_plan_rows(starts, N: int, *, n_accum: int | None = None,
+                     x_itemsize: int = 2) -> GatherPlan:
+    """The rows form's plan over these window starts (non-decreasing
+    int[n_out]) and N taps an output, such that a CTA's staged tap rows (M
+    x KC, as double for the float kernel, as int32 x ``n_accum`` for the
+    fixed one) and window rows (``rows`` x 64 lanes of ``x_itemsize``
+    bytes) fit :data:`GATHER_SMEM_BYTES`.
 
     A CTA stages, for each chunk of KC taps, the rows its outputs' windows
     span: the start spread of its M outputs + KC.  The first plan takes
@@ -205,18 +303,11 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
     other half.  The second is taken where the first does not exist (a
     steep decimation whose 8 outputs' windows lie far apart) or stages
     more rows an output, ceil(N / KC) (spread + KC) / M."""
-    s = np.asarray(starts, dtype=np.int64)
-    if s.ndim != 1 or s.size == 0 or (np.diff(s) < 0).any():
-        raise ValueError("starts must be a non-empty non-decreasing vector")
-    if N < 1:
-        raise ValueError(f"N = {N}")
+    s = _starts(starts, N)
     tap_bytes = 8 if n_accum is None else 4 * n_accum
     row_bytes = GATHER_LANES * x_itemsize
-    spans = {}
-    for M in _GATHER_OUTPUTS:
-        first = np.arange(0, s.size, M)
-        spans[M] = int((s[np.minimum(first + M, s.size) - 1]
-                        - s[first]).max())
+    spans = {M: int(_spreads(s, M).max()) for M in _GATHER_OUTPUTS}
+
     def cost(p):
         return -(-N // p.taps) * (spans[p.outputs] + p.taps) / p.outputs
 
@@ -235,15 +326,85 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
         kc = -(-kc // 2)
 
 
+def gather_plan(starts, N: int, *, n_accum: int | None = None,
+                x_itemsize: int = 2) -> GatherPlan:
+    """The CTA geometry of a gather launch over these window starts
+    (non-decreasing int[n_out]) and N taps an output: the band form
+    (:func:`gather_plan_band`) wherever its band fits a CTA, else the rows
+    form (:func:`gather_plan_rows`).  ``n_accum`` None is the float
+    kernel, 1 or 4 the fixed one's tap rows an output; ``x_itemsize`` the
+    sample width.  Computed on the host when a step is built, never at
+    launch.
+
+    The band form measured faster at the batched launch (2048 lanes) at
+    every drift ratio that fits, its sparsest bands included (44.1k ->
+    44.101k q0: density N / K 0.33 float, 0.125 fixed; 2.1x and 2.4x the
+    rows form's speed; PERF.md section 6); where it does not fit (a steep
+    decimation such as 96000 -> 401), the windows lie too far apart for a
+    dense band to pay."""
+    band = gather_plan_band(starts, N, n_accum=n_accum,
+                            x_itemsize=x_itemsize)
+    if band is not None:
+        return band
+    return gather_plan_rows(starts, N, n_accum=n_accum,
+                            x_itemsize=x_itemsize)
+
+
+def gather_band(taps, starts, plan: GatherPlan, device=None) -> GatherBand:
+    """The band form's weights (:class:`GatherBand`) of a band plan, from
+    the host's taps (f32[n_out, N]: float; int16[n_out, N] or [n_out, 4,
+    N]: fixed) and starts, on ``device`` (the taps' if a tensor, else the
+    CPU).  Built when a step is built, never at launch."""
+    if plan.form != "band":
+        raise ValueError(f"a {plan.form} plan has no band")
+    if device is None:
+        device = taps.device if isinstance(taps, torch.Tensor) else "cpu"
+    if isinstance(taps, torch.Tensor):
+        taps = taps.cpu().numpy()
+    s = np.asarray(starts.cpu() if isinstance(starts, torch.Tensor)
+                   else starts, dtype=np.int64)
+    n_out, N, K = len(s), taps.shape[-1], plan.taps
+    fixed = taps.dtype == np.int16
+    tile = plan.outputs if fixed else _F64_TILE
+    o = np.arange(n_out)
+    off = s - s[o // tile * tile]
+    cols = off[:, None] + np.arange(N)
+    if int(cols.max()) >= K:
+        raise ValueError(f"a window reaches past the band's {K} taps")
+    if not fixed:
+        band = np.zeros((-(-n_out // tile) * tile, K), dtype=np.float64)
+        band[o[:, None], cols] = taps
+        return GatherBand(torch.from_numpy(band).to(device), None)
+    t3 = taps.reshape(n_out, -1, N)
+    n_acc = t3.shape[1]
+    G, groups = plan.outputs, -(-n_out // plan.outputs)
+    band = np.zeros((groups, G, n_acc, K), dtype=np.int16)
+    band[(o // G)[:, None], (o % G)[:, None], :, cols] = \
+        t3.transpose(0, 2, 1)
+    band = band.transpose(0, 2, 1, 3).reshape(groups, n_acc * G, K)
+    wh, wl0, bias = balanced_q15_split(band, tap_axis=2)
+    planes = int8_k_major(np.stack([wh, wl0]))
+    return GatherBand(planes.to(device), torch.from_numpy(bias).to(device))
+
+
 def _library():
     """The kernels' library, its gather shared-memory ceiling checked
     against :data:`GATHER_SMEM_BYTES` the first time it is seen."""
     global _checked
     lib = _build.load()
     if lib is not _checked:
-        if lib.gather_fir_smem_max() != GATHER_SMEM_BYTES:
-            raise RuntimeError("csrc/gather_fir.cu's shared memory ceiling "
-                               "disagrees with GATHER_SMEM_BYTES")
+        if lib.gather_fir_smem_max() != GATHER_SMEM_BYTES \
+                or lib.gather_fir_band_smem_max() != GATHER_BAND_SMEM_BYTES:
+            raise RuntimeError("csrc/gather_fir.cu's shared memory ceilings "
+                               "disagree with GATHER_SMEM_BYTES / "
+                               "GATHER_BAND_SMEM_BYTES")
+        for n_accum, x_bytes, K, rows in ((None, 2, 144, 192),
+                                          (None, 4, 136, 200), (4, 2, 160, 0),
+                                          (1, 2, 96, 0)):
+            if lib.gather_fir_band_smem(n_accum or 0, x_bytes, K, rows) \
+                    != _band_smem(n_accum, x_bytes, K, rows):
+                raise RuntimeError("csrc/gather_fir.cu's band shared memory "
+                                   "disagrees with fir_matmul._band_smem")
         _checked = lib
     return lib
 
@@ -296,11 +457,39 @@ def _check_gather(x, taps, starts, coef, plan, fixed: bool):
     return n_out, N
 
 
+def _check_band(x, band, plan, n_out, n_accum):
+    """Validate a band launch's weights against its plan (n_accum None:
+    float)."""
+    if not isinstance(band, GatherBand):
+        raise TypeError("a band plan's launch takes its GatherBand "
+                        "(gather_band)")
+    K = plan.taps
+    if n_accum is None:
+        want = [(band.w, torch.float64,
+                 (-(-n_out // _F64_TILE) * _F64_TILE, K))]
+    else:
+        G = plan.outputs
+        if G != _BAND_GROUP[n_accum]:
+            raise ValueError(f"a fixed band of n_accum {n_accum} takes "
+                             f"{_BAND_GROUP[n_accum]} outputs a group")
+        groups = -(-n_out // G)
+        want = [(band.w, torch.int8, (2, groups, n_accum * G, K)),
+                (band.bias, torch.int32, (groups, n_accum * G))]
+    for t, dtype, shape in want:
+        if not isinstance(t, torch.Tensor) or t.device != x.device \
+                or t.dtype != dtype or tuple(t.shape) != shape \
+                or not t.is_contiguous():
+            got = None if t is None else (t.dtype, tuple(t.shape))
+            raise ValueError(f"band {got}, expected a contiguous {dtype} "
+                             f"{shape} on {x.device}")
+
+
 def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                     starts: torch.Tensor, *,
                     hist: torch.Tensor | None = None,
                     tile: int | None = None, raw: bool = False,
-                    plan: GatherPlan | None = None) -> torch.Tensor:
+                    plan: GatherPlan | None = None,
+                    band: GatherBand | None = None) -> torch.Tensor:
     """Float gather launch: per-output tap-row dots over hist ++ x.
 
     x:      int16 (or f32) [batch, T], any strides (the batched step passes
@@ -312,13 +501,14 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     starts: int32[n_out]    window starts on hist ++ x, non-decreasing
                             (clamped in range)
     plan:   the launch's :class:`GatherPlan` (CUDA tensors)
+    band:   the band plan's :class:`GatherBand` (CUDA tensors)
     returns int16[batch, n_out], or the raw f32 sums when ``raw`` (a
     transposed view of [n_out, batch] memory)
 
-    CUDA tensors launch ``gather_fir_f32`` on the current stream
-    (asynchronously; a launch error raises); CPU tensors run
-    :func:`resample_gather_reference` on the concatenation hist ++ x
-    (``tile`` steers only it)."""
+    CUDA tensors launch ``gather_fir_f32`` (rows) or ``gather_fir_f32_band``
+    (band), as the plan says, on the current stream (asynchronously; a
+    launch error raises); CPU tensors run :func:`resample_gather_reference`
+    on the concatenation hist ++ x (``tile`` steers only it)."""
     if x.device.type == "cpu":
         return resample_gather_reference(_axis(hist, x), taps, starts,
                                          tile=tile, raw=raw)
@@ -331,17 +521,24 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     y = torch.empty((n_out, batch),
                     dtype=torch.float32 if raw else torch.int16,
                     device=x.device)
+    axis = (*h, x.data_ptr(), x.stride(1), x.stride(0),
+            int(x.dtype == torch.float32))
     with torch.cuda.device(x.device):
-        err = lib.gather_fir_f32(
-            *h, x.data_ptr(), x.stride(1), x.stride(0),
-            int(x.dtype == torch.float32), taps.data_ptr(),
-            starts.data_ptr(), y.data_ptr(), T, batch, n_out, N,
-            plan.outputs, plan.taps, plan.rows, int(raw),
-            _build.stream_handle(x.device))
+        if plan.form == "band":
+            _check_band(x, band, plan, n_out, None)
+            err = lib.gather_fir_f32_band(
+                *axis, band.w.data_ptr(), starts.data_ptr(), y.data_ptr(), T,
+                batch, n_out, plan.taps, plan.rows, int(raw),
+                _build.stream_handle(x.device))
+        else:
+            err = lib.gather_fir_f32(
+                *axis, taps.data_ptr(), starts.data_ptr(), y.data_ptr(), T,
+                batch, n_out, N, plan.outputs, plan.taps, plan.rows,
+                int(raw), _build.stream_handle(x.device))
     if err:
-        raise RuntimeError("gather kernel launch failed: "
+        raise RuntimeError(f"gather kernel ({plan.form}) launch failed: "
                            + lib.gather_fir_error_string(err).decode())
-    launches["highest"] += 1
+    launches[launch_key("highest", plan.form)] += 1
     return y.t()
 
 
@@ -350,7 +547,8 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                           coef: torch.Tensor | None = None, *,
                           hist: torch.Tensor | None = None,
                           tile: int | None = None,
-                          plan: GatherPlan | None = None) -> torch.Tensor:
+                          plan: GatherPlan | None = None,
+                          band: GatherBand | None = None) -> torch.Tensor:
     """Fixed-point gather launch over hist ++ x, bit-exact.
 
     x:      int16[batch, T], any strides (as :func:`resample_gather`)
@@ -361,11 +559,13 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     starts: int32[n_out] clamped window origins, non-decreasing
     coef:   int32[n_out, 4] Q15 cubic coefficients (interpolated only)
     plan:   the launch's :class:`GatherPlan` (CUDA tensors)
+    band:   the band plan's :class:`GatherBand` (CUDA tensors)
     returns int16[batch, n_out]
 
-    CUDA tensors launch ``gather_fir_fixed<1|4>`` on the current stream;
-    CPU tensors run :func:`resample_gather_fixed_reference` on the
-    concatenation hist ++ x (``tile`` steers only it)."""
+    CUDA tensors launch ``gather_fir_fixed<1|4>`` (rows) or
+    ``gather_fir_fixed_band<1|4>`` (band), as the plan says, on the
+    current stream; CPU tensors run :func:`resample_gather_fixed_reference`
+    on the concatenation hist ++ x (``tile`` steers only it)."""
     if x.device.type == "cpu":
         return resample_gather_fixed_reference(_axis(hist, x), taps, starts,
                                                coef, tile=tile)
@@ -376,17 +576,26 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     lib = _library()
     batch, T = x.shape
     y = torch.empty((n_out, batch), dtype=torch.int16, device=x.device)
+    n_accum = 4 if taps.ndim == 3 else 1
+    axis = (*h, x.data_ptr(), x.stride(1), x.stride(0))
+    c_ptr = None if coef is None else coef.data_ptr()
     with torch.cuda.device(x.device):
-        err = lib.gather_fir_fixed(
-            *h, x.data_ptr(), x.stride(1), x.stride(0), taps.data_ptr(),
-            starts.data_ptr(), None if coef is None else coef.data_ptr(),
-            y.data_ptr(), 4 if taps.ndim == 3 else 1, T, batch, n_out, N,
-            plan.outputs, plan.taps, plan.rows,
-            _build.stream_handle(x.device))
+        if plan.form == "band":
+            _check_band(x, band, plan, n_out, n_accum)
+            err = lib.gather_fir_fixed_band(
+                *axis, band.w.data_ptr(), band.bias.data_ptr(),
+                starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
+                n_out, plan.taps, _build.stream_handle(x.device))
+        else:
+            err = lib.gather_fir_fixed(
+                *axis, taps.data_ptr(), starts.data_ptr(), c_ptr,
+                y.data_ptr(), n_accum, T, batch, n_out, N, plan.outputs,
+                plan.taps, plan.rows, _build.stream_handle(x.device))
     if err:
-        raise RuntimeError("fixed gather kernel launch failed: "
+        raise RuntimeError(f"fixed gather kernel ({plan.form}) launch "
+                           "failed: "
                            + lib.gather_fir_error_string(err).decode())
-    launches["fixed"] += 1
+    launches[launch_key("fixed", plan.form)] += 1
     return y.t()
 
 

@@ -476,7 +476,10 @@ _STEP_CACHE_MAX_BYTES = 256 * 1024 * 1024
 
 
 def _step_weight_bytes(step: BatchedStep) -> int:
-    return sum(t.numel() * t.element_size() for t in step.w
+    """Bytes of the step's tensors: its weights and those its launch takes
+    in ``kernel_kw`` (a gather step's band)."""
+    band = step.kernel_kw.get("band") or ()
+    return sum(t.numel() * t.element_size() for t in (*step.w, *band)
                if isinstance(t, torch.Tensor))
 
 
@@ -726,8 +729,11 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     gather kernel (``fm.resample_gather``, or ``resample_gather_fixed``
     with int16 taps and, for an interpolated filter, int32[n_out, 4] cubic
     coefficients) over ``hist ++ x``, each read in place.  A CUDA step's
-    CTA geometry (``fm.gather_plan`` of the starts) is made here, in
-    ``kernel_kw``; a CPU step runs the plain version and has none."""
+    CTA geometry (``fm.gather_plan`` of the starts: the band form where
+    the outputs' windows overlap densely, else the rows form) and, for the
+    band form, its band (``fm.gather_band`` of the same host taps) are
+    made here, in ``kernel_kw``; a CPU step runs the plain version and has
+    neither."""
     N, num, den, f0 = spec.filt_len, spec.num, spec.den, bspec.f0
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     t = f0 + np.arange(n_out, dtype=np.int64) * num
@@ -742,9 +748,12 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                       else (fm.resample_gather, "highest"))
     w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
               for a in host_w)
-    kernel_kw = dict(plan=fm.gather_plan(
-        starts, N, n_accum=_n_cols(spec) if spec.fixed_point else None)
-        if torch.device(device).type == "cuda" else None)
+    kernel_kw = dict(plan=None, band=None)
+    if torch.device(device).type == "cuda":
+        plan = fm.gather_plan(starts, N, n_accum=_n_cols(spec)
+                              if spec.fixed_point else None)
+        kernel_kw = dict(plan=plan, band=fm.gather_band(
+            host_w[0], starts, plan, device) if plan.form == "band" else None)
 
     def step(hist, x, w):
         y = launch(x[:n_in].t(), *w, hist=hist.t(), **kernel_kw)

@@ -191,12 +191,14 @@ def _tiles(plan, n_out):
         yield o0, min(o0 + plan.outputs, n_out)
 
 
-def _plan_of(spec, step, fixed):
-    """The plan a CUDA step of this spec makes (a CPU step makes none)."""
+def _plan_of(spec, step, fixed, rows=False):
+    """The plan a CUDA step of this spec makes (a CPU step makes none), or
+    with ``rows`` the rows form's plan over the same starts."""
     assert step.kernel_kw["plan"] is None
     n_accum = (4 if step.w[0].ndim == 3 else 1) if fixed else None
-    return tfm.gather_plan(step.w[1].numpy(), spec.filt_len,
-                           n_accum=n_accum), n_accum
+    planner = tfm.gather_plan_rows if rows else tfm.gather_plan
+    return planner(step.w[1].numpy(), spec.filt_len,
+                   n_accum=n_accum), n_accum
 
 
 def _pieces(span, kc, rows):
@@ -208,16 +210,32 @@ def _pieces(span, kc, rows):
 @pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
 @pytest.mark.parametrize("cfg", list(GATHER.values()), ids=list(GATHER))
 def test_gather_plan_covers_every_window(cfg, fixed):
-    """For each CTA tile and chunk of KC taps: the pieces of at most
-    ``rows`` rows it stages cover its start spread + KC, so every window's
-    chunk, in order; taps plus rows fit the kernel's shared memory.  The
-    drift ratios stage a chunk's rows at once; the steep decimation (8
-    outputs' windows 1676 rows apart, past the most rows that fit beside
-    one tap) in pieces."""
+    """The rows form's plan: for each CTA tile and chunk of KC taps, the
+    pieces of at most ``rows`` rows it stages cover its start spread + KC,
+    so every window's chunk, in order; taps plus rows fit the kernel's
+    shared memory.  The drift ratios stage a chunk's rows at once; the
+    steep decimation (8 outputs' windows 1676 rows apart, past the most
+    rows that fit beside one tap) in pieces.  The plan a CUDA step makes:
+    the band form at the three drift ratios, every output's window inside
+    its group's K taps from the group's first start (float: inside the
+    rows its CTA stages), within the band's shared memory; the rows form
+    at the steep decimation."""
     spec, bspec, step = _gather_step(cfg, fixed)
-    plan, n_accum = _plan_of(spec, step, fixed)
     starts = step.w[1].numpy().astype(np.int64)
     N = spec.filt_len
+    chosen, n_accum = _plan_of(spec, step, fixed)
+    assert chosen.form == ("rows" if cfg == GATHER["96000-401"] else "band")
+    if chosen.form == "band":
+        G = chosen.outputs if fixed else 16
+        o = np.arange(len(starts))
+        assert (starts - starts[o // G * G] + N).max() <= chosen.taps
+        if not fixed:
+            cta = o // 64 * 64
+            assert (starts[np.minimum(o // 16 * 16, len(starts) - 1)]
+                    - starts[cta] + chosen.taps).max() <= chosen.rows
+        assert tfm._band_smem(n_accum, 2, chosen.taps, chosen.rows) \
+            <= tfm.GATHER_BAND_SMEM_BYTES
+    plan, n_accum = _plan_of(spec, step, fixed, rows=True)
     assert plan.outputs in (8, 16, 32, 64) and 1 <= plan.taps <= N
     tap_bytes = 8 if not fixed else 4 * n_accum
     smem = (plan.outputs * plan.taps * tap_bytes
@@ -256,12 +274,14 @@ def test_gather_plan_chunks_taps_and_refuses_what_cannot_fit():
     assert (plan.outputs * plan.taps * 8 + plan.rows * 64 * 2
             <= tfm.GATHER_SMEM_BYTES)
     # f32 samples: 64 outputs' rows no longer fit beside their taps
-    assert tfm.gather_plan(starts, 128, x_itemsize=4) == (32, 128,
-                                                          31 * 3 + 128)
+    # (and its band, 173 taps wide, does not fit beside two f32 windows)
+    assert tfm.gather_plan(starts, 128, x_itemsize=4) == tfm.GatherPlan(
+        32, 128, 31 * 3 + 128)
     smem = tfm.GATHER_SMEM_BYTES
-    assert tfm.gather_plan(np.arange(64) * 200, 16) == (
+    assert tfm.gather_plan(np.arange(64) * 200, 16) == tfm.GatherPlan(
         8, 16, (smem - 8 * 16 * 8) // 128)
-    assert tfm.gather_plan(np.arange(64) * 200, 5000, n_accum=4) == (
+    assert tfm.gather_plan(np.arange(64) * 200, 5000,
+                           n_accum=4) == tfm.GatherPlan(
         8, smem // 2 // 128, smem // 2 // 128)
     with pytest.raises(ValueError, match="non-decreasing"):
         tfm.gather_plan(np.array([0, 2, 1]), 16)
@@ -345,7 +365,7 @@ def test_gather_walk_model_equals_plain(case):
     coef = step.w[2][:n].numpy() if len(step.w) == 3 else None
     if case == "fixed-direct":      # one accumulator row as a direct filter
         taps, coef = np.ascontiguousarray(taps[:, 0]), None
-    plan = _plan_of(spec, step, fixed)[0]
+    plan = _plan_of(spec, step, fixed, rows=True)[0]
     if case.endswith("chunked"):
         plan = tfm.GatherPlan(8 if fixed else 16, 48,
                               int(starts[-1] - starts[0]) + 48)
@@ -539,7 +559,8 @@ def test_new_kernel_modules_and_tools_load_no_jax_or_triton():
         "import speex_resampler_tpu_torch.ops.fir_matmul\n"
         "import speex_resampler_tpu_torch.ops.dense_fir\n"
         "sys.argv = ['x']\n"
-        "import tools.gather_timing, tools.process_timing, chip_smoke\n"
+        "import tools.gather_timing, tools.gather_ablate\n"
+        "import tools.process_timing, chip_smoke\n"
         "assert 'gather' in chip_smoke.MODULES\n"
         "import speex_resampler_tpu_torch.ops._build as b\n"
         "assert b._lib is None\n"

@@ -21,7 +21,8 @@ import numpy as np
 import pytest
 import torch
 
-from speex_resampler_tpu_torch import BatchedResampler, FleetResampler
+from speex_resampler_tpu_torch import (BatchedResampler, FleetResampler,
+                                       SpeexResampler)
 from speex_resampler_tpu_torch.functional import make_stream_fn
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import dense_fir as tdf
@@ -1134,40 +1135,122 @@ def _gather_step(fixed: bool, f0: int = 0):
     return bspec, step
 
 
-@pytest.mark.parametrize("B", [2048, 130])
+def _forced(step, form: str):
+    """The launch arguments of a gather step with its form forced: an
+    explicit plan of that form (and, for the band form, its band) over the
+    step's starts."""
+    taps, starts = step.w[0], step.w[1].cpu().numpy()
+    N = taps.shape[-1]
+    n_accum = None
+    if step.scheme == "fixed":
+        n_accum = 4 if taps.ndim == 3 else 1
+    if form == "rows":
+        return dict(plan=tfm.gather_plan_rows(starts, N, n_accum=n_accum))
+    plan = tfm.gather_plan_band(starts, N, n_accum=n_accum)
+    return dict(plan=plan, band=tfm.gather_band(taps, starts, plan))
+
+
+def _graph_equals_eager(fn, want):
+    """fn captured in a CUDA graph (after a warm-up on a side stream)
+    replays to ``want`` bit for bit."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("form", ["rows", "band"])
+@pytest.mark.parametrize("B", [2048, 130, 129, 64])
 @pytest.mark.parametrize("f0", [0, 5900])
 @pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
-def test_gather_kernels_match_plain(cuda, fixed, f0, B):
-    """gather_fir_f32 and gather_fir_fixed<4> at the drift launch
-    (44100 -> 44101 q7, 44101 outputs, N 128), on transposed views of
-    time-major memory, the axis in one operand and as the step passes it
-    (hist and x apart, bit for bit the same): fixed 0 mismatches with the
+def test_gather_kernels_match_plain(cuda, fixed, f0, B, form):
+    """Both forms of the gather kernels, each forced through an explicit
+    plan, at the drift launch (44100 -> 44101 q7, 44101 outputs, N 128),
+    on transposed views of time-major memory, the axis in one operand and
+    as the step passes it (hist and x apart, bit for bit the same), and
+    replayed from a CUDA graph (bit for bit): fixed 0 mismatches with the
     wrap input on every third lane; float max |err| <= 1 within the tie
     bound, its raw f32 sums within one f32 rounding of the plain
-    version's; one launch counted a call."""
+    version's; one launch counted a call, under its kernel's key.  The step
+    itself takes the band form here."""
     bspec, step = _gather_step(fixed, f0)
+    assert step.kernel_kw["plan"].form == "band"
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, B, seed=B + f0, wrap=fixed))
     X = torch.cat([hist, x]).t()
     fn = tfm.resample_gather_fixed if fixed else tfm.resample_gather
     ref = (tfm.resample_gather_fixed_reference if fixed
            else tfm.resample_gather_reference)
+    kw = _forced(step, form)
+    key = tfm.launch_key(step.scheme, form)
     before = dict(tfm.launches)
-    got = fn(X, *step.w, **step.kernel_kw)
-    apart = fn(x[:bspec.in_per_launch].t(), *step.w, hist=hist.t(),
-               **step.kernel_kw)
+    got = fn(X, *step.w, **kw)
+    apart = fn(x[:bspec.in_per_launch].t(), *step.w, hist=hist.t(), **kw)
     want = ref(X, *step.w)
     torch.cuda.synchronize()
-    assert tfm.launches[step.scheme] == before[step.scheme] + 2
+    assert tfm.launches == {**before, key: before[key] + 2}
     assert torch.equal(apart, got)
     assert got.shape == want.shape == (B, bspec.out_per_launch)
     _compare(got.cpu().numpy(), want.cpu().numpy(),
              "int8" if fixed else "highest")
+    _graph_equals_eager(lambda: fn(x[:bspec.in_per_launch].t(), *step.w,
+                                   hist=hist.t(), **kw), got)
     if not fixed:
-        g = fn(X, *step.w, raw=True, **step.kernel_kw)
+        g = fn(X, *step.w, raw=True, **kw)
         w = ref(X, *step.w, raw=True)
         ulp = torch.abs(torch.nextafter(w, w + 1) - w)
         assert bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("starts", ["drift", "synthetic"])
+@pytest.mark.parametrize("B", [2048, 130, 64])
+def test_gather_band_fixed_direct(cuda, B, starts):
+    """gather_fir_fixed_band_kernel<1> (64 outputs a group) on direct
+    taps (each drift output's largest accumulator row) over the drift
+    starts or synthetic dense-band ones (outputs 0-2 rows apart), and the
+    rows kernel<1> on the same: 0 mismatches against the plain version,
+    with the wrap input on every third lane."""
+    bspec, step = _gather_step(True)
+    taps4 = step.w[0]
+    rows = taps4.abs().sum(-1).argmax(1)
+    taps = taps4[torch.arange(taps4.shape[0], device="cuda"), rows]
+    taps = taps.contiguous()
+    S = step.w[1]
+    if starts == "synthetic":
+        n, N = S.numel(), taps.shape[-1]
+        s = np.cumsum(np.random.default_rng(B).integers(0, 3, n))
+        last = step.hist_rows + bspec.in_per_launch - N
+        S = torch.from_numpy(np.minimum(s, last).astype(np.int32)).cuda()
+    hist, x = launch_inputs(step, bspec.in_per_launch, B, seed=B, wrap=False)
+    from fixed_inputs import wrap_column
+    o = int(np.flatnonzero(S.cpu().numpy() >= step.hist_rows)[0])
+    t = taps[o].cpu().numpy().astype(np.int64)
+    x = x.copy()
+    assert wrap_column(t, x, np.arange(0, B, 3),
+                       int(S[o]) - step.hist_rows) > 2 ** 31
+    hist, x = torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+    X = torch.cat([hist, x]).t()
+    want = tfm.resample_gather_fixed_reference(X, taps, S)
+    s_host = S.cpu().numpy()
+    for form in ("band", "rows"):
+        if form == "band":
+            plan = tfm.gather_plan_band(s_host, taps.shape[-1], n_accum=1)
+            assert plan.outputs == 64
+            kw = dict(plan=plan, band=tfm.gather_band(taps, s_host, plan))
+        else:
+            kw = dict(plan=tfm.gather_plan_rows(s_host, taps.shape[-1],
+                                                n_accum=1))
+        got = tfm.resample_gather_fixed(x[:bspec.in_per_launch].t(), taps,
+                                        S, hist=hist.t(), **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), form
 
 
 @pytest.mark.parametrize("B", [130, 64])
@@ -1184,6 +1267,7 @@ def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
     step = tb.make_batched_step(spec, bspec, device="cuda")
     plan = step.kernel_kw["plan"]
     assert step.kernel == "gather" and plan.outputs == 8
+    assert plan.form == "rows" and step.kernel_kw["band"] is None
     assert plan.rows < 1676 + plan.taps
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, B, seed=B, wrap=False))
@@ -1200,11 +1284,14 @@ def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
              "int8" if fixed else "highest")
 
 
+@pytest.mark.parametrize("form", ["rows", "band"])
 @pytest.mark.parametrize("x_dtype", [torch.int16, torch.float32])
-def test_gather_kernel_single_stream_layout(cuda, x_dtype):
+def test_gather_kernel_single_stream_layout(cuda, x_dtype, form):
     """The single-stream route's layout: a contiguous [channels, T] x of
-    int16 or f32 samples, 3 channels, raw f32 sums and WORD2INT, the plan
-    made from the host's starts for that sample width."""
+    int16 or f32 samples (a lane stride T: element loads), 3 channels, raw
+    f32 sums and WORD2INT, the plan made from the host's starts for that
+    sample width (the band form) and the rows form (as the route takes
+    it)."""
     spec = tfd.design_filter(44100, 44101, 7)
     N, n_out = spec.filt_len, 5000
     rng = np.random.default_rng(12)
@@ -1216,15 +1303,42 @@ def test_gather_kernel_single_stream_layout(cuda, x_dtype):
     if x_dtype == torch.float32:
         x += rng.random(x.shape).astype(np.float32)
     plan = tfm.gather_plan(starts, N, x_itemsize=x.dtype.itemsize)
+    assert plan.form == "band"
+    band = tfm.gather_band(taps, starts, plan, "cuda")
+    if form == "rows":
+        plan = tfm.gather_plan_rows(starts, N, x_itemsize=x.dtype.itemsize)
+        band = None
     X, T, S = (torch.from_numpy(a).cuda() for a in (x, taps, starts))
     for raw in (False, True):
-        got = tfm.resample_gather(X, T, S, raw=raw, plan=plan)
+        got = tfm.resample_gather(X, T, S, raw=raw, plan=plan, band=band)
         want = tfm.resample_gather_reference(X, T, S, raw=raw)
         if raw:
             ulp = torch.abs(torch.nextafter(want, want + 1) - want)
             assert bool(((got - want).abs() <= ulp).all())
         else:
             _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
+
+
+def test_single_stream_gather_route_keeps_non_finite_samples_local(cuda):
+    """The single-stream gather route (44100 -> 44101 q7, the float-sample
+    API, its rows form) leaves an output finite unless its own window
+    holds a non-finite sample: with an Inf and a NaN among the samples,
+    the card's finite mask equals device="cpu"'s (the plain version) and
+    its finite outputs are within one f32 rounding of it."""
+    rng = np.random.default_rng(21)
+    x = rng.uniform(-32768, 32768, (20000, 2)).astype(np.float32)
+    x[7000, 0], x[12000, 1] = np.inf, np.nan
+    before = tfm.launches["highest"]
+    got, want = (SpeexResampler(2, 44100, 44101, 7, engine="device",
+                                device=d).process_chunk_float(x)
+                 for d in ("cuda", "cpu"))
+    assert tfm.launches["highest"] > before
+    assert got.shape == want.shape
+    finite = np.isfinite(want)
+    assert np.array_equal(np.isfinite(got), finite)
+    assert not finite.all()
+    assert bool((np.abs(got[finite] - want[finite])
+                 <= np.spacing(np.abs(want[finite]))).all())
 
 
 DENSE_FIXED = [((44100, 48000, 3), 882), ((48000, 16000, 3), 960),
@@ -1260,16 +1374,18 @@ def test_new_kernel_steps_graph_equal_eager(cuda, kind):
     """The drift gather steps and the fixed voip dense step captured in a
     CUDA graph (after a warm-up on a side stream): a replay equals the
     eager step, and after new inputs are copied in, the eager step on
-    them; the kernel count moves once, at capture."""
+    them; the kernel count (a gather's under the key of its step's form)
+    moves once, at capture."""
     fixed = kind != "gather"
     if kind == "dense-fixed":
         spec = tfd.design_filter(147, 160, 3, fixed_point=True)
         bspec = tb._launch_geometry(spec, 4096, max_in_frames=882)
         step = tb.make_batched_step(spec, bspec, device="cuda")
-        module = tdf
+        module, key = tdf, step.scheme
     else:
         bspec, step = _gather_step(fixed)
         module = tfm
+        key = tfm.launch_key(step.scheme, step.kernel_kw["plan"].form)
     inputs = [[torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, 256, seed=s, wrap=fixed)] for s in (1, 2)]
     eager = [step.fn(h, xx, step.w) for h, xx in inputs]
@@ -1280,18 +1396,18 @@ def test_new_kernel_steps_graph_equal_eager(cuda, kind):
         step.fn(hist, x, step.w)
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()
-    before = module.launches[step.scheme]
+    before = module.launches[key]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         out = step.fn(hist, x, step.w)
-    assert module.launches[step.scheme] == before + 1
+    assert module.launches[key] == before + 1
     for (h, xx), want in zip(inputs, eager):
         hist.copy_(h)
         x.copy_(xx)
         graph.replay()
         torch.cuda.synchronize()
         assert all(torch.equal(o, w) for o, w in zip(out, want))
-    assert module.launches[step.scheme] == before + 1
+    assert module.launches[key] == before + 1
 
 
 def test_clear_step_cache_frees_device_memory(cuda):

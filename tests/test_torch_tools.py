@@ -1,7 +1,7 @@
 """The kernel-variant machinery of the ablation tools, on the CPU.
 
-``tools/{f32,split5,dense,int8,fixed}_ablate.py`` build their variants
-as text edits of a header of ``speex_resampler_tpu_torch/csrc/``
+``tools/{f32,split5,dense,int8,fixed,gather}_ablate.py`` build their
+variants as text edits of a source of ``speex_resampler_tpu_torch/csrc/``
 (``tools/_variants.py``).  Every edit must still find its text in the
 header as it stands, or the tool fails on the card; and the loader pointed
 at an edited copy must name another library, so no stale build loads.
@@ -24,7 +24,7 @@ from speex_resampler_tpu_torch.parallel import batch as tb
 import fixed_inputs
 
 TOOLS = ["f32_ablate", "split5_ablate", "dense_ablate", "int8_ablate",
-         "fixed_ablate"]
+         "fixed_ablate", "gather_ablate"]
 
 
 @pytest.mark.parametrize("tool", TOOLS)

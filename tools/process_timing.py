@@ -3,6 +3,7 @@ checkout of the port, on one GPU machine.
 
     python3 tools/process_timing.py [--root DIR] [--label NAME]
                                     [--configs flagship,slice,...]
+                                    [--step] [--single]
 
 Imports ``speex_resampler_tpu_torch`` from ``--root`` (default: this
 checkout), so an earlier commit unpacked with ``git archive <commit> |
@@ -18,6 +19,13 @@ card.  1024 stereo streams, ``scheme="auto"``, at each of ``--configs``
 ``voip-fixed``).  The median of 10 calls of one quantum and of 5 calls of
 four quanta, after one call each, by the host clock (``process`` returns
 host arrays, so the device work is inside).
+
+With ``--single``, the single-stream device route at clock drift
+instead (``SpeexResampler(c, 44100, 44101, 7, engine="device")``: the
+gather route of ``ResamplerCore``, plan and taps made on the host each
+call): 10 s of seeded PCM at 2, 8 and 64 channels, in 1024-frame
+``process_chunk`` calls and in one shot, the median of 5 runs after one,
+by the host clock, ms a run.
 
 With ``--step``, also the engine's step alone (``eng._step.fn`` on random
 launch buffers of 2048 lanes: everything one launch puts on the card, the
@@ -56,6 +64,7 @@ def main() -> None:
     ap.add_argument("--label", default="this checkout")
     ap.add_argument("--configs", default="flagship,slice")
     ap.add_argument("--step", action="store_true")
+    ap.add_argument("--single", action="store_true")
     args = ap.parse_args()
     sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
@@ -65,6 +74,9 @@ def main() -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
+    if args.single:
+        single_ms(args.label, smi)
+        return
     rng = np.random.default_rng(3)
     for name in args.configs.split(","):
         i, o, q, kw, quantum = CONFIGS[name]
@@ -90,6 +102,34 @@ def main() -> None:
             eager, graph = step_ms(torch, eng._step, eng.bspec.in_per_launch)
             print(f"{args.label}: {name} step alone: back to back "
                   f"{eager:.4f} ms, graph {graph:.4f} ms a call")
+
+
+def single_ms(label: str, smi: str, seconds: int = 10,
+              chunk: int = 1024, reps: int = 5) -> None:
+    """The single-stream drift route, chunked and one shot (``--single``)."""
+    from speex_resampler_tpu_torch import SpeexResampler
+    for c in (2, 8, 64):
+        pcm = np.random.default_rng(c).integers(
+            -32768, 32768, (seconds * 44100, c), dtype=np.int16).tobytes()
+        step = chunk * c * 2
+        for frames in (chunk, 0):
+            def run():
+                r = SpeexResampler(c, 44100, 44101, 7, engine="device",
+                                   device="cuda")
+                if not frames:
+                    return r.process_chunk(pcm)
+                return b"".join(r.process_chunk(pcm[a:a + step])
+                                for a in range(0, len(pcm), step))
+            run()
+            walls = []
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                run()
+                walls.append(time.perf_counter() - t0)
+            what = f"chunks of {frames}" if frames else "one shot"
+            print(f"{label}: single-stream {c}ch 44100->44101 q7 device "
+                  f"route, {seconds} s in {what} on {smi}: "
+                  f"{float(np.median(walls)) * 1e3:.2f} ms")
 
 
 def step_ms(torch, step, n_in: int, lanes: int = 2048, reps: int = 20):
