@@ -19,8 +19,11 @@ nvcc per source, in parallel) and drives the serving paths of
   fixed (``csrc/gather_fir.cu``), served in its band form (the FP64 and
   int8 tensor-core kernels); both forms, band and rows, are checked and
   timed at its launch; and the steep gather decimation 96 kHz -> 401 Hz
-  q3, float and fixed, whose band does not fit: the rows form, a chunk's
-  rows staged in pieces;
+  q3, float and fixed, whose band is too wide to be resident: served in
+  its stream form (the band streamed through shared memory, the same two
+  tensor-core products), its rows form (a chunk's rows staged in pieces)
+  checked and timed beside it; the fixed stream kernel also forced at the
+  drift launch with the wrap lanes;
 - 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
   split5 scheme); the f32 kernel is checked and timed at the same launch;
 - the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
@@ -261,21 +264,22 @@ def gather_kw(step, form: str | None = None) -> dict:
     if key not in _FORCED:
         taps, starts = step.w[0], step.w[1].cpu().numpy()
         n_accum = n_accum_of(step) if step.scheme == "fixed" else None
-        planner = fm.gather_plan_band if form == "band" else \
-            fm.gather_plan_rows
+        planner = {"band": fm.gather_plan_band, "rows": fm.gather_plan_rows,
+                   "stream": fm.gather_plan_stream}[form]
         plan = planner(starts, taps.shape[-1], n_accum=n_accum)
         _FORCED[key] = (step, dict(plan=plan, band=fm.gather_band(
-            taps, starts, plan) if form == "band" else None))
+            taps, starts, plan) if form != "rows" else None))
     return dict(_FORCED[key][1])
 
 
 def gather_forms(step) -> tuple:
-    """The forms a gather step's launch can take: the band form where its
-    band fits a CTA, and the rows form."""
+    """The forms a gather step's launch is checked and timed in: the band
+    form where its band fits a CTA, else the stream form; and the rows
+    form."""
     n_accum = n_accum_of(step) if step.scheme == "fixed" else None
     fits = fm.gather_plan_band(step.w[1].cpu().numpy(), step.w[0].shape[-1],
                                n_accum=n_accum) is not None
-    return ("band", "rows") if fits else ("rows",)
+    return ("band" if fits else "stream", "rows")
 
 
 def kernel_key(step, form: str | None = None) -> tuple:
@@ -340,6 +344,10 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
         if form == "band":
             return ("gather_fir_f64mma_kernel<short>" if scheme == "highest"
                     else f"gather_fir_fixed_band_kernel<{n_accum}>")
+        if form == "stream":
+            return ("gather_fir_f64mma_stream_kernel<short>"
+                    if scheme == "highest"
+                    else f"gather_fir_fixed_stream_kernel<{n_accum}>")
         return (f"gather_fir_f32_kernel<short, {kO}>" if scheme == "highest"
                 else f"gather_fir_fixed_kernel<{n_accum}, {kO}>")
     if scheme == "fixed":
@@ -402,11 +410,11 @@ DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
                    fm, "speex_resampler_tpu_torch/csrc/gather_fir.cu",
                    "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
                    fixed=True)
-# a steep gather decimation (N 11496, 8 outputs' windows 1676 rows apart):
-# its band does not fit a CTA, so the plan takes the rows form, staging a
-# chunk's rows in pieces; 96000-frame quanta: 210000 frames = 2 launches +
-# 18000 staged (f0 -> 206).  Its small taps cannot drive a fixed sum past
-# 2^31.
+# a steep gather decimation (N 11496, outputs 239.4 rows apart): its band
+# (K 15104 taps a 16-output tile) is too wide to be resident, so the plan
+# takes the stream form; 96000-frame quanta: 210000 frames = 2
+# launches + 18000 staged (f0 -> 206).  Its small taps cannot drive a
+# fixed sum past 2^31.
 STEEP = Path("gather 96k->401 q3", (96000, 401), (96000, 401), 3, 44100,
              (100000, 60000, 50000), (96000,), fm,
              "speex_resampler_tpu_torch/csrc/gather_fir.cu",
@@ -554,9 +562,9 @@ def launch_bound(spec, step, bspec, B: int, form: str | None = None):
     the dense kernel's too); for a gather in the rows form (``form``, the
     step's own by default), the row loop's (row, output) slots: each
     warp's start spread + filt_len rows for each of its outputs; in the
-    band form, the band's: every group's (fixed: times n_accum) or 16-output
-    tile's (float) outputs, the last padded, times its K taps
-    (``csrc/gather_fir.cu``)."""
+    band and stream forms, the band's: every group's (fixed: times
+    n_accum) or 16-output tile's (float) outputs, the last padded, times
+    its K taps (``csrc/gather_fir.cu``)."""
     n_out, N = bspec.out_per_launch, spec.filt_len
     fixed = step.scheme == "fixed"
     n_accum = n_accum_of(step)
@@ -592,7 +600,7 @@ def launch_bound(spec, step, bspec, B: int, form: str | None = None):
     nbytes = (last - first) * B * 2 + w_bytes + n_out * B * 2
     if step.kernel == "gather":
         plan = gather_kw(step, form)["plan"]
-        if plan.form == "band":
+        if plan.form != "rows":
             G = plan.outputs if fixed else 16
             band_macs = -(-n_out // G) * G * plan.taps * B * n_accum
         else:
@@ -805,11 +813,11 @@ def gmma_counts(lib) -> dict:
 
 def sass_check() -> None:
     """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
-    int8 and fixed (IGMMA; the fixed band gather too) kernel in the built
-    library's SASS (:func:`gmma_counts`), the f64 FMAs of the float rows
-    gather kernels (their dots are double FMA chains) and the FP64
-    tensor-core instructions (DMMA) of the float band gather kernels;
-    raises if one of them has none."""
+    int8 and fixed (IGMMA; the fixed band and stream gathers too) kernel in
+    the built library's SASS (:func:`gmma_counts`), the f64 FMAs of the
+    float rows gather kernels (their dots are double FMA chains) and the
+    FP64 tensor-core instructions (DMMA) of the float band and stream
+    gather kernels; raises if one of them has none."""
     counts = gmma_counts(_build.lib_path())
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
@@ -824,7 +832,9 @@ def sass_check() -> None:
         for t in ("short", "float") for k in (1, 2, 4, 8)] + [
         (f"gather_fir_fixed_band_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
         (f"gather_fir_f64mma_kernel<{t}>", "DMMA")
-        for t in ("short", "float")]
+        for t in ("short", "float")] + [
+        (f"gather_fir_fixed_stream_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
+        ("gather_fir_f64mma_stream_kernel<short>", "DMMA")]
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit 0): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
@@ -833,17 +843,19 @@ def sass_check() -> None:
                              "DFMA")
 
 
-def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
+def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
+                  only=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
     f0 0 and after the flush, B = 2048 and 130, and 129 for "highest",
     "int8" and "fixed" (x rows not 16-byte aligned: 2-byte loads), and 64
     for "int8" and "fixed" (one 64-lane CTA tile); fixed with the wrap
     input on every third lane, int8 with rows of -32768 and 32767.
     ``kernel`` overrides the geometry: "streamed" feeds a tiled direct
-    filter's weights to the streamed kernel.  A gather runs both forms,
-    each forced through an explicit plan (:func:`gather_kw`), at every B
-    of 2048 / 130 / 129 / 64, the float one's raw f32 sums also held
-    within one f32 rounding of the plain version's."""
+    filter's weights to the streamed kernel.  A gather runs its forms
+    (:func:`gather_forms`, or those ``only`` names), each forced through
+    an explicit plan (:func:`gather_kw`), at every B of 2048 / 130 / 129
+    / 64, the float one's raw f32 sums also held within one f32 rounding
+    of the plain version's."""
     for scheme in schemes:
         for f0 in sorted({0, path.f0_flush}):
             bspec = path.geometry(f0)
@@ -859,7 +871,8 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None) -> None:
                                     "fixed": (129, 64)}.get(step.scheme, ())
             forms = (None,)
             if step.kernel == "gather":
-                lanes, forms = (LANES, 130, 129, 64), gather_forms(step)
+                lanes = (LANES, 130, 129, 64)
+                forms = only or gather_forms(step)
             for form, B in ((f, b) for f in forms for b in lanes):
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.wrap,
@@ -1015,7 +1028,7 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int,
         print(f"  graph: kernel / library = {graph_ms:.4f} / "
               f"{library_graph_ms:.4f} ms = {graph_ms / library_graph_ms:.3f}")
     if step.kernel == "gather" and gather_kw(step, form)["plan"].form \
-            == "band":
+            != "rows":
         if step.scheme == "fixed":    # four int8 products a multiply-add
             n = 64 if n_accum_of(step) == 4 else 32
             print(f"  band at the measured int8 rate (N {n}, "
@@ -2646,6 +2659,8 @@ def main() -> None:
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
     for path in (VOIP_FIXED, DRIFT, DRIFT_FIXED, STEEP, STEEP_FIXED):
         check_kernels(path, ("auto",), max_err)
+    # the fixed stream kernel where its sums wrap (steep taps cannot)
+    check_kernels(DRIFT_FIXED, ("auto",), {}, only=("stream",))
     print(f"kernels checked: {time.time() - t_start:.1f} s")
     marks["3 kernels checked"] = time.time() - t_start
 

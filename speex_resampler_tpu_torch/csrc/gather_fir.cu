@@ -1,15 +1,18 @@
 // The gather launch for Hopper (sm_90a): per-output tap-row dots, float
-// and fixed, in two forms that the host's plan chooses between when a step
-// is built (ops/fir_matmul.gather_plan): "rows", per-output dots on the
-// CUDA cores, and "band", a banded product on the tensor cores.
+// and fixed, in three forms that the host's plan chooses between when a
+// step is built (ops/fir_matmul.gather_plan): "rows", per-output dots on
+// the CUDA cores; "band", a banded product on the tensor cores with the
+// band resident in shared memory; "stream", the same product with the band
+// streamed through shared memory, where it does not fit there.
 //
-// Replaces speex_resampler_tpu/ops/fir_matmul.py resample_gather (float,
-// an f32 HIGHEST einsum) and resample_gather_fixed (exact int32 multiply
-// and sum), which the JAX package runs outside Pallas, each one jitted XLA
-// program.  The gather geometry serves ratios whose reduced denominator is
-// so large that no padded or phase-tiled weight set fits (clock drift,
-// 44100 -> 44101: one launch is one 44100-frame block, 44101 outputs, each
-// with its own phase).  Output o, lane b is
+// Replaces speex_resampler_tpu/ops/fir_matmul.py resample_gather (:120;
+// float, an f32 HIGHEST einsum) and resample_gather_fixed (:270; exact
+// int32 multiply and sum), which the JAX package runs outside Pallas, each
+// one jitted XLA program.  The gather geometry serves ratios whose reduced
+// denominator is so large that no padded or phase-tiled weight set fits
+// (clock drift, 44100 -> 44101: one launch is one 44100-frame block, 44101
+// outputs, each with its own phase; a steep decimation, 96000 -> 401: 401
+// outputs, 239.4 rows apart, N 11496).  Output o, lane b is
 //
 //   float: y[o, b] = WORD2INT(f32(sum_{n<N} taps[o, n] * x[starts[o] + n, b]))
 //          (the f32 sum itself with `raw`, the float-sample API)
@@ -78,6 +81,38 @@
 //     every staged row, so a non-finite sample outside an output's window
 //     but inside its band would reach it through a zero tap.)
 //
+// Stream form.  At a steep decimation the band is dense (16 outputs: K
+// 15104, N / K 0.76) but far too wide to be resident (1.9 MB a float
+// tile, 4.8 MB of planes a fixed group, against 227 KB).  Its kernels take
+// one band tile a CTA, over several lane tiles, and stream the tile's band
+// and its lanes' x rows through a ring of stages a few stages ahead of the
+// products; int16 samples only (the batched step's).
+//   - Float, gather_fir_f64mma_stream_kernel<short>: the band kernel's
+//     product (16 outputs x 32 lanes a warp, four DMMAs a k-step of 8)
+//     over a 16-output tile and 256 lanes a CTA; the band is f32
+//     (f32[tiles * 16, K], half the f64 band's bytes), its A fragments
+//     widened as they load, as the B fragments are.
+//   - Fixed, gather_fir_fixed_stream_kernel<kAccum>: fir_tile's pipeline
+//     (fixed_wgmma.cuh) over a G = 16 (kAccum 4) or 32 (kAccum 1) output
+//     group, planes int8[2, groups, kAccum * G, K] as the band form's; each
+//     warpgroup takes its own 64-lane tile against the CTA's one staged
+//     band slice.
+// Where the CTAs do not fill one wave of the card (401 outputs: 26 tiles),
+// a launch splits K over several CTAs a tile (stream_split, from the
+// card's multiprocessors and the kernel's occupancy); the last CTA of a
+// tile and lane chunk adds the partial sums in split order (float f64,
+// then one f32 rounding; fixed uint32, whose sum does not depend on the
+// order) and stores.  This removes the two costs of the rows form at this
+// ratio, whose eight outputs a CTA lie 1676 rows apart: each warp walked
+// all the rows the CTA staged for its one output (busy 0.35 float, 0.21
+// fixed of them), and every piece of rows was staged between two barriers
+// with no overlap (7.0 / 11.5 GB from L2 a launch; on the H100 the
+// staging alone took 2.6 / 8.5 ms and the walk alone 4.2 / 7.4 ms of the
+// rows kernels' 6.1 / 15.4, PERF.md section 6).  What holds the stream
+// kernels is what they stage: ~1.8 GB (float: x 1.6, band 0.2) and ~2.4
+// GB (fixed: x 1.6, planes 0.8) a launch at B = 2048, 2.7-3.2 TB/s at
+// their measured times.
+//
 // Float rows: the products are exact in double, and the dot is a double
 // FMA chain in tap order, rounded once to f32 at the end, as the plain
 // version's float64 matmul is: the two agree bit for bit unless a float64
@@ -94,7 +129,12 @@
 // units (64 DFMA a clock an SM) and on IMAD (4 x 11.56 G at 64 a clock an
 // SM, ~2.8 ms), well above that; the band form walks its padded band
 // (fixed: 1379 groups x 128 columns x 160 taps x 2048 lanes, 57.8 G; float:
-// 44101 x 144 x 2048, 13.0 G) on the tensor cores.
+// 44101 x 144 x 2048, 13.0 G) on the tensor cores.  The steep decimation
+// needs 9.44 G multiply-adds (0.282 ms, ops) float and 37.76 G fixed (0.153
+// ms at the int8 peak) against ~460 MB (0.137 ms); the stream form walks
+// 26 tiles x 16 x 15104 x 2048 = 12.9 G f64 multiply-adds (float) and 26
+// groups x 64 columns x 15104 x 2048 = 51.5 G band multiply-adds, four
+// int8 products each (fixed, kAccum 4).
 #include "fir_common.cuh"
 #include "fixed_wgmma.cuh"
 
@@ -935,8 +975,524 @@ cudaError_t launch_f64_band(const Gather& g, const F64Band& bw, int raw,
   return cudaGetLastError();
 }
 
+// -- streamed band form ------------------------------------------------------
+
+// A CTA takes one band tile (float: 16 outputs; fixed: a warpgroup's
+// Shape<kAccum>::kWgRows outputs) over several lane tiles, and streams the
+// tile's band and the x rows of its lanes through a ring of stages, a
+// stage of taps at a time: a staged band slice serves every lane
+// tile of the CTA, a staged x slice every output of the tile.  Where the
+// CTAs (tiles x lane chunks) fill the card poorly, a launch splits K over
+// `split` CTAs a tile (stream_split): each writes its partial sums, and the
+// last of them to finish adds them in split order and runs the epilogue.
+// stages in a streamed CTA's ring, by kernel (tools/gather_ablate.py on
+// the H100: the float kernel ran within 2 % at 3 and 4 and slower at 6,
+// which leaves one CTA an SM; the fixed one, one CTA an SM, fastest at 6
+// of 3, 4, 6 and 8)
+constexpr int kF64StreamRing = 4;
+constexpr int kFixedStreamRing = 6;
+constexpr int kStreamMaxSplit = 8;    // K splits a streamed launch may take
+constexpr int kStreamMinStages = 16;  // stages a split walks at least
+// fixed: 64-lane tiles a CTA, one a warpgroup, sharing each band slice
+constexpr int kStreamWgs = 2;
+// float: a CTA's lanes (eight warps of 32), taps a stage, the staged band
+// and x rows' pitches (floats, samples: a fragment's rows in distinct banks)
+constexpr int kF64StreamLanes = kWarps * 32;
+constexpr int kF64StreamTaps = 32;
+constexpr int kF64StreamBandPitch = kF64StreamTaps + 4;
+constexpr int kF64StreamXPitch = kF64StreamLanes + 8;
+constexpr int kF64StreamBandBytes = kF64Tile * kF64StreamBandPitch * 4;
+constexpr int kF64StreamStage =
+    kF64StreamBandBytes + kF64StreamTaps * kF64StreamXPitch * 2;
+
+// A streamed launch's band: float f32[tiles * 16, K]; fixed planes
+// int8[2, groups, C, K] (C = kAccum * G, K-major, each 32-tap group
+// permuted by K_PERM) with bias int32[groups, C] and, for kAccum 4, coef
+// int32[n_out, 4]; K a whole number of stages, 16-byte aligned.  With
+// split > 1: part, the splits' partial sums (float: f64[split, tiles * 16,
+// B]; fixed: uint32[split, groups, C, B]), and count, int32[units], zero.
+struct StreamBand {
+  const void* w;
+  const int32_t* bias;
+  const int32_t* coef;
+  int K, split;
+  void* part;
+  int* count;
+};
+
+// Dynamic shared memory of a streamed CTA: float, the ring; fixed, the
+// ring (each stage the two planes' K-slices and each warpgroup's x rows),
+// each warpgroup's output rows, alignment.
+__host__ __device__ constexpr int f64_stream_smem() {
+  return kF64StreamRing * kF64StreamStage;
+}
+template <int kAccum>
+__host__ __device__ constexpr int fixed_stream_smem() {
+  using Sh = fir::fixedtc::Shape<kAccum>;
+  return kFixedStreamRing * (2 * i8::kSub * i8::kK * Sh::kN +
+                             kStreamWgs * i8::kRawBytes) +
+         kStreamWgs * Sh::kWgRows * i8::kRawPitch + 128;
+}
+
+// After a split CTA has stored its partial sums: whether it is the last of
+// its unit's `split` CTAs to finish (the one that adds them up).  Every
+// thread of the CTA calls it.
+__device__ __forceinline__ bool last_split(const StreamBand& sb, int unit) {
+  __shared__ int last;
+  __threadfence();
+  __syncthreads();
+  if (threadIdx.x == 0) last = atomicAdd(sb.count + unit, 1) == sb.split - 1;
+  __syncthreads();
+  if (last) __threadfence();
+  return last;
+}
+
+// Float streamed band: CTA (tile, lane chunk of 256, split) takes the
+// tile's 16 outputs over its 256 lanes, warp w lanes 32w .. 32w + 31 as
+// four 8-lane N slices, every warp from the tile's K origin starts[o0];
+// stage q holds the band's taps 32q .. 32q + 31 of the 16 rows (f32) and
+// the x rows starts[o0] + 32q + r, r < 32, of the CTA's lanes (x's type,
+// zeros past T and B), copied kF64StreamRing - 1 stages ahead, one
+// barrier a stage.  Each k-step of 8 is one A fragment (the f32 band,
+// widened as it loads) and four B fragments (int16 x, widened) into four
+// DMMAs; the sums are f64, rounded once to f32 (split: the f64 partials
+// added in split order first).  A warp whose lanes all lie past B copies
+// but does not multiply.
+template <typename XT>
+__global__ void __launch_bounds__(kThreads, 2)
+gather_fir_f64mma_stream_kernel(Gather g, StreamBand sb, int raw) {
+  extern __shared__ __align__(16) unsigned char f64_stream_smem_buf[];
+  constexpr int kV = 16 / sizeof(XT);                // lanes a 16-byte chunk
+  constexpr int kChunks = kF64StreamLanes / kV;      // chunks a staged row
+  const int tid = threadIdx.x, warp = tid / 32, l = tid % 32;
+  const int gi = l / 4, ti = l % 4;
+  const int chunks = (g.B + kF64StreamLanes - 1) / kF64StreamLanes;
+  const int split = blockIdx.x % sb.split, unit = blockIdx.x / sb.split;
+  const int o0 = unit / chunks * kF64Tile;
+  const int lane0 = unit % chunks * kF64StreamLanes;
+  const int base = g.starts[o0];
+  const int n_st = sb.K / kF64StreamTaps;
+  const int s0 = split * n_st / sb.split, s1 = (split + 1) * n_st / sb.split;
+  const bool vec = vector_axis<XT>(g);
+  const bool busy = lane0 + warp * 32 < g.B;
+  const float* band = static_cast<const float*>(sb.w) + (size_t)o0 * sb.K;
+  auto stage_at = [&](int q) {
+    return f64_stream_smem_buf + q % kF64StreamRing * kF64StreamStage;
+  };
+  // stage q: one cp.async group, empty past s1
+  auto copy_stage = [&](int q) {
+    if (q < s1) {
+      unsigned char* buf = stage_at(q);
+      const int t0 = q * kF64StreamTaps;
+      if (tid < kF64Tile * kF64StreamTaps / 4) {
+        const int r = tid / (kF64StreamTaps / 4);
+        const int c = tid % (kF64StreamTaps / 4) * 4;
+        fir::copy16(fir::smem_addr(buf + (r * kF64StreamBandPitch + c) * 4),
+                    band + (size_t)r * sb.K + t0 + c, 16);
+      }
+      XT* xs = reinterpret_cast<XT*>(buf + kF64StreamBandBytes);
+      for (int e = tid; e < kF64StreamTaps * kChunks; e += kThreads) {
+        const int r = e / kChunks, c = e % kChunks * kV;
+        copy_axis16<XT>(g, base + t0 + r, lane0 + c, vec,
+                        fir::smem_addr(xs + r * kF64StreamXPitch + c));
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+
+  double acc[kF64Slices][4];
+#pragma unroll
+  for (int s = 0; s < kF64Slices; ++s)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[s][i] = 0.0;
+#pragma unroll
+  for (int q = 0; q < kF64StreamRing - 1; ++q) copy_stage(s0 + q);
+#pragma unroll 1
+  for (int q = s0; q < s1; ++q) {
+    // stage q has landed; its buffer's next copy (stage q +
+    // kF64StreamRing - 1) waits for this barrier, after every read of
+    // stage q - 1
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kF64StreamRing - 2)
+                 : "memory");
+    __syncthreads();
+    copy_stage(q + kF64StreamRing - 1);
+    if (!busy) continue;
+    const unsigned char* buf = stage_at(q);
+    const float* a_row =
+        reinterpret_cast<const float*>(buf) + gi * kF64StreamBandPitch + ti;
+    const XT* xb = reinterpret_cast<const XT*>(buf + kF64StreamBandBytes) +
+                   ti * kF64StreamXPitch + warp * 32 + gi;
+#pragma unroll
+    for (int k = 0; k < kF64StreamTaps; k += 8) {
+      const double a[4] = {a_row[k], a_row[8 * kF64StreamBandPitch + k],
+                           a_row[k + 4],
+                           a_row[8 * kF64StreamBandPitch + k + 4]};
+#pragma unroll
+      for (int s = 0; s < kF64Slices; ++s) {
+        const double b[2] = {
+            static_cast<double>(xb[k * kF64StreamXPitch + 8 * s]),
+            static_cast<double>(xb[(k + 4) * kF64StreamXPitch + 8 * s])};
+        dmma(acc[s], a, b);
+      }
+    }
+  }
+  // acc[s][2m + e]: output o0 + gi + 8m, lane lane0 + 32 warp + 8s + 2ti + e
+  const int n_rows = (g.n_out + kF64Tile - 1) / kF64Tile * kF64Tile;
+  double* part = static_cast<double*>(sb.part);
+  auto at = [&](int s, int m) {
+    return (size_t)(o0 + gi + 8 * m) * g.B + lane0 + warp * 32 + 8 * s +
+           2 * ti;
+  };
+  if (sb.split > 1) {
+#pragma unroll
+    for (int s = 0; s < kF64Slices; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = lane0 + warp * 32 + 8 * s + 2 * ti + i % 2;
+        if (b < g.B)
+          part[(size_t)split * n_rows * g.B + at(s, i / 2) + i % 2] =
+              acc[s][i];
+      }
+    if (!last_split(sb, unit)) return;
+#pragma unroll
+    for (int s = 0; s < kF64Slices; ++s)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int b = lane0 + warp * 32 + 8 * s + 2 * ti + i % 2;
+        double sum = 0.0;
+        for (int p = 0; p < sb.split && b < g.B; ++p)
+          sum += __ldcg(part + (size_t)p * n_rows * g.B + at(s, i / 2) +
+                        i % 2);
+        acc[s][i] = sum;
+      }
+  }
+#pragma unroll
+  for (int s = 0; s < kF64Slices; ++s) {
+#pragma unroll
+    for (int m = 0; m < 2; ++m) {
+      const int o = o0 + gi + 8 * m;
+      const int b = lane0 + warp * 32 + 8 * s + 2 * ti;
+      if (o >= g.n_out || b >= g.B) continue;
+      const float f0 = __double2float_rn(acc[s][2 * m]);
+      const float f1 = __double2float_rn(acc[s][2 * m + 1]);
+      const size_t y_at = at(s, m);
+      const bool pair = b + 1 < g.B && g.B % 2 == 0;
+      if (raw) {
+        float* y = static_cast<float*>(g.y) + y_at;
+        if (pair) {
+          *reinterpret_cast<float2*>(y) = make_float2(f0, f1);
+        } else {
+          y[0] = f0;
+          if (b + 1 < g.B) y[1] = f1;
+        }
+      } else {
+        int16_t* y = static_cast<int16_t*>(g.y) + y_at;
+        const int16_t y0 = fir::word2int(f0), y1 = fir::word2int(f1);
+        if (pair) {
+          *reinterpret_cast<short2*>(y) = make_short2(y0, y1);
+        } else {
+          y[0] = y0;
+          if (b + 1 < g.B) y[1] = y1;
+        }
+      }
+    }
+  }
+}
+
+// Fixed streamed band: CTA (group, chunk of kStreamWgs lane tiles, split)
+// takes the group's G = kWgRows outputs (kN = kAccum * G band columns, the
+// wgmma's N, set-major as fir_tile's warpgroup reads them), warpgroup h
+// lane tile chunk * kStreamWgs + h, from the group's K origin starts[o0].
+// Stage q holds both planes' two K-slices of taps 64q .. 64q + 63 (all
+// threads copy them) and each warpgroup's x rows of those taps (it copies
+// its own), copied kFixedStreamRing - 2 stages ahead; a CTA barrier a
+// stage; the pipeline and the four wgmmas a K-slice are fixed_wgmma.cuh's
+// fir_tile's.  Then the band kernel's epilogue a warpgroup (split: the
+// uint32 sums of every split added first); a warpgroup whose lanes all lie
+// past B (its x zeros) stores nothing.
+template <int kAccum>
+__global__ void __launch_bounds__(kStreamWgs * kWgThreads, 1)
+gather_fir_fixed_stream_kernel(Gather g, StreamBand sb) {
+  using Sh = fir::fixedtc::Shape<kAccum>;
+  constexpr int kG = Sh::kWgRows, kC = Sh::kN;
+  constexpr int kTile = i8::kK * kC;        // one plane's K-slice
+  constexpr int kW = 2 * i8::kSub * kTile;  // a stage's band
+  constexpr int kStage = kW + kStreamWgs * i8::kRawBytes;
+  constexpr int kCta = kStreamWgs * kWgThreads;
+  constexpr int kLead = kFixedStreamRing - 2;
+  extern __shared__ uint8_t fixed_stream_smem_buf[];
+  const int tid = threadIdx.x, h = tid / kWgThreads, wt = tid % kWgThreads;
+  const int w = wt / 32, l = tid % 32;
+  const int chunks = (g.B + kStreamWgs * kLanes - 1) / (kStreamWgs * kLanes);
+  const int split = blockIdx.x % sb.split, unit = blockIdx.x / sb.split;
+  const int grp = unit / chunks;
+  const int lane0 = (unit % chunks * kStreamWgs + h) * kLanes;
+  const int o0 = grp * kG, v0 = g.starts[o0];
+  const int n_st = sb.K / i8::kStageTaps;
+  const int s0 = split * n_st / sb.split, s1 = (split + 1) * n_st / sb.split;
+  const uint32_t ring = (fir::smem_addr(fixed_stream_smem_buf) + 127) & ~127u;
+  const uint32_t out =
+      ring + kFixedStreamRing * kStage + h * kG * i8::kRawPitch;
+  const bool vec = vector_axis<int16_t>(g);
+  const int groups = (g.n_out + kG - 1) / kG;
+  // This thread's band copies: chunk e = tid + i * kCta is 16-byte half e %
+  // 2 of band column n's K-slice j in plane p (j, p, n from e below); its
+  // source from a stage's first tap and its place in a stage.
+  constexpr int kCopies = 2 * i8::kSub * kC * 2 / kCta;
+  const int8_t* wsrc[kCopies];
+  uint32_t wdst[kCopies];
+#pragma unroll
+  for (int i = 0; i < kCopies; ++i) {
+    const int e = tid + i * kCta, c = e % 2, n = e / 2 % kC;
+    const int j = e / (2 * kC) % i8::kSub, p = e / (2 * kC * i8::kSub);
+    wsrc[i] = static_cast<const int8_t*>(sb.w) +
+              ((size_t)(p * groups + grp) * kC + n) * sb.K + j * i8::kK +
+              c * 16;
+    wdst[i] = (p * i8::kSub + j) * kTile + i8::core_offset(n, c);
+  }
+  // This thread's ldmatrix row (int8tc::load_split).
+  const uint32_t frag = (8 * (l / 16) + l % 8) * i8::kRawPitch +
+                        (16 * w + 8 * ((l / 8) % 2)) * 2;
+
+  auto stage_at = [&](int q) { return ring + q % kFixedStreamRing * kStage; };
+  // stage q: one cp.async group, empty past s1 (x past B: zeros)
+  auto copy_stage = [&](int q) {
+    if (q < s1) {
+      const uint32_t buf = stage_at(q);
+      const int t0 = q * i8::kStageTaps;
+#pragma unroll
+      for (int i = 0; i < kCopies; ++i)
+        fir::copy16(buf + wdst[i], wsrc[i] + t0, 16);
+#pragma unroll
+      for (int r = 0; r < i8::kStageTaps * kLanes / 8 / kWgThreads; ++r) {
+        const int i = wt + r * kWgThreads, tap = i / (kLanes / 8);
+        const int lane = (i % (kLanes / 8)) * 8;
+        copy_axis16<int16_t>(g, v0 + t0 + tap, lane0 + lane, vec,
+                             buf + kW + h * i8::kRawBytes +
+                                 tap * i8::kRawPitch + lane * 2);
+      }
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // this thread's copies of the next stage have landed; then every
+  // thread's, visible to the tensor cores and to ldmatrix
+  auto stage_ready = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kLead - 1) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+
+  int acc[3][Sh::kAcc];  // hh, mid, ll
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < Sh::kAcc; ++i) acc[j][i] = 0;
+#pragma unroll
+  for (int q = 0; q < kLead; ++q) copy_stage(s0 + q);
+  stage_ready();
+  uint32_t xh[2][4], xl[2][4];
+#pragma unroll 1
+  for (int q = s0; q < s1; ++q) {
+    const uint32_t buf = stage_at(q);
+#pragma unroll
+    for (int j = 0; j < i8::kSub; ++j) {
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      i8::pin(xh[j]);
+      i8::pin(xl[j]);
+      i8::load_split(
+          buf + kW + h * i8::kRawBytes + j * i8::kK * i8::kRawPitch + frag,
+          xh[j], xl[j]);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const int accumulate = q > s0 || j > 0;
+      const uint64_t bh = i8::descriptor(buf + j * kTile);
+      const uint64_t bl = i8::descriptor(buf + (i8::kSub + j) * kTile);
+      fir::fixedtc::mma(acc[0], xh[j], bh, accumulate);
+      fir::fixedtc::mma(acc[1], xl[j], bh, accumulate);
+      fir::fixedtc::mma(acc[1], xh[j], bl, 1);
+      fir::fixedtc::mma(acc[2], xl[j], bl, accumulate);
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+      // later stages' copies run while this stage's wgmmas do
+      if (j == 0) copy_stage(q + kLead);
+    }
+    stage_ready();
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < 3; ++j) i8::pin(acc[j]);
+
+  // Accumulator register i = set * kPer + e of thread (warp w, lane l):
+  // lane 16w + l/4 + 8*((e/2)%2), output o0 + r, r = 8*(e/4) + 2*(l%4) +
+  // e%2 (fir_tile's map), band column set * G + r.
+  uint32_t* part = static_cast<uint32_t*>(sb.part);
+  auto at = [&](int p, int set, int r, int lane) {
+    return (((size_t)p * groups + grp) * kC + set * kG + r) * g.B + lane;
+  };
+  if (sb.split > 1) {
+#pragma unroll
+    for (int e = 0; e < Sh::kPer; ++e) {
+      const int lane = lane0 + 16 * w + l / 4 + 8 * ((e / 2) % 2);
+      const int r = 8 * (e / 4) + 2 * (l % 4) + e % 2;
+#pragma unroll
+      for (int set = 0; set < kAccum; ++set) {
+        const int i = set * Sh::kPer + e;
+        if (lane < g.B)
+          part[at(split, set, r, lane)] = 65536u * (unsigned)acc[0][i] +
+                                          256u * (unsigned)acc[1][i] +
+                                          (unsigned)acc[2][i];
+      }
+    }
+    if (!last_split(sb, unit)) return;
+  }
+  if (lane0 >= g.B) return;
+  const int32_t* bias_g = sb.bias + (size_t)grp * kC;
+#pragma unroll
+  for (int e = 0; e < Sh::kPer; ++e) {
+    const int lane = 16 * w + l / 4 + 8 * ((e / 2) % 2);
+    const int r = 8 * (e / 4) + 2 * (l % 4) + e % 2;
+    const int o = o0 + r;
+    unsigned mix = 0;
+#pragma unroll
+    for (int set = 0; set < kAccum; ++set) {
+      const int i = set * Sh::kPer + e;
+      unsigned sum = (unsigned)bias_g[set * kG + r];
+      if (sb.split > 1) {
+        for (int p = 0; p < sb.split && lane0 + lane < g.B; ++p)
+          sum += __ldcg(part + at(p, set, r, lane0 + lane));
+      } else {
+        sum += 65536u * (unsigned)acc[0][i] + 256u * (unsigned)acc[1][i] +
+               (unsigned)acc[2][i];
+      }
+      mix = kAccum == 1
+                ? sum
+                : mix + fir::mult16_32_q15(
+                            o < g.n_out ? sb.coef[(size_t)o * 4 + set] : 0,
+                            (int)sum >> 1);
+    }
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(out + r * i8::kRawPitch +
+                                                   lane * 2),
+                 "h"(fir::sat32pshr15((int)mix))
+                 : "memory");
+  }
+  asm volatile("bar.sync %0, %1;\n" ::"r"(1 + h), "n"(kWgThreads) : "memory");
+  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+#pragma unroll
+  for (int r = 0; r < kG * kLanes / 8 / kWgThreads; ++r) {
+    const int chunk = wt + r * kWgThreads;
+    const int row = chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
+    const int o = o0 + row, lane = lane0 + cl;
+    if (o >= g.n_out || lane >= g.B) continue;
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(out + row * i8::kRawPitch + cl * 2)
+                 : "memory");
+    int16_t* dst = static_cast<int16_t*>(g.y) + (size_t)o * g.B + lane;
+    if (vec_y) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+    }
+  }
+}
+
+// Sets a streamed kernel's shared memory (once a device) and gives the K
+// splits of its launch over `units` CTAs of n_st stages each.  Where the
+// units fill a wave of the card's resident CTAs (multiprocessors times the
+// kernel's CTAs each), 1: their last, partial wave runs on an L2 the others
+// no longer share, and splitting only adds the partial sums' traffic
+// (tools/gather_ablate.py, PERF.md section 6).  Else, of s in 1 ..
+// kStreamMaxSplit (each split at least kStreamMinStages stages), the one
+// whose units * s CTAs take the fewest waves for their 1 / s of the work;
+// the smallest s on a tie.
+template <typename Kernel>
+cudaError_t stream_split(Kernel* kernel, std::atomic<unsigned>& smem_set,
+                         int threads, int smem, int units, int n_st,
+                         int* split) {
+  cudaError_t err = fir::set_once(smem_set, [kernel, smem] {
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  });
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  if (err != cudaSuccess) return err;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  const long long slots = (long long)sms * per_sm;
+  auto waves = [&](int s) {
+    return ((long long)units * s + slots - 1) / slots;
+  };
+  *split = 1;
+  for (int s = 2; units < slots && s <= kStreamMaxSplit &&
+                  n_st / s >= kStreamMinStages;
+       ++s)
+    if (waves(s) * *split < waves(*split) * s) *split = s;
+  return cudaSuccess;
+}
+
+// A streamed launch's shape (n_accum 0: float): its K splits, its CTAs
+// without the splits (units), their threads and shared memory, the bytes
+// of its partial sums (0 unsplit); the kernel's ceiling set.
+struct StreamShape {
+  int split, units, threads, smem;
+  long long part_bytes;
+};
+
+cudaError_t stream_shape(int n_accum, int n_out, int B, int K,
+                         StreamShape* sh) {
+  static std::atomic<unsigned> set_f64{0}, set_fixed4{0}, set_fixed1{0};
+  if (n_out < 1 || B < 1 || K < 1) return cudaErrorInvalidValue;
+  cudaError_t err;
+  if (n_accum == 0) {
+    const int tiles = (n_out + kF64Tile - 1) / kF64Tile;
+    sh->units = tiles * ((B + kF64StreamLanes - 1) / kF64StreamLanes);
+    sh->threads = kThreads;
+    sh->smem = f64_stream_smem();
+    err = stream_split(gather_fir_f64mma_stream_kernel<int16_t>, set_f64,
+                       sh->threads, sh->smem, sh->units, K / kF64StreamTaps,
+                       &sh->split);
+    sh->part_bytes = (long long)sh->split * tiles * kF64Tile * B * 8;
+  } else if (n_accum == 1 || n_accum == 4) {
+    const int G = n_accum == 4 ? fir::fixedtc::Shape<4>::kWgRows
+                               : fir::fixedtc::Shape<1>::kWgRows;
+    const int groups = (n_out + G - 1) / G;
+    sh->units =
+        groups * ((B + kStreamWgs * kLanes - 1) / (kStreamWgs * kLanes));
+    sh->threads = kStreamWgs * kWgThreads;
+    sh->smem = n_accum == 4 ? fixed_stream_smem<4>() : fixed_stream_smem<1>();
+    const int n_st = K / i8::kStageTaps;
+    err = n_accum == 4
+              ? stream_split(gather_fir_fixed_stream_kernel<4>, set_fixed4,
+                             sh->threads, sh->smem, sh->units, n_st,
+                             &sh->split)
+              : stream_split(gather_fir_fixed_stream_kernel<1>, set_fixed1,
+                             sh->threads, sh->smem, sh->units, n_st,
+                             &sh->split);
+    sh->part_bytes = (long long)sh->split * groups * n_accum * G * B * 4;
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (sh->split == 1) sh->part_bytes = 0;
+  return err;
+}
+
 static_assert(i8::kStageTaps * kLanes / 8 % kWgThreads == 0,
               "whole x copies a warpgroup");
+static_assert(kF64StreamRing >= 3 && kFixedStreamRing >= 3,
+              "a streamed ring runs at least a stage ahead");
+static_assert(2 * i8::kSub * fir::fixedtc::Shape<1>::kN * 2 %
+                      (kStreamWgs * kWgThreads) ==
+                  0,
+              "whole band copies a fixed streamed CTA");
+static_assert(fixed_stream_smem<4>() <= kMaxSmem &&
+                  fixed_stream_smem<1>() <= kMaxSmem &&
+                  f64_stream_smem() <= kMaxSmem,
+              "a streamed CTA fits");
 static_assert(fir::fixedtc::Shape<4>::kWgRows * kLanes / 8 % kWgThreads ==
                       0 &&
                   fir::fixedtc::Shape<1>::kWgRows * kLanes / 8 % kWgThreads ==
@@ -1084,6 +1640,92 @@ int gather_fir_fixed_band(const void* h, long long hst, long long hsb, int H,
   const auto st_ = static_cast<cudaStream_t>(stream);
   return static_cast<int>(n_accum == 4 ? launch_fixed_band<4>(g, bw, st_)
                                        : launch_fixed_band<1>(g, bw, st_));
+}
+
+// The dynamic shared memory of a streamed CTA (ops/fir_matmul._stream_smem):
+// n_accum 0 the float kernel, 1 or 4 the fixed one.
+int gather_fir_stream_smem(int n_accum) {
+  if (n_accum == 4) return fixed_stream_smem<4>();
+  if (n_accum == 1) return fixed_stream_smem<1>();
+  return f64_stream_smem();
+}
+
+// The scratch of a streamed launch (n_accum 0: float) of n_out outputs, B
+// lanes and K band taps on the current device: the bytes of its partial
+// sums and its int32 counters (both 0 where it does not split K), which
+// the caller allocates, the counters zeroed, and hands to the launch.
+int gather_fir_stream_scratch(int n_accum, int n_out, int B, int K,
+                              long long* part_bytes, int* counters) {
+  StreamShape sh{};
+  const cudaError_t err = stream_shape(n_accum, n_out, B, K, &sh);
+  *part_bytes = sh.part_bytes;
+  *counters = sh.split > 1 ? sh.units : 0;
+  return static_cast<int>(err);
+}
+
+// The streamed band (float): hist and x int16 as gather_fir_f32; band
+// f32[ceil(n_out / 16) * 16, K] (K % 32 == 0, 16-byte aligned;
+// ops/fir_matmul.gather_band); part and count the scratch of
+// gather_fir_stream_scratch (NULL where it gives none).
+int gather_fir_f32_stream(const void* h, long long hst, long long hsb, int H,
+                          const void* x, long long st, long long sb,
+                          const void* band, const void* starts, void* y,
+                          int T, int B, int n_out, int K, int raw, void* part,
+                          void* count, void* stream) {
+  cudaGetLastError();
+  if (K < kF64StreamTaps || K % kF64StreamTaps)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(band) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  StreamShape sh{};
+  cudaError_t err = stream_shape(0, n_out, B, K, &sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sh.split > 1 && (part == nullptr || count == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Gather g = make_gather(h, hst, hsb, H, x, st, sb, T, B, starts, n_out,
+                               K, K, 1, y);
+  const StreamBand bw{band, nullptr, nullptr, K, sh.split, part,
+                      static_cast<int*>(count)};
+  gather_fir_f64mma_stream_kernel<int16_t>
+      <<<sh.units * sh.split, sh.threads, sh.smem,
+         static_cast<cudaStream_t>(stream)>>>(g, bw, raw);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The streamed band (fixed): hist and x int16 as gather_fir_fixed; planes
+// int8[2, groups, n_accum * G, K] (G = 16 for n_accum 4, 32 for 1; K % 64
+// == 0, 16-byte aligned), bias int32[groups, n_accum * G], coef int32[n_out,
+// 4] (NULL for n_accum 1); part and count as gather_fir_f32_stream.
+int gather_fir_fixed_stream(const void* h, long long hst, long long hsb,
+                            int H, const void* x, long long st, long long sb,
+                            const void* planes, const void* bias,
+                            const void* starts, const void* coef, void* y,
+                            int n_accum, int T, int B, int n_out, int K,
+                            void* part, void* count, void* stream) {
+  cudaGetLastError();
+  if ((n_accum != 1 && n_accum != 4) || K < i8::kStageTaps ||
+      K % i8::kStageTaps || (n_accum == 4) != (coef != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (reinterpret_cast<uintptr_t>(planes) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  StreamShape sh{};
+  cudaError_t err = stream_shape(n_accum, n_out, B, K, &sh);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (sh.split > 1 && (part == nullptr || count == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Gather g = make_gather(h, hst, hsb, H, x, st, sb, T, B, starts, n_out,
+                               K, K, 1, y);
+  const StreamBand bw{planes, static_cast<const int32_t*>(bias),
+                      static_cast<const int32_t*>(coef), K, sh.split, part,
+                      static_cast<int*>(count)};
+  const auto st_ = static_cast<cudaStream_t>(stream);
+  if (n_accum == 4)
+    gather_fir_fixed_stream_kernel<4>
+        <<<sh.units * sh.split, sh.threads, sh.smem, st_>>>(g, bw);
+  else
+    gather_fir_fixed_stream_kernel<1>
+        <<<sh.units * sh.split, sh.threads, sh.smem, st_>>>(g, bw);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

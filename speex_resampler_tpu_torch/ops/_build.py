@@ -76,6 +76,13 @@ _SIGNATURES = {
                             + [_P]),
     "gather_fir_fixed_band": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 5
                               + [_I] * 5 + [_P]),
+    "gather_fir_stream_smem": (_I, [_I]),
+    "gather_fir_stream_scratch": (_I, [_I] * 4 + [ctypes.POINTER(_L),
+                                                  ctypes.POINTER(_I)]),
+    "gather_fir_f32_stream": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 3
+                              + [_I] * 5 + [_P] * 3),
+    "gather_fir_fixed_stream": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 5
+                                + [_I] * 5 + [_P] * 3),
 }
 
 _lib = None

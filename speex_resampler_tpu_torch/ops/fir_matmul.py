@@ -22,12 +22,15 @@ runs these outside any ``pallas_call`` (XLA fuses each into one program):
   passes its history and chunk as they lie, and the kernel reads each in
   place.  A CUDA launch takes a :class:`GatherPlan` (:func:`gather_plan`,
   from the host's starts, made when a CUDA step is built) and, for the
-  band form, its :class:`GatherBand` (:func:`gather_band`, built beside the
-  plan).  The plan's form is a geometry: "rows" (per-output dots on the
-  CUDA cores; the outputs a CTA takes and the window rows it stages at
-  once, so that they fit shared memory at any ratio) or "band" (a group
-  of consecutive outputs' taps as one dense band on the tensor cores,
-  where their windows overlap densely).  Nothing switches form at launch.
+  band and stream forms, its :class:`GatherBand` (:func:`gather_band`,
+  built beside the plan).  The plan's form is a geometry: "rows"
+  (per-output dots on the CUDA cores; the outputs a CTA takes and the
+  window rows it stages at once, so that they fit shared memory at any
+  ratio), "band" (a group of consecutive outputs' taps as one dense band
+  on the tensor cores, resident in shared memory, where their windows
+  overlap densely) or "stream" (the same band streamed through shared
+  memory a stage of taps at a time, where it is too wide to be resident:
+  a steep decimation).  Nothing switches form at launch.
 
 The float dense launch is a TPU kernel (K3) and lives in ``ops/dense_fir``.
 Also here: the dense geometry's group factor and padded-weight cap, and
@@ -45,6 +48,7 @@ the same number), wrapped to int32 as the C accumulator wraps.
 
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -60,8 +64,8 @@ __all__ = ["MAX_PADDED_WEIGHT_BYTES", "choose_group", "resample_conv",
            "resample_gather_fixed", "resample_gather_reference",
            "resample_gather_fixed_reference", "fixed_weight_planes",
            "GatherPlan", "gather_plan", "gather_plan_rows", "launch_key",
-           "gather_plan_band", "GatherBand", "gather_band",
-           "GATHER_SMEM_BYTES", "GATHER_BAND_SMEM_BYTES"]
+           "gather_plan_band", "gather_plan_stream", "GatherBand",
+           "gather_band", "GATHER_SMEM_BYTES", "GATHER_BAND_SMEM_BYTES"]
 
 #: Above this padded-weight size the engine takes the gather geometry.
 MAX_PADDED_WEIGHT_BYTES = 32 * 1024 * 1024
@@ -93,12 +97,23 @@ _F64_TILE = 16
 _F64_OUTPUTS = 64
 _F64_PITCH = GATHER_LANES + 8      # a staged x row, elements
 _RAW_PITCH = GATHER_LANES * 2 + 16  # int8tc::kRawPitch, bytes
+# the stream form's outputs a band tile (float: the 16-output warp tile;
+# fixed: a warpgroup's fixedtc::Shape::kWgRows) and taps a stage (K is a
+# whole number of stages), by n_accum (None: float)
+_STREAM_GROUP = {None: 16, 4: 16, 1: 32}
+_STREAM_TAPS = {None: 32, 4: 64, 1: 64}
+# a streamed CTA's ring stages by n_accum and, fixed, its 64-lane tiles
+# (one a warpgroup); the float CTA's lanes
+_STREAM_RING = {None: 4, 4: 6, 1: 6}
+_STREAM_WGS = 2
+_F64_STREAM_LANES = 256
 
 #: Launches of the gather kernels in this process, by kernel: the rows
-#: form's under its scheme, the band form's under :func:`launch_key`; only
-#: the wrappers add to them, once per launch.  Callers reset the counts to
-#: count one run.
-launches = {"highest": 0, "fixed": 0, "highest_band": 0, "fixed_band": 0}
+#: form's under its scheme, the band and stream forms' under
+#: :func:`launch_key`; only the wrappers add to them, once per launch.
+#: Callers reset the counts to count one run.
+launches = {"highest": 0, "fixed": 0, "highest_band": 0, "fixed_band": 0,
+            "highest_stream": 0, "fixed_stream": 0}
 
 #: The library whose shared-memory ceiling this module has checked.
 _checked = None
@@ -201,7 +216,7 @@ def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
 
 def launch_key(scheme: str, form: str) -> str:
     """The :data:`launches` key of a gather launch of this scheme
-    ("highest" or "fixed") and form ("rows" or "band")."""
+    ("highest" or "fixed") and form ("rows", "band" or "stream")."""
     return scheme if form == "rows" else f"{scheme}_{form}"
 
 
@@ -212,7 +227,10 @@ class GatherPlan(NamedTuple):
     it stages at once.  Band form: ``outputs`` the band's outputs a group
     (fixed: 32 for n_accum 4, 64 for 1; float: 64 a CTA, four 16-output
     tiles), ``taps`` K, the band's width (fixed: a multiple of 32; float:
-    of 8), ``rows`` the x rows a float CTA stages (0 for fixed)."""
+    of 8), ``rows`` the x rows a float CTA stages (0 for fixed).  Stream
+    form: ``outputs`` a band tile's (float 16; fixed 16 for n_accum 4, 32
+    for 1), ``taps`` K (a whole number of 32-tap float, 64-tap fixed
+    stages), ``rows`` 0."""
     outputs: int
     taps: int
     rows: int
@@ -220,9 +238,10 @@ class GatherPlan(NamedTuple):
 
 
 class GatherBand(NamedTuple):
-    """A band launch's weights (:func:`gather_band`).  Float: ``w``
-    float64[ceil(n_out / 16) * 16, K], row o holding output o's taps from
-    column starts[o] - starts[o - o % 16], ``bias`` None.  Fixed: ``w``
+    """A band or stream launch's weights (:func:`gather_band`).  Float:
+    ``w`` float64 (band form) or float32 (stream form) [ceil(n_out / 16) *
+    16, K], row o holding output o's taps from column starts[o] - starts[o
+    - o % 16], ``bias`` None.  Fixed (G the plan's outputs): ``w``
     the balanced int8 planes int8[2, groups, n_accum * G, K] of the int16
     band (K-major, each 32-tap group permuted by ``tiled_fir.K_PERM``;
     column c * G + j holds tap row c of the group's output j from column
@@ -243,6 +262,21 @@ def _band_smem(n_accum: int | None, x_itemsize: int, K: int,
         return _F64_OUTPUTS * (K + 4) * 8 + 2 * rows * _F64_PITCH * x_itemsize
     G = _BAND_GROUP[n_accum]       # two warpgroups, G / 2 outputs each
     return 2 * K * n_accum * G + 2 * (4 * 64 + G // 2) * _RAW_PITCH + 128
+
+
+def _stream_smem(n_accum: int | None) -> int:
+    """Dynamic shared memory of a streamed CTA (``gather_fir_stream_smem``
+    of ``csrc/gather_fir.cu``): a ring of stages (float 4, fixed 6), each
+    (float) 32 taps of the tile's 16 band rows (f32, rows 36 floats apart)
+    and of the x rows of its 256 lanes (rows 264 samples apart) or (fixed)
+    64 taps of the group's two planes and of each warpgroup's x rows;
+    fixed, each warpgroup's output rows."""
+    ring = _STREAM_RING[n_accum]
+    if n_accum is None:
+        return ring * (16 * 36 * 4 + 32 * (_F64_STREAM_LANES + 8) * 2)
+    G = _STREAM_GROUP[n_accum]
+    return (ring * (2 * 64 * n_accum * G + _STREAM_WGS * 64 * _RAW_PITCH)
+            + _STREAM_WGS * G * _RAW_PITCH + 128)
 
 
 def _starts(starts, N: int) -> np.ndarray:
@@ -285,6 +319,21 @@ def gather_plan_band(starts, N: int, *, n_accum: int | None = None,
                   plan.rows) > GATHER_BAND_SMEM_BYTES:
         return None
     return plan
+
+
+def gather_plan_stream(starts, N: int, *, n_accum: int | None = None,
+                       x_itemsize: int = 2) -> GatherPlan:
+    """The stream form's plan over these window starts and N taps an output
+    (``n_accum`` as :func:`gather_plan`): G outputs a band tile (float 16;
+    fixed 16 for n_accum 4, 32 for 1), K the widest tile's start spread + N
+    rounded up to a whole stage (32 taps float, 64 fixed).  Its kernels
+    stream the band, so it fits at any K; they take int16 samples only."""
+    if x_itemsize != 2:
+        raise ValueError("the stream form takes int16 samples")
+    s = _starts(starts, N)
+    G, stage = _STREAM_GROUP[n_accum], _STREAM_TAPS[n_accum]
+    K = -(-(int(_spreads(s, G).max()) + N) // stage) * stage
+    return GatherPlan(G, K, 0, "stream")
 
 
 def gather_plan_rows(starts, N: int, *, n_accum: int | None = None,
@@ -330,8 +379,9 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
                 x_itemsize: int = 2) -> GatherPlan:
     """The CTA geometry of a gather launch over these window starts
     (non-decreasing int[n_out]) and N taps an output: the band form
-    (:func:`gather_plan_band`) wherever its band fits a CTA, else the rows
-    form (:func:`gather_plan_rows`).  ``n_accum`` None is the float
+    (:func:`gather_plan_band`) wherever its band fits a CTA, else, for
+    int16 samples, the stream form (:func:`gather_plan_stream`), else the
+    rows form (:func:`gather_plan_rows`).  ``n_accum`` None is the float
     kernel, 1 or 4 the fixed one's tap rows an output; ``x_itemsize`` the
     sample width.  Computed on the host when a step is built, never at
     launch.
@@ -339,23 +389,25 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
     The band form measured faster at the batched launch (2048 lanes) at
     every drift ratio that fits, its sparsest bands included (44.1k ->
     44.101k q0: density N / K 0.33 float, 0.125 fixed; 2.1x and 2.4x the
-    rows form's speed; PERF.md section 6); where it does not fit (a steep
-    decimation such as 96000 -> 401), the windows lie too far apart for a
-    dense band to pay."""
+    rows form's speed; PERF.md section 6).  Where it does not fit, a steep
+    decimation such as 96000 -> 401 q3, the band is as dense (N / K 0.76
+    at 16 outputs) and the stream form walks it."""
     band = gather_plan_band(starts, N, n_accum=n_accum,
                             x_itemsize=x_itemsize)
     if band is not None:
         return band
+    if x_itemsize == 2:
+        return gather_plan_stream(starts, N, n_accum=n_accum)
     return gather_plan_rows(starts, N, n_accum=n_accum,
                             x_itemsize=x_itemsize)
 
 
 def gather_band(taps, starts, plan: GatherPlan, device=None) -> GatherBand:
-    """The band form's weights (:class:`GatherBand`) of a band plan, from
-    the host's taps (f32[n_out, N]: float; int16[n_out, N] or [n_out, 4,
-    N]: fixed) and starts, on ``device`` (the taps' if a tensor, else the
-    CPU).  Built when a step is built, never at launch."""
-    if plan.form != "band":
+    """The band or stream form's weights (:class:`GatherBand`) of its
+    plan, from the host's taps (f32[n_out, N]: float; int16[n_out, N] or
+    [n_out, 4, N]: fixed) and starts, on ``device`` (the taps' if a
+    tensor, else the CPU).  Built when a step is built, never at launch."""
+    if plan.form not in ("band", "stream"):
         raise ValueError(f"a {plan.form} plan has no band")
     if device is None:
         device = taps.device if isinstance(taps, torch.Tensor) else "cpu"
@@ -372,7 +424,9 @@ def gather_band(taps, starts, plan: GatherPlan, device=None) -> GatherBand:
     if int(cols.max()) >= K:
         raise ValueError(f"a window reaches past the band's {K} taps")
     if not fixed:
-        band = np.zeros((-(-n_out // tile) * tile, K), dtype=np.float64)
+        band = np.zeros((-(-n_out // tile) * tile, K),
+                        dtype=np.float64 if plan.form == "band"
+                        else np.float32)
         band[o[:, None], cols] = taps
         return GatherBand(torch.from_numpy(band).to(device), None)
     t3 = taps.reshape(n_out, -1, N)
@@ -458,20 +512,21 @@ def _check_gather(x, taps, starts, coef, plan, fixed: bool):
 
 
 def _check_band(x, band, plan, n_out, n_accum):
-    """Validate a band launch's weights against its plan (n_accum None:
-    float)."""
+    """Validate a band or stream launch's weights against its plan
+    (n_accum None: float)."""
     if not isinstance(band, GatherBand):
-        raise TypeError("a band plan's launch takes its GatherBand "
+        raise TypeError(f"a {plan.form} plan's launch takes its GatherBand "
                         "(gather_band)")
     K = plan.taps
     if n_accum is None:
-        want = [(band.w, torch.float64,
-                 (-(-n_out // _F64_TILE) * _F64_TILE, K))]
+        dtype = torch.float64 if plan.form == "band" else torch.float32
+        want = [(band.w, dtype, (-(-n_out // _F64_TILE) * _F64_TILE, K))]
     else:
         G = plan.outputs
-        if G != _BAND_GROUP[n_accum]:
-            raise ValueError(f"a fixed band of n_accum {n_accum} takes "
-                             f"{_BAND_GROUP[n_accum]} outputs a group")
+        group = (_BAND_GROUP if plan.form == "band" else _STREAM_GROUP)
+        if G != group[n_accum]:
+            raise ValueError(f"a fixed {plan.form} plan of n_accum {n_accum} "
+                             f"takes {group[n_accum]} outputs a group")
         groups = -(-n_out // G)
         want = [(band.w, torch.int8, (2, groups, n_accum * G, K)),
                 (band.bias, torch.int32, (groups, n_accum * G))]
@@ -482,6 +537,30 @@ def _check_band(x, band, plan, n_out, n_accum):
             got = None if t is None else (t.dtype, tuple(t.shape))
             raise ValueError(f"band {got}, expected a contiguous {dtype} "
                              f"{shape} on {x.device}")
+
+
+def _stream_scratch(lib, n_accum, n_out: int, batch: int, K: int,
+                    device) -> tuple:
+    """A streamed launch's scratch: its partial sums (bytes) and its
+    zeroed int32 counters where it splits K over CTAs, as the library
+    sizes them for this card, else (None, None).  The caller holds them
+    until the launch is queued."""
+    part_bytes, counters = ctypes.c_longlong(0), ctypes.c_int(0)
+    err = lib.gather_fir_stream_scratch(n_accum or 0, n_out, batch, K,
+                                        ctypes.byref(part_bytes),
+                                        ctypes.byref(counters))
+    if err:
+        raise RuntimeError("gather kernel (stream) scratch failed: "
+                           + lib.gather_fir_error_string(err).decode())
+    part = (torch.empty(part_bytes.value, dtype=torch.uint8, device=device)
+            if part_bytes.value else None)
+    count = (torch.zeros(counters.value, dtype=torch.int32, device=device)
+             if counters.value else None)
+    return part, count
+
+
+def _ptrs(*tensors) -> tuple:
+    return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
 def resample_gather(x: torch.Tensor, taps: torch.Tensor,
@@ -501,14 +580,16 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     starts: int32[n_out]    window starts on hist ++ x, non-decreasing
                             (clamped in range)
     plan:   the launch's :class:`GatherPlan` (CUDA tensors)
-    band:   the band plan's :class:`GatherBand` (CUDA tensors)
+    band:   the band or stream plan's :class:`GatherBand` (CUDA tensors)
     returns int16[batch, n_out], or the raw f32 sums when ``raw`` (a
     transposed view of [n_out, batch] memory)
 
-    CUDA tensors launch ``gather_fir_f32`` (rows) or ``gather_fir_f32_band``
-    (band), as the plan says, on the current stream (asynchronously; a
-    launch error raises); CPU tensors run :func:`resample_gather_reference`
-    on the concatenation hist ++ x (``tile`` steers only it)."""
+    CUDA tensors launch ``gather_fir_f32`` (rows), ``gather_fir_f32_band``
+    (band) or ``gather_fir_f32_stream`` (stream; int16 x only, else
+    TypeError), as the plan says, on the current stream (asynchronously;
+    a launch error raises); CPU tensors run
+    :func:`resample_gather_reference` on the concatenation hist ++ x
+    (``tile`` steers only it)."""
     if x.device.type == "cpu":
         return resample_gather_reference(_axis(hist, x), taps, starts,
                                          tile=tile, raw=raw)
@@ -530,6 +611,17 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                 *axis, band.w.data_ptr(), starts.data_ptr(), y.data_ptr(), T,
                 batch, n_out, plan.taps, plan.rows, int(raw),
                 _build.stream_handle(x.device))
+        elif plan.form == "stream":
+            if x.dtype != torch.int16:
+                raise TypeError("the stream form takes int16 samples, got "
+                                f"{x.dtype}")
+            _check_band(x, band, plan, n_out, None)
+            scratch = _stream_scratch(lib, None, n_out, batch, plan.taps,
+                                      x.device)
+            err = lib.gather_fir_f32_stream(
+                *axis[:-1], band.w.data_ptr(), starts.data_ptr(),
+                y.data_ptr(), T, batch, n_out, plan.taps, int(raw),
+                *_ptrs(*scratch), _build.stream_handle(x.device))
         else:
             err = lib.gather_fir_f32(
                 *axis, taps.data_ptr(), starts.data_ptr(), y.data_ptr(), T,
@@ -559,13 +651,14 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     starts: int32[n_out] clamped window origins, non-decreasing
     coef:   int32[n_out, 4] Q15 cubic coefficients (interpolated only)
     plan:   the launch's :class:`GatherPlan` (CUDA tensors)
-    band:   the band plan's :class:`GatherBand` (CUDA tensors)
+    band:   the band or stream plan's :class:`GatherBand` (CUDA tensors)
     returns int16[batch, n_out]
 
-    CUDA tensors launch ``gather_fir_fixed<1|4>`` (rows) or
-    ``gather_fir_fixed_band<1|4>`` (band), as the plan says, on the
-    current stream; CPU tensors run :func:`resample_gather_fixed_reference`
-    on the concatenation hist ++ x (``tile`` steers only it)."""
+    CUDA tensors launch ``gather_fir_fixed<1|4>`` (rows),
+    ``gather_fir_fixed_band<1|4>`` (band) or ``gather_fir_fixed_stream<1|4>``
+    (stream), as the plan says, on the current stream; CPU tensors run
+    :func:`resample_gather_fixed_reference` on the concatenation hist ++ x
+    (``tile`` steers only it)."""
     if x.device.type == "cpu":
         return resample_gather_fixed_reference(_axis(hist, x), taps, starts,
                                                coef, tile=tile)
@@ -586,6 +679,15 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                 *axis, band.w.data_ptr(), band.bias.data_ptr(),
                 starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
                 n_out, plan.taps, _build.stream_handle(x.device))
+        elif plan.form == "stream":
+            _check_band(x, band, plan, n_out, n_accum)
+            scratch = _stream_scratch(lib, n_accum, n_out, batch, plan.taps,
+                                      x.device)
+            err = lib.gather_fir_fixed_stream(
+                *axis, band.w.data_ptr(), band.bias.data_ptr(),
+                starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
+                n_out, plan.taps, *_ptrs(*scratch),
+                _build.stream_handle(x.device))
         else:
             err = lib.gather_fir_fixed(
                 *axis, taps.data_ptr(), starts.data_ptr(), c_ptr,

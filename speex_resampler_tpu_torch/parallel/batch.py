@@ -730,10 +730,9 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     with int16 taps and, for an interpolated filter, int32[n_out, 4] cubic
     coefficients) over ``hist ++ x``, each read in place.  A CUDA step's
     CTA geometry (``fm.gather_plan`` of the starts: the band form where
-    the outputs' windows overlap densely, else the rows form) and, for the
-    band form, its band (``fm.gather_band`` of the same host taps) are
-    made here, in ``kernel_kw``; a CPU step runs the plain version and has
-    neither."""
+    the outputs' band fits a CTA, else the stream form) and, for both, its
+    band (``fm.gather_band`` of the same host taps) are made here, in
+    ``kernel_kw``; a CPU step runs the plain version and has neither."""
     N, num, den, f0 = spec.filt_len, spec.num, spec.den, bspec.f0
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     t = f0 + np.arange(n_out, dtype=np.int64) * num
@@ -753,7 +752,7 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         plan = fm.gather_plan(starts, N, n_accum=_n_cols(spec)
                               if spec.fixed_point else None)
         kernel_kw = dict(plan=plan, band=fm.gather_band(
-            host_w[0], starts, plan, device) if plan.form == "band" else None)
+            host_w[0], starts, plan, device) if plan.form != "rows" else None)
 
     def step(hist, x, w):
         y = launch(x[:n_in].t(), *w, hist=hist.t(), **kernel_kw)

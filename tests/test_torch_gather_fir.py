@@ -15,7 +15,8 @@ here.  What surrounds them can:
 - ``gather_plan``: every output's window lies inside the rows its CTA
   stages and the CTA's shared memory fits, at 44100 -> 44101 q7, 44101 ->
   44100 q7, 48000 -> 44101 q7 and the steep 96000 -> 401 q3 (rows staged
-  a piece at a time), float and fixed; a CPU step makes no plan; and a
+  a piece at a time; the plan a CUDA step makes there is the stream
+  form's), float and fixed; a CPU step makes no plan; and a
   NumPy model of the kernels' walk (CTA tiles, warps, the row loop, tap
   chunks, row pieces) equal to the plain versions, float and fixed,
   direct and interpolated, with tap chunks and row pieces forced;
@@ -218,13 +219,21 @@ def test_gather_plan_covers_every_window(cfg, fixed):
     rows that fit beside one tap) in pieces.  The plan a CUDA step makes:
     the band form at the three drift ratios, every output's window inside
     its group's K taps from the group's first start (float: inside the
-    rows its CTA stages), within the band's shared memory; the rows form
-    at the steep decimation."""
+    rows its CTA stages), within the band's shared memory; the stream form
+    at the steep decimation (its band too wide to be resident), every
+    output's window inside its tile's K taps, K a whole number of
+    stages."""
     spec, bspec, step = _gather_step(cfg, fixed)
     starts = step.w[1].numpy().astype(np.int64)
     N = spec.filt_len
     chosen, n_accum = _plan_of(spec, step, fixed)
-    assert chosen.form == ("rows" if cfg == GATHER["96000-401"] else "band")
+    assert chosen.form == ("stream" if cfg == GATHER["96000-401"]
+                           else "band")
+    if chosen.form == "stream":
+        o = np.arange(len(starts))
+        G = chosen.outputs
+        assert (starts - starts[o // G * G] + N).max() <= chosen.taps
+        assert chosen.taps % (64 if fixed else 32) == 0
     if chosen.form == "band":
         G = chosen.outputs if fixed else 16
         o = np.arange(len(starts))
@@ -269,7 +278,7 @@ def test_gather_plan_chunks_taps_and_refuses_what_cannot_fit():
     (eight outputs, half the memory for taps); starts must be sorted and
     N positive."""
     starts = np.arange(4096) * 3
-    plan = tfm.gather_plan(starts, 2000)
+    plan = tfm.gather_plan_rows(starts, 2000)
     assert plan.outputs == 8 and plan.taps < 2000
     assert (plan.outputs * plan.taps * 8 + plan.rows * 64 * 2
             <= tfm.GATHER_SMEM_BYTES)
@@ -278,10 +287,10 @@ def test_gather_plan_chunks_taps_and_refuses_what_cannot_fit():
     assert tfm.gather_plan(starts, 128, x_itemsize=4) == tfm.GatherPlan(
         32, 128, 31 * 3 + 128)
     smem = tfm.GATHER_SMEM_BYTES
-    assert tfm.gather_plan(np.arange(64) * 200, 16) == tfm.GatherPlan(
+    assert tfm.gather_plan_rows(np.arange(64) * 200, 16) == tfm.GatherPlan(
         8, 16, (smem - 8 * 16 * 8) // 128)
-    assert tfm.gather_plan(np.arange(64) * 200, 5000,
-                           n_accum=4) == tfm.GatherPlan(
+    assert tfm.gather_plan_rows(np.arange(64) * 200, 5000,
+                                n_accum=4) == tfm.GatherPlan(
         8, smem // 2 // 128, smem // 2 // 128)
     with pytest.raises(ValueError, match="non-decreasing"):
         tfm.gather_plan(np.array([0, 2, 1]), 16)
@@ -419,7 +428,7 @@ def test_steep_decimation_gather_serves_on_cpu(fixed):
     rows apart, more than fit a CTA at once.  A CPU engine makes no plan
     and serves it with the plain version, equal to the JAX package's
     engine (fixed bit for bit, float within the LSB contract); a CUDA step
-    would stage its rows in pieces."""
+    would take the stream form."""
     from conftest import assert_lsb_close
     from speex_resampler_tpu.parallel.batch import (
         BatchedResampler as JaxEngine)

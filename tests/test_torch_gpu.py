@@ -1135,18 +1135,21 @@ def _gather_step(fixed: bool, f0: int = 0):
     return bspec, step
 
 
-def _forced(step, form: str):
+def _forced(step, form: str, taps=None):
     """The launch arguments of a gather step with its form forced: an
-    explicit plan of that form (and, for the band form, its band) over the
-    step's starts."""
-    taps, starts = step.w[0], step.w[1].cpu().numpy()
+    explicit plan of that form (and, for the band and stream forms, its
+    band) over the step's starts, for its taps or ``taps``."""
+    taps = step.w[0] if taps is None else taps
+    starts = step.w[1].cpu().numpy()
     N = taps.shape[-1]
     n_accum = None
     if step.scheme == "fixed":
         n_accum = 4 if taps.ndim == 3 else 1
     if form == "rows":
         return dict(plan=tfm.gather_plan_rows(starts, N, n_accum=n_accum))
-    plan = tfm.gather_plan_band(starts, N, n_accum=n_accum)
+    planner = (tfm.gather_plan_band if form == "band"
+               else tfm.gather_plan_stream)
+    plan = planner(starts, N, n_accum=n_accum)
     return dict(plan=plan, band=tfm.gather_band(taps, starts, plan))
 
 
@@ -1253,21 +1256,26 @@ def test_gather_band_fixed_direct(cuda, B, starts):
         assert torch.equal(got, want), form
 
 
+def _steep_step(fixed: bool):
+    spec = tfd.design_filter(96000, 401, 3, fixed_point=fixed)
+    bspec = tb._launch_geometry(spec, 44100)
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    assert step.kernel == "gather"
+    return bspec, step
+
+
 @pytest.mark.parametrize("B", [130, 64])
 @pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
 def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
     """96000 -> 401 q3, a steep gather decimation (N 11496, 8 outputs'
-    windows 1676 rows apart): the plan stages each chunk's rows in pieces,
-    and the kernels equal their plain versions (fixed bit for bit, float
-    within the tie bound), the step's form and one operand alike.  (This
-    direct filter's small taps cannot drive a sum past 2^31, so the inputs
-    are plain random samples.)"""
-    spec = tfd.design_filter(96000, 401, 3, fixed_point=fixed)
-    bspec = tb._launch_geometry(spec, 44100)
-    step = tb.make_batched_step(spec, bspec, device="cuda")
-    plan = step.kernel_kw["plan"]
-    assert step.kernel == "gather" and plan.outputs == 8
-    assert plan.form == "rows" and step.kernel_kw["band"] is None
+    windows 1676 rows apart): the rows form's plan, forced, stages each
+    chunk's rows in pieces, and the kernels equal their plain versions
+    (fixed bit for bit, float within the tie bound), hist apart and one
+    operand alike.  (These interpolated taps cannot drive a sum past 2^31,
+    so the inputs are plain random samples.)"""
+    bspec, step = _steep_step(fixed)
+    plan = _forced(step, "rows")["plan"]
+    assert plan.outputs == 8 and plan.form == "rows"
     assert plan.rows < 1676 + plan.taps
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, B, seed=B, wrap=False))
@@ -1282,6 +1290,100 @@ def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
     assert torch.equal(got, one)
     _compare(got.cpu().numpy(), want.cpu().numpy(),
              "int8" if fixed else "highest")
+
+
+@pytest.mark.parametrize("B", [2048, 130, 64, 2])
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+def test_gather_stream_kernels_match_plain(cuda, fixed, B):
+    """The steep decimation's own plan, the stream form
+    (gather_fir_f64mma_stream_kernel, gather_fir_fixed_stream_kernel<4>:
+    16 outputs a tile, K 15104, split over CTAs where the card has room),
+    against the plain version: fixed bit for bit, float within the tie
+    bound and its raw f32 sums within one f32 rounding; hist read in place
+    and the axis as one operand bit for bit alike, and a CUDA graph's
+    replay bit for bit the eager launch; one launch counted a call, under
+    the stream key."""
+    bspec, step = _steep_step(fixed)
+    kw = dict(step.kernel_kw)
+    assert kw["plan"].form == "stream" and kw["plan"].taps == 15104
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=B, wrap=False))
+    X = torch.cat([hist, x]).t()
+    fn = tfm.resample_gather_fixed if fixed else tfm.resample_gather
+    ref = (tfm.resample_gather_fixed_reference if fixed
+           else tfm.resample_gather_reference)
+    key = tfm.launch_key(step.scheme, "stream")
+    before = dict(tfm.launches)
+    got = fn(x[:bspec.in_per_launch].t(), *step.w, hist=hist.t(), **kw)
+    one = fn(X, *step.w, **kw)
+    want = ref(X, *step.w)
+    torch.cuda.synchronize()
+    assert tfm.launches == {**before, key: before[key] + 2}
+    assert torch.equal(got, one)
+    assert got.shape == want.shape == (B, bspec.out_per_launch)
+    _compare(got.cpu().numpy(), want.cpu().numpy(),
+             "int8" if fixed else "highest")
+    _graph_equals_eager(lambda: fn(x[:bspec.in_per_launch].t(), *step.w,
+                                   hist=hist.t(), **kw), got)
+    if not fixed:
+        g = fn(X, *step.w, raw=True, **kw)
+        w = ref(X, *step.w, raw=True)
+        ulp = torch.abs(torch.nextafter(w, w + 1) - w)
+        assert bool(((g - w).abs() <= ulp).all())
+
+
+@pytest.mark.parametrize("B", [2048, 130, 64])
+@pytest.mark.parametrize("n_accum", [4, 1], ids=["interp", "direct"])
+def test_gather_stream_fixed_wraps_at_drift(cuda, n_accum, B):
+    """gather_fir_fixed_stream_kernel<4> and <1> forced at the drift launch
+    (44100 -> 44101 q7; direct: each output's largest accumulator row, 32
+    outputs a group), where the wrap input on every third lane drives an
+    int32 sum past 2^31: 0 mismatches against the plain version."""
+    bspec, step = _gather_step(True)
+    taps = step.w[0]
+    if n_accum == 1:
+        rows = taps.abs().sum(-1).argmax(1)
+        taps = taps[torch.arange(taps.shape[0], device="cuda"),
+                    rows].contiguous()
+    hist, x = launch_inputs(step, bspec.in_per_launch, B, seed=B,
+                            wrap=n_accum == 4)
+    S = step.w[1]
+    if n_accum == 1:
+        x = x.copy()
+        o = int(np.flatnonzero(S.cpu().numpy() >= step.hist_rows)[0])
+        t = taps[o].cpu().numpy().astype(np.int64)
+        assert wrap_column(t, x, np.arange(0, B, 3),
+                           int(S[o]) - step.hist_rows) > 2 ** 31
+    hist, x = torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+    w = (taps, S) + tuple(step.w[2:] if n_accum == 4 else ())
+    kw = _forced(step, "stream", taps)
+    assert kw["plan"].outputs == (16 if n_accum == 4 else 32)
+    got = tfm.resample_gather_fixed(x[:bspec.in_per_launch].t(), *w,
+                                    hist=hist.t(), **kw)
+    want = tfm.resample_gather_fixed_reference(torch.cat([hist, x]).t(), *w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def test_gather_stream_smem_and_guards(cuda):
+    """The library's streamed shared memory equals the host's formula; a
+    stream launch refuses f32 samples (TypeError) and a band of the other
+    form (ValueError) before any launch."""
+    lib = _build.load()
+    for n_accum in (None, 4, 1):
+        assert lib.gather_fir_stream_smem(n_accum or 0) \
+            == tfm._stream_smem(n_accum)
+    bspec, step = _steep_step(False)
+    kw = dict(step.kernel_kw)
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, 8, seed=1, wrap=False))
+    with pytest.raises(TypeError, match="int16"):
+        tfm.resample_gather(x[:bspec.in_per_launch].t().float(), *step.w,
+                            hist=hist.t().float(), **kw)
+    band = kw["band"]._replace(w=kw["band"].w.double())
+    with pytest.raises(ValueError, match="band"):
+        tfm.resample_gather(x[:bspec.in_per_launch].t(), *step.w,
+                            hist=hist.t(), plan=kw["plan"], band=band)
 
 
 @pytest.mark.parametrize("form", ["rows", "band"])

@@ -11,6 +11,7 @@ kernel.
 """
 
 import importlib
+import re
 import shutil
 
 import numpy as np
@@ -30,13 +31,19 @@ TOOLS = ["f32_ablate", "split5_ablate", "dense_ablate", "int8_ablate",
 @pytest.mark.parametrize("tool", TOOLS)
 def test_variant_edits_apply(tool):
     """Each variant's edits apply to the shipped header, and each changes
-    it (the tool's unedited baseline excepted)."""
+    it (the tool's unedited baseline excepted) without renaming a
+    constant it declares."""
     variants = importlib.import_module("tools._variants")
     mod = importlib.import_module(f"tools.{tool}")
     text = (variants.CSRC / mod.HEADER).read_text()
     assert mod.VARIANTS
+
+    def declared(t):
+        return sorted(re.findall(r"constexpr int (\w+) =", t))
+
     for name, (edits, *also, _) in mod.VARIANTS.items():
         out = variants.patched(text, edits, name)
+        assert declared(out) == declared(text), name
         others = also[0] if also else {}
         for file, file_edits in others.items():
             src = (variants.CSRC / file).read_text()

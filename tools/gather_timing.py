@@ -1,15 +1,18 @@
-"""The gather kernels' two forms side by side, and the fixed dense kernel:
-``chip_smoke.py``'s phases 3 and 5 for the voip fixed, drift and drift
-fixed paths, then a sweep of ratios and lane counts, on one GPU.
+"""The gather kernels' forms side by side, and the fixed dense kernel:
+``chip_smoke.py``'s phases 3 and 5 for the voip fixed, drift, drift fixed,
+steep and steep fixed paths, then a sweep of ratios and lane counts, on
+one GPU.
 
     python3 tools/gather_timing.py [--sweep-only]
 
 Builds the kernels from this checkout, prints the ``-Xptxas -v`` lines of
 ``csrc/gather_fir.cu`` and of the fixed dense kernels and the SASS check,
-holds ``dense_fir_fixed_kernel<4>`` and both forms of the float and fixed
+holds ``dense_fir_fixed_kernel<4>`` and the forms of the float and fixed
 gathers (rows: ``gather_fir_f32_kernel``, ``gather_fir_fixed_kernel<4>``;
-band: ``gather_fir_f64mma_kernel``, ``gather_fir_fixed_band_kernel<4>``)
-against their plain versions at their paths' launches
+band: ``gather_fir_f64mma_kernel``, ``gather_fir_fixed_band_kernel<4>``;
+stream: ``gather_fir_f64mma_stream_kernel``,
+``gather_fir_fixed_stream_kernel<4>``) against their plain versions at
+their paths' launches
 (``chip_smoke.check_kernels``: fixed 0 mismatches with the wrap lanes, the
 float gather within the tie bound), then times each
 (``chip_smoke.time_launch``: back to back, in a CUDA graph, one launch at
@@ -17,17 +20,18 @@ a time, the plain version, the library call where there is one, the
 bound).
 
 The sweep, the measurement behind ``fir_matmul.gather_plan``'s choice
-(the band form wherever it fits): 44.1k -> 44.101k q7, q1 and q0 (the
-drift's sparsest bands: N 16 and 8), 48000 -> 44101 q7 and 96000 -> 401
-q3 (a steep decimation, whose rows are staged in pieces and whose band
-does not fit), float and fixed, at B = 2048, 130, 64 and 2, each form
-that fits (forced through an explicit plan) checked against the plain
-version (fixed bit for bit, with the wrap input where the filter can
-pass 2^31; float within the tie bound) and timed back to back; printed
-with the
-band's density (N over its K taps an output), the walked multiply-adds
-and ms per G needed multiply-adds, and the rows / band ratio.  Raises on
-a failed check.  Prints the card's name and power limit.
+(the band form wherever it fits, else the stream form): 44.1k -> 44.101k
+q7, q1 and q0 (the drift's sparsest bands: N 16 and 8), 48000 -> 44101
+q7, and 96000 -> 401 q3, q1 and q0 (a steep decimation, whose band is
+too wide to be resident: the stream form, its sparsest band at q0), float
+and fixed, at B = 2048, 130, 64 and 2, the band form where it fits, else
+the stream form, and the rows form (each forced through an explicit plan)
+checked against the plain version (fixed bit for bit, with the wrap input
+where the filter can pass 2^31; float within the tie bound) and timed
+back to back; printed with the band's density (N over its K taps an
+output), the walked multiply-adds and ms per G needed multiply-adds, and
+the rows / band or rows / stream ratio.  Raises on a failed check.
+Prints the card's name and power limit.
 """
 
 from __future__ import annotations
@@ -45,16 +49,16 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.ops import filter_design as fd  # noqa: E402
-from speex_resampler_tpu_torch.ops import fir_matmul as fm  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 
 RATIOS = ((44100, 44101, 7), (44100, 44101, 1), (44100, 44101, 0),
-          (48000, 44101, 7), (96000, 401, 3))
+          (48000, 44101, 7), (96000, 401, 3), (96000, 401, 1),
+          (96000, 401, 0))
 LANE_COUNTS = (2048, 130, 64, 2)
 
 
 def sweep(smi: str) -> None:
-    """The two forms across RATIOS x {float, fixed} x LANE_COUNTS."""
+    """The forms across RATIOS x {float, fixed} x LANE_COUNTS."""
     print(f"sweep on {smi}: ratio universe B form | ms back to back | "
           "density N/K | walked G MACs | ms per needed G MACs")
     for (i, o, q) in RATIOS:
@@ -63,12 +67,9 @@ def sweep(smi: str) -> None:
             spec = fd.design_filter(i // g, o // g, q, fixed_point=fixed)
             bspec = tb._launch_geometry(spec, 44100)
             step = tb.make_batched_step(spec, bspec, device="cuda")
-            n_accum = cs.n_accum_of(step)
             scheme = "fixed" if fixed else "highest"
-            starts, N = step.w[1].cpu().numpy(), spec.filt_len
-            band = fm.gather_plan_band(
-                starts, N, n_accum=n_accum if fixed else None)
-            forms = ("rows",) if band is None else ("band", "rows")
+            N = spec.filt_len
+            forms = cs.gather_forms(step)
             wraps = fixed and cs.fixed_inputs.wrap_input(
                 step, np.zeros((step.chunk_rows, 1), np.int16), [0]) > 2 ** 31
             for B in LANE_COUNTS:
@@ -88,15 +89,14 @@ def sweep(smi: str) -> None:
                     _, _, _, _, macs, walked = cs.launch_bound(
                         spec, step, bspec, B, form)
                     plan = cs.gather_kw(step, form)["plan"]
-                    density = (f"{N / plan.taps:.3f}" if form == "band"
+                    density = (f"{N / plan.taps:.3f}" if form != "rows"
                                else "-")
                     print(f"  {i}->{o} q{q} {scheme:7s} B={B:4d} {form:4s} "
                           f"| {ms[form]:.4f} | {density} | "
                           f"{walked / 1e9:.3f} | "
                           f"{ms[form] / (macs / 1e9):.5f}")
-                if len(ms) == 2:
-                    print(f"  {i}->{o} q{q} {scheme:7s} B={B:4d} rows / band"
-                          f" = {ms['rows'] / ms['band']:.3f}")
+                print(f"  {i}->{o} q{q} {scheme:7s} B={B:4d} rows / "
+                      f"{forms[0]} = {ms['rows'] / ms[forms[0]]:.3f}")
 
 
 def main() -> None:
@@ -115,11 +115,13 @@ def main() -> None:
     cs.sass_check()
     if "--sweep-only" not in sys.argv:
         max_err: dict = {}
-        for path in (cs.VOIP_FIXED, cs.DRIFT, cs.DRIFT_FIXED):
+        for path in (cs.VOIP_FIXED, cs.DRIFT, cs.DRIFT_FIXED, cs.STEEP,
+                     cs.STEEP_FIXED):
             cs.check_kernels(path, ("auto",), max_err)
             bspec = path.geometry()
             step = tb.make_batched_step(path.spec, bspec, device="cuda")
-            forms = ("band", "rows") if step.kernel == "gather" else (None,)
+            forms = (cs.gather_forms(step) if step.kernel == "gather"
+                     else (None,))
             for form in forms:
                 cs.time_launch(f"{path.name} {form or ''}", path.spec, step,
                                bspec, smi, reps=20, form=form)
