@@ -14,7 +14,9 @@ nvcc per source, in parallel) and drives the serving paths of
   24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set);
 - the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
   the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
-  tensor-core kernel);
+  tensor-core kernel), and wideband voip from 48 kHz capture, 48 kHz ->
+  16 kHz q3 under the same cap, fixed: a direct filter (1 column set) on
+  the dense kernel;
 - clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
   fixed (``csrc/gather_fir.cu``), served in its band form (the FP64 and
   int8 tensor-core kernels); both forms, band and rows, are checked and
@@ -79,9 +81,11 @@ tie bound), serves the path through
 ``process``/``flush``/``process`` with the launch counts set to 0 just
 before and read just after (every kernel of the path must have launched,
 once per engine launch, and the step's tensors lie on the card), checks
-streams 0-3 against a CPU engine, then times kernel, plain version and,
-where one exists, the one PyTorch call that computes the same product,
-and prints split5's time over highest's where both are timed.
+streams 0-3 against a CPU engine, then times kernel, plain version and
+the one PyTorch call that computes the same product (int8 and fixed: one
+exact float64 product, its epilogue applied outside the timed call and
+held bit for bit against the plain version), and prints split5's time
+over highest's where both are timed.
 The fleet phase pushes two quanta and a ragged remainder per stream (odd
 streams as bytes cut at odd offsets), polls, flushes and pulls every
 stream; it requires the native stager, pinned slabs, no degradation and
@@ -129,6 +133,18 @@ quanta at the flagship.
   (a name ends with its variant, rung, form or precision) with
   ``launches`` 0 (no served path launches them) and their phase-10
   launches beside.
+- phase 11, the fuzz campaign and the soak on the card
+  (``tools/fuzz_torch.py``, ``tools/soak_torch.py``): the campaign at
+  :data:`FUZZ_SEED`, its stratified round (one draw of each served kernel
+  by name and of the core's matmul and gather routes), pinned draws, then
+  free draws up to :data:`FUZZ_DRAWS`, each held against the host route's
+  native loops and ``device="cpu"``: draws by mode and class, failures
+  (0, else the run fails), launches by kernel (every served kernel at
+  least once, else the run fails; each entry of the ``kernels`` line
+  carries its ``phase11_launches``); then :data:`SOAK_SECONDS` of
+  ``MultiFleet`` churn at 64 stereo streams a bucket: no bucket degraded,
+  every bucket's kernel launched, the peak and final growth of RSS,
+  device-allocated and pinned bytes within the soak's limits.
 Kernel and library times are read three ways: launches queued back to
 back between two events, the same launches captured in one CUDA graph and
 replayed (the device's time alone: the wrapper's Python runs once, at
@@ -146,6 +162,7 @@ CUDA device or outside a checkout of the repository.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import os
 import re
@@ -179,6 +196,11 @@ from speex_resampler_tpu_torch.probes import (
     mosaic_int_dot_bench as pid, prec_bench as ppb, tc_rate as ptr,
     v3_bench as pv3b, v3_overhead_anatomy as pv3, v4_k_layout as pkl,
     v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
+from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, MODULES,
+                                                      kernel_name,
+                                                      launch_counts,
+                                                      n_accum_of,
+                                                      reset_launches)
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -189,23 +211,6 @@ import fixed_inputs  # noqa: E402
 
 STREAMS, CHANNELS = 1024, 2
 LANES = STREAMS * CHANNELS
-
-
-#: every kernel module, by the geometry it launches
-MODULES = {"tiled": tf, "streamed": sf, "dense": df, "gather": fm}
-
-
-def reset_launches() -> None:
-    """Every kernel module's launch counts to 0."""
-    for module in MODULES.values():
-        module.launches.update(dict.fromkeys(module.launches, 0))
-
-
-def launch_counts() -> dict:
-    """The nonzero launch counts, by geometry and scheme (a gather's by
-    ``fm.launch_key`` of scheme and form)."""
-    return {k: {s: n for s, n in m.launches.items() if n}
-            for k, m in MODULES.items() if any(m.launches.values())}
 
 
 class Path:
@@ -327,35 +332,6 @@ def plain(hist, x, step):
     return kernel_call(hist, x, step, reference=True)()
 
 
-def n_accum_of(step) -> int:
-    """The fixed kernels' accumulator count of a step: its weight column
-    sets, or a gather's tap rows an output."""
-    if step.kernel == "gather":
-        return step.w[0].shape[1] if step.w[0].ndim == 3 else 1
-    return step.kernel_kw.get("n_accum", 1)
-
-
-def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
-                form: str = "rows", kO: int = 0) -> str:
-    """The CUDA kernel a (geometry, resolved scheme, n_accum) launches; a
-    gather's in its form, with its template arguments (the samples int16;
-    the rows form's kO = M / 8 outputs a warp)."""
-    if kernel == "gather":
-        if form == "band":
-            return ("gather_fir_f64mma_kernel<short>" if scheme == "highest"
-                    else f"gather_fir_fixed_band_kernel<{n_accum}>")
-        if form == "stream":
-            return ("gather_fir_f64mma_stream_kernel<short>"
-                    if scheme == "highest"
-                    else f"gather_fir_fixed_stream_kernel<{n_accum}>")
-        return (f"gather_fir_f32_kernel<short, {kO}>" if scheme == "highest"
-                else f"gather_fir_fixed_kernel<{n_accum}, {kO}>")
-    if scheme == "fixed":
-        return f"{kernel}_fir_fixed_kernel<{n_accum}>"
-    suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}[scheme]
-    return f"{kernel}_fir_{suffix}_kernel"
-
-
 # 9408-frame quanta: 41000 frames = 4 launches + 3368 staged (f0 -> 147)
 FLAGSHIP = Path("tiled 44.1k->48k q7", (44100, 48000), (147, 160), 7, 9408,
                 (12000, 9000, 20000), (10000,), tf,
@@ -399,6 +375,16 @@ VOIP_FIXED = Path("dense fixed voip 44.1k->48k q3 20 ms", (44100, 48000),
                   "speex_resampler_tpu_torch/csrc/dense_fir.cu",
                   "speex_resampler_tpu/ops/fir_matmul.py:224", "dense",
                   fixed=True, max_latency_ms=20)
+# wideband voip from 48 kHz capture: a direct filter (n_accum 1) under a
+# hard 20 ms cap, the dense geometry (864-frame quanta, 3 blocks of 288
+# frames); 4200 frames = 4 launches + 744 staged; num 3, den 1, so every
+# flush leaves f0 at 0
+VOIP_FIXED_DIRECT = Path("dense fixed voip 48k->16k q3 20 ms",
+                         (48000, 16000), (3, 1), 3, 882, (2000, 1500, 700),
+                         (1728,), df,
+                         "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+                         "speex_resampler_tpu/ops/fir_matmul.py:224", "dense",
+                         fixed=True, flush_moves_f0=False, max_latency_ms=20)
 # clock drift: one 44100-frame block per launch; 90000 frames = 2
 # launches + 1800 staged
 DRIFT = Path("gather 44.1k->44.101k q7", (44100, 44101), (44100, 44101), 7,
@@ -632,17 +618,21 @@ def library_call(step, bspec, hist, x, reps: int):
     both gathered outside the timed region: the product only, no WORD2INT
     (dense: one torch.matmul of W^T, its R columns, against every block's
     patch; fixed dense: the same in float64, the exact int16 dots of the
-    plain version; gather: one torch.sparse.mm of the banded tap matrix,
-    CSR, row o holding taps[o] at columns starts[o] .. starts[o] + N - 1,
-    against hist ++ x, in f32 for the float gather, in float64 for the
-    fixed one, whose four accumulator rows an output are four band rows
-    and whose int16 dots are then exact).  Returned as a function, the
-    yardstick of the "highest", "split5", fixed dense and gather kernels;
-    the port never calls it.  None where no one PyTorch call computes the
-    product: the exact int8 digit sums and the tiled and streamed "fixed"
-    sums.  The gathers' products are held against the plain version (the
-    fixed one bit for bit after the wrap and the Q15 epilogue, the float
-    one's WORD2INT within 1 LSB).
+    plain version; tiled and streamed "fixed": one float64 bmm of the int16
+    taps against the patches, :func:`fixed_library_call`; gather: one
+    torch.sparse.mm of the banded tap matrix, CSR, row o holding taps[o]
+    at columns starts[o] .. starts[o] + N - 1, against hist ++ x, in f32
+    for the float gather, in float64 for the fixed one, whose four
+    accumulator rows an output are four band rows and whose int16 dots are
+    then exact; "int8": one float64 bmm of the D digit planes, stacked
+    along the output axis, against the patches of x - 128, the exact
+    integer digit dots of the plain version, :func:`int8_library_call`).
+    Returned as a function, the yardstick of every kernel; the port never
+    calls it.  The fixed, int8 and gather products are held against the
+    plain version (fixed and int8: bit for bit after the int32 wrap and the
+    Q15 epilogue, or the f32 digit epilogue; the float gather's WORD2INT
+    within 1 LSB).  For int8, :func:`time_launch` also prints the f32 bmm
+    of the same launch beside it.
 
     split5: the three bf16 planes and the two bf16 parts of x concatenated
     along K as [w_hi, w_hi, w_mid, w_mid, w_lo] . [x_hi, x_lo, x_hi, x_lo,
@@ -653,8 +643,10 @@ def library_call(step, bspec, hist, x, reps: int):
     fixed = step.scheme == "fixed"
     if step.kernel == "gather":
         return gather_library_call(step, hist, x)
-    if step.scheme == "int8" or (fixed and step.kernel != "dense"):
-        return None
+    if step.scheme == "int8":
+        return int8_library_call(step, bspec, hist, x)
+    if fixed and step.kernel != "dense":
+        return fixed_library_call(step, bspec, hist, x)
     if step.kernel == "dense":
         dtype = torch.float64 if fixed else torch.float32
         w = step.w.w16 if fixed else step.w[0][:, :step.kernel_kw["R"]]
@@ -698,6 +690,123 @@ def library_call(step, bspec, hist, x, reps: int):
     if err > 1:
         raise AssertionError(f"split5 library bmm: max|err| {err}")
     return lambda: torch.bmm(wt, xk, out_dtype=torch.float32)
+
+
+def fixed_library_call(step, bspec, hist, x):
+    """:func:`library_call`'s tiled and streamed "fixed": the int16 taps
+    (``tiled_fir.fixed_taps16`` of the planes) of each block's phase in
+    float64, [n_blocks, C, K], and each block's patch of hist ++ x ++
+    zeros in float64, [n_blocks, K, B], built here on the tensors'
+    device; one bmm of the two is the exact int16 dots (every product at
+    most 2^30, every sum an integer below 2^53).  Its int32 wrap and Q15
+    epilogue are held bit for bit against the plain version here."""
+    taps = tf.fixed_taps16(step.w[0])                       # [P, K, C]
+    n_accum, (P, K, C), B = n_accum_of(step), taps.shape, x.shape[1]
+    nb, dev = bspec.n_blocks, x.device
+    phase = torch.arange(nb, device=dev) % P
+    v0 = torch.from_numpy(fixed_inputs.block_origins(step)).to(dev)
+    virt = torch.cat([hist, x, x.new_zeros((K, B))])
+    idx = (v0[:, None] + torch.arange(K, device=dev)[None, :]).clamp(
+        max=virt.shape[0] - 1)
+    patch = virt[idx].double()                              # [nb, K, B]
+    wt = taps[phase].transpose(1, 2).double().contiguous()  # [nb, C, K]
+    del virt, idx, taps
+    out = torch.empty((nb, C, B), dtype=torch.float64, device=dev)
+    torch.bmm(wt, patch, out=out)
+    acc = tf.wrap_int32(out)
+    got = (sat32pshr15(acc) if n_accum == 1 else fixed_interp_mix_rows(
+        acc.view(nb, 4, C // 4, B), step.w[2][phase])).reshape(-1, B)
+    d = (got.int() - plain(hist, x, step).int()).abs()
+    err, mism = int(d.max()), int((d > 0).sum())
+    print(f"library fixed {step.kernel} n_accum {n_accum}: float64 bmm "
+          f"[{nb}, {C}, {K}] x [{nb}, {K}, {B}], wrapped, Q15 epilogue, vs "
+          f"plain max|err|={err} mismatches={mism} of {d.numel()}")
+    del acc, got, d
+    if mism:
+        raise AssertionError(f"fixed library bmm: {mism} mismatches")
+    return lambda: torch.bmm(wt, patch, out=out)
+
+
+def int8_library_call(step, bspec, hist, x):
+    """:func:`library_call`'s "int8" (tiled and streamed):
+    :func:`int8_exact_bmm` at the step's block origins, held against its
+    plain version."""
+    v0 = torch.from_numpy(fixed_inputs.block_origins(step)).to(x.device)
+    return int8_exact_bmm(hist, x, step.w, v0, step.kernel_kw["scales"],
+                          plain(hist, x, step), step.kernel)
+
+
+def int8_exact_bmm(hist, x, w, v0, scales, want, what: str, raw=False):
+    """One float64 bmm of an int8 launch: the digit planes ``w[0]`` in tap
+    order (``tiled_fir.int8_n_major``) of each block's phase, the D digits
+    stacked along the output axis, [n_blocks, D * R, K], and each block's
+    patch of hist ++ x ++ zeros from its origin ``v0`` less 128,
+    [n_blocks, K, B], built here on the tensors' device; the bmm of the
+    two is every exact integer digit dot sum w_d * (x - 128) (each below
+    2^31, as the certificate holds).  Its f32 epilogue (the dots to int32,
+    then scaled and summed in digit order, plus the bias ``w[1]``, then
+    WORD2INT) is held bit for bit against ``want``, the plain version's
+    int16 [n_blocks * R, B].  ``raw``: P5's raw variants, the summed
+    planes, [n_blocks, R, K], against the patches of xh + xl
+    (``v3_overhead_anatomy.split``), wrapped to int16."""
+    planes = tf.int8_n_major(w[0])                          # [D, P, K, R]
+    (D, P, K, R), B, dev = planes.shape, x.shape[1], x.device
+    nb = v0.shape[0]
+    phase = torch.arange(nb, device=dev) % P
+    virt = torch.cat([hist, x, x.new_zeros((K, B))])
+    idx = (v0[:, None] + torch.arange(K, device=dev)[None, :]).clamp(
+        max=virt.shape[0] - 1)
+    if raw:
+        xh, xl = pv3.split(virt[idx])
+        patch = (xh + xl).double()                          # [nb, K, B]
+        wt = planes.double().sum(0)[phase].transpose(1, 2).contiguous()
+    else:
+        patch = virt[idx].double() - 128.0                  # [nb, K, B]
+        wt = planes[:, phase].permute(1, 0, 3, 2).reshape(
+            nb, D * R, K).double().contiguous()             # [nb, D R, K]
+    del planes, virt, idx
+    out = torch.empty((nb, wt.shape[1], B), dtype=torch.float64, device=dev)
+    torch.bmm(wt, patch, out=out)
+    if raw:
+        got = pv3.wrap16(out).reshape(-1, B)
+    else:
+        dots = out.view(nb, D, R, B)
+        acc = torch.zeros((nb, R, B), dtype=torch.float32, device=dev)
+        for d, s in enumerate(scales):
+            acc = acc + dots[:, d].to(torch.int32).float() * s
+        got = word2int(acc + w[1][phase][:, :, None]).reshape(-1, B)
+        del acc
+    d = (got.int() - want.int()).abs()
+    err, mism = int(d.max()), int((d > 0).sum())
+    print(f"library int8 {what} D={D}: float64 bmm [{nb}, {wt.shape[1]}, "
+          f"{K}] x [{nb}, {K}, {B}], "
+          f"{'wrapped to int16' if raw else 'f32 digit epilogue'}, vs plain "
+          f"max|err|={err} mismatches={mism} of {d.numel()}")
+    del got, d
+    if mism:
+        raise AssertionError(f"int8 library bmm: {mism} mismatches")
+    return lambda: torch.bmm(wt, patch, out=out)
+
+
+def int8_probe_library_call(family: str, variant: str, hist, x, w, kw):
+    """The exact library call (:func:`int8_exact_bmm`) of an int8 probe
+    launch, held against the probe's plain version: P5's variants
+    (``family`` "v3_anatomy": K1b's function at each variant's patch
+    origins, the raw variants no_epilogue and dots_only the summed
+    planes' dots wrapped to int16) and P9a ("v5_bench": K1b's function
+    without the halo; ``hist`` is None)."""
+    if family == "v5_bench":
+        hist = x.new_zeros((0, x.shape[1]))
+        P = w[0].shape[1]
+        k = torch.arange(kw["n_blocks"], device=x.device)
+        v0 = (k // P) * kw["S"] + kw["offsets"].long()[k % P]
+        want = pv5.bench_reference("int8", x, w, **kw)
+    else:
+        v0 = pv3._origins(variant, kw["offsets"], kw["S"], kw["n_blocks"])
+        want = pv3.anatomy_reference(variant, hist, x, w, **kw)
+    return int8_exact_bmm(hist, x, w, v0, kw["scales"], want,
+                          f"{family} {variant}",
+                          raw=variant in ("no_epilogue", "dots_only"))
 
 
 def gather_library_call(step, hist, x):
@@ -1004,12 +1113,14 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int,
     host_ms = cuda_ms(run, reps, mode="host")
     plain_ms = cuda_ms(kernel_call(hist, x, step, reference=True),
                        2 if step.kernel == "gather" else reps)
-    library_ms = library_graph_ms = None
+    library_ms = library_graph_ms = f32_bmm_ms = None
     lib_fn = library_call(step, bspec, hist, x, reps)
     if lib_fn is not None:
         library_ms = cuda_ms(lib_fn, reps)
         library_graph_ms = cuda_ms(lib_fn, reps, mode="graph")
         del lib_fn
+    if step.scheme == "int8":
+        f32_bmm_ms = int8_yardstick(spec, step, bspec, hist, x, reps)
     bound_ms, bound_by, nbytes, ops, macs, band_macs = launch_bound(
         spec, step, bspec, LANES, form)
     lib = ("none" if library_ms is None else
@@ -1038,9 +1149,35 @@ def time_launch(label: str, spec, step, bspec, smi: str, reps: int,
             print(f"  band DMMA rate: {band_macs / ms / 1e9:.2f} T f64 "
                   f"multiply-adds/s back to back, "
                   f"{band_macs / graph_ms / 1e9:.2f} in a graph")
-    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+    nums = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
                 bound_by=bound_by, library_ms=library_ms, graph_ms=graph_ms,
                 library_graph_ms=library_graph_ms, host_ms=host_ms)
+    if f32_bmm_ms is not None:
+        nums["f32_bmm_ms"] = f32_bmm_ms
+    return nums
+
+
+def int8_yardstick(spec, step, bspec, hist, x, reps: int) -> float:
+    """The output-equal yardstick of an int8 launch, beside its exact
+    library call (:func:`int8_library_call`): the f32 bmm of the same
+    launch, the
+    "highest" step's weights against the patches (TF32 off), timed; its
+    WORD2INT against the int8 plain version within 1 LSB (the mismatches
+    printed beside the tie bound).  Returns its ms a launch back to
+    back."""
+    hstep = tb.make_batched_step(spec, bspec, device="cuda",
+                                 scheme="highest")
+    fn = library_call(hstep, bspec, hist, x, reps)
+    d = (word2int(fn()).reshape(-1, x.shape[1]).int()
+         - plain(hist, x, step).int()).abs()
+    err, mism = int(d.max()), int((d > 0).sum())
+    ms, graph_ms = cuda_ms(fn, reps), cuda_ms(fn, reps, mode="graph")
+    print(f"  int8 yardstick: the f32 bmm of the same launch {ms:.4f} ms "
+          f"(graph {graph_ms:.4f}), its WORD2INT vs the int8 plain version "
+          f"max|err|={err} mismatches={mism} {ties(mism, d.numel())}")
+    if err > 1:
+        raise AssertionError(f"int8 yardstick: max|err| {err}")
+    return ms
 
 
 def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
@@ -2284,9 +2421,11 @@ def probe_time_p5_p8(smi: str, errs: dict) -> list:
             ladder["hoist walk"] = split["walk_ms"]
         plain_ms = cuda_ms(
             lambda: pv3.anatomy_reference(v, hist, x, w3, **kw3), 3)
+        library_ms = cuda_ms(int8_probe_library_call(
+            "v3_anatomy", v, hist, x, w3, kw3), 20)
         entries.append(probe_entry(
             "v3_anatomy", f"v3_anatomy_kernel<{al.v}> {v}", smi, ms,
-            plain_ms, None, ops,
+            plain_ms, library_ms, ops,
             phase0_bytes if v in ("no_assemble", "dots_only") else nbytes,
             errs[("v3_anatomy", v)],
             {"variant": v, "served_K1b_ms": k1b_ms, "smem": al.smem,
@@ -2312,6 +2451,10 @@ def probe_time_p5_p8(smi: str, errs: dict) -> list:
         body_us[form] = s["slope_ms"] * 1e3 / il.bodies_per_iter
         plain_ms = cuda_ms(lambda: pid.int_dot_reference(w, x, form), 3)
         lib = pid.library_call(w, x, form)
+        if form in ("i16i16", "i16i8"):    # exact float64: the body, wrapped
+            exact_check(tf.wrap_int32(lib()),
+                        pid.int_dot_reference(w, x, form)[0],
+                        f"library float64 mm of the {form} body")
         entries.append(probe_entry(
             "tc_rate", f"{p.kernel} {form}", smi,
             ms, plain_ms, None if lib is None else cuda_ms(lib, 3),
@@ -2379,6 +2522,15 @@ def probe_time_p5_p8(smi: str, errs: dict) -> list:
         plain_ms = cuda_ms(
             lambda: ppb.prec_reference(mode, w8, x8, g8.n_blocks), 3)
         lib = ppb.library_call(mode, w8, x8, g8.n_blocks)
+        if mode == "HIGH":      # the three products, summed in f32 a call
+            d = (word2int(lib()).reshape(-1, x8.shape[1]).int() - ppb.
+                 prec_reference(mode, w8, x8, g8.n_blocks).int()).abs()
+            print(f"library HIGH: bf16 bmm (f32 out) of the three products "
+                  f"vs plain max|err|={int(d.max())} mismatches="
+                  f"{int((d > 0).sum())} of {d.numel()}")
+            if int(d.max()) > 1:
+                raise AssertionError(f"HIGH library bmm: max|err| "
+                                     f"{int(d.max())}")
         name = ("prec_f32_kernel" if mode == "HIGHEST"
                 else f"prec_tc_kernel<{pl.m}>") + f" {mode}"
         entries.append(probe_entry(
@@ -2423,8 +2575,10 @@ def probe_time_p9_p12(smi: str, errs: dict) -> list:
         bl = pv5.BenchLaunch(scheme, x, w, **kw)
         ms = cuda_ms(bl.run, 20)
         plain_ms = cuda_ms(lambda: pv5.bench_reference(scheme, x, w, **kw), 3)
-        lib = pv5.library_call(scheme, x, w, **{k: kw[k] for k in
-                                                ("offsets", "S", "n_blocks")})
+        lib = (int8_probe_library_call("v5_bench", scheme, None, x, w, kw)
+               if scheme == "int8" else pv5.library_call(
+                   scheme, x, w, **{k: kw[k] for k in
+                                    ("offsets", "S", "n_blocks")}))
         if scheme == "int8":
             w_bytes = int((w[0] != 0).any(0).sum()) * 3 + w[1].numel() * 4
             ops, peak, kernel = 12 * macs, INT8_OPS, "v5_int8_kernel"
@@ -2592,9 +2746,14 @@ def probe_time(smi: str, errs: dict) -> list:
         us = s["slope_ms"] * 1e3 / ll.blocks_per_iter
         plain_ms = cuda_ms(
             lambda: pfa.ladder_reference(rung, planes, bias, coef, xr), 3)
+        lib = pfa.library_call(rung, planes, bias, coef, xr)
+        exact_check(pfa.library_epilogue(rung, lib(), bias, coef),
+                    pfa.ladder_reference(rung, planes, bias, coef, xr),
+                    f"library float64 mm of the {rung} bodies, epilogue")
         entries.append(probe_entry(
             "fixed_anatomy", f"fixed_anatomy_kernel<{ll.kr}> {rung}",
-            smi, ms, plain_ms, None, 2 * macs * it * ll.blocks_per_iter,
+            smi, ms, plain_ms, cuda_ms(lib, 3),
+            2 * macs * it * ll.blocks_per_iter,
             2 * pfa.C * pfa.K + 4 * pfa.C + 16 * pfa.R
             + xr.element_size() * pfa.K * pfa.LB
             + 2 * pfa.SLOTS * pfa.R * pfa.LB,
@@ -2621,6 +2780,73 @@ def probe_time(smi: str, errs: dict) -> list:
           f"{t['+extract'] - t['+combine']:+.4f}, mix+sat "
           f"{t['full'] - t['+extract']:+.4f}")
     return entries
+
+
+# phase 11: the fuzz campaign's seed and draw count (its stratified round
+# and pinned draws first) and the soak's seconds
+FUZZ_SEED = 11
+FUZZ_DRAWS = 24
+SOAK_SECONDS = 60
+
+
+def fuzz_phase() -> dict:
+    """``tools/fuzz_torch.py`` on the card at :data:`FUZZ_SEED`, its
+    stratified round, pinned draws and free draws up to
+    :data:`FUZZ_DRAWS`: every draw passes, the stratified round reaches
+    every class, and every kernel of a class (the batched engine's served
+    kernels and the single-stream route's rows gather) launches.  Returns
+    the launches by kernel name."""
+    from tools import fuzz_torch as fz
+    out = fz.campaign(FUZZ_SEED, FUZZ_DRAWS, float("inf"), "cuda")
+    print(f"phase 11 fuzz: {out['draws']} draws in {out['elapsed_s']} s; "
+          f"by mode {json.dumps(out['by_mode'])}")
+    print(f"phase 11 fuzz draws by class: {json.dumps(out['by_class'])}")
+    print(f"phase 11 fuzz failures: {len(out['failures'])}; clean "
+          f"refusals (the CPU engine refusing alike) {out['refused']}; "
+          f"fixed draws with a wrap window past 2^31 "
+          f"{out['fixed_wrap_draws']}; largest tie rate against the host "
+          f"cores by scheme {json.dumps(out['max_tie_rate_vs_host'])}")
+    print(f"phase 11 fuzz launches by kernel: {json.dumps(out['launches'])}")
+    if out["failures"]:
+        raise AssertionError(f"fuzz failures: {out['failures']}")
+    missing = [c for c in fz.CLASSES if not any(
+        k.startswith(c) for k in out["by_class"])]
+    unlaunched = [k for k in fz.CLASSES if k != "core matmul" and
+                  out["launches"].get(CORE_GATHER if k == "core gather"
+                                      else k, 0) == 0]
+    if missing or unlaunched:
+        raise AssertionError(f"fuzz classes not reached {missing}, kernels "
+                             f"not launched {unlaunched}")
+    return out["launches"]
+
+
+def soak_phase(smi: str) -> None:
+    """``tools/soak_torch.py`` on the card for :data:`SOAK_SECONDS`: no
+    bucket degraded, every bucket's kernel launched, and the peak and
+    final growth of RSS, device-allocated and pinned bytes within the
+    soak's limits (the slope, asserted only over minutes, by the
+    standalone run)."""
+    from tools import soak_torch as st
+    gc.collect()          # the earlier phases' engines, not the soak's
+    res = st.soak(SOAK_SECONDS, "cuda")
+    print(f"phase 11 soak on {smi}: {res['seconds']} s, {res['rounds']} "
+          f"rounds, {res['launches']} launches, {res['streams_created']} "
+          f"streams created ({res['stream_records']} records held: "
+          f"removed streams are kept until pulled), "
+          f"{res['pushes_refused']} pushes refused, "
+          f"baseline at {res['baseline_s']} s; launches by kernel "
+          f"{json.dumps(res['launches_by_kernel'])}")
+    for name, v in res["series"].items():
+        print(f"phase 11 soak {name}: baseline {v['baseline_mb']} MB, "
+              f"growth peak {v['growth_peak_mb']} MB / final "
+              f"{v['growth_final_mb']} MB (limits "
+              f"{st.GROWTH_PEAK_MB} / {st.GROWTH_FINAL_MB}), slope "
+              f"{v['slope_mb_per_min']} MB/min (not asserted here)")
+    print(f"phase 11 soak: device reserved at most "
+          f"{res['device_reserved_max_mb']} MB; pinned bytes from "
+          f"{res['pinned_source']}")
+    if not res["pass"]:
+        raise AssertionError(f"soak failed: {res['failed']}")
 
 
 def main() -> None:
@@ -2657,7 +2883,8 @@ def main() -> None:
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT):
         check_kernels(path, ("auto",), max_err)
     check_kernels(FIXED_DIRECT, ("auto",), max_err, kernel="streamed")
-    for path in (VOIP_FIXED, DRIFT, DRIFT_FIXED, STEEP, STEEP_FIXED):
+    for path in (VOIP_FIXED, VOIP_FIXED_DIRECT, DRIFT, DRIFT_FIXED, STEEP,
+                 STEEP_FIXED):
         check_kernels(path, ("auto",), max_err)
     # the fixed stream kernel where its sums wrap (steep taps cannot)
     check_kernels(DRIFT_FIXED, ("auto",), {}, only=("stream",))
@@ -2670,7 +2897,7 @@ def main() -> None:
               SLICE: serve(SLICE, {**float_requests, "split5": "split5"},
                            want_digits=4)}
     for path in (FIXED_FLAGSHIP, FIXED_SLICE, FIXED_DIRECT, VOIP_FIXED,
-                 DRIFT_FIXED, STEEP_FIXED):
+                 VOIP_FIXED_DIRECT, DRIFT_FIXED, STEEP_FIXED):
         served[path] = serve(path, {"auto": "fixed"})
     for path in (VOIP, DRIFT, STEEP):
         served[path] = serve(path, {"auto": "highest"})
@@ -2690,7 +2917,8 @@ def main() -> None:
             (FIXED_DIRECT, ("auto",), ()),
             (VOIP, ("auto",), ()),
             (DECIMATE, ("auto",), ("highest",)),
-            (VOIP_FIXED, ("auto",), ()), (DRIFT, ("auto",), ()),
+            (VOIP_FIXED, ("auto",), ()), (VOIP_FIXED_DIRECT, ("auto",), ()),
+            (DRIFT, ("auto",), ()),
             (DRIFT_FIXED, ("auto",), ()), (STEEP, ("auto",), ()),
             (STEEP_FIXED, ("auto",), ())):
         counts, engines, frames = served[path]
@@ -2752,6 +2980,16 @@ def main() -> None:
     probe_report()
     kernels += probe_time(smi, probe_check())
     marks["10 probes"] = time.time() - t_start
+    # -- phase 11: the fuzz campaign and the MultiFleet soak on the card
+    fuzz_launches = fuzz_phase()
+    rows = kernel_name("gather", "highest", form="rows", kO=8)
+    for entry in kernels:    # the core's rows gathers beside phase 7's
+        entry["phase11_launches"] = fuzz_launches.get(entry["name"], 0) + (
+            fuzz_launches.get(CORE_GATHER, 0) if entry["name"] == rows
+            else 0)
+    soak_phase(smi)
+    print(f"phase 11: {time.time() - t_start:.1f} s")
+    marks["11 fuzz, soak"] = time.time() - t_start
     print(f"total: {time.time() - t_start:.1f} s")
     ends = list(marks.values())
     print(f"phase seconds on {smi}: " + json.dumps(

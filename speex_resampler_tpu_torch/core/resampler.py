@@ -56,6 +56,15 @@ _log = logging.getLogger(__name__)
 HOST_AUTO_MAX_CHANNELS = 8
 
 
+def _device_route_gathers(spec) -> bool:
+    """Whether the device route runs ``spec`` on the gather kernel: the
+    matmul route's padded f32 weights, (filt_len + group * num) rows of
+    group * den columns, would pass ``fm.MAX_PADDED_WEIGHT_BYTES``."""
+    group = fm.choose_group(spec.num, spec.den, spec.filt_len)
+    return ((spec.filt_len + group * spec.num) * group * spec.den * 4
+            > fm.MAX_PADDED_WEIGHT_BYTES)
+
+
 class _WeightCache:
     """Per-instance cache of device-resident padded weight matrices."""
 
@@ -705,14 +714,12 @@ class ResamplerCore:
         ls0 + (f0+k*num)//den indexed from X[0] (history origin)."""
         spec = self._spec
         num, den, N = spec.num, spec.den, spec.filt_len
+        if _device_route_gathers(spec):
+            return self._run_fir_gather(X, ls0, f0, n_out, out_float)
         group = fm.choose_group(num, den, N)
         R = group * den
         stride = group * num
         L = N + stride
-
-        w_bytes = L * R * 4
-        if w_bytes > fm.MAX_PADDED_WEIGHT_BYTES:
-            return self._run_fir_gather(X, ls0, f0, n_out, out_float)
 
         # fold ls0 into the patch origin by dropping the first ls0 samples
         Xs = X[:, ls0:]

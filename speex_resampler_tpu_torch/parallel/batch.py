@@ -721,6 +721,21 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                        kernel="dense")
 
 
+def _gather_starts(spec: fd.FilterSpec, bspec: BatchSpec) -> tuple:
+    """(window starts int32, phases int64) of a gather launch's outputs:
+    output k's time f0 + k * num, its window start clamped in range."""
+    t = bspec.f0 + np.arange(bspec.out_per_launch, dtype=np.int64) * spec.num
+    starts = np.minimum(t // spec.den, max(bspec.in_per_launch - 1, 0))
+    return starts.astype(np.int32), t % spec.den
+
+
+def _gather_plan(spec: fd.FilterSpec, starts: np.ndarray) -> fm.GatherPlan:
+    """The CTA geometry a CUDA gather step takes for these starts
+    (``fm.gather_plan``; the fixed kernels' accumulator rows an output)."""
+    return fm.gather_plan(starts, spec.filt_len, n_accum=_n_cols(spec)
+                          if spec.fixed_point else None)
+
+
 def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                        device: torch.device) -> BatchedStep:
     """The gather geometry's step (the JAX package's branch): the taps of
@@ -733,11 +748,8 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     the outputs' band fits a CTA, else the stream form) and, for both, its
     band (``fm.gather_band`` of the same host taps) are made here, in
     ``kernel_kw``; a CPU step runs the plain version and has neither."""
-    N, num, den, f0 = spec.filt_len, spec.num, spec.den, bspec.f0
-    n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
-    t = f0 + np.arange(n_out, dtype=np.int64) * num
-    starts = np.minimum(t // den, max(N - 1 + n_in - N, 0)).astype(np.int32)
-    phases = t % den
+    N, n_in = spec.filt_len, bspec.in_per_launch
+    starts, phases = _gather_starts(spec, bspec)
     if _n_cols(spec) == 4:
         taps, coef = spec.interp_rows(phases)
         host_w = (taps, starts, coef.astype(np.int32))
@@ -749,8 +761,7 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
               for a in host_w)
     kernel_kw = dict(plan=None, band=None)
     if torch.device(device).type == "cuda":
-        plan = fm.gather_plan(starts, N, n_accum=_n_cols(spec)
-                              if spec.fixed_point else None)
+        plan = _gather_plan(spec, starts)
         kernel_kw = dict(plan=plan, band=fm.gather_band(
             host_w[0], starts, plan, device) if plan.form != "rows" else None)
 

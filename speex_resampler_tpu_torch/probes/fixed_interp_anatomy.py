@@ -40,7 +40,8 @@ from . import tc_rate as tr
 
 __all__ = ["R", "K", "LB", "C", "N_REPS", "RUNGS", "inputs", "rung_input",
            "dot_fixed", "ladder_reference", "pack", "ladder",
-           "LadderLaunch", "measure", "run", "launches"]
+           "LadderLaunch", "measure", "run", "launches", "library_call",
+           "library_epilogue"]
 
 R, K, LB = 128, 264, 128
 C = 4 * R
@@ -119,6 +120,62 @@ def ladder_reference(rung: str, planes: torch.Tensor, bias: torch.Tensor,
     total = 0
     for r in range(N_REPS):
         total = _wrap(total + _body(rung, planes, bias, coef, x, r), 16)
+    return total.to(torch.int16).unsqueeze(0).repeat(SLOTS, 1, 1)
+
+
+def _salted(rung: str, x: torch.Tensor, r: int) -> torch.Tensor:
+    """Body r's x as int64: element [0, 0] salted with +r in x's type."""
+    xs = x.to(torch.int64).clone()
+    xs[0, 0] = _wrap(xs[0, 0] + r, 8 if rung == "mxu_only" else 16)
+    return xs
+
+
+def library_call(rung: str, planes: torch.Tensor, bias: torch.Tensor,
+                 coef: torch.Tensor, x: torch.Tensor):
+    """The yardstick, as a function: one float64 ``torch.mm`` holding every
+    body's exact dots, the N_REPS salted bodies side by side along N.
+    ``mxu_only``: (wh + wl)[:R] . (xs + xs2), [R, K] . [K, N_REPS LB];
+    the others: T . (xs - 128) with T = 256 wh + wl (``_dot_fixed`` less
+    its bias: 256 xh' + xl' = x - 128), the R rows ``+combine`` and
+    ``+extract`` keep or all 4R for ``full``.  Each product is below 2^31
+    and each sum below 2^53, so the sums are exact;
+    :func:`library_epilogue` turns them into the ladder's output.  The
+    port never calls it."""
+    _check(rung, planes, bias, coef, x)
+    Rr = coef.shape[-1]
+    wh, wl = planes[0].to(torch.int64), planes[1].to(torch.int64)
+    if rung == "mxu_only":
+        a = (wh + wl)[:Rr]
+        b = [xs + _wrap(xs + 1, 8) for xs in
+             (_salted(rung, x, r) for r in range(N_REPS))]
+    else:
+        a = (256 * wh + wl)[:4 * Rr if rung == "full" else Rr]
+        b = [_salted(rung, x, r) - 128 for r in range(N_REPS)]
+    a = a.double().contiguous()
+    b = torch.cat(b, dim=1).double().contiguous()          # [K, N_REPS LB]
+    return lambda: torch.mm(a, b)
+
+
+def library_epilogue(rung: str, y: torch.Tensor, bias: torch.Tensor,
+                     coef: torch.Tensor) -> torch.Tensor:
+    """:func:`library_call`'s product -> the ladder's output, int16 [16,
+    R, LB] (:func:`ladder_reference`): per body, the bias and the int32
+    wrap (not ``mxu_only``), then the rung's cast to int16 or the cubic
+    mix; the bodies summed in int16."""
+    Rr, LBb = coef.shape[-1], y.shape[1] // N_REPS
+    total = 0
+    for r in range(N_REPS):
+        acc = y[:, r * LBb:(r + 1) * LBb]
+        if rung == "mxu_only":
+            body = _wrap(acc, 16)
+        else:
+            acc = wrap_int32(acc.to(torch.int64)
+                             + bias[:acc.shape[0]].to(torch.int64)[:, None])
+            body = (fixed_interp_mix_rows(acc.reshape(4, Rr, -1),
+                                          coef.to(torch.int32)).to(
+                                              torch.int64)
+                    if rung == "full" else _wrap(acc, 16))
+        total = _wrap(total + body, 16)
     return total.to(torch.int16).unsqueeze(0).repeat(SLOTS, 1, 1)
 
 

@@ -172,12 +172,22 @@ def int_dot(w: torch.Tensor, x: torch.Tensor, form: str, *,
 
 def library_call(w: torch.Tensor, x: torch.Tensor, form: str):
     """The yardstick, as a function, where PyTorch has one: the rate
-    probe's ``torch._int_mm`` (i8.i8) or bf16 ``torch.mm`` (bf16); None for
-    the wide forms.  The port never calls it."""
+    probe's ``torch._int_mm`` (i8.i8) or bf16 ``torch.mm`` (bf16); for
+    i16.i16 and i16.i8 one float64 ``torch.mm`` of the same body, [W ... W]
+    . [x[0]; ...; x[reps - 1]], exact (each product below 2^31, each sum
+    below 2^53), whose wrap to int32 is the body; None for i32.i32 (its
+    products reach 2^62: float64 is not exact, and PyTorch has no int64
+    matmul on CUDA).  The port never calls it."""
     if form == "i8i8":
         return tr.library_call(w, x, "int8")
     if form == "bf16bf16":
         return tr.library_call(w, x, "bf16")
+    if form in ("i16i16", "i16i8"):
+        wdt, xdt = FORMS[form]
+        K, reps = w.shape[1], x.shape[0]
+        a = cast(w, wdt).double().repeat(1, reps).contiguous()
+        b = cast(x, xdt).double().reshape(reps * K, -1).contiguous()
+        return lambda: torch.mm(a, b)
     return None
 
 

@@ -246,11 +246,17 @@ def library_call(mode: str, w: torch.Tensor, x: torch.Tensor,
                  n_blocks: int = N_BLOCKS):
     """The yardstick, as a function: one batched matmul of W^T and the
     gathered patches in the mode's type (float32 with TF32 off for
-    HIGHEST, bf16 for DEFAULT, float32 with TF32 on for TF32; HIGH has
-    none), operands in device memory.  The port never calls it."""
-    if mode == "HIGH":
-        return None
+    HIGHEST, bf16 for DEFAULT, float32 with TF32 on for TF32; for HIGH,
+    one bf16 bmm with a float32 result of the three products concatenated
+    along K, [W_hi, W_hi, W_lo] . [x_hi, x_lo, x_hi], as split5's
+    yardstick), operands in device memory.  The port never calls it."""
     p = _patches(x, w.shape[0], n_blocks).float()
+    if mode == "HIGH":
+        (wh, xh), (_, xl), (wl, _) = operands(mode, w.t(), p)
+        a = torch.cat([wh, wh, wl], dim=1).to(torch.bfloat16).expand(
+            n_blocks, -1, -1).contiguous()                  # [nb, R, 3L]
+        b = torch.cat([xh, xl, xh], dim=1).to(torch.bfloat16).contiguous()
+        return lambda: torch.bmm(a, b, out_dtype=torch.float32)
     wt = w.t().float().expand(n_blocks, -1, -1).contiguous()
     if mode == "DEFAULT":
         a, b = wt.to(torch.bfloat16), p.to(torch.bfloat16)

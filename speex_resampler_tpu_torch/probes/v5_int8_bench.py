@@ -232,8 +232,9 @@ def library_call(scheme: str, x: torch.Tensor, w: tuple, *,
     products as one bf16 ``torch.bmm`` with a float32 result, the planes
     and x's two bf16 parts concatenated along K ([w_hi, w_hi, w_mid, w_mid,
     w_lo] . [x_hi, x_lo, x_hi, x_lo, x_hi]), operands gathered in device
-    memory (no WORD2INT); None for int8 (no call takes exact int8 digit
-    sums).  The port never calls it."""
+    memory (no WORD2INT); None for int8, whose yardstick ``chip_smoke.py``
+    builds (``int8_exact_bmm``: one float64 bmm of the stacked digit
+    planes, exact).  The port never calls it."""
     if scheme != "split5":
         return None
     planes = w[0]

@@ -1529,3 +1529,30 @@ def test_clear_step_cache_frees_device_memory(cuda):
     tb.clear_step_cache()
     gc.collect()
     assert torch.cuda.memory_allocated() <= held - nbytes
+
+
+# -- the fuzz campaign and the MultiFleet soak (tools/fuzz_torch.py,
+# tools/soak_torch.py) on the card -----------------------------------------
+
+def test_fuzz_campaign_draws_pass_on_the_card(cuda):
+    """Ten seeded draws of the campaign (the first ten classes of its
+    stratified round): none fails, and each batch draw launched its
+    kernel."""
+    from tools import fuzz_torch as fz
+    out = fz.campaign(19, 10, float("inf"), "cuda")
+    assert out["draws"] == 10 and out["failures"] == [], out["failures"]
+    for klass in fz.CLASSES[:10]:
+        assert out["launches"].get(klass, 0) > 0, (klass, out["launches"])
+
+
+def test_soak_on_the_card_holds_memory_flat(cuda):
+    """15 s of MultiFleet churn at 64 stereo streams a bucket: no bucket
+    degraded, every bucket's kernel launched, RSS, device-allocated and
+    pinned bytes within the soak's peak and final growth limits."""
+    from tools import soak_torch as sk
+    gc.collect()
+    res = sk.soak(15, "cuda")
+    assert res["pass"], res["failed"]
+    assert set(res["series"]) == {"rss", "device_allocated", "pinned"}
+    assert res["launches_by_kernel"] and min(
+        res["launches_by_kernel"].values()) > 0

@@ -105,3 +105,29 @@ def test_last_probe_modules_load_no_jax_or_triton():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_fuzz_and_soak_tools_load_no_jax_or_triton():
+    """``tools/fuzz_torch.py`` and ``tools/soak_torch.py`` load neither
+    jax, triton, ``experiments/`` nor the JAX package, and build nothing
+    at import.  Neither loads ``chip_smoke.py``, which loads them in its
+    phase 11: the kernel names and launch counts they share live in
+    ``utils/launches.py``."""
+    code = (
+        "import sys\n"
+        "import tools.fuzz_torch as f, tools.soak_torch as s\n"
+        "assert f.CLASSES and f.campaign and s.soak and s.CONFIGS\n"
+        "assert 'chip_smoke' not in sys.modules\n"
+        "import speex_resampler_tpu_torch.ops._build as b\n"
+        "assert b._lib is None\n"
+        "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"
+        " if m in sys.modules or any(k.startswith('experiment')"
+        " for k in sys.modules)))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+    for name in ("fuzz_torch.py", "soak_torch.py"):
+        text = (REPO / "tools" / name).read_text()
+        assert "import jax" not in text and "speex_resampler_tpu." not in \
+            text.replace("speex_resampler_tpu_torch", ""), name
