@@ -39,6 +39,7 @@ from ..ops import fir_matmul as fm
 from ..parallel.batch import _serving_device
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 from ..utils.host import to_host
+from ..utils.profiling import span
 
 __all__ = ["ResamplerCore", "HOST_AUTO_MAX_CHANNELS"]
 
@@ -206,9 +207,10 @@ class ResamplerCore:
     def _update_filter(self):
         old_spec = self._spec
         try:
-            spec = fd.design_filter(self.num, self.den, self.quality,
-                                    fixed_point=self.fixed_point,
-                                    full_sinc_table=self.full_sinc_table)
+            with span("speex.setup.design"):
+                spec = fd.design_filter(self.num, self.den, self.quality,
+                                        fixed_point=self.fixed_point,
+                                        full_sinc_table=self.full_sinc_table)
         except fd.OverflowArgError:
             raise ResamplerError(ResamplerErrorCode.OVERFLOW)
         self._spec = spec

@@ -52,6 +52,7 @@ from .parallel.batch import (DEFAULT_DEVICE, BatchedResampler,
                              _launch_geometry, _placement, _serving_device,
                              make_batched_step)
 from .parallel.mesh import shard_columns
+from .utils.profiling import span
 
 __all__ = ["StreamFn", "make_stream_fn", "resample_array"]
 
@@ -137,8 +138,9 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
     for d in dict.fromkeys(devices):
         _serving_device(d)
     g = math.gcd(in_rate, out_rate)
-    spec = fd.design_filter(in_rate // g, out_rate // g, quality,
-                            fixed_point=fixed_point)
+    with span("speex.setup.design"):
+        spec = fd.design_filter(in_rate // g, out_rate // g, quality,
+                                fixed_point=fixed_point)
     bspec = _launch_geometry(spec, target_in_frames)
     if mesh is None:
         bstep = make_batched_step(spec, bspec, device=devices[0],
@@ -149,6 +151,7 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
     fn, w = bstep.fn, bstep.w
     tails = _ZeroTails(bstep.chunk_rows - n_in)
 
+    @span("speex.step.pad")
     def pad(x: torch.Tensor) -> torch.Tensor:
         # rows [n_in, n_in + zero_tail) must be zero, the rest are
         # don't-care: the zero tail satisfies both, with static shapes
@@ -161,9 +164,11 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
         return torch.cat([x, tails.get(x.shape[1], x.device)])
 
     if mesh is None:
+        @span("speex.step")
         def step(hist, x):
             return fn(hist, pad(x), w)
     else:
+        @span("speex.step")
         def step(hist, x):
             return fn(hist, [pad(s) for s in x], w)
 

@@ -27,6 +27,8 @@ from pathlib import Path
 
 import torch
 
+from ..utils.profiling import span
+
 __all__ = ["load", "build_dir", "lib_path", "compile_library", "declare",
            "use_csrc", "stream_handle", "load_probes", "probe_lib_path"]
 
@@ -204,10 +206,11 @@ def load() -> ctypes.CDLL:
     with _lock:
         if _lib is not None:
             return _lib
-        path = lib_path()
-        if not path.exists():
-            compile_library(path)
-        _lib = declare(ctypes.CDLL(str(path)))
+        with span("speex.setup.library"):
+            path = lib_path()
+            if not path.exists():
+                compile_library(path)
+            _lib = declare(ctypes.CDLL(str(path)))
         return _lib
 
 

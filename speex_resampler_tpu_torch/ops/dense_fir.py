@@ -61,6 +61,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from . import tiled_fir as tf
 from .convert import word2int
@@ -130,6 +131,7 @@ def _library():
     return lib
 
 
+@span("speex.kernel.dense")
 def resample_dense(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                    stride: int, n_blocks: int, R: int) -> torch.Tensor:
     """One launch: int16[n_blocks * R, B].
@@ -278,6 +280,7 @@ def _check_fixed(hist, x, w, stride, n_blocks, R, n_accum):
     return w, R_pad, K
 
 
+@span("speex.kernel.dense")
 def resample_dense_fixed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                          stride: int, n_blocks: int, R: int,
                          n_accum: int) -> torch.Tensor:

@@ -54,6 +54,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from .convert import word2int
 from .fixed_math import balanced_q15_split, fixed_interp_mix_rows, sat32pshr15
@@ -563,6 +564,7 @@ def _ptrs(*tensors) -> tuple:
     return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
+@span("speex.kernel.gather")
 def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                     starts: torch.Tensor, *,
                     hist: torch.Tensor | None = None,
@@ -634,6 +636,7 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     return y.t()
 
 
+@span("speex.kernel.gather")
 def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                           starts: torch.Tensor,
                           coef: torch.Tensor | None = None, *,

@@ -52,6 +52,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build
 from . import tiled_fir as tf
 from .tiled_fir import K_PERM, int8_k_major, int8_n_major
@@ -112,6 +113,7 @@ def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
     return P, K, R
 
 
+@span("speex.kernel.streamed")
 def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                       n_blocks: int, shift: int, num: int, den: int,
                       f0: int = 0, scheme: str = "highest",

@@ -60,6 +60,7 @@ import contextlib
 import numpy as np
 import torch
 
+from ..utils.profiling import span
 from . import _build, int8_planes
 from .convert import word2int
 from .fixed_math import (balanced_q15_split, fixed_interp_mix_rows,
@@ -359,6 +360,7 @@ def _check(hist, x, w, offsets, S, n_blocks, scheme, scales, n_accum):
     return P, K, R
 
 
+@span("speex.kernel.tiled")
 def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                    offsets: torch.Tensor, *, S: int, n_blocks: int,
                    scheme: str = "highest", scales: tuple = (),

@@ -58,6 +58,7 @@ from ..ops import tiled_fir as tf
 from ..utils.degrade import ZeroFillDegradation
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 from ..utils.host import Readback, to_host_into
+from ..utils.profiling import span
 from .mesh import mesh_devices, shard_columns, split_lanes
 
 __all__ = ["BatchedResampler", "make_batched_step", "BatchSpec",
@@ -234,6 +235,7 @@ def _resolve_scheme(w_cert: np.ndarray, scheme: str):
     return scheme, int8p, scales
 
 
+@span("speex.step.hist")
 def _next_hist(hist: torch.Tensor, x: torch.Tensor, n_in: int,
                H: int) -> torch.Tensor:
     """Last H rows of the virtual stream hist ++ x[:n_in], as a new tensor
@@ -592,7 +594,14 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         return _build_dense_step(spec, bspec, device=device)
     if bspec.kernel == "gather":
         return _build_gather_step(spec, bspec, device=device)
-    ptw = _tiled_weights(spec, bspec.f0)
+    with span("speex.setup.planes"):
+        ptw = _tiled_weights(spec, bspec.f0)
+        if spec.fixed_point:
+            scheme, scales = "fixed", ()
+            host_w = _fixed_host_weights(spec, bspec.f0, ptw.K)
+        else:
+            scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
+            host_w = _float_host_weights(ptw.w, scheme, int8p)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     N = spec.filt_len
     H = _hist_rows_tiled(N)
@@ -601,17 +610,12 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     V = (_v3_views(ptw.S, ptw.K, H, ptw.offsets)
          + _v3_periods_per_program(ptw.P) - 1)
     chunk_rows = (n_periods - _v3_back(ptw.S, H) + V) * ptw.S
-    if spec.fixed_point:
-        scheme, scales = "fixed", ()
-        host_w = _fixed_host_weights(spec, bspec.f0, ptw.K)
-    else:
-        scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
-        host_w = _float_host_weights(ptw.w, scheme, int8p)
-    w = tf.device_weights(host_w, scheme, device)
+    with span("speex.setup.upload"):
+        w = tf.device_weights(host_w, scheme, device)
+        offsets = torch.from_numpy(ptw.offsets.astype(np.int32)).to(device)
     kernel_kw = dict(
-        offsets=torch.from_numpy(ptw.offsets.astype(np.int32)).to(device),
-        S=ptw.S, n_blocks=bspec.n_blocks, scheme=scheme, scales=scales,
-        n_accum=_n_cols(spec))
+        offsets=offsets, S=ptw.S, n_blocks=bspec.n_blocks, scheme=scheme,
+        scales=scales, n_accum=_n_cols(spec))
 
     def step(hist, x, w):
         y = tf.resample_tiled(hist, x, w, **kernel_kw)
@@ -627,20 +631,22 @@ def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     phase-tiled weights padded to K_pad = round128(K) tap rows, the float
     scheme resolved on the padded set (so planes, scales and certificate
     equal the JAX package's), and a chunk of round16(n_in + K_pad) rows."""
-    ptw = _tiled_weights(spec, bspec.f0)
+    with span("speex.setup.planes"):
+        ptw = _tiled_weights(spec, bspec.f0)
+        K_pad = -(-ptw.K // 128) * 128
+        if spec.fixed_point:
+            scheme, scales = "fixed", ()
+            host_w = _fixed_host_weights(spec, bspec.f0, K_pad)
+        else:
+            w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+            scheme, int8p, scales = _resolve_scheme(w_np, scheme)
+            host_w = _float_host_weights(w_np, scheme, int8p)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     N = spec.filt_len
     H = _hist_rows_tiled(N)
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
-    K_pad = -(-ptw.K // 128) * 128
-    if spec.fixed_point:
-        scheme, scales = "fixed", ()
-        host_w = _fixed_host_weights(spec, bspec.f0, K_pad)
-    else:
-        w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
-        scheme, int8p, scales = _resolve_scheme(w_np, scheme)
-        host_w = _float_host_weights(w_np, scheme, int8p)
-    w = sf.device_weights_streamed(host_w, scheme, device)
+    with span("speex.setup.upload"):
+        w = sf.device_weights_streamed(host_w, scheme, device)
     kernel_kw = dict(n_blocks=bspec.n_blocks, shift=H - (N - 1),
                      num=spec.num, den=spec.den, f0=bspec.f0, scheme=scheme,
                      scales=scales, n_accum=_n_cols(spec))
@@ -691,9 +697,16 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     coefficients int32[4, R] of an interpolated filter."""
     N, stride = spec.filt_len, bspec.stride
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
-    w_np, n_accum = _padded_weights(spec, bspec)
+    with span("speex.setup.planes"):
+        w_np, n_accum = _padded_weights(spec, bspec)
+        coef = None
+        if spec.fixed_point and n_accum == 4:
+            bc = ph.block_constants(spec.num, spec.den, bspec.f0,
+                                    bspec.group)
+            coef = spec.interp_coef[bc.p].T
     if not spec.fixed_point:
-        w = df.device_weights(w_np, device)
+        with span("speex.setup.upload"):
+            w = df.device_weights(w_np, device)
         kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks,
                          R=w_np.shape[1])
 
@@ -704,11 +717,8 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         return BatchedStep(fn=step, w=w, hist_rows=N - 1, chunk_rows=n_in,
                            zero_tail=0, scheme="highest", kernel_kw=kernel_kw,
                            kernel="dense")
-    coef = None
-    if n_accum == 4:
-        bc = ph.block_constants(spec.num, spec.den, bspec.f0, bspec.group)
-        coef = spec.interp_coef[bc.p].T
-    w = df.device_weights_fixed(w_np, coef, device)
+    with span("speex.setup.upload"):
+        w = df.device_weights_fixed(w_np, coef, device)
     kernel_kw = dict(stride=stride, n_blocks=bspec.n_blocks,
                      R=w_np.shape[1] // n_accum, n_accum=n_accum)
 
@@ -749,21 +759,23 @@ def _build_gather_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     band (``fm.gather_band`` of the same host taps) are made here, in
     ``kernel_kw``; a CPU step runs the plain version and has neither."""
     N, n_in = spec.filt_len, bspec.in_per_launch
-    starts, phases = _gather_starts(spec, bspec)
-    if _n_cols(spec) == 4:
-        taps, coef = spec.interp_rows(phases)
-        host_w = (taps, starts, coef.astype(np.int32))
-    else:
-        host_w = (spec.phase_rows(phases), starts)
+    cuda = torch.device(device).type == "cuda"
+    with span("speex.setup.planes"):
+        starts, phases = _gather_starts(spec, bspec)
+        if _n_cols(spec) == 4:
+            taps, coef = spec.interp_rows(phases)
+            host_w = (taps, starts, coef.astype(np.int32))
+        else:
+            host_w = (spec.phase_rows(phases), starts)
+        plan = _gather_plan(spec, starts) if cuda else None
     launch, scheme = ((fm.resample_gather_fixed, "fixed") if spec.fixed_point
                       else (fm.resample_gather, "highest"))
-    w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
-              for a in host_w)
-    kernel_kw = dict(plan=None, band=None)
-    if torch.device(device).type == "cuda":
-        plan = _gather_plan(spec, starts)
-        kernel_kw = dict(plan=plan, band=fm.gather_band(
-            host_w[0], starts, plan, device) if plan.form != "rows" else None)
+    with span("speex.setup.upload"):
+        w = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                  for a in host_w)
+        band = (fm.gather_band(host_w[0], starts, plan, device)
+                if cuda and plan.form != "rows" else None)
+    kernel_kw = dict(plan=plan, band=band)
 
     def step(hist, x, w):
         y = launch(x[:n_in].t(), *w, hist=hist.t(), **kernel_kw)
@@ -1067,8 +1079,10 @@ class BatchedResampler(ZeroFillDegradation):
         self.fixed_point = bool(fixed_point)
         g = math.gcd(in_rate, out_rate)
         try:
-            self.spec = fd.design_filter(in_rate // g, out_rate // g,
-                                         quality, fixed_point=fixed_point)
+            with span("speex.setup.design"):
+                self.spec = fd.design_filter(in_rate // g, out_rate // g,
+                                             quality,
+                                             fixed_point=fixed_point)
         except fd.OverflowArgError:
             raise ResamplerError(ResamplerErrorCode.OVERFLOW)
         self.B = n_streams * channels

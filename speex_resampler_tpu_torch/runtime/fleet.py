@@ -37,7 +37,7 @@ from ..parallel.batch import (_Slab, _adapt_hist, _launch_geometry,
 from ..utils.degrade import ZeroFillDegradation
 from ..utils.errors import ResamplerError, ResamplerErrorCode
 from ..utils.host import Readback, to_host_into
-from ..utils.profiling import LaunchStats
+from ..utils.profiling import LaunchStats, span
 from .native import NativeStager, make_stager
 
 __all__ = ["FleetResampler"]
@@ -94,8 +94,10 @@ class FleetResampler(ZeroFillDegradation):
         self._active = [True] * n_streams
         g = math.gcd(in_rate, out_rate)
         try:
-            self.spec = fd.design_filter(in_rate // g, out_rate // g,
-                                         quality, fixed_point=fixed_point)
+            with span("speex.setup.design"):
+                self.spec = fd.design_filter(in_rate // g, out_rate // g,
+                                             quality,
+                                             fixed_point=fixed_point)
         except fd.OverflowArgError:
             # C's init fails its INT_MAX guards with RESAMPLER_ERR_OVERFLOW
             # (resample.c:643-656)

@@ -9,6 +9,7 @@ run's launches (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 
 from __future__ import annotations
 
+from ..ops import _build
 from ..ops import dense_fir as df
 from ..ops import fir_matmul as fm
 from ..ops import streamed_fir as sf
@@ -46,7 +47,9 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
                 form: str = "rows", kO: int = 0) -> str:
     """The CUDA kernel a (geometry, resolved scheme, n_accum) launches; a
     gather's in its form, with its template arguments (the samples int16;
-    the rows form's kO = M / 8 outputs a warp)."""
+    the rows form's kO = M / 8 outputs a warp); the tiled int8 launch's
+    "stream" form is its long kernel, which streams the digit band where
+    the band does not fit shared memory."""
     if kernel == "gather":
         if form == "band":
             return ("gather_fir_f64mma_kernel<short>" if scheme == "highest"
@@ -59,14 +62,23 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
                 else f"gather_fir_fixed_kernel<{n_accum}, {kO}>")
     if scheme == "fixed":
         return f"{kernel}_fir_fixed_kernel<{n_accum}>"
+    if (kernel, scheme, form) == ("tiled", "int8", "stream"):
+        return "tiled_fir_int8_long_kernel"
     suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}[scheme]
     return f"{kernel}_fir_{suffix}_kernel"
 
 
 def step_kernel(step) -> tuple:
     """((geometry, launch key), kernel name) of a step's launches; a CPU
-    gather step (no plan) is named by the plan a CUDA step would make."""
+    gather step (no plan) is named by the plan a CUDA step would make.  A
+    CUDA tiled int8 step whose band spans more K-slices (``w[2]``) than
+    the resident kernel holds for its digit planes takes the long kernel
+    (the "stream" form)."""
     form, kO, key = "rows", 0, step.scheme
+    if (step.kernel, step.scheme) == ("tiled", "int8") and step.w[0].is_cuda:
+        if step.w[2] > _build.load().tiled_fir_int8_max_slices(
+                step.w[0].shape[0]):
+            form = "stream"
     if step.kernel == "gather":
         plan = step.kernel_kw["plan"] or fm.gather_plan(
             step.w[1].cpu().numpy(), step.w[0].shape[-1],

@@ -1,24 +1,115 @@
-"""Lightweight throughput/latency instrumentation.
+"""Spans on the profiler's clock, serving counters, and a trace exporter.
 
-A counters object the engines update per launch, with named per-phase
-host wall-clock, so the serving pipeline's cost structure (gather ->
-dispatch -> readback -> unpack) is visible in production and in
-``chip_smoke.py``; and an optional ``torch.profiler`` trace scope for deep
-dives.
+:class:`span` is the port's one span primitive.  Every span adds 1 and its
+host seconds to a process-wide table (:func:`span_totals`,
+:func:`reset_spans`).  While a ``torch.profiler`` records, a span is also a
+profiler range, so it lies on the clock of the device trace and each idle
+gap of the device can be put down to the span the host was in.  The range
+is the C++ one that ``record_function`` opens after a dispatch through a
+Python op (``_RecordFunctionFast``, where this torch has it): the same
+event for less than half the host time.  Whether a profiler records is one
+check of a flag: with none, a span opens no range (a flag check, two clock
+reads and a lock).  There is no other switch.
 
-On CUDA the phases are host-clock spans of an asynchronous pipeline:
-``phase("dispatch")`` times only the enqueue of the upload, the step and
-the readback copy.  The device's time shows up where the host first waits
-for it, in ``phase("readback")``.
+The port's spans (``PERF.md`` section 3 says what reads each):
+
+- ``speex.step``: one call of ``functional.make_stream_fn``'s step, around
+  ``speex.step.pad`` (the zero tail), the kernel wrapper and
+  ``speex.step.hist`` (the next history);
+- ``speex.kernel.tiled`` / ``.streamed`` / ``.dense`` / ``.gather``: a
+  kernel wrapper, its checks to its launch (its plain version on the CPU);
+- ``speex.setup.design`` / ``.planes`` / ``.upload`` / ``.library``: the
+  filter design, a step's host weights, their upload (where the process's
+  CUDA context is made, if nothing made it before), and the kernel
+  library's build or load;
+- ``speex.fleet.gather`` / ``.dispatch`` / ``.readback`` / ``.unpack``:
+  the phases of ``FleetResampler.poll`` (:meth:`LaunchStats.phase`).
+
+:class:`LaunchStats` keeps a fleet's counters: launches and samples, and
+the host wall-clock of each pipeline phase.  On CUDA the phases are
+host-clock spans of an asynchronous pipeline: ``dispatch`` times only the
+enqueue of the upload, the step and the readback copy; the device's time
+shows up where the host first waits for it, in ``readback``.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-import time
+import functools
+import threading
+from time import perf_counter
 
-__all__ = ["LaunchStats", "trace"]
+import torch
+from torch.autograd.profiler import record_function
+
+__all__ = ["span", "span_totals", "reset_spans", "LaunchStats", "trace"]
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+#: the profiler's range for a span: ``record_function``'s C++ range,
+#: without its op dispatch, where this torch has it
+_profiler_range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                          record_function)
+_totals: dict = {}          # name -> [count, seconds]
+_totals_lock = threading.Lock()
+
+
+class span:
+    """``with span(name):`` times its body into :func:`span_totals` and,
+    while a ``torch.profiler`` records, marks it as a profiler range
+    (a ``record_function``'s).  ``@span(name)`` on a function does the
+    same for each call.  ``seconds`` holds the last body's host
+    seconds."""
+
+    __slots__ = ("name", "seconds", "_t0", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.seconds = 0.0
+
+    def __enter__(self):
+        if _profiler_enabled():
+            self._range = _profiler_range(self.name)
+            self._range.__enter__()
+        else:
+            self._range = None
+        self._t0 = perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.seconds = dt = perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+        with _totals_lock:
+            total = _totals.get(self.name)
+            if total is None:
+                _totals[self.name] = [1, dt]
+            else:
+                total[0] += 1
+                total[1] += dt
+        return False
+
+    def __call__(self, fn):
+        name = self.name
+
+        @functools.wraps(fn)
+        def spanned(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return spanned
+
+
+def span_totals() -> dict:
+    """Every span's count and summed host seconds since the process began
+    or the last :func:`reset_spans`: name -> (count, seconds)."""
+    with _totals_lock:
+        return {k: (n, s) for k, (n, s) in _totals.items()}
+
+
+def reset_spans() -> None:
+    """Sets every span's count and seconds to 0 (drops them)."""
+    with _totals_lock:
+        _totals.clear()
 
 
 @dataclasses.dataclass
@@ -27,7 +118,6 @@ class LaunchStats:
     launches: int = 0
     in_samples: int = 0
     out_samples: int = 0
-    device_seconds: float = 0.0
     # cumulative wall-clock per named pipeline phase (FleetResampler.poll
     # phases: gather / dispatch / readback / unpack)
     phase_seconds: dict = dataclasses.field(default_factory=dict)
@@ -35,38 +125,42 @@ class LaunchStats:
     # stalls of a shared host; the min is the host path's capability
     phase_min_seconds: dict = dataclasses.field(default_factory=dict)
 
-    def record(self, n_in: int, n_out: int, seconds: float):
+    def record(self, n_in: int, n_out: int):
         self.launches += 1
         self.in_samples += n_in
         self.out_samples += n_out
-        self.device_seconds += seconds
 
     @contextlib.contextmanager
     def launch(self, n_in: int, n_out: int):
-        t0 = time.perf_counter()
+        """Counts one launch of ``n_in`` / ``n_out`` samples at exit."""
         try:
             yield
         finally:
-            self.record(n_in, n_out, time.perf_counter() - t0)
+            self.record(n_in, n_out)
 
     @contextlib.contextmanager
     def phase(self, name: str):
-        """Attribute a span of host wall-clock to one pipeline phase."""
-        t0 = time.perf_counter()
+        """Attribute a span of host wall-clock to one pipeline phase: the
+        span ``speex.fleet.<name>``, whose seconds also go to this
+        engine's tables."""
+        s = span(f"speex.fleet.{name}")
         try:
-            yield
+            with s:
+                yield
         finally:
-            dt = time.perf_counter() - t0
             self.phase_seconds[name] = (self.phase_seconds.get(name, 0.0)
-                                        + dt)
+                                        + s.seconds)
             prev = self.phase_min_seconds.get(name)
-            if prev is None or dt < prev:
-                self.phase_min_seconds[name] = dt
+            if prev is None or s.seconds < prev:
+                self.phase_min_seconds[name] = s.seconds
 
     @property
     def out_samples_per_sec(self) -> float:
-        return self.out_samples / self.device_seconds \
-            if self.device_seconds else 0.0
+        """Out samples over the summed seconds of the phases: the rate of
+        ``poll``'s own host time, readback's wait for the device
+        included."""
+        seconds = sum(self.phase_seconds.values())
+        return self.out_samples / seconds if seconds else 0.0
 
     def phase_ms_per_launch(self) -> dict:
         """Per-launch milliseconds by phase (empty until a launch ran)."""
@@ -85,7 +179,6 @@ class LaunchStats:
             "launches": self.launches,
             "in_samples": self.in_samples,
             "out_samples": self.out_samples,
-            "device_seconds": round(self.device_seconds, 6),
             "out_samples_per_sec": round(self.out_samples_per_sec),
             "phase_ms_per_launch": self.phase_ms_per_launch(),
             "phase_ms_min": self.phase_ms_min(),
@@ -96,10 +189,10 @@ class LaunchStats:
 def trace(log_dir: str):
     """``torch.profiler`` scope over the CPU and, where there is one, the
     CUDA device; exports a Chrome trace (``trace.json``, view it in
-    Perfetto or ``chrome://tracing``) into ``log_dir`` at exit."""
+    Perfetto or ``chrome://tracing``) into ``log_dir`` at exit.  The
+    port's spans are recorded in it."""
     import os
 
-    import torch
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
