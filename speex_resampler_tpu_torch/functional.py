@@ -22,6 +22,12 @@ same frames (bit for bit: the same kernel launches), so they are within 1
 LSB of the reference C core (bit-exact with ``fixed_point=True``); the
 filter's leading delay is included, as with a fresh C state.
 
+The step hands the caller's ``x`` to the kernel as it is, where it is
+int16, contiguous and 16-byte aligned: the kernels read rows past its end
+as zero, so no zero-tailed copy is made.  Any other ``x`` (another dtype,
+a strided view, an unaligned start) is copied once into fresh memory, the
+one call of the span ``speex.step.pad``.  The step never writes ``x``.
+
 Example::
 
     import torch
@@ -95,27 +101,20 @@ class StreamFn:
                                        self.mesh)]
 
 
-class _ZeroTails:
-    """The zero rows that pad a call's x to the step's chunk, one
-    read-only tensor per (lanes, device), made outside any CUDA graph
-    capture.  A capture that meets a new (lanes, device) makes its tail
-    inside the graph (filled by each replay before it is read) and keeps
-    it out of the cache: a tensor made during a capture holds data only
-    once the graph has run."""
-
-    def __init__(self, rows: int):
-        self.rows = rows
-        self._cache: dict = {}
-
-    def get(self, B: int, device: torch.device) -> torch.Tensor:
-        key = (B, device)
-        z = self._cache.get(key)
-        if z is None:
-            z = torch.zeros((self.rows, B), dtype=torch.int16, device=device)
-            if not (device.type == "cuda"
-                    and torch.cuda.is_current_stream_capturing()):
-                z = self._cache.setdefault(key, z)
-        return z
+def _launch_x(x: torch.Tensor, n_in: int) -> torch.Tensor:
+    """``x`` as the kernel wrapper reads it: the caller's own tensor where
+    it is int16, contiguous and 16-byte aligned, else one copy of it into
+    fresh memory (the span ``speex.step.pad``).  Rows past its end read as
+    zero (``BatchedStep``), so no zero tail is made."""
+    if x.ndim != 2 or x.shape[0] != n_in:
+        raise ValueError(f"step consumes exactly {n_in} frames/call, "
+                         f"got {tuple(x.shape)}")
+    if x.dtype == torch.int16 and x.is_contiguous() \
+            and x.data_ptr() % 16 == 0:
+        return x
+    with span("speex.step.pad"):
+        return torch.empty(x.shape, dtype=torch.int16,
+                           device=x.device).copy_(x)
 
 
 def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
@@ -149,28 +148,15 @@ def make_stream_fn(in_rate: int, out_rate: int, quality: int = 7, *,
         bstep = make_batched_step(spec, bspec, mesh=devices, scheme=scheme)
     n_in = bspec.in_per_launch
     fn, w = bstep.fn, bstep.w
-    tails = _ZeroTails(bstep.chunk_rows - n_in)
-
-    @span("speex.step.pad")
-    def pad(x: torch.Tensor) -> torch.Tensor:
-        # rows [n_in, n_in + zero_tail) must be zero, the rest are
-        # don't-care: the zero tail satisfies both, with static shapes
-        if x.ndim != 2 or x.shape[0] != n_in:
-            raise ValueError(f"step consumes exactly {n_in} frames/call, "
-                             f"got {tuple(x.shape)}")
-        x = x.to(torch.int16)
-        if not tails.rows:
-            return x
-        return torch.cat([x, tails.get(x.shape[1], x.device)])
 
     if mesh is None:
         @span("speex.step")
         def step(hist, x):
-            return fn(hist, pad(x), w)
+            return fn(hist, _launch_x(x, n_in), w)
     else:
         @span("speex.step")
         def step(hist, x):
-            return fn(hist, [pad(s) for s in x], w)
+            return fn(hist, [_launch_x(s, n_in) for s in x], w)
 
     return StreamFn(
         step=step, in_frames=n_in, out_frames=bspec.out_per_launch,

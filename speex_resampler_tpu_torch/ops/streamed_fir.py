@@ -101,15 +101,6 @@ def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "
                          f"num/den {num}/{den}, f0 {f0}")
-    # v4's "real rows ++ >= K zero rows" contract: the last block's window
-    # must lie inside x (an under-padded chunk would read past the rows the
-    # caller zeroed)
-    H = hist.shape[0]
-    t_last = f0 + (n_blocks - 1) * R * num
-    row_last = max((t_last // den + shift) // 16 * 16 - H, 0)
-    if x.shape[0] < row_last + K:
-        raise ValueError(f"x has {x.shape[0]} rows; the last block reads "
-                         f"rows up to {row_last + K}")
     return P, K, R
 
 
@@ -121,16 +112,18 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     """One launch: int16[n_blocks * R, B].
 
     hist: int16[H, B] trailing history, H = round16(filt_len - 1)
-    x:    int16[T_c, B] chunk, real rows ++ zeros, T_c >= the last block's
-          window end (raises otherwise)
+    x:    int16[T_c, B] chunk, real rows [0, n_in), zeros in whatever
+          rows of [n_in, n_in + K) it has: the bare chunk (T_c = n_in)
+          needs none
     w:    device weights (module docstring)
     shift, num, den, f0: the closed-form origin (module docstring)
     scales: the int8 digit scales (one per plane), () otherwise.
     n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns
           per output.
 
-    CUDA tensors launch the kernel on the current stream (asynchronously;
-    a launch error raises); CPU tensors run the plain version."""
+    Rows of the virtual axis at or past H + T_c read as zero.  CUDA
+    tensors launch the kernel on the current stream (asynchronously; a
+    launch error raises); CPU tensors run the plain version."""
     P, K, R = _check(hist, x, w, n_blocks, shift, num, den, f0, scheme,
                      scales, n_accum)
     if x.device.type == "cpu":

@@ -368,7 +368,9 @@ def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     """One launch: int16[n_blocks * R, B].
 
     hist: int16[H, B] trailing history, H = round16(filt_len - 1)
-    x:    int16[T_c, B] chunk, real rows [0, n_in), zeros [n_in, n_in + K)
+    x:    int16[T_c, B] chunk, real rows [0, n_in), zeros in whatever
+          rows of [n_in, n_in + K) it has: the bare chunk (T_c = n_in)
+          needs none
     w:    device weights (module docstring), offsets: int32[P]
     scales: the int8 digit scales (one per plane), () otherwise.
     n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns

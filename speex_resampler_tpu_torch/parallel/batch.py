@@ -7,7 +7,7 @@ consumes a fixed quantum of input frames per lane that is a multiple of
 launch: one step with constant weights serves the engine until a flush
 changes the phase (time-major buffers, lanes minor):
 
-    step: (hist i16[H, B], x i16[chunk_rows, B]) -> (hist', y i16[n_out, B])
+    step: (hist i16[H, B], x i16[>= n_in, B]) -> (hist', y i16[n_out, B])
 
 The launch geometry, weights and buffer contract are those of the JAX
 package's ``speex_resampler_tpu/parallel/batch.py`` (its ``use_pallas=True``
@@ -351,11 +351,15 @@ def _fixed_host_weights(spec: fd.FilterSpec, f0: int, K_pad: int) -> tuple:
 class BatchedStep:
     """Steady-state step + its launch buffer contract.
 
-    fn(hist i16[hist_rows, B], x i16[chunk_rows, B], w)
+    fn(hist i16[hist_rows, B], x i16[T, B], w)
         -> (hist' i16[hist_rows, B], y i16[out_per_launch, B])
-    x rows [0, in_per_launch) are the chunk; rows
-    [in_per_launch, in_per_launch + zero_tail) must be zero; any further
-    rows are don't-care padding.  ``w`` is the launch's device weights;
+    x has in_per_launch rows or more (T >= in_per_launch): rows [0,
+    in_per_launch) are the chunk; those of rows [in_per_launch,
+    in_per_launch + zero_tail) that x has must be zero; any further rows
+    are don't-care padding; rows past x's end read as zero.  So the bare
+    chunk (T = in_per_launch) is a whole launch, and a reused launch
+    buffer of ``chunk_rows`` rows with its zeros is too.  ``w`` is the
+    launch's device weights;
     ``kernel`` names the geometry and so what the step launches,
     ``kernel_kw`` the remaining arguments of its launch:
     ``tf.resample_tiled(hist, x, w, **kernel_kw)`` for "tiled",

@@ -14,8 +14,9 @@ reads and a lock).  There is no other switch.
 The port's spans (``PERF.md`` section 3 says what reads each):
 
 - ``speex.step``: one call of ``functional.make_stream_fn``'s step, around
-  ``speex.step.pad`` (the zero tail), the kernel wrapper and
-  ``speex.step.hist`` (the next history);
+  ``speex.step.pad`` (opened only where a copy of x was made: an x that
+  is not int16, contiguous and 16-byte aligned; its count is the quanta
+  copied), the kernel wrapper and ``speex.step.hist`` (the next history);
 - ``speex.kernel.tiled`` / ``.streamed`` / ``.dense`` / ``.gather``: a
   kernel wrapper, its checks to its launch (its plain version on the CPU);
 - ``speex.setup.design`` / ``.planes`` / ``.upload`` / ``.library``: the

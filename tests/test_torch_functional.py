@@ -14,6 +14,9 @@ the LSB contract.  On the CPU the step runs the kernels' plain versions;
 ``tests/test_torch_gpu.py`` holds its CUDA-graph capture on the card.
 """
 
+import dataclasses
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,7 +26,12 @@ from speex_resampler_tpu import functional as jfn
 from speex_resampler_tpu_torch import (BatchedResampler, ResamplerError,
                                        make_stream_fn, resample_array)
 from speex_resampler_tpu_torch import functional as tfn
+from speex_resampler_tpu_torch.ops import filter_design as tfd
+from speex_resampler_tpu_torch.ops import streamed_fir as tsf
+from speex_resampler_tpu_torch.ops import tiled_fir as ttf
+from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
+from speex_resampler_tpu_torch.utils.profiling import reset_spans, span_totals
 
 from conftest import assert_lsb_close
 
@@ -200,13 +208,164 @@ def test_no_card_raises(monkeypatch):
             call()
 
 
-def test_zero_tail_is_shared_and_read_only():
-    """The pad's zero rows are one tensor per (lanes, device), made once
-    and never written by the step."""
-    tails = tfn._ZeroTails(5)
-    z = tails.get(3, torch.device("cpu"))
-    assert z is tails.get(3, torch.device("cpu"))
-    assert z.shape == (5, 3) and not z.any()
-    assert tails.get(4, torch.device("cpu")) is not z
+def test_device_and_mesh_together_are_refused():
     with pytest.raises(ResamplerError):
         make_stream_fn(44100, 48000, 7, device="cpu", mesh=["cpu"])
+
+
+def _launch_kw(step, digits):
+    """(weights, kernel_kw) of ``step``, or of its "int8" twin with
+    ``digits`` digit planes decomposed from its f32 weights."""
+    if digits is None:
+        return step.w, step.kernel_kw
+    planes, bias, scales, _ = ttf.int8_weights(step.w[0].numpy(),
+                                               digits=digits)
+    make = (ttf.device_weights if step.kernel == "tiled"
+            else tsf.device_weights_streamed)
+    return (make((planes, bias), "int8", "cpu"),
+            {**step.kernel_kw, "scheme": "int8", "scales": scales})
+
+
+# (in, out, quality), fixed, requested scheme, int8 digits (None: the
+# step's own weights), geometry, (scheme, n_accum) the launch runs
+BARE = {
+    "tiled-highest": ((44100, 48000, 7), False, "highest", None, "tiled"),
+    "tiled-split5": ((44100, 48000, 7), False, "split5", None, "tiled"),
+    "tiled-int8-D3": ((44100, 48000, 7), False, "highest", 3, "tiled"),
+    "tiled-int8-D4": ((44100, 48000, 7), False, "highest", 4, "tiled"),
+    "tiled-fixed-n4": ((44100, 48000, 7), True, "auto", None, "tiled"),
+    "tiled-fixed-n1": ((24000, 48000, 5), True, "auto", None, "tiled"),
+    "streamed-highest": ((44100, 16000, 7), False, "highest", None,
+                         "streamed"),
+    "streamed-split5": ((44100, 16000, 7), False, "split5", None,
+                        "streamed"),
+    "streamed-int8-D3": ((44100, 16000, 7), False, "highest", 3,
+                         "streamed"),
+    "streamed-int8-D4": ((44100, 16000, 7), False, "highest", 4,
+                         "streamed"),
+    "streamed-fixed-n4": ((44100, 16000, 7), True, "auto", None,
+                          "streamed"),
+    "streamed-fixed-n1": ((24000, 48000, 5), True, "auto", None,
+                          "streamed"),
+}
+
+
+@pytest.mark.parametrize("case", list(BARE))
+def test_bare_quantum_equals_zero_tailed_chunk(case):
+    """The step's kernel wrapper given the bare n_in-row quantum returns
+    the output, bit for bit, of the same launch on the zero-tailed chunk
+    of chunk_rows rows (the outputs need no row past the quantum: their
+    taps there are zero).  Half the quantum, whose windows do read past
+    its end with nonzero taps, gives the output of the quantum with its
+    second half zeroed: rows past x's end read as zero.  Every scheme of
+    the tiled and streamed geometries ("fixed" at n_accum 4 and 1; a
+    direct config's weights fed to the streamed launch for the streamed
+    n_accum 1), at B = 3 and a history of random rows."""
+    (i, o, q), fixed, scheme, digits, kernel = BARE[case]
+    g = math.gcd(i, o)
+    spec = tfd.design_filter(i // g, o // g, q, fixed_point=fixed)
+    bspec = dataclasses.replace(tb._launch_geometry(spec, 600),
+                                kernel=kernel)
+    step = tb.make_batched_step(spec, bspec, device="cpu", scheme=scheme)
+    w, kw = _launch_kw(step, digits)
+    assert step.kernel == kernel
+    assert kw["scheme"] == ("fixed" if fixed else digits and "int8"
+                            or scheme)
+    if fixed:
+        assert kw["n_accum"] == (1 if case.endswith("n1") else 4)
+    if digits:
+        assert w[0].shape[0] == digits
+    n_in, B = bspec.in_per_launch, 3
+    assert step.chunk_rows >= n_in + step.zero_tail
+    rng = np.random.default_rng(len(case))
+    hist = torch.from_numpy(rng.integers(-32768, 32768,
+                                         (step.hist_rows, B),
+                                         dtype=np.int16))
+    chunk = torch.zeros((step.chunk_rows, B), dtype=torch.int16)
+    chunk[:n_in] = torch.from_numpy(rng.integers(-32768, 32768, (n_in, B),
+                                                 dtype=np.int16))
+    launch = ttf.resample_tiled if kernel == "tiled" else tsf.resample_streamed
+    want = launch(hist, chunk, w, **kw)
+    got = launch(hist, chunk[:n_in].clone(), w, **kw)
+    assert got.shape == want.shape == (bspec.n_blocks * bspec.R, B)
+    assert torch.equal(got, want)
+    # half the quantum: windows with nonzero taps read past x's end
+    cut = chunk.clone()
+    cut[n_in // 2:] = 0
+    half = launch(hist, chunk[:n_in // 2].clone(), w, **kw)
+    assert torch.equal(half, launch(hist, cut, w, **kw))
+    assert not torch.equal(half, want)
+
+
+def _aligned_pcm(rs, B, seed):
+    x = torch.from_numpy(np.random.default_rng(seed).integers(
+        -30000, 30000, (rs.in_frames, B), dtype=np.int16)).clone()
+    assert x.data_ptr() % 16 == 0
+    return x
+
+
+@pytest.mark.parametrize("geometry", ["tiled", "streamed"])
+def test_step_hands_the_callers_tensor_to_the_kernel(monkeypatch,
+                                                     geometry):
+    """An int16, contiguous, 16-byte aligned quantum reaches the kernel
+    wrapper as the caller's own tensor (no copy, no zero tail) and opens
+    no ``speex.step.pad`` span."""
+    rates = (44100, 48000, 7) if geometry == "tiled" else (44100, 16000, 7)
+    rs = make_stream_fn(*rates, target_in_frames=600, device="cpu")
+    module = ttf if geometry == "tiled" else tsf
+    name = f"resample_{geometry}"
+    seen = []
+    real = getattr(module, name)
+
+    def record(hist, x, *args, **kwargs):
+        seen.append(x)
+        return real(hist, x, *args, **kwargs)
+
+    monkeypatch.setattr(module, name, record)
+    x = _aligned_pcm(rs, 4, 3)
+    reset_spans()
+    hist, y = rs.step(rs.init(4), x)
+    assert len(seen) == 1 and seen[0] is x
+    assert seen[0].data_ptr() == x.data_ptr()
+    totals = span_totals()
+    assert totals["speex.step"][0] == 1
+    assert "speex.step.pad" not in totals
+    assert y.shape == (rs.out_frames, 4)
+
+
+def _strided(x):
+    wide = torch.zeros((x.shape[0], 2 * x.shape[1]), dtype=torch.int16)
+    wide[:, ::2] = x
+    return wide[:, ::2]
+
+
+def _unaligned(x):
+    flat = torch.zeros(x.numel() + x.shape[1], dtype=torch.int16)
+    view = flat[x.shape[1]:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+@pytest.mark.parametrize("form", ["strided", "unaligned", "int32"])
+def test_step_copies_what_the_kernel_cannot_read_once(form):
+    """A strided view, a quantum one row of odd lanes off a 16-byte
+    boundary, and an int32 quantum each open exactly one
+    ``speex.step.pad`` span (the one copy) and give the output and next
+    history of the aligned int16 quantum."""
+    rs = make_stream_fn(44100, 48000, 7, target_in_frames=600,
+                        device="cpu")
+    B = 3
+    x = _aligned_pcm(rs, B, 8)
+    other = {"strided": _strided, "unaligned": _unaligned,
+             "int32": lambda t: t.to(torch.int32)}[form](x)
+    assert torch.equal(other.to(torch.int16), x)
+    assert (not other.is_contiguous() if form == "strided" else
+            other.data_ptr() % 16 != 0 if form == "unaligned" else
+            other.dtype == torch.int32)
+    hist0 = torch.from_numpy(np.random.default_rng(9).integers(
+        -30000, 30000, (rs.hist_rows, B), dtype=np.int16))
+    want_h, want_y = rs.step(hist0, x)
+    reset_spans()
+    got_h, got_y = rs.step(hist0, other)
+    assert span_totals()["speex.step.pad"][0] == 1
+    assert torch.equal(got_y, want_y) and torch.equal(got_h, want_h)

@@ -32,6 +32,7 @@ from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
+from speex_resampler_tpu_torch.utils.profiling import reset_spans, span_totals
 from speex_resampler_tpu_torch.probes import (
     batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
     mosaic_int_dot_bench as pid, mxu_peak as pmp, mxu_shape_probe as pms,
@@ -579,6 +580,130 @@ def test_stream_fn_graph_equals_eager(cuda, fixed):
     assert ttf.launches[rs.scheme] == before + 1
 
 
+# kernel -> (in, out, quality, target frames), fixed, scheme, geometry
+BARE = {
+    "K1a": ((44100, 48000, 7, 9408), False, "highest", "tiled"),
+    "K1b": ((44100, 48000, 7, 9408), False, "auto", "tiled"),
+    "K1c": ((44100, 48000, 7, 9408), False, "split5", "tiled"),
+    "K1d": ((24000, 48000, 5, 4096), True, "auto", "tiled"),
+    "K1e": ((44100, 48000, 7, 9408), True, "auto", "tiled"),
+    "K2a": ((48000, 44100, 10, 20480), False, "highest", "streamed"),
+    "K2b-D4": ((48000, 44100, 10, 20480), False, "auto", "streamed"),
+    "K2b-D3": ((48000, 44100, 10, 20480), False, "int8", "streamed"),
+    "K2c": ((48000, 44100, 10, 20480), False, "split5", "streamed"),
+    "K2d-n4": ((48000, 44100, 10, 20480), True, "auto", "streamed"),
+    "K2d-n1": ((24000, 48000, 5, 4096), True, "auto", "streamed"),
+}
+
+
+def _unaligned_copy(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous tensor that starts 2 bytes past a 16-byte
+    boundary (so its kernel takes the 2-byte x loads)."""
+    flat = torch.empty(x.numel() + 1, dtype=torch.int16, device=x.device)
+    out = flat[1:].view(x.shape)
+    out.copy_(x)
+    assert out.data_ptr() % 16 == 2
+    return out
+
+
+@pytest.mark.parametrize("kernel", list(BARE))
+def test_bare_quantum_equals_zero_tailed_chunk(cuda, kernel):
+    """Every tiled and streamed CUDA kernel given the bare n_in-row quantum
+    (rows past its end zero-filled by the kernel's staging, never read)
+    returns the output of the same launch on the zero-tailed chunk of
+    chunk_rows rows, bit for bit, at B = 2048 and at B = 130; the int8
+    and fixed launches also equal the plain version on the bare quantum
+    (exact).  Half the quantum, whose windows read past its end with
+    nonzero taps, equals the quantum with those rows zeroed.  K1b's bare
+    quantum also runs off a 16-byte boundary (the 2-byte x loads), equal
+    again."""
+    (i, o, q, target), fixed, scheme, geometry = BARE[kernel]
+    spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=fixed)
+    bspec = dataclasses.replace(tb._launch_geometry(spec, target),
+                                kernel=geometry)
+    step = tb.make_batched_step(spec, bspec, device="cuda", scheme=scheme)
+    assert step.kernel == geometry
+    if kernel.startswith("K2b"):
+        assert step.w[0].shape[0] == int(kernel[-1])
+    launch, plain, module = (
+        (ttf.resample_tiled, ttf.resample_tiled_reference, ttf)
+        if geometry == "tiled" else
+        (tsf.resample_streamed, tsf.resample_streamed_reference, tsf))
+    n_in = bspec.in_per_launch
+    for B in (2048, 130):
+        hist, chunk = (torch.from_numpy(a).cuda() for a in launch_inputs(
+            step, n_in, B, seed=B, wrap=False))
+        bare = chunk[:n_in].clone()
+        before = module.launches[step.scheme]
+        want = launch(hist, chunk, step.w, **step.kernel_kw)
+        got = launch(hist, bare, step.w, **step.kernel_kw)
+        torch.cuda.synchronize()
+        assert module.launches[step.scheme] == before + 2
+        assert torch.equal(got, want)
+        if step.scheme in ("int8", "fixed"):
+            assert torch.equal(got, plain(hist, bare, step.w,
+                                          **step.kernel_kw))
+        # half the quantum: windows with nonzero taps read past x's end
+        cut = chunk.clone()
+        cut[n_in // 2:] = 0
+        assert torch.equal(
+            launch(hist, chunk[:n_in // 2].clone(), step.w, **step.kernel_kw),
+            launch(hist, cut, step.w, **step.kernel_kw))
+        if kernel == "K1b" and B == 2048:
+            odd = launch(hist, _unaligned_copy(bare), step.w,
+                         **step.kernel_kw)
+            torch.cuda.synchronize()
+            assert torch.equal(odd, want)
+
+
+@pytest.mark.parametrize("geometry", ["tiled", "streamed"])
+def test_stream_fn_graph_on_bare_quanta(cuda, geometry):
+    """make_stream_fn's step (K1b at the flagship, K2b at 48k -> 44.1k
+    q10; B = 256) eagerly on quanta that are slices of one int16 pool, as
+    a device-resident caller holds them: no copy (no ``speex.step.pad``
+    span) and the output of the same quanta cloned.  Then the step
+    captured in a CUDA graph on a bare static quantum, the history
+    carried in place: each replay on new frames copied into it equals the
+    eager step, and no copy is made at capture."""
+    rates, target = (((44100, 48000, 7), 9408) if geometry == "tiled"
+                     else ((48000, 44100, 10), 20480))
+    rs = make_stream_fn(*rates, target_in_frames=target)
+    module = ttf if geometry == "tiled" else tsf
+    B = 256
+    rng = np.random.default_rng(12)
+    pool = torch.from_numpy(rng.integers(-32768, 32768, (3, rs.in_frames, B),
+                                         dtype=np.int16)).cuda()
+    reset_spans()
+    h, eager = rs.init(B), []
+    for k in range(3):
+        h, y = rs.step(h, pool[k])
+        eager.append((h, y))
+    assert "speex.step.pad" not in span_totals()
+    h = rs.init(B)
+    for k in range(3):
+        h, y = rs.step(h, pool[k].clone())
+        assert torch.equal(y, eager[k][1]) and torch.equal(h, eager[k][0])
+    hist, xbuf = rs.init(B), pool[0].clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        rs.step(hist, xbuf)
+    torch.cuda.current_stream().wait_stream(side)
+    before = module.launches[rs.scheme]
+    reset_spans()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        h_out, y_out = rs.step(hist, xbuf)
+        hist.copy_(h_out)
+    assert "speex.step.pad" not in span_totals()
+    assert module.launches[rs.scheme] == before + 1
+    for k, (h, y) in enumerate(eager):
+        xbuf.copy_(pool[k])
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y_out, y) and torch.equal(hist, h)
+
+
 @pytest.mark.parametrize("D", [1, 2, 3, 4])
 def test_tiled_int8_digits_match_plain(cuda, D):
     """tiled_fir_int8_kernel<D> (the resident band, int8 tensor cores) on
@@ -630,7 +755,9 @@ def test_tiled_int8_band_edges_match_plain(cuda, case):
     takes tiled_fir_int8_long_kernel (int8tc::fir_tile with the tiled
     origin).  "resident": an all-zero row tile, a band ending at K, odd
     slice counts, bands of 1 to 8 K-slices.  0 mismatches against the
-    plain version at B = 2048, 130, 129 and 64."""
+    plain version at B = 2048, 130, 129 and 64; the chunk's first quarter
+    alone, its windows reading past its end with nonzero taps, equals the
+    chunk with the rest zeroed (rows past x's end read as zero)."""
     kind, D = case.split("-D")
     D = int(D)
     if kind == "long":
@@ -659,6 +786,11 @@ def test_tiled_int8_band_edges_match_plain(cuda, case):
         torch.cuda.synchronize()
         assert ttf.launches["int8"] == before + 1
         assert int((got != want).sum()) == 0
+        cut = x.clone()
+        cut[T // 4:] = 0
+        assert torch.equal(
+            ttf.resample_tiled(hist, x[:T // 4].clone(), w, offsets, **kw),
+            ttf.resample_tiled(hist, cut, w, offsets, **kw))
 
 
 def test_tiled_int8_launcher_guards(cuda):

@@ -145,9 +145,10 @@ def test_closed_form_origin_equals_tiled_offsets(cfg):
 def test_wrapper_guards_and_cpu_tensors_never_launch():
     """On CPU tensors the wrapper runs the plain version and counts no
     launch, under "highest" and "split5" (within the LSB contract of each
-    other); an under-padded chunk (v4's guard), f32 weights under
-    "split5", an unknown scheme and a device without a kernel are
-    refused."""
+    other); a chunk short of the zero rows, or the bare quantum, reads
+    rows past its end as zero (the output of the zero-padded chunk); f32
+    weights under "split5", an unknown scheme and a device without a
+    kernel are refused."""
     _, tstep, tspec = _steps(0, "highest")
     hist, x = _inputs(tstep, tspec.in_per_launch, 3, seed=0)
     hist, x = torch.from_numpy(hist), torch.from_numpy(x)
@@ -157,9 +158,11 @@ def test_wrapper_guards_and_cpu_tensors_never_launch():
     assert tsf.launches == before
     assert torch.equal(y, tsf.resample_streamed_reference(hist, x, tstep.w,
                                                           **kw))
-    short = x[:tspec.in_per_launch + 64]
-    with pytest.raises(ValueError, match="last block"):
-        tsf.resample_streamed(hist, short, tstep.w, **kw)
+    for rows in (tspec.in_per_launch + 64, tspec.in_per_launch):
+        short = x[:rows]
+        assert rows < tstep.chunk_rows and not x[rows:].any()
+        assert torch.equal(tsf.resample_streamed(hist, short, tstep.w, **kw),
+                           y)
     w5 = tsf.device_weights_streamed(
         ttf.split5_weights(tstep.w[0].numpy()), "split5", "cpu")
     kw5 = {**kw, "scheme": "split5"}

@@ -15,10 +15,13 @@ Prints, and writes as JSON to ``--out``:
   each span's mean from ``span_totals``;
 - for each benchmark cell (``perfbench``'s own set-up and window, with its
   0.5 s traced sub-window from the window's middle): the set-up's span
-  totals beside its ``program_s``; the traced calls, the device ms a call
+  totals beside its ``program_s``; the count of each ``speex.step*`` span
+  over the window's calls (``speex.step.pad``: the quanta the step had to
+  copy); the traced calls, the device ms a call
   (busy and sub-window); ``step.host_ms`` and its parts a call, each
   span's host time less the CUDA runtime calls inside it (pad, kernel
-  wrapper, next history, and the rest of ``speex.step``); the runtime
+  wrapper, next history, and the rest of ``speex.step``: the pad only
+  where a quantum was copied); the runtime
   calls inside the kernel wrapper by name; the device operations by name,
   with their seconds and their count beside the calls' (a count short of
   the calls' means the profiler lost records, and their time reads as
@@ -134,6 +137,7 @@ def cell_report(name: str, seed: int, seconds: float,
                         reference, parts)
     setup = {k: v for k, v in span_totals().items()
              if k.startswith("speex.setup.")}
+    reset_spans()
     if gc_off:
         gc.disable()
     try:
@@ -141,6 +145,8 @@ def cell_report(name: str, seed: int, seconds: float,
                            trace_seconds=float(cell.traffic["trace_seconds"]))
     finally:
         gc.enable()
+    step_spans = {k: n for k, (n, _) in span_totals().items()
+                  if k.startswith("speex.step")}
     entry.release(stage)
     view = tracing.view(win["prof"], win["traced_calls"], stage.work,
                         peaks_of(torch.cuda.get_device_name(device)))
@@ -169,6 +175,7 @@ def cell_report(name: str, seed: int, seconds: float,
     return {
         "cell": name, "seed": seed, "gc_off": gc_off, "setup_parts": parts,
         "setup_spans": setup, "calls": calls,
+        "window_step_span_counts": {"speex.step.pad": 0, **step_spans},
         "device_busy_ms_a_call": 1e3 * view.busy_s / calls,
         "window_ms_a_call": 1e3 * view.window_s / calls,
         "idle_share": 1 - view.busy_s / view.window_s,
