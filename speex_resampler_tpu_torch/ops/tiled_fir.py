@@ -210,22 +210,25 @@ def fixed_device_weights(w, device) -> tuple:
     (module docstring): K padded with zero taps to a multiple of 32, each
     phase split by ``balanced_q15_split`` (the JAX package's
     ``fixed_weight_planes_tiled`` split) in the permuted tap order, which
-    changes no sum; the tap table over ``FIXED_ROWS[n_accum]`` columns."""
+    changes no sum; the tap table over ``FIXED_ROWS[n_accum]`` columns.
+    The split and the tap table, host work of the fixed universe alone,
+    are the span ``speex.setup.q15``; the copies to ``device`` are not."""
     w16, *coef = (np.asarray(a) for a in w)
     assert w16.dtype == np.int16 and len(coef) <= 1
     P, K, C = w16.shape
     n_accum = 4 if coef else 1
     K_pad = -(-K // 32) * 32
     perm = full_perm(K_pad)
-    planes = np.empty((2, P, C, K_pad), dtype=np.int8)
-    bias = np.empty((P, C), dtype=np.int32)
-    wm = np.zeros((K_pad, C), dtype=np.int16)
-    for m in range(P):          # a phase at a time: 77 MB of taps at q10
-        wm[:K] = w16[m]
-        wh, wl0, bias[m] = balanced_q15_split(wm[perm], tap_axis=0)
-        planes[0, m], planes[1, m] = wh.T, wl0.T
-    nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
-    nonzero = np.pad(nonzero, ((0, 0), (0, K_pad - K), (0, 0)))
+    with span("speex.setup.q15"):
+        planes = np.empty((2, P, C, K_pad), dtype=np.int8)
+        bias = np.empty((P, C), dtype=np.int32)
+        wm = np.zeros((K_pad, C), dtype=np.int16)
+        for m in range(P):      # a phase at a time: 77 MB of taps at q10
+            wm[:K] = w16[m]
+            wh, wl0, bias[m] = balanced_q15_split(wm[perm], tap_axis=0)
+            planes[0, m], planes[1, m] = wh.T, wl0.T
+        nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
+        nonzero = np.pad(nonzero, ((0, 0), (0, K_pad - K), (0, 0)))
     return (torch.from_numpy(planes).to(device),
             torch.from_numpy(bias).to(device),
             *(torch.from_numpy(c.astype(np.int32)).to(device) for c in coef),

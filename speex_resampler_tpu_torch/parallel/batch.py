@@ -329,11 +329,15 @@ def _fixed_coef(spec: fd.FilterSpec, f0: int, P: int, R: int) -> np.ndarray:
     return coef
 
 
+@span("speex.setup.q15")
 def _fixed_host_weights(spec: fd.FilterSpec, f0: int, K_pad: int) -> tuple:
     """The fixed scheme's host weights: ``(w int16[P, K_pad, C],)`` for a
     direct spec, ``(w, coef int32[P, 4, R])`` for an interpolated one, with
     the n_cols component sets side by side (column c*R + r) and each padded
-    with zero tap rows to K_pad.  Each component is built once here."""
+    with zero tap rows to K_pad.  Each component is built once here.  The
+    span ``speex.setup.q15`` (inside ``speex.setup.planes``); its split
+    into int8 planes is the same span inside ``speex.setup.upload``
+    (``tiled_fir.fixed_device_weights``)."""
     ptw = _tiled_weights(spec, f0)
     comps = [ptw]
     for c in range(1, _n_cols(spec)):
@@ -691,6 +695,20 @@ def _padded_weights(spec: fd.FilterSpec, bspec: BatchSpec) -> tuple:
     return np.pad(w, ((0, L_pad - w.shape[0]), (0, 0))), len(tables)
 
 
+@span("speex.setup.q15")
+def _fixed_dense_host_weights(spec: fd.FilterSpec, bspec: BatchSpec) -> tuple:
+    """The fixed dense step's host weights: ``_padded_weights``' int16
+    taps, n_accum, and for an interpolated filter the Q15 cubic
+    coefficients int32[4, R] (else None).  The span ``speex.setup.q15``,
+    as :func:`_fixed_host_weights`."""
+    w_np, n_accum = _padded_weights(spec, bspec)
+    coef = None
+    if n_accum == 4:
+        bc = ph.block_constants(spec.num, spec.den, bspec.f0, bspec.group)
+        coef = spec.interp_coef[bc.p].T
+    return w_np, n_accum, coef
+
+
 def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
                       device: torch.device) -> BatchedStep:
     """The dense geometry's step (the JAX package's branch): history of
@@ -702,12 +720,10 @@ def _build_dense_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
     N, stride = spec.filt_len, bspec.stride
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
     with span("speex.setup.planes"):
-        w_np, n_accum = _padded_weights(spec, bspec)
-        coef = None
-        if spec.fixed_point and n_accum == 4:
-            bc = ph.block_constants(spec.num, spec.den, bspec.f0,
-                                    bspec.group)
-            coef = spec.interp_coef[bc.p].T
+        if spec.fixed_point:
+            w_np, n_accum, coef = _fixed_dense_host_weights(spec, bspec)
+        else:
+            w_np, n_accum = _padded_weights(spec, bspec)
     if not spec.fixed_point:
         with span("speex.setup.upload"):
             w = df.device_weights(w_np, device)

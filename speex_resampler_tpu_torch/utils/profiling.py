@@ -23,6 +23,10 @@ The port's spans (``PERF.md`` section 3 says what reads each):
   filter design, a step's host weights, their upload (where the process's
   CUDA context is made, if nothing made it before), and the kernel
   library's build or load;
+- ``speex.setup.q15``: the host work of a fixed (Q15) tiled, streamed or
+  dense step alone, once inside ``.planes`` (its int16 accumulator column
+  sets and Q15 cubic coefficients) and once inside ``.upload`` (the
+  balanced int8 split of its taps, before any copy to the device);
 - ``speex.fleet.gather`` / ``.dispatch`` / ``.readback`` / ``.unpack``:
   the phases of ``FleetResampler.poll`` (:meth:`LaunchStats.phase`).
 
