@@ -920,21 +920,33 @@ def gmma_counts(lib) -> dict:
     return counts
 
 
+#: the IGMMA counts of the served int8 and fixed kernels (K1b, K2b, K2b's
+#: tile under the tiled long launch, K2d): K2b's digit split issues 4
+#: m64n64k32 a K-slice a warpgroup at D = 4 (8 of m64n32k32 before), two
+#: K-slices a stage
+IGMMA_PINNED = {"tiled_fir_int8_kernel<3, true>": 12,
+                "streamed_fir_int8_kernel<4, true>": 8,
+                "tiled_fir_int8_long_kernel<4>": 8,
+                "streamed_fir_fixed_kernel<4>": 8}
+
+
 def sass_check() -> None:
     """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
     int8 and fixed (IGMMA; the fixed band and stream gathers too) kernel in
     the built library's SASS (:func:`gmma_counts`), the f64 FMAs of the
     float rows gather kernels (their dots are double FMA chains) and the
     FP64 tensor-core instructions (DMMA) of the float band and stream
-    gather kernels; raises if one of them has none."""
+    gather kernels; raises if one of them has none, or if a kernel of
+    :data:`IGMMA_PINNED` has another IGMMA count."""
     counts = gmma_counts(_build.lib_path())
     want = [("tiled_fir_split5_kernel", "HGMMA"),
             ("streamed_fir_split5_kernel", "HGMMA")] + [
-        (f"{name}<{d}{vec}>", "IGMMA") for d in (1, 2, 3, 4)
-        for name, vec in (("tiled_fir_int8_kernel", ", true"),
+        (f"{name}<{d}{arg}>", "IGMMA") for d in (1, 2, 3, 4)
+        for name, arg in (("tiled_fir_int8_kernel", ", true"),
                           ("tiled_fir_int8_kernel", ", false"),
                           ("tiled_fir_int8_long_kernel", ""),
-                          ("streamed_fir_int8_kernel", ""))] + [
+                          ("streamed_fir_int8_kernel",
+                           ", true" if d % 2 == 0 else ", false"))] + [
         (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
         for geo in ("tiled", "streamed", "dense") for n in (1, 4)] + [
         (f"gather_fir_f32_kernel<{t}, {k}>", "DFMA")
@@ -950,6 +962,10 @@ def sass_check() -> None:
         raise AssertionError("a tensor-core kernel has no wgmma or DMMA "
                              "instruction or a float rows gather kernel no "
                              "DFMA")
+    off = {n: counts.get((n, "IGMMA"), 0) for n, c in IGMMA_PINNED.items()
+           if counts.get((n, "IGMMA"), 0) != c}
+    if off:
+        raise AssertionError(f"IGMMA counts {off}, pinned {IGMMA_PINNED}")
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None,

@@ -1,10 +1,10 @@
 // Scheme "int8" on Hopper's int8 tensor cores (sm_90a only): the device
-// functions of streamed_fir_int8_kernel<kD> (fir_tile: one output tile a
-// CTA, the weights streamed with x; K2b) and of tiled_fir_int8_kernel<kD,
-// kVec> (fir_tile_resident: a row tile's digit planes held in shared
-// memory across the kGroup output tiles its CTA walks; K1b).  The tiled
-// launcher takes fir_tile with the tiled origin where a band does not
-// fit.
+// functions of streamed_fir_int8_kernel<kD, kDigits> (fir_tile: one output
+// tile a CTA, the weights streamed with x; K2b) and of
+// tiled_fir_int8_kernel<kD, kVec> (fir_tile_resident: a row tile's digit
+// planes held in shared memory across the kGroup output tiles its CTA
+// walks; K1b).  The tiled launcher takes fir_tile with the tiled origin
+// where a band does not fit.
 //
 // It computes _dot_int8 (fir_common.cuh header): for digit d = 0..D-1 in
 // order, I_d = sum_t w_d[t, r] * (x - 128) exactly (mod 2^32), then
@@ -18,9 +18,10 @@
 // sums wrap as the CUDA cores' do; signed overflow would be undefined in
 // C++).
 //
-// Product: wgmma.mma_async m64n32k32 .s32.s8.s8 with the lanes as M (64 a
-// warpgroup), kN = 32 tile rows as N, xh or xl the register operand A and
-// a digit plane's [32 taps x 32 rows] tile the shared-memory operand B.
+// Product: wgmma.mma_async m64nNk32 .s32.s8.s8 with the lanes as M (64 a
+// warpgroup), N = 32 or 64 tile rows (below), xh or xl the register
+// operand A and a digit plane's [32 taps x N rows] tile the shared-memory
+// operand B.
 // 8-bit wgmma has no transposed operand, so B is K-major: the planes are
 // int8[D, P, R, K] (K bytes a row; ops/tiled_fir.py), staged as 8-row x
 // 16-byte core matrices without swizzle (rows 16 bytes apart, the two
@@ -37,16 +38,23 @@
 // the host permutes each 32-tap group of the planes the same way
 // (tiled_fir.K_PERM), and every 32-tap group starts at a multiple of 32.
 //
-// Registers (fir_tile): 2*D dots need 2*D accumulators.  At m64n64 that is
-// 256 int32 registers a thread for D = 4, which do not fit; so a warpgroup
-// takes kN =
-// 32 of the tile's 64 rows (16 registers a dot, 128 for D = 4) and every
-// digit is summed in one walk of the band, building each K-slice's xh / xl
-// fragments once for 2*D wgmmas.  A CTA is 64 rows x 64 lanes: the two
-// warpgroups take the two 32-row halves of the same lanes.  Walking the
-// band once a digit at m64n64 (2 x 32 accumulators, a CTA 64 rows x 128
-// lanes) ran 3 % slower on the H100 for D = 4, what "auto" serves (1-3 %
-// faster for D = 3; PERF.md section 6).
+// Registers and split (fir_tile): 2*D dots a tile, all digits summed in
+// one walk of the band, each K-slice's xh / xl fragments built once.  A CTA
+// is 64 rows x 64 lanes; its two warpgroups share the stage and the
+// fragments.  Where D is even (digit_split) warpgroup h sums digits h*D/2
+// .. (h+1)*D/2 - 1 over all 64 rows, m64n64k32 (D accumulators of 32
+// registers, 128 at D = 4); where D is odd each takes a 32-row half of
+// every digit, m64n32k32 (2*D of 16; all 64 rows would need 256 at D = 4).
+// The digit split's epilogue (store_tile_digits) hands each warpgroup's
+// f32 terms to the other through shared memory in the plain version's
+// order, each finishing half the tile.  On the H100 (48 kHz -> 44.1 kHz
+// q10, B = 2048) it took K2b from 0.719 to 0.643 ms a launch at D = 4 and
+// from 0.416 to 0.404 at D = 2; the walk alone (the epilogue dropped) ran
+// no faster at N = 64 than at 32, so the gain is the epilogue's, whose
+// biases are loaded before, and whose exchanged terms all at once, so no
+// load waits in its finishing loop (PERF.md section 6).  Walking the band
+// once a digit instead (2 accumulators, a CTA 64 rows x 128 lanes) ran 3 %
+// slower at D = 4.
 //
 // fir_tile's pipeline (as split5_wgmma.cuh): a ring of kStages buffers of
 // two 32-tap K-slices, each the walk's digit tiles and the int16 x rows of
@@ -55,10 +63,14 @@
 // group a stage; a barrier a stage.  Each K-slice is one wgmma group; two
 // fragment sets let a slice's fragments be built while the previous
 // slice's wgmmas run.  Where B % 8 != 0 a thread loads its x chunk with
-// 2-byte loads.  What bounds K2b: the tensor cores.  At 48 kHz -> 44.1 kHz
-// q10 (B = 2048) the tiles walk 13.4 G multiply-adds, 2*D int8 products
-// each: 0.11 ms at the 1,979 TOP/s peak for D = 4, against ~180 MB of
-// bytes, 0.055 ms.  Measured, its stage copies hold it (PERF.md).
+// 2-byte loads.  What bounds K2b: not the wgmma rate.  At 48 kHz -> 44.1
+// kHz q10 (B = 2048) the tiles walk 13.4 G multiply-adds, 2*D int8
+// products each (107 G at D = 4): 0.11 ms at the 1,979 TOP/s peak, against
+// ~180 MB of bytes, 0.055 ms.  Measured, the walk takes ~0.565 ms at N =
+// 32 and 64 alike (190 T int8 multiply-adds a second, below the 262 T of
+// two warpgroups an SM at N = 32 in the rate probe): the stage copies,
+// each lane tile's band streamed again, and one CTA an SM, whose pipeline
+// fill and epilogue nothing overlaps, hold it (PERF.md).
 //
 // fir_tile_resident: the tiled geometry gives every block of one phase m
 // the same weights, so the n_blocks / P blocks x ceil(B / 64) lane tiles
@@ -97,7 +109,7 @@
 namespace fir {
 namespace int8tc {
 
-constexpr int kN = 32;                      // tile rows a warpgroup
+constexpr int kN = 32;                      // rows a warpgroup (row split)
 constexpr int kMaxDigits = 4;               // digit planes a stage holds
 constexpr int kK = 32;                      // taps per wgmma (K-slice)
 constexpr int kSub = 2;                     // K-slices per stage
@@ -121,12 +133,22 @@ constexpr int kRingLead = kRing - 1;
 constexpr int kOutBytes = kRowTile * kRawPitch;
 constexpr int kMaxSmem = 232448;            // a CTA's most on the H100
 
+// fir_tile's split of a tile between its two warpgroups: by digit plane
+// where the digits pair up (warpgroup h sums digits h*kD/2 .. over all 64
+// rows), else by 32-row half (every digit).
+__host__ __device__ constexpr bool digit_split(int digits) {
+  return digits % 2 == 0;
+}
+
 static_assert(kThreads == 256 && kRowTile == 2 * kN,
-              "two warpgroups a CTA, one a 32-row half");
+              "two warpgroups a CTA, 32 rows each in the row split");
 static_assert(kSub == 2, "a stage's slot is reused two stages after it");
 static_assert(kRowTile * kSub * 2 == kThreads, "one weight copy a digit");
 static_assert(kStageTaps * kLanes / 8 % kThreads == 0, "whole x copies");
 static_assert(kRowTile * kRawPitch <= kStageBytes, "the output tile fits");
+static_assert(16 * (1 + kMaxDigits / 2) * 128 * 4 <= kStageBytes &&
+                  kStages >= 2,
+              "a second buffer holds the digit split's exchange");
 
 // The byte offset of 16-byte chunk c (taps 16c .. 16c+15) of tile row n in
 // a K-slice's tile: 8-row x 16-byte core matrices, no swizzle.
@@ -231,6 +253,38 @@ __host__ __device__ constexpr int resident_smem(int slices) {
          kRowTile * 4 + 128;
 }
 
+// Sends rows row0 .. row0 + kRows - 1 of the int16 tile in `out`
+// ([kRowTile][kRawPitch] bytes of shared memory) to 16-byte row stores of
+// block k, row tile rt, lanes from lane0: thread tid % kSharers of the
+// kSharers threads that share `out` (rows past R and lanes past B are not
+// stored).
+template <int kRows, int kSharers>
+__device__ __forceinline__ void store_rows(const Launch& g, int k, int rt,
+                                           int lane0, int row0, uint32_t out) {
+  const int tid = threadIdx.x;
+  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+#pragma unroll
+  for (int r = 0; r < kRows * kLanes / 8 / kSharers; ++r) {
+    const int chunk = tid % kSharers + r * kSharers;
+    const int row = row0 + chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
+    const int lane = lane0 + cl;
+    if (rt * kRowTile + row >= g.R || lane >= g.B) continue;
+    uint32_t v[4];
+    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                 : "r"(out + row * kRawPitch + cl * 2)
+                 : "memory");
+    int16_t* dst = g.y + ((size_t)k * g.R + rt * kRowTile + row) * g.B + lane;
+    if (vec_y) {
+      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+    } else {
+#pragma unroll
+      for (int b = 0; b < 8; ++b)
+        if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+    }
+  }
+}
+
 // The epilogue of one output tile (64 rows from row rt * kRowTile of block
 // k, phase m; kLanes lanes from lane0): its rows r0 .. r0 + kWgN - 1 that
 // this warpgroup summed (kWgN/2 accumulator registers a dot), or, with
@@ -297,28 +351,124 @@ __device__ __forceinline__ void store_tile(const Launch& g, int k, int rt,
                  : "memory");
   }
   sync();
-  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
-  const int row0 = kCta ? 0 : r0;
+  store_rows<kRows, kSharers>(g, k, rt, lane0, kCta ? 0 : r0, out);
+}
+
+// The digit-split epilogue of fir_tile's output tile (block k, row tile rt
+// of phase m, kLanes lanes from lane0), each warpgroup holding all 64 rows
+// of its kD / 2 digits (m64n64k32 accumulators: the same (lane, row) in
+// the same register of both).  The f32 steps are store_tile's, in digit
+// order: warpgroup 0 forms t = (0 + I_0 s_0) + I_1 s_1 (for kD = 4) of each
+// output, warpgroup 1 its products I_2 s_2, I_3 s_3.  Each finishes half
+// the outputs, t + I_2 s_2 + I_3 s_3 in that order, the bias, WORD2INT:
+// warpgroup 1 registers 0-15 (rows 0-31), warpgroup 0 registers 16-31
+// (rows 32-63), each sending the other the terms it lacks through `part`
+// (a register index and thread apart: no bank conflict) across a CTA
+// barrier.  The biases of a thread's 8 rows are loaded first and the
+// exchanged terms all at once, so no load waits inside the finishing
+// loop.  The int16 tile goes through `out` to 16-byte row stores.  `part`
+// and `out` are ring buffers that no copy in flight writes.
+template <int kD>
+__device__ __forceinline__ void store_tile_digits(
+    const Launch& g, int k, int rt, int m, int lane0, int (&acc)[kD][32],
+    const float* __restrict__ bias, float4 scales, uint32_t part,
+    uint32_t out) {
+  constexpr int kWgD = kD / 2;              // digits a warpgroup
+  constexpr int kFin = 16;                  // registers a warpgroup finishes
+  const int tid = threadIdx.x, h = tid / 128, wt = tid % 128;
+  const int w = wt / 32, l = tid % 32;
+  // word of the exchange: t of register i < kFin, or product d of register
+  // kFin + i
+  auto t_at = [&](int i) { return part + (i * 128 + wt) * 4; };
+  auto p_at = [&](int d, int i) {
+    return part + ((kFin + d * kFin + i) * 128 + wt) * 4;
+  };
+  // Accumulator register i of thread (warp w, lane l): lane 16w + l/4 +
+  // 8*((i/2)%2), row 8*(i/4) + 2*(l%4) + i%2 (store_tile's, r0 = 0); the
+  // finished registers fin0 + i, i < kFin, take bias b[(i/4)*2 + i%2].
+  const int fin0 = h == 0 ? kFin : 0;
+  const float* bias_m = bias + (size_t)m * g.R + rt * kRowTile;
+  float b[kFin / 2];
 #pragma unroll
-  for (int r = 0; r < kRows * kLanes / 8 / kSharers; ++r) {
-    const int chunk = tid % kSharers + r * kSharers;
-    const int row = row0 + chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
-    const int lane = lane0 + cl;
-    if (rt * kRowTile + row >= g.R || lane >= g.B) continue;
-    uint32_t v[4];
-    asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
-                 : "r"(out + row * kRawPitch + cl * 2)
+  for (int q = 0; q < kFin / 2; ++q)
+    b[q] = bias_m[8 * (fin0 / 4 + q / 2) + 2 * (l % 4) + q % 2];
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int j = 0; j < kD; ++j) pin(acc[j]);
+  __syncthreads();  // every wgmma's stage read: part and out are free
+
+  // I s of this warpgroup's digit d (the kernel's digit d + kWgD * h) in
+  // accumulator register i
+  auto term = [&](int d, int i, float scale) {
+    const uint32_t sum =
+        256u * (uint32_t)acc[2 * d][i] + (uint32_t)acc[2 * d + 1][i];
+    return __fmul_rn(__int2float_rn((int)sum), scale);
+  };
+  auto st = [](uint32_t at, float v) {
+    asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(at), "f"(v) : "memory");
+  };
+  auto ld = [](uint32_t at) {
+    float v;
+    asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(at) : "memory");
+    return v;
+  };
+  auto finish = [&](int i, float total) {
+    const int lane = 16 * w + l / 4 + 8 * ((i / 2) % 2);
+    const int row = 8 * (i / 4) + 2 * (l % 4) + i % 2;
+    const float bi = b[(i % kFin) / 4 * 2 + i % 2];
+    asm volatile("st.shared.u16 [%0], %1;\n" ::"r"(out + row * kRawPitch +
+                                                   lane * 2),
+                 "h"(word2int(__fadd_rn(total, bi)))
                  : "memory");
-    int16_t* dst = g.y + ((size_t)k * g.R + rt * kRowTile + row) * g.B + lane;
-    if (vec_y) {
-      *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
-    } else {
+  };
+  float v[kWgD][2 * kFin];  // warpgroup 0: t in v[0]; 1: its products
+  if (h == 0) {
 #pragma unroll
-      for (int b = 0; b < 8; ++b)
-        if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+    for (int i = 0; i < 2 * kFin; ++i) {
+      float total = 0.0f;
+#pragma unroll
+      for (int d = 0; d < kWgD; ++d)
+        total = __fadd_rn(total, term(d, i, pick(scales, d)));
+      v[0][i] = total;
+      if (i < kFin) st(t_at(i), total);
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 2 * kFin; ++i)
+#pragma unroll
+      for (int d = 0; d < kWgD; ++d) {
+        v[d][i] = term(d, i, pick(scales, kWgD + d));
+        if (i >= kFin) st(p_at(d, i - kFin), v[d][i]);
+      }
+  }
+  __syncthreads();
+  if (h == 0) {
+    float p[kWgD][kFin];
+#pragma unroll
+    for (int i = 0; i < kFin; ++i)
+#pragma unroll
+      for (int d = 0; d < kWgD; ++d) p[d][i] = ld(p_at(d, i));
+#pragma unroll
+    for (int i = 0; i < kFin; ++i) {
+      float total = v[0][kFin + i];
+#pragma unroll
+      for (int d = 0; d < kWgD; ++d) total = __fadd_rn(total, p[d][i]);
+      finish(kFin + i, total);
+    }
+  } else {
+    float t[kFin];
+#pragma unroll
+    for (int i = 0; i < kFin; ++i) t[i] = ld(t_at(i));
+#pragma unroll
+    for (int i = 0; i < kFin; ++i) {
+      float total = t[i];
+#pragma unroll
+      for (int d = 0; d < kWgD; ++d) total = __fadd_rn(total, v[d][i]);
+      finish(i, total);
     }
   }
+  __syncthreads();
+  store_rows<kRowTile, kThreads>(g, k, rt, lane0, 0, out);
 }
 
 // The CTA's output tile (c: 64 rows of block k, kLanes lanes from
@@ -326,17 +476,24 @@ __device__ __forceinline__ void store_tile(const Launch& g, int k, int rt,
 // above), bias f32[P, R] and the kD digit scales.  Launch with kThreads
 // threads and kSmemBytes of dynamic shared memory; K % 16 == 0 and the
 // planes 16-byte aligned.
-template <int kD>
+template <int kD, bool kDigits = digit_split(kD)>
 __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
                                          const int8_t* __restrict__ planes,
                                          const float* __restrict__ bias,
                                          float4 scales) {
   static_assert(kD >= 1 && kD <= kMaxDigits, "digits");
+  static_assert(!kDigits || kD % 2 == 0, "the warpgroups' digits are even");
+  // a warpgroup's digits and accumulator registers a dot
+  constexpr int kWgD = kDigits ? kD / 2 : kD;
+  constexpr int kRegs = kDigits ? kRowTile / 2 : kAcc;
   extern __shared__ uint8_t int8_smem[];
   const uint32_t ring = (smem_addr(int8_smem) + 127) & ~127u;
   const int tid = threadIdx.x, h = tid / 128;
   const int w = (tid % 128) / 32, l = tid % 32;
-  const int wg_row = h * kN;  // this warpgroup's rows of the tile
+  const int wg_row = h * kN;  // this warpgroup's rows (the row split)
+  // its B tiles in a stage: its digits' whole tiles, or its rows of each
+  const uint32_t wg_b =
+      kDigits ? h * kWgD * kSub * kTileBytes : (wg_row / 8) * 256;
 
   const int t_begin = c.t_lo & ~(kK - 1);
   const int n_stages =
@@ -386,11 +543,11 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
     __syncthreads();
   };
 
-  int acc[2 * kD][kAcc];
+  int acc[2 * kWgD][kRegs];
 #pragma unroll
-  for (int j = 0; j < 2 * kD; ++j)
+  for (int j = 0; j < 2 * kWgD; ++j)
 #pragma unroll
-    for (int i = 0; i < kAcc; ++i) acc[j][i] = 0;
+    for (int i = 0; i < kRegs; ++i) acc[j][i] = 0;
   if (n_stages > 0) {
 #pragma unroll
     for (int s = 0; s < kLead; ++s) copy_stage(s);
@@ -411,9 +568,9 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
       const int accumulate = s > 0 || j > 0;
 #pragma unroll
-      for (int d = 0; d < kD; ++d) {
-        const uint64_t b = descriptor(buf + (d * kSub + j) * kTileBytes +
-                                      (wg_row / 8) * 256);
+      for (int d = 0; d < kWgD; ++d) {
+        const uint64_t b =
+            descriptor(buf + (d * kSub + j) * kTileBytes + wg_b);
         mma(acc[2 * d], xh[j], b, accumulate);
         mma(acc[2 * d + 1], xl[j], b, accumulate);
       }
@@ -423,9 +580,14 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
     }
     stage_ready();
   }
-  // the first ring buffer takes the output tile: no copy is in flight
-  store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, acc, bias,
-                           0, scales, ring);
+  // the first ring buffer takes the output tile, the second the partial
+  // sums: no copy is in flight
+  if constexpr (kDigits)
+    store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, bias, scales,
+                          stage_at(1), ring);
+  else
+    store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, acc, bias,
+                             0, scales, ring);
 }
 
 // Rows of a tile a resident warpgroup sums: all 64 (m64n64k32, 32

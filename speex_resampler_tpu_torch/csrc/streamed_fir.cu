@@ -44,9 +44,15 @@
 // Scheme "int8" (K2b) runs on the int8 tensor cores (int8_wgmma.cuh):
 // wgmma s8 with xh / xl as the register operand, 2*D exact int32 dots
 // summed in one walk of each tile's band, the f32 epilogue of the CUDA-core
-// int8 kernel.  Its planes are K-major, int8[D, P, R, K_pad], each 32-tap
-// group permuted to the fragment's tap order (JAX streams [P, D, R,
-// K_pad]); its lane tile is int8tc::kLanes.
+// int8 kernel.  Its two warpgroups split an even D's digit planes, each
+// summing D/2 of them over the tile's 64 rows at m64n64k32
+// (streamed_fir_int8_kernel<D, true>), and an odd D's rows, each summing
+// every digit over 32 of them at m64n32k32 (<D, false>): at q10, D = 4,
+// 0.643 ms a launch at B = 2048 against 0.719 with the row split, whose
+// walk takes as long; the digit split's epilogue is the cheaper (PERF.md).
+// Its planes are K-major, int8[D, P, R, K_pad], each 32-tap group permuted
+// to the fragment's tap order (JAX streams [P, D, R, K_pad]); its lane
+// tile is int8tc::kLanes.
 //
 // Scheme "fixed" (K2d; v4's fixed branch: _dot_fixed, then the fixed_math
 // epilogues) runs on the int8 tensor cores too (fixed_wgmma.cuh, shared
@@ -115,8 +121,9 @@ streamed_fir_f32_kernel(fir::Launch g, Origin o, const float* __restrict__ w) {
                      origin(g, o, k), g.R, w);
 }
 
-// The same order over int8tc::kLanes-lane tiles; kD digit planes.
-template <int kD>
+// The same order over int8tc::kLanes-lane tiles; kD digit planes, split
+// between the warpgroups by digit (kDigits: int8tc::digit_split) or by row.
+template <int kD, bool kDigits>
 __global__ void __launch_bounds__(kThreads, 1)
 streamed_fir_int8_kernel(fir::Launch g, Origin o,
                          const int8_t* __restrict__ planes,
@@ -125,7 +132,7 @@ streamed_fir_int8_kernel(fir::Launch g, Origin o,
   const int row_tiles = g.R / kRowTile;
   const int kr = blockIdx.x / lane_tiles;
   const int k = kr / row_tiles;
-  fir::int8tc::fir_tile<kD>(
+  fir::int8tc::fir_tile<kD, kDigits>(
       g,
       fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
                 origin(g, o, k), fir::int8tc::kLanes),
@@ -137,15 +144,17 @@ template <int kD>
 cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
                         const float* bias, float4 scales, int n_blocks,
                         cudaStream_t stream) {
+  constexpr bool kDigits = fir::int8tc::digit_split(kD);
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    return fir::int8tc::allow_smem(streamed_fir_int8_kernel<kD>);
+    return fir::int8tc::allow_smem(streamed_fir_int8_kernel<kD, kDigits>);
   });
   if (attr != cudaSuccess) return attr;
   const dim3 grid(n_blocks * (g.R / kRowTile) *
                   ((g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes));
-  streamed_fir_int8_kernel<kD><<<grid, kThreads, fir::int8tc::kSmemBytes,
-                                 stream>>>(g, o, planes, bias, scales);
+  streamed_fir_int8_kernel<kD, kDigits><<<grid, kThreads,
+                                          fir::int8tc::kSmemBytes, stream>>>(
+      g, o, planes, bias, scales);
   return cudaGetLastError();
 }
 

@@ -462,26 +462,43 @@ def _edge_inputs(step, n_in: int, B: int, seed: int):
     return torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
 
 
-@pytest.mark.parametrize("scheme", ["auto", "int8"], ids=["D4", "D3"])
-def test_streamed_int8_edges_match_plain(cuda, scheme):
+@pytest.mark.parametrize("scheme,D", [("auto", 4), ("int8", 3),
+                                      ("int8", 2), ("int8", 1)],
+                         ids=["D4", "D3", "D2", "D1"])
+def test_streamed_int8_edges_match_plain(cuda, scheme, D):
     """streamed_fir_int8_kernel (int8 tensor cores) at 48k->44.1k q10, D =
-    4 ("auto") and 3 (explicit "int8"), with x = -32768 and 32767 rows in
-    every window and -32768 history rows: 0 mismatches against the plain
-    version at f0 = 0 and 40, B = 130, 129 and 64."""
+    4 ("auto") and 3 (explicit "int8"), and the same weights decomposed
+    into 2 and 1 digit planes (``int8_weights(digits=D)``): the warpgroups
+    split the digit planes at D = 4 and 2, the rows at 3 and 1.  With x =
+    -32768 and 32767 rows in every window and -32768 history rows: 0
+    mismatches against the plain version at f0 = 0 and 40, B = 2048, 130,
+    129 and 64, one launch counted each."""
     spec = tfd.design_filter(160, 147, 10)
     for f0 in (0, 40):
         bspec = tb._launch_geometry(spec, 20480, f0=f0)
         step = tb.make_batched_step(spec, bspec, device="cuda",
                                     scheme=scheme)
         assert (step.kernel, step.scheme) == ("streamed", "int8")
-        assert step.w[0].shape[0] == (4 if scheme == "auto" else 3)
+        if D < 3:
+            ptw = tb._tiled_weights(spec, f0)
+            K_pad = step.w[0].shape[-1]
+            planes, bias, scales, _ = ttf.int8_weights(
+                np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0))),
+                digits=D)
+            step = dataclasses.replace(
+                step, w=tsf.device_weights_streamed((planes, bias), "int8",
+                                                    "cuda"),
+                kernel_kw={**step.kernel_kw, "scales": scales})
+        assert step.w[0].shape[0] == D
         n_in = bspec.in_per_launch
-        for B in (130, 129, 64):
+        for B in (2048, 130, 129, 64):
             hist, x = _edge_inputs(step, n_in, B, B + f0)
+            before = tsf.launches["int8"]
             got = tsf.resample_streamed(hist, x, step.w, **step.kernel_kw)
             want = tsf.resample_streamed_reference(hist, x, step.w,
                                                    **step.kernel_kw)
             torch.cuda.synchronize()
+            assert tsf.launches["int8"] == before + 1
             assert int((got != want).sum()) == 0
 
 

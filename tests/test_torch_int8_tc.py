@@ -21,6 +21,7 @@ tests/test_torch_gpu.py and chip_smoke.py on the card.
 """
 
 import inspect
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +29,7 @@ import pytest
 import torch
 
 from speex_resampler_tpu.ops import pallas_fir as jpf
+from speex_resampler_tpu_torch.ops.convert import word2int, word2int_np
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
@@ -188,3 +190,222 @@ def test_plain_on_k_major_equals_jax_v4(D, B):
                                          scheme="int8", scales=scales, **kw)
     assert ty.shape == (n_blocks * R, B)
     assert np.array_equal(ty.numpy(), np.asarray(jy))
+
+
+# -- the digit split (fir_tile where D is even) -----------------------------
+
+CSRC = Path(tsf.__file__).resolve().parent.parent / "csrc"
+HEADER = (CSRC / "int8_wgmma.cuh").read_text()
+LAUNCHER = (CSRC / "streamed_fir.cu").read_text()
+KK, ROWS, THREADS, TILE_BYTES = 32, 64, 256, 32 * 64   # kK, kRowTile, ...
+STAGE_BYTES = -(-(4 * 2 * TILE_BYTES + 64 * (64 * 2 + 16)) // 128) * 128
+
+
+def _digit_split(D: int) -> bool:
+    return D % 2 == 0
+
+
+def test_digit_split_follows_the_digit_count():
+    """fir_tile splits a tile's work between its warpgroups by digit plane
+    where D is even, by 32-row half where it is odd: a template argument
+    of the streamed kernel, chosen by the launcher from D alone."""
+    for line in ("__host__ __device__ constexpr bool digit_split(int digits) {",
+                 "  return digits % 2 == 0;",
+                 "template <int kD, bool kDigits = digit_split(kD)>",
+                 "constexpr int kWgD = kDigits ? kD / 2 : kD;",
+                 "constexpr int kRegs = kDigits ? kRowTile / 2 : kAcc;",
+                 "int acc[2 * kWgD][kRegs];",
+                 "store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, "
+                 "bias, scales,"):
+        assert line in HEADER, line
+    for line in ("template <int kD, bool kDigits>",
+                 "constexpr bool kDigits = fir::int8tc::digit_split(kD);",
+                 "fir::int8tc::fir_tile<kD, kDigits>(",
+                 "streamed_fir_int8_kernel<kD, kDigits><<<"):
+        assert line in LAUNCHER, line
+    assert [D for D in range(1, 5) if _digit_split(D)] == [2, 4]
+
+
+def _core_offset(n, c):
+    return (n // 8) * 256 + c * 128 + (n % 8) * 16
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 4])
+def test_stage_gives_each_warpgroup_its_b_tiles(D):
+    """Every thread's weight copies of one stage (K-major permuted planes,
+    phase 1, row tile 1) into a model of the stage buffer; each warpgroup's
+    B tile of each K-slice read back through the descriptor (128 bytes
+    between a slice's 16-tap halves, 256 between 8-row groups) is, under
+    the digit split, all 64 rows of its digit h*D/2 + d, else its 32-row
+    half of digit d."""
+    for line in ("const int wr = tid / 4, ws = (tid / 2) % 2, wc = tid % 2;",
+                 "const uint32_t wdst = ws * kTileBytes + core_offset(wr, wc);",
+                 "copy16(buf + d * kSub * kTileBytes + wdst,",
+                 "const int t = t_begin + s * kStageTaps + ws * kK + wc * 16;",
+                 "kDigits ? h * kWgD * kSub * kTileBytes : (wg_row / 8) * 256;",
+                 "descriptor(buf + (d * kSub + j) * kTileBytes + wg_b);",
+                 "return (n / 8) * 256 + c * 128 + (n % 8) * 16;"):
+        assert line in HEADER, line
+    P, R, K, m, rt, t_begin, s = 2, 128, 256, 1, 1, 64, 1
+    rng = np.random.default_rng(D)
+    planes = rng.integers(-128, 128, (D, P, R, K), dtype=np.int64)
+    smem = np.full(4 * 2 * TILE_BYTES, 999, dtype=np.int64)
+    for tid in range(THREADS):
+        wr, ws, wc = tid // 4, (tid // 2) % 2, tid % 2
+        t = t_begin + s * 2 * KK + ws * KK + wc * 16
+        for d in range(D):
+            dst = d * 2 * TILE_BYTES + ws * TILE_BYTES + _core_offset(wr, wc)
+            smem[dst:dst + 16] = planes[d, m, rt * ROWS + wr, t:t + 16]
+    split = _digit_split(D)
+    wg_d, n = (D // 2, ROWS) if split else (D, ROWS // 2)
+    n_idx, k_idx = np.meshgrid(np.arange(n), np.arange(KK), indexing="ij")
+    read = (n_idx // 8) * 256 + (k_idx // 16) * 128 + (n_idx % 8) * 16 \
+        + k_idx % 16                                          # [n, KK]
+    for h in range(2):
+        wg_b = h * wg_d * 2 * TILE_BYTES if split else (h * 32 // 8) * 256
+        for j in range(2):
+            taps = t_begin + s * 2 * KK + j * KK + np.arange(KK)
+            for d in range(wg_d):
+                digit, r0 = (h * wg_d + d, 0) if split else (d, 32 * h)
+                got = smem[(d * 2 + j) * TILE_BYTES + wg_b + read]
+                want = planes[digit, m, rt * ROWS + r0:
+                              rt * ROWS + r0 + n][:, taps]
+                assert np.array_equal(got, want), (h, j, d)
+
+
+def _f32(v):
+    return np.float32(v)
+
+
+@pytest.mark.parametrize("D", [2, 4])
+def test_digit_split_epilogue_equals_the_sequential_sum(D):
+    """store_tile_digits, modelled in NumPy: warpgroup 0's partial sum
+    (0 + I_0 s_0 [+ I_1 s_1]) continued by warpgroup 1's products in digit
+    order (whichever warpgroup finishes the output), the bias and WORD2INT
+    equal the plain version's sequential f32 sum (``apply_weights``' loop,
+    in torch) bit for bit, over random int32 digit sums I_d = 256 <w_d, xh>
+    + <w_d, xl> (mod 2^32, many of them wrapping), scales and biases."""
+    for line in ("float v[kWgD][2 * kFin];",
+                 "float total = 0.0f;",
+                 "total = __fadd_rn(total, term(d, i, pick(scales, d)));",
+                 "v[d][i] = term(d, i, pick(scales, kWgD + d));",
+                 "float total = v[0][kFin + i];",
+                 "for (int d = 0; d < kWgD; ++d) total = __fadd_rn(total, "
+                 "p[d][i]);",
+                 "float total = t[i];",
+                 "for (int d = 0; d < kWgD; ++d) total = __fadd_rn(total, "
+                 "v[d][i]);",
+                 "256u * (uint32_t)acc[2 * d][i] + "
+                 "(uint32_t)acc[2 * d + 1][i];",
+                 "return __fmul_rn(__int2float_rn((int)sum), scale);",
+                 '"h"(word2int(__fadd_rn(total, bi)))'):
+        assert line in HEADER, line
+    rng = np.random.default_rng(D)
+    n = 1 << 16
+    # the wgmma accumulators: <w_d, xh> and <w_d, xl>, any int32
+    hi = rng.integers(-2 ** 31, 2 ** 31, (D, n), dtype=np.int64)
+    lo = rng.integers(-2 ** 31, 2 ** 31, (D, n), dtype=np.int64)
+    hi[:, :64] = rng.integers(-2 ** 23, 2 ** 23, (D, 64))  # no wrap
+    lo[:, :64] = rng.integers(-2 ** 15, 2 ** 15, (D, 64))
+    hi[:, 64:66] = 2 ** 23 - 1
+    lo[:, 64], lo[:, 65] = 255, 256          # 2^31 - 1, then -2^31
+    wrapped = (256 * hi + lo) & 0xFFFFFFFF
+    I = np.where(wrapped >= 2 ** 31, wrapped - 2 ** 32, wrapped) \
+        .astype(np.int32)                                        # [D, n]
+    assert (I[:, 64] == 2 ** 31 - 1).all() and (I[:, 65] == -2 ** 31).all()
+    assert ((256 * hi + lo) != I).mean() > 0.9
+    scales = [float(2.0 ** (8 * d - 31)) * (1 + rng.random()) for d in
+              range(D)]
+    scales = np.asarray(scales, dtype=np.float32)
+    bias = (rng.standard_normal(n) * 3e4).astype(np.float32)
+    If = I.astype(np.float32)                  # __int2float_rn: to nearest
+    half = D // 2
+    # warpgroup 0: the partial sum, through shared memory
+    t = np.zeros(n, dtype=np.float32)
+    for d in range(half):
+        t = (t + If[d] * scales[d]).astype(np.float32)
+    # warpgroup 1: its products, then the continuation
+    prod = [(If[d] * scales[d]).astype(np.float32) for d in range(half, D)]
+    for p in prod:
+        t = (t + p).astype(np.float32)
+    y_split = t + bias
+    # the plain version's loop (ops/tiled_fir.apply_weights)
+    acc = torch.zeros(n, dtype=torch.float32)
+    for d in range(D):
+        acc = acc + torch.from_numpy(I[d]).float() * float(scales[d])
+    y_plain = acc + torch.from_numpy(bias)
+    assert np.array_equal(y_split.view(np.int32), y_plain.numpy()
+                          .view(np.int32))
+    assert np.array_equal(word2int_np(y_split),
+                          word2int(y_plain).numpy())
+
+
+def test_digit_split_register_and_exchange_maps():
+    """m64n64k32 accumulator register i of thread (warp w, lane l) of
+    either warpgroup is output (lane 16w + l/4 + 8*((i/2)%2), row 8*(i/4) +
+    2*(l%4) + i%2): each warpgroup's 32 registers cover the 64 x 64 tile
+    once, the same output in the same register of both.  Warpgroup 1
+    finishes registers 0-15 and warpgroup 0 registers 16-31: each word of
+    the exchange (t of register i < 16, product d of register 16 + i) is
+    written by one thread and read by the thread of the other warpgroup
+    that holds the same output, every word once, 24 KB inside a stage
+    buffer, a warp's 32 threads on 32 banks.  A thread's 8 biases are the
+    rows of the 16 registers it finishes; the CTA's row stores cover the
+    tile's 16-byte chunks once."""
+    for line in ("const int tid = threadIdx.x, h = tid / 128, wt = tid % 128;",
+                 "const int w = wt / 32, l = tid % 32;",
+                 "auto t_at = [&](int i) { return part + (i * 128 + wt) * 4; "
+                 "};",
+                 "return part + ((kFin + d * kFin + i) * 128 + wt) * 4;",
+                 "if (i < kFin) st(t_at(i), total);",
+                 "if (i >= kFin) st(p_at(d, i - kFin), v[d][i]);",
+                 "for (int d = 0; d < kWgD; ++d) p[d][i] = ld(p_at(d, i));",
+                 "for (int i = 0; i < kFin; ++i) t[i] = ld(t_at(i));",
+                 "finish(kFin + i, total);",
+                 "finish(i, total);",
+                 "const int fin0 = h == 0 ? kFin : 0;",
+                 "b[q] = bias_m[8 * (fin0 / 4 + q / 2) + 2 * (l % 4) + q % 2];",
+                 "const float bi = b[(i % kFin) / 4 * 2 + i % 2];",
+                 "const int lane = 16 * w + l / 4 + 8 * ((i / 2) % 2);",
+                 "const int row = 8 * (i / 4) + 2 * (l % 4) + i % 2;",
+                 "stage_at(1), ring);",
+                 "static_assert(16 * (1 + kMaxDigits / 2) * 128 * 4 <= "
+                 "kStageBytes &&",
+                 "store_rows<kRowTile, kThreads>(g, k, rt, lane0, 0, out);"):
+        assert line in HEADER, line
+
+    def out(wt, i):
+        w, l = wt // 32, wt % 32
+        return (16 * w + l // 4 + 8 * ((i // 2) % 2),
+                8 * (i // 4) + 2 * (l % 4) + i % 2)
+
+    assert sorted(out(wt, i) for wt in range(128) for i in range(32)) == [
+        (a, b) for a in range(64) for b in range(64)]
+    for wg_d in (1, 2):                                   # D = 2, 4
+        words = {}                                        # word -> output
+        for wt in range(128):
+            for i in range(16):                  # warpgroup 0 sends t
+                words[i * 128 + wt] = out(wt, i)
+            for d in range(wg_d):                # warpgroup 1 its products
+                for i in range(16):
+                    words[(16 + d * 16 + i) * 128 + wt] = out(wt, 16 + i)
+        assert sorted(words) == list(range((1 + wg_d) * 16 * 128))
+        assert max(words) * 4 + 4 <= 16 * (1 + 2) * 128 * 4 <= STAGE_BYTES
+        for wt in range(128):                    # the readers
+            assert all(words[i * 128 + wt] == out(wt, i) for i in range(16))
+            assert all(words[(16 + d * 16 + i) * 128 + wt] == out(wt, 16 + i)
+                       for d in range(wg_d) for i in range(16))
+        for word0 in range(0, len(words), 32):   # a warp's 32 threads
+            assert len({(word0 + t) % 32 for t in range(32)}) == 32
+    for h, fin0 in ((0, 16), (1, 0)):
+        for wt in range(128):
+            l = wt % 32
+            b = [8 * (fin0 // 4 + q // 2) + 2 * (l % 4) + q % 2
+                 for q in range(8)]
+            assert all(b[i // 4 * 2 + i % 2] == out(wt, fin0 + i)[1]
+                       for i in range(16))
+    chunks = [(c // 8, c % 8 * 8) for tid in range(THREADS)
+              for r in range(ROWS * 64 // 8 // THREADS)
+              for c in [tid + r * THREADS]]
+    assert sorted(chunks) == [(r, 8 * c) for r in range(ROWS)
+                              for c in range(8)]

@@ -15,23 +15,32 @@ after the path's flush, B = 2048, 130, 129 (2-byte x loads) and 64, with x
 = -32768 and 32767 rows in every launch.  The launches: the tiled flagship
 (44.1 kHz -> 48 kHz q7, "auto" = int8, D = 3), with the rate of its
 shared-memory copies (:func:`stage_bytes`), and the streamed 48 kHz ->
-44.1 kHz q10 ("auto", D = 4, and explicit "int8", D = 3).  The variants:
+44.1 kHz q10 ("auto", D = 4, explicit "int8", D = 3, and its weights
+decomposed into D = 2 and 1 digit planes, :func:`with_digits`).  The
+variants:
 
 - ``as built``: the tiled kernel keeps a row tile's digit band resident
   and walks kGroup = 8 output tiles a CTA, each warpgroup its own tiles
   (64 rows, m64n64k32, for D <= 2 and for D = 3 with 16-byte x copies;
   else 32 rows of every tile) through its own ring of kRing = 4 x stages
-  (3 ahead); the streamed kernel copies 3 stages ahead (a ring of 5), 32
-  rows a warpgroup; 64-lane CTAs, one walk for all D digits;
+  (3 ahead); the streamed kernel copies 3 stages ahead (a ring of 5),
+  its warpgroups split an even D's digit planes (all 64 rows each), an
+  odd D's rows (32 each); 64-lane CTAs, one walk for all D digits;
 - ``G 1`` / ``G 2`` / ``G 4``: = as built, kGroup output tiles a tiled
   CTA (G 1 copies the band once per tile, as the streamed kernel does);
 - ``ring 3`` / ``ring 8``: = as built, kRing x stage buffers a warpgroup
   (2 or 7 stages ahead);
+- ``row split``: = as built, the streamed kernel's two warpgroups taking
+  the tile's two 32-row halves at every D (m64n32k32, 2*D accumulators
+  of 16 registers), where as built they split an even D's digit planes
+  (m64n64k32 over all 64 rows, D accumulators of 32; ``digit_split``);
 - ``32 rows a warpgroup``: = as built, every D at 32 rows of every tile a
   warpgroup (m64n32k32), each warpgroup copying the x it reads;
 - ``lead 2``: = as built, the streamed kernel's copies 2 stages ahead (a
   ring of 4);
-- timing only (they do not compute the function): ``wgmmas doubled``,
+- timing only (they do not compute the function): ``no epilogue`` and
+  ``row split, no epilogue`` (the streamed kernel's walk alone, each
+  split), ``wgmmas doubled``,
   ``one wgmma a slice`` (of 2*D), ``no ldmatrix``, ``no x copies``
   (after the first kRing stages), ``no band copy``, ``one epilogue a
   warpgroup`` and ``no global stores``, each one part of the resident
@@ -39,9 +48,11 @@ shared-memory copies (:func:`stage_bytes`), and the streamed 48 kHz ->
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
 too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
-``build/``): one whose tiled int8 kernel runs on the CUDA cores (planes
-int8[D, P, K, R] in tap order, no band span; PR 8 and earlier) and whose
-streamed int8 kernel takes K-major planes (PR 7 and later).  Both are
+``build/``): one whose streamed int8 kernel takes K-major planes and
+whose tiled int8 kernel runs on the CUDA cores (planes int8[D, P, K, R]
+in tap order, no band span) or is the resident one (K-major planes and
+the band span, as this checkout's; told apart by its
+``tiled_fir_int8_max_slices`` entry point).  Both are
 timed at the same launches and every variant is held against them: all
 take exact integer sums and the same f32 epilogue, so 0 outputs may
 differ.
@@ -54,6 +65,7 @@ from __future__ import annotations
 
 import argparse
 import ctypes
+import dataclasses
 import math
 import shutil
 import subprocess
@@ -69,6 +81,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
 from speex_resampler_tpu_torch.ops import filter_design as fd  # noqa: E402
+from speex_resampler_tpu_torch.ops import streamed_fir as sf  # noqa: E402
 from speex_resampler_tpu_torch.ops import tiled_fir as tf  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 from tools import _variants  # noqa: E402
@@ -78,6 +91,17 @@ _G = "constexpr int kGroup = 8;"
 _RING = "constexpr int kRing = 4;"
 _MMA = ("          mma(acc[2 * d], xh[j], b, slice > 0);\n"
         "          mma(acc[2 * d + 1], xl[j], b, slice > 0);\n")
+_DIGITS = "  return digits % 2 == 0;"
+_EPI = ("  if constexpr (kDigits)\n"
+        "    store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, bias, "
+        "scales,\n"
+        "                          stage_at(1), ring);\n"
+        "  else\n"
+        "    store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, "
+        "acc, bias,\n"
+        "                             0, scales, ring);\n")
+_NO_EPI = ('  asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: '
+           '"memory");\n')
 #: name -> (edits of the header, edits of other sources, the geometries
 #: whose launches it is timed at, computes the function)
 VARIANTS = {
@@ -91,6 +115,7 @@ VARIANTS = {
         {"return kD <= 2 || (kD == 3 && kVec) ? kRowTile : kN;":
          "return kN;"}, {}, ("tiled",), True),
     "lead 2": ({"kLead = 3;": "kLead = 2;"}, {}, ("streamed",), True),
+    "row split": ({_DIGITS: "  return false;"}, {}, ("streamed",), True),
     # timing only: one part of the resident kernel's work doubled or
     # dropped
     "wgmmas doubled": (
@@ -115,15 +140,21 @@ VARIANTS = {
         {"    store_tile<kD, kWgN, false>(": "    if (it == n_mine - 1)\n"
                                             "      store_tile<kD, kWgN, false>("},
         {}, ("tiled",), False),
+    "no epilogue": ({_EPI: _NO_EPI}, {}, ("streamed",), False),
+    "row split, no epilogue": ({_EPI: _NO_EPI, _DIGITS: "  return false;"},
+                               {}, ("streamed",), False),
     "no global stores": (
         {"    if (rt * kRowTile + row >= g.R || lane >= g.B) continue;":
          "    if (rt * kRowTile + row >= g.R || lane >= g.B || !kCta) "
          "continue;"}, {}, ("tiled",), False),
 }
-#: (in, out, quality, target frames, scheme)
-LAUNCHES = [(44100, 48000, 7, 9408, "auto"),
-            (48000, 44100, 10, 20480, "auto"),
-            (48000, 44100, 10, 20480, "int8")]
+#: (in, out, quality, target frames, scheme, digit planes: None for the
+#: scheme's own)
+LAUNCHES = [(44100, 48000, 7, 9408, "auto", None),
+            (48000, 44100, 10, 20480, "auto", None),
+            (48000, 44100, 10, 20480, "int8", None),
+            (48000, 44100, 10, 20480, "int8", 2),
+            (48000, 44100, 10, 20480, "int8", 1)]
 CHECK_LANES = (cs.LANES, 130, 129, 64)
 #: the parent's int8 entry points (hist, x, y, [offsets,] taps, planes,
 #: bias, D, s0..s3, geometry ..., stream)
@@ -162,6 +193,19 @@ def stage_bytes(step, B: int = cs.LANES, group: int = 8) -> tuple:
     return slices.size * groups, band + x
 
 
+def with_digits(step, spec, f0: int, D: int):
+    """A streamed int8 step with its weights decomposed into D digit
+    planes (``tiled_fir.int8_weights(digits=D)`` of the K_pad-padded
+    phase-tiled weights, as the step builds its own)."""
+    ptw = tb._tiled_weights(spec, f0)
+    K_pad = step.w[0].shape[-1]
+    w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+    planes, bias, scales, _ = tf.int8_weights(w_np, digits=D)
+    w = sf.device_weights_streamed((planes, bias), "int8", step.w[0].device)
+    return dataclasses.replace(step, w=w,
+                               kernel_kw={**step.kernel_kw, "scales": scales})
+
+
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
     types of its int8 entry points."""
@@ -170,22 +214,32 @@ def parent_library(csrc: Path):
     _build.use_csrc(csrc)
     _build.compile_library(out)
     lib = ctypes.CDLL(str(out))
-    for name, (restype, argtypes) in _PARENT_SIGNATURES.items():
+    # a parent with the resident tiled kernel takes its entry point's band
+    # span and the K-major planes, as this checkout's does
+    resident = hasattr(lib, "tiled_fir_int8_max_slices")
+    sigs = {**_PARENT_SIGNATURES,
+            **({"tiled_fir_int8": _build._SIGNATURES["tiled_fir_int8"]}
+               if resident else {})}
+    for name, (restype, argtypes) in sigs.items():
         getattr(lib, name).restype = restype
         getattr(lib, name).argtypes = argtypes
+    lib.resident_int8 = resident
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _int8))
     return lib
 
 
 def parent_launch(lib, hist, x, step):
     """The parent's int8 kernel on one launch (tiled: the CUDA-core kernel
-    on the planes back in tap order, [D, P, K_pad, R]; streamed: the
-    K-major planes as they are): a function that launches it on the
-    current stream, and its output."""
+    on the planes back in tap order, [D, P, K_pad, R], or the resident
+    kernel on the K-major planes and the band span; streamed: the K-major
+    planes as they are): a function that launches it on the current
+    stream, and its output."""
     kw = step.kernel_kw
     planes, bias, taps = step.w[0], step.w[1], step.w[-1]
     D, P, R, K = planes.shape
-    if step.kernel == "tiled":
+    resident = step.kernel == "tiled" and lib.resident_int8
+    span = (step.w[2],) if resident else ()
+    if step.kernel == "tiled" and not resident:
         planes = tf.int8_n_major(planes)
     s = tuple(kw["scales"]) + (0.0,) * (4 - D)
     H, B = hist.shape
@@ -198,8 +252,8 @@ def parent_launch(lib, hist, x, step):
             err = lib.tiled_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(),
                 kw["offsets"].data_ptr(), taps.data_ptr(), planes.data_ptr(),
-                bias.data_ptr(), D, *s, H, x.shape[0], B, R, K, P, kw["S"],
-                kw["n_blocks"], stream)
+                bias.data_ptr(), D, *s, *span, H, x.shape[0], B, R, K, P,
+                kw["S"], kw["n_blocks"], stream)
         else:
             err = lib.streamed_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
@@ -228,7 +282,7 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     cases = []
-    for i, o, q, target, scheme in LAUNCHES:
+    for i, o, q, target, scheme, digits in LAUNCHES:
         g = math.gcd(i, o)
         spec = fd.design_filter(i // g, o // g, q)
         flush = (cs.FLAGSHIP if i == 44100 else cs.SLICE).f0_flush
@@ -237,6 +291,8 @@ def main() -> None:
             step = tb.make_batched_step(spec, bspec, device="cuda",
                                         scheme=scheme)
             assert step.scheme == "int8"
+            if digits is not None:
+                step = with_digits(step, spec, f0, digits)
             inputs = [cs.card_inputs(step, bspec.in_per_launch, B,
                                      seed=B + f0, edges=True)
                       for B in CHECK_LANES]
