@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``speex_resampler_tpu_torch/csrc`` (one
 nvcc per source, in parallel) and drives the serving paths of
 ``BatchedResampler``, 1024 stereo streams (B = 2048 lanes) each:
 
-- the tiled path, 44.1 kHz -> 48 kHz q7 (``csrc/tiled_fir.cu``);
+- the tiled path, 44.1 kHz -> 48 kHz q7 ("auto" = int8 on the resident
+  kernel of ``csrc/tiled_fir.cu``, "highest" on ``csrc/streamed_fir.cu``,
+  the one launcher of both phase-tiled geometries);
 - the streamed path, 48 kHz -> 44.1 kHz q10 (``csrc/streamed_fir.cu``),
   with "auto" (int8), "highest" and an explicit "split5";
 - the same two in the fixed-point (Q15) universe (``fixed_point=True``,
@@ -19,15 +21,16 @@ nvcc per source, in parallel) and drives the serving paths of
   the dense kernel;
 - clock drift, 44100 Hz -> 44101 Hz q7: the gather geometry, float and
   fixed (``csrc/gather_fir.cu``), served in its band form (the FP64 and
-  int8 tensor-core kernels); both forms, band and rows, are checked and
-  timed at its launch; and the steep gather decimation 96 kHz -> 401 Hz
-  q3, float and fixed, whose band is too wide to be resident: served in
-  its stream form (the band streamed through shared memory, the same two
-  tensor-core products), its rows form (a chunk's rows staged in pieces)
-  checked and timed beside it; the fixed stream kernel also forced at the
-  drift launch with the wrap lanes;
-- 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled kernel's
-  split5 scheme); the f32 kernel is checked and timed at the same launch;
+  int8 tensor-core kernels); the float one's rows form is also checked
+  and timed at its launch; and the steep gather decimation 96 kHz -> 401
+  Hz q3, float and fixed, whose band is too wide to be resident: served
+  in its stream form (the band streamed through shared memory, the same
+  two tensor-core products), the float rows form (a chunk's rows staged
+  in pieces) checked and timed beside it; the fixed stream kernel also
+  forced at the drift launch with the wrap lanes;
+- 96 kHz -> 8 kHz q10, where "auto" resolves split5 (the tiled
+  geometry's split5 launch); the f32 kernel is checked and timed at the
+  same launch;
 - the serving runtime: ``FleetResampler`` at the flagship (1024 stereo
   streams, 9408-frame quanta), float (the int8 kernel) and fixed, through
   the native C++ stager, pinned slabs and the copy/compute pipeline;
@@ -192,15 +195,16 @@ from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
 from speex_resampler_tpu_torch.probes import (
-    batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
-    mosaic_int_dot_bench as pid, prec_bench as ppb, tc_rate as ptr,
-    v3_bench as pv3b, v3_overhead_anatomy as pv3, v4_k_layout as pkl,
-    v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
-from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, MODULES,
+    served_tiled, batched_dot as pbd, fixed_interp_anatomy as pfa,
+    kernel_anatomy as pka, mosaic_int_dot_bench as pid, prec_bench as ppb,
+    tc_rate as ptr, v3_bench as pv3b, v3_overhead_anatomy as pv3,
+    v4_k_layout as pkl, v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
+from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, COUNTERS,
                                                       kernel_name,
                                                       launch_counts,
                                                       n_accum_of,
-                                                      reset_launches)
+                                                      reset_launches,
+                                                      step_kernel)
 from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 
 # block origins and the fixed kernels' wrap input, shared with the tests
@@ -208,22 +212,24 @@ from speex_resampler_tpu_torch.utils.profiling import LaunchStats
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
                                 "tests"))
 import fixed_inputs  # noqa: E402
+from perfbench import tracing  # noqa: E402
 
 STREAMS, CHANNELS = 1024, 2
 LANES = STREAMS * CHANNELS
 
 
 class Path:
-    """One serving path: its config, its kernel module and its schedule
-    (ragged process() calls, flush, one more process() call)."""
+    """One serving path: its config, the TPU code its kernels replace and
+    its schedule (ragged process() calls, flush, one more process()
+    call)."""
 
     def __init__(self, name, rates, reduced, quality, target, frames, after,
-                 module, source, replaces, kernel, fixed=False,
-                 flush_moves_f0=True, max_latency_ms=None, wrap=None):
+                 replaces, kernel, fixed=False, flush_moves_f0=True,
+                 max_latency_ms=None, wrap=None):
         self.name, self.rates, self.quality = name, rates, quality
         self.num, self.den = reduced
         self.target, self.frames, self.after = target, frames, after
-        self.module, self.source, self.replaces = module, source, replaces
+        self.replaces = replaces
         self.kernel = kernel          # BatchSpec.kernel of the path
         self.fixed = fixed            # the Q15 universe (fixed_point=True)
         # the wrap input in the kernel checks (fixed; a filter whose taps
@@ -269,9 +275,12 @@ def gather_kw(step, form: str | None = None) -> dict:
     if key not in _FORCED:
         taps, starts = step.w[0], step.w[1].cpu().numpy()
         n_accum = n_accum_of(step) if step.scheme == "fixed" else None
-        planner = {"band": fm.gather_plan_band, "rows": fm.gather_plan_rows,
-                   "stream": fm.gather_plan_stream}[form]
-        plan = planner(starts, taps.shape[-1], n_accum=n_accum)
+        if form == "rows":      # float only
+            plan = fm.gather_plan_rows(starts, taps.shape[-1])
+        else:
+            planner = {"band": fm.gather_plan_band,
+                       "stream": fm.gather_plan_stream}[form]
+            plan = planner(starts, taps.shape[-1], n_accum=n_accum)
         _FORCED[key] = (step, dict(plan=plan, band=fm.gather_band(
             taps, starts, plan) if form != "rows" else None))
     return dict(_FORCED[key][1])
@@ -279,12 +288,12 @@ def gather_kw(step, form: str | None = None) -> dict:
 
 def gather_forms(step) -> tuple:
     """The forms a gather step's launch is checked and timed in: the band
-    form where its band fits a CTA, else the stream form; and the rows
-    form."""
+    form where its band fits a CTA, else the stream form; and the float
+    one's rows form."""
     n_accum = n_accum_of(step) if step.scheme == "fixed" else None
     fits = fm.gather_plan_band(step.w[1].cpu().numpy(), step.w[0].shape[-1],
                                n_accum=n_accum) is not None
-    return ("band" if fits else "stream", "rows")
+    return ("band" if fits else "stream",) + (() if n_accum else ("rows",))
 
 
 def kernel_key(step, form: str | None = None) -> tuple:
@@ -313,13 +322,18 @@ def kernel_call(hist, x, step, reference: bool = False,
                   else fm.resample_gather_reference)
             kw, X = {}, torch.cat([hist, x[:step.chunk_rows]]).t()
         return lambda: fn(X, *step.w, **kw)
-    fn = {"tiled": (tf.resample_tiled, tf.resample_tiled_reference),
-          "streamed": (sf.resample_streamed, sf.resample_streamed_reference),
+    phase = (sf.resample_streamed, sf.resample_streamed_reference)
+    fn = {"tiled": phase, "streamed": phase,
           "dense": ((df.resample_dense_fixed,
                      df.resample_dense_fixed_reference) if fixed else
                     (df.resample_dense, df.resample_dense_reference))
           }[step.kernel][reference]
     return lambda: fn(hist, x, step.w, **step.kernel_kw)
+
+
+def source_of(name: str) -> str:
+    """The source file that defines the kernel ``name``."""
+    return f"speex_resampler_tpu_torch/csrc/{name.split('_fir')[0]}_fir.cu"
 
 
 def launch(hist, x, step, form: str | None = None):
@@ -334,45 +348,38 @@ def plain(hist, x, step):
 
 # 9408-frame quanta: 41000 frames = 4 launches + 3368 staged (f0 -> 147)
 FLAGSHIP = Path("tiled 44.1k->48k q7", (44100, 48000), (147, 160), 7, 9408,
-                (12000, 9000, 20000), (10000,), tf,
-                "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                (12000, 9000, 20000), (10000,),
                 "speex_resampler_tpu/ops/pallas_fir.py:341", "tiled")
 # 20480-frame quanta: 45000 frames = 2 launches + 4040 staged (f0 -> 40)
 SLICE = Path("streamed 48k->44.1k q10", (48000, 44100), (160, 147), 10,
-             20480, (25000, 7000, 13000), (22000,), sf,
-             "speex_resampler_tpu_torch/csrc/streamed_fir.cu",
+             20480, (25000, 7000, 13000), (22000,),
              "speex_resampler_tpu/ops/pallas_fir.py:594", "streamed")
 # the same two schedules in the fixed universe (n_accum 4)
 FIXED_FLAGSHIP = Path("tiled fixed 44.1k->48k q7", (44100, 48000),
                       (147, 160), 7, 9408, (12000, 9000, 20000), (10000,),
-                      tf, "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
                       "speex_resampler_tpu/ops/pallas_fir.py:404", "tiled",
                       fixed=True)
 FIXED_SLICE = Path("streamed fixed 48k->44.1k q10", (48000, 44100),
                    (160, 147), 10, 20480, (25000, 7000, 13000), (22000,),
-                   sf, "speex_resampler_tpu_torch/csrc/streamed_fir.cu",
                    "speex_resampler_tpu/ops/pallas_fir.py:654", "streamed",
                    fixed=True)
 # a direct filter (n_accum 1), 5120-frame quanta: 20000 frames = 3
 # launches + 4640 staged; num 1, den 2, so every flush leaves f0 at 0
 FIXED_DIRECT = Path("tiled fixed 24k->48k q5", (24000, 48000), (1, 2), 5,
-                    4096, (6000, 5000, 9000), (5120,), tf,
-                    "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                    4096, (6000, 5000, 9000), (5120,),
                     "speex_resampler_tpu/ops/pallas_fir.py:404", "tiled",
                     fixed=True, flush_moves_f0=False)
 
 # the voip preset's engine: Q3 under a hard 20 ms cap (882-frame quanta,
 # the dense geometry); 4200 frames = 4 launches + 672 staged (f0 -> 84)
 VOIP = Path("dense voip 44.1k->48k q3 20 ms", (44100, 48000), (147, 160), 3,
-            882, (2000, 1500, 700), (1764,), df,
-            "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+            882, (2000, 1500, 700), (1764,),
             "speex_resampler_tpu/ops/pallas_fir.py:198", "dense",
             max_latency_ms=20)
 # the JAX package runs the fixed dense and the gather launches as XLA
 # programs outside Pallas (speex_resampler_tpu/ops/fir_matmul.py)
 VOIP_FIXED = Path("dense fixed voip 44.1k->48k q3 20 ms", (44100, 48000),
-                  (147, 160), 3, 882, (2000, 1500, 700), (1764,), df,
-                  "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+                  (147, 160), 3, 882, (2000, 1500, 700), (1764,),
                   "speex_resampler_tpu/ops/fir_matmul.py:224", "dense",
                   fixed=True, max_latency_ms=20)
 # wideband voip from 48 kHz capture: a direct filter (n_accum 1) under a
@@ -381,19 +388,16 @@ VOIP_FIXED = Path("dense fixed voip 44.1k->48k q3 20 ms", (44100, 48000),
 # flush leaves f0 at 0
 VOIP_FIXED_DIRECT = Path("dense fixed voip 48k->16k q3 20 ms",
                          (48000, 16000), (3, 1), 3, 882, (2000, 1500, 700),
-                         (1728,), df,
-                         "speex_resampler_tpu_torch/csrc/dense_fir.cu",
+                         (1728,),
                          "speex_resampler_tpu/ops/fir_matmul.py:224", "dense",
                          fixed=True, flush_moves_f0=False, max_latency_ms=20)
 # clock drift: one 44100-frame block per launch; 90000 frames = 2
 # launches + 1800 staged
 DRIFT = Path("gather 44.1k->44.101k q7", (44100, 44101), (44100, 44101), 7,
-             44100, (30000, 20000, 40000), (44100,), fm,
-             "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+             44100, (30000, 20000, 40000), (44100,),
              "speex_resampler_tpu/ops/fir_matmul.py:120", "gather")
 DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
                    (44100, 44101), 7, 44100, (30000, 20000, 40000), (44100,),
-                   fm, "speex_resampler_tpu_torch/csrc/gather_fir.cu",
                    "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
                    fixed=True)
 # a steep gather decimation (N 11496, outputs 239.4 rows apart): its band
@@ -402,19 +406,16 @@ DRIFT_FIXED = Path("gather fixed 44.1k->44.101k q7", (44100, 44101),
 # launches + 18000 staged (f0 -> 206).  Its small taps cannot drive a
 # fixed sum past 2^31.
 STEEP = Path("gather 96k->401 q3", (96000, 401), (96000, 401), 3, 44100,
-             (100000, 60000, 50000), (96000,), fm,
-             "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+             (100000, 60000, 50000), (96000,),
              "speex_resampler_tpu/ops/fir_matmul.py:120", "gather")
 STEEP_FIXED = Path("gather fixed 96k->401 q3", (96000, 401), (96000, 401), 3,
-                   44100, (100000, 60000, 50000), (96000,), fm,
-                   "speex_resampler_tpu_torch/csrc/gather_fir.cu",
+                   44100, (100000, 60000, 50000), (96000,),
                    "speex_resampler_tpu/ops/fir_matmul.py:270", "gather",
                    fixed=True, wrap=False)
 # 12:1 decimation at q10, where "auto" resolves split5 (filt_len 3072, K
 # 4600, P 1); 30720-frame quanta: 73000 frames = 2 launches + 11560 staged
 DECIMATE = Path("tiled 96k->8k q10", (96000, 8000), (12, 1), 10, 30720,
-                (40000, 25000, 8000), (30720,), tf,
-                "speex_resampler_tpu_torch/csrc/tiled_fir.cu",
+                (40000, 25000, 8000), (30720,),
                 "speex_resampler_tpu/ops/pallas_fir.py:416", "tiled",
                 flush_moves_f0=False)
 
@@ -920,14 +921,14 @@ def gmma_counts(lib) -> dict:
     return counts
 
 
-#: the IGMMA counts of the served int8 and fixed kernels (K1b, K2b, K2b's
-#: tile under the tiled long launch, K2d): K2b's digit split issues 4
-#: m64n64k32 a K-slice a warpgroup at D = 4 (8 of m64n32k32 before), two
-#: K-slices a stage
+#: the IGMMA counts of the served int8 and fixed kernels (K1b; K2b and
+#: K2d, lane tiles fastest; K2d's instance with (block, row tile) fastest,
+#: K1e's): K2b's digit split issues 4 m64n64k32 a K-slice a warpgroup at
+#: D = 4 (8 of m64n32k32 before), two K-slices a stage
 IGMMA_PINNED = {"tiled_fir_int8_kernel<3, true>": 12,
-                "streamed_fir_int8_kernel<4, true>": 8,
-                "tiled_fir_int8_long_kernel<4>": 8,
-                "streamed_fir_fixed_kernel<4>": 8}
+                "streamed_fir_int8_kernel<4, true, false>": 8,
+                "streamed_fir_fixed_kernel<4, false>": 8,
+                "streamed_fir_fixed_kernel<4, true>": 8}
 
 
 def sass_check() -> None:
@@ -939,16 +940,15 @@ def sass_check() -> None:
     gather kernels; raises if one of them has none, or if a kernel of
     :data:`IGMMA_PINNED` has another IGMMA count."""
     counts = gmma_counts(_build.lib_path())
-    want = [("tiled_fir_split5_kernel", "HGMMA"),
-            ("streamed_fir_split5_kernel", "HGMMA")] + [
-        (f"{name}<{d}{arg}>", "IGMMA") for d in (1, 2, 3, 4)
-        for name, arg in (("tiled_fir_int8_kernel", ", true"),
-                          ("tiled_fir_int8_kernel", ", false"),
-                          ("tiled_fir_int8_long_kernel", ""),
-                          ("streamed_fir_int8_kernel",
-                           ", true" if d % 2 == 0 else ", false"))] + [
-        (f"{geo}_fir_fixed_kernel<{n}>", "IGMMA")
-        for geo in ("tiled", "streamed", "dense") for n in (1, 4)] + [
+    order = ("false", "true")      # the CTA order: (block, row tile) fastest
+    want = [(f"streamed_fir_split5_kernel<{b}>", "HGMMA") for b in order] + [
+        (f"tiled_fir_int8_kernel<{d}, {v}>", "IGMMA") for d in (1, 2, 3, 4)
+        for v in ("true", "false")] + [
+        (f"streamed_fir_int8_kernel<{d}, {str(d % 2 == 0).lower()}, {b}>",
+         "IGMMA") for d in (1, 2, 3, 4) for b in order] + [
+        (f"streamed_fir_fixed_kernel<{n}, {b}>", "IGMMA") for n in (1, 4)
+        for b in order] + [
+        (f"dense_fir_fixed_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
         (f"gather_fir_f32_kernel<{t}, {k}>", "DFMA")
         for t in ("short", "float") for k in (1, 2, 4, 8)] + [
         (f"gather_fir_fixed_band_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
@@ -1045,7 +1045,7 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
     """The path end to end, one engine per requested scheme (``requests``:
     request -> the scheme it must resolve), launch counts set to 0 just
     before and read just after (the path's kernel once per engine launch,
-    no other module's kernel), its step's tensors on the card; streams 0-3
+    no other launcher's kernel), its step's tensors on the card; streams 0-3
     against a CPU engine.  Returns (counts, engines by resolved scheme,
     frames)."""
     rng = np.random.default_rng(2024)
@@ -1062,11 +1062,12 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
             raise AssertionError(f"{path.name}: {request} built "
                                  f"{eng._step.kernel}/{eng._step.scheme}")
         engines[scheme] = eng
-    counts = dict(path.module.launches)
-    for kind, module in MODULES.items():
-        if module is not path.module and any(module.launches.values()):
+    launcher = step_kernel(next(iter(engines.values()))._step)[0][0]
+    counts = dict(COUNTERS[launcher].launches)
+    for kind, module in COUNTERS.items():
+        if kind != launcher and any(module.launches.values()):
             raise AssertionError(f"{path.name} launched {module.launches} "
-                                 f"of the {kind} geometry's kernels")
+                                 f"of the {kind} launcher's kernels")
     if not all(t.is_cuda for e in engines.values() for t in e._step.w
                if isinstance(t, torch.Tensor)):
         raise AssertionError(f"{path.name}: step tensors off the card")
@@ -1075,10 +1076,10 @@ def serve(path: Path, requests: dict, want_digits: int = 0):
         raise AssertionError(f"auto resolved int8 D="
                              f"{engines['int8']._step.w[0].shape[0]}")
     n = len(path.frames)
-    # a gather's launches in the form its engine's step was built with
-    launched = {(fm.launch_key(s, e._step.kernel_kw["plan"].form)
-                 if path.kernel == "gather" else s): e.launches
-                for s, e in engines.items()}
+    # under each step's launch key (a gather's, the form its step was
+    # built with)
+    launched = {step_kernel(e._step)[0][1]: e.launches
+                for e in engines.values()}
     if any(counts[s] != launched.get(s, 0) for s in counts) \
             or not any(counts.values()) or min(launched.values()) < n:
         raise AssertionError(f"kernel launches {counts} vs engines "
@@ -1219,10 +1220,11 @@ def time_path(path: Path, schemes, smi: str, counts: dict, max_err: dict,
             if scheme in unlisted:
                 continue
             n = counts[fm.launch_key(step.scheme, form) if form
-                       else step.scheme]
+                       else step_kernel(step)[0][1]]
             entries.append({
                 "name": kernel_name(*key), "route": "cuda",
-                "source": path.source,
+                "geometry": step.kernel,
+                "source": source_of(kernel_name(*key)),
                 "replaces": REPLACES.get(key[:2], path.replaces),
                 "launches": n, "max_abs_err": max_err[key], **nums})
     if "split5" in ms and "highest" in ms:
@@ -1300,11 +1302,12 @@ def fleet_check(fixed: bool) -> None:
     outs = [f.pull(s) for s in range(STREAMS)]
     torch.cuda.synchronize()
     t_serve = time.perf_counter() - t0
-    counts = {k: dict(m.launches) for k, m in MODULES.items()}
+    (launcher, key), kernel = step_kernel(f._step)
+    counts = {k: dict(m.launches) for k, m in COUNTERS.items()}
     launched = f.stats.launches
-    if ran != 2 or counts["tiled"][name] != launched or launched != 3 \
+    if ran != 2 or counts[launcher][key] != launched or launched != 3 \
             or any(v for k, m in counts.items() for sch, v in m.items()
-                   if (k, sch) != ("tiled", name)):
+                   if (k, sch) != (launcher, key)):
         raise AssertionError(f"fleet {name}: {ran} polled, {launched} "
                              f"launches, kernel counts {counts}")
     if f.degraded:
@@ -1323,31 +1326,10 @@ def fleet_check(fixed: bool) -> None:
         compare(outs[s], want, name, f"fleet {name} stream {s}")
     print(f"fleet {name}: {STREAMS} streams x {CHANNELS}, stager "
           f"{f.stager_kind}, slabs pinned {pinned}, {launched} launches = "
-          f"kernel launches {counts['tiled'][name]} "
-          f"({kernel_name('tiled', name, f._step.kernel_kw['n_accum'])}), "
+          f"kernel launches {counts[launcher][key]} ({kernel}), "
           f"degraded {f.degraded}; streams {FLEET_CHECKED} bit-identical "
           f"with the cpu fleet; pushes {t_push:.2f} s, poll+flush+pull "
           f"{t_serve:.2f} s (first launches: build of the step included)")
-
-
-def device_busy_ms(prof) -> float | None:
-    """The union of the device's kernel and copy intervals in a
-    ``torch.profiler`` trace, in ms; None where the trace has none."""
-    spans = []
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            spans.append((e.time_range.start, e.time_range.end))
-    if not spans:
-        return None
-    busy, end = 0.0, None
-    for a, b in sorted(spans):
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
-    return busy / 1e3
 
 
 def fleet_time(fixed: bool, depth: int, smi: str, n: int = 8) -> None:
@@ -1395,10 +1377,12 @@ def fleet_time(fixed: bool, depth: int, smi: str, n: int = 8) -> None:
         f.poll()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    busy = device_busy_ms(prof)
-    share = ("not measured (no device events in the trace)" if busy is None
-             else f"{busy:.2f} ms busy of {wall:.2f} ms = "
-                  f"{busy / wall:.3f} busy, {1 - busy / wall:.3f} idle")
+    view = tracing.view(prof, 4, None, None)
+    busy = view.busy_s * 1e3
+    share = ("not measured (no device events in the trace)"
+             if not view.device else
+             f"{busy:.2f} ms busy of {wall:.2f} ms = "
+             f"{busy / wall:.3f} busy, {1 - busy / wall:.3f} idle")
     print(f"  device under the profiler, 4 launches: {share}")
 
 
@@ -1473,8 +1457,8 @@ def single_stream_check(seconds: float = SINGLE_SECONDS) -> None:
     fixed universe (bit-exact against device="cpu") and the TF32 guard.
     The matmul route is plain torch on the card; the gather route launches
     the gather kernel (counted, at least once; its rows form, its x an f32
-    [channels, T] array read by element); no other kernel of MODULES
-    launches.  Returns the gather launches."""
+    [channels, T] array read by element); no other kernel of
+    ``utils.launches.COUNTERS`` launches.  Returns the gather launches."""
     reset_launches()
     gathers = 0
     for i, (c, ir, orr, q) in enumerate(SINGLE):
@@ -1686,27 +1670,25 @@ def multifleet_check(fixed: bool, smi: str, per: int = STREAMS // 4,
                for i in (0, 1, 2, 3, per - 1)} | {"b0s4", "b0s5", "fresh"}
     reset_launches()
     mf, outs, ref_outs = multifleet_run(fixed, per, smi, rounds, checked)
-    counts = {k: dict(m.launches) for k, m in MODULES.items()}
+    counts = {k: dict(m.launches) for k, m in COUNTERS.items()}
     if mf.degraded or any(mf.degraded_buckets().values()):
         raise AssertionError(f"multifleet degraded: {mf.degraded_buckets()}")
     by_kernel: dict = {}
-    by_scheme: dict = {}
+    by_key: dict = {}
     for cfg, b in mf._buckets.items():
         fleet, step = b.fleet, b.fleet._step
-        key = (fleet.bspec.kernel, step.scheme,
-               n_accum_of(step))
+        key, name = step_kernel(step)
         n = fleet.stats.launches
         if n <= 0:
             raise AssertionError(f"bucket {cfg}: no launch")
-        by_kernel[kernel_name(*key)] = by_kernel.get(kernel_name(*key),
-                                                     0) + n
-        by_scheme[key[:2]] = by_scheme.get(key[:2], 0) + n
+        by_kernel[name] = by_kernel.get(name, 0) + n
+        by_key[key] = by_key.get(key, 0) + n
         print(f"  bucket {cfg}: {fleet.bspec.kernel} {step.scheme} -> "
-              f"{kernel_name(*key)}, quantum {fleet.bspec.in_per_launch} "
+              f"{name}, quantum {fleet.bspec.in_per_launch} "
               f"frames, {n} launches, degraded {fleet.degraded}")
     ran = {(k, s): n for k, m in counts.items() for s, n in m.items() if n}
-    if ran != by_scheme:
-        raise AssertionError(f"kernel launches {ran} vs buckets {by_scheme}")
+    if ran != by_key:
+        raise AssertionError(f"kernel launches {ran} vs buckets {by_key}")
     scheme = "fixed" if fixed else "int8"
     for sid in sorted(checked):
         got, want = (np.concatenate(o[sid]) for o in (outs, ref_outs))
@@ -1756,6 +1738,14 @@ def lanes(frames: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(frames.transpose(1, 0, 2).reshape(n, S * C))
 
 
+def fn_launch_key(kind) -> tuple:
+    """(launcher, launch key) of an FN_CASES step's kernel, as
+    ``utils.launches.step_kernel`` gives them: the flagship's int8 step
+    takes the resident kernel."""
+    return ("streamed", "int8_resident" if kind == ("tiled", "int8")
+            else kind[1])
+
+
 def functional_check(name, rates, target, fixed, kind) -> tuple:
     """Eager step against the CUDA engine and a CPU step; then the step
     plus the feature stage in one CUDA graph against the eager stage.
@@ -1773,7 +1763,8 @@ def functional_check(name, rates, target, fixed, kind) -> tuple:
         ys.append(y)
     torch.cuda.synchronize()
     eager = launch_counts()
-    if eager != {kind[0]: {kind[1]: FN_QUANTA}}:
+    launcher, key = fn_launch_key(kind)
+    if eager != {launcher: {key: FN_QUANTA}}:
         raise AssertionError(f"{name}: eager launches {eager}")
     eng = BatchedResampler(STREAMS, CHANNELS, *rates,
                            target_chunk_frames=target, fixed_point=fixed)
@@ -1803,7 +1794,7 @@ def functional_check(name, rates, target, fixed, kind) -> tuple:
 
     captured = graph_equals_eager(f"functional {name} step + window "
                                   f"energies", stage, inputs)
-    if captured != {kind[0]: {kind[1]: 1}}:
+    if captured != {launcher: {key: 1}}:
         raise AssertionError(f"{name}: launches at capture {captured}")
     print(f"functional {name}: {rs.in_frames} -> {rs.out_frames} frames a "
           f"quantum, {kernel_name(kind[0], kind[1], 4 if fixed else 1)}; "
@@ -1811,7 +1802,7 @@ def functional_check(name, rates, target, fixed, kind) -> tuple:
           f"{FN_QUANTA} quanta (lanes {FN_LANES[:8]}..{FN_LANES[-1]} with "
           f"the cpu step), launches {eager}; in one CUDA graph: launches "
           f"{captured} at capture, none at replay")
-    return rs, eager[kind[0]][kind[1]] + 1
+    return rs, eager[launcher][key] + 1
 
 
 def graph_equals_eager(name: str, run, inputs: list) -> dict:
@@ -1984,8 +1975,9 @@ def mesh_check(smi: str) -> None:
             eng, got, mcounts = mesh_serve(mesh, fixed, frames)
             for i, (g, w) in enumerate(zip(got, want)):
                 compare(g, w, scheme, f"mesh {mesh} {scheme} call {i}")
+            launcher, key = step_kernel(base._step)[0]
             if eng.launches != len(mesh) * base.launches or mcounts != {
-                    "tiled": {scheme: eng.launches}} or eng.degraded:
+                    launcher: {key: eng.launches}} or eng.degraded:
                 raise AssertionError(
                     f"mesh {mesh}: {eng.launches} launches (unmeshed "
                     f"{base.launches}), kernel counts {mcounts}, degraded "
@@ -2300,8 +2292,8 @@ def probe_check_p9_p12(errs: dict) -> None:
                                 f"v5_bench {scheme} B {B}")
             print(f"probe check v5_bench {scheme} [80 x 128, {B}]: max |err| "
                   f"{err}, {mism} ties {ties(mism, got.numel())}")
-            exact_check(got, tf.resample_tiled(x.new_zeros((0, B)), x, w,
-                                               scheme=scheme, **kw),
+            exact_check(got, served_tiled(x.new_zeros((0, B)), x, w,
+                                          scheme=scheme, **kw),
                         f"v5_bench {scheme} B {B} against the served tiled "
                         "kernel at H = 0")
             if B == LANES:
@@ -2327,7 +2319,7 @@ def probe_check_p9_p12(errs: dict) -> None:
         hist.random_(-32768, 32768)
         x[0:g11.n_in:97], x[1:g11.n_in:89] = -32768, 32767
         want = pbd.batched_dot_reference("m-loop", hist, x, w, **kw)
-        k1a = tf.resample_tiled(hist, x, w, scheme="highest", **kw)
+        k1a = served_tiled(hist, x, w, scheme="highest", **kw)
         for form, lanes in P11_CASES:
             bl = pbd.BatchedLaunch(form, hist, x, w, lanes=lanes, **kw)
             got = bl.run()
@@ -2642,8 +2634,8 @@ def probe_time_p9_p12(smi: str, errs: dict) -> list:
     nnz = int((w[0] != 0).sum()) * pbd.N_PERIODS * LANES   # multiply-adds
     nbytes11 = ((hist.shape[0] + g11.n_in) * LANES * 2
                 + int((w[0] != 0).sum()) * 4 + n_out * LANES * 2)
-    k1a_ms = cuda_ms(lambda: tf.resample_tiled(hist, x, w, scheme="highest",
-                                               **kw), 20)
+    k1a_ms = cuda_ms(lambda: served_tiled(hist, x, w, scheme="highest",
+                                          **kw), 20)
     plain_ms = cuda_ms(lambda: pbd.batched_dot_reference(
         "batched", hist, x, w, **kw), 3)
     library_ms = cuda_ms(pbd.library_call(hist, x, w, **kw), 3)
@@ -2829,7 +2821,7 @@ def fuzz_phase() -> dict:
         k.startswith(c) for k in out["by_class"])]
     unlaunched = [k for k in fz.CLASSES if k != "core matmul" and
                   out["launches"].get(CORE_GATHER if k == "core gather"
-                                      else k, 0) == 0]
+                                      else fz.class_kernel(k), 0) == 0]
     if missing or unlaunched:
         raise AssertionError(f"fuzz classes not reached {missing}, kernels "
                              f"not launched {unlaunched}")
@@ -2940,14 +2932,6 @@ def main() -> None:
         counts, engines, frames = served[path]
         kernels += time_path(path, schemes, smi, counts, max_err, engines,
                              frames, reps=20, unlisted=unlisted)
-    # the streamed kernel with one column set: no served path launches it
-    bspec = dataclasses.replace(
-        tb._launch_geometry(FIXED_DIRECT.spec, FIXED_DIRECT.target),
-        kernel="streamed")
-    step = tb.make_batched_step(FIXED_DIRECT.spec, bspec, device="cuda")
-    time_launch(f"{FIXED_DIRECT.name} weights on the streamed kernel "
-                f"({kernel_name('streamed', 'fixed', 1)}, on no served "
-                f"path)", FIXED_DIRECT.spec, step, bspec, smi, reps=20)
     t_fleet = time.time() - t_start
     # -- phase 6: the serving runtime (FleetResampler) at the flagship
     for fixed in (False, True):

@@ -126,7 +126,7 @@ cudaError_t launch_fixed(const fir::Launch& g, int stride, int rows,
 extern "C" {
 
 // Tile size the host wrapper must honour (R_pad % row_tile == 0; the
-// table's sub-bands are f32_fir_sub_rows() rows, tiled_fir.cu).
+// table's sub-bands are f32_fir_sub_rows() rows, streamed_fir.cu).
 int dense_fir_row_tile() { return fir::kRowTile; }
 
 const char* dense_fir_error_string(int err) {

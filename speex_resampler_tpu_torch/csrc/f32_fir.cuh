@@ -1,5 +1,6 @@
 // Scheme "highest" on Hopper's CUDA cores: the device function of
-// tiled_fir_f32_kernel, streamed_fir_f32_kernel and dense_fir_f32_kernel.
+// streamed_fir_f32_kernel (both phase-tiled geometries) and
+// dense_fir_f32_kernel.
 //
 // It computes y = WORD2INT(sum_t W[t, r] * float(x[v0 + t, lane])) for the
 // CTA's 64 rows r of block k (phase m = k % P) and kLanes lanes.  Each

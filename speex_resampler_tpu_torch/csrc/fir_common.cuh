@@ -1,21 +1,21 @@
-// Device code shared by the polyphase FIR kernels (tiled_fir.cu,
-// streamed_fir.cu, dense_fir.cu): the launch and CTA tile, the cp.async
-// helpers and the epilogues' arithmetic.  Each kernel computes only where
-// its output block's patch starts on the virtual axis hist ++ x; from there
-// on its scheme's header does the rest, the same for every geometry, so
-// the kernels give the same sums in the same order.  Each scheme has its
-// own product and staging: "highest" (f32_fir.cuh, CUDA cores, every
-// output one FMA chain in tap order; the tiled, streamed and dense
-// kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores), "int8"
+// Device code shared by the polyphase FIR kernels (streamed_fir.cu,
+// tiled_fir.cu, dense_fir.cu): the launch, its closed-form origins and CTA
+// tile, the cp.async helpers and the epilogues' arithmetic.  Each kernel
+// computes only where its output block's patch starts on the virtual axis
+// hist ++ x; from there on its scheme's header does the rest, the same for
+// every geometry, so the kernels give the same sums in the same order.
+// Each scheme has its own product and staging: "highest" (f32_fir.cuh,
+// CUDA cores, every output one FMA chain in tap order; the streamed and
+// dense kernels), "split5" (split5_wgmma.cuh, bf16 tensor cores), "int8"
 // (int8_wgmma.cuh, int8 tensor cores; the streamed kernel streams the
 // digit planes with x, the tiled one keeps a row tile's planes in shared
 // memory across the output tiles that share them) and "fixed"
-// (fixed_wgmma.cuh, int8 tensor cores; tiled, streamed and dense).  The
-// gather kernels (gather_fir.cu) take only the epilogues from here.  A CTA owns
+// (fixed_wgmma.cuh, int8 tensor cores; streamed and dense).  The gather
+// kernels (gather_fir.cu) take only the epilogues from here.  A CTA owns
 // output rows of one block k (R rows, phase m = k % P) and walks only the
 // tap rows where its weight columns are nonzero (taps[m][row tile]).
-// Lanes are masked, so any B works without padding (the tiled and
-// streamed kernels' R is a multiple of kRowTile).
+// Lanes are masked, so any B works without padding (the phase-tiled
+// kernels' R is a multiple of kRowTile).
 //
 // Epilogues match the TPU kernels exactly:
 //   highest: y = sum_t W[t,r] * float(x), f32 (FMA, no TF32), then WORD2INT
@@ -142,6 +142,36 @@ __device__ __forceinline__ int16_t word2int(float v) {
   if (v < -32767.5f) r = -32768.0f;
   if (v > 32766.5f) r = 32767.0f;
   return (int16_t)__float2int_rz(r);
+}
+
+// Closed-form patch origins of one phase-tiled launch (_kernel_v4's): block
+// k's patch starts at floor16((f0 + k*R*num) / den + shift) on the virtual
+// axis, taken in 64 bits.  Where P*R*num / den = S is a multiple of 16
+// (every phase-tiled geometry), origin(k + P) = origin(k) + S.  The
+// division is a multiply-high by den's reciprocal (make_origin: libdivide's
+// branch-free unsigned 64-bit divider, exact for every 64-bit numerator):
+// a 64-bit division in each CTA's prologue cost the H100 1-3 % of a launch
+// (the short CTAs of K1d / K1e, and K2d; PERF.md, PR 26).
+struct Origin {
+  int shift, num, den, f0;
+  unsigned long long magic;  // t / den = (((t - h) >> 1) + h) >> more,
+  int more;                  // h = the high 64 bits of magic * t
+};
+
+inline Origin make_origin(int shift, int num, int den, int f0) {
+  if (den == 1) num *= 2, den = 2, f0 *= 2;  // the divider takes den >= 2
+  const int l = 63 - __builtin_clzll((unsigned long long)den);
+  if ((den & (den - 1)) == 0) return Origin{shift, num, den, f0, 0, l - 1};
+  const unsigned __int128 m = ((unsigned __int128)1 << (65 + l)) / den;
+  return Origin{shift, num, den, f0, (unsigned long long)(m + 1), l};
+}
+
+__device__ __forceinline__ int origin(const Launch& g, Origin o, int k) {
+  const unsigned long long t =
+      o.f0 + (unsigned long long)k * g.R * o.num;
+  const unsigned long long h = __umul64hi(o.magic, t);
+  const long long q = (long long)((((t - h) >> 1) + h) >> o.more);
+  return (int)((q + o.shift) / 16 * 16);
 }
 
 // Output tile (block k, row tile rt of `rows` rows, the taps table's, lane

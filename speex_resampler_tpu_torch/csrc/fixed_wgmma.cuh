@@ -1,6 +1,6 @@
 // Scheme "fixed" (the Q15 universe) on Hopper's int8 tensor cores: the
-// device function of tiled_fir_fixed_kernel<kAccum>,
-// streamed_fir_fixed_kernel<kAccum> and dense_fir_fixed_kernel<kAccum>
+// device function of streamed_fir_fixed_kernel<kAccum> (both phase-tiled
+// geometries) and dense_fir_fixed_kernel<kAccum>
 // (sm_90a only).  It takes a fir::Tile, so one body serves every geometry.
 //
 // It computes the JAX package's _dot_fixed (speex_resampler_tpu/ops/

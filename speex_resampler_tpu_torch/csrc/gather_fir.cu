@@ -27,13 +27,13 @@
 // copies neither into one buffer; the single-stream route has no hist).
 // starts[] are non-decreasing (clamped at the tail).
 //
-// Rows form (gather_fir_f32_kernel, gather_fir_fixed_kernel).  M
-// consecutive outputs read the rows starts[o0] .. starts[o0 + M - 1] + N -
-// 1: a CTA takes M outputs x 64 lanes, stages those rows (in x's own type)
-// and the M tap rows (float: as double; fixed: as int32) in shared memory
-// once, then each thread walks its outputs' dots.  M, a tap chunk KC and
-// the rows a CTA stages at once come from the host's plan so they fit
-// shared memory; taps past KC are walked in further chunks, restaged.
+// Rows form (gather_fir_f32_kernel; float only: a fixed step takes the
+// band or stream form).  M consecutive outputs read the rows starts[o0] ..
+// starts[o0 + M - 1] + N - 1: a CTA takes M outputs x 64 lanes, stages
+// those rows (in x's own type) and the M tap rows (as double) in shared
+// memory once, then each thread walks its outputs' dots.  M, a tap chunk
+// KC and the rows a CTA stages at once come from the host's plan so they
+// fit shared memory; taps past KC are walked in further chunks, restaged.
 // Where a chunk's rows (the start spread + KC) outnumber the plan's, as in
 // a steep decimation whose 8 outputs' windows lie far apart, they are
 // staged and walked a piece of `rows` at a time.  A warp holds kO
@@ -113,13 +113,10 @@
 // GB (fixed: x 1.6, planes 0.8) a launch at B = 2048, 2.7-3.2 TB/s at
 // their measured times.
 //
-// Float rows: the products are exact in double, and the dot is a double
-// FMA chain in tap order, rounded once to f32 at the end, as the plain
+// Rows: the products are exact in double, and the dot is a double FMA
+// chain in tap order, rounded once to f32 at the end, as the plain
 // version's float64 matmul is: the two agree bit for bit unless a float64
 // sum lands within its own rounding error of an f32 rounding boundary.
-// Fixed rows: the products and the sums are taken in uint32, whose wrap is
-// defined; the sum mod 2^32 does not depend on the order, so the kernel
-// and the plain version agree bit for bit.
 //
 // What bounds it on the H100: drift at B = 2048 needs 11.56 G multiply-adds
 // (44101 outputs x 128 taps x 2048 lanes) against ~385 MB of x, y and taps:
@@ -169,12 +166,9 @@ __device__ __forceinline__ float2 load2(const float* p) {
   return *reinterpret_cast<const float2*>(p);
 }
 
-// One step of a dot: double FMA (float), uint32 multiply-add (fixed).
+// One step of a dot: double FMA.
 __device__ __forceinline__ double mac(double w, double x, double a) {
   return fma(w, x, a);
-}
-__device__ __forceinline__ unsigned mac(unsigned w, unsigned x, unsigned a) {
-  return a + w * x;
 }
 
 // Runs store(i, load(i)) for i < n over the CTA's threads, kU loads in
@@ -240,10 +234,10 @@ __device__ __forceinline__ void stage_x(const Gather& g, int base, int n,
 }
 
 // The dots of the CTA's kM = 8 kO outputs from o0 over lanes lane0 ..
-// lane0 + 63: acc[j][c][e] is tap row c of output o0 + warp * kO + j at
-// lane lane0 + 2 * (thread % 32) + e.  Acc is the sum's type (double, or
-// uint32), tap row c of chunk [t0, t0 + kc) of the CTA's output j is staged
-// by stage_taps at ts[(j * KC + t) * kAccum + c], t < kc.
+// lane0 + 63: acc[j][0][e] is output o0 + warp * kO + j at lane lane0 + 2
+// * (thread % 32) + e, in Acc (double); tap t of chunk [t0, t0 + kc) of
+// the CTA's output j is staged by stage_taps at ts[j * KC + t], t < kc.
+// (kAccum, the tap rows an output, is 1.)
 template <typename XT, typename Acc, int kAccum, int kO, typename StageTaps>
 __device__ __forceinline__ void walk(const Gather& g, int o0, int lane0,
                                      StageTaps stage_taps,
@@ -302,13 +296,8 @@ __device__ __forceinline__ void walk(const Gather& g, int o0, int lane0,
           }
           Acc w[kAccum];
           const Acc* src = ts + ((warp * kO + j) * g.KC + t) * kAccum;
-          if constexpr (kAccum == 4) {
-            const uint4 q = *reinterpret_cast<const uint4*>(src);
-            w[0] = q.x, w[1] = q.y, w[2] = q.z, w[3] = q.w;
-          } else {
 #pragma unroll
-            for (int c = 0; c < kAccum; ++c) w[c] = src[c];
-          }
+          for (int c = 0; c < kAccum; ++c) w[c] = src[c];
 #pragma unroll
           for (int c = 0; c < kAccum; ++c) {
             acc[j][c][0] = mac(w[c], x0, acc[j][c][0]);
@@ -387,83 +376,6 @@ gather_fir_f32_kernel(Gather g, const float* __restrict__ taps, int raw) {
   }
 }
 
-template <int kAccum, int kO>
-__global__ void __launch_bounds__(kThreads, kO <= 4 ? 2 : 1)
-gather_fir_fixed_kernel(Gather g, const int16_t* __restrict__ taps,
-                        const int32_t* __restrict__ coef) {
-  const int lane_tiles = (g.B + kLanes - 1) / kLanes;
-  const int o0 = blockIdx.x / lane_tiles * (kWarps * kO);
-  const int lane0 = blockIdx.x % lane_tiles * kLanes;
-  unsigned acc[kO][kAccum][2];
-  walk<int16_t, unsigned, kAccum, kO>(
-      g, o0, lane0,
-      [&](unsigned* ts, int t0, int kc) {
-        // tap row c of output j: taps[o][c][t0 ..), 16-byte loads of eight
-        // taps where rows and chunks allow
-        if (g.N % 8 == 0 && g.KC % 8 == 0 &&
-            reinterpret_cast<uintptr_t>(taps) % 16 == 0) {
-          const int q = kc / 8;
-          copy_batched<4>(
-              kWarps * kO * kAccum * q,
-              [&](int i) {
-                const int jc = i / q, o = o0 + jc / kAccum;
-                return o < g.n_out
-                           ? __ldg(reinterpret_cast<const uint4*>(
-                                 taps + ((size_t)o * kAccum + jc % kAccum) *
-                                            g.N +
-                                 t0 + i % q * 8))
-                           : make_uint4(0, 0, 0, 0);
-              },
-              [&](int i, uint4 v) {
-                const int jc = i / q, t = i % q * 8;
-                unsigned* d = ts + (jc / kAccum * g.KC + t) * kAccum +
-                              jc % kAccum;
-                const uint32_t w[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-                for (int e = 0; e < 8; ++e)
-                  d[e * kAccum] =
-                      (unsigned)(int)(int16_t)(w[e / 2] >> (16 * (e % 2)));
-              });
-          return;
-        }
-        copy_batched<8>(
-            kWarps * kO * kAccum * kc,
-            [&](int i) {
-              const int jc = i / kc, o = o0 + jc / kAccum;
-              return o < g.n_out
-                         ? (int)taps[((size_t)o * kAccum + jc % kAccum) * g.N +
-                                     t0 + i % kc]
-                         : 0;
-            },
-            [&](int i, int v) {
-              const int jc = i / kc;
-              ts[(jc / kAccum * g.KC + i % kc) * kAccum + jc % kAccum] =
-                  (unsigned)v;
-            });
-      },
-      acc);
-  const int warp = threadIdx.x / 32, b = lane0 + 2 * (threadIdx.x % 32);
-#pragma unroll
-  for (int j = 0; j < kO; ++j) {
-    const int o = o0 + warp * kO + j;
-    if (o >= g.n_out) continue;
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      if (b + e >= g.B) continue;
-      unsigned s = acc[j][0][e];
-      if constexpr (kAccum == 4) {
-        s = 0;
-#pragma unroll
-        for (int c = 0; c < 4; ++c)
-          s += fir::mult16_32_q15(coef[(size_t)o * 4 + c],
-                                  (int)acc[j][c][e] >> 1);
-      }
-      static_cast<int16_t*>(g.y)[(size_t)o * g.B + b + e] =
-          fir::sat32pshr15((int)s);
-    }
-  }
-}
-
 // Launches `kernel` (its shared-memory ceiling set once a device) on one
 // CTA a (tile of outputs, 64 lanes).
 template <typename Kernel, typename... Args>
@@ -487,15 +399,6 @@ cudaError_t launch_f32(const Gather& g, const float* taps, int raw,
   static std::atomic<unsigned> smem_set{0};
   return launch(gather_fir_f32_kernel<XT, kO>, smem_set, g, kWarps * kO,
                 smem, stream, taps, raw);
-}
-
-template <int kAccum, int kO>
-cudaError_t launch_fixed(const Gather& g, const int16_t* taps,
-                         const int32_t* coef, size_t smem,
-                         cudaStream_t stream) {
-  static std::atomic<unsigned> smem_set{0};
-  return launch(gather_fir_fixed_kernel<kAccum, kO>, smem_set, g,
-                kWarps * kO, smem, stream, taps, coef);
 }
 
 // The plan's geometry, or cudaErrorInvalidValue: M = 8 kO outputs a CTA
@@ -1544,39 +1447,6 @@ int gather_fir_f32(const void* h, long long hst, long long hsb, int H,
           : kO == 4 ? launch_f32<int16_t, 4>(g, t, raw, smem, st_)
           : kO == 2 ? launch_f32<int16_t, 2>(g, t, raw, smem, st_)
                     : launch_f32<int16_t, 1>(g, t, raw, smem, st_);
-  }
-  return static_cast<int>(err);
-}
-
-// hist and x int16 as above; taps int16[n_out, n_accum, N]; coef
-// int32[n_out, 4] (NULL for n_accum 1); y int16[n_out, B].
-int gather_fir_fixed(const void* h, long long hst, long long hsb, int H,
-                     const void* x, long long st, long long sb,
-                     const void* taps, const void* starts, const void* coef,
-                     void* y, int n_accum, int T, int B, int n_out, int N,
-                     int M, int KC, int rows, void* stream) {
-  cudaGetLastError();
-  if (n_accum != 1 && n_accum != 4)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Gather g = make_gather(h, hst, hsb, H, x, st, sb, T, B, starts, n_out,
-                               N, KC, rows, y);
-  size_t smem = 0;
-  cudaError_t err = check_plan(g, M, 4 * n_accum, 2, &smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const auto* t = static_cast<const int16_t*>(taps);
-  const auto* c = static_cast<const int32_t*>(coef);
-  const auto st_ = static_cast<cudaStream_t>(stream);
-  const int kO = M / kWarps;
-  if (n_accum == 4) {
-    err = kO == 8   ? launch_fixed<4, 8>(g, t, c, smem, st_)
-          : kO == 4 ? launch_fixed<4, 4>(g, t, c, smem, st_)
-          : kO == 2 ? launch_fixed<4, 2>(g, t, c, smem, st_)
-                    : launch_fixed<4, 1>(g, t, c, smem, st_);
-  } else {
-    err = kO == 8   ? launch_fixed<1, 8>(g, t, c, smem, st_)
-          : kO == 4 ? launch_fixed<1, 4>(g, t, c, smem, st_)
-          : kO == 2 ? launch_fixed<1, 2>(g, t, c, smem, st_)
-                    : launch_fixed<1, 1>(g, t, c, smem, st_);
   }
   return static_cast<int>(err);
 }

@@ -3,8 +3,8 @@
 // tile a CTA, the weights streamed with x; K2b) and of
 // tiled_fir_int8_kernel<kD, kVec> (fir_tile_resident: a row tile's digit
 // planes held in shared memory across the kGroup output tiles its CTA
-// walks; K1b).  The tiled launcher takes fir_tile with the tiled origin
-// where a band does not fit.
+// walks; K1b).  A tiled step whose band does not fit launches fir_tile's
+// kernel.
 //
 // It computes _dot_int8 (fir_common.cuh header): for digit d = 0..D-1 in
 // order, I_d = sum_t w_d[t, r] * (x - 128) exactly (mod 2^32), then

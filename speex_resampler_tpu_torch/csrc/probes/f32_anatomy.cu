@@ -11,7 +11,7 @@
 //   nocvt    full, x handed over as float32 [T, B]
 //
 // full and noslice are the served highest body, fir::f32::fir_tile (the
-// kernel of tiled_fir_f32, K1a), with the patch origin of the block or a
+// kernel of streamed_fir_f32, K1a), with the patch origin of the block or a
 // constant one; a CTA is 64 rows x 128 lanes, a ring of 16-tap stages, x
 // converted to f32 once a stage, an 8 x 8 register tile a thread, each warp
 // running only the 8-tap slices of its 16 rows' nonzero band.  The other two

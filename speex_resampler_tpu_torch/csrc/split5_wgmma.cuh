@@ -1,5 +1,5 @@
 // Scheme "split5" on Hopper's bf16 tensor cores: the device function of
-// tiled_fir_split5_kernel and streamed_fir_split5_kernel (sm_90a only).
+// streamed_fir_split5_kernel, both phase-tiled geometries (sm_90a only).
 //
 // It computes _dot_scheme's five dots (fir_common.cuh header): d_1..d_5 =
 // <w_hi,x_hi>, <w_hi,x_lo>, <w_mid,x_hi>, <w_mid,x_lo>, <w_lo,x_hi>, every

@@ -1,28 +1,32 @@
-// Streamed-weight polyphase FIR launch for Hopper (sm_90a), schemes
+// Phase-tiled polyphase FIR launch for Hopper (sm_90a), schemes
 // "highest", "int8" (D <= 4 digit planes), "fixed" (n_accum 1 and 4) and
-// "split5".
+// "split5": the one launcher of both phase-tiled geometries.
 //
 // Replaces speex_resampler_tpu/ops/pallas_fir.py resample_conv_tm_pallas_v4
 // / _kernel_v4 (with _v4_hist_plans), the TPU kernel of the large-P
-// configurations: every 48 kHz -> 44.1 kHz conversion (P = 147 weight
-// phases, 38.5 MB of f32 weights at q10) and 44.1 kHz -> 16 kHz at q7.  It
-// computes the same function: output block k (R rows, all lanes) is
+// configurations (the "streamed" geometry: every 48 kHz -> 44.1 kHz
+// conversion, P = 147 weight phases, 38.5 MB of f32 weights at q10, and
+// 44.1 kHz -> 16 kHz at q7), and resample_conv_tm_pallas_v3 / _kernel_v3
+// (the "tiled" geometry of small weight cycles, 44.1 kHz -> 48 kHz and the
+// like), but for v3's "int8" scheme where its band fits shared memory,
+// which tiled_fir.cu's resident kernel serves.  Both compute the same
+// function: output block k (R rows, all lanes) is
 //
 //     y_k = epilogue( W[k % P]^T [R, K] @ patch_k [K, B] ),
 //     patch_k = rows v0 .. v0+K-1 of the virtual axis hist ++ x,
 //     v0      = floor16((f0 + k*R*num) / den + shift)   (in 64 bits),
 //
-// the closed form of _kernel_v4, equal to K1's (k / P) * S + offsets[k % P].
-// The TPU kernel DMA'd each block's [R, K] weights and [K, lanes] patch into
-// double-buffered VMEM scratch and patched the first blocks, whose window
-// starts inside hist, with synchronous copies; here every CTA reads tap row
-// v0+t from hist when v0+t < H, else from x, as the tiled kernel does.  The
-// weights are the port's own layout [P, K, R] (JAX streams [P, R, K]; the
-// int8 planes are K-major, below); the staging, product and epilogues are
-// fir_common.cuh's ("highest": f32_fir.cuh's; split5: split5_wgmma.cuh's,
-// both shared with tiled_fir.cu, so those kernels round identically; int8:
-// int8_wgmma.cuh's, the same exact sums and epilogue as the tiled int8
-// kernel's).
+// the closed form of _kernel_v4 (fir_common.cuh's origin), equal to v3's
+// (k / P) * S + offsets[k % P], so the two geometries differ only in their
+// weights' K (the tiled one's unpadded, or padded to 32 for the int8
+// planes; the streamed one's padded to 128 as the JAX package pads it)
+// and their chunk rows, both the host's.  The TPU kernels DMA'd each
+// block's weights and patch into VMEM; here every CTA reads tap row v0+t
+// from hist when v0+t < H, else from x.  The weights are the port's own
+// layout [P, K, R] (JAX streams [P, R, K]; the int8 and fixed planes are
+// K-major, below); the staging, product and epilogues are the scheme
+// headers' (f32_fir.cuh, split5_wgmma.cuh, int8_wgmma.cuh, fixed_wgmma.cuh;
+// the int8 resident kernel shares int8_wgmma.cuh's sums and epilogue).
 //
 // What bounds it on the H100: the multiply-adds.  One 48k->44.1k q10 launch
 // at B = 2048 (n_blocks 147, R 128, K 512, filt_len 280) must move ~183 MB
@@ -32,14 +36,22 @@
 // each, 87 us at the 1,979 TOP/s of the int8 tensor cores for D = 4.  The
 // 64-row tiles walk 13.4 G of them, each tile's
 // nonzero tap band; the "highest" kernel's warps 11.7 G, each 16-row
-// sub-band's 8-tap slices (f32_fir.cuh).
+// sub-band's 8-tap slices (f32_fir.cuh).  The flagship's tiled launch
+// (44.1k->48k q7, B = 2048) reads ~38 MB of int16 rows and writes 42 MB,
+// ~25 us at 3.35 TB/s, and needs 2.7 G multiply-adds, ~80 us at the f32
+// CUDA cores' rate.
 // What the TPU design was for (weights too large for VMEM) does not apply:
 // the H100 reads weights through its 50 MB L2 either way.  The Hopper risk
 // is re-reading them from HBM once per lane tile (16 x 38.5 MB per launch
-// at B = 2048).  So the grid runs over lane tiles fastest: the CTAs that
-// share block k's weight columns are scheduled together, HBM serves each
-// weight tile once and L2 the other lane tiles (the counterpart of v4's
-// "widest lane tile" rule).
+// at B = 2048).  So where the weight cycle is large (kBlockMajorBytes) the
+// grid runs over lane tiles fastest: the CTAs that share block k's weight
+// columns are scheduled together, HBM serves each weight tile once and L2
+// the other lane tiles (the counterpart of v4's "widest lane tile" rule).
+// A smaller cycle (every tiled launch's: <= 4 MB, 6 MB fixed) stays in L2
+// across the lane tiles, and its grid runs (block, row tile) fastest,
+// lane tiles on grid y: measured 1-12 % faster there.  Each kernel is
+// instantiated for both orders (kBlockMajor); the launcher picks one from
+// the launch's weight bytes.
 //
 // Scheme "int8" (K2b) runs on the int8 tensor cores (int8_wgmma.cuh):
 // wgmma s8 with xh / xl as the register operand, 2*D exact int32 dots
@@ -52,28 +64,34 @@
 // walk takes as long; the digit split's epilogue is the cheaper (PERF.md).
 // Its planes are K-major, int8[D, P, R, K_pad], each 32-tap group permuted
 // to the fragment's tap order (JAX streams [P, D, R, K_pad]); its lane
-// tile is int8tc::kLanes.
+// tile is int8tc::kLanes.  A tiled int8 step whose band does not fit the
+// resident kernel's shared memory launches it on the same planes.
 //
-// Scheme "fixed" (K2d; v4's fixed branch: _dot_fixed, then the fixed_math
-// epilogues) runs on the int8 tensor cores too (fixed_wgmma.cuh, shared
-// with the tiled kernel): _dot_fixed's four int8 dots and bias, all
-// n_accum column sets in one walk.  Its planes are K-major, int8[2, P,
-// n_accum * R, K_pad] (wh, wl0; 77 MB at q10, n_accum 4; JAX streams [P,
-// 2, C, K_pad]), each 32-tap group permuted as int8's; its CTA takes
-// fixedtc::Shape's rows and int8tc::kLanes lanes.  A q10 launch needs 43.2
-// G int16 multiply-adds (filt_len x 4 per output): 345 G int8 tensor-core
-// operations, ~174 us, above the ~61 us of its bytes, so operations bound
-// it.
+// Scheme "fixed" (K2d, and K1e / K1d at n_accum 4 / 1; the fixed branches
+// of v4 and v3: _dot_fixed, then the fixed_math epilogues) runs on the int8
+// tensor cores too (fixed_wgmma.cuh): _dot_fixed's four int8 dots and
+// bias, all n_accum column sets in one walk.  Its planes are K-major,
+// int8[2, P, n_accum * R, K_pad] (wh, wl0; 77 MB at q10, n_accum 4; JAX
+// streams [P, 2, C, K_pad]), each 32-tap group permuted as int8's; its CTA
+// takes fixedtc::Shape's rows and int8tc::kLanes lanes.  A q10 launch
+// needs 43.2 G int16 multiply-adds (filt_len x 4 per output): 345 G int8
+// tensor-core operations, ~174 us, above the ~61 us of its bytes, so
+// operations bound it.
 //
-// Scheme "split5" (K2c; v4's split5 branch, five bf16 products per
-// multiply-add summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX
-// streams [P, 3, R, K_pad]).  At 48k->44.1k q10 it needs the 10.8 G
-// multiply-adds of "highest": 108 G bf16 tensor-core FLOP, ~0.11 ms, above
-// the ~58 us of its bytes, so operations bound it.  It runs on the bf16
-// tensor cores (split5_wgmma.cuh, shared with the tiled kernel): five f32
-// accumulators, one walk of each tile's ~350-tap band in 32-tap stages
-// copied three stages ahead.  Its tiles are short (11 stages), so a CTA's
-// pipeline fill and epilogue weigh more than at 96k->8k.
+// Scheme "split5" (K2c, and K1c; five bf16 products per multiply-add
+// summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX streams [P, 3, R,
+// K_pad]).  At 48k->44.1k q10 it needs the 10.8 G multiply-adds of
+// "highest": 108 G bf16 tensor-core FLOP, ~0.11 ms, above the ~58 us of its
+// bytes, so operations bound it.  It runs on the bf16 tensor cores
+// (split5_wgmma.cuh): five f32 accumulators, one walk of each tile's
+// ~350-tap band in 32-tap stages copied three stages ahead.  Its tiles
+// are short (11 stages), so a CTA's pipeline fill and epilogue weigh more
+// than at 96k->8k (tiled, K 4600, 3840 taps a tile).
+//
+// Scheme "highest" (K2a, and K1a) runs on the CUDA cores (f32_fir.cuh): a
+// 3-stage cp.async ring of 16-tap stages, an 8 x 8 register tile a thread,
+// each warp multiplying only the 8-tap slices that meet its 16 rows'
+// nonzero band, every output one FMA chain in tap order.
 
 #include "f32_fir.cuh"
 #include "fir_common.cuh"
@@ -86,56 +104,69 @@ namespace {
 using fir::kRowTile;
 using fir::kLaneTile;
 using fir::kThreads;
+using fir::Origin;
+using fir::origin;
 
-// Closed-form patch origins of one launch.
-struct Origin {
-  int shift, num, den, f0;
+// A CTA's (block k, row tile) index kr and lane tile lt: (block, row tile)
+// fastest, lane tiles on grid y (kBlockMajor), or lane tiles fastest on a
+// 1-D grid, CTA kr * lane_tiles + lt.
+template <bool kBlockMajor>
+struct Cta {
+  int kr, lt;
+  __device__ explicit Cta(int lane_tiles)
+      : kr(kBlockMajor ? blockIdx.x : blockIdx.x / lane_tiles),
+        lt(kBlockMajor ? blockIdx.y : blockIdx.x % lane_tiles) {}
 };
 
-// Block k's patch origin.
-__device__ __forceinline__ int origin(const fir::Launch& g, Origin o, int k) {
-  const long long t = o.f0 + (long long)k * g.R * o.num;
-  return (int)((t / o.den + o.shift) / 16 * 16);
+// Launches kernels[1] ((block, row tile) fastest, lane tiles on grid y,
+// at most 65535) where the launch's weight cycle (weight_bytes, every
+// phase's weights) is at most kBlockMajorBytes, so L2 holds it across the
+// lane tiles, else kernels[0] (lane tiles fastest): the CTAs that share a
+// weight tile run together, HBM serves it once and L2 the other lane
+// tiles.  On the H100 (B = 2048) (block, row tile) fastest ran up to 12 %
+// faster at 0.1-21 MB cycles (int8 and fixed; f32 and split5 tied), and
+// lane tiles fastest 3 % faster at 55 MB (PERF.md, PR 26).
+constexpr long long kBlockMajorBytes = 16ll << 20;
+
+template <typename Kernel, typename... Args>
+cudaError_t launch_ordered(Kernel* const (&kernels)[2], int n_kr,
+                           int lane_tiles, long long weight_bytes,
+                           int threads, int smem, cudaStream_t stream,
+                           Args... args) {
+  if (weight_bytes <= kBlockMajorBytes && lane_tiles <= 65535)
+    kernels[1]<<<dim3(n_kr, lane_tiles), threads, smem, stream>>>(args...);
+  else
+    kernels[0]<<<n_kr * lane_tiles, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
 }
 
-// CTA index = (block k, row tile) * lane_tiles + lane tile.
-__device__ __forceinline__ fir::Tile streamed_tile(const fir::Launch& g,
-                                                   Origin o) {
-  const int lane_tiles = (g.B + kLaneTile - 1) / kLaneTile;
-  const int row_tiles = g.R / kRowTile;
-  const int kr = blockIdx.x / lane_tiles;
-  const int k = kr / row_tiles;
-  return fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
-                   origin(g, o, k));
-}
-
-// The same order over f32::kLanes-lane tiles.
+// CTA (block k, row tile, lane tile) of f32::kLanes lanes.
+template <bool kBlockMajor>
 __global__ void __launch_bounds__(fir::f32::kThreads, fir::f32::kMinBlocks)
 streamed_fir_f32_kernel(fir::Launch g, Origin o, const float* __restrict__ w) {
-  const int lane_tiles = (g.B + fir::f32::kLanes - 1) / fir::f32::kLanes;
+  const Cta<kBlockMajor> c((g.B + fir::f32::kLanes - 1) / fir::f32::kLanes);
   const int row_tiles = g.R / kRowTile;
-  const int kr = blockIdx.x / lane_tiles;
-  const int k = kr / row_tiles;
-  fir::f32::fir_tile(g, k, kr % row_tiles,
-                     (blockIdx.x % lane_tiles) * fir::f32::kLanes,
+  const int k = c.kr / row_tiles;
+  fir::f32::fir_tile(g, k, c.kr % row_tiles, c.lt * fir::f32::kLanes,
                      origin(g, o, k), g.R, w);
 }
 
-// The same order over int8tc::kLanes-lane tiles; kD digit planes, split
-// between the warpgroups by digit (kDigits: int8tc::digit_split) or by row.
-template <int kD, bool kDigits>
+// CTA (block k, row tile, lane tile) of int8tc::kLanes lanes; kD digit
+// planes, split between the warpgroups by digit (kDigits:
+// int8tc::digit_split) or by row.
+template <int kD, bool kDigits, bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads, 1)
 streamed_fir_int8_kernel(fir::Launch g, Origin o,
                          const int8_t* __restrict__ planes,
                          const float* __restrict__ bias, float4 scales) {
-  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const Cta<kBlockMajor> c((g.B + fir::int8tc::kLanes - 1) /
+                           fir::int8tc::kLanes);
   const int row_tiles = g.R / kRowTile;
-  const int kr = blockIdx.x / lane_tiles;
-  const int k = kr / row_tiles;
+  const int k = c.kr / row_tiles;
   fir::int8tc::fir_tile<kD, kDigits>(
       g,
-      fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
-                origin(g, o, k), fir::int8tc::kLanes),
+      fir::Tile(g, k, c.kr % row_tiles, c.lt, origin(g, o, k),
+                fir::int8tc::kLanes),
       planes, bias, scales);
 }
 
@@ -145,22 +176,25 @@ cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
                         const float* bias, float4 scales, int n_blocks,
                         cudaStream_t stream) {
   constexpr bool kDigits = fir::int8tc::digit_split(kD);
+  static decltype(&streamed_fir_int8_kernel<kD, kDigits, false>) const
+      kernels[2] = {streamed_fir_int8_kernel<kD, kDigits, false>,
+                    streamed_fir_int8_kernel<kD, kDigits, true>};
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    return fir::int8tc::allow_smem(streamed_fir_int8_kernel<kD, kDigits>);
+    const cudaError_t e = fir::int8tc::allow_smem(kernels[0]);
+    return e != cudaSuccess ? e : fir::int8tc::allow_smem(kernels[1]);
   });
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_blocks * (g.R / kRowTile) *
-                  ((g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes));
-  streamed_fir_int8_kernel<kD, kDigits><<<grid, kThreads,
-                                          fir::int8tc::kSmemBytes, stream>>>(
-      g, o, planes, bias, scales);
-  return cudaGetLastError();
+  return launch_ordered(
+      kernels, n_blocks * (g.R / kRowTile),
+      (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes,
+      (long long)kD * g.P * g.R * g.K, kThreads, fir::int8tc::kSmemBytes,
+      stream, g, o, planes, bias, scales);
 }
 
-// The same order over fixedtc::Shape<kAccum>::kRows-row, int8tc::kLanes-
-// lane tiles.
-template <int kAccum>
+// CTA (block k, row tile of fixedtc::Shape<kAccum>::kRows rows, lane tile
+// of int8tc::kLanes lanes).
+template <int kAccum, bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads,
                                   fir::fixedtc::Shape<kAccum>::kMinBlocks)
 streamed_fir_fixed_kernel(fir::Launch g, Origin o,
@@ -168,14 +202,14 @@ streamed_fir_fixed_kernel(fir::Launch g, Origin o,
                           const int32_t* __restrict__ bias,
                           const int32_t* __restrict__ coef) {
   constexpr int kRows = fir::fixedtc::Shape<kAccum>::kRows;
-  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const Cta<kBlockMajor> c((g.B + fir::int8tc::kLanes - 1) /
+                           fir::int8tc::kLanes);
   const int row_tiles = g.R / kRows;
-  const int kr = blockIdx.x / lane_tiles;
-  const int k = kr / row_tiles;
+  const int k = c.kr / row_tiles;
   fir::fixedtc::fir_tile<kAccum>(
       g,
-      fir::Tile(g, k, kr % row_tiles, blockIdx.x % lane_tiles,
-                origin(g, o, k), fir::int8tc::kLanes, kRows),
+      fir::Tile(g, k, c.kr % row_tiles, c.lt, origin(g, o, k),
+                fir::int8tc::kLanes, kRows),
       planes, bias, coef);
 }
 
@@ -186,34 +220,53 @@ cudaError_t launch_fixed(const fir::Launch& g, Origin o, const int8_t* planes,
                          const int32_t* bias, const int32_t* coef,
                          int n_blocks, cudaStream_t stream) {
   using Shape = fir::fixedtc::Shape<kAccum>;
+  static decltype(&streamed_fir_fixed_kernel<kAccum, false>) const
+      kernels[2] = {streamed_fir_fixed_kernel<kAccum, false>,
+                    streamed_fir_fixed_kernel<kAccum, true>};
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    return fir::fixedtc::allow_smem<kAccum>(streamed_fir_fixed_kernel<kAccum>);
+    const cudaError_t e = fir::fixedtc::allow_smem<kAccum>(kernels[0]);
+    return e != cudaSuccess ? e : fir::fixedtc::allow_smem<kAccum>(kernels[1]);
   });
   if (attr != cudaSuccess) return attr;
-  const dim3 grid(n_blocks * (g.R / Shape::kRows) *
-                  ((g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes));
-  streamed_fir_fixed_kernel<kAccum><<<grid, kThreads, Shape::kSmemBytes,
-                                      stream>>>(g, o, planes, bias, coef);
-  return cudaGetLastError();
+  return launch_ordered(
+      kernels, n_blocks * (g.R / Shape::kRows),
+      (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes,
+      2ll * g.P * kAccum * g.R * g.K, kThreads, Shape::kSmemBytes, stream, g,
+      o, planes, bias, coef);
 }
 
+// CTA (block k, row tile, lane tile) of kLaneTile lanes.
+template <bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads, 1)
 streamed_fir_split5_kernel(fir::Launch g, Origin o,
                            const __nv_bfloat16* __restrict__ planes) {
-  fir::split5::fir_tile(g, streamed_tile(g, o), planes);
+  const Cta<kBlockMajor> c((g.B + kLaneTile - 1) / kLaneTile);
+  const int row_tiles = g.R / kRowTile;
+  const int k = c.kr / row_tiles;
+  fir::split5::fir_tile(
+      g, fir::Tile(g, k, c.kr % row_tiles, c.lt, origin(g, o, k)), planes);
 }
 
-dim3 grid_of(int n_blocks, int R, int B) {
-  return dim3(n_blocks * (R / kRowTile) * ((B + kLaneTile - 1) / kLaneTile));
-}
+// Both orders' instances of the f32 and split5 kernels.
+decltype(&streamed_fir_f32_kernel<false>) const f32_kernels[2] = {
+    streamed_fir_f32_kernel<false>, streamed_fir_f32_kernel<true>};
+decltype(&streamed_fir_split5_kernel<false>) const split5_kernels[2] = {
+    streamed_fir_split5_kernel<false>, streamed_fir_split5_kernel<true>};
 
 }  // namespace
 
 extern "C" {
 
-// Tile sizes the host wrapper must honour (R % row_tile == 0; taps table).
+// Tile sizes the host wrapper must honour (R % row_tile == 0; taps table;
+// the "highest" table's sub-bands of sub_rows rows; the fixed tables' rows
+// at n_accum 1 and 4).
 int streamed_fir_row_tile() { return kRowTile; }
+int f32_fir_sub_rows() { return fir::f32::kSubRows; }
+int fixed_fir_rows(int n_accum) {
+  return n_accum == 4 ? fir::fixedtc::Shape<4>::kRows
+                      : fir::fixedtc::Shape<1>::kRows;
+}
 
 const char* streamed_fir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -232,16 +285,17 @@ int streamed_fir_f32(const void* hist, const void* x, void* y,
     return static_cast<int>(cudaErrorMisalignedAddress);
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    return fir::f32::allow_smem(streamed_fir_f32_kernel);
+    const cudaError_t e = fir::f32::allow_smem(f32_kernels[0]);
+    return e != cudaSuccess ? e : fir::f32::allow_smem(f32_kernels[1]);
   });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  const dim3 grid(n_blocks * (R / kRowTile) *
-                  ((B + fir::f32::kLanes - 1) / fir::f32::kLanes));
-  streamed_fir_f32_kernel<<<grid, fir::f32::kThreads, fir::f32::kSmemBytes,
-                            static_cast<cudaStream_t>(stream)>>>(
-      g, Origin{shift, num, den, f0}, static_cast<const float*>(w));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_ordered(
+      f32_kernels, n_blocks * (R / kRowTile),
+      (B + fir::f32::kLanes - 1) / fir::f32::kLanes, 4ll * P * K * R,
+      fir::f32::kThreads, fir::f32::kSmemBytes,
+      static_cast<cudaStream_t>(stream), g,
+      fir::make_origin(shift, num, den, f0), static_cast<const float*>(w)));
 }
 
 // planes bf16[3, P, K, R] (hi, mid, lo), 16-byte aligned.
@@ -254,16 +308,17 @@ int streamed_fir_split5(const void* hist, const void* x, void* y,
     return static_cast<int>(cudaErrorMisalignedAddress);
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    return fir::split5::allow_smem(streamed_fir_split5_kernel);
+    const cudaError_t e = fir::split5::allow_smem(split5_kernels[0]);
+    return e != cudaSuccess ? e : fir::split5::allow_smem(split5_kernels[1]);
   });
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  streamed_fir_split5_kernel<<<grid_of(n_blocks, R, B), kThreads,
-                               fir::split5::kSmemBytes,
-                               static_cast<cudaStream_t>(stream)>>>(
-      g, Origin{shift, num, den, f0},
-      static_cast<const __nv_bfloat16*>(planes));
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(launch_ordered(
+      split5_kernels, n_blocks * (R / kRowTile),
+      (B + kLaneTile - 1) / kLaneTile, 6ll * P * K * R, kThreads,
+      fir::split5::kSmemBytes, static_cast<cudaStream_t>(stream), g,
+      fir::make_origin(shift, num, den, f0),
+      static_cast<const __nv_bfloat16*>(planes)));
 }
 
 // planes int8[D, P, R, K] (K % 16 == 0, each 32-tap group permuted:
@@ -277,7 +332,7 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
   if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  const Origin o{shift, num, den, f0};
+  const Origin o = fir::make_origin(shift, num, den, f0);
   const auto* p8 = static_cast<const int8_t*>(planes);
   const auto* b32 = static_cast<const float*>(bias);
   const float4 s = make_float4(s0, s1, s2, s3);
@@ -303,7 +358,7 @@ int streamed_fir_fixed(const void* hist, const void* x, void* y,
   if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
-  const Origin o{shift, num, den, f0};
+  const Origin o = fir::make_origin(shift, num, den, f0);
   const auto* p8 = static_cast<const int8_t*>(planes);
   const auto* b32 = static_cast<const int32_t*>(bias);
   const auto* c32 = static_cast<const int32_t*>(coef);

@@ -47,16 +47,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _L = ctypes.c_longlong
 #: C function -> (restype, argtypes)
 _SIGNATURES = {
-    "tiled_fir_row_tile": (_I, []),
+    "tiled_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 12 + [_P]),
+    "tiled_fir_int8_max_slices": (_I, [_I]),
+    "streamed_fir_row_tile": (_I, []),
     "f32_fir_sub_rows": (_I, []),
     "fixed_fir_rows": (_I, [_I]),
-    "tiled_fir_error_string": (ctypes.c_char_p, [_I]),
-    "tiled_fir_f32": (_I, [_P] * 6 + [_I] * 8 + [_P]),
-    "tiled_fir_int8": (_I, [_P] * 7 + [_I] + [_F] * 4 + [_I] * 9 + [_P]),
-    "tiled_fir_int8_max_slices": (_I, [_I]),
-    "tiled_fir_fixed": (_I, [_P] * 8 + [_I] * 9 + [_P]),
-    "tiled_fir_split5": (_I, [_P] * 6 + [_I] * 8 + [_P]),
-    "streamed_fir_row_tile": (_I, []),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
@@ -70,8 +65,6 @@ _SIGNATURES = {
     "gather_fir_smem_max": (_I, []),
     "gather_fir_f32": (_I, [_P, _L, _L, _I] * 2 + [_P] * 3 + [_I] * 8
                        + [_P]),
-    "gather_fir_fixed": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 4
-                         + [_I] * 8 + [_P]),
     "gather_fir_band_smem": (_I, [_I] * 4),
     "gather_fir_band_smem_max": (_I, []),
     "gather_fir_f32_band": (_I, [_P, _L, _L, _I] * 2 + [_P] * 3 + [_I] * 6

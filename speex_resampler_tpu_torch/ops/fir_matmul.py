@@ -23,10 +23,10 @@ runs these outside any ``pallas_call`` (XLA fuses each into one program):
   place.  A CUDA launch takes a :class:`GatherPlan` (:func:`gather_plan`,
   from the host's starts, made when a CUDA step is built) and, for the
   band and stream forms, its :class:`GatherBand` (:func:`gather_band`,
-  built beside the plan).  The plan's form is a geometry: "rows"
-  (per-output dots on the CUDA cores; the outputs a CTA takes and the
-  window rows it stages at once, so that they fit shared memory at any
-  ratio), "band" (a group of consecutive outputs' taps as one dense band
+  built beside the plan).  The plan's form is a geometry: "rows" (float
+  only: per-output dots on the CUDA cores; the outputs a CTA takes and
+  the window rows it stages at once, so that they fit shared memory at
+  any ratio), "band" (a group of consecutive outputs' taps as one dense band
   on the tensor cores, resident in shared memory, where their windows
   overlap densely) or "stream" (the same band streamed through shared
   memory a stage of taps at a time, where it is too wide to be resident:
@@ -109,11 +109,11 @@ _STREAM_RING = {None: 4, 4: 6, 1: 6}
 _STREAM_WGS = 2
 _F64_STREAM_LANES = 256
 
-#: Launches of the gather kernels in this process, by kernel: the rows
-#: form's under its scheme, the band and stream forms' under
+#: Launches of the gather kernels in this process, by kernel: the float
+#: rows form's under "highest", the band and stream forms' under
 #: :func:`launch_key`; only the wrappers add to them, once per launch.
 #: Callers reset the counts to count one run.
-launches = {"highest": 0, "fixed": 0, "highest_band": 0, "fixed_band": 0,
+launches = {"highest": 0, "highest_band": 0, "fixed_band": 0,
             "highest_stream": 0, "fixed_stream": 0}
 
 #: The library whose shared-memory ceiling this module has checked.
@@ -217,7 +217,8 @@ def resample_conv_tm_fixed(x: torch.Tensor, w: tuple, *, stride: int,
 
 def launch_key(scheme: str, form: str) -> str:
     """The :data:`launches` key of a gather launch of this scheme
-    ("highest" or "fixed") and form ("rows", "band" or "stream")."""
+    ("highest" or "fixed") and form ("rows", float only; "band" or
+    "stream")."""
     return scheme if form == "rows" else f"{scheme}_{form}"
 
 
@@ -337,13 +338,12 @@ def gather_plan_stream(starts, N: int, *, n_accum: int | None = None,
     return GatherPlan(G, K, 0, "stream")
 
 
-def gather_plan_rows(starts, N: int, *, n_accum: int | None = None,
+def gather_plan_rows(starts, N: int, *,
                      x_itemsize: int = 2) -> GatherPlan:
-    """The rows form's plan over these window starts (non-decreasing
-    int[n_out]) and N taps an output, such that a CTA's staged tap rows (M
-    x KC, as double for the float kernel, as int32 x ``n_accum`` for the
-    fixed one) and window rows (``rows`` x 64 lanes of ``x_itemsize``
-    bytes) fit :data:`GATHER_SMEM_BYTES`.
+    """The rows form's plan (float only) over these window starts
+    (non-decreasing int[n_out]) and N taps an output, such that a CTA's
+    staged tap rows (M x KC, as double) and window rows (``rows`` x 64
+    lanes of ``x_itemsize`` bytes) fit :data:`GATHER_SMEM_BYTES`.
 
     A CTA stages, for each chunk of KC taps, the rows its outputs' windows
     span: the start spread of its M outputs + KC.  The first plan takes
@@ -354,7 +354,7 @@ def gather_plan_rows(starts, N: int, *, n_accum: int | None = None,
     steep decimation whose 8 outputs' windows lie far apart) or stages
     more rows an output, ceil(N / KC) (spread + KC) / M."""
     s = _starts(starts, N)
-    tap_bytes = 8 if n_accum is None else 4 * n_accum
+    tap_bytes = 8
     row_bytes = GATHER_LANES * x_itemsize
     spans = {M: int(_spreads(s, M).max()) for M in _GATHER_OUTPUTS}
 
@@ -381,8 +381,9 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
     """The CTA geometry of a gather launch over these window starts
     (non-decreasing int[n_out]) and N taps an output: the band form
     (:func:`gather_plan_band`) wherever its band fits a CTA, else, for
-    int16 samples, the stream form (:func:`gather_plan_stream`), else the
-    rows form (:func:`gather_plan_rows`).  ``n_accum`` None is the float
+    int16 samples and every fixed launch, the stream form
+    (:func:`gather_plan_stream`, which refuses other samples), else the
+    float rows form (:func:`gather_plan_rows`).  ``n_accum`` None is the float
     kernel, 1 or 4 the fixed one's tap rows an output; ``x_itemsize`` the
     sample width.  Computed on the host when a step is built, never at
     launch.
@@ -397,10 +398,10 @@ def gather_plan(starts, N: int, *, n_accum: int | None = None,
                             x_itemsize=x_itemsize)
     if band is not None:
         return band
-    if x_itemsize == 2:
-        return gather_plan_stream(starts, N, n_accum=n_accum)
-    return gather_plan_rows(starts, N, n_accum=n_accum,
-                            x_itemsize=x_itemsize)
+    if x_itemsize == 2 or n_accum is not None:
+        return gather_plan_stream(starts, N, n_accum=n_accum,
+                                  x_itemsize=x_itemsize)
+    return gather_plan_rows(starts, N, x_itemsize=x_itemsize)
 
 
 def gather_band(taps, starts, plan: GatherPlan, device=None) -> GatherBand:
@@ -657,9 +658,10 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     band:   the band or stream plan's :class:`GatherBand` (CUDA tensors)
     returns int16[batch, n_out]
 
-    CUDA tensors launch ``gather_fir_fixed<1|4>`` (rows),
-    ``gather_fir_fixed_band<1|4>`` (band) or ``gather_fir_fixed_stream<1|4>``
-    (stream), as the plan says, on the current stream; CPU tensors run
+    CUDA tensors launch ``gather_fir_fixed_band<1|4>`` (band) or
+    ``gather_fir_fixed_stream<1|4>`` (stream), as the plan says (a rows
+    plan raises: the fixed gather has no rows form), on the current
+    stream; CPU tensors run
     :func:`resample_gather_fixed_reference` on the concatenation hist ++ x
     (``tile`` steers only it)."""
     if x.device.type == "cpu":
@@ -668,6 +670,9 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"no kernel for device {x.device}")
     n_out, N = _check_gather(x, taps, starts, coef, plan, fixed=True)
+    if plan.form not in ("band", "stream"):
+        raise ValueError(f"a fixed gather launch takes a band or stream "
+                         f"plan, not a {plan.form} one")
     h = _hist_args(hist, x)
     lib = _library()
     batch, T = x.shape
@@ -682,7 +687,7 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                 *axis, band.w.data_ptr(), band.bias.data_ptr(),
                 starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
                 n_out, plan.taps, _build.stream_handle(x.device))
-        elif plan.form == "stream":
+        else:
             _check_band(x, band, plan, n_out, n_accum)
             scratch = _stream_scratch(lib, n_accum, n_out, batch, plan.taps,
                                       x.device)
@@ -691,11 +696,6 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                 starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
                 n_out, plan.taps, *_ptrs(*scratch),
                 _build.stream_handle(x.device))
-        else:
-            err = lib.gather_fir_fixed(
-                *axis, taps.data_ptr(), starts.data_ptr(), c_ptr,
-                y.data_ptr(), n_accum, T, batch, n_out, N, plan.outputs,
-                plan.taps, plan.rows, _build.stream_handle(x.device))
     if err:
         raise RuntimeError(f"fixed gather kernel ({plan.form}) launch "
                            "failed: "

@@ -1,14 +1,17 @@
-"""Phase-tiled polyphase FIR launch: the kernel of the batched serving path.
+"""Phase-tiled polyphase FIR weights: the device layouts, tap tables and
+plain product shared by both phase-tiled geometries.
 
 Counterpart of the v3 family in ``speex_resampler_tpu/ops/pallas_fir.py``
 (``resample_conv_tm_pallas_v3``), schemes ``"highest"``, ``"int8"``,
-``"fixed"`` (the Q15 universe, ``n_accum`` 1 or 4) and ``"split5"``.
+``"fixed"`` (the Q15 universe, ``n_accum`` 1 or 4) and ``"split5"``.  The
+launch itself, of either geometry, is ``ops/streamed_fir.resample_streamed``
+(the kernels of ``csrc/streamed_fir.cu``, and the resident int8 kernel of
+``csrc/tiled_fir.cu``).
 
 Layout: time-major int16 ``[rows, B]`` with the lane axis minor, as in the
 JAX package, so the same host slabs feed both.  Output block k (R rows)
-reads K rows of the virtual axis ``hist ++ x`` from origin
-``(k // P) * S + offsets[k % P]`` and applies the weights of block phase
-``k % P``.
+reads K rows of the virtual axis ``hist ++ x`` from its origin ``v0[k]``
+and applies the weights of block phase ``k % P`` (:func:`apply_weights`).
 
 Device weights (built once per step, never per launch; see
 :func:`device_weights`):
@@ -17,7 +20,8 @@ Device weights (built once per step, never per launch; see
 - ``"int8"``: ``(planes int8[D, P, R, K_pad], bias f32[P, R], slices,
   taps)``: K-major and permuted as the fixed planes (below), ``slices``
   the most 32-tap K-slices a row tile's band spans (:func:`band_slices`,
-  a host int)
+  a host int), which the resident kernel needs; a step that launches the
+  streamed kernel keeps the tuple without it
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
 - ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], coef
@@ -47,10 +51,6 @@ result (the skipped products are exact zeros).  The fixed table counts
 ``SUB_ROWS`` (16), ``bands``: its kernel (``csrc/f32_fir.cuh``) copies
 the union of a row tile's four sub-bands and each warp multiplies only the
 8-tap slices that meet its own 16 rows' band (:func:`f32_walk`).
-
-:func:`resample_tiled` launches the CUDA kernel (``csrc/tiled_fir.cu``) for
-CUDA tensors and runs :func:`resample_tiled_reference`, its plain PyTorch
-version, for CPU tensors.  It never falls back from one to the other.
 """
 
 from __future__ import annotations
@@ -61,7 +61,7 @@ import numpy as np
 import torch
 
 from ..utils.profiling import span
-from . import _build, int8_planes
+from . import int8_planes
 from .convert import word2int
 from .fixed_math import (balanced_q15_split, fixed_interp_mix_rows,
                          sat32pshr15)
@@ -71,7 +71,7 @@ __all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
            "full_perm", "int8_k_major", "int8_n_major", "band_slices",
            "FIXED_ROWS", "fixed_device_weights", "fixed_taps16",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
-           "resample_tiled", "resample_tiled_reference", "ROW_TILE"]
+           "ROW_TILE"]
 
 #: Output rows of one block handled by one CTA (``kRowTile`` in the CUDA
 #: source); R must be a multiple of it.
@@ -123,15 +123,10 @@ def band_slices(taps: np.ndarray) -> int:
     """The most 32-tap K-slices any row tile's band spans, from its lo
     rounded down to 32 up to its hi (0 for an all-zero table): the band
     the resident int8 kernel (``csrc/int8_wgmma.cuh``) keeps in shared
-    memory, which picks it or the long kernel (``csrc/tiled_fir.cu``)."""
+    memory, which decides, when a tiled step is built, whether it or the
+    streamed int8 kernel serves the step."""
     lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
     return int(np.where(hi > lo, -(-(hi - lo) // 32), 0).max(initial=0))
-
-
-#: Launches of each CUDA kernel in this process, by scheme; only
-#: resample_tiled adds to it, once per launch.  Callers reset the counts to
-#: count one run.
-launches = {"highest": 0, "int8": 0, "fixed": 0, "split5": 0}
 
 
 def int8_weights(w, digits: int = 3):
@@ -245,10 +240,12 @@ def fixed_taps16(planes: torch.Tensor) -> torch.Tensor:
     return w[..., inv.to(planes.device)].transpose(1, 2).contiguous()
 
 
-def device_weights(w, scheme: str, device) -> tuple:
+def device_weights(w, scheme: str, device, *, k_major: bool = False
+                   ) -> tuple:
     """Host weights -> the kernel's device weights (see module docstring).
     ``w``: f32[P, K, R] for "highest", ``(planes int8[D, P, K, R], bias)``
-    for "int8" (K-major here, K padded to a multiple of 32),
+    for "int8" (K-major here, K padded to a multiple of 32; with
+    ``k_major`` the planes come as int8[D, P, R, K]),
     ``(w int16[P, K, C],)`` or ``(w, coef int32[P, 4, R])`` for "fixed"
     (``n_accum`` 1 or 4; :func:`fixed_device_weights`), the bf16[3, P, K,
     R] tensor of :func:`split5_weights` for "split5"."""
@@ -259,10 +256,10 @@ def device_weights(w, scheme: str, device) -> tuple:
     if scheme == "int8":
         planes, bias = (np.asarray(a) for a in w)
         assert planes.dtype == np.int8 and bias.dtype == np.float32
-        K = planes.shape[2]
-        taps = tap_ranges((planes != 0).any(axis=0))      # tap order
-        kmaj = np.pad(planes.transpose(0, 1, 3, 2),
-                      ((0, 0),) * 3 + ((0, -K % 32),))
+        if not k_major:
+            planes = planes.transpose(0, 1, 3, 2)
+        taps = tap_ranges((planes != 0).any(axis=0).transpose(0, 2, 1))
+        kmaj = np.pad(planes, ((0, 0),) * 3 + ((0, -planes.shape[3] % 32),))
         return (int8_k_major(kmaj).to(device),
                 torch.from_numpy(bias.copy()).to(device), band_slices(taps),
                 torch.from_numpy(taps).to(device))
@@ -348,82 +345,6 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
     return P, K, R
 
 
-def _check(hist, x, w, offsets, S, n_blocks, scheme, scales, n_accum):
-    P, K, R = check_launch(hist, x, w, scheme, scales, n_accum,
-                           extra=(offsets,))
-    if scheme == "int8" and (len(w) != 4 or type(w[2]) is not int
-                             or not 0 <= w[2] <= K // 32):
-        raise ValueError("tiled int8 weights must be (planes, bias, "
-                         "slices, taps), slices an int in [0, K / 32]")
-    if offsets.dtype != torch.int32:
-        raise TypeError("offsets must be int32")
-    if tuple(offsets.shape) != (P,) or n_blocks % P or S <= 0:
-        raise ValueError(f"n_blocks {n_blocks}, offsets "
-                         f"{tuple(offsets.shape)} for P = {P}")
-    return P, K, R
-
-
-@span("speex.kernel.tiled")
-def resample_tiled(hist: torch.Tensor, x: torch.Tensor, w: tuple,
-                   offsets: torch.Tensor, *, S: int, n_blocks: int,
-                   scheme: str = "highest", scales: tuple = (),
-                   n_accum: int = 1) -> torch.Tensor:
-    """One launch: int16[n_blocks * R, B].
-
-    hist: int16[H, B] trailing history, H = round16(filt_len - 1)
-    x:    int16[T_c, B] chunk, real rows [0, n_in), zeros in whatever
-          rows of [n_in, n_in + K) it has: the bare chunk (T_c = n_in)
-          needs none
-    w:    device weights (module docstring), offsets: int32[P]
-    scales: the int8 digit scales (one per plane), () otherwise.
-    n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns
-          per output.
-
-    Rows of the virtual axis at or past H + T_c read as zero.  CUDA
-    tensors launch the kernel on the current stream (asynchronously; a
-    launch error raises); CPU tensors run the plain version."""
-    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales,
-                     n_accum)
-    if x.device.type == "cpu":
-        return resample_tiled_reference(hist, x, w, offsets, S=S,
-                                        n_blocks=n_blocks, scheme=scheme,
-                                        scales=scales, n_accum=n_accum)
-    if x.device.type != "cuda":
-        raise ValueError(f"no kernel for device {x.device}")
-    lib = _build.load()
-    if lib.tiled_fir_row_tile() != ROW_TILE \
-            or lib.f32_fir_sub_rows() != SUB_ROWS \
-            or lib.fixed_fir_rows(n_accum) != FIXED_ROWS[n_accum]:
-        raise RuntimeError("csrc/tiled_fir.cu tile sizes disagree with "
-                           "ROW_TILE / SUB_ROWS / FIXED_ROWS")
-    H, B = hist.shape
-    y = torch.empty((n_blocks * R, B), dtype=torch.int16, device=x.device)
-    if y.numel() == 0:
-        return y
-    with torch.cuda.device(x.device):
-        stream = _build.stream_handle(x.device)
-        geo = (H, x.shape[0], B, R, K, P, S, n_blocks, stream)
-        head = (hist.data_ptr(), x.data_ptr(), y.data_ptr(),
-                offsets.data_ptr(), w[-1].data_ptr())
-        if scheme == "highest":
-            err = lib.tiled_fir_f32(*head, w[0].data_ptr(), *geo)
-        elif scheme == "split5":
-            err = lib.tiled_fir_split5(*head, w[0].data_ptr(), *geo)
-        elif scheme == "fixed":
-            coef = w[2].data_ptr() if n_accum == 4 else None
-            err = lib.tiled_fir_fixed(*head, w[0].data_ptr(), w[1].data_ptr(),
-                                      coef, n_accum, *geo)
-        else:
-            s = tuple(scales) + (0.0,) * (4 - len(scales))
-            err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
-                                     len(scales), *s, w[2], *geo)
-    if err:
-        raise RuntimeError("tiled FIR kernel launch failed: "
-                           + lib.tiled_fir_error_string(err).decode())
-    launches[scheme] += 1
-    return y
-
-
 @contextlib.contextmanager
 def _no_tf32():
     prev = torch.backends.cuda.matmul.allow_tf32
@@ -432,40 +353,6 @@ def _no_tf32():
         yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = prev
-
-
-def resample_tiled_reference(hist: torch.Tensor, x: torch.Tensor, w: tuple,
-                             offsets: torch.Tensor, *, S: int, n_blocks: int,
-                             scheme: str = "highest", scales: tuple = (),
-                             n_accum: int = 1) -> torch.Tensor:
-    """Plain PyTorch version of :func:`resample_tiled` (same contract), on
-    the tensors' own device: each block's patch is gathered with an index
-    tensor, then one batched product over all blocks.
-
-    "highest": f32 matmul with TF32 off, then WORD2INT.  "split5": the
-    five f32 matmuls (TF32 off) of bf16-valued operands of the JAX
-    package's ``_dot_scheme``, w_hi*x_hi + w_hi*x_lo + w_mid*x_hi +
-    w_mid*x_lo + w_lo*x_hi summed in that order (x_hi = bf16(x), x_lo = x -
-    x_hi, both exact), then WORD2INT.  "int8": the planes back in tap
-    order (:func:`int8_n_major`; the taps past K are zero), then each
-    digit's integer dot ``sum w_d * (x - 128)`` in float64, exact because
-    its magnitude stays below 2^31 (the certificate refuses planes where
-    it would not), converted to int32, then the kernel's f32 epilogue in
-    the same order.  "fixed": the int16 taps rebuilt from the planes
-    (:func:`fixed_taps16`; the bias is the kernel's alone), then the int16
-    x int16 dot of every weight column in float64, exact (each product is
-    at most 2^30 and every partial sum an integer below 2^40, so any order
-    gives the same number), wrapped to int32 as the C accumulator wraps,
-    then the Q15 epilogue in int32
-    (ops/fixed_math: SATURATE32PSHR for n_accum 1, the MULT16_32_Q15 cubic
-    mix of the 4 accumulators for n_accum 4)."""
-    P, K, R = _check(hist, x, w, offsets, S, n_blocks, scheme, scales,
-                     n_accum)
-    k = torch.arange(n_blocks, device=x.device)
-    v0 = (k // P) * S + offsets.long()[k % P]
-    if scheme == "int8":
-        w = (int8_n_major(w[0]), w[1])
-    return apply_weights(hist, x, w, v0, scheme, scales, n_accum)
 
 
 def wrap_int32(v: torch.Tensor) -> torch.Tensor:
@@ -478,10 +365,30 @@ def wrap_int32(v: torch.Tensor) -> torch.Tensor:
 def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
                   v0: torch.Tensor, scheme: str, scales: tuple,
                   n_accum: int = 1) -> torch.Tensor:
-    """Plain product of one launch: block k reads K rows of the virtual
-    axis ``hist ++ x ++ zeros`` from origin ``v0[k]`` and applies the
-    weights of phase ``k % P``; int16[n_blocks * R, B] (see
-    :func:`resample_tiled_reference` for the schemes' arithmetic)."""
+    """Plain product of one launch (the phase-tiled kernels' plain
+    version, ``streamed_fir.resample_streamed_reference``): block k reads
+    K rows of the virtual axis ``hist ++ x ++ zeros`` from origin ``v0[k]``
+    (each block's patch gathered with an index tensor) and applies the
+    weights of phase ``k % P`` in one batched product over all blocks;
+    int16[n_blocks * R, B].  ``w``: the device weights, the int8 planes
+    back in tap order, ``(int8_n_major(planes), bias)``.
+
+    "highest": f32 matmul with TF32 off, then WORD2INT.  "split5": the
+    five f32 matmuls (TF32 off) of bf16-valued operands of the JAX
+    package's ``_dot_scheme``, w_hi*x_hi + w_hi*x_lo + w_mid*x_hi +
+    w_mid*x_lo + w_lo*x_hi summed in that order (x_hi = bf16(x), x_lo = x -
+    x_hi, both exact), then WORD2INT.  "int8": each digit's integer dot
+    ``sum w_d * (x - 128)`` in float64 (the taps past K are zero), exact
+    because its magnitude stays below 2^31 (the certificate refuses planes
+    where it would not), converted to int32, then the kernel's f32
+    epilogue in the same order.  "fixed": the int16 taps rebuilt from the
+    planes (:func:`fixed_taps16`; the bias is the kernel's alone), then the
+    int16 x int16 dot of every weight column in float64, exact (each
+    product is at most 2^30 and every partial sum an integer below 2^40,
+    so any order gives the same number), wrapped to int32 as the C
+    accumulator wraps, then the Q15 epilogue in int32 (ops/fixed_math:
+    SATURATE32PSHR for n_accum 1, the MULT16_32_Q15 cubic mix of the 4
+    accumulators for n_accum 4)."""
     if scheme == "fixed":
         w = (fixed_taps16(w[0]), *w[2:])                # int16[P, K, C]
     P, K, R = w[0].shape[-3:]     # [P, K, R], [D|3, P, K, R] or [P, K, C]

@@ -15,10 +15,9 @@ choice), so the two engines can be compared launch by launch.  All four
 geometries serve in both numeric universes (float, and the Q15 fixed-point
 universe with its exact scheme "fixed"):
 
-- "tiled": ``ops/tiled_fir.resample_tiled`` (small weight cycles, e.g.
-  44.1k -> 48k);
-- "streamed": ``ops/streamed_fir.resample_streamed`` (large ones, e.g.
-  48k -> 44.1k);
+- "tiled" (small weight cycles, e.g. 44.1k -> 48k) and "streamed" (large
+  ones, e.g. 48k -> 44.1k), the two phase-tiled geometries:
+  ``ops/streamed_fir.resample_streamed``, one launcher for both;
 - "dense": launch quanta below one tiled or streamed unit (a hard
   ``max_latency_ms`` cap such as the voip preset's 20 ms):
   ``ops/dense_fir.resample_dense`` in the float universe,
@@ -366,8 +365,8 @@ class BatchedStep:
     launch's device weights;
     ``kernel`` names the geometry and so what the step launches,
     ``kernel_kw`` the remaining arguments of its launch:
-    ``tf.resample_tiled(hist, x, w, **kernel_kw)`` for "tiled",
-    ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "streamed",
+    ``sf.resample_streamed(hist, x, w, **kernel_kw)`` for "tiled" and
+    "streamed",
     ``df.resample_dense(hist, x, w, **kernel_kw)`` for a float "dense"
     step, ``df.resample_dense_fixed(hist, x, w, **kernel_kw)`` for a fixed
     one, and ``fm.resample_gather[_fixed](x[:in_per_launch].t(), *w,
@@ -595,66 +594,50 @@ def _build_batched_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
     if not spec.fixed_point and scheme not in _FLOAT_SCHEMES:
         raise ResamplerError(ResamplerErrorCode.INVALID_ARG)
-    if bspec.kernel == "streamed":
-        return _build_streamed_step(spec, bspec, device=device,
-                                    scheme=scheme)
     if bspec.kernel == "dense":
         return _build_dense_step(spec, bspec, device=device)
     if bspec.kernel == "gather":
         return _build_gather_step(spec, bspec, device=device)
+    return _build_phase_step(spec, bspec, device=device, scheme=scheme)
+
+
+def _build_phase_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
+                      device: torch.device, scheme: str) -> BatchedStep:
+    """The step of a phase-tiled geometry, "tiled" or "streamed" (the JAX
+    package's two branches), launched by ``sf.resample_streamed``: the
+    phase-tiled weights, a streamed step's padded to K_pad = round128(K)
+    tap rows with the float scheme resolved on the padded set (so planes,
+    scales and certificate equal the JAX package's); a tiled step's chunk
+    of the JAX package's v3 views, a streamed one's of round16(n_in +
+    K_pad) rows.  A CUDA tiled int8 step takes the resident kernel where
+    its band fits (``sf.int8_launch_weights``)."""
+    streamed = bspec.kernel == "streamed"
     with span("speex.setup.planes"):
         ptw = _tiled_weights(spec, bspec.f0)
+        K = -(-ptw.K // 128) * 128 if streamed else ptw.K
         if spec.fixed_point:
             scheme, scales = "fixed", ()
-            host_w = _fixed_host_weights(spec, bspec.f0, ptw.K)
+            host_w = _fixed_host_weights(spec, bspec.f0, K)
         else:
-            scheme, int8p, scales = _resolve_scheme(ptw.w, scheme)
-            host_w = _float_host_weights(ptw.w, scheme, int8p)
-    assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
-    N = spec.filt_len
-    H = _hist_rows_tiled(N)
-    n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
-    n_periods = bspec.n_blocks // ptw.P
-    V = (_v3_views(ptw.S, ptw.K, H, ptw.offsets)
-         + _v3_periods_per_program(ptw.P) - 1)
-    chunk_rows = (n_periods - _v3_back(ptw.S, H) + V) * ptw.S
-    with span("speex.setup.upload"):
-        w = tf.device_weights(host_w, scheme, device)
-        offsets = torch.from_numpy(ptw.offsets.astype(np.int32)).to(device)
-    kernel_kw = dict(
-        offsets=offsets, S=ptw.S, n_blocks=bspec.n_blocks, scheme=scheme,
-        scales=scales, n_accum=_n_cols(spec))
-
-    def step(hist, x, w):
-        y = tf.resample_tiled(hist, x, w, **kernel_kw)
-        return _next_hist(hist, x, n_in, H), y[:n_out]
-
-    return BatchedStep(fn=step, w=w, hist_rows=H, chunk_rows=chunk_rows,
-                       zero_tail=ptw.K, scheme=scheme, kernel_kw=kernel_kw)
-
-
-def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
-                         device: torch.device, scheme: str) -> BatchedStep:
-    """The streamed geometry's step (the JAX package's branch): the
-    phase-tiled weights padded to K_pad = round128(K) tap rows, the float
-    scheme resolved on the padded set (so planes, scales and certificate
-    equal the JAX package's), and a chunk of round16(n_in + K_pad) rows."""
-    with span("speex.setup.planes"):
-        ptw = _tiled_weights(spec, bspec.f0)
-        K_pad = -(-ptw.K // 128) * 128
-        if spec.fixed_point:
-            scheme, scales = "fixed", ()
-            host_w = _fixed_host_weights(spec, bspec.f0, K_pad)
-        else:
-            w_np = np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0)))
+            w_np = np.pad(ptw.w, ((0, 0), (0, K - ptw.K), (0, 0)))
             scheme, int8p, scales = _resolve_scheme(w_np, scheme)
             host_w = _float_host_weights(w_np, scheme, int8p)
     assert (ptw.S, ptw.P, ptw.R) == (bspec.S, bspec.P, bspec.R)
     N = spec.filt_len
     H = _hist_rows_tiled(N)
     n_in, n_out = bspec.in_per_launch, bspec.out_per_launch
+    if streamed:
+        chunk_rows = -(-(n_in + K) // 16) * 16
+    else:
+        V = (_v3_views(ptw.S, ptw.K, H, ptw.offsets)
+             + _v3_periods_per_program(ptw.P) - 1)
+        chunk_rows = (bspec.n_blocks // ptw.P - _v3_back(ptw.S, H)
+                      + V) * ptw.S
     with span("speex.setup.upload"):
-        w = sf.device_weights_streamed(host_w, scheme, device)
+        w = (sf.device_weights_streamed if streamed
+             else tf.device_weights)(host_w, scheme, device)
+    if scheme == "int8" and not streamed and device.type == "cuda":
+        w = sf.int8_launch_weights(w)
     kernel_kw = dict(n_blocks=bspec.n_blocks, shift=H - (N - 1),
                      num=spec.num, den=spec.den, f0=bspec.f0, scheme=scheme,
                      scales=scales, n_accum=_n_cols(spec))
@@ -663,10 +646,9 @@ def _build_streamed_step(spec: fd.FilterSpec, bspec: BatchSpec, *,
         y = sf.resample_streamed(hist, x, w, **kernel_kw)
         return _next_hist(hist, x, n_in, H), y[:n_out]
 
-    return BatchedStep(fn=step, w=w, hist_rows=H,
-                       chunk_rows=-(-(n_in + K_pad) // 16) * 16,
-                       zero_tail=K_pad, scheme=scheme, kernel_kw=kernel_kw,
-                       kernel="streamed")
+    return BatchedStep(fn=step, w=w, hist_rows=H, chunk_rows=chunk_rows,
+                       zero_tail=K, scheme=scheme, kernel_kw=kernel_kw,
+                       kernel=bspec.kernel)
 
 
 def _float_host_weights(w_np: np.ndarray, scheme: str, int8p):
@@ -815,7 +797,9 @@ def weights_from_jax(w, scheme: str, device="cuda",
     - "tiled": an f32 [P, K, R] array for "highest", the
       ``(planes int8[D, P, K, R], bias)`` tuple for "int8" (laid out
       K-major and permuted here, K padded to a multiple of 32:
-      ``tiled_fir.device_weights``);
+      ``tiled_fir.device_weights``, with its slice count; a CUDA step
+      whose band is past the resident kernel's drops it,
+      ``streamed_fir.int8_launch_weights``);
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
       the port's [P, K_pad, R]; for "int8" P and D are swapped to the
@@ -1140,7 +1124,7 @@ class BatchedResampler(ZeroFillDegradation):
 
     def _build_step(self, f0: int) -> None:
         """(Re)build the steady-state step at fractional phase ``f0``.  The
-        launch quantum is f0-independent; only weights and offsets change.
+        launch quantum is f0-independent; only weights and origins change.
         A degraded engine only moves its phase (the zero-output step has
         no weights, and the device may be dead)."""
         if self._degraded:

@@ -41,6 +41,7 @@ from ..ops import phase as ph
 from ..ops import tiled_fir as tf
 from ..ops.convert import lsb_tie_limit
 from ..parallel import batch as tb
+from . import check_offsets_launch
 from . import tc_rate as tr
 
 __all__ = ["B", "H", "N_PERIODS", "FORMS", "LANES", "Geometry", "geometry",
@@ -118,7 +119,8 @@ def _check(form, hist, x, w, offsets, S, n_blocks, lanes):
         raise ValueError(f"form {form!r} not in {FORMS}")
     if lanes not in LANES:
         raise ValueError(f"lanes {lanes} not in {LANES}")
-    return tf._check(hist, x, w, offsets, S, n_blocks, "highest", (), 1)
+    return check_offsets_launch(hist, x, w, offsets, S, n_blocks, "highest",
+                                ())
 
 
 def batched_dot_reference(form: str, hist: torch.Tensor, x: torch.Tensor,

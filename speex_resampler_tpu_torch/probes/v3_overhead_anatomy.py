@@ -7,7 +7,8 @@ Counterpart of ``experiments/v3_overhead_anatomy.py`` (``_make_variant``
 bias, scales), output block (period j, phase m) is R rows of every lane
 from the K-row patch of ``hist ++ x`` at ``j * S + offsets[m]``:
 
-- ``full``: K1b's function (``tiled_fir.resample_tiled``, scheme int8)
+- ``full``: K1b's function (``streamed_fir.resample_streamed``, scheme
+  int8, the resident kernel)
 - ``hoist``: the same output (x split into int8 planes first)
 - ``no_assemble``: every block of period j reads phase 0's patch, full
   epilogue
@@ -37,6 +38,7 @@ from ..ops import _build
 from ..ops import filter_design as fd
 from ..ops import tiled_fir as tf
 from ..parallel import batch as tb
+from . import check_offsets_launch, served_tiled
 from . import tc_rate as tr
 
 __all__ = ["B", "TARGET_IN", "D", "VARIANTS", "Geometry", "geometry",
@@ -104,7 +106,8 @@ def weights(g: Geometry, device="cpu") -> tuple:
 
 
 def launch_kw(g: Geometry, device="cpu", n_periods: int | None = None) -> dict:
-    """The launch's keywords, as ``tiled_fir.resample_tiled`` takes them."""
+    """The launch's keywords: the TPU program's origin table, its period
+    S, the blocks and the digit scales."""
     n = g.n_periods if n_periods is None else n_periods
     return dict(offsets=torch.tensor(g.offsets, dtype=torch.int32,
                                      device=device),
@@ -148,7 +151,8 @@ def _origins(variant: str, offsets: torch.Tensor, S: int,
 def _check(variant, hist, x, w, offsets, S, n_blocks, scales):
     if variant not in VARIANTS:
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
-    P, K, R = tf._check(hist, x, w, offsets, S, n_blocks, "int8", scales, 1)
+    P, K, R = check_offsets_launch(hist, x, w, offsets, S, n_blocks, "int8",
+                                   scales)
     if len(scales) != D:
         raise ValueError(f"{len(scales)} digit planes, the probe takes {D}")
     last = (n_blocks // P - 1) * S + int(offsets.max())
@@ -259,8 +263,9 @@ def anatomy(variant: str, hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
 
 
 def served(hist, x, w, **kw) -> torch.Tensor:
-    """The served K1b on the same launch (``tiled_fir.resample_tiled``)."""
-    return tf.resample_tiled(hist, x, w, scheme="int8", **kw)
+    """The served K1b on the same launch (``probes.served_tiled``: the
+    resident kernel at the flagship's closed-form origins)."""
+    return served_tiled(hist, x, w, scheme="int8", **kw)
 
 
 def measure(variant: str, seed: int = 0) -> dict:

@@ -38,6 +38,7 @@ from ..ops import filter_design as fd
 from ..ops import phase as ph
 from ..ops import tiled_fir as tf
 from ..ops.convert import lsb_tie_limit
+from . import check_offsets_launch
 from . import tc_rate as tr
 
 __all__ = ["B", "N_PERIODS", "SW", "SCHEMES", "Geometry", "geometry",
@@ -128,7 +129,8 @@ def _check(scheme, x, w, offsets, S, n_blocks, scales):
         raise TypeError(f"x must be int16 [T, B], got {x.dtype} "
                         f"{tuple(x.shape)}")
     hist = x.new_zeros((0, x.shape[1]))
-    P, K, R = tf._check(hist, x, w, offsets, S, n_blocks, scheme, scales, 1)
+    P, K, R = check_offsets_launch(hist, x, w, offsets, S, n_blocks, scheme,
+                                   scales)
     if scheme == "int8" and len(scales) != 3:
         raise ValueError(f"{len(scales)} digit planes, the probe takes 3")
     return P, K, R

@@ -1,22 +1,26 @@
 """Kernel launch counts, read by kernel name.
 
 Every kernel wrapper adds one to its module's ``launches`` dict (by scheme,
-a gather's by ``fm.launch_key`` of scheme and form) where it launches its
-kernel.  This module sets those counts to 0, reads them, and names the CUDA
-kernel a step launches, for ``chip_smoke.py`` and the tools that count a
-run's launches (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
+a gather's by ``fm.launch_key`` of scheme and form, the resident int8
+kernel's under "int8_resident") where it launches its kernel.  This module
+sets those counts to 0, reads them, and names the CUDA kernel a step
+launches, for ``chip_smoke.py`` and the tools that count a run's launches
+(``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 """
 
 from __future__ import annotations
 
-from ..ops import _build
 from ..ops import dense_fir as df
 from ..ops import fir_matmul as fm
 from ..ops import streamed_fir as sf
-from ..ops import tiled_fir as tf
 
-#: every kernel module, by the geometry it launches
-MODULES = {"tiled": tf, "streamed": sf, "dense": df, "gather": fm}
+#: every kernel module, by the geometry it launches: the two phase-tiled
+#: geometries share one launcher
+MODULES = {"tiled": sf, "streamed": sf, "dense": df, "gather": fm}
+
+#: each launcher's counts once, under the launch-count geometry of
+#: :func:`step_kernel`
+COUNTERS = {"streamed": sf, "dense": df, "gather": fm}
 
 #: the single-stream route's gather launches: the rows form on f32 samples
 CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
@@ -24,15 +28,16 @@ CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
 
 def reset_launches() -> None:
     """Every kernel module's launch counts to 0."""
-    for module in MODULES.values():
+    for module in COUNTERS.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
 
 
 def launch_counts() -> dict:
-    """The nonzero launch counts, by geometry and scheme (a gather's by
-    ``fm.launch_key`` of scheme and form)."""
+    """The nonzero launch counts, by launcher ("streamed": both
+    phase-tiled geometries) and launch key (a scheme; a gather's
+    ``fm.launch_key`` of scheme and form; "int8_resident")."""
     return {k: {s: n for s, n in m.launches.items() if n}
-            for k, m in MODULES.items() if any(m.launches.values())}
+            for k, m in COUNTERS.items() if any(m.launches.values())}
 
 
 def n_accum_of(step) -> int:
@@ -47,56 +52,61 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
                 form: str = "rows", kO: int = 0) -> str:
     """The CUDA kernel a (geometry, resolved scheme, n_accum) launches; a
     gather's in its form, with its template arguments (the samples int16;
-    the rows form's kO = M / 8 outputs a warp); the tiled int8 launch's
-    "stream" form is its long kernel, which streams the digit band where
-    the band does not fit shared memory."""
+    the rows form's kO = M / 8 outputs a warp; a fixed gather has no rows
+    form, and its name is the stream kernel's); a tiled int8 launch's
+    "rows" form is the resident kernel, its "stream" form the streamed
+    one, where the band does not fit shared memory."""
     if kernel == "gather":
         if form == "band":
             return ("gather_fir_f64mma_kernel<short>" if scheme == "highest"
                     else f"gather_fir_fixed_band_kernel<{n_accum}>")
-        if form == "stream":
+        if form == "stream" or scheme != "highest":
             return ("gather_fir_f64mma_stream_kernel<short>"
                     if scheme == "highest"
                     else f"gather_fir_fixed_stream_kernel<{n_accum}>")
-        return (f"gather_fir_f32_kernel<short, {kO}>" if scheme == "highest"
-                else f"gather_fir_fixed_kernel<{n_accum}, {kO}>")
+        return f"gather_fir_f32_kernel<short, {kO}>"
+    suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}
+    if kernel in ("tiled", "streamed"):
+        if (kernel, scheme, form) == ("tiled", "int8", "rows"):
+            return "tiled_fir_int8_kernel"
+        kernel = "streamed"
     if scheme == "fixed":
         return f"{kernel}_fir_fixed_kernel<{n_accum}>"
-    if (kernel, scheme, form) == ("tiled", "int8", "stream"):
-        return "tiled_fir_int8_long_kernel"
-    suffix = {"highest": "f32", "int8": "int8", "split5": "split5"}[scheme]
-    return f"{kernel}_fir_{suffix}_kernel"
+    return f"{kernel}_fir_{suffix[scheme]}_kernel"
 
 
 def step_kernel(step) -> tuple:
-    """((geometry, launch key), kernel name) of a step's launches; a CPU
+    """((launcher, launch key), kernel name) of a step's launches; a CPU
     gather step (no plan) is named by the plan a CUDA step would make.  A
-    CUDA tiled int8 step whose band spans more K-slices (``w[2]``) than
-    the resident kernel holds for its digit planes takes the long kernel
-    (the "stream" form)."""
-    form, kO, key = "rows", 0, step.scheme
-    if (step.kernel, step.scheme) == ("tiled", "int8") and step.w[0].is_cuda:
-        if step.w[2] > _build.load().tiled_fir_int8_max_slices(
-                step.w[0].shape[0]):
-            form = "stream"
+    tiled int8 step whose weights carry a slice count takes the resident
+    kernel (a CPU step always does: its choice is made only for CUDA
+    weights, ``sf.int8_launch_weights``), else the streamed one (the
+    "stream" form)."""
+    form, kO, key, counter = "rows", 0, step.scheme, step.kernel
+    if step.kernel in ("tiled", "streamed"):
+        counter = "streamed"
+        if (step.kernel, step.scheme) == ("tiled", "int8"):
+            resident = len(step.w) == 4
+            form = "rows" if resident else "stream"
+            key = "int8_resident" if resident else "int8"
     if step.kernel == "gather":
         plan = step.kernel_kw["plan"] or fm.gather_plan(
             step.w[1].cpu().numpy(), step.w[0].shape[-1],
             n_accum=n_accum_of(step) if step.scheme == "fixed" else None)
         form, kO = plan.form, plan.outputs // 8
         key = fm.launch_key(step.scheme, form)
-    return (step.kernel, key), kernel_name(step.kernel, step.scheme,
-                                           n_accum_of(step), form, kO)
+    return (counter, key), kernel_name(step.kernel, step.scheme,
+                                       n_accum_of(step), form, kO)
 
 
 def count_launches(names: dict) -> dict:
-    """The nonzero launch counts by kernel name (``names``: (geometry,
-    launch key) -> name; a count it does not name goes under
-    "geometry/key")."""
+    """The nonzero launch counts by kernel name (``names``: (launcher,
+    launch key) -> name, as :func:`step_kernel` gives them; a count it
+    does not name goes under "launcher/key")."""
     out = {}
-    for geometry, module in MODULES.items():
+    for counter, module in COUNTERS.items():
         for key, n in module.launches.items():
             if n:
-                name = names.get((geometry, key), f"{geometry}/{key}")
+                name = names.get((counter, key), f"{counter}/{key}")
                 out[name] = out.get(name, 0) + n
     return out

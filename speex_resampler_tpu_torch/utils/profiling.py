@@ -17,8 +17,9 @@ The port's spans (``PERF.md`` section 3 says what reads each):
   ``speex.step.pad`` (opened only where a copy of x was made: an x that
   is not int16, contiguous and 16-byte aligned; its count is the quanta
   copied), the kernel wrapper and ``speex.step.hist`` (the next history);
-- ``speex.kernel.tiled`` / ``.streamed`` / ``.dense`` / ``.gather``: a
-  kernel wrapper, its checks to its launch (its plain version on the CPU);
+- ``speex.kernel.streamed`` (both phase-tiled geometries) / ``.dense`` /
+  ``.gather``: a kernel wrapper, its checks to its launch (its plain
+  version on the CPU);
 - ``speex.setup.design`` / ``.planes`` / ``.upload`` / ``.library``: the
   filter design, a step's host weights, their upload (where the process's
   CUDA context is made, if nothing made it before), and the kernel

@@ -13,15 +13,12 @@ from speex_resampler_tpu_torch.ops import tiled_fir as tf
 
 def block_origins(step) -> np.ndarray:
     """Each block's patch origin on the virtual axis hist ++ x, for a step
-    of ``parallel/batch.make_batched_step`` (tiled, streamed or dense: a
-    dense launch's n_in rows are n_in / stride blocks)."""
+    of ``parallel/batch.make_batched_step`` (tiled and streamed:
+    their closed-form origins; dense: a launch's n_in rows are n_in /
+    stride blocks)."""
     kw = step.kernel_kw
     if step.kernel == "dense":
         return np.arange(step.chunk_rows // kw["stride"]) * kw["stride"]
-    k = np.arange(kw["n_blocks"])
-    if step.kernel == "tiled":
-        off = kw["offsets"].cpu().numpy().astype(np.int64)
-        return (k // off.shape[0]) * kw["S"] + off[k % off.shape[0]]
     if step.scheme == "int8":                     # [D, P, R, K]
         R = step.w[0].shape[-2]
     elif step.scheme == "fixed":                  # [2, P, n_accum R, K]

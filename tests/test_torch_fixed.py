@@ -188,20 +188,21 @@ def test_wrapper_guards_and_cpu_tensors_never_launch():
     hist, x = (torch.from_numpy(a) for a in
                launch_inputs(tstep, tspec.in_per_launch, 3, seed=0))
     kw = tstep.kernel_kw
-    before = dict(ttf.launches)
-    y = ttf.resample_tiled(hist, x, tstep.w, **kw)
-    assert ttf.launches == before
-    assert torch.equal(y, ttf.resample_tiled_reference(hist, x, tstep.w,
-                                                       **kw))
+    before = dict(tsf.launches)
+    y = tsf.resample_streamed(hist, x, tstep.w, **kw)
+    assert tsf.launches == before
+    assert torch.equal(y, tsf.resample_streamed_reference(hist, x, tstep.w,
+                                                          **kw))
     with pytest.raises(ValueError):
-        ttf.resample_tiled(hist, x, tstep.w, **{**kw, "n_accum": 1})
+        tsf.resample_streamed(hist, x, tstep.w, **{**kw, "n_accum": 1})
     with pytest.raises(ValueError):
-        ttf.resample_tiled(hist, x, tstep.w, **{**kw, "n_accum": 2})
+        tsf.resample_streamed(hist, x, tstep.w, **{**kw, "n_accum": 2})
     with pytest.raises(ValueError):
-        ttf.resample_tiled(hist, x, tstep.w, **{**kw, "scheme": "highest",
-                                                "n_accum": 4})
+        tsf.resample_streamed(hist, x, tstep.w,
+                              **{**kw, "scheme": "highest", "n_accum": 4})
     with pytest.raises(TypeError):
-        ttf.resample_tiled(hist, x, (tstep.w[0].int(), *tstep.w[1:]), **kw)
+        tsf.resample_streamed(hist, x, (tstep.w[0].int(), *tstep.w[1:]),
+                              **kw)
 
 
 # -- geometry and weights -----------------------------------------------------

@@ -321,10 +321,9 @@ def test_plain_on_new_layout_equals_jax(cfg, f0, B):
     _, jy = jstep.fn(hist, x, jstep.w)
     w = tb.weights_from_jax(tuple(np.asarray(a) for a in jstep.w), "fixed",
                             device="cpu", kernel=kernel)
-    plain = (ttf.resample_tiled_reference if kernel == "tiled"
-             else tsf.resample_streamed_reference)
-    ty = plain(torch.from_numpy(hist), torch.from_numpy(x), w,
-               **tstep.kernel_kw)[:bspec.out_per_launch]
+    ty = tsf.resample_streamed_reference(
+        torch.from_numpy(hist), torch.from_numpy(x), w,
+        **tstep.kernel_kw)[:bspec.out_per_launch]
     assert ty.shape == np.asarray(jy).shape
     assert int((ty.numpy() != np.asarray(jy)).sum()) == 0
 
@@ -412,8 +411,8 @@ def _guard_launch(kernel):
         _, bspec, step = _port_step(FLAGSHIP)
         hist, x = (torch.from_numpy(a) for a in
                    launch_inputs(step, bspec.in_per_launch, 3, seed=0))
-        return (ttf.resample_tiled, ttf.resample_tiled_reference, hist, x,
-                step.w, step.kernel_kw, ttf.launches)
+        return (tsf.resample_streamed, tsf.resample_streamed_reference,
+                hist, x, step.w, step.kernel_kw, tsf.launches)
     w16, coef = _random_fixed(2, 256, 64, 4, seed=3)
     w = ttf.device_weights((w16, coef), "fixed", "cpu")
     hist = torch.zeros((32, 4), dtype=torch.int16)

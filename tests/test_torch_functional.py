@@ -284,7 +284,7 @@ def test_bare_quantum_equals_zero_tailed_chunk(case):
     chunk = torch.zeros((step.chunk_rows, B), dtype=torch.int16)
     chunk[:n_in] = torch.from_numpy(rng.integers(-32768, 32768, (n_in, B),
                                                  dtype=np.int16))
-    launch = ttf.resample_tiled if kernel == "tiled" else tsf.resample_streamed
+    launch = tsf.resample_streamed
     want = launch(hist, chunk, w, **kw)
     got = launch(hist, chunk[:n_in].clone(), w, **kw)
     assert got.shape == want.shape == (bspec.n_blocks * bspec.R, B)
@@ -308,20 +308,19 @@ def _aligned_pcm(rs, B, seed):
 def test_step_hands_the_callers_tensor_to_the_kernel(monkeypatch,
                                                      geometry):
     """An int16, contiguous, 16-byte aligned quantum reaches the kernel
-    wrapper as the caller's own tensor (no copy, no zero tail) and opens
-    no ``speex.step.pad`` span."""
+    wrapper (one for both phase-tiled geometries) as the caller's own
+    tensor (no copy, no zero tail) and opens no ``speex.step.pad``
+    span."""
     rates = (44100, 48000, 7) if geometry == "tiled" else (44100, 16000, 7)
     rs = make_stream_fn(*rates, target_in_frames=600, device="cpu")
-    module = ttf if geometry == "tiled" else tsf
-    name = f"resample_{geometry}"
     seen = []
-    real = getattr(module, name)
+    real = tsf.resample_streamed
 
     def record(hist, x, *args, **kwargs):
         seen.append(x)
         return real(hist, x, *args, **kwargs)
 
-    monkeypatch.setattr(module, name, record)
+    monkeypatch.setattr(tsf, "resample_streamed", record)
     x = _aligned_pcm(rs, 4, 3)
     reset_spans()
     hist, y = rs.step(rs.init(4), x)

@@ -26,7 +26,7 @@ import torch
 
 from speex_resampler_tpu.core.resampler import ResamplerCore as JaxCore
 from speex_resampler_tpu.parallel.batch import BatchedResampler as JaxEngine
-from speex_resampler_tpu_torch.ops import tiled_fir as tf
+from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.runtime import MultiFleet
 from tools import fuzz_torch as fz
 from tools import soak_torch as sk
@@ -70,8 +70,8 @@ def test_lane_counts_weight_the_edges():
 def test_fixed_draws_drive_an_accumulator_past_2_31():
     """The fixed draws' wrap window: its exact accumulator passes 2^31
     and the frames carry 32767 * sign(taps) over it on every third lane."""
-    cfg = fz.make_draw(0, fz.CLASSES.index("tiled_fir_fixed_kernel<4>"),
-                       LANES)
+    cfg = fz.make_draw(
+        0, fz.CLASSES.index("streamed_fir_fixed_kernel<4> (tiled)"), LANES)
     assert fz.wrap_sum(cfg) > 2 ** 31
     row0, taps = fz.wrap_window(cfg)
     x = fz.batch_frames(cfg)
@@ -153,9 +153,11 @@ def _core_draw(mode, fixed, seed):
 
 
 DRAWS = {
-    "tiled-highest": lambda: _class_draw("tiled_fir_f32_kernel"),
-    "tiled-fixed4": lambda: _class_draw("tiled_fir_fixed_kernel<4>"),
-    "tiled-fixed1": lambda: _class_draw("tiled_fir_fixed_kernel<1>"),
+    "tiled-highest": lambda: _class_draw("streamed_fir_f32_kernel (tiled)"),
+    "tiled-fixed4": lambda: _class_draw(
+        "streamed_fir_fixed_kernel<4> (tiled)"),
+    "tiled-fixed1": lambda: _class_draw(
+        "streamed_fir_fixed_kernel<1> (tiled)"),
     "dense-float": lambda: _class_draw("dense_fir_f32_kernel"),
     "gather-band-fixed": lambda: _class_draw(
         "gather_fir_fixed_band_kernel<4>"),
@@ -181,7 +183,8 @@ def test_square_waves_repeat_ties_in_the_jax_engine_too():
     puts more outputs 1 LSB off the exact host route than the tie bound
     allows, since a periodic input repeats its ties every period; the
     port's engine does the same, and stays within 1 LSB of both."""
-    cfg = fz.make_draw(3, fz.CLASSES.index("tiled_fir_f32_kernel"), LANES)
+    cfg = fz.make_draw(3, fz.CLASSES.index("streamed_fir_f32_kernel (tiled)"),
+                       LANES)
     assert cfg["pcm"] == "square" and not cfg["fixed"]
     frames = fz.batch_frames(cfg)
     port = np.concatenate(fz.drive_engine(fz.port_engine(cfg, "cpu"),
@@ -222,23 +225,23 @@ def test_campaign_passes_on_the_cpu(tmp_path, monkeypatch):
 
 
 def test_campaign_catches_an_injected_fault(tmp_path, monkeypatch):
-    """A tiled plain version that moves one output by one LSB: the fixed
-    tiled draw fails (exact against the host cores), is reported with its
-    config, and the campaign exits 1."""
-    plain = tf.resample_tiled_reference
+    """A phase-tiled plain version that moves one output by one LSB: the
+    fixed tiled draw fails (exact against the host cores), is reported
+    with its config, and the campaign exits 1."""
+    plain = sf.resample_streamed_reference
 
     def off_by_one(*args, **kw):
         y = plain(*args, **kw).clone()
         y[7, 0] += 1 if y[7, 0] < 32767 else -1
         return y
 
-    monkeypatch.setattr(tf, "resample_tiled_reference", off_by_one)
+    monkeypatch.setattr(sf, "resample_streamed_reference", off_by_one)
     monkeypatch.setattr(fz, "OUT", tmp_path / "fuzz.json")
     rc = fz.main(["--device", "cpu", "--max-lanes", str(LANES), "--draws",
                   "5", "--seed", "0"])
     out = json.loads((tmp_path / "fuzz.json").read_text())
     assert rc == 1
-    fixed = fz.CLASSES.index("tiled_fir_fixed_kernel<4>")
+    fixed = fz.CLASSES.index("streamed_fir_fixed_kernel<4> (tiled)")
     failed = {f["index"]: f for f in out["failures"]}
     assert fixed in failed and "mismatches" in failed[fixed]["detail"]
     assert failed[fixed]["cfg"] == fz.make_draw(0, fixed, LANES)

@@ -253,8 +253,8 @@ def test_gather_plan_picks_the_form(fixed):
     q7 and at q0, the drift's sparsest band (N 8: density N / K 0.33
     float, 0.125 fixed), the same plans as before the stream form; the
     stream form at the steep 96000 -> 401 q3, whose band is too wide to be
-    resident (16 outputs a tile, K 15104), the rows form there for f32
-    samples."""
+    resident (16 outputs a tile, K 15104), the float rows form there for
+    f32 samples."""
     for cfg, K in ((DRIFT, 144 if not fixed else 160),
                    ((44100, 44101, 0), 24 if not fixed else 64)):
         spec, _, step = _step(cfg, fixed)
@@ -270,8 +270,8 @@ def test_gather_plan_picks_the_form(fixed):
     plan = tfm.gather_plan(starts, N, n_accum=n_accum)
     assert plan == tfm.gather_plan_stream(starts, N, n_accum=n_accum)
     assert (plan.form, plan.outputs, plan.taps) == ("stream", 16, 15104)
-    assert tfm.gather_plan_rows(starts, N, n_accum=n_accum).outputs == 8
     if not fixed:   # f32 samples (the single-stream route's): rows
+        assert tfm.gather_plan_rows(starts, N).outputs == 8
         assert tfm.gather_plan(starts, N, x_itemsize=4).form == "rows"
 
 
@@ -322,14 +322,18 @@ def test_cpu_wrappers_take_the_plain_version_whatever_the_plan(fixed):
 
 def test_launch_counts_hold_one_key_a_kernel():
     """``fm.launches`` holds one count a gather kernel, each launch counted
-    once: the rows form's under its scheme, the band and stream forms'
-    under ``launch_key``."""
-    keys = [tfm.launch_key(s, f) for s in ("highest", "fixed")
-            for f in ("rows", "band", "stream")]
-    assert sorted(tfm.launches) == sorted(keys) and len(set(keys)) == 6
-    assert (tfm.launch_key("fixed", "rows"), tfm.launch_key("fixed", "band"),
+    once: the float rows form's under its scheme, the band and stream
+    forms' under ``launch_key`` (the fixed gather has no rows form, so no
+    "fixed" key)."""
+    keys = [tfm.launch_key("highest", "rows")] + [
+        tfm.launch_key(s, f) for s in ("highest", "fixed")
+        for f in ("band", "stream")]
+    assert sorted(tfm.launches) == sorted(keys) and len(set(keys)) == 5
+    assert "fixed" not in tfm.launches
+    assert (tfm.launch_key("highest", "rows"),
+            tfm.launch_key("fixed", "band"),
             tfm.launch_key("highest", "stream")) == (
-        "fixed", "fixed_band", "highest_stream")
+        "highest", "fixed_band", "highest_stream")
 
 
 def test_step_weight_bytes_count_the_band():

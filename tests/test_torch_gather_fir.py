@@ -194,12 +194,14 @@ def _tiles(plan, n_out):
 
 def _plan_of(spec, step, fixed, rows=False):
     """The plan a CUDA step of this spec makes (a CPU step makes none), or
-    with ``rows`` the rows form's plan over the same starts."""
+    with ``rows`` the (float) rows form's plan over the same starts."""
     assert step.kernel_kw["plan"] is None
     n_accum = (4 if step.w[0].ndim == 3 else 1) if fixed else None
-    planner = tfm.gather_plan_rows if rows else tfm.gather_plan
-    return planner(step.w[1].numpy(), spec.filt_len,
-                   n_accum=n_accum), n_accum
+    if rows:
+        return tfm.gather_plan_rows(step.w[1].numpy(), spec.filt_len), \
+            n_accum
+    return tfm.gather_plan(step.w[1].numpy(), spec.filt_len,
+                           n_accum=n_accum), n_accum
 
 
 def _pieces(span, kc, rows):
@@ -211,12 +213,13 @@ def _pieces(span, kc, rows):
 @pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
 @pytest.mark.parametrize("cfg", list(GATHER.values()), ids=list(GATHER))
 def test_gather_plan_covers_every_window(cfg, fixed):
-    """The rows form's plan: for each CTA tile and chunk of KC taps, the
-    pieces of at most ``rows`` rows it stages cover its start spread + KC,
-    so every window's chunk, in order; taps plus rows fit the kernel's
-    shared memory.  The drift ratios stage a chunk's rows at once; the
-    steep decimation (8 outputs' windows 1676 rows apart, past the most
-    rows that fit beside one tap) in pieces.  The plan a CUDA step makes:
+    """The rows form's plan (float only: the fixed gather has no rows
+    form): for each CTA tile and chunk of KC taps, the pieces of at most
+    ``rows`` rows it stages cover its start spread + KC, so every window's
+    chunk, in order; taps plus rows fit the kernel's shared memory.  The
+    drift ratios stage a chunk's rows at once; the steep decimation (8
+    outputs' windows 1676 rows apart, past the most rows that fit beside
+    one tap) in pieces.  The plan a CUDA step makes:
     the band form at the three drift ratios, every output's window inside
     its group's K taps from the group's first start (float: inside the
     rows its CTA stages), within the band's shared memory; the stream form
@@ -244,9 +247,11 @@ def test_gather_plan_covers_every_window(cfg, fixed):
                     - starts[cta] + chosen.taps).max() <= chosen.rows
         assert tfm._band_smem(n_accum, 2, chosen.taps, chosen.rows) \
             <= tfm.GATHER_BAND_SMEM_BYTES
-    plan, n_accum = _plan_of(spec, step, fixed, rows=True)
+    if fixed:
+        return
+    plan, _ = _plan_of(spec, step, fixed, rows=True)
     assert plan.outputs in (8, 16, 32, 64) and 1 <= plan.taps <= N
-    tap_bytes = 8 if not fixed else 4 * n_accum
+    tap_bytes = 8
     smem = (plan.outputs * plan.taps * tap_bytes
             + plan.rows * tfm.GATHER_LANES * 2)
     assert smem <= tfm.GATHER_SMEM_BYTES
@@ -275,8 +280,9 @@ def test_gather_plan_covers_every_window(cfg, fixed):
 def test_gather_plan_chunks_taps_and_refuses_what_cannot_fit():
     """Long windows fall to fewer outputs a CTA, then to tap chunks; a
     spread no CTA of 8 outputs can stage at once is staged in pieces
-    (eight outputs, half the memory for taps); starts must be sorted and
-    N positive."""
+    (eight outputs, half the memory for taps); a fixed plan takes no rows
+    form (the stream form where the band does not fit; no form for f32
+    samples); starts must be sorted and N positive."""
     starts = np.arange(4096) * 3
     plan = tfm.gather_plan_rows(starts, 2000)
     assert plan.outputs == 8 and plan.taps < 2000
@@ -289,9 +295,10 @@ def test_gather_plan_chunks_taps_and_refuses_what_cannot_fit():
     smem = tfm.GATHER_SMEM_BYTES
     assert tfm.gather_plan_rows(np.arange(64) * 200, 16) == tfm.GatherPlan(
         8, 16, (smem - 8 * 16 * 8) // 128)
-    assert tfm.gather_plan_rows(np.arange(64) * 200, 5000,
-                                n_accum=4) == tfm.GatherPlan(
-        8, smem // 2 // 128, smem // 2 // 128)
+    assert tfm.gather_plan(np.arange(64) * 200, 5000,
+                           n_accum=4).form == "stream"
+    with pytest.raises(ValueError, match="int16"):
+        tfm.gather_plan(np.arange(64) * 200, 5000, n_accum=4, x_itemsize=4)
     with pytest.raises(ValueError, match="non-decreasing"):
         tfm.gather_plan(np.array([0, 2, 1]), 16)
     with pytest.raises(ValueError, match="N = 0"):
@@ -570,7 +577,7 @@ def test_new_kernel_modules_and_tools_load_no_jax_or_triton():
         "sys.argv = ['x']\n"
         "import tools.gather_timing, tools.gather_ablate\n"
         "import tools.process_timing, chip_smoke\n"
-        "assert 'gather' in chip_smoke.MODULES\n"
+        "assert 'gather' in chip_smoke.COUNTERS\n"
         "import speex_resampler_tpu_torch.ops._build as b\n"
         "assert b._lib is None\n"
         "print(sorted(m for m in ('jax', 'triton', 'speex_resampler_tpu')"

@@ -32,6 +32,7 @@ from speex_resampler_tpu_torch.ops import phase as tph
 from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
+from speex_resampler_tpu_torch.utils.launches import step_kernel
 from speex_resampler_tpu_torch.utils.profiling import reset_spans, span_totals
 from speex_resampler_tpu_torch.probes import (
     batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
@@ -39,6 +40,7 @@ from speex_resampler_tpu_torch.probes import (
     prec_bench as ppb, tc_rate as ptr, v3_bench as pv3b,
     v3_overhead_anatomy as pv3, v4_k_layout as pkl,
     v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
+from speex_resampler_tpu_torch.probes import served_tiled
 
 from fixed_inputs import block_origins, launch_inputs, wrap_column
 
@@ -51,6 +53,12 @@ CONFIGS = [(44100, 48000, 7), (44100, 48000, 1), (44100, 48000, 10),
 # the streamed geometry: every 48k->44.1k quality, and 44.1k->16k q7
 STREAMED = [(48000, 44100, 5), (48000, 44100, 7), (48000, 44100, 10),
             (44100, 16000, 7)]
+
+
+def _key(step) -> str:
+    """The launch-count key of a step's launches (the one launcher's:
+    its scheme, "int8_resident" for the resident int8 kernel)."""
+    return step_kernel(step)[0][1]
 
 
 @pytest.fixture
@@ -100,12 +108,12 @@ def test_kernel_matches_plain(cuda, cfg, scheme):
             x[:bspec.in_per_launch] = rng.integers(
                 -32768, 32768, (bspec.in_per_launch, B), dtype=np.int16)
             x = torch.from_numpy(x).cuda()
-            before = ttf.launches[scheme]
-            got = ttf.resample_tiled(hist, x, step.w, **step.kernel_kw)
-            want = ttf.resample_tiled_reference(hist, x, step.w,
-                                                **step.kernel_kw)
+            before = tsf.launches[_key(step)]
+            got = tsf.resample_streamed(hist, x, step.w, **step.kernel_kw)
+            want = tsf.resample_streamed_reference(hist, x, step.w,
+                                                   **step.kernel_kw)
             torch.cuda.synchronize()
-            assert ttf.launches[scheme] == before + 1
+            assert tsf.launches[_key(step)] == before + 1
             _compare(got.cpu().numpy(), want.cpu().numpy(), scheme)
 
 
@@ -205,9 +213,8 @@ def test_f32_misaligned_weights_raise(cuda, kernel):
     bspec = tb._launch_geometry(spec, cfg[3])
     step = tb.make_batched_step(spec, bspec, device="cuda", scheme="highest")
     assert step.kernel == kernel
-    module = ttf if kernel == "tiled" else tsf
-    launch = (ttf.resample_tiled if kernel == "tiled"
-              else tsf.resample_streamed)
+    module = tsf
+    launch = tsf.resample_streamed
     w, bands = step.w
     buf = torch.zeros(w.numel() + 4, dtype=torch.float32, device="cuda")
     off = buf[1:1 + w.numel()].view(w.shape)
@@ -220,8 +227,7 @@ def test_f32_misaligned_weights_raise(cuda, kernel):
         launch(hist, x, (off, bands), **step.kernel_kw)
     assert module.launches["highest"] == before
     got = launch(hist, x, step.w, **step.kernel_kw)
-    plain = (ttf.resample_tiled_reference if kernel == "tiled"
-             else tsf.resample_streamed_reference)
+    plain = tsf.resample_streamed_reference
     want = plain(hist, x, step.w, **step.kernel_kw)
     torch.cuda.synchronize()
     assert module.launches["highest"] == before + 1
@@ -262,7 +268,7 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
     i, o, q, _ = cfg
     spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
     m = tph.producible_outputs(3368, 0, 0, spec.num, spec.den)
-    module = ttf if kernel == "tiled" else tsf
+    module = tsf
     for f0 in sorted({0, (m * spec.num) % spec.den}):
         bspec, step = _fixed_step(cfg, f0, kernel)
         assert (step.kernel, step.scheme) == (kernel, "fixed")
@@ -271,10 +277,8 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
         for B in (2048, 130, 129, 64):
             hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
                 step, bspec.in_per_launch, B, seed=B + f0))
-            launch = (ttf.resample_tiled if kernel == "tiled"
-                      else tsf.resample_streamed)
-            plain = (ttf.resample_tiled_reference if kernel == "tiled"
-                     else tsf.resample_streamed_reference)
+            launch = tsf.resample_streamed
+            plain = tsf.resample_streamed_reference
             before = module.launches["fixed"]
             got = launch(hist, x, step.w, **step.kernel_kw)
             want = plain(hist, x, step.w, **step.kernel_kw)
@@ -299,7 +303,7 @@ def test_fixed_engine_cuda_matches_cpu(cuda, cfg, streams, channels):
     engines = [BatchedResampler(streams, channels, i, o, q, device=d,
                                 fixed_point=True, target_chunk_frames=target)
                for d in ("cuda", "cpu")]
-    module = ttf if engines[0].bspec.kernel == "tiled" else tsf
+    module = tsf
     rng = np.random.default_rng(5)
     frames = [rng.integers(-32768, 32768, (streams, n, channels),
                            dtype=np.int16)
@@ -380,25 +384,23 @@ def test_dense_kernel_matches_plain(cuda, cfg):
     ids=["tiled-96k-8k-q10-auto", "tiled-44k1-48k-q7", "streamed-48k-44k1-q10",
          "streamed-44k1-16k-q7"])
 def test_split5_kernel_matches_plain(cuda, cfg, scheme, kernel):
-    """tiled_fir_split5_kernel (K 4600 at 96k->8k q10, where "auto"
-    resolves split5) and streamed_fir_split5_kernel (P 147 and P 20)
-    against their plain versions, at f0 = 0 and at the phase a flush of
-    4040 frames leaves, B = 2048, 130, 129 (rows not 16-byte aligned, so
-    2-byte loads) and 64 (one warpgroup's lanes).  Each case's mismatch
-    count is printed."""
+    """streamed_fir_split5_kernel in the tiled geometry (K 4600 at 96k->8k
+    q10, where "auto" resolves split5; the flagship) and the streamed one
+    (P 147 and P 20) against their plain versions, at f0 = 0 and at the
+    phase a flush of 4040 frames leaves, B = 2048, 130, 129 (rows not
+    16-byte aligned, so 2-byte loads) and 64 (one warpgroup's lanes).  Each
+    case's mismatch count is printed."""
     i, o, q, target = cfg
     spec = tfd.design_filter(*_reduced(i, o), q)
     m = tph.producible_outputs(4040, 0, 0, spec.num, spec.den)
-    module = ttf if kernel == "tiled" else tsf
+    module = tsf
     for f0 in sorted({0, (m * spec.num) % spec.den}):
         bspec = tb._launch_geometry(spec, target, f0=f0)
         step = tb.make_batched_step(spec, bspec, device="cuda",
                                     scheme=scheme)
         assert (step.kernel, step.scheme) == (kernel, "split5")
-        launch = (ttf.resample_tiled if kernel == "tiled"
-                  else tsf.resample_streamed)
-        plain = (ttf.resample_tiled_reference if kernel == "tiled"
-                 else tsf.resample_streamed_reference)
+        launch = tsf.resample_streamed
+        plain = tsf.resample_streamed_reference
         for B in (2048, 130, 129, 64):
             hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
                 step, bspec.in_per_launch, B, seed=B + f0, wrap=False))
@@ -436,7 +438,7 @@ def test_new_paths_cuda_match_cpu(cuda, cfg, kw, kind):
     rng = np.random.default_rng(6)
     frames = [rng.integers(-32768, 32768, (3, n, 2), dtype=np.int16)
               for n in (2 * q_in + 500, q_in // 3 + 7, q_in + 900)]
-    counts = (ttf.launches, tsf.launches, tdf.launches, tfm.launches)
+    counts = (tsf.launches, tdf.launches, tfm.launches)
     outs = []
     for eng in engines:
         before = [dict(c) for c in counts]
@@ -504,8 +506,8 @@ def test_streamed_int8_edges_match_plain(cuda, scheme, D):
 
 @pytest.mark.parametrize("kind", ["dense", "streamed-int8", "tiled-int8"])
 def test_graph_replay_equals_eager(cuda, kind):
-    """resample_dense (voip), resample_streamed(scheme="int8") (48k ->
-    44.1k q10) and resample_tiled(scheme="int8") (the flagship) captured in
+    """resample_dense (voip), resample_streamed(scheme="int8") at 48k ->
+    44.1k q10 and at the flagship (the resident kernel) captured in
     a CUDA graph: a replay equals the eager launch, and after new inputs
     are copied into the captured buffers, a replay equals the eager launch
     on them."""
@@ -516,7 +518,7 @@ def test_graph_replay_equals_eager(cuda, kind):
     elif kind == "tiled-int8":
         spec = tfd.design_filter(147, 160, 7)
         bspec = tb._launch_geometry(spec, 9408)
-        launch = ttf.resample_tiled
+        launch = tsf.resample_streamed
     else:
         spec = tfd.design_filter(160, 147, 10)
         bspec = tb._launch_geometry(spec, 20480)
@@ -582,19 +584,20 @@ def test_stream_fn_graph_equals_eager(cuda, fixed):
     with torch.cuda.stream(side):
         stage(hist, xbuf)
     torch.cuda.current_stream().wait_stream(side)
-    before = ttf.launches[rs.scheme]
+    key = "fixed" if fixed else "int8_resident"
+    before = tsf.launches[key]
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         h_out, y_out, e_out = stage(hist, xbuf)
         hist.copy_(h_out)
-    assert ttf.launches[rs.scheme] == before + 1
+    assert tsf.launches[key] == before + 1
     for x, (h, y, e) in zip(xs, eager):
         xbuf.copy_(x)
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(y_out, y) and torch.equal(e_out, e)
         assert torch.equal(hist, h)
-    assert ttf.launches[rs.scheme] == before + 1
+    assert tsf.launches[key] == before + 1
 
 
 # kernel -> (in, out, quality, target frames), fixed, scheme, geometry
@@ -642,20 +645,17 @@ def test_bare_quantum_equals_zero_tailed_chunk(cuda, kernel):
     assert step.kernel == geometry
     if kernel.startswith("K2b"):
         assert step.w[0].shape[0] == int(kernel[-1])
-    launch, plain, module = (
-        (ttf.resample_tiled, ttf.resample_tiled_reference, ttf)
-        if geometry == "tiled" else
-        (tsf.resample_streamed, tsf.resample_streamed_reference, tsf))
+    launch, plain = tsf.resample_streamed, tsf.resample_streamed_reference
     n_in = bspec.in_per_launch
     for B in (2048, 130):
         hist, chunk = (torch.from_numpy(a).cuda() for a in launch_inputs(
             step, n_in, B, seed=B, wrap=False))
         bare = chunk[:n_in].clone()
-        before = module.launches[step.scheme]
+        before = tsf.launches[_key(step)]
         want = launch(hist, chunk, step.w, **step.kernel_kw)
         got = launch(hist, bare, step.w, **step.kernel_kw)
         torch.cuda.synchronize()
-        assert module.launches[step.scheme] == before + 2
+        assert tsf.launches[_key(step)] == before + 2
         assert torch.equal(got, want)
         if step.scheme in ("int8", "fixed"):
             assert torch.equal(got, plain(hist, bare, step.w,
@@ -685,7 +685,7 @@ def test_stream_fn_graph_on_bare_quanta(cuda, geometry):
     rates, target = (((44100, 48000, 7), 9408) if geometry == "tiled"
                      else ((48000, 44100, 10), 20480))
     rs = make_stream_fn(*rates, target_in_frames=target)
-    module = ttf if geometry == "tiled" else tsf
+    key = "int8_resident" if geometry == "tiled" else "int8"
     B = 256
     rng = np.random.default_rng(12)
     pool = torch.from_numpy(rng.integers(-32768, 32768, (3, rs.in_frames, B),
@@ -706,14 +706,14 @@ def test_stream_fn_graph_on_bare_quanta(cuda, geometry):
     with torch.cuda.stream(side):
         rs.step(hist, xbuf)
     torch.cuda.current_stream().wait_stream(side)
-    before = module.launches[rs.scheme]
+    before = tsf.launches[key]
     reset_spans()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
         h_out, y_out = rs.step(hist, xbuf)
         hist.copy_(h_out)
     assert "speex.step.pad" not in span_totals()
-    assert module.launches[rs.scheme] == before + 1
+    assert tsf.launches[key] == before + 1
     for k, (h, y) in enumerate(eager):
         xbuf.copy_(pool[k])
         graph.replay()
@@ -742,11 +742,12 @@ def test_tiled_int8_digits_match_plain(cuda, D):
             **base.kernel_kw, "scheme": "int8", "scales": scales})
         for B in (2048, 130, 129, 64):
             hist, x = _edge_inputs(step, bspec.in_per_launch, B, B + f0)
-            before = ttf.launches["int8"]
-            got = ttf.resample_tiled(hist, x, w, **step.kernel_kw)
-            want = ttf.resample_tiled_reference(hist, x, w, **step.kernel_kw)
+            before = tsf.launches["int8_resident"]
+            got = tsf.resample_streamed(hist, x, w, **step.kernel_kw)
+            want = tsf.resample_streamed_reference(hist, x, w,
+                                                   **step.kernel_kw)
             torch.cuda.synchronize()
-            assert ttf.launches["int8"] == before + 1
+            assert tsf.launches["int8_resident"] == before + 1
             assert int((got != want).sum()) == 0
 
 
@@ -768,52 +769,60 @@ def _synthetic_int8(D, P, K, R, bands, seed, amp):
                                   "resident-D4"])
 def test_tiled_int8_band_edges_match_plain(cuda, case):
     """Synthetic tiled int8 launches.  "long": 1000-tap bands (33
-    K-slices) past the resident kernel's shared memory, so the launcher
-    takes tiled_fir_int8_long_kernel (int8tc::fir_tile with the tiled
-    origin).  "resident": an all-zero row tile, a band ending at K, odd
-    slice counts, bands of 1 to 8 K-slices.  0 mismatches against the
-    plain version at B = 2048, 130, 129 and 64; the chunk's first quarter
-    alone, its windows reading past its end with nonzero taps, equals the
-    chunk with the rest zeroed (rows past x's end read as zero)."""
+    K-slices) past the resident kernel's shared memory, so the step's
+    weights drop their slice count (``int8_launch_weights``) and the
+    launch takes streamed_fir_int8_kernel.  "resident": an all-zero row
+    tile, a band ending at K, odd slice counts, bands of 1 to 8 K-slices,
+    at closed-form origins of a 208-row period and f0 11.  0 mismatches
+    against the plain version at B = 2048, 130, 129 and 64; the chunk's
+    first quarter alone, its windows reading past its end with nonzero
+    taps, equals the chunk with the rest zeroed (rows past x's end read as
+    zero)."""
     kind, D = case.split("-D")
     D = int(D)
     if kind == "long":
         bands = {(m, rt): (16 + 40 * m + 7 * rt, 1016 + 40 * m + 7 * rt)
                  for m in range(2) for rt in range(2)}
         w, scales = _synthetic_int8(D, 2, 1280, 128, bands, D, amp=16)
-        P, S, n_blocks, H, T = 2, 256, 8, 1040, 2048
+        # origins floor16(128 k + 37): a period of 256 rows
+        origin = dict(shift=37, num=1, den=1, f0=0)
+        n_blocks, H, T, key = 8, 1040, 2048, "int8"
         assert w[2] > _build.load().tiled_fir_int8_max_slices(D)
     else:
         bands = {(0, 0): (0, 0), (0, 1): (5, 70), (1, 0): (200, 256),
                  (1, 1): (33, 250), (2, 0): (0, 256), (2, 1): (64, 96)}
         w, scales = _synthetic_int8(D, 3, 256, 128, bands, 10 + D, amp=128)
-        P, S, n_blocks, H, T = 3, 200, 15, 256, 1200
+        # P R num / den = 3 * 128 * 13 / 24 = 208 rows a period
+        origin = dict(shift=5, num=13, den=24, f0=11)
+        n_blocks, H, T, key = 15, 256, 1200, "int8_resident"
         assert w[2] <= _build.load().tiled_fir_int8_max_slices(D)
-    offsets = torch.arange(P, dtype=torch.int32, device="cuda") * 37
-    kw = dict(S=S, n_blocks=n_blocks, scheme="int8", scales=scales)
+    w = tsf.int8_launch_weights(w)
+    assert len(w) == (3 if kind == "long" else 4)
+    kw = dict(n_blocks=n_blocks, scheme="int8", scales=scales, **origin)
     for B in (2048, 130, 129, 64):
         rng = np.random.default_rng(B)
         hist = torch.from_numpy(rng.integers(-32768, 32768, (H, B),
                                              dtype=np.int16)).cuda()
         x = torch.from_numpy(rng.integers(-32768, 32768, (T, B),
                                           dtype=np.int16)).cuda()
-        before = ttf.launches["int8"]
-        got = ttf.resample_tiled(hist, x, w, offsets, **kw)
-        want = ttf.resample_tiled_reference(hist, x, w, offsets, **kw)
+        before = tsf.launches[key]
+        got = tsf.resample_streamed(hist, x, w, **kw)
+        want = tsf.resample_streamed_reference(hist, x, w, **kw)
         torch.cuda.synchronize()
-        assert ttf.launches["int8"] == before + 1
+        assert tsf.launches[key] == before + 1
         assert int((got != want).sum()) == 0
         cut = x.clone()
         cut[T // 4:] = 0
         assert torch.equal(
-            ttf.resample_tiled(hist, x[:T // 4].clone(), w, offsets, **kw),
-            ttf.resample_tiled(hist, cut, w, offsets, **kw))
+            tsf.resample_streamed(hist, x[:T // 4].clone(), w, **kw),
+            tsf.resample_streamed(hist, cut, w, **kw))
 
 
 def test_tiled_int8_launcher_guards(cuda):
-    """The C entry point refuses planes or bias off a 16-byte boundary or
-    K % 32 != 0 (cudaErrorMisalignedAddress) and a span past K / 32,
-    before any launch."""
+    """The resident kernel's C entry point refuses planes or bias off a
+    16-byte boundary or K % 32 != 0 (cudaErrorMisalignedAddress), a span
+    past K / 32 or past its shared memory, and a weight period P R num /
+    den that is not a whole multiple of 16 rows, before any launch."""
     spec = tfd.design_filter(147, 160, 7)
     bspec = tb._launch_geometry(spec, 9408)
     step = tb.make_batched_step(spec, bspec, device="cuda", scheme="int8")
@@ -827,20 +836,24 @@ def test_tiled_int8_launcher_guards(cuda):
     D, P, R, K = planes.shape
     s = tuple(kw["scales"]) + (0.0,) * (4 - D)
 
-    def call(ptr, k, span, b=bias.data_ptr()):
+    def call(ptr, k, span, b=bias.data_ptr(), den=kw["den"]):
         return lib.tiled_fir_int8(
-            hist.data_ptr(), x.data_ptr(), y.data_ptr(),
-            kw["offsets"].data_ptr(), taps.data_ptr(), ptr, b, D, *s, span,
-            hist.shape[0], x.shape[0], 64, R, k, P, kw["S"], kw["n_blocks"],
+            hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+            ptr, b, D, *s, span, hist.shape[0], x.shape[0], 64, R, k, P,
+            kw["n_blocks"], kw["shift"], kw["num"], den, kw["f0"],
             torch.cuda.current_stream().cuda_stream)
     for err in (call(planes.data_ptr() + 4, K, slices),
                 call(planes.data_ptr(), K - 16, slices),
                 call(planes.data_ptr(), K, slices, bias.data_ptr() + 4)):
-        assert b"misaligned" in lib.tiled_fir_error_string(err)
+        assert b"misaligned" in lib.streamed_fir_error_string(err)
     assert call(planes.data_ptr(), K, K // 32 + 1) != 0
+    assert call(planes.data_ptr(), K, slices, den=kw["den"] + 1) != 0
+    if lib.tiled_fir_int8_max_slices(D) < K // 32:
+        assert call(planes.data_ptr(), K,
+                    lib.tiled_fir_int8_max_slices(D) + 1) != 0
     assert call(planes.data_ptr(), K, slices) == 0
     torch.cuda.synchronize()
-    want = ttf.resample_tiled_reference(hist, x, step.w, **kw)
+    want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
     assert torch.equal(y, want)
 
 
@@ -860,11 +873,11 @@ def test_tiled_int8_engine_cuda_matches_cpu(cuda, streams, channels):
         f[0, :, 0] = np.where(np.arange(f.shape[1]) // 7 % 2, 32767, -32768)
     outs = []
     for eng in engines:
-        before = ttf.launches["int8"]
+        before = tsf.launches["int8_resident"]
         got = [eng.process(frames[0]), eng.process(frames[1]), eng.flush(),
                eng.process(frames[2]), eng.flush()]
         outs.append(np.concatenate(got, axis=1))
-        n = ttf.launches["int8"] - before
+        n = tsf.launches["int8_resident"] - before
         assert n == (eng.launches if eng.device.type == "cuda" else 0)
     assert engines[0]._step.scheme == "int8"
     assert engines[0].launches == engines[1].launches > 2
@@ -905,18 +918,19 @@ def test_fleet_cuda_matches_cpu(cuda, streams, fixed, depth):
     frames = [frames[s, :lens[s]] for s in range(streams)]
     outs = []
     scheme = "fixed" if fixed else "int8"
+    key = "fixed" if fixed else "int8_resident"
     for device in ("cuda", "cpu"):
         fleet = FleetResampler(streams, 2, 44100, 48000, 7, device=device,
                                fixed_point=fixed, target_chunk_frames=q,
                                pipeline_depth=depth)
         assert fleet.stager_kind == "native"
-        before = ttf.launches[scheme]
+        before = tsf.launches[key]
         outs.append(_fleet_serve(fleet, frames, np.random.default_rng(1)))
         if device == "cuda":
             assert fleet._step.scheme == scheme
             assert all(s._pinned.is_pinned() for s in fleet._slabs)
             assert all(b.is_pinned() for b in fleet._readback_bufs)
-            assert ttf.launches[scheme] - before == fleet.stats.launches == 4
+            assert tsf.launches[key] - before == fleet.stats.launches == 4
             assert not fleet.degraded
     for a, b in zip(*outs):
         assert a.shape == b.shape and np.array_equal(a, b)
@@ -1178,8 +1192,8 @@ def test_probe_f32_anatomy_matches_plain(cuda, variant, B):
     _compare(got.cpu().numpy(), want.cpu().numpy(),
              "int8" if variant == "nodot" else "highest")
     if variant == "full":
-        served = ttf.resample_tiled(x16.new_zeros((0, B)), x16, w,
-                                    scheme="highest", **kw)
+        served = served_tiled(x16.new_zeros((0, B)), x16, w,
+                              scheme="highest", **kw)
         assert torch.equal(got, served)
 
 
@@ -1215,8 +1229,7 @@ def test_probe_v5_bench_matches_plain(cuda, scheme, B):
     got = pv5.bench(scheme, x, w, **kw)
     want = pv5.bench_reference(scheme, x, w, **kw)
     _compare(got.cpu().numpy(), want.cpu().numpy(), scheme)
-    served = ttf.resample_tiled(x.new_zeros((0, B)), x, w, scheme=scheme,
-                                **kw)
+    served = served_tiled(x.new_zeros((0, B)), x, w, scheme=scheme, **kw)
     assert torch.equal(got, served)
 
 
@@ -1245,8 +1258,7 @@ def test_probe_batched_dot_matches_plain(cuda, case, B):
     want = pbd.batched_dot_reference(form, hist, x, w, **kw)
     _compare(got.cpu().numpy(), want.cpu().numpy(), "highest")
     # the served f32 kernel at this launch: one FMA chain in tap order
-    assert torch.equal(got, ttf.resample_tiled(hist, x, w, scheme="highest",
-                                               **kw))
+    assert torch.equal(got, served_tiled(hist, x, w, scheme="highest", **kw))
     if form == "batched":
         bl = pbd.BatchedLaunch(form, hist, x, w, **kw)
         assert torch.equal(bl.run_patches(),
@@ -1294,8 +1306,8 @@ def _forced(step, form: str, taps=None):
     n_accum = None
     if step.scheme == "fixed":
         n_accum = 4 if taps.ndim == 3 else 1
-    if form == "rows":
-        return dict(plan=tfm.gather_plan_rows(starts, N, n_accum=n_accum))
+    if form == "rows":       # float only
+        return dict(plan=tfm.gather_plan_rows(starts, N))
     planner = (tfm.gather_plan_band if form == "band"
                else tfm.gather_plan_stream)
     plan = planner(starts, N, n_accum=n_accum)
@@ -1318,20 +1330,21 @@ def _graph_equals_eager(fn, want):
     assert torch.equal(out, want)
 
 
-@pytest.mark.parametrize("form", ["rows", "band"])
 @pytest.mark.parametrize("B", [2048, 130, 129, 64])
 @pytest.mark.parametrize("f0", [0, 5900])
-@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
-def test_gather_kernels_match_plain(cuda, fixed, f0, B, form):
-    """Both forms of the gather kernels, each forced through an explicit
-    plan, at the drift launch (44100 -> 44101 q7, 44101 outputs, N 128),
-    on transposed views of time-major memory, the axis in one operand and
-    as the step passes it (hist and x apart, bit for bit the same), and
-    replayed from a CUDA graph (bit for bit): fixed 0 mismatches with the
-    wrap input on every third lane; float max |err| <= 1 within the tie
-    bound, its raw f32 sums within one f32 rounding of the plain
-    version's; one launch counted a call, under its kernel's key.  The step
-    itself takes the band form here."""
+@pytest.mark.parametrize("fixed,form", [(False, "rows"), (False, "band"),
+                                        (True, "band")],
+                         ids=["float-rows", "float-band", "fixed-band"])
+def test_gather_kernels_match_plain(cuda, fixed, form, f0, B):
+    """The forms of the gather kernels (the fixed one has no rows form),
+    each forced through an explicit plan, at the drift launch (44100 ->
+    44101 q7, 44101 outputs, N 128), on transposed views of time-major
+    memory, the axis in one operand and as the step passes it (hist and x
+    apart, bit for bit the same), and replayed from a CUDA graph (bit for
+    bit): fixed 0 mismatches with the wrap input on every third lane;
+    float max |err| <= 1 within the tie bound, its raw f32 sums within one
+    f32 rounding of the plain version's; one launch counted a call, under
+    its kernel's key.  The step itself takes the band form here."""
     bspec, step = _gather_step(fixed, f0)
     assert step.kernel_kw["plan"].form == "band"
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
@@ -1366,9 +1379,9 @@ def test_gather_kernels_match_plain(cuda, fixed, f0, B, form):
 def test_gather_band_fixed_direct(cuda, B, starts):
     """gather_fir_fixed_band_kernel<1> (64 outputs a group) on direct
     taps (each drift output's largest accumulator row) over the drift
-    starts or synthetic dense-band ones (outputs 0-2 rows apart), and the
-    rows kernel<1> on the same: 0 mismatches against the plain version,
-    with the wrap input on every third lane."""
+    starts or synthetic dense-band ones (outputs 0-2 rows apart): 0
+    mismatches against the plain version, with the wrap input on every
+    third lane."""
     bspec, step = _gather_step(True)
     taps4 = step.w[0]
     rows = taps4.abs().sum(-1).argmax(1)
@@ -1391,18 +1404,13 @@ def test_gather_band_fixed_direct(cuda, B, starts):
     X = torch.cat([hist, x]).t()
     want = tfm.resample_gather_fixed_reference(X, taps, S)
     s_host = S.cpu().numpy()
-    for form in ("band", "rows"):
-        if form == "band":
-            plan = tfm.gather_plan_band(s_host, taps.shape[-1], n_accum=1)
-            assert plan.outputs == 64
-            kw = dict(plan=plan, band=tfm.gather_band(taps, s_host, plan))
-        else:
-            kw = dict(plan=tfm.gather_plan_rows(s_host, taps.shape[-1],
-                                                n_accum=1))
-        got = tfm.resample_gather_fixed(x[:bspec.in_per_launch].t(), taps,
-                                        S, hist=hist.t(), **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(got, want), form
+    plan = tfm.gather_plan_band(s_host, taps.shape[-1], n_accum=1)
+    assert plan.outputs == 64
+    kw = dict(plan=plan, band=tfm.gather_band(taps, s_host, plan))
+    got = tfm.resample_gather_fixed(x[:bspec.in_per_launch].t(), taps, S,
+                                    hist=hist.t(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def _steep_step(fixed: bool):
@@ -1414,14 +1422,13 @@ def _steep_step(fixed: bool):
 
 
 @pytest.mark.parametrize("B", [130, 64])
-@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+@pytest.mark.parametrize("fixed", [False], ids=["float"])
 def test_gather_kernels_stage_rows_in_pieces(cuda, fixed, B):
     """96000 -> 401 q3, a steep gather decimation (N 11496, 8 outputs'
-    windows 1676 rows apart): the rows form's plan, forced, stages each
-    chunk's rows in pieces, and the kernels equal their plain versions
-    (fixed bit for bit, float within the tie bound), hist apart and one
-    operand alike.  (These interpolated taps cannot drive a sum past 2^31,
-    so the inputs are plain random samples.)"""
+    windows 1676 rows apart): the float rows form's plan, forced, stages
+    each chunk's rows in pieces, and the kernel equals its plain version
+    within the tie bound, hist apart and one operand alike (the fixed
+    gather has no rows form)."""
     bspec, step = _steep_step(fixed)
     plan = _forced(step, "rows")["plan"]
     assert plan.outputs == 8 and plan.form == "rows"
@@ -1686,12 +1693,13 @@ def test_clear_step_cache_frees_device_memory(cuda):
 def test_fuzz_campaign_draws_pass_on_the_card(cuda):
     """Ten seeded draws of the campaign (the first ten classes of its
     stratified round): none fails, and each batch draw launched its
-    kernel."""
+    kernel (a class's name less its geometry mark)."""
     from tools import fuzz_torch as fz
     out = fz.campaign(19, 10, float("inf"), "cuda")
     assert out["draws"] == 10 and out["failures"] == [], out["failures"]
     for klass in fz.CLASSES[:10]:
-        assert out["launches"].get(klass, 0) > 0, (klass, out["launches"])
+        assert out["launches"].get(fz.class_kernel(klass), 0) > 0, \
+            (klass, out["launches"])
 
 
 def test_soak_on_the_card_holds_memory_flat(cuda):

@@ -218,10 +218,10 @@ def test_digit_split_follows_the_digit_count():
                  "store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, "
                  "bias, scales,"):
         assert line in HEADER, line
-    for line in ("template <int kD, bool kDigits>",
+    for line in ("template <int kD, bool kDigits, bool kBlockMajor>",
                  "constexpr bool kDigits = fir::int8tc::digit_split(kD);",
                  "fir::int8tc::fir_tile<kD, kDigits>(",
-                 "streamed_fir_int8_kernel<kD, kDigits><<<"):
+                 "kernels[2] = {streamed_fir_int8_kernel<kD, kDigits, false>,"):
         assert line in LAUNCHER, line
     assert [D for D in range(1, 5) if _digit_split(D)] == [2, 4]
 

@@ -10,6 +10,8 @@ with no profiler a span never enters ``record_function``; a step-cache hit
 builds no weights again; the fleet's phases are ``speex.fleet.*`` spans.
 """
 
+import dataclasses
+import math
 import os
 import re
 import sys
@@ -24,6 +26,7 @@ from perfbench import manifest, tracing
 from speex_resampler_tpu_torch import FleetResampler, make_stream_fn
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import filter_design as fd
+from speex_resampler_tpu_torch.ops import streamed_fir as sf
 from speex_resampler_tpu_torch.parallel.batch import (_launch_geometry,
                                                       clear_step_cache,
                                                       make_batched_step)
@@ -38,7 +41,7 @@ RATES = (44100, 48000, 7)
 TARGET = 600
 #: a step on an int16, contiguous, aligned quantum makes no copy, so opens
 #: no ``speex.step.pad``
-STEP_CHILDREN = ["speex.kernel.tiled", "speex.step.hist"]
+STEP_CHILDREN = ["speex.kernel.streamed", "speex.step.hist"]
 
 
 def _pcm(rs, B, seed):
@@ -239,7 +242,7 @@ def test_step_host_reader_takes_the_runtime_out():
     dev = [(KERNEL, 0.0, 200e-6), (KERNEL, 200e-6, 400e-6)]
     host = [("perfbench.call", 0.0, 110e-6),
             ("speex.step", 0.0, 100e-6),
-            ("speex.kernel.tiled", 10e-6, 70e-6),
+            ("speex.kernel.streamed", 10e-6, 70e-6),
             ("cudaLaunchKernel", 30e-6, 60e-6),
             ("Command Buffer Full", 55e-6, 70e-6),
             ("perfbench.call", 110e-6, 220e-6),
@@ -289,14 +292,74 @@ def test_every_served_kernel_is_a_port_kernel(source):
         assert tracing.is_port_kernel(profiled), name
 
 
-def test_the_long_int8_kernel_is_the_stream_form():
-    """The tiled int8 launch's long kernel is its "stream" form; a CPU
-    step, which launches no kernel, is named by the resident one."""
+def test_the_long_int8_kernel_is_the_stream_form(monkeypatch):
+    """A tiled int8 step whose band is past the resident kernel's slices
+    launches the streamed int8 kernel, its "stream" form: its weights
+    without their slice count (``int8_launch_weights``, with the library's
+    slice limit stubbed here) are named ``streamed_fir_int8_kernel`` and
+    counted under the one launcher's "int8"; a band within the limit
+    keeps its slices and the resident kernel.  A CPU step, which launches
+    no kernel, keeps its slices and is named by the resident one."""
     assert launches.kernel_name("tiled", "int8", form="stream") \
-        == "tiled_fir_int8_long_kernel"
+        == "streamed_fir_int8_kernel"
     assert launches.kernel_name("tiled", "int8") == "tiled_fir_int8_kernel"
     spec = fd.design_filter(147, 160, 7)
     step = make_batched_step(spec, _launch_geometry(spec, TARGET),
                              device="cpu")
-    assert launches.step_kernel(step) == (("tiled", "int8"),
+    assert step.w[2] == 7
+    assert launches.step_kernel(step) == (("streamed", "int8_resident"),
                                           "tiled_fir_int8_kernel")
+    for limit, resident in ((7, True), (6, False)):
+        monkeypatch.setattr(_build, "load", lambda limit=limit: type(
+            "Lib", (), {"tiled_fir_int8_max_slices":
+                        staticmethod(lambda D: limit)}))
+        w = sf.int8_launch_weights(step.w)
+        assert (w is step.w) == resident
+        if not resident:
+            assert len(w) == 3 and w[2] is step.w[3]
+            long = dataclasses.replace(step, w=w)
+            assert launches.step_kernel(long) == (
+                ("streamed", "int8"), "streamed_fir_int8_kernel")
+
+
+# one step of every geometry and scheme the port builds: (rates, quality,
+# fixed, scheme, target frames, latency cap ms)
+BUILT = [((44100, 48000), 7, False, "highest", 600, None),
+         ((44100, 48000), 7, False, "int8", 600, None),
+         ((44100, 48000), 7, False, "split5", 600, None),
+         ((44100, 48000), 7, True, "auto", 600, None),
+         ((24000, 48000), 5, True, "auto", 600, None),
+         ((44100, 16000), 7, False, "highest", 600, None),
+         ((44100, 16000), 7, False, "int8", 600, None),
+         ((44100, 16000), 7, False, "split5", 600, None),
+         ((48000, 44100), 5, True, "auto", 600, None),
+         ((44100, 48000), 3, False, "auto", 882, 20),
+         ((44100, 48000), 3, True, "auto", 882, 20),
+         ((48000, 16000), 3, True, "auto", 882, 20),
+         ((44100, 44101), 1, False, "auto", 44100, None),
+         ((44100, 44101), 1, True, "auto", 44100, None),
+         ((96000, 401), 0, False, "auto", 44100, None),
+         ((96000, 401), 0, True, "auto", 44100, None)]
+
+
+def test_every_kernel_a_built_step_names_is_in_the_sources():
+    """Every name ``kernel_name`` gives a step the port builds (through
+    ``step_kernel``: both phase-tiled geometries in every scheme, the
+    dense and gather ones in both universes) is a ``__global__`` function
+    of ``_build._SOURCE_NAMES``; the other direction is
+    test_every_served_kernel_is_a_port_kernel's."""
+    defined = {name for source in _build._SOURCE_NAMES
+               for name in _global_functions(_build._CSRC / source)}
+    seen = set()
+    for (i, o), q, fixed, scheme, target, cap in BUILT:
+        g = math.gcd(i, o)
+        spec = fd.design_filter(i // g, o // g, q, fixed_point=fixed)
+        cap = None if cap is None else int(cap * i / 1000)
+        step = make_batched_step(spec, _launch_geometry(
+            spec, target, max_in_frames=cap), device="cpu", scheme=scheme)
+        name = launches.step_kernel(step)[1]
+        assert name.split("<")[0] in defined, (i, o, q, fixed, name)
+        seen.add((step.kernel, step.scheme))
+        clear_step_cache()
+    assert {k for k, _ in seen} == {"tiled", "streamed", "dense", "gather"}
+    assert len(seen) == 12

@@ -136,10 +136,11 @@ def test_plain_tiled_split5_matches_jax_v3(cfg, B):
     assert ty.shape == (tspec.out_per_launch, B)
     assert_lsb_close(ty.numpy().ravel(), np.asarray(jy).ravel())
     assert np.array_equal(th.numpy(), np.asarray(jh))
-    before = dict(ttf.launches)
-    direct = ttf.resample_tiled(torch.from_numpy(hist), torch.from_numpy(x),
-                                tstep.w, **tstep.kernel_kw)
-    assert ttf.launches == before and torch.equal(direct, ty)
+    before = dict(tsf.launches)
+    direct = tsf.resample_streamed(torch.from_numpy(hist),
+                                   torch.from_numpy(x), tstep.w,
+                                   **tstep.kernel_kw)
+    assert tsf.launches == before and torch.equal(direct, ty)
 
 
 @pytest.mark.parametrize("cfg", [SLICE, SPEECH],

@@ -47,10 +47,10 @@ SCHEMES = {"highest": ("highest", None), "int8-D3": ("int8", 3),
            "int8-D4": ("auto", 4)}
 
 
-def _spec(pkg, cfg):
+def _spec(pkg, cfg, fixed=False):
     i, o, q = cfg
     g = math.gcd(i, o)
-    return pkg.design_filter(i // g, o // g, q)
+    return pkg.design_filter(i // g, o // g, q, fixed_point=fixed)
 
 
 def _flush_f0(spec, staged: int) -> int:
@@ -120,15 +120,33 @@ def test_reference_matches_jax_v4(auto_resolves, scheme, f0, B):
         assert_lsb_close(got, want)
 
 
-@pytest.mark.parametrize("cfg", STREAMED, ids=lambda c: "%d-%d-q%d" % c)
-def test_closed_form_origin_equals_tiled_offsets(cfg):
+# every streamed config, and the tiled geometry's: the flagship float and
+# fixed, 24k->48k q5 fixed (direct, n_accum 1), 96k->8k q10 (split5, P 1)
+CLOSED_FORM = ([(cfg, False, "streamed") for cfg in STREAMED]
+               + [((44100, 48000, 7), False, "tiled"),
+                  ((44100, 48000, 7), True, "tiled"),
+                  ((24000, 48000, 5), True, "tiled"),
+                  ((96000, 8000, 10), False, "tiled")])
+
+
+@pytest.mark.parametrize(
+    "cfg,fixed,kernel", CLOSED_FORM,
+    ids=lambda c: "%d-%d-q%d" % c if isinstance(c, tuple)
+    else ("fixed" if c is True else "" if c is False else c))
+def test_closed_form_origin_equals_tiled_offsets(cfg, fixed, kernel):
     """v4's closed-form origin equals K1's (k // P) * S + offsets[k % P]
-    over two periods at several phases, and the blocks whose window starts
-    inside the history are exactly v4's _v4_hist_plans."""
-    spec = _spec(tfd, cfg)
+    over two periods at several phases (0, those a flush leaves), in both
+    phase-tiled geometries and both universes: the one launcher's origins
+    serve the tiled steps too.  The blocks whose window starts inside the
+    history are exactly v4's _v4_hist_plans."""
+    spec = _spec(tfd, cfg, fixed)
+    assert tb._launch_geometry(spec, TARGET).kernel == kernel
     H = tb._hist_rows_tiled(spec.filt_len)
     shift = H - (spec.filt_len - 1)
-    for f0 in (0, 7, 40, _flush_f0(spec, 4040)):
+    # the phases flushes leave (always 0 at 24k->48k and 96k->8k, whose
+    # den 2 and 1 give 7 % den and 40 % den every phase there is)
+    flushed = {_flush_f0(spec, n) for n in (4040, 3368, 1001)}
+    for f0 in sorted({f % spec.den for f in (0, 7, 40)} | flushed):
         ptw = tb._tiled_weights(spec, f0)
         k = np.arange(2 * ptw.P)
         want = (k // ptw.P) * ptw.S + ptw.offsets[k % ptw.P]

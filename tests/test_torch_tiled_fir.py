@@ -1,7 +1,9 @@
-"""The port's tiled FIR launch against the JAX package's v3 Pallas kernel.
+"""The port's tiled-geometry FIR launch against the JAX package's v3 Pallas
+kernel.
 
-``resample_tiled_reference`` (the CUDA kernel's plain PyTorch version, and
-what ``resample_tiled`` runs for CPU tensors) is held against
+``resample_streamed_reference`` (the phase-tiled kernels' plain PyTorch
+version, and what ``resample_streamed`` runs for CPU tensors, here at the
+tiled geometry's closed-form origins) is held against
 ``resample_conv_tm_pallas_v3`` in interpret mode, reached through each
 package's ``make_batched_step`` with the same history, slab and weights:
 the flagship at f0 = 0 and at the phase a flush leaves, 44.1k->24k q5
@@ -26,6 +28,7 @@ from speex_resampler_tpu.ops import filter_design as jfd
 from speex_resampler_tpu.parallel import batch as jb
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
+from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
@@ -92,7 +95,7 @@ def test_reference_matches_jax_v3(case, scheme):
     assert np.array_equal(th.numpy(), np.asarray(jh))
     # on CPU tensors the step launches the plain version
     kw = tstep.kernel_kw
-    direct = ttf.resample_tiled_reference(
+    direct = tsf.resample_streamed_reference(
         torch.from_numpy(hist), torch.from_numpy(x), tstep.w, **kw)
     assert torch.equal(direct, ty)
 
@@ -101,26 +104,28 @@ def test_cpu_tensors_never_launch_a_kernel():
     """On CPU tensors the wrapper runs the plain version and counts no
     launch, under "highest" and under "split5" (the same launch with the
     weights split in three bf16 planes, within the LSB contract of
-    "highest"); f32 weights under "split5", an unknown scheme and a device
-    without a kernel are refused."""
+    "highest"); f32 weights under "split5", an unknown scheme, a device
+    without a kernel and closed-form origins out of range (f0 past den,
+    a negative shift) are refused."""
     _, tstep, tspec = _steps(*FLAGSHIP[:3], 2352, "0", "highest")
     hist, x = (torch.from_numpy(a) for a in
                _inputs(tstep, tspec.in_per_launch, 3, seed=0))
-    before = dict(ttf.launches)
-    y = ttf.resample_tiled(hist, x, tstep.w, **tstep.kernel_kw)
+    before = dict(tsf.launches)
+    y = tsf.resample_streamed(hist, x, tstep.w, **tstep.kernel_kw)
     w5 = ttf.device_weights(ttf.split5_weights(tstep.w[0].numpy()),
                             "split5", "cpu")
     kw5 = {**tstep.kernel_kw, "scheme": "split5"}
-    y5 = ttf.resample_tiled(hist, x, w5, **kw5)
-    assert ttf.launches == before
-    assert torch.equal(y5, ttf.resample_tiled_reference(hist, x, w5, **kw5))
+    y5 = tsf.resample_streamed(hist, x, w5, **kw5)
+    assert tsf.launches == before
+    assert torch.equal(y5, tsf.resample_streamed_reference(hist, x, w5,
+                                                           **kw5))
     assert_lsb_close(y5.numpy().ravel(), y.numpy().ravel())
     with pytest.raises(TypeError):
-        ttf.resample_tiled(hist, x, tstep.w, **kw5)
+        tsf.resample_streamed(hist, x, tstep.w, **kw5)
     with pytest.raises(ValueError, match="scheme"):
-        ttf.resample_tiled(hist, x, tstep.w,
-                           **{**tstep.kernel_kw, "scheme": "split6"})
-    meta = torch.empty((4,), device="meta")
-    with pytest.raises(ValueError):
-        ttf.resample_tiled(hist, x, tstep.w,
-                           **{**tstep.kernel_kw, "offsets": meta})
+        tsf.resample_streamed(hist, x, tstep.w,
+                              **{**tstep.kernel_kw, "scheme": "split6"})
+    kw = tstep.kernel_kw
+    for bad in ({"f0": kw["den"]}, {"f0": -1}, {"shift": -1}):
+        with pytest.raises(ValueError):
+            tsf.resample_streamed(hist, x, tstep.w, **{**kw, **bad})

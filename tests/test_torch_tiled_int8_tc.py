@@ -24,7 +24,8 @@ Nothing here launches a kernel; the tests pin what the kernel assumes:
   each warpgroup's weight tile, and the epilogue's register and store
   maps cover each warpgroup's outputs once, all tied to the sources' text;
 - the ring schedule never refills a buffer a stage still reads;
-- the wrapper's guards, and CPU tensors never launch.
+- the wrapper's guards (the resident kernel's slice count and period),
+  and CPU tensors never launch.
 
 The kernel itself is held against the plain version by
 tests/test_torch_gpu.py and chip_smoke.py on the card.
@@ -43,6 +44,7 @@ from speex_resampler_tpu.ops import pallas_fir as jpf
 from speex_resampler_tpu.parallel import batch as jb
 from speex_resampler_tpu_torch.ops import filter_design as tfd
 from speex_resampler_tpu_torch.ops import phase as tph
+from speex_resampler_tpu_torch.ops import streamed_fir as tsf
 from speex_resampler_tpu_torch.ops import tiled_fir as ttf
 from speex_resampler_tpu_torch.parallel import batch as tb
 
@@ -154,18 +156,19 @@ def test_plain_on_k_major_equals_jax_v3(D, f0, B):
     planes, bias, scales, _ = ttf.int8_weights(w, digits=D)
     assert np.array_equal(jp[0], planes) and tuple(jp[2]) == scales
     kw = step.kernel_kw
+    ptw = tb._tiled_weights(spec, bspec.f0)
     hist, x = _inputs(step.hist_rows, step.chunk_rows, bspec.in_per_launch,
                       B, seed=B + D)
     jy = jpf.resample_conv_tm_pallas_v3(
         jnp.asarray(hist), jnp.asarray(x),
         (jnp.asarray(jp[0]), jnp.asarray(jp[1])),
-        offsets=tuple(int(o) for o in kw["offsets"]), S=kw["S"],
+        offsets=tuple(int(o) for o in ptw.offsets), S=ptw.S,
         n_blocks=kw["n_blocks"], interpret=True, scheme="int8",
         scales=tuple(jp[2]))
     dw = ttf.device_weights((planes, bias), "int8", "cpu")
-    ty = ttf.resample_tiled_reference(
-        torch.from_numpy(hist), torch.from_numpy(x), dw, kw["offsets"],
-        S=kw["S"], n_blocks=kw["n_blocks"], scheme="int8", scales=scales)
+    ty = tsf.resample_streamed_reference(
+        torch.from_numpy(hist), torch.from_numpy(x), dw,
+        **{**kw, "scheme": "int8", "scales": scales})
     assert ty.shape == (kw["n_blocks"] * bspec.R, B)
     assert np.array_equal(ty.numpy(), np.asarray(jy))
 
@@ -199,7 +202,8 @@ def test_work_list_matches_the_sources():
             "const int m = mr / (g.R / kRowTile);",
             "g, m, mr % (g.R / kRowTile), item0, min(kGroup, items - "
             "item0),",
-            "lane_tiles, offsets[m], S, planes, bias, scales, max_slices);",
+            "lane_tiles, fir::origin(g, o, m), S, planes, bias, scales, "
+            "max_slices);",
             "tiled_fir_int8_kernel<kD, kVec><<<g.P * (g.R / kRowTile) * "
             "groups, kThreads,"):
         assert line in LAUNCHER, line
@@ -264,12 +268,15 @@ def _work_list(P, R, n_periods, B, G, D):
     ids=lambda v: str(v))
 def test_work_list_covers_every_tile_once(P, n_periods, B, G, D):
     """Every (block, row tile, lane tile, row) of the launch is one
-    warpgroup's, exactly once; each tile's origin is the tiled origin
-    (k // P) * S + offsets[k % P]; a CTA's tiles share one (phase, row
-    tile), the CTAs of a phase are neighbours, only a CTA's last group may
-    be short, and its two warpgroups' loads differ by at most one tile."""
+    warpgroup's, exactly once; each tile's origin, its period's S past its
+    phase's closed-form origin, is its block's closed-form origin (num /
+    den = S / (P R), so P R num / den = S); a CTA's tiles share one
+    (phase, row tile), the CTAs of a phase are neighbours, only a CTA's
+    last group may be short, and its two warpgroups' loads differ by at
+    most one tile."""
     R, S = 128, 2352
-    offsets = np.arange(P) * 117 + 5
+    origin = tsf.origins(n_periods * P, R, shift=5, num=S, den=P * R,
+                         f0=P * R - 1).numpy()
     work, wg_rows = _work_list(P, R, n_periods, B, G, D)
     lane_tiles = -(-B // LANES)
     seen = {}
@@ -277,7 +284,7 @@ def test_work_list_covers_every_tile_once(P, n_periods, B, G, D):
         assert len({(t[5], t[1]) for t in tiles}) <= 1
         for k, rt, lane0, r0, period, m in tiles:
             assert k % P == m and k // P == period
-            assert period * S + offsets[m] == (k // P) * S + offsets[k % P]
+            assert period * S + origin[m] == origin[k]
             for row in range(r0, r0 + wg_rows):
                 key = (k, rt, lane0, row)
                 assert key not in seen
@@ -436,7 +443,7 @@ def test_ring_schedule_never_refills_a_buffer_in_use():
 def test_resident_smem_fits_the_flagship():
     """resident_smem<kD>(slices): the band, each warpgroup's ring and
     output tile, 128 bytes of alignment; at the flagship (7 K-slices) one
-    CTA an SM for every D, and the long kernel takes the GPU tests' long
+    CTA an SM for every D, and the streamed kernel takes the GPU tests' long
     band (33 K-slices) at D = 3 and 4."""
     assert ("return kD * slices * kTileBytes + 2 * (kRing * kRawBytes + "
             "kOutBytes) +") in HEADER
@@ -453,41 +460,51 @@ def test_resident_smem_fits_the_flagship():
 # -- the wrapper's guards -----------------------------------------------------
 
 def test_tiled_int8_guards():
-    """N-major planes, K % 32 != 0, planes or bias off a 16-byte boundary
-    and a missing or impossible span are refused before any launch; CPU
-    tensors run the plain version and count no launch."""
+    """N-major planes, K % 32 != 0, planes or bias off a 16-byte boundary,
+    an impossible span and, for the resident kernel, a weight period that
+    is no whole multiple of 16 rows (P R num / den) are refused before any
+    launch; the weights without their span are the streamed kernel's, the
+    same function; CPU tensors run the plain version and count no
+    launch."""
     planes, bias, scales = _host_planes(3, 2, 200, 128, seed=5)
     w = ttf.device_weights((planes, bias), "int8", "cpu")
     hist = torch.zeros((32, 4), dtype=torch.int16)
-    x = torch.zeros((600, 4), dtype=torch.int16)
-    offsets = torch.tensor([3, 40], dtype=torch.int32)
-    kw = dict(S=160, n_blocks=4, scheme="int8", scales=scales)
-    before = dict(ttf.launches)
-    y = ttf.resample_tiled(hist, x, w, offsets, **kw)
-    assert ttf.launches == before and y.shape == (4 * 128, 4)
+    x = torch.randint(-32768, 32768, (600, 4), dtype=torch.int16)
+    # origins floor16(80 k + 3): a period of S = 2 * 128 * 5 / 8 = 160 rows
+    kw = dict(n_blocks=4, shift=3, num=5, den=8, f0=0, scheme="int8",
+              scales=scales)
+    before = dict(tsf.launches)
+    y = tsf.resample_streamed(hist, x, w, **kw)
+    assert tsf.launches == before and y.shape == (4 * 128, 4)
+    assert torch.equal(tsf.resample_streamed(hist, x, (w[0], w[1], w[3]),
+                                             **kw), y)
+    with pytest.raises(ValueError, match="period"):
+        tsf.resample_streamed(hist, x, w, **{**kw, "num": 1, "den": 3})
     with pytest.raises((TypeError, ValueError)):
-        ttf.resample_tiled(hist, x, (torch.from_numpy(planes), *w[1:]),
-                           offsets, **kw)
+        tsf.resample_streamed(hist, x, (torch.from_numpy(planes), *w[1:]),
+                              **kw)
     with pytest.raises(ValueError, match="multiple of 32"):
-        ttf.resample_tiled(hist, x, (w[0][..., :208].contiguous(), *w[1:]),
-                           offsets, **kw)
+        tsf.resample_streamed(hist, x,
+                              (w[0][..., :208].contiguous(), *w[1:]), **kw)
     buf = torch.zeros(w[0].numel() + 1, dtype=torch.int8)
     off = buf[1:].view(w[0].shape)
     off.copy_(w[0])
     assert off.is_contiguous() and off.data_ptr() % 16 == 1
     with pytest.raises(ValueError, match="16-byte aligned"):
-        ttf.resample_tiled(hist, x, (off, *w[1:]), offsets, **kw)
+        tsf.resample_streamed(hist, x, (off, *w[1:]), **kw)
     fbuf = torch.zeros(w[1].numel() + 1, dtype=torch.float32)
     boff = fbuf[1:].view(w[1].shape)
     boff.copy_(w[1])
     assert boff.data_ptr() % 16 == 4
     with pytest.raises(ValueError, match="16-byte aligned"):
-        ttf.resample_tiled(hist, x, (w[0], boff, *w[2:]), offsets, **kw)
-    for bad in ((w[0], w[1], w[3]), (w[0], w[1], np.int64(w[2]), w[3]),
-                (w[0], w[1], 8, w[3]), (w[0], w[1], -1, w[3])):
+        tsf.resample_streamed(hist, x, (w[0], boff, *w[2:]), **kw)
+    for bad in ((w[0], w[1], np.int64(w[2]), w[3]), (w[0], w[1], 8, w[3]),
+                (w[0], w[1], -1, w[3])):
         with pytest.raises(ValueError, match="slices"):
-            ttf.resample_tiled(hist, x, bad, offsets, **kw)
-    assert ttf.launches == before
+            tsf.resample_streamed(hist, x, bad, **kw)
+    with pytest.raises(ValueError, match="int8 weights"):
+        tsf.resample_streamed(hist, x, (w[0], w[1]), **kw)
+    assert tsf.launches == before
 
 
 def test_band_slices():

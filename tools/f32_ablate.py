@@ -37,8 +37,9 @@ The variants are the design's steps, in order, alternatives and parts:
   barriers alone; wrong output).
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
-too, its f32 entry points (called with their own 64-row tap table) are
-timed on the same launches, and each variant is held against them bit for
+too, its streamed f32 entry point (both geometries at their closed-form
+origins, called with its own 64-row tap table) is timed on the same
+launches, and each variant is held against them bit for
 bit: every variant computes each output's FMA chain in the same order, so
 0 outputs may differ.
 
@@ -132,13 +133,12 @@ def _f32(kernel: str) -> bool:
 
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
-    types of its two f32 entry points."""
+    types of its streamed f32 entry point."""
     out = ROOT / "build" / "f32_variants" / "parent" / "libfir.so"
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
     _build.compile_library(out)
-    lib = _build.declare(ctypes.CDLL(str(out)),
-                         ("tiled_fir_f32", "streamed_fir_f32"))
+    lib = _build.declare(ctypes.CDLL(str(out)), ("streamed_fir_f32",))
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _f32))
     return lib
 
@@ -154,16 +154,10 @@ def parent_launch(lib, hist, x, step):
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
                     device="cuda")
     stream = torch.cuda.current_stream().cuda_stream
-    if step.kernel == "tiled":
-        args = (hist.data_ptr(), x.data_ptr(), y.data_ptr(),
-                kw["offsets"].data_ptr(), taps.data_ptr(), w.data_ptr(), H,
-                x.shape[0], B, R, K, P, kw["S"], kw["n_blocks"], stream)
-        fn = lib.tiled_fir_f32
-    else:
-        args = (hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
-                w.data_ptr(), H, x.shape[0], B, R, K, P, kw["n_blocks"],
-                kw["shift"], kw["num"], kw["den"], kw["f0"], stream)
-        fn = lib.streamed_fir_f32
+    args = (hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+            w.data_ptr(), H, x.shape[0], B, R, K, P, kw["n_blocks"],
+            kw["shift"], kw["num"], kw["den"], kw["f0"], stream)
+    fn = lib.streamed_fir_f32
 
     def run(_keep=(taps, y)):        # the pointers' tensors stay alive
         if fn(*args):

@@ -1,6 +1,6 @@
-"""Variants of the fixed-point tensor-core kernels (K2d streamed, K1e / K1d
-tiled: ``{tiled,streamed}_fir_fixed_kernel<n_accum>``), timed and checked
-on one GPU.
+"""Variants of the fixed-point tensor-core kernel (K2d streamed, K1e / K1d
+tiled: ``streamed_fir_fixed_kernel<n_accum>`` in both geometries), timed
+and checked on one GPU.
 
     python3 tools/fixed_ablate.py [--parent CSRC_DIR] [--only NAME ...]
 
@@ -29,10 +29,11 @@ the others.  The variants:
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
 too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
-``build/``); its fixed entry points (the CUDA-core kernels, int16 weights
-[P, K, C] in tap order and a 64-row tap table) are timed at the same
-launches and every variant is held against them: both take exact sums mod
-2^32 and the same Q15 epilogue, so 0 outputs may differ.
+``build/``); its streamed fixed entry point (the CUDA-core kernel, int16
+weights [P, K, C] in tap order and a 64-row tap table; both geometries at
+their closed-form origins) is timed at the same launches and every
+variant is held against it: both take exact sums mod 2^32 and the same
+Q15 epilogue, so 0 outputs may differ.
 
 Exits non-zero without a CUDA device, and after all variants have run if
 any output of one differed from the plain version or the parent.
@@ -76,11 +77,9 @@ VARIANTS = {
 LAUNCHES = [(cs.FIXED_FLAGSHIP, None), (cs.FIXED_SLICE, None),
             (cs.FIXED_DIRECT, None), (cs.FIXED_DIRECT, "streamed")]
 CHECK_LANES = (cs.LANES, 130, 129, 64)
-#: the parent's fixed entry points: (hist, x, y, [offsets,] taps, w, coef,
+#: the parent's streamed fixed entry point: (hist, x, y, taps, w, coef,
 #: n_accum, geometry ..., stream)
 _PARENT_SIGNATURES = {
-    "tiled_fir_fixed": (ctypes.c_int, [ctypes.c_void_p] * 7
-                        + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
     "streamed_fir_fixed": (ctypes.c_int, [ctypes.c_void_p] * 6
                            + [ctypes.c_int] * 12 + [ctypes.c_void_p]),
 }
@@ -136,7 +135,7 @@ def parent_weights(step) -> tuple:
 
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
-    types of its fixed entry points."""
+    types of its streamed fixed entry point."""
     out = ROOT / "build" / "fixed_variants" / "parent" / "libfir.so"
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
@@ -164,18 +163,11 @@ def parent_launch(lib, hist, x, step, weights):
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
-        if step.kernel == "tiled":
-            err = lib.tiled_fir_fixed(
-                hist.data_ptr(), x.data_ptr(), y.data_ptr(),
-                kw["offsets"].data_ptr(), taps.data_ptr(), w16.data_ptr(), c,
-                n_accum, H, x.shape[0], B, R, K, P, kw["S"], kw["n_blocks"],
-                stream)
-        else:
-            err = lib.streamed_fir_fixed(
-                hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
-                w16.data_ptr(), c, n_accum, H, x.shape[0], B, R, K, P,
-                kw["n_blocks"], kw["shift"], kw["num"], kw["den"], kw["f0"],
-                stream)
+        err = lib.streamed_fir_fixed(
+            hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+            w16.data_ptr(), c, n_accum, H, x.shape[0], B, R, K, P,
+            kw["n_blocks"], kw["shift"], kw["num"], kw["den"], kw["f0"],
+            stream)
         if err:
             raise RuntimeError(f"parent kernel launch failed ({err})")
     return run, y

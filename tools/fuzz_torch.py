@@ -36,8 +36,10 @@ code with the kernels.  Draw modes:
 
 Draw ``i`` is a pure function of ``(seed, i)`` (``np.random.default_rng``).
 The first ``len(CLASSES)`` draws are the stratified round: draw ``i``
-rejection-samples a config of class ``CLASSES[i]``, a kernel by name (or a
-core route), predicted from the config through
+rejection-samples a config of class ``CLASSES[i]``, a kernel by name (the
+tiled geometry's launches of the streamed kernels marked " (tiled)", so
+the round draws both phase-tiled geometries; or a core route), predicted
+from the config through
 ``parallel/batch._launch_geometry`` and ``fm.gather_plan`` without building
 weights.  :data:`PINNED` draws (configs of faults found, kept as
 regressions) follow, then free draws.  No draw may hide a fault: an
@@ -94,11 +96,14 @@ CPU_TWIN_MAX_LANES = 256
 LANE_FRAMES = 4e7
 
 # the stratified round: one draw of each kernel the batched engine serves
-# (by name, as utils.launches.kernel_name gives it) and of each core route
+# (by name, as utils.launches.kernel_name gives it; the tiled geometry's
+# launches of the streamed kernels marked, :func:`klass_of`) and of each
+# core route
 CLASSES = (
-    "tiled_fir_int8_kernel", "tiled_fir_f32_kernel",
-    "tiled_fir_split5_kernel", "tiled_fir_fixed_kernel<4>",
-    "tiled_fir_fixed_kernel<1>",
+    "tiled_fir_int8_kernel", "streamed_fir_f32_kernel (tiled)",
+    "streamed_fir_split5_kernel (tiled)",
+    "streamed_fir_fixed_kernel<4> (tiled)",
+    "streamed_fir_fixed_kernel<1> (tiled)",
     "streamed_fir_int8_kernel", "streamed_fir_f32_kernel",
     "streamed_fir_split5_kernel", "streamed_fir_fixed_kernel<4>",
     "dense_fir_f32_kernel", "dense_fir_fixed_kernel<4>",
@@ -152,6 +157,22 @@ def _geometry(ir, orr, q, fixed, target, max_in):
     return bspec, spec
 
 
+def klass_of(geometry: str, name: str) -> str:
+    """The class of a batch draw whose step of ``geometry`` launches the
+    kernel ``name``: the name, marked " (tiled)" where the tiled geometry
+    launches one of the streamed kernels, which both phase-tiled
+    geometries share."""
+    if geometry == "tiled" and name.startswith("streamed_"):
+        return f"{name} (tiled)"
+    return name
+
+
+def class_kernel(klass: str) -> str:
+    """The kernel a batch class's draws launch: its name less the tiled
+    geometry's mark (:func:`klass_of`)."""
+    return klass.removesuffix(" (tiled)")
+
+
 def predict(cfg: dict) -> str:
     """The draw's class: the kernel its engine launches at f0 0 (a float
     tiled or streamed "auto" request resolves only when its weights are
@@ -172,12 +193,13 @@ def predict(cfg: dict) -> str:
         return kernel_name("gather", "fixed" if cfg["fixed"] else "highest",
                            n_accum, plan.form, plan.outputs // 8)
     if cfg["fixed"]:
-        return kernel_name(bspec.kernel, "fixed", n_accum)
+        return klass_of(bspec.kernel,
+                        kernel_name(bspec.kernel, "fixed", n_accum))
     if bspec.kernel == "dense":
         return kernel_name("dense", "highest")
     if cfg["scheme"] == "auto":
         return f"{bspec.kernel} auto"
-    return kernel_name(bspec.kernel, cfg["scheme"])
+    return klass_of(bspec.kernel, kernel_name(bspec.kernel, cfg["scheme"]))
 
 
 def _max_in(cfg: dict):
@@ -679,7 +701,8 @@ def run_batch(cfg: dict, device: str) -> dict:
                          f"streams {picks} vs host cores",
                          max_ties=None if step.scheme == "int8" or periodic
                          else lsb_tie_limit(got.size))
-    return dict(kernel=step_kernel(step)[1], launches=launches,
+    return dict(kernel=klass_of(step.kernel, step_kernel(step)[1]),
+                launches=launches,
                 mismatches=ties, compared=int(got.size), lanes=eng.B,
                 checked=len(picks), scheme=step.scheme, periodic=periodic)
 

@@ -8,8 +8,8 @@ one GPU.
 Builds the kernels from this checkout, prints the ``-Xptxas -v`` lines of
 ``csrc/gather_fir.cu`` and of the fixed dense kernels and the SASS check,
 holds ``dense_fir_fixed_kernel<4>`` and the forms of the float and fixed
-gathers (rows: ``gather_fir_f32_kernel``, ``gather_fir_fixed_kernel<4>``;
-band: ``gather_fir_f64mma_kernel``, ``gather_fir_fixed_band_kernel<4>``;
+gathers (rows, float only: ``gather_fir_f32_kernel``; band:
+``gather_fir_f64mma_kernel``, ``gather_fir_fixed_band_kernel<4>``;
 stream: ``gather_fir_f64mma_stream_kernel``,
 ``gather_fir_fixed_stream_kernel<4>``) against their plain versions at
 their paths' launches
@@ -25,12 +25,12 @@ q7, q1 and q0 (the drift's sparsest bands: N 16 and 8), 48000 -> 44101
 q7, and 96000 -> 401 q3, q1 and q0 (a steep decimation, whose band is
 too wide to be resident: the stream form, its sparsest band at q0), float
 and fixed, at B = 2048, 130, 64 and 2, the band form where it fits, else
-the stream form, and the rows form (each forced through an explicit plan)
-checked against the plain version (fixed bit for bit, with the wrap input
-where the filter can pass 2^31; float within the tie bound) and timed
-back to back; printed with the band's density (N over its K taps an
-output), the walked multiply-adds and ms per G needed multiply-adds, and
-the rows / band or rows / stream ratio.  Raises on a failed check.
+the stream form, and the float rows form (each forced through an explicit
+plan) checked against the plain version (fixed bit for bit, with the wrap
+input where the filter can pass 2^31; float within the tie bound) and
+timed back to back; printed with the band's density (N over its K taps
+an output), the walked multiply-adds and ms per G needed multiply-adds,
+and the float rows / band or rows / stream ratio.  Raises on a failed check.
 Prints the card's name and power limit.
 """
 
@@ -95,8 +95,9 @@ def sweep(smi: str) -> None:
                           f"| {ms[form]:.4f} | {density} | "
                           f"{walked / 1e9:.3f} | "
                           f"{ms[form] / (macs / 1e9):.5f}")
-                print(f"  {i}->{o} q{q} {scheme:7s} B={B:4d} rows / "
-                      f"{forms[0]} = {ms['rows'] / ms[forms[0]]:.3f}")
+                if "rows" in ms:
+                    print(f"  {i}->{o} q{q} {scheme:7s} B={B:4d} rows / "
+                          f"{forms[0]} = {ms['rows'] / ms[forms[0]]:.3f}")
 
 
 def main() -> None:

@@ -49,13 +49,13 @@ variants:
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
 too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
 ``build/``): one whose streamed int8 kernel takes K-major planes and
-whose tiled int8 kernel runs on the CUDA cores (planes int8[D, P, K, R]
-in tap order, no band span) or is the resident one (K-major planes and
-the band span, as this checkout's; told apart by its
-``tiled_fir_int8_max_slices`` entry point).  Both are
-timed at the same launches and every variant is held against them: all
-take exact integer sums and the same f32 epilogue, so 0 outputs may
-differ.
+whose tiled int8 kernel is the resident one (K-major planes and the band
+span), at the closed-form origins as this checkout's, or at a table of
+origins (a ``tiled_fir.cu`` with its own ``tiled_fir_row_tile`` entry
+point, before the one launcher: the table is the closed form's first
+period).  Both are timed at the same launches and every variant is held
+against them: all take exact integer sums and the same f32 epilogue, so
+0 outputs may differ.
 
 Exits non-zero without a CUDA device, and after all variants have run if
 any output of one differed from the plain version or the parent.
@@ -156,16 +156,12 @@ LAUNCHES = [(44100, 48000, 7, 9408, "auto", None),
             (48000, 44100, 10, 20480, "int8", 2),
             (48000, 44100, 10, 20480, "int8", 1)]
 CHECK_LANES = (cs.LANES, 130, 129, 64)
-#: the parent's int8 entry points (hist, x, y, [offsets,] taps, planes,
-#: bias, D, s0..s3, geometry ..., stream)
-_PARENT_SIGNATURES = {
-    "tiled_fir_int8": (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int]
-                       + [ctypes.c_float] * 4 + [ctypes.c_int] * 8
-                       + [ctypes.c_void_p]),
-    "streamed_fir_int8": (ctypes.c_int, [ctypes.c_void_p] * 6
-                          + [ctypes.c_int] + [ctypes.c_float] * 4
-                          + [ctypes.c_int] * 11 + [ctypes.c_void_p]),
-}
+#: a parent's tiled int8 entry point at a table of origins (hist, x, y,
+#: offsets, taps, planes, bias, D, s0..s3, span, geometry ..., S,
+#: n_blocks, stream)
+_TABLE_SIGNATURE = (ctypes.c_int, [ctypes.c_void_p] * 7 + [ctypes.c_int]
+                    + [ctypes.c_float] * 4 + [ctypes.c_int] * 9
+                    + [ctypes.c_void_p])
 
 
 def _int8(kernel: str) -> bool:
@@ -213,34 +209,28 @@ def parent_library(csrc: Path):
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
     _build.compile_library(out)
-    lib = ctypes.CDLL(str(out))
-    # a parent with the resident tiled kernel takes its entry point's band
-    # span and the K-major planes, as this checkout's does
-    resident = hasattr(lib, "tiled_fir_int8_max_slices")
-    sigs = {**_PARENT_SIGNATURES,
-            **({"tiled_fir_int8": _build._SIGNATURES["tiled_fir_int8"]}
-               if resident else {})}
-    for name, (restype, argtypes) in sigs.items():
-        getattr(lib, name).restype = restype
-        getattr(lib, name).argtypes = argtypes
-    lib.resident_int8 = resident
+    lib = _build.declare(ctypes.CDLL(str(out)),
+                         ("tiled_fir_int8", "streamed_fir_int8"))
+    lib.origin_table = hasattr(lib, "tiled_fir_row_tile")
+    if lib.origin_table:
+        lib.tiled_fir_int8.restype, lib.tiled_fir_int8.argtypes = \
+            _TABLE_SIGNATURE
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _int8))
     return lib
 
 
 def parent_launch(lib, hist, x, step):
-    """The parent's int8 kernel on one launch (tiled: the CUDA-core kernel
-    on the planes back in tap order, [D, P, K_pad, R], or the resident
-    kernel on the K-major planes and the band span; streamed: the K-major
-    planes as they are): a function that launches it on the current
-    stream, and its output."""
+    """The parent's int8 kernel on one launch (a resident step: the
+    resident kernel on the K-major planes and the band span, at the
+    closed-form origins or their table; else the streamed kernel on the
+    K-major planes as they are): a function that launches it on the
+    current stream, and its output."""
     kw = step.kernel_kw
     planes, bias, taps = step.w[0], step.w[1], step.w[-1]
     D, P, R, K = planes.shape
-    resident = step.kernel == "tiled" and lib.resident_int8
-    span = (step.w[2],) if resident else ()
-    if step.kernel == "tiled" and not resident:
-        planes = tf.int8_n_major(planes)
+    origin = dict(shift=kw["shift"], num=kw["num"], den=kw["den"],
+                  f0=kw["f0"])
+    table = sf.origins(P, R, **origin, device="cuda").int()
     s = tuple(kw["scales"]) + (0.0,) * (4 - D)
     H, B = hist.shape
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
@@ -248,12 +238,18 @@ def parent_launch(lib, hist, x, step):
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
-        if step.kernel == "tiled":
+        if len(step.w) == 4 and lib.origin_table:
             err = lib.tiled_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(),
-                kw["offsets"].data_ptr(), taps.data_ptr(), planes.data_ptr(),
-                bias.data_ptr(), D, *s, *span, H, x.shape[0], B, R, K, P,
-                kw["S"], kw["n_blocks"], stream)
+                table.data_ptr(), taps.data_ptr(), planes.data_ptr(),
+                bias.data_ptr(), D, *s, step.w[2], H, x.shape[0], B, R, K,
+                P, P * R * kw["num"] // kw["den"], kw["n_blocks"], stream)
+        elif len(step.w) == 4:
+            err = lib.tiled_fir_int8(
+                hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
+                planes.data_ptr(), bias.data_ptr(), D, *s, step.w[2], H,
+                x.shape[0], B, R, K, P, kw["n_blocks"], *origin.values(),
+                stream)
         else:
             err = lib.streamed_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),

@@ -55,8 +55,7 @@ from speex_resampler_tpu_torch.utils.profiling import (  # noqa: E402
     reset_spans, span, span_totals)
 
 #: the spans inside ``speex.step``, in the order a call opens them
-STEP_PARTS = ("speex.step.pad", "speex.kernel.tiled", "speex.kernel.streamed",
-              "speex.step.hist")
+STEP_PARTS = ("speex.step.pad", "speex.kernel.streamed", "speex.step.hist")
 
 
 def _loop_seconds(body, n: int) -> float:
