@@ -13,7 +13,11 @@ nvcc per source, in parallel) and drives the serving paths of
   with "auto" (int8), "highest" and an explicit "split5";
 - the same two in the fixed-point (Q15) universe (``fixed_point=True``,
   the kernels' "fixed" scheme with 4 accumulator column sets), and
-  24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set);
+  24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set); each fixed
+  phase-tiled launch checked prints its instance
+  (``utils/launches.fixed_instance``) and the tiles a CTA walked
+  (``streamed_fir.fixed_tiles`` over ``fixed_ctas``: ~142.5 at q10, B =
+  2048, on persistent CTAs; 1.0 where a CTA takes one tile);
 - the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
   the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
   tensor-core kernel), and wideband voip from 48 kHz capture, 48 kHz ->
@@ -155,8 +159,9 @@ capture), and one launch between two events (which also holds the
 wrapper's host call).  After the build it prints each kernel's registers
 and spills (``ptxas -v``) and the tensor-core instructions of the split5
 (HGMMA), int8 and fixed (IGMMA) kernels' SASS (``cuobjdump``; a missing
-tool or a count of 0 fails the run).  Every phase raises on
-failure (non-zero exit).  The last three lines of standard output are
+tool, a count of 0, a count off ``IGMMA_PINNED`` or a spill in a
+phase-tiled fixed kernel, ``SPILL_FREE``, fails the run).  Every phase
+raises on failure (non-zero exit).  The last three lines of standard output are
 the seconds of each phase (with the card's name and power limit), the
 kernels' JSON summary and ``{"ok": true, "device": {...}}``.  Exits non-zero, printing no result, without a
 CUDA device or outside a checkout of the repository.
@@ -200,6 +205,7 @@ from speex_resampler_tpu_torch.probes import (
     tc_rate as ptr, v3_bench as pv3b, v3_overhead_anatomy as pv3,
     v4_k_layout as pkl, v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
 from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, COUNTERS,
+                                                      fixed_instance,
                                                       kernel_name,
                                                       launch_counts,
                                                       n_accum_of,
@@ -923,25 +929,30 @@ def gmma_counts(lib) -> dict:
 
 #: the IGMMA counts of the served int8 and fixed kernels (K1b; K2b and
 #: K2d, lane tiles fastest; K2d's instance with (block, row tile) fastest,
-#: K1e's): K2b's digit split issues 4 m64n64k32 a K-slice a warpgroup at
-#: D = 4 (8 of m64n32k32 before), two K-slices a stage
+#: K1e's; K1d's and the n_accum 1 streamed one): K2b's digit split issues
+#: 4 m64n64k32 a K-slice a warpgroup at D = 4 (8 of m64n32k32 before), two
+#: K-slices a stage
 IGMMA_PINNED = {"tiled_fir_int8_kernel<3, true>": 12,
                 "streamed_fir_int8_kernel<4, true, false>": 8,
                 "streamed_fir_fixed_kernel<4, false>": 8,
-                "streamed_fir_fixed_kernel<4, true>": 8}
+                "streamed_fir_fixed_kernel<4, true>": 8,
+                "streamed_fir_fixed_kernel<1, true>": 8,
+                "streamed_fir_fixed_kernel<1, false>": 8}
+#: the kernels whose ptxas report must show no spill: the phase-tiled
+#: fixed instances (persistent CTAs hold the next tile's state beside the
+#: walk's)
+SPILL_FREE = tuple(f"streamed_fir_fixed_kernel<{n}, {b}>" for n in (4, 1)
+                   for b in ("false", "true"))
 
 
-def sass_check() -> None:
-    """Counts the tensor-core (wgmma) instructions of each split5 (HGMMA),
-    int8 and fixed (IGMMA; the fixed band and stream gathers too) kernel in
-    the built library's SASS (:func:`gmma_counts`), the f64 FMAs of the
-    float rows gather kernels (their dots are double FMA chains) and the
-    FP64 tensor-core instructions (DMMA) of the float band and stream
-    gather kernels; raises if one of them has none, or if a kernel of
-    :data:`IGMMA_PINNED` has another IGMMA count."""
-    counts = gmma_counts(_build.lib_path())
+def sass_kernels() -> list:
+    """The (kernel, instruction) pairs :func:`sass_check` requires: each
+    split5 kernel's HGMMA, each int8 and fixed kernel's IGMMA (every
+    instance of each CTA order; the fixed band and stream gathers too),
+    the float rows gathers' DFMA and the float band and stream gathers'
+    DMMA."""
     order = ("false", "true")      # the CTA order: (block, row tile) fastest
-    want = [(f"streamed_fir_split5_kernel<{b}>", "HGMMA") for b in order] + [
+    return [(f"streamed_fir_split5_kernel<{b}>", "HGMMA") for b in order] + [
         (f"tiled_fir_int8_kernel<{d}, {v}>", "IGMMA") for d in (1, 2, 3, 4)
         for v in ("true", "false")] + [
         (f"streamed_fir_int8_kernel<{d}, {str(d % 2 == 0).lower()}, {b}>",
@@ -956,6 +967,27 @@ def sass_check() -> None:
         for t in ("short", "float")] + [
         (f"gather_fir_fixed_stream_kernel<{n}>", "IGMMA") for n in (1, 4)] + [
         ("gather_fir_f64mma_stream_kernel<short>", "DMMA")]
+
+
+def spilled_bytes() -> dict:
+    """{kernel: spill store + load bytes} from the build's ptxas reports
+    (:func:`ptxas_props`)."""
+    out = {}
+    for log in sorted(_build.build_dir().glob("*.log")):
+        for name, lines in ptxas_props(log).items():
+            out[name] = sum(int(n) for line in lines
+                            for n in re.findall(r"(\d+) bytes spill", line))
+    return out
+
+
+def sass_check() -> None:
+    """Counts the tensor-core (wgmma) instructions of each kernel of
+    :func:`sass_kernels` in the built library's SASS
+    (:func:`gmma_counts`); raises if one of them has none, if a kernel of
+    :data:`IGMMA_PINNED` has another IGMMA count, or if a kernel of
+    :data:`SPILL_FREE` spills or is missing from the ptxas report."""
+    counts = gmma_counts(_build.lib_path())
+    want = sass_kernels()
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"SASS check (cuobjdump -sass, exit 0): {found}")
     if any(counts.get(key, 0) == 0 for key in want):
@@ -966,6 +998,10 @@ def sass_check() -> None:
            if counts.get((n, "IGMMA"), 0) != c}
     if off:
         raise AssertionError(f"IGMMA counts {off}, pinned {IGMMA_PINNED}")
+    spills = spilled_bytes()
+    bad = {n: spills.get(n) for n in SPILL_FREE if spills.get(n) != 0}
+    if bad:
+        raise AssertionError(f"spills (bytes; None: not reported) {bad}")
 
 
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
@@ -1002,7 +1038,15 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.wrap,
                                       edges=step.scheme == "int8")
+                ctas, tiles = sf.fixed_ctas, sf.fixed_tiles
                 got = launch(hist, x, step, form)
+                if step.scheme == "fixed" \
+                        and step.kernel in ("tiled", "streamed"):
+                    ctas, tiles = sf.fixed_ctas - ctas, sf.fixed_tiles - tiles
+                    print(f"fixed launch: {path.name} -> "
+                          f"{fixed_instance(step)} f0={f0:3d} B={B:4d}: "
+                          f"{tiles} tiles on {ctas} CTAs, "
+                          f"{tiles / ctas:.2f} tiles a CTA")
                 want = plain(hist, x, step)
                 torch.cuda.synchronize()
                 what = f"{path.name} {scheme} {form or ''} f0={f0} B={B}"

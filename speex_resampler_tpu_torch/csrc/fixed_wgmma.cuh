@@ -1,7 +1,9 @@
 // Scheme "fixed" (the Q15 universe) on Hopper's int8 tensor cores: the
-// device function of streamed_fir_fixed_kernel<kAccum> (both phase-tiled
-// geometries) and dense_fir_fixed_kernel<kAccum>
-// (sm_90a only).  It takes a fir::Tile, so one body serves every geometry.
+// device functions of streamed_fir_fixed_kernel<kAccum, kBlockMajor> (both
+// phase-tiled geometries: fir_tiles, persistent CTAs, at n_accum 4;
+// fir_tile, one tile a CTA, at n_accum 1) and dense_fir_fixed_kernel<kAccum>
+// (fir_tile) (sm_90a only).  fir_tile takes a fir::Tile, so one body
+// serves every geometry.
 //
 // It computes the JAX package's _dot_fixed (speex_resampler_tpu/ops/
 // pallas_fir.py), the exact int16 x int16 dot mod 2^32 as four int8 dots:
@@ -86,6 +88,24 @@ struct Shape {
   static constexpr int kSmemBytes = kStages * kStageBytes + 128;
   static constexpr int kWCopies = 2 * kN * kSub * 2 / kThreads;  // a plane
   static constexpr int kMinBlocks = kAccum == 1 ? 2 : 1;  // CTAs an SM
+  // The phase-tiled launch: persistent CTAs (fir_tiles), else one tile a
+  // CTA (fir_tile).  At n_accum 1 the next tile's state spills under the
+  // 128-register cap of 2 CTAs an SM, so it keeps one tile a CTA.
+  static constexpr bool kPersistent = kAccum == 4;
+  // fir_tiles: copies kTileLead stages ahead across its tiles, in a ring
+  // of kTileLead + 2; each tile's epilogue inputs (kEpiBytes: its
+  // descriptor, kAccum * kRows biases and, at n_accum 4, as many coefs) in
+  // one of kTileLead + 1 slots; the output tile in a buffer of its own.
+  static constexpr int kTileLead = 6;
+  static constexpr int kBiases = kAccum * kRows;
+  static constexpr int kEpiBytes = 16 + (kAccum == 4 ? 2 : 1) * kBiases * 4;
+  static constexpr int kOutBytes = kRows * kRawPitch;
+  static constexpr int kTilesSmemBytes = (kTileLead + 2) * kStageBytes +
+                                         (kTileLead + 1) * kEpiBytes +
+                                         kOutBytes + 128;
+  // the dynamic shared memory of the phase-tiled launch
+  static constexpr int kLaunchSmemBytes =
+      kPersistent ? kTilesSmemBytes : kSmemBytes;
 };
 
 // d (+)= A . B: m64n32k32 and m64n64k32 s32 += s8 x s8.
@@ -273,12 +293,324 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
   }
 }
 
-// Lets a fixed kernel take Shape<kAccum>::kSmemBytes of dynamic shared
-// memory.
+// 4-byte asynchronous copy (cp.async.ca: a 4-byte copy needs only its
+// int32 alignment).
+__device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src)
+               : "memory");
+}
+
+// A persistent CTA's output tiles: items blockIdx.x, blockIdx.x + G, ...
+// below n_items = n_kr * lane_tiles (G = gridDim.x), item i being (block,
+// row tile) kr and lane tile lt: kr = i % n_kr, lt = i / n_kr where
+// kBlockMajor, else kr = i / lane_tiles, lt = i % lane_tiles (the
+// one-tile launch's CTA order); block k = kr / row tiles, row tile kr %
+// row tiles, phase k % P, patch origin origin(g, o, k).  Each tile is
+// fir_tile's, with the same sums and epilogue, so the outputs are its
+// own bit for bit; R % Shape::kRows == 0, every row is stored.
+//
+// One ring of kTileLead + 2 stage buffers serves the CTA's whole sequence
+// of stages: the copy cursor (the tile and stage the next copy_next
+// takes) runs kTileLead stages ahead of the walk and on into the next
+// tiles, so the next tile's first stages are in flight while a tile's
+// last ones are walked and its epilogue runs.  Where the cursor enters a
+// tile it computes the tile's origin and tap band (the tap table entry
+// loaded one tile before, so no load waits), and copies the tile's
+// biases and coefs into the tile's epilogue slot with that stage's group;
+// thread 0 writes the tile's descriptor there (K-slices, first output
+// row, first lane).  The epilogue is fir_tile's, its biases and coefs
+// read from the slot (an 8-byte load gives two rows'), its int16 tile
+// leaving through a buffer of its own, so the copies in flight go on.
+// Slot t % (kTileLead + 1) of the CTA's t-th tile is written kTileLead + 1
+// tiles later, once its epilogue has read it: every tile walks at least
+// one stage (a tile whose columns are all zero walks one K-slice of zero
+// weights, whose sums are exact zeros), so the cursor is at most
+// kTileLead tiles ahead.  Launch with kThreads threads and
+// Shape::kTilesSmemBytes of dynamic shared memory; K % 32 == 0 and the
+// planes 16-byte aligned.
+template <int kAccum, bool kBlockMajor>
+__device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
+                                          int n_kr, int lane_tiles,
+                                          const int8_t* __restrict__ planes,
+                                          const int32_t* __restrict__ bias,
+                                          const int32_t* __restrict__ coef) {
+  using Sh = Shape<kAccum>;
+  constexpr int kLead = Sh::kTileLead;
+  constexpr int kStages = kLead + 2;
+  constexpr int kSlots = kLead + 1;
+  extern __shared__ uint8_t fixed_smem[];
+  const uint32_t ring = (smem_addr(fixed_smem) + 127) & ~127u;
+  const uint32_t out = ring + kStages * Sh::kStageBytes;
+  const uint32_t epi = out + Sh::kOutBytes;
+  const int tid = threadIdx.x, h = tid / 128;
+  const int w = (tid % 128) / 32, l = tid % 32;
+  const int C = kAccum * g.R;
+  const int row_tiles = g.R / Sh::kRows;
+  const int n_items = n_kr * lane_tiles;
+  const int n_ctas = gridDim.x;
+
+  // This thread's weight copies (fir_tile's): 16-byte chunk i % 2 of
+  // K-slice (i / 2) % 2 of the CTA's B row n = i / 4, at woff[q] bytes
+  // (and the K-slice's first tap) from the tile's first row in a plane.
+  const size_t plane = (size_t)g.P * C * g.K;
+  int woff[Sh::kWCopies];
+  uint32_t wdst[Sh::kWCopies];
+  int wt[Sh::kWCopies];
+#pragma unroll
+  for (int q = 0; q < Sh::kWCopies; ++q) {
+    const int i = tid + q * kThreads, n = i / 4;
+    const int set = (n % Sh::kN) / Sh::kWgRows;
+    const int row = (n / Sh::kN) * Sh::kWgRows + n % Sh::kWgRows;
+    wt[q] = (i / 2) % 2 * kK + i % 2 * 16;
+    woff[q] = (set * g.R + row) * g.K + wt[q];
+    wdst[q] = (i / 2) % 2 * Sh::kTileBytes + int8tc::core_offset(n, i % 2);
+  }
+  const bool vec = g.B % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(g.hist) |
+                    reinterpret_cast<uintptr_t>(g.x)) % 16 == 0;
+  const bool vec_y = g.B % 8 == 0 && reinterpret_cast<uintptr_t>(g.y) % 16 == 0;
+  // This thread's ldmatrix row (int8tc::load_split).
+  const uint32_t frag = (8 * (l / 16) + l % 8) * kRawPitch +
+                        (16 * w + 8 * ((l / 8) % 2)) * 2;
+
+  // item -> (block k, row tile rt, lane tile lt)
+  auto decode = [&](int item, int& k, int& rt, int& lt) {
+    const int kr = kBlockMajor ? item % n_kr : item / lane_tiles;
+    lt = kBlockMajor ? item / n_kr : item % lane_tiles;
+    k = kr / row_tiles;
+    rt = kr - k * row_tiles;
+  };
+  auto band = [&](int item) {  // the tap table entry of an item's tile
+    int k, rt, lt;
+    decode(item, k, rt, lt);
+    return g.taps + ((k % g.P) * row_tiles + rt) * 2;
+  };
+
+  // The copy cursor: tile c_item (its slot c_slot), stage c_s of its c_n;
+  // its first weight row c_w, its band's first tap c_t at virtual row
+  // c_v, its lanes from c_lane0; the next tile's tap entry n_lo, n_hi.
+  int c_item = blockIdx.x, c_slot = 0, c_s = 0, c_n = 0;
+  const int8_t* c_w = planes;
+  int c_t = 0, c_v = 0, c_lane0 = 0;
+  int n_lo = 0, n_hi = 0;
+  if (c_item < n_items) {
+    const int32_t* e = band(c_item);
+    n_lo = e[0];
+    n_hi = e[1];
+  }
+  // enters tile c_item: its geometry, epilogue slot and descriptor, and
+  // the tap entry of the tile after it
+  auto enter = [&]() {
+    int k, rt, lt;
+    decode(c_item, k, rt, lt);
+    const int m = k % g.P, row0 = rt * Sh::kRows;
+    c_t = n_lo & ~(kK - 1);
+    const int slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK : 1;
+    c_n = (slices + kSub - 1) / kSub;
+    c_s = 0;
+    c_w = planes + ((size_t)m * C + row0) * g.K;
+    c_v = origin(g, o, k) + c_t;
+    c_lane0 = lt * kLanes;
+    const uint32_t slot = epi + c_slot * Sh::kEpiBytes;
+    if (tid < Sh::kBiases)
+      copy4(slot + 16 + tid * 4, bias + (size_t)m * C +
+                                     tid / Sh::kRows * g.R + row0 +
+                                     tid % Sh::kRows);
+    else if (kAccum == 4 && tid < 2 * Sh::kBiases)
+      copy4(slot + 16 + tid * 4,
+            coef + (size_t)m * 4 * g.R +
+                (tid - Sh::kBiases) / Sh::kRows * g.R + row0 +
+                (tid - Sh::kBiases) % Sh::kRows);
+    if (tid == 0)
+      asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"r"(slot),
+                   "r"(slices), "r"(k * g.R + row0), "r"(c_lane0), "r"(0)
+                   : "memory");
+    if (c_item + n_ctas < n_items) {
+      const int32_t* e = band(c_item + n_ctas);
+      n_lo = e[0];
+      n_hi = e[1];
+    }
+  };
+  // the cursor's stage into ring buffer q % kStages: one cp.async group,
+  // empty past the CTA's last tile
+  int c_q = 0;
+  auto copy_next = [&]() {
+    if (c_item < n_items) {
+      if (c_s == 0) enter();
+      const uint32_t buf = ring + (c_q % kStages) * Sh::kStageBytes;
+      const int t0 = c_t + c_s * kStageTaps;
+#pragma unroll
+      for (int q = 0; q < Sh::kWCopies; ++q) {
+        const bool in = t0 + wt[q] < g.K;
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          copy16(buf + p * kSub * Sh::kTileBytes + wdst[q],
+                 in ? c_w + p * plane + woff[q] + t0 : planes,
+                 in ? 16 : 0);
+      }
+#pragma unroll
+      for (int r = 0; r < kStageTaps * kLanes / 8 / kThreads; ++r) {
+        const int i = tid + r * kThreads, tap = i / (kLanes / 8);
+        const int lane = (i % (kLanes / 8)) * 8;
+        copy_x8(g, c_v + c_s * kStageTaps + tap, c_lane0 + lane, vec,
+                buf + Sh::kWBytes + tap * kRawPitch + lane * 2, planes);
+      }
+      if (++c_s == c_n) {
+        c_item += n_ctas;
+        c_slot = c_slot + 1 == kSlots ? 0 : c_slot + 1;
+        c_s = 0;
+      }
+    }
+    ++c_q;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // this thread's copies of the next stage have landed; then every
+  // thread's, visible to the tensor cores and to ldmatrix
+  auto stage_ready = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kLead - 1) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+
+  int acc[3][Sh::kAcc];  // hh, mid, ll
+#pragma unroll
+  for (int j = 0; j < 3; ++j)
+#pragma unroll
+    for (int i = 0; i < Sh::kAcc; ++i) acc[j][i] = 0;
+  // fir_tile's epilogue of the tile in acc, its biases and coefs from its
+  // slot (CTA row r of set s at word s * kRows + r of each), into `out`:
+  // four outputs e = 4g .. 4g + 3 at a time, lanes 16w + l/4 (+ 8) of CTA
+  // rows r0 and r0 + 1, so one 8-byte load takes their two biases of a
+  // set and one their two coefs.
+  auto mix = [&](uint32_t slot) {
+    const uint32_t bias_s = slot + 16, coef_s = bias_s + Sh::kBiases * 4;
+#pragma unroll
+    for (int g4 = 0; g4 < Sh::kPer / 4; ++g4) {
+      const int r0 = h * Sh::kWgRows + 8 * g4 + 2 * (l % 4);
+      unsigned mixed[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int set = 0; set < kAccum; ++set) {
+        unsigned bi[2];
+        int co[2] = {0, 0};
+        asm volatile("ld.shared.v2.u32 {%0, %1}, [%2];\n"
+                     : "=r"(bi[0]), "=r"(bi[1])
+                     : "r"(bias_s + (set * Sh::kRows + r0) * 4)
+                     : "memory");
+        if (kAccum == 4)
+          asm volatile("ld.shared.v2.s32 {%0, %1}, [%2];\n"
+                       : "=r"(co[0]), "=r"(co[1])
+                       : "r"(coef_s + (set * Sh::kRows + r0) * 4)
+                       : "memory");
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int i = set * Sh::kPer + 4 * g4 + u;
+          const unsigned sum = 65536u * (unsigned)acc[0][i] +
+                               256u * (unsigned)acc[1][i] +
+                               (unsigned)acc[2][i] + bi[u % 2];
+          mixed[u] = kAccum == 1
+                         ? sum
+                         : mixed[u] + mult16_32_q15(co[u % 2], (int)sum >> 1);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int lane = 16 * w + l / 4 + 8 * (u / 2);
+        asm volatile("st.shared.u16 [%0], %1;\n"
+                     ::"r"(out + (r0 + u % 2) * kRawPitch + lane * 2),
+                     "h"(sat32pshr15((int)mixed[u]))
+                     : "memory");
+      }
+    }
+  };
+  // the int16 rows of `out` to block rows yrow .. yrow + kRows - 1, lanes
+  // from lane0 (lanes past B are not stored)
+  auto store = [&](int yrow, int lane0) {
+#pragma unroll
+    for (int r = 0; r < Sh::kRows * kLanes / 8 / kThreads; ++r) {
+      const int chunk = tid + r * kThreads;
+      const int row = chunk / (kLanes / 8), cl = chunk % (kLanes / 8) * 8;
+      const int lane = lane0 + cl;
+      if (lane >= g.B) continue;
+      uint32_t v[4];
+      asm volatile("ld.shared.v4.b32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=r"(v[0]), "=r"(v[1]), "=r"(v[2]), "=r"(v[3])
+                   : "r"(out + row * kRawPitch + cl * 2)
+                   : "memory");
+      int16_t* dst = g.y + (size_t)(yrow + row) * g.B + lane;
+      if (vec_y) {
+        *reinterpret_cast<uint4*>(dst) = make_uint4(v[0], v[1], v[2], v[3]);
+      } else {
+#pragma unroll
+        for (int b = 0; b < 8; ++b)
+          if (lane + b < g.B) dst[b] = (int16_t)(v[b / 2] >> (16 * (b & 1)));
+      }
+    }
+  };
+
+#pragma unroll 1
+  for (int s = 0; s < kLead; ++s) copy_next();
+  stage_ready();
+  uint32_t xh[2][4], xl[2][4];
+  int q = 0, slot_i = 0;  // the walk's stage and its tile's slot
+#pragma unroll 1
+  for (int item = blockIdx.x; item < n_items; item += n_ctas) {
+    const uint32_t slot = epi + slot_i * Sh::kEpiBytes;
+    int slices, yrow, lane0, unused;
+    asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(slices), "=r"(yrow), "=r"(lane0), "=r"(unused)
+                 : "r"(slot)
+                 : "memory");
+    const int n_stages = (slices + kSub - 1) / kSub;
+#pragma unroll 1
+    for (int s = 0; s < n_stages; ++s, ++q) {
+      const uint32_t buf = ring + (q % kStages) * Sh::kStageBytes;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        // the last stage stops at the band's end (uniform over the CTA)
+        if (j > 0 && s * kSub + j >= slices) break;
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        int8tc::pin(xh[j]);
+        int8tc::pin(xl[j]);
+        int8tc::load_split(buf + Sh::kWBytes + j * kK * kRawPitch + frag,
+                           xh[j], xl[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+        const int accumulate = s > 0 || j > 0;
+        // this warpgroup's kN rows of the plane tiles
+        const uint32_t b = buf + j * Sh::kTileBytes + h * (Sh::kN / 8) * 256;
+        const uint64_t bh = int8tc::descriptor(b);
+        const uint64_t bl = int8tc::descriptor(b + kSub * Sh::kTileBytes);
+        mma(acc[0], xh[j], bh, accumulate);
+        mma(acc[1], xl[j], bh, accumulate);
+        mma(acc[1], xh[j], bl, 1);
+        mma(acc[2], xl[j], bl, accumulate);
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // later stages' copies, the next tiles' too, run while this
+        // stage's wgmmas do
+        if (j == 0) copy_next();
+      }
+      stage_ready();
+    }
+    asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+    for (int j = 0; j < 3; ++j) int8tc::pin(acc[j]);
+    // the epilogue: `out` was last read before this tile's stage barriers
+    mix(slot);
+    __syncthreads();
+    store(yrow, lane0);
+    slot_i = slot_i + 1 == kSlots ? 0 : slot_i + 1;
+  }
+  // no copy group may be in flight when the CTA exits
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Lets a fixed kernel take `bytes` of dynamic shared memory
+// (Shape<kAccum>::kSmemBytes, fir_tile's, by default).
 template <int kAccum, typename Kernel>
-inline cudaError_t allow_smem(Kernel* kernel) {
+inline cudaError_t allow_smem(Kernel* kernel,
+                              int bytes = Shape<kAccum>::kSmemBytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              Shape<kAccum>::kSmemBytes);
+                              bytes);
 }
 
 static_assert(kThreads == 256, "two warpgroups a CTA");
@@ -291,6 +623,13 @@ static_assert(Shape<1>::kRows * kRawPitch <= Shape<1>::kStageBytes &&
 static_assert(Shape<4>::kRows * kLanes / 8 % kThreads == 0 &&
                   Shape<1>::kRows * kLanes / 8 % kThreads == 0,
               "whole output stores");
+static_assert(Shape<4>::kTilesSmemBytes <= int8tc::kMaxSmem,
+              "the persistent CTA's ring fits its shared memory");
+static_assert(Shape<4>::kPer % 4 == 0 && Shape<1>::kPer % 4 == 0,
+              "fir_tiles' mix: outputs in fours");
+static_assert(Shape<4>::kBiases * 2 <= kThreads &&
+                  Shape<1>::kBiases <= kThreads,
+              "one bias or coef copy a thread");
 
 }  // namespace fixedtc
 }  // namespace fir

@@ -76,7 +76,13 @@
 // takes fixedtc::Shape's rows and int8tc::kLanes lanes.  A q10 launch
 // needs 43.2 G int16 multiply-adds (filt_len x 4 per output): 345 G int8
 // tensor-core operations, ~174 us, above the ~61 us of its bytes, so
-// operations bound it.
+// operations bound it.  At n_accum 4 its CTAs are persistent
+// (fixedtc::fir_tiles): min(tiles, SMs) of them, each walking every
+// G-th tile of the launch's CTA order with one copy ring that runs on
+// across its tiles, so the next tile's copies are in flight through a
+// tile's epilogue (q10, B = 2048: 0.880 against 1.018 ms a launch in a
+// CUDA graph, one tile a CTA; PERF.md); n_accum 1 (2 CTAs an SM at 128
+// registers, where that state spills) keeps one tile a CTA.
 //
 // Scheme "split5" (K2c, and K1c; five bf16 products per multiply-add
 // summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX streams [P, 3, R,
@@ -98,6 +104,8 @@
 #include "fixed_wgmma.cuh"
 #include "int8_wgmma.cuh"
 #include "split5_wgmma.cuh"
+
+#include <algorithm>
 
 namespace {
 
@@ -192,48 +200,89 @@ cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
       stream, g, o, planes, bias, scales);
 }
 
-// CTA (block k, row tile of fixedtc::Shape<kAccum>::kRows rows, lane tile
-// of int8tc::kLanes lanes).
+// Output tiles (block k, row tile of fixedtc::Shape<kAccum>::kRows rows,
+// lane tile of int8tc::kLanes lanes) of n_kr (block, row tile) pairs: a
+// persistent CTA walks every gridDim.x-th of them (fixedtc::fir_tiles, in
+// the CTA order kBlockMajor gives), else a CTA takes one (Cta).
 template <int kAccum, bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads,
                                   fir::fixedtc::Shape<kAccum>::kMinBlocks)
-streamed_fir_fixed_kernel(fir::Launch g, Origin o,
+streamed_fir_fixed_kernel(fir::Launch g, Origin o, int n_kr,
                           const int8_t* __restrict__ planes,
                           const int32_t* __restrict__ bias,
                           const int32_t* __restrict__ coef) {
-  constexpr int kRows = fir::fixedtc::Shape<kAccum>::kRows;
-  const Cta<kBlockMajor> c((g.B + fir::int8tc::kLanes - 1) /
-                           fir::int8tc::kLanes);
-  const int row_tiles = g.R / kRows;
-  const int k = c.kr / row_tiles;
-  fir::fixedtc::fir_tile<kAccum>(
-      g,
-      fir::Tile(g, k, c.kr % row_tiles, c.lt, origin(g, o, k),
-                fir::int8tc::kLanes, kRows),
-      planes, bias, coef);
+  using Shape = fir::fixedtc::Shape<kAccum>;
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  if constexpr (Shape::kPersistent) {
+    fir::fixedtc::fir_tiles<kAccum, kBlockMajor>(g, o, n_kr, lane_tiles,
+                                                 planes, bias, coef);
+  } else {
+    const Cta<kBlockMajor> c(lane_tiles);
+    const int row_tiles = g.R / Shape::kRows;
+    const int k = c.kr / row_tiles;
+    fir::fixedtc::fir_tile<kAccum>(
+        g,
+        fir::Tile(g, k, c.kr % row_tiles, c.lt, origin(g, o, k),
+                  fir::int8tc::kLanes, Shape::kRows),
+        planes, bias, coef);
+  }
+}
+
+// The device's SM count, read once a device (set_once's way: at the first
+// launch there, so a CUDA graph captured after a warm-up launch holds no
+// attribute call).
+cudaError_t sm_count(int* n) {
+  static std::atomic<int> counts[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  *n = counts[dev & 31].load();
+  if (*n > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) counts[dev & 31].store(*n);
+  return err;
 }
 
 // Launches the n_accum kAccum fixed kernel (its shared memory set once a
-// device).
+// device) and sets *ctas to the CTAs launched: persistent
+// (Shape::kPersistent), min(tiles, SMs x Shape::kMinBlocks) on a 1-D grid
+// in the order launch_ordered's rule picks, else one a tile.
 template <int kAccum>
 cudaError_t launch_fixed(const fir::Launch& g, Origin o, const int8_t* planes,
                          const int32_t* bias, const int32_t* coef,
-                         int n_blocks, cudaStream_t stream) {
+                         int n_blocks, cudaStream_t stream, int* ctas) {
   using Shape = fir::fixedtc::Shape<kAccum>;
   static decltype(&streamed_fir_fixed_kernel<kAccum, false>) const
       kernels[2] = {streamed_fir_fixed_kernel<kAccum, false>,
                     streamed_fir_fixed_kernel<kAccum, true>};
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    const cudaError_t e = fir::fixedtc::allow_smem<kAccum>(kernels[0]);
-    return e != cudaSuccess ? e : fir::fixedtc::allow_smem<kAccum>(kernels[1]);
+    const cudaError_t e = fir::fixedtc::allow_smem<kAccum>(
+        kernels[0], Shape::kLaunchSmemBytes);
+    return e != cudaSuccess ? e
+                            : fir::fixedtc::allow_smem<kAccum>(
+                                  kernels[1], Shape::kLaunchSmemBytes);
   });
   if (attr != cudaSuccess) return attr;
-  return launch_ordered(
-      kernels, n_blocks * (g.R / Shape::kRows),
-      (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes,
-      2ll * g.P * kAccum * g.R * g.K, kThreads, Shape::kSmemBytes, stream, g,
-      o, planes, bias, coef);
+  const int n_kr = n_blocks * (g.R / Shape::kRows);
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const long long weight_bytes = 2ll * g.P * kAccum * g.R * g.K;
+  if constexpr (Shape::kPersistent) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    *ctas = std::min(n_kr * lane_tiles, sms * Shape::kMinBlocks);
+    kernels[weight_bytes <= kBlockMajorBytes]<<<*ctas, kThreads,
+                                                 Shape::kTilesSmemBytes,
+                                                 stream>>>(g, o, n_kr, planes,
+                                                           bias, coef);
+    return cudaGetLastError();
+  } else {
+    *ctas = n_kr * lane_tiles;
+    return launch_ordered(kernels, n_kr, lane_tiles, weight_bytes, kThreads,
+                          Shape::kSmemBytes, stream, g, o, n_kr, planes,
+                          bias, coef);
+  }
 }
 
 // CTA (block k, row tile, lane tile) of kLaneTile lanes.
@@ -348,13 +397,14 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
 // planes int8[2, P, n_accum * R, K] (K % 32 == 0, each 32-tap group
 // permuted: fixed_wgmma.cuh), 16-byte aligned; bias int32[P, n_accum * R];
 // coef int32[P, 4, R] (NULL for n_accum 1); taps int32[P, R / rows, 2]
-// (rows: fixed_fir_rows).
+// (rows: fixed_fir_rows).  *ctas: the CTAs launched (0 where none was).
 int streamed_fir_fixed(const void* hist, const void* x, void* y,
                        const void* taps, const void* planes, const void* bias,
                        const void* coef, int n_accum, int H, int T, int B,
                        int R, int K, int P, int n_blocks, int shift, int num,
-                       int den, int f0, void* stream) {
+                       int den, int f0, void* stream, int* ctas) {
   cudaGetLastError();
+  *ctas = 0;
   if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
@@ -363,11 +413,11 @@ int streamed_fir_fixed(const void* hist, const void* x, void* y,
   const auto* b32 = static_cast<const int32_t*>(bias);
   const auto* c32 = static_cast<const int32_t*>(coef);
   const auto st = static_cast<cudaStream_t>(stream);
-  if (n_accum == 4)
-    return static_cast<int>(launch_fixed<4>(g, o, p8, b32, c32, n_blocks, st));
-  if (n_accum == 1)
-    return static_cast<int>(launch_fixed<1>(g, o, p8, b32, c32, n_blocks, st));
-  return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaErrorInvalidValue;
+  if (n_accum == 4) err = launch_fixed<4>(g, o, p8, b32, c32, n_blocks, st, ctas);
+  if (n_accum == 1) err = launch_fixed<1>(g, o, p8, b32, c32, n_blocks, st, ctas);
+  if (err != cudaSuccess) *ctas = 0;
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -55,7 +55,8 @@ _SIGNATURES = {
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
-    "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 12 + [_P]),
+    "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 12 + [_P,
+                                                       ctypes.POINTER(_I)]),
     "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "dense_fir_row_tile": (_I, []),
     "dense_fir_error_string": (ctypes.c_char_p, [_I]),

@@ -47,6 +47,8 @@ tensors.  It never falls back from one to the other.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from ..utils.profiling import span
@@ -63,6 +65,14 @@ __all__ = ["device_weights_streamed", "int8_launch_weights", "origins",
 #: once per launch.  Callers reset the counts to count one run.
 launches = {"highest": 0, "int8": 0, "int8_resident": 0, "fixed": 0,
             "split5": 0}
+#: The fixed launches' CTAs (persistent CTAs walk many output tiles each)
+#: and output tiles (block, row tile, 64-lane tile), added by
+#: resample_streamed beside ``launches["fixed"]``: tiles over CTAs is the
+#: tiles a CTA walked.
+fixed_ctas = 0
+fixed_tiles = 0
+#: lanes of a fixed output tile (``csrc/int8_wgmma.cuh``'s kLanes)
+FIXED_LANES = 64
 
 
 def device_weights_streamed(w, scheme: str, device, *,
@@ -138,7 +148,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
 
     Rows of the virtual axis at or past H + T_c read as zero.  CUDA
     tensors launch the kernel on the current stream (asynchronously; a
-    launch error raises); CPU tensors run the plain version."""
+    launch error raises); CPU tensors run the plain version.  A fixed
+    launch adds its CTAs and output tiles to ``fixed_ctas`` and
+    ``fixed_tiles``."""
+    global fixed_ctas, fixed_tiles
     P, K, R, resident = _check(hist, x, w, n_blocks, shift, num, den, f0,
                                scheme, scales, n_accum)
     if x.device.type == "cpu":
@@ -170,8 +183,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
             err = lib.streamed_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
             coef = w[2].data_ptr() if n_accum == 4 else None
+            ctas = ctypes.c_int(0)
             err = lib.streamed_fir_fixed(*head, w[0].data_ptr(),
-                                         w[1].data_ptr(), coef, n_accum, *geo)
+                                         w[1].data_ptr(), coef, n_accum, *geo,
+                                         ctypes.byref(ctas))
         elif resident:
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
                                      len(scales), *s, w[2], *geo)
@@ -183,6 +198,10 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
         raise RuntimeError("phase-tiled FIR kernel launch failed: "
                            + lib.streamed_fir_error_string(err).decode())
     launches["int8_resident" if resident else scheme] += 1
+    if scheme == "fixed":
+        fixed_ctas += ctas.value
+        fixed_tiles += (n_blocks * (R // tf.FIXED_ROWS[n_accum])
+                        * -(-B // FIXED_LANES))
     return y
 
 

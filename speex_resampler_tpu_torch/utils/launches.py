@@ -27,9 +27,11 @@ CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
 
 
 def reset_launches() -> None:
-    """Every kernel module's launch counts to 0."""
+    """Every kernel module's launch counts to 0, and the fixed launches'
+    CTA and tile counts (``sf.fixed_ctas``, ``sf.fixed_tiles``)."""
     for module in COUNTERS.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
+    sf.fixed_ctas = sf.fixed_tiles = 0
 
 
 def launch_counts() -> dict:
@@ -73,6 +75,26 @@ def kernel_name(kernel: str, scheme: str, n_accum: int = 1,
     if scheme == "fixed":
         return f"{kernel}_fir_fixed_kernel<{n_accum}>"
     return f"{kernel}_fir_{suffix[scheme]}_kernel"
+
+
+#: a phase-tiled launch whose weight cycle (every phase's weights) is at
+#: most this many bytes runs its CTAs (block, row tile) fastest
+#: (``csrc/streamed_fir.cu``'s kBlockMajorBytes), else lane tiles fastest
+BLOCK_MAJOR_BYTES = 16 << 20
+
+
+def fixed_instance(step) -> str:
+    """The template instance of ``streamed_fir_fixed_kernel`` a fixed
+    phase-tiled step (tiled or streamed) launches: its n_accum and its
+    CTA order, (block, row tile) fastest ("true") where the planes'
+    weight cycle is at most :data:`BLOCK_MAJOR_BYTES`."""
+    if (step.kernel, step.scheme) not in (("tiled", "fixed"),
+                                          ("streamed", "fixed")):
+        raise ValueError(f"not a fixed phase-tiled step: {step.kernel} / "
+                         f"{step.scheme}")
+    block_major = step.w[0].numel() <= BLOCK_MAJOR_BYTES
+    return (kernel_name(step.kernel, "fixed", n_accum_of(step))[:-1]
+            + f", {str(block_major).lower()}>")
 
 
 def step_kernel(step) -> tuple:

@@ -214,6 +214,10 @@ def test_model_matches_the_header():
                  "wdst[q] = (i / 2) % 2 * Sh::kTileBytes + "
                  "int8tc::core_offset(n, i % 2);",
                  "wt[q] = (i / 2) % 2 * kK + i % 2 * 16;",
+                 # fir_tiles: the same rows, from the tile's first row
+                 "const int row = (n / Sh::kN) * Sh::kWgRows + "
+                 "n % Sh::kWgRows;",
+                 "woff[q] = (set * g.R + row) * g.K + wt[q];",
                  "const uint32_t b = buf + j * Sh::kTileBytes + "
                  "h * (Sh::kN / 8) * 256;",
                  "const int lane = 16 * w + l / 4 + 8 * ((e / 2) % 2);",
@@ -458,3 +462,145 @@ def test_fixed_wrapper_guards(kernel, fault):
     with pytest.raises(err):
         launch(hist, x, bad, **kw)
     assert launches == before
+
+
+# -- the persistent CTAs (fixedtc::fir_tiles) ---------------------------------
+
+def test_fixed_counters_start_at_zero_and_reset():
+    """The fixed wrapper's CTA and tile counters are 0 at import, and
+    utils/launches.reset_launches() sets them back to 0 with the launch
+    counts (a fresh process: nothing here launches)."""
+    import subprocess
+    import sys
+    code = (
+        "from speex_resampler_tpu_torch.ops import streamed_fir as sf\n"
+        "from speex_resampler_tpu_torch.utils import launches as ul\n"
+        "assert sf.fixed_ctas == 0 and sf.fixed_tiles == 0\n"
+        "sf.fixed_ctas, sf.fixed_tiles = 132, 18816\n"
+        "sf.launches['fixed'] = 1\n"
+        "ul.reset_launches()\n"
+        "assert sf.fixed_ctas == 0 and sf.fixed_tiles == 0\n"
+        "assert sf.launches['fixed'] == 0\n")
+    root = Path(__file__).resolve().parent.parent
+    subprocess.run([sys.executable, "-c", code], check=True, cwd=root,
+                   timeout=120)
+
+
+@pytest.mark.parametrize("cfg,instance", [
+    (FLAGSHIP, "streamed_fir_fixed_kernel<4, true>"),
+    (DIRECT, "streamed_fir_fixed_kernel<1, true>"),
+    (DIRECT_STREAMED, "streamed_fir_fixed_kernel<1, true>"),
+    (SLICE, "streamed_fir_fixed_kernel<4, false>")],
+    ids=["tiled-q7", "tiled-q5", "streamed-q5", "streamed-q10"])
+def test_fixed_instance_is_pinned(cfg, instance):
+    """``utils/launches.fixed_instance`` names the template instance a
+    fixed phase-tiled step launches (its CTA order by the planes' bytes,
+    as ``csrc/streamed_fir.cu`` picks it: the q10 planes' 77 MB run lane
+    tiles fastest), and ``chip_smoke.py`` finds it: in its SASS list
+    (IGMMA), its IGMMA pins (8) and its spill-free kernels; the step's
+    kernel name is the instance's function and n_accum."""
+    import chip_smoke as cs
+    from speex_resampler_tpu_torch.utils import launches as ul
+    _, _, step = _port_step(cfg)
+    assert ul.fixed_instance(step) == instance
+    assert ul.step_kernel(step)[1] == instance.split(",")[0] + ">"
+    assert (instance, "IGMMA") in cs.sass_kernels()
+    assert cs.IGMMA_PINNED[instance] == 8
+    assert instance in cs.SPILL_FREE
+    src = (CSRC / "streamed_fir.cu").read_text()
+    assert f"kBlockMajorBytes = {ul.BLOCK_MAJOR_BYTES >> 20}ll << 20;" in src
+
+
+def test_fixed_instance_refuses_other_steps():
+    from speex_resampler_tpu_torch.utils import launches as ul
+    spec = tfd.design_filter(147, 160, 7)
+    step = tb.make_batched_step(spec, tb._launch_geometry(spec, 2352),
+                                device="cpu")
+    with pytest.raises(ValueError):
+        ul.fixed_instance(step)
+
+
+def _persistent_walk(stages: list, n_ctas: int, lead: int):
+    """A model of one persistent CTA set (``fir_tiles``): CTA c walks items
+    c, c + n_ctas, ... (``stages[item]`` stages each, at least 1), its
+    copy cursor kLead stages ahead, one group a stage, kLead + 1 epilogue
+    slots.  Returns, per CTA, the events in order: ("copy", item, stage,
+    slot) where the cursor copies a stage (entering a tile at stage 0
+    writes its epilogue slot), ("walk", item, stage) and ("epilogue",
+    item, slot), the tile's epilogue reading its slot."""
+    slots = lead + 1
+    out = []
+    for c in range(n_ctas):
+        items = list(range(c, len(stages), n_ctas))
+        seq = [(it, s, t % slots) for t, it in enumerate(items)
+               for s in range(stages[it])]
+        events, cursor = [], 0
+
+        def copy_next():
+            nonlocal cursor
+            if cursor < len(seq):
+                events.append(("copy",) + seq[cursor])
+            cursor += 1
+
+        for _ in range(lead):
+            copy_next()
+        q = 0
+        for t, it in enumerate(items):
+            for s in range(stages[it]):
+                assert seq[q][:2] == (it, s)
+                events.append(("walk", it, s))
+                copy_next()
+                q += 1
+            events.append(("epilogue", it, t % slots))
+        out.append(events)
+    return out
+
+
+@pytest.mark.parametrize("cfg", [SLICE, FLAGSHIP, DIRECT],
+                         ids=["q10", "q7", "q5"])
+@pytest.mark.parametrize("n_ctas", [132, 5, 1])
+def test_persistent_walk_model(cfg, n_ctas):
+    """The persistent CTAs' schedule on a step's tap table (at B = 130,
+    3 lane tiles, lane tiles fastest): every tile is walked once, by one
+    CTA; every stage is copied before it is walked and at most kLead = 3
+    ahead; a tile's epilogue slot is written (its first stage's copy)
+    before the tile's walk and not again until that tile's epilogue has
+    read it; and the header keeps the constants the model assumes."""
+    fixed = (CSRC / "fixed_wgmma.cuh").read_text()
+    for line in ("static constexpr int kTileLead = 6;",
+                 "constexpr int kSlots = kLead + 1;",
+                 "const int slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK"
+                 " : 1;",
+                 "for (int item = blockIdx.x; item < n_items; "
+                 "item += n_ctas) {"):
+        assert line in fixed, line
+    lead = 6
+    _, bspec, step = _port_step(cfg)
+    taps = step.w[-1].numpy().astype(np.int64)
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    slices = np.where(hi > lo, -(-(hi - lo) // 32), 1)          # [P, rt]
+    n_blocks, lanes = step.kernel_kw["n_blocks"], 3
+    P, row_tiles = slices.shape
+    stages = [int(-(-slices[(kr // row_tiles) % P, kr % row_tiles] // 2))
+              for kr in range(n_blocks * row_tiles) for _ in range(lanes)]
+    walked = []
+    for events in _persistent_walk(stages, n_ctas, lead):
+        copied, slot_free = {}, {}
+        for i, ev in enumerate(events):
+            if ev[0] == "copy":
+                _, it, s, slot = ev
+                copied[(it, s)] = i
+                if s == 0:          # the epilogue slot is written
+                    assert slot_free.get(slot, True), (it, slot)
+                    slot_free[slot] = False
+            elif ev[0] == "walk":
+                _, it, s = ev
+                assert (it, s) in copied
+                ahead = sum(1 for e in events[copied[(it, s)]:i]
+                            if e[0] == "walk")
+                assert ahead <= lead
+                walked.append((it, s))
+            else:
+                slot_free[ev[2]] = True
+    assert sorted(walked) == sorted((it, s) for it, n in enumerate(stages)
+                                    for s in range(n))

@@ -264,7 +264,9 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
     (0 mismatches) at f0 = 0 and at the phase a flush leaves, B = 2048,
     130, 129 (x rows not 16-byte aligned: 2-byte loads) and 64 (one
     64-lane CTA tile), every third lane carrying the wrap input (an
-    accumulator past 2^31)."""
+    accumulator past 2^31); and on one weight cycle (n_blocks = P) at B =
+    64, fewer tiles than SMs (4 at 24k->48k q5, 80 at q7), so each
+    persistent CTA takes one tile."""
     i, o, q, _ = cfg
     spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
     m = tph.producible_outputs(3368, 0, 0, spec.num, spec.den)
@@ -285,6 +287,51 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
             torch.cuda.synchronize()
             assert module.launches["fixed"] == before + 1
             assert int((got != want).sum()) == 0
+        kw = dict(step.kernel_kw, n_blocks=step.w[-1].shape[0])
+        hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+            step, bspec.in_per_launch, 64, seed=7 + f0))
+        got = tsf.resample_streamed(hist, x, step.w, **kw)
+        want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
+        torch.cuda.synchronize()
+        assert got.shape == want.shape
+        assert int((got != want).sum()) == 0
+
+
+@pytest.mark.parametrize("cfg,B,n_blocks", [
+    ((48000, 44100, 10, 20480), 2048, None), ((24000, 48000, 5, 4096), 64, 1)],
+    ids=["q10-B2048", "24k-48k-q5-one-block-B64"])
+def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
+    """The fixed wrapper's CTA and tile counters (``fixed_ctas``,
+    ``fixed_tiles``): the tiles are n_blocks x row tiles x ceil(B / 64),
+    18,816 at 48k->44.1k q10, B = 2048, walked by one persistent CTA an
+    SM, so more than one tile a CTA; one block of 24k->48k q5 (n_accum 1,
+    P = 1) at B = 64 is 4 tiles, one a CTA.  reset_launches() sets both
+    to 0."""
+    from speex_resampler_tpu_torch.utils.launches import reset_launches
+    bspec, step = _fixed_step(cfg, 0, "streamed")
+    kw = dict(step.kernel_kw)
+    if n_blocks is not None:
+        kw["n_blocks"] = n_blocks
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=5))
+    reset_launches()
+    assert tsf.fixed_ctas == tsf.fixed_tiles == 0
+    got = tsf.resample_streamed(hist, x, step.w, **kw)
+    want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
+    torch.cuda.synchronize()
+    assert int((got != want).sum()) == 0
+    rows = ttf.FIXED_ROWS[kw["n_accum"]]
+    tiles = kw["n_blocks"] * (bspec.R // rows) * -(-B // 64)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert tsf.launches["fixed"] == 1
+    assert tsf.fixed_tiles == tiles
+    if n_blocks is None:
+        assert tiles == 18816 and tsf.fixed_ctas == min(tiles, sms)
+        assert tsf.fixed_tiles / tsf.fixed_ctas > 1
+    else:
+        assert tiles == 4 and tsf.fixed_ctas == tiles
+    reset_launches()
+    assert tsf.fixed_ctas == tsf.fixed_tiles == 0
 
 
 @pytest.mark.parametrize("streams,channels", [(3, 2), (65, 2), (43, 3),

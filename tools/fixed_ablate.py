@@ -20,23 +20,48 @@ accumulator past 2^31) on every third lane and x = -32768 and 32767 rows on
 the others.  The variants:
 
 - ``as built``: 16 rows x 4 column sets a warpgroup at n_accum 4 (N = 64,
-  3 x 32 accumulator registers), 32 rows at n_accum 1, 64-lane CTAs,
-  copies 3 stages ahead (a ring of 5); 1 CTA an SM at n_accum 4, 2 (at
-  most 128 registers a thread) at n_accum 1;
+  3 x 32 accumulator registers), 32 rows at n_accum 1, 64-lane CTAs;
+  at n_accum 4 persistent CTAs (``fir_tiles``: min(tiles, SMs), each
+  walking every G-th tile with one ring that runs on across its tiles),
+  at n_accum 1 a CTA a tile (``fir_tile``); the persistent CTA's copies
+  6 stages ahead (a ring of 8), the one-tile CTA's 3 (a ring of 5); 1
+  CTA an SM at n_accum 4, 2 (at most 128 registers a thread) at n_accum
+  1;
+- ``one tile a CTA``: = as built, a CTA a tile at n_accum 4 too;
+- ``n_accum 1 persistent``: = as built, persistent CTAs at n_accum 1 too
+  (it spills);
+- ``lead 3``, ``lead 5``: = as built, the persistent ring 3 or 5 stages
+  ahead (6 as built, the most whose ring of 8 fits shared memory);
 - ``1 CTA an SM``: = as built, 1 CTA an SM at n_accum 1 too;
 - ``2 CTAs an SM``: = as built, 2 CTAs an SM at n_accum 4 too (it spills),
-  with copies 2 stages ahead (a ring of 4), so two rings fit.
+  with the one-tile ring 2 stages ahead (a ring of 4);
+- ``persistent walk alone``: = as built without the Q15 mix and the row
+  stores (the accumulators folded into one word that a never-taken
+  branch stores, so all 3 x 32 stay live);
+- ``walk alone``: = one tile a CTA, without the mix and the stores;
+- ``no walk``: = one tile a CTA without the walk: the tap table, the
+  origin and the epilogue (the bias and coef loads, the mix and the
+  stores) only.
+
+Before a variant is timed, its SASS is held to :data:`PINS`: its fixed
+kernels' IGMMA count and least registers from ``cuobjdump -sass`` and the
+ptxas report, and no spill (but where the variant spills by design); a
+variant off its pins is not timed and fails the run.  ``--launch``
+restricts the launches (:data:`LAUNCHES`' keys).
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
 too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
-``build/``); its streamed fixed entry point (the CUDA-core kernel, int16
-weights [P, K, C] in tap order and a 64-row tap table; both geometries at
-their closed-form origins) is timed at the same launches and every
-variant is held against it: both take exact sums mod 2^32 and the same
-Q15 epilogue, so 0 outputs may differ.
+``build/``); its streamed fixed entry point (the CUDA-core kernel of a
+checkout older than ``fixed_wgmma.cuh``: int16 weights [P, K, C] in tap
+order and a 64-row tap table; else the tensor-core kernel on the step's
+own weights; both
+geometries at their closed-form origins) is timed at the same launches
+and every variant is held against it: all take exact sums mod 2^32 and
+the same Q15 epilogue, so 0 outputs may differ.
 
 Exits non-zero without a CUDA device, and after all variants have run if
-any output of one differed from the plain version or the parent.
+any output of one differed from the plain version or the parent, or a
+variant's SASS was off its pins.
 """
 
 from __future__ import annotations
@@ -44,6 +69,7 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
+import re
 import shutil
 import subprocess
 import sys
@@ -64,18 +90,80 @@ from tools import _variants  # noqa: E402
 
 HEADER = "fixed_wgmma.cuh"
 _MIN_BLOCKS = "kMinBlocks = kAccum == 1 ? 2 : 1;"
+_PERSISTENT = "static constexpr bool kPersistent = kAccum == 4;"
+_ONE_TILE = {_PERSISTENT: "static constexpr bool kPersistent = false;"}
+_TILE_LEAD = "static constexpr int kTileLead = 6;"
+# fir_tile's epilogue: its first barrier, after the walk's last wgmma wait
+_EPILOGUE = ("  // every warpgroup's wgmmas are done before the ring takes the "
+             "output tile\n  __syncthreads();\n")
+_FOLD = """    unsigned fold = 0;
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int i = 0; i < Sh::kAcc; ++i) fold ^= (unsigned)acc[j][i];
+    if (fold == 0x9e3779b9u && g.B < 0) g.y[tid] = (int16_t)fold;
+"""
+_WALK_ALONE = ("  {  // the walk alone: its sums kept, no Q15 mix and no "
+               "stores\n" + _FOLD + "    return;\n  }\n")
+_N_STAGES = """  const int n_stages =
+      c.t_hi > t_begin ? (c.t_hi - t_begin + kStageTaps - 1) / kStageTaps : 0;
+"""
+# fir_tiles' epilogue, after the tile's last wgmma wait
+_TILE_EPILOGUE = """    mix(slot);
+    __syncthreads();
+    store(yrow, lane0);
+"""
+_TILES_WALK_ALONE = (
+    "    {  // the walk alone: its sums kept, no Q15 mix and no stores\n"
+    + "".join("  " + line + "\n" for line in _FOLD.splitlines())
+    + "    }\n")
 #: name -> (edits of the header, edits of other sources, computes the
 #: function)
 VARIANTS = {
     "as built": ({}, {}, True),
+    # the one-tile CTA of earlier checkouts, launched one a tile
+    "one tile a CTA": (_ONE_TILE, {}, True),
+    "n_accum 1 persistent": (
+        {_PERSISTENT: "static constexpr bool kPersistent = true;"}, {},
+        True),
+    "lead 3": ({_TILE_LEAD: "static constexpr int kTileLead = 3;"}, {},
+               True),
+    "lead 5": ({_TILE_LEAD: "static constexpr int kTileLead = 5;"}, {},
+               True),
     "1 CTA an SM": ({_MIN_BLOCKS: "kMinBlocks = 1;"}, {}, True),
     "2 CTAs an SM": ({_MIN_BLOCKS: "kMinBlocks = 2;",
                       "constexpr int kLead = 3;": "constexpr int kLead = 2;"},
                      {}, True),
+    # the persistent walk without its epilogue's mix and stores
+    "persistent walk alone": ({_TILE_EPILOGUE: _TILES_WALK_ALONE}, {},
+                              False),
+    # the one-tile CTA's split
+    "walk alone": ({**_ONE_TILE, _EPILOGUE: _WALK_ALONE}, {}, False),
+    # t_hi is read (the tap table's load stays), no stage is walked
+    "no walk": ({**_ONE_TILE,
+                 _N_STAGES: "  const int n_stages = c.t_hi < 0 ? 1 : 0;\n"},
+                {}, False),
 }
-#: (chip_smoke path, geometry override)
-LAUNCHES = [(cs.FIXED_FLAGSHIP, None), (cs.FIXED_SLICE, None),
-            (cs.FIXED_DIRECT, None), (cs.FIXED_DIRECT, "streamed")]
+K2D, K1E, K1D = ("streamed_fir_fixed_kernel<4, false>",
+                 "streamed_fir_fixed_kernel<4, true>",
+                 "streamed_fir_fixed_kernel<1, true>")
+#: variant -> {kernel: (IGMMA count, least registers)}; every other
+#: variant's fixed kernels are printed, not held
+PINS = {
+    "as built": {K2D: (8, 0), K1E: (8, 0), K1D: (8, 0)},
+    "one tile a CTA": {K2D: (8, 0), K1E: (8, 0), K1D: (8, 0)},
+    # three accumulators of 32 registers live through the walk
+    "persistent walk alone": {K2D: (8, 3 * 32), K1E: (8, 3 * 32)},
+    "walk alone": {K2D: (8, 3 * 32), K1E: (8, 3 * 32)},
+    "no walk": {K2D: (8, 0), K1E: (8, 0)},
+}
+#: variants that spill by design (n_accum 1's persistent CTA: 20 bytes
+#: at its 128-register cap)
+SPILLS = {"2 CTAs an SM", "n_accum 1 persistent"}
+#: name -> (chip_smoke path, geometry override)
+LAUNCHES = {"q7": (cs.FIXED_FLAGSHIP, None), "q10": (cs.FIXED_SLICE, None),
+            "q5": (cs.FIXED_DIRECT, None),
+            "q5-streamed": (cs.FIXED_DIRECT, "streamed")}
 CHECK_LANES = (cs.LANES, 130, 129, 64)
 #: the parent's streamed fixed entry point: (hist, x, y, taps, w, coef,
 #: n_accum, geometry ..., stream)
@@ -133,15 +221,30 @@ def parent_weights(step) -> tuple:
     return w16, (step.w[2] if n_accum == 4 else None), taps
 
 
+def tensor_core_parent(csrc: Path) -> bool:
+    """Whether a ``csrc/`` holds the tensor-core fixed kernel (the step's
+    own weights) or the CUDA-core one."""
+    return (csrc / HEADER).exists()
+
+
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
-    types of its streamed fixed entry point."""
+    types of its streamed fixed entry point: the CUDA-core kernel's
+    (:data:`_PARENT_SIGNATURES`), or the tensor-core kernel's, the step's
+    own (``ops/_build``), without the launched-CTA count where its source
+    has none."""
     out = ROOT / "build" / "fixed_variants" / "parent" / "libfir.so"
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
     _build.compile_library(out)
     lib = ctypes.CDLL(str(out))
-    for name, (restype, argtypes) in _PARENT_SIGNATURES.items():
+    signatures = dict(_PARENT_SIGNATURES)
+    if tensor_core_parent(csrc):
+        restype, argtypes = _build._SIGNATURES["streamed_fir_fixed"]
+        counts = "int* ctas" in (csrc / "streamed_fir.cu").read_text()
+        signatures["streamed_fir_fixed"] = (
+            restype, argtypes if counts else argtypes[:-1])
+    for name, (restype, argtypes) in signatures.items():
         getattr(lib, name).restype = restype
         getattr(lib, name).argtypes = argtypes
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _fixed))
@@ -149,34 +252,77 @@ def parent_library(csrc: Path):
 
 
 def parent_launch(lib, hist, x, step, weights):
-    """The CUDA-core kernel on one launch: a function that launches it on
-    the current stream, and its output."""
-    w16, coef, taps = weights
+    """The parent's kernel on one launch (``weights``: the CUDA-core
+    kernel's, :func:`parent_weights`, or None: the step's own, for the
+    tensor-core kernel): a function that launches it on the current
+    stream, and its output."""
     kw = step.kernel_kw
-    P, K, C = w16.shape
     n_accum = kw["n_accum"]
-    R = C // n_accum
     H, B = hist.shape
+    if weights is None:
+        _, P, C, K = step.w[0].shape
+        ptrs = [step.w[-1].data_ptr(), step.w[0].data_ptr(),
+                step.w[1].data_ptr(),
+                step.w[2].data_ptr() if n_accum == 4 else None]
+        ctas = ctypes.c_int(0)
+        extra = [ctypes.byref(ctas)] \
+            if len(lib.streamed_fir_fixed.argtypes) > 20 else []
+    else:
+        w16, coef, taps = weights
+        P, K, C = w16.shape
+        ptrs = [taps.data_ptr(), w16.data_ptr(),
+                coef.data_ptr() if coef is not None else None]
+        extra = []
+    R = C // n_accum
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
                     device="cuda")
-    c = coef.data_ptr() if coef is not None else None
 
     def run():
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.streamed_fir_fixed(
-            hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
-            w16.data_ptr(), c, n_accum, H, x.shape[0], B, R, K, P,
-            kw["n_blocks"], kw["shift"], kw["num"], kw["den"], kw["f0"],
-            stream)
+            hist.data_ptr(), x.data_ptr(), y.data_ptr(), *ptrs, n_accum, H,
+            x.shape[0], B, R, K, P, kw["n_blocks"], kw["shift"], kw["num"],
+            kw["den"], kw["f0"], stream, *extra)
         if err:
             raise RuntimeError(f"parent kernel launch failed ({err})")
     return run, y
+
+
+def sass_pins(name: str) -> list:
+    """The loaded variant's fixed kernels against :data:`PINS` (IGMMA
+    count from ``cuobjdump -sass``, registers and spills from the ptxas
+    report); prints each and returns what is off its pins."""
+    counts = cs.gmma_counts(_build.lib_path())
+    props = {}
+    for log in sorted(_build.build_dir().glob("*.log")):
+        for kernel, lines in cs.ptxas_props(log).items():
+            text = "; ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+            props[kernel] = (int(regs.group(1)) if regs else 0, sum(spill))
+    off = []
+    for kernel, (regs, spill) in sorted(props.items()):
+        if not _fixed(kernel) or not kernel.startswith("streamed"):
+            continue
+        igmma = counts.get((kernel, "IGMMA"), 0)
+        print(f"   {name}, SASS {kernel}: {regs} registers, {spill} bytes "
+              f"spilled, {igmma} IGMMA")
+        if spill and name not in SPILLS:
+            off.append(f"{kernel} spills {spill} bytes")
+        pin = PINS.get(name, {}).get(kernel)
+        if pin is not None and (igmma != pin[0] or regs < pin[1]):
+            off.append(f"{kernel}: {igmma} IGMMA, {regs} registers; pinned "
+                       f"{pin[0]} IGMMA, at least {pin[1]} registers")
+    missing = set(PINS.get(name, {})) - set(props)
+    return off + [f"{kernel} not built" for kernel in sorted(missing)]
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None)
     ap.add_argument("--only", nargs="*", default=None)
+    ap.add_argument("--launch", nargs="*", default=None,
+                    choices=sorted(LAUNCHES))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("fixed_ablate: no CUDA device")
@@ -185,7 +331,9 @@ def main() -> None:
                          text=True, check=True).stdout.strip()
     print(f"card: {smi}")
     cases = []
-    for path, kernel in LAUNCHES:
+    for key, (path, kernel) in LAUNCHES.items():
+        if args.launch and key not in args.launch:
+            continue
         for f0 in sorted({0, path.f0_flush}):
             bspec = path.geometry(f0)
             if kernel is not None:
@@ -205,7 +353,8 @@ def main() -> None:
         lib = parent_library(args.parent)
         parent = []
         for label, step, inputs, _, _ in cases:
-            weights = parent_weights(step)
+            weights = (None if tensor_core_parent(args.parent)
+                       else parent_weights(step))
             outs = []
             for h, x in inputs:
                 run, y = parent_launch(lib, h, x, step, weights)
@@ -224,6 +373,12 @@ def main() -> None:
             continue
         print(f"== {name}: " + _variants.build("fixed_variants", name, HEADER,
                                                edits, _fixed, also))
+        off = sass_pins(name)
+        if off:
+            bad.append(f"{name}: SASS off its pins: " + "; ".join(off))
+            print(f"   {name}: not timed, SASS off its pins: "
+                  + "; ".join(off))
+            continue
         for c, (label, step, inputs, want, bound) in enumerate(cases):
             line = []
             for b, ((h, x), w) in enumerate(zip(inputs, want)):
@@ -247,7 +402,7 @@ def main() -> None:
                         f" (as built): {nbytes / ms / 1e9:.2f} TB/s")
             print(f"   {name}, {label}: " + "; ".join(line))
     if bad:
-        sys.exit("fixed_ablate: outputs differ: " + "; ".join(bad))
+        sys.exit("fixed_ablate: failed: " + "; ".join(bad))
 
 
 if __name__ == "__main__":
