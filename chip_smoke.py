@@ -16,7 +16,8 @@ nvcc per source, in parallel) and drives the serving paths of
   24 kHz -> 48 kHz q5 fixed, a direct filter (1 column set); each fixed
   phase-tiled launch checked prints its instance
   (``utils/launches.fixed_instance``) and the tiles a CTA walked
-  (``streamed_fir.fixed_tiles`` over ``fixed_ctas``: ~142.5 at q10, B =
+  (the port's counters ``speex.kernel.fixed.tiles`` over ``.ctas``,
+  ``utils/launches.fixed_counts``: ~142.5 at q10, ~77.6 at q7, B =
   2048, on persistent CTAs; 1.0 where a CTA takes one tile);
 - the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
   the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
@@ -205,6 +206,7 @@ from speex_resampler_tpu_torch.probes import (
     tc_rate as ptr, v3_bench as pv3b, v3_overhead_anatomy as pv3,
     v4_k_layout as pkl, v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
 from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, COUNTERS,
+                                                      fixed_counts,
                                                       fixed_instance,
                                                       kernel_name,
                                                       launch_counts,
@@ -1038,11 +1040,12 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                 hist, x = card_inputs(step, bspec.in_per_launch, B,
                                       seed=B + f0, wrap=path.wrap,
                                       edges=step.scheme == "int8")
-                ctas, tiles = sf.fixed_ctas, sf.fixed_tiles
+                before = fixed_counts()
                 got = launch(hist, x, step, form)
                 if step.scheme == "fixed" \
                         and step.kernel in ("tiled", "streamed"):
-                    ctas, tiles = sf.fixed_ctas - ctas, sf.fixed_tiles - tiles
+                    _, ctas, tiles = (n - m for n, m in
+                                      zip(fixed_counts(), before))
                     print(f"fixed launch: {path.name} -> "
                           f"{fixed_instance(step)} f0={f0:3d} B={B:4d}: "
                           f"{tiles} tiles on {ctas} CTAs, "

@@ -51,7 +51,7 @@ import ctypes
 
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import _build
 from . import tiled_fir as tf
 from .tiled_fir import K_PERM, int8_k_major, int8_n_major
@@ -65,12 +65,13 @@ __all__ = ["device_weights_streamed", "int8_launch_weights", "origins",
 #: once per launch.  Callers reset the counts to count one run.
 launches = {"highest": 0, "int8": 0, "int8_resident": 0, "fixed": 0,
             "split5": 0}
-#: The fixed launches' CTAs (persistent CTAs walk many output tiles each)
-#: and output tiles (block, row tile, 64-lane tile), added by
-#: resample_streamed beside ``launches["fixed"]``: tiles over CTAs is the
-#: tiles a CTA walked.
-fixed_ctas = 0
-fixed_tiles = 0
+#: the port's counters (``utils/profiling.count``) of the fixed launches,
+#: the CTAs they launched (persistent CTAs walk many output tiles each)
+#: and their output tiles (block, row tile, 64-lane tile): tiles over
+#: CTAs is the tiles a CTA walked
+FIXED_LAUNCHES = "speex.kernel.fixed.launches"
+FIXED_CTAS = "speex.kernel.fixed.ctas"
+FIXED_TILES = "speex.kernel.fixed.tiles"
 #: lanes of a fixed output tile (``csrc/int8_wgmma.cuh``'s kLanes)
 FIXED_LANES = 64
 
@@ -149,9 +150,8 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     Rows of the virtual axis at or past H + T_c read as zero.  CUDA
     tensors launch the kernel on the current stream (asynchronously; a
     launch error raises); CPU tensors run the plain version.  A fixed
-    launch adds its CTAs and output tiles to ``fixed_ctas`` and
-    ``fixed_tiles``."""
-    global fixed_ctas, fixed_tiles
+    launch adds 1, its CTAs and its output tiles to the counters
+    ``FIXED_LAUNCHES``, ``FIXED_CTAS`` and ``FIXED_TILES``."""
     P, K, R, resident = _check(hist, x, w, n_blocks, shift, num, den, f0,
                                scheme, scales, n_accum)
     if x.device.type == "cpu":
@@ -199,10 +199,22 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                            + lib.streamed_fir_error_string(err).decode())
     launches["int8_resident" if resident else scheme] += 1
     if scheme == "fixed":
-        fixed_ctas += ctas.value
-        fixed_tiles += (n_blocks * (R // tf.FIXED_ROWS[n_accum])
-                        * -(-B // FIXED_LANES))
+        count_fixed(ctas.value, fixed_tiles(n_blocks, R, B, n_accum))
     return y
+
+
+def fixed_tiles(n_blocks: int, R: int, B: int, n_accum: int) -> int:
+    """The output tiles (block, row tile, 64-lane tile) of a fixed launch
+    of ``n_blocks`` blocks of R rows over B lanes."""
+    return n_blocks * (R // tf.FIXED_ROWS[n_accum]) * -(-B // FIXED_LANES)
+
+
+def count_fixed(ctas: int, tiles: int) -> None:
+    """One fixed launch of ``ctas`` CTAs over ``tiles`` output tiles, into
+    the port's counters."""
+    count(FIXED_LAUNCHES)
+    count(FIXED_CTAS, ctas)
+    count(FIXED_TILES, tiles)
 
 
 def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,

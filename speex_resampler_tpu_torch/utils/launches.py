@@ -3,7 +3,8 @@
 Every kernel wrapper adds one to its module's ``launches`` dict (by scheme,
 a gather's by ``fm.launch_key`` of scheme and form, the resident int8
 kernel's under "int8_resident") where it launches its kernel.  This module
-sets those counts to 0, reads them, and names the CUDA kernel a step
+sets those counts to 0, reads them and the fixed kernel's CTA and tile
+counters (``utils/profiling``), and names the CUDA kernel a step
 launches, for ``chip_smoke.py`` and the tools that count a run's launches
 (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 """
@@ -13,6 +14,7 @@ from __future__ import annotations
 from ..ops import dense_fir as df
 from ..ops import fir_matmul as fm
 from ..ops import streamed_fir as sf
+from .profiling import counter_totals, reset_counters
 
 #: every kernel module, by the geometry it launches: the two phase-tiled
 #: geometries share one launcher
@@ -27,11 +29,19 @@ CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
 
 
 def reset_launches() -> None:
-    """Every kernel module's launch counts to 0, and the fixed launches'
-    CTA and tile counts (``sf.fixed_ctas``, ``sf.fixed_tiles``)."""
+    """Every kernel module's launch counts to 0, and the port's counters
+    (``utils/profiling``: the fixed launches' CTAs and tiles)."""
     for module in COUNTERS.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
-    sf.fixed_ctas = sf.fixed_tiles = 0
+    reset_counters()
+
+
+def fixed_counts() -> tuple:
+    """(launches, CTAs, output tiles) of the phase-tiled fixed kernel since
+    the last :func:`reset_launches`, from the port's counters."""
+    totals = counter_totals()
+    return tuple(totals.get(name, 0) for name in (
+        sf.FIXED_LAUNCHES, sf.FIXED_CTAS, sf.FIXED_TILES))
 
 
 def launch_counts() -> dict:

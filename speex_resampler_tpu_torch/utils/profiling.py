@@ -31,6 +31,17 @@ The port's spans (``PERF.md`` section 3 says what reads each):
 - ``speex.fleet.gather`` / ``.dispatch`` / ``.readback`` / ``.unpack``:
   the phases of ``FleetResampler.poll`` (:meth:`LaunchStats.phase`).
 
+:func:`count` adds to a process-wide table of counters beside the spans'
+(:func:`counter_totals`, :func:`reset_counters`; ``utils/launches.
+reset_launches`` resets it too), counted on the host where the work is
+launched, with no device work and no sync.  The port's counters:
+
+- ``speex.kernel.fixed.launches`` / ``.ctas`` / ``.tiles``: the phase-
+  tiled fixed kernel's launches (``ops/streamed_fir.resample_streamed``,
+  both geometries), the CTAs they launched and the output tiles (block,
+  row tile, 64-lane tile) those CTAs walked; at n_accum 4 the CTAs are
+  persistent, so tiles over CTAs is the tiles a CTA walked.
+
 :class:`LaunchStats` keeps a fleet's counters: launches and samples, and
 the host wall-clock of each pipeline phase.  On CUDA the phases are
 host-clock spans of an asynchronous pipeline: ``dispatch`` times only the
@@ -49,7 +60,8 @@ from time import perf_counter
 import torch
 from torch.autograd.profiler import record_function
 
-__all__ = ["span", "span_totals", "reset_spans", "LaunchStats", "trace"]
+__all__ = ["span", "span_totals", "reset_spans", "count", "counter_totals",
+           "reset_counters", "LaunchStats", "trace"]
 
 _profiler_enabled = torch._C._autograd._profiler_enabled
 #: the profiler's range for a span: ``record_function``'s C++ range,
@@ -57,6 +69,7 @@ _profiler_enabled = torch._C._autograd._profiler_enabled
 _profiler_range = getattr(torch._C._profiler, "_RecordFunctionFast",
                           record_function)
 _totals: dict = {}          # name -> [count, seconds]
+_counters: dict = {}        # name -> count
 _totals_lock = threading.Lock()
 
 
@@ -116,6 +129,25 @@ def reset_spans() -> None:
     """Sets every span's count and seconds to 0 (drops them)."""
     with _totals_lock:
         _totals.clear()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Adds ``n`` to the counter ``name``."""
+    with _totals_lock:
+        _counters[name] = _counters.get(name, 0) + n
+
+
+def counter_totals() -> dict:
+    """Every counter's total since the process began or the last
+    :func:`reset_counters`: name -> count."""
+    with _totals_lock:
+        return dict(_counters)
+
+
+def reset_counters() -> None:
+    """Sets every counter to 0 (drops them)."""
+    with _totals_lock:
+        _counters.clear()
 
 
 @dataclasses.dataclass

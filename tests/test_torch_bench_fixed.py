@@ -1,14 +1,19 @@
-"""The benchmark's Q15 deployment, ``stage.q10.fixed``: Speex's fixed-point
-build at 48 -> 44.1 kHz, quality 10, on the port's streamed fixed step.
+"""The benchmark's Q15 deployments: Speex's fixed-point build at 48 ->
+44.1 kHz, quality 10, on the port's streamed fixed step
+(``stage.q10.fixed``, K2d), and at 44.1 -> 48 kHz, quality 7, on its tiled
+fixed step (``stage.q7.fixed``, K1e).
 
-On the CPU: the cell's plain reference (``perfbench/reference/
+On the CPU: the cells' plain reference (``perfbench/reference/
 speex_fixed.py``) equals the port's step bit for bit over calls with the
 history carried, its int16 table equals the port's, and its outputs equal
 the JAX package's fixed host route (a witness that is not the port's
-code); a limit of 0 passes the port and fails the bfloat16 control, the
-float reference and each fault; the span ``speex.setup.q15`` opens in a
-fixed step's set-up alone and its reader reads it; the cell resolves to
-the streamed fixed kernel; the reference loads neither package nor JAX.
+code); in each cell a limit of 0 passes the port and fails the bfloat16
+control, the float reference and each fault; the span ``speex.setup.q15``
+opens in a fixed step's set-up alone and its reader reads it; each cell
+resolves to its fixed kernel instance; the port's counters of the fixed
+launches' CTAs and tiles reset, add up and count no other launch, and the
+reader ``fixed.cta_tile_us`` reads them; the reference loads neither
+package nor JAX.
 """
 
 import dataclasses
@@ -26,15 +31,36 @@ from perfbench.cell import run_cell
 from perfbench.reference import speex_float
 from perfbench.reference import speex_fixed as sx
 from perfbench.tests.util import small_cell
+from perfbench.tracing import TraceView
 from speex_resampler_tpu_torch.functional import make_stream_fn
 from speex_resampler_tpu_torch.ops import filter_design as fd
 from speex_resampler_tpu_torch.parallel.batch import (_launch_geometry,
                                                       clear_step_cache,
                                                       make_batched_step)
-from speex_resampler_tpu_torch.utils.profiling import reset_spans, span_totals
+from speex_resampler_tpu_torch.ops import streamed_fir as sf
+from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
+                                                      fixed_instance,
+                                                      reset_launches)
+from speex_resampler_tpu_torch.utils.profiling import (counter_totals,
+                                                       reset_counters,
+                                                       reset_spans,
+                                                       span_totals)
 
 REPO = Path(__file__).resolve().parent.parent
 CELL = "stage.q10.fixed"
+#: each fixed cell's resolved step: geometry, call frames, the shapes of
+#: its planes, bias and coefficients, (taps, table bytes) of its filter,
+#: its kernel instance and its output tiles at the cell's 2048 lanes
+CELLS = {
+    "stage.q10.fixed": ("streamed", (20480, 18816), (
+        (2, 147, 512, 512), (147, 512), (147, 4, 128)),
+        (280, 2 * (32 * 280 + 8)), "streamed_fir_fixed_kernel<4, false>",
+        18816),
+    "stage.q7.fixed": ("tiled", (16464, 17920), (
+        (2, 20, 512, 288), (20, 512), (20, 4, 128)),
+        (128, 2 * (16 * 128 + 8)), "streamed_fir_fixed_kernel<4, true>",
+        17920),
+}
 SEED = 2**31 + 4243
 LANES = 8
 STAGE = manifest.entry("stream_stage")
@@ -154,11 +180,12 @@ CARRIED = ("port", "state_unchanged")
 
 
 @pytest.mark.parametrize("name", sorted(PROGRAMS))
-def test_a_limit_of_zero_passes_the_port_alone(name):
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_a_limit_of_zero_passes_the_port_alone(cell, name):
     """On the cell narrowed to 8 lanes, two quanta and one warm-up call:
     the port is correct with 0 / 0; the reference in bfloat16, the float
     build's reference and each fault in the program's place are not."""
-    c = small_cell(CELL)
+    c = small_cell(cell)
     c = dataclasses.replace(c, traffic={**c.traffic, "pool_min_bytes": 0,
                                         "warmup_calls": 1})
     r = run_cell(c, SEED, 2.5 if name in CARRIED else 0.1, False,
@@ -229,7 +256,6 @@ def test_q15_span_opens_in_a_fixed_steps_set_up_alone(geometry):
 
 
 def test_q15_reader_reads_the_span_and_none_without_it(monkeypatch):
-    from perfbench.tracing import TraceView
     from speex_resampler_tpu_torch.utils import profiling
     read = manifest.reader("setup.q15_s")
     view = TraceView(calls=1, device=[("k", 0.0, 1e-4)], host=[], work=None,
@@ -243,25 +269,135 @@ def test_q15_reader_reads_the_span_and_none_without_it(monkeypatch):
     assert read(view) is None
 
 
-def test_the_cell_resolves_to_the_streamed_fixed_kernel():
-    c = manifest.cell(CELL)
-    cfg = c.config
-    assert (cfg["numeric"], cfg["limits"]) == (
-        "fixed", {"max_err_lsb": 0, "off_share": 0})
-    assert manifest.reference(cfg).NUMERICS == ("fixed",)
-    assert [m["name"] for m in c.per_layer][-1] == "setup.q15_s"
+def _cell_step(cell: str):
+    """(configuration, bspec, CPU step) of a cell's program."""
+    cfg = manifest.cell(cell).config
     g = math.gcd(cfg["in_rate"], cfg["out_rate"])
     spec = fd.design_filter(cfg["in_rate"] // g, cfg["out_rate"] // g,
                             cfg["quality"], fixed_point=True)
     bspec = _launch_geometry(spec, cfg["target_in_frames"])
-    step = make_batched_step(spec, bspec, device="cpu", scheme=cfg["scheme"])
+    return cfg, bspec, make_batched_step(spec, bspec, device="cpu",
+                                         scheme=cfg["scheme"])
+
+
+@pytest.mark.parametrize("cell", sorted(CELLS))
+def test_the_cell_resolves_to_the_streamed_fixed_kernel(cell):
+    """Each fixed cell's step: its geometry at n_accum 4, its call, its
+    weights' shapes and the instance of ``streamed_fir_fixed_kernel``
+    it launches (both geometries run it; the CTA order by the planes'
+    bytes), and its per-layer metrics, the fixed ones last."""
+    kernel, frames, shapes, size, instance, _ = CELLS[cell]
+    c = manifest.cell(cell)
+    cfg, bspec, step = _cell_step(cell)
+    assert (cfg["numeric"], cfg["limits"]) == (
+        "fixed", {"max_err_lsb": 0, "off_share": 0})
+    assert manifest.reference(cfg).NUMERICS == ("fixed",)
+    assert [m["name"] for m in c.per_layer][-2:] == [
+        "setup.q15_s", "fixed.cta_tile_us"]
     assert (step.kernel, step.scheme, step.kernel_kw["n_accum"]) == (
-        "streamed", "fixed", 4)
-    assert (bspec.in_per_launch, bspec.out_per_launch) == (20480, 18816)
-    planes, bias, coef = step.w[:3]
-    assert (tuple(planes.shape), tuple(bias.shape), tuple(coef.shape)) == (
-        (2, 147, 512, 512), (147, 512), (147, 4, 128))
-    assert sx.filter_size(cfg) == (280, 2 * (32 * 280 + 8))
+        kernel, "fixed", 4)
+    assert (bspec.in_per_launch, bspec.out_per_launch) == frames
+    assert tuple(tuple(t.shape) for t in step.w[:3]) == shapes
+    assert fixed_instance(step) == instance
+    assert sx.filter_size(cfg) == size
+
+
+def test_fixed_counters_reset_and_add_up():
+    """The port's counters of the fixed launches add each launch's CTAs
+    and tiles; ``reset_counters`` and ``utils/launches.reset_launches``
+    set them to 0, ``reset_spans`` (the span table's) leaves them."""
+    reset_counters()
+    assert fixed_counts() == (0, 0, 0) and counter_totals() == {}
+    sf.count_fixed(132, 18816)
+    sf.count_fixed(4, 4)
+    assert fixed_counts() == (2, 136, 18820)
+    assert counter_totals() == {sf.FIXED_LAUNCHES: 2, sf.FIXED_CTAS: 136,
+                                sf.FIXED_TILES: 18820}
+    reset_spans()
+    assert fixed_counts() == (2, 136, 18820)
+    reset_counters()
+    assert fixed_counts() == (0, 0, 0)
+    sf.count_fixed(1, 1)
+    reset_launches()
+    assert fixed_counts() == (0, 0, 0)
+
+
+def test_fixed_counts_of_a_tiled_and_a_streamed_launch():
+    """The launch of each fixed cell's step at its 2048 lanes as the
+    wrapper counts it: n_blocks x row tiles of 32 x lane tiles of 64
+    output tiles (17,920 at q7, 18,816 at q10), on the CTAs the library
+    reports (an H100's 132 SMs: ~135.8 and ~142.5 tiles a CTA)."""
+    reset_launches()
+    want = []
+    for cell in ("stage.q7.fixed", "stage.q10.fixed"):
+        _, bspec, step = _cell_step(cell)
+        kw = step.kernel_kw
+        tiles = sf.fixed_tiles(kw["n_blocks"], bspec.R, 2048, kw["n_accum"])
+        assert tiles == CELLS[cell][5]
+        sf.count_fixed(min(tiles, 132), tiles)
+        want.append(tiles)
+    assert fixed_counts() == (2, 264, sum(want))
+    assert want[0] / 132 == pytest.approx(135.76, abs=0.01)
+    assert want[1] / 132 == pytest.approx(142.55, abs=0.01)
+    reset_launches()
+
+
+@pytest.mark.parametrize("geometry", ["tiled", "streamed", "dense"])
+def test_no_fixed_count_without_a_fixed_launch(geometry):
+    """Counted at a launch of the phase-tiled fixed kernel alone: a call
+    of a fixed step on the CPU (its plain version, no launch), of a float
+    step of the same geometry, and of a fixed dense step add nothing."""
+    spec, bspec = _fixed_step(geometry)
+    fspec = fd.design_filter(spec.num, spec.den, spec.quality)
+    fbspec = (_launch_geometry(fspec, 882, max_in_frames=882)
+              if geometry == "dense"
+              else _launch_geometry(fspec, bspec.in_per_launch))
+    reset_launches()
+    for s, b, scheme in ((spec, bspec, "auto"), (fspec, fbspec, "highest")):
+        step = make_batched_step(s, b, device="cpu", scheme=scheme)
+        B = 4
+        hist = torch.zeros((step.hist_rows, B), dtype=torch.int16)
+        x = torch.randint(-3000, 3000, (b.in_per_launch, B),
+                          dtype=torch.int16,
+                          generator=torch.Generator().manual_seed(7))
+        _, y = step.fn(hist, x, step.w)
+        assert y.shape == (b.out_per_launch, B)
+    assert fixed_counts() == (0, 0, 0)
+    assert counter_totals() == {}
+
+
+def _fixed_view(calls: int, kernel_s: float):
+    """A traced view of ``calls`` calls, each one launch of K1e of
+    ``kernel_s`` seconds and the next history's copy."""
+    dev, t = [], 0.0
+    for _ in range(calls):
+        dev.append(("void (anonymous namespace)::streamed_fir_fixed_kernel"
+                    "<4, true>(fir::Launch, Origin, signed char const*, "
+                    "int const*, int const*)", t, t + kernel_s))
+        dev.append(("Memcpy DtoD (Device -> Device)", t + kernel_s,
+                    t + kernel_s + 1.4e-6))
+        t += kernel_s + 5e-6
+    return TraceView(calls=calls, device=dev, host=[], work=None,
+                     peaks=None)
+
+
+def test_cta_tile_reader_reads_the_counters_and_none_without(monkeypatch):
+    """``fixed.cta_tile_us``: the port kernels' device time a call times
+    CTAs over tiles, from the counters' totals; None with no device
+    operation, with no fixed launch counted, and where the program keeps
+    no such counters (an earlier port's ``utils/profiling``)."""
+    from speex_resampler_tpu_torch.utils import profiling
+    read = manifest.reader("fixed.cta_tile_us")
+    view = _fixed_view(3, 0.58e-3)
+    reset_launches()
+    assert read(view) is None
+    for _ in range(5):
+        sf.count_fixed(132, 17920)
+    assert read(view) == pytest.approx(580.0 * 132 / 17920)
+    assert read(TraceView(0, [], [], None, None)) is None
+    monkeypatch.delattr(profiling, "counter_totals")
+    assert read(view) is None
+    reset_launches()
 
 
 def test_the_reference_loads_no_jax_and_neither_package():

@@ -467,19 +467,21 @@ def test_fixed_wrapper_guards(kernel, fault):
 # -- the persistent CTAs (fixedtc::fir_tiles) ---------------------------------
 
 def test_fixed_counters_start_at_zero_and_reset():
-    """The fixed wrapper's CTA and tile counters are 0 at import, and
-    utils/launches.reset_launches() sets them back to 0 with the launch
-    counts (a fresh process: nothing here launches)."""
+    """The port's counters of the fixed launches' CTAs and tiles are 0 at
+    import, and utils/launches.reset_launches() sets them back to 0 with
+    the launch counts (a fresh process: nothing here launches)."""
     import subprocess
     import sys
     code = (
         "from speex_resampler_tpu_torch.ops import streamed_fir as sf\n"
         "from speex_resampler_tpu_torch.utils import launches as ul\n"
-        "assert sf.fixed_ctas == 0 and sf.fixed_tiles == 0\n"
-        "sf.fixed_ctas, sf.fixed_tiles = 132, 18816\n"
+        "assert ul.fixed_counts() == (0, 0, 0)\n"
+        "sf.count_fixed(132, 18816)\n"
+        "assert ul.fixed_counts() == (1, 132, 18816)\n"
         "sf.launches['fixed'] = 1\n"
         "ul.reset_launches()\n"
-        "assert sf.fixed_ctas == 0 and sf.fixed_tiles == 0\n"
+        "assert ul.fixed_counts() == (0, 0, 0)\n"
+        "assert not hasattr(sf, 'fixed_ctas')\n"
         "assert sf.launches['fixed'] == 0\n")
     root = Path(__file__).resolve().parent.parent
     subprocess.run([sys.executable, "-c", code], check=True, cwd=root,

@@ -301,13 +301,15 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
     ((48000, 44100, 10, 20480), 2048, None), ((24000, 48000, 5, 4096), 64, 1)],
     ids=["q10-B2048", "24k-48k-q5-one-block-B64"])
 def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
-    """The fixed wrapper's CTA and tile counters (``fixed_ctas``,
-    ``fixed_tiles``): the tiles are n_blocks x row tiles x ceil(B / 64),
+    """The port's counters of the fixed launches (``speex.kernel.fixed.
+    launches`` / ``.ctas`` / ``.tiles``, read by ``utils/launches.
+    fixed_counts``): the tiles are n_blocks x row tiles x ceil(B / 64),
     18,816 at 48k->44.1k q10, B = 2048, walked by one persistent CTA an
     SM, so more than one tile a CTA; one block of 24k->48k q5 (n_accum 1,
-    P = 1) at B = 64 is 4 tiles, one a CTA.  reset_launches() sets both
+    P = 1) at B = 64 is 4 tiles, one a CTA.  reset_launches() sets them
     to 0."""
-    from speex_resampler_tpu_torch.utils.launches import reset_launches
+    from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
+                                                          reset_launches)
     bspec, step = _fixed_step(cfg, 0, "streamed")
     kw = dict(step.kernel_kw)
     if n_blocks is not None:
@@ -315,7 +317,7 @@ def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, B, seed=5))
     reset_launches()
-    assert tsf.fixed_ctas == tsf.fixed_tiles == 0
+    assert fixed_counts() == (0, 0, 0)
     got = tsf.resample_streamed(hist, x, step.w, **kw)
     want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
     torch.cuda.synchronize()
@@ -324,14 +326,54 @@ def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
     tiles = kw["n_blocks"] * (bspec.R // rows) * -(-B // 64)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert tsf.launches["fixed"] == 1
-    assert tsf.fixed_tiles == tiles
+    launched, ctas, counted = fixed_counts()
+    assert (launched, counted) == (1, tiles)
     if n_blocks is None:
-        assert tiles == 18816 and tsf.fixed_ctas == min(tiles, sms)
-        assert tsf.fixed_tiles / tsf.fixed_ctas > 1
+        assert tiles == 18816 and ctas == min(tiles, sms)
+        assert counted / ctas > 1
     else:
-        assert tiles == 4 and tsf.fixed_ctas == tiles
+        assert tiles == 4 and ctas == tiles
     reset_launches()
-    assert tsf.fixed_ctas == tsf.fixed_tiles == 0
+    assert fixed_counts() == (0, 0, 0)
+
+
+def test_fixed_counts_of_the_cells_launches(cuda):
+    """One call of each fixed cell's step at its 2048 lanes counts one
+    launch of min(tiles, SMs) persistent CTAs over its tiles (17,920 at
+    44.1k->48k q7, 16464 frames, K1e; 18,816 at 48k->44.1k q10, K2d); a
+    float phase-tiled launch and a fixed dense launch count none."""
+    from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
+                                                          launch_counts,
+                                                          reset_launches)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    gen = torch.Generator().manual_seed(11)
+
+    def call(spec, bspec, scheme="auto", B=2048):
+        step = tb.make_batched_step(spec, bspec, device="cuda",
+                                    scheme=scheme)
+        hist = torch.zeros((step.hist_rows, B), dtype=torch.int16,
+                           device="cuda")
+        x = torch.randint(-20000, 20000, (bspec.in_per_launch, B),
+                          generator=gen, dtype=torch.int16).cuda()
+        reset_launches()
+        step.fn(hist, x, step.w)
+        torch.cuda.synchronize()
+        return launch_counts()
+
+    for (i, o, q, target), tiles in (((44100, 48000, 7, 16464), 17920),
+                                     ((48000, 44100, 10, 20480), 18816)):
+        spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
+        call(spec, tb._launch_geometry(spec, target))
+        assert fixed_counts() == (1, min(tiles, sms), tiles)
+    spec = tfd.design_filter(147, 160, 7)
+    assert call(spec, tb._launch_geometry(spec, 2352), "highest")
+    assert fixed_counts() == (0, 0, 0)
+    spec = tfd.design_filter(147, 160, 3, fixed_point=True)
+    bspec = tb._launch_geometry(spec, 882, max_in_frames=882)
+    assert bspec.kernel == "dense"
+    assert call(spec, bspec) == {"dense": {"fixed": 1}}
+    assert fixed_counts() == (0, 0, 0)
+    reset_launches()
 
 
 @pytest.mark.parametrize("streams,channels", [(3, 2), (65, 2), (43, 3),
