@@ -202,6 +202,7 @@ from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.parallel.mesh import join_lanes, split_lanes
 from speex_resampler_tpu_torch.probes import (
     served_tiled, batched_dot as pbd, fixed_interp_anatomy as pfa,
+    fixed_walk,
     kernel_anatomy as pka, mosaic_int_dot_bench as pid, prec_bench as ppb,
     tc_rate as ptr, v3_bench as pv3b, v3_overhead_anatomy as pv3,
     v4_k_layout as pkl, v4_overhead_anatomy as pv4, v5_int8_bench as pv5)
@@ -861,7 +862,7 @@ def kernel_of(symbol: str) -> str:
                   r"(?:tc_rate|int8_anatomy|fixed_anatomy|partial_sum|"
                   r"v3_anatomy|v3_split|f32_anatomy|prec_tc|"
                   r"prec_f32|v5_int8|v5_split5|batched_mloop|"
-                  r"batched_patch|batched_product)_kernel)"
+                  r"batched_patch|batched_product|fixed_walk)_kernel)"
                   r"(I((?:[sf]|L[ib]\d+E)+)E)?", symbol)
     if m is None:
         return symbol
@@ -933,11 +934,12 @@ def gmma_counts(lib) -> dict:
 #: K2d, lane tiles fastest; K2d's instance with (block, row tile) fastest,
 #: K1e's; K1d's and the n_accum 1 streamed one): K2b's digit split issues
 #: 4 m64n64k32 a K-slice a warpgroup at D = 4 (8 of m64n32k32 before), two
-#: K-slices a stage
+#: K-slices a stage; the persistent fixed kernel (n_accum 4) holds its
+#: resident and streamed walks, 8 each
 IGMMA_PINNED = {"tiled_fir_int8_kernel<3, true>": 12,
                 "streamed_fir_int8_kernel<4, true, false>": 8,
-                "streamed_fir_fixed_kernel<4, false>": 8,
-                "streamed_fir_fixed_kernel<4, true>": 8,
+                "streamed_fir_fixed_kernel<4, false>": 16,
+                "streamed_fir_fixed_kernel<4, true>": 16,
                 "streamed_fir_fixed_kernel<1, true>": 8,
                 "streamed_fir_fixed_kernel<1, false>": 8}
 #: the kernels whose ptxas report must show no spill: the phase-tiled
@@ -1006,6 +1008,22 @@ def sass_check() -> None:
         raise AssertionError(f"spills (bytes; None: not reported) {bad}")
 
 
+def check_walk(hist, x, step, got, ctas: int, band_tiles: int) -> None:
+    """The resident fixed walk's own record of a launch on ``ctas`` CTAs
+    (``probes.fixed_walk``: each CTA's run of tiles and band loads, read
+    on the card) against the host's model of it, which the band counter
+    adds up, and its output against the served launch's ``got``."""
+    kw = {k: step.kernel_kw[k] for k in ("n_blocks", "shift", "num", "den",
+                                         "f0")}
+    walked, record = fixed_walk.walk(hist, x, step.w, ctas=ctas, **kw)
+    model = fixed_walk.model_record(step.w[-2], band_tiles, ctas)
+    if not torch.equal(record, model) or not torch.equal(walked, got):
+        bad = int((record != model).any(dim=1).sum())
+        raise AssertionError(f"resident walk: {bad} of {ctas} CTAs off the "
+                             f"host's runs, {int((walked != got).sum())} "
+                             "outputs off the served launch's")
+
+
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                   only=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
@@ -1044,12 +1062,26 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                 got = launch(hist, x, step, form)
                 if step.scheme == "fixed" \
                         and step.kernel in ("tiled", "streamed"):
-                    _, ctas, tiles = (n - m for n, m in
-                                      zip(fixed_counts(), before))
+                    _, ctas, tiles, bands = (n - m for n, m in
+                                             zip(fixed_counts(), before))
+                    widths = step.w[-2]
+                    band_tiles = _build.load().fixed_fir_band_tiles(
+                        n_accum, widths.widest, step.kernel_kw["n_blocks"],
+                        bspec.P, B)
+                    if bands != sf.fixed_bands(widths, band_tiles, ctas) \
+                            or (n_accum == 4 and B == LANES
+                                and not bands):
+                        raise AssertionError(
+                            f"{path.name} B={B}: {bands} band loads, "
+                            f"{band_tiles} tiles a band")
+                    if band_tiles:
+                        check_walk(hist, x, step, got, ctas, band_tiles)
                     print(f"fixed launch: {path.name} -> "
                           f"{fixed_instance(step)} f0={f0:3d} B={B:4d}: "
                           f"{tiles} tiles on {ctas} CTAs, "
-                          f"{tiles / ctas:.2f} tiles a CTA")
+                          f"{tiles / ctas:.2f} tiles a CTA, {bands} band "
+                          f"loads" + (f", {tiles / bands:.2f} tiles a load"
+                                      if bands else " (streamed walk)"))
                 want = plain(hist, x, step)
                 torch.cuda.synchronize()
                 what = f"{path.name} {scheme} {form or ''} f0={f0} B={B}"
@@ -2153,6 +2185,7 @@ def probe_report() -> None:
                for v in range(len(pv3.VARIANTS))]
             + [(f"prec_tc_kernel<{m}>", "HGMMA") for m in (1, 2, 3)]
             + [("v5_int8_kernel", "IGMMA"), ("v5_split5_kernel", "HGMMA")]
+            + [("fixed_walk_kernel", "IGMMA")]
             + cores)
     found = ", ".join(f"{n} {counts.get((n, op), 0)} {op}" for n, op in want)
     print(f"probe SASS check (cuobjdump -sass): {found}")

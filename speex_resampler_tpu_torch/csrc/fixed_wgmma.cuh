@@ -49,12 +49,18 @@
 // K-slice one wgmma group, its fragments built while the previous slice's
 // wgmmas run.  Where B % 8 != 0 a thread loads its x chunk with 2-byte
 // loads.  The int16 tile leaves through shared memory as 16-byte rows.
+// fir_tiles' resident walk holds a (phase, row tile)'s planes in shared
+// memory instead, as int8_wgmma.cuh's fir_tile_resident does, and its
+// stages hold x alone.
 //
 // What bounds it: the tensor cores.  At 48 kHz -> 44.1 kHz q10 (B = 2048,
 // n_accum 4) the function needs 43.2 G int16 multiply-adds, four int8
 // products each: 345 G operations, 0.17 ms at the 1,979 TOP/s peak,
 // above the ~0.06 ms of its ~194 MB.  On the CUDA cores (IMAD, 64 a clock
-// an SM) the 44.5 G multiply-adds the tiles walk take >= 2.7 ms.
+// an SM) the 44.5 G multiply-adds the tiles walk take >= 2.7 ms.  The
+// streamed walk's stage copies held it (2.2 GB a q10 launch at ~2.3-2.8
+// TB/s); the resident walk copies 0.74 GB there and runs 0.61 against
+// 0.89 ms a launch in a CUDA graph (PERF.md section 6).
 #pragma once
 
 #include "fir_common.cuh"
@@ -103,7 +109,21 @@ struct Shape {
   static constexpr int kTilesSmemBytes = (kTileLead + 2) * kStageBytes +
                                          (kTileLead + 1) * kEpiBytes +
                                          kOutBytes + 128;
-  // the dynamic shared memory of the phase-tiled launch
+  // fir_tiles' resident walk: a band buffer holds a (phase, row tile)'s
+  // biases and coefs (kBandHead bytes), then its K-slices, the two planes'
+  // tiles of a K-slice side by side (kSliceBytes); a stage holds x alone
+  static constexpr int kBandHead = (kEpiBytes - 16 + 127) / 128 * 128;
+  static constexpr int kSliceBytes = 2 * kTileBytes;
+  static constexpr int kXStageBytes = (kRawBytes + 127) / 128 * 128;
+  // the ring of x stages, the output tile, the 16-byte tile descriptors
+  // and two band buffers of `slices` K-slices
+  __host__ __device__ static constexpr int resident_smem(int slices) {
+    return (kTileLead + 2) * kXStageBytes + kOutBytes +
+           ((kTileLead + 1) * 16 + 127) / 128 * 128 +
+           2 * (kBandHead + slices * kSliceBytes) + 128;
+  }
+  // the dynamic shared memory of the phase-tiled launch (the resident walk
+  // asks for resident_smem of its band)
   static constexpr int kLaunchSmemBytes =
       kPersistent ? kTilesSmemBytes : kSmemBytes;
 };
@@ -301,14 +321,112 @@ __device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
                : "memory");
 }
 
-// A persistent CTA's output tiles: items blockIdx.x, blockIdx.x + G, ...
-// below n_items = n_kr * lane_tiles (G = gridDim.x), item i being (block,
-// row tile) kr and lane tile lt: kr = i % n_kr, lt = i / n_kr where
-// kBlockMajor, else kr = i / lane_tiles, lt = i % lane_tiles (the
-// one-tile launch's CTA order); block k = kr / row tiles, row tile kr %
-// row tiles, phase k % P, patch origin origin(g, o, k).  Each tile is
-// fir_tile's, with the same sums and epilogue, so the outputs are its
-// own bit for bit; R % Shape::kRows == 0, every row is stored.
+// The K-slices each tile of a band walks: from its tap table entry's lo
+// rounded down to 32 to its hi, 1 where the entry is empty.
+__device__ __forceinline__ int band_width(const int32_t* entry) {
+  const int lo = entry[0] & ~(kK - 1), hi = entry[1];
+  return hi > lo ? (hi - lo + kK - 1) / kK : 1;
+}
+
+// The resident walk's run of CTA c = blockIdx.x of G = gridDim.x: the
+// items [first, last) of the band-major order whose work starts in [c W /
+// G, (c + 1) W / G), an item of band b weighing its K-slices s_b
+// (band_width of tap table entry b, b = m * row_tiles + rt), W = per_band *
+// sum_b s_b: the first item of a run at work t is b * per_band + ceil((t -
+// per_band * S_b) / s_b) for the band b with per_band * S_b < t <=
+// per_band * S_(b+1), S_b = s_0 + ... + s_(b-1) (0 at t = 0).  So the
+// CTAs' runs take as many K-slices, give or take one item, where the
+// bands' widths differ (a run may be empty).  Each thread sums a chunk of
+// the bands; a block scan gives each chunk's S, and the chunk holding t
+// writes the bound to `scratch` (48 bytes of shared memory, free), which
+// every thread reads back.
+__device__ __forceinline__ void balanced_run(const Launch& g, int row_tiles,
+                                             int per_band, uint32_t scratch,
+                                             int& first, int& last) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_bands = g.P * row_tiles;
+  const int chunk = (n_bands + kThreads - 1) / kThreads;
+  const int b0 = min(tid * chunk, n_bands), b1 = min(b0 + chunk, n_bands);
+  int own = 0;
+  for (int b = b0; b < b1; ++b) own += band_width(g.taps + 2 * b);
+  int incl = own;  // the inclusive scan of the warp's chunks
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31)
+    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + warp * 4),
+                 "r"(incl)
+                 : "memory");
+  __syncthreads();
+  int before = incl - own, total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    int t;
+    asm volatile("ld.shared.s32 %0, [%1];\n"
+                 : "=r"(t)
+                 : "r"(scratch + w * 4)
+                 : "memory");
+    before += w < warp ? t : 0;
+    total += t;
+  }
+  const long long work = (long long)per_band * total;
+  const int c = blockIdx.x, n_ctas = gridDim.x;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long t = (long long)(c + e) * work / n_ctas;
+    long long at = (long long)per_band * before;
+    if (t <= at || t > at + (long long)per_band * own) continue;
+    int b = b0, s = band_width(g.taps + 2 * b);
+    for (; t > at + (long long)per_band * s;
+         at += (long long)per_band * s, s = band_width(g.taps + 2 * ++b)) {
+    }
+    const int item = b * per_band + (int)((t - at + s - 1) / s);
+    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + 32 + e * 4),
+                 "r"(item)
+                 : "memory");
+  }
+  __syncthreads();
+  int bound[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    asm volatile("ld.shared.s32 %0, [%1];\n"
+                 : "=r"(bound[e])
+                 : "r"(scratch + 32 + e * 4)
+                 : "memory");
+  first = c == 0 ? 0 : bound[0];
+  last = bound[1];
+}
+
+// A persistent CTA's output tiles, below n_items = n_kr * lane_tiles (G =
+// gridDim.x CTAs).  Each tile is fir_tile's, with the same sums and
+// epilogue, so the outputs are its own bit for bit, in either walk; R %
+// Shape::kRows == 0, every row is stored.
+//
+// The streamed walk (kResident false): items blockIdx.x, blockIdx.x + G,
+// ..., item i being (block, row tile) kr and lane tile lt: kr = i % n_kr,
+// lt = i / n_kr where kBlockMajor, else kr = i / lane_tiles, lt = i %
+// lane_tiles (the one-tile launch's CTA order); block k = kr / row tiles,
+// row tile kr % row tiles, phase k % P, patch origin origin(g, o, k).  A
+// stage holds the two planes' tiles of two K-slices and their x rows.
+//
+// The resident walk (kResident): the items in band-major order, band
+// (m, rt) = (phase, row tile) the slowest, then the n_blocks / P blocks k
+// = m + P * j, then the lane tiles (item i: band b = i / per_band, m = b /
+// row tiles, rt = b % row tiles, j = i % per_band / lane_tiles, lt = i %
+// lane_tiles; per_band = n_blocks / P * lane_tiles, the tiles that share
+// a band); CTA c walks a contiguous run of them, balanced by K-slices
+// (balanced_run).  Where the copy cursor enters a band it copies the band's
+// K-slices of both planes (in the layout the descriptor reads) and its
+// biases and coefs into the next of two band buffers, with that stage's
+// group, once; the wgmmas read their B operand there, and a stage holds x
+// alone.  Band buffer b % 2 of the CTA's b-th band was last read by band
+// b - 2, whose tiles are walked before the cursor enters band b: the
+// cursor runs kTileLead stages ahead, and a band between two others is
+// whole, per_band tiles of one stage or more, so the launcher takes this
+// walk only where per_band >= kTileLead and both buffers of its widest
+// band (band_cap K-slices; a wider band traps) fit shared memory.
 //
 // One ring of kTileLead + 2 stage buffers serves the CTA's whole sequence
 // of stages: the copy cursor (the tile and stage the next copy_next
@@ -316,39 +434,68 @@ __device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
 // tiles, so the next tile's first stages are in flight while a tile's
 // last ones are walked and its epilogue runs.  Where the cursor enters a
 // tile it computes the tile's origin and tap band (the tap table entry
-// loaded one tile before, so no load waits), and copies the tile's
-// biases and coefs into the tile's epilogue slot with that stage's group;
-// thread 0 writes the tile's descriptor there (K-slices, first output
-// row, first lane).  The epilogue is fir_tile's, its biases and coefs
-// read from the slot (an 8-byte load gives two rows'), its int16 tile
-// leaving through a buffer of its own, so the copies in flight go on.
-// Slot t % (kTileLead + 1) of the CTA's t-th tile is written kTileLead + 1
-// tiles later, once its epilogue has read it: every tile walks at least
-// one stage (a tile whose columns are all zero walks one K-slice of zero
-// weights, whose sums are exact zeros), so the cursor is at most
-// kTileLead tiles ahead.  Launch with kThreads threads and
-// Shape::kTilesSmemBytes of dynamic shared memory; K % 32 == 0 and the
-// planes 16-byte aligned.
-template <int kAccum, bool kBlockMajor>
+// loaded one tile before, so no load waits); in the streamed walk it
+// copies the tile's biases and coefs into the tile's epilogue slot with
+// that stage's group.  Thread 0 writes the tile's descriptor in its slot
+// (K-slices, first output row, first lane, the address of its biases and
+// coefs: in the slot, or in its band buffer, whose K-slices follow them).
+// x rows of a K-slice past the tile's band are not copied.  The epilogue
+// is fir_tile's, its biases and coefs read from shared memory (an 8-byte
+// load gives two rows'), its int16 tile leaving through a buffer of its
+// own, so the copies in flight go on.  Slot t % (kTileLead + 1) of the
+// CTA's t-th tile is written kTileLead + 1 tiles later, once its epilogue
+// has read it: every tile walks at least one stage (a tile whose columns
+// are all zero walks one K-slice of zero weights, whose sums are exact
+// zeros), so the cursor is at most kTileLead tiles ahead.  Launch with
+// kThreads threads and Shape::kTilesSmemBytes (streamed) or
+// Shape::resident_smem(band_cap) bytes of dynamic shared memory; K % 32 ==
+// 0 and the planes 16-byte aligned.  Each walk is its own instance, so
+// neither pays for the other's choices at run time.  The resident walk
+// tells `witness` its run (run(first, last), every thread, once) and each
+// band it enters (band(), every thread); the served kernel's NoWitness
+// does nothing, a test build's records what the walk did.
+struct NoWitness {
+  __device__ __forceinline__ void run(int, int) const {}
+  __device__ __forceinline__ void band() const {}
+};
+template <int kAccum, bool kBlockMajor, bool kResident,
+          class Witness = NoWitness>
 __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
                                           int n_kr, int lane_tiles,
+                                          int band_cap,
                                           const int8_t* __restrict__ planes,
                                           const int32_t* __restrict__ bias,
-                                          const int32_t* __restrict__ coef) {
+                                          const int32_t* __restrict__ coef,
+                                          Witness witness = {}) {
   using Sh = Shape<kAccum>;
   constexpr int kLead = Sh::kTileLead;
   constexpr int kStages = kLead + 2;
   constexpr int kSlots = kLead + 1;
   extern __shared__ uint8_t fixed_smem[];
+  // a stage's bytes, and where its x rows start in it
+  const int stage_bytes = kResident ? Sh::kXStageBytes : Sh::kStageBytes;
+  const int x_at = kResident ? 0 : Sh::kWBytes;
+  const int slot_bytes = kResident ? 16 : Sh::kEpiBytes;
+  const int band_bytes = Sh::kBandHead + band_cap * Sh::kSliceBytes;
   const uint32_t ring = (smem_addr(fixed_smem) + 127) & ~127u;
-  const uint32_t out = ring + kStages * Sh::kStageBytes;
+  const uint32_t out = ring + kStages * stage_bytes;
   const uint32_t epi = out + Sh::kOutBytes;
+  const uint32_t bands = epi + (kSlots * 16 + 127) / 128 * 128;
   const int tid = threadIdx.x, h = tid / 128;
   const int w = (tid % 128) / 32, l = tid % 32;
   const int C = kAccum * g.R;
   const int row_tiles = g.R / Sh::kRows;
   const int n_items = n_kr * lane_tiles;
   const int n_ctas = gridDim.x;
+  const int per_band = n_kr / row_tiles / g.P * lane_tiles;
+  // this CTA's items: first, first + stride, ... below last (the output
+  // tile's buffer is free for balanced_run's scratch)
+  int first = blockIdx.x, last = n_items;
+  if constexpr (kResident) {
+    balanced_run(g, row_tiles, per_band, out, first, last);
+    witness.run(first, last);
+  }
+  const int stride = kResident ? 1 : n_ctas;
 
   // This thread's weight copies (fir_tile's): 16-byte chunk i % 2 of
   // K-slice (i / 2) % 2 of the CTA's B row n = i / 4, at woff[q] bytes
@@ -376,10 +523,18 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
 
   // item -> (block k, row tile rt, lane tile lt)
   auto decode = [&](int item, int& k, int& rt, int& lt) {
-    const int kr = kBlockMajor ? item % n_kr : item / lane_tiles;
-    lt = kBlockMajor ? item / n_kr : item % lane_tiles;
-    k = kr / row_tiles;
-    rt = kr - k * row_tiles;
+    if constexpr (kResident) {
+      const int b = item / per_band, r = item - b * per_band;
+      const int m = b / row_tiles, j = r / lane_tiles;
+      rt = b - m * row_tiles;
+      lt = r - j * lane_tiles;
+      k = m + g.P * j;
+    } else {
+      const int kr = kBlockMajor ? item % n_kr : item / lane_tiles;
+      lt = kBlockMajor ? item / n_kr : item % lane_tiles;
+      k = kr / row_tiles;
+      rt = kr - k * row_tiles;
+    }
   };
   auto band = [&](int item) {  // the tap table entry of an item's tile
     int k, rt, lt;
@@ -387,47 +542,88 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
     return g.taps + ((k % g.P) * row_tiles + rt) * 2;
   };
 
-  // The copy cursor: tile c_item (its slot c_slot), stage c_s of its c_n;
-  // its first weight row c_w, its band's first tap c_t at virtual row
-  // c_v, its lanes from c_lane0; the next tile's tap entry n_lo, n_hi.
-  int c_item = blockIdx.x, c_slot = 0, c_s = 0, c_n = 0;
+  // The copy cursor: tile c_item (its slot c_slot), stage c_s of its c_n,
+  // its band c_slices K-slices; its first weight row c_w, its band's first
+  // tap c_t at virtual row c_v, its lanes from c_lane0; the next tile's
+  // tap entry n_lo, n_hi; the resident walk's band c_band (m * row tiles
+  // + rt) in band buffer c_buf.
+  int c_item = first, c_slot = 0, c_s = 0, c_n = 0, c_slices = 0;
   const int8_t* c_w = planes;
   int c_t = 0, c_v = 0, c_lane0 = 0;
   int n_lo = 0, n_hi = 0;
-  if (c_item < n_items) {
+  int c_band = -1, c_buf = 1;
+  if (c_item < last) {
     const int32_t* e = band(c_item);
     n_lo = e[0];
     n_hi = e[1];
   }
-  // enters tile c_item: its geometry, epilogue slot and descriptor, and
-  // the tap entry of the tile after it
+  // this thread's share (one word) of the biases and coefs of row tile
+  // row0 of phase m, to `head`
+  auto copy_head = [&](uint32_t head, int m, int row0) {
+    if (tid < Sh::kBiases)
+      copy4(head + tid * 4, bias + (size_t)m * C + tid / Sh::kRows * g.R +
+                                row0 + tid % Sh::kRows);
+    else if (kAccum == 4 && tid < 2 * Sh::kBiases)
+      copy4(head + tid * 4,
+            coef + (size_t)m * 4 * g.R +
+                (tid - Sh::kBiases) / Sh::kRows * g.R + row0 +
+                (tid - Sh::kBiases) % Sh::kRows);
+  };
+  // The band of row tile row0 of phase m, K-slices c_t / 32 .. + slices -
+  // 1 of both planes, into the band buffer after `head`: K-slice s of
+  // plane p at (2s + p) * kTileBytes, copy e taking 16-byte chunk cc of
+  // band row n's slices (neighbouring threads, neighbouring chunks).
+  auto copy_band = [&](uint32_t head, int m, int row0, int slices) {
+    const int per_row = kK / 16 * slices;
+    const int8_t* src = planes + ((size_t)m * C + row0) * g.K + c_t;
+    for (int e = tid; e < 2 * 2 * Sh::kN * per_row; e += kThreads) {
+      const int cc = e % per_row, np = e / per_row;
+      const int n = np % (2 * Sh::kN), p = np / (2 * Sh::kN);
+      const int set = (n % Sh::kN) / Sh::kWgRows;
+      const int row = (n / Sh::kN) * Sh::kWgRows + n % Sh::kWgRows;
+      copy16(head + Sh::kBandHead + (2 * (cc / 2) + p) * Sh::kTileBytes +
+                 int8tc::core_offset(n, cc % 2),
+             src + p * plane + (size_t)(set * g.R + row) * g.K + cc * 16, 16);
+    }
+  };
+  // enters tile c_item: its geometry, epilogue slot and descriptor (and,
+  // entering a band, the band), and the tap entry of the tile after it
   auto enter = [&]() {
     int k, rt, lt;
     decode(c_item, k, rt, lt);
     const int m = k % g.P, row0 = rt * Sh::kRows;
     c_t = n_lo & ~(kK - 1);
-    const int slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK : 1;
-    c_n = (slices + kSub - 1) / kSub;
+    c_slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK : 1;
+    c_n = (c_slices + kSub - 1) / kSub;
     c_s = 0;
     c_w = planes + ((size_t)m * C + row0) * g.K;
     c_v = origin(g, o, k) + c_t;
     c_lane0 = lt * kLanes;
-    const uint32_t slot = epi + c_slot * Sh::kEpiBytes;
-    if (tid < Sh::kBiases)
-      copy4(slot + 16 + tid * 4, bias + (size_t)m * C +
-                                     tid / Sh::kRows * g.R + row0 +
-                                     tid % Sh::kRows);
-    else if (kAccum == 4 && tid < 2 * Sh::kBiases)
-      copy4(slot + 16 + tid * 4,
-            coef + (size_t)m * 4 * g.R +
-                (tid - Sh::kBiases) / Sh::kRows * g.R + row0 +
-                (tid - Sh::kBiases) % Sh::kRows);
+    const uint32_t slot = epi + c_slot * slot_bytes;
+    uint32_t head = slot + 16;
+    if constexpr (kResident) {
+      const bool enters = m * row_tiles + rt != c_band;
+      if (enters) {
+        if (c_slices > band_cap) __trap();
+        c_band = m * row_tiles + rt;
+        c_buf ^= 1;
+        witness.band();
+      }
+      head = bands + c_buf * band_bytes;
+      if (enters) {
+        copy_head(head, m, row0);
+        copy_band(head, m, row0, c_slices);
+      }
+    } else {
+      copy_head(head, m, row0);
+    }
     if (tid == 0)
       asm volatile("st.shared.v4.s32 [%0], {%1, %2, %3, %4};\n" ::"r"(slot),
-                   "r"(slices), "r"(k * g.R + row0), "r"(c_lane0), "r"(0)
+                   "r"(c_slices), "r"(k * g.R + row0), "r"(c_lane0),
+                   "r"(head)
                    : "memory");
-    if (c_item + n_ctas < n_items) {
-      const int32_t* e = band(c_item + n_ctas);
+    if (c_item + stride < last) {
+      const int32_t* e = band(c_item + stride);
       n_lo = e[0];
       n_hi = e[1];
     }
@@ -436,28 +632,33 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
   // empty past the CTA's last tile
   int c_q = 0;
   auto copy_next = [&]() {
-    if (c_item < n_items) {
+    if (c_item < last) {
       if (c_s == 0) enter();
-      const uint32_t buf = ring + (c_q % kStages) * Sh::kStageBytes;
+      const uint32_t buf = ring + (c_q % kStages) * stage_bytes;
       const int t0 = c_t + c_s * kStageTaps;
+      if constexpr (!kResident) {
 #pragma unroll
-      for (int q = 0; q < Sh::kWCopies; ++q) {
-        const bool in = t0 + wt[q] < g.K;
+        for (int q = 0; q < Sh::kWCopies; ++q) {
+          const bool in = t0 + wt[q] < g.K;
 #pragma unroll
-        for (int p = 0; p < 2; ++p)
-          copy16(buf + p * kSub * Sh::kTileBytes + wdst[q],
-                 in ? c_w + p * plane + woff[q] + t0 : planes,
-                 in ? 16 : 0);
+          for (int p = 0; p < 2; ++p)
+            copy16(buf + p * kSub * Sh::kTileBytes + wdst[q],
+                   in ? c_w + p * plane + woff[q] + t0 : planes,
+                   in ? 16 : 0);
+        }
       }
+      // the stage's taps inside the band
+      const int taps = c_slices * kK - c_s * kStageTaps;
 #pragma unroll
       for (int r = 0; r < kStageTaps * kLanes / 8 / kThreads; ++r) {
         const int i = tid + r * kThreads, tap = i / (kLanes / 8);
         const int lane = (i % (kLanes / 8)) * 8;
-        copy_x8(g, c_v + c_s * kStageTaps + tap, c_lane0 + lane, vec,
-                buf + Sh::kWBytes + tap * kRawPitch + lane * 2, planes);
+        if (tap < taps)
+          copy_x8(g, c_v + c_s * kStageTaps + tap, c_lane0 + lane, vec,
+                  buf + x_at + tap * kRawPitch + lane * 2, planes);
       }
       if (++c_s == c_n) {
-        c_item += n_ctas;
+        c_item += stride;
         c_slot = c_slot + 1 == kSlots ? 0 : c_slot + 1;
         c_s = 0;
       }
@@ -478,13 +679,13 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
   for (int j = 0; j < 3; ++j)
 #pragma unroll
     for (int i = 0; i < Sh::kAcc; ++i) acc[j][i] = 0;
-  // fir_tile's epilogue of the tile in acc, its biases and coefs from its
-  // slot (CTA row r of set s at word s * kRows + r of each), into `out`:
+  // fir_tile's epilogue of the tile in acc, its biases and coefs from
+  // `head` (CTA row r of set s at word s * kRows + r of each), into `out`:
   // four outputs e = 4g .. 4g + 3 at a time, lanes 16w + l/4 (+ 8) of CTA
   // rows r0 and r0 + 1, so one 8-byte load takes their two biases of a
   // set and one their two coefs.
-  auto mix = [&](uint32_t slot) {
-    const uint32_t bias_s = slot + 16, coef_s = bias_s + Sh::kBiases * 4;
+  auto mix = [&](uint32_t head) {
+    const uint32_t bias_s = head, coef_s = bias_s + Sh::kBiases * 4;
 #pragma unroll
     for (int g4 = 0; g4 < Sh::kPer / 4; ++g4) {
       const int r0 = h * Sh::kWgRows + 8 * g4 + 2 * (l % 4);
@@ -553,18 +754,23 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
   stage_ready();
   uint32_t xh[2][4], xl[2][4];
   int q = 0, slot_i = 0;  // the walk's stage and its tile's slot
+  // a K-slice's plane tiles: the second plane's this far from the first
+  const int plane_at = kResident ? Sh::kTileBytes : kSub * Sh::kTileBytes;
 #pragma unroll 1
-  for (int item = blockIdx.x; item < n_items; item += n_ctas) {
-    const uint32_t slot = epi + slot_i * Sh::kEpiBytes;
-    int slices, yrow, lane0, unused;
+  for (int item = first; item < last; item += stride) {
+    const uint32_t slot = epi + slot_i * slot_bytes;
+    int slices, yrow, lane0;
+    uint32_t head;
     asm volatile("ld.shared.v4.s32 {%0, %1, %2, %3}, [%4];\n"
-                 : "=r"(slices), "=r"(yrow), "=r"(lane0), "=r"(unused)
+                 : "=r"(slices), "=r"(yrow), "=r"(lane0), "=r"(head)
                  : "r"(slot)
                  : "memory");
     const int n_stages = (slices + kSub - 1) / kSub;
+    // this warpgroup's kN rows of the band's first K-slice
+    const uint32_t wband = head + Sh::kBandHead + h * (Sh::kN / 8) * 256;
 #pragma unroll 1
     for (int s = 0; s < n_stages; ++s, ++q) {
-      const uint32_t buf = ring + (q % kStages) * Sh::kStageBytes;
+      const uint32_t buf = ring + (q % kStages) * stage_bytes;
 #pragma unroll
       for (int j = 0; j < kSub; ++j) {
         // the last stage stops at the band's end (uniform over the CTA)
@@ -572,14 +778,17 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
         asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
         int8tc::pin(xh[j]);
         int8tc::pin(xl[j]);
-        int8tc::load_split(buf + Sh::kWBytes + j * kK * kRawPitch + frag,
-                           xh[j], xl[j]);
+        int8tc::load_split(buf + x_at + j * kK * kRawPitch + frag, xh[j],
+                           xl[j]);
         asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
         const int accumulate = s > 0 || j > 0;
-        // this warpgroup's kN rows of the plane tiles
-        const uint32_t b = buf + j * Sh::kTileBytes + h * (Sh::kN / 8) * 256;
+        // this warpgroup's kN rows of the plane tiles: K-slice s * kSub + j
+        // of the band, or slice j of the stage
+        const uint32_t b =
+            kResident ? wband + 2 * (s * kSub + j) * Sh::kTileBytes
+                     : buf + j * Sh::kTileBytes + h * (Sh::kN / 8) * 256;
         const uint64_t bh = int8tc::descriptor(b);
-        const uint64_t bl = int8tc::descriptor(b + kSub * Sh::kTileBytes);
+        const uint64_t bl = int8tc::descriptor(b + plane_at);
         mma(acc[0], xh[j], bh, accumulate);
         mma(acc[1], xl[j], bh, accumulate);
         mma(acc[1], xh[j], bl, 1);
@@ -595,7 +804,7 @@ __device__ __forceinline__ void fir_tiles(const Launch& g, Origin o,
 #pragma unroll
     for (int j = 0; j < 3; ++j) int8tc::pin(acc[j]);
     // the epilogue: `out` was last read before this tile's stage barriers
-    mix(slot);
+    mix(head);
     __syncthreads();
     store(yrow, lane0);
     slot_i = slot_i + 1 == kSlots ? 0 : slot_i + 1;

@@ -77,12 +77,18 @@
 // needs 43.2 G int16 multiply-adds (filt_len x 4 per output): 345 G int8
 // tensor-core operations, ~174 us, above the ~61 us of its bytes, so
 // operations bound it.  At n_accum 4 its CTAs are persistent
-// (fixedtc::fir_tiles): min(tiles, SMs) of them, each walking every
-// G-th tile of the launch's CTA order with one copy ring that runs on
-// across its tiles, so the next tile's copies are in flight through a
-// tile's epilogue (q10, B = 2048: 0.880 against 1.018 ms a launch in a
-// CUDA graph, one tile a CTA; PERF.md); n_accum 1 (2 CTAs an SM at 128
-// registers, where that state spills) keeps one tile a CTA.
+// (fixedtc::fir_tiles): min(tiles, SMs) of them, with one copy ring that
+// runs on across a CTA's tiles, so the next tile's copies are in flight
+// through a tile's epilogue (q10, B = 2048: 0.880 against 1.018 ms a
+// launch in a CUDA graph, one tile a CTA; PERF.md).  Where the launch's
+// widest (phase, row tile) band fits two band buffers and enough tiles
+// share a band (resident_band_tiles), each CTA walks a contiguous run of
+// tiles in band-major order, holds each band's planes in shared memory
+// and stages x alone (q10: 0.61 against 0.89 ms with the weights
+// restaged every stage; PERF.md); else it walks every G-th tile of the
+// launch's CTA order with the weights streamed beside x.  n_accum 1 (2
+// CTAs an SM at 128 registers, where that state spills) keeps one tile a
+// CTA.
 //
 // Scheme "split5" (K2c, and K1c; five bf16 products per multiply-add
 // summed in f32) reads bf16 planes [3, P, K_pad, R] (JAX streams [P, 3, R,
@@ -202,20 +208,26 @@ cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
 
 // Output tiles (block k, row tile of fixedtc::Shape<kAccum>::kRows rows,
 // lane tile of int8tc::kLanes lanes) of n_kr (block, row tile) pairs: a
-// persistent CTA walks every gridDim.x-th of them (fixedtc::fir_tiles, in
-// the CTA order kBlockMajor gives), else a CTA takes one (Cta).
+// persistent CTA walks many of them (fixedtc::fir_tiles: every gridDim.x-th
+// in the CTA order kBlockMajor gives, or, with band_cap > 0, a contiguous
+// run in band-major order, each band resident), else a CTA takes one
+// (Cta).
 template <int kAccum, bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads,
                                   fir::fixedtc::Shape<kAccum>::kMinBlocks)
-streamed_fir_fixed_kernel(fir::Launch g, Origin o, int n_kr,
+streamed_fir_fixed_kernel(fir::Launch g, Origin o, int n_kr, int band_cap,
                           const int8_t* __restrict__ planes,
                           const int32_t* __restrict__ bias,
                           const int32_t* __restrict__ coef) {
   using Shape = fir::fixedtc::Shape<kAccum>;
   const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
   if constexpr (Shape::kPersistent) {
-    fir::fixedtc::fir_tiles<kAccum, kBlockMajor>(g, o, n_kr, lane_tiles,
-                                                 planes, bias, coef);
+    if (band_cap > 0)
+      fir::fixedtc::fir_tiles<kAccum, kBlockMajor, true>(
+          g, o, n_kr, lane_tiles, band_cap, planes, bias, coef);
+    else
+      fir::fixedtc::fir_tiles<kAccum, kBlockMajor, false>(
+          g, o, n_kr, lane_tiles, 0, planes, bias, coef);
   } else {
     const Cta<kBlockMajor> c(lane_tiles);
     const int row_tiles = g.R / Shape::kRows;
@@ -243,25 +255,50 @@ cudaError_t sm_count(int* n) {
   return err;
 }
 
+// The tiles that share a (phase, row tile) band, n_blocks / P x lane
+// tiles, where the n_accum kAccum fixed launch's persistent CTAs hold each
+// band resident, else 0 (they walk it streamed): where the launch's widest
+// band, `slices` K-slices (the widest of tiled_fir.band_widths of its tap
+// table, carried in the fixed weights), fits two band buffers beside the x
+// ring in a CTA's shared memory and at least kTileLead tiles share a band
+// (fir_tiles' condition for reusing a band buffer).
+template <int kAccum>
+int resident_band_tiles(int slices, int n_blocks, int P, int B) {
+  using Shape = fir::fixedtc::Shape<kAccum>;
+  const int per_band =
+      n_blocks / P * ((B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes);
+  return Shape::kPersistent && per_band >= Shape::kTileLead &&
+                 Shape::resident_smem(slices) <= fir::int8tc::kMaxSmem
+             ? per_band
+             : 0;
+}
+
 // Launches the n_accum kAccum fixed kernel (its shared memory set once a
 // device) and sets *ctas to the CTAs launched: persistent
-// (Shape::kPersistent), min(tiles, SMs x Shape::kMinBlocks) on a 1-D grid
-// in the order launch_ordered's rule picks, else one a tile.
+// (Shape::kPersistent), min(tiles, SMs x Shape::kMinBlocks) on a 1-D grid,
+// else one a tile in the order launch_ordered's rule picks; and
+// *band_tiles to resident_band_tiles (the persistent CTAs hold each band
+// resident where it is not 0).
 template <int kAccum>
 cudaError_t launch_fixed(const fir::Launch& g, Origin o, const int8_t* planes,
                          const int32_t* bias, const int32_t* coef,
-                         int n_blocks, cudaStream_t stream, int* ctas) {
+                         int n_blocks, int slices, cudaStream_t stream,
+                         int* ctas, int* band_tiles) {
   using Shape = fir::fixedtc::Shape<kAccum>;
   static decltype(&streamed_fir_fixed_kernel<kAccum, false>) const
       kernels[2] = {streamed_fir_fixed_kernel<kAccum, false>,
                     streamed_fir_fixed_kernel<kAccum, true>};
+  // the persistent kernel's resident launches differ by band, so it takes
+  // a CTA's most
+  constexpr int kSmemMax =
+      Shape::kPersistent ? fir::int8tc::kMaxSmem : Shape::kLaunchSmemBytes;
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    const cudaError_t e = fir::fixedtc::allow_smem<kAccum>(
-        kernels[0], Shape::kLaunchSmemBytes);
-    return e != cudaSuccess ? e
-                            : fir::fixedtc::allow_smem<kAccum>(
-                                  kernels[1], Shape::kLaunchSmemBytes);
+    const cudaError_t e =
+        fir::fixedtc::allow_smem<kAccum>(kernels[0], kSmemMax);
+    return e != cudaSuccess
+               ? e
+               : fir::fixedtc::allow_smem<kAccum>(kernels[1], kSmemMax);
   });
   if (attr != cudaSuccess) return attr;
   const int n_kr = n_blocks * (g.R / Shape::kRows);
@@ -272,15 +309,18 @@ cudaError_t launch_fixed(const fir::Launch& g, Origin o, const int8_t* planes,
     const cudaError_t err = sm_count(&sms);
     if (err != cudaSuccess) return err;
     *ctas = std::min(n_kr * lane_tiles, sms * Shape::kMinBlocks);
-    kernels[weight_bytes <= kBlockMajorBytes]<<<*ctas, kThreads,
-                                                 Shape::kTilesSmemBytes,
-                                                 stream>>>(g, o, n_kr, planes,
-                                                           bias, coef);
+    *band_tiles = resident_band_tiles<kAccum>(slices, n_blocks, g.P, g.B);
+    const bool resident = *band_tiles > 0;
+    kernels[weight_bytes <= kBlockMajorBytes]<<<
+        *ctas, kThreads,
+        resident ? Shape::resident_smem(slices) : Shape::kTilesSmemBytes,
+        stream>>>(g, o, n_kr, resident ? slices : 0, planes, bias, coef);
     return cudaGetLastError();
   } else {
     *ctas = n_kr * lane_tiles;
+    *band_tiles = 0;
     return launch_ordered(kernels, n_kr, lane_tiles, weight_bytes, kThreads,
-                          Shape::kSmemBytes, stream, g, o, n_kr, planes,
+                          Shape::kSmemBytes, stream, g, o, n_kr, 0, planes,
                           bias, coef);
   }
 }
@@ -315,6 +355,13 @@ int f32_fir_sub_rows() { return fir::f32::kSubRows; }
 int fixed_fir_rows(int n_accum) {
   return n_accum == 4 ? fir::fixedtc::Shape<4>::kRows
                       : fir::fixedtc::Shape<1>::kRows;
+}
+// The tiles that share a band where a fixed launch (n_accum, its widest
+// band's K-slices, n_blocks, P, B) holds its bands resident, else 0.
+int fixed_fir_band_tiles(int n_accum, int slices, int n_blocks, int P,
+                         int B) {
+  return n_accum == 4 ? resident_band_tiles<4>(slices, n_blocks, P, B)
+                      : resident_band_tiles<1>(slices, n_blocks, P, B);
 }
 
 const char* streamed_fir_error_string(int err) {
@@ -397,16 +444,24 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
 // planes int8[2, P, n_accum * R, K] (K % 32 == 0, each 32-tap group
 // permuted: fixed_wgmma.cuh), 16-byte aligned; bias int32[P, n_accum * R];
 // coef int32[P, 4, R] (NULL for n_accum 1); taps int32[P, R / rows, 2]
-// (rows: fixed_fir_rows).  *ctas: the CTAs launched (0 where none was).
+// (rows: fixed_fir_rows); slices: the most 32-tap K-slices a row tile's
+// band spans in taps (1 <= slices <= K / 32; a band wider than it traps in
+// the resident walk).  *ctas: the CTAs launched (0 where none was);
+// *band_tiles: the tiles that share a band where the persistent CTAs hold
+// bands resident, else 0.
 int streamed_fir_fixed(const void* hist, const void* x, void* y,
                        const void* taps, const void* planes, const void* bias,
-                       const void* coef, int n_accum, int H, int T, int B,
-                       int R, int K, int P, int n_blocks, int shift, int num,
-                       int den, int f0, void* stream, int* ctas) {
+                       const void* coef, int n_accum, int slices, int H,
+                       int T, int B, int R, int K, int P, int n_blocks,
+                       int shift, int num, int den, int f0, void* stream,
+                       int* ctas, int* band_tiles) {
   cudaGetLastError();
   *ctas = 0;
+  *band_tiles = 0;
   if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (slices < 1 || slices > K / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const Origin o = fir::make_origin(shift, num, den, f0);
   const auto* p8 = static_cast<const int8_t*>(planes);
@@ -414,9 +469,13 @@ int streamed_fir_fixed(const void* hist, const void* x, void* y,
   const auto* c32 = static_cast<const int32_t*>(coef);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (n_accum == 4) err = launch_fixed<4>(g, o, p8, b32, c32, n_blocks, st, ctas);
-  if (n_accum == 1) err = launch_fixed<1>(g, o, p8, b32, c32, n_blocks, st, ctas);
-  if (err != cudaSuccess) *ctas = 0;
+  if (n_accum == 4)
+    err = launch_fixed<4>(g, o, p8, b32, c32, n_blocks, slices, st, ctas,
+                          band_tiles);
+  if (n_accum == 1)
+    err = launch_fixed<1>(g, o, p8, b32, c32, n_blocks, slices, st, ctas,
+                          band_tiles);
+  if (err != cudaSuccess) *ctas = *band_tiles = 0;
   return static_cast<int>(err);
 }
 

@@ -52,11 +52,12 @@ _SIGNATURES = {
     "streamed_fir_row_tile": (_I, []),
     "f32_fir_sub_rows": (_I, []),
     "fixed_fir_rows": (_I, [_I]),
+    "fixed_fir_band_tiles": (_I, [_I] * 5),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
-    "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 12 + [_P,
-                                                       ctypes.POINTER(_I)]),
+    "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 13 + [_P]
+                           + [ctypes.POINTER(_I)] * 2),
     "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),
     "dense_fir_row_tile": (_I, []),
     "dense_fir_error_string": (ctypes.c_char_p, [_I]),
@@ -89,7 +90,8 @@ _lock = threading.Lock()
 _PROBE_SOURCE_NAMES = ("probes/tc_rate.cu", "probes/int8_anatomy.cu",
                        "probes/fixed_anatomy.cu", "probes/v3_anatomy.cu",
                        "probes/f32_anatomy.cu", "probes/prec_fir.cu",
-                       "probes/v5_bench.cu", "probes/batched_dot.cu")
+                       "probes/v5_bench.cu", "probes/batched_dot.cu",
+                       "probes/fixed_walk.cu")
 _PROBE_HEADER_NAMES = ("probes/probe_common.cuh",
                        "probes/f32_anatomy.cuh") + _HEADER_NAMES
 _PROBE_CSRC = _CSRC
@@ -115,6 +117,7 @@ _PROBE_SIGNATURES = {
     "probe_v5_bench": (_I, [_P] * 6 + [_I] + [_F] * 3 + [_I] * 8 + [_P]),
     "probe_batched_patches": (_I, [_P] * 4 + [_I] * 7 + [_P]),
     "probe_batched_dot": (_I, [_P] * 7 + [_I] * 10 + [_P]),
+    "probe_fixed_walk": (_I, [_P] * 7 + [_I] * 13 + [_P] * 2),
 }
 _probe_lib = None
 _probe_lock = threading.Lock()

@@ -224,10 +224,10 @@ def device_weights_fixed(w16, coef, device):
         return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
     if coef is None:
-        planes, bias, taps = tf.fixed_device_weights((wp,), device)
+        planes, bias, _, taps = tf.fixed_device_weights((wp,), device)
         return FixedDenseWeights(dev(w16), planes, bias, taps)
     coef = np.ascontiguousarray(coef, dtype=np.int32)
-    planes, bias, coef_pad, taps = tf.fixed_device_weights(
+    planes, bias, coef_pad, _, taps = tf.fixed_device_weights(
         (wp, np.pad(coef, ((0, 0), (0, R_pad - R)))[None]), device)
     return FixedDenseInterpWeights(dev(w16), dev(coef), planes, bias,
                                    coef_pad, taps)

@@ -47,7 +47,10 @@ tensors.  It never falls back from one to the other.
 
 from __future__ import annotations
 
+import bisect
 import ctypes
+import functools
+import itertools
 
 import torch
 
@@ -66,12 +69,16 @@ __all__ = ["device_weights_streamed", "int8_launch_weights", "origins",
 launches = {"highest": 0, "int8": 0, "int8_resident": 0, "fixed": 0,
             "split5": 0}
 #: the port's counters (``utils/profiling.count``) of the fixed launches,
-#: the CTAs they launched (persistent CTAs walk many output tiles each)
-#: and their output tiles (block, row tile, 64-lane tile): tiles over
-#: CTAs is the tiles a CTA walked
+#: the CTAs they launched (persistent CTAs walk many output tiles each),
+#: their output tiles (block, row tile, 64-lane tile) and the band loads
+#: of the persistent CTAs that hold each (phase, row tile) weight band
+#: resident (:func:`fixed_bands`; 0 for a launch on the streamed walk):
+#: tiles over CTAs is the tiles a CTA walked, tiles over bands the tiles
+#: a band load served
 FIXED_LAUNCHES = "speex.kernel.fixed.launches"
 FIXED_CTAS = "speex.kernel.fixed.ctas"
 FIXED_TILES = "speex.kernel.fixed.tiles"
+FIXED_BANDS = "speex.kernel.fixed.bands"
 #: lanes of a fixed output tile (``csrc/int8_wgmma.cuh``'s kLanes)
 FIXED_LANES = 64
 
@@ -147,11 +154,20 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     n_accum: "fixed" only: 1 (direct) or 4 (interpolated) weight columns
           per output.
 
+    A fixed n_accum 4 launch whose widest band (the weights'
+    ``tiled_fir.BandWidths``) fits the persistent CTA's two band buffers,
+    and whose bands are each shared by enough tiles, holds each band
+    resident, its CTAs' runs balanced by the bands' widths
+    (``csrc/fixed_wgmma.cuh``'s ``fir_tiles``); the library decides from
+    the widest band and the launch's shape, and the others stream the
+    weights with x.
+
     Rows of the virtual axis at or past H + T_c read as zero.  CUDA
     tensors launch the kernel on the current stream (asynchronously; a
     launch error raises); CPU tensors run the plain version.  A fixed
-    launch adds 1, its CTAs and its output tiles to the counters
-    ``FIXED_LAUNCHES``, ``FIXED_CTAS`` and ``FIXED_TILES``."""
+    launch adds 1, its CTAs, its output tiles and its band loads to the
+    counters ``FIXED_LAUNCHES``, ``FIXED_CTAS``, ``FIXED_TILES`` and
+    ``FIXED_BANDS``."""
     P, K, R, resident = _check(hist, x, w, n_blocks, shift, num, den, f0,
                                scheme, scales, n_accum)
     if x.device.type == "cpu":
@@ -183,10 +199,12 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
             err = lib.streamed_fir_split5(*head, w[0].data_ptr(), *geo)
         elif scheme == "fixed":
             coef = w[2].data_ptr() if n_accum == 4 else None
-            ctas = ctypes.c_int(0)
+            ctas, band_tiles = ctypes.c_int(0), ctypes.c_int(0)
             err = lib.streamed_fir_fixed(*head, w[0].data_ptr(),
-                                         w[1].data_ptr(), coef, n_accum, *geo,
-                                         ctypes.byref(ctas))
+                                         w[1].data_ptr(), coef, n_accum,
+                                         w[-2].widest, *geo,
+                                         ctypes.byref(ctas),
+                                         ctypes.byref(band_tiles))
         elif resident:
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
                                      len(scales), *s, w[2], *geo)
@@ -199,7 +217,8 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
                            + lib.streamed_fir_error_string(err).decode())
     launches["int8_resident" if resident else scheme] += 1
     if scheme == "fixed":
-        count_fixed(ctas.value, fixed_tiles(n_blocks, R, B, n_accum))
+        count_fixed(ctas.value, fixed_tiles(n_blocks, R, B, n_accum),
+                    fixed_bands(w[-2], band_tiles.value, ctas.value))
     return y
 
 
@@ -209,12 +228,49 @@ def fixed_tiles(n_blocks: int, R: int, B: int, n_accum: int) -> int:
     return n_blocks * (R // tf.FIXED_ROWS[n_accum]) * -(-B // FIXED_LANES)
 
 
-def count_fixed(ctas: int, tiles: int) -> None:
-    """One fixed launch of ``ctas`` CTAs over ``tiles`` output tiles, into
-    the port's counters."""
+def fixed_runs(bands: tf.BandWidths, band_tiles: int, ctas: int) -> list:
+    """Each CTA's run ``(first, last)`` of the output tiles of a persistent
+    fixed launch that holds its bands resident (``csrc/fixed_wgmma.cuh``'s
+    ``balanced_run``): the tiles in band-major order, ``band_tiles`` a
+    band, a tile of band b weighing its ``bands.slices[b]`` K-slices; CTA
+    c takes the tiles whose work starts in ``[c W / ctas, (c + 1) W /
+    ctas)``, W the launch's, so the runs take as many K-slices, give or
+    take a tile."""
+    slices = bands.slices
+    ends = list(itertools.accumulate(band_tiles * s for s in slices))
+    work = ends[-1]
+
+    def start(t: int) -> int:
+        if t <= 0:
+            return 0
+        b = bisect.bisect_left(ends, t)
+        at = ends[b] - band_tiles * slices[b]
+        return b * band_tiles + -(-(t - at) // slices[b])
+
+    bounds = [start(c * work // ctas) for c in range(ctas + 1)]
+    return list(zip(bounds, bounds[1:]))
+
+
+@functools.lru_cache(maxsize=64)
+def fixed_bands(bands: tf.BandWidths, band_tiles: int, ctas: int) -> int:
+    """The band loads of a persistent fixed launch that holds its bands
+    resident: each CTA loads each band its run (:func:`fixed_runs`)
+    meets once.  0 where ``band_tiles`` is 0: the launch walked its
+    weights streamed."""
+    if band_tiles <= 0:
+        return 0
+    return sum((last - 1) // band_tiles - first // band_tiles + 1
+               for first, last in fixed_runs(bands, band_tiles, ctas)
+               if last > first)
+
+
+def count_fixed(ctas: int, tiles: int, bands: int = 0) -> None:
+    """One fixed launch of ``ctas`` CTAs over ``tiles`` output tiles that
+    loaded ``bands`` resident bands, into the port's counters."""
     count(FIXED_LAUNCHES)
     count(FIXED_CTAS, ctas)
     count(FIXED_TILES, tiles)
+    count(FIXED_BANDS, bands)
 
 
 def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,

@@ -25,9 +25,11 @@ Device weights (built once per step, never per launch; see
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
 - ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], coef
-  int32[P, 4, R], taps)`` for ``n_accum`` 4, ``(planes, bias, taps)`` for
-  ``n_accum`` 1; C = n_accum * R columns, accumulator-major (column
-  ``c*R + r``); :func:`fixed_device_weights`
+  int32[P, 4, R], bands, taps)`` for ``n_accum`` 4, ``(planes, bias,
+  bands, taps)`` for ``n_accum`` 1; C = n_accum * R columns,
+  accumulator-major (column ``c*R + r``); ``bands`` the K-slices of each
+  row tile's band (:class:`BandWidths`, host ints), which the persistent
+  fixed kernel needs; :func:`fixed_device_weights`
 
 ``w`` and the split5 planes keep the JAX package's ``[.., K, R]`` layout
 (the TPU kernel transposed to ``[R, K]`` for the MXU; the CUDA kernels read
@@ -56,6 +58,7 @@ the union of a row tile's four sub-bands and each warp multiplies only the
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 
 import numpy as np
 import torch
@@ -69,6 +72,7 @@ from .fixed_math import (balanced_q15_split, fixed_interp_mix_rows,
 __all__ = ["int8_weights", "int8_weights_auto", "split5_weights",
            "tap_ranges", "f32_walk", "SUB_ROWS", "K_SLICE", "K_PERM",
            "full_perm", "int8_k_major", "int8_n_major", "band_slices",
+           "BandWidths", "band_widths",
            "FIXED_ROWS", "fixed_device_weights", "fixed_taps16",
            "device_weights", "check_launch", "apply_weights", "wrap_int32",
            "ROW_TILE"]
@@ -127,6 +131,36 @@ def band_slices(taps: np.ndarray) -> int:
     streamed int8 kernel serves the step."""
     lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
     return int(np.where(hi > lo, -(-(hi - lo) // 32), 0).max(initial=0))
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class BandWidths:
+    """The 32-tap K-slices of each (phase, row tile) band of a fixed tap
+    table (:func:`band_widths`), band-major, and the widest: what the
+    persistent fixed kernel (``csrc/fixed_wgmma.cuh``'s ``fir_tiles``)
+    needs to hold bands resident and to balance its CTAs' runs, carried
+    in the fixed device weights beside the table they were computed from.
+    Compared and hashed by identity, so a launch's checks and its band
+    count (cached per weights) make no pass over the widths."""
+    slices: tuple
+    widest: int = dataclasses.field(init=False)
+
+    def __post_init__(self):
+        if not self.slices or any(type(s) is not int or s < 1
+                                  for s in self.slices):
+            raise ValueError("band widths must be ints >= 1")
+        object.__setattr__(self, "widest", max(self.slices))
+
+
+def band_widths(taps: np.ndarray) -> BandWidths:
+    """The 32-tap K-slices each row tile's band spans, from its lo rounded
+    down to 32 up to its hi (1 where the entry is empty: the fixed
+    kernels walk one K-slice of zero weights there), band-major: entry
+    ``m * row_tiles + rt`` of ``taps[m, rt]``.  Computed once a step, with
+    its tap table (:func:`fixed_device_weights`)."""
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    return BandWidths(tuple(
+        int(s) for s in np.where(hi > lo, -(-(hi - lo) // 32), 1).ravel()))
 
 
 def int8_weights(w, digits: int = 3):
@@ -201,13 +235,14 @@ def f32_walk(bands: np.ndarray) -> np.ndarray:
 def fixed_device_weights(w, device) -> tuple:
     """The fixed scheme's host weights ``(w int16[P, K, C],)`` or ``(w,
     coef int32[P, 4, R])`` (``n_accum`` 1 or 4) -> its device weights
-    ``(planes int8[2, P, C, K_pad], bias int32[P, C], [coef,] taps)``
-    (module docstring): K padded with zero taps to a multiple of 32, each
-    phase split by ``balanced_q15_split`` (the JAX package's
+    ``(planes int8[2, P, C, K_pad], bias int32[P, C], [coef,] bands,
+    taps)`` (module docstring): K padded with zero taps to a multiple of
+    32, each phase split by ``balanced_q15_split`` (the JAX package's
     ``fixed_weight_planes_tiled`` split) in the permuted tap order, which
-    changes no sum; the tap table over ``FIXED_ROWS[n_accum]`` columns.
-    The split and the tap table, host work of the fixed universe alone,
-    are the span ``speex.setup.q15``; the copies to ``device`` are not."""
+    changes no sum; the tap table over ``FIXED_ROWS[n_accum]`` columns and
+    its :func:`band_widths`.  The split, the tap table and its widths,
+    host work of the fixed universe alone, are the span
+    ``speex.setup.q15``; the copies to ``device`` are not."""
     w16, *coef = (np.asarray(a) for a in w)
     assert w16.dtype == np.int16 and len(coef) <= 1
     P, K, C = w16.shape
@@ -224,11 +259,12 @@ def fixed_device_weights(w, device) -> tuple:
             planes[0, m], planes[1, m] = wh.T, wl0.T
         nonzero = (w16.reshape(P, K, n_accum, C // n_accum) != 0).any(axis=2)
         nonzero = np.pad(nonzero, ((0, 0), (0, K_pad - K), (0, 0)))
+        taps = tap_ranges(nonzero, FIXED_ROWS[n_accum])
+        bands = band_widths(taps)
     return (torch.from_numpy(planes).to(device),
             torch.from_numpy(bias).to(device),
             *(torch.from_numpy(c.astype(np.int32)).to(device) for c in coef),
-            torch.from_numpy(tap_ranges(nonzero, FIXED_ROWS[n_accum]))
-            .to(device))
+            bands, torch.from_numpy(taps).to(device))
 
 
 def fixed_taps16(planes: torch.Tensor) -> torch.Tensor:
@@ -304,9 +340,9 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
             raise TypeError("split5 planes must be bf16[3, P, K, R]")
         _, P, K, R = planes.shape
     elif scheme == "fixed":
-        if len(w) != (4 if n_accum == 4 else 3) or scales:
-            raise ValueError(f"{len(w)} fixed weight tensors, scales "
-                             f"{scales} for n_accum {n_accum}")
+        if len(w) != (5 if n_accum == 4 else 4) or scales:
+            raise ValueError(f"{len(w)} fixed weights, scales {scales} for "
+                             f"n_accum {n_accum}")
         planes, bias, taps = w[0], w[1], w[-1]
         if planes.dtype != torch.int8 or planes.ndim != 4 \
                 or planes.shape[0] != 2 or planes.shape[2] % n_accum:
@@ -342,6 +378,11 @@ def check_launch(hist, x, w, scheme, scales, n_accum=1, extra=()):
             or taps.dtype != torch.int32:
         raise ValueError(f"taps {tuple(taps.shape)} {taps.dtype} for "
                          f"R = {R} under scheme {scheme!r}")
+    if scheme == "fixed" and (type(w[-2]) is not BandWidths
+                              or len(w[-2].slices) != P * (R // rows)
+                              or w[-2].widest > K // 32):
+        raise ValueError("fixed weights must carry their tap table's "
+                         "BandWidths, each band in [1, K / 32] K-slices")
     return P, K, R
 
 
@@ -390,7 +431,7 @@ def apply_weights(hist: torch.Tensor, x: torch.Tensor, w: tuple,
     SATURATE32PSHR for n_accum 1, the MULT16_32_Q15 cubic mix of the 4
     accumulators for n_accum 4)."""
     if scheme == "fixed":
-        w = (fixed_taps16(w[0]), *w[2:])                # int16[P, K, C]
+        w = (fixed_taps16(w[0]), *w[2:-2])       # int16[P, K, C], coef
     P, K, R = w[0].shape[-3:]     # [P, K, R], [D|3, P, K, R] or [P, K, C]
     R //= n_accum
     n_blocks, B = v0.shape[0], hist.shape[1]

@@ -34,7 +34,11 @@ under ``experiments/`` that bound the served kernels.
   its history phase by phase against one batched product,
   ``csrc/probes/batched_dot.cu``);
 - :mod:`.v3_bench` (``experiments/v3_bench.py``: the f32 conv without
-  history, P6's ``full`` kernel, inside the concat step).
+  history, P6's ``full`` kernel, inside the concat step);
+- :mod:`.fixed_walk` (no TPU counterpart: the served persistent fixed
+  walk with a witness that records each CTA's run of tiles and its band
+  loads, ``csrc/probes/fixed_walk.cu``; the GPU tests run it, the tools
+  below do not).
 
 Each wrapper runs its plain version for CPU tensors and launches its
 kernel (built at first use into ``build/torch_kernels/libprobes.<hash>.so``)
@@ -52,7 +56,7 @@ __all__ = ["tc_rate", "mxu_peak", "mxu_shape_probe", "v4_overhead_anatomy",
            "fixed_interp_anatomy", "v3_overhead_anatomy",
            "mosaic_int_dot_bench", "kernel_anatomy", "prec_bench",
            "v5_int8_bench", "v4_k_layout", "batched_dot", "v3_bench",
-           "check_offsets_launch", "served_tiled"]
+           "fixed_walk", "check_offsets_launch", "served_tiled"]
 
 
 def check_offsets_launch(hist, x, w, offsets, S: int, n_blocks: int,

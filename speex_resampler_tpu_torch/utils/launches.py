@@ -3,8 +3,8 @@
 Every kernel wrapper adds one to its module's ``launches`` dict (by scheme,
 a gather's by ``fm.launch_key`` of scheme and form, the resident int8
 kernel's under "int8_resident") where it launches its kernel.  This module
-sets those counts to 0, reads them and the fixed kernel's CTA and tile
-counters (``utils/profiling``), and names the CUDA kernel a step
+sets those counts to 0, reads them and the fixed kernel's CTA, tile and
+band counters (``utils/profiling``), and names the CUDA kernel a step
 launches, for ``chip_smoke.py`` and the tools that count a run's launches
 (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 """
@@ -37,11 +37,12 @@ def reset_launches() -> None:
 
 
 def fixed_counts() -> tuple:
-    """(launches, CTAs, output tiles) of the phase-tiled fixed kernel since
-    the last :func:`reset_launches`, from the port's counters."""
+    """(launches, CTAs, output tiles, band loads) of the phase-tiled fixed
+    kernel since the last :func:`reset_launches`, from the port's
+    counters."""
     totals = counter_totals()
     return tuple(totals.get(name, 0) for name in (
-        sf.FIXED_LAUNCHES, sf.FIXED_CTAS, sf.FIXED_TILES))
+        sf.FIXED_LAUNCHES, sf.FIXED_CTAS, sf.FIXED_TILES, sf.FIXED_BANDS))
 
 
 def launch_counts() -> dict:

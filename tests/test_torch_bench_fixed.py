@@ -292,8 +292,8 @@ def test_the_cell_resolves_to_the_streamed_fixed_kernel(cell):
     assert (cfg["numeric"], cfg["limits"]) == (
         "fixed", {"max_err_lsb": 0, "off_share": 0})
     assert manifest.reference(cfg).NUMERICS == ("fixed",)
-    assert [m["name"] for m in c.per_layer][-2:] == [
-        "setup.q15_s", "fixed.cta_tile_us"]
+    assert [m["name"] for m in c.per_layer][-3:] == [
+        "setup.q15_s", "fixed.cta_tile_us", "fixed.tiles_per_band"]
     assert (step.kernel, step.scheme, step.kernel_kw["n_accum"]) == (
         kernel, "fixed", 4)
     assert (bspec.in_per_launch, bspec.out_per_launch) == frames
@@ -303,40 +303,53 @@ def test_the_cell_resolves_to_the_streamed_fixed_kernel(cell):
 
 
 def test_fixed_counters_reset_and_add_up():
-    """The port's counters of the fixed launches add each launch's CTAs
-    and tiles; ``reset_counters`` and ``utils/launches.reset_launches``
-    set them to 0, ``reset_spans`` (the span table's) leaves them."""
+    """The port's counters of the fixed launches add each launch's CTAs,
+    tiles and band loads; ``reset_counters`` and ``utils/launches.
+    reset_launches`` set them to 0, ``reset_spans`` (the span table's)
+    leaves them."""
     reset_counters()
-    assert fixed_counts() == (0, 0, 0) and counter_totals() == {}
-    sf.count_fixed(132, 18816)
+    assert fixed_counts() == (0, 0, 0, 0) and counter_totals() == {}
+    sf.count_fixed(132, 18816, 708)
     sf.count_fixed(4, 4)
-    assert fixed_counts() == (2, 136, 18820)
+    assert fixed_counts() == (2, 136, 18820, 708)
     assert counter_totals() == {sf.FIXED_LAUNCHES: 2, sf.FIXED_CTAS: 136,
-                                sf.FIXED_TILES: 18820}
+                                sf.FIXED_TILES: 18820, sf.FIXED_BANDS: 708}
     reset_spans()
-    assert fixed_counts() == (2, 136, 18820)
+    assert fixed_counts() == (2, 136, 18820, 708)
     reset_counters()
-    assert fixed_counts() == (0, 0, 0)
-    sf.count_fixed(1, 1)
+    assert fixed_counts() == (0, 0, 0, 0)
+    sf.count_fixed(1, 1, 1)
     reset_launches()
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
 
 
 def test_fixed_counts_of_a_tiled_and_a_streamed_launch():
     """The launch of each fixed cell's step at its 2048 lanes as the
     wrapper counts it: n_blocks x row tiles of 32 x lane tiles of 64
     output tiles (17,920 at q7, 18,816 at q10), on the CTAs the library
-    reports (an H100's 132 SMs: ~135.8 and ~142.5 tiles a CTA)."""
+    reports (an H100's 132 SMs: ~135.8 and ~142.5 tiles a CTA), each
+    (phase, row tile) band shared by n_blocks / P x 32 tiles (224 at q7,
+    32 at q10) and loaded 210 and 716 times on the CTAs' balanced runs
+    (~85.3 and ~26.3 tiles a load); the widest band of 6 and 9 K-slices,
+    the mean 5.125 and 8.91."""
     reset_launches()
     want = []
-    for cell in ("stage.q7.fixed", "stage.q10.fixed"):
+    for cell, per_band, widest, mean, bands in (
+            ("stage.q7.fixed", 224, 6, 5.125, 210),
+            ("stage.q10.fixed", 32, 9, 8.913, 716)):
         _, bspec, step = _cell_step(cell)
         kw = step.kernel_kw
         tiles = sf.fixed_tiles(kw["n_blocks"], bspec.R, 2048, kw["n_accum"])
         assert tiles == CELLS[cell][5]
-        sf.count_fixed(min(tiles, 132), tiles)
+        assert kw["n_blocks"] // bspec.P * 32 == per_band
+        widths = step.w[-2]
+        assert len(widths.slices) * per_band == tiles
+        assert widths.widest == max(widths.slices) == widest
+        assert np.mean(widths.slices) == pytest.approx(mean, abs=5e-4)
+        assert sf.fixed_bands(widths, per_band, 132) == bands
+        sf.count_fixed(min(tiles, 132), tiles, bands)
         want.append(tiles)
-    assert fixed_counts() == (2, 264, sum(want))
+    assert fixed_counts() == (2, 264, sum(want), 210 + 716)
     assert want[0] / 132 == pytest.approx(135.76, abs=0.01)
     assert want[1] / 132 == pytest.approx(142.55, abs=0.01)
     reset_launches()
@@ -362,7 +375,7 @@ def test_no_fixed_count_without_a_fixed_launch(geometry):
                           generator=torch.Generator().manual_seed(7))
         _, y = step.fn(hist, x, step.w)
         assert y.shape == (b.out_per_launch, B)
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
     assert counter_totals() == {}
 
 
@@ -394,6 +407,32 @@ def test_cta_tile_reader_reads_the_counters_and_none_without(monkeypatch):
     for _ in range(5):
         sf.count_fixed(132, 17920)
     assert read(view) == pytest.approx(580.0 * 132 / 17920)
+    assert read(TraceView(0, [], [], None, None)) is None
+    monkeypatch.delattr(profiling, "counter_totals")
+    assert read(view) is None
+    reset_launches()
+
+
+def test_tiles_per_band_reader_reads_the_counters_and_none_without(
+        monkeypatch):
+    """``fixed.tiles_per_band``: the output tiles over the band loads of
+    the fixed launches, from the counters' totals (~86 at the q7 cell's
+    launch, 17,920 tiles over 210 loads); None with no device operation,
+    where no band was loaded (the streamed walk, or a port that keeps no
+    band counter) and where the program keeps no counters."""
+    from speex_resampler_tpu_torch.utils import profiling
+    read = manifest.reader("fixed.tiles_per_band")
+    view = _fixed_view(3, 0.4e-3)
+    reset_launches()
+    assert read(view) is None
+    sf.count_fixed(132, 18816)
+    assert read(view) is None
+    for _ in range(5):
+        sf.count_fixed(132, 17920, 210)
+    assert read(view) == pytest.approx((18816 + 5 * 17920) / (5 * 210))
+    reset_launches()
+    sf.count_fixed(132, 17920, 210)
+    assert read(view) == pytest.approx(17920 / 210)
     assert read(TraceView(0, [], [], None, None)) is None
     monkeypatch.delattr(profiling, "counter_totals")
     assert read(view) is None

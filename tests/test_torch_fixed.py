@@ -252,14 +252,15 @@ def test_fixed_geometry_equal(cfg):
 def test_weights_from_jax_equal_port_weights(cfg, kernel):
     """JAX's int8 planes [2, P, C, K] (tiled) / [P, 2, C, K_pad] (streamed),
     bias and coefficients -> the port's K-major planes [2, P, C, K_pad],
-    bias, coef and tap table, equal to the port's own step; a wrong bias
-    is refused."""
+    bias, coef, band widths and tap table, equal to the port's own step;
+    a wrong bias is refused."""
     jstep, tstep, _ = _steps(cfg, 0)
     assert tstep.kernel == kernel
     jw = tuple(np.asarray(a) for a in jstep.w)
     got = tb.weights_from_jax(jw, "fixed", device="cpu", kernel=kernel)
-    assert len(got) == len(tstep.w) == (3 if cfg == DIRECT else 4)
-    for a, b in zip(got, tstep.w):
+    assert len(got) == len(tstep.w) == (4 if cfg == DIRECT else 5)
+    assert got[-2].slices == tstep.w[-2].slices
+    for a, b in zip(got[:-2] + got[-1:], tstep.w[:-2] + tstep.w[-1:]):
         assert a.dtype == b.dtype and torch.equal(a, b)
     bad = (jw[0], jw[1] + 1, *jw[2:])
     with pytest.raises(ValueError, match="bias"):

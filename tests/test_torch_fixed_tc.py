@@ -396,8 +396,9 @@ def test_planes_from_jax_equal_port_planes(kernel, n_accum):
     got = tb.weights_from_jax(jax_w, "fixed", device="cpu", kernel=kernel)
     own = ttf.device_weights((w16,) + ((coef,) if n_accum == 4 else ()),
                              "fixed", "cpu")
-    assert len(got) == len(own) == (4 if n_accum == 4 else 3)
-    for a, b in zip(got, own):
+    assert len(got) == len(own) == (5 if n_accum == 4 else 4)
+    assert got[-2].slices == own[-2].slices
+    for a, b in zip(got[:-2] + got[-1:], own[:-2] + own[-1:]):
         assert a.dtype == b.dtype and torch.equal(a, b)
     K_pad = got[0].shape[3]
     inv = np.argsort(ttf.full_perm(K_pad))
@@ -449,38 +450,67 @@ def test_fixed_wrapper_guards(kernel, fault):
         assert torch.equal(y, plain(hist, x, w, **kw))
         assert launches == before
         return
-    planes, bias, coef, taps = w
+    planes, bias, coef, bands, taps = w
     bad, err = {
-        "planes-int16": ((planes.to(torch.int16), bias, coef, taps),
+        "planes-int16": ((planes.to(torch.int16), bias, coef, bands, taps),
                          TypeError),
-        "bias-float": ((planes, bias.float(), coef, taps), TypeError),
+        "bias-float": ((planes, bias.float(), coef, bands, taps), TypeError),
         "k-not-32": ((planes[..., :planes.shape[3] - 16].contiguous(), bias,
-                      coef, taps), ValueError),
-        "misaligned": ((_misaligned(planes), bias, coef, taps), ValueError),
-        "coef-missing": ((planes, bias, taps), ValueError),
+                      coef, bands, taps), ValueError),
+        "misaligned": ((_misaligned(planes), bias, coef, bands, taps),
+                       ValueError),
+        "coef-missing": ((planes, bias, bands, taps), ValueError),
     }[fault]
     with pytest.raises(err):
         launch(hist, x, bad, **kw)
     assert launches == before
 
 
+@pytest.mark.parametrize("fault", ["short", "zero", "too-wide", "list",
+                                   "missing"])
+def test_fixed_bands_guard(fault):
+    """The fixed weights carry their tap table's band widths
+    (``tiled_fir.BandWidths``, made by ``fixed_device_weights``), and the
+    wrapper and its plain version refuse weights without them or with
+    widths that are not the table's: one entry a (phase, row tile) band,
+    each in [1, K / 32]; the step's own pass."""
+    launch, plain, hist, x, w, kw, launches = _guard_launch("tiled")
+    bands = w[-2]
+    assert type(bands) is ttf.BandWidths
+    assert bands.slices == ttf.band_widths(w[-1].numpy()).slices
+    assert bands.widest == max(bands.slices)
+    assert torch.equal(launch(hist, x, w, **kw), plain(hist, x, w, **kw))
+    K = w[0].shape[-1]
+    bad = {"short": lambda: ttf.BandWidths(bands.slices[:-1]),
+           "zero": lambda: ttf.BandWidths((0,) + bands.slices[1:]),
+           "too-wide": lambda: ttf.BandWidths((K // 32 + 1,)
+                                              + bands.slices[1:]),
+           "list": lambda: list(bands.slices), "missing": None}[fault]
+    for run in (launch, plain):
+        with pytest.raises(ValueError, match="band|fixed weights"):
+            run(hist, x, w[:-2] + ((bad(),) if bad else ()) + w[-1:], **kw)
+
+
 # -- the persistent CTAs (fixedtc::fir_tiles) ---------------------------------
 
 def test_fixed_counters_start_at_zero_and_reset():
-    """The port's counters of the fixed launches' CTAs and tiles are 0 at
-    import, and utils/launches.reset_launches() sets them back to 0 with
-    the launch counts (a fresh process: nothing here launches)."""
+    """The port's counters of the fixed launches' CTAs, tiles and band
+    loads are 0 at import, and utils/launches.reset_launches() sets them
+    back to 0 with the launch counts (a fresh process: nothing here
+    launches)."""
     import subprocess
     import sys
     code = (
         "from speex_resampler_tpu_torch.ops import streamed_fir as sf\n"
         "from speex_resampler_tpu_torch.utils import launches as ul\n"
-        "assert ul.fixed_counts() == (0, 0, 0)\n"
-        "sf.count_fixed(132, 18816)\n"
-        "assert ul.fixed_counts() == (1, 132, 18816)\n"
+        "assert ul.fixed_counts() == (0, 0, 0, 0)\n"
+        "sf.count_fixed(132, 18816, 708)\n"
+        "assert ul.fixed_counts() == (1, 132, 18816, 708)\n"
+        "sf.count_fixed(132, 17920)\n"
+        "assert ul.fixed_counts() == (2, 264, 36736, 708)\n"
         "sf.launches['fixed'] = 1\n"
         "ul.reset_launches()\n"
-        "assert ul.fixed_counts() == (0, 0, 0)\n"
+        "assert ul.fixed_counts() == (0, 0, 0, 0)\n"
         "assert not hasattr(sf, 'fixed_ctas')\n"
         "assert sf.launches['fixed'] == 0\n")
     root = Path(__file__).resolve().parent.parent
@@ -499,15 +529,17 @@ def test_fixed_instance_is_pinned(cfg, instance):
     fixed phase-tiled step launches (its CTA order by the planes' bytes,
     as ``csrc/streamed_fir.cu`` picks it: the q10 planes' 77 MB run lane
     tiles fastest), and ``chip_smoke.py`` finds it: in its SASS list
-    (IGMMA), its IGMMA pins (8) and its spill-free kernels; the step's
-    kernel name is the instance's function and n_accum."""
+    (IGMMA), its IGMMA pins (16 at n_accum 4, whose kernel holds both
+    walks; 8 at n_accum 1) and its spill-free kernels; the step's kernel
+    name is the instance's function and n_accum."""
     import chip_smoke as cs
     from speex_resampler_tpu_torch.utils import launches as ul
     _, _, step = _port_step(cfg)
     assert ul.fixed_instance(step) == instance
     assert ul.step_kernel(step)[1] == instance.split(",")[0] + ">"
     assert (instance, "IGMMA") in cs.sass_kernels()
-    assert cs.IGMMA_PINNED[instance] == 8
+    # n_accum 4's persistent kernel holds both walks, 8 IGMMA each
+    assert cs.IGMMA_PINNED[instance] == (16 if "<4" in instance else 8)
     assert instance in cs.SPILL_FREE
     src = (CSRC / "streamed_fir.cu").read_text()
     assert f"kBlockMajorBytes = {ul.BLOCK_MAJOR_BYTES >> 20}ll << 20;" in src
@@ -562,19 +594,19 @@ def _persistent_walk(stages: list, n_ctas: int, lead: int):
                          ids=["q10", "q7", "q5"])
 @pytest.mark.parametrize("n_ctas", [132, 5, 1])
 def test_persistent_walk_model(cfg, n_ctas):
-    """The persistent CTAs' schedule on a step's tap table (at B = 130,
-    3 lane tiles, lane tiles fastest): every tile is walked once, by one
-    CTA; every stage is copied before it is walked and at most kLead = 3
-    ahead; a tile's epilogue slot is written (its first stage's copy)
+    """The persistent CTAs' streamed walk on a step's tap table (at B =
+    130, 3 lane tiles, lane tiles fastest): every tile is walked once, by
+    one CTA; every stage is copied before it is walked and at most kLead
+    = 6 ahead; a tile's epilogue slot is written (its first stage's copy)
     before the tile's walk and not again until that tile's epilogue has
     read it; and the header keeps the constants the model assumes."""
     fixed = (CSRC / "fixed_wgmma.cuh").read_text()
     for line in ("static constexpr int kTileLead = 6;",
                  "constexpr int kSlots = kLead + 1;",
-                 "const int slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK"
-                 " : 1;",
-                 "for (int item = blockIdx.x; item < n_items; "
-                 "item += n_ctas) {"):
+                 "c_slices = n_hi > c_t ? (n_hi - c_t + kK - 1) / kK : 1;",
+                 "int first = blockIdx.x, last = n_items;",
+                 "const int stride = kResident ? 1 : n_ctas;",
+                 "for (int item = first; item < last; item += stride) {"):
         assert line in fixed, line
     lead = 6
     _, bspec, step = _port_step(cfg)
@@ -606,3 +638,200 @@ def test_persistent_walk_model(cfg, n_ctas):
                 slot_free[ev[2]] = True
     assert sorted(walked) == sorted((it, s) for it, n in enumerate(stages)
                                     for s in range(n))
+
+
+def _resident_walk(stages: list, bands: list, runs: list, lead: int):
+    """A model of the persistent CTAs' resident walk (``fir_tiles`` with a
+    band buffer cap): CTA c walks the items of its run ``runs[c]`` in
+    order (``stages[item]`` x stages each, its band ``bands[item]``), its
+    copy cursor kLead stages ahead, one group a stage; where the cursor
+    enters an item of another band than its last it loads that band into
+    the next of two band buffers, in the group of the item's first stage.
+    Returns, per CTA, the events in order: ("band", band, buffer),
+    ("copy", item, stage, buffer), ("walk", item, stage) and ("epilogue",
+    item)."""
+    out = []
+    for first, last in runs:
+        items = list(range(first, last))
+        seq = [(it, s) for it in items for s in range(stages[it])]
+        events, cursor = [], 0
+        state = {"band": None, "buf": 1}
+
+        def copy_next():
+            nonlocal cursor
+            if cursor < len(seq):
+                it, s = seq[cursor]
+                if s == 0 and bands[it] != state["band"]:
+                    state["band"], state["buf"] = bands[it], state["buf"] ^ 1
+                    events.append(("band", bands[it], state["buf"]))
+                events.append(("copy", it, s, state["buf"]))
+            cursor += 1
+
+        for _ in range(lead):
+            copy_next()
+        for it in items:
+            for s in range(stages[it]):
+                events.append(("walk", it, s))
+                copy_next()
+            events.append(("epilogue", it))
+        out.append(events)
+    return out
+
+
+@pytest.mark.parametrize("cfg,B", [(SLICE, 2048), (FLAGSHIP, 2048),
+                                   (FLAGSHIP, 130), (DIRECT, 2048)],
+                         ids=["q10", "q7", "q7-B130", "q5"])
+@pytest.mark.parametrize("n_ctas", [132, 5, 1])
+def test_resident_walk_model(cfg, B, n_ctas):
+    """The persistent CTAs' resident walk on a step's tap table, items in
+    band-major order ((phase, row tile), then the blocks of the phase,
+    then the lane tiles), a contiguous run a CTA (``streamed_fir.
+    fixed_runs``, balanced by K-slices): every tile is walked once; every
+    x stage is copied before it is walked and at most kLead = 6 ahead; a
+    band is loaded before its first tile's walk, reloaded only where
+    (phase, row tile) changes, and never into the buffer a tile not yet
+    through its epilogue reads; the band loads equal ``streamed_fir.
+    fixed_bands``, which the wrapper counts; and the header and the
+    launcher keep what the model assumes."""
+    fixed = (CSRC / "fixed_wgmma.cuh").read_text()
+    for line in ("static constexpr int kTileLead = 6;",
+                 "const int per_band = n_kr / row_tiles / g.P * lane_tiles;",
+                 "balanced_run(g, row_tiles, per_band, out, first, last);",
+                 "const int b = item / per_band, r = item - b * per_band;",
+                 "k = m + g.P * j;",
+                 "const bool enters = m * row_tiles + rt != c_band;",
+                 "c_buf ^= 1;",
+                 "if (c_slices > band_cap) __trap();",
+                 "c_item += stride;"):
+        assert line in fixed, line
+    launcher = (CSRC / "streamed_fir.cu").read_text()
+    for line in ("n_blocks / P * ((B + fir::int8tc::kLanes - 1) / "
+                 "fir::int8tc::kLanes);",
+                 "per_band >= Shape::kTileLead &&",
+                 "*band_tiles = resident_band_tiles<kAccum>(slices, "
+                 "n_blocks, g.P, g.B);"):
+        assert line in launcher, line
+    lead = 6
+    _, bspec, step = _port_step(cfg)
+    taps = step.w[-1].numpy().astype(np.int64)
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    slices = np.where(hi > lo, -(-(hi - lo) // 32), 1)          # [P, rt]
+    widths = step.w[-2]
+    assert widths.slices == tuple(slices.reshape(-1).tolist())
+    n_blocks, lanes = step.kernel_kw["n_blocks"], -(-B // 64)
+    P, row_tiles = slices.shape
+    per_band = n_blocks // P * lanes
+    n_items = n_blocks * row_tiles * lanes
+    bands = [i // per_band for i in range(n_items)]
+    stages = [int(-(-slices[divmod(b, row_tiles)] // 2)) for b in bands]
+    ctas = min(n_items, n_ctas)
+    runs = tsf.fixed_runs(widths, per_band, ctas)
+    loads, walked = 0, []
+    for events in _resident_walk(stages, bands, runs, lead):
+        copied, held, readers, last_band = {}, {}, {}, None
+        for i, ev in enumerate(events):
+            if ev[0] == "band":
+                _, b, buf = ev
+                assert b != last_band
+                if per_band >= lead:    # the launcher's condition
+                    assert not readers.get(buf), (b, readers[buf])
+                held[buf], readers[buf], last_band = b, set(), b
+                loads += 1
+            elif ev[0] == "copy":
+                _, it, s, buf = ev
+                assert held[buf] == bands[it]
+                copied[(it, s)] = (i, buf)
+            elif ev[0] == "walk":
+                _, it, s = ev
+                at, buf = copied[(it, s)]
+                assert sum(1 for e in events[at:i] if e[0] == "walk") <= lead
+                if per_band >= lead:
+                    assert held[buf] == bands[it]
+                readers[buf].add(it)
+                walked.append((it, s))
+            else:
+                for r in readers.values():
+                    r.discard(ev[1])
+    assert sorted(walked) == sorted((it, s) for it, n in enumerate(stages)
+                                    for s in range(n))
+    assert loads == tsf.fixed_bands(widths, per_band, ctas)
+    assert n_items == tsf.fixed_tiles(n_blocks, bspec.R, B,
+                                      step.kernel_kw["n_accum"])
+    # the runs balance: a CTA's K-slices within a tile's of the mean
+    work = [sum(widths.slices[i // per_band] for i in range(*r))
+            for r in runs]
+    assert max(work) - min(work) <= 2 * widths.widest
+
+
+@pytest.mark.parametrize("bands,band_tiles,ctas,want", [
+    ((5,) * 80, 224, 132, 208), ((9,) * 588, 32, 132, 708),
+    ((9,) * 588, 0, 132, 0), ((1, 3), 2, 2, 3), ((4,) * 20, 4, 1, 20),
+    ((2, 2, 2), 7, 2, 4)])
+def test_fixed_bands_counts_each_ctas_bands(bands, band_tiles, ctas, want):
+    """``streamed_fir.fixed_bands``: the bands each CTA's balanced run
+    meets, summed (bands of one width: the runs of n_items / ctas tiles;
+    ``(1, 3)``, two tiles a band, on two CTAs: runs [0, 3) and [3, 4), 2
+    and 1 bands); 0 on the streamed walk."""
+    assert tsf.fixed_bands(ttf.BandWidths(bands), band_tiles, ctas) == want
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_fixed_runs_are_the_balanced_split(seed):
+    """``streamed_fir.fixed_runs`` (the kernel's ``balanced_run``): CTA c's
+    run starts at the first tile whose work before it reaches c W / G,
+    tiles in band-major order weighing their band's K-slices, by brute
+    force; the runs are contiguous and cover every tile."""
+    rng = np.random.default_rng(seed)
+    bands = tuple(int(v) for v in rng.integers(1, 10, rng.integers(1, 40)))
+    band_tiles = int(rng.integers(1, 12))
+    n = len(bands) * band_tiles
+    ctas = int(rng.integers(1, n + 1))
+    weights = [bands[i // band_tiles] for i in range(n)]
+    before = np.concatenate([[0], np.cumsum(weights)])
+    work = int(before[-1])
+    want = [int(np.argmax(before >= c * work // ctas)) if c < ctas else n
+            for c in range(ctas + 1)]
+    runs = tsf.fixed_runs(ttf.BandWidths(bands), band_tiles, ctas)
+    assert runs == list(zip(want, want[1:]))
+    assert runs[0][0] == 0 and runs[-1][1] == n
+
+
+@pytest.mark.parametrize("B,n_ctas", [(130, 5), (64, 1), (3, 2)])
+def test_fixed_walk_witness_plain_version(B, n_ctas):
+    """``probes.fixed_walk`` (the served resident walk with a witness that
+    records each CTA's run of tiles and its band loads; the GPU tests read
+    it on the card) on CPU tensors: the plain launch's output and the
+    host's record, each CTA's run of ``streamed_fir.fixed_runs``, together
+    every tile once, and its band loads, which add up to ``fixed_bands``.
+    The served walk tells its witness its run once ``balanced_run`` has
+    set it and each band the copy cursor enters, and the probe builds the
+    served walk's resident instance."""
+    from speex_resampler_tpu_torch.ops import _build
+    from speex_resampler_tpu_torch.probes import fixed_walk
+    fixed = (CSRC / "fixed_wgmma.cuh").read_text()
+    for line in ("    balanced_run(g, row_tiles, per_band, out, first, last);\n"
+                 "    witness.run(first, last);\n",
+                 "        c_buf ^= 1;\n        witness.band();\n",
+                 "struct NoWitness {"):
+        assert line in fixed, line
+    probe = (CSRC / "probes" / "fixed_walk.cu").read_text()
+    assert "fir::fixedtc::fir_tiles<4, false, true>(" in probe
+    assert "probes/fixed_walk.cu" in _build._PROBE_SOURCE_NAMES
+    _, bspec, step = _port_step(FLAGSHIP)
+    kw = step.kernel_kw
+    hist, x = (torch.from_numpy(a) for a in
+               launch_inputs(step, bspec.in_per_launch, B, seed=B))
+    geo = {k: kw[k] for k in ("n_blocks", "shift", "num", "den", "f0")}
+    y, record = fixed_walk.walk(hist, x, step.w, ctas=n_ctas, **geo)
+    assert torch.equal(y, tsf.resample_streamed_reference(hist, x, step.w,
+                                                          **kw))
+    per_band = kw["n_blocks"] // bspec.P * -(-B // 64)
+    runs = tsf.fixed_runs(step.w[-2], per_band, n_ctas)
+    assert record.dtype == torch.int32 and record.shape == (n_ctas, 3)
+    assert [tuple(r[:2]) for r in record.tolist()] == runs
+    assert runs[0][0] == 0 and runs[-1][1] == tsf.fixed_tiles(
+        kw["n_blocks"], bspec.R, B, 4)
+    assert int(record[:, 2].sum()) == tsf.fixed_bands(step.w[-2], per_band,
+                                                      n_ctas)
+    with pytest.raises(ValueError):
+        fixed_walk.walk(hist, x, step.w, ctas=0, **geo)

@@ -35,7 +35,8 @@ from speex_resampler_tpu_torch.parallel import batch as tb
 from speex_resampler_tpu_torch.utils.launches import step_kernel
 from speex_resampler_tpu_torch.utils.profiling import reset_spans, span_totals
 from speex_resampler_tpu_torch.probes import (
-    batched_dot as pbd, fixed_interp_anatomy as pfa, kernel_anatomy as pka,
+    batched_dot as pbd, fixed_interp_anatomy as pfa, fixed_walk,
+    kernel_anatomy as pka,
     mosaic_int_dot_bench as pid, mxu_peak as pmp, mxu_shape_probe as pms,
     prec_bench as ppb, tc_rate as ptr, v3_bench as pv3b,
     v3_overhead_anatomy as pv3, v4_k_layout as pkl,
@@ -297,6 +298,70 @@ def test_fixed_kernel_matches_plain(cuda, cfg, kernel, n_accum):
         assert int((got != want).sum()) == 0
 
 
+def _edge_inputs(step, n_in: int, B: int, seed: int):
+    """``tools/fixed_ablate.py``'s edge inputs on the card: the wrap input
+    on every third lane and rows of -32768 and 32767 on the others."""
+    hist, x = launch_inputs(step, n_in, B, seed, wrap=True)
+    x[0:n_in:97, 1::3] = -32768
+    x[1:n_in:89, 2::3] = 32767
+    hist[::5, 1::3] = -32768
+    return torch.from_numpy(hist).cuda(), torch.from_numpy(x).cuda()
+
+
+@pytest.mark.parametrize("cfg,kernel", [
+    ((44100, 48000, 7, 16464), "tiled"), ((48000, 44100, 10, 20480),
+                                          "streamed")],
+    ids=["q7-cell-K1e", "q10-cell-K2d"])
+def test_fixed_resident_walk_matches_plain(cuda, cfg, kernel):
+    """The persistent fixed kernel at the fixed cells' quanta, bit-identical
+    to the plain version at f0 = 0 and after a flush, B = 2048, 130, 129
+    (2-byte x loads) and 64, on ``tools/fixed_ablate.py``'s wrap and
+    extreme inputs; its band loads are ``fixed_bands`` of its bands'
+    widths, CTAs and the library's ``fixed_fir_band_tiles`` (n_blocks / P
+    x lane tiles where at least 6 tiles share a band: every B here at q7, 7
+    blocks a phase; at q10, one block a phase, B = 130, 129 and 64 walk
+    streamed and load none).  Where it walks resident, the walk's witness
+    (``probes.fixed_walk``: the served walk recording each CTA's run of
+    tiles and its band loads on the card) gives the host's runs
+    (``fixed_runs``) and loads CTA by CTA, and the served output."""
+    from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
+                                                          reset_launches)
+    i, o, q, _ = cfg
+    spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
+    m = tph.producible_outputs(3368, 0, 0, spec.num, spec.den)
+    lib = _build.load()
+    for f0 in sorted({0, (m * spec.num) % spec.den}):
+        bspec, step = _fixed_step(cfg, f0, kernel)
+        kw = step.kernel_kw
+        widths = step.w[-2]
+        assert kw["n_accum"] == 4 and widths.widest == (6 if q == 7 else 9)
+        for B in (2048, 130, 129, 64):
+            hist, x = _edge_inputs(step, bspec.in_per_launch, B, B + f0)
+            reset_launches()
+            got = tsf.resample_streamed(hist, x, step.w, **kw)
+            want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
+            torch.cuda.synchronize()
+            assert int((got != want).sum()) == 0, (f0, B)
+            _, ctas, tiles, bands = fixed_counts()
+            per_band = lib.fixed_fir_band_tiles(4, widths.widest,
+                                                kw["n_blocks"], bspec.P, B)
+            share = kw["n_blocks"] // bspec.P * -(-B // 64)
+            assert per_band == (share if share >= 6 else 0)
+            assert per_band or q == 10 and B < 2048
+            assert bands == tsf.fixed_bands(widths, per_band, ctas)
+            assert (bands > 0) == (per_band > 0)
+            if per_band:
+                walked, record = fixed_walk.walk(
+                    hist, x, step.w, ctas=ctas,
+                    **{k: kw[k] for k in ("n_blocks", "shift", "num", "den",
+                                          "f0")})
+                assert torch.equal(record, fixed_walk.model_record(
+                    widths, per_band, ctas)), (f0, B)
+                assert int(record[:, 2].sum()) == bands
+                assert torch.equal(walked, got)
+    reset_launches()
+
+
 @pytest.mark.parametrize("cfg,B,n_blocks", [
     ((48000, 44100, 10, 20480), 2048, None), ((24000, 48000, 5, 4096), 64, 1)],
     ids=["q10-B2048", "24k-48k-q5-one-block-B64"])
@@ -317,7 +382,7 @@ def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
     hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
         step, bspec.in_per_launch, B, seed=5))
     reset_launches()
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
     got = tsf.resample_streamed(hist, x, step.w, **kw)
     want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
     torch.cuda.synchronize()
@@ -326,22 +391,25 @@ def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
     tiles = kw["n_blocks"] * (bspec.R // rows) * -(-B // 64)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     assert tsf.launches["fixed"] == 1
-    launched, ctas, counted = fixed_counts()
+    launched, ctas, counted, bands = fixed_counts()
     assert (launched, counted) == (1, tiles)
     if n_blocks is None:
         assert tiles == 18816 and ctas == min(tiles, sms)
         assert counted / ctas > 1
+        assert bands == tsf.fixed_bands(step.w[-2], 32, ctas) > 0
     else:
-        assert tiles == 4 and ctas == tiles
+        assert tiles == 4 and ctas == tiles and bands == 0
     reset_launches()
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
 
 
 def test_fixed_counts_of_the_cells_launches(cuda):
     """One call of each fixed cell's step at its 2048 lanes counts one
     launch of min(tiles, SMs) persistent CTAs over its tiles (17,920 at
-    44.1k->48k q7, 16464 frames, K1e; 18,816 at 48k->44.1k q10, K2d); a
-    float phase-tiled launch and a fixed dense launch count none."""
+    44.1k->48k q7, 16464 frames, K1e; 18,816 at 48k->44.1k q10, K2d),
+    holding each (phase, row tile) band resident: 210 band loads at q7 and
+    716 at q10 on 132 SMs; a float phase-tiled launch and a fixed dense
+    launch count none."""
     from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
                                                           launch_counts,
                                                           reset_launches)
@@ -349,6 +417,7 @@ def test_fixed_counts_of_the_cells_launches(cuda):
     gen = torch.Generator().manual_seed(11)
 
     def call(spec, bspec, scheme="auto", B=2048):
+        nonlocal step
         step = tb.make_batched_step(spec, bspec, device="cuda",
                                     scheme=scheme)
         hist = torch.zeros((step.hist_rows, B), dtype=torch.int16,
@@ -360,19 +429,23 @@ def test_fixed_counts_of_the_cells_launches(cuda):
         torch.cuda.synchronize()
         return launch_counts()
 
-    for (i, o, q, target), tiles in (((44100, 48000, 7, 16464), 17920),
-                                     ((48000, 44100, 10, 20480), 18816)):
+    step = None
+    for (i, o, q, target), tiles, per_band, loads in (
+            ((44100, 48000, 7, 16464), 17920, 224, 210),
+            ((48000, 44100, 10, 20480), 18816, 32, 716)):
         spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
         call(spec, tb._launch_geometry(spec, target))
-        assert fixed_counts() == (1, min(tiles, sms), tiles)
+        bands = tsf.fixed_bands(step.w[-2], per_band, min(tiles, sms))
+        assert fixed_counts() == (1, min(tiles, sms), tiles, bands)
+        assert sms != 132 or bands == loads
     spec = tfd.design_filter(147, 160, 7)
     assert call(spec, tb._launch_geometry(spec, 2352), "highest")
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
     spec = tfd.design_filter(147, 160, 3, fixed_point=True)
     bspec = tb._launch_geometry(spec, 882, max_in_frames=882)
     assert bspec.kernel == "dense"
     assert call(spec, bspec) == {"dense": {"fixed": 1}}
-    assert fixed_counts() == (0, 0, 0)
+    assert fixed_counts() == (0, 0, 0, 0)
     reset_launches()
 
 

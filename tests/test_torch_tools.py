@@ -136,21 +136,47 @@ def test_fixed_ablate_edge_inputs(B):
 
 
 def test_fixed_ablate_stage_bytes():
-    """The stage-copy count of the flagship fixed launch, tile by tile: a
-    CTA per (block, 32-row tile, 64-lane tile), each copying ceil((t_hi -
-    floor32(t_lo)) / 64) stages of 16 KB of planes and 8 KB of x."""
+    """The copy counts of the flagship fixed launch, tile by tile: a tile
+    per (block, 32-row tile, 64-lane tile) walks s = ceil((t_hi -
+    floor32(t_lo)) / 32) K-slices (1 where empty) in ceil(s / 2) stages,
+    copying 4 KB of x a K-slice; the streamed walk 16 KB of planes a stage
+    besides, the resident walk 8 KB of planes a K-slice and 1 KB of biases
+    and coefs each band load, the bands each CTA's contiguous band-major
+    run (``streamed_fir.fixed_runs``) meets."""
     fa = importlib.import_module("tools.fixed_ablate")
     bspec, step = _fixed_cpu_step(fa.cs.FIXED_FLAGSHIP)
     taps = step.w[-1].numpy()
     n_blocks = step.kernel_kw["n_blocks"]
-    want = 0
+    P, row_tiles, _ = taps.shape
+    lanes, ctas = 3, 5
+
+    def slices(lo, hi):
+        start = lo // 32 * 32
+        return -(-(hi - start) // 32) if hi > start else 1
+
+    x = staged = 0
     for k in range(n_blocks):
-        for lo, hi in taps[k % taps.shape[0]]:
-            start = lo // 32 * 32
-            want += -(-(hi - start) // 64) if hi > start else 0
-    ctas, nbytes = fa.stage_bytes(step, B=130)
-    assert ctas == n_blocks * (bspec.R // 32) * 3
-    assert nbytes == want * 3 * (16384 + 8192)
+        for lo, hi in taps[k % P]:
+            x += slices(lo, hi) * 4096 * lanes
+            staged += -(-slices(lo, hi) // 2) * lanes
+    tiles = n_blocks * row_tiles * lanes
+    per_band = n_blocks // P * lanes
+    bands = set()
+    band = loads = 0
+    widths = step.w[-2]
+    runs = fa.sf.fixed_runs(widths, per_band, ctas)
+    assert [r[0] for r in runs[1:]] == [r[1] for r in runs[:-1]]
+    for first, last in runs:
+        for b in sorted({i // per_band for i in range(first, last)}):
+            m, rt = divmod(b, row_tiles)
+            band += slices(*taps[m, rt]) * 8192 + 1024
+            loads += 1
+            bands.add(b)
+    assert bands == set(range(P * row_tiles))
+    assert fa.stage_bytes(step, B=130, ctas=ctas) == (
+        tiles, x + staged * 16384, x + band, loads)
+    assert tiles == n_blocks * (bspec.R // 32) * lanes
+    assert loads == fa.sf.fixed_bands(widths, per_band, ctas)
 
 
 @pytest.mark.parametrize("B,group", [(2048, 8), (136, 4), (2048, 1)])

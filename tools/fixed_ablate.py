@@ -3,6 +3,7 @@ tiled: ``streamed_fir_fixed_kernel<n_accum>`` in both geometries), timed
 and checked on one GPU.
 
     python3 tools/fixed_ablate.py [--parent CSRC_DIR] [--only NAME ...]
+        [--launch KEY ...] [--lanes B]
 
 Builds the port's kernel library once per variant of
 ``speex_resampler_tpu_torch/csrc/fixed_wgmma.cuh`` (a copy of ``csrc/``
@@ -13,7 +14,9 @@ kHz q10 streamed, n_accum 4; 24 kHz -> 48 kHz q5 tiled, n_accum 1, and its
 weights on the streamed kernel) prints the kernel's time at B = 2048,
 launches queued back to back and replayed from a CUDA graph
 (``chip_smoke.cuda_ms``), its share of the bound, the rate of its
-shared-memory stage copies (:func:`stage_bytes`), and the mismatch count
+shared-memory copies (:func:`stage_bytes`: the streamed walk's stages of
+weights and x, or the resident walk's x stages and band loads), and the
+mismatch count
 against the plain version at f0 = 0 and after the path's flush, B = 2048,
 130, 129 (2-byte x loads) and 64, with the wrap input (an int32
 accumulator past 2^31) on every third lane and x = -32768 and 32767 rows on
@@ -21,12 +24,19 @@ the others.  The variants:
 
 - ``as built``: 16 rows x 4 column sets a warpgroup at n_accum 4 (N = 64,
   3 x 32 accumulator registers), 32 rows at n_accum 1, 64-lane CTAs;
-  at n_accum 4 persistent CTAs (``fir_tiles``: min(tiles, SMs), each
-  walking every G-th tile with one ring that runs on across its tiles),
-  at n_accum 1 a CTA a tile (``fir_tile``); the persistent CTA's copies
-  6 stages ahead (a ring of 8), the one-tile CTA's 3 (a ring of 5); 1
-  CTA an SM at n_accum 4, 2 (at most 128 registers a thread) at n_accum
-  1;
+  at n_accum 4 persistent CTAs (``fir_tiles``: min(tiles, SMs)), each
+  holding a (phase, row tile) band resident in shared memory while it
+  walks a contiguous run of tiles in band-major order and streaming x
+  alone, where the launch's widest band fits and at least 6 tiles share
+  a band (the resident walk; at every n_accum 4 launch here at B =
+  2048), else walking every G-th tile with the weights streamed beside x
+  (the streamed walk); at n_accum 1 a CTA a tile (``fir_tile``); the
+  persistent CTA's copies 6 stages ahead (a ring of 8), the one-tile
+  CTA's 3 (a ring of 5); 1 CTA an SM at n_accum 4, 2 (at most 128
+  registers a thread) at n_accum 1;
+- ``streamed band``: = as built on the streamed walk alone: every stage
+  restages its weights (the parent's walk, but that x rows of a K-slice
+  past a tile's band are not copied);
 - ``one tile a CTA``: = as built, a CTA a tile at n_accum 4 too;
 - ``n_accum 1 persistent``: = as built, persistent CTAs at n_accum 1 too
   (it spills);
@@ -35,9 +45,15 @@ the others.  The variants:
 - ``1 CTA an SM``: = as built, 1 CTA an SM at n_accum 1 too;
 - ``2 CTAs an SM``: = as built, 2 CTAs an SM at n_accum 4 too (it spills),
   with the one-tile ring 2 stages ahead (a ring of 4);
-- ``persistent walk alone``: = as built without the Q15 mix and the row
+- ``resident walk alone``: = as built without the Q15 mix and the row
   stores (the accumulators folded into one word that a never-taken
   branch stores, so all 3 x 32 stay live);
+- ``streamed walk alone``: = streamed band without the mix and the
+  stores;
+- ``equal runs``: = as built, each CTA's run of n_items / G tiles,
+  not balanced by the bands' K-slices (at 44.1 kHz -> 48 kHz q7 a tenth
+  of the bands span 6 K-slices, the rest 5; the band loads printed are
+  the balanced runs');
 - ``walk alone``: = one tile a CTA, without the mix and the stores;
 - ``no walk``: = one tile a CTA without the walk: the tap table, the
   origin and the epilogue (the bias and coef loads, the mix and the
@@ -47,14 +63,18 @@ Before a variant is timed, its SASS is held to :data:`PINS`: its fixed
 kernels' IGMMA count and least registers from ``cuobjdump -sass`` and the
 ptxas report, and no spill (but where the variant spills by design); a
 variant off its pins is not timed and fails the run.  ``--launch``
-restricts the launches (:data:`LAUNCHES`' keys).
+restricts the launches (:data:`LAUNCHES`' keys); ``--lanes B`` times them
+at B lanes instead of 2048 (and checks B among the lane counts): at 48
+kHz -> 44.1 kHz q10, one block a phase, B <= 320 leaves fewer than 6
+tiles a band, so the persistent CTAs walk it streamed.
 
 With ``--parent``, a ``csrc/`` directory of an earlier checkout is built
 too (``git archive <commit> speex_resampler_tpu_torch/csrc`` into
 ``build/``); its streamed fixed entry point (the CUDA-core kernel of a
 checkout older than ``fixed_wgmma.cuh``: int16 weights [P, K, C] in tap
 order and a 64-row tap table; else the tensor-core kernel on the step's
-own weights; both
+own weights, with the widest band's slice count where its entry point
+takes one; both
 geometries at their closed-form origins) is timed at the same launches
 and every variant is held against it: all take exact sums mod 2^32 and
 the same Q15 epilogue, so 0 outputs may differ.
@@ -84,6 +104,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 import fixed_inputs  # noqa: E402  (tests/, put on the path by chip_smoke)
 from speex_resampler_tpu_torch.ops import _build  # noqa: E402
+from speex_resampler_tpu_torch.ops import streamed_fir as sf  # noqa: E402
 from speex_resampler_tpu_torch.ops import tiled_fir as tf  # noqa: E402
 from speex_resampler_tpu_torch.parallel import batch as tb  # noqa: E402
 from tools import _variants  # noqa: E402
@@ -93,6 +114,15 @@ _MIN_BLOCKS = "kMinBlocks = kAccum == 1 ? 2 : 1;"
 _PERSISTENT = "static constexpr bool kPersistent = kAccum == 4;"
 _ONE_TILE = {_PERSISTENT: "static constexpr bool kPersistent = false;"}
 _TILE_LEAD = "static constexpr int kTileLead = 6;"
+# the resident walk's runs, balanced by K-slices
+_RUNS = "    balanced_run(g, row_tiles, per_band, out, first, last);\n"
+_EQUAL_RUNS = """    first = (int)((long long)blockIdx.x * n_items / n_ctas);
+    last = (int)((long long)(blockIdx.x + 1) * n_items / n_ctas);
+"""
+# the launcher's rule for the resident walk, off
+_STREAMED = {"streamed_fir.cu": {
+    "return Shape::kPersistent && per_band >= Shape::kTileLead &&":
+        "return false && per_band >= Shape::kTileLead &&"}}
 # fir_tile's epilogue: its first barrier, after the walk's last wgmma wait
 _EPILOGUE = ("  // every warpgroup's wgmmas are done before the ring takes the "
              "output tile\n  __syncthreads();\n")
@@ -109,7 +139,7 @@ _N_STAGES = """  const int n_stages =
       c.t_hi > t_begin ? (c.t_hi - t_begin + kStageTaps - 1) / kStageTaps : 0;
 """
 # fir_tiles' epilogue, after the tile's last wgmma wait
-_TILE_EPILOGUE = """    mix(slot);
+_TILE_EPILOGUE = """    mix(head);
     __syncthreads();
     store(yrow, lane0);
 """
@@ -121,6 +151,8 @@ _TILES_WALK_ALONE = (
 #: function)
 VARIANTS = {
     "as built": ({}, {}, True),
+    # the persistent CTAs of the parent: weights restaged every stage
+    "streamed band": ({}, _STREAMED, True),
     # the one-tile CTA of earlier checkouts, launched one a tile
     "one tile a CTA": (_ONE_TILE, {}, True),
     "n_accum 1 persistent": (
@@ -134,9 +166,12 @@ VARIANTS = {
     "2 CTAs an SM": ({_MIN_BLOCKS: "kMinBlocks = 2;",
                       "constexpr int kLead = 3;": "constexpr int kLead = 2;"},
                      {}, True),
-    # the persistent walk without its epilogue's mix and stores
-    "persistent walk alone": ({_TILE_EPILOGUE: _TILES_WALK_ALONE}, {},
-                              False),
+    # the persistent walks without their epilogue's mix and stores
+    "resident walk alone": ({_TILE_EPILOGUE: _TILES_WALK_ALONE}, {},
+                            False),
+    "streamed walk alone": ({_TILE_EPILOGUE: _TILES_WALK_ALONE}, _STREAMED,
+                            False),
+    "equal runs": ({_RUNS: _EQUAL_RUNS}, {}, True),
     # the one-tile CTA's split
     "walk alone": ({**_ONE_TILE, _EPILOGUE: _WALK_ALONE}, {}, False),
     # t_hi is read (the tap table's load stays), no stage is walked
@@ -148,18 +183,25 @@ K2D, K1E, K1D = ("streamed_fir_fixed_kernel<4, false>",
                  "streamed_fir_fixed_kernel<4, true>",
                  "streamed_fir_fixed_kernel<1, true>")
 #: variant -> {kernel: (IGMMA count, least registers)}; every other
-#: variant's fixed kernels are printed, not held
+#: variant's fixed kernels are printed, not held.  The persistent
+#: kernel holds both walks, 8 IGMMA each
 PINS = {
-    "as built": {K2D: (8, 0), K1E: (8, 0), K1D: (8, 0)},
+    "as built": {K2D: (16, 0), K1E: (16, 0), K1D: (8, 0)},
+    "streamed band": {K2D: (16, 0), K1E: (16, 0), K1D: (8, 0)},
+    "equal runs": {K2D: (16, 0), K1E: (16, 0), K1D: (8, 0)},
     "one tile a CTA": {K2D: (8, 0), K1E: (8, 0), K1D: (8, 0)},
     # three accumulators of 32 registers live through the walk
-    "persistent walk alone": {K2D: (8, 3 * 32), K1E: (8, 3 * 32)},
+    "resident walk alone": {K2D: (16, 3 * 32), K1E: (16, 3 * 32)},
+    "streamed walk alone": {K2D: (16, 3 * 32), K1E: (16, 3 * 32)},
     "walk alone": {K2D: (8, 3 * 32), K1E: (8, 3 * 32)},
     "no walk": {K2D: (8, 0), K1E: (8, 0)},
 }
 #: variants that spill by design (n_accum 1's persistent CTA: 20 bytes
 #: at its 128-register cap)
 SPILLS = {"2 CTAs an SM", "n_accum 1 persistent"}
+#: variants whose persistent CTAs walk every launch streamed
+STREAMED = {"streamed band", "streamed walk alone", "one tile a CTA",
+            "walk alone", "no walk"}
 #: name -> (chip_smoke path, geometry override)
 LAUNCHES = {"q7": (cs.FIXED_FLAGSHIP, None), "q10": (cs.FIXED_SLICE, None),
             "q5": (cs.FIXED_DIRECT, None),
@@ -188,24 +230,46 @@ def edge_inputs(step, n_in: int, B: int, seed: int, device="cuda"):
     return torch.from_numpy(hist).to(device), torch.from_numpy(x).to(device)
 
 
-def stage_bytes(step, B: int = cs.LANES) -> tuple:
-    """(CTAs, bytes) of one launch's shared-memory stage copies at B lanes
-    in the shipped kernel (``csrc/fixed_wgmma.cuh``): each CTA walks its
-    tap table entry's band in 64-tap stages from t_lo rounded down to 32,
-    and a stage copies the two planes' [rows * n_accum x 64 taps] int8 and
-    x's [64 taps x 64 lanes] int16 (computed on the host, from the step's
-    tap table)."""
+def stage_bytes(step, B: int = cs.LANES, ctas: int = 132) -> tuple:
+    """(tiles, streamed bytes, resident bytes, band loads) of one launch's
+    shared-memory copies at B lanes in the shipped kernel
+    (``csrc/fixed_wgmma.cuh``), computed on the host from the step's tap
+    table: each output tile walks its tap table entry's band, s K-slices
+    from t_lo rounded down to 32 (1 where the entry is empty), in
+    ceil(s / 2) 64-tap stages, and copies x's [32 s taps x 64 lanes]
+    int16.  The streamed walk copies with each stage the two planes'
+    [rows * n_accum x 64 taps] int8; the resident walk copies each band
+    its CTA's run meets once (``streamed_fir.fixed_runs`` on ``ctas``
+    CTAs): its s K-slices of both planes and its rows * n_accum biases and
+    as many coefs."""
     n_accum = step.kernel_kw["n_accum"]
     rows = tf.FIXED_ROWS[n_accum]
     taps = step.w[-1].cpu().numpy().astype(np.int64)        # [P, tiles, 2]
     lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
-    stages = np.where(hi > lo, -(-(hi - lo) // 64), 0).sum(axis=1)  # [P]
+    slices = np.where(hi > lo, -(-(hi - lo) // 32), 1)      # [P, tiles]
+    P, row_tiles = slices.shape
     n_blocks = step.kernel_kw["n_blocks"]
-    lane_tiles = -(-B // 64)
-    per_stage = 2 * rows * n_accum * 64 + 64 * 64 * 2
-    walked = int(stages[np.arange(n_blocks) % taps.shape[0]].sum())
-    return (n_blocks * taps.shape[1] * lane_tiles,
-            walked * lane_tiles * per_stage)
+    lanes = -(-B // 64)
+    walked = int(slices[np.arange(n_blocks) % P].sum()) * lanes
+    staged = int(-(-slices[np.arange(n_blocks) % P] // 2).sum()) * lanes
+    weights = 2 * rows * n_accum * 32                # a K-slice, two planes
+    x = walked * 32 * 64 * 2
+    tiles = n_blocks * row_tiles * lanes
+    per_band = n_blocks // P * lanes
+    runs = sf.fixed_runs(step.w[-2], per_band, min(tiles, ctas))
+    loaded = [b for first, last in runs if last > first
+              for b in range(first // per_band, (last - 1) // per_band + 1)]
+    band = sum(int(slices[divmod(b, row_tiles)]) * weights
+               + 2 * rows * n_accum * 4 for b in loaded)
+    return tiles, x + staged * 2 * weights, x + band, len(loaded)
+
+
+def tiles_of(step, B: int = cs.LANES) -> int:
+    """The output tiles of a fixed step's launch at B lanes."""
+    kw = step.kernel_kw
+    R = step.w[0].shape[2] // kw["n_accum"]
+    return (kw["n_blocks"] * (R // tf.FIXED_ROWS[kw["n_accum"]])
+            * -(-B // 64))
 
 
 def parent_weights(step) -> tuple:
@@ -241,9 +305,12 @@ def parent_library(csrc: Path):
     signatures = dict(_PARENT_SIGNATURES)
     if tensor_core_parent(csrc):
         restype, argtypes = _build._SIGNATURES["streamed_fir_fixed"]
-        counts = "int* ctas" in (csrc / "streamed_fir.cu").read_text()
-        signatures["streamed_fir_fixed"] = (
-            restype, argtypes if counts else argtypes[:-1])
+        src = (csrc / "streamed_fir.cu").read_text()
+        if "int* band_tiles" not in src:    # no slice count, no band count
+            argtypes = argtypes[:8] + argtypes[9:-1]
+            if "int* ctas" not in src:
+                argtypes = argtypes[:-1]
+        signatures["streamed_fir_fixed"] = (restype, argtypes)
     for name, (restype, argtypes) in signatures.items():
         getattr(lib, name).restype = restype
         getattr(lib, name).argtypes = argtypes
@@ -264,9 +331,11 @@ def parent_launch(lib, hist, x, step, weights):
         ptrs = [step.w[-1].data_ptr(), step.w[0].data_ptr(),
                 step.w[1].data_ptr(),
                 step.w[2].data_ptr() if n_accum == 4 else None]
-        ctas = ctypes.c_int(0)
-        extra = [ctypes.byref(ctas)] \
-            if len(lib.streamed_fir_fixed.argtypes) > 20 else []
+        # 23 arguments: the slice count and two counts (CTAs, tiles a
+        # band); 21: the CTA count; 20: neither
+        n_counts = {23: 2, 21: 1}.get(len(lib.streamed_fir_fixed.argtypes),
+                                      0)
+        extra = [ctypes.byref(ctypes.c_int(0)) for _ in range(n_counts)]
     else:
         w16, coef, taps = weights
         P, K, C = w16.shape
@@ -277,12 +346,15 @@ def parent_launch(lib, hist, x, step, weights):
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
                     device="cuda")
 
+    # the widest band's slice count, where the entry point takes one
+    slices = [step.w[-2].widest] if len(extra) == 2 else []
+
     def run():
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.streamed_fir_fixed(
-            hist.data_ptr(), x.data_ptr(), y.data_ptr(), *ptrs, n_accum, H,
-            x.shape[0], B, R, K, P, kw["n_blocks"], kw["shift"], kw["num"],
-            kw["den"], kw["f0"], stream, *extra)
+            hist.data_ptr(), x.data_ptr(), y.data_ptr(), *ptrs, n_accum,
+            *slices, H, x.shape[0], B, R, K, P, kw["n_blocks"], kw["shift"],
+            kw["num"], kw["den"], kw["f0"], stream, *extra)
         if err:
             raise RuntimeError(f"parent kernel launch failed ({err})")
     return run, y
@@ -323,7 +395,10 @@ def main() -> None:
     ap.add_argument("--only", nargs="*", default=None)
     ap.add_argument("--launch", nargs="*", default=None,
                     choices=sorted(LAUNCHES))
+    ap.add_argument("--lanes", type=int, default=cs.LANES)
     args = ap.parse_args()
+    lanes = args.lanes
+    check = (lanes,) + tuple(B for B in CHECK_LANES if B != lanes)
     if not torch.cuda.is_available():
         sys.exit("fixed_ablate: no CUDA device")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -342,9 +417,9 @@ def main() -> None:
             assert step.scheme == "fixed" and step.kernel == bspec.kernel
             n_accum = step.kernel_kw["n_accum"]
             inputs = [edge_inputs(step, bspec.in_per_launch, B, seed=B + f0)
-                      for B in CHECK_LANES]
+                      for B in check]
             want = [cs.plain(h, x, step).cpu().numpy() for h, x in inputs]
-            bound = cs.launch_bound(path.spec, step, bspec, cs.LANES)
+            bound = cs.launch_bound(path.spec, step, bspec, lanes)
             cases.append((f"{path.name} on {step.kernel} "
                           f"({cs.kernel_name(step.kernel, 'fixed', n_accum)})"
                           f" f0 {f0}", step, inputs, want, bound))
@@ -365,7 +440,7 @@ def main() -> None:
             run, _ = parent_launch(lib, *inputs[0], step, weights)
             print(f"   parent, {label}: {cs.cuda_ms(run, 20):.4f} ms back "
                   f"to back, graph {cs.cuda_ms(run, 20, mode='graph'):.4f} "
-                  f"ms at B = {cs.LANES}")
+                  f"ms at B = {lanes}")
             del weights
     bad = []
     for name, (edits, also, exact) in VARIANTS.items():
@@ -395,11 +470,21 @@ def main() -> None:
             h, x = inputs[0]
             fn = lambda: cs.launch(h, x, step)  # noqa: E731
             ms, graph_ms = cs.cuda_ms(fn, 20), cs.cuda_ms(fn, 20, mode="graph")
-            ctas, nbytes = stage_bytes(step)
+            lib = _build.load()
+            kw = step.kernel_kw
+            ctas = min(torch.cuda.get_device_properties(0)
+                       .multi_processor_count, tiles_of(step, lanes))
+            tiles, streamed, resident, loads = stage_bytes(step, lanes, ctas)
+            if name in STREAMED or not lib.fixed_fir_band_tiles(
+                    kw["n_accum"], step.w[-2].widest, kw["n_blocks"],
+                    step.w[-1].shape[0], lanes):
+                nbytes, what = streamed, "stages of weights and x"
+            else:
+                nbytes, what = resident, f"x stages and {loads} band loads"
             line.append(f"{ms:.4f} ms back to back, graph {graph_ms:.4f} ms,"
                         f" {bound[0] / ms:.3f} of the bound {bound[0]:.4f} ms"
-                        f"; {ctas} CTAs copy {nbytes / 1e9:.3f} GB of stages"
-                        f" (as built): {nbytes / ms / 1e9:.2f} TB/s")
+                        f"; {tiles} tiles copy {nbytes / 1e9:.3f} GB of "
+                        f"{what}: {nbytes / ms / 1e9:.2f} TB/s")
             print(f"   {name}, {label}: " + "; ".join(line))
     if bad:
         sys.exit("fixed_ablate: failed: " + "; ".join(bad))
