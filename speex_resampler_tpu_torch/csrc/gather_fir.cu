@@ -845,19 +845,40 @@ gather_fir_f64mma_kernel(Gather g, F64Band bw, int raw) {
   }
 }
 
-template <int kAccum>
-cudaError_t launch_fixed_band(const Gather& g, const FixedBand& bw,
-                              cudaStream_t stream) {
-  static std::atomic<unsigned> smem_set{0};
-  auto* kernel = gather_fir_fixed_band_kernel<kAccum>;
-  const cudaError_t attr = fir::set_once(smem_set, [kernel] {
+// A band kernel's shared-memory ceiling, set once a device (`done` is the
+// kernel's own), by its launches and by gather_fir_launch_ctas.
+template <typename Kernel>
+cudaError_t band_ceiling(Kernel* kernel, std::atomic<unsigned>& done) {
+  return fir::set_once(done, [kernel] {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
   });
-  if (attr != cudaSuccess) return attr;
+}
+template <int kAccum>
+std::atomic<unsigned> fixed_band_set{0};
+template <typename XT>
+std::atomic<unsigned> f64_band_set{0};
+
+// The grid of a band launch: a CTA a band tile (a fixed group of
+// Shape<kAccum>::kRows outputs; kF64Outputs float) and its lane tiles,
+// kFixedLaneTiles / kF64LaneTiles a CTA.
+template <int kAccum>
+unsigned fixed_band_ctas(int n_out, int B) {
   constexpr int kG = fir::fixedtc::Shape<kAccum>::kRows;
-  const unsigned groups = (g.n_out + kG - 1) / kG;
-  kernel<<<groups * band_chunks(g.B, kFixedLaneTiles), kThreads,
+  return (unsigned)((n_out + kG - 1) / kG) * band_chunks(B, kFixedLaneTiles);
+}
+inline unsigned f64_band_ctas(int n_out, int B) {
+  return (unsigned)((n_out + kF64Outputs - 1) / kF64Outputs) *
+         band_chunks(B, kF64LaneTiles);
+}
+
+template <int kAccum>
+cudaError_t launch_fixed_band(const Gather& g, const FixedBand& bw,
+                              cudaStream_t stream) {
+  auto* kernel = gather_fir_fixed_band_kernel<kAccum>;
+  const cudaError_t attr = band_ceiling(kernel, fixed_band_set<kAccum>);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<fixed_band_ctas<kAccum>(g.n_out, g.B), kThreads,
            fixed_band_smem<kAccum>(bw.K), stream>>>(g, bw);
   return cudaGetLastError();
 }
@@ -865,17 +886,29 @@ cudaError_t launch_fixed_band(const Gather& g, const FixedBand& bw,
 template <typename XT>
 cudaError_t launch_f64_band(const Gather& g, const F64Band& bw, int raw,
                             cudaStream_t stream) {
-  static std::atomic<unsigned> smem_set{0};
   auto* kernel = gather_fir_f64mma_kernel<XT>;
-  const cudaError_t attr = fir::set_once(smem_set, [kernel] {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
-  });
+  const cudaError_t attr = band_ceiling(kernel, f64_band_set<XT>);
   if (attr != cudaSuccess) return attr;
-  const unsigned ctas = (g.n_out + kF64Outputs - 1) / kF64Outputs;
-  kernel<<<ctas * band_chunks(g.B, kF64LaneTiles), kThreads,
+  kernel<<<f64_band_ctas(g.n_out, g.B), kThreads,
            f64_band_smem(bw.K, bw.rows, sizeof(XT)), stream>>>(g, bw, raw);
   return cudaGetLastError();
+}
+
+// The CTAs of `kernel` (`threads`, `smem` bytes of dynamic shared memory)
+// that the current device holds at once: its multiprocessors times the
+// occupancy API's CTAs a multiprocessor.
+template <typename Kernel>
+cudaError_t resident_slots(Kernel* kernel, int threads, int smem,
+                           long long* slots) {
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        threads, smem);
+  *slots = (long long)sms * per_sm;
+  return err;
 }
 
 // -- streamed band form ------------------------------------------------------
@@ -1301,7 +1334,8 @@ gather_fir_fixed_stream_kernel(Gather g, StreamBand sb) {
 }
 
 // Sets a streamed kernel's shared memory (once a device) and gives the K
-// splits of its launch over `units` CTAs of n_st stages each.  Where the
+// splits of its launch over `units` CTAs of n_st stages each, and the CTAs
+// the card holds at once (*slots).  Where the
 // units fill a wave of the card's resident CTAs (multiprocessors times the
 // kernel's CTAs each), 1: their last, partial wave runs on an L2 the others
 // no longer share, and splitting only adds the partial sums' traffic
@@ -1312,26 +1346,19 @@ gather_fir_fixed_stream_kernel(Gather g, StreamBand sb) {
 template <typename Kernel>
 cudaError_t stream_split(Kernel* kernel, std::atomic<unsigned>& smem_set,
                          int threads, int smem, int units, int n_st,
-                         int* split) {
+                         int* split, long long* slots) {
   cudaError_t err = fir::set_once(smem_set, [kernel, smem] {
     return cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   });
-  int dev = 0, sms = 0, per_sm = 0;
-  if (err == cudaSuccess) err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                        threads, smem);
+  if (err == cudaSuccess) err = resident_slots(kernel, threads, smem, slots);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long slots = (long long)sms * per_sm;
+  if (*slots < 1) return cudaErrorInvalidConfiguration;
   auto waves = [&](int s) {
-    return ((long long)units * s + slots - 1) / slots;
+    return ((long long)units * s + *slots - 1) / *slots;
   };
   *split = 1;
-  for (int s = 2; units < slots && s <= kStreamMaxSplit &&
+  for (int s = 2; units < *slots && s <= kStreamMaxSplit &&
                   n_st / s >= kStreamMinStages;
        ++s)
     if (waves(s) * *split < waves(*split) * s) *split = s;
@@ -1340,10 +1367,11 @@ cudaError_t stream_split(Kernel* kernel, std::atomic<unsigned>& smem_set,
 
 // A streamed launch's shape (n_accum 0: float): its K splits, its CTAs
 // without the splits (units), their threads and shared memory, the bytes
-// of its partial sums (0 unsplit); the kernel's ceiling set.
+// of its partial sums (0 unsplit), the CTAs the card holds at once
+// (slots); the kernel's ceiling set.
 struct StreamShape {
   int split, units, threads, smem;
-  long long part_bytes;
+  long long part_bytes, slots;
 };
 
 cudaError_t stream_shape(int n_accum, int n_out, int B, int K,
@@ -1358,7 +1386,7 @@ cudaError_t stream_shape(int n_accum, int n_out, int B, int K,
     sh->smem = f64_stream_smem();
     err = stream_split(gather_fir_f64mma_stream_kernel<int16_t>, set_f64,
                        sh->threads, sh->smem, sh->units, K / kF64StreamTaps,
-                       &sh->split);
+                       &sh->split, &sh->slots);
     sh->part_bytes = (long long)sh->split * tiles * kF64Tile * B * 8;
   } else if (n_accum == 1 || n_accum == 4) {
     const int G = n_accum == 4 ? fir::fixedtc::Shape<4>::kWgRows
@@ -1372,10 +1400,10 @@ cudaError_t stream_shape(int n_accum, int n_out, int B, int K,
     err = n_accum == 4
               ? stream_split(gather_fir_fixed_stream_kernel<4>, set_fixed4,
                              sh->threads, sh->smem, sh->units, n_st,
-                             &sh->split)
+                             &sh->split, &sh->slots)
               : stream_split(gather_fir_fixed_stream_kernel<1>, set_fixed1,
                              sh->threads, sh->smem, sh->units, n_st,
-                             &sh->split);
+                             &sh->split, &sh->slots);
     sh->part_bytes = (long long)sh->split * groups * n_accum * G * B * 4;
   } else {
     return cudaErrorInvalidValue;
@@ -1461,6 +1489,59 @@ int gather_fir_band_smem(int n_accum, int x_bytes, int K, int rows) {
   return f64_band_smem(K, rows, x_bytes);
 }
 int gather_fir_band_smem_max() { return kMaxSmem; }
+
+// The CTAs of a band (form 0) or stream (form 1) launch on the current
+// device, as its launcher takes them: n_accum 0 the float kernel (x_bytes
+// its samples, 2 or 4; the stream form takes 2), 1 or 4 the fixed one; n_out
+// outputs over B lanes, K band taps, `rows` x rows a float band CTA stages.
+// *ctas: the launch's grid; *resident: those the card holds at once, the
+// occupancy API's CTAs a multiprocessor at the launch's dynamic shared
+// memory times the multiprocessors, at most *ctas.  Sets the kernel's
+// shared-memory ceiling as its launch does; launches nothing.
+int gather_fir_launch_ctas(int form, int n_accum, int x_bytes, int n_out,
+                           int B, int K, int rows, int* ctas, int* resident) {
+  *ctas = *resident = 0;
+  if (n_out < 1 || B < 1 || K < 1 || (form == 1 && x_bytes != 2))
+    return static_cast<int>(cudaErrorInvalidValue);
+  long long grid = 0, slots = 0;
+  cudaError_t err;
+  // a band kernel's ceiling set, then its CTAs an SM at `smem`
+  auto band = [&](auto* kernel, std::atomic<unsigned>& done, int smem) {
+    if (smem > kMaxSmem) return cudaErrorInvalidValue;
+    const cudaError_t e = band_ceiling(kernel, done);
+    return e == cudaSuccess ? resident_slots(kernel, kThreads, smem, &slots)
+                            : e;
+  };
+  if (form == 1) {
+    StreamShape sh{};
+    err = stream_shape(n_accum, n_out, B, K, &sh);
+    grid = (long long)sh.units * sh.split;
+    slots = sh.slots;
+  } else if (form != 0) {
+    err = cudaErrorInvalidValue;
+  } else if (n_accum == 4) {
+    grid = fixed_band_ctas<4>(n_out, B);
+    err = band(gather_fir_fixed_band_kernel<4>, fixed_band_set<4>,
+               fixed_band_smem<4>(K));
+  } else if (n_accum == 1) {
+    grid = fixed_band_ctas<1>(n_out, B);
+    err = band(gather_fir_fixed_band_kernel<1>, fixed_band_set<1>,
+               fixed_band_smem<1>(K));
+  } else if (n_accum == 0 && rows >= K && (x_bytes == 2 || x_bytes == 4)) {
+    grid = f64_band_ctas(n_out, B);
+    const int smem = f64_band_smem(K, rows, x_bytes);
+    err = x_bytes == 2 ? band(gather_fir_f64mma_kernel<int16_t>,
+                              f64_band_set<int16_t>, smem)
+                       : band(gather_fir_f64mma_kernel<float>,
+                              f64_band_set<float>, smem);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  *ctas = static_cast<int>(grid);
+  *resident = static_cast<int>(grid < slots ? grid : slots);
+  return 0;
+}
 
 // The band form (float): hist and x as gather_fir_f32; band f64[ceil(n_out
 // / 16) * 16, K] (K % 8 == 0, 16-byte aligned; ops/fir_matmul.gather_band),

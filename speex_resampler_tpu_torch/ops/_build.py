@@ -69,6 +69,7 @@ _SIGNATURES = {
                        + [_P]),
     "gather_fir_band_smem": (_I, [_I] * 4),
     "gather_fir_band_smem_max": (_I, []),
+    "gather_fir_launch_ctas": (_I, [_I] * 7 + [ctypes.POINTER(_I)] * 2),
     "gather_fir_f32_band": (_I, [_P, _L, _L, _I] * 2 + [_P] * 3 + [_I] * 6
                             + [_P]),
     "gather_fir_fixed_band": (_I, [_P, _L, _L, _I, _P, _L, _L] + [_P] * 5

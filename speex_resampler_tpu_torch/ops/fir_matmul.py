@@ -49,12 +49,13 @@ the same number), wrapped to int32 as the C accumulator wraps.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import _build
 from .convert import word2int
 from .fixed_math import balanced_q15_split, fixed_interp_mix_rows, sat32pshr15
@@ -115,6 +116,16 @@ _F64_STREAM_LANES = 256
 #: Callers reset the counts to count one run.
 launches = {"highest": 0, "highest_band": 0, "fixed_band": 0,
             "highest_stream": 0, "fixed_stream": 0}
+#: the port's counters (``utils/profiling.count``) of the band and stream
+#: launches, float and fixed: 1 a launch, the CTAs it launched (its grid),
+#: the CTAs the card holds at once for it (the multiprocessors times the
+#: kernel's occupancy at the launch's shared memory, at most the grid) and
+#: its (output tile, 64-lane tile) units (:func:`gather_tiles`): tiles over
+#: resident CTAs is the tiles a resident CTA walked
+GATHER_LAUNCHES = "speex.kernel.gather.launches"
+GATHER_CTAS = "speex.kernel.gather.ctas"
+GATHER_RESIDENT = "speex.kernel.gather.resident"
+GATHER_TILES = "speex.kernel.gather.tiles"
 
 #: The library whose shared-memory ceiling this module has checked.
 _checked = None
@@ -565,6 +576,44 @@ def _ptrs(*tensors) -> tuple:
     return tuple(None if t is None else t.data_ptr() for t in tensors)
 
 
+def gather_tiles(plan: GatherPlan, n_out: int, batch: int) -> int:
+    """The (output tile, 64-lane tile) units of a band or stream launch,
+    an output tile being its plan's ``outputs``: a float band CTA's 64, a
+    fixed group's, a stream form's band tile."""
+    return -(-n_out // plan.outputs) * -(-batch // GATHER_LANES)
+
+
+@functools.lru_cache(maxsize=64)
+def launch_ctas(lib, device: int, form: str, n_accum: int | None,
+                x_bytes: int, n_out: int, batch: int, K: int,
+                rows: int) -> tuple:
+    """(CTAs, resident CTAs) of a band or stream launch on the current
+    CUDA device (index ``device``, for the cache), as ``lib``'s launcher
+    takes them (``gather_fir_launch_ctas``); ``n_accum`` None is the float
+    kernel.  A step's launches repeat, so each shape is asked once."""
+    ctas, resident = ctypes.c_int(0), ctypes.c_int(0)
+    err = lib.gather_fir_launch_ctas(("band", "stream").index(form),
+                                     n_accum or 0, x_bytes, n_out, batch, K,
+                                     rows, ctypes.byref(ctas),
+                                     ctypes.byref(resident))
+    if err:
+        raise RuntimeError(f"gather kernel ({form}) CTA query failed: "
+                           + lib.gather_fir_error_string(err).decode())
+    return ctas.value, resident.value
+
+
+def count_gather(lib, device: int, plan: GatherPlan, n_accum: int | None,
+                 x_bytes: int, n_out: int, batch: int) -> None:
+    """One band or stream launch of ``plan`` into the port's counters
+    (:data:`GATHER_LAUNCHES` and the rest), on the current CUDA device."""
+    ctas, resident = launch_ctas(lib, device, plan.form, n_accum, x_bytes,
+                                 n_out, batch, plan.taps, plan.rows)
+    count(GATHER_LAUNCHES)
+    count(GATHER_CTAS, ctas)
+    count(GATHER_RESIDENT, resident)
+    count(GATHER_TILES, gather_tiles(plan, n_out, batch))
+
+
 @span("speex.kernel.gather")
 def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                     starts: torch.Tensor, *,
@@ -592,7 +641,8 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
     TypeError), as the plan says, on the current stream (asynchronously;
     a launch error raises); CPU tensors run
     :func:`resample_gather_reference` on the concatenation hist ++ x
-    (``tile`` steers only it)."""
+    (``tile`` steers only it).  A band or stream launch adds 1, its CTAs,
+    its resident CTAs and its tiles to the counters (:func:`count_gather`)."""
     if x.device.type == "cpu":
         return resample_gather_reference(_axis(hist, x), taps, starts,
                                          tile=tile, raw=raw)
@@ -630,6 +680,9 @@ def resample_gather(x: torch.Tensor, taps: torch.Tensor,
                 *axis, taps.data_ptr(), starts.data_ptr(), y.data_ptr(), T,
                 batch, n_out, N, plan.outputs, plan.taps, plan.rows,
                 int(raw), _build.stream_handle(x.device))
+        if not err and plan.form != "rows":
+            count_gather(lib, x.device.index, plan, None, x.element_size(),
+                         n_out, batch)
     if err:
         raise RuntimeError(f"gather kernel ({plan.form}) launch failed: "
                            + lib.gather_fir_error_string(err).decode())
@@ -663,7 +716,8 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
     plan raises: the fixed gather has no rows form), on the current
     stream; CPU tensors run
     :func:`resample_gather_fixed_reference` on the concatenation hist ++ x
-    (``tile`` steers only it)."""
+    (``tile`` steers only it).  A launch adds to the counters as
+    :func:`resample_gather`'s band and stream launches do."""
     if x.device.type == "cpu":
         return resample_gather_fixed_reference(_axis(hist, x), taps, starts,
                                                coef, tile=tile)
@@ -696,6 +750,8 @@ def resample_gather_fixed(x: torch.Tensor, taps: torch.Tensor,
                 starts.data_ptr(), c_ptr, y.data_ptr(), n_accum, T, batch,
                 n_out, plan.taps, *_ptrs(*scratch),
                 _build.stream_handle(x.device))
+        if not err:
+            count_gather(lib, x.device.index, plan, n_accum, 2, n_out, batch)
     if err:
         raise RuntimeError(f"fixed gather kernel ({plan.form}) launch "
                            "failed: "

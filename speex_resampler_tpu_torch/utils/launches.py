@@ -3,8 +3,9 @@
 Every kernel wrapper adds one to its module's ``launches`` dict (by scheme,
 a gather's by ``fm.launch_key`` of scheme and form, the resident int8
 kernel's under "int8_resident") where it launches its kernel.  This module
-sets those counts to 0, reads them and the fixed kernel's CTA, tile and
-band counters (``utils/profiling``), and names the CUDA kernel a step
+sets those counts to 0, reads them, the fixed kernel's CTA, tile and
+band counters and the band and stream gathers' CTA, resident CTA and tile
+counters (``utils/profiling``), and names the CUDA kernel a step
 launches, for ``chip_smoke.py`` and the tools that count a run's launches
 (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 """
@@ -30,7 +31,8 @@ CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
 
 def reset_launches() -> None:
     """Every kernel module's launch counts to 0, and the port's counters
-    (``utils/profiling``: the fixed launches' CTAs and tiles)."""
+    (``utils/profiling``: the fixed and gather launches' CTAs and
+    tiles)."""
     for module in COUNTERS.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
     reset_counters()
@@ -43,6 +45,16 @@ def fixed_counts() -> tuple:
     totals = counter_totals()
     return tuple(totals.get(name, 0) for name in (
         sf.FIXED_LAUNCHES, sf.FIXED_CTAS, sf.FIXED_TILES, sf.FIXED_BANDS))
+
+
+def gather_counts() -> tuple:
+    """(launches, CTAs, resident CTAs, output tiles) of the band and stream
+    gather kernels, float and fixed, since the last :func:`reset_launches`,
+    from the port's counters."""
+    totals = counter_totals()
+    return tuple(totals.get(name, 0) for name in (
+        fm.GATHER_LAUNCHES, fm.GATHER_CTAS, fm.GATHER_RESIDENT,
+        fm.GATHER_TILES))
 
 
 def launch_counts() -> dict:

@@ -15,6 +15,7 @@ LSB with at most the Poisson tie count of tests/conftest.py::lsb_tie_limit
 
 import dataclasses
 import gc
+import json
 import math
 
 import numpy as np
@@ -1702,6 +1703,75 @@ def test_gather_stream_smem_and_guards(cuda):
     with pytest.raises(ValueError, match="band"):
         tfm.resample_gather(x[:bspec.in_per_launch].t(), *step.w,
                             hist=hist.t(), plan=kw["plan"], band=band)
+
+
+def _resident_per_sm(threads: int, regs: int, smem: int) -> int:
+    """The CTAs of a kernel one multiprocessor holds at once, worked out
+    from the card's limits (``torch.cuda.get_device_properties``) as CUDA's
+    occupancy calculator does: threads (in whole warps), registers (256 a
+    warp's unit, a quarter of the file a scheduler), shared memory (the
+    CTA's plus the 1 KB the system keeps, in 128-byte units), 32 CTAs."""
+    prop = torch.cuda.get_device_properties(0)
+    warps = -(-threads // 32)
+    by_threads = getattr(prop, "max_threads_per_multi_processor", 2048) \
+        // 32 // warps
+    reg_file = getattr(prop, "regs_per_multiprocessor", 65536)
+    per_warp = -(-regs * 32 // 256) * 256
+    by_regs = reg_file // 4 // per_warp * 4 // warps
+    per_cta = -(-(smem + 1024) // 128) * 128
+    by_smem = getattr(prop, "shared_memory_per_multiprocessor",
+                      233472) // per_cta
+    return min(32, by_threads, by_regs, by_smem)
+
+
+@pytest.mark.parametrize("fixed", [False, True], ids=["float", "fixed"])
+@pytest.mark.parametrize("launch", ["drift-band", "steep-stream"])
+def test_gather_counts_equal_the_launch_grid_and_occupancy(cuda, tmp_path,
+                                                           launch, fixed):
+    """The port's gather counters (``utils/launches.gather_counts``) of one
+    step call at 2048 lanes: 1 launch; CTAs equal to the grid the
+    profiler's trace records for the kernel; resident CTAs equal to the
+    multiprocessors times the CTAs one holds at the kernel's registers and
+    shared memory as the trace records them (min with the grid); tiles
+    ceil(n_out / outputs) x 32.  At the drift band, float: 2,760 CTAs, one
+    an SM, over 22,080 tiles."""
+    from speex_resampler_tpu_torch.utils.launches import (gather_counts,
+                                                          reset_launches,
+                                                          step_kernel)
+    bspec, step = (_gather_step if launch == "drift-band"
+                   else _steep_step)(fixed)
+    plan = step.kernel_kw["plan"]
+    assert plan.form == launch.split("-")[1]
+    B = 2048
+    hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+        step, bspec.in_per_launch, B, seed=3, wrap=False))
+    step.fn(hist, x, step.w)          # warm-up: the library is loaded
+    torch.cuda.synchronize()
+    reset_launches()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        step.fn(hist, x, step.w)
+        torch.cuda.synchronize()
+    trace = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(trace))
+    name = step_kernel(step)[1].split("<")[0]
+    kernels = [e for e in json.loads(trace.read_text())["traceEvents"]
+               if e.get("cat") == "kernel" and name in e.get("name", "")]
+    assert len(kernels) == 1, [e.get("name") for e in kernels]
+    args = kernels[0]["args"]
+    grid = math.prod(args["grid"])
+    per_sm = _resident_per_sm(math.prod(args["block"]),
+                              args["registers per thread"],
+                              args["shared memory"])
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    n_out = bspec.out_per_launch
+    tiles = -(-n_out // plan.outputs) * (B // 64)
+    assert gather_counts() == (1, grid, min(grid, sms * per_sm), tiles)
+    if (launch, fixed) == ("drift-band", False) and sms == 132:
+        assert gather_counts() == (1, 2760, 132, 22080)
+    reset_launches()
+    assert gather_counts() == (0, 0, 0, 0)
 
 
 @pytest.mark.parametrize("form", ["rows", "band"])
