@@ -18,7 +18,10 @@ nvcc per source, in parallel) and drives the serving paths of
   (``utils/launches.fixed_instance``) and the tiles a CTA walked
   (the port's counters ``speex.kernel.fixed.tiles`` over ``.ctas``,
   ``utils/launches.fixed_counts``: ~142.5 at q10, ~77.6 at q7, B =
-  2048, on persistent CTAs; 1.0 where a CTA takes one tile);
+  2048, on persistent CTAs; 1.0 where a CTA takes one tile); each
+  streamed int8 launch checked (K2b) its tiles a CTA and a band load
+  (``utils/launches.int8_counts``: ~71.3 and ~22 at q10, D = 4, B =
+  2048, each band resident; 1.0 and no band load on the streamed walk);
 - the voip preset's engine, 44.1 kHz -> 48 kHz q3 under a hard 20 ms cap:
   the dense geometry (``csrc/dense_fir.cu``), float and fixed (its int8
   tensor-core kernel), and wideband voip from 48 kHz capture, 48 kHz ->
@@ -209,6 +212,7 @@ from speex_resampler_tpu_torch.probes import (
 from speex_resampler_tpu_torch.utils.launches import (CORE_GATHER, COUNTERS,
                                                       fixed_counts,
                                                       fixed_instance,
+                                                      int8_counts,
                                                       kernel_name,
                                                       launch_counts,
                                                       n_accum_of,
@@ -934,19 +938,22 @@ def gmma_counts(lib) -> dict:
 #: K2d, lane tiles fastest; K2d's instance with (block, row tile) fastest,
 #: K1e's; K1d's and the n_accum 1 streamed one): K2b's digit split issues
 #: 4 m64n64k32 a K-slice a warpgroup at D = 4 (8 of m64n32k32 before), two
-#: K-slices a stage; the persistent fixed kernel (n_accum 4) holds its
-#: resident and streamed walks, 8 each
+#: K-slices a stage, in each of its walks (resident and streamed, 8 each);
+#: the persistent fixed kernel (n_accum 4) holds its resident and streamed
+#: walks, 8 each
 IGMMA_PINNED = {"tiled_fir_int8_kernel<3, true>": 12,
-                "streamed_fir_int8_kernel<4, true, false>": 8,
+                "streamed_fir_int8_kernel<4, true, false>": 16,
                 "streamed_fir_fixed_kernel<4, false>": 16,
                 "streamed_fir_fixed_kernel<4, true>": 16,
                 "streamed_fir_fixed_kernel<1, true>": 8,
                 "streamed_fir_fixed_kernel<1, false>": 8}
 #: the kernels whose ptxas report must show no spill: the phase-tiled
-#: fixed instances (persistent CTAs hold the next tile's state beside the
-#: walk's)
+#: fixed instances and the streamed int8 ones whose digits pair up
+#: (persistent CTAs hold the next tile's state beside the walk's)
 SPILL_FREE = tuple(f"streamed_fir_fixed_kernel<{n}, {b}>" for n in (4, 1)
-                   for b in ("false", "true"))
+                   for b in ("false", "true")) + tuple(
+    f"streamed_fir_int8_kernel<{d}, true, {b}>" for d in (4, 2)
+    for b in ("false", "true"))
 
 
 def sass_kernels() -> list:
@@ -1024,6 +1031,29 @@ def check_walk(hist, x, step, got, ctas: int, band_tiles: int) -> None:
                              "outputs off the served launch's")
 
 
+def check_int8_counts(path: Path, step, B: int, f0: int,
+                      before: tuple) -> None:
+    """One streamed int8 launch's counters (``int8_counts`` less
+    ``before``) against the library's rule and the host's band loads
+    (``sf.resident_bands`` of the weights' band widths); printed with the
+    tiles a CTA and a band load.  At 2048 lanes an even-D launch whose
+    widest band fits holds its bands resident."""
+    n, ctas, tiles, bands = (a - b for a, b in zip(int8_counts(), before))
+    D, P = step.w[0].shape[:2]
+    widths, n_blocks = step.w[2], step.kernel_kw["n_blocks"]
+    band_tiles = _build.load().int8_fir_band_tiles(D, widths.widest,
+                                                   n_blocks, P, B)
+    if n != 1 or tiles != sf.int8_tiles(n_blocks, step.w[0].shape[2], B) \
+            or bands != sf.resident_bands(widths, band_tiles, ctas):
+        raise AssertionError(f"{path.name} B={B}: int8 counts {n} / {ctas} "
+                             f"/ {tiles} / {bands}, {band_tiles} tiles a "
+                             "band")
+    print(f"int8 launch: {path.name} D={D} f0={f0:3d} B={B:4d}: {tiles} "
+          f"tiles on {ctas} CTAs, {tiles / ctas:.2f} tiles a CTA, {bands} "
+          "band loads" + (f", {tiles / bands:.2f} tiles a load" if bands
+                          else " (streamed walk)"))
+
+
 def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                   only=None) -> None:
     """Kernel against plain, both on the card, at the path's launch, at
@@ -1059,6 +1089,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                                       seed=B + f0, wrap=path.wrap,
                                       edges=step.scheme == "int8")
                 before = fixed_counts()
+                before_int8 = int8_counts()
                 got = launch(hist, x, step, form)
                 if step.scheme == "fixed" \
                         and step.kernel in ("tiled", "streamed"):
@@ -1068,7 +1099,7 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                     band_tiles = _build.load().fixed_fir_band_tiles(
                         n_accum, widths.widest, step.kernel_kw["n_blocks"],
                         bspec.P, B)
-                    if bands != sf.fixed_bands(widths, band_tiles, ctas) \
+                    if bands != sf.resident_bands(widths, band_tiles, ctas) \
                             or (n_accum == 4 and B == LANES
                                 and not bands):
                         raise AssertionError(
@@ -1082,6 +1113,8 @@ def check_kernels(path: Path, schemes, max_err: dict, kernel=None,
                           f"{tiles / ctas:.2f} tiles a CTA, {bands} band "
                           f"loads" + (f", {tiles / bands:.2f} tiles a load"
                                       if bands else " (streamed walk)"))
+                if step_kernel(step)[1] == "streamed_fir_int8_kernel":
+                    check_int8_counts(path, step, B, f0, before_int8)
                 want = plain(hist, x, step)
                 torch.cuda.synchronize()
                 what = f"{path.name} {scheme} {form or ''} f0={f0} B={B}"

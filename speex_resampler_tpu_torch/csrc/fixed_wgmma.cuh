@@ -321,83 +321,8 @@ __device__ __forceinline__ void copy4(uint32_t dst, const void* src) {
                : "memory");
 }
 
-// The K-slices each tile of a band walks: from its tap table entry's lo
-// rounded down to 32 to its hi, 1 where the entry is empty.
-__device__ __forceinline__ int band_width(const int32_t* entry) {
-  const int lo = entry[0] & ~(kK - 1), hi = entry[1];
-  return hi > lo ? (hi - lo + kK - 1) / kK : 1;
-}
-
-// The resident walk's run of CTA c = blockIdx.x of G = gridDim.x: the
-// items [first, last) of the band-major order whose work starts in [c W /
-// G, (c + 1) W / G), an item of band b weighing its K-slices s_b
-// (band_width of tap table entry b, b = m * row_tiles + rt), W = per_band *
-// sum_b s_b: the first item of a run at work t is b * per_band + ceil((t -
-// per_band * S_b) / s_b) for the band b with per_band * S_b < t <=
-// per_band * S_(b+1), S_b = s_0 + ... + s_(b-1) (0 at t = 0).  So the
-// CTAs' runs take as many K-slices, give or take one item, where the
-// bands' widths differ (a run may be empty).  Each thread sums a chunk of
-// the bands; a block scan gives each chunk's S, and the chunk holding t
-// writes the bound to `scratch` (48 bytes of shared memory, free), which
-// every thread reads back.
-__device__ __forceinline__ void balanced_run(const Launch& g, int row_tiles,
-                                             int per_band, uint32_t scratch,
-                                             int& first, int& last) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int n_bands = g.P * row_tiles;
-  const int chunk = (n_bands + kThreads - 1) / kThreads;
-  const int b0 = min(tid * chunk, n_bands), b1 = min(b0 + chunk, n_bands);
-  int own = 0;
-  for (int b = b0; b < b1; ++b) own += band_width(g.taps + 2 * b);
-  int incl = own;  // the inclusive scan of the warp's chunks
-#pragma unroll
-  for (int d = 1; d < 32; d *= 2) {
-    const int v = __shfl_up_sync(0xffffffffu, incl, d);
-    if (lane >= d) incl += v;
-  }
-  if (lane == 31)
-    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + warp * 4),
-                 "r"(incl)
-                 : "memory");
-  __syncthreads();
-  int before = incl - own, total = 0;
-#pragma unroll
-  for (int w = 0; w < kThreads / 32; ++w) {
-    int t;
-    asm volatile("ld.shared.s32 %0, [%1];\n"
-                 : "=r"(t)
-                 : "r"(scratch + w * 4)
-                 : "memory");
-    before += w < warp ? t : 0;
-    total += t;
-  }
-  const long long work = (long long)per_band * total;
-  const int c = blockIdx.x, n_ctas = gridDim.x;
-#pragma unroll
-  for (int e = 0; e < 2; ++e) {
-    const long long t = (long long)(c + e) * work / n_ctas;
-    long long at = (long long)per_band * before;
-    if (t <= at || t > at + (long long)per_band * own) continue;
-    int b = b0, s = band_width(g.taps + 2 * b);
-    for (; t > at + (long long)per_band * s;
-         at += (long long)per_band * s, s = band_width(g.taps + 2 * ++b)) {
-    }
-    const int item = b * per_band + (int)((t - at + s - 1) / s);
-    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + 32 + e * 4),
-                 "r"(item)
-                 : "memory");
-  }
-  __syncthreads();
-  int bound[2];
-#pragma unroll
-  for (int e = 0; e < 2; ++e)
-    asm volatile("ld.shared.s32 %0, [%1];\n"
-                 : "=r"(bound[e])
-                 : "r"(scratch + 32 + e * 4)
-                 : "memory");
-  first = c == 0 ? 0 : bound[0];
-  last = bound[1];
-}
+// The resident walk's balanced runs (int8_wgmma.cuh, shared with K2b's).
+using int8tc::balanced_run;
 
 // A persistent CTA's output tiles, below n_items = n_kr * lane_tiles (G =
 // gridDim.x CTAs).  Each tile is fir_tile's, with the same sums and

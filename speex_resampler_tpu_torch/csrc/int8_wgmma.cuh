@@ -1,10 +1,11 @@
 // Scheme "int8" on Hopper's int8 tensor cores (sm_90a only): the device
-// functions of streamed_fir_int8_kernel<kD, kDigits> (fir_tile: one output
-// tile a CTA, the weights streamed with x; K2b) and of
-// tiled_fir_int8_kernel<kD, kVec> (fir_tile_resident: a row tile's digit
-// planes held in shared memory across the kGroup output tiles its CTA
-// walks; K1b).  A tiled step whose band does not fit launches fir_tile's
-// kernel.
+// functions of streamed_fir_int8_kernel<kD, kDigits> (K2b: fir_tiles,
+// persistent CTAs that hold each (phase, row tile) digit band in shared
+// memory and stage x alone, where the digits pair up and the band fits;
+// else fir_tile, one output tile a CTA, the weights streamed with x) and
+// of tiled_fir_int8_kernel<kD, kVec> (fir_tile_resident: a row tile's
+// digit planes held in shared memory across the kGroup output tiles its
+// CTA walks; K1b).  A tiled step whose band does not fit launches K2b.
 //
 // It computes _dot_int8 (fir_common.cuh header): for digit d = 0..D-1 in
 // order, I_d = sum_t w_d[t, r] * (x - 128) exactly (mod 2^32), then
@@ -66,11 +67,15 @@
 // 2-byte loads.  What bounds K2b: not the wgmma rate.  At 48 kHz -> 44.1
 // kHz q10 (B = 2048) the tiles walk 13.4 G multiply-adds, 2*D int8
 // products each (107 G at D = 4): 0.11 ms at the 1,979 TOP/s peak, against
-// ~180 MB of bytes, 0.055 ms.  Measured, the walk takes ~0.565 ms at N =
-// 32 and 64 alike (190 T int8 multiply-adds a second, below the 262 T of
-// two warpgroups an SM at N = 32 in the rate probe): the stage copies,
-// each lane tile's band streamed again, and one CTA an SM, whose pipeline
-// fill and epilogue nothing overlaps, hold it (PERF.md).
+// ~180 MB of bytes, 0.055 ms.  On fir_tile's walk (each tile's band staged
+// again with x, 1.39 GB a launch) the walk took ~0.565 ms at N = 32 and 64
+// alike: the stage copies held it.  fir_tiles (below) stages x alone and
+// loads each band once a run (0.50 GB): 0.385 against 0.639 ms a launch
+// in a CUDA graph, the walk alone 0.317 ms (0.375 us a walked K-slice a
+// CTA), the digit-split epilogue ~0.07 and the exposed band switches
+// ~0.01 (PERF.md section 6).  What holds it now: the x stages'
+// copies and ldmatrix beside the wgmmas, one CTA an SM, and the epilogue,
+// which nothing but the copies in flight overlaps.
 //
 // fir_tile_resident: the tiled geometry gives every block of one phase m
 // the same weights, so the n_blocks / P blocks x ceil(B / 64) lane tiles
@@ -140,6 +145,24 @@ __host__ __device__ constexpr bool digit_split(int digits) {
   return digits % 2 == 0;
 }
 
+// fir_tiles (the persistent walk of a digit split): x stages copied
+// kTileLead ahead across a CTA's tiles, in a ring of kTileLead + 2; the
+// digit exchange of store_tile_digits (t and the second warpgroup's
+// products of 16 registers a thread), a buffer of its own
+constexpr int kTileLead = 6;
+__host__ __device__ constexpr int exchange_bytes(int digits) {
+  return 16 * (1 + digits / 2) * 128 * 4;
+}
+// Dynamic shared memory of fir_tiles with kD digit planes whose widest
+// band spans `slices` K-slices: the x ring, the output tile, the
+// exchange, two slots of a row tile's biases and one band buffer (kD
+// planes' [64 rows x 32 taps] tiles a K-slice), alignment.
+template <int kD>
+__host__ __device__ constexpr int tiles_smem(int slices) {
+  return (kTileLead + 2) * kRawBytes + kOutBytes + exchange_bytes(kD) +
+         2 * kRowTile * 4 + kD * slices * kTileBytes + 128;
+}
+
 static_assert(kThreads == 256 && kRowTile == 2 * kN,
               "two warpgroups a CTA, 32 rows each in the row split");
 static_assert(kSub == 2, "a stage's slot is reused two stages after it");
@@ -149,6 +172,8 @@ static_assert(kRowTile * kRawPitch <= kStageBytes, "the output tile fits");
 static_assert(16 * (1 + kMaxDigits / 2) * 128 * 4 <= kStageBytes &&
                   kStages >= 2,
               "a second buffer holds the digit split's exchange");
+static_assert(kRawBytes % 128 == 0 && kOutBytes % 128 == 0,
+              "fir_tiles' buffers stay 128-byte aligned");
 
 // The byte offset of 16-byte chunk c (taps 16c .. 16c+15) of tile row n in
 // a K-slice's tile: 8-row x 16-byte core matrices, no swizzle.
@@ -354,10 +379,11 @@ __device__ __forceinline__ void store_tile(const Launch& g, int k, int rt,
   store_rows<kRows, kSharers>(g, k, rt, lane0, kCta ? 0 : r0, out);
 }
 
-// The digit-split epilogue of fir_tile's output tile (block k, row tile rt
-// of phase m, kLanes lanes from lane0), each warpgroup holding all 64 rows
-// of its kD / 2 digits (m64n64k32 accumulators: the same (lane, row) in
-// the same register of both).  The f32 steps are store_tile's, in digit
+// The digit-split epilogue of an output tile (block k, row tile rt, kLanes
+// lanes from lane0; its 64 biases at bias_m, in global or shared memory) of
+// fir_tile or fir_tiles, each warpgroup holding all 64 rows of its kD / 2
+// digits (m64n64k32 accumulators: the same (lane, row) in the same register
+// of both).  The f32 steps are store_tile's, in digit
 // order: warpgroup 0 forms t = (0 + I_0 s_0) + I_1 s_1 (for kD = 4) of each
 // output, warpgroup 1 its products I_2 s_2, I_3 s_3.  Each finishes half
 // the outputs, t + I_2 s_2 + I_3 s_3 in that order, the bias, WORD2INT:
@@ -367,12 +393,14 @@ __device__ __forceinline__ void store_tile(const Launch& g, int k, int rt,
 // barrier.  The biases of a thread's 8 rows are loaded first and the
 // exchanged terms all at once, so no load waits inside the finishing
 // loop.  The int16 tile goes through `out` to 16-byte row stores.  `part`
-// and `out` are ring buffers that no copy in flight writes.
-template <int kD>
+// and `out` are buffers that no copy in flight writes.  `freed()` runs,
+// every thread, once every wgmma of the CTA has retired (the first
+// barrier): the shared memory they read is free from then on.
+template <int kD, class Freed>
 __device__ __forceinline__ void store_tile_digits(
-    const Launch& g, int k, int rt, int m, int lane0, int (&acc)[kD][32],
-    const float* __restrict__ bias, float4 scales, uint32_t part,
-    uint32_t out) {
+    const Launch& g, int k, int rt, int lane0, int (&acc)[kD][32],
+    const float* bias_m, float4 scales, uint32_t part, uint32_t out,
+    Freed freed) {
   constexpr int kWgD = kD / 2;              // digits a warpgroup
   constexpr int kFin = 16;                  // registers a warpgroup finishes
   const int tid = threadIdx.x, h = tid / 128, wt = tid % 128;
@@ -387,7 +415,6 @@ __device__ __forceinline__ void store_tile_digits(
   // 8*((i/2)%2), row 8*(i/4) + 2*(l%4) + i%2 (store_tile's, r0 = 0); the
   // finished registers fin0 + i, i < kFin, take bias b[(i/4)*2 + i%2].
   const int fin0 = h == 0 ? kFin : 0;
-  const float* bias_m = bias + (size_t)m * g.R + rt * kRowTile;
   float b[kFin / 2];
 #pragma unroll
   for (int q = 0; q < kFin / 2; ++q)
@@ -396,6 +423,7 @@ __device__ __forceinline__ void store_tile_digits(
 #pragma unroll
   for (int j = 0; j < kD; ++j) pin(acc[j]);
   __syncthreads();  // every wgmma's stage read: part and out are free
+  freed();
 
   // I s of this warpgroup's digit d (the kernel's digit d + kWgD * h) in
   // accumulator register i
@@ -583,8 +611,9 @@ __device__ __forceinline__ void fir_tile(const Launch& g, const Tile& c,
   // the first ring buffer takes the output tile, the second the partial
   // sums: no copy is in flight
   if constexpr (kDigits)
-    store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, bias, scales,
-                          stage_at(1), ring);
+    store_tile_digits<kD>(g, c.k, c.rt, c.lane0, acc,
+                          bias + (size_t)c.m * g.R + c.rt * kRowTile, scales,
+                          stage_at(1), ring, [] {});
   else
     store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, acc, bias,
                              0, scales, ring);
@@ -758,9 +787,310 @@ __device__ __forceinline__ void fir_tile_resident(
   }
 }
 
+// The K-slices each tile of a band walks: from its tap table entry's lo
+// rounded down to 32 to its hi, 1 where the entry is empty.
+__device__ __forceinline__ int band_width(const int32_t* entry) {
+  const int lo = entry[0] & ~(kK - 1), hi = entry[1];
+  return hi > lo ? (hi - lo + kK - 1) / kK : 1;
+}
+
+// A resident walk's run (fir_tiles here, fixedtc::fir_tiles) of CTA c =
+// blockIdx.x of G = gridDim.x: the
+// items [first, last) of the band-major order whose work starts in [c W /
+// G, (c + 1) W / G), an item of band b weighing its K-slices s_b
+// (band_width of tap table entry b, b = m * row_tiles + rt), W = per_band *
+// sum_b s_b: the first item of a run at work t is b * per_band + ceil((t -
+// per_band * S_b) / s_b) for the band b with per_band * S_b < t <=
+// per_band * S_(b+1), S_b = s_0 + ... + s_(b-1) (0 at t = 0).  So the
+// CTAs' runs take as many K-slices, give or take one item, where the
+// bands' widths differ (a run may be empty).  Each thread sums a chunk of
+// the bands; a block scan gives each chunk's S, and the chunk holding t
+// writes the bound to `scratch` (48 bytes of shared memory, free), which
+// every thread reads back.
+__device__ __forceinline__ void balanced_run(const Launch& g, int row_tiles,
+                                             int per_band, uint32_t scratch,
+                                             int& first, int& last) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int n_bands = g.P * row_tiles;
+  const int chunk = (n_bands + kThreads - 1) / kThreads;
+  const int b0 = min(tid * chunk, n_bands), b1 = min(b0 + chunk, n_bands);
+  int own = 0;
+  for (int b = b0; b < b1; ++b) own += band_width(g.taps + 2 * b);
+  int incl = own;  // the inclusive scan of the warp's chunks
+#pragma unroll
+  for (int d = 1; d < 32; d *= 2) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, d);
+    if (lane >= d) incl += v;
+  }
+  if (lane == 31)
+    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + warp * 4),
+                 "r"(incl)
+                 : "memory");
+  __syncthreads();
+  int before = incl - own, total = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    int t;
+    asm volatile("ld.shared.s32 %0, [%1];\n"
+                 : "=r"(t)
+                 : "r"(scratch + w * 4)
+                 : "memory");
+    before += w < warp ? t : 0;
+    total += t;
+  }
+  const long long work = (long long)per_band * total;
+  const int c = blockIdx.x, n_ctas = gridDim.x;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const long long t = (long long)(c + e) * work / n_ctas;
+    long long at = (long long)per_band * before;
+    if (t <= at || t > at + (long long)per_band * own) continue;
+    int b = b0, s = band_width(g.taps + 2 * b);
+    for (; t > at + (long long)per_band * s;
+         at += (long long)per_band * s, s = band_width(g.taps + 2 * ++b)) {
+    }
+    const int item = b * per_band + (int)((t - at + s - 1) / s);
+    asm volatile("st.shared.s32 [%0], %1;\n" ::"r"(scratch + 32 + e * 4),
+                 "r"(item)
+                 : "memory");
+  }
+  __syncthreads();
+  int bound[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+    asm volatile("ld.shared.s32 %0, [%1];\n"
+                 : "=r"(bound[e])
+                 : "r"(scratch + 32 + e * 4)
+                 : "memory");
+  first = c == 0 ? 0 : bound[0];
+  last = bound[1];
+}
+
+// The persistent walk of a digit split (kD even; K2b's where the launch
+// takes it, streamed_fir.cu): output tiles (block k, row tile rt, lane tile
+// lt of kLanes lanes), n_items = n_kr * lane_tiles of them, in band-major
+// order: band (m, rt) = (phase, row tile) the slowest, then the n_blocks /
+// P blocks k = m + P * j, then the lane tiles (item i: band b = i /
+// per_band, m = b / row tiles, rt = b % row tiles, j = i % per_band /
+// lane_tiles, lt = i % lane_tiles; per_band = n_blocks / P * lane_tiles).
+// CTA c walks a contiguous run of them, balanced by K-slices
+// (balanced_run), min(tiles, SMs) CTAs.  Each tile is fir_tile's: the same
+// wgmmas, the same exact int32 sums over its band (K-slices from t_lo
+// rounded down to 32 until t_hi is covered; one K-slice of zero weights
+// where the entry is empty, whose sums are exact zeros, as fir_tile's
+// unwalked ones), the same digit-split epilogue (store_tile_digits), so
+// the outputs are fir_tile's bit for bit.
+//
+// The band is resident: the CTA holds its band's kD digit planes (digit
+// d's [64 rows x 32 taps] tile of K-slice i at (d * slices + i) *
+// kTileBytes, in the layout the descriptor reads) and the row tile's 64
+// biases in shared memory, and its stages hold x alone.  One band buffer
+// (at q10, D = 4, a 12-slice band is 96 KB: two would not fit beside the
+// ring): the walk loads the next band where its run enters it, once the
+// last tile of the band before has retired its wgmmas (store_tile_digits'
+// freed(), after its first barrier), so the copy runs behind that tile's
+// epilogue; the biases alternate between two slots, as that epilogue still
+// reads the old ones.  The next tile's first stage then waits for every
+// copy (cp.async.wait_all): the switch is exposed but for the epilogue,
+// ~2.7 % of the launch at q10.  Refilling the buffer K-slice by K-slice
+// behind the last tile's walk instead ran ~4 % slower (its branch in the
+// walk's loop cost more than the copies it hid; PERF.md).
+// The copy cursor (the tile and stage the next copy_next takes) runs
+// kTileLead stages ahead of the walk and on into the next tiles, one group
+// a stage, into a ring of kTileLead + 2 x stages: the buffer of stage q +
+// kTileLead is stage q - 2's, whose last ldmatrix ended before stage q -
+// 1's barrier.  x rows of a K-slice past the band are not copied.  The
+// output tile and the exchange have buffers of their own, so the copies
+// in flight go on through the epilogue.  Launch with kThreads threads and
+// tiles_smem<kD>(band_cap) bytes of dynamic shared memory, band_cap the
+// widest band's K-slices (a wider band traps); K % 32 == 0 and the planes
+// 16-byte aligned.
+template <int kD>
+__device__ __forceinline__ void fir_tiles(const Launch& g, Origin o, int n_kr,
+                                          int lane_tiles, int band_cap,
+                                          const int8_t* __restrict__ planes,
+                                          const float* __restrict__ bias,
+                                          float4 scales) {
+  static_assert(digit_split(kD) && kD <= kMaxDigits, "the digits pair up");
+  constexpr int kWgD = kD / 2;                // digits a warpgroup
+  constexpr int kXStages = kTileLead + 2;
+  extern __shared__ uint8_t int8_smem[];
+  const uint32_t base = smem_addr(int8_smem);
+  const uint32_t ring = (base + 127) & ~127u;
+  const uint32_t out = ring + kXStages * kRawBytes;
+  const uint32_t part = out + kOutBytes;
+  const uint32_t heads = part + exchange_bytes(kD);   // two bias slots
+  const uint32_t band = heads + 2 * kRowTile * 4;
+  const int tid = threadIdx.x, h = tid / 128;
+  const int w = (tid % 128) / 32, l = tid % 32;
+  const int row_tiles = g.R / kRowTile;
+  const int per_band = n_kr / row_tiles / g.P * lane_tiles;
+  // this CTA's items [first, last) (the output tile's buffer is free for
+  // balanced_run's scratch)
+  int first, last;
+  balanced_run(g, row_tiles, per_band, out, first, last);
+  const bool vec = g.B % 8 == 0 &&
+                   (reinterpret_cast<uintptr_t>(g.hist) |
+                    reinterpret_cast<uintptr_t>(g.x)) % 16 == 0;
+  // This thread's ldmatrix row (load_split).
+  const uint32_t frag = (8 * (l / 16) + l % 8) * kRawPitch +
+                        (16 * w + 8 * ((l / 8) % 2)) * 2;
+
+  // item -> (block k, row tile rt, lane tile lt)
+  auto decode = [&](int item, int& k, int& rt, int& lt) {
+    const int b = item / per_band, r = item - b * per_band;
+    const int m = b / row_tiles, j = r / lane_tiles;
+    rt = b - m * row_tiles;
+    lt = r - j * lane_tiles;
+    k = m + g.P * j;
+  };
+  // Band b's biases into slot `slot` and its K-slices of the kD planes
+  // into the band buffer, one cp.async group (copy e takes 16-byte chunk
+  // cc of band row n's slices in plane d: neighbouring threads,
+  // neighbouring chunks); returns its K-slices.
+  auto load_band = [&](int b, int slot) {
+    const int m = b / row_tiles, rt = b - m * row_tiles;
+    const int t0 = g.taps[2 * b] & ~(kK - 1), hi = g.taps[2 * b + 1];
+    const int slices = hi > t0 ? (hi - t0 + kK - 1) / kK : 1;
+    if (slices > band_cap) __trap();
+    if (tid < kRowTile / 4)
+      copy16(heads + slot * kRowTile * 4 + tid * 16,
+             bias + (size_t)m * g.R + rt * kRowTile + tid * 4, 16);
+    constexpr int kHalves = kK / 16;        // 16-byte chunks a K-slice row
+    const int per_row = kHalves * slices;
+    const size_t plane = (size_t)g.P * g.R * g.K;
+    const int8_t* src = planes + ((size_t)m * g.R + rt * kRowTile) * g.K;
+    for (int e = tid; e < kD * kRowTile * per_row; e += kThreads) {
+      const int cc = e % per_row, n = e / per_row % kRowTile;
+      const int d = e / (per_row * kRowTile);
+      const int t = t0 + cc * 16;
+      const int bytes = min(max(g.K - t, 0), 16);
+      copy16(band + (d * slices + cc / kHalves) * kTileBytes +
+                 core_offset(n, cc % kHalves),
+             bytes ? src + d * plane + (size_t)n * g.K + t : planes, bytes);
+    }
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+    return slices;
+  };
+
+  // The copy cursor: tile c_item, stage c_s of its c_n, its band c_slices
+  // K-slices from virtual row c_v, its lanes from c_lane0; ring stage c_q.
+  int c_item = first, c_s = 0, c_n = 0, c_slices = 0, c_v = 0, c_lane0 = 0;
+  int c_q = 0;
+  // the cursor's stage into ring buffer c_q % kXStages: one cp.async
+  // group, empty past the CTA's last tile
+  auto copy_next = [&]() {
+    if (c_item < last) {
+      if (c_s == 0) {  // enters tile c_item
+        int k, rt, lt;
+        decode(c_item, k, rt, lt);
+        const int32_t* e = g.taps + ((k % g.P) * row_tiles + rt) * 2;
+        const int t0 = e[0] & ~(kK - 1), hi = e[1];
+        c_slices = hi > t0 ? (hi - t0 + kK - 1) / kK : 1;
+        c_n = (c_slices + kSub - 1) / kSub;
+        c_v = origin(g, o, k) + t0;
+        c_lane0 = lt * kLanes;
+      }
+      const uint32_t buf = ring + (c_q % kXStages) * kRawBytes;
+      // the stage's taps inside the band
+      const int taps = c_slices * kK - c_s * kStageTaps;
+#pragma unroll
+      for (int r = 0; r < kStageTaps * kLanes / 8 / kThreads; ++r) {
+        const int i = tid + r * kThreads, tap = i / (kLanes / 8);
+        const int lane = (i % (kLanes / 8)) * 8;
+        if (tap < taps)
+          copy_x8(g, c_v + c_s * kStageTaps + tap, c_lane0 + lane, vec,
+                  buf + tap * kRawPitch + lane * 2, planes);
+      }
+      if (++c_s == c_n) {
+        ++c_item;
+        c_s = 0;
+      }
+    }
+    ++c_q;
+    asm volatile("cp.async.commit_group;\n" ::: "memory");
+  };
+  // this thread's copies of the next stage have landed; then every
+  // thread's, visible to the tensor cores and to ldmatrix
+  auto stage_ready = [&]() {
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kTileLead - 1) : "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    __syncthreads();
+  };
+
+  int acc[kD][32];
+#pragma unroll
+  for (int j = 0; j < kD; ++j)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[j][i] = 0;
+  // the first band (the walk's band b_cur, its K-slices, its bias slot),
+  // then the first stages
+  int b_cur = first / per_band, slot = 0;
+  int slices = first < last ? load_band(b_cur, slot) : 0;
+#pragma unroll 1
+  for (int s = 0; s < kTileLead; ++s) copy_next();
+  stage_ready();
+  uint32_t xh[2][4], xl[2][4];
+  int q = 0;  // the walk's stage
+#pragma unroll 1
+  for (int item = first; item < last; ++item) {
+    int k, rt, lt;
+    decode(item, k, rt, lt);
+    const int n_stages = (slices + kSub - 1) / kSub;
+    // this warpgroup's digits' tiles of the band's first K-slice
+    const uint32_t wband = band + h * kWgD * slices * kTileBytes;
+#pragma unroll 1
+    for (int s = 0; s < n_stages; ++s, ++q) {
+      const uint32_t buf = ring + (q % kXStages) * kRawBytes;
+#pragma unroll
+      for (int j = 0; j < kSub; ++j) {
+        const int slice = s * kSub + j;
+        // the last stage stops at the band's end (uniform over the CTA)
+        if (j > 0 && slice >= slices) break;
+        asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+        pin(xh[j]);
+        pin(xl[j]);
+        load_split(buf + j * kK * kRawPitch + frag, xh[j], xl[j]);
+        asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+        for (int d = 0; d < kWgD; ++d) {
+          const uint64_t b =
+              descriptor(wband + (d * slices + slice) * kTileBytes);
+          mma(acc[2 * d], xh[j], b, slice > 0);
+          mma(acc[2 * d + 1], xl[j], b, slice > 0);
+        }
+        asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+        // later stages' copies, the next tiles' too, run while this
+        // stage's wgmmas do
+        if (j == 0) copy_next();
+      }
+      stage_ready();
+    }
+    // the run's next tile in another band: its band is loaded once this
+    // tile's wgmmas have read the old one, behind the epilogue
+    const bool enters = item + 1 < last && (item + 1) / per_band != b_cur;
+    const float* bias_m = reinterpret_cast<const float*>(
+        int8_smem + (heads + slot * kRowTile * 4 - base));
+    store_tile_digits<kD>(g, k, rt, lt * kLanes, acc, bias_m, scales, part,
+                          out, [&] {
+                            if (enters) {
+                              slot ^= 1;
+                              slices = load_band(++b_cur, slot);
+                            }
+                          });
+    if (enters) {
+      asm volatile("cp.async.wait_all;\n" ::: "memory");
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      __syncthreads();
+    }
+  }
+  // no copy group may be in flight when the CTA exits
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Lets an int8 kernel take `bytes` of dynamic shared memory (fir_tile's
 // kSmemBytes by default; a resident kernel's launches differ by band, so
-// it takes kMaxSmem).
+// it takes kMaxSmem, as does K2b's where fir_tiles serves it).
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel* kernel, int bytes = kSmemBytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -1,8 +1,8 @@
 // The resident fixed walk's witness: the served persistent walk
 // (fixed_wgmma.cuh's fir_tiles<4, false, true>, K1e's and K2d's where
 // their bands fit) built with a witness that records what each CTA did,
-// so tests hold the host's model of the walk (streamed_fir.fixed_runs and
-// fixed_bands, which the counter speex.kernel.fixed.bands reads) against
+// so tests hold the host's model of the walk (streamed_fir.resident_runs and
+// resident_bands, which the counter speex.kernel.fixed.bands reads) against
 // the kernel itself.  CTA c writes record[3c .. 3c + 2] = (first, last,
 // band loads): the run of band-major items balanced_run gave it and the
 // bands it entered and copied into a band buffer.  The witness only

@@ -64,7 +64,14 @@
 // walk takes as long; the digit split's epilogue is the cheaper (PERF.md).
 // Its planes are K-major, int8[D, P, R, K_pad], each 32-tap group permuted
 // to the fragment's tap order (JAX streams [P, D, R, K_pad]); its lane
-// tile is int8tc::kLanes.  A tiled int8 step whose band does not fit the
+// tile is int8tc::kLanes.  Where the digits pair up, the launch's widest
+// (phase, row tile) band fits one band buffer beside the x ring and at
+// least int8tc::kTileLead tiles share a band (int8_band_tiles), its CTAs
+// are persistent (int8tc::fir_tiles): min(tiles, SMs) of them, each a
+// K-slice-balanced run of tiles in band-major order, each band resident
+// and x alone staged (q10, D = 4, B = 2048: 0.385 against 0.639 ms
+// a launch in a CUDA graph; PERF.md); else a CTA takes one tile, its
+// weights staged with x.  A tiled int8 step whose band does not fit the
 // resident kernel's shared memory launches it on the same planes.
 //
 // Scheme "fixed" (K2d, and K1e / K1d at n_accum 4 / 1; the fixed branches
@@ -165,16 +172,26 @@ streamed_fir_f32_kernel(fir::Launch g, Origin o, const float* __restrict__ w) {
                      origin(g, o, k), g.R, w);
 }
 
-// CTA (block k, row tile, lane tile) of int8tc::kLanes lanes; kD digit
-// planes, split between the warpgroups by digit (kDigits:
-// int8tc::digit_split) or by row.
+// Output tiles (block k, row tile, lane tile of int8tc::kLanes lanes) of
+// n_kr (block, row tile) pairs; kD digit planes, split between the
+// warpgroups by digit (kDigits: int8tc::digit_split) or by row.  With
+// band_cap > 0 (a digit split only) persistent CTAs walk contiguous runs
+// of them in band-major order, each band resident (int8tc::fir_tiles),
+// else a CTA takes one (Cta).
 template <int kD, bool kDigits, bool kBlockMajor>
 __global__ void __launch_bounds__(kThreads, 1)
-streamed_fir_int8_kernel(fir::Launch g, Origin o,
+streamed_fir_int8_kernel(fir::Launch g, Origin o, int n_kr, int band_cap,
                          const int8_t* __restrict__ planes,
                          const float* __restrict__ bias, float4 scales) {
-  const Cta<kBlockMajor> c((g.B + fir::int8tc::kLanes - 1) /
-                           fir::int8tc::kLanes);
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  if constexpr (kDigits) {
+    if (band_cap > 0) {
+      fir::int8tc::fir_tiles<kD>(g, o, n_kr, lane_tiles, band_cap, planes,
+                                 bias, scales);
+      return;
+    }
+  }
+  const Cta<kBlockMajor> c(lane_tiles);
   const int row_tiles = g.R / kRowTile;
   const int k = c.kr / row_tiles;
   fir::int8tc::fir_tile<kD, kDigits>(
@@ -184,26 +201,79 @@ streamed_fir_int8_kernel(fir::Launch g, Origin o,
       planes, bias, scales);
 }
 
-// Launches the kD-plane int8 kernel (its shared memory set once a device).
+// The device's SM count, read once a device (set_once's way: at the first
+// launch there, so a CUDA graph captured after a warm-up launch holds no
+// attribute call).
+cudaError_t sm_count(int* n) {
+  static std::atomic<int> counts[32];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  *n = counts[dev & 31].load();
+  if (*n > 0) return cudaSuccess;
+  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) counts[dev & 31].store(*n);
+  return err;
+}
+
+// The tiles that share a (phase, row tile) band, n_blocks / P x lane
+// tiles, where the kD-plane int8 launch's persistent CTAs hold each band
+// resident (int8tc::fir_tiles), else 0 (a CTA a tile, its band streamed
+// with x): where the digits pair up, the launch's widest band, `slices`
+// K-slices (the widest of tiled_fir.band_widths of its tap table, carried
+// in the int8 weights), fits one band buffer beside the x ring and at
+// least the ring's lead of tiles share a band.
+template <int kD>
+int int8_band_tiles(int slices, int n_blocks, int P, int B) {
+  const int per_band =
+      n_blocks / P * ((B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes);
+  return fir::int8tc::digit_split(kD) && per_band >= fir::int8tc::kTileLead &&
+                 fir::int8tc::tiles_smem<kD>(slices) <= fir::int8tc::kMaxSmem
+             ? per_band
+             : 0;
+}
+
+// Launches the kD-plane int8 kernel (its shared memory set once a device)
+// and sets *band_tiles to int8_band_tiles and *ctas to the CTAs launched:
+// where *band_tiles is not 0, min(tiles, SMs) persistent CTAs on a 1-D
+// grid, each band resident; else one a tile in the order launch_ordered's
+// rule picks.
 template <int kD>
 cudaError_t launch_int8(const fir::Launch& g, Origin o, const int8_t* planes,
                         const float* bias, float4 scales, int n_blocks,
-                        cudaStream_t stream) {
+                        int slices, cudaStream_t stream, int* ctas,
+                        int* band_tiles) {
   constexpr bool kDigits = fir::int8tc::digit_split(kD);
   static decltype(&streamed_fir_int8_kernel<kD, kDigits, false>) const
       kernels[2] = {streamed_fir_int8_kernel<kD, kDigits, false>,
                     streamed_fir_int8_kernel<kD, kDigits, true>};
+  // the persistent walk's launches differ by band, so it takes a CTA's most
+  constexpr int kSmemMax =
+      kDigits ? fir::int8tc::kMaxSmem : fir::int8tc::kSmemBytes;
   static std::atomic<unsigned> smem_set{0};
   const cudaError_t attr = fir::set_once(smem_set, [] {
-    const cudaError_t e = fir::int8tc::allow_smem(kernels[0]);
-    return e != cudaSuccess ? e : fir::int8tc::allow_smem(kernels[1]);
+    const cudaError_t e = fir::int8tc::allow_smem(kernels[0], kSmemMax);
+    return e != cudaSuccess ? e : fir::int8tc::allow_smem(kernels[1], kSmemMax);
   });
   if (attr != cudaSuccess) return attr;
-  return launch_ordered(
-      kernels, n_blocks * (g.R / kRowTile),
-      (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes,
-      (long long)kD * g.P * g.R * g.K, kThreads, fir::int8tc::kSmemBytes,
-      stream, g, o, planes, bias, scales);
+  const int n_kr = n_blocks * (g.R / kRowTile);
+  const int lane_tiles = (g.B + fir::int8tc::kLanes - 1) / fir::int8tc::kLanes;
+  const long long weight_bytes = (long long)kD * g.P * g.R * g.K;
+  *band_tiles = int8_band_tiles<kD>(slices, n_blocks, g.P, g.B);
+  if (*band_tiles > 0) {
+    int sms = 0;
+    const cudaError_t err = sm_count(&sms);
+    if (err != cudaSuccess) return err;
+    *ctas = std::min(n_kr * lane_tiles, sms);
+    kernels[weight_bytes <= kBlockMajorBytes]<<<
+        *ctas, kThreads, fir::int8tc::tiles_smem<kD>(slices), stream>>>(
+        g, o, n_kr, slices, planes, bias, scales);
+    return cudaGetLastError();
+  }
+  *ctas = n_kr * lane_tiles;
+  return launch_ordered(kernels, n_kr, lane_tiles, weight_bytes, kThreads,
+                        fir::int8tc::kSmemBytes, stream, g, o, n_kr, 0,
+                        planes, bias, scales);
 }
 
 // Output tiles (block k, row tile of fixedtc::Shape<kAccum>::kRows rows,
@@ -238,21 +308,6 @@ streamed_fir_fixed_kernel(fir::Launch g, Origin o, int n_kr, int band_cap,
                   fir::int8tc::kLanes, Shape::kRows),
         planes, bias, coef);
   }
-}
-
-// The device's SM count, read once a device (set_once's way: at the first
-// launch there, so a CUDA graph captured after a warm-up launch holds no
-// attribute call).
-cudaError_t sm_count(int* n) {
-  static std::atomic<int> counts[32];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  *n = counts[dev & 31].load();
-  if (*n > 0) return cudaSuccess;
-  err = cudaDeviceGetAttribute(n, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess) counts[dev & 31].store(*n);
-  return err;
 }
 
 // The tiles that share a (phase, row tile) band, n_blocks / P x lane
@@ -363,6 +418,15 @@ int fixed_fir_band_tiles(int n_accum, int slices, int n_blocks, int P,
   return n_accum == 4 ? resident_band_tiles<4>(slices, n_blocks, P, B)
                       : resident_band_tiles<1>(slices, n_blocks, P, B);
 }
+// The tiles that share a band where a D-plane int8 launch (its widest
+// band's K-slices, n_blocks, P, B) holds its bands resident, else 0.
+int int8_fir_band_tiles(int D, int slices, int n_blocks, int P, int B) {
+  return D == 4   ? int8_band_tiles<4>(slices, n_blocks, P, B)
+         : D == 3 ? int8_band_tiles<3>(slices, n_blocks, P, B)
+         : D == 2 ? int8_band_tiles<2>(slices, n_blocks, P, B)
+         : D == 1 ? int8_band_tiles<1>(slices, n_blocks, P, B)
+                  : 0;
+}
 
 const char* streamed_fir_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
@@ -417,16 +481,26 @@ int streamed_fir_split5(const void* hist, const void* x, void* y,
       static_cast<const __nv_bfloat16*>(planes)));
 }
 
-// planes int8[D, P, R, K] (K % 16 == 0, each 32-tap group permuted:
-// int8_wgmma.cuh), 16-byte aligned; bias f32[P, R]; 1 <= D <= 4.
+// planes int8[D, P, R, K] (K % 32 == 0, each 32-tap group permuted:
+// int8_wgmma.cuh), 16-byte aligned; bias f32[P, R]; 1 <= D <= 4; taps
+// int32[P, R / 64, 2]; slices: the most 32-tap K-slices a row tile's band
+// spans in taps (1 <= slices <= K / 32; a band wider than it traps in the
+// resident walk).  *ctas: the CTAs launched (0 where none was);
+// *band_tiles: the tiles that share a band where the persistent CTAs hold
+// bands resident, else 0.
 int streamed_fir_int8(const void* hist, const void* x, void* y,
                       const void* taps, const void* planes, const void* bias,
-                      int D, float s0, float s1, float s2, float s3, int H,
-                      int T, int B, int R, int K, int P, int n_blocks,
-                      int shift, int num, int den, int f0, void* stream) {
+                      int D, float s0, float s1, float s2, float s3,
+                      int slices, int H, int T, int B, int R, int K, int P,
+                      int n_blocks, int shift, int num, int den, int f0,
+                      void* stream, int* ctas, int* band_tiles) {
   cudaGetLastError();
-  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 16)
+  *ctas = 0;
+  *band_tiles = 0;
+  if (reinterpret_cast<uintptr_t>(planes) % 16 || K % 32)
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (slices < 1 || slices > K / 32)
+    return static_cast<int>(cudaErrorInvalidValue);
   const fir::Launch g = fir::make_launch(hist, x, y, taps, H, T, B, R, K, P);
   const Origin o = fir::make_origin(shift, num, den, f0);
   const auto* p8 = static_cast<const int8_t*>(planes);
@@ -434,10 +508,19 @@ int streamed_fir_int8(const void* hist, const void* x, void* y,
   const float4 s = make_float4(s0, s1, s2, s3);
   const auto st = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaErrorInvalidValue;
-  if (D == 4) err = launch_int8<4>(g, o, p8, b32, s, n_blocks, st);
-  if (D == 3) err = launch_int8<3>(g, o, p8, b32, s, n_blocks, st);
-  if (D == 2) err = launch_int8<2>(g, o, p8, b32, s, n_blocks, st);
-  if (D == 1) err = launch_int8<1>(g, o, p8, b32, s, n_blocks, st);
+  if (D == 4)
+    err = launch_int8<4>(g, o, p8, b32, s, n_blocks, slices, st, ctas,
+                         band_tiles);
+  if (D == 3)
+    err = launch_int8<3>(g, o, p8, b32, s, n_blocks, slices, st, ctas,
+                         band_tiles);
+  if (D == 2)
+    err = launch_int8<2>(g, o, p8, b32, s, n_blocks, slices, st, ctas,
+                         band_tiles);
+  if (D == 1)
+    err = launch_int8<1>(g, o, p8, b32, s, n_blocks, slices, st, ctas,
+                         band_tiles);
+  if (err != cudaSuccess) *ctas = *band_tiles = 0;
   return static_cast<int>(err);
 }
 

@@ -53,9 +53,11 @@ _SIGNATURES = {
     "f32_fir_sub_rows": (_I, []),
     "fixed_fir_rows": (_I, [_I]),
     "fixed_fir_band_tiles": (_I, [_I] * 5),
+    "int8_fir_band_tiles": (_I, [_I] * 5),
     "streamed_fir_error_string": (ctypes.c_char_p, [_I]),
     "streamed_fir_f32": (_I, [_P] * 5 + [_I] * 11 + [_P]),
-    "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 11 + [_P]),
+    "streamed_fir_int8": (_I, [_P] * 6 + [_I] + [_F] * 4 + [_I] * 12 + [_P]
+                          + [ctypes.POINTER(_I)] * 2),
     "streamed_fir_fixed": (_I, [_P] * 7 + [_I] * 13 + [_P]
                            + [ctypes.POINTER(_I)] * 2),
     "streamed_fir_split5": (_I, [_P] * 5 + [_I] * 11 + [_P]),

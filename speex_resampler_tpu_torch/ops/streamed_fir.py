@@ -26,12 +26,14 @@ Device weights are ``tiled_fir.device_weights``'s
 K is the phase-tiled weights' own (the int8 and fixed planes padded to a
 multiple of 32), a streamed step's ``K_pad``, a multiple of 128, as the
 JAX package pads them.  A tiled "int8" step whose widest band fits the
-resident kernel's shared memory keeps ``(planes, bias, slices, taps)``
-and launches it (``csrc/tiled_fir.cu``, ``tiled_fir_int8_kernel``: a row
-tile's digit band held across the output tiles that share it); every
-other int8 step keeps ``(planes, bias, taps)`` and launches the streamed
-kernel (:func:`int8_launch_weights` makes that choice once, when the step
-is built).
+resident kernel's shared memory keeps ``(planes, bias, slices, taps)``,
+``slices`` an int, and launches it (``csrc/tiled_fir.cu``,
+``tiled_fir_int8_kernel``: a row tile's digit band held across the output
+tiles that share it); every other int8 step carries ``(planes, bias,
+bands, taps)``, ``bands`` the ``tiled_fir.BandWidths`` of its tap table,
+and launches the streamed kernel (:func:`int8_launch_weights` makes that
+choice once, when the step is built; the type of the third entry tells
+the two apart).
 
 The JAX package streams ``[P, R, K_pad]`` (``[P, D, R, K_pad]`` planes;
 fixed: int8 ``[P, 2, C, K_pad]`` planes and an int32 bias; split5: bf16
@@ -72,37 +74,54 @@ launches = {"highest": 0, "int8": 0, "int8_resident": 0, "fixed": 0,
 #: the CTAs they launched (persistent CTAs walk many output tiles each),
 #: their output tiles (block, row tile, 64-lane tile) and the band loads
 #: of the persistent CTAs that hold each (phase, row tile) weight band
-#: resident (:func:`fixed_bands`; 0 for a launch on the streamed walk):
+#: resident (:func:`resident_bands`; 0 for a launch on the streamed walk):
 #: tiles over CTAs is the tiles a CTA walked, tiles over bands the tiles
 #: a band load served
 FIXED_LAUNCHES = "speex.kernel.fixed.launches"
 FIXED_CTAS = "speex.kernel.fixed.ctas"
 FIXED_TILES = "speex.kernel.fixed.tiles"
 FIXED_BANDS = "speex.kernel.fixed.bands"
-#: lanes of a fixed output tile (``csrc/int8_wgmma.cuh``'s kLanes)
-FIXED_LANES = 64
+#: lanes of a fixed or int8 output tile (``csrc/int8_wgmma.cuh``'s kLanes)
+TILE_LANES = 64
+#: the port's counters of the streamed int8 kernel's launches (K2b, both
+#: geometries; not the tiled resident kernel's), as the fixed ones: its
+#: CTAs, its output tiles (block, 64-row tile, 64-lane tile) and the band
+#: loads of the persistent CTAs that hold each band resident (0 where a
+#: CTA takes one tile, its band streamed with x)
+INT8_LAUNCHES = "speex.kernel.int8.launches"
+INT8_CTAS = "speex.kernel.int8.ctas"
+INT8_TILES = "speex.kernel.int8.tiles"
+INT8_BANDS = "speex.kernel.int8.bands"
 
 
 def device_weights_streamed(w, scheme: str, device, *,
                             k_major: bool = False) -> tuple:
     """Host weights -> a streamed step's device weights: the tiled
     conversion (``tiled_fir.device_weights``, ``k_major`` as there),
-    applied to the K_pad-padded set, the "int8" tuple without its slice
-    count."""
+    applied to the K_pad-padded set, the "int8" tuple the streamed
+    kernel's (:func:`_streamed_int8`)."""
     w = tf.device_weights(w, scheme, device, k_major=k_major)
-    return w[:2] + w[3:] if scheme == "int8" else w
+    return _streamed_int8(w) if scheme == "int8" else w
+
+
+def _streamed_int8(w: tuple) -> tuple:
+    """The int8 device weights ``(planes, bias, slices, taps)`` -> the
+    streamed kernel's ``(planes, bias, bands, taps)``: the slice count
+    replaced by the tap table's ``tiled_fir.BandWidths``, from which the
+    kernel's CTAs hold each band resident and balance their runs."""
+    return (w[0], w[1], tf.band_widths(w[3].cpu().numpy()), w[3])
 
 
 def int8_launch_weights(w: tuple) -> tuple:
     """A tiled step's int8 device weights ``(planes, bias, slices, taps)``
     as it launches them: as they are where the widest band fits the
     resident kernel (``tiled_fir_int8_max_slices`` of the planes' digit
-    count), else ``(planes, bias, taps)`` for the streamed kernel.  Asks
-    the library, so CUDA weights only."""
+    count), else the streamed kernel's ``(planes, bias, bands, taps)``.
+    Asks the library, so CUDA weights only."""
     D, slices = w[0].shape[0], w[2]
     if slices <= _build.load().tiled_fir_int8_max_slices(D):
         return w
-    return w[:2] + w[3:]
+    return _streamed_int8(w)
 
 
 def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
@@ -116,19 +135,29 @@ def origins(n_blocks: int, R: int, *, shift: int, num: int, den: int,
 def _check(hist, x, w, n_blocks, shift, num, den, f0, scheme, scales,
            n_accum):
     """Validate one launch; returns (P, K, R, resident): whether an int8
-    launch takes the resident kernel (its weights carry a slice count)."""
-    if scheme == "int8" and len(w) not in (3, 4):
-        raise ValueError("int8 weights must be (planes, bias, taps), or "
+    launch takes the tiled resident kernel (its weights carry a slice
+    count, an int, where the streamed kernel's carry their band
+    widths)."""
+    if scheme == "int8" and (len(w) != 4
+                             or type(w[2]) not in (int, tf.BandWidths)):
+        raise ValueError("int8 weights must be (planes, bias, bands, taps) "
+                         "for the streamed kernel, bands a BandWidths, or "
                          "(planes, bias, slices, taps) for the resident "
-                         "kernel")
+                         "one, slices an int")
     P, K, R = tf.check_launch(hist, x, w, scheme, scales, n_accum)
     if n_blocks <= 0 or n_blocks % P or shift < 0 or num <= 0 \
             or not 0 <= f0 < den:
         raise ValueError(f"n_blocks {n_blocks}, P {P}, shift {shift}, "
                          f"num/den {num}/{den}, f0 {f0}")
-    resident = scheme == "int8" and len(w) == 4
+    resident = scheme == "int8" and type(w[2]) is int
+    if scheme == "int8" and not resident \
+            and (len(w[2].slices) != P * (R // tf.ROW_TILE)
+                 or w[2].widest > K // 32):
+        raise ValueError("streamed int8 weights must carry their tap "
+                         "table's BandWidths, each band in [1, K / 32] "
+                         "K-slices")
     if resident:
-        if type(w[2]) is not int or not 0 <= w[2] <= K // 32:
+        if not 0 <= w[2] <= K // 32:
             raise ValueError(f"slices {w[2]!r}: an int in [0, K / 32]")
         if (P * R * num) % den or (P * R * num // den) % 16:
             raise ValueError(f"P*R*num / den = {P * R * num / den}: the "
@@ -160,14 +189,17 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
     resident, its CTAs' runs balanced by the bands' widths
     (``csrc/fixed_wgmma.cuh``'s ``fir_tiles``); the library decides from
     the widest band and the launch's shape, and the others stream the
-    weights with x.
+    weights with x.  A streamed int8 launch (K2b) does the same with one
+    band buffer where its digits pair up (``csrc/int8_wgmma.cuh``'s
+    ``fir_tiles``), else a CTA takes one tile.
 
     Rows of the virtual axis at or past H + T_c read as zero.  CUDA
     tensors launch the kernel on the current stream (asynchronously; a
     launch error raises); CPU tensors run the plain version.  A fixed
     launch adds 1, its CTAs, its output tiles and its band loads to the
     counters ``FIXED_LAUNCHES``, ``FIXED_CTAS``, ``FIXED_TILES`` and
-    ``FIXED_BANDS``."""
+    ``FIXED_BANDS``, a streamed int8 launch (K2b) to ``INT8_LAUNCHES``,
+    ``INT8_CTAS``, ``INT8_TILES`` and ``INT8_BANDS``."""
     P, K, R, resident = _check(hist, x, w, n_blocks, shift, num, den, f0,
                                scheme, scales, n_accum)
     if x.device.type == "cpu":
@@ -209,28 +241,40 @@ def resample_streamed(hist: torch.Tensor, x: torch.Tensor, w: tuple, *,
             err = lib.tiled_fir_int8(*head, w[0].data_ptr(), w[1].data_ptr(),
                                      len(scales), *s, w[2], *geo)
         else:
+            ctas, band_tiles = ctypes.c_int(0), ctypes.c_int(0)
             err = lib.streamed_fir_int8(*head, w[0].data_ptr(),
                                         w[1].data_ptr(), len(scales), *s,
-                                        *geo)
+                                        w[2].widest, *geo, ctypes.byref(ctas),
+                                        ctypes.byref(band_tiles))
     if err:
         raise RuntimeError("phase-tiled FIR kernel launch failed: "
                            + lib.streamed_fir_error_string(err).decode())
     launches["int8_resident" if resident else scheme] += 1
     if scheme == "fixed":
         count_fixed(ctas.value, fixed_tiles(n_blocks, R, B, n_accum),
-                    fixed_bands(w[-2], band_tiles.value, ctas.value))
+                    resident_bands(w[-2], band_tiles.value, ctas.value))
+    elif scheme == "int8" and not resident:
+        count_int8(ctas.value, int8_tiles(n_blocks, R, B),
+                   resident_bands(w[2], band_tiles.value, ctas.value))
     return y
 
 
 def fixed_tiles(n_blocks: int, R: int, B: int, n_accum: int) -> int:
     """The output tiles (block, row tile, 64-lane tile) of a fixed launch
     of ``n_blocks`` blocks of R rows over B lanes."""
-    return n_blocks * (R // tf.FIXED_ROWS[n_accum]) * -(-B // FIXED_LANES)
+    return n_blocks * (R // tf.FIXED_ROWS[n_accum]) * -(-B // TILE_LANES)
 
 
-def fixed_runs(bands: tf.BandWidths, band_tiles: int, ctas: int) -> list:
+def int8_tiles(n_blocks: int, R: int, B: int) -> int:
+    """The output tiles (block, 64-row tile, 64-lane tile) of a streamed
+    int8 launch of ``n_blocks`` blocks of R rows over B lanes."""
+    return n_blocks * (R // tf.ROW_TILE) * -(-B // TILE_LANES)
+
+
+def resident_runs(bands: tf.BandWidths, band_tiles: int, ctas: int) -> list:
     """Each CTA's run ``(first, last)`` of the output tiles of a persistent
-    fixed launch that holds its bands resident (``csrc/fixed_wgmma.cuh``'s
+    launch that holds its bands resident (the fixed n_accum 4 kernel's and
+    the streamed int8 kernel's, both ``csrc/int8_wgmma.cuh``'s
     ``balanced_run``): the tiles in band-major order, ``band_tiles`` a
     band, a tile of band b weighing its ``bands.slices[b]`` K-slices; CTA
     c takes the tiles whose work starts in ``[c W / ctas, (c + 1) W /
@@ -252,15 +296,15 @@ def fixed_runs(bands: tf.BandWidths, band_tiles: int, ctas: int) -> list:
 
 
 @functools.lru_cache(maxsize=64)
-def fixed_bands(bands: tf.BandWidths, band_tiles: int, ctas: int) -> int:
-    """The band loads of a persistent fixed launch that holds its bands
-    resident: each CTA loads each band its run (:func:`fixed_runs`)
-    meets once.  0 where ``band_tiles`` is 0: the launch walked its
-    weights streamed."""
+def resident_bands(bands: tf.BandWidths, band_tiles: int, ctas: int) -> int:
+    """The band loads of a persistent launch that holds its bands resident
+    (fixed or streamed int8): each CTA loads each band its run
+    (:func:`resident_runs`) meets once.  0 where ``band_tiles`` is 0: the
+    launch walked its weights streamed."""
     if band_tiles <= 0:
         return 0
     return sum((last - 1) // band_tiles - first // band_tiles + 1
-               for first, last in fixed_runs(bands, band_tiles, ctas)
+               for first, last in resident_runs(bands, band_tiles, ctas)
                if last > first)
 
 
@@ -271,6 +315,16 @@ def count_fixed(ctas: int, tiles: int, bands: int = 0) -> None:
     count(FIXED_CTAS, ctas)
     count(FIXED_TILES, tiles)
     count(FIXED_BANDS, bands)
+
+
+def count_int8(ctas: int, tiles: int, bands: int = 0) -> None:
+    """One streamed int8 launch of ``ctas`` CTAs over ``tiles`` output
+    tiles that loaded ``bands`` resident bands, into the port's
+    counters."""
+    count(INT8_LAUNCHES)
+    count(INT8_CTAS, ctas)
+    count(INT8_TILES, tiles)
+    count(INT8_BANDS, bands)
 
 
 def resample_streamed_reference(hist: torch.Tensor, x: torch.Tensor,

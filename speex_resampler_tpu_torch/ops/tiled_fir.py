@@ -21,7 +21,8 @@ Device weights (built once per step, never per launch; see
   taps)``: K-major and permuted as the fixed planes (below), ``slices``
   the most 32-tap K-slices a row tile's band spans (:func:`band_slices`,
   a host int), which the resident kernel needs; a step that launches the
-  streamed kernel keeps the tuple without it
+  streamed kernel carries the tap table's :class:`BandWidths` in its place
+  (``streamed_fir.int8_launch_weights``)
 - ``"split5"``: ``(planes bf16[3, P, K, R], taps)``, the weights split as
   ``w_hi + w_mid + w_lo`` (:func:`split5_weights`)
 - ``"fixed"``: ``(planes int8[2, P, C, K_pad], bias int32[P, C], coef
@@ -135,11 +136,12 @@ def band_slices(taps: np.ndarray) -> int:
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class BandWidths:
-    """The 32-tap K-slices of each (phase, row tile) band of a fixed tap
-    table (:func:`band_widths`), band-major, and the widest: what the
-    persistent fixed kernel (``csrc/fixed_wgmma.cuh``'s ``fir_tiles``)
-    needs to hold bands resident and to balance its CTAs' runs, carried
-    in the fixed device weights beside the table they were computed from.
+    """The 32-tap K-slices of each (phase, row tile) band of a fixed or
+    int8 tap table (:func:`band_widths`), band-major, and the widest: what
+    the persistent fixed and streamed int8 kernels (the ``fir_tiles`` of
+    ``csrc/fixed_wgmma.cuh`` and ``csrc/int8_wgmma.cuh``) need to hold
+    bands resident and to balance their CTAs' runs, carried in the device
+    weights beside the table they were computed from.
     Compared and hashed by identity, so a launch's checks and its band
     count (cached per weights) make no pass over the widths."""
     slices: tuple

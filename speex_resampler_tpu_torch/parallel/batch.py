@@ -798,8 +798,8 @@ def weights_from_jax(w, scheme: str, device="cuda",
       ``(planes int8[D, P, K, R], bias)`` tuple for "int8" (laid out
       K-major and permuted here, K padded to a multiple of 32:
       ``tiled_fir.device_weights``, with its slice count; a CUDA step
-      whose band is past the resident kernel's drops it,
-      ``streamed_fir.int8_launch_weights``);
+      whose band is past the resident kernel's carries its band widths
+      instead, ``streamed_fir.int8_launch_weights``);
     - "streamed": f32 [P, R, K_pad] for "highest",
       ``(planes int8[P, D, R, K_pad], bias)`` for "int8"; transposed here to
       the port's [P, K_pad, R]; for "int8" P and D are swapped to the

@@ -6,8 +6,8 @@ where their bands fit) is built here with a witness that records, for
 each CTA, its run of band-major output tiles and the bands it loaded
 (``csrc/probes/fixed_walk.cu``).  :func:`walk` launches it on a fixed
 n_accum 4 launch and returns its output with that record, which tests
-hold against the host's model of the walk: ``streamed_fir.fixed_runs``
-and ``fixed_bands``, whose count the port's counter
+hold against the host's model of the walk: ``streamed_fir.resident_runs``
+and ``resident_bands``, whose count the port's counter
 ``speex.kernel.fixed.bands`` adds up.  CPU tensors run the plain version:
 the plain output and the model's record.
 """
@@ -33,11 +33,11 @@ def _check(hist, x, w, n_blocks: int, ctas: int) -> tuple:
 def model_record(bands: tf.BandWidths, band_tiles: int,
                  ctas: int) -> torch.Tensor:
     """The host's model of the record: int32[ctas, 3] of each CTA's run
-    ``(first, last)`` (``streamed_fir.fixed_runs``) and the bands it meets,
+    ``(first, last)`` (``streamed_fir.resident_runs``) and the bands it meets,
     each loaded once."""
     rows = [(first, last, (last - 1) // band_tiles - first // band_tiles + 1
              if last > first else 0)
-            for first, last in sf.fixed_runs(bands, band_tiles, ctas)]
+            for first, last in sf.resident_runs(bands, band_tiles, ctas)]
     return torch.tensor(rows, dtype=torch.int32)
 
 
@@ -50,7 +50,7 @@ def walk_reference(hist, x, w, *, n_blocks: int, shift: int, num: int,
     y = sf.resample_streamed_reference(
         hist, x, w, n_blocks=n_blocks, shift=shift, num=num, den=den, f0=f0,
         scheme="fixed", n_accum=4)
-    band_tiles = n_blocks // P * -(-x.shape[1] // sf.FIXED_LANES)
+    band_tiles = n_blocks // P * -(-x.shape[1] // sf.TILE_LANES)
     return y, model_record(w[-2], band_tiles, ctas)
 
 

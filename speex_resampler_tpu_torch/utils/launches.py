@@ -3,9 +3,10 @@
 Every kernel wrapper adds one to its module's ``launches`` dict (by scheme,
 a gather's by ``fm.launch_key`` of scheme and form, the resident int8
 kernel's under "int8_resident") where it launches its kernel.  This module
-sets those counts to 0, reads them, the fixed kernel's CTA, tile and
-band counters and the band and stream gathers' CTA, resident CTA and tile
-counters (``utils/profiling``), and names the CUDA kernel a step
+sets those counts to 0, reads them, the fixed and streamed int8 kernels'
+CTA, tile and band counters and the band and stream gathers' CTA,
+resident CTA and tile counters (``utils/profiling``), and names the CUDA
+kernel a step
 launches, for ``chip_smoke.py`` and the tools that count a run's launches
 (``tools/fuzz_torch.py``, ``tools/soak_torch.py``).
 """
@@ -31,8 +32,8 @@ CORE_GATHER = "gather_fir_f32_kernel<float> (core rows form)"
 
 def reset_launches() -> None:
     """Every kernel module's launch counts to 0, and the port's counters
-    (``utils/profiling``: the fixed and gather launches' CTAs and
-    tiles)."""
+    (``utils/profiling``: the fixed, streamed int8 and gather launches'
+    CTAs and tiles)."""
     for module in COUNTERS.values():
         module.launches.update(dict.fromkeys(module.launches, 0))
     reset_counters()
@@ -45,6 +46,15 @@ def fixed_counts() -> tuple:
     totals = counter_totals()
     return tuple(totals.get(name, 0) for name in (
         sf.FIXED_LAUNCHES, sf.FIXED_CTAS, sf.FIXED_TILES, sf.FIXED_BANDS))
+
+
+def int8_counts() -> tuple:
+    """(launches, CTAs, output tiles, band loads) of the streamed int8
+    kernel (K2b, either geometry; not the tiled resident one) since the
+    last :func:`reset_launches`, from the port's counters."""
+    totals = counter_totals()
+    return tuple(totals.get(name, 0) for name in (
+        sf.INT8_LAUNCHES, sf.INT8_CTAS, sf.INT8_TILES, sf.INT8_BANDS))
 
 
 def gather_counts() -> tuple:
@@ -123,15 +133,15 @@ def fixed_instance(step) -> str:
 def step_kernel(step) -> tuple:
     """((launcher, launch key), kernel name) of a step's launches; a CPU
     gather step (no plan) is named by the plan a CUDA step would make.  A
-    tiled int8 step whose weights carry a slice count takes the resident
-    kernel (a CPU step always does: its choice is made only for CUDA
-    weights, ``sf.int8_launch_weights``), else the streamed one (the
+    tiled int8 step whose weights carry a slice count (an int) takes the
+    resident kernel (a CPU step always does: its choice is made only for
+    CUDA weights, ``sf.int8_launch_weights``), else the streamed one (the
     "stream" form)."""
     form, kO, key, counter = "rows", 0, step.scheme, step.kernel
     if step.kernel in ("tiled", "streamed"):
         counter = "streamed"
         if (step.kernel, step.scheme) == ("tiled", "int8"):
-            resident = len(step.w) == 4
+            resident = type(step.w[2]) is int
             form = "rows" if resident else "stream"
             key = "int8_resident" if resident else "int8"
     if step.kernel == "gather":

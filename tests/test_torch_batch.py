@@ -142,7 +142,8 @@ def test_weights_from_jax_equal_port_weights_streamed(auto_resolves, scheme):
     """The streamed geometry: JAX streams [P, R, K_pad] / [P, D, R, K_pad]
     planes; weights_from_jax(kernel="streamed") gives the port's own
     [P, K_pad, R] / K-major, permuted [D, P, R, K_pad] step weights (D = 3
-    for explicit int8, 4 for auto at q10)."""
+    for explicit int8, 4 for auto at q10) and, for int8, the same band
+    widths."""
     i, o, q, target = SLICE
     jspec = jfd.design_filter(160, 147, q)
     jstep = jax_step(jspec, jax_geo(jspec, target, use_pallas=True),
@@ -157,6 +158,9 @@ def test_weights_from_jax_equal_port_weights_streamed(auto_resolves, scheme):
                               kernel="streamed")
     assert len(got) == len(tstep.w)
     for a, b in zip(got, tstep.w):
+        if not isinstance(b, torch.Tensor):   # the int8 band widths
+            assert type(a) is type(b) and a.slices == b.slices
+            continue
         assert a.dtype == b.dtype and torch.equal(a, b)
     if tstep.scheme == "int8":
         assert got[0].shape[0] == (4 if scheme == "auto" else 3)

@@ -346,7 +346,7 @@ def test_fixed_counts_of_a_tiled_and_a_streamed_launch():
         assert len(widths.slices) * per_band == tiles
         assert widths.widest == max(widths.slices) == widest
         assert np.mean(widths.slices) == pytest.approx(mean, abs=5e-4)
-        assert sf.fixed_bands(widths, per_band, 132) == bands
+        assert sf.resident_bands(widths, per_band, 132) == bands
         sf.count_fixed(min(tiles, 132), tiles, bands)
         want.append(tiles)
     assert fixed_counts() == (2, 264, sum(want), 210 + 716)

@@ -686,12 +686,12 @@ def test_resident_walk_model(cfg, B, n_ctas):
     """The persistent CTAs' resident walk on a step's tap table, items in
     band-major order ((phase, row tile), then the blocks of the phase,
     then the lane tiles), a contiguous run a CTA (``streamed_fir.
-    fixed_runs``, balanced by K-slices): every tile is walked once; every
+    resident_runs``, balanced by K-slices): every tile is walked once; every
     x stage is copied before it is walked and at most kLead = 6 ahead; a
     band is loaded before its first tile's walk, reloaded only where
     (phase, row tile) changes, and never into the buffer a tile not yet
     through its epilogue reads; the band loads equal ``streamed_fir.
-    fixed_bands``, which the wrapper counts; and the header and the
+    resident_bands``, which the wrapper counts; and the header and the
     launcher keep what the model assumes."""
     fixed = (CSRC / "fixed_wgmma.cuh").read_text()
     for line in ("static constexpr int kTileLead = 6;",
@@ -725,7 +725,7 @@ def test_resident_walk_model(cfg, B, n_ctas):
     bands = [i // per_band for i in range(n_items)]
     stages = [int(-(-slices[divmod(b, row_tiles)] // 2)) for b in bands]
     ctas = min(n_items, n_ctas)
-    runs = tsf.fixed_runs(widths, per_band, ctas)
+    runs = tsf.resident_runs(widths, per_band, ctas)
     loads, walked = 0, []
     for events in _resident_walk(stages, bands, runs, lead):
         copied, held, readers, last_band = {}, {}, {}, None
@@ -754,7 +754,7 @@ def test_resident_walk_model(cfg, B, n_ctas):
                     r.discard(ev[1])
     assert sorted(walked) == sorted((it, s) for it, n in enumerate(stages)
                                     for s in range(n))
-    assert loads == tsf.fixed_bands(widths, per_band, ctas)
+    assert loads == tsf.resident_bands(widths, per_band, ctas)
     assert n_items == tsf.fixed_tiles(n_blocks, bspec.R, B,
                                       step.kernel_kw["n_accum"])
     # the runs balance: a CTA's K-slices within a tile's of the mean
@@ -768,16 +768,16 @@ def test_resident_walk_model(cfg, B, n_ctas):
     ((9,) * 588, 0, 132, 0), ((1, 3), 2, 2, 3), ((4,) * 20, 4, 1, 20),
     ((2, 2, 2), 7, 2, 4)])
 def test_fixed_bands_counts_each_ctas_bands(bands, band_tiles, ctas, want):
-    """``streamed_fir.fixed_bands``: the bands each CTA's balanced run
+    """``streamed_fir.resident_bands``: the bands each CTA's balanced run
     meets, summed (bands of one width: the runs of n_items / ctas tiles;
     ``(1, 3)``, two tiles a band, on two CTAs: runs [0, 3) and [3, 4), 2
     and 1 bands); 0 on the streamed walk."""
-    assert tsf.fixed_bands(ttf.BandWidths(bands), band_tiles, ctas) == want
+    assert tsf.resident_bands(ttf.BandWidths(bands), band_tiles, ctas) == want
 
 
 @pytest.mark.parametrize("seed", range(6))
 def test_fixed_runs_are_the_balanced_split(seed):
-    """``streamed_fir.fixed_runs`` (the kernel's ``balanced_run``): CTA c's
+    """``streamed_fir.resident_runs`` (the kernel's ``balanced_run``): CTA c's
     run starts at the first tile whose work before it reaches c W / G,
     tiles in band-major order weighing their band's K-slices, by brute
     force; the runs are contiguous and cover every tile."""
@@ -791,7 +791,7 @@ def test_fixed_runs_are_the_balanced_split(seed):
     work = int(before[-1])
     want = [int(np.argmax(before >= c * work // ctas)) if c < ctas else n
             for c in range(ctas + 1)]
-    runs = tsf.fixed_runs(ttf.BandWidths(bands), band_tiles, ctas)
+    runs = tsf.resident_runs(ttf.BandWidths(bands), band_tiles, ctas)
     assert runs == list(zip(want, want[1:]))
     assert runs[0][0] == 0 and runs[-1][1] == n
 
@@ -801,8 +801,8 @@ def test_fixed_walk_witness_plain_version(B, n_ctas):
     """``probes.fixed_walk`` (the served resident walk with a witness that
     records each CTA's run of tiles and its band loads; the GPU tests read
     it on the card) on CPU tensors: the plain launch's output and the
-    host's record, each CTA's run of ``streamed_fir.fixed_runs``, together
-    every tile once, and its band loads, which add up to ``fixed_bands``.
+    host's record, each CTA's run of ``streamed_fir.resident_runs``, together
+    every tile once, and its band loads, which add up to ``resident_bands``.
     The served walk tells its witness its run once ``balanced_run`` has
     set it and each band the copy cursor enters, and the probe builds the
     served walk's resident instance."""
@@ -826,12 +826,12 @@ def test_fixed_walk_witness_plain_version(B, n_ctas):
     assert torch.equal(y, tsf.resample_streamed_reference(hist, x, step.w,
                                                           **kw))
     per_band = kw["n_blocks"] // bspec.P * -(-B // 64)
-    runs = tsf.fixed_runs(step.w[-2], per_band, n_ctas)
+    runs = tsf.resident_runs(step.w[-2], per_band, n_ctas)
     assert record.dtype == torch.int32 and record.shape == (n_ctas, 3)
     assert [tuple(r[:2]) for r in record.tolist()] == runs
     assert runs[0][0] == 0 and runs[-1][1] == tsf.fixed_tiles(
         kw["n_blocks"], bspec.R, B, 4)
-    assert int(record[:, 2].sum()) == tsf.fixed_bands(step.w[-2], per_band,
+    assert int(record[:, 2].sum()) == tsf.resident_bands(step.w[-2], per_band,
                                                       n_ctas)
     with pytest.raises(ValueError):
         fixed_walk.walk(hist, x, step.w, ctas=0, **geo)

@@ -317,14 +317,14 @@ def test_fixed_resident_walk_matches_plain(cuda, cfg, kernel):
     """The persistent fixed kernel at the fixed cells' quanta, bit-identical
     to the plain version at f0 = 0 and after a flush, B = 2048, 130, 129
     (2-byte x loads) and 64, on ``tools/fixed_ablate.py``'s wrap and
-    extreme inputs; its band loads are ``fixed_bands`` of its bands'
+    extreme inputs; its band loads are ``resident_bands`` of its bands'
     widths, CTAs and the library's ``fixed_fir_band_tiles`` (n_blocks / P
     x lane tiles where at least 6 tiles share a band: every B here at q7, 7
     blocks a phase; at q10, one block a phase, B = 130, 129 and 64 walk
     streamed and load none).  Where it walks resident, the walk's witness
     (``probes.fixed_walk``: the served walk recording each CTA's run of
     tiles and its band loads on the card) gives the host's runs
-    (``fixed_runs``) and loads CTA by CTA, and the served output."""
+    (``resident_runs``) and loads CTA by CTA, and the served output."""
     from speex_resampler_tpu_torch.utils.launches import (fixed_counts,
                                                           reset_launches)
     i, o, q, _ = cfg
@@ -349,7 +349,7 @@ def test_fixed_resident_walk_matches_plain(cuda, cfg, kernel):
             share = kw["n_blocks"] // bspec.P * -(-B // 64)
             assert per_band == (share if share >= 6 else 0)
             assert per_band or q == 10 and B < 2048
-            assert bands == tsf.fixed_bands(widths, per_band, ctas)
+            assert bands == tsf.resident_bands(widths, per_band, ctas)
             assert (bands > 0) == (per_band > 0)
             if per_band:
                 walked, record = fixed_walk.walk(
@@ -397,7 +397,7 @@ def test_fixed_launch_counts_tiles_and_ctas(cuda, cfg, B, n_blocks):
     if n_blocks is None:
         assert tiles == 18816 and ctas == min(tiles, sms)
         assert counted / ctas > 1
-        assert bands == tsf.fixed_bands(step.w[-2], 32, ctas) > 0
+        assert bands == tsf.resident_bands(step.w[-2], 32, ctas) > 0
     else:
         assert tiles == 4 and ctas == tiles and bands == 0
     reset_launches()
@@ -436,7 +436,7 @@ def test_fixed_counts_of_the_cells_launches(cuda):
             ((48000, 44100, 10, 20480), 18816, 32, 716)):
         spec = tfd.design_filter(*_reduced(i, o), q, fixed_point=True)
         call(spec, tb._launch_geometry(spec, target))
-        bands = tsf.fixed_bands(step.w[-2], per_band, min(tiles, sms))
+        bands = tsf.resident_bands(step.w[-2], per_band, min(tiles, sms))
         assert fixed_counts() == (1, min(tiles, sms), tiles, bands)
         assert sms != 132 or bands == loads
     spec = tfd.design_filter(147, 160, 7)
@@ -665,6 +665,143 @@ def test_streamed_int8_edges_match_plain(cuda, scheme, D):
             torch.cuda.synchronize()
             assert tsf.launches["int8"] == before + 1
             assert int((got != want).sum()) == 0
+
+
+def _q10_int8_step(f0: int, D: int):
+    """The float 48k->44.1k q10 step at f0 ("auto": D = 4), or its weights
+    decomposed into D digit planes (``int8_weights(digits=D)``)."""
+    spec = tfd.design_filter(160, 147, 10)
+    bspec = tb._launch_geometry(spec, 20480, f0=f0)
+    step = tb.make_batched_step(spec, bspec, device="cuda")
+    assert (step.kernel, step.scheme) == ("streamed", "int8")
+    if step.w[0].shape[0] != D:
+        ptw = tb._tiled_weights(spec, f0)
+        K_pad = step.w[0].shape[-1]
+        planes, bias, scales, _ = ttf.int8_weights(
+            np.pad(ptw.w, ((0, 0), (0, K_pad - ptw.K), (0, 0))), digits=D)
+        step = dataclasses.replace(
+            step, w=tsf.device_weights_streamed((planes, bias), "int8",
+                                                "cuda"),
+            kernel_kw={**step.kernel_kw, "scales": scales})
+    return bspec, step
+
+
+@pytest.mark.parametrize("D,B", [(4, 2048), (4, 1001), (2, 2048), (4, 320)],
+                         ids=["D4-B2048", "D4-B1001", "D2-B2048",
+                              "D4-B320"])
+def test_streamed_int8_resident_walk_matches_plain(cuda, D, B):
+    """K2b at 48k->44.1k q10, f0 = 0 and 40: where its digits pair up, its
+    widest band (12 K-slices at D = 4, 11 at D = 2) fits one band buffer
+    and at least 6 tiles
+    share a band (the library's ``int8_fir_band_tiles``: 32 at B = 2048,
+    16 at B = 1001, whose x rows take 2-byte loads; B = 320 leaves 5, so
+    it streams), its persistent CTAs hold each band resident.  0 outputs
+    differ from the plain version; at D = 4 none from the launch forced
+    onto the streamed walk (the parent's walk) by the rule's input, band
+    widths whose widest band passes one buffer's room.  The port's int8
+    counters: 1 launch; min(tiles, SMs) CTAs over n_blocks x 2 x ceil(B /
+    64) tiles and ``resident_bands`` band loads where it holds bands
+    resident, else a CTA a tile and none."""
+    from speex_resampler_tpu_torch.utils.launches import (int8_counts,
+                                                          reset_launches)
+    lib = _build.load()
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    for f0 in (0, 40):
+        bspec, step = _q10_int8_step(f0, D)
+        kw = step.kernel_kw
+        widths, P = step.w[2], bspec.P
+        assert step.w[0].shape[0] == D
+        assert widths.widest == {4: 12, 2: 11}[D]
+        share = kw["n_blocks"] // P * -(-B // 64)
+        per_band = lib.int8_fir_band_tiles(D, widths.widest, kw["n_blocks"],
+                                           P, B)
+        assert per_band == (share if share >= 6 else 0)
+        assert (per_band > 0) == (B != 320)
+        tiles = tsf.int8_tiles(kw["n_blocks"], bspec.R, B)
+        hist, x = _edge_inputs(step, bspec.in_per_launch, B, B + f0)
+        reset_launches()
+        got = tsf.resample_streamed(hist, x, step.w, **kw)
+        want = tsf.resample_streamed_reference(hist, x, step.w, **kw)
+        torch.cuda.synchronize()
+        assert int((got != want).sum()) == 0, (f0, B)
+        ctas = min(tiles, sms) if per_band else tiles
+        bands = tsf.resident_bands(widths, per_band, ctas)
+        assert int8_counts() == (1, ctas, tiles, bands)
+        assert (bands > 0) == (per_band > 0)
+        if D == 4:
+            wide = ttf.BandWidths(widths.slices[:-1]
+                                  + (step.w[0].shape[3] // 32,))
+            assert lib.int8_fir_band_tiles(D, wide.widest, kw["n_blocks"],
+                                           P, B) == 0
+            reset_launches()
+            streamed = tsf.resample_streamed(
+                hist, x, (step.w[0], step.w[1], wide, step.w[3]), **kw)
+            torch.cuda.synchronize()
+            assert torch.equal(streamed, got)
+            assert int8_counts() == (1, tiles, tiles, 0)
+    reset_launches()
+
+
+# The profiled call of test_int8_counts_equal_the_launch_grid, in a process
+# of its own: run in this one ahead of the gather counts' test, its profiler
+# run left that test's traces without kernel records on the H100.
+_INT8_GRID_CALL = """
+import json, math, sys
+import torch
+sys.path.insert(0, "tests")
+from test_torch_gpu import _q10_int8_step
+from fixed_inputs import launch_inputs
+from speex_resampler_tpu_torch.utils.launches import (int8_counts,
+                                                      reset_launches)
+bspec, step = _q10_int8_step(0, 4)
+hist, x = (torch.from_numpy(a).cuda() for a in launch_inputs(
+    step, bspec.in_per_launch, 2048, seed=3, wrap=False))
+step.fn(hist, x, step.w)          # warm-up: the library is loaded
+torch.cuda.synchronize()
+reset_launches()
+acts = [torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]
+with torch.profiler.profile(activities=acts) as prof:
+    step.fn(hist, x, step.w)
+    torch.cuda.synchronize()
+prof.export_chrome_trace(sys.argv[1])
+grids = [math.prod(e["args"]["grid"]) for e in json.load(
+    open(sys.argv[1]))["traceEvents"] if e.get("cat") == "kernel"
+    and "streamed_fir_int8_kernel" in e.get("name", "")]
+print(json.dumps({"grids": grids, "counts": int8_counts(),
+                  "slices": step.w[2].slices}))
+"""
+
+
+def test_int8_counts_equal_the_launch_grid(cuda, tmp_path):
+    """One call of the float q10 step (``stage.q10``'s, D = 4) at 2048
+    lanes, profiled in a process of its own: the port's int8 counters
+    (``utils/launches.int8_counts``) give 1 launch, CTAs equal to the grid
+    the profiler's trace records for ``streamed_fir_int8_kernel``
+    (min(9,408 tiles, SMs): one persistent CTA an SM), 9,408 tiles (147
+    blocks x 2 row tiles x 32 lane tiles) and the host's band loads
+    (``resident_bands`` of the 294 bands' widths, 32 tiles a band): ~22
+    tiles a band load on 132 SMs."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parent.parent
+    out = subprocess.run([sys.executable, "-c", _INT8_GRID_CALL,
+                          str(tmp_path / "trace.json")], cwd=root,
+                         capture_output=True, text=True, timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    r = json.loads(out.stdout.strip().splitlines()[-1])
+    assert len(r["grids"]) == 1, r["grids"]
+    grid = r["grids"][0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    tiles = 147 * 2 * 32
+    assert grid == min(tiles, sms)
+    widths = ttf.BandWidths(tuple(r["slices"]))
+    bands = tsf.resident_bands(widths, 32, grid)
+    assert tuple(r["counts"]) == (1, grid, tiles, bands)
+    assert len(widths.slices) == 294 and bands > 294
+    if sms == 132:
+        assert 20 < tiles / bands < 25
 
 
 @pytest.mark.parametrize("kind", ["dense", "streamed-int8", "tiled-int8"])
@@ -933,8 +1070,10 @@ def _synthetic_int8(D, P, K, R, bands, seed, amp):
 def test_tiled_int8_band_edges_match_plain(cuda, case):
     """Synthetic tiled int8 launches.  "long": 1000-tap bands (33
     K-slices) past the resident kernel's shared memory, so the step's
-    weights drop their slice count (``int8_launch_weights``) and the
-    launch takes streamed_fir_int8_kernel.  "resident": an all-zero row
+    weights carry their band widths in place of their slice count
+    (``int8_launch_weights``) and the launch takes
+    streamed_fir_int8_kernel, on its streamed walk (such a band passes
+    its one band buffer's room too).  "resident": an all-zero row
     tile, a band ending at K, odd slice counts, bands of 1 to 8 K-slices,
     at closed-form origins of a 208-row period and f0 11.  0 mismatches
     against the plain version at B = 2048, 130, 129 and 64; the chunk's
@@ -960,7 +1099,7 @@ def test_tiled_int8_band_edges_match_plain(cuda, case):
         n_blocks, H, T, key = 15, 256, 1200, "int8_resident"
         assert w[2] <= _build.load().tiled_fir_int8_max_slices(D)
     w = tsf.int8_launch_weights(w)
-    assert len(w) == (3 if kind == "long" else 4)
+    assert (type(w[2]) is int) == (kind == "resident")
     kw = dict(n_blocks=n_blocks, scheme="int8", scales=scales, **origin)
     for B in (2048, 130, 129, 64):
         rng = np.random.default_rng(B)

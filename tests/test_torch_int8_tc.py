@@ -139,12 +139,16 @@ def test_k_major_planes_map_back(D):
     assert np.array_equal(kt[..., 5], planes.transpose(0, 1, 3, 2)
                           .reshape(D, 3, 128, 8, 32)[..., tsf.K_PERM[5]])
     assert np.array_equal(w[1].numpy(), bias)
-    assert np.array_equal(w[2].numpy(),
-                          ttf.tap_ranges((planes != 0).any(axis=0)))
+    taps = ttf.tap_ranges((planes != 0).any(axis=0))
+    assert np.array_equal(w[3].numpy(), taps)
+    assert type(w[2]) is ttf.BandWidths
+    assert w[2].slices == ttf.band_widths(taps).slices
     jax_planes = np.ascontiguousarray(planes.transpose(1, 0, 3, 2))
     got = tb.weights_from_jax((jax_planes, bias), "int8", device="cpu",
                               kernel="streamed")
-    assert all(torch.equal(a, b) for a, b in zip(got, w))
+    assert got[2].slices == w[2].slices
+    assert all(torch.equal(a, b) for a, b in zip(got[:2] + got[3:],
+                                                 w[:2] + w[3:]))
 
 
 def test_streamed_int8_guards():
@@ -215,8 +219,8 @@ def test_digit_split_follows_the_digit_count():
                  "constexpr int kWgD = kDigits ? kD / 2 : kD;",
                  "constexpr int kRegs = kDigits ? kRowTile / 2 : kAcc;",
                  "int acc[2 * kWgD][kRegs];",
-                 "store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, "
-                 "bias, scales,"):
+                 "store_tile_digits<kD>(g, c.k, c.rt, c.lane0, acc,",
+                 "bias + (size_t)c.m * g.R + c.rt * kRowTile, scales,"):
         assert line in HEADER, line
     for line in ("template <int kD, bool kDigits, bool kBlockMajor>",
                  "constexpr bool kDigits = fir::int8tc::digit_split(kD);",
@@ -368,7 +372,7 @@ def test_digit_split_register_and_exchange_maps():
                  "const float bi = b[(i % kFin) / 4 * 2 + i % 2];",
                  "const int lane = 16 * w + l / 4 + 8 * ((i / 2) % 2);",
                  "const int row = 8 * (i / 4) + 2 * (l % 4) + i % 2;",
-                 "stage_at(1), ring);",
+                 "stage_at(1), ring, [] {});",
                  "static_assert(16 * (1 + kMaxDigits / 2) * 128 * 4 <= "
                  "kStageBytes &&",
                  "store_rows<kRowTile, kThreads>(g, k, rt, lane0, 0, out);"):

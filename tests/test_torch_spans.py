@@ -27,6 +27,7 @@ from speex_resampler_tpu_torch import FleetResampler, make_stream_fn
 from speex_resampler_tpu_torch.ops import _build
 from speex_resampler_tpu_torch.ops import filter_design as fd
 from speex_resampler_tpu_torch.ops import streamed_fir as sf
+from speex_resampler_tpu_torch.ops import tiled_fir as tf
 from speex_resampler_tpu_torch.parallel.batch import (_launch_geometry,
                                                       clear_step_cache,
                                                       make_batched_step)
@@ -295,7 +296,8 @@ def test_every_served_kernel_is_a_port_kernel(source):
 def test_the_long_int8_kernel_is_the_stream_form(monkeypatch):
     """A tiled int8 step whose band is past the resident kernel's slices
     launches the streamed int8 kernel, its "stream" form: its weights
-    without their slice count (``int8_launch_weights``, with the library's
+    with their band widths in place of their slice count
+    (``int8_launch_weights``, with the library's
     slice limit stubbed here) are named ``streamed_fir_int8_kernel`` and
     counted under the one launcher's "int8"; a band within the limit
     keeps its slices and the resident kernel.  A CPU step, which launches
@@ -316,7 +318,8 @@ def test_the_long_int8_kernel_is_the_stream_form(monkeypatch):
         w = sf.int8_launch_weights(step.w)
         assert (w is step.w) == resident
         if not resident:
-            assert len(w) == 3 and w[2] is step.w[3]
+            assert len(w) == 4 and w[3] is step.w[3]
+            assert w[2].slices == tf.band_widths(step.w[3].numpy()).slices
             long = dataclasses.replace(step, w=w)
             assert launches.step_kernel(long) == (
                 ("streamed", "int8"), "streamed_fir_int8_kernel")

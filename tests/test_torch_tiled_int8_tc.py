@@ -463,8 +463,10 @@ def test_tiled_int8_guards():
     """N-major planes, K % 32 != 0, planes or bias off a 16-byte boundary,
     an impossible span and, for the resident kernel, a weight period that
     is no whole multiple of 16 rows (P R num / den) are refused before any
-    launch; the weights without their span are the streamed kernel's, the
-    same function; CPU tensors run the plain version and count no
+    launch; the weights with their band widths in the span's place are
+    the streamed kernel's, the same function; a third entry that is neither a slice count nor the
+    tap table's band widths, or widths of another table's shape or past
+    K, are refused; CPU tensors run the plain version and count no
     launch."""
     planes, bias, scales = _host_planes(3, 2, 200, 128, seed=5)
     w = ttf.device_weights((planes, bias), "int8", "cpu")
@@ -476,8 +478,9 @@ def test_tiled_int8_guards():
     before = dict(tsf.launches)
     y = tsf.resample_streamed(hist, x, w, **kw)
     assert tsf.launches == before and y.shape == (4 * 128, 4)
-    assert torch.equal(tsf.resample_streamed(hist, x, (w[0], w[1], w[3]),
-                                             **kw), y)
+    bands = ttf.band_widths(w[3].numpy())
+    assert torch.equal(tsf.resample_streamed(hist, x, (w[0], w[1], bands,
+                                                       w[3]), **kw), y)
     with pytest.raises(ValueError, match="period"):
         tsf.resample_streamed(hist, x, w, **{**kw, "num": 1, "den": 3})
     with pytest.raises((TypeError, ValueError)):
@@ -504,6 +507,12 @@ def test_tiled_int8_guards():
             tsf.resample_streamed(hist, x, bad, **kw)
     with pytest.raises(ValueError, match="int8 weights"):
         tsf.resample_streamed(hist, x, (w[0], w[1]), **kw)
+    with pytest.raises(ValueError, match="int8 weights"):
+        tsf.resample_streamed(hist, x, (w[0], w[1], w[3]), **kw)
+    for bad in (ttf.BandWidths(bands.slices[:-1]),
+                ttf.BandWidths((w[0].shape[3] // 32 + 1,) * 4)):
+        with pytest.raises(ValueError, match="BandWidths"):
+            tsf.resample_streamed(hist, x, (w[0], w[1], bad, w[3]), **kw)
     assert tsf.launches == before
 
 

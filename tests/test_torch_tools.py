@@ -142,7 +142,7 @@ def test_fixed_ablate_stage_bytes():
     copying 4 KB of x a K-slice; the streamed walk 16 KB of planes a stage
     besides, the resident walk 8 KB of planes a K-slice and 1 KB of biases
     and coefs each band load, the bands each CTA's contiguous band-major
-    run (``streamed_fir.fixed_runs``) meets."""
+    run (``streamed_fir.resident_runs``) meets."""
     fa = importlib.import_module("tools.fixed_ablate")
     bspec, step = _fixed_cpu_step(fa.cs.FIXED_FLAGSHIP)
     taps = step.w[-1].numpy()
@@ -164,7 +164,7 @@ def test_fixed_ablate_stage_bytes():
     bands = set()
     band = loads = 0
     widths = step.w[-2]
-    runs = fa.sf.fixed_runs(widths, per_band, ctas)
+    runs = fa.sf.resident_runs(widths, per_band, ctas)
     assert [r[0] for r in runs[1:]] == [r[1] for r in runs[:-1]]
     for first, last in runs:
         for b in sorted({i // per_band for i in range(first, last)}):
@@ -176,7 +176,7 @@ def test_fixed_ablate_stage_bytes():
     assert fa.stage_bytes(step, B=130, ctas=ctas) == (
         tiles, x + staged * 16384, x + band, loads)
     assert tiles == n_blocks * (bspec.R // 32) * lanes
-    assert loads == fa.sf.fixed_bands(widths, per_band, ctas)
+    assert loads == fa.sf.resident_bands(widths, per_band, ctas)
 
 
 @pytest.mark.parametrize("B,group", [(2048, 8), (136, 4), (2048, 1)])

@@ -3,7 +3,8 @@
 A variant is a copy of ``speex_resampler_tpu_torch/csrc/`` under
 ``build/<tool>/<name>/`` with text edits of one header.  Building it points
 the port's loader at the copy (``ops/_build.use_csrc``), so the wrappers
-launch the variant's kernels until the next variant is built.
+launch the variant's kernels until the next variant is built.  Before a
+tool times a variant it may hold its SASS to pins (:func:`sass_pins`).
 """
 
 from __future__ import annotations
@@ -59,3 +60,34 @@ def build(tool: str, name: str, header: str, edits: dict, keep,
     _build.load()
     return (f"build {time.time() - t0:.1f} s: "
             + ptxas(_build.build_dir(), keep))
+
+
+def sass_pins(name: str, keep, pins: dict, spills=frozenset()) -> list:
+    """The loaded variant ``name``'s kernels that ``keep`` accepts against
+    ``pins`` ({variant: {kernel: (IGMMA count, least registers)}}: the
+    IGMMA count from ``cuobjdump -sass``, registers and spills from the
+    ptxas report) and against spilling (but for the variants in
+    ``spills``); prints each and returns what is off its pins."""
+    counts = cs.gmma_counts(_build.lib_path())
+    props = {}
+    for log in sorted(_build.build_dir().glob("*.log")):
+        for kernel, lines in cs.ptxas_props(log).items():
+            text = "; ".join(lines)
+            regs = re.search(r"Used (\d+) registers", text)
+            spill = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+            props[kernel] = (int(regs.group(1)) if regs else 0, sum(spill))
+    off = []
+    for kernel, (regs, spill) in sorted(props.items()):
+        if not keep(kernel):
+            continue
+        igmma = counts.get((kernel, "IGMMA"), 0)
+        print(f"   {name}, SASS {kernel}: {regs} registers, {spill} bytes "
+              f"spilled, {igmma} IGMMA")
+        if spill and name not in spills:
+            off.append(f"{kernel} spills {spill} bytes")
+        pin = pins.get(name, {}).get(kernel)
+        if pin is not None and (igmma != pin[0] or regs < pin[1]):
+            off.append(f"{kernel}: {igmma} IGMMA, {regs} registers; pinned "
+                       f"{pin[0]} IGMMA, at least {pin[1]} registers")
+    missing = set(pins.get(name, {})) - set(props)
+    return off + [f"{kernel} not built" for kernel in sorted(missing)]

@@ -89,7 +89,6 @@ from __future__ import annotations
 import argparse
 import ctypes
 import dataclasses
-import re
 import shutil
 import subprocess
 import sys
@@ -239,7 +238,7 @@ def stage_bytes(step, B: int = cs.LANES, ctas: int = 132) -> tuple:
     ceil(s / 2) 64-tap stages, and copies x's [32 s taps x 64 lanes]
     int16.  The streamed walk copies with each stage the two planes'
     [rows * n_accum x 64 taps] int8; the resident walk copies each band
-    its CTA's run meets once (``streamed_fir.fixed_runs`` on ``ctas``
+    its CTA's run meets once (``streamed_fir.resident_runs`` on ``ctas``
     CTAs): its s K-slices of both planes and its rows * n_accum biases and
     as many coefs."""
     n_accum = step.kernel_kw["n_accum"]
@@ -256,7 +255,7 @@ def stage_bytes(step, B: int = cs.LANES, ctas: int = 132) -> tuple:
     x = walked * 32 * 64 * 2
     tiles = n_blocks * row_tiles * lanes
     per_band = n_blocks // P * lanes
-    runs = sf.fixed_runs(step.w[-2], per_band, min(tiles, ctas))
+    runs = sf.resident_runs(step.w[-2], per_band, min(tiles, ctas))
     loaded = [b for first, last in runs if last > first
               for b in range(first // per_band, (last - 1) // per_band + 1)]
     band = sum(int(slices[divmod(b, row_tiles)]) * weights
@@ -361,32 +360,10 @@ def parent_launch(lib, hist, x, step, weights):
 
 
 def sass_pins(name: str) -> list:
-    """The loaded variant's fixed kernels against :data:`PINS` (IGMMA
-    count from ``cuobjdump -sass``, registers and spills from the ptxas
-    report); prints each and returns what is off its pins."""
-    counts = cs.gmma_counts(_build.lib_path())
-    props = {}
-    for log in sorted(_build.build_dir().glob("*.log")):
-        for kernel, lines in cs.ptxas_props(log).items():
-            text = "; ".join(lines)
-            regs = re.search(r"Used (\d+) registers", text)
-            spill = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
-            props[kernel] = (int(regs.group(1)) if regs else 0, sum(spill))
-    off = []
-    for kernel, (regs, spill) in sorted(props.items()):
-        if not _fixed(kernel) or not kernel.startswith("streamed"):
-            continue
-        igmma = counts.get((kernel, "IGMMA"), 0)
-        print(f"   {name}, SASS {kernel}: {regs} registers, {spill} bytes "
-              f"spilled, {igmma} IGMMA")
-        if spill and name not in SPILLS:
-            off.append(f"{kernel} spills {spill} bytes")
-        pin = PINS.get(name, {}).get(kernel)
-        if pin is not None and (igmma != pin[0] or regs < pin[1]):
-            off.append(f"{kernel}: {igmma} IGMMA, {regs} registers; pinned "
-                       f"{pin[0]} IGMMA, at least {pin[1]} registers")
-    missing = set(PINS.get(name, {})) - set(props)
-    return off + [f"{kernel} not built" for kernel in sorted(missing)]
+    """The loaded variant's streamed fixed kernels against :data:`PINS`
+    (``_variants.sass_pins``); returns what is off its pins."""
+    return _variants.sass_pins(
+        name, lambda k: _fixed(k) and k.startswith("streamed"), PINS, SPILLS)
 
 
 def main() -> None:

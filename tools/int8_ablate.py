@@ -13,19 +13,33 @@ back and replayed from a CUDA graph (``chip_smoke.cuda_ms``), its share of
 the bound, and the mismatch count against the plain version at f0 = 0 and
 after the path's flush, B = 2048, 130, 129 (2-byte x loads) and 64, with x
 = -32768 and 32767 rows in every launch.  The launches: the tiled flagship
-(44.1 kHz -> 48 kHz q7, "auto" = int8, D = 3), with the rate of its
-shared-memory copies (:func:`stage_bytes`), and the streamed 48 kHz ->
+(44.1 kHz -> 48 kHz q7, "auto" = int8, D = 3), and the streamed 48 kHz ->
 44.1 kHz q10 ("auto", D = 4, explicit "int8", D = 3, and its weights
-decomposed into D = 2 and 1 digit planes, :func:`with_digits`).  The
-variants:
+decomposed into D = 2 and 1 digit planes, :func:`with_digits`), each with
+the rate of its shared-memory copies (:func:`stage_bytes`,
+:func:`streamed_bytes`).  Before a variant is timed, its SASS is held to
+:data:`PINS` (``_variants.sass_pins``: the int8 kernels' IGMMA count and
+least registers, and no spill); a variant off its pins is not timed and
+fails the run.  The variants:
 
 - ``as built``: the tiled kernel keeps a row tile's digit band resident
   and walks kGroup = 8 output tiles a CTA, each warpgroup its own tiles
   (64 rows, m64n64k32, for D <= 2 and for D = 3 with 16-byte x copies;
   else 32 rows of every tile) through its own ring of kRing = 4 x stages
-  (3 ahead); the streamed kernel copies 3 stages ahead (a ring of 5),
-  its warpgroups split an even D's digit planes (all 64 rows each), an
-  odd D's rows (32 each); 64-lane CTAs, one walk for all D digits;
+  (3 ahead); the streamed kernel (K2b) splits an even D's digit planes
+  between its warpgroups (all 64 rows each), an odd D's rows (32 each);
+  where the digits pair up, its widest band fits one band buffer beside
+  the x ring and at least 6 tiles share a band (the resident walk, every
+  even-D q10 launch here at B = 2048), min(tiles, SMs) persistent CTAs
+  walk K-slice-balanced runs of tiles in band-major order, each band
+  resident and x alone staged, a ring of 8 x stages copied 6 ahead across
+  tiles (``fir_tiles``); else a CTA a tile, its weights staged with x 3
+  stages ahead (a ring of 5; ``fir_tile``, the streamed walk); 64-lane
+  CTAs, one walk for all D digits;
+- ``streamed walk``: = as built, the streamed kernel on the streamed walk
+  at every launch (the parent's walk);
+- ``tile lead 4``: = as built, the resident walk's copies 4 stages ahead
+  (a ring of 6);
 - ``G 1`` / ``G 2`` / ``G 4``: = as built, kGroup output tiles a tiled
   CTA (G 1 copies the band once per tile, as the streamed kernel does);
 - ``ring 3`` / ``ring 8``: = as built, kRing x stage buffers a warpgroup
@@ -36,11 +50,14 @@ variants:
   (m64n64k32 over all 64 rows, D accumulators of 32; ``digit_split``);
 - ``32 rows a warpgroup``: = as built, every D at 32 rows of every tile a
   warpgroup (m64n32k32), each warpgroup copying the x it reads;
-- ``lead 2``: = as built, the streamed kernel's copies 2 stages ahead (a
-  ring of 4);
-- timing only (they do not compute the function): ``no epilogue`` and
-  ``row split, no epilogue`` (the streamed kernel's walk alone, each
-  split), ``wgmmas doubled``,
+- ``lead 2``: = streamed walk, its copies 2 stages ahead (a ring of 4);
+- ``resident walk alone``: = as built without the resident walk's
+  epilogue (the accumulators folded into one word that a never-taken
+  branch stores, so all D x 32 stay live);
+- timing only (they do not compute the function): ``no band copy`` (=
+  as built, the resident walk loading its run's first band alone),
+  ``no epilogue`` and ``row split, no epilogue`` (the streamed walk
+  alone, each split), ``wgmmas doubled``,
   ``one wgmma a slice`` (of 2*D), ``no ldmatrix``, ``no x copies``
   (after the first kRing stages), ``no band copy``, ``one epilogue a
   warpgroup`` and ``no global stores``, each one part of the resident
@@ -58,7 +75,8 @@ against them: all take exact integer sums and the same f32 epilogue, so
 0 outputs may differ.
 
 Exits non-zero without a CUDA device, and after all variants have run if
-any output of one differed from the plain version or the parent.
+any output of one differed from the plain version or the parent, or a
+variant's SASS was off its pins.
 """
 
 from __future__ import annotations
@@ -93,15 +111,39 @@ _MMA = ("          mma(acc[2 * d], xh[j], b, slice > 0);\n"
         "          mma(acc[2 * d + 1], xl[j], b, slice > 0);\n")
 _DIGITS = "  return digits % 2 == 0;"
 _EPI = ("  if constexpr (kDigits)\n"
-        "    store_tile_digits<kD>(g, c.k, c.rt, c.m, c.lane0, acc, bias, "
-        "scales,\n"
-        "                          stage_at(1), ring);\n"
+        "    store_tile_digits<kD>(g, c.k, c.rt, c.lane0, acc,\n"
+        "                          bias + (size_t)c.m * g.R + c.rt * "
+        "kRowTile, scales,\n"
+        "                          stage_at(1), ring, [] {});\n"
         "  else\n"
         "    store_tile<kD, kN, true>(g, c.k, c.rt, c.m, c.lane0, wg_row, "
         "acc, bias,\n"
         "                             0, scales, ring);\n")
 _NO_EPI = ('  asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: '
            '"memory");\n')
+# the launcher's rule for the resident walk, off: every launch streams
+_STREAMED = {"streamed_fir.cu": {
+    "return fir::int8tc::digit_split(kD) && per_band >= "
+    "fir::int8tc::kTileLead &&":
+        "return false && per_band >= fir::int8tc::kTileLead &&"}}
+_TILE_LEAD = "constexpr int kTileLead = 6;"
+# the resident walk's epilogue, after the tile's last stage
+_TILES_EPI = ("    store_tile_digits<kD>(g, k, rt, lt * kLanes, acc, bias_m, "
+              "scales, part,\n                          out, [&] {")
+_TILES_FOLD = """    {  // the walk alone: its sums kept, no epilogue math or stores
+      asm volatile("wgmma.wait_group.sync.aligned 0;\\n" ::: "memory");
+#pragma unroll
+      for (int j = 0; j < kD; ++j) pin(acc[j]);
+      unsigned fold = 0;
+#pragma unroll
+      for (int j = 0; j < kD; ++j)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) fold ^= (unsigned)acc[j][i];
+      if (fold == 0x9e3779b9u && g.B < 0) g.y[tid] = (int16_t)fold;
+      __syncthreads();
+    }
+    [&](auto freed) { freed(); }([&] {"""
+_BAND_LOAD = "                              slices = load_band(++b_cur, slot);"
 #: name -> (edits of the header, edits of other sources, the geometries
 #: whose launches it is timed at, computes the function)
 VARIANTS = {
@@ -114,8 +156,13 @@ VARIANTS = {
     "32 rows a warpgroup": (
         {"return kD <= 2 || (kD == 3 && kVec) ? kRowTile : kN;":
          "return kN;"}, {}, ("tiled",), True),
-    "lead 2": ({"kLead = 3;": "kLead = 2;"}, {}, ("streamed",), True),
+    "streamed walk": ({}, _STREAMED, ("streamed",), True),
+    "tile lead 4": ({_TILE_LEAD: "constexpr int kTileLead = 4;"}, {},
+                    ("streamed",), True),
+    "lead 2": ({"kLead = 3;": "kLead = 2;"}, _STREAMED, ("streamed",), True),
     "row split": ({_DIGITS: "  return false;"}, {}, ("streamed",), True),
+    "resident walk alone": ({_TILES_EPI: _TILES_FOLD}, {}, ("streamed",),
+                            False),
     # timing only: one part of the resident kernel's work doubled or
     # dropped
     "wgmmas doubled": (
@@ -140,7 +187,10 @@ VARIANTS = {
         {"    store_tile<kD, kWgN, false>(": "    if (it == n_mine - 1)\n"
                                             "      store_tile<kD, kWgN, false>("},
         {}, ("tiled",), False),
-    "no epilogue": ({_EPI: _NO_EPI}, {}, ("streamed",), False),
+    "no band copy": (
+        {_BAND_LOAD: "                              slices = band_width("
+                     "g.taps + 2 * ++b_cur);"}, {}, ("streamed",), False),
+    "no epilogue": ({_EPI: _NO_EPI}, _STREAMED, ("streamed",), False),
     "row split, no epilogue": ({_EPI: _NO_EPI, _DIGITS: "  return false;"},
                                {}, ("streamed",), False),
     "no global stores": (
@@ -156,6 +206,23 @@ LAUNCHES = [(44100, 48000, 7, 9408, "auto", None),
             (48000, 44100, 10, 20480, "int8", 2),
             (48000, 44100, 10, 20480, "int8", 1)]
 CHECK_LANES = (cs.LANES, 130, 129, 64)
+K2B = "streamed_fir_int8_kernel<{}, {}, false>"
+#: variant -> {kernel: (IGMMA count, least registers)}: the served
+#: instances (lane tiles fastest; K1b's 16-byte x copies).  K2b's even-D
+#: kernels hold both walks, 2 x D/2 IGMMA a K-slice and two slices a stage
+#: each (16 at D = 4, 8 at D = 2); its odd-D kernels the streamed walk
+#: alone (the row split: 2 x D a slice); K1b 12 at D = 3
+_SERVED = {K2B.format(4, "true"): (16, 0), K2B.format(2, "true"): (8, 0),
+           K2B.format(3, "false"): (12, 0), K2B.format(1, "false"): (4, 0),
+           "tiled_fir_int8_kernel<3, true>": (12, 0)}
+PINS = {
+    "as built": _SERVED,
+    "streamed walk": _SERVED,
+    "tile lead 4": _SERVED,
+    # D accumulators of 32 registers live through the resident walk
+    "resident walk alone": {K2B.format(4, "true"): (16, 4 * 32),
+                            K2B.format(2, "true"): (8, 2 * 32)},
+}
 #: a parent's tiled int8 entry point at a table of origins (hist, x, y,
 #: offsets, taps, planes, bias, D, s0..s3, span, geometry ..., S,
 #: n_blocks, stream)
@@ -189,6 +256,39 @@ def stage_bytes(step, B: int = cs.LANES, group: int = 8) -> tuple:
     return slices.size * groups, band + x
 
 
+def streamed_bytes(step, B: int = cs.LANES, ctas: int = 132) -> tuple:
+    """(tiles, streamed bytes, resident bytes, band loads) of one streamed
+    int8 launch's shared-memory copies at B lanes (``csrc/int8_wgmma.cuh``),
+    computed on the host from the step's tap table: an output tile's band
+    spans s K-slices from t_lo rounded down to 32.  The streamed walk
+    (``fir_tile``) copies ceil(s / 2) stages of the D digit planes' [64
+    rows x 64 taps] and 64 x rows of 64 lanes (none where the band is
+    empty); the resident walk (``fir_tiles``) the x rows of its s K-slices
+    (1 where the band is empty) and each band its CTA's run meets once
+    (``streamed_fir.resident_runs`` on ``ctas`` CTAs): its D x s K-slice
+    tiles and 64 biases."""
+    D = step.w[0].shape[0]
+    taps = step.w[-1].cpu().numpy().astype(np.int64)        # [P, tiles, 2]
+    lo, hi = taps[..., 0] // 32 * 32, taps[..., 1]
+    walked = np.where(hi > lo, -(-(hi - lo) // 32), 0)      # fir_tile's
+    resident = np.maximum(walked, 1)                        # fir_tiles'
+    P, row_tiles = walked.shape
+    n_blocks = step.kernel_kw["n_blocks"]
+    lanes = -(-B // 64)
+    phases = np.arange(n_blocks) % P
+    staged = int(-(-walked[phases] // 2).sum()) * lanes
+    streamed = staged * (D * 2 * 64 * 32 + 64 * 64 * 2)
+    x = int(resident[phases].sum()) * lanes * 32 * 64 * 2
+    tiles = n_blocks * row_tiles * lanes
+    per_band = n_blocks // P * lanes
+    widths = tf.band_widths(taps)
+    runs = sf.resident_runs(widths, per_band, min(tiles, ctas))
+    loaded = [b for first, last in runs if last > first
+              for b in range(first // per_band, (last - 1) // per_band + 1)]
+    band = sum(D * widths.slices[b] * 64 * 32 + 64 * 4 for b in loaded)
+    return tiles, streamed, x + band, len(loaded)
+
+
 def with_digits(step, spec, f0: int, D: int):
     """A streamed int8 step with its weights decomposed into D digit
     planes (``tiled_fir.int8_weights(digits=D)`` of the K_pad-padded
@@ -204,7 +304,9 @@ def with_digits(step, spec, f0: int, D: int):
 
 def parent_library(csrc: Path):
     """The library of another checkout's ``csrc/``, with the argument
-    types of its int8 entry points."""
+    types of its int8 entry points (a streamed one without the widest
+    band and the launch's counts where its source has no resident
+    walk)."""
     out = ROOT / "build" / "int8_variants" / "parent" / "libfir.so"
     shutil.rmtree(out.parent, ignore_errors=True)
     _build.use_csrc(csrc)
@@ -215,6 +317,11 @@ def parent_library(csrc: Path):
     if lib.origin_table:
         lib.tiled_fir_int8.restype, lib.tiled_fir_int8.argtypes = \
             _TABLE_SIGNATURE
+    lib.band_counts = hasattr(lib, "int8_fir_band_tiles")
+    if not lib.band_counts:
+        restype, argtypes = _build._SIGNATURES["streamed_fir_int8"]
+        lib.streamed_fir_int8.restype = restype
+        lib.streamed_fir_int8.argtypes = argtypes[:11] + argtypes[12:-2]
     print(f"parent {csrc}: " + _variants.ptxas(out.parent, _int8))
     return lib
 
@@ -236,15 +343,22 @@ def parent_launch(lib, hist, x, step):
     y = torch.empty((kw["n_blocks"] * R, B), dtype=torch.int16,
                     device="cuda")
 
+    # the streamed kernel's widest band and its two counts, where its
+    # entry point takes them
+    resident = type(step.w[2]) is int
+    widest = [] if resident or not lib.band_counts else [step.w[2].widest]
+    counts = ([ctypes.byref(ctypes.c_int(0)) for _ in range(2)]
+              if widest else [])
+
     def run():
         stream = torch.cuda.current_stream().cuda_stream
-        if len(step.w) == 4 and lib.origin_table:
+        if resident and lib.origin_table:
             err = lib.tiled_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(),
                 table.data_ptr(), taps.data_ptr(), planes.data_ptr(),
                 bias.data_ptr(), D, *s, step.w[2], H, x.shape[0], B, R, K,
                 P, P * R * kw["num"] // kw["den"], kw["n_blocks"], stream)
-        elif len(step.w) == 4:
+        elif resident:
             err = lib.tiled_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
                 planes.data_ptr(), bias.data_ptr(), D, *s, step.w[2], H,
@@ -253,12 +367,18 @@ def parent_launch(lib, hist, x, step):
         else:
             err = lib.streamed_fir_int8(
                 hist.data_ptr(), x.data_ptr(), y.data_ptr(), taps.data_ptr(),
-                planes.data_ptr(), bias.data_ptr(), D, *s, H, x.shape[0], B,
-                R, K, P, kw["n_blocks"], kw["shift"], kw["num"], kw["den"],
-                kw["f0"], stream)
+                planes.data_ptr(), bias.data_ptr(), D, *s, *widest, H,
+                x.shape[0], B, R, K, P, kw["n_blocks"], kw["shift"],
+                kw["num"], kw["den"], kw["f0"], stream, *counts)
         if err:
             raise RuntimeError(f"parent kernel launch failed ({err})")
     return run, y
+
+
+#: variants whose streamed int8 launches all take the streamed walk
+_STREAMED_VARIANTS = {name for name, (_, also, _, _) in VARIANTS.items()
+                      if also is _STREAMED} | {"row split",
+                                               "row split, no epilogue"}
 
 
 def _group(edits: dict) -> int:
@@ -319,6 +439,12 @@ def main() -> None:
             continue
         print(f"== {name}: " + _variants.build("int8_variants", name, HEADER,
                                                edits, _int8, also))
+        off = _variants.sass_pins(name, _int8, PINS)
+        if off:
+            bad.append(f"{name}: SASS off its pins: " + "; ".join(off))
+            print(f"   {name}: not timed, SASS off its pins: "
+                  + "; ".join(off))
+            continue
         for c, (label, step, inputs, want, bound) in enumerate(cases):
             if step.kernel not in kernels:
                 continue
@@ -343,6 +469,21 @@ def main() -> None:
                 ctas, nbytes = stage_bytes(step, group=_group(edits))
                 line[-1] += (f"; {ctas} CTAs copy {nbytes / 1e9:.3f} GB: "
                              f"{nbytes / ms / 1e9:.2f} TB/s")
+            else:
+                D, P = step.w[0].shape[:2]
+                sms = torch.cuda.get_device_properties(0) \
+                    .multi_processor_count
+                tiles, streamed, resident, loads = streamed_bytes(
+                    step, cs.LANES, sms)
+                if "streamed walk" in name or name in _STREAMED_VARIANTS \
+                        or not _build.load().int8_fir_band_tiles(
+                            D, step.w[2].widest, step.kernel_kw["n_blocks"],
+                            P, cs.LANES):
+                    nbytes, what = streamed, "stages of weights and x"
+                else:
+                    nbytes, what = resident, f"x stages and {loads} band loads"
+                line[-1] += (f"; {tiles} tiles copy {nbytes / 1e9:.3f} GB of "
+                             f"{what}: {nbytes / ms / 1e9:.2f} TB/s")
             print(f"   {name}, {label}: " + "; ".join(line))
     if bad:
         sys.exit("int8_ablate: outputs differ: " + "; ".join(bad))
